@@ -10,6 +10,9 @@
 //   e   = exp(s - rowmax(s))          fp32
 //   u   = bf16(e) . v                 fp32 accumulation
 //   out = bf16(u * (1 / rowsum(e)))   rowsum over the fp32 e, exact divide
+// When the op records for the backward, the rowmax and the reciprocal
+// rowsum of every row also go out, (B, H, N) fp32 each (`_fwd_kernel`'s
+// `save_stats` outputs, which attention_core_bwd.cu reads).
 //
 // One block per (image, head) holds K and V of the head in shared memory
 // (rows padded to a multiple of 16 and zero-filled); each warp takes a
@@ -55,6 +58,7 @@ struct Layout {
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                      float* __restrict__ m_out, float* __restrict__ rs_out,
                       int N, int heads, float scale) {
   constexpr int KLD = Layout<D>::KLD;
   const Layout<D> lay(N);
@@ -150,7 +154,14 @@ attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
         const int j = lane + 32 * i;
         if (j < n_pad) prow[j] = __float2bfloat16_rn(s[i]);
       }
-      if (lane == 0) r_w[r] = 1.0f / sum;
+      if (lane == 0) {
+        r_w[r] = 1.0f / sum;
+        if (m_out != nullptr && q0 + r < N) {
+          const size_t o = static_cast<size_t>(blockIdx.x) * N + q0 + r;
+          m_out[o] = m;
+          rs_out[o] = 1.0f / sum;
+        }
+      }
     }
     __syncwarp();
 
@@ -183,16 +194,16 @@ attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 }
 
 template <int D>
-int launch(const void* qkv, void* out, int B, int N, int heads, float scale,
-           cudaStream_t stream) {
+int launch(const void* qkv, void* out, void* m, void* rs, int B, int N,
+           int heads, float scale, cudaStream_t stream) {
   const size_t smem = Layout<D>(N).bytes();
   cudaError_t err = cudaFuncSetAttribute(
       attention_core_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_core_kernel<D><<<B * heads, kWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, heads,
-      scale);
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
+      static_cast<float*>(m), static_cast<float*>(rs), N, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,13 +211,16 @@ int launch(const void* qkv, void* out, int B, int N, int heads, float scale,
 
 MVT_EXPORT int mvt_attention_core_max_n() { return kMaxN; }
 
-MVT_EXPORT int mvt_attention_core(const void* qkv, void* out, int B, int N,
-                                  int heads, int D, float scale,
-                                  void* stream) {
-  if (B <= 0 || heads <= 0 || N <= 0 || N > kMaxN)
+// m and rs: (B, heads, N) fp32 rowmax and reciprocal rowsum, both null or
+// both set
+MVT_EXPORT int mvt_attention_core(const void* qkv, void* out, void* m,
+                                  void* rs, int B, int N, int heads, int D,
+                                  float scale, void* stream) {
+  if (B <= 0 || heads <= 0 || N <= 0 || N > kMaxN ||
+      (m == nullptr) != (rs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(qkv, out, B, N, heads, scale, s);
-  if (D == 32) return launch<32>(qkv, out, B, N, heads, scale, s);
+  if (D == 64) return launch<64>(qkv, out, m, rs, B, N, heads, scale, s);
+  if (D == 32) return launch<32>(qkv, out, m, rs, B, N, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,26 +1,37 @@
-// gemm_bf16_epilogue: out[M, N] = epilogue(A[M, K] @ B[K, N] + bias[N]).
+// gemm_bf16_epilogue: out[M, N] = epilogue(A[M, K] @ B[K, N] (+ bias[N])).
 //
-// The projections inside both TPU block kernels
-// (myrtle_vision_tpu/ops/fused_attention_block.py `_fwd_kernel`: QKV and
-// output projection; myrtle_vision_tpu/ops/fused_mlp.py `_fwd_kernel`:
-// fc1 and fc2).  bf16 operands, fp32 accumulation on the tensor cores
-// (WMMA 16x16x16), fp32 bias, one rounding to bf16 at the end.
-// Epilogues:
-//   0  + bias                       (QKV projection)
-//   1  + bias, then GELU with the Abramowitz & Stegun 7.1.26 erf and an
-//      exact divide (fc1; `_gelu_f32` in interpret mode)
-//   2  + bias + residual            (output projection and fc2)
-// B is read either row-major (K, N) -- the JAX (in, out) layout -- or
-// column-major, i.e. the (N, K) torch (out, in) weight as it is stored,
-// so no transposed copy of a weight is ever made.
+// The projections inside the TPU block kernels, forward and backward
+// (myrtle_vision_tpu/ops/fused_attention_block.py `_fwd_kernel` and
+// `_bwd_one_image`; myrtle_vision_tpu/ops/fused_mlp.py `_fwd_kernel` and
+// `_bwd_one_image`).  bf16 operands, fp32 accumulation on the tensor cores
+// (WMMA 16x16x16), one rounding of each output.  Epilogues:
+//   0  + bias, bf16 out                       (QKV projection)
+//   1  + bias, GELU, bf16 out                 (fc1; the Abramowitz & Stegun
+//      7.1.26 erf with an exact divide, `_gelu_f32` in interpret mode)
+//   2  + bias + residual, bf16 out            (output projection and fc2)
+//   3  fp32 out, no bias                      (d_o, dxn and the weight
+//      gradients; with split K, one partial product per blockIdx.z)
+//   4  + bias, bf16 GELU out and the fp32 GELU derivative into `aux`
+//                                             (the backward's fc1 remat,
+//                                             `_gelu_and_grad_f32`)
+//   5  x aux (fp32), bf16 out, fp32 column sums of the product per 128-row
+//      tile into `colpart`                    (dh = dg * gelu'(h), db1)
+// A is read row-major (M, K), or column-major -- the (K, M) activation as
+// it is stored -- so that a weight gradient dW^T = dY^T X reads both
+// activations in place.  B is read row-major (K, N) -- the JAX (in, out)
+// layout -- or column-major, i.e. the (N, K) torch (out, in) weight as it
+// is stored; no transposed copy is ever made.
 //
 // At ViT-S/16 shapes (M = B*197, K, N in {384, 1152, 1536}) these products
-// are compute bound (~1.2 TFLOP per batch-256 forward).  Each block of
-// eight warps owns a 128x128 output tile (each warp 64x32) and walks K in
-// 32-deep steps through a three-stage cp.async ring in shared memory, so
-// the loads of the next two steps overlap the tensor-core work of this
-// one.  The ragged M edge (197 rows per image) is zero-filled on load and
-// masked on store.  wgmma and TMA are not used yet.
+// are compute bound.  Each block of eight warps owns a 128x128 output tile
+// (each warp 64x32) and walks K in 32-deep steps through a three-stage
+// cp.async ring in shared memory, so the loads of the next two steps
+// overlap the tensor-core work of this one.  The ragged edges (197 rows
+// per image in M, and in K for a weight gradient, whose K is B*197) are
+// zero-filled on load and masked on store.  A weight gradient has few
+// output tiles (27 at 1152x384) and a long K, so it splits K over
+// blockIdx.z and the caller sums the partial products.  wgmma and TMA are
+// not used yet.
 #include <mma.h>
 
 #include <type_traits>
@@ -37,16 +48,25 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;
 constexpr int A_LD = BK + 8;   // A tile, row-major BM x BK
+constexpr int AC_LD = BM + 8;  // A tile, column-major (stored BK x BM)
 constexpr int BR_LD = BN + 8;  // B tile, row-major BK x BN
 constexpr int BC_LD = BK + 8;  // B tile, column-major (stored BN x BK)
-constexpr int kATile = BM * A_LD;                       // bf16 elements
+constexpr int kATile = (BM * A_LD > BK * AC_LD) ? BM * A_LD : BK * AC_LD;
 constexpr int kBTile = (BK * BR_LD > BN * BC_LD) ? BK * BR_LD : BN * BC_LD;
 constexpr int kStageElems = kATile + kBTile;
 constexpr int E_LD = 16 + 4;   // per-warp fp32 staging of one fragment
 constexpr size_t kSmemBytes = sizeof(bf16) * kStages * kStageElems +
-                              sizeof(float) * kWarps * 16 * E_LD;
+                              sizeof(float) * kWarps * 16 * E_LD +
+                              sizeof(float) * 2 * BN;  // column sums
 
-enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2 };
+enum Epilogue {
+  kBias = 0,
+  kBiasGelu = 1,
+  kBiasResidual = 2,
+  kF32 = 3,
+  kBiasGeluGrad = 4,
+  kMulAuxColsum = 5,
+};
 
 __device__ __forceinline__ float erf_as(float x) {
   const float s = (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f);
@@ -81,25 +101,39 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-template <bool kBColMajor>
+// one BK-deep step of both tiles; rows of K at or past k_end read as zero
+template <bool kAColMajor, bool kBColMajor>
 __device__ __forceinline__ void load_stage(bf16* stage, const bf16* A,
                                            const bf16* B, int M, int N, int K,
-                                           int m0, int n0, int k0, int tid) {
+                                           int k_end, int m0, int n0, int k0,
+                                           int tid) {
   bf16* As = stage;
   bf16* Bs = stage + kATile;
-  // K and N are multiples of 8, so a 16-byte chunk is all in or all out
-  for (int c = tid; c < BM * (BK / 8); c += kThreads) {
-    const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-    const int gr = m0 + r, gk = k0 + kc;
-    const bool ok = gr < M && gk < K;
-    cp_async16(&As[r * A_LD + kc],
-               ok ? A + static_cast<size_t>(gr) * K + gk : A, ok);
+  // a 16-byte chunk runs along K (row-major A, column-major B: K % 8 == 0
+  // and k_end a multiple of 8) or along M / N (multiples of 8), so it is
+  // all in or all out
+  if (kAColMajor) {
+    for (int c = tid; c < BK * (BM / 8); c += kThreads) {
+      const int r = c / (BM / 8), mc = (c % (BM / 8)) * 8;
+      const int gk = k0 + r, gm = m0 + mc;
+      const bool ok = gk < k_end && gm < M;
+      cp_async16(&As[r * AC_LD + mc],
+                 ok ? A + static_cast<size_t>(gk) * M + gm : A, ok);
+    }
+  } else {
+    for (int c = tid; c < BM * (BK / 8); c += kThreads) {
+      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+      const int gr = m0 + r, gk = k0 + kc;
+      const bool ok = gr < M && gk < k_end;
+      cp_async16(&As[r * A_LD + kc],
+                 ok ? A + static_cast<size_t>(gr) * K + gk : A, ok);
+    }
   }
   if (kBColMajor) {
     for (int c = tid; c < BN * (BK / 8); c += kThreads) {
       const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
       const int gn = n0 + r, gk = k0 + kc;
-      const bool ok = gn < N && gk < K;
+      const bool ok = gn < N && gk < k_end;
       cp_async16(&Bs[r * BC_LD + kc],
                  ok ? B + static_cast<size_t>(gn) * K + gk : B, ok);
     }
@@ -107,21 +141,26 @@ __device__ __forceinline__ void load_stage(bf16* stage, const bf16* A,
     for (int c = tid; c < BK * (BN / 8); c += kThreads) {
       const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
       const int gk = k0 + r, gn = n0 + nc;
-      const bool ok = gk < K && gn < N;
+      const bool ok = gk < k_end && gn < N;
       cp_async16(&Bs[r * BR_LD + nc],
                  ok ? B + static_cast<size_t>(gk) * N + gn : B, ok);
     }
   }
 }
 
-template <bool kBColMajor, int kEpi>
+template <bool kAColMajor, bool kBColMajor, int kEpi>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
             const float* __restrict__ bias, const bf16* __restrict__ residual,
-            bf16* __restrict__ out, int M, int N, int K) {
+            void* __restrict__ out, float* __restrict__ aux,
+            float* __restrict__ colpart, int M, int N, int K, int k_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* stages = reinterpret_cast<bf16*>(smem);
   float* Es = reinterpret_cast<float*>(stages + kStages * kStageElems);
+  float* colbuf = Es + kWarps * 16 * E_LD;  // 2 x BN
+  using ALayout =
+      typename std::conditional<kAColMajor, wmma::col_major,
+                                wmma::row_major>::type;
   using BLayout =
       typename std::conditional<kBColMajor, wmma::col_major,
                                 wmma::row_major>::type;
@@ -133,6 +172,8 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   const int n0 = blockIdx.x * BN;
   const int wm = (warp >> 2) * 64;  // 2 warps down M
   const int wn = (warp & 3) * 32;   // 4 warps across N
+  const int k_begin = blockIdx.z * k_split;
+  const int k_end = min(K, k_begin + k_split);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
@@ -140,12 +181,13 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  const int k_tiles = (K + BK - 1) / BK;
+  const int k_tiles = (k_end - k_begin + BK - 1) / BK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < k_tiles)
-      load_stage<kBColMajor>(stages + s * kStageElems, A, B, M, N, K, m0, n0,
-                             s * BK, tid);
+      load_stage<kAColMajor, kBColMajor>(stages + s * kStageElems, A, B, M,
+                                         N, K, k_end, m0, n0,
+                                         k_begin + s * BK, tid);
     cp_async_commit();
   }
 
@@ -156,19 +198,24 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
     __syncthreads();
     const int next = kt + kStages - 1;
     if (next < k_tiles)
-      load_stage<kBColMajor>(stages + (next % kStages) * kStageElems, A, B,
-                             M, N, K, m0, n0, next * BK, tid);
+      load_stage<kAColMajor, kBColMajor>(
+          stages + (next % kStages) * kStageElems, A, B, M, N, K, k_end, m0,
+          n0, k_begin + next * BK, tid);
     cp_async_commit();
 
     const bf16* As = stages + (kt % kStages) * kStageElems;
     const bf16* Bs = As + kATile;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a[4];
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm + 16 * i) * A_LD + kk], A_LD);
+      for (int i = 0; i < 4; ++i) {
+        if (kAColMajor)
+          wmma::load_matrix_sync(a[i], &As[kk * AC_LD + wm + 16 * i], AC_LD);
+        else
+          wmma::load_matrix_sync(a[i], &As[(wm + 16 * i) * A_LD + kk], A_LD);
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         if (kBColMajor)
@@ -186,8 +233,11 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   }
   cp_async_wait<0>();
 
-  // epilogue, one 16x16 fragment at a time through the warp's staging area
+  // epilogue, one 16x16 fragment at a time through the warp's staging area;
+  // lane handles column (lane & 15) of rows 2t + (lane >> 4)
   float* e_w = Es + warp * 16 * E_LD;
+  float col_acc[2] = {0.f, 0.f};
+  const size_t out_base = static_cast<size_t>(blockIdx.z) * M * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -201,63 +251,132 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
         const int gr = m0 + wm + 16 * i + r;
         const int gc = n0 + wn + 16 * j + c;
         if (gr < M && gc < N) {
-          float v = e_w[r * E_LD + c] + bias[gc];
+          const size_t o = static_cast<size_t>(gr) * N + gc;
+          float v = e_w[r * E_LD + c];
+          if (kEpi == kF32) {
+            static_cast<float*>(out)[out_base + o] = v;
+            continue;
+          }
+          if (kEpi == kMulAuxColsum) {
+            v *= aux[o];
+            col_acc[j] += v;
+          } else {
+            v += bias[gc];
+          }
           if (kEpi == kBiasGelu) {
             v = gelu_as(v);
           } else if (kEpi == kBiasResidual) {
-            v = __bfloat162float(residual[static_cast<size_t>(gr) * N + gc]) +
-                v;
+            v = __bfloat162float(residual[o]) + v;
+          } else if (kEpi == kBiasGeluGrad) {
+            const float cdf =
+                0.5f * (1.0f + erf_as(v / 1.4142135623730951f));
+            const float pdf = expf(-0.5f * (v * v)) * 0.3989422804014327f;
+            aux[o] = cdf + v * pdf;
+            v = v * cdf;
           }
-          out[static_cast<size_t>(gr) * N + gc] = __float2bfloat16_rn(v);
+          static_cast<bf16*>(out)[o] = __float2bfloat16_rn(v);
         }
       }
       __syncwarp();
     }
   }
+  if (kEpi == kMulAuxColsum) {
+    // the warp's 64-row sums of its 32 columns, then the two warps that
+    // share those columns, in a fixed order
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float s = col_acc[j] + __shfl_xor_sync(0xffffffffu, col_acc[j], 16);
+      if (lane < 16) colbuf[(warp >> 2) * BN + wn + 16 * j + lane] = s;
+    }
+    __syncthreads();
+    if (tid < BN && n0 + tid < N)
+      colpart[static_cast<size_t>(blockIdx.y) * N + n0 + tid] =
+          colbuf[tid] + colbuf[BN + tid];
+  }
 }
 
-template <bool kBColMajor, int kEpi>
+template <bool kAColMajor, bool kBColMajor, int kEpi>
 int launch(dim3 grid, cudaStream_t stream, const void* a, const void* b,
-           const void* bias, const void* residual, void* out, int M, int N,
-           int K) {
+           const void* bias, const void* residual, void* out, void* aux,
+           void* colpart, int M, int N, int K, int k_split) {
+  auto kernel = gemm_kernel<kAColMajor, kBColMajor, kEpi>;
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<kBColMajor, kEpi>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  gemm_kernel<kBColMajor, kEpi><<<grid, kThreads, kSmemBytes, stream>>>(
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
       static_cast<const float*>(bias), static_cast<const bf16*>(residual),
-      static_cast<bf16*>(out), M, N, K);
+      out, static_cast<float*>(aux), static_cast<float*>(colpart), M, N, K,
+      k_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBColMajor>
+int launch_epi(int epilogue, dim3 grid, cudaStream_t s, const void* a,
+               const void* b, const void* bias, const void* residual,
+               void* out, void* aux, void* colpart, int M, int N, int K) {
+  switch (epilogue) {
+    case kBias:
+      return launch<false, kBColMajor, kBias>(grid, s, a, b, bias, residual,
+                                              out, aux, colpart, M, N, K, K);
+    case kBiasGelu:
+      return launch<false, kBColMajor, kBiasGelu>(
+          grid, s, a, b, bias, residual, out, aux, colpart, M, N, K, K);
+    case kBiasResidual:
+      return launch<false, kBColMajor, kBiasResidual>(
+          grid, s, a, b, bias, residual, out, aux, colpart, M, N, K, K);
+    case kF32:
+      return launch<false, kBColMajor, kF32>(grid, s, a, b, bias, residual,
+                                             out, aux, colpart, M, N, K, K);
+    case kBiasGeluGrad:
+      return launch<false, kBColMajor, kBiasGeluGrad>(
+          grid, s, a, b, bias, residual, out, aux, colpart, M, N, K, K);
+    default:
+      return launch<false, kBColMajor, kMulAuxColsum>(
+          grid, s, a, b, bias, residual, out, aux, colpart, M, N, K, K);
+  }
 }
 
 }  // namespace
 
+// Row-major A.  `out` is bf16 except for epilogue 3 (fp32); `aux` is the
+// fp32 (M, N) GELU derivative (written by 4, read by 5); `colpart` the
+// fp32 (ceil(M / 128), N) column sums of epilogue 5.
 MVT_EXPORT int mvt_gemm_bf16(const void* a, const void* b, const void* bias,
-                             const void* residual, void* out, int M, int N,
-                             int K, int b_col_major, int epilogue,
-                             void* stream) {
+                             const void* residual, void* out, void* aux,
+                             void* colpart, int M, int N, int K,
+                             int b_col_major, int epilogue, void* stream) {
+  const bool needs_bias = epilogue != kF32 && epilogue != kMulAuxColsum;
   if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 ||
-      epilogue < kBias || epilogue > kBiasResidual ||
-      (epilogue == kBiasResidual && residual == nullptr))
+      epilogue < kBias || epilogue > kMulAuxColsum ||
+      (needs_bias && bias == nullptr) ||
+      (epilogue == kBiasResidual && residual == nullptr) ||
+      ((epilogue == kBiasGeluGrad || epilogue == kMulAuxColsum) &&
+       aux == nullptr) ||
+      (epilogue == kMulAuxColsum && colpart == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b_col_major) {
-    if (epilogue == kBias)
-      return launch<true, kBias>(grid, s, a, b, bias, residual, out, M, N, K);
-    if (epilogue == kBiasGelu)
-      return launch<true, kBiasGelu>(grid, s, a, b, bias, residual, out, M, N,
-                                     K);
-    return launch<true, kBiasResidual>(grid, s, a, b, bias, residual, out, M,
-                                       N, K);
-  }
-  if (epilogue == kBias)
-    return launch<false, kBias>(grid, s, a, b, bias, residual, out, M, N, K);
-  if (epilogue == kBiasGelu)
-    return launch<false, kBiasGelu>(grid, s, a, b, bias, residual, out, M, N,
-                                    K);
-  return launch<false, kBiasResidual>(grid, s, a, b, bias, residual, out, M,
-                                      N, K);
+  if (b_col_major)
+    return launch_epi<true>(epilogue, grid, s, a, b, bias, residual, out, aux,
+                            colpart, M, N, K);
+  return launch_epi<false>(epilogue, grid, s, a, b, bias, residual, out, aux,
+                           colpart, M, N, K);
+}
+
+// Weight gradient: out = A^T-stored x B, i.e. A stored (K, M) row-major and
+// B (K, N) row-major, K ragged, fp32 out.  K is split into chunks of
+// k_split rows (a multiple of 32); chunk z writes out[z] of (splits, M, N).
+MVT_EXPORT int mvt_gemm_bf16_at(const void* a, const void* b, void* out,
+                                int M, int N, int K, int k_split,
+                                void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || M % 8 != 0 || N % 8 != 0 ||
+      k_split <= 0 || k_split % BK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM,
+                  (K + k_split - 1) / k_split);
+  return launch<true, false, kF32>(grid, static_cast<cudaStream_t>(stream),
+                                   a, b, nullptr, nullptr, out, nullptr,
+                                   nullptr, M, N, K, k_split);
 }

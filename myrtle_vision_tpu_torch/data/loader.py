@@ -2,11 +2,13 @@
 pinned host memory, copied to the device without blocking.
 
 Port of ``DataLoader.epoch`` of myrtle_vision_tpu/data/loader.py (whose
-module imports jax) for evaluation in one process: file order, the same
-per-item generators (seed 0), the same ``drop_last`` / ``pad_last``
-semantics (``pad_last`` repeats the last item up to ``batch_size`` and
-tags the batch with ``"_n_valid"``).  Shuffling, multi-host sharding
-and gradient-accumulation layouts come with training (ROADMAP.md A3).
+module imports jax) for one process: the same item order (a permutation
+seeded by ``seed + epoch`` under ``shuffle``, file order otherwise), the
+same per-item generators, seeded by ``(seed * 100003 + epoch)`` and the
+item index, and the same ``drop_last`` / ``pad_last`` semantics
+(``pad_last`` repeats the last item up to ``batch_size`` and tags the
+batch with ``"_n_valid"``), so that both loaders yield the same pixels.
+Multi-host sharding (``process_shard``) waits for ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -24,10 +26,13 @@ _AHEAD = 3    # batches submitted ahead of the one being collated
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, device,
+                 shuffle: bool = False, seed: int = 0,
                  drop_last: bool = True, pad_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
+        self.shuffle = shuffle
+        self.seed = seed
         self.drop_last = drop_last
         self.pad_last = pad_last
 
@@ -50,9 +55,13 @@ class DataLoader:
     def epoch(self, epoch: int = 0) -> Iterator[dict]:
         """Yield batches of device tensors ("image" float32 NHWC, "label"
         int32), plus the int "_n_valid" under ``pad_last``."""
-        order = np.arange(len(self.dataset))
+        n = len(self.dataset)
+        if self.shuffle:
+            order = np.random.RandomState(self.seed + epoch).permutation(n)
+        else:
+            order = np.arange(n)
         n_batches = len(self)
-        item_seed = epoch & 0x7FFFFFFF  # the JAX loader's, at seed 0
+        item_seed = (self.seed * 100003 + epoch) & 0x7FFFFFFF
 
         def fetch(idx: int):
             rng = np.random.default_rng((item_seed, int(idx)))

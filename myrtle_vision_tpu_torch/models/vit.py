@@ -1,8 +1,9 @@
-"""Vision Transformer, classification inference, in PyTorch.
+"""Vision Transformer for classification, in PyTorch: eval and training
+forward.
 
 Port of myrtle_vision_tpu/models/vit.py for the path this package runs
-so far: ``decoder="classification"`` and ``q_format`` FP32, eval
-forward.  Parameters are fp32 and named as in the upstream reference
+so far: ``decoder="classification"``, ``q_format`` FP32, no active
+dropout.  Parameters are fp32 and named as in the upstream reference
 state dict that myrtle_vision_tpu/utils/export.py writes
 (``transformer.layers.{i}.0.fn.fn.to_qkv.weight``, ...), so
 ``load_state_dict(sd, strict=True)`` takes such a dict as it is.
@@ -10,13 +11,14 @@ Activations run in ``compute_dtype`` (bf16 by default) with fp32
 LayerNorm statistics, softmax and accumulation, rounding at the points
 the JAX model rounds.
 
-Images are NHWC, as in the JAX package.  Each block half runs as one op
-(ops/fused_attention_block.py, ops/fused_mlp.py), which dispatches on the
-activation's device: the plain PyTorch version on the CPU, the CUDA
-kernel chain on a GPU.  ``plain=True`` runs the plain versions on any
-device, as the reference the kernels are checked against.  The patch
-embedding and the decoder head are plain matrix products outside any
-kernel in both packages.
+Images are NHWC, as in the JAX package.  Each block half runs as one
+differentiable op (ops/fused_attention_block.py, ops/fused_mlp.py),
+which dispatches on the activation's device: the plain PyTorch chain on
+the CPU, the CUDA kernel chain on a GPU, forward and backward.
+``ViT.forward(img, plain=True)`` runs the plain chains on any device, as
+the reference the kernels are checked against.  The patch embedding, the
+tokens and the decoder head are plain products outside any kernel in
+both packages, and take their gradients from autograd.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from myrtle_vision_tpu_torch.ops.fused_mlp import (
 from myrtle_vision_tpu_torch.ops.interpolate import resize_bicubic
 
 MIN_NUM_PATCHES = 16  # reference vit.py:14
+# the port runs the classification decoder in the FP32 format, without
+# active dropout, for inference and training
 _NOT_PORTED = "not ported yet; see ROADMAP.md (Queue A)"
 
 
@@ -106,12 +110,16 @@ class FeedForward(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer block, FP32 format: one fused op per half
     (myrtle_vision_tpu/models/vit.py Block, the ``fuse`` branch).
-    Children ``0`` and ``1`` carry the reference's parameter names."""
+    Children ``0`` and ``1`` carry the reference's parameter names.
+    ``depth``, the model's layer count, sizes the attention op's
+    qkv-saving budget as ``model_depth`` does in the JAX Block."""
 
-    def __init__(self, dim, heads, dim_head, mlp_dim, dropout, device=None):
+    def __init__(self, dim, heads, dim_head, mlp_dim, dropout, depth,
+                 device=None):
         super().__init__()
         self.heads = heads
         self.scale = dim_head ** -0.5
+        self.depth = depth
         self.add_module("0", Residual(PreNorm(
             dim, Attention(dim, heads, dim_head, dropout, device), device)))
         self.add_module("1", Residual(PreNorm(
@@ -123,35 +131,33 @@ class Block(nn.Module):
         attn_op = fused_attention_block_plain if plain else \
             fused_attention_block
         mlp_op = fused_mlp_block_plain if plain else fused_mlp_block
-        # (out, in) torch weights, handed over as (in, out) views
+        dt = x.dtype
+        # As the JAX Block: LN scales and weights cast to the compute
+        # dtype before the op (so their gradients round there too), biases
+        # fp32; the (out, in) torch weights handed over as (in, out) views.
         x = attn_op(
-            x, attn.norm.weight, attn.norm.bias,
-            attn.fn.to_qkv.weight.t(), attn.fn.to_qkv.bias,
-            attn.fn.to_out[0].weight.t(), attn.fn.to_out[0].bias,
-            self.heads, self.scale,
+            x, attn.norm.weight.to(dt), attn.norm.bias,
+            attn.fn.to_qkv.weight.to(dt).t(), attn.fn.to_qkv.bias,
+            attn.fn.to_out[0].weight.to(dt).t(), attn.fn.to_out[0].bias,
+            self.heads, self.scale, self.depth,
         )
         return mlp_op(
-            x, ffn.norm.weight, ffn.norm.bias,
-            ffn.fn.net[0].weight.t(), ffn.fn.net[0].bias,
-            ffn.fn.net[3].weight.t(), ffn.fn.net[3].bias,
+            x, ffn.norm.weight.to(dt), ffn.norm.bias,
+            ffn.fn.net[0].weight.to(dt).t(), ffn.fn.net[0].bias,
+            ffn.fn.net[3].weight.to(dt).t(), ffn.fn.net[3].bias,
         )
 
 
 class Transformer(nn.Module):
-    """depth x Block (reference vit.py:102-161)."""
+    """depth x Block (reference vit.py:102-161); ViT.forward runs them."""
 
     def __init__(self, dim, depth, heads, dim_head, mlp_dim, dropout,
                  device=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            Block(dim, heads, dim_head, mlp_dim, dropout, device)
+            Block(dim, heads, dim_head, mlp_dim, dropout, depth, device)
             for _ in range(depth)
         )
-
-    def forward(self, x, plain: bool = False):
-        for block in self.layers:
-            x = block(x, plain)
-        return x
 
 
 class ClassificationDecoder(nn.Module):
@@ -183,10 +189,11 @@ def interpolate_pos_embedding(pos_embedding, grid_h, grid_w):
 
 class ViT(nn.Module):
     """The ViT backbone with the classification decoder (reference
-    vit.py:164-323), eval forward.
+    vit.py:164-323).
 
-    ``forward(img)``: img (B, H, W, C) float NHWC -> fp32 logits
-    (B, num_classes).  The detection parameters (``pos_embedding_det``,
+    ``forward(img, plain=False)``: img (B, H, W, C) float NHWC -> fp32
+    logits (B, num_classes), differentiable; ``plain`` selects the plain
+    PyTorch chains in place of the kernels.  The detection parameters (``pos_embedding_det``,
     ``det_tokens``) exist so that the reference state dict loads
     strictly; the classification forward does not read them.
     """
@@ -264,7 +271,7 @@ class ViT(nn.Module):
 
     def forward(self, img, plain: bool = False):
         if self.training and (self.dropout or self.emb_dropout):
-            raise NotImplementedError(f"training forward: {_NOT_PORTED}")
+            raise NotImplementedError(f"active dropout: {_NOT_PORTED}")
         b, h, w, _ = img.shape
         p = self.patch_size
         dtype = self.compute_dtype
@@ -277,7 +284,8 @@ class ViT(nn.Module):
         )
         pos = torch.cat([self.pos_embedding[:, :1], pos_patches], dim=1)
         x = x + pos.to(dtype)
-        x = self.transformer(x, plain)
+        for block in self.transformer.layers:
+            x = block(x, plain)
         return self.decoder(x).float()
 
 

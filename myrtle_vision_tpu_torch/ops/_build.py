@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 At first use the sources ``myrtle_vision_tpu_torch/csrc/*.cu`` are
-compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared library
-with a plain C interface, in ``myrtle_vision_tpu_torch/_build/`` (listed
-in ``.gitignore``), and loaded with ``ctypes``.  The library's name
+compiled by ``nvcc`` for Hopper (``sm_90a``), one process per source, all
+started together, and linked into one shared library with a plain C
+interface, in ``myrtle_vision_tpu_torch/_build/`` (listed in
+``.gitignore``), and loaded with ``ctypes``.  The library's name
 carries a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is reused.  Nothing is downloaded; only sources in
 the repository are built.
@@ -25,7 +26,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -57,28 +58,57 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmvt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs):
+    """Wait for every (command, process) and raise on the first failure;
+    returns their combined output."""
+    report = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            for _, other in procs:
+                if other.poll() is None:
+                    other.kill()
+                    other.wait()
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{stdout}\n{stderr}"
+            )
+        report.append(stdout + stderr)
+    return "".join(report)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into the build directory unless an up-to-date
-    library is there already; returns the library's path.  ``verbose``
-    adds ``-Xptxas -v`` and prints what nvcc reports (registers, shared
-    memory and spills of each kernel)."""
+    library is there already; returns the library's path.  Each source
+    compiles in its own nvcc process, all at once, then one link.
+    ``verbose`` adds ``-Xptxas -v`` and prints what nvcc reports
+    (registers, shared memory and spills of each kernel)."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS]
+    tag = f"{os.getpid()}.tmp"
+    objects, compiles = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objects.append(obj)
+    try:
+        report = _run(compiles)
+        tmp = out.with_name(f"{out.name}.{tag}")
+        link = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objects)]
+        report += _run([(link, subprocess.Popen(
+            link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))])
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
+        print(report)
     os.replace(tmp, out)
     return out
 
@@ -91,9 +121,15 @@ def lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, args in (
             ("mvt_layernorm_rows", [p, p, p, p, i, i, f, p]),
-            ("mvt_gemm_bf16", [p, p, p, p, p, i, i, i, i, i, p]),
-            ("mvt_attention_core", [p, p, i, i, i, i, f, p]),
+            ("mvt_gemm_bf16", [p, p, p, p, p, p, p, i, i, i, i, i, p]),
+            ("mvt_gemm_bf16_at", [p, p, p, i, i, i, i, p]),
+            ("mvt_attention_core", [p, p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_max_n", []),
+            ("mvt_attention_core_bwd", [p, p, p, p, p, p, i, i, i, i, f, p]),
+            ("mvt_layernorm_rows_bwd", [p, p, p, p, p, p, i, i, i, f, p]),
+            ("mvt_layernorm_rows_bwd_max_cols", []),
+            ("mvt_colsum_rows", [p, i, p, p, i, i, p, p]),
+            ("mvt_colsum_chunk", []),
         ):
             fn = getattr(handle, name)
             fn.argtypes = args

@@ -1,33 +1,47 @@
-"""The three CUDA kernels of the block halves, each beside its plain
-PyTorch version.
+"""The CUDA kernels of the block halves, forward and backward, each beside
+its plain PyTorch version.
 
 ``fused_attention_block`` is LN -> GEMM(+bias) -> attention core ->
 GEMM(+bias+residual); ``fused_mlp_block`` is LN -> GEMM(+bias, GELU) ->
-GEMM(+bias+residual).  The kernels (``csrc/``):
+GEMM(+bias+residual).  Their backwards are chains of the same kinds of
+kernel (ops/fused_attention_block.py, ops/fused_mlp.py).  The kernels
+(``csrc/``):
 
 - ``layernorm_rows``       csrc/layernorm_rows.cu
 - ``gemm_bf16_epilogue``   csrc/gemm_bf16_epilogue.cu
 - ``attention_core``       csrc/attention_core.cu
+- ``attention_core_bwd``   csrc/attention_core_bwd.cu
+- ``layernorm_rows_bwd``   csrc/layernorm_rows_bwd.cu
+- ``colsum_rows``          csrc/layernorm_rows_bwd.cu
 
 Each ``*_plain`` function rounds at the same points as its kernel and as
-the TPU kernels it stands in for (bf16 operands, fp32 accumulation and
-statistics, one rounding of each output), so the CPU tests hold it
-against the JAX package and the card holds the kernel against it.  The
-``*_cuda`` launchers take CUDA tensors only, launch on the current
-stream, raise on a refused launch and count their launches in
-:data:`LAUNCHES`.
+the TPU kernels it stands in for (operands in the activation dtype, fp32
+accumulation and statistics, one rounding of each output), so the CPU
+tests hold it against the JAX package and the card holds the kernel
+against it.  The ``*_cuda`` launchers take CUDA tensors only, launch on
+the current stream, raise on a refused launch and count their launches
+in :data:`LAUNCHES`.  :data:`PLAIN` and :data:`CUDA` gather each set
+under the same names, so that one chain of calls serves both.
 """
 from __future__ import annotations
+
+import ctypes
+import math
+from types import SimpleNamespace
 
 import torch
 
 EPS = 1e-5
 _SQRT_2 = 1.4142135623730951
-EPILOGUES = {"bias": 0, "bias_gelu": 1, "bias_residual": 2}
+_INV_SQRT_2PI = 0.3989422804014327
+EPILOGUES = {"bias": 0, "bias_gelu": 1, "bias_residual": 2, "f32": 3,
+             "bias_gelu_grad": 4, "mul_aux": 5}
+_GEMM_TILE = 128  # rows and columns of one GEMM output tile
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
-            "attention_core": 0}
+            "attention_core": 0, "attention_core_bwd": 0,
+            "layernorm_rows_bwd": 0, "colsum_rows": 0}
 
 
 def reset_launches() -> None:
@@ -67,34 +81,123 @@ def gelu_poly(h):
     return 0.5 * h * (1.0 + erf_poly(h / _SQRT_2))
 
 
-def gemm_bf16_epilogue_plain(a, b, bias, epilogue, residual=None):
-    """epilogue(a @ b + bias) rounded to a.dtype: a (..., K), b (K, N),
-    bias fp32 (N,), products of the rounded operands summed in fp32."""
-    v = torch.matmul(a.float(), b.float()) + bias.float()
+def gelu_and_grad_poly(h):
+    """(GELU(h), GELU'(h)) sharing one :func:`erf_poly`, in fp32
+    (``_gelu_and_grad_f32`` of myrtle_vision_tpu/ops/fused_mlp.py)."""
+    cdf = 0.5 * (1.0 + erf_poly(h / _SQRT_2))
+    pdf = torch.exp(-0.5 * h.square()) * _INV_SQRT_2PI
+    return h * cdf, cdf + h * pdf
+
+
+def gemm_bf16_epilogue_plain(a, b, bias, epilogue, residual=None, aux=None):
+    """epilogue(a @ b + bias): a (..., K), b (K, N), products of the
+    rounded operands summed in fp32.
+    "bias", "bias_gelu", "bias_residual": rounded to a.dtype.
+    "f32": fp32 a @ b, no bias.
+    "bias_gelu_grad": (GELU rounded to a.dtype, fp32 GELU'), both of
+    a @ b + bias.
+    "mul_aux": (a @ b * aux rounded to a.dtype, fp32 column sums of
+    a @ b * aux), no bias."""
+    v = torch.matmul(a.float(), b.float())
+    if epilogue == "f32":
+        return v
+    if epilogue == "mul_aux":
+        v = v * aux
+        return v.to(a.dtype), v.reshape(-1, v.shape[-1]).sum(0)
+    v = v + bias.float()
     if epilogue == "bias_gelu":
         v = gelu_poly(v)
     elif epilogue == "bias_residual":
         v = residual.float() + v
+    elif epilogue == "bias_gelu_grad":
+        g, gp = gelu_and_grad_poly(v)
+        return g.to(a.dtype), gp
     elif epilogue != "bias":
         raise ValueError(f"unknown epilogue {epilogue!r}")
     return v.to(a.dtype)
 
 
-def attention_core_plain(qkv, heads, scale):
+def _heads(t, heads):
+    """(B, N, 3C) -> q, k, v, each (B, H, N, D)."""
+    b, n, c3 = t.shape
+    c = c3 // 3
+    t = t.reshape(b, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+    return t[0], t[1], t[2]
+
+
+def attention_core_plain(qkv, heads, scale, stats=False):
     """(B, N, 3C) qkv rows, feature order [3][h][d] -> (B, N, C) context
     (``_attn_heads_fwd`` of myrtle_vision_tpu/ops/fused_attention_block.py
-    with the exact reciprocal of its interpret mode)."""
+    with the exact reciprocal of its interpret mode).  ``stats`` adds the
+    rowmax and the reciprocal rowsum, (B, H, N) fp32 each."""
     b, n, c3 = qkv.shape
     c = c3 // 3
-    t = qkv.reshape(b, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
-    q, k, v = t[0], t[1], t[2]  # (B, H, N, D)
+    q, k, v = _heads(qkv, heads)
     qs = (q.float() * scale).to(qkv.dtype).float()
     s = torch.matmul(qs, k.float().transpose(-1, -2))
-    e = torch.exp(s - s.amax(-1, keepdim=True))
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
     u = torch.matmul(e.to(qkv.dtype).float(), v.float())
     rs = 1.0 / e.sum(-1, keepdim=True)
-    o = (u * rs).to(qkv.dtype)
-    return o.permute(0, 2, 1, 3).reshape(b, n, c)
+    o = (u * rs).to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, n, c)
+    if stats:
+        return o, m[..., 0], rs[..., 0]
+    return o
+
+
+def attention_core_bwd_plain(qkv, d_o, m, rs, heads, scale):
+    """The per-head backward of ``_bwd_one_image``: qkv (B, N, 3C),
+    d_o = do @ Wp^T (B, N, C) fp32, the saved m and rs (B, H, N) ->
+    (dqkv (B, N, 3C) rounded to qkv.dtype, its fp32 column sums per
+    image (B, 3C))."""
+    dt = qkv.dtype
+    b, n, c3 = qkv.shape
+    q, k, v = _heads(qkv, heads)
+    qs = (q.float() * scale).to(dt).float()
+    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    e = torch.exp(s - m[..., None])
+    d_oh = d_o.reshape(b, n, heads, -1).permute(0, 2, 1, 3)
+    du = (d_oh * rs[..., None]).to(dt).float()
+    dv = torch.matmul(e.to(dt).float().transpose(-1, -2), du)
+    dp = torch.matmul(du, v.float().transpose(-1, -2))
+    r = (dp * e).sum(-1, keepdim=True)
+    dsb = (e * (dp - r * rs[..., None])).to(dt).float()
+    dq = torch.matmul(dsb, k.float()) * scale
+    dk = torch.matmul(dsb.transpose(-1, -2), qs)
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(b, n, c3)
+    return dqkv.to(dt), dqkv.sum(1)
+
+
+def layernorm_rows_bwd_plain(x, scale, dxn, do):
+    """LayerNorm backward with the residual gradient (``_bwd_one_image``):
+    x, do (rows, C) in the activation dtype, scale (C,), dxn (rows, C)
+    fp32 -> (dx rounded to x.dtype, dscale, dbias), the last two fp32
+    column sums of dxn * xhat and dxn."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + EPS)
+    xhat = (xf - mu) * rstd
+    dxhat = dxn * scale.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = do.float() + rstd * (dxhat - m1 - xhat * m2)
+    return dx.to(x.dtype), (dxn * xhat).sum(0), dxn.sum(0)
+
+
+def colsum_rows_plain(t):
+    """fp32 column sums of a (rows, cols) matrix."""
+    return t.float().sum(0)
+
+
+PLAIN = SimpleNamespace(
+    layernorm_rows=layernorm_rows_plain,
+    gemm=gemm_bf16_epilogue_plain,
+    attention_core=attention_core_plain,
+    attention_core_bwd=attention_core_bwd_plain,
+    layernorm_rows_bwd=layernorm_rows_bwd_plain,
+    colsum_rows=colsum_rows_plain,
+)
 
 
 # ------------------------------------------------------------------- CUDA
@@ -110,105 +213,257 @@ def _require(t, name, dtype=torch.bfloat16):
         raise ValueError(f"{name}: expected a 16-byte aligned tensor")
 
 
+def _require_shape(t, name, shape, dtype=torch.float32):
+    _require(t, name, dtype)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def layernorm_rows_cuda(x, scale, bias):
-    """bf16 (..., C) -> bf16 LayerNorm; scale and bias bf16 (C,)."""
+def _launch(name, fn, t, *args, launched=None):
+    """Run C entry point ``fn`` on ``t``'s device and stream, raise if it
+    returned an error, count its kernel launches: one, or the value of
+    the ``ctypes.c_int`` ``launched`` that ``fn`` writes through a
+    pointer among ``args``."""
     from myrtle_vision_tpu_torch.ops import _build
 
+    with torch.cuda.device(t.device):
+        err = fn(*args, _stream(t))
+    _build.check(err, name)
+    LAUNCHES[name] += 1 if launched is None else launched.value
+
+
+def _lib():
+    from myrtle_vision_tpu_torch.ops import _build
+
+    return _build.lib()
+
+
+def layernorm_rows_cuda(x, scale, bias):
+    """bf16 (..., C) -> bf16 LayerNorm; scale and bias bf16 (C,)."""
     cols = x.shape[-1]
     _require(x, "x")
     for t, name in ((scale, "scale"), (bias, "bias")):
-        _require(t, name)
-        if t.shape != (cols,):
-            raise ValueError(f"{name}: expected shape ({cols},)")
+        _require_shape(t, name, (cols,), torch.bfloat16)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _build.lib().mvt_layernorm_rows(
+    _launch("layernorm_rows", _lib().mvt_layernorm_rows, x,
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            x.numel() // cols, cols, EPS, _stream(x),
-        )
-    _build.check(err, "layernorm_rows")
-    LAUNCHES["layernorm_rows"] += 1
+            x.numel() // cols, cols, EPS)
     return out
 
 
-def gemm_bf16_epilogue_cuda(a, b, bias, epilogue, residual=None):
-    """a bf16 (M, K) @ b bf16 (K, N) + bias fp32 (N,), then the epilogue
-    ("bias", "bias_gelu" or "bias_residual" with residual bf16 (M, N)).
-    ``b`` is read in place when it is row-major or the transpose of a
-    row-major (N, K) weight; any other layout is copied first."""
-    from myrtle_vision_tpu_torch.ops import _build
+def _operand(t, name):
+    """(tensor to pass, column-major flag): a row-major 2-D tensor as it
+    is, the transpose of a row-major one in place; any other layout
+    raises."""
+    if t.dim() != 2:
+        raise ValueError(f"gemm: {name} must be 2-D, got {tuple(t.shape)}")
+    if t.is_contiguous():
+        return t, 0
+    if t.t().is_contiguous():
+        return t.t(), 1
+    raise ValueError(f"gemm: {name} must be row-major or the transpose of "
+                     f"a row-major tensor, got strides {t.stride()}")
 
+
+def _sms(t) -> int:
+    """Streaming multiprocessors of ``t``'s device."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _k_split(m, n, k, sms):
+    """K rows per split of a weight-gradient product: enough splits that
+    two blocks per SM have work, each at least 8 steps of 32 deep."""
+    tiles = math.ceil(m / _GEMM_TILE) * math.ceil(n / _GEMM_TILE)
+    splits = max(1, min(math.ceil(2 * sms / tiles), k // 256))
+    return math.ceil(math.ceil(k / splits) / 32) * 32
+
+
+def gemm_bf16_epilogue_cuda(a, b, bias, epilogue, residual=None, aux=None):
+    """The CUDA version of :func:`gemm_bf16_epilogue_plain` for a bf16
+    (M, K) and b bf16 (K, N), each read in place when it is row-major or
+    the transpose of a row-major tensor.  A transposed ``a`` takes the
+    weight-gradient kernel: fp32 out ("f32" only), any K, K split across
+    blocks and the partial products summed by ``colsum_rows``."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
-    if k % 8 or n % 8:
-        raise ValueError(f"gemm: K={k} and N={n} must be multiples of 8")
-    b_col_major = 0
-    if not b.is_contiguous():
-        if b.t().is_contiguous():
-            b_col_major, b = 1, b.t()
-        else:
-            b = b.contiguous()
+    a, a_col_major = _operand(a, "a")
+    b, b_col_major = _operand(b, "b")
     _require(a, "a")
     _require(b, "b")
-    _require(bias, "bias", torch.float32)
-    if bias.shape != (n,):
-        raise ValueError(f"bias: expected shape ({n},)")
-    res_ptr = None
+    lib = _lib()
+    if a_col_major:
+        if epilogue != "f32" or b_col_major:
+            raise ValueError("gemm: a transposed `a` takes a row-major `b` "
+                             "and the f32 epilogue")
+        if m % 8 or n % 8:
+            raise ValueError(f"gemm: M={m} and N={n} must be multiples of 8")
+        k_split = _k_split(m, n, k, _sms(a))
+        splits = math.ceil(k / k_split)
+        part = torch.empty((splits, m, n), dtype=torch.float32,
+                           device=a.device)
+        _launch("gemm_bf16_epilogue", lib.mvt_gemm_bf16_at, a,
+                a.data_ptr(), b.data_ptr(), part.data_ptr(), m, n, k,
+                k_split)
+        if splits == 1:
+            return part[0]
+        return colsum_rows_cuda(part.view(splits, m * n)).view(m, n)
+    if k % 8 or n % 8:
+        raise ValueError(f"gemm: K={k} and N={n} must be multiples of 8")
+    code = EPILOGUES[epilogue]
+    if epilogue not in ("f32", "mul_aux"):
+        _require_shape(bias, "bias", (n,))
+    res_ptr = aux_ptr = col_ptr = None
     if epilogue == "bias_residual":
-        _require(residual, "residual")
-        if residual.shape != (m, n):
-            raise ValueError(f"residual: expected shape ({m}, {n})")
+        _require_shape(residual, "residual", (m, n), torch.bfloat16)
         res_ptr = residual.data_ptr()
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        err = _build.lib().mvt_gemm_bf16(
-            a.data_ptr(), b.data_ptr(), bias.data_ptr(), res_ptr,
-            out.data_ptr(), m, n, k, b_col_major, EPILOGUES[epilogue],
-            _stream(a),
-        )
-    _build.check(err, "gemm_bf16_epilogue")
-    LAUNCHES["gemm_bf16_epilogue"] += 1
+    if epilogue in ("bias_gelu_grad", "mul_aux"):
+        if epilogue == "bias_gelu_grad":
+            aux = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        _require_shape(aux, "aux", (m, n))
+        aux_ptr = aux.data_ptr()
+    colpart = None
+    if epilogue == "mul_aux":
+        colpart = torch.empty((math.ceil(m / _GEMM_TILE), n),
+                              dtype=torch.float32, device=a.device)
+        col_ptr = colpart.data_ptr()
+    out = torch.empty((m, n), device=a.device,
+                      dtype=torch.float32 if epilogue == "f32" else a.dtype)
+    _launch("gemm_bf16_epilogue", lib.mvt_gemm_bf16, a,
+            a.data_ptr(), b.data_ptr(),
+            None if bias is None else bias.data_ptr(), res_ptr,
+            out.data_ptr(), aux_ptr, col_ptr, m, n, k, b_col_major, code)
+    if epilogue == "bias_gelu_grad":
+        return out, aux
+    if epilogue == "mul_aux":
+        return out, colsum_rows_cuda(colpart)
     return out
 
 
 def attention_core_max_n() -> int:
-    from myrtle_vision_tpu_torch.ops import _build
-
-    return _build.lib().mvt_attention_core_max_n()
+    return _lib().mvt_attention_core_max_n()
 
 
-def attention_core_cuda(qkv, heads, scale):
-    """bf16 (B, N, 3C) qkv rows -> bf16 (B, N, C) context; D = C/heads
-    must be 32 or 64 and N at most :func:`attention_core_max_n`."""
-    from myrtle_vision_tpu_torch.ops import _build
-
-    _require(qkv, "qkv")
-    b, n, c3 = qkv.shape
+def _head_width(c3, heads, name):
     c = c3 // 3
     d = c // heads
     if c3 != 3 * c or c != heads * d or d not in (32, 64):
         raise ValueError(
-            f"attention_core: width {c3} with {heads} heads; the kernel "
-            "takes head widths 32 and 64"
+            f"{name}: width {c3} with {heads} heads; the kernel takes head "
+            "widths 32 and 64"
         )
+    return c, d
+
+
+def _check_n(n, name):
     if n > attention_core_max_n():
         raise ValueError(
-            f"attention_core: sequence {n} exceeds the kernel's maximum "
+            f"{name}: sequence {n} exceeds the kernel's maximum "
             f"{attention_core_max_n()}; long sequences wait for the flash "
             "kernels (ROADMAP B5)"
         )
+
+
+def attention_core_cuda(qkv, heads, scale, stats=False):
+    """bf16 (B, N, 3C) qkv rows -> bf16 (B, N, C) context, and with
+    ``stats`` the rowmax and reciprocal rowsum (B, H, N) fp32; D = C/heads
+    must be 32 or 64 and N at most :func:`attention_core_max_n`."""
+    _require(qkv, "qkv")
+    b, n, c3 = qkv.shape
+    c, d = _head_width(c3, heads, "attention_core")
+    _check_n(n, "attention_core")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = _build.lib().mvt_attention_core(
-            qkv.data_ptr(), out.data_ptr(), b, n, heads, d, float(scale),
-            _stream(qkv),
-        )
-    _build.check(err, "attention_core")
-    LAUNCHES["attention_core"] += 1
+    m = rs = None
+    if stats:
+        m = torch.empty((b, heads, n), dtype=torch.float32,
+                        device=qkv.device)
+        rs = torch.empty_like(m)
+    _launch("attention_core", _lib().mvt_attention_core, qkv,
+            qkv.data_ptr(), out.data_ptr(),
+            None if m is None else m.data_ptr(),
+            None if rs is None else rs.data_ptr(), b, n, heads, d,
+            float(scale))
+    return (out, m, rs) if stats else out
+
+
+def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale):
+    """The CUDA version of :func:`attention_core_bwd_plain`."""
+    _require(qkv, "qkv")
+    b, n, c3 = qkv.shape
+    c, d = _head_width(c3, heads, "attention_core_bwd")
+    _check_n(n, "attention_core_bwd")
+    _require_shape(d_o, "d_o", (b, n, c))
+    _require_shape(m, "m", (b, heads, n))
+    _require_shape(rs, "rs", (b, heads, n))
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((b, c3), dtype=torch.float32, device=qkv.device)
+    _launch("attention_core_bwd", _lib().mvt_attention_core_bwd, qkv,
+            qkv.data_ptr(), d_o.data_ptr(), m.data_ptr(), rs.data_ptr(),
+            dqkv.data_ptr(), dbias.data_ptr(), b, n, heads, d, float(scale))
+    return dqkv, dbias
+
+
+def layernorm_rows_bwd_cuda(x, scale, dxn, do):
+    """The CUDA version of :func:`layernorm_rows_bwd_plain`: x, do bf16
+    (rows, C), scale bf16 (C,), dxn fp32 (rows, C)."""
+    _require(x, "x")
+    rows, cols = x.shape
+    if cols > _lib().mvt_layernorm_rows_bwd_max_cols():
+        raise ValueError(f"layernorm_rows_bwd: width {cols} exceeds the "
+                         "kernel's maximum")
+    _require_shape(scale, "scale", (cols,), torch.bfloat16)
+    _require_shape(dxn, "dxn", (rows, cols))
+    _require_shape(do, "do", (rows, cols), torch.bfloat16)
+    blocks = min(math.ceil(rows / 8), 4 * _sms(x))
+    dx = torch.empty_like(x)
+    part = torch.empty((blocks, 2 * cols), dtype=torch.float32,
+                       device=x.device)
+    _launch("layernorm_rows_bwd", _lib().mvt_layernorm_rows_bwd, x,
+            x.data_ptr(), scale.data_ptr(), dxn.data_ptr(), do.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), rows, cols, blocks, EPS)
+    sums = colsum_rows_cuda(part)
+    return dx, sums[:cols], sums[cols:]
+
+
+def colsum_rows_cuda(t):
+    """fp32 column sums of a bf16 or fp32 (rows, cols) matrix."""
+    _require(t, "t", t.dtype)
+    if t.dtype not in (torch.bfloat16, torch.float32) or t.dim() != 2:
+        raise TypeError("colsum_rows: expected a 2-D bf16 or fp32 tensor")
+    rows, cols = t.shape
+    lib = _lib()
+    scratch = torch.empty((math.ceil(rows / lib.mvt_colsum_chunk()), cols),
+                          dtype=torch.float32, device=t.device)
+    out = torch.empty(cols, dtype=torch.float32, device=t.device)
+    launched = ctypes.c_int(0)  # one kernel, or two above a chunk of rows
+    _launch("colsum_rows", lib.mvt_colsum_rows, t,
+            t.data_ptr(), int(t.dtype == torch.bfloat16), scratch.data_ptr(),
+            out.data_ptr(), rows, cols, ctypes.addressof(launched),
+            launched=launched)
     return out
+
+
+CUDA = SimpleNamespace(
+    layernorm_rows=layernorm_rows_cuda,
+    gemm=gemm_bf16_epilogue_cuda,
+    attention_core=attention_core_cuda,
+    attention_core_bwd=attention_core_bwd_cuda,
+    layernorm_rows_bwd=layernorm_rows_bwd_cuda,
+    colsum_rows=colsum_rows_cuda,
+)
+
+
+def for_device(t):
+    """:data:`PLAIN` for a CPU tensor, :data:`CUDA` for a CUDA tensor; any
+    other device raises."""
+    if t.device.type == "cpu":
+        return PLAIN
+    if t.device.type == "cuda":
+        return CUDA
+    raise ValueError(f"no kernel for {t.device}")

@@ -1,53 +1,54 @@
-"""Fused transformer attention block, forward:
-x + proj(MHA(qkv(LN(x)))).
+"""Fused transformer attention block: x + proj(MHA(qkv(LN(x)))), forward
+and backward.
 
-Replaces the TPU kernel ``_fwd_kernel`` of
-myrtle_vision_tpu/ops/fused_attention_block.py (launched by
-``_attn_forward``), in its plain FP32 form: no saved statistics, no
-quantization snaps, ``res_scale`` 1.
+Replaces the TPU kernels of myrtle_vision_tpu/ops/fused_attention_block.py
+in their plain FP32 form (no quantization snaps, ``res_scale`` 1): the
+forward ``_fwd_kernel`` (launched by ``_attn_forward``) and the backward
+``_bwd_kernel`` / ``_bwd_one_image`` (launched by ``_bwd_rule``).
 
 The TPU kernel runs one image's whole block half per program with the
 weights resident in VMEM; on the H100 the QKV weight alone (864 KiB in
-bf16) is far larger than an SM's shared memory, so the block half is a
-chain of three CUDA kernels with bf16 intermediates in device memory
+bf16) is far larger than an SM's shared memory, so each direction is a
+chain of CUDA kernels with intermediates in device memory
 (ops/_kernels.py):
 
-    LN (layernorm_rows) -> QKV GEMM + bias -> attention_core
-        -> output GEMM + bias + residual
+    forward   LN (layernorm_rows) -> QKV GEMM + bias -> attention_core
+                  -> output GEMM + bias + residual
+    backward  LN -> [QKV GEMM + bias, when the qkv rows were not saved]
+                  -> d_o = do Wp^T (GEMM, fp32) -> attention_core_bwd
+                  -> dWp, dWqkv (GEMM, A transposed, split K)
+                  -> dxn = dqkv Wqkv^T (GEMM, fp32) -> layernorm_rows_bwd
+              and the bias sums through colsum_rows.
 
-At ViT-S/16 (N=197, C=384, batch 256) the two projections are ~90% of
-the FLOPs and bound by tensor-core throughput; the intermediates (xn,
-qkv, context: ~200 MB per layer at batch 256) cost device-memory
-bandwidth that a fused prologue/epilogue design would save -- later
-work.  This design keeps each kernel simple and right first.
+Where the TPU kernel accumulates the weight gradients across its
+sequential grid, each is here one product over the B*N rows.  When it
+records for the backward, the forward also keeps the context, the
+softmax rowmax and reciprocal rowsum and, when ``save_acts`` of the JAX
+package (ops/acts_policy.py, reused by import so both packages decide
+alike) affords it, the qkv rows; otherwise the backward recomputes them.
+Each direction rounds where the TPU kernel rounds, so the plain PyTorch
+chain (CPU tensors) and the kernel chain (CUDA tensors) differ only in
+the order of fp32 sums.
 
-Weights keep the JAX layout: wqkv (C, 3C) with feature order
-[3][h][d], wp (C, C), i.e. (in, out).  A transposed view of a torch
-(out, in) weight is read in place by the GEMM.
+Weights keep the JAX layout: wqkv (C, 3C) with feature order [3][h][d],
+wp (C, C), i.e. (in, out).  A transposed view of a torch (out, in)
+weight is read in place, and its gradient is returned as the same kind
+of view.  Gradients come back in each input's dtype, as the JAX rule
+casts them.
 """
 from __future__ import annotations
 
 import torch
 
+from myrtle_vision_tpu.ops.acts_policy import save_acts
 from myrtle_vision_tpu_torch.ops import _kernels as K
 
 
-def fused_attention_block_plain(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp,
-                                heads, scale):
-    """The plain PyTorch version, rounding where the kernels round: LN
-    scale/bias, weights and bp in x.dtype, bqkv in fp32."""
-    dt = x.dtype
-    xn = K.layernorm_rows_plain(x, scale_ln.to(dt), bias_ln.to(dt))
-    qkv = K.gemm_bf16_epilogue_plain(xn, wqkv.to(dt), bqkv.float(), "bias")
-    ctx = K.attention_core_plain(qkv, heads, scale)
-    return K.gemm_bf16_epilogue_plain(
-        ctx, wp.to(dt), bp.to(dt).float(), "bias_residual", residual=x
-    )
-
-
-def _fused_attention_block_cuda(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp,
-                                heads, scale):
-    if x.dtype != torch.bfloat16:
+def _forward(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
+             record):
+    """The chain; with ``record`` also (ctx, m, rs, qkv) for the
+    backward."""
+    if kern is K.CUDA and x.dtype != torch.bfloat16:
         raise TypeError(
             f"fused_attention_block on CUDA takes bf16 activations, got "
             f"{x.dtype} (compute_dtype float32 has no kernel yet)"
@@ -55,39 +56,115 @@ def _fused_attention_block_cuda(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp,
     dt = x.dtype
     b, n, c = x.shape
     cl = wp.shape[0]
-    x = x.contiguous()
-    xn = K.layernorm_rows_cuda(
-        x, scale_ln.to(dt).contiguous(), bias_ln.to(dt).contiguous()
-    )
-    qkv = K.gemm_bf16_epilogue_cuda(
-        xn.view(b * n, c), wqkv.to(dt), bqkv.float().contiguous(), "bias"
-    )
-    ctx = K.attention_core_cuda(qkv.view(b, n, 3 * cl), heads, scale)
-    out = K.gemm_bf16_epilogue_cuda(
-        ctx.view(b * n, cl), wp.to(dt), bp.to(dt).float().contiguous(),
-        "bias_residual", residual=x.view(b * n, c),
-    )
-    return out.view(b, n, c)
-
-
-def fused_attention_block(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
-                          scale):
-    """x + proj(MHA(qkv(LN(x)))) over (B, N, C), the argument order of
-    the JAX function.  A CPU tensor takes the plain version; a CUDA
-    tensor the kernel chain, or an error; any other device an error."""
-    kind = x.device.type
-    if kind == "cpu":
-        return fused_attention_block_plain(
-            x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale
-        )
-    if kind != "cuda":
-        raise ValueError(f"fused_attention_block: no kernel for {x.device}")
-    out = _fused_attention_block_cuda(
-        x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale
-    )
-    fused_attention_block.launches += 1
+    x2 = x.contiguous().view(b * n, c)
+    xn = kern.layernorm_rows(x2, scale_ln.to(dt).contiguous(),
+                             bias_ln.to(dt).contiguous())
+    qkv = kern.gemm(xn, wqkv.to(dt), bqkv.float().contiguous(), "bias")
+    qkv3 = qkv.view(b, n, 3 * cl)
+    if record:
+        ctx, m, rs = kern.attention_core(qkv3, heads, scale, stats=True)
+    else:
+        ctx = kern.attention_core(qkv3, heads, scale)
+    out = kern.gemm(ctx.view(b * n, cl), wp.to(dt),
+                    bp.to(dt).float().contiguous(), "bias_residual",
+                    residual=x2).view(b, n, c)
+    if record:
+        return out, (ctx, m, rs, qkv3)
     return out
 
 
-# kernel-chain launches since the last reset (CUDA tensors only)
+def _backward(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
+              qkv, heads, scale):
+    """``_bwd_one_image`` over the batch -> (dx, dscale, dbias, dwqkv,
+    dbqkv, dwp, dbp), weight gradients in the (in, out) shape."""
+    dt = x.dtype
+    b, n, c = x.shape
+    cl = wp.shape[0]
+    rows = b * n
+    x2 = x.contiguous().view(rows, c)
+    do2 = do.to(dt).contiguous().view(rows, c)
+    s_dt = scale_ln.to(dt).contiguous()
+    wqkv, wp = wqkv.to(dt), wp.to(dt)
+    xn = kern.layernorm_rows(x2, s_dt, bias_ln.to(dt).contiguous())
+    if qkv is None:
+        qkv = kern.gemm(xn, wqkv, bqkv.float().contiguous(), "bias")
+    d_o = kern.gemm(do2, wp.t(), None, "f32")
+    dqkv, dbq_image = kern.attention_core_bwd(
+        qkv.view(b, n, 3 * cl), d_o.view(b, n, cl), m, rs, heads, scale)
+    dqkv = dqkv.view(rows, 3 * cl)
+    dbq = kern.colsum_rows(dbq_image)
+    # weight gradients in the torch (out, in) layout, returned as views
+    dwp = kern.gemm(do2.t(), ctx.view(rows, cl), None, "f32").t()
+    dbp = kern.colsum_rows(do2)
+    dwqkv = kern.gemm(dqkv.t(), xn, None, "f32").t()
+    dxn = kern.gemm(dqkv, wqkv.t(), None, "f32")
+    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s_dt, dxn, do2)
+    return dx.view(b, n, c), dscale, dbias, dwqkv, dbq, dwp, dbp
+
+
+class _FusedAttentionBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
+                scale, depth):
+        b, n, _ = x.shape
+        cl = wp.shape[0]
+        out, (attn, m, rs, qkv) = _forward(
+            kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
+            record=True)
+        if not save_acts(b * n * 3 * cl * x.element_size(), depth):
+            qkv = None
+        ctx.save_for_backward(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, attn,
+                              m, rs, qkv)
+        ctx.kern, ctx.heads, ctx.scale = kern, heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, attn, m, rs, qkv = \
+            ctx.saved_tensors
+        grads = _backward(ctx.kern, do, x, scale_ln, bias_ln, wqkv, bqkv,
+                          wp, attn, m, rs, qkv, ctx.heads, ctx.scale)
+        if ctx.kern is K.CUDA:
+            fused_attention_block.bwd_launches += 1
+        inputs = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
+        return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)),
+                None, None, None)
+
+
+def _apply(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
+           depth):
+    tensors = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _FusedAttentionBlock.apply(kern, *tensors, heads, scale,
+                                          depth)
+    return _forward(kern, *tensors, heads, scale, record=False)
+
+
+def fused_attention_block_plain(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp,
+                                heads, scale, depth=None):
+    """The plain PyTorch chain on any device, forward and backward: the
+    reference the kernels are held against.  It rounds where the kernels
+    round: LN scale/bias, weights and bp in x.dtype, bqkv in fp32."""
+    return _apply(K.PLAIN, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
+                  scale, depth)
+
+
+def fused_attention_block(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
+                          scale, depth=None):
+    """x + proj(MHA(qkv(LN(x)))) over (B, N, C), the argument order of
+    the JAX function, differentiable.  A CPU tensor takes the plain
+    chain; a CUDA tensor the kernel chain, forward and backward, or an
+    error; any other device an error.  ``depth``, the model's layer
+    count, sizes the qkv-saving budget as in the JAX package."""
+    kern = K.for_device(x)
+    out = _apply(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
+                 scale, depth)
+    if kern is K.CUDA:
+        fused_attention_block.launches += 1
+    return out
+
+
+# kernel-chain launches since the last reset (CUDA tensors only), forward
+# and backward
 fused_attention_block.launches = 0
+fused_attention_block.bwd_launches = 0

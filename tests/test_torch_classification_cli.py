@@ -1,6 +1,7 @@
 """The port's evaluation CLI end to end on a tiny synthetic dataset,
 against the JAX package's eval forward on the same checkpoint; and the
 port's boundaries: no CUDA fallback, no jax import."""
+import ast
 import json
 import os
 import subprocess
@@ -158,3 +159,19 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 15
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py drives the port through its own modules: it imports
+    nothing of the JAX package directly."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    ours = {n for n in names if n.split(".")[0].startswith("myrtle")}
+    assert ours and all(n.split(".")[0] == "myrtle_vision_tpu_torch"
+                        for n in ours), sorted(ours)

@@ -29,6 +29,10 @@ pytestmark = pytest.mark.cuda
 RTOL = 2.0 ** -6
 KERNEL_ATOL = 2.0 ** -7
 CHAIN_ATOL = 2.0 ** -6
+# A weight or bias gradient is a sum over the B*N rows; a flipped bf16
+# intermediate moves one of its terms, so its bar adds 2^-8 of the
+# tensor's largest magnitude to the per-element term (chip_smoke.py).
+SUM_ATOL = 2.0 ** -8
 
 
 @pytest.fixture
@@ -45,6 +49,25 @@ def close(got, ref, atol=KERNEL_ATOL):
                                atol=atol)
 
 
+def close_grads(got, ref, names):
+    """Block gradients: dx (bf16) per element with the chain bar, the
+    parameter gradients with the sum bar."""
+    for g, r, name in zip(got, ref, names):
+        atol = (CHAIN_ATOL if name == "x"
+                else SUM_ATOL * max(1.0, float(r.abs().max())))
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        torch.testing.assert_close(g.float(), r.float(), rtol=RTOL,
+                                   atol=atol, msg=name)
+
+
+def grads_of(fn, x, params, extra, do):
+    leaves = [x.detach().clone().requires_grad_()] + [
+        p.detach().clone().requires_grad_() for p in params]
+    fn(*leaves, *extra).backward(do)
+    torch.cuda.synchronize()
+    return [t.grad for t in leaves]
+
+
 def block(c, hid, b, n, seed, dev):
     rng = np.random.RandomState(seed)
 
@@ -53,12 +76,13 @@ def block(c, hid, b, n, seed, dev):
             (rng.randn(*shape) * std).astype(np.float32)
         ).to(dev, dtype)
 
-    # std-1 biases, so that a dropped bias shows in the output
+    # std-1 biases, so that a dropped bias shows in the output; weights
+    # (in, out) views of torch (out, in) tensors, as the ViT block passes
     x = t(b, n, c, dtype=torch.bfloat16)
-    attn = [1 + t(c, std=0.1), t(c, std=0.1), t(c, 3 * c, std=c ** -0.5),
-            t(3 * c), t(c, c, std=c ** -0.5), t(c)]
-    mlp = [1 + t(c, std=0.1), t(c, std=0.1), t(c, hid, std=c ** -0.5),
-           t(hid), t(hid, c, std=hid ** -0.5), t(c)]
+    attn = [1 + t(c, std=0.1), t(c, std=0.1), t(3 * c, c, std=c ** -0.5).t(),
+            t(3 * c), t(c, c, std=c ** -0.5).t(), t(c)]
+    mlp = [1 + t(c, std=0.1), t(c, std=0.1), t(hid, c, std=c ** -0.5).t(),
+           t(hid), t(c, hid, std=hid ** -0.5).t(), t(c)]
     return x, attn, mlp
 
 
@@ -123,6 +147,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="multiples of 8"):
         K.gemm_bf16_epilogue_cuda(a, torch.zeros_like(a).t(),
                                   torch.zeros(4, device=dev), "bias")
+    w = torch.zeros(16, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="b must be row-major"):
+        K.gemm_bf16_epilogue_cuda(w[:4, :8].contiguous(), w[:8, ::2],
+                                  torch.zeros(16, device=dev), "bias")
     x, attn, _ = block(64, 128, 1, 17, 0, dev)
     with pytest.raises(TypeError, match="bf16"):
         fused_attention_block(x.float(), *attn, 2, 0.125)
@@ -143,3 +171,144 @@ def test_model_runs_through_the_kernels(dev):
             fused_mlp_block.launches - before[1]) == (3, 3)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, rtol=0, atol=2.0 ** -4)
+
+
+@pytest.mark.parametrize("save", ["0", "1"])
+@pytest.mark.parametrize("c,heads,hid,b,n", SHAPES)
+def test_attention_backward_matches_plain(dev, c, heads, hid, b, n, save,
+                                          monkeypatch):
+    monkeypatch.setenv("MVT_SAVE_ACTS", save)
+    x, attn, _ = block(c, hid, b, n, n + 2, dev)
+    do = torch.randn(x.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(n)).to(x.dtype)
+    extra = ((heads, (c // heads) ** -0.5))
+    before = fused_attention_block.bwd_launches
+    got = grads_of(fused_attention_block, x, attn, extra, do)
+    assert fused_attention_block.bwd_launches == before + 1
+    ref = grads_of(fused_attention_block_plain, x, attn, extra, do)
+    close_grads(got, ref, ["x", "scale", "bias", "wqkv", "bqkv", "wp", "bp"])
+
+
+@pytest.mark.parametrize("c,heads,hid,b,n", SHAPES)
+def test_mlp_backward_matches_plain(dev, c, heads, hid, b, n):
+    x, _, mlp = block(c, hid, b, n, n + 3, dev)
+    do = torch.randn(x.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(n)).to(x.dtype)
+    before = fused_mlp_block.bwd_launches
+    got = grads_of(fused_mlp_block, x, mlp, (), do)
+    assert fused_mlp_block.bwd_launches == before + 1
+    ref = grads_of(fused_mlp_block_plain, x, mlp, (), do)
+    close_grads(got, ref, ["x", "scale", "bias", "w1", "b1", "w2", "b2"])
+
+
+@pytest.mark.parametrize("m", [150, 197 * 2 + 5, 64 * 197])
+def test_gemm_weight_gradient_ragged_k(dev, m):
+    """dW^T = A^T B with K = B*N rows (150 = 3 x 50: not a multiple of
+    8), split over blocks at the larger K."""
+    rng = np.random.RandomState(m)
+    a = torch.from_numpy(rng.randn(m, 136).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    b = torch.from_numpy(rng.randn(m, 72).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    got = K.gemm_bf16_epilogue_cuda(a.t(), b, None, "f32")
+    ref = K.gemm_bf16_epilogue_plain(a.t(), b, None, "f32")
+    close(got, ref, SUM_ATOL * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("col_major", [False, True])
+def test_gemm_backward_epilogues(dev, col_major):
+    rng = np.random.RandomState(4)
+    m, k, n = 197 * 2 + 5, 72, 136
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+
+    a = t(m, k)
+    w = t(n, k).t() if col_major else t(k, n)
+    bias = t(n, dtype=torch.float32)
+    close(K.gemm_bf16_epilogue_cuda(a, w, None, "f32"),
+          K.gemm_bf16_epilogue_plain(a, w, None, "f32"))
+    for got, ref in zip(
+            K.gemm_bf16_epilogue_cuda(a, w, bias, "bias_gelu_grad"),
+            K.gemm_bf16_epilogue_plain(a, w, bias, "bias_gelu_grad")):
+        close(got, ref)
+    aux = t(m, n, dtype=torch.float32)
+    got = K.gemm_bf16_epilogue_cuda(a, w, None, "mul_aux", aux=aux)
+    ref = K.gemm_bf16_epilogue_plain(a, w, None, "mul_aux", aux=aux)
+    close(got[0], ref[0])
+    close(got[1], ref[1], SUM_ATOL * float(ref[1].abs().max()))
+
+
+@pytest.mark.parametrize("b,n,d", [(2, 197, 64), (3, 17, 64), (2, 37, 64),
+                                   (3, 50, 32)])
+def test_attention_core_stats_and_backward(dev, b, n, d):
+    heads = 2
+    gen = torch.Generator(dev).manual_seed(n)
+    qkv = torch.randn(b, n, 3 * heads * d, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    got = K.attention_core_cuda(qkv, heads, d ** -0.5, stats=True)
+    ref = K.attention_core_plain(qkv, heads, d ** -0.5, stats=True)
+    for g, r in zip(got, ref):
+        close(g, r)
+    d_o = torch.randn(b, n, heads * d, device=dev, generator=gen)
+    got = K.attention_core_bwd_cuda(qkv, d_o, ref[1], ref[2], heads,
+                                    d ** -0.5)
+    want = K.attention_core_bwd_plain(qkv, d_o, ref[1], ref[2], heads,
+                                      d ** -0.5)
+    close(got[0], want[0], CHAIN_ATOL)
+    close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+
+
+@pytest.mark.parametrize("rows", [50, 64 * 197])
+def test_layernorm_bwd_and_colsum(dev, rows):
+    rng = np.random.RandomState(rows)
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+
+    x, do, scale = t(rows, 384), t(rows, 384), t(384)
+    dxn = t(rows, 384, dtype=torch.float32)
+    got = K.layernorm_rows_bwd_cuda(x, scale, dxn, do)
+    ref = K.layernorm_rows_bwd_plain(x, scale, dxn, do)
+    close(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        close(g, r, SUM_ATOL * float(r.abs().max()))
+    for src in (do, dxn):
+        want = K.colsum_rows_plain(src)
+        before = K.LAUNCHES["colsum_rows"]
+        close(K.colsum_rows_cuda(src), want,
+              SUM_ATOL * float(want.abs().max()))
+        # one kernel up to a chunk of 64 rows, then a second pass
+        assert K.LAUNCHES["colsum_rows"] - before == (1 if rows <= 64 else 2)
+
+
+def test_model_trains_through_the_kernels(dev):
+    kw = dict(decoder="classification", image_size=96, patch_size=16,
+              num_classes=7, dim=128, depth=3, heads=2, mlp_dim=256)
+    model = ViT(**kw, device=dev)
+    img = torch.from_numpy(
+        np.random.RandomState(1).uniform(-1, 1, (4, 96, 96, 3)).astype(
+            np.float32)).to(dev)
+    labels = torch.tensor([0, 3, 6, 2], device=dev)
+    grads = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        before = (fused_attention_block.bwd_launches,
+                  fused_mlp_block.bwd_launches)
+        loss = torch.nn.functional.cross_entropy(model(img, plain=plain),
+                                                 labels)
+        loss.backward()
+        after = (fused_attention_block.bwd_launches,
+                 fused_mlp_block.bwd_launches)
+        assert (after[0] - before[0], after[1] - before[1]) == \
+            ((0, 0) if plain else (3, 3))
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    for name, ref in grads[1].items():
+        got = grads[0][name]
+        assert torch.isfinite(got).all(), name
+        torch.testing.assert_close(
+            got, ref, rtol=2.0 ** -4,
+            atol=2.0 ** -4 * max(float(ref.abs().max()), 1e-3), msg=name)
