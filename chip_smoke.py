@@ -9,7 +9,10 @@ Phases, each ending in one line of output:
   3. kernels  each CUDA kernel, forward and backward, and each block-half
               chain, forward and backward, against its plain PyTorch
               version on the card, bf16, ViT-S/16 shapes (B=64, N=197,
-              C=384, 6 heads, MLP 1536) and a ragged case (B=3, N=50)
+              C=384, 6 heads, MLP 1536) and a ragged case (B=3, N=50);
+              the converted-INT8 kernels and block-half chains at the same
+              shapes, fp32 activations and int8 weights, with the sites of
+              a real calibration of the block
   4. main     the ViT-S/16 eval CLI on a synthetic RESISC-layout dataset
               with seeded random weights: launch counts, logits of the
               kernel path against the plain path
@@ -19,9 +22,16 @@ Phases, each ending in one line of output:
               every block's forward and backward, finite losses, the first
               step's loss and gradients against the plain path, and the
               written checkpoint through the eval CLI
-  6. timing   CUDA-event times at batch 256: each kernel, forward and
-              backward, and each chain against its plain version, the
-              whole-model forward and one train step in images per second
+  6. quantize the PTQ CLI (test_quantize) on vit_small.json in PyTorchINT8
+              with phase 4's weights: 2 calibration batches, convert, the
+              converted checkpoint, the test split through the INT8
+              kernels; launch counts, the converted logits against the
+              plain path, the checkpoint's size
+  7. timing   CUDA-event times at batch 256: each kernel, forward and
+              backward, and each chain against its plain version and,
+              where one exists, a PyTorch call of the same function (a
+              yardstick the port never calls); the whole-model forward (bf16
+              and converted INT8) and one train step in images per second
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -80,14 +90,55 @@ ARGMAX_BAR = 0.99
 # bf16 intermediates of 12 blocks' forward and backward add up in it.
 LOSS_BAR = 2.0 ** -6
 GRAD_BAR = 2.0 ** -4
+# Converted INT8, kernel against plain version: the integer products are
+# exact in both and every other step runs the same fp32 operations in the
+# same order, but for the order of fp32 sums (LayerNorm statistics,
+# softmax rowsum, the 3-pass products) and PyTorch's own rewrites of the
+# plain GELU (a divide by a constant becomes a multiply); such a
+# difference moves an output only where it flips a rint.  Bar, per
+# output: at least 99.9% of the elements identical and none more than 2
+# steps of its grid apart (the site's scale, or 1 for int8).  In a
+# block-half chain one flipped intermediate moves the whole row of the
+# product after it and, through a key or value, the attention of every
+# query of its image, so a chain may differ in up to 1% of its elements
+# (measured 0.48% at the ragged B=3, N=50, H100 80GB HBM3, 700 W); and a
+# one-step flip on a projection's output grid (site 3) reaches the
+# residual sum's grid (site 4) as up to ceil(s3 / s4) + 1 steps (measured
+# 2 in block 0 of the converted model), so a chain's bar is 4 steps.  The
+# converted model is held stage by stage, each
+# stage of the kernel path fed the plain path's input: the embedding to
+# the kernel bar, each block and the head to the chain bar.  End to end,
+# flips compound over 12 quantized blocks through the cls token, which
+# attends to every token (measured: logits 10 steps of the head's grid
+# apart, 0.1006 against a largest logit of 1.397, 27% of them identical,
+# argmax on 117 of 120 images, random weights on synthetic images giving
+# chance-level top-1 margins; H100 80GB HBM3, 700 W): bar 2^-3 of the
+# largest logit, argmax agreement on at least 95% of the images.
+INT8_SAME = 0.999
+INT8_CHAIN_SAME = 0.99
+INT8_STEPS = 2
+INT8_CHAIN_STEPS = 4
+INT8_LOGIT_BAR = 2.0 ** -3
+INT8_ARGMAX_BAR = 0.95
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense), for the least
+# time the card could take: bytes at 3.35 TB/s, operations at the peak of
+# their type (fp32 outside the tensor cores for the elementwise kernels).
+HBM_BYTES_PER_S = 3.35e12
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 # the TPU kernels these CUDA kernels replace (file:line of the Pallas body)
 TPU_ATTN = "myrtle_vision_tpu/ops/fused_attention_block.py:196"
 TPU_MLP = "myrtle_vision_tpu/ops/fused_mlp.py:159"
 TPU_ATTN_BWD = "myrtle_vision_tpu/ops/fused_attention_block.py:370"
 TPU_MLP_BWD = "myrtle_vision_tpu/ops/fused_mlp.py:215"
+TPU_INT8_ATTN = "myrtle_vision_tpu/ops/fused_int8_block.py:161"
+TPU_INT8_MLP = "myrtle_vision_tpu/ops/fused_int8_block.py:207"
 CSRC = "myrtle_vision_tpu_torch/csrc/"
 ALL_FOUR = f"{TPU_ATTN}; {TPU_MLP}; {TPU_ATTN_BWD}; {TPU_MLP_BWD}"
+INT8_BOTH = f"{TPU_INT8_ATTN}; {TPU_INT8_MLP}"
+# per kernel: its source and the TPU kernels it replaces; the first six
+# run on the FP32 path (phases 4 and 5), the last three on the converted
+# INT8 path (phase 6)
 KERNELS = {
     "layernorm_rows": (CSRC + "layernorm_rows.cu", ALL_FOUR),
     "gemm_bf16_epilogue": (CSRC + "gemm_bf16_epilogue.cu", ALL_FOUR),
@@ -97,7 +148,39 @@ KERNELS = {
                            f"{TPU_ATTN_BWD}; {TPU_MLP_BWD}"),
     "colsum_rows": (CSRC + "layernorm_rows_bwd.cu",
                     f"{TPU_ATTN_BWD}; {TPU_MLP_BWD}"),
+    "layernorm_quant_rows": (CSRC + "layernorm_quant_rows.cu", INT8_BOTH),
+    "gemm_s8_epilogue": (CSRC + "gemm_s8_epilogue.cu", INT8_BOTH),
+    "attention_core_f32": (CSRC + "attention_core_f32.cu", TPU_INT8_ATTN),
 }
+INT8_KERNELS = ("layernorm_quant_rows", "gemm_s8_epilogue",
+                "attention_core_f32")
+# each TPU kernel: the chain that replaces it and the kernel cases that
+# chain runs once per call, for its bound and yardstick sums
+_G = "gemm_bf16_epilogue"
+TPU_CHAINS = {
+    "K1": ("fused_attention_block", [
+        "layernorm_rows", f"{_G}[qkv,bias]", "attention_core[stats]",
+        f"{_G}[proj,bias+residual]"]),
+    "K2": ("fused_attention_block[bwd,saved qkv]", [
+        "layernorm_rows", f"{_G}[d_o=do.Wp^T,f32]", "attention_core_bwd", "colsum_rows[dbqkv]",
+        f"{_G}[dWp=do^T.ctx,A^T]", "colsum_rows[dbp,db2]",
+        f"{_G}[dWqkv=dqkv^T.xn,A^T]", f"{_G}[dxn=dqkv.Wqkv^T,f32]",
+        "layernorm_rows_bwd"]),
+    "K3": ("fused_mlp_block", [
+        "layernorm_rows", f"{_G}[fc1,bias+gelu]", f"{_G}[fc2,bias+residual]"]),
+    "K4": ("fused_mlp_block[bwd]", [
+        "layernorm_rows", f"{_G}[fc1 remat,bias+gelu+gelu']",
+        f"{_G}[dW2=do^T.g,A^T]", "colsum_rows[dbp,db2]",
+        f"{_G}[dh=do.W2^T*gelu',colsum]", f"{_G}[dW1=dh^T.xn,A^T]",
+        f"{_G}[dxn=dh.W1^T,f32]", "layernorm_rows_bwd"]),
+    "K9": ("int8_attention_block", [
+        "layernorm_quant_rows", "gemm_s8_epilogue[qkv,requant]",
+        "attention_core_f32", "gemm_s8_epilogue[out,requant+residual+requant]"]),
+    "K10": ("int8_mlp_block", [
+        "layernorm_quant_rows", "gemm_s8_epilogue[fc1,requant+gelu+quant]",
+        "gemm_s8_epilogue[fc2,requant+residual+requant]"]),
+}
+FP32_KERNELS = tuple(k for k in KERNELS if k not in INT8_KERNELS)
 
 
 def check(ok, message):
@@ -121,33 +204,41 @@ def power_line():
     return out[0]
 
 
-def reset_counts():
-    from myrtle_vision_tpu_torch.ops import _kernels as K
+def _ops():
     from myrtle_vision_tpu_torch.ops.fused_attention_block import (
         fused_attention_block,
     )
+    from myrtle_vision_tpu_torch.ops.fused_int8_block import (
+        int8_attention_block,
+        int8_mlp_block,
+    )
     from myrtle_vision_tpu_torch.ops.fused_mlp import fused_mlp_block
 
+    return (fused_attention_block, fused_mlp_block), (int8_attention_block,
+                                                      int8_mlp_block)
+
+
+def reset_counts():
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
     K.reset_launches()
-    for op in (fused_attention_block, fused_mlp_block):
+    fp32_ops, int8_ops = _ops()
+    for op in fp32_ops:
         op.launches = op.bwd_launches = 0
+    for op in int8_ops:
+        op.launches = 0
 
 
 def read_counts():
-    """(kernel launches, {op: (forward, backward) launches})."""
+    """(kernel launches, {op: (forward, backward) launches}), the INT8
+    ops (forward only) counted as (forward, 0)."""
     from myrtle_vision_tpu_torch.ops import _kernels as K
-    from myrtle_vision_tpu_torch.ops.fused_attention_block import (
-        fused_attention_block,
-    )
-    from myrtle_vision_tpu_torch.ops.fused_mlp import fused_mlp_block
 
     torch.cuda.synchronize()
-    return dict(K.LAUNCHES), {
-        "fused_attention_block": (fused_attention_block.launches,
-                                  fused_attention_block.bwd_launches),
-        "fused_mlp_block": (fused_mlp_block.launches,
-                            fused_mlp_block.bwd_launches),
-    }
+    fp32_ops, int8_ops = _ops()
+    ops = {op.__name__: (op.launches, op.bwd_launches) for op in fp32_ops}
+    ops.update({op.__name__: (op.launches, 0) for op in int8_ops})
+    return dict(K.LAUNCHES), ops
 
 
 def phase_device():
@@ -237,16 +328,46 @@ def as_tuple(v):
     return v if isinstance(v, tuple) else (v,)
 
 
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def cost(moved, ops, peak, library=None):
+    """What bounds a case: bytes it must move (each input read once, each
+    output written once), operations of type ``peak``, and a thunk of one
+    PyTorch call of the same function (a yardstick) or None."""
+    return {"bytes": moved, "ops": ops, "peak": peak, "library": library}
+
+
+def bound(c):
+    """(least ms on the card, what bounds it) of a cost."""
+    t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = c["ops"] / PEAK[c["peak"]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def heads_of(qkv3):
+    """q, k, v (B, H, N, D) of (B, N, 3C) rows, contiguous."""
+    b, n, c3 = qkv3.shape
+    t = qkv3.view(b, n, 3, HEADS, c3 // 3 // HEADS).permute(2, 0, 3, 1, 4)
+    return [u.contiguous() for u in t]
+
+
 def kernel_cases(x, attn, mlp, do):
     """(name, kernel thunk, plain thunk, bar kind of each output, launches
-    per block in a train step) for each CUDA kernel at the shapes and
-    operand layouts the main path gives it, inputs prepared with the
+    per block in a train step, cost) for each CUDA kernel at the shapes
+    and operand layouts the main path gives it, inputs prepared with the
     plain versions the way the ops prepare them: the forward GEMMs read
     the weights column-major (the (in, out) view of a torch (out, in)
     weight), the backward data-gradient GEMMs row-major.  The other
     layout of each is a check case with count 0 (", other layout").  A
     weight-gradient GEMM's time includes the sum of its split-K partial
-    products."""
+    products.  The yardsticks: ``F.layer_norm`` and its backward,
+    ``torch.matmul`` of the same bf16 operands, the flash attention of
+    ``F.scaled_dot_product_attention`` forward and backward, and
+    ``torch.sum``."""
+    import torch.nn.functional as F
+
     from myrtle_vision_tpu_torch.ops import _kernels as K
 
     bf = torch.bfloat16
@@ -280,13 +401,39 @@ def kernel_cases(x, attn, mlp, do):
     gemm = (K.gemm_bf16_epilogue_cuda, K.gemm_bf16_epilogue_plain)
 
     def mm(name, args, kinds, count, **kw):
+        a, w, bias, epilogue = args
+        m, k, nn = a.shape[0], a.shape[1], w.shape[1]
+        out = {"f32": 4, "bias_gelu_grad": 6}.get(epilogue, 2) * m * nn
+        extra = nbytes(bias, kw.get("residual"), kw.get("aux"))
+        c = cost(nbytes(a, w) + out + extra, 2 * m * nn * k, "bf16",
+                 lambda: torch.matmul(a, w))
         return (f"gemm_bf16_epilogue[{name}]",
                 lambda: gemm[0](*args, **kw), lambda: gemm[1](*args, **kw),
-                kinds, count)
+                kinds, count, c)
 
+    q, k, v = heads_of(qkv3)
+    core_ops = 4 * b * HEADS * n * n * (C // HEADS)
+    d_oh = heads_of(torch.cat([d_o.view(b, n, C)] * 3, -1).to(bf))[0]
+    flash = []  # the forward's outputs, made at the first (warm-up) call
+
+    def flash_bwd():
+        if not flash:
+            flash.extend(torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, 0.0, False, False, scale=SCALE))
+        out, lse, cq, ck, mq, mk, ps, po = flash[:8]
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            d_oh, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, ps, po,
+            scale=SCALE)
+
+    ln_mean, ln_rstd = torch.ops.aten.native_layer_norm(x2, [C], s, bi,
+                                                        K.EPS)[1:]
+    dxn_bf = dxn.to(bf)
+    stats = 2 * b * HEADS * n * 4
     return [
         ("layernorm_rows", lambda: K.layernorm_rows_cuda(x2, s, bi),
-         lambda: K.layernorm_rows_plain(x2, s, bi), ("kernel",), 4),
+         lambda: K.layernorm_rows_plain(x2, s, bi), ("kernel",), 4,
+         cost(2 * nbytes(x2) + nbytes(s, bi), 8 * x2.numel(), "fp32",
+              lambda: F.layer_norm(x2, (C,), s, bi, K.EPS))),
         mm("qkv,bias", (xn, wqkv, bqkv, "bias"), ("kernel",), 1),
         mm("qkv,bias, other layout", (xn, wqkv_o, bqkv, "bias"),
            ("kernel",), 0),
@@ -296,11 +443,15 @@ def kernel_cases(x, attn, mlp, do):
         mm("fc2,bias+residual", (g, w2, b2, "bias_residual"), ("kernel",), 1,
            residual=x2),
         ("attention_core", lambda: K.attention_core_cuda(qkv3, HEADS, SCALE),
-         lambda: K.attention_core_plain(qkv3, HEADS, SCALE), ("kernel",), 0),
+         lambda: K.attention_core_plain(qkv3, HEADS, SCALE), ("kernel",), 0,
+         cost(nbytes(qkv3) * 4 // 3, core_ops, "bf16",
+              lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE))),
         ("attention_core[stats]",
          lambda: K.attention_core_cuda(qkv3, HEADS, SCALE, stats=True),
          lambda: K.attention_core_plain(qkv3, HEADS, SCALE, stats=True),
-         ("kernel", "kernel", "kernel"), 1),
+         ("kernel", "kernel", "kernel"), 1,
+         cost(nbytes(qkv3) * 4 // 3 + stats, core_ops, "bf16",
+              lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE))),
         # backward
         mm("d_o=do.Wp^T,f32", (do2, wp.t(), None, "f32"), ("kernel",), 1),
         mm("d_o=do.Wp^T,f32, other layout", (do2, wp_o.t(), None, "f32"),
@@ -310,12 +461,18 @@ def kernel_cases(x, attn, mlp, do):
                                            HEADS, SCALE),
          lambda: K.attention_core_bwd_plain(qkv3, d_o.view(b, n, C), m, rs,
                                             HEADS, SCALE),
-         ("chain", "psum"), 1),
+         ("chain", "psum"), 1,
+         cost(2 * nbytes(qkv3) + nbytes(d_o, m, rs, dbq_image),
+              core_ops * 5 // 2, "bf16", flash_bwd)),
         ("colsum_rows[dbqkv]", lambda: K.colsum_rows_cuda(dbq_image),
-         lambda: K.colsum_rows_plain(dbq_image), ("sum",), 1),
+         lambda: K.colsum_rows_plain(dbq_image), ("sum",), 1,
+         cost(nbytes(dbq_image) + 4 * dbq_image.shape[1], dbq_image.numel(),
+              "fp32", lambda: torch.sum(dbq_image, 0))),
         mm("dWp=do^T.ctx,A^T", (do2.t(), ctx, None, "f32"), ("sum",), 1),
         ("colsum_rows[dbp,db2]", lambda: K.colsum_rows_cuda(do2),
-         lambda: K.colsum_rows_plain(do2), ("sum",), 2),
+         lambda: K.colsum_rows_plain(do2), ("sum",), 2,
+         cost(nbytes(do2) + 4 * C, do2.numel(), "fp32",
+              lambda: torch.sum(do2, 0, dtype=torch.float32))),
         mm("dWqkv=dqkv^T.xn,A^T", (dqkv.t(), xn, None, "f32"), ("sum",), 1),
         mm("dxn=dqkv.Wqkv^T,f32", (dqkv, wqkv.t(), None, "f32"), ("kernel",),
            1),
@@ -324,7 +481,11 @@ def kernel_cases(x, attn, mlp, do):
         ("layernorm_rows_bwd",
          lambda: K.layernorm_rows_bwd_cuda(x2, s, dxn, do2),
          lambda: K.layernorm_rows_bwd_plain(x2, s, dxn, do2),
-         ("kernel", "sum", "sum"), 2),
+         ("kernel", "sum", "sum"), 2,
+         cost(nbytes(x2, s, dxn, do2, x2) + 8 * C, 12 * x2.numel(), "fp32",
+              lambda: torch.ops.aten.native_layer_norm_backward(
+                  dxn_bf, x2, [C], ln_mean, ln_rstd, s, bi,
+                  [True, True, True]))),
         mm("fc1 remat,bias+gelu+gelu'", (xn, w1, b1, "bias_gelu_grad"),
            ("kernel", "kernel"), 1),
         mm("dW2=do^T.g,A^T", (do2.t(), g_r, None, "f32"), ("sum",), 1),
@@ -333,6 +494,163 @@ def kernel_cases(x, attn, mlp, do):
         mm("dW1=dh^T.xn,A^T", (dh.t(), xn, None, "f32"), ("sum",), 1),
         mm("dxn=dh.W1^T,f32", (dh, w1.t(), None, "f32"), ("kernel",), 1),
     ]
+
+
+def int8_block_inputs(b, n, seed, device):
+    """fp32 activations and one converted ViT-S/16 block's operands:
+    seeded fp32 weights (Linear U(+-1/sqrt(fan_in)) and biases std 1,
+    LayerNorm 1 + noise), calibrated by the block's own calibrating
+    forward on these activations, converted, and loaded as the converted
+    model loads them; each int8 weight the (in, out) view of the torch
+    (out, in) tensor, as the converted block passes it."""
+    from myrtle_vision_tpu_torch.models.vit import Block
+    from myrtle_vision_tpu_torch.ops.fused_int8_block import weight_colsum
+    from myrtle_vision_tpu_torch.quantize import (
+        QFormat,
+        convert_params,
+        is_observer,
+    )
+
+    rng = np.random.RandomState(seed)
+    x = seeded(rng, (b, n, C), 1.0, device)
+    fp, conv = (Block(C, HEADS, C // HEADS, HID, 0.0, 12, device,
+                      QFormat.PyTorchINT8, converted)
+                for converted in (False, True))
+    sd = {}
+    for name, t in fp.state_dict().items():
+        shape = tuple(t.shape)
+        if is_observer(name):
+            sd[name] = t
+        elif name.endswith("norm.weight"):
+            sd[name] = 1 + 0.1 * rng.randn(*shape)
+        elif name.endswith("norm.bias"):
+            sd[name] = 0.1 * rng.randn(*shape)
+        elif t.dim() == 2:
+            bound_ = shape[1] ** -0.5
+            sd[name] = rng.uniform(-bound_, bound_, shape)
+        else:
+            sd[name] = rng.randn(*shape)
+    fp.load_state_dict({k: torch.as_tensor(np.asarray(v, np.float32))
+                        if not torch.is_tensor(v) else v
+                        for k, v in sd.items()})
+    with torch.no_grad():
+        fp.forward_calibrating(x)
+    conv.load_state_dict(convert_params(fp.state_dict(), "PyTorchINT8"))
+    for lin in conv._linears():
+        lin.weight_colsum.copy_(weight_colsum(lin.weight.t()))
+    sites = conv.site_table()
+    a, f = conv._modules["0"].fn, conv._modules["1"].fn
+    qkv, out, fc1, fc2 = conv._linears()
+    attn = [a.norm.weight, a.norm.bias, qkv.weight.t(), qkv.weight_scale,
+            qkv.bias, out.weight.t(), out.weight_scale, out.bias, sites[0]]
+    mlp = [f.norm.weight, f.norm.bias, fc1.weight.t(), fc1.weight_scale,
+           fc1.bias, fc2.weight.t(), fc2.weight_scale, fc2.bias, sites[1]]
+    colsums = ((qkv.weight_colsum, out.weight_colsum),
+               (fc1.weight_colsum, fc2.weight_colsum))
+    return x, attn, mlp, colsums
+
+
+def int8_kernel_cases(x, attn, mlp, colsums):
+    """(name, kernel thunk, plain thunk, the step of the output's grid,
+    launches per converted block in a forward, cost) for each converted
+    INT8 kernel at the main path's shapes and layouts, inputs prepared
+    with the plain versions as the ops chain them.  Yardsticks:
+    ``torch._int_mm`` of the same int8 operands, and
+    ``F.scaled_dot_product_attention`` in fp32 (no single PyTorch call
+    does LayerNorm and quantization at once)."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    b, n, _ = x.shape
+    x2 = x.view(-1, C)
+    ln_a, ln_b, wqkv, sqkv, bqkv, wout, sout, bout, sa = attn
+    ln_m, ln_mb, w1, s1, b1, w2, s2, b2, sm = mlp
+    (cs_qkv, cs_out), (cs1, cs2) = colsums
+    q8 = K.layernorm_quant_rows_plain(x2, ln_a, ln_b, sa[0])
+    qkv = K.gemm_s8_epilogue_plain(q8, wqkv, cs_qkv, sqkv, sa[0], bqkv,
+                                   "requant", sa[1])
+    qkv3 = qkv.view(b, n, 3 * C)
+    ctx8 = K.attention_core_f32_plain(qkv3, HEADS, SCALE, sa[2]).view(-1, C)
+    h8 = K.layernorm_quant_rows_plain(x2, ln_m, ln_mb, sm[0])
+    g8 = K.gemm_s8_epilogue_plain(h8, w1, cs1, s1, sm[0], b1,
+                                  "requant_gelu_quant", sm[1], sm[2])
+    q, k, v = heads_of(qkv3)
+
+    def mm(name, a, w, cs, scale, a_site, bias, epilogue, site, site2,
+           step, residual=None):
+        args = (a, w, cs, scale, a_site, bias, epilogue, site, site2)
+        m, kk, nn = a.shape[0], a.shape[1], w.shape[1]
+        out = m * nn * (1 if epilogue == "requant_gelu_quant" else 4)
+        c = cost(nbytes(a, w, cs, bias, residual) + out, 2 * m * nn * kk,
+                 "int8", lambda: torch._int_mm(a, w))
+        return (f"gemm_s8_epilogue[{name}]",
+                lambda: K.gemm_s8_epilogue_cuda(*args, residual=residual),
+                lambda: K.gemm_s8_epilogue_plain(*args, residual=residual),
+                step, 1, c)
+
+    return [
+        ("layernorm_quant_rows",
+         lambda: K.layernorm_quant_rows_cuda(x2, ln_a, ln_b, sa[0]),
+         lambda: K.layernorm_quant_rows_plain(x2, ln_a, ln_b, sa[0]), 1.0, 2,
+         cost(nbytes(x2) * 5 // 4 + nbytes(ln_a, ln_b), 10 * x2.numel(),
+              "fp32")),
+        mm("qkv,requant", q8, wqkv, cs_qkv, sqkv, sa[0], bqkv, "requant",
+           sa[1], None, float(sa[1][0])),
+        ("attention_core_f32",
+         lambda: K.attention_core_f32_cuda(qkv3, HEADS, SCALE, sa[2]),
+         lambda: K.attention_core_f32_plain(qkv3, HEADS, SCALE, sa[2]), 1.0,
+         1, cost(nbytes(qkv3) + qkv3.numel() // 3,
+                 3 * 4 * b * HEADS * n * n * (C // HEADS), "bf16",
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        scale=SCALE))),
+        mm("out,requant+residual+requant", ctx8, wout, cs_out, sout, sa[2],
+           bout, "requant_residual_requant", sa[3], sa[4], float(sa[4][0]),
+           residual=x2),
+        mm("fc1,requant+gelu+quant", h8, w1, cs1, s1, sm[0], b1,
+           "requant_gelu_quant", sm[1], sm[2], 1.0),
+        mm("fc2,requant+residual+requant", g8, w2, cs2, s2, sm[2], b2,
+           "requant_residual_requant", sm[3], sm[4], float(sm[4][0]),
+           residual=x2),
+    ]
+
+
+def int8_op_cases(x, attn, mlp, colsums):
+    """(name, kernel thunk, plain thunk, step of the output grid) of both
+    converted-INT8 block-half chains."""
+    from myrtle_vision_tpu_torch.ops import fused_int8_block as fi
+
+    return [
+        ("int8_attention_block",
+         lambda: fi.int8_attention_block(x, *attn, HEADS, SCALE,
+                                         colsums=colsums[0]),
+         lambda: fi.int8_attention_block_plain(x, *attn, HEADS, SCALE,
+                                               colsums=colsums[0]),
+         float(attn[-1][4][0])),
+        ("int8_mlp_block",
+         lambda: fi.int8_mlp_block(x, *mlp, colsums=colsums[1]),
+         lambda: fi.int8_mlp_block_plain(x, *mlp, colsums=colsums[1]),
+         float(mlp[-1][4][0])),
+    ]
+
+
+def compare_grid(label, got, ref, step, same=INT8_SAME, steps=INT8_STEPS):
+    """Max abs difference, and the largest share of the INT8 bar (share of
+    differing elements against 1 - ``same``, steps apart against
+    ``steps``) that the output takes (at most 1 to pass)."""
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{label}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
+    g, r = got.float(), ref.float()
+    check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
+    diff = (g - r).abs()
+    max_abs = diff.max().item()
+    differ = (diff > 0).float().mean().item()
+    of_bar = max(differ / (1 - same),
+                 max_abs / (steps * step * (1 + 1e-5)))
+    check(of_bar <= 1.0, f"{label}: {differ:.3g} of the elements differ, max "
+          f"abs {max_abs} ({max_abs / step:.3g} steps of {step:g})")
+    return max_abs, of_bar
 
 
 def op_cases(x, attn, mlp, do):
@@ -378,6 +696,23 @@ def op_cases(x, attn, mlp, do):
 def phase_kernels(device):
     errors = {}
     for b, n, tag in ((64, N, "B=64,N=197"), (3, 50, "B=3,N=50")):
+        xi, ai, mi, ci = int8_block_inputs(b, n, seed=b * 1000 + n + 1,
+                                           device=device)
+        cases = ([c[:4] + (INT8_SAME,)
+                  for c in int8_kernel_cases(xi, ai, mi, ci)]
+                 + [c + (INT8_CHAIN_SAME,)
+                    for c in int8_op_cases(xi, ai, mi, ci)])
+        for name, kernel, plain, step, same in cases:
+            steps = INT8_STEPS if same == INT8_SAME else INT8_CHAIN_STEPS
+            max_abs, of_bar = compare_grid(f"{name} {tag}", kernel(),
+                                           plain(), step, same, steps)
+            print(f"kernels: {name} {tag} max_abs {max_abs:.6g}, "
+                  f"{of_bar:.4f} of the bar (int8 grid, step {step:.6g}, "
+                  f">= {same} identical, <= {steps} steps)")
+            key = name.split("[")[0]
+            if b == 64:
+                errors[key] = max(errors.get(key, 0.0), max_abs)
+        del xi, ai, mi, ci
         x, attn, mlp, do = block_inputs(b, n, seed=b * 1000 + n,
                                         device=device)
         cases = ([c[:4] for c in kernel_cases(x, attn, mlp, do)]
@@ -398,7 +733,9 @@ def phase_kernels(device):
                 errors[key] = max(errors.get(key, 0.0), worst[1])
     print(f"kernels: all within their bars (|d| <= {RTOL:g}*|ref| + atol; "
           f"atol {KERNEL_ATOL:g} kernel, {CHAIN_ATOL:g} chain, "
-          f"{SUM_ATOL:g}*max|ref| sum; psum |d| <= {PSUM_ATOL:g}*max|ref|)")
+          f"{SUM_ATOL:g}*max|ref| sum; psum |d| <= {PSUM_ATOL:g}*max|ref|; "
+          f"INT8: >= {INT8_SAME} identical and <= {INT8_STEPS} grid steps, "
+          f"a chain {INT8_CHAIN_SAME} and {INT8_CHAIN_STEPS})")
     return errors
 
 
@@ -480,13 +817,16 @@ def phase_main(device, data_config, data_cfg):
     print(f"main: ViT-S/16 eval CLI on cuda, {n_img} images in {batches} "
           f"batches: fused_attention_block {op_launches[0]} launches, "
           f"fused_mlp_block {op_launches[1]}, kernels {launches}")
+    check(ops["int8_attention_block"] == ops["int8_mlp_block"] == (0, 0),
+          f"op launches {ops}")
     check(op_launches == (depth * batches, depth * batches),
           f"op launches {op_launches}, expected {depth} per batch")
     check(launches == {"layernorm_rows": 2 * depth * batches,
                        "gemm_bf16_epilogue": 4 * depth * batches,
                        "attention_core": depth * batches,
                        "attention_core_bwd": 0, "layernorm_rows_bwd": 0,
-                       "colsum_rows": 0},
+                       "colsum_rows": 0, "layernorm_quant_rows": 0,
+                       "gemm_s8_epilogue": 0, "attention_core_f32": 0},
           f"kernel launches {launches}")
     check(logits.shape == (n_img, data_config["number_of_classes"]),
           f"logits shape {tuple(logits.shape)}")
@@ -607,9 +947,9 @@ def phase_train(device, data_config, data_cfg):
           f"expected ({fwd}, {bwd}) each; kernels {launches}")
     check(steps >= 3 and len(losses) == steps, f"{steps} steps, {losses}")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    for op, counts in ops.items():
-        check(counts == (fwd, bwd), f"{op} launches {counts}")
-    check(all(n > 0 for n in launches.values()),
+    for op in ("fused_attention_block", "fused_mlp_block"):
+        check(ops[op] == (fwd, bwd), f"{op} launches {ops[op]}")
+    check(all(launches[k] > 0 for k in FP32_KERNELS),
           f"a kernel never launched: {launches}")
 
     run_dir = sorted(glob.glob(tc["output_directory"] + "_*"))[-1]
@@ -641,6 +981,129 @@ def phase_train(device, data_config, data_cfg):
     return launches
 
 
+def phase_quantize(device, data_config, data_cfg):
+    """The PTQ CLI on vit_small.json in PyTorchINT8 through the INT8
+    kernels; returns (kernel launches of its run, the converted
+    checkpoint's path, the model's constructor kwargs)."""
+    from myrtle_vision_tpu_torch.classification import test_quantize as cli
+    from myrtle_vision_tpu_torch.classification.test import evaluate_dataset
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.utils.convert import (
+        load_reference_checkpoint,
+    )
+
+    config = vit_small_config()
+    config["vit_config"]["q_format"] = "PyTorchINT8"
+    fp32_ckpt = os.path.join(WORK, "vit_small_seed0.pth")  # phase 4's
+    saved = os.path.join(WORK, "vit_small_int8_converted.pth")
+    config["data_config_path"] = data_cfg
+    config["train_config"].update(checkpoint_path=fp32_ckpt,
+                                  local_batch_size=32, drop_last_batch=False)
+    cfg = write_json("vit_small_int8.json", config)
+    depth = config["vit_config"]["depth"]
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gts, preds, logits = cli.main(["-c", cfg, "--device", "cuda",
+                                       "--calib_steps", "2",
+                                       "--save_converted", saved])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        if "calibration" in line or "size" in line or "checkpoint" in line:
+            print(f"quantize: {line.strip()}")
+    n_img = len(gts)
+    batches = math.ceil(n_img / 32)
+    int8_ops = (ops["int8_attention_block"][0], ops["int8_mlp_block"][0])
+    print(f"quantize: ViT-S/16 PTQ CLI (PyTorchINT8) on cuda in {took:.1f} s,"
+          f" {n_img} test images in {batches} batches, accuracy "
+          f"{float(np.mean(gts == preds)):.4f}: int8_attention_block "
+          f"{int8_ops[0]} launches, int8_mlp_block {int8_ops[1]}, kernels "
+          f"{launches}")
+    check(int8_ops == (depth * batches, depth * batches),
+          f"INT8 op launches {int8_ops}, expected {depth} per batch")
+    # per batch: 2 LayerNorms per block and the head's; 4 products per
+    # block, the patch embedding and the head; one core per block
+    expect = {k: 0 for k in KERNELS}
+    expect.update(layernorm_quant_rows=(2 * depth + 1) * batches,
+                  gemm_s8_epilogue=(4 * depth + 2) * batches,
+                  attention_core_f32=depth * batches)
+    check(launches == expect, f"kernel launches {launches}, expected {expect}")
+    check(logits.shape == (n_img, data_config["number_of_classes"])
+          and bool(torch.isfinite(logits).all()), "converted logits")
+    ratio = os.path.getsize(saved) / os.path.getsize(fp32_ckpt)
+    print(f"quantize: converted checkpoint {os.path.getsize(saved)} bytes, "
+          f"{ratio:.4f} of the fp32 file (bar 0.45)")
+    check(ratio < 0.45, "the converted checkpoint is not int8-sized")
+
+    # the written checkpoint, read as it is, through the plain versions
+    with open(cfg) as f:
+        config = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, test_loader, _, kwargs = cli.build_quantize(config, device)
+    model = ViT(**dict(kwargs, converted=True), device=device)
+    model.load_state_dict(load_reference_checkpoint(saved), strict=True)
+    model.eval()
+    with torch.inference_mode():
+        _, plain_preds, plain_logits = evaluate_dataset(
+            lambda images: model(images, plain=True), test_loader)
+    step = float(model.io_sites[3][0])  # the head's output grid
+    stage_check(model, test_loader)
+    diff = (logits - plain_logits).abs()
+    limit = INT8_LOGIT_BAR * max(1.0, plain_logits.abs().max().item())
+    agree = float(np.mean(preds == plain_preds))
+    print(f"quantize: kernel vs plain converted logits max_abs "
+          f"{diff.max().item():.6g} ({diff.max().item() / step:.3g} steps of "
+          f"the head's grid {step:.6g}; bar {limit:.6g}), "
+          f"{(diff == 0).float().mean().item():.4f} of them identical, "
+          f"argmax agreement {agree:.4f} (bar {INT8_ARGMAX_BAR})")
+    check(diff.max().item() <= limit and agree >= INT8_ARGMAX_BAR,
+          "converted kernel-path logits disagree with the plain path")
+    return launches, saved, kwargs
+
+
+def stage_check(model, loader):
+    """The converted model's forward on the first test batch, stage by
+    stage, each stage of the kernel path fed the plain path's input."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    epoch = loader.epoch(0)
+    img = next(epoch)["image"]
+    epoch.close()
+    worst = (0.0, "")
+    with torch.inference_mode():
+        x = model.embed_converted(img, K.PLAIN)
+        got = model.embed_converted(img, K.CUDA)
+        stages = [("embedding", got, x, float(model.pos_embedding_add
+                                              .int8_qparams()[0]),
+                   INT8_SAME)]
+        for i, (block, sites) in enumerate(zip(model.transformer.layers,
+                                               model.block_sites)):
+            y = block.forward_converted(x, sites, plain=True)
+            stages.append((f"block {i}", block.forward_converted(x, sites),
+                           y, float(sites[1][4][0]), INT8_CHAIN_SAME))
+            x = y
+        io, has = model.io_sites, model._has[1]
+        stages.append(("head", model.decoder.forward_converted(
+            K.CUDA, x, io[2:], has), model.decoder.forward_converted(
+            K.PLAIN, x, io[2:], has), float(io[3][0]), INT8_CHAIN_SAME))
+        for name, got, ref, step, same in stages:
+            steps = INT8_STEPS if same == INT8_SAME else INT8_CHAIN_STEPS
+            max_abs, of_bar = compare_grid(f"converted {name}", got, ref,
+                                           step, same, steps)
+            differ = (got != ref).float().mean().item()
+            print(f"quantize: stage {name}: {max_abs / step:.3g} steps of "
+                  f"{step:.6g} at most, {differ:.5f} of the elements differ "
+                  f"(bar {1 - same:g}, {steps} steps)")
+            worst = max(worst, (of_bar, name))
+    print(f"quantize: the converted forward stage by stage (embedding, "
+          f"{len(model.transformer.layers)} blocks, head), kernel path fed "
+          f"the plain path's input: worst {worst[0]:.4f} of the bar, at "
+          f"{worst[1]}")
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -662,7 +1125,58 @@ def paired_ms(kernel, plain, iters=20, warmup=3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def phase_timing(device, power):
+def time_case(totals, name, kernel, plain, count, c, power, tag):
+    """Kernel and plain ms of one case (paired), its yardstick's ms, its
+    bound; added, times ``count``, to its kernel's totals; returns
+    (bound ms, yardstick ms or None)."""
+    k_ms, p_ms = paired_ms(kernel, plain)
+    lib_ms = None if c["library"] is None else cuda_ms(c["library"])
+    b_ms, by = bound(c)
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"timing: {name} {tag} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms, "
+          f"library {lib}, bound {b_ms:.4f} ms ({by}: {c['bytes']} bytes, "
+          f"{c['ops']} {c['peak']} ops), {count} per block [{power}]")
+    acc = totals.setdefault(name.split("[")[0], {
+        "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+        "by": {"bytes": 0.0, "operations": 0.0}})
+    acc["ms"] += count * k_ms
+    acc["plain_ms"] += count * p_ms
+    acc["bound_ms"] += count * b_ms
+    acc["by"][by] += count * b_ms
+    if lib_ms is None or acc["library_ms"] is None:
+        acc["library_ms"] = None
+    else:
+        acc["library_ms"] += count * lib_ms
+    return b_ms, lib_ms
+
+
+def time_chain(cases, name, kernel, plain, power, tag):
+    """A block-half chain: paired kernel and plain ms, and for the TPU
+    kernel it replaces, the kernel launches of one call and the sums of
+    its cases' bounds and yardsticks."""
+    k_ms, p_ms = paired_ms(kernel, plain)
+    reset_counts()
+    kernel()
+    launches = {k: v for k, v in read_counts()[0].items() if v}
+    line = (f"timing: {name} {tag} kernel chain {k_ms:.4f} ms plain "
+            f"{p_ms:.4f} ms [{power}]")
+    for tpu, (chain, parts) in TPU_CHAINS.items():
+        if chain == name:
+            b_ms = sum(cases[p][0] for p in parts)
+            libs = [cases[p][1] for p in parts if cases[p][1] is not None]
+            missing = [p for p in parts if cases[p][1] is None]
+            line += (f"; {tpu}: launches {launches}, bound {b_ms:.4f} ms, "
+                     f"yardsticks {sum(libs):.4f} ms"
+                     + (f" (none for {', '.join(missing)})" if missing
+                        else ""))
+    print(line)
+
+
+def phase_timing(device, power, int8_ckpt, int8_kwargs):
+    """Per kernel: {ms, plain_ms, bound_ms, by, library_ms}, each the sum
+    over the kernel's launches in one ViT-S/16 block at batch 256: a train
+    step (forward with the saved statistics, backward) for the FP32
+    kernels, a converted forward for the INT8 ones."""
     from myrtle_vision_tpu_torch.models.vit import ViT
     from myrtle_vision_tpu_torch.training.classification import make_loss_fn
     from myrtle_vision_tpu_torch.training.optim import (
@@ -673,23 +1187,29 @@ def phase_timing(device, power):
         TrainState,
         make_train_step,
     )
+    from myrtle_vision_tpu_torch.utils.convert import (
+        load_reference_checkpoint,
+    )
 
     b = 256
+    tag = f"B={b} N={N}"
+    totals, cases = {}, {}
+    xi, ai, mi, ci = int8_block_inputs(b, N, seed=257, device=device)
+    for name, kernel, plain, _, count, c in int8_kernel_cases(xi, ai, mi, ci):
+        cases[name] = time_case(totals, name, kernel, plain, count, c, power,
+                                tag + " (converted forward)")
+    for name, kernel, plain, _ in int8_op_cases(xi, ai, mi, ci):
+        time_chain(cases, name, kernel, plain, power, tag)
+    del xi, ai, mi, ci
     x, attn, mlp, do = block_inputs(b, N, seed=256, device=device)
-    per_block = {}
-    for name, kernel, plain, _, count in kernel_cases(x, attn, mlp, do):
+    for name, kernel, plain, _, count, c in kernel_cases(x, attn, mlp, do):
         if "other layout" in name:
             continue
-        k_ms, p_ms = paired_ms(kernel, plain)
-        print(f"timing: {name} B={b} N={N} kernel {k_ms:.4f} ms plain "
-              f"{p_ms:.4f} ms, {count} per block and train step [{power}]")
-        acc = per_block.setdefault(name.split("[")[0], [0.0, 0.0])
-        acc[0] += count * k_ms
-        acc[1] += count * p_ms
+        cases[name] = time_case(totals, name, kernel, plain, count, c, power,
+                                tag + " (train step)")
     for name, kernel, plain, _ in op_cases(x, attn, mlp, do):
-        k_ms, p_ms = paired_ms(kernel, plain)
-        print(f"timing: {name} B={b} N={N} kernel chain {k_ms:.4f} ms plain "
-              f"{p_ms:.4f} ms [{power}]")
+        time_chain(cases, name, kernel, plain, power, tag)
+    del x, attn, mlp, do
 
     model = ViT("classification", 224, 16, 45, 384, 12, 6, 1536,
                 device=device)
@@ -702,6 +1222,20 @@ def phase_timing(device, power):
     print(f"timing: ViT-S/16 forward B={b}: kernel path {k_ms:.3f} ms = "
           f"{b / k_ms * 1e3:.1f} img/s, plain path {p_ms:.3f} ms = "
           f"{b / p_ms * 1e3:.1f} img/s [{power}]")
+    bf16_ips = b / k_ms * 1e3
+
+    # the converted model of phase 6, calibrated on the synthetic images
+    conv = ViT(**dict(int8_kwargs, converted=True), device=device)
+    conv.load_state_dict(load_reference_checkpoint(int8_ckpt), strict=True)
+    conv.eval()
+    with torch.inference_mode():
+        k_ms, p_ms = paired_ms(lambda: conv(imgs),
+                               lambda: conv(imgs, plain=True), iters=10)
+    print(f"timing: converted INT8 ViT-S/16 forward B={b}: kernel path "
+          f"{k_ms:.3f} ms = {b / k_ms * 1e3:.1f} img/s, plain path "
+          f"{p_ms:.3f} ms = {b / p_ms * 1e3:.1f} img/s; bf16 forward of "
+          f"this run {bf16_ips:.1f} img/s [{power}]")
+    del conv
 
     # one train step (forward, backward, AdamW) on one micro-batch of 256
     tc = vit_small_config()["train_config"]
@@ -725,7 +1259,7 @@ def phase_timing(device, power):
           f"kernel path {k_ms:.3f} ms = {b / k_ms * 1e3:.1f} img/s, plain "
           f"path {p_ms:.3f} ms = {b / p_ms * 1e3:.1f} img/s, peak device "
           f"memory {peak:.2f} GiB [{power}]")
-    return per_block
+    return totals
 
 
 def main():
@@ -738,17 +1272,27 @@ def main():
     data_config, data_cfg = make_dataset()
     phase_main(device, data_config, data_cfg)
     launches = phase_train(device, data_config, data_cfg)
+    int8_launches, int8_ckpt, int8_kwargs = phase_quantize(
+        device, data_config, data_cfg)
     power = power_line()
-    per_block = phase_timing(device, power)
+    totals = phase_timing(device, power, int8_ckpt, int8_kwargs)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        t = totals[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            # launches on the path's own run: the train CLI for the FP32
+            # kernels, the PTQ CLI for the INT8 ones
+            "launches": (int8_launches if name in INT8_KERNELS
+                         else launches)[name],
             "max_abs_err": errors[name],
-            # time of this kernel's launches in one ViT-S/16 block's train
-            # step (forward with the saved statistics, backward), B=256
-            "ms": per_block[name][0], "plain_ms": per_block[name][1],
+            # sums over this kernel's launches in one ViT-S/16 block at
+            # B=256: a train step (FP32 kernels), a converted forward (INT8)
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": max(t["by"], key=t["by"].get),
+            "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(power_line())

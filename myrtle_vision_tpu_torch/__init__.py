@@ -2,9 +2,11 @@
 myrtle_vision_tpu.
 
 The package mirrors the JAX package's layout (``models/vit.py`` here is
-the counterpart of ``myrtle_vision_tpu/models/vit.py``) and reuses the
-JAX package's jax-free modules (datasets, transforms, config and export
-helpers) by import.  It imports torch, never jax.  The TPU package's
+the counterpart of ``myrtle_vision_tpu/models/vit.py``).  It imports
+torch, never jax, and nothing of the JAX package: what it needs of the
+JAX package's jax-free modules (datasets, transforms, config, export and
+pretrained helpers, the activation-saving policy) it keeps as copies
+under the same relative paths.  The TPU package's
 Pallas kernels become CUDA kernels written by hand in ``csrc/``, built
 for ``sm_90a`` at first use (``ops/_build.py``); each sits beside a plain
 PyTorch version that CPU tensors take.

@@ -20,11 +20,11 @@ import json
 import numpy as np
 import torch
 
-from myrtle_vision_tpu.datasets.resisc45 import Resisc45
-from myrtle_vision_tpu.utils.config import get_label_list, parse_config
 from myrtle_vision_tpu_torch.data.loader import DataLoader
+from myrtle_vision_tpu_torch.datasets.resisc45 import Resisc45
 from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
 from myrtle_vision_tpu_torch.training.classification import make_predict_fn
+from myrtle_vision_tpu_torch.utils.config import get_label_list, parse_config
 from myrtle_vision_tpu_torch.utils.convert import load_reference_checkpoint
 
 

@@ -28,14 +28,9 @@ from datetime import datetime
 
 import torch
 
-from myrtle_vision_tpu.datasets.resisc45 import Resisc45
-from myrtle_vision_tpu.utils.config import (
-    get_batch_sizes,
-    parse_config,
-    seed_everything,
-)
 from myrtle_vision_tpu_torch.classification.test import resolve_device
 from myrtle_vision_tpu_torch.data.loader import DataLoader
+from myrtle_vision_tpu_torch.datasets.resisc45 import Resisc45
 from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
 from myrtle_vision_tpu_torch.training.classification import (
     make_loss_fn,
@@ -53,6 +48,11 @@ from myrtle_vision_tpu_torch.training.trainer import (
 from myrtle_vision_tpu_torch.utils.checkpoint import (
     prepare_model_and_load_ckpt,
     save_checkpoint,
+)
+from myrtle_vision_tpu_torch.utils.config import (
+    get_batch_sizes,
+    parse_config,
+    seed_everything,
 )
 from myrtle_vision_tpu_torch.utils.convert import load_pretrained_backbone
 
@@ -83,6 +83,10 @@ def build_train(config, device):
         raise NotImplementedError(
             "distillation (distiller_config) is not ported yet; see "
             "ROADMAP.md A8")
+    if config["vit_config"]["q_format"] != "FP32":
+        raise NotImplementedError(
+            f"training in q_format {config['vit_config']['q_format']} (QAT) "
+            "is not ported yet; see ROADMAP.md (A5, B3)")
     seed = train_config["seed"]
     seed_everything(seed)
 

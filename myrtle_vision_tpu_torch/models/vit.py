@@ -1,30 +1,56 @@
 """Vision Transformer for classification, in PyTorch: eval and training
-forward.
+forward in FP32, and the PyTorchINT8 format's calibration and converted
+inference.
 
-Port of myrtle_vision_tpu/models/vit.py for the path this package runs
-so far: ``decoder="classification"``, ``q_format`` FP32, no active
-dropout.  Parameters are fp32 and named as in the upstream reference
-state dict that myrtle_vision_tpu/utils/export.py writes
+Port of myrtle_vision_tpu/models/vit.py for the paths this package runs
+so far: ``decoder="classification"`` without active dropout, in
+``q_format`` FP32 (inference and training) and PyTorchINT8 (the
+calibrating forward and the converted model; QAT training is not ported
+yet).  Parameters are named as in the upstream reference state dict that
+myrtle_vision_tpu/utils/export.py writes
 (``transformer.layers.{i}.0.fn.fn.to_qkv.weight``, ...), so
 ``load_state_dict(sd, strict=True)`` takes such a dict as it is.
-Activations run in ``compute_dtype`` (bf16 by default) with fp32
-LayerNorm statistics, softmax and accumulation, rounding at the points
-the JAX model rounds.
 
-Images are NHWC, as in the JAX package.  Each block half runs as one
-differentiable op (ops/fused_attention_block.py, ops/fused_mlp.py),
-which dispatches on the activation's device: the plain PyTorch chain on
-the CPU, the CUDA kernel chain on a GPU, forward and backward.
-``ViT.forward(img, plain=True)`` runs the plain chains on any device, as
-the reference the kernels are checked against.  The patch embedding, the
-tokens and the decoder head are plain products outside any kernel in
-both packages, and take their gradients from autograd.
+FP32: activations run in ``compute_dtype`` (bf16 by default) with fp32
+LayerNorm statistics, softmax and accumulation, rounding at the points
+the JAX model rounds.  Each block half runs as one differentiable op
+(ops/fused_attention_block.py, ops/fused_mlp.py), which dispatches on the
+activation's device: the plain PyTorch chain on the CPU, the CUDA kernel
+chain on a GPU, forward and backward.
+
+PyTorchINT8 (compute in fp32, as in the JAX package): every observer
+site of the JAX model is an :class:`ActQuant` (``min`` and ``max``
+buffers) on the module it belongs to, named as the JAX ``quant``
+collection names it (utils/convert.py maps one onto the other):
+``quant_img``, ``quant_cls_token``, ``quant_pos_embedding``,
+``cls_token_cat``, ``pos_embedding_cat``, ``pos_embedding_add`` on the
+model; ``act_out`` on every Linear and LayerNorm and on the GELU
+(``net.1``); ``quant_out`` on the attention; ``res_add`` on each
+residual (``transformer.layers.{i}.0`` and ``.1``).
+``forward(img, calibrating=True)`` runs the JAX model's discrete-site
+forward, folding each site's input into its observer first: the 3-pass
+bf16 products (ops/high_precision.py), the polynomial-erf GELU, the fp32
+attention core, all in plain PyTorch on any device, as the JAX package
+runs it outside any kernel.  With ``converted=True`` each Linear weight
+is int8 with an fp32 ``weight_scale`` (quantize.convert_params), and the
+forward is the converted model's: the patch embedding and the head as
+int8 products (``gemm_s8_epilogue``, the integer path of QDense), each
+block half as one op (ops/fused_int8_block.py, the TPU kernels K9 and
+K10).  The observers of a converted model are frozen: their grids and the
+weights' column sums are computed when its state dict is loaded.
+
+Images are NHWC, as in the JAX package.  ``forward(img, plain=True)``
+runs the plain PyTorch versions on any device, as the reference the
+kernels are checked against.  The patch embedding, the tokens and the
+head of the FP32 model are plain products outside any kernel in both
+packages, and take their gradients from autograd.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from myrtle_vision_tpu_torch.ops import _kernels as K
 from myrtle_vision_tpu_torch.ops._kernels import layernorm_rows_plain
 from myrtle_vision_tpu_torch.ops.fused_attention_block import (
     fused_attention_block,
@@ -34,12 +60,34 @@ from myrtle_vision_tpu_torch.ops.fused_mlp import (
     fused_mlp_block,
     fused_mlp_block_plain,
 )
+from myrtle_vision_tpu_torch.ops.fused_int8_block import (
+    MAX_N as INT8_MAX_N,
+    int8_attention_block,
+    int8_attention_block_plain,
+    int8_mlp_block,
+    int8_mlp_block_plain,
+    weight_colsum,
+)
+from myrtle_vision_tpu_torch.ops.high_precision import matmul_high3
 from myrtle_vision_tpu_torch.ops.interpolate import resize_bicubic
+from myrtle_vision_tpu_torch.quantize import (
+    ActQuant,
+    QFormat,
+    is_observer,
+    quantize_weight,
+    site_row,
+    symmetric_int8_scale,
+)
 
 MIN_NUM_PATCHES = 16  # reference vit.py:14
-# the port runs the classification decoder in the FP32 format, without
-# active dropout, for inference and training
+# the port runs the classification decoder without active dropout, FP32
+# for inference and training, PyTorchINT8 for calibration and converted
+# inference
 _NOT_PORTED = "not ported yet; see ROADMAP.md (Queue A)"
+_FLOAT_FORMATS_NOT_PORTED = (
+    "not ported yet: the stateless float formats come with the qspec "
+    "variants of K1-K4 and K11; see ROADMAP.md (A5)"
+)
 
 
 def _linear(in_features, out_features, device):
@@ -60,6 +108,45 @@ def _dense(x, linear, dtype):
     in ``dtype``."""
     y = torch.matmul(x.to(dtype).float(), linear.weight.to(dtype).float().t())
     return y.to(dtype) + linear.bias.to(dtype)
+
+
+def _make_int8(linear):
+    """Converted storage of a Linear: an int8 weight (no gradient), its
+    fp32 per-tensor ``weight_scale``, and the weight's column sums, which
+    are not stored but computed when the model is loaded."""
+    shape, device = linear.weight.shape, linear.weight.device
+    linear.weight = nn.Parameter(
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        requires_grad=False)
+    linear.register_buffer("weight_scale", torch.ones((), device=device))
+    linear.register_buffer("weight_colsum", torch.zeros(shape[0],
+                                                        device=device),
+                           persistent=False)
+
+
+def _qdense(linear, x):
+    """QDense of the calibrating PyTorchINT8 forward: the Linear's weight
+    through its symmetric int8 fake-quant, a 3-pass product, the bias,
+    then the ``act_out`` site, which observes the result first."""
+    w = quantize_weight(linear.weight, QFormat.PyTorchINT8, "linear", False)
+    return linear.act_out(matmul_high3(x, w.t()) + linear.bias, True)
+
+
+def _int8_dense(kern, linear, x, in_site, out_site, in_has):
+    """QDense._int8_forward of the converted model, fp32 (..., K) in and
+    out: with statistics at the input's site ``in_site`` the int8 product
+    of ``gemm_s8_epilogue`` (``kern``), requantized at ``out_site``
+    (``act_out``); without, the JAX fallback, a 3-pass product of the
+    dequantized weight and the ``act_out`` fake-quant."""
+    lead = x.shape[:-1]
+    if in_has:
+        q8 = K.quantize_i8(x.reshape(-1, x.shape[-1]), in_site)
+        y = kern.gemm_s8(q8, linear.weight.t(), linear.weight_colsum,
+                         linear.weight_scale, in_site, linear.bias,
+                         "requant", out_site)
+        return y.view(*lead, -1)
+    w = linear.weight.float() * linear.weight_scale
+    return linear.act_out(matmul_high3(x, w.t()) + linear.bias)
 
 
 class Residual(nn.Module):
@@ -108,14 +195,18 @@ class FeedForward(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block, FP32 format: one fused op per half
-    (myrtle_vision_tpu/models/vit.py Block, the ``fuse`` branch).
+    """Pre-norm transformer block (myrtle_vision_tpu/models/vit.py Block).
     Children ``0`` and ``1`` carry the reference's parameter names.
+    FP32: one fused op per half (the JAX Block's ``fuse`` branch);
     ``depth``, the model's layer count, sizes the attention op's
-    qkv-saving budget as ``model_depth`` does in the JAX Block."""
+    qkv-saving budget as ``model_depth`` does in the JAX Block.
+    PyTorchINT8: the observer sites (see the module docstring), the
+    calibrating discrete-site forward (:meth:`forward_calibrating`) and,
+    converted, one INT8 op per half (:meth:`forward_converted`, the
+    ``int8_fuse`` branch)."""
 
     def __init__(self, dim, heads, dim_head, mlp_dim, dropout, depth,
-                 device=None):
+                 device=None, q_format=QFormat.FP32, converted=False):
         super().__init__()
         self.heads = heads
         self.scale = dim_head ** -0.5
@@ -124,6 +215,74 @@ class Block(nn.Module):
             dim, Attention(dim, heads, dim_head, dropout, device), device)))
         self.add_module("1", Residual(PreNorm(
             dim, FeedForward(dim, mlp_dim, dropout, device), device)))
+        if q_format == QFormat.PyTorchINT8:
+            for module, name in self._sites():
+                setattr(module, name, ActQuant(device))
+            if converted:
+                for linear in self._linears():
+                    _make_int8(linear)
+
+    def _sites(self):
+        """(module, observer name) of the ten sites, in the order of the
+        TPU kernels' site rows: attention 0-4, then MLP 0-4."""
+        a, f = self._modules["0"], self._modules["1"]
+        net = f.fn.fn.net
+        return [(a.fn.norm, "act_out"), (a.fn.fn.to_qkv, "act_out"),
+                (a.fn.fn, "quant_out"), (a.fn.fn.to_out[0], "act_out"),
+                (a, "res_add"),
+                (f.fn.norm, "act_out"), (net[0], "act_out"),
+                (net[1], "act_out"), (net[3], "act_out"), (f, "res_add")]
+
+    def _linears(self):
+        attn, net = self._modules["0"].fn.fn, self._modules["1"].fn.fn.net
+        return [attn.to_qkv, attn.to_out[0], net[0], net[3]]
+
+    def site_table(self):
+        """(2, 5, 3) fp32: the (scale, zero point, has_stats) rows of the
+        attention and the MLP half's sites."""
+        return torch.stack([site_row(getattr(m, n))
+                            for m, n in self._sites()]).view(2, 5, 3)
+
+    def forward_calibrating(self, x):
+        """The JAX Block's discrete-site composition for PyTorchINT8 with
+        ``calibrating=True``, fp32 (B, N, C) in and out: every site folds
+        its input into its observer, then fake-quantizes it."""
+        a, f = self._modules["0"], self._modules["1"]
+        attn, net = a.fn.fn, f.fn.fn.net
+        y = a.fn.norm.act_out(layernorm_rows_plain(
+            x, a.fn.norm.weight, a.fn.norm.bias), True)
+        ctx = K.attention_context_f32(_qdense(attn.to_qkv, y), self.heads,
+                                      self.scale)
+        ctx = attn.quant_out(ctx, True)
+        x = a.res_add(_qdense(attn.to_out[0], ctx) + x, True)
+        y = f.fn.norm.act_out(layernorm_rows_plain(
+            x, f.fn.norm.weight, f.fn.norm.bias), True)
+        # QGelu calibrating: the polynomial erf
+        g = net[1].act_out(K.gelu_poly(_qdense(net[0], y)), True)
+        return f.res_add(_qdense(net[3], g) + x, True)
+
+    def forward_converted(self, x, sites, plain=False):
+        """The converted model's block: one INT8 op per half, fp32 (B, N,
+        C) in and out; ``sites`` is :meth:`site_table` as loaded."""
+        a, f = self._modules["0"].fn, self._modules["1"].fn
+        qkv, out = a.fn.to_qkv, a.fn.to_out[0]
+        fc1, fc2 = f.fn.net[0], f.fn.net[3]
+        attn_op = int8_attention_block_plain if plain else \
+            int8_attention_block
+        mlp_op = int8_mlp_block_plain if plain else int8_mlp_block
+        x = attn_op(
+            x, a.norm.weight, a.norm.bias,
+            qkv.weight.t(), qkv.weight_scale, qkv.bias,
+            out.weight.t(), out.weight_scale, out.bias, sites[0],
+            self.heads, self.scale,
+            colsums=(qkv.weight_colsum, out.weight_colsum),
+        )
+        return mlp_op(
+            x, f.norm.weight, f.norm.bias,
+            fc1.weight.t(), fc1.weight_scale, fc1.bias,
+            fc2.weight.t(), fc2.weight_scale, fc2.bias, sites[1],
+            colsums=(fc1.weight_colsum, fc2.weight_colsum),
+        )
 
     def forward(self, x, plain: bool = False):
         attn = self._modules["0"].fn
@@ -152,10 +311,11 @@ class Transformer(nn.Module):
     """depth x Block (reference vit.py:102-161); ViT.forward runs them."""
 
     def __init__(self, dim, depth, heads, dim_head, mlp_dim, dropout,
-                 device=None):
+                 device=None, q_format=QFormat.FP32, converted=False):
         super().__init__()
         self.layers = nn.ModuleList(
-            Block(dim, heads, dim_head, mlp_dim, dropout, depth, device)
+            Block(dim, heads, dim_head, mlp_dim, dropout, depth, device,
+                  q_format, converted)
             for _ in range(depth)
         )
 
@@ -174,6 +334,26 @@ class ClassificationDecoder(nn.Module):
         y = layernorm_rows_plain(x[:, 0], self.norm.weight, self.norm.bias)
         return _dense(y, self.linear, dtype)
 
+    def forward_calibrating(self, x):
+        y = layernorm_rows_plain(x[:, 0], self.norm.weight, self.norm.bias)
+        return _qdense(self.linear, self.norm.act_out(y, True))
+
+    def forward_converted(self, kern, x, sites, has):
+        """``sites``: the rows of ``norm.act_out`` and ``linear.act_out``;
+        ``has``: whether the first has statistics."""
+        y = x[:, 0].contiguous()
+        if not has:  # the integer path needs the norm's grid
+            y = self.norm.act_out(layernorm_rows_plain(
+                y, self.norm.weight, self.norm.bias))
+            return _int8_dense(kern, self.linear, y, sites[0], sites[1],
+                               False)
+        q8 = kern.layernorm_quant_rows(y, self.norm.weight, self.norm.bias,
+                                       sites[0])
+        lin = self.linear
+        return kern.gemm_s8(q8, lin.weight.t(), lin.weight_colsum,
+                            lin.weight_scale, sites[0], lin.bias, "requant",
+                            sites[1])
+
 
 def interpolate_pos_embedding(pos_embedding, grid_h, grid_w):
     """Bicubically rescale the stored 14x14 positional grid to
@@ -191,24 +371,32 @@ class ViT(nn.Module):
     """The ViT backbone with the classification decoder (reference
     vit.py:164-323).
 
-    ``forward(img, plain=False)``: img (B, H, W, C) float NHWC -> fp32
-    logits (B, num_classes), differentiable; ``plain`` selects the plain
-    PyTorch chains in place of the kernels.  The detection parameters (``pos_embedding_det``,
-    ``det_tokens``) exist so that the reference state dict loads
-    strictly; the classification forward does not read them.
+    ``forward(img, plain=False, calibrating=False)``: img (B, H, W, C)
+    float NHWC -> fp32 logits (B, num_classes); differentiable in FP32;
+    ``plain`` selects the plain PyTorch versions in place of the kernels;
+    ``calibrating`` (PyTorchINT8 before convert, the only forward that
+    model runs here) updates the observers.
+    The detection parameters (``pos_embedding_det``, ``det_tokens``)
+    exist so that the reference state dict loads strictly; the
+    classification forward does not read them.
     """
 
     def __init__(self, decoder, image_size, patch_size, num_classes, dim,
                  depth, heads, mlp_dim, channels=3, dim_head=64,
                  dropout=0.0, emb_dropout=0.0, num_det_tokens=100,
-                 q_format="FP32", compute_dtype=torch.bfloat16, device=None,
-                 generator=None):
+                 q_format="FP32", converted=False,
+                 compute_dtype=torch.bfloat16, device=None, generator=None):
         super().__init__()
         if decoder != "classification":
             raise NotImplementedError(f"decoder {decoder!r}: {_NOT_PORTED}")
-        q_format = getattr(q_format, "name", q_format)
-        if q_format != "FP32":
-            raise NotImplementedError(f"q_format {q_format}: {_NOT_PORTED}")
+        q_format = QFormat[getattr(q_format, "name", q_format)]
+        if q_format not in (QFormat.FP32, QFormat.PyTorchINT8):
+            raise NotImplementedError(
+                f"q_format {q_format.name}: {_FLOAT_FORMATS_NOT_PORTED}")
+        if converted and q_format != QFormat.PyTorchINT8:
+            raise NotImplementedError(
+                f"converted q_format {q_format.name}: "
+                f"{_FLOAT_FORMATS_NOT_PORTED}")
         if image_size % patch_size:
             raise ValueError("Image dimensions must be divisible by the "
                              "patch size.")
@@ -224,7 +412,11 @@ class ViT(nn.Module):
         self.dim = dim
         self.dropout = dropout
         self.emb_dropout = emb_dropout
-        self.compute_dtype = compute_dtype
+        self.q_format = q_format
+        self.converted = converted
+        self.int8 = q_format == QFormat.PyTorchINT8
+        # a quantized format computes in fp32, as the JAX ViT does
+        self.compute_dtype = torch.float32 if self.int8 else compute_dtype
         patch_dim = channels * patch_size ** 2
 
         def param(*shape):
@@ -237,29 +429,102 @@ class ViT(nn.Module):
         self.det_tokens = param(1, num_det_tokens, dim)
         self.patch_to_embedding = _linear(patch_dim, dim, device)
         self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim,
-                                       dropout, device)
+                                       dropout, device, q_format, converted)
         self.decoder = ClassificationDecoder(dim, num_classes, device)
+        if self.int8:
+            for name in ("quant_img", "quant_cls_token",
+                         "quant_pos_embedding", "cls_token_cat",
+                         "pos_embedding_cat", "pos_embedding_add"):
+                setattr(self, name, ActQuant(device))
+            for module in (self.patch_to_embedding, self.decoder.norm,
+                           self.decoder.linear):
+                module.act_out = ActQuant(device)
+        if converted:
+            for linear in (self.patch_to_embedding, self.decoder.linear):
+                _make_int8(linear)
+            # the sites' rows, refreshed when a state dict is loaded:
+            # quant_img, patch_to_embedding.act_out, decoder.norm.act_out,
+            # decoder.linear.act_out; then each block's site_table
+            self.register_buffer("io_sites", torch.zeros(4, 3, device=device),
+                                 persistent=False)
+            self.register_buffer(
+                "block_sites", torch.zeros(depth, 2, 5, 3, device=device),
+                persistent=False)
+            self._has = (False, False)
         self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         """The JAX package's initialisers, drawn on the CPU from
         ``generator`` (a fresh one seeded 0 when None): tokens N(0, 1),
-        Linear weight and bias U(+-1/sqrt(fan_in)), LayerNorm 1 and 0."""
+        Linear weight and bias U(+-1/sqrt(fan_in)), LayerNorm 1 and 0.  A
+        converted model stores each drawn weight through convert's int8
+        quantization."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for module in self.modules():
             if isinstance(module, nn.Linear):
                 bound = module.in_features ** -0.5
-                for p in (module.weight, module.bias):
-                    p.copy_(torch.empty(p.shape).uniform_(
-                        -bound, bound, generator=generator))
+                w, b = (torch.empty(p.shape).uniform_(-bound, bound,
+                                                      generator=generator)
+                        for p in (module.weight, module.bias))
+                if module.weight.dtype == torch.int8:
+                    scale = symmetric_int8_scale(w.abs().max())
+                    w = torch.clamp(torch.round(w / scale), -128, 127)
+                    module.weight_scale.copy_(scale)
+                module.weight.copy_(w)
+                module.bias.copy_(b)
             elif isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.fill_(0.0)
         for p in (self.pos_embedding, self.pos_embedding_det,
                   self.cls_token, self.det_tokens):
             p.copy_(torch.empty(p.shape).normal_(generator=generator))
+        self._refresh_converted()
+
+    @torch.no_grad()
+    def _refresh_converted(self):
+        """Column sums of the int8 weights and the sites' rows, computed
+        once for the frozen observers of a converted model."""
+        if not self.converted:
+            return
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                module.weight_colsum.copy_(weight_colsum(module.weight.t()))
+        io = [self.quant_img, self.patch_to_embedding.act_out,
+              self.decoder.norm.act_out, self.decoder.linear.act_out]
+        self.io_sites.copy_(torch.stack([site_row(o) for o in io]))
+        self.block_sites.copy_(torch.stack(
+            [block.site_table() for block in self.transformer.layers]))
+        has = self.io_sites[:, 2].tolist()
+        self._has = (has[0] > 0.5, has[2] > 0.5)
+
+    def load_state_dict(self, state_dict, strict=True, assign=False):
+        """``nn.Module.load_state_dict``, refusing a tensor whose dtype is
+        int8 on one side only (an fp32 checkpoint into a converted model,
+        or the converted one into a float model), then refreshing what a
+        converted model computes from its weights and observers."""
+        own = self.state_dict()
+        for name, t in state_dict.items():
+            if name in own and (own[name].dtype == torch.int8) != \
+                    (t.dtype == torch.int8):
+                raise TypeError(
+                    f"{name}: a {t.dtype} tensor for a {own[name].dtype} "
+                    "entry (a converted checkpoint goes into a converted=True "
+                    "model, an fp32 one into a float model)")
+        result = super().load_state_dict(state_dict, strict=strict,
+                                         assign=assign)
+        self._refresh_converted()
+        return result
+
+    def load_ptq_state_dict(self, state_dict):
+        """Load an fp32 reference state dict (no observers) strictly into
+        this PyTorchINT8 model and keep its observers as they are: the
+        PTQ flow, where the format is applied after the weights are read
+        (reference test_quantize.py:90-103)."""
+        observers = {name: t for name, t in self.state_dict().items()
+                     if is_observer(name)}
+        return self.load_state_dict({**observers, **state_dict}, strict=True)
 
     def patchify(self, img):
         """NHWC image -> (B, num_patches, p*p*C), per-patch element order
@@ -269,29 +534,94 @@ class ViT(nn.Module):
         x = img.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, (h // p) * (w // p), p * p * c)
 
-    def forward(self, img, plain: bool = False):
+    def _positions(self, h, w):
+        p = self.patch_size
+        pos_patches = interpolate_pos_embedding(
+            self.pos_embedding[:, 1:], h // p, w // p
+        )
+        return torch.cat([self.pos_embedding[:, :1], pos_patches], dim=1)
+
+    def _tokens_int8(self, x, h, w, calibrating=False):
+        """cls token, positions and their sites (JAX ViT.__call__)."""
+        b = x.shape[0]
+        cls = self.quant_cls_token(self.cls_token.expand(b, 1, self.dim),
+                                   calibrating)
+        x = self.cls_token_cat(torch.cat([cls, x], dim=1), calibrating)
+        pos = self.pos_embedding_cat(self._positions(h, w).float(),
+                                     calibrating)
+        pos = self.quant_pos_embedding(pos, calibrating)
+        return self.pos_embedding_add(x + pos, calibrating)
+
+    def forward(self, img, plain: bool = False, calibrating: bool = False):
         if self.training and (self.dropout or self.emb_dropout):
             raise NotImplementedError(f"active dropout: {_NOT_PORTED}")
+        if self.converted:
+            if calibrating:
+                raise ValueError("a converted model's observers are frozen; "
+                                 "calibrate before convert")
+            return self._forward_converted(img, plain)
+        if self.int8:
+            if not calibrating:
+                raise NotImplementedError(
+                    "the PyTorchINT8 simulation's eval forward (before "
+                    f"convert) is {_NOT_PORTED}; calibrate, then convert")
+            return self._forward_calibrating(img)
         b, h, w, _ = img.shape
-        p = self.patch_size
         dtype = self.compute_dtype
         x = _dense(self.patchify(img.to(dtype)), self.patch_to_embedding,
                    dtype)
         cls_tokens = self.cls_token.to(dtype).expand(b, 1, self.dim)
         x = torch.cat([cls_tokens, x], dim=1)
-        pos_patches = interpolate_pos_embedding(
-            self.pos_embedding[:, 1:], h // p, w // p
-        )
-        pos = torch.cat([self.pos_embedding[:, :1], pos_patches], dim=1)
-        x = x + pos.to(dtype)
+        x = x + self._positions(h, w).to(dtype)
         for block in self.transformer.layers:
             x = block(x, plain)
         return self.decoder(x).float()
 
+    def _forward_calibrating(self, img):
+        """PyTorchINT8 before convert: the discrete-site forward with
+        every observer updated."""
+        _, h, w, _ = img.shape
+        x = self.quant_img(self.patchify(img.float()), True)
+        x = self._tokens_int8(_qdense(self.patch_to_embedding, x), h, w,
+                              True)
+        for block in self.transformer.layers:
+            x = block.forward_calibrating(x)
+        return self.decoder.forward_calibrating(x)
 
-def vit_kwargs_from_config(config, data_config):
+    def _forward_converted(self, img, plain):
+        """The converted PyTorchINT8 model: int8 products throughout."""
+        b, h, w, _ = img.shape
+        n = (h // self.patch_size) * (w // self.patch_size) + 1
+        if n > INT8_MAX_N:
+            raise NotImplementedError(
+                f"{n} tokens: the converted INT8 blocks take at most "
+                f"{INT8_MAX_N}; longer sequences wait for the flash kernels "
+                "(ROADMAP B5)")
+        kern = K.PLAIN if plain else K.for_device(img)
+        x = self.embed_converted(img, kern)
+        for block, sites in zip(self.transformer.layers, self.block_sites):
+            x = block.forward_converted(x, sites, plain)
+        return self.decoder.forward_converted(kern, x, self.io_sites[2:],
+                                              self._has[1])
+
+    def embed_converted(self, img, kern):
+        """The converted model's tokens entering the first block: the int8
+        patch embedding (``kern.gemm_s8``), the cls token and positions.
+        quant_img's fake-quant and the product's quantization share one
+        grid, so the product quantizes the raw patches (and without
+        statistics the fake-quant passes them through)."""
+        _, h, w, _ = img.shape
+        io = self.io_sites
+        x = _int8_dense(kern, self.patch_to_embedding,
+                        self.patchify(img.float()), io[0], io[1],
+                        self._has[0])
+        return self._tokens_int8(x, h, w)
+
+
+def vit_kwargs_from_config(config, data_config, converted=False):
     """ViT constructor kwargs from the reference JSON config schema
-    (myrtle_vision_tpu/models/vit.py vit_kwargs_from_config)."""
+    (myrtle_vision_tpu/models/vit.py vit_kwargs_from_config), with
+    ``converted`` passed through."""
     vit_config = config["vit_config"]
     kwargs = dict(
         decoder=vit_config["decoder"],
@@ -305,6 +635,7 @@ def vit_kwargs_from_config(config, data_config):
         dropout=vit_config["dropout"],
         emb_dropout=vit_config["emb_dropout"],
         q_format=vit_config["q_format"],
+        converted=converted,
         dim_head=vit_config.get(
             "dim_head", vit_config["embed_dim"] // vit_config["heads"]
         ),

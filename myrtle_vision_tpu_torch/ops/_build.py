@@ -130,6 +130,10 @@ def lib() -> ctypes.CDLL:
             ("mvt_layernorm_rows_bwd_max_cols", []),
             ("mvt_colsum_rows", [p, i, p, p, i, i, p, p]),
             ("mvt_colsum_chunk", []),
+            ("mvt_layernorm_quant_rows", [p, p, p, p, p, i, i, f, p]),
+            ("mvt_gemm_s8", [p] * 10 + [i, i, i, i, p]),
+            ("mvt_attention_core_f32", [p, p, p, i, i, i, i, f, p]),
+            ("mvt_attention_core_f32_max_n", []),
         ):
             fn = getattr(handle, name)
             fn.argtypes = args

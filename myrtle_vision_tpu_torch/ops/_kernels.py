@@ -14,6 +14,16 @@ kernel (ops/fused_attention_block.py, ops/fused_mlp.py).  The kernels
 - ``layernorm_rows_bwd``   csrc/layernorm_rows_bwd.cu
 - ``colsum_rows``          csrc/layernorm_rows_bwd.cu
 
+and those of the converted-INT8 block halves (ops/fused_int8_block.py),
+fp32 activations, int8 operands:
+
+- ``layernorm_quant_rows`` csrc/layernorm_quant_rows.cu
+- ``gemm_s8_epilogue``     csrc/gemm_s8_epilogue.cu
+- ``attention_core_f32``   csrc/attention_core_f32.cu
+
+A PyTorchINT8 observer site is a (3,) fp32 tensor (scale, zero point,
+has_stats as 1 or 0), a row of the model's site table.
+
 Each ``*_plain`` function rounds at the same points as its kernel and as
 the TPU kernels it stands in for (operands in the activation dtype, fp32
 accumulation and statistics, one rounding of each output), so the CPU
@@ -31,6 +41,11 @@ from types import SimpleNamespace
 
 import torch
 
+from myrtle_vision_tpu_torch.ops.high_precision import (
+    bdot_pv_high3,
+    bdot_qk_high3,
+)
+
 EPS = 1e-5
 _SQRT_2 = 1.4142135623730951
 _INV_SQRT_2PI = 0.3989422804014327
@@ -41,7 +56,11 @@ _GEMM_TILE = 128  # rows and columns of one GEMM output tile
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
             "attention_core": 0, "attention_core_bwd": 0,
-            "layernorm_rows_bwd": 0, "colsum_rows": 0}
+            "layernorm_rows_bwd": 0, "colsum_rows": 0,
+            "layernorm_quant_rows": 0, "gemm_s8_epilogue": 0,
+            "attention_core_f32": 0}
+INT8_EPILOGUES = {"requant": 0, "requant_gelu_quant": 1,
+                  "requant_residual_requant": 2}
 
 
 def reset_launches() -> None:
@@ -190,6 +209,81 @@ def colsum_rows_plain(t):
     return t.float().sum(0)
 
 
+def _guarded(site):
+    """(scale, zero point) of a site, 1 and 128 without statistics (the
+    integer products' guard, ``_quantize_i8``)."""
+    has = site[2] > 0.5
+    return (torch.where(has, site[0], torch.ones_like(site[0])),
+            torch.where(has, site[1], torch.full_like(site[1], 128.0)))
+
+
+def quantize_i8(x, site):
+    """fp32 -> the site's uint8 grid q = clip(rint(x/s) + zp, 0, 255),
+    returned as int8 q - 128, with the guard of :func:`_guarded`."""
+    s, zp = _guarded(site)
+    q = torch.clamp(torch.round(x / s) + zp, 0.0, 255.0)
+    return (q - 128.0).to(torch.int8)
+
+
+def requant(x, site):
+    """The site's uint8 affine fake-quant; without statistics x as it is
+    (``_requant`` of myrtle_vision_tpu/ops/fused_int8_block.py)."""
+    s, zp = site[0], site[1]
+    q = torch.clamp(torch.round(x / s) + zp, 0.0, 255.0)
+    return torch.where(site[2] > 0.5, (q - zp) * s, x)
+
+
+def layernorm_quant_rows_plain(x, scale, bias, site):
+    """fp32 (..., C) -> the int8 grid of ``site`` of LayerNorm(x) (eps
+    1e-5, fp32 scale and bias): the prologue of both converted-INT8
+    block kernels."""
+    return quantize_i8(layernorm_rows_plain(x, scale, bias), site)
+
+
+def gemm_s8_epilogue_plain(a, w, colsum, w_scale, a_site, bias, epilogue,
+                           site, site2=None, residual=None):
+    """The shifted-zero-point int8 product of ``_i8_dot`` and an
+    epilogue: a int8 (M, K) = q - 128 on ``a_site``'s grid, w int8 (K,
+    N), colsum fp32 (N,) = sum_k w[k, n], w_scale fp32 0-d ->
+    v = (s_x s_w) (a @ w + (128 - zp_x) colsum) + bias, the integer
+    product exact (float64, rounded once to fp32 as the int32 sum is),
+    then
+    "requant":                  requant(v, site), fp32;
+    "requant_gelu_quant":       the int8 grid of ``site2`` of
+                                GELU(requant(v, site)), int8;
+    "requant_residual_requant": requant(requant(v, site) + residual,
+                                site2), fp32."""
+    acc = torch.matmul(a.double(), w.double()).float()
+    s_x, zp = _guarded(a_site)
+    v = (s_x * w_scale) * (acc + (128.0 - zp) * colsum) + bias
+    v = requant(v, site)
+    if epilogue == "requant":
+        return v
+    if epilogue == "requant_gelu_quant":
+        return quantize_i8(gelu_poly(v), site2)
+    if epilogue == "requant_residual_requant":
+        return requant(v + residual, site2)
+    raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
+def attention_context_f32(qkv, heads, scale):
+    """fp32 (B, N, 3C) qkv rows, feature order [3][h][d] -> the fp32 (B,
+    N, C) context: the 3-pass bf16 scores (ops/high_precision.py), x
+    scale after the product, softmax with a true divide, the 3-pass P V
+    (the core of ``_attn_kernel``)."""
+    b, n, c3 = qkv.shape
+    q, k, v = _heads(qkv, heads)
+    s = bdot_qk_high3(q, k) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    return bdot_pv_high3(p, v).permute(0, 2, 1, 3).reshape(b, n, c3 // 3)
+
+
+def attention_core_f32_plain(qkv, heads, scale, site):
+    """The int8 grid of ``site`` of :func:`attention_context_f32`."""
+    return quantize_i8(attention_context_f32(qkv, heads, scale), site)
+
+
 PLAIN = SimpleNamespace(
     layernorm_rows=layernorm_rows_plain,
     gemm=gemm_bf16_epilogue_plain,
@@ -197,6 +291,9 @@ PLAIN = SimpleNamespace(
     attention_core_bwd=attention_core_bwd_plain,
     layernorm_rows_bwd=layernorm_rows_bwd_plain,
     colsum_rows=colsum_rows_plain,
+    layernorm_quant_rows=layernorm_quant_rows_plain,
+    gemm_s8=gemm_s8_epilogue_plain,
+    attention_core_f32=attention_core_f32_plain,
 )
 
 
@@ -449,6 +546,100 @@ def colsum_rows_cuda(t):
     return out
 
 
+def _require_site(site, name):
+    """A site row: fp32 (3,) on the card, contiguous (4-byte aligned, as
+    a row of the site table is)."""
+    if site.device.type != "cuda" or site.dtype != torch.float32:
+        raise TypeError(f"{name}: expected a CUDA fp32 site, got "
+                        f"{site.dtype} on {site.device}")
+    if tuple(site.shape) != (3,) or not site.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous (3,) site, got "
+                         f"{tuple(site.shape)}")
+
+
+def layernorm_quant_rows_cuda(x, scale, bias, site):
+    """The CUDA version of :func:`layernorm_quant_rows_plain`: x fp32
+    (..., C), scale and bias fp32 (C,) -> int8 (..., C)."""
+    cols = x.shape[-1]
+    _require(x, "x", torch.float32)
+    for t, name in ((scale, "scale"), (bias, "bias")):
+        _require_shape(t, name, (cols,))
+    _require_site(site, "site")
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    _launch("layernorm_quant_rows", _lib().mvt_layernorm_quant_rows, x,
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), site.data_ptr(),
+            out.data_ptr(), x.numel() // cols, cols, EPS)
+    return out
+
+
+def gemm_s8_epilogue_cuda(a, w, colsum, w_scale, a_site, bias, epilogue,
+                          site, site2=None, residual=None):
+    """The CUDA version of :func:`gemm_s8_epilogue_plain`: a int8 (M, K)
+    row-major, w int8 (K, N) read in place as the transpose of a
+    row-major (N, K) tensor (the (in, out) view of a torch (out, in)
+    weight); K a multiple of 16, M and N any."""
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
+        raise ValueError(f"gemm_s8: shapes {tuple(a.shape)} @ "
+                         f"{tuple(w.shape)}")
+    m, k = a.shape
+    n = w.shape[1]
+    wt, col_major = _operand(w, "w")
+    if not col_major:
+        raise ValueError("gemm_s8: w must be the transpose of a row-major "
+                         "(N, K) tensor, as a torch weight's (in, out) view")
+    _require(a, "a", torch.int8)
+    _require(wt, "w", torch.int8)
+    if k % 16:
+        raise ValueError(f"gemm_s8: K={k} must be a multiple of 16")
+    code = INT8_EPILOGUES[epilogue]
+    _require_shape(colsum, "colsum", (n,))
+    _require_shape(bias, "bias", (n,))
+    if w_scale.numel() != 1 or w_scale.dtype != torch.float32 or \
+            w_scale.device != a.device:
+        raise TypeError("gemm_s8: w_scale must be one fp32 value on the card")
+    _require_site(a_site, "a_site")
+    _require_site(site, "site")
+    res_ptr = site2_ptr = None
+    if code:
+        _require_site(site2, "site2")
+        site2_ptr = site2.data_ptr()
+    if epilogue == "requant_residual_requant":
+        _require_shape(residual, "residual", (m, n))
+        res_ptr = residual.data_ptr()
+    out = torch.empty((m, n), device=a.device,
+                      dtype=torch.int8 if code == 1 else torch.float32)
+    _launch("gemm_s8_epilogue", _lib().mvt_gemm_s8, a,
+            a.data_ptr(), wt.data_ptr(), colsum.data_ptr(),
+            w_scale.data_ptr(), a_site.data_ptr(), bias.data_ptr(),
+            site.data_ptr(), site2_ptr, res_ptr, out.data_ptr(), m, n, k,
+            code)
+    return out
+
+
+def attention_core_f32_max_n() -> int:
+    return _lib().mvt_attention_core_f32_max_n()
+
+
+def attention_core_f32_cuda(qkv, heads, scale, site):
+    """The CUDA version of :func:`attention_core_f32_plain`: fp32 (B, N,
+    3C) -> int8 (B, N, C); D = C/heads must be 32 or 64 and N at most
+    :func:`attention_core_f32_max_n`."""
+    _require(qkv, "qkv", torch.float32)
+    b, n, c3 = qkv.shape
+    c, d = _head_width(c3, heads, "attention_core_f32")
+    if n > attention_core_f32_max_n():
+        raise ValueError(
+            f"attention_core_f32: sequence {n} exceeds the kernel's maximum "
+            f"{attention_core_f32_max_n()}; long sequences wait for the "
+            "flash kernels (ROADMAP B5)")
+    _require_site(site, "site")
+    out = torch.empty((b, n, c), dtype=torch.int8, device=qkv.device)
+    _launch("attention_core_f32", _lib().mvt_attention_core_f32, qkv,
+            qkv.data_ptr(), site.data_ptr(), out.data_ptr(), b, n, heads, d,
+            float(scale))
+    return out
+
+
 CUDA = SimpleNamespace(
     layernorm_rows=layernorm_rows_cuda,
     gemm=gemm_bf16_epilogue_cuda,
@@ -456,6 +647,9 @@ CUDA = SimpleNamespace(
     attention_core_bwd=attention_core_bwd_cuda,
     layernorm_rows_bwd=layernorm_rows_bwd_cuda,
     colsum_rows=colsum_rows_cuda,
+    layernorm_quant_rows=layernorm_quant_rows_cuda,
+    gemm_s8=gemm_s8_epilogue_cuda,
+    attention_core_f32=attention_core_f32_cuda,
 )
 
 

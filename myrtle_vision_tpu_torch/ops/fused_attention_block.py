@@ -23,9 +23,10 @@ chain of CUDA kernels with intermediates in device memory
 Where the TPU kernel accumulates the weight gradients across its
 sequential grid, each is here one product over the B*N rows.  When it
 records for the backward, the forward also keeps the context, the
-softmax rowmax and reciprocal rowsum and, when ``save_acts`` of the JAX
-package (ops/acts_policy.py, reused by import so both packages decide
-alike) affords it, the qkv rows; otherwise the backward recomputes them.
+softmax rowmax and reciprocal rowsum and, when ``save_acts``
+(ops/acts_policy.py, a copy of the JAX package's, so both packages
+decide alike) affords it, the qkv rows; otherwise the backward
+recomputes them.
 Each direction rounds where the TPU kernel rounds, so the plain PyTorch
 chain (CPU tensors) and the kernel chain (CUDA tensors) differ only in
 the order of fp32 sums.
@@ -40,8 +41,8 @@ from __future__ import annotations
 
 import torch
 
-from myrtle_vision_tpu.ops.acts_policy import save_acts
 from myrtle_vision_tpu_torch.ops import _kernels as K
+from myrtle_vision_tpu_torch.ops.acts_policy import save_acts
 
 
 def _forward(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,

@@ -1,6 +1,7 @@
 """Classification task: the loss function for the trainer core and the
 eval forward (myrtle_vision_tpu/training/classification.py
-``make_loss_fn``, FP32 without a distiller, and ``make_predict_fn``)."""
+``make_loss_fn``, FP32 without a distiller, and ``make_predict_fn``, for
+the FP32 and the converted PyTorchINT8 model alike)."""
 from __future__ import annotations
 
 import torch
@@ -25,7 +26,9 @@ def make_loss_fn(model):
 
 def make_predict_fn(model):
     """images (B, H, W, C) on the model's device -> fp32 logits, under
-    ``torch.inference_mode()`` with the model in eval mode."""
+    ``torch.inference_mode()`` with the model in eval mode.  A converted
+    PyTorchINT8 model runs its int8 products; its observers are frozen,
+    so the forward changes no state."""
 
     def predict(images):
         model.eval()

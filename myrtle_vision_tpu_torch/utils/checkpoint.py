@@ -18,21 +18,33 @@ import torch
 from myrtle_vision_tpu_torch.utils.convert import require_torch_file
 
 
-def save_checkpoint(state, filepath, extra=None, include_optimizer=True):
-    """Write a TrainState to ``filepath`` (a temporary file, then
-    ``os.replace``)."""
+def _write(filepath, model, optimizer, iteration, extra):
     payload = {
         "model": {name: t.detach().cpu()
-                  for name, t in state.model.state_dict().items()},
-        "optimizer": (state.optimizer.state_dict() if include_optimizer
-                      else None),
+                  for name, t in model.state_dict().items()},
+        "optimizer": optimizer,
         "quant": {},
         "lr_scheduler": extra or {},
-        "iteration": int(state.iteration),
+        "iteration": int(iteration),
     }
     tmp = f"{filepath}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, filepath)
+
+
+def save_checkpoint(state, filepath, extra=None, include_optimizer=True):
+    """Write a TrainState to ``filepath`` (a temporary file, then
+    ``os.replace``)."""
+    _write(filepath, state.model,
+           state.optimizer.state_dict() if include_optimizer else None,
+           state.iteration, extra)
+
+
+def save_model(model, filepath, iteration=0):
+    """Write a model without optimizer state (the converted-INT8
+    deployment checkpoint, int8 storage as it is); utils/convert.py
+    ``load_reference_checkpoint`` reads it back."""
+    _write(filepath, model, None, iteration, None)
 
 
 def load_checkpoint(state, filepath, restore_optimizer=True):

@@ -1,11 +1,39 @@
-"""Weights carried across: JAX param trees, reference-format ``.pth``
-files and pretrained timm backbones -> state dicts in the reference
-naming that the port's modules load.
+"""Weights and observer state carried across: JAX param trees (with their
+``quant`` collection), reference-format ``.pth`` files and pretrained
+timm backbones -> state dicts in the reference naming that the port's
+modules load.
 
-The name mappings are the JAX package's own
-(myrtle_vision_tpu/utils/export.py ``export_torch_state_dict``,
-myrtle_vision_tpu/utils/pretrained.py), reused by import; those modules
-import numpy only at their top.
+The parameter names are the reference's, by the rules of
+myrtle_vision_tpu/utils/export.py, which the port keeps a copy of
+(utils/export.py).  The PyTorchINT8 observers (models/vit.py) take the
+names below; each site holds two fp32 scalars, ``<site>.min`` and
+``<site>.max``, the running minimum and maximum of the JAX ``quant``
+collection's ``min`` and ``max``:
+
+=========================================  ================================
+JAX ``quant`` path                         port site
+=========================================  ================================
+quant_img, quant_cls_token,                the same name on the model
+quant_pos_embedding, cls_token_cat,
+pos_embedding_cat, pos_embedding_add
+patch_to_embedding/act_out                 patch_to_embedding.act_out
+decoder/norm/act_out                       decoder.norm.act_out
+decoder/linear/act_out                     decoder.linear.act_out
+transformer/layers_i/attn_norm/act_out     transformer.layers.i.0.fn.norm.act_out
+  .../attn/to_qkv/act_out                  transformer.layers.i.0.fn.fn.to_qkv.act_out
+  .../attn/quant_out                       transformer.layers.i.0.fn.fn.quant_out
+  .../attn/to_out/act_out                  transformer.layers.i.0.fn.fn.to_out.0.act_out
+  .../attn_res/res_add                     transformer.layers.i.0.res_add
+  .../ffn_norm/act_out                     transformer.layers.i.1.fn.norm.act_out
+  .../ffn/fc1/act_out                      transformer.layers.i.1.fn.fn.net.0.act_out
+  .../ffn/gelu/act_out                     transformer.layers.i.1.fn.fn.net.1.act_out
+  .../ffn/fc2/act_out                      transformer.layers.i.1.fn.fn.net.3.act_out
+  .../ffn_res/res_add                      transformer.layers.i.1.res_add
+=========================================  ================================
+
+A converted JAX tree (``convert_params``: int8 ``kernel`` with an fp32
+``kernel_scale``) becomes int8 ``<linear>.weight`` in the torch (out, in)
+layout with an fp32 0-d ``<linear>.weight_scale``.
 """
 from __future__ import annotations
 
@@ -14,22 +42,69 @@ import zipfile
 import numpy as np
 import torch
 
-from myrtle_vision_tpu.utils import export
-from myrtle_vision_tpu.utils.export import export_torch_state_dict
-from myrtle_vision_tpu.utils.pretrained import (
+from myrtle_vision_tpu_torch.utils import export
+from myrtle_vision_tpu_torch.utils.pretrained import (
     load_state_dict_from_source,
     rename_timm_state_dict,
 )
 
+_QUANT_TOP = ["quant_img", "quant_cls_token", "quant_pos_embedding",
+              "cls_token_cat", "pos_embedding_cat", "pos_embedding_add"]
+_QUANT_HEAD = [(("patch_to_embedding", "act_out"),
+                "patch_to_embedding.act_out"),
+               (("decoder", "norm", "act_out"), "decoder.norm.act_out"),
+               (("decoder", "linear", "act_out"), "decoder.linear.act_out")]
+_QUANT_LAYER = [
+    (("attn_norm", "act_out"), "0.fn.norm.act_out"),
+    (("attn", "to_qkv", "act_out"), "0.fn.fn.to_qkv.act_out"),
+    (("attn", "quant_out"), "0.fn.fn.quant_out"),
+    (("attn", "to_out", "act_out"), "0.fn.fn.to_out.0.act_out"),
+    (("attn_res", "res_add"), "0.res_add"),
+    (("ffn_norm", "act_out"), "1.fn.norm.act_out"),
+    (("ffn", "fc1", "act_out"), "1.fn.fn.net.0.act_out"),
+    (("ffn", "gelu", "act_out"), "1.fn.fn.net.1.act_out"),
+    (("ffn", "fc2", "act_out"), "1.fn.fn.net.3.act_out"),
+    (("ffn_res", "res_add"), "1.res_add"),
+]
 
-def state_dict_from_jax(params_numpy, decoder: str = "classification"):
-    """JAX ViT param tree (numpy arrays) -> {reference name: fp32 tensor}
-    with torch (out, in) Linear weights."""
-    return {
-        name: torch.from_numpy(arr)
-        for name, arr in export_torch_state_dict(params_numpy,
-                                                 decoder).items()
-    }
+
+def quant_site_names(depth: int):
+    """[(JAX quant path, port site name)] of a classification ViT."""
+    names = [((n,), n) for n in _QUANT_TOP] + list(_QUANT_HEAD)
+    for i in range(depth):
+        for path, name in _QUANT_LAYER:
+            names.append((("transformer", f"layers_{i}") + path,
+                          f"transformer.layers.{i}.{name}"))
+    return names
+
+
+def state_dict_from_jax(params_numpy, decoder: str = "classification",
+                        quant=None):
+    """JAX ViT param tree (numpy arrays), before or after
+    ``convert_params``, and optionally its ``quant`` collection -> {port
+    name: tensor}: fp32 parameters with torch (out, in) Linear weights;
+    int8 weights with their ``weight_scale``; ``<site>.min`` and
+    ``<site>.max`` of every observer."""
+    sd = {}
+    for path, name, is_kernel in export._rules(params_numpy, decoder):
+        arr = np.asarray(export._get(params_numpy, path))
+        if is_kernel:
+            arr = arr.T
+        if arr.dtype == np.int8:
+            scale = export._get(params_numpy, path[:-1] + ("kernel_scale",))
+            sd[name[:-len("weight")] + "weight_scale"] = torch.tensor(
+                np.float32(scale))
+        else:
+            arr = arr.astype(np.float32)
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    if quant is not None:
+        depth = len([k for k in params_numpy["transformer"]
+                     if k.startswith("layers_")])
+        for path, name in quant_site_names(depth):
+            site = export._get(quant, path)
+            for key in ("min", "max"):
+                sd[f"{name}.{key}"] = torch.tensor(np.float32(site[key]))
+    return sd
 
 
 def require_torch_file(path):
@@ -47,14 +122,16 @@ def require_torch_file(path):
 def load_reference_checkpoint(path):
     """Read the ``.pth`` that classification/export_checkpoint.py writes:
     a plain state dict or the reference's ``{"model": state_dict,
-    "iteration": n, ...}`` envelope, which the port's trainer writes
-    (utils/checkpoint.py).  A flax msgpack training checkpoint is
-    refused: export it first."""
+    "iteration": n, ...}`` envelope, which the port's trainer and its
+    converted-INT8 checkpoints write (utils/checkpoint.py).  Float tensors
+    come back fp32, int8 weights as they are.  A flax msgpack training
+    checkpoint is refused: export it first."""
     require_torch_file(path)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj.get("model"), dict):
         obj = obj["model"]
-    return {name: t.float() for name, t in obj.items()}
+    return {name: t if t.dtype == torch.int8 else t.float()
+            for name, t in obj.items()}
 
 
 def load_pretrained_backbone(model, source: str):

@@ -1,6 +1,7 @@
 """The port's evaluation CLI end to end on a tiny synthetic dataset,
 against the JAX package's eval forward on the same checkpoint; and the
-port's boundaries: no CUDA fallback, no jax import."""
+port's boundaries: no CUDA fallback, no jax import, nothing imported of
+the JAX package, directly or through another module."""
 import ast
 import json
 import os
@@ -22,6 +23,9 @@ from myrtle_vision_tpu.training.classification import (
 from myrtle_vision_tpu.utils.export import save_torch_checkpoint
 from myrtle_vision_tpu_torch.classification import test as cli
 from myrtle_vision_tpu_torch.data.loader import DataLoader
+from myrtle_vision_tpu_torch.datasets.resisc45 import (
+    Resisc45 as PortResisc45,
+)
 from myrtle_vision_tpu_torch.ops.fused_attention_block import (
     fused_attention_block,
 )
@@ -161,17 +165,93 @@ def test_port_never_imports_jax():
     assert int(proc.stdout.split()[-1]) >= 15
 
 
-def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py drives the port through its own modules: it imports
-    nothing of the JAX package directly."""
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+def _imported_names(path):
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.add(node.module)
+    return names
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "myrtle_vision_tpu_torch")
+    paths = [os.path.join(root, name) for root, _, names in os.walk(pkg)
+             for name in names if name.endswith(".py")]
+    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py drives the port through its own modules: it imports
+    nothing of the JAX package directly."""
+    names = _imported_names(os.path.join(REPO, "chip_smoke.py"))
     ours = {n for n in names if n.split(".")[0].startswith("myrtle")}
     assert ours and all(n.split(".")[0] == "myrtle_vision_tpu_torch"
                         for n in ours), sorted(ours)
+
+
+def test_no_port_source_imports_the_jax_package():
+    """Every import statement, at any depth, of every port module and of
+    chip_smoke.py: none names ``myrtle_vision_tpu`` (or a module in it)."""
+    paths = _port_sources()
+    assert len(paths) > 30
+    bad = {os.path.relpath(p, REPO): sorted(
+        n for n in _imported_names(p) if n.split(".")[0] == "myrtle_vision_tpu")
+        for p in paths}
+    assert not {p: n for p, n in bad.items() if n}
+
+
+def test_importing_the_port_loads_nothing_of_the_jax_package():
+    """Every port module, both CLIs among them, and chip_smoke.py, imported
+    in a fresh interpreter: ``myrtle_vision_tpu`` never enters
+    ``sys.modules``, so no module reaches it through another."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import myrtle_vision_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] == 'myrtle_vision_tpu')\n"
+        "assert not bad, bad\n"
+        "need = ['myrtle_vision_tpu_torch.classification.test',\n"
+        "        'myrtle_vision_tpu_torch.classification.test_quantize',\n"
+        "        'myrtle_vision_tpu_torch.classification.train']\n"
+        "assert all(m in sys.modules for m in need)\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
+@pytest.mark.parametrize("mode,split,config", [
+    ("eval", "test_imagepaths.txt", "transform_ops_val"),
+    ("train", "train_imagepaths.txt", "transform_ops_train"),
+])
+def test_resisc45_copy_yields_what_the_jax_one_does(setup, mode, split,
+                                                    config):
+    """The port's copy of the dataset: the same arrays from the same files,
+    random augmentations included, under the same seed."""
+    import random
+
+    with open(os.path.join(setup["root"], "data_config.json")) as f:
+        data_config = json.load(f)
+    args = (mode, data_config["dataset_path"], split, "label_map.json",
+            data_config[config])
+    random.seed(3)  # the train split is shuffled when it is read
+    ours = PortResisc45(*args)
+    random.seed(3)
+    ref = Resisc45(*args)
+    assert len(ours) == len(ref) > 0
+    for i in range(0, len(ref), 7):
+        a = ours.__getitem__(i, np.random.default_rng(i))
+        b = ref.__getitem__(i, np.random.default_rng(i))
+        assert a.keys() == b.keys()
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])

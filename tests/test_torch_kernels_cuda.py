@@ -312,3 +312,190 @@ def test_model_trains_through_the_kernels(dev):
         torch.testing.assert_close(
             got, ref, rtol=2.0 ** -4,
             atol=2.0 ** -4 * max(float(ref.abs().max()), 1e-3), msg=name)
+
+
+# ----------------------------------------------------- converted INT8
+# Kernel and plain version compute the integer products exactly and every
+# other step in the same order of fp32 operations, so they differ only
+# where an fp32 sum (LayerNorm statistics, softmax rowsum, the products
+# of the 3-pass core) is ordered differently and that moves a value
+# across a rint boundary.  Bar: at least 99.9% of the output elements
+# identical, none more than 2 steps of its grid apart; in a block-half
+# chain one flipped intermediate reaches a row of the next product and,
+# through a key or value, every query of its image, so a chain may differ
+# in 1% of its elements, and by up to 4 steps after the residual requant
+# (chip_smoke.py).
+INT8_SAME = 0.999
+INT8_CHAIN_SAME = 0.99
+INT8_STEPS = 2
+INT8_CHAIN_STEPS = 4
+
+
+def site_of(t):
+    """A site row (scale, zero point, 1) from t's range, as an observer
+    that has seen t."""
+    from myrtle_vision_tpu_torch.quantize import affine_uint8_qparams
+
+    scale, zp = affine_uint8_qparams(t.min(), t.max())
+    return torch.stack([scale, zp, torch.ones_like(scale)])
+
+
+def close_on_grid(got, ref, step, same=INT8_SAME, steps=INT8_STEPS):
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    diff = (got.float() - ref.float()).abs()
+    assert float((diff == 0).float().mean()) >= same
+    assert float(diff.max()) <= steps * float(step) * (1 + 1e-5)
+
+
+def int8_block(c, hid, b, n, seed, dev):
+    """fp32 x; int8 weights, each the (in, out) view of a torch (out, in)
+    tensor, with their scales and column sums; std-1 biases; and the
+    sites of both halves, observed on the plain chain's own values."""
+    from myrtle_vision_tpu_torch.ops.fused_int8_block import weight_colsum
+    from myrtle_vision_tpu_torch.quantize import symmetric_int8_scale
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * std).astype(np.float32)).to(dev)
+
+    def w8(out_f, in_f):
+        w = t(out_f, in_f, std=in_f ** -0.5)
+        s = symmetric_int8_scale(w.abs().max())
+        q = torch.clamp(torch.round(w / s), -128, 127).to(torch.int8).t()
+        return q, s, weight_colsum(q)
+
+    nosite = torch.zeros(3, device=dev)
+    heads = max(c // 64, 1)
+    x = t(b, n, c)
+    x2 = x.view(-1, c)
+    ln_a, ln_b = 1 + t(c, std=0.1), t(c, std=0.1)
+    wqkv, sqkv, csqkv = w8(3 * c, c)
+    bqkv = t(3 * c)
+    wout, sout, csout = w8(c, c)
+    bout = t(c)
+    y = K.layernorm_rows_plain(x2, ln_a, ln_b)
+    a_sites = [site_of(y)]
+    q8 = K.quantize_i8(y, a_sites[0])
+    v = K.gemm_s8_epilogue_plain(q8, wqkv, csqkv, sqkv, a_sites[0], bqkv,
+                                 "requant", nosite)
+    a_sites.append(site_of(v))
+    qkv = K.requant(v, a_sites[1]).view(b, n, 3 * c)
+    ctx = K.attention_context_f32(qkv, heads, (c // heads) ** -0.5)
+    a_sites.append(site_of(ctx))
+    ctx8 = K.quantize_i8(ctx, a_sites[2]).view(-1, c)
+    v = K.gemm_s8_epilogue_plain(ctx8, wout, csout, sout, a_sites[2], bout,
+                                 "requant", nosite)
+    a_sites.append(site_of(v))
+    a_sites.append(site_of(K.requant(v, a_sites[3]) + x2))
+    attn = [ln_a, ln_b, wqkv, sqkv, bqkv, wout, sout, bout,
+            torch.stack(a_sites)]
+
+    ln_a, ln_b = 1 + t(c, std=0.1), t(c, std=0.1)
+    w1, s1, cs1 = w8(hid, c)
+    b1 = t(hid)
+    w2, s2, cs2 = w8(c, hid)
+    b2 = t(c)
+    y = K.layernorm_rows_plain(x2, ln_a, ln_b)
+    m_sites = [site_of(y)]
+    v = K.gemm_s8_epilogue_plain(K.quantize_i8(y, m_sites[0]), w1, cs1, s1,
+                                 m_sites[0], b1, "requant", nosite)
+    m_sites.append(site_of(v))
+    g = K.gelu_poly(K.requant(v, m_sites[1]))
+    m_sites.append(site_of(g))
+    v = K.gemm_s8_epilogue_plain(K.quantize_i8(g, m_sites[2]), w2, cs2, s2,
+                                 m_sites[2], b2, "requant", nosite)
+    m_sites.append(site_of(v))
+    m_sites.append(site_of(K.requant(v, m_sites[3]) + x2))
+    mlp = [ln_a, ln_b, w1, s1, b1, w2, s2, b2, torch.stack(m_sites)]
+    return x, attn, mlp, ((csqkv, csout), (cs1, cs2))
+
+
+# (C, hidden, B, N): head widths 64 (C // 64 heads) and 32 (C = 32, one
+# head), ragged against the 16-row tiles and the 128-row GEMM tiles
+INT8_SHAPES = [(64, 128, 3, 17), (32, 64, 2, 37), (128, 256, 3, 50),
+               (384, 1536, 4, 197)]
+
+
+@pytest.mark.parametrize("c,hid,b,n", INT8_SHAPES)
+def test_int8_kernels_match_plain(dev, c, hid, b, n):
+    from myrtle_vision_tpu_torch.ops.fused_int8_block import weight_colsum
+
+    x, attn, mlp, _ = int8_block(c, hid, b, n, n + 7, dev)
+    heads = max(c // 64, 1)
+    x2 = x.view(-1, c)
+    ln_a, ln_b, wqkv, sqkv, bqkv, wout, sout, bout, sites = attn
+    before = dict(K.LAUNCHES)
+    close_on_grid(K.layernorm_quant_rows_cuda(x2, ln_a, ln_b, sites[0]),
+                  K.layernorm_quant_rows_plain(x2, ln_a, ln_b, sites[0]), 1)
+    q8 = K.layernorm_quant_rows_plain(x2, ln_a, ln_b, sites[0])
+    cs = weight_colsum(wqkv)
+    args = (q8, wqkv, cs, sqkv, sites[0], bqkv, "requant", sites[1])
+    close_on_grid(K.gemm_s8_epilogue_cuda(*args),
+                  K.gemm_s8_epilogue_plain(*args), sites[1][0])
+    qkv = K.gemm_s8_epilogue_plain(*args).view(b, n, 3 * c)
+    scale = (c // heads) ** -0.5
+    close_on_grid(K.attention_core_f32_cuda(qkv, heads, scale, sites[2]),
+                  K.attention_core_f32_plain(qkv, heads, scale, sites[2]), 1)
+    ctx8 = K.attention_core_f32_plain(qkv, heads, scale, sites[2]).view(-1, c)
+    args = (ctx8, wout, weight_colsum(wout), sout, sites[2], bout,
+            "requant_residual_requant", sites[3], sites[4])
+    close_on_grid(K.gemm_s8_epilogue_cuda(*args, residual=x2),
+                  K.gemm_s8_epilogue_plain(*args, residual=x2), sites[4][0])
+    ln_a, ln_b, w1, s1, b1, w2, s2, b2, sites = mlp
+    q8 = K.layernorm_quant_rows_plain(x2, ln_a, ln_b, sites[0])
+    args = (q8, w1, weight_colsum(w1), s1, sites[0], b1,
+            "requant_gelu_quant", sites[1], sites[2])
+    close_on_grid(K.gemm_s8_epilogue_cuda(*args),
+                  K.gemm_s8_epilogue_plain(*args), 1)
+    assert {k: K.LAUNCHES[k] - before[k] for k in
+            ("layernorm_quant_rows", "gemm_s8_epilogue",
+             "attention_core_f32")} == {"layernorm_quant_rows": 1,
+                                        "gemm_s8_epilogue": 3,
+                                        "attention_core_f32": 1}
+
+
+@pytest.mark.parametrize("c,hid,b,n", INT8_SHAPES)
+def test_int8_chains_match_plain(dev, c, hid, b, n):
+    from myrtle_vision_tpu_torch.ops.fused_int8_block import (
+        int8_attention_block,
+        int8_attention_block_plain,
+        int8_mlp_block,
+        int8_mlp_block_plain,
+    )
+
+    x, attn, mlp, colsums = int8_block(c, hid, b, n, n + 8, dev)
+    heads = max(c // 64, 1)
+    scale = (c // heads) ** -0.5
+    before = (int8_attention_block.launches, int8_mlp_block.launches)
+    close_on_grid(
+        int8_attention_block(x, *attn, heads, scale, colsums=colsums[0]),
+        int8_attention_block_plain(x, *attn, heads, scale), attn[-1][4][0],
+        INT8_CHAIN_SAME, INT8_CHAIN_STEPS)
+    close_on_grid(int8_mlp_block(x, *mlp, colsums=colsums[1]),
+                  int8_mlp_block_plain(x, *mlp), mlp[-1][4][0],
+                  INT8_CHAIN_SAME, INT8_CHAIN_STEPS)
+    assert (int8_attention_block.launches - before[0],
+            int8_mlp_block.launches - before[1]) == (1, 1)
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(dev):
+    n = K.attention_core_f32_max_n() + 1
+    site = torch.tensor([0.1, 128.0, 1.0], device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        K.attention_core_f32_cuda(torch.zeros(1, n, 3 * 64, device=dev), 1,
+                                  0.125, site)
+    a = torch.zeros(4, 24, device=dev, dtype=torch.int8)
+    w = torch.zeros(8, 24, device=dev, dtype=torch.int8)
+    one, col = torch.ones((), device=dev), torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        K.gemm_s8_epilogue_cuda(a, w.t(), col, one, site, col, "requant",
+                                site)
+    with pytest.raises(ValueError, match="transpose of a row-major"):
+        K.gemm_s8_epilogue_cuda(a[:, :16].contiguous(),
+                                w[:, :16].t().contiguous(), col, one, site,
+                                col, "requant", site)
+    with pytest.raises(TypeError, match="float32"):
+        K.layernorm_quant_rows_cuda(a.to(torch.bfloat16), col, col, site)
