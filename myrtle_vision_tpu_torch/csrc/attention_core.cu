@@ -24,10 +24,20 @@
 // layer at batch 256, against ~178 GFLOP in the projections around it;
 // what bounds this design is shared-memory traffic and the fp32 softmax
 // between the two products, not the tensor cores.  The whole score row of
-// a tile lives in shared memory, which limits N to kMaxN.
+// a tile lives in shared memory, which limits this kernel to N <= kMaxN.
+//
+// Longer sequences (the fused block runs up to the `fuses_at` gate of
+// myrtle_vision_tpu/ops/fused_attention_block.py, 701 tokens at 6 heads of
+// 64, e.g. YOLOS-S at 384 px with 677) take the KV-tiled kernel of
+// flash_tiles.cuh in its kCore form: the same conventions (bf16(q * scale),
+// e . V, then x reciprocal rowsum, the saved rowmax and reciprocal rowsum)
+// with an online softmax over 64-key tiles, so e is rounded to bf16 against
+// the running rowmax of its tile, not the final one (about 2^-9 of an
+// output).  It reads the (B, H, N, D) view of the qkv rows in place.
 #include <mma.h>
 
 #include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
@@ -209,17 +219,42 @@ int launch(const void* qkv, void* out, void* m, void* rs, int B, int N,
 
 }  // namespace
 
+// the longest sequence of the one-block kernel (and of the backward)
 MVT_EXPORT int mvt_attention_core_max_n() { return kMaxN; }
 
 // m and rs: (B, heads, N) fp32 rowmax and reciprocal rowsum, both null or
-// both set
+// both set; N above kMaxN takes the KV-tiled kernel
 MVT_EXPORT int mvt_attention_core(const void* qkv, void* out, void* m,
                                   void* rs, int B, int N, int heads, int D,
                                   float scale, void* stream) {
-  if (B <= 0 || heads <= 0 || N <= 0 || N > kMaxN ||
+  if (B <= 0 || heads <= 0 || N <= 0 ||
+      static_cast<long long>(B) * heads > 65535 ||
       (m == nullptr) != (rs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N > kMaxN) {
+    const int C = heads * D;
+    mvt::flash::Params p;
+    p.q = static_cast<const mvt::bf16*>(qkv);
+    p.k = p.q + C;
+    p.v = p.q + 2 * C;
+    p.o = static_cast<mvt::bf16*>(out);
+    p.stat0 = static_cast<float*>(m);
+    p.stat1 = static_cast<float*>(rs);
+    p.in_image = static_cast<long long>(N) * 3 * C;
+    p.in_head = D;
+    p.in_row = 3 * C;
+    p.out_image = static_cast<long long>(N) * C;
+    p.out_head = D;
+    p.out_row = C;
+    p.heads = heads;
+    p.n = N;
+    p.n_valid = N;
+    p.scale = scale;
+    if (D == 64) return mvt::flash::launch<64, true>(p, B, s);
+    if (D == 32) return mvt::flash::launch<32, true>(p, B, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (D == 64) return launch<64>(qkv, out, m, rs, B, N, heads, scale, s);
   if (D == 32) return launch<32>(qkv, out, m, rs, B, N, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -8,6 +8,10 @@ same per-item generators, seeded by ``(seed * 100003 + epoch)`` and the
 item index, and the same ``drop_last`` / ``pad_last`` semantics
 (``pad_last`` repeats the last item up to ``batch_size`` and tags the
 batch with ``"_n_valid"``), so that both loaders yield the same pixels.
+``collate_fn`` turns the items of a batch into a dict of numpy arrays, as
+the JAX loader's does (default: stack each key of dict items); every
+array then goes to the device as it is, integer and bool fields
+included.
 Multi-host sharding (``process_shard``) waits for ROADMAP A9.
 """
 from __future__ import annotations
@@ -27,7 +31,8 @@ _AHEAD = 3    # batches submitted ahead of the one being collated
 class DataLoader:
     def __init__(self, dataset, batch_size: int, device,
                  shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = True, pad_last: bool = False):
+                 drop_last: bool = True, pad_last: bool = False,
+                 collate_fn=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -35,6 +40,7 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.pad_last = pad_last
+        self.collate_fn = collate_fn or _collate
 
     def __len__(self):
         n = len(self.dataset)
@@ -53,8 +59,9 @@ class DataLoader:
         return out
 
     def epoch(self, epoch: int = 0) -> Iterator[dict]:
-        """Yield batches of device tensors ("image" float32 NHWC, "label"
-        int32), plus the int "_n_valid" under ``pad_last``."""
+        """Yield batches of device tensors (by default "image" float32
+        NHWC, "label" int32), plus the int "_n_valid" under
+        ``pad_last``."""
         n = len(self.dataset)
         if self.shuffle:
             order = np.random.RandomState(self.seed + epoch).permutation(n)
@@ -87,9 +94,11 @@ class DataLoader:
                 if b + _AHEAD < n_batches:
                     submit(b + _AHEAD)
                 items = [f.result() for f in futures]
-                batch = self._to_device(
-                    {k: np.stack([it[k] for it in items]) for k in items[0]}
-                )
+                batch = self._to_device(self.collate_fn(items))
                 if self.pad_last:
                     batch["_n_valid"] = n_valid
                 yield batch
+
+
+def _collate(items):
+    return {key: np.stack([it[key] for it in items]) for key in items[0]}

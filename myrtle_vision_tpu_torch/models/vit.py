@@ -1,22 +1,29 @@
-"""Vision Transformer for classification, in PyTorch: eval and training
-forward in FP32, and the PyTorchINT8 format's calibration and converted
-inference.
+"""Vision Transformer for classification and detection, in PyTorch:
+eval and training forward in FP32, and the PyTorchINT8 format's
+calibration and converted inference.
 
 Port of myrtle_vision_tpu/models/vit.py for the paths this package runs
-so far: ``decoder="classification"`` without active dropout, in
+so far: without active dropout, ``decoder="classification"`` in
 ``q_format`` FP32 (inference and training) and PyTorchINT8 (the
 calibrating forward and the converted model; QAT training is not ported
-yet).  Parameters are named as in the upstream reference state dict that
-myrtle_vision_tpu/utils/export.py writes
+yet), and ``decoder="detection"`` (YOLOS: det tokens after the patches,
+the class and box heads on them) in FP32.  Parameters are named as in
+the upstream reference state dict that myrtle_vision_tpu/utils/export.py
+writes
 (``transformer.layers.{i}.0.fn.fn.to_qkv.weight``, ...), so
 ``load_state_dict(sd, strict=True)`` takes such a dict as it is.
 
 FP32: activations run in ``compute_dtype`` (bf16 by default) with fp32
 LayerNorm statistics, softmax and accumulation, rounding at the points
-the JAX model rounds.  Each block half runs as one differentiable op
-(ops/fused_attention_block.py, ops/fused_mlp.py), which dispatches on the
-activation's device: the plain PyTorch chain on the CPU, the CUDA kernel
-chain on a GPU, forward and backward.
+the JAX model rounds.  Where the JAX Block fuses (``fuses_at`` of
+ops/fused_attention_block.py), each block half runs as one differentiable
+op (ops/fused_attention_block.py, ops/fused_mlp.py), which dispatches on
+the activation's device: the plain PyTorch chain on the CPU, the CUDA
+kernel chain on a GPU, forward and backward.  Longer sequences (detection
+at 800 px: 2601 tokens) take the JAX Block's discrete-site composition:
+LayerNorm, the projections and the exact-erf GELU as plain products, as
+XLA runs them there, and the attention core through
+``multi_head_attention`` (ops/attention.py), i.e. the flash kernel.
 
 PyTorchINT8 (compute in fp32, as in the JAX package): every observer
 site of the JAX model is an :class:`ActQuant` (``min`` and ``max``
@@ -52,9 +59,14 @@ from torch import nn
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
 from myrtle_vision_tpu_torch.ops._kernels import layernorm_rows_plain
+from myrtle_vision_tpu_torch.ops.attention import multi_head_attention
+from myrtle_vision_tpu_torch.ops.flash_attention import (
+    flash_attention_plain,
+)
 from myrtle_vision_tpu_torch.ops.fused_attention_block import (
     fused_attention_block,
     fused_attention_block_plain,
+    fuses_at,
 )
 from myrtle_vision_tpu_torch.ops.fused_mlp import (
     fused_mlp_block,
@@ -80,9 +92,9 @@ from myrtle_vision_tpu_torch.quantize import (
 )
 
 MIN_NUM_PATCHES = 16  # reference vit.py:14
-# the port runs the classification decoder without active dropout, FP32
-# for inference and training, PyTorchINT8 for calibration and converted
-# inference
+# the port runs without active dropout: the classification decoder in FP32
+# for inference and training and in PyTorchINT8 for calibration and
+# converted inference, the detection decoder in FP32
 _NOT_PORTED = "not ported yet; see ROADMAP.md (Queue A)"
 _FLOAT_FORMATS_NOT_PORTED = (
     "not ported yet: the stateless float formats come with the qspec "
@@ -197,9 +209,12 @@ class FeedForward(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer block (myrtle_vision_tpu/models/vit.py Block).
     Children ``0`` and ``1`` carry the reference's parameter names.
-    FP32: one fused op per half (the JAX Block's ``fuse`` branch);
-    ``depth``, the model's layer count, sizes the attention op's
-    qkv-saving budget as ``model_depth`` does in the JAX Block.
+    FP32: one fused op per half (the JAX Block's ``fuse`` branch) where
+    ``fuses_at`` holds, else the discrete-site composition
+    (:meth:`forward_discrete`; active dropout, the JAX gate's other
+    condition, is refused by the ViT); ``depth``, the model's layer
+    count, sizes the attention op's qkv-saving budget as ``model_depth``
+    does in the JAX Block.
     PyTorchINT8: the observer sites (see the module docstring), the
     calibrating discrete-site forward (:meth:`forward_calibrating`) and,
     converted, one INT8 op per half (:meth:`forward_converted`, the
@@ -209,6 +224,7 @@ class Block(nn.Module):
                  device=None, q_format=QFormat.FP32, converted=False):
         super().__init__()
         self.heads = heads
+        self.dim_head = dim_head
         self.scale = dim_head ** -0.5
         self.depth = depth
         self.add_module("0", Residual(PreNorm(
@@ -284,7 +300,32 @@ class Block(nn.Module):
             colsums=(fc1.weight_colsum, fc2.weight_colsum),
         )
 
+    def forward_discrete(self, x, plain=False):
+        """The JAX Block's discrete-site FP32 composition, (B, N, C) in the
+        compute dtype in and out: QLayerNorm (fp32 statistics and
+        parameters, rounded once), QDense (``_dense``), the attention core
+        (``multi_head_attention``; ``plain`` takes its plain version), the
+        exact-erf GELU in fp32, the residual adds in the compute dtype."""
+        a, f = self._modules["0"].fn, self._modules["1"].fn
+        attn, net = a.fn, f.fn.net
+        dt = x.dtype
+        b, n, c = x.shape
+        y = layernorm_rows_plain(x, a.norm.weight, a.norm.bias)
+        qkv = _dense(y, attn.to_qkv, dt)
+        q, k, v = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
+        if plain:
+            o = flash_attention_plain(q, k, v, self.scale)
+        else:
+            o = multi_head_attention(q, k, v, self.scale)
+        o = o.transpose(1, 2).reshape(b, n, c).to(dt)
+        x = _dense(o, attn.to_out[0], dt) + x
+        y = layernorm_rows_plain(x, f.norm.weight, f.norm.bias)
+        h = torch.nn.functional.gelu(_dense(y, net[0], dt).float()).to(dt)
+        return _dense(h, net[3], dt) + x
+
     def forward(self, x, plain: bool = False):
+        if not fuses_at(x.shape[1], self.heads, self.dim_head):
+            return self.forward_discrete(x, plain)
         attn = self._modules["0"].fn
         ffn = self._modules["1"].fn
         attn_op = fused_attention_block_plain if plain else \
@@ -355,6 +396,28 @@ class ClassificationDecoder(nn.Module):
                             sites[1])
 
 
+class DetectionDecoder(nn.Module):
+    """YOLOS head on the last ``num_det_tokens`` tokens: Linear class
+    logits (``num_classes`` + 1, the last the no-object class) and
+    sigmoid'd Linear boxes (cx, cy, w, h), both fp32
+    (myrtle_vision_tpu/models/vit.py DetectionDecoder)."""
+
+    def __init__(self, dim, num_classes, num_det_tokens, device=None):
+        super().__init__()
+        self.num_det_tokens = num_det_tokens
+        self.class_embed = _linear(dim, num_classes + 1, device)
+        self.bbox_embed = _linear(dim, 4, device)
+
+    def forward(self, x):
+        dtype = x.dtype
+        x = x[:, -self.num_det_tokens:]
+        return {
+            "pred_logits": _dense(x, self.class_embed, dtype).float(),
+            "pred_boxes": torch.sigmoid(
+                _dense(x, self.bbox_embed, dtype).float()),
+        }
+
+
 def interpolate_pos_embedding(pos_embedding, grid_h, grid_w):
     """Bicubically rescale the stored 14x14 positional grid to
     (grid_h, grid_w) (reference vit.py:292-302)."""
@@ -368,17 +431,20 @@ def interpolate_pos_embedding(pos_embedding, grid_h, grid_w):
 
 
 class ViT(nn.Module):
-    """The ViT backbone with the classification decoder (reference
-    vit.py:164-323).
+    """The ViT backbone with the classification or detection decoder
+    (reference vit.py:164-323).
 
     ``forward(img, plain=False, calibrating=False)``: img (B, H, W, C)
-    float NHWC -> fp32 logits (B, num_classes); differentiable in FP32;
+    float NHWC -> fp32 logits (B, num_classes), or for detection the
+    {"pred_logits" (B, num_det_tokens, num_classes + 1), "pred_boxes"
+    (B, num_det_tokens, 4)} dict of fp32 tensors; differentiable in FP32
+    (on the card up to 256 tokens, the length the backward kernels take);
     ``plain`` selects the plain PyTorch versions in place of the kernels;
     ``calibrating`` (PyTorchINT8 before convert, the only forward that
     model runs here) updates the observers.
     The detection parameters (``pos_embedding_det``, ``det_tokens``)
-    exist so that the reference state dict loads strictly; the
-    classification forward does not read them.
+    exist in every model so that the reference state dict loads strictly;
+    the classification forward does not read them.
     """
 
     def __init__(self, decoder, image_size, patch_size, num_classes, dim,
@@ -387,9 +453,12 @@ class ViT(nn.Module):
                  q_format="FP32", converted=False,
                  compute_dtype=torch.bfloat16, device=None, generator=None):
         super().__init__()
-        if decoder != "classification":
+        if decoder not in ("classification", "detection"):
             raise NotImplementedError(f"decoder {decoder!r}: {_NOT_PORTED}")
         q_format = QFormat[getattr(q_format, "name", q_format)]
+        if decoder == "detection" and q_format != QFormat.FP32:
+            raise NotImplementedError(
+                f"detection in q_format {q_format.name}: {_NOT_PORTED}")
         if q_format not in (QFormat.FP32, QFormat.PyTorchINT8):
             raise NotImplementedError(
                 f"q_format {q_format.name}: {_FLOAT_FORMATS_NOT_PORTED}")
@@ -407,6 +476,8 @@ class ViT(nn.Module):
                 "for attention to be effective (at least 16). Try "
                 "decreasing your patch size"
             )
+        self.decoder_name = decoder
+        self.num_det_tokens = num_det_tokens
         self.image_size = image_size
         self.patch_size = patch_size
         self.dim = dim
@@ -430,7 +501,11 @@ class ViT(nn.Module):
         self.patch_to_embedding = _linear(patch_dim, dim, device)
         self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim,
                                        dropout, device, q_format, converted)
-        self.decoder = ClassificationDecoder(dim, num_classes, device)
+        if decoder == "detection":
+            self.decoder = DetectionDecoder(dim, num_classes, num_det_tokens,
+                                            device)
+        else:
+            self.decoder = ClassificationDecoder(dim, num_classes, device)
         if self.int8:
             for name in ("quant_img", "quant_cls_token",
                          "quant_pos_embedding", "cls_token_cat",
@@ -535,11 +610,16 @@ class ViT(nn.Module):
         return x.reshape(b, (h // p) * (w // p), p * p * c)
 
     def _positions(self, h, w):
+        """fp32 positions [cls, patches interpolated to the image's grid]
+        and, for detection, the det tokens' ``pos_embedding_det``."""
         p = self.patch_size
         pos_patches = interpolate_pos_embedding(
             self.pos_embedding[:, 1:], h // p, w // p
         )
-        return torch.cat([self.pos_embedding[:, :1], pos_patches], dim=1)
+        parts = [self.pos_embedding[:, :1], pos_patches]
+        if self.decoder_name == "detection":
+            parts.append(self.pos_embedding_det)
+        return torch.cat(parts, dim=1)
 
     def _tokens_int8(self, x, h, w, calibrating=False):
         """cls token, positions and their sites (JAX ViT.__call__)."""
@@ -570,12 +650,16 @@ class ViT(nn.Module):
         dtype = self.compute_dtype
         x = _dense(self.patchify(img.to(dtype)), self.patch_to_embedding,
                    dtype)
-        cls_tokens = self.cls_token.to(dtype).expand(b, 1, self.dim)
-        x = torch.cat([cls_tokens, x], dim=1)
+        tokens = [self.cls_token.to(dtype).expand(b, 1, self.dim), x]
+        if self.decoder_name == "detection":
+            tokens.append(self.det_tokens.to(dtype).expand(
+                b, self.num_det_tokens, self.dim))
+        x = torch.cat(tokens, dim=1)
         x = x + self._positions(h, w).to(dtype)
         for block in self.transformer.layers:
             x = block(x, plain)
-        return self.decoder(x).float()
+        out = self.decoder(x)
+        return out if isinstance(out, dict) else out.float()
 
     def _forward_calibrating(self, img):
         """PyTorchINT8 before convert: the discrete-site forward with

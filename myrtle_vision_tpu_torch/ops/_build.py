@@ -119,6 +119,7 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ll = ctypes.c_longlong
         for name, args in (
             ("mvt_layernorm_rows", [p, p, p, p, i, i, f, p]),
             ("mvt_gemm_bf16", [p, p, p, p, p, p, p, i, i, i, i, i, p]),
@@ -134,6 +135,8 @@ def lib() -> ctypes.CDLL:
             ("mvt_gemm_s8", [p] * 10 + [i, i, i, i, p]),
             ("mvt_attention_core_f32", [p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_f32_max_n", []),
+            ("mvt_flash_attention_fwd",
+             [p] * 5 + [ll, i, i, ll, i, i, i, i, i, i, i, f, p]),
         ):
             fn = getattr(handle, name)
             fn.argtypes = args

@@ -21,6 +21,11 @@ fp32 activations, int8 operands:
 - ``gemm_s8_epilogue``     csrc/gemm_s8_epilogue.cu
 - ``attention_core_f32``   csrc/attention_core_f32.cu
 
+and the flash-attention forward of the discrete attention path
+(ops/flash_attention.py holds its plain version):
+
+- ``flash_attention_fwd``  csrc/flash_attention_fwd.cu
+
 A PyTorchINT8 observer site is a (3,) fp32 tensor (scale, zero point,
 has_stats as 1 or 0), a row of the model's site table.
 
@@ -58,7 +63,7 @@ LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
             "attention_core": 0, "attention_core_bwd": 0,
             "layernorm_rows_bwd": 0, "colsum_rows": 0,
             "layernorm_quant_rows": 0, "gemm_s8_epilogue": 0,
-            "attention_core_f32": 0}
+            "attention_core_f32": 0, "flash_attention_fwd": 0}
 INT8_EPILOGUES = {"requant": 0, "requant_gelu_quant": 1,
                   "requant_residual_requant": 2}
 
@@ -458,23 +463,14 @@ def _head_width(c3, heads, name):
     return c, d
 
 
-def _check_n(n, name):
-    if n > attention_core_max_n():
-        raise ValueError(
-            f"{name}: sequence {n} exceeds the kernel's maximum "
-            f"{attention_core_max_n()}; long sequences wait for the flash "
-            "kernels (ROADMAP B5)"
-        )
-
-
 def attention_core_cuda(qkv, heads, scale, stats=False):
     """bf16 (B, N, 3C) qkv rows -> bf16 (B, N, C) context, and with
     ``stats`` the rowmax and reciprocal rowsum (B, H, N) fp32; D = C/heads
-    must be 32 or 64 and N at most :func:`attention_core_max_n`."""
+    must be 32 or 64.  N above :func:`attention_core_max_n` takes the
+    KV-tiled kernel (csrc/flash_tiles.cuh), any N."""
     _require(qkv, "qkv")
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core")
-    _check_n(n, "attention_core")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     m = rs = None
     if stats:
@@ -494,7 +490,11 @@ def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale):
     _require(qkv, "qkv")
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_bwd")
-    _check_n(n, "attention_core_bwd")
+    if n > attention_core_max_n():
+        raise NotImplementedError(
+            f"attention_core_bwd: sequence {n} exceeds the kernel's maximum "
+            f"{attention_core_max_n()}; the backward of long sequences "
+            "waits for the flash backward kernels K7 and K8 (ROADMAP B5)")
     _require_shape(d_o, "d_o", (b, n, c))
     _require_shape(m, "m", (b, heads, n))
     _require_shape(rs, "rs", (b, heads, n))
@@ -638,6 +638,51 @@ def attention_core_f32_cuda(qkv, heads, scale, site):
             qkv.data_ptr(), site.data_ptr(), out.data_ptr(), b, n, heads, d,
             float(scale))
     return out
+
+
+def _require_rows(t, name):
+    """A bf16 CUDA tensor whose last dimension is contiguous and whose
+    other strides keep every row 16-byte aligned."""
+    if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: expected a bf16 CUDA tensor, got "
+                        f"{t.dtype} on {t.device}")
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or \
+            t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected rows contiguous and 16-byte "
+                         f"aligned, got strides {t.stride()}")
+
+
+def flash_attention_fwd_cuda(q, k, v, scale, n_valid=None, lse=False):
+    """Softmax attention of bf16 (B, H, N, D) q, k, v, keys at or past
+    ``n_valid`` masked -> bf16 (B, H, N, D), a view of (B, N, H, D)
+    storage (so the heads' concatenation is a view too), and with ``lse``
+    the fp32 (B, H, N) log-sum-exp.  q, k and v share one set of strides
+    with the last dimension contiguous, e.g. the (B, H, N, D) views of
+    the fused (B, N, 3C) qkv rows, read in place; D must be 32 or 64."""
+    if not q.shape == k.shape == v.shape or q.dim() != 4:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _require_rows(t, name)
+    if not q.stride() == k.stride() == v.stride():
+        raise ValueError("flash_attention: q, k and v must share strides")
+    b, h, n, d = q.shape
+    if d not in (32, 64):
+        raise ValueError(f"flash_attention: head width {d}; the kernel "
+                         "takes 32 and 64")
+    n_valid = n if n_valid is None else int(n_valid)
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"flash_attention: n_valid {n_valid} of {n}")
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse_t = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+             if lse else None)
+    sb, sh, sn, _ = q.stride()
+    _launch("flash_attention_fwd", _lib().mvt_flash_attention_fwd, q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse_t is None else lse_t.data_ptr(), sb, sh, sn,
+            n * h * d, d, h * d, b, h, n, d, n_valid, float(scale))
+    out = out.permute(0, 2, 1, 3)
+    return (out, lse_t) if lse else out
 
 
 CUDA = SimpleNamespace(

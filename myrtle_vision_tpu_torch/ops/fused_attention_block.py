@@ -31,6 +31,15 @@ Each direction rounds where the TPU kernel rounds, so the plain PyTorch
 chain (CPU tensors) and the kernel chain (CUDA tensors) differ only in
 the order of fp32 sums.
 
+The chain takes any sequence length on the card: up to 256 tokens the
+attention core holds one image's keys in shared memory, above that it
+walks them in tiles (csrc/attention_core.cu).  The backward kernel still
+takes at most 256 tokens; a longer sequence's gradient raises (ROADMAP
+B5).  Which sequences take this op at all is the JAX package's decision,
+copied here as :func:`fuses_at`: the ViT Block fuses where the TPU kernel
+fits its VMEM and otherwise runs the discrete composition, whose attention
+is the flash kernel (ops/flash_attention.py).
+
 Weights keep the JAX layout: wqkv (C, 3C) with feature order [3][h][d],
 wp (C, C), i.e. (in, out).  A transposed view of a torch (out, in)
 weight is read in place, and its gradient is returned as the same kind
@@ -43,6 +52,22 @@ import torch
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
 from myrtle_vision_tpu_torch.ops.acts_policy import save_acts
+
+
+def _per_image_stack_bytes(n: int, heads: int, d: int) -> int:
+    """The JAX package's per-image VMEM stack estimate of the fused TPU
+    kernel (myrtle_vision_tpu/ops/fused_attention_block.py): ~3 fp32
+    copies of the (N, N) scores per head plus the fp32 qkv
+    intermediates."""
+    return 3 * heads * n * n * 4 + 2 * 3 * heads * d * n * 4
+
+
+def fuses_at(n: int, heads: int, d: int) -> bool:
+    """Whether the JAX Block fuses a sequence of ``n`` tokens (one image's
+    attention working set under the TPU kernel's 40 MiB VMEM ceiling);
+    the port's Block decides the same way, so that both packages run the
+    same composition at every size."""
+    return _per_image_stack_bytes(n, heads, d) <= 40 * 1024 * 1024
 
 
 def _forward(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,

@@ -1,0 +1,50 @@
+"""Detection task: the eval forward and COCO evaluation (port of
+``make_detect_fn`` and ``evaluate_coco`` of
+myrtle_vision_tpu/training/detection.py).  The loss of detection training
+(``make_loss_fn``: matcher and set criterion) is not ported yet (ROADMAP
+A7)."""
+from __future__ import annotations
+
+import torch
+
+from myrtle_vision_tpu_torch.eval.coco_eval import CocoEvaluator
+from myrtle_vision_tpu_torch.models.detector import post_process
+
+
+def make_detect_fn(model):
+    """images (B, H, W, C) on the model's device -> {"pred_logits",
+    "pred_boxes"}, under ``torch.no_grad()`` with the model in eval
+    mode."""
+
+    def detect(images):
+        model.eval()
+        with torch.no_grad():
+            return model(images)
+
+    return detect
+
+
+def evaluate_coco(detect_fn, loader, coco_index, epoch=0, predictions=None):
+    """COCO mAP over a loader of collated detection batches (reference
+    detection/train.py:40-71): post-processed detections of every image
+    into the evaluator, then its 12-number summary, printed.  Returns the
+    evaluator (stats[0] = AP@[.5:.95]).  ``predictions``, a dict, also
+    collects {image id: {"scores", "labels", "boxes"}} as numpy arrays."""
+    evaluator = CocoEvaluator(coco_index)
+    for batch in loader.epoch(epoch):
+        outputs = detect_fn(batch["image"])
+        results = post_process(outputs, batch["orig_size"])
+        scores, labels, boxes = (results[k].cpu().numpy()
+                                 for k in ("scores", "labels", "boxes"))
+        batch_preds = {
+            int(img_id): {"scores": scores[i], "labels": labels[i],
+                          "boxes": boxes[i]}
+            for i, img_id in enumerate(batch["image_id"].tolist())
+        }
+        evaluator.update(batch_preds)
+        if predictions is not None:
+            predictions.update(batch_preds)
+    evaluator.synchronize_between_processes()
+    evaluator.accumulate()
+    evaluator.summarize()
+    return evaluator

@@ -80,9 +80,9 @@ def quant_site_names(depth: int):
 
 def state_dict_from_jax(params_numpy, decoder: str = "classification",
                         quant=None):
-    """JAX ViT param tree (numpy arrays), before or after
-    ``convert_params``, and optionally its ``quant`` collection -> {port
-    name: tensor}: fp32 parameters with torch (out, in) Linear weights;
+    """JAX ViT param tree (numpy arrays) of a ``decoder``
+    ("classification" or "detection"), before or after ``convert_params``,
+    and optionally its ``quant`` collection -> {port name: tensor}: fp32 parameters with torch (out, in) Linear weights;
     int8 weights with their ``weight_scale``; ``<site>.min`` and
     ``<site>.max`` of every observer."""
     sd = {}

@@ -50,6 +50,16 @@ _DECODER = {
         (("decoder", "linear", "kernel"), "decoder.linear.weight", True),
         (("decoder", "linear", "bias"), "decoder.linear.bias", False),
     ],
+    "detection": [
+        (("decoder", "class_embed", "kernel"),
+         "decoder.class_embed.weight", True),
+        (("decoder", "class_embed", "bias"),
+         "decoder.class_embed.bias", False),
+        (("decoder", "bbox_embed", "kernel"),
+         "decoder.bbox_embed.weight", True),
+        (("decoder", "bbox_embed", "bias"),
+         "decoder.bbox_embed.bias", False),
+    ],
 }
 
 

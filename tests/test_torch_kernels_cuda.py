@@ -14,6 +14,10 @@ from myrtle_vision_tpu_torch.ops.fused_attention_block import (
     fused_attention_block,
     fused_attention_block_plain,
 )
+from myrtle_vision_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+)
 from myrtle_vision_tpu_torch.ops.fused_mlp import (
     fused_mlp_block,
     fused_mlp_block_plain,
@@ -139,10 +143,22 @@ def test_layernorm_and_attention_core(dev):
 
 def test_kernels_refuse_what_they_do_not_take(dev):
     n = K.attention_core_max_n() + 1
-    with pytest.raises(ValueError, match="exceeds"):
-        K.attention_core_cuda(
-            torch.zeros(1, n, 3 * 64, device=dev, dtype=torch.bfloat16),
-            1, 0.125)
+    qkv = torch.zeros(1, n, 3 * 64, device=dev, dtype=torch.bfloat16)
+    _, m, rs = K.attention_core_cuda(qkv, 1, 0.125, stats=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+        K.attention_core_bwd_cuda(qkv, torch.zeros(1, n, 64, device=dev), m,
+                                  rs, 1, 0.125)
+    q = torch.zeros(1, 2, 40, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head width 48"):
+        K.flash_attention_fwd_cuda(q, q, q, 0.125)
+    q = torch.zeros(1, 2, 40, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="n_valid 0"):
+        K.flash_attention_fwd_cuda(q, q, q, 0.125, n_valid=0)
+    with pytest.raises(TypeError, match="bf16"):
+        K.flash_attention_fwd_cuda(q.float(), q.float(), q.float(), 0.125)
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+        flash_attention(q, q, q, 0.125).float().sum().backward()
     a = torch.zeros(4, 12, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
         K.gemm_bf16_epilogue_cuda(a, torch.zeros_like(a).t(),
@@ -499,3 +515,80 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
                                 col, "requant", site)
     with pytest.raises(TypeError, match="float32"):
         K.layernorm_quant_rows_cuda(a.to(torch.bfloat16), col, col, site)
+
+
+# flash_attention_fwd: the detection eval's K6 regime (800 px, 2601
+# tokens), the K5 regime (512 px, 1125 tokens), a ragged head-32 case
+# with masked keys; each against its plain version in that regime
+FLASH = [(8, 6, 2601, 64, None), (8, 6, 1125, 64, None), (3, 2, 50, 32, 40),
+         (2, 3, 130, 64, 129)]
+
+
+@pytest.mark.parametrize("b,h,n,d,n_valid", FLASH)
+def test_flash_attention_matches_plain(dev, b, h, n, d, n_valid):
+    gen = torch.Generator(dev).manual_seed(n)
+    q, k, v = (torch.randn(b, h, n, d, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(3))
+    before = K.LAUNCHES["flash_attention_fwd"]
+    got = K.flash_attention_fwd_cuda(q, k, v, d ** -0.5, n_valid, lse=True)
+    assert K.LAUNCHES["flash_attention_fwd"] == before + 1
+    ref = flash_attention_plain(q, k, v, d ** -0.5, n_valid, lse=True)
+    close(got[0], ref[0])
+    close(got[1], ref[1])
+
+
+def test_flash_attention_reads_qkv_rows_in_place(dev):
+    """The (B, H, N, D) views of fused (B, N, 3C) rows, as the discrete
+    Block passes them, give what contiguous copies give."""
+    b, n, h, d = 2, 301, 6, 64
+    qkv = torch.randn(b, n, 3 * h * d, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+    got = flash_attention(q, k, v, 0.125)
+    assert got.shape == (b, h, n, d)
+    ref = K.flash_attention_fwd_cuda(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("b,n,d", [(2, 257, 64), (3, 300, 32), (2, 677, 64)])
+def test_long_attention_core_matches_plain(dev, b, n, d):
+    heads = 2
+    gen = torch.Generator(dev).manual_seed(n)
+    qkv = torch.randn(b, n, 3 * heads * d, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    got = K.attention_core_cuda(qkv, heads, d ** -0.5, stats=True)
+    ref = K.attention_core_plain(qkv, heads, d ** -0.5, stats=True)
+    for g, r in zip(got, ref):
+        close(g, r)
+
+
+@pytest.mark.parametrize("n", [297, 677])
+def test_long_attention_chain_matches_plain(dev, n):
+    """YOLOS-S at 224 and 384 px: sequences the JAX gate fuses."""
+    x, attn, _ = block(384, 1536, 4, n, n, dev)
+    close(fused_attention_block(x, *attn, 6, 0.125),
+          fused_attention_block_plain(x, *attn, 6, 0.125), CHAIN_ATOL)
+
+
+def test_detection_model_runs_through_the_flash_kernel(dev, monkeypatch):
+    """A tiny detection ViT with the fused gate forced off: the flash
+    kernel once per block, outputs near the plain path's."""
+    from myrtle_vision_tpu_torch.models import vit
+
+    monkeypatch.setattr(vit, "fuses_at", lambda n, h, d: False)
+    model = ViT(decoder="detection", image_size=160, patch_size=16,
+                num_classes=3, dim=128, depth=3, heads=2, mlp_dim=256,
+                num_det_tokens=10, device=dev).eval()
+    img = torch.from_numpy(
+        np.random.RandomState(0).uniform(-1, 1, (2, 160, 160, 3)).astype(
+            np.float32)).to(dev)
+    before = K.LAUNCHES["flash_attention_fwd"]
+    with torch.inference_mode():
+        out = model(img)
+        ref = model(img, plain=True)
+    assert K.LAUNCHES["flash_attention_fwd"] == before + 3
+    for key in ("pred_logits", "pred_boxes"):
+        assert out[key].shape == ref[key].shape
+        torch.testing.assert_close(out[key], ref[key], rtol=RTOL,
+                                   atol=CHAIN_ATOL)
