@@ -17,7 +17,13 @@ Phases, each ending in one line of output:
               N=2601, the K6 regime; 512 px: N=1125, the K5 regime) and a
               ragged masked case, and the fused attention chain at YOLOS-S
               224 and 384 px (N=297, 677, B=16), longer than one block of
-              shared memory holds
+              shared memory holds; the flash-attention backward at the
+              detection training's shapes (YOLOS-S at 400, 592, 608 px and
+              a 608 x 1008 crop: B=2, N=726, 1470, 1545, 2495; the K8 and
+              K7 regimes) and a ragged masked case, and the attention
+              core's backward and the whole fused attention backward
+              chain at 256 and 384 px (N=357, 677, B=4), each from its own
+              path's forward residuals
   4. main     the ViT-S/16 eval CLI on a synthetic RESISC-layout dataset
               with seeded random weights: launch counts, logits of the
               kernel path against the plain path
@@ -39,13 +45,25 @@ Phases, each ending in one line of output:
               and seeded random weights: flash launches (12 per batch), the
               COCO summary, outputs of the kernel path against the plain
               path on the same batches
-  8. timing   CUDA-event times at batch 256: each kernel, forward and
+  8. detect-train  the YOLOS-S detection train CLI (detection/train.py's
+              path; yolos_small.json, 2 micro-batches of 2 per step) for one
+              epoch of a subset of the synthetic DIOR-layout train split
+              with DIOR's train transform (256-608 px, crops), then COCO
+              validation at 800 px: finite losses, the launches of the
+              flash backward and the long attention backward against the
+              canvases the epoch drew, vit_best through the detection eval
+              CLI; then, at forced canvases of 384, 512 and 608 px (the
+              fused long backward, K8, K7), the first step's loss and every
+              gradient, kernel path against plain path
+  9. timing   CUDA-event times at batch 256: each kernel, forward and
               backward, and each chain against its plain version and,
               where one exists, a PyTorch call of the same function (a
               yardstick the port never calls); the whole-model forward (bf16
               and converted INT8) and one train step in images per second;
               the flash kernel at both regimes' shapes and the YOLOS-S
-              detection forward at 800 px, batch 8
+              detection forward at 800 px, batch 8; the flash backward at
+              (8, 6, 1545, 64) and (8, 6, 1125, 64), the long core backward
+              at N=677, and the YOLOS-S train step at 608 and 384 px
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -150,12 +168,15 @@ TPU_INT8_ATTN = "myrtle_vision_tpu/ops/fused_int8_block.py:161"
 TPU_INT8_MLP = "myrtle_vision_tpu/ops/fused_int8_block.py:207"
 TPU_FLASH = ("myrtle_vision_tpu/ops/flash_attention.py:127; "
              "myrtle_vision_tpu/ops/flash_attention.py:200")  # K5; K6
+TPU_FLASH_BWD = ("myrtle_vision_tpu/ops/flash_attention.py:388; "
+                 "myrtle_vision_tpu/ops/flash_attention.py:290")  # K8; K7
 CSRC = "myrtle_vision_tpu_torch/csrc/"
 ALL_FOUR = f"{TPU_ATTN}; {TPU_MLP}; {TPU_ATTN_BWD}; {TPU_MLP_BWD}"
 INT8_BOTH = f"{TPU_INT8_ATTN}; {TPU_INT8_MLP}"
 # per kernel: its source and the TPU kernels it replaces; the first six
 # run on the FP32 path (phases 4 and 5), the next three on the converted
-# INT8 path (phase 6), the last on the detection eval (phase 7)
+# INT8 path (phase 6), the flash forward on the detection eval (phase 7),
+# the flash backward on the detection training (phase 8)
 KERNELS = {
     "layernorm_rows": (CSRC + "layernorm_rows.cu", ALL_FOUR),
     "gemm_bf16_epilogue": (CSRC + "gemm_bf16_epilogue.cu", ALL_FOUR),
@@ -169,11 +190,13 @@ KERNELS = {
     "gemm_s8_epilogue": (CSRC + "gemm_s8_epilogue.cu", INT8_BOTH),
     "attention_core_f32": (CSRC + "attention_core_f32.cu", TPU_INT8_ATTN),
     "flash_attention_fwd": (CSRC + "flash_attention_fwd.cu", TPU_FLASH),
+    "flash_attention_bwd": (CSRC + "flash_attention_bwd.cu", TPU_FLASH_BWD),
 }
 INT8_KERNELS = ("layernorm_quant_rows", "gemm_s8_epilogue",
                 "attention_core_f32")
-# the discrete attention path's kernel, run by the detection eval (phase 7)
-DETECT_KERNELS = ("flash_attention_fwd",)
+# the discrete attention path's kernels, run by the detection eval (phase 7)
+# and the detection training (phase 8)
+DETECT_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 # each TPU kernel: the chain that replaces it and the kernel cases that
 # chain runs once per call, for its bound and yardstick sums
 _G = "gemm_bf16_epilogue"
@@ -211,6 +234,23 @@ FLASH_CASES = [(8, 6, 2601, 64, None, "K6 regime, 800 px"),
 # fused attention chain lengths above one block of shared memory: YOLOS-S
 # at 224 and 384 px, both under the fused gate (fuses_at: N <= 701)
 LONG_CHAIN_N = (297, 677)
+# flash_attention_bwd cases (B, H, N, D, n_valid, tag): YOLOS-S training
+# at 400 px (726 tokens, n_pad 768: K8), 592 px (1470, n_pad 1536: K8's
+# top), 608 px (1545, n_pad 1664: K7) and a 608 x 1008 crop (38 x 63
+# patches: 2495 tokens, K7), and a ragged case with masked keys and rows
+FLASH_BWD_CASES = [(2, 6, 726, 64, None, "K8 regime, 400 px"),
+                   (2, 6, 1470, 64, None, "K8 top, 592 px"),
+                   (2, 6, 1545, 64, None, "K7 regime, 608 px"),
+                   (2, 6, 2495, 64, None, "K7, 608x1008 crop"),
+                   (3, 2, 50, 32, 40, "ragged, n_valid 40")]
+# the fused attention backward above 256 tokens: YOLOS-S training at 256
+# and 384 px, both under the fused gate
+LONG_BWD_N = (357, 677)
+# detection training (phase 8): images of the train split per epoch, and
+# the canvases forced for the first-step check, one per backward regime
+DET_TRAIN_SUBSET = 32
+DET_CANVASES = ((384, "fused, long core backward"), (512, "discrete, K8"),
+                (608, "discrete, K7"))
 # Detection eval, kernel path against plain path (phase 7): in the
 # discrete blocks the flash kernel is the only step that differs (it
 # rounds e against each 64-key tile's running max where the plain K6
@@ -780,7 +820,8 @@ def phase_kernels(device):
             key = name.split("[")[0]
             if b == 64:
                 errors[key] = max(errors.get(key, 0.0), worst[1])
-    errors["flash_attention_fwd"] = phase_kernels_long(device)
+    errors["flash_attention_fwd"], errors["flash_attention_bwd"] = \
+        phase_kernels_long(device)
     print(f"kernels: all within their bars (|d| <= {RTOL:g}*|ref| + atol; "
           f"atol {KERNEL_ATOL:g} kernel, {CHAIN_ATOL:g} chain, "
           f"{SUM_ATOL:g}*max|ref| sum; psum |d| <= {PSUM_ATOL:g}*max|ref|; "
@@ -789,19 +830,21 @@ def phase_kernels(device):
     return errors
 
 
-def flash_inputs(b, h, n, d, seed, device):
-    """bf16 (B, H, N, D) q, k, v, std 1, from a numpy seed."""
+def flash_inputs(b, h, n, d, seed, device, count=3):
+    """bf16 (B, H, N, D) q, k, v (and with count 4 an output gradient),
+    std 1, from a numpy seed."""
     rng = np.random.RandomState(seed)
     return [seeded(rng, (b, h, n, d), 1.0, device, torch.bfloat16)
-            for _ in range(3)]
+            for _ in range(count)]
 
 
 def phase_kernels_long(device):
     """The flash-attention forward, output and LSE, against its plain
     version (in the same regime) under the one-kernel bar at
     :data:`FLASH_CASES`; the fused attention chain and its KV-tiled core
-    at :data:`LONG_CHAIN_N`.  Returns the flash kernel's largest max abs
-    difference."""
+    at :data:`LONG_CHAIN_N`; the flash backward and the long attention
+    backward (:func:`phase_kernels_long_bwd`).  Returns the flash forward's
+    and backward's largest max abs differences."""
     from myrtle_vision_tpu_torch.ops import _kernels as K
     from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
     from myrtle_vision_tpu_torch.ops.flash_attention import (
@@ -848,7 +891,85 @@ def phase_kernels_long(device):
             print(f"kernels: {name} B=16,N={n} (KV-tiled core) max_abs "
                   f"{worst[1]:.6g}, {worst[0]:.4f} of the bar (kinds "
                   f"{'/'.join(kinds)})")
-    return worst_flash
+    return worst_flash, phase_kernels_long_bwd(device)
+
+
+def phase_kernels_long_bwd(device):
+    """The flash backward at :data:`FLASH_BWD_CASES`, the kernel from the
+    kernel forward's output and LSE, the plain version (in the same
+    regime) from the plain forward's: dq under the chain bar, dk and dv
+    (sums over the queries) under the sum bar.  The attention core's
+    backward (KV-tiled) and the fused attention backward chain at
+    :data:`LONG_BWD_N`, B=4: the core on the plain forward's statistics
+    for both, the chain from each path's own forward.  Returns the flash
+    backward's largest max abs difference."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
+    from myrtle_vision_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+
+    worst_bwd = 0.0
+    for b, h, n, d, n_valid, tag in FLASH_BWD_CASES:
+        q, k, v, do = flash_inputs(b, h, n, d, seed=n + 2, device=device,
+                                   count=4)
+        sc = d ** -0.5
+        o, lse = K.flash_attention_fwd_cuda(q, k, v, sc, n_valid, lse=True)
+        got = K.flash_attention_bwd_cuda(q, k, v, o, do, lse, sc, n_valid)
+        o_p, lse_p = flash_attention_plain(q, k, v, sc, n_valid, lse=True)
+        ref = flash_attention_bwd_plain(q, k, v, o_p, do, lse_p, sc, n_valid)
+        worst = (0.0, 0.0)
+        for g, r, kind, name in zip(got, ref, ("chain", "sum", "sum"),
+                                    ("dq", "dk", "dv")):
+            max_abs, of_bar = compare(f"flash_attention_bwd {tag} {name}",
+                                      g, r, *bar(kind, r))
+            worst = max(worst, (of_bar, max_abs))
+        if n_valid is not None:
+            check(not any(g[:, :, n_valid:].any() for g in got),
+                  "flash_attention_bwd: gradients past n_valid")
+        worst_bwd = max(worst_bwd, worst[1])
+        print(f"kernels: flash_attention_bwd B={b} H={h} N={n} D={d} "
+              f"n_valid={n_valid or n} ({tag}) max_abs {worst[1]:.6g}, "
+              f"{worst[0]:.4f} of the bar (kinds chain/sum/sum: dq, dk, dv)")
+        del q, k, v, do, o, lse, got, o_p, lse_p, ref
+    grads = ("chain",) + ("sum",) * 6
+    for n in LONG_BWD_N:
+        x, attn, _, do = block_inputs(4, n, seed=4000 + n, device=device)
+        res_kernel = fa._forward(K.CUDA, x, *attn, HEADS, SCALE,
+                                 record=True)[1]
+        res_plain = fa._forward(K.PLAIN, x, *attn, HEADS, SCALE,
+                                record=True)[1]
+        _, m, rs, qkv = res_plain
+        d_o = K.gemm_bf16_epilogue_plain(
+            do.view(-1, C), attn[4].to(torch.bfloat16).t(), None,
+            "f32").view(4, n, C)
+
+        def attn_back(kern):
+            ctx_, m_, rs_, qkv_ = res_kernel if kern is K.CUDA else res_plain
+            return fa._backward(kern, do, x, *attn[:-1], ctx_, m_, rs_, qkv_,
+                                HEADS, SCALE)
+
+        cases = [
+            ("attention_core_bwd", ("chain", "psum"),
+             lambda: K.attention_core_bwd_cuda(qkv, d_o, m, rs, HEADS, SCALE),
+             lambda: K.attention_core_bwd_plain(qkv, d_o, m, rs, HEADS,
+                                                SCALE)),
+            ("fused_attention_block[bwd,saved qkv]", grads,
+             lambda: attn_back(K.CUDA), lambda: attn_back(K.PLAIN)),
+        ]
+        for name, kinds, kernel, plain in cases:
+            worst = (0.0, 0.0)
+            for i, (got, ref, kind) in enumerate(zip(
+                    as_tuple(kernel()), as_tuple(plain()), kinds)):
+                max_abs, of_bar = compare(f"{name} B=4,N={n} output {i}",
+                                          got, ref, *bar(kind, ref))
+                worst = max(worst, (of_bar, max_abs))
+            print(f"kernels: {name} B=4,N={n} (KV-tiled backward) max_abs "
+                  f"{worst[1]:.6g}, {worst[0]:.4f} of the bar (kinds "
+                  f"{'/'.join(kinds)})")
+        del x, attn, do, res_kernel, res_plain, d_o
+    return worst_bwd
 
 
 def smoke_state_dict(model, seed):
@@ -939,7 +1060,7 @@ def phase_main(device, data_config, data_cfg):
                        "attention_core_bwd": 0, "layernorm_rows_bwd": 0,
                        "colsum_rows": 0, "layernorm_quant_rows": 0,
                        "gemm_s8_epilogue": 0, "attention_core_f32": 0,
-                       "flash_attention_fwd": 0},
+                       "flash_attention_fwd": 0, "flash_attention_bwd": 0},
           f"kernel launches {launches}")
     check(logits.shape == (n_img, data_config["number_of_classes"]),
           f"logits shape {tuple(logits.shape)}")
@@ -1244,7 +1365,7 @@ def yolos_small_config():
         return json.load(f)
 
 
-def phase_detect(device):
+def phase_detect(device, data_config, data_cfg):
     """The YOLOS-S detection eval CLI through the flash kernel; returns
     the kernel launches of its run."""
     from myrtle_vision_tpu_torch.detection import test as cli
@@ -1252,7 +1373,6 @@ def phase_detect(device):
     from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
 
     t0 = time.perf_counter()
-    data_config, data_cfg = make_detection_dataset()
     config = yolos_small_config()
     ckpt = os.path.join(WORK, "yolos_small_seed1.pth")
     config["data_config_path"] = data_cfg
@@ -1277,8 +1397,8 @@ def phase_detect(device):
     expect = {k: 0 for k in KERNELS}
     expect["flash_attention_fwd"] = depth * batches
     print(f"detect: YOLOS-S detection eval CLI on cuda, {n_img} images in "
-          f"{batches} batches of {batch} in {took:.1f} s (set-up: data and "
-          f"weights {setup_s:.1f} s): flash_attention_fwd "
+          f"{batches} batches of {batch} in {took:.1f} s (set-up: weights "
+          f"{setup_s:.1f} s): flash_attention_fwd "
           f"{launches['flash_attention_fwd']} launches (expected "
           f"{depth} per batch, {depth * batches}), kernels {launches}, "
           f"block-half ops {ops}")
@@ -1336,6 +1456,234 @@ def phase_detect(device):
     check(agree / total >= DET_ARGMAX_BAR,
           "detection labels: kernel path disagrees with the plain path")
     check(cli_diff <= 1e-6, "the rerun kernel path is not the CLI's")
+    return launches
+
+
+def tokens_of(h, w):
+    """YOLOS-S tokens of an h x w canvas: patches, cls, 100 det tokens."""
+    return (h // 16) * (w // 16) + 1 + 100
+
+
+def expected_train_launches(canvases, n_accum, depth, val_batches):
+    """Kernel launches of an epoch that drew these step canvases (every
+    micro-batch of a step shares its canvas), then a validation of
+    ``val_batches`` batches at 800 px (discrete, the flash forward): per
+    block and micro-batch, the fused path one attention core forward and
+    its backward (four kernels above 256 tokens), the discrete path one
+    flash forward and one flash backward (three kernels)."""
+    from myrtle_vision_tpu_torch.ops.fused_attention_block import fuses_at
+
+    want = {"attention_core": 0, "attention_core_bwd": 0,
+            "flash_attention_fwd": depth * val_batches,
+            "flash_attention_bwd": 0}
+    for n in canvases:
+        blocks = depth * n_accum
+        if fuses_at(n, HEADS, C // HEADS):
+            want["attention_core"] += blocks
+            want["attention_core_bwd"] += blocks * (1 if n <= 256 else 4)
+        else:
+            want["flash_attention_fwd"] += blocks
+            want["flash_attention_bwd"] += blocks * 3
+    return want
+
+
+def forced_batch(data_config, size, max_boxes):
+    """The first 4 images of the train split resized to ``size`` px (the
+    longer side capped as DIOR's transform caps it), collated."""
+    from myrtle_vision_tpu_torch.datasets.coco import CocoDetection
+    from myrtle_vision_tpu_torch.transforms import detection as T
+
+    root = data_config["dataset_path"]
+    ds = CocoDetection(
+        os.path.join(root, data_config["train_images"]),
+        os.path.join(root, "annotations", data_config["train_annotations"]),
+        T.from_config({"RandomResize": {"scales": [size],
+                                        "max_size_ratio": [1333, 800]},
+                       "Normalize": {"Mean": [0.5] * 3, "Std": [0.5] * 3}}))
+    items = [ds.__getitem__(i, rng=np.random.default_rng((0, i)))
+             for i in range(4)]
+    return T.collate_detection(items, max_boxes=max_boxes)
+
+
+def forced_step_check(model, data_config, n_classes, weight_dict, eos_coef,
+                      n_accum, micro, device):
+    """The first step's loss and gradients at each of :data:`DET_CANVASES`,
+    kernel path against plain path, from the CLI's initial weights.  Both
+    paths take the matches the plain path's outputs give, so that a
+    near-tie in the matcher cannot part them, and both backpropagate the
+    gradient of the plain path's loss at the outputs: the box losses have
+    kinks (GIoU takes the max and min of the two boxes' edges), so a
+    kernel-path box 3e-3 away from the plain one can move one coordinate's
+    output gradient by about 1 where a predicted edge meets the target's,
+    which says nothing of the kernels (the line prints the largest such
+    difference of each path's own output gradient).  The loss itself is
+    compared from each path's own outputs."""
+    from myrtle_vision_tpu_torch.models.detector import criterion
+    from myrtle_vision_tpu_torch.models.matcher import hungarian_match
+
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    depth = len(model.transformer.layers)
+    keys = ("pred_logits", "pred_boxes")
+    for size, regime in DET_CANVASES:
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in forced_batch(data_config, size,
+                                          model.num_det_tokens).items()}
+        n_tok = tokens_of(*batch["image"].shape[1:3])
+        micro_batches = [{k: v[i * micro:(i + 1) * micro]
+                          for k, v in batch.items()} for i in range(n_accum)]
+        matches, out_grads = [], []
+        for mb in micro_batches:
+            with torch.no_grad():
+                out = model(mb["image"], plain=True)
+            matches.append(hungarian_match(
+                out["pred_logits"], out["pred_boxes"], mb["labels"],
+                mb["boxes"], mb["valid"], cost_class=1.0, cost_bbox=5.0,
+                cost_giou=2.0))
+            leaves = {k: out[k].detach().requires_grad_() for k in keys}
+            criterion(leaves, {k: mb[k] for k in ("labels", "boxes", "valid")},
+                      n_classes, weight_dict=weight_dict, eos_coef=eos_coef,
+                      src_idx=matches[-1])["loss"].backward()
+            out_grads.append([leaves[k].grad for k in keys])
+        runs = {}
+        for plain in (False, True):
+            model.load_state_dict(init)
+            model.zero_grad(set_to_none=True)
+            reset_counts()
+            loss_sum, own = 0.0, 0.0
+            for mb, src, grads in zip(micro_batches, matches, out_grads):
+                out = model(mb["image"], plain=plain)
+                leaves = {k: out[k].detach().requires_grad_() for k in keys}
+                loss = criterion(
+                    leaves, {k: mb[k] for k in ("labels", "boxes", "valid")},
+                    n_classes, weight_dict=weight_dict, eos_coef=eos_coef,
+                    src_idx=src)["loss"]
+                loss.backward()
+                loss_sum += loss.item()
+                own = max(own, *((leaves[k].grad - g).abs().max().item()
+                                 for k, g in zip(keys, grads)))
+                torch.autograd.backward([out[k] for k in keys], grads)
+            launches, _ = read_counts()
+            runs[plain] = (loss_sum / n_accum, launches,
+                           {n: p.grad.clone()
+                            for n, p in model.named_parameters()
+                            if p.grad is not None}, own)
+        (k_loss, k_launch, k_grads, k_own), (p_loss, p_launch, p_grads, _) = \
+            runs[False], runs[True]
+        largest = max(g.abs().max().item() for gs in out_grads for g in gs)
+        check(not any(p_launch.values()), f"plain path launched {p_launch}")
+        want = expected_train_launches([n_tok], n_accum, depth, 0)
+        got = {k: k_launch[k] for k in want}
+        check(got == want and max(got["attention_core_bwd"],
+                                  got["flash_attention_bwd"]) > 0,
+              f"{size} px launches {got}, expected {want}")
+        worst, worst_name = 0.0, ""
+        for name, ref in p_grads.items():
+            g = k_grads[name]
+            check(bool(torch.isfinite(g).all()), f"non-finite grad {name}")
+            rel = ((g - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+            if rel > worst:
+                worst, worst_name = rel, name
+        loss_diff = abs(k_loss - p_loss)
+        print(f"detect-train: first step at {size} px ({n_tok} tokens, "
+              f"{regime}), kernel vs plain: loss {k_loss:.6f} vs "
+              f"{p_loss:.6f} (|d| {loss_diff:.3g}, bar "
+              f"{LOSS_BAR * max(1.0, abs(p_loss)):.3g}), largest relative "
+              f"gradient error {worst:.4g} in {worst_name} (bar {GRAD_BAR:g}) "
+              f"over {len(p_grads)} tensors, both backpropagating the plain "
+              f"path's output gradient (the kernel path's own differs by "
+              f"{k_own:.4g} at most, of a largest {largest:.4g}); kernel "
+              f"launches {got}")
+        check(loss_diff <= LOSS_BAR * max(1.0, abs(p_loss)),
+              f"{size} px first-step loss: kernel path disagrees")
+        check(worst <= GRAD_BAR,
+              f"{size} px first-step gradients: kernel path disagrees")
+    model.load_state_dict(init)
+
+
+def phase_detect_train(device, data_config, data_cfg):
+    """The YOLOS-S detection train CLI through the kernels; returns the
+    kernel launches of its run."""
+    from myrtle_vision_tpu_torch.detection import test as eval_cli
+    from myrtle_vision_tpu_torch.detection import train as train_cli
+    from myrtle_vision_tpu_torch.models.detector import build_weight_dict
+
+    data_config = dict(data_config, train_subset=DET_TRAIN_SUBSET)
+    data_cfg = write_json("dior_synth_train_data_config.json", data_config)
+    config = yolos_small_config()
+    tc = config["train_config"]
+    # one epoch from scratch at the config's peak LR; no pretrained
+    # backbone (it would need a download)
+    tc.update(output_directory=os.path.join(WORK, "detect_train"),
+              checkpoint_path="", epochs=1, warmup_epochs=0,
+              pretrained_backbone=None)
+    config["data_config_path"] = data_cfg
+    cfg = write_json("yolos_small_train.json", config)
+    depth = config["vit_config"]["depth"]
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "Epoch", "WARNING", " Average")):
+            print(f"detect-train: {line.strip()}")
+    losses = [[float(v) for v in m] for m in re.findall(
+        r"Iteration \d+:\tloss=(\S+)\tce=(\S+)\tbbox=(\S+)\tgiou=(\S+)",
+        text)]
+
+    # the CLI's set-up again: the same model, batches and micro-batching
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, train_loader, val_loader, _, (micro, n_accum) = \
+            train_cli.build_train(config, device)
+    canvases = [tokens_of(*b["image"].shape[1:3])
+                for b in train_loader.epoch(0)]
+    steps = state.iteration
+    want = expected_train_launches(canvases, n_accum, depth, len(val_loader))
+    got = {k: launches[k] for k in want}
+    print(f"detect-train: YOLOS-S train CLI on cuda, {steps} steps of "
+          f"{n_accum} x {micro} images ({DET_TRAIN_SUBSET} of the train "
+          f"split) and a validation of {len(val_loader)} batches at 800 px "
+          f"in {took:.1f} s; step canvases in tokens {canvases}; launches "
+          f"{got}, expected {want}; all kernels {launches}; block-half ops "
+          f"{ops}")
+    check(steps == len(canvases) == len(losses) == DET_TRAIN_SUBSET // 4,
+          f"{steps} steps, {len(losses)} iteration lines")
+    check(all(math.isfinite(v) for row in losses for v in row),
+          f"losses {losses}")
+    check(got == want, "detection training launches")
+    check(launches["flash_attention_bwd"] > 0,
+          "the epoch drew no canvas above the fused gate")
+
+    run_dir = sorted(glob.glob(tc["output_directory"] + "_*"))[-1]
+    ckpts = sorted(os.listdir(run_dir))
+    check(ckpts == [f"vit_{steps:06}", "vit_best"], f"checkpoints {ckpts}")
+    forced_step_check(model, data_config, data_config["number_of_classes"],
+                      build_weight_dict(tc), tc["eos_coef"], n_accum, micro,
+                      device)
+    del model, train_loader, val_loader
+
+    # vit_best, as written, through the detection eval CLI (test split)
+    tc["checkpoint_path"] = os.path.join(run_dir, "vit_best")
+    cfg = write_json("yolos_small_trained_eval.json", config)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        evaluator, preds = eval_cli.main(["-c", cfg, "--device", "cuda"])
+    eval_launches, _ = read_counts()
+    stats = np.asarray(evaluator.stats, np.float64)
+    batches = math.ceil(len(preds) / tc["local_batch_size"])
+    print(f"detect-train: vit_best through the detection eval CLI: "
+          f"{len(preds)} test images, COCO summary "
+          f"{' '.join(f'{v:.4f}' for v in stats)}, flash_attention_fwd "
+          f"{eval_launches['flash_attention_fwd']} launches")
+    check(stats.shape == (12,) and bool(np.isfinite(stats).all()),
+          "COCO summary of the trained checkpoint")
+    check(eval_launches["flash_attention_fwd"] == depth * batches
+          and eval_launches["flash_attention_bwd"] == 0,
+          f"eval launches {eval_launches}")
     return launches
 
 
@@ -1496,6 +1844,7 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs):
           f"memory {peak:.2f} GiB [{power}]")
     del state, model, imgs, batch
     time_detection(totals, device, power)
+    time_detection_train(totals, device, power)
     return totals
 
 
@@ -1540,49 +1889,201 @@ def time_detection(totals, device, power):
     profile_forward(lambda: model(imgs), power)
 
 
+def sdpa_backward(q, k, v, do, scale):
+    """A thunk of PyTorch's flash-attention backward (the yardstick) on
+    bf16 (B, H, N, D) q, k, v and an output gradient; the forward's
+    outputs are made at the first (warm-up) call."""
+    fwd = []
+
+    def run():
+        if not fwd:
+            fwd.extend(torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, 0.0, False, False, scale=scale))
+        out, lse, cq, ck, mq, mk, ps, po = fwd[:8]
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, ps, po,
+            scale=scale)
+
+    return run
+
+
+def time_detection_train(totals, device, power):
+    """The flash backward per call at the K7 and K8 regimes' training
+    shapes (batch 8), beside its plain version, its bound and PyTorch's
+    flash-attention backward on the same inputs; the K7 shape (608 px)
+    goes into the kernels line, once per block.  The long attention core
+    backward at N=677 (384 px, batch 8).  Then the YOLOS-S train step
+    (forward, backward with the host matcher, AdamW) at the config's 2
+    micro-batches of 2, at 608 and 384 px, kernel path against plain
+    path."""
+    from myrtle_vision_tpu_torch.models.detector import (
+        build_weight_dict,
+        criterion,
+    )
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
+    from myrtle_vision_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+    from myrtle_vision_tpu_torch.training.detection import make_loss_fn
+    from myrtle_vision_tpu_torch.training.optim import create_optimizer
+    from myrtle_vision_tpu_torch.training.trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    for b, h, n, d, tag in ((8, 6, 1545, 64, "K7 regime, 608 px"),
+                            (8, 6, 1125, 64, "K8 regime, 512 px")):
+        q, k, v, do = flash_inputs(b, h, n, d, seed=n + 3, device=device,
+                                   count=4)
+        sc = d ** -0.5
+        o, lse = K.flash_attention_fwd_cuda(q, k, v, sc, lse=True)
+        o_p, lse_p = flash_attention_plain(q, k, v, sc, lse=True)
+        # reads q, k, v, o, do and the LSE, writes dq, dk, dv; five
+        # products of 2 N^2 D per (image, head)
+        c = cost(nbytes(q, k, v, o, do) * 8 // 5 + nbytes(lse),
+                 10 * b * h * n * n * d, "bf16",
+                 sdpa_backward(q, k, v, do, sc))
+        time_case(totals, f"flash_attention_bwd[{tag}]",
+                  lambda: K.flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                     sc),
+                  lambda: flash_attention_bwd_plain(q, k, v, o_p, do, lse_p,
+                                                    sc),
+                  1 if tag.startswith("K7") else 0, c, power,
+                  f"B={b} H={h} N={n} D={d}")
+        del q, k, v, do, o, lse, o_p, lse_p
+
+    b, n = 8, 677
+    x, attn, _, do = block_inputs(b, n, seed=8677, device=device)
+    _, m, rs, qkv = fa._forward(K.PLAIN, x, *attn, HEADS, SCALE,
+                                record=True)[1]
+    d_o = K.gemm_bf16_epilogue_plain(do.view(-1, C),
+                                     attn[4].to(torch.bfloat16).t(), None,
+                                     "f32").view(b, n, C)
+    q, k, v = heads_of(qkv)
+    dbq = torch.empty(b, 3 * C, device=device)
+    c = cost(2 * nbytes(qkv) + nbytes(d_o, m, rs, dbq),
+             10 * b * HEADS * n * n * (C // HEADS), "bf16",
+             sdpa_backward(q, k, v, heads_of(torch.cat([d_o.to(
+                 torch.bfloat16)] * 3, -1))[0], SCALE))
+    time_case(totals, "attention_core_bwd[KV-tiled, 384 px]",
+              lambda: K.attention_core_bwd_cuda(qkv, d_o, m, rs, HEADS,
+                                                SCALE),
+              lambda: K.attention_core_bwd_plain(qkv, d_o, m, rs, HEADS,
+                                                 SCALE),
+              0, c, power, f"B={b} N={n}")
+    del x, attn, do, m, rs, qkv, d_o, q, k, v
+
+    tc = yolos_small_config()["train_config"]
+    n_classes = 20
+    model = ViT("detection", 224, 16, n_classes, 384, 12, 6, 1536,
+                device=device)
+    weights = build_weight_dict(tc)
+    for size in (608, 384):
+        rng = np.random.RandomState(size)
+        valid = np.zeros((2, 2, 100), bool)
+        for i, j in np.ndindex(2, 2):
+            valid[i, j, :rng.randint(1, 21)] = True
+        wh = rng.uniform(0.02, 0.3, (2, 2, 100, 2))
+        cxy = wh / 2 + rng.uniform(0, 1, wh.shape) * (1 - wh)
+        batch = {
+            "image": seeded(rng, (2, 2, size, size, 3), 1.0, device),
+            "labels": torch.from_numpy(rng.randint(0, n_classes,
+                                                   (2, 2, 100))).to(device),
+            "boxes": torch.from_numpy(np.concatenate([cxy, wh], -1).astype(
+                np.float32)).to(device),
+            "valid": torch.from_numpy(valid).to(device)}
+        state = TrainState(model, create_optimizer(tc, model))
+
+        def plain_loss(mb):
+            losses = criterion(model(mb["image"], plain=True),
+                               {k: mb[k] for k in ("labels", "boxes",
+                                                   "valid")},
+                               n_classes, weight_dict=weights,
+                               eos_coef=tc["eos_coef"])
+            return losses.pop("loss"), {"metrics": losses}
+
+        steps = [make_train_step(loss_fn, 2) for loss_fn in (
+            make_loss_fn(model, n_classes, weights, tc["eos_coef"]),
+            plain_loss)]
+        k_ms, p_ms = paired_ms(lambda: steps[0](state, batch, tc["lr"]),
+                               lambda: steps[1](state, batch, tc["lr"]),
+                               iters=5, warmup=2)
+        n_tok = tokens_of(size, size)
+        print(f"timing: YOLOS-S train step at {size} px ({n_tok} tokens, "
+              f"2 x 2 images: forward, backward with the host matcher, "
+              f"AdamW): kernel path {k_ms:.3f} ms = {4 / k_ms * 1e3:.2f} "
+              f"img/s, plain path {p_ms:.3f} ms = {4 / p_ms * 1e3:.2f} img/s "
+              f"[{power}]")
+        line = device_profile(
+            lambda: steps[0](state, batch, tc["lr"]),
+            # the flash-tile kernels serve the flash op and, above 256
+            # tokens, the fused attention core (forward and backward)
+            {"flash-tile forward": ("flash_fwd_kernel",),
+             "flash-tile backward": ("flash_bwd_", "core_bwd_du",
+                                     "core_bwd_colsum"),
+             "fused block kernels": ("attention_core_kernel",
+                                     "attention_core_bwd_kernel",
+                                     "layernorm_rows", "gemm_kernel",
+                                     "colsum_kernel"),
+             "optimizer": ("multi_tensor",)})
+        print(f"timing: YOLOS-S train step profile at {size} px (one "
+              f"kernel-path step): {line} [{power}]")
+        del state, steps, batch
+
+
 def profile_forward(forward, power):
     """Where one kernel-path forward's device time goes: device time by
     kernel group (the flash kernel; cuBLAS products, the discrete blocks'
     projections; everything else) and the device's busy share of the
     window, the union of its kernel intervals over the window from the
     first kernel's start to the last one's end, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
     with torch.inference_mode():
         forward()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            forward()
-            torch.cuda.synchronize()
+        line = device_profile(forward, {"flash_attention_fwd":
+                                        ("flash_fwd_kernel",)})
+    print(f"timing: YOLOS-S forward profile (800 px, B=8, one kernel-path "
+          f"forward): {line} [{power}]")
+
+
+def device_profile(run, named):
+    """Device ms by kernel group of one call of ``run`` (``named``: group
+    -> substrings of its kernels' names; then cuBLAS products and
+    everything else), the device's busy ms (the union of its kernel
+    intervals) over the window from the first kernel's start to the last
+    one's end, and the idle share of that window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        print("timing: YOLOS-S forward profile: no device events (not "
-              "measured)")
-        return
-    groups = {"flash_attention_fwd": 0.0, "cuBLAS products": 0.0,
+        return "no device events (not measured)"
+    groups = {**{k: 0.0 for k in named}, "cuBLAS products": 0.0,
               "other": 0.0}
     busy, end = 0.0, spans[0][0]
     for start, stop, name in spans:
-        if "flash_fwd_kernel" in name:
-            key = "flash_attention_fwd"
-        elif any(t in name.lower() for t in ("gemm", "cutlass", "xmma",
-                                             "sm90_")):
-            key = "cuBLAS products"
-        else:
-            key = "other"
+        key = next((k for k, subs in named.items()
+                    if any(t in name for t in subs)), None)
+        if key is None:
+            key = ("cuBLAS products" if any(
+                t in name.lower() for t in ("gemm", "cutlass", "xmma",
+                                            "sm90_")) else "other")
         groups[key] += stop - start
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     window = end - spans[0][0]
-    print(f"timing: YOLOS-S forward profile (800 px, B=8, one kernel-path "
-          f"forward): device ms by group "
-          + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items())
-          + f"; busy {busy / 1e3:.3f} of a {window / 1e3:.3f} ms window, "
-          f"idle share {1 - busy / window:.4f}; {len(spans)} kernels "
-          f"[{power}]")
+    return ("device ms by group "
+            + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items())
+            + f"; busy {busy / 1e3:.3f} of a {window / 1e3:.3f} ms window, "
+            f"idle share {1 - busy / window:.4f}; {len(spans)} kernels")
 
 
 def main():
@@ -1597,7 +2098,12 @@ def main():
     launches = phase_train(device, data_config, data_cfg)
     int8_launches, int8_ckpt, int8_kwargs = phase_quantize(
         device, data_config, data_cfg)
-    det_launches = phase_detect(device)
+    t0 = time.perf_counter()
+    det_data = make_detection_dataset()
+    print(f"detect: synthetic DIOR-layout set (600 train, 96 val, 96 test "
+          f"images of 160 px) in {time.perf_counter() - t0:.1f} s")
+    det_launches = phase_detect(device, *det_data)
+    det_train_launches = phase_detect_train(device, *det_data)
     power = power_line()
     totals = phase_timing(device, power, int8_ckpt, int8_kwargs)
     kernels = []
@@ -1608,15 +2114,19 @@ def main():
             "replaces": replaces,
             # launches on the path's own run: the train CLI for the FP32
             # kernels, the PTQ CLI for the INT8 ones, the detection eval
-            # CLI for the flash kernel
+            # CLI for the flash forward, the detection train CLI for the
+            # flash backward
             "launches": (int8_launches if name in INT8_KERNELS
-                         else det_launches if name in DETECT_KERNELS
+                         else det_launches if name == "flash_attention_fwd"
+                         else det_train_launches
+                         if name == "flash_attention_bwd"
                          else launches)[name],
             "max_abs_err": errors[name],
             # sums over this kernel's launches in one ViT-S/16 block at
             # B=256: a train step (FP32 kernels), a converted forward
-            # (INT8); the flash kernel's one launch in a YOLOS-S block at
-            # 800 px, B=8
+            # (INT8); the flash forward's one launch in a YOLOS-S block at
+            # 800 px, B=8; the flash backward's one call (three kernels)
+            # in a YOLOS-S block at 608 px, B=8
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": max(t["by"], key=t["by"].get),

@@ -60,9 +60,7 @@ from torch import nn
 from myrtle_vision_tpu_torch.ops import _kernels as K
 from myrtle_vision_tpu_torch.ops._kernels import layernorm_rows_plain
 from myrtle_vision_tpu_torch.ops.attention import multi_head_attention
-from myrtle_vision_tpu_torch.ops.flash_attention import (
-    flash_attention_plain,
-)
+from myrtle_vision_tpu_torch.ops.flash_attention import flash_attention
 from myrtle_vision_tpu_torch.ops.fused_attention_block import (
     fused_attention_block,
     fused_attention_block_plain,
@@ -314,7 +312,7 @@ class Block(nn.Module):
         qkv = _dense(y, attn.to_qkv, dt)
         q, k, v = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
         if plain:
-            o = flash_attention_plain(q, k, v, self.scale)
+            o = flash_attention(q, k, v, self.scale, plain=True)
         else:
             o = multi_head_attention(q, k, v, self.scale)
         o = o.transpose(1, 2).reshape(b, n, c).to(dt)
@@ -437,8 +435,9 @@ class ViT(nn.Module):
     ``forward(img, plain=False, calibrating=False)``: img (B, H, W, C)
     float NHWC -> fp32 logits (B, num_classes), or for detection the
     {"pred_logits" (B, num_det_tokens, num_classes + 1), "pred_boxes"
-    (B, num_det_tokens, 4)} dict of fp32 tensors; differentiable in FP32
-    (on the card up to 256 tokens, the length the backward kernels take);
+    (B, num_det_tokens, 4)} dict of fp32 tensors; differentiable in FP32,
+    on the card at any length (the fused ops' backward walks KV tiles
+    above 256 tokens, the discrete path has the flash backward);
     ``plain`` selects the plain PyTorch versions in place of the kernels;
     ``calibrating`` (PyTorchINT8 before convert, the only forward that
     model runs here) updates the observers.

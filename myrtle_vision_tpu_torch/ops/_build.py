@@ -126,7 +126,7 @@ def lib() -> ctypes.CDLL:
             ("mvt_gemm_bf16_at", [p, p, p, i, i, i, i, p]),
             ("mvt_attention_core", [p, p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_max_n", []),
-            ("mvt_attention_core_bwd", [p, p, p, p, p, p, i, i, i, i, f, p]),
+            ("mvt_attention_core_bwd", [p] * 9 + [i, i, i, i, f, p, p]),
             ("mvt_layernorm_rows_bwd", [p, p, p, p, p, p, i, i, i, f, p]),
             ("mvt_layernorm_rows_bwd_max_cols", []),
             ("mvt_colsum_rows", [p, i, p, p, i, i, p, p]),
@@ -137,6 +137,8 @@ def lib() -> ctypes.CDLL:
             ("mvt_attention_core_f32_max_n", []),
             ("mvt_flash_attention_fwd",
              [p] * 5 + [ll, i, i, ll, i, i, i, i, i, i, i, f, p]),
+            ("mvt_flash_attention_bwd",
+             [p] * 10 + [ll, i, i] * 4 + [i] * 5 + [f, p, p]),
         ):
             fn = getattr(handle, name)
             fn.argtypes = args

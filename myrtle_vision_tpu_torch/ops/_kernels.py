@@ -21,10 +21,11 @@ fp32 activations, int8 operands:
 - ``gemm_s8_epilogue``     csrc/gemm_s8_epilogue.cu
 - ``attention_core_f32``   csrc/attention_core_f32.cu
 
-and the flash-attention forward of the discrete attention path
-(ops/flash_attention.py holds its plain version):
+and the flash attention of the discrete attention path, forward and
+backward (ops/flash_attention.py holds their plain versions):
 
 - ``flash_attention_fwd``  csrc/flash_attention_fwd.cu
+- ``flash_attention_bwd``  csrc/flash_attention_bwd.cu
 
 A PyTorchINT8 observer site is a (3,) fp32 tensor (scale, zero point,
 has_stats as 1 or 0), a row of the model's site table.
@@ -63,7 +64,8 @@ LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
             "attention_core": 0, "attention_core_bwd": 0,
             "layernorm_rows_bwd": 0, "colsum_rows": 0,
             "layernorm_quant_rows": 0, "gemm_s8_epilogue": 0,
-            "attention_core_f32": 0, "flash_attention_fwd": 0}
+            "attention_core_f32": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0}
 INT8_EPILOGUES = {"requant": 0, "requant_gelu_quant": 1,
                   "requant_residual_requant": 2}
 
@@ -486,23 +488,31 @@ def attention_core_cuda(qkv, heads, scale, stats=False):
 
 
 def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale):
-    """The CUDA version of :func:`attention_core_bwd_plain`."""
+    """The CUDA version of :func:`attention_core_bwd_plain`, any N: up to
+    :func:`attention_core_max_n` one block per (image, head), above it the
+    KV-tiled kernels of csrc/flash_bwd_tiles.cuh (four launches)."""
     _require(qkv, "qkv")
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_bwd")
-    if n > attention_core_max_n():
-        raise NotImplementedError(
-            f"attention_core_bwd: sequence {n} exceeds the kernel's maximum "
-            f"{attention_core_max_n()}; the backward of long sequences "
-            "waits for the flash backward kernels K7 and K8 (ROADMAP B5)")
     _require_shape(d_o, "d_o", (b, n, c))
     _require_shape(m, "m", (b, heads, n))
     _require_shape(rs, "rs", (b, heads, n))
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((b, c3), dtype=torch.float32, device=qkv.device)
+    du = rowterm = colpart = None
+    if n > attention_core_max_n():
+        du = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+        rowterm = torch.empty_like(m)
+        colpart = torch.empty((b, math.ceil(n / 64), c3),
+                              dtype=torch.float32, device=qkv.device)
+    launched = ctypes.c_int(0)
     _launch("attention_core_bwd", _lib().mvt_attention_core_bwd, qkv,
             qkv.data_ptr(), d_o.data_ptr(), m.data_ptr(), rs.data_ptr(),
-            dqkv.data_ptr(), dbias.data_ptr(), b, n, heads, d, float(scale))
+            dqkv.data_ptr(), dbias.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (du, rowterm, colpart)),
+            b, n, heads, d, float(scale), ctypes.addressof(launched),
+            launched=launched)
     return dqkv, dbias
 
 
@@ -683,6 +693,43 @@ def flash_attention_fwd_cuda(q, k, v, scale, n_valid=None, lse=False):
             n * h * d, d, h * d, b, h, n, d, n_valid, float(scale))
     out = out.permute(0, 2, 1, 3)
     return (out, lse_t) if lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, scale, n_valid=None):
+    """The backward of :func:`flash_attention_fwd_cuda`
+    (csrc/flash_attention_bwd.cu, three launches): bf16 (B, H, N, D) q, k,
+    v with the forward's strides, its output o, the output gradient do
+    (each with rows contiguous and 16-byte aligned, strides of their own)
+    and its fp32 (B, H, N) LSE -> bf16 (dq, dk, dv), (B, H, N, D) views of
+    (B, N, H, D) storage."""
+    if not q.shape == k.shape == v.shape == o.shape == do.shape or \
+            q.dim() != 4:
+        raise ValueError(f"flash_attention_bwd: shapes {tuple(q.shape)}, "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")):
+        _require_rows(t, name)
+    if not q.stride() == k.stride() == v.stride():
+        raise ValueError("flash_attention_bwd: q, k and v must share strides")
+    b, h, n, d = q.shape
+    if d not in (32, 64):
+        raise ValueError(f"flash_attention_bwd: head width {d}; the kernel "
+                         "takes 32 and 64")
+    n_valid = n if n_valid is None else int(n_valid)
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"flash_attention_bwd: n_valid {n_valid} of {n}")
+    _require_shape(lse, "lse", (b, h, n))
+    dsum = torch.empty_like(lse)
+    grads = [torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+             for _ in range(3)]
+    launched = ctypes.c_int(0)
+    _launch("flash_attention_bwd", _lib().mvt_flash_attention_bwd, q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            *(g.data_ptr() for g in grads), *q.stride()[:3],
+            *o.stride()[:3], *do.stride()[:3], n * h * d, d, h * d, b, h, n,
+            d, n_valid, float(scale), ctypes.addressof(launched),
+            launched=launched)
+    return tuple(g.permute(0, 2, 1, 3) for g in grads)
 
 
 CUDA = SimpleNamespace(

@@ -1,14 +1,20 @@
-"""Flash attention forward: softmax(q k^T scale, keys >= n_valid masked) v
-over (B, H, N, D), the scores never written to device memory.
+"""Flash attention: softmax(q k^T scale, keys >= n_valid masked) v over
+(B, H, N, D), forward and backward, the scores never written to device
+memory.
 
-Replaces the TPU forwards of myrtle_vision_tpu/ops/flash_attention.py:
-the unblocked ``_fwd_kernel`` (K5, launched by ``_flash_forward`` when the
-sequence padded to 128 is at most ``_FULL_SEQ_MAX``) and the blocked
-``_blk_fwd_kernel`` (K6, ``_blocked_forward``: an online softmax over KV
-tiles that also emits the LSE for the backward).  On the H100 one CUDA
-kernel computes both (csrc/flash_attention_fwd.cu, csrc/flash_tiles.cuh):
+Replaces the TPU kernels of myrtle_vision_tpu/ops/flash_attention.py:
+the unblocked forward ``_fwd_kernel`` (K5, launched by ``_flash_forward``
+when the sequence padded to 128 is at most ``_FULL_SEQ_MAX``) and the
+blocked ``_blk_fwd_kernel`` (K6, ``_blocked_forward``: an online softmax
+over KV tiles that also emits the LSE for the backward); and their
+backwards, ``_bwd_kernel`` (K8, ``_flash_backward``) and
+``_blk_bwd_kernel`` (K7, ``_blocked_backward``), which the custom VJP
+``_fa_bwd`` picks by the same regime.  On the H100 one CUDA kernel
+computes both forwards (csrc/flash_attention_fwd.cu, csrc/flash_tiles.cuh):
 64-query blocks, 64-key tiles double-buffered in shared memory, both
-products on the tensor cores, the softmax state in registers.
+products on the tensor cores, the softmax state in registers; and one
+CUDA backward both backwards (csrc/flash_attention_bwd.cu,
+csrc/flash_bwd_tiles.cuh).
 
 The plain version follows the JAX function regime by regime, so that the
 CPU tests hold it against the JAX kernels in interpret mode:
@@ -26,9 +32,19 @@ differ from the plain version's, which moves an output element by about
 keys): inside the one-kernel bar |kernel - plain| <= 2^-6 |plain| + 2^-7
 that chip_smoke.py holds it to.
 
-Forward only: the backward kernels (K7, K8) come with detection training
-(ROADMAP B5); a gradient through the CUDA kernel raises.  On the CPU the
-plain version is differentiable by autograd.
+The backward is the JAX rule ``_fa_bwd`` on both devices: one autograd
+node saves q, k, v, the output and the LSE, and its backward computes,
+with ``do`` rounded to the operands' dtype and fp32 accumulation,
+
+    dsum = rowsum(do * o)          p = softmax of the masked scores
+    dv = bf16(p)^T do              dp = do v^T
+    ds = p * (dp - dsum)           (query rows >= n_valid: p = ds = 0)
+    dq = bf16(ds) k * scale        dk = bf16(ds)^T q * scale
+
+The plain version follows each regime: K8 normalises p = e / rowsum(e)
+over the whole row, K7 recomputes p = exp(s - lse) from the forward's LSE
+per :func:`pick_kv_blk` tile and sums dq over the tiles.  The kernel
+takes p = exp(s - lse) in both, which moves p by an fp32 rounding.
 """
 from __future__ import annotations
 
@@ -40,10 +56,6 @@ _LANE = 128
 _NEG = -1e30  # the JAX kernels' mask value
 # n_pad ceiling of the unblocked regime (the JAX module's _FULL_SEQ_MAX)
 FULL_SEQ_MAX = 1536
-_BACKWARD_NOT_PORTED = (
-    "flash_attention: the backward on CUDA is not ported yet; it comes with "
-    "the flash backward kernels K7 and K8 (ROADMAP B5)"
-)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -108,28 +120,90 @@ def flash_attention_plain(q, k, v, scale, n_valid=None, lse=False):
     return (o, lse_t) if lse else o
 
 
-class _FlashForward(torch.autograd.Function):
-    """The CUDA kernel as an autograd node whose backward raises, so that
-    a gradient is never silently dropped."""
+def _backward_rows(q, k, v, do, dsum, p, scale, n_valid):
+    """dv, dk and the dq term of one KV slice (k, v) from its
+    probabilities p (B, H, N, width), as ``_bwd_kernel`` and
+    ``_blk_bwd_kernel`` round: query rows >= n_valid masked, p and ds
+    rounded to the operands' dtype before their products."""
+    dt = q.dtype
+    row = torch.arange(q.shape[-2], device=q.device)[:, None] < n_valid
+    p = torch.where(row, p, torch.zeros_like(p))
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    dsb = (p * (dp - dsum)).to(dt).float()
+    dk = torch.matmul(dsb.transpose(-1, -2), q.float()) * scale
+    dq = torch.matmul(dsb, k.float()) * scale
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, scale, n_valid=None):
+    """The plain PyTorch backward, on any device: (B, H, N, D) q, k, v, the
+    forward's output o and its fp32 (B, H, N) LSE, the output gradient do
+    -> (dq, dk, dv) in q's dtype, the JAX rule regime by regime (K8 below
+    :data:`FULL_SEQ_MAX`, K7 above; see the module docstring)."""
+    n = q.shape[-2]
+    n_valid = n if n_valid is None else n_valid
+    dt = q.dtype
+    do = do.to(dt)
+    dsum = (do.float() * o.to(dt).float()).sum(-1, keepdim=True)
+    n_pad = _ceil_to(n, _LANE)
+    if n_pad <= FULL_SEQ_MAX:
+        s = _masked_scores(q, k, scale, n_valid)
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        dq, dk, dv = _backward_rows(q, k, v, do, dsum,
+                                    e / e.sum(-1, keepdim=True), scale,
+                                    n_valid)
+    else:
+        blk = pick_kv_blk(n_pad)
+        dq, dks, dvs = 0.0, [], []
+        for j in range(0, n, blk):
+            kj, vj = k[..., j:j + blk, :], v[..., j:j + blk, :]
+            s = _masked_scores(q, kj, scale, n_valid, j)
+            dq_j, dk_j, dv_j = _backward_rows(
+                q, kj, vj, do, dsum, torch.exp(s - lse[..., None]), scale,
+                n_valid)
+            dq = dq + dq_j
+            dks.append(dk_j)
+            dvs.append(dv_j)
+        dk, dv = torch.cat(dks, -2), torch.cat(dvs, -2)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention as an autograd node, on either side: the plain
+    versions, or the CUDA kernels.  It saves q, k, v, the output and the
+    LSE, as ``_fa_fwd`` saves its residuals."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, n_valid):
-        return K.flash_attention_fwd_cuda(q, k, v, scale, n_valid)
+    def forward(ctx, plain, q, k, v, scale, n_valid):
+        fwd = flash_attention_plain if plain else K.flash_attention_fwd_cuda
+        o, lse = fwd(q, k, v, scale, n_valid, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.plain, ctx.scale, ctx.n_valid = plain, scale, n_valid
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(_BACKWARD_NOT_PORTED)
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if ctx.plain else \
+            K.flash_attention_bwd_cuda
+        # do in the operands' dtype, as the JAX rule casts it
+        return (None, *bwd(q, k, v, o, do.to(q.dtype), lse, ctx.scale,
+                           ctx.n_valid), None, None)
 
 
-def flash_attention(q, k, v, scale, n_valid=None):
+def flash_attention(q, k, v, scale, n_valid=None, plain=False):
     """Softmax attention, (B, H, N, D) -> (B, H, N, D), the argument order
-    of the JAX function.  A CPU tensor takes the plain version; a CUDA
-    tensor the kernel (bf16, D 32 or 64), or an error; any other device an
-    error."""
+    of the JAX function, differentiable.  A CPU tensor takes the plain
+    versions; a CUDA tensor the kernels (bf16, D 32 or 64), or an error;
+    any other device an error.  ``plain`` takes the plain versions on any
+    device (the reference the kernels are held against)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, n_valid)
-    if q.device.type != "cuda":
+        plain = True
+    elif q.device.type != "cuda":
         raise ValueError(f"no kernel for {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashForward.apply(q, k, v, scale, n_valid)
+        return _FlashAttention.apply(plain, q, k, v, scale, n_valid)
+    if plain:
+        return flash_attention_plain(q, k, v, scale, n_valid)
     return K.flash_attention_fwd_cuda(q, k, v, scale, n_valid)

@@ -31,11 +31,12 @@ Each direction rounds where the TPU kernel rounds, so the plain PyTorch
 chain (CPU tensors) and the kernel chain (CUDA tensors) differ only in
 the order of fp32 sums.
 
-The chain takes any sequence length on the card: up to 256 tokens the
-attention core holds one image's keys in shared memory, above that it
-walks them in tiles (csrc/attention_core.cu).  The backward kernel still
-takes at most 256 tokens; a longer sequence's gradient raises (ROADMAP
-B5).  Which sequences take this op at all is the JAX package's decision,
+The chain takes any sequence length on the card, forward and backward:
+up to 256 tokens the attention core and its backward hold one image's
+keys in shared memory, above that they walk them in tiles
+(csrc/attention_core.cu, csrc/attention_core_bwd.cu with
+csrc/flash_bwd_tiles.cuh).  Which sequences take this op at all is the
+JAX package's decision,
 copied here as :func:`fuses_at`: the ViT Block fuses where the TPU kernel
 fits its VMEM and otherwise runs the discrete composition, whose attention
 is the flash kernel (ops/flash_attention.py).

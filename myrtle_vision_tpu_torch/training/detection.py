@@ -1,14 +1,32 @@
-"""Detection task: the eval forward and COCO evaluation (port of
-``make_detect_fn`` and ``evaluate_coco`` of
-myrtle_vision_tpu/training/detection.py).  The loss of detection training
-(``make_loss_fn``: matcher and set criterion) is not ported yet (ROADMAP
-A7)."""
+"""Detection task: the DETR loss for the trainer core, the eval forward
+and COCO evaluation (port of ``make_loss_fn``, ``make_detect_fn`` and
+``evaluate_coco`` of myrtle_vision_tpu/training/detection.py for one
+device).  The JAX package's split matching (``make_match_fn``,
+``use_split_matching``) works around its TPU runtime and is not ported:
+here the matcher runs inside the loss, on the training forward's
+outputs, as in the JAX package's default."""
 from __future__ import annotations
 
 import torch
 
 from myrtle_vision_tpu_torch.eval.coco_eval import CocoEvaluator
-from myrtle_vision_tpu_torch.models.detector import post_process
+from myrtle_vision_tpu_torch.models.detector import criterion, post_process
+
+
+def make_loss_fn(model, num_classes, weight_dict, eos_coef):
+    """micro-batch {"image", "labels", "boxes", "valid"} on the model's
+    device -> (weighted loss, {"metrics": the other losses}), for
+    training/trainer.py ``make_train_step``."""
+
+    def loss_fn(batch):
+        outputs = model(batch["image"])
+        targets = {k: batch[k] for k in ("labels", "boxes", "valid")}
+        losses = criterion(outputs, targets, num_classes=num_classes,
+                           weight_dict=weight_dict, eos_coef=eos_coef)
+        loss = losses.pop("loss")
+        return loss, {"metrics": losses}
+
+    return loss_fn
 
 
 def make_detect_fn(model):

@@ -16,6 +16,7 @@ from myrtle_vision_tpu_torch.ops.fused_attention_block import (
 )
 from myrtle_vision_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd_plain,
     flash_attention_plain,
 )
 from myrtle_vision_tpu_torch.ops.fused_mlp import (
@@ -143,22 +144,28 @@ def test_layernorm_and_attention_core(dev):
 
 def test_kernels_refuse_what_they_do_not_take(dev):
     n = K.attention_core_max_n() + 1
-    qkv = torch.zeros(1, n, 3 * 64, device=dev, dtype=torch.bfloat16)
-    _, m, rs = K.attention_core_cuda(qkv, 1, 0.125, stats=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        K.attention_core_bwd_cuda(qkv, torch.zeros(1, n, 64, device=dev), m,
-                                  rs, 1, 0.125)
+    qkv = torch.zeros(1, n, 3 * 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head widths 32 and 64"):
+        K.attention_core_bwd_cuda(qkv, torch.zeros(1, n, 48, device=dev),
+                                  torch.zeros(1, 1, n, device=dev),
+                                  torch.zeros(1, 1, n, device=dev), 1, 0.125)
     q = torch.zeros(1, 2, 40, 48, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head width 48"):
         K.flash_attention_fwd_cuda(q, q, q, 0.125)
+    with pytest.raises(ValueError, match="head width 48"):
+        K.flash_attention_bwd_cuda(q, q, q, q, q, torch.zeros(
+            1, 2, 40, device=dev), 0.125)
     q = torch.zeros(1, 2, 40, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="n_valid 0"):
         K.flash_attention_fwd_cuda(q, q, q, 0.125, n_valid=0)
     with pytest.raises(TypeError, match="bf16"):
         K.flash_attention_fwd_cuda(q.float(), q.float(), q.float(), 0.125)
-    q.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        flash_attention(q, q, q, 0.125).float().sum().backward()
+    lse = torch.zeros(1, 2, 40, device=dev)
+    with pytest.raises(ValueError, match="n_valid 41"):
+        K.flash_attention_bwd_cuda(q, q, q, q, q, lse, 0.125, n_valid=41)
+    with pytest.raises(ValueError, match="share strides"):
+        K.flash_attention_bwd_cuda(q, q.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), q, q, q, lse, 0.125)
     a = torch.zeros(4, 12, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
         K.gemm_bf16_epilogue_cuda(a, torch.zeros_like(a).t(),
@@ -592,3 +599,119 @@ def test_detection_model_runs_through_the_flash_kernel(dev, monkeypatch):
         assert out[key].shape == ref[key].shape
         torch.testing.assert_close(out[key], ref[key], rtol=RTOL,
                                    atol=CHAIN_ATOL)
+
+
+def flash_case(b, h, n, d, seed, dev):
+    """q, k, v and an output gradient, std 1, bf16, from a seed."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    return [torch.randn(b, h, n, d, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(4)]
+
+
+# flash_attention_bwd: YOLOS-S training at 400 px (726 tokens, the K8
+# regime) and 608 px (1545, n_pad 1664: K7), a ragged head-32 case with
+# masked keys and rows, and one masked just past a 128 multiple
+FLASH_BWD = [(2, 6, 726, 64, None), (2, 6, 1545, 64, None),
+             (3, 2, 50, 32, 40), (2, 3, 130, 64, 129)]
+
+
+@pytest.mark.parametrize("b,h,n,d,n_valid", FLASH_BWD)
+def test_flash_attention_backward_matches_plain(dev, b, h, n, d, n_valid):
+    """The kernel from the kernel forward's residuals against the plain
+    backward from the plain forward's, each in its own regime: dq per
+    element under the chain bar, dk and dv (sums over the queries) under
+    the sum bar; zero rows past n_valid."""
+    q, k, v, do = flash_case(b, h, n, d, n, dev)
+    sc = d ** -0.5
+    o, lse = K.flash_attention_fwd_cuda(q, k, v, sc, n_valid, lse=True)
+    before = K.LAUNCHES["flash_attention_bwd"]
+    got = K.flash_attention_bwd_cuda(q, k, v, o, do, lse, sc, n_valid)
+    assert K.LAUNCHES["flash_attention_bwd"] == before + 3
+    o_p, lse_p = flash_attention_plain(q, k, v, sc, n_valid, lse=True)
+    ref = flash_attention_bwd_plain(q, k, v, o_p, do, lse_p, sc, n_valid)
+    close(got[0], ref[0], CHAIN_ATOL)
+    for g, r in zip(got[1:], ref[1:]):
+        close(g, r, SUM_ATOL * max(1.0, float(r.float().abs().max())))
+    if n_valid is not None:
+        for g in got:
+            assert not g[:, :, n_valid:].any()
+
+
+def test_flash_gradient_through_the_qkv_rows(dev):
+    """The autograd node on the card: gradients of the (B, H, N, D) views
+    of fused qkv rows, as the discrete Block takes them, from a sum (an
+    expanded upstream gradient), against the node's plain side."""
+    b, n, h, d = 2, 301, 6, 64
+    gen = torch.Generator(dev).manual_seed(5)
+    rows = torch.randn(b, n, 3 * h * d, device=dev, generator=gen).to(
+        torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        qkv = rows.clone().requires_grad_()
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        before = K.LAUNCHES["flash_attention_bwd"]
+        flash_attention(q, k, v, 0.125, plain=plain).float().sum().backward()
+        assert K.LAUNCHES["flash_attention_bwd"] - before == (0 if plain
+                                                              else 3)
+        grads.append(qkv.grad)
+    close(grads[0], grads[1], CHAIN_ATOL)
+
+
+@pytest.mark.parametrize("b,n,d", [(2, 257, 64), (3, 300, 32), (2, 677, 64)])
+def test_long_attention_core_backward_matches_plain(dev, b, n, d):
+    """The KV-tiled core backward (four launches) from the plain forward's
+    statistics against the plain backward."""
+    heads = 2
+    gen = torch.Generator(dev).manual_seed(n + 1)
+    qkv = torch.randn(b, n, 3 * heads * d, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    _, m, rs = K.attention_core_plain(qkv, heads, d ** -0.5, stats=True)
+    d_o = torch.randn(b, n, heads * d, device=dev, generator=gen)
+    before = K.LAUNCHES["attention_core_bwd"]
+    got = K.attention_core_bwd_cuda(qkv, d_o, m, rs, heads, d ** -0.5)
+    assert K.LAUNCHES["attention_core_bwd"] == before + 4
+    want = K.attention_core_bwd_plain(qkv, d_o, m, rs, heads, d ** -0.5)
+    close(got[0], want[0], CHAIN_ATOL)
+    close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+
+
+@pytest.mark.parametrize("n", [357, 677])
+def test_long_attention_backward_matches_plain(dev, n):
+    """YOLOS-S training at 256 and 384 px: the fused backward chain above
+    256 tokens, each path from its own forward."""
+    x, attn, _ = block(384, 1536, 4, n, n + 5, dev)
+    do = torch.randn(x.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(n)).to(x.dtype)
+    got = grads_of(fused_attention_block, x, attn, (6, 0.125), do)
+    ref = grads_of(fused_attention_block_plain, x, attn, (6, 0.125), do)
+    close_grads(got, ref, ["x", "scale", "bias", "wqkv", "bqkv", "wp", "bp"])
+
+
+def test_detection_model_trains_through_the_flash_kernels(dev, monkeypatch):
+    """A tiny detection ViT with the fused gate forced off: the flash
+    forward and backward once per block, gradients near the plain
+    path's."""
+    from myrtle_vision_tpu_torch.models import vit
+
+    monkeypatch.setattr(vit, "fuses_at", lambda n, h, d: False)
+    model = ViT(decoder="detection", image_size=160, patch_size=16,
+                num_classes=3, dim=128, depth=3, heads=2, mlp_dim=256,
+                num_det_tokens=10, device=dev)
+    img = torch.from_numpy(
+        np.random.RandomState(2).uniform(-1, 1, (2, 160, 160, 3)).astype(
+            np.float32)).to(dev)
+    grads = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        before = K.LAUNCHES["flash_attention_bwd"]
+        out = model(img, plain=plain)
+        (out["pred_logits"].square().mean()
+         + out["pred_boxes"].mean()).backward()
+        assert K.LAUNCHES["flash_attention_bwd"] - before == (0 if plain
+                                                              else 9)
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    for name, ref in grads[1].items():
+        rel = float((grads[0][name] - ref).norm() / ref.norm().clamp_min(
+            1e-30))
+        assert rel <= 2.0 ** -4, name
