@@ -23,7 +23,12 @@ Phases, each ending in one line of output:
               K7 regimes) and a ragged masked case, and the attention
               core's backward and the whole fused attention backward
               chain at 256 and 384 px (N=357, 677, B=4), each from its own
-              path's forward residuals
+              path's forward residuals; the float formats' kernels: the
+              qtorch fake-quant K11 in its five modes on 2^24 + 7 values
+              (bit-identical to its plain version), the LayerNorm, 3-pass
+              GEMM and attention-core stages and both block-half chains
+              with each qspec (FP16_16, FP16_32, TF32) at B=64, N=197 and
+              the ragged B=3, N=50
   4. main     the ViT-S/16 eval CLI on a synthetic RESISC-layout dataset
               with seeded random weights: launch counts, logits of the
               kernel path against the plain path
@@ -38,6 +43,12 @@ Phases, each ending in one line of output:
               converted checkpoint, the test split through the INT8
               kernels; launch counts, the converted logits against the
               plain path, the checkpoint's size
+  6b. quantize-float  the same PTQ CLI in FP16_32: 2 calibration batches
+              through the simulation forward, convert, the fp16 converted
+              checkpoint, the test split through the float-format kernels
+              (K11 at the sites outside the blocks, the qspec block-half
+              chains); launch counts, the converted forward stage by stage
+              and end to end against the plain path
   7. detect   the YOLOS-S detection eval CLI (detection/test.py's path;
               detection/train_configs/yolos_small.json, local batch 2) on
               the synthetic DIOR-layout test split (96 images, 160 px)
@@ -63,7 +74,9 @@ Phases, each ending in one line of output:
               the flash kernel at both regimes' shapes and the YOLOS-S
               detection forward at 800 px, batch 8; the flash backward at
               (8, 6, 1545, 64) and (8, 6, 1125, 64), the long core backward
-              at N=677, and the YOLOS-S train step at 608 and 384 px
+              at N=677, and the YOLOS-S train step at 608 and 384 px; the
+              float formats' kernels and chains in FP16_32 and the
+              converted FP16_32 forward
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -153,6 +166,41 @@ INT8_STEPS = 2
 INT8_CHAIN_STEPS = 4
 INT8_LOGIT_BAR = 2.0 ** -3
 INT8_ARGMAX_BAR = 0.95
+# Float formats, kernel against plain version: both snap with the same
+# code (csrc/fake_quant.cuh against ops/fake_quant.py, bit-identical) at
+# the same points, and every other step is the same fp32 operations, but
+# for the order of fp32 sums (LayerNorm statistics, the 3-pass products,
+# the softmax rowsum) and PyTorch's rewrite of the plain GELU's divide;
+# such a difference is fp32 noise (FLOAT_TIGHT of the output's largest
+# magnitude) unless it moves a value across a snap's rounding boundary,
+# which moves that element by one step of the format, or two where an
+# epilogue snaps twice in series (FP16_16's GELU input and output, its
+# projection before the residual add and the sum).  Bar, in the INT8
+# form: at least FLOAT_SAME of an output's elements within the fp32
+# noise, every other one within its steps of the format at the larger
+# magnitude of the values snapped in series (FLOAT_SAME: one flipped snap
+# site in a thousand, two sites).  A chain carries a flipped element into
+# the row of
+# every product after it, and through a key or value into every query of
+# its image: at least FLOAT_CHAIN_SAME within the noise, none more than
+# one step of the format at the output's largest magnitude.  The
+# converted model is held stage by stage, each stage fed the plain path's
+# input: the embedding to the kernel bar, each block and the head to one
+# step at the largest magnitude, with the share past the noise printed but
+# not held, since it follows the images (a test batch of the synthetic
+# set had 21.9% of block 0's outputs past it, at 0.303 of a step); end to
+# end by the FP32 model's logit bar.
+FLOAT_TIGHT = 2.0 ** -16
+FLOAT_SAME = 0.998
+FLOAT_CHAIN_SAME = 0.95
+FLOAT_QSPECS = {"FP16_16": (5, 10, True), "FP16_32": (5, 10, False),
+                "TF32": (8, 10, False)}
+# K11's modes: FloatingPoint (exp, man) and FixedPoint (wl, fl), and the
+# number of values each is checked on (2^24 + 7: the 16-byte vectors and
+# a ragged tail)
+FAKE_QUANT_MODES = [("float", 5, 10), ("float", 8, 10), ("fixed", 11, 9),
+                    ("fixed", 11, 8), ("fixed", 11, 7)]
+FAKE_QUANT_N = 2 ** 24 + 7
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense), for the least
 # time the card could take: bytes at 3.35 TB/s, operations at the peak of
 # their type (fp32 outside the tensor cores for the elementwise kernels).
@@ -170,13 +218,17 @@ TPU_FLASH = ("myrtle_vision_tpu/ops/flash_attention.py:127; "
              "myrtle_vision_tpu/ops/flash_attention.py:200")  # K5; K6
 TPU_FLASH_BWD = ("myrtle_vision_tpu/ops/flash_attention.py:388; "
                  "myrtle_vision_tpu/ops/flash_attention.py:290")  # K8; K7
+TPU_K11 = ("myrtle_vision_tpu/ops/fake_quant.py:131; "
+           "myrtle_vision_tpu/ops/fake_quant.py:127")  # float; fixed point
+TPU_QSPEC = f"{TPU_ATTN} (qspec); {TPU_MLP} (qspec)"
 CSRC = "myrtle_vision_tpu_torch/csrc/"
 ALL_FOUR = f"{TPU_ATTN}; {TPU_MLP}; {TPU_ATTN_BWD}; {TPU_MLP_BWD}"
 INT8_BOTH = f"{TPU_INT8_ATTN}; {TPU_INT8_MLP}"
 # per kernel: its source and the TPU kernels it replaces; the first six
 # run on the FP32 path (phases 4 and 5), the next three on the converted
-# INT8 path (phase 6), the flash forward on the detection eval (phase 7),
-# the flash backward on the detection training (phase 8)
+# INT8 path (phase 6; attention_core_f32 also on the float path, 6b), the
+# flash forward on the detection eval (phase 7), the flash backward on the
+# detection training (phase 8), the last three on the float path (6b)
 KERNELS = {
     "layernorm_rows": (CSRC + "layernorm_rows.cu", ALL_FOUR),
     "gemm_bf16_epilogue": (CSRC + "gemm_bf16_epilogue.cu", ALL_FOUR),
@@ -188,15 +240,22 @@ KERNELS = {
                     f"{TPU_ATTN_BWD}; {TPU_MLP_BWD}"),
     "layernorm_quant_rows": (CSRC + "layernorm_quant_rows.cu", INT8_BOTH),
     "gemm_s8_epilogue": (CSRC + "gemm_s8_epilogue.cu", INT8_BOTH),
-    "attention_core_f32": (CSRC + "attention_core_f32.cu", TPU_INT8_ATTN),
+    "attention_core_f32": (CSRC + "attention_core_f32.cu",
+                           f"{TPU_INT8_ATTN}; {TPU_ATTN} (qspec)"),
     "flash_attention_fwd": (CSRC + "flash_attention_fwd.cu", TPU_FLASH),
     "flash_attention_bwd": (CSRC + "flash_attention_bwd.cu", TPU_FLASH_BWD),
+    "fake_quant_rows": (CSRC + "fake_quant_rows.cu", TPU_K11),
+    "layernorm_snap_rows": (CSRC + "layernorm_snap_rows.cu", TPU_QSPEC),
+    "gemm_f32x3_epilogue": (CSRC + "gemm_f32x3_epilogue.cu", TPU_QSPEC),
 }
 INT8_KERNELS = ("layernorm_quant_rows", "gemm_s8_epilogue",
                 "attention_core_f32")
 # the discrete attention path's kernels, run by the detection eval (phase 7)
 # and the detection training (phase 8)
 DETECT_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+# the float formats' own kernels (phase 6b)
+FLOAT_KERNELS = ("fake_quant_rows", "layernorm_snap_rows",
+                 "gemm_f32x3_epilogue")
 # each TPU kernel: the chain that replaces it and the kernel cases that
 # chain runs once per call, for its bound and yardstick sums
 _G = "gemm_bf16_epilogue"
@@ -222,9 +281,16 @@ TPU_CHAINS = {
     "K10": ("int8_mlp_block", [
         "layernorm_quant_rows", "gemm_s8_epilogue[fc1,requant+gelu+quant]",
         "gemm_s8_epilogue[fc2,requant+residual+requant]"]),
+    "K1 qspec": ("fused_attention_block[qspec]", [
+        "layernorm_snap_rows", "gemm_f32x3_epilogue[qkv,bias+snap]",
+        "attention_core_f32[snap]",
+        "gemm_f32x3_epilogue[proj,bias+snap+residual+snap]"]),
+    "K3 qspec": ("fused_mlp_block[qspec]", [
+        "layernorm_snap_rows", "gemm_f32x3_epilogue[fc1,bias+snap+gelu+snap]",
+        "gemm_f32x3_epilogue[fc2,bias+snap+residual+snap]"]),
 }
 FP32_KERNELS = tuple(k for k in KERNELS
-                     if k not in INT8_KERNELS + DETECT_KERNELS)
+                     if k not in INT8_KERNELS + DETECT_KERNELS + FLOAT_KERNELS)
 # flash_attention_fwd cases (B, H, N, D, n_valid, tag): YOLOS-S at 800 px
 # (2601 tokens, n_pad 2688 > 1536: the blocked regime K6) and at 512 px
 # (1125 tokens: the unblocked K5), and a ragged case with masked keys
@@ -782,6 +848,263 @@ def op_cases(x, attn, mlp, do):
     ]
 
 
+def float_step(v, qspec):
+    """One step of the format (exp_bits, man_bits) at |v|: 2^(exponent -
+    man_bits), the subnormal quantum below the smallest normal."""
+    exp_bits, man_bits, _ = qspec
+    min_exp = 2 - 2 ** (exp_bits - 1)
+    e = torch.floor(torch.log2(v.abs().clamp_min(2.0 ** min_exp)))
+    return torch.exp2(e - man_bits)
+
+
+def compare_float(label, got, ref, qspec, first=None, chain=False,
+                  hold_share=True):
+    """(max abs difference, share of the float bar taken, share of the
+    elements past the fp32 noise) of a float-format output; fails the run
+    past the bar.  ``first``: the first of two values snapped in series
+    (the GELU's input, the projection a residual sum adds), or None;
+    ``hold_share``: False holds only the steps of the format."""
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{label}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    g, r = got.double(), ref.double()
+    diff = (g - r).abs()
+    largest = r.abs().max().item()
+    tight = FLOAT_TIGHT * largest
+    beyond = diff > tight
+    share = beyond.double().mean().item()
+    if chain:
+        worst = diff.max().item() / (tight + float_step(
+            torch.tensor(largest), qspec).item())
+        same = FLOAT_CHAIN_SAME
+    else:
+        at, steps = r.abs(), 1
+        if first is not None:
+            at, steps = torch.maximum(at, first.double().abs()), 2
+        worst = (diff[beyond] / (steps * float_step(at[beyond], qspec))
+                 ).max().item() if bool(beyond.any()) else 0.0
+        same = FLOAT_SAME
+    of_bar = max(share / (1 - same), worst) if hold_share else worst
+    check(of_bar <= 1.0, f"{label}: {share:.3g} of the elements past the fp32 "
+          f"noise, max abs {diff.max().item()}, {worst:.3g} of a format step")
+    return diff.max().item(), of_bar, share
+
+
+def fake_quant_values(n, device):
+    """n fp32 values for K11: magnitudes 2^-149 (fp32 subnormals) to 2^24
+    (past fp16's range) of either sign, led by halfway ties of the fp16 /
+    TF32 mantissas, the fp16 subnormal quantum and the fixed-point quanta,
+    values at and past saturation, and signed zeros."""
+    gen = torch.Generator(device).manual_seed(11)
+    mag = torch.exp2(torch.rand(n, device=device, generator=gen) * 173 - 149)
+    sign = torch.randint(0, 2, (n,), device=device, generator=gen) * 2 - 1
+    x = mag * sign
+    k = torch.arange(-2000, 2000, device=device, dtype=torch.float64) + 0.5
+    special = torch.cat([
+        k * 2.0 ** -10, k * 2.0 ** -24, k * 2.0 ** -9, k * 2.0 ** -8,
+        k * 2.0 ** -7, 2.0 ** 12 * (1 + k.abs() * 2.0 ** -10),
+        torch.tensor([0.0, -0.0, 65504.0, 65519.0, 65520.0, -65520.0, 1e38,
+                      -1e38, 3.4e38, 2.0 ** -149, -2.0 ** -149, 2.0 ** -126,
+                      2.0 ** -14, 2.0 ** -25, 4.0 - 2.0 ** -8, 4.0, -4.0,
+                      8.0, 16.0], device=device, dtype=torch.float64)])
+    x[:special.numel()] = special.float()
+    return x, special.numel()
+
+
+def float_block_inputs(b, n, seed, device, qspec):
+    """fp32 activations and one ViT-S/16 block's float-format operands
+    from a numpy seed: Linear weights U(+-1/sqrt(fan_in))-sized through the
+    format's fake-quant, as the converted model holds them, each the (in,
+    out) view of the torch (out, in) tensor as the Block passes it; biases
+    std 1; LayerNorm 1 + noise."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import float_quantize
+
+    rng = np.random.RandomState(seed)
+    x = seeded(rng, (b, n, C), 1.0, device)
+
+    def weight(out_f, in_f):
+        w = seeded(rng, (out_f, in_f), in_f ** -0.5, device)
+        return float_quantize(w, qspec[0], qspec[1]).t()
+
+    attn = [seeded(rng, (C,), 0.1, device) + 1, seeded(rng, (C,), 0.1, device),
+            weight(3 * C, C), seeded(rng, (3 * C,), 1.0, device),
+            weight(C, C), seeded(rng, (C,), 1.0, device)]
+    mlp = [seeded(rng, (C,), 0.1, device) + 1, seeded(rng, (C,), 0.1, device),
+           weight(HID, C), seeded(rng, (HID,), 1.0, device),
+           weight(C, HID), seeded(rng, (C,), 1.0, device)]
+    return x, attn, mlp
+
+
+def float_kernel_cases(x, attn, mlp, qspec):
+    """(name, kernel thunk, plain thunk, a thunk of the first of two values
+    its epilogue snaps in series (given its output) or None, launches per
+    converted block in a forward, cost) for each float-format
+    chain kernel at the main path's shapes and layouts, inputs prepared
+    with the plain versions as the ops chain them.  Yardsticks:
+    ``F.layer_norm``, three bf16 ``torch.matmul`` of the pre-split
+    operands (the tensor-core work of the 3-pass product) and
+    ``F.scaled_dot_product_attention`` in fp32."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.high_precision import split_bf16
+
+    b, n, _ = x.shape
+    x2 = x.view(-1, C)
+    s_a, b_a, wqkv, bqkv, wp, bp = attn
+    s_m, b_m, w1, b1, w2, b2 = mlp
+    check(wqkv.t().is_contiguous() and w1.t().is_contiguous(),
+          "weights not in the main path's layout")
+    xn = K.layernorm_snap_rows_plain(x2, s_a, b_a, qspec)
+    qkv3 = K.gemm_f32x3_epilogue_plain(xn, wqkv, bqkv, "bias_snap",
+                                       qspec).view(b, n, 3 * C)
+    ctx = K.attention_core_snap_plain(qkv3, HEADS, SCALE, qspec).view(-1, C)
+    xm = K.layernorm_snap_rows_plain(x2, s_m, b_m, qspec)
+    g = K.gemm_f32x3_epilogue_plain(xm, w1, b1, "bias_snap_gelu_snap", qspec)
+    q, k, v = heads_of(qkv3)
+
+    def mm(name, a, w, bias, epilogue, residual=None):
+        m, kk, nn = a.shape[0], a.shape[1], w.shape[1]
+        first = None
+        if residual is not None:
+            def first(out):
+                return out - residual
+        elif epilogue == "bias_snap_gelu_snap":
+            def first(_):
+                return K.gemm_f32x3_epilogue_plain(a, w, bias, "bias_snap",
+                                                   qspec)
+        ah, al = (t.to(torch.bfloat16) for t in split_bf16(a))
+        wh, wl = (t.to(torch.bfloat16) for t in split_bf16(w))
+        c = cost(nbytes(a, w, bias, residual) + 4 * m * nn,
+                 3 * 2 * m * nn * kk, "bf16",
+                 lambda: (torch.matmul(ah, wh), torch.matmul(ah, wl),
+                          torch.matmul(al, wh)))
+        args = (a, w, bias, epilogue, qspec)
+        return (f"gemm_f32x3_epilogue[{name}]",
+                lambda: K.gemm_f32x3_epilogue_cuda(*args, residual=residual),
+                lambda: K.gemm_f32x3_epilogue_plain(*args, residual=residual),
+                first, 1, c)
+
+    return [
+        ("layernorm_snap_rows",
+         lambda: K.layernorm_snap_rows_cuda(x2, s_a, b_a, qspec),
+         lambda: K.layernorm_snap_rows_plain(x2, s_a, b_a, qspec), None, 2,
+         cost(2 * nbytes(x2) + nbytes(s_a, b_a), 14 * x2.numel(), "fp32",
+              lambda: F.layer_norm(x2, (C,), s_a, b_a, K.EPS))),
+        mm("qkv,bias+snap", xn, wqkv, bqkv, "bias_snap"),
+        # the attention core's float mode; its launches count under the
+        # converted INT8 forward's kernel line, so 0 here
+        ("attention_core_f32[snap]",
+         lambda: K.attention_core_snap_cuda(qkv3, HEADS, SCALE, qspec),
+         lambda: K.attention_core_snap_plain(qkv3, HEADS, SCALE, qspec),
+         None, 0,
+         cost(nbytes(qkv3) * 4 // 3, 3 * 4 * b * HEADS * n * n * (C // HEADS),
+              "bf16",
+              lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE))),
+        mm("proj,bias+snap+residual+snap", ctx, wp, bp,
+           "bias_snap_residual_snap", residual=x2),
+        mm("fc1,bias+snap+gelu+snap", xm, w1, b1, "bias_snap_gelu_snap"),
+        mm("fc2,bias+snap+residual+snap", g, w2, b2, "bias_snap_residual_snap",
+           residual=x2),
+    ]
+
+
+def fake_quant_block_cases(attn, mlp, qspec):
+    """K11 at a converted block's sites in one forward (the JAX Block's
+    ``_qw``): each Linear weight's fake-quant, (out, in) as stored, and the
+    two LayerNorm scales'; the yardstick for e5m10 the fp16 cast."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    e, m = qspec[:2]
+    out = []
+    for name, w, count in (("wqkv", attn[2].t(), 1), ("wp", attn[4].t(), 1),
+                           ("w1", mlp[2].t(), 1), ("w2", mlp[4].t(), 1),
+                           ("norm scale", attn[0], 2)):
+        out.append((
+            f"fake_quant_rows[{name}]",
+            lambda w=w: K.fake_quant_rows_cuda(w, "float", e, m),
+            lambda w=w: K.fake_quant_rows_plain(w, "float", e, m), None,
+            count, cost(2 * nbytes(w), 10 * w.numel(), "fp32",
+                        (lambda w=w: w.clamp(-65504, 65504).half().float())
+                        if (e, m) == (5, 10) else None)))
+    return out
+
+
+def float_op_cases(x, attn, mlp, qspec):
+    """(name, kernel thunk, plain thunk) of both float-format block-half
+    chains."""
+    from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
+    from myrtle_vision_tpu_torch.ops import fused_mlp as fm
+
+    return [
+        ("fused_attention_block[qspec]",
+         lambda: fa.fused_attention_block(x, *attn, HEADS, SCALE,
+                                          qspec=qspec),
+         lambda: fa.fused_attention_block_plain(x, *attn, HEADS, SCALE,
+                                                qspec=qspec)),
+        ("fused_mlp_block[qspec]",
+         lambda: fm.fused_mlp_block(x, *mlp, qspec=qspec),
+         lambda: fm.fused_mlp_block_plain(x, *mlp, qspec=qspec)),
+    ]
+
+
+def phase_kernels_float(device):
+    """K11 in its five modes, bit for bit; each float-format chain kernel
+    and both chains with each qspec.  Returns the largest abs errors at
+    B=64 by kernel."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    errors = {"fake_quant_rows": 0.0}
+    x, n_special = fake_quant_values(FAKE_QUANT_N, device)
+    sub = int(((x.abs() < 2.0 ** -126) & (x != 0)).sum())
+    unaligned = x[1:1000004]  # 4 bytes past a 16-byte boundary: scalar path
+    for mode, a, b in FAKE_QUANT_MODES:
+        got = K.fake_quant_rows_cuda(x, mode, a, b)
+        ref = K.fake_quant_rows_plain(x, mode, a, b)
+        got_u = K.fake_quant_rows_cuda(unaligned, mode, a, b)
+        ref_u = K.fake_quant_rows_plain(unaligned, mode, a, b)
+        torch.cuda.synchronize()
+        same = (torch.equal(got.view(torch.int32), ref.view(torch.int32))
+                and torch.equal(got_u.view(torch.int32),
+                                ref_u.view(torch.int32)))
+        line = (f"kernels: fake_quant_rows[{mode} {a},{b}] on {x.numel()} "
+                f"values ({sub} fp32 subnormals, {n_special} ties and edge "
+                f"values) and an unaligned view of {unaligned.numel()}: "
+                f"bit-identical to the plain version {same}")
+        if (mode, a, b) == ("float", 5, 10):
+            half = x.clamp(-65504, 65504).half().float()
+            same_half = torch.equal(got.view(torch.int32),
+                                    half.view(torch.int32))
+            line += f", to x.clamp(-65504, 65504).half().float() {same_half}"
+            same = same and same_half
+        print(line)
+        check(same, f"fake_quant_rows {mode} {a},{b} is not bit-identical")
+    del x, unaligned, got, ref, got_u, ref_u
+    for qname, qspec in FLOAT_QSPECS.items():
+        for b, n, tag in ((64, N, "B=64,N=197"), (3, 50, "B=3,N=50")):
+            x, attn, mlp = float_block_inputs(b, n, seed=b * 1000 + n + 2,
+                                              device=device, qspec=qspec)
+            cases = [(name, kern, plain, first, False) for name, kern, plain,
+                     first, _, _ in float_kernel_cases(x, attn, mlp, qspec)]
+            cases += [(name, kern, plain, None, True)
+                      for name, kern, plain in float_op_cases(x, attn, mlp,
+                                                              qspec)]
+            for name, kernel, plain, first, chain in cases:
+                ref = plain()
+                max_abs, of_bar, share = compare_float(
+                    f"{name} {qname} {tag}", kernel(), ref, qspec,
+                    None if first is None else first(ref), chain)
+                kind = "chain" if chain else "kernel"
+                print(f"kernels: {name} {qname} {tag} max_abs {max_abs:.6g}, "
+                      f"{of_bar:.4f} of the bar ({share:.5f} of the elements "
+                      f"past the fp32 noise; {kind})")
+                key = name.split("[")[0]
+                if b == 64:
+                    errors[key] = max(errors.get(key, 0.0), max_abs)
+    return errors
+
+
 def phase_kernels(device):
     errors = {}
     for b, n, tag in ((64, N, "B=64,N=197"), (3, 50, "B=3,N=50")):
@@ -822,11 +1145,16 @@ def phase_kernels(device):
                 errors[key] = max(errors.get(key, 0.0), worst[1])
     errors["flash_attention_fwd"], errors["flash_attention_bwd"] = \
         phase_kernels_long(device)
+    for key, err in phase_kernels_float(device).items():
+        errors[key] = max(errors.get(key, 0.0), err)
     print(f"kernels: all within their bars (|d| <= {RTOL:g}*|ref| + atol; "
           f"atol {KERNEL_ATOL:g} kernel, {CHAIN_ATOL:g} chain, "
           f"{SUM_ATOL:g}*max|ref| sum; psum |d| <= {PSUM_ATOL:g}*max|ref|; "
           f"INT8: >= {INT8_SAME} identical and <= {INT8_STEPS} grid steps, "
-          f"a chain {INT8_CHAIN_SAME} and {INT8_CHAIN_STEPS})")
+          f"a chain {INT8_CHAIN_SAME} and {INT8_CHAIN_STEPS}; float formats: "
+          f">= {FLOAT_SAME} within {FLOAT_TIGHT:g}*max|ref| and the rest "
+          f"within 1-2 format steps, a chain {FLOAT_CHAIN_SAME} and one step "
+          f"at max|ref|; K11 bit-identical)")
     return errors
 
 
@@ -1054,14 +1382,11 @@ def phase_main(device, data_config, data_cfg):
           f"op launches {ops}")
     check(op_launches == (depth * batches, depth * batches),
           f"op launches {op_launches}, expected {depth} per batch")
-    check(launches == {"layernorm_rows": 2 * depth * batches,
-                       "gemm_bf16_epilogue": 4 * depth * batches,
-                       "attention_core": depth * batches,
-                       "attention_core_bwd": 0, "layernorm_rows_bwd": 0,
-                       "colsum_rows": 0, "layernorm_quant_rows": 0,
-                       "gemm_s8_epilogue": 0, "attention_core_f32": 0,
-                       "flash_attention_fwd": 0, "flash_attention_bwd": 0},
-          f"kernel launches {launches}")
+    expect = {k: 0 for k in KERNELS}
+    expect.update(layernorm_rows=2 * depth * batches,
+                  gemm_bf16_epilogue=4 * depth * batches,
+                  attention_core=depth * batches)
+    check(launches == expect, f"kernel launches {launches}")
     check(logits.shape == (n_img, data_config["number_of_classes"]),
           f"logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
@@ -1336,6 +1661,125 @@ def stage_check(model, loader):
           f"{len(model.transformer.layers)} blocks, head), kernel path fed "
           f"the plain path's input: worst {worst[0]:.4f} of the bar, at "
           f"{worst[1]}")
+
+
+def phase_quantize_float(device, data_config, data_cfg):
+    """The PTQ CLI on vit_small.json in FP16_32 through the float-format
+    kernels; returns (kernel launches of its run, the converted
+    checkpoint's path, the model's constructor kwargs)."""
+    from myrtle_vision_tpu_torch.classification import test_quantize as cli
+    from myrtle_vision_tpu_torch.classification.test import evaluate_dataset
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.utils.convert import (
+        load_reference_checkpoint,
+    )
+
+    q_format, calib = "FP16_32", 2
+    qspec = FLOAT_QSPECS[q_format]
+    config = vit_small_config()
+    config["vit_config"]["q_format"] = q_format
+    fp32_ckpt = os.path.join(WORK, "vit_small_seed0.pth")  # phase 4's
+    saved = os.path.join(WORK, "vit_small_fp16_32_converted.pth")
+    config["data_config_path"] = data_cfg
+    config["train_config"].update(checkpoint_path=fp32_ckpt,
+                                  local_batch_size=32, drop_last_batch=False)
+    cfg = write_json("vit_small_fp16_32.json", config)
+    depth = config["vit_config"]["depth"]
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gts, preds, logits = cli.main(["-c", cfg, "--device", "cuda",
+                                       "--calib_steps", str(calib),
+                                       "--save_converted", saved])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        if "calibration" in line or "size" in line or "checkpoint" in line:
+            print(f"quantize-float: {line.strip()}")
+    with open(os.path.join(data_config["dataset_path"],
+                           data_config["valid_files"])) as f:
+        calib_batches = min(calib, math.ceil(len(f.read().split()) / 32))
+    n_img = len(gts)
+    batches = math.ceil(n_img / 32)
+    forwards = calib_batches + batches
+    float_ops = (ops["fused_attention_block"], ops["fused_mlp_block"])
+    print(f"quantize-float: ViT-S/16 PTQ CLI ({q_format}) on cuda in "
+          f"{took:.1f} s: {calib_batches} calibration batches through the "
+          f"simulation forward, {n_img} test images in {batches} batches "
+          f"through the converted one, accuracy "
+          f"{float(np.mean(gts == preds)):.4f}: block-half ops (forward, "
+          f"backward) {float_ops}, kernels {launches}")
+    check(float_ops == ((depth * forwards, 0), (depth * forwards, 0)),
+          f"block-half launches {float_ops}, expected {depth} per forward")
+    # per forward: 2 LayerNorms, 4 products and one core per block; K11 at
+    # the simulation forward's 4 weights a block, the embedding (act_in,
+    # weight) and the head (norm act_in, act_in, weight), the converted
+    # forward's also at the LayerNorm scales, and convert's at every
+    # Linear and LayerNorm weight on the card
+    expect = {k: 0 for k in KERNELS}
+    expect.update(layernorm_snap_rows=2 * depth * forwards,
+                  gemm_f32x3_epilogue=4 * depth * forwards,
+                  attention_core_f32=depth * forwards,
+                  fake_quant_rows=calib_batches * (4 * depth + 5)
+                  + (6 * depth + 3) + batches * (6 * depth + 6))
+    check(launches == expect, f"kernel launches {launches}, expected {expect}")
+    check(logits.shape == (n_img, data_config["number_of_classes"])
+          and bool(torch.isfinite(logits).all()), "converted logits")
+    ratio = os.path.getsize(saved) / os.path.getsize(fp32_ckpt)
+    print(f"quantize-float: converted checkpoint {os.path.getsize(saved)} "
+          f"bytes, {ratio:.4f} of the fp32 file (bar 0.6)")
+    check(ratio < 0.6, "the converted checkpoint is not fp16-sized")
+
+    # the written checkpoint, read as it is, through the plain versions
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, test_loader, _, kwargs = cli.build_quantize(config, device)
+    model = ViT(**dict(kwargs, converted=True), device=device)
+    state = load_reference_checkpoint(saved)
+    check(state["transformer.layers.0.1.fn.fn.net.0.weight"].dtype
+          == torch.float16, "converted weights are not fp16")
+    model.load_state_dict(state, strict=True)
+    model.eval()
+    with torch.inference_mode():
+        _, plain_preds, plain_logits = evaluate_dataset(
+            lambda images: model(images, plain=True), test_loader)
+    float_stage_check(model, test_loader, qspec)
+    diff = (logits - plain_logits).abs().max().item()
+    limit = LOGIT_BAR * max(1.0, plain_logits.abs().max().item())
+    agree = float(np.mean(preds == plain_preds))
+    print(f"quantize-float: kernel vs plain converted logits max_abs "
+          f"{diff:.6g} (bar {limit:.6g}), argmax agreement {agree:.4f} (bar "
+          f"{ARGMAX_BAR})")
+    check(diff <= limit and agree >= ARGMAX_BAR,
+          "converted float kernel-path logits disagree with the plain path")
+    return launches, saved, kwargs
+
+
+def float_stage_check(model, loader, qspec):
+    """The converted float model's forward on the first test batch, stage
+    by stage, each stage of the kernel path fed the plain path's input."""
+    epoch = loader.epoch(0)
+    img = next(epoch)["image"]
+    epoch.close()
+    q, conv = model.q_format, model.converted
+    with torch.inference_mode():
+        x = model.embed_float(img, plain=True)
+        stages = [("embedding", model.embed_float(img), x, False)]
+        for i, block in enumerate(model.transformer.layers):
+            y = block.forward_float(x, plain=True)
+            stages.append((f"block {i}", block.forward_float(x), y, True))
+            x = y
+        stages.append(("head", model.decoder.forward_float(x, q, conv, False),
+                       model.decoder.forward_float(x, q, conv, True), True))
+        for name, got, ref, chain in stages:
+            max_abs, of_bar, share = compare_float(
+                f"converted {name}", got, ref, qspec, chain=chain,
+                hold_share=not chain)
+            print(f"quantize-float: stage {name}: max_abs {max_abs:.6g}, "
+                  f"{share:.5f} of the elements past the fp32 noise"
+                  f"{'' if chain else ' (held)'}, {of_bar:.4f} of the "
+                  f"{'step at the largest magnitude' if chain else 'kernel bar'}")
 
 
 def make_detection_dataset():
@@ -1755,11 +2199,13 @@ def time_chain(cases, name, kernel, plain, power, tag):
     print(line)
 
 
-def phase_timing(device, power, int8_ckpt, int8_kwargs):
+def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
+                 float_kwargs):
     """Per kernel: {ms, plain_ms, bound_ms, by, library_ms}, each the sum
     over the kernel's launches in one ViT-S/16 block at batch 256: a train
     step (forward with the saved statistics, backward) for the FP32
-    kernels, a converted forward for the INT8 ones."""
+    kernels, a converted forward for the INT8 and the float (FP16_32)
+    ones."""
     from myrtle_vision_tpu_torch.models.vit import ViT
     from myrtle_vision_tpu_torch.training.classification import make_loss_fn
     from myrtle_vision_tpu_torch.training.optim import (
@@ -1784,6 +2230,28 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs):
     for name, kernel, plain, _ in int8_op_cases(xi, ai, mi, ci):
         time_chain(cases, name, kernel, plain, power, tag)
     del xi, ai, mi, ci
+    qspec = FLOAT_QSPECS["FP16_32"]
+    xf, af, mf = float_block_inputs(b, N, seed=258, device=device,
+                                    qspec=qspec)
+    for name, kernel, plain, _, count, c in (
+            float_kernel_cases(xf, af, mf, qspec)
+            + fake_quant_block_cases(af, mf, qspec)):
+        cases[name] = time_case(totals, name, kernel, plain, count, c, power,
+                                tag + " (converted FP16_32 forward)")
+    for name, kernel, plain in float_op_cases(xf, af, mf, qspec):
+        time_chain(cases, name, kernel, plain, power, tag)
+    del xf, af, mf
+    # K11 at the patch embedding's pre_linear site, once a forward
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    xe = seeded(np.random.RandomState(259), (b, N - 1, 768), 1.0, device)
+    time_case(totals, "fake_quant_rows[patch embedding act_in]",
+              lambda: K.fake_quant_rows_cuda(xe, "float", 5, 10),
+              lambda: K.fake_quant_rows_plain(xe, "float", 5, 10), 0,
+              cost(2 * nbytes(xe), 10 * xe.numel(), "fp32",
+                   lambda: xe.clamp(-65504, 65504).half().float()),
+              power, f"B={b}, (B, 196, 768)")
+    del xe
     x, attn, mlp, do = block_inputs(b, N, seed=256, device=device)
     for name, kernel, plain, _, count, c in kernel_cases(x, attn, mlp, do):
         if "other layout" in name:
@@ -1818,6 +2286,32 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs):
           f"{k_ms:.3f} ms = {b / k_ms * 1e3:.1f} img/s, plain path "
           f"{p_ms:.3f} ms = {b / p_ms * 1e3:.1f} img/s; bf16 forward of "
           f"this run {bf16_ips:.1f} img/s [{power}]")
+    int8_ips = b / k_ms * 1e3
+    del conv
+
+    # the converted FP16_32 model of phase 6b
+    conv = ViT(**dict(float_kwargs, converted=True), device=device)
+    conv.load_state_dict(load_reference_checkpoint(float_ckpt), strict=True)
+    conv.eval()
+    with torch.inference_mode():
+        k_ms, p_ms = paired_ms(lambda: conv(imgs),
+                               lambda: conv(imgs, plain=True), iters=5,
+                               warmup=2)
+    print(f"timing: converted FP16_32 ViT-S/16 forward B={b}: kernel path "
+          f"{k_ms:.3f} ms = {b / k_ms * 1e3:.1f} img/s, plain path "
+          f"{p_ms:.3f} ms = {b / p_ms * 1e3:.1f} img/s; this run's bf16 "
+          f"forward {bf16_ips:.1f} img/s, converted INT8 {int8_ips:.1f} "
+          f"img/s [{power}]")
+    with torch.inference_mode():
+        conv(imgs)
+        torch.cuda.synchronize()
+        line = device_profile(lambda: conv(imgs), {
+            "fake_quant_rows": ("fake_quant_rows",),
+            "layernorm_snap_rows": ("layernorm_snap_rows",),
+            "gemm_f32x3_epilogue": ("gemm_f32x3",),
+            "attention_core_f32": ("attention_core_f32",)})
+    print(f"timing: converted FP16_32 forward profile (B={b}, one kernel-path "
+          f"forward): {line} [{power}]")
     del conv
 
     # one train step (forward, backward, AdamW) on one micro-batch of 256
@@ -2098,6 +2592,8 @@ def main():
     launches = phase_train(device, data_config, data_cfg)
     int8_launches, int8_ckpt, int8_kwargs = phase_quantize(
         device, data_config, data_cfg)
+    float_launches, float_ckpt, float_kwargs = phase_quantize_float(
+        device, data_config, data_cfg)
     t0 = time.perf_counter()
     det_data = make_detection_dataset()
     print(f"detect: synthetic DIOR-layout set (600 train, 96 val, 96 test "
@@ -2105,7 +2601,8 @@ def main():
     det_launches = phase_detect(device, *det_data)
     det_train_launches = phase_detect_train(device, *det_data)
     power = power_line()
-    totals = phase_timing(device, power, int8_ckpt, int8_kwargs)
+    totals = phase_timing(device, power, int8_ckpt, int8_kwargs,
+                          float_ckpt, float_kwargs)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -2113,10 +2610,11 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # launches on the path's own run: the train CLI for the FP32
-            # kernels, the PTQ CLI for the INT8 ones, the detection eval
-            # CLI for the flash forward, the detection train CLI for the
-            # flash backward
+            # kernels, the PTQ CLI for the INT8 ones and for the float
+            # formats' (FP16_32), the detection eval CLI for the flash
+            # forward, the detection train CLI for the flash backward
             "launches": (int8_launches if name in INT8_KERNELS
+                         else float_launches if name in FLOAT_KERNELS
                          else det_launches if name == "flash_attention_fwd"
                          else det_train_launches
                          if name == "flash_attention_bwd"
@@ -2124,9 +2622,9 @@ def main():
             "max_abs_err": errors[name],
             # sums over this kernel's launches in one ViT-S/16 block at
             # B=256: a train step (FP32 kernels), a converted forward
-            # (INT8); the flash forward's one launch in a YOLOS-S block at
-            # 800 px, B=8; the flash backward's one call (three kernels)
-            # in a YOLOS-S block at 608 px, B=8
+            # (INT8, FP16_32); the flash forward's one launch in a YOLOS-S
+            # block at 800 px, B=8; the flash backward's one call (three
+            # kernels) in a YOLOS-S block at 608 px, B=8
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": max(t["by"], key=t["by"].get),

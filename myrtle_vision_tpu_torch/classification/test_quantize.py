@@ -6,24 +6,28 @@ classification/test_quantize.py).
         [--save_converted <path>] [--device cuda|cpu]
 
 The flow of the JAX CLI (classification/test_quantize.py:77-162) for
-``vit_config.q_format`` PyTorchINT8:
+``vit_config.q_format`` PyTorchINT8, FP16_16, FP16_32 or TF32:
   1. the fp32 reference-format ``.pth`` of ``train_config.checkpoint_path``
-     into an INT8 model whose observers are fresh;
+     into a model of the format (an INT8 model's observers fresh);
   2. ``--calib_steps`` batches of the validation split through the
-     calibrating forward, which folds them into every observer's running
-     min/max;
-  3. convert: the Linear weights become int8 with a per-tensor fp32 scale;
+     calibrating forward, which folds them into every INT8 observer's
+     running min/max; a float format has no observers, so its
+     simulation forward runs and updates nothing, as in the JAX CLI;
+  3. convert: the Linear weights become int8 with a per-tensor fp32
+     scale (PyTorchINT8), or the Linear and LayerNorm weights take the
+     format's fake-quant, stored as fp16 (FP16_16, FP16_32) or fp32
+     (TF32);
   4. the model sizes before and after;
-  5. with ``--save_converted``, the converted checkpoint (int8 storage);
-  6. the test split through the converted model (the int8 products and
-     the INT8 block-half ops, ops/fused_int8_block.py) and the
-     classification report.
-``--quantized_ckpt`` is parsed and, as in the JAX CLI, not read.  The
-stateless float formats (FP16_16, FP16_32, TF32) are not ported yet and
-raise, and FP32 has nothing to quantize (classification/test.py
-evaluates it).  ``--device`` defaults to
-``cuda``; without a CUDA device that raises, it never carries on on the
-CPU.
+  5. with ``--save_converted``, the converted checkpoint (its int8 or
+     fp16 storage as it is);
+  6. the test split through the converted model (INT8: the int8 products
+     and the INT8 block-half ops, ops/fused_int8_block.py; a float
+     format: its sites through K11 and the block-half ops with its
+     ``qspec``) and the classification report.
+``--quantized_ckpt`` is parsed and, as in the JAX CLI, not read.  FP32
+has nothing to quantize (classification/test.py evaluates it).
+``--device`` defaults to ``cuda``; without a CUDA device that raises, it
+never carries on on the CPU.
 """
 from __future__ import annotations
 
@@ -42,7 +46,6 @@ from myrtle_vision_tpu_torch.data.loader import DataLoader
 from myrtle_vision_tpu_torch.datasets.resisc45 import Resisc45
 from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
 from myrtle_vision_tpu_torch.quantize import (
-    QFormat,
     convert_params,
     is_observer,
     model_size_mb,
@@ -55,10 +58,10 @@ from myrtle_vision_tpu_torch.utils.convert import load_reference_checkpoint
 
 def build_quantize(config, device):
     """(model, validation loader, test loader, data config, model kwargs)
-    as the CLI sets them up: dropout zeroed, the PyTorchINT8 model with
-    fresh observers and the fp32 checkpoint loaded strictly; the
-    validation loader unpadded, the test loader padding its last
-    batch."""
+    as the CLI sets them up: dropout zeroed, the model of the config's
+    format (an INT8 model with fresh observers) and the fp32 checkpoint
+    loaded strictly; the validation loader unpadded, the test loader
+    padding its last batch."""
     train_config = config["train_config"]
     if config["vit_config"]["q_format"] == "FP32":
         raise ValueError("q_format FP32: nothing to quantize; "
@@ -91,7 +94,8 @@ def build_quantize(config, device):
 @torch.no_grad()
 def calibrate(model, loader, calib_steps):
     """Feed ``calib_steps`` batches through the calibrating forward
-    (reference test_quantize.py:26-34)."""
+    (reference test_quantize.py:26-34); a float format's forward updates
+    nothing."""
     print(f"\nRunning {calib_steps} calibration steps")
     model.eval()
     for i, batch in enumerate(loader.epoch(0)):
@@ -105,7 +109,7 @@ def convert_model(model, kwargs, device):
     loaded strictly into a ``converted=True`` model."""
     converted = ViT(**dict(kwargs, converted=True), device=device)
     converted.load_state_dict(
-        convert_params(model.state_dict(), QFormat.PyTorchINT8), strict=True)
+        convert_params(model.state_dict(), model.q_format), strict=True)
     return converted
 
 
@@ -167,7 +171,8 @@ def main(argv=None):
         "--save_converted",
         type=str,
         default=None,
-        help="Write the converted (true int8 storage) checkpoint here",
+        help="Write the converted checkpoint (its int8 or fp16 storage) "
+        "here",
     )
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")

@@ -86,7 +86,8 @@ def build_train(config, device):
     if config["vit_config"]["q_format"] != "FP32":
         raise NotImplementedError(
             f"training in q_format {config['vit_config']['q_format']} (QAT) "
-            "is not ported yet; see ROADMAP.md (A5, B3)")
+            "is not ported yet; see ROADMAP.md A5a (float formats) and A5b "
+            "(INT8)")
     seed = train_config["seed"]
     seed_everything(seed)
 

@@ -1,15 +1,21 @@
 // attention_core_f32: the fp32 softmax attention core of the converted-INT8
-// attention block, ending on the int8 grid of the next observer site.
+// attention block, ending on the int8 grid of the next observer site, and
+// of the float-format attention block, ending on the format's snap.
 //
-// The per-head loop of the TPU kernel `_attn_kernel`
+// The per-head loop of the TPU kernels `_attn_kernel`
 // (myrtle_vision_tpu/ops/fused_int8_block.py; the same ops as
-// multi_head_attention's xla path, myrtle_vision_tpu/ops/attention.py).
-// Input qkv (B, N, 3C) fp32, feature order [3][h][d]; output (B, N, C)
-// int8, head h at columns h*D...  For each query row:
+// multi_head_attention's xla path, myrtle_vision_tpu/ops/attention.py) and
+// `_attn_heads_fwd` with qspec set, followed by the to_out.act_in snap of
+// `_fwd_kernel` (myrtle_vision_tpu/ops/fused_attention_block.py).
+// Input qkv (B, N, 3C) fp32, feature order [3][h][d]; output (B, N, C),
+// head h at columns h*D...  For each query row:
 //   s   = (qh.kh + qh.kl) + ql.kh, times scale AFTER the product
 //   p   = exp(s - rowmax(s)) / rowsum          true fp32 divide
 //   ctx = (ph.vh + ph.vl) + pl.vh
-//   out = clip(rint(ctx / s2) + zp2, 0, 255) - 128   (site 2, quant_out)
+//   int8 mode:  out = clip(rint(ctx / s2) + zp2, 0, 255) - 128, int8
+//               (site 2, quant_out)
+//   snap mode:  out = snap(ctx), fp32 (the FloatingPoint(exp, man) snap
+//               of fake_quant.cuh, the pre_linear site of the projection)
 // where x = xh + xl splits an fp32 value into two bf16 values, xh =
 // bf16(x), xl = bf16(x - xh): the 3-pass products of the JAX package
 // (ops/high_precision.py dot_high3), each pass an exact bf16 product
@@ -29,7 +35,7 @@
 // products, and the four warps that the shared memory leaves room for.
 #include <mma.h>
 
-#include "common.cuh"
+#include "fake_quant.cuh"
 
 namespace {
 
@@ -61,12 +67,14 @@ __device__ __forceinline__ void split(float x, bf16* hi, bf16* lo) {
   *lo = __float2bfloat16_rn(__fsub_rn(x, __bfloat162float(h)));
 }
 
-template <int D>
+// kSnap: fp32 out through `snap` with format `fmt`; else int8 out on the
+// grid of `site`
+template <int D, bool kSnap>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_core_f32_kernel(const float* __restrict__ qkv,
                           const float* __restrict__ site,
-                          signed char* __restrict__ out, int N, int heads,
-                          float scale) {
+                          void* __restrict__ out, int N, int heads,
+                          float scale, mvt::FloatFmt fmt) {
   constexpr int KLD = Layout<D>::KLD;
   constexpr int KT = D / 16;
   const Layout<D> lay(N);
@@ -86,9 +94,11 @@ attention_core_f32_kernel(const float* __restrict__ qkv,
   const int C = heads * D;
   const size_t row_stride = static_cast<size_t>(3) * C;
   const float* base = qkv + static_cast<size_t>(b) * N * row_stride + h * D;
-  const bool has = site[2] > 0.5f;
-  const float s_out = has ? site[0] : 1.0f;
-  const float zp_out = has ? site[1] : 128.0f;
+  float s_out = 1.0f, zp_out = 128.0f;
+  if (!kSnap && site[2] > 0.5f) {
+    s_out = site[0];
+    zp_out = site[1];
+  }
 
   for (int c = tid; c < n_pad * D; c += blockDim.x) {
     const int j = c / D, d = c % D;
@@ -214,28 +224,47 @@ attention_core_f32_kernel(const float* __restrict__ qkv,
     for (int c = lane; c < 16 * D; c += 32) {
       const int i = c / D, d = c % D;
       if (q0 + i < N) {
-        const float q = fminf(
-            fmaxf(__fadd_rn(rintf(s_w[c] / s_out), zp_out), 0.f), 255.f);
-        out[(static_cast<size_t>(b) * N + q0 + i) * C + h * D + d] =
-            static_cast<signed char>(static_cast<int>(q) - 128);
+        const size_t o = (static_cast<size_t>(b) * N + q0 + i) * C + h * D + d;
+        if (kSnap) {
+          static_cast<float*>(out)[o] = mvt::float_snap(s_w[c], fmt);
+        } else {
+          const float q = fminf(
+              fmaxf(__fadd_rn(rintf(s_w[c] / s_out), zp_out), 0.f), 255.f);
+          static_cast<signed char*>(out)[o] =
+              static_cast<signed char>(static_cast<int>(q) - 128);
+        }
       }
     }
     __syncwarp();  // the buffer is rewritten by the next tile
   }
 }
 
-template <int D>
+template <int D, bool kSnap>
 int launch(const void* qkv, const void* site, void* out, int B, int N,
-           int heads, float scale, cudaStream_t stream) {
+           int heads, float scale, mvt::FloatFmt fmt, cudaStream_t stream) {
   const size_t smem = Layout<D>(N).bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_core_f32_kernel<D>,
+      attention_core_f32_kernel<D, kSnap>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_core_f32_kernel<D><<<B * heads, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(site),
-      static_cast<signed char*>(out), N, heads, scale);
+  attention_core_f32_kernel<D, kSnap>
+      <<<B * heads, kWarps * 32, smem, stream>>>(
+          static_cast<const float*>(qkv), static_cast<const float*>(site),
+          out, N, heads, scale, fmt);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSnap>
+int launch_d(const void* qkv, const void* site, void* out, int B, int N,
+             int heads, int D, float scale, mvt::FloatFmt fmt,
+             cudaStream_t stream) {
+  if (B <= 0 || heads <= 0 || N <= 0 || N > kMaxN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 64)
+    return launch<64, kSnap>(qkv, site, out, B, N, heads, scale, fmt, stream);
+  if (D == 32)
+    return launch<32, kSnap>(qkv, site, out, B, N, heads, scale, fmt, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -247,10 +276,21 @@ MVT_EXPORT int mvt_attention_core_f32_max_n() { return kMaxN; }
 MVT_EXPORT int mvt_attention_core_f32(const void* qkv, const void* site,
                                       void* out, int B, int N, int heads,
                                       int D, float scale, void* stream) {
-  if (B <= 0 || heads <= 0 || N <= 0 || N > kMaxN)
+  if (site == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_d<false>(qkv, site, out, B, N, heads, D, scale,
+                         mvt::FloatFmt(8, 22),
+                         static_cast<cudaStream_t>(stream));
+}
+
+// qkv (B, N, 3C) fp32; out (B, N, C) fp32, the context through the
+// FloatingPoint(exp_bits, man_bits) snap
+MVT_EXPORT int mvt_attention_core_f32_snap(const void* qkv, void* out, int B,
+                                           int N, int heads, int D,
+                                           float scale, int exp_bits,
+                                           int man_bits, void* stream) {
+  if (!mvt::float_fmt_ok(exp_bits, man_bits))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(qkv, site, out, B, N, heads, scale, s);
-  if (D == 32) return launch<32>(qkv, site, out, B, N, heads, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_d<true>(qkv, nullptr, out, B, N, heads, D, scale,
+                        mvt::FloatFmt(exp_bits, man_bits),
+                        static_cast<cudaStream_t>(stream));
 }

@@ -27,4 +27,23 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
+// GELU(h) = 0.5 h (1 + erf(h / sqrt 2)), erf by Abramowitz & Stegun 7.1.26
+// with exact divides (`gelu_erf_poly` of myrtle_vision_tpu/ops/fused_mlp.py),
+// in the operation order of the plain version (ops/_kernels.py gelu_poly),
+// every product and sum rounded on its own
+__device__ __forceinline__ float gelu_poly(float h) {
+  const float a = h / 1.4142135623730951f;
+  const float ax = fabsf(a);
+  const float t = 1.0f / __fadd_rn(1.0f, __fmul_rn(0.3275911f, ax));
+  float p = __fmul_rn(t, 1.061405429f);
+  p = __fmul_rn(t, __fadd_rn(-1.453152027f, p));
+  p = __fmul_rn(t, __fadd_rn(1.421413741f, p));
+  p = __fmul_rn(t, __fadd_rn(-0.284496736f, p));
+  p = __fmul_rn(t, __fadd_rn(0.254829592f, p));
+  const float sg = (a > 0.f) ? 1.f : ((a < 0.f) ? -1.f : 0.f);
+  const float erf =
+      __fmul_rn(sg, __fsub_rn(1.0f, __fmul_rn(p, expf(__fmul_rn(-ax, ax)))));
+  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, erf));
+}
+
 }  // namespace mvt

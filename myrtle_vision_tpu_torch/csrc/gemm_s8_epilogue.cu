@@ -75,23 +75,6 @@ __device__ __forceinline__ float requant(float v, Site t) {
   return __fmul_rn(__fsub_rn(grid_q(v, t.s, t.zp), t.zp), t.s);
 }
 
-// GELU(h) = 0.5 h (1 + erf(h / sqrt 2)), erf by Abramowitz & Stegun 7.1.26,
-// in the operation order of the plain version (ops/_kernels.py gelu_poly)
-__device__ __forceinline__ float gelu_poly(float h) {
-  const float a = h / 1.4142135623730951f;
-  const float ax = fabsf(a);
-  const float t = 1.0f / __fadd_rn(1.0f, __fmul_rn(0.3275911f, ax));
-  float p = __fmul_rn(t, 1.061405429f);
-  p = __fmul_rn(t, __fadd_rn(-1.453152027f, p));
-  p = __fmul_rn(t, __fadd_rn(1.421413741f, p));
-  p = __fmul_rn(t, __fadd_rn(-0.284496736f, p));
-  p = __fmul_rn(t, __fadd_rn(0.254829592f, p));
-  const float sg = (a > 0.f) ? 1.f : ((a < 0.f) ? -1.f : 0.f);
-  const float erf =
-      __fmul_rn(sg, __fsub_rn(1.0f, __fmul_rn(p, expf(__fmul_rn(-ax, ax)))));
-  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, erf));
-}
-
 // 16-byte asynchronous copy; when !ok nothing is read and zeros are written
 __device__ __forceinline__ void cp_async16(s8* dst, const s8* src, bool ok) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -231,7 +214,7 @@ gemm_s8_kernel(const s8* __restrict__ A, const s8* __restrict__ Wt,
           if (kEpi == kRequant) {
             static_cast<float*>(out)[o] = v;
           } else if (kEpi == kRequantGeluQuant) {
-            const float q = grid_q(gelu_poly(v), t2g.s, t2g.zp);
+            const float q = grid_q(mvt::gelu_poly(v), t2g.s, t2g.zp);
             static_cast<s8*>(out)[o] = static_cast<s8>(static_cast<int>(q) - 128);
           } else {
             static_cast<float*>(out)[o] = requant(__fadd_rn(v, residual[o]), t2);

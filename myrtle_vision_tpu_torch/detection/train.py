@@ -74,7 +74,7 @@ def build_train(config, device):
     if vit_config["q_format"] != "FP32":
         raise NotImplementedError(
             f"detection training in q_format {vit_config['q_format']} is not "
-            "ported yet; see ROADMAP.md (A5, B3)")
+            "ported yet; see ROADMAP.md A5a (float formats) and A5b (INT8)")
     seed = train_config["seed"]
     seed_everything(seed)
     num_det_tokens = vit_config.get("num_det_tokens", 100)

@@ -1,13 +1,15 @@
 """Vision Transformer for classification and detection, in PyTorch:
-eval and training forward in FP32, and the PyTorchINT8 format's
-calibration and converted inference.
+eval and training forward in FP32, the PyTorchINT8 format's calibration
+and converted inference, and the stateless float formats' (FP16_16,
+FP16_32, TF32) simulation and converted inference.
 
 Port of myrtle_vision_tpu/models/vit.py for the paths this package runs
 so far: without active dropout, ``decoder="classification"`` in
-``q_format`` FP32 (inference and training) and PyTorchINT8 (the
-calibrating forward and the converted model; QAT training is not ported
-yet), and ``decoder="detection"`` (YOLOS: det tokens after the patches,
-the class and box heads on them) in FP32.  Parameters are named as in
+``q_format`` FP32 (inference and training), PyTorchINT8 (the calibrating
+forward and the converted model) and the float formats (inference, up to
+the fused Block's length; QAT training is not ported yet in any format),
+and ``decoder="detection"`` (YOLOS: det tokens after the patches, the
+class and box heads on them) in FP32.  Parameters are named as in
 the upstream reference state dict that myrtle_vision_tpu/utils/export.py
 writes
 (``transformer.layers.{i}.0.fn.fn.to_qkv.weight``, ...), so
@@ -46,6 +48,22 @@ block half as one op (ops/fused_int8_block.py, the TPU kernels K9 and
 K10).  The observers of a converted model are frozen: their grids and the
 weights' column sums are computed when its state dict is loaded.
 
+The stateless float formats (compute in fp32) have no state: each site
+is a function of its input (quantize.act_quant), which on the card runs
+K11 (``fake_quant_rows``), as does each weight's fake-quant
+(quantize.quantize_weight).  Outside the blocks the JAX model's
+discrete sites run as it runs them (QDense: the pre_linear snap, the
+weight's snap, the 3-pass product, the bias, the post_op snap;
+QLayerNorm, the token sites), the products as plain PyTorch, as XLA runs
+them there; each block half is one op with the format's ``qspec``
+(ops/fused_attention_block.py, ops/fused_mlp.py, the TPU kernels K1 and
+K3 with their snaps).  ``forward(img, calibrating=True)`` is the same
+forward: these formats have no observers to update.  With
+``converted=True`` the Linear and LayerNorm weights are stored as fp16
+(FP16_16, FP16_32) or as TF32 values in fp32 (quantize.convert_params),
+cast to fp32 on use, and snapped again as the JAX model snaps them
+(idempotent).
+
 Images are NHWC, as in the JAX package.  ``forward(img, plain=True)``
 runs the plain PyTorch versions on any device, as the reference the
 kernels are checked against.  The patch embedding, the tokens and the
@@ -81,8 +99,10 @@ from myrtle_vision_tpu_torch.ops.fused_int8_block import (
 from myrtle_vision_tpu_torch.ops.high_precision import matmul_high3
 from myrtle_vision_tpu_torch.ops.interpolate import resize_bicubic
 from myrtle_vision_tpu_torch.quantize import (
+    QSPECS,
     ActQuant,
     QFormat,
+    act_quant,
     is_observer,
     quantize_weight,
     site_row,
@@ -91,13 +111,14 @@ from myrtle_vision_tpu_torch.quantize import (
 
 MIN_NUM_PATCHES = 16  # reference vit.py:14
 # the port runs without active dropout: the classification decoder in FP32
-# for inference and training and in PyTorchINT8 for calibration and
-# converted inference, the detection decoder in FP32
+# for inference and training, in PyTorchINT8 for calibration and converted
+# inference and in the float formats for inference, the detection decoder
+# in FP32
 _NOT_PORTED = "not ported yet; see ROADMAP.md (Queue A)"
-_FLOAT_FORMATS_NOT_PORTED = (
-    "not ported yet: the stateless float formats come with the qspec "
-    "variants of K1-K4 and K11; see ROADMAP.md (A5)"
-)
+_FLOAT_QAT_NOT_PORTED = (
+    "training in a float format (QAT) is not ported yet; see ROADMAP.md A5a")
+# the weights a converted float model stores in fp16
+_FP16_STORAGE = (QFormat.FP16_16, QFormat.FP16_32)
 
 
 def _linear(in_features, out_features, device):
@@ -140,6 +161,25 @@ def _qdense(linear, x):
     then the ``act_out`` site, which observes the result first."""
     w = quantize_weight(linear.weight, QFormat.PyTorchINT8, "linear", False)
     return linear.act_out(matmul_high3(x, w.t()) + linear.bias, True)
+
+
+def _make_fp16(module):
+    """Converted FP16_16 / FP16_32 storage of a Linear or LayerNorm weight
+    (no gradient; the bias stays fp32, as convert leaves it)."""
+    w = module.weight
+    module.weight = nn.Parameter(
+        torch.zeros(w.shape, dtype=torch.float16, device=w.device),
+        requires_grad=False)
+
+
+def _qdense_float(linear, x, q_format, converted, plain):
+    """QDense in a stateless float format, fp32 (..., K) in and out: the
+    pre_linear snap, the weight's fake-quant, the 3-pass product, the
+    bias, the post_op snap."""
+    x = act_quant(x, q_format, "pre_linear", plain)
+    w = quantize_weight(linear.weight, q_format, "linear", converted, plain)
+    y = matmul_high3(x, w.float().t()) + linear.bias
+    return act_quant(y, q_format, "post_op", plain)
 
 
 def _int8_dense(kern, linear, x, in_site, out_site, in_has):
@@ -216,7 +256,9 @@ class Block(nn.Module):
     PyTorchINT8: the observer sites (see the module docstring), the
     calibrating discrete-site forward (:meth:`forward_calibrating`) and,
     converted, one INT8 op per half (:meth:`forward_converted`, the
-    ``int8_fuse`` branch)."""
+    ``int8_fuse`` branch).  A stateless float format: one op per half
+    with the format's ``qspec`` (:meth:`forward_float`, the ``fuse``
+    branch)."""
 
     def __init__(self, dim, heads, dim_head, mlp_dim, dropout, depth,
                  device=None, q_format=QFormat.FP32, converted=False):
@@ -225,6 +267,8 @@ class Block(nn.Module):
         self.dim_head = dim_head
         self.scale = dim_head ** -0.5
         self.depth = depth
+        self.q_format = q_format
+        self.converted = converted
         self.add_module("0", Residual(PreNorm(
             dim, Attention(dim, heads, dim_head, dropout, device), device)))
         self.add_module("1", Residual(PreNorm(
@@ -235,6 +279,10 @@ class Block(nn.Module):
             if converted:
                 for linear in self._linears():
                     _make_int8(linear)
+        if converted and q_format in _FP16_STORAGE:
+            for module in self._linears() + [self._modules["0"].fn.norm,
+                                             self._modules["1"].fn.norm]:
+                _make_fp16(module)
 
     def _sites(self):
         """(module, observer name) of the ten sites, in the order of the
@@ -297,6 +345,37 @@ class Block(nn.Module):
             fc2.weight.t(), fc2.weight_scale, fc2.bias, sites[1],
             colsums=(fc1.weight_colsum, fc2.weight_colsum),
         )
+
+    def forward_float(self, x, plain=False):
+        """The JAX Block's ``fuse`` branch in a stateless float format,
+        fp32 (B, N, C) in and out: each weight through its fake-quant
+        (``_qw``; LayerNorm scales only when converted), then one op per
+        half with the format's ``qspec``."""
+        n = x.shape[1]
+        if not fuses_at(n, self.heads, self.dim_head):
+            raise NotImplementedError(
+                f"{n} tokens in q_format {self.q_format.name}: the discrete "
+                "float-format Block (beyond the fused gate) is not ported "
+                "yet; see ROADMAP.md A5a")
+        a, f = self._modules["0"].fn, self._modules["1"].fn
+        qkv, out = a.fn.to_qkv, a.fn.to_out[0]
+        fc1, fc2 = f.fn.net[0], f.fn.net[3]
+
+        def qw(module, kind):
+            return quantize_weight(module.weight, self.q_format, kind,
+                                   self.converted, plain).float()
+
+        attn_op = fused_attention_block_plain if plain else \
+            fused_attention_block
+        mlp_op = fused_mlp_block_plain if plain else fused_mlp_block
+        qspec = QSPECS[self.q_format]
+        x = attn_op(x, qw(a.norm, "norm"), a.norm.bias,
+                    qw(qkv, "linear").t(), qkv.bias, qw(out, "linear").t(),
+                    out.bias, self.heads, self.scale, self.depth,
+                    qspec=qspec)
+        return mlp_op(x, qw(f.norm, "norm"), f.norm.bias,
+                      qw(fc1, "linear").t(), fc1.bias,
+                      qw(fc2, "linear").t(), fc2.bias, qspec=qspec)
 
     def forward_discrete(self, x, plain=False):
         """The JAX Block's discrete-site FP32 composition, (B, N, C) in the
@@ -377,6 +456,17 @@ class ClassificationDecoder(nn.Module):
         y = layernorm_rows_plain(x[:, 0], self.norm.weight, self.norm.bias)
         return _qdense(self.linear, self.norm.act_out(y, True))
 
+    def forward_float(self, x, q_format, converted, plain):
+        """QLayerNorm and QDense in a stateless float format: the norm's
+        pre_linear snap, its scale's fake-quant (when converted), the
+        LayerNorm, its post_op snap, then :func:`_qdense_float`."""
+        y = act_quant(x[:, 0], q_format, "pre_linear", plain)
+        scale = quantize_weight(self.norm.weight, q_format, "norm", converted,
+                                plain)
+        y = act_quant(layernorm_rows_plain(y, scale, self.norm.bias),
+                      q_format, "post_op", plain)
+        return _qdense_float(self.linear, y, q_format, converted, plain)
+
     def forward_converted(self, kern, x, sites, has):
         """``sites``: the rows of ``norm.act_out`` and ``linear.act_out``;
         ``has``: whether the first has statistics."""
@@ -440,7 +530,8 @@ class ViT(nn.Module):
     above 256 tokens, the discrete path has the flash backward);
     ``plain`` selects the plain PyTorch versions in place of the kernels;
     ``calibrating`` (PyTorchINT8 before convert, the only forward that
-    model runs here) updates the observers.
+    model runs here) updates the observers.  The float formats run
+    inference only (a forward that would record gradients raises).
     The detection parameters (``pos_embedding_det``, ``det_tokens``)
     exist in every model so that the reference state dict loads strictly;
     the classification forward does not read them.
@@ -457,14 +548,10 @@ class ViT(nn.Module):
         q_format = QFormat[getattr(q_format, "name", q_format)]
         if decoder == "detection" and q_format != QFormat.FP32:
             raise NotImplementedError(
-                f"detection in q_format {q_format.name}: {_NOT_PORTED}")
-        if q_format not in (QFormat.FP32, QFormat.PyTorchINT8):
-            raise NotImplementedError(
-                f"q_format {q_format.name}: {_FLOAT_FORMATS_NOT_PORTED}")
-        if converted and q_format != QFormat.PyTorchINT8:
-            raise NotImplementedError(
-                f"converted q_format {q_format.name}: "
-                f"{_FLOAT_FORMATS_NOT_PORTED}")
+                f"detection in q_format {q_format.name} is not ported yet; "
+                "see ROADMAP.md A5a (float formats) and A5b (INT8)")
+        if converted and q_format == QFormat.FP32:
+            raise ValueError("q_format FP32 has nothing to convert")
         if image_size % patch_size:
             raise ValueError("Image dimensions must be divisible by the "
                              "patch size.")
@@ -485,8 +572,10 @@ class ViT(nn.Module):
         self.q_format = q_format
         self.converted = converted
         self.int8 = q_format == QFormat.PyTorchINT8
+        self.float_format = q_format in QSPECS
         # a quantized format computes in fp32, as the JAX ViT does
-        self.compute_dtype = torch.float32 if self.int8 else compute_dtype
+        self.compute_dtype = (compute_dtype if q_format == QFormat.FP32
+                              else torch.float32)
         patch_dim = channels * patch_size ** 2
 
         def param(*shape):
@@ -513,7 +602,11 @@ class ViT(nn.Module):
             for module in (self.patch_to_embedding, self.decoder.norm,
                            self.decoder.linear):
                 module.act_out = ActQuant(device)
-        if converted:
+        if converted and q_format in _FP16_STORAGE:
+            for module in (self.patch_to_embedding, self.decoder.norm,
+                           self.decoder.linear):
+                _make_fp16(module)
+        if converted and self.int8:
             for linear in (self.patch_to_embedding, self.decoder.linear):
                 _make_int8(linear)
             # the sites' rows, refreshed when a state dict is loaded:
@@ -532,8 +625,8 @@ class ViT(nn.Module):
         """The JAX package's initialisers, drawn on the CPU from
         ``generator`` (a fresh one seeded 0 when None): tokens N(0, 1),
         Linear weight and bias U(+-1/sqrt(fan_in)), LayerNorm 1 and 0.  A
-        converted model stores each drawn weight through convert's int8
-        quantization."""
+        converted model stores each drawn weight through convert's
+        quantization (int8, or the float format's fake-quant)."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for module in self.modules():
@@ -546,6 +639,9 @@ class ViT(nn.Module):
                     scale = symmetric_int8_scale(w.abs().max())
                     w = torch.clamp(torch.round(w / scale), -128, 127)
                     module.weight_scale.copy_(scale)
+                elif self.converted:
+                    w = quantize_weight(w, self.q_format, "linear", True,
+                                        plain=True)
                 module.weight.copy_(w)
                 module.bias.copy_(b)
             elif isinstance(module, nn.LayerNorm):
@@ -559,8 +655,8 @@ class ViT(nn.Module):
     @torch.no_grad()
     def _refresh_converted(self):
         """Column sums of the int8 weights and the sites' rows, computed
-        once for the frozen observers of a converted model."""
-        if not self.converted:
+        once for the frozen observers of a converted INT8 model."""
+        if not (self.converted and self.int8):
             return
         for module in self.modules():
             if isinstance(module, nn.Linear):
@@ -574,18 +670,20 @@ class ViT(nn.Module):
         self._has = (has[0] > 0.5, has[2] > 0.5)
 
     def load_state_dict(self, state_dict, strict=True, assign=False):
-        """``nn.Module.load_state_dict``, refusing a tensor whose dtype is
-        int8 on one side only (an fp32 checkpoint into a converted model,
-        or the converted one into a float model), then refreshing what a
-        converted model computes from its weights and observers."""
+        """``nn.Module.load_state_dict``, refusing a tensor whose storage
+        (int8, fp16) is on one side only (an fp32 checkpoint into a
+        converted model, or a converted one into a model that is not),
+        then refreshing what a converted model computes from its weights
+        and observers."""
         own = self.state_dict()
+        low = (torch.int8, torch.float16)
         for name, t in state_dict.items():
-            if name in own and (own[name].dtype == torch.int8) != \
-                    (t.dtype == torch.int8):
+            if name in own and own[name].dtype != t.dtype and (
+                    own[name].dtype in low or t.dtype in low):
                 raise TypeError(
                     f"{name}: a {t.dtype} tensor for a {own[name].dtype} "
                     "entry (a converted checkpoint goes into a converted=True "
-                    "model, an fp32 one into a float model)")
+                    "model, an fp32 one into a model that is not)")
         result = super().load_state_dict(state_dict, strict=strict,
                                          assign=assign)
         self._refresh_converted()
@@ -634,6 +732,8 @@ class ViT(nn.Module):
     def forward(self, img, plain: bool = False, calibrating: bool = False):
         if self.training and (self.dropout or self.emb_dropout):
             raise NotImplementedError(f"active dropout: {_NOT_PORTED}")
+        if self.float_format:
+            return self._forward_float(img, plain)
         if self.converted:
             if calibrating:
                 raise ValueError("a converted model's observers are frozen; "
@@ -660,6 +760,34 @@ class ViT(nn.Module):
         out = self.decoder(x)
         return out if isinstance(out, dict) else out.float()
 
+    def _forward_float(self, img, plain):
+        """A stateless float format, simulation or converted: the JAX
+        ViT's discrete sites around the blocks (the stubs are identities
+        in these formats), each block half one op with the format's
+        ``qspec``."""
+        if torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in self.parameters()):
+            raise NotImplementedError(_FLOAT_QAT_NOT_PORTED)
+        x = self.embed_float(img, plain)
+        for block in self.transformer.layers:
+            x = block.forward_float(x, plain)
+        return self.decoder.forward_float(x, self.q_format, self.converted,
+                                          plain)
+
+    def embed_float(self, img, plain=False):
+        """A float format's tokens entering the first block: the patch
+        embedding's QDense, the cls token and positions through the
+        functional sites."""
+        b, h, w, _ = img.shape
+        q = self.q_format
+        x = _qdense_float(self.patch_to_embedding,
+                          self.patchify(img.float()), q, self.converted,
+                          plain)
+        cls = self.cls_token.float().expand(b, 1, self.dim)
+        x = act_quant(torch.cat([cls, x], dim=1), q, "functional", plain)
+        pos = act_quant(self._positions(h, w).float(), q, "functional", plain)
+        return act_quant(x + pos, q, "functional", plain)
+
     def _forward_calibrating(self, img):
         """PyTorchINT8 before convert: the discrete-site forward with
         every observer updated."""
@@ -678,8 +806,8 @@ class ViT(nn.Module):
         if n > INT8_MAX_N:
             raise NotImplementedError(
                 f"{n} tokens: the converted INT8 blocks take at most "
-                f"{INT8_MAX_N}; longer sequences wait for the flash kernels "
-                "(ROADMAP B5)")
+                f"{INT8_MAX_N}; longer sequences wait for the discrete "
+                "converted Block (ROADMAP A5b)")
         kern = K.PLAIN if plain else K.for_device(img)
         x = self.embed_converted(img, kern)
         for block, sites in zip(self.transformer.layers, self.block_sites):

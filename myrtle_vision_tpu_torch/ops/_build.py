@@ -135,6 +135,10 @@ def lib() -> ctypes.CDLL:
             ("mvt_gemm_s8", [p] * 10 + [i, i, i, i, p]),
             ("mvt_attention_core_f32", [p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_f32_max_n", []),
+            ("mvt_attention_core_f32_snap", [p, p, i, i, i, i, f, i, i, p]),
+            ("mvt_fake_quant_rows", [p, p, ll, i, i, i, p]),
+            ("mvt_layernorm_snap_rows", [p, p, p, p, i, i, f, i, i, i, p]),
+            ("mvt_gemm_f32x3", [p] * 5 + [i] * 7 + [p]),
             ("mvt_flash_attention_fwd",
              [p] * 5 + [ll, i, i, ll, i, i, i, i, i, i, i, f, p]),
             ("mvt_flash_attention_bwd",

@@ -27,6 +27,16 @@ backward (ops/flash_attention.py holds their plain versions):
 - ``flash_attention_fwd``  csrc/flash_attention_fwd.cu
 - ``flash_attention_bwd``  csrc/flash_attention_bwd.cu
 
+and those of the stateless float formats (FP16_16, FP16_32, TF32): the
+qtorch fake-quant K11 and the block halves with ``qspec = (exp_bits,
+man_bits, all_sites)``, fp32 activations, every snap from
+csrc/fake_quant.cuh:
+
+- ``fake_quant_rows``      csrc/fake_quant_rows.cu
+- ``layernorm_snap_rows``  csrc/layernorm_snap_rows.cu
+- ``gemm_f32x3_epilogue``  csrc/gemm_f32x3_epilogue.cu
+- ``attention_core_f32``   csrc/attention_core_f32.cu, its fp32 snap mode
+
 A PyTorchINT8 observer site is a (3,) fp32 tensor (scale, zero point,
 has_stats as 1 or 0), a row of the model's site table.
 
@@ -47,9 +57,16 @@ from types import SimpleNamespace
 
 import torch
 
+from myrtle_vision_tpu_torch.ops.fake_quant import (
+    fixed_point_quantize,
+    float_quantize,
+    snap,
+    snap_all,
+)
 from myrtle_vision_tpu_torch.ops.high_precision import (
     bdot_pv_high3,
     bdot_qk_high3,
+    matmul_high3,
 )
 
 EPS = 1e-5
@@ -65,9 +82,13 @@ LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
             "layernorm_rows_bwd": 0, "colsum_rows": 0,
             "layernorm_quant_rows": 0, "gemm_s8_epilogue": 0,
             "attention_core_f32": 0, "flash_attention_fwd": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "fake_quant_rows": 0,
+            "layernorm_snap_rows": 0, "gemm_f32x3_epilogue": 0}
 INT8_EPILOGUES = {"requant": 0, "requant_gelu_quant": 1,
                   "requant_residual_requant": 2}
+FAKE_QUANT_MODES = {"float": 0, "fixed": 1}
+F32X3_EPILOGUES = {"bias_snap": 0, "bias_snap_gelu_snap": 1,
+                   "bias_snap_residual_snap": 2}
 
 
 def reset_launches() -> None:
@@ -291,6 +312,47 @@ def attention_core_f32_plain(qkv, heads, scale, site):
     return quantize_i8(attention_context_f32(qkv, heads, scale), site)
 
 
+def fake_quant_rows_plain(x, mode, a, b):
+    """K11 (``_elementwise_pallas``): ``float_quantize(x, a, b)`` for mode
+    "float" (a = exp_bits, b = man_bits), ``fixed_point_quantize(x, a, b)``
+    for "fixed" (a = wl, b = fl); fp32 out, x's shape."""
+    if mode == "float":
+        return float_quantize(x, a, b)
+    if mode == "fixed":
+        return fixed_point_quantize(x, a, b)
+    raise ValueError(f"unknown fake-quant mode {mode!r}")
+
+
+def layernorm_snap_rows_plain(x, scale, bias, qspec):
+    """The float-format LayerNorm prologue (``_qkv_rows`` / ``fc1`` with
+    ``qspec``): fp32 (..., C) -> snap(snap_all(LN(snap(x))))."""
+    y = layernorm_rows_plain(snap(x, qspec), scale, bias)
+    return snap(snap_all(y, qspec), qspec)
+
+
+def gemm_f32x3_epilogue_plain(a, w, bias, epilogue, qspec, residual=None):
+    """fp32 a (M, K) @ w (K, N) at 3-pass precision (``dot_high3``), plus
+    bias, then
+    "bias_snap":               snap_all(v);
+    "bias_snap_gelu_snap":     snap(snap_all(GELU(snap_all(v)))), the
+                               polynomial erf with an exact divide;
+    "bias_snap_residual_snap": snap_all(residual + snap_all(v))."""
+    v = snap_all(matmul_high3(a, w) + bias, qspec)
+    if epilogue == "bias_snap":
+        return v
+    if epilogue == "bias_snap_gelu_snap":
+        return snap(snap_all(gelu_poly(v), qspec), qspec)
+    if epilogue == "bias_snap_residual_snap":
+        return snap_all(residual + v, qspec)
+    raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
+def attention_core_snap_plain(qkv, heads, scale, qspec):
+    """:func:`attention_context_f32` through the projection's pre_linear
+    ``snap`` (``_attn_heads_fwd`` with ``qspec``, then to_out.act_in)."""
+    return snap(attention_context_f32(qkv, heads, scale), qspec)
+
+
 PLAIN = SimpleNamespace(
     layernorm_rows=layernorm_rows_plain,
     gemm=gemm_bf16_epilogue_plain,
@@ -301,6 +363,10 @@ PLAIN = SimpleNamespace(
     layernorm_quant_rows=layernorm_quant_rows_plain,
     gemm_s8=gemm_s8_epilogue_plain,
     attention_core_f32=attention_core_f32_plain,
+    fake_quant_rows=fake_quant_rows_plain,
+    layernorm_snap_rows=layernorm_snap_rows_plain,
+    gemm_f32x3=gemm_f32x3_epilogue_plain,
+    attention_core_snap=attention_core_snap_plain,
 )
 
 
@@ -640,13 +706,99 @@ def attention_core_f32_cuda(qkv, heads, scale, site):
     if n > attention_core_f32_max_n():
         raise ValueError(
             f"attention_core_f32: sequence {n} exceeds the kernel's maximum "
-            f"{attention_core_f32_max_n()}; long sequences wait for the "
-            "flash kernels (ROADMAP B5)")
+            f"{attention_core_f32_max_n()}; converted INT8 above it waits "
+            "for the discrete converted Block (ROADMAP A5b)")
     _require_site(site, "site")
     out = torch.empty((b, n, c), dtype=torch.int8, device=qkv.device)
     _launch("attention_core_f32", _lib().mvt_attention_core_f32, qkv,
             qkv.data_ptr(), site.data_ptr(), out.data_ptr(), b, n, heads, d,
             float(scale))
+    return out
+
+
+def _qspec_args(qspec):
+    exp_bits, man_bits, all_sites = qspec
+    return int(exp_bits), int(man_bits), int(bool(all_sites))
+
+
+def fake_quant_rows_cuda(x, mode, a, b):
+    """The CUDA version of :func:`fake_quant_rows_plain`: fp32, any shape
+    and length, contiguous (16-byte vectors where aligned)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise TypeError(f"fake_quant_rows: expected a CUDA fp32 tensor, got "
+                        f"{x.dtype} on {x.device}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel():
+        _launch("fake_quant_rows", _lib().mvt_fake_quant_rows, x,
+                x.data_ptr(), out.data_ptr(), x.numel(),
+                FAKE_QUANT_MODES[mode], int(a), int(b))
+    return out
+
+
+def layernorm_snap_rows_cuda(x, scale, bias, qspec):
+    """The CUDA version of :func:`layernorm_snap_rows_plain`: x fp32
+    (..., C), scale and bias fp32 (C,)."""
+    cols = x.shape[-1]
+    _require(x, "x", torch.float32)
+    for t, name in ((scale, "scale"), (bias, "bias")):
+        _require_shape(t, name, (cols,))
+    out = torch.empty_like(x)
+    _launch("layernorm_snap_rows", _lib().mvt_layernorm_snap_rows, x,
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            x.numel() // cols, cols, EPS, *_qspec_args(qspec))
+    return out
+
+
+def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None):
+    """The CUDA version of :func:`gemm_f32x3_epilogue_plain`: a fp32 (M, K)
+    row-major, w fp32 (K, N) read in place as the transpose of a row-major
+    (N, K) tensor (the (in, out) view of a torch (out, in) weight); K a
+    multiple of 4, M and N any."""
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
+        raise ValueError(f"gemm_f32x3: shapes {tuple(a.shape)} @ "
+                         f"{tuple(w.shape)}")
+    m, k = a.shape
+    n = w.shape[1]
+    wt, col_major = _operand(w, "w")
+    if not col_major:
+        raise ValueError("gemm_f32x3: w must be the transpose of a row-major "
+                         "(N, K) tensor, as a torch weight's (in, out) view")
+    _require(a, "a", torch.float32)
+    _require(wt, "w", torch.float32)
+    if k % 4:
+        raise ValueError(f"gemm_f32x3: K={k} must be a multiple of 4")
+    code = F32X3_EPILOGUES[epilogue]
+    _require_shape(bias, "bias", (n,))
+    res_ptr = None
+    if epilogue == "bias_snap_residual_snap":
+        _require_shape(residual, "residual", (m, n))
+        res_ptr = residual.data_ptr()
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _launch("gemm_f32x3_epilogue", _lib().mvt_gemm_f32x3, a,
+            a.data_ptr(), wt.data_ptr(), bias.data_ptr(), res_ptr,
+            out.data_ptr(), m, n, k, code, *_qspec_args(qspec))
+    return out
+
+
+def attention_core_snap_cuda(qkv, heads, scale, qspec):
+    """The CUDA version of :func:`attention_core_snap_plain`, the fp32 snap
+    mode of ``attention_core_f32``: fp32 (B, N, 3C) -> fp32 (B, N, C); D =
+    C/heads must be 32 or 64 and N at most
+    :func:`attention_core_f32_max_n`."""
+    _require(qkv, "qkv", torch.float32)
+    b, n, c3 = qkv.shape
+    c, d = _head_width(c3, heads, "attention_core_f32")
+    if n > attention_core_f32_max_n():
+        raise NotImplementedError(
+            f"attention_core_f32: sequence {n} exceeds the kernel's maximum "
+            f"{attention_core_f32_max_n()}; a float format above it waits "
+            "for the discrete float Block (ROADMAP A5a)")
+    exp_bits, man_bits, _ = _qspec_args(qspec)
+    out = torch.empty((b, n, c), dtype=torch.float32, device=qkv.device)
+    _launch("attention_core_f32", _lib().mvt_attention_core_f32_snap, qkv,
+            qkv.data_ptr(), out.data_ptr(), b, n, heads, d, float(scale),
+            exp_bits, man_bits)
     return out
 
 
@@ -742,6 +894,10 @@ CUDA = SimpleNamespace(
     layernorm_quant_rows=layernorm_quant_rows_cuda,
     gemm_s8=gemm_s8_epilogue_cuda,
     attention_core_f32=attention_core_f32_cuda,
+    fake_quant_rows=fake_quant_rows_cuda,
+    layernorm_snap_rows=layernorm_snap_rows_cuda,
+    gemm_f32x3=gemm_f32x3_epilogue_cuda,
+    attention_core_snap=attention_core_snap_cuda,
 )
 
 

@@ -1,5 +1,5 @@
 """Fake-quantization primitives for the FPGA number formats, in PyTorch
-(port of myrtle_vision_tpu/ops/fake_quant.py:34-214).
+(port of myrtle_vision_tpu/ops/fake_quant.py).
 
 Each takes and returns float32 and equals the JAX function bit for bit:
 round to nearest, ties to even (``torch.round``, as ``jnp.rint``), true
@@ -14,11 +14,19 @@ fp32 divides, saturating clamps.
 - :func:`int8_symmetric_fake_quant`: qint8 symmetric, PyTorchINT8
   weights.
 
+The TPU's elementwise kernel of the first two (``_elementwise_pallas``,
+K11) is ``fake_quant_rows`` (csrc/fake_quant_rows.cu, whose snaps,
+csrc/fake_quant.cuh, the float-format block chains share):
+:func:`float_quantize_rows` and :func:`fixed_point_quantize_rows` launch
+it for a CUDA tensor and run the plain function above for a CPU tensor.
+:func:`snap` and :func:`snap_all` are the JAX kernels' site helpers for a
+float format's ``qspec = (exp_bits, man_bits, all_sites)``, in their
+plain form.
+
 The int8 pair also comes as straight-through ``autograd.Function``s
 (``*_ste``): the gradient passes to ``x`` unchanged and not to the
-quantization parameters, as the JAX custom VJPs do.  The qtorch
-elementwise Pallas kernel (``_elementwise_pallas``, K11) is not ported
-yet (ROADMAP A5, with the float formats).
+quantization parameters, as the JAX custom VJPs do.  The float formats'
+STEs come with QAT (ROADMAP A5a).
 """
 from __future__ import annotations
 
@@ -65,6 +73,41 @@ def fixed_point_quantize(x, wl: int, fl: int):
     t_min = -(2.0 ** (wl - fl - 1))
     t_max = 2.0 ** (wl - fl - 1) - 2.0 ** (-fl)
     return (torch.round(x * scale) / scale).clamp(t_min, t_max)
+
+
+def _rows(x, mode, a, b):
+    # ops/_kernels.py imports this module for the plain snaps
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    return K.for_device(x).fake_quant_rows(x, mode, a, b)
+
+
+def float_quantize_rows(x, exp_bits: int, man_bits: int):
+    """:func:`float_quantize` through K11: the ``fake_quant_rows`` kernel
+    for a CUDA tensor, the plain function for a CPU tensor."""
+    return _rows(x, "float", exp_bits, man_bits)
+
+
+def fixed_point_quantize_rows(x, wl: int, fl: int):
+    """:func:`fixed_point_quantize` through K11, as
+    :func:`float_quantize_rows`."""
+    return _rows(x, "fixed", wl, fl)
+
+
+def snap(x, qspec):
+    """The pre_linear-site snap of a float format's ``qspec`` (exp_bits,
+    man_bits, all_sites); ``x`` as it is for None (FP32)."""
+    if qspec is None:
+        return x
+    return float_quantize(x, qspec[0], qspec[1])
+
+
+def snap_all(x, qspec):
+    """The post_op / functional / GELU-site snap, which only the
+    all-sites format (FP16_16) applies."""
+    if qspec is None or not qspec[2]:
+        return x
+    return float_quantize(x, qspec[0], qspec[1])
 
 
 def int8_affine_fake_quant(x, scale, zero_point):

@@ -2,9 +2,11 @@
 and backward.
 
 Replaces the TPU kernels of myrtle_vision_tpu/ops/fused_attention_block.py
-in their plain FP32 form (no quantization snaps, ``res_scale`` 1): the
+with ``res_scale`` 1: in the plain FP32 form (no quantization snaps) the
 forward ``_fwd_kernel`` (launched by ``_attn_forward``) and the backward
-``_bwd_kernel`` / ``_bwd_one_image`` (launched by ``_bwd_rule``).
+``_bwd_kernel`` / ``_bwd_one_image`` (launched by ``_bwd_rule``); with a
+stateless float format's ``qspec = (exp_bits, man_bits, all_sites)``
+(FP16_16, FP16_32, TF32) the forward, inference only.
 
 The TPU kernel runs one image's whole block half per program with the
 weights resident in VMEM; on the H100 the QKV weight alone (864 KiB in
@@ -40,6 +42,19 @@ JAX package's decision,
 copied here as :func:`fuses_at`: the ViT Block fuses where the TPU kernel
 fits its VMEM and otherwise runs the discrete composition, whose attention
 is the flash kernel (ops/flash_attention.py).
+
+With ``qspec`` the activations are fp32 and the chain snaps where the
+TPU kernel does, every snap the code of K11 (csrc/fake_quant.cuh):
+
+    layernorm_snap_rows (snap x; LN; snap_all, snap)
+      -> gemm_f32x3_epilogue (3-pass bf16 QKV product + bias, snap_all)
+      -> attention_core_f32, snap mode (3-pass scores times scale, an
+         exact-divide softmax, 3-pass P V; snap)
+      -> gemm_f32x3_epilogue (projection + bias, snap_all; + x, snap_all)
+
+up to 256 tokens on the card (a longer sequence raises, naming its
+ROADMAP item).  Its backward (float-format QAT) is not ported: a call that
+would record for one raises (ROADMAP A5a).
 
 Weights keep the JAX layout: wqkv (C, 3C) with feature order [3][h][d],
 wp (C, C), i.e. (in, out).  A transposed view of a torch (out, in)
@@ -100,6 +115,29 @@ def _forward(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
     return out
 
 
+def _forward_q(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
+               qspec):
+    """The float-format chain (``_fwd_kernel`` with ``qspec``): fp32
+    activations, parameters and weights, the weights' snaps already
+    applied by the caller."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_attention_block with qspec takes fp32 "
+                        f"activations, got {x.dtype}")
+    b, n, c = x.shape
+    cl = wp.shape[0]
+    x2 = x.contiguous().view(b * n, c)
+    xn = kern.layernorm_snap_rows(x2, scale_ln.float().contiguous(),
+                                  bias_ln.float().contiguous(), qspec)
+    qkv = kern.gemm_f32x3(xn, wqkv.float(), bqkv.float().contiguous(),
+                          "bias_snap", qspec)
+    ctx = kern.attention_core_snap(qkv.view(b, n, 3 * cl), heads, scale,
+                                   qspec)
+    out = kern.gemm_f32x3(ctx.view(b * n, cl), wp.float(),
+                          bp.float().contiguous(), "bias_snap_residual_snap",
+                          qspec, residual=x2)
+    return out.view(b, n, c)
+
+
 def _backward(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
               qkv, heads, scale):
     """``_bwd_one_image`` over the batch -> (dx, dscale, dbias, dwqkv,
@@ -158,34 +196,52 @@ class _FusedAttentionBlock(torch.autograd.Function):
                 None, None, None)
 
 
+def records(tensors) -> bool:
+    """Whether a call on ``tensors`` would record for a backward."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+QAT_NOT_PORTED = ("the float formats' backward (QAT training) is not "
+                  "ported yet; see ROADMAP.md A5a")
+
+
 def _apply(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
-           depth):
+           depth, qspec):
     tensors = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if qspec is not None:
+        if records(tensors):
+            raise NotImplementedError(
+                f"fused_attention_block: {QAT_NOT_PORTED}")
+        return _forward_q(kern, *tensors, heads, scale, qspec)
+    if records(tensors):
         return _FusedAttentionBlock.apply(kern, *tensors, heads, scale,
                                           depth)
     return _forward(kern, *tensors, heads, scale, record=False)
 
 
 def fused_attention_block_plain(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp,
-                                heads, scale, depth=None):
+                                heads, scale, depth=None, qspec=None):
     """The plain PyTorch chain on any device, forward and backward: the
     reference the kernels are held against.  It rounds where the kernels
-    round: LN scale/bias, weights and bp in x.dtype, bqkv in fp32."""
+    round: LN scale/bias, weights and bp in x.dtype, bqkv in fp32; with
+    ``qspec`` everything fp32, snapped where the kernels snap."""
     return _apply(K.PLAIN, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
-                  scale, depth)
+                  scale, depth, qspec)
 
 
 def fused_attention_block(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
-                          scale, depth=None):
+                          scale, depth=None, qspec=None):
     """x + proj(MHA(qkv(LN(x)))) over (B, N, C), the argument order of
     the JAX function, differentiable.  A CPU tensor takes the plain
     chain; a CUDA tensor the kernel chain, forward and backward, or an
     error; any other device an error.  ``depth``, the model's layer
-    count, sizes the qkv-saving budget as in the JAX package."""
+    count, sizes the qkv-saving budget as in the JAX package.  ``qspec``
+    (exp_bits, man_bits, all_sites) selects a float format's forward;
+    it takes fp32 activations, weights already fake-quantized, and
+    raises where it would record for a backward."""
     kern = K.for_device(x)
     out = _apply(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
-                 scale, depth)
+                 scale, depth, qspec)
     if kern is K.CUDA:
         fused_attention_block.launches += 1
     return out

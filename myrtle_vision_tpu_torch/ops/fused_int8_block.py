@@ -59,8 +59,8 @@ def _attention(kern, x, ln_scale, ln_bias, wqkv, wqkv_scale, bqkv, wout,
     b, n, c = x.shape
     if n > MAX_N:
         raise ValueError(f"int8_attention_block: sequence {n} exceeds "
-                         f"{MAX_N}; long sequences wait for the flash "
-                         "kernels (ROADMAP B5)")
+                         f"{MAX_N}; longer sequences wait for the discrete "
+                         "converted Block (ROADMAP A5b)")
     cs_qkv, cs_out = colsums or (weight_colsum(wqkv), weight_colsum(wout))
     x2 = x.contiguous().view(b * n, c)
     q8 = kern.layernorm_quant_rows(x2, ln_scale, ln_bias, sites[0])

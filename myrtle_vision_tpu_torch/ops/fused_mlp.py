@@ -1,10 +1,11 @@
 """Fused transformer MLP block: x + fc2(GELU(fc1(LN(x)))), forward and
 backward.
 
-Replaces the TPU kernels of myrtle_vision_tpu/ops/fused_mlp.py in their
-plain FP32 form: the forward ``_fwd_kernel`` (launched by
+Replaces the TPU kernels of myrtle_vision_tpu/ops/fused_mlp.py: in their
+plain FP32 form the forward ``_fwd_kernel`` (launched by
 ``_mlp_forward``) and the backward ``_bwd_kernel`` / ``_bwd_one_image``
-(launched by ``_bwd_rule``).  GELU is the Abramowitz & Stegun erf
+(launched by ``_bwd_rule``); with a stateless float format's ``qspec``
+the forward, inference only.  GELU is the Abramowitz & Stegun erf
 polynomial with an exact divide, as in the TPU kernel's interpret mode.
 
 On the H100 the two weights (2 x 1.2 MB in bf16 at ViT-S) do not fit an
@@ -27,6 +28,18 @@ open (ROADMAP B2).  Each direction rounds where the TPU kernel rounds,
 so the plain PyTorch chain (CPU tensors) and the kernel chain (CUDA
 tensors) differ only in the order of fp32 sums.
 
+With ``qspec = (exp_bits, man_bits, all_sites)`` (FP16_16, FP16_32,
+TF32) the activations are fp32 and the chain snaps where the TPU kernel
+does, every snap the code of K11 (csrc/fake_quant.cuh):
+
+    layernorm_snap_rows (snap x; LN; snap_all, snap)
+      -> gemm_f32x3_epilogue (3-pass bf16 fc1 + bias, snap_all; GELU;
+         snap_all, snap)
+      -> gemm_f32x3_epilogue (fc2 + bias, snap_all; + x, snap_all)
+
+Its backward (float-format QAT) is not ported: a call that would record
+for one raises (ROADMAP A5a).
+
 Weights keep the JAX layout: w1 (C, H), w2 (H, C), i.e. (in, out);
 gradients come back in each input's dtype and layout.
 """
@@ -35,6 +48,10 @@ from __future__ import annotations
 import torch
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
+from myrtle_vision_tpu_torch.ops.fused_attention_block import (
+    QAT_NOT_PORTED,
+    records,
+)
 
 
 def _forward(kern, x, scale, bias, w1, b1, w2, b2):
@@ -51,6 +68,24 @@ def _forward(kern, x, scale, bias, w1, b1, w2, b2):
     g = kern.gemm(xn, w1.to(dt), b1.to(dt).float().contiguous(), "bias_gelu")
     out = kern.gemm(g, w2.to(dt), b2.to(dt).float().contiguous(),
                     "bias_residual", residual=x2)
+    return out.view(x.shape)
+
+
+def _forward_q(kern, x, scale, bias, w1, b1, w2, b2, qspec):
+    """The float-format chain (``_fwd_kernel`` with ``qspec``): fp32
+    activations, parameters and weights, the weights' snaps already
+    applied by the caller."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_mlp_block with qspec takes fp32 activations, "
+                        f"got {x.dtype}")
+    c = x.shape[-1]
+    x2 = x.contiguous().view(-1, c)
+    xn = kern.layernorm_snap_rows(x2, scale.float().contiguous(),
+                                  bias.float().contiguous(), qspec)
+    g = kern.gemm_f32x3(xn, w1.float(), b1.float().contiguous(),
+                        "bias_snap_gelu_snap", qspec)
+    out = kern.gemm_f32x3(g, w2.float(), b2.float().contiguous(),
+                          "bias_snap_residual_snap", qspec, residual=x2)
     return out.view(x.shape)
 
 
@@ -92,26 +127,34 @@ class _FusedMlpBlock(torch.autograd.Function):
         return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)))
 
 
-def _apply(kern, *tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+def _apply(kern, tensors, qspec):
+    if qspec is not None:
+        if records(tensors):
+            raise NotImplementedError(f"fused_mlp_block: {QAT_NOT_PORTED}")
+        return _forward_q(kern, *tensors, qspec)
+    if records(tensors):
         return _FusedMlpBlock.apply(kern, *tensors)
     return _forward(kern, *tensors)
 
 
-def fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2):
+def fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, qspec=None):
     """The plain PyTorch chain on any device, forward and backward: LN
     scale/bias, weights and both biases rounded to x.dtype, as the TPU
-    kernel's caller does."""
-    return _apply(K.PLAIN, x, scale, bias, w1, b1, w2, b2)
+    kernel's caller does; with ``qspec`` everything fp32, snapped where
+    the kernels snap."""
+    return _apply(K.PLAIN, (x, scale, bias, w1, b1, w2, b2), qspec)
 
 
-def fused_mlp_block(x, scale, bias, w1, b1, w2, b2):
+def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, qspec=None):
     """x + fc2(GELU(fc1(LN(x)))) over (..., C) with weights (C, H),
     (H, C), differentiable.  A CPU tensor takes the plain chain; a CUDA
     tensor the kernel chain, forward and backward, or an error; any
-    other device an error."""
+    other device an error.  ``qspec`` (exp_bits, man_bits, all_sites)
+    selects a float format's forward; it takes fp32 activations, weights
+    already fake-quantized, and raises where it would record for a
+    backward."""
     kern = K.for_device(x)
-    out = _apply(kern, x, scale, bias, w1, b1, w2, b2)
+    out = _apply(kern, (x, scale, bias, w1, b1, w2, b2), qspec)
     if kern is K.CUDA:
         fused_mlp_block.launches += 1
     return out

@@ -5,12 +5,17 @@ The JAX package computes the fp32 products of its quantized formats as
 three bf16 passes, because Mosaic has no HIGH precision: ``x = hi + lo``
 with ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, and
 ``a . b = (ah.bh + ah.bl) + al.bh``, dropping al.bl.  The port emulates
-the same split (ROADMAP B-notes, decided for the integer path) so that
-the calibrating INT8 forward observes what the JAX one observes: each
-pass is an fp32 product of bf16-representable operands, which is exact
-per term, so only the fp32 summation order differs.  On the card fp32
-products run without TF32 (the package turns TF32 off at import, and
-:func:`_fp32_products` pins it around these calls).
+the same split, so that its quantized formats compute what the JAX ones
+compute: each pass is an fp32 product of bf16-representable operands,
+which is exact per term, so only the fp32 summation order differs.
+These functions are the plain form, used outside any kernel (the
+calibrating INT8 forward; the float formats' QDense sites around the
+blocks, as XLA runs them in the JAX package) and by the plain versions
+of the kernels that do the same split on the tensor cores
+(csrc/gemm_f32x3_epilogue.cu, csrc/attention_core_f32.cu).  On the card
+fp32 products run without TF32 (the package turns TF32 off at import,
+and :func:`_fp32_products` pins it around these calls).  The backward
+(the custom VJPs of the JAX module) comes with QAT (ROADMAP A5a).
 """
 from __future__ import annotations
 

@@ -1,7 +1,14 @@
 """Quantization: the formats, the INT8 observers and convert (port of
 myrtle_vision_tpu/quantize.py).
 
-- :class:`QFormat` and :class:`NumberFormat` as in the JAX package.
+- :class:`QFormat` and :class:`NumberFormat` as in the JAX package, with
+  the stateless float formats' tables :func:`act_number_format` (the
+  format of each activation site), :func:`weight_number_format` and
+  :data:`QSPECS` (the fused block halves' ``qspec``).
+- :func:`act_quant`: a site of a stateless float format (FP16_16,
+  FP16_32, TF32), a plain function of its input with no state (the JAX
+  float models have no ``quant`` collection), the fake-quant through K11
+  (``fake_quant_rows``) on the card.
 - :class:`ActQuant`: one PyTorchINT8 activation site, an ``nn.Module``
   with ``min`` and ``max`` fp32 buffers (a torch MinMaxObserver).  Called
   with ``calibrating=True`` it folds its input into the running min/max
@@ -14,9 +21,8 @@ myrtle_vision_tpu/quantize.py).
   real, int8 Linear weights with a per-tensor fp32 ``weight_scale`` for
   PyTorchINT8, fp16 storage for FP16_16 / FP16_32.
 
-The port runs PyTorchINT8 so far (calibration and the converted model,
-ROADMAP A5); the stateless float formats' sites wait for the next slice,
-so :class:`ActQuant` is the INT8 site only.
+Post-training quantization runs in every format; QAT training in none yet
+(ROADMAP A5a, A5b).
 """
 from __future__ import annotations
 
@@ -53,24 +59,58 @@ class NumberFormat(enum.Enum):
     FixedPoint11Integral3 = enum.auto()
     FixedPoint11Integral4 = enum.auto()
 
-    def quantize(self, x):
-        """The format's fake-quant (forward values)."""
+    def quantize(self, x, plain: bool = False):
+        """The format's fake-quant (forward values): K11 for a CUDA
+        tensor unless ``plain``, the plain function otherwise."""
+        flt, fixed = ((fq.float_quantize, fq.fixed_point_quantize) if plain
+                      else (fq.float_quantize_rows,
+                            fq.fixed_point_quantize_rows))
         if self == NumberFormat.HalfPrecisionFloat:
-            return fq.float_quantize(x, 5, 10)
+            return flt(x, 5, 10)
         if self == NumberFormat.SinglePrecisionFloat:
             return x
         if self == NumberFormat.TensorFloat32:
-            return fq.float_quantize(x, 8, 10)
+            return flt(x, 8, 10)
         if self == NumberFormat.FixedPoint11Integral2:
-            return fq.fixed_point_quantize(x, 11, 9)
+            return fixed(x, 11, 9)
         if self == NumberFormat.FixedPoint11Integral3:
-            return fq.fixed_point_quantize(x, 11, 8)
+            return fixed(x, 11, 8)
         if self == NumberFormat.FixedPoint11Integral4:
-            return fq.fixed_point_quantize(x, 11, 7)
+            return fixed(x, 11, 7)
         raise NotImplementedError(self)
 
 
-def _weight_number_format(q_format, kind: str, converted: bool):
+_FP16 = NumberFormat.HalfPrecisionFloat
+_TF32 = NumberFormat.TensorFloat32
+# (q_format, site) -> the activation format of a stateless float format
+# (reference quantize.py:46-74, the _prepare_qat_* site lists)
+_ACT_TABLE = {
+    QFormat.FP16_16: {"pre_linear": _FP16, "post_op": _FP16,
+                      "functional": _FP16, "gelu_in": _FP16,
+                      "gelu_out": _FP16},
+    QFormat.FP16_32: {"pre_linear": _FP16},
+    QFormat.TF32: {"pre_linear": _TF32},
+}
+# the fused block halves' (exp_bits, man_bits, all_sites) of each stateless
+# float format (the JAX Block's _QSPECS); FP32 and PyTorchINT8 have none
+QSPECS = {QFormat.FP16_16: (5, 10, True), QFormat.FP16_32: (5, 10, False),
+          QFormat.TF32: (8, 10, False)}
+
+
+def act_number_format(q_format, site: str):
+    """The stateless activation format of a site, or None (identity)."""
+    return _ACT_TABLE.get(q_format, {}).get(site)
+
+
+def act_quant(x, q_format, site: str, plain: bool = False):
+    """A stateless float format's activation site: ``x`` through its
+    format's fake-quant (K11 on the card unless ``plain``), or as it is
+    where the format leaves the site alone."""
+    fmt = act_number_format(q_format, site)
+    return x if fmt is None else fmt.quantize(x.float(), plain).to(x.dtype)
+
+
+def weight_number_format(q_format, kind: str, converted: bool):
     """Weight format of a Linear ('linear') or LayerNorm ('norm')
     parameter of a stateless float format: Linear weights always,
     LayerNorm weights only after convert (reference quantize.py:146-166)."""
@@ -136,19 +176,21 @@ def site_row(observer: ActQuant):
     return torch.stack([scale, zp, has.float()])
 
 
-def quantize_weight(w, q_format, kind: str, converted: bool):
+def quantize_weight(w, q_format, kind: str, converted: bool,
+                    plain: bool = False):
     """Weight fake-quant of a Linear ('linear') or LayerNorm ('norm')
     parameter.  PyTorchINT8 Linear weights take a symmetric int8 scale
     from their current range (torch's QAT weight observer re-observes
-    every step); the float formats their number format."""
+    every step); the float formats their number format, through K11 on
+    the card unless ``plain``."""
     if q_format == QFormat.PyTorchINT8 and kind == "linear":
         wf = w.float()
         scale = symmetric_int8_scale(wf.abs().max())
         return fq.int8_symmetric_fake_quant_ste(wf, scale).to(w.dtype)
-    fmt = _weight_number_format(q_format, kind, converted)
+    fmt = weight_number_format(q_format, kind, converted)
     if fmt is None:
         return w
-    return fmt.quantize(w.float()).to(w.dtype)
+    return fmt.quantize(w.float(), plain).to(w.dtype)
 
 
 def is_observer(name: str) -> bool:

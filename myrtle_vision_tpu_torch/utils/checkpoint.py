@@ -41,8 +41,8 @@ def save_checkpoint(state, filepath, extra=None, include_optimizer=True):
 
 
 def save_model(model, filepath, iteration=0):
-    """Write a model without optimizer state (the converted-INT8
-    deployment checkpoint, int8 storage as it is); utils/convert.py
+    """Write a model without optimizer state (a converted deployment
+    checkpoint, its int8 or fp16 storage as it is); utils/convert.py
     ``load_reference_checkpoint`` reads it back."""
     _write(filepath, model, None, iteration, None)
 

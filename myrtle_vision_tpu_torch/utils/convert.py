@@ -31,9 +31,11 @@ transformer/layers_i/attn_norm/act_out     transformer.layers.i.0.fn.norm.act_ou
   .../ffn_res/res_add                      transformer.layers.i.1.res_add
 =========================================  ================================
 
-A converted JAX tree (``convert_params``: int8 ``kernel`` with an fp32
-``kernel_scale``) becomes int8 ``<linear>.weight`` in the torch (out, in)
-layout with an fp32 0-d ``<linear>.weight_scale``.
+A converted JAX tree (``convert_params``) keeps its storage: an int8
+``kernel`` with its fp32 ``kernel_scale`` becomes an int8
+``<linear>.weight`` in the torch (out, in) layout with an fp32 0-d
+``<linear>.weight_scale``; the fp16 ``kernel`` and LayerNorm ``scale`` of
+FP16_16 / FP16_32 become fp16 ``<module>.weight`` (TF32 keeps fp32).
 """
 from __future__ import annotations
 
@@ -82,8 +84,9 @@ def state_dict_from_jax(params_numpy, decoder: str = "classification",
                         quant=None):
     """JAX ViT param tree (numpy arrays) of a ``decoder``
     ("classification" or "detection"), before or after ``convert_params``,
-    and optionally its ``quant`` collection -> {port name: tensor}: fp32 parameters with torch (out, in) Linear weights;
-    int8 weights with their ``weight_scale``; ``<site>.min`` and
+    and optionally its ``quant`` collection -> {port name: tensor}: fp32
+    parameters with torch (out, in) Linear weights; int8 weights with
+    their ``weight_scale``; fp16 weights as fp16; ``<site>.min`` and
     ``<site>.max`` of every observer."""
     sd = {}
     for path, name, is_kernel in export._rules(params_numpy, decoder):
@@ -94,7 +97,7 @@ def state_dict_from_jax(params_numpy, decoder: str = "classification",
             scale = export._get(params_numpy, path[:-1] + ("kernel_scale",))
             sd[name[:-len("weight")] + "weight_scale"] = torch.tensor(
                 np.float32(scale))
-        else:
+        elif arr.dtype != np.float16:
             arr = arr.astype(np.float32)
         sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
     if quant is not None:
@@ -123,14 +126,14 @@ def load_reference_checkpoint(path):
     """Read the ``.pth`` that classification/export_checkpoint.py writes:
     a plain state dict or the reference's ``{"model": state_dict,
     "iteration": n, ...}`` envelope, which the port's trainer and its
-    converted-INT8 checkpoints write (utils/checkpoint.py).  Float tensors
-    come back fp32, int8 weights as they are.  A flax msgpack training
-    checkpoint is refused: export it first."""
+    converted checkpoints write (utils/checkpoint.py).  The converted
+    storage comes back as it is (int8, fp16), other tensors fp32.  A flax
+    msgpack training checkpoint is refused: export it first."""
     require_torch_file(path)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj.get("model"), dict):
         obj = obj["model"]
-    return {name: t if t.dtype == torch.int8 else t.float()
+    return {name: t if t.dtype in (torch.int8, torch.float16) else t.float()
             for name, t in obj.items()}
 
 

@@ -715,3 +715,219 @@ def test_detection_model_trains_through_the_flash_kernels(dev, monkeypatch):
         rel = float((grads[0][name] - ref).norm() / ref.norm().clamp_min(
             1e-30))
         assert rel <= 2.0 ** -4, name
+
+
+# ------------------------------------------------------ float formats
+# K11 (fake_quant_rows) is bit-identical to its plain version, fp32
+# subnormals included.  The float-format chain kernels snap with the same
+# code as their plain versions at the same points; they differ only where
+# an fp32 sum is ordered differently, which is fp32 noise (2^-16 of the
+# output's largest magnitude) unless it moves a value across a snap's
+# rounding boundary: that element is then a step of the format away, two
+# where an epilogue snaps twice in series (FP16_16's GELU input and
+# output, its projection before the residual add and the sum), at the
+# larger magnitude of the two.  At most 0.2% of a kernel's elements, 5% of
+# a chain's, whose flipped elements reach the rows of the products after
+# them (chip_smoke.py).
+FLOAT_TIGHT = 2.0 ** -16
+FLOAT_QSPECS = [(5, 10, True), (5, 10, False), (8, 10, False)]
+
+
+def format_step(v, qspec):
+    exp_bits, man_bits, _ = qspec
+    min_exp = 2 - 2 ** (exp_bits - 1)
+    return torch.exp2(torch.floor(torch.log2(
+        v.abs().clamp_min(2.0 ** min_exp))) - man_bits)
+
+
+def close_float(got, ref, qspec, first=None, chain=False):
+    """``first``: the first of two snapped values in series (the GELU's
+    input, the projection a residual sum adds), or None."""
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype == torch.float32
+    g, r = got.double(), ref.double()
+    diff = (g - r).abs()
+    largest = float(r.abs().max())
+    beyond = diff > FLOAT_TIGHT * largest
+    if chain:
+        assert float(beyond.double().mean()) <= 0.05
+        assert float(diff.max()) <= FLOAT_TIGHT * largest + float(
+            format_step(torch.tensor(largest), qspec))
+        return
+    assert float(beyond.double().mean()) <= 2e-3
+    at, steps = r.abs(), 1
+    if first is not None:
+        at, steps = torch.maximum(at, first.double().abs()), 2
+    assert bool((diff[beyond] <= steps * format_step(at[beyond], qspec)).all())
+
+
+def fake_quant_values(n, dev):
+    """Magnitudes 2^-149 (fp32 subnormals) to 2^24, either sign, led by
+    halfway ties of the fp16 / TF32 mantissas, the fp16 subnormal quantum
+    and the fixed-point quanta, saturation and signed zeros."""
+    gen = torch.Generator(dev).manual_seed(5)
+    x = torch.exp2(torch.rand(n, device=dev, generator=gen) * 173 - 149) * (
+        torch.randint(0, 2, (n,), device=dev, generator=gen) * 2 - 1)
+    k = torch.arange(-300, 300, device=dev, dtype=torch.float64) + 0.5
+    special = torch.cat([
+        k * 2.0 ** -10, k * 2.0 ** -24, k * 2.0 ** -9, k * 2.0 ** -8,
+        k * 2.0 ** -7, torch.tensor([0.0, -0.0, 65504.0, 65519.0, 65520.0,
+                                     -65520.0, 3.4e38, 2.0 ** -149],
+                                    device=dev, dtype=torch.float64)])
+    x[:special.numel()] = special.float()
+    return x
+
+
+@pytest.mark.parametrize("mode,a,b", [("float", 5, 10), ("float", 8, 10),
+                                      ("fixed", 11, 9), ("fixed", 11, 8),
+                                      ("fixed", 11, 7)])
+def test_fake_quant_rows_matches_plain(dev, mode, a, b):
+    x = fake_quant_values(2 ** 20 + 7, dev)
+    before = K.LAUNCHES["fake_quant_rows"]
+    for t in (x, x[1:], x[3:1002].view(3, -1)):  # vectors, scalars, shapes
+        got = K.fake_quant_rows_cuda(t, mode, a, b)
+        torch.cuda.synchronize()
+        assert got.shape == t.shape
+        assert torch.equal(got.view(torch.int32),
+                           K.fake_quant_rows_plain(t, mode, a, b).view(
+                               torch.int32))
+    assert K.LAUNCHES["fake_quant_rows"] == before + 3
+    if (mode, a, b) == ("float", 5, 10):
+        half = x.clamp(-65504, 65504).half().float()
+        assert torch.equal(K.fake_quant_rows_cuda(x, mode, a, b).view(
+            torch.int32), half.view(torch.int32))
+
+
+def float_block(c, hid, b, n, seed, dev, qspec):
+    """fp32 x; both halves' parameters with the weights through the
+    format's fake-quant, each the (in, out) view of a torch (out, in)
+    tensor; std-1 biases."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import float_quantize
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * std).astype(np.float32)).to(dev)
+
+    def w(out_f, in_f):
+        return float_quantize(t(out_f, in_f, std=in_f ** -0.5), qspec[0],
+                              qspec[1]).t()
+
+    x = t(b, n, c)
+    attn = [1 + t(c, std=0.1), t(c, std=0.1), w(3 * c, c), t(3 * c),
+            w(c, c), t(c)]
+    mlp = [1 + t(c, std=0.1), t(c, std=0.1), w(hid, c), t(hid), w(c, hid),
+           t(c)]
+    return x, attn, mlp
+
+
+# (C, hidden, B, N): head widths 32 and 64, ragged against the tiles, and
+# ViT-S/16
+FLOAT_SHAPES = [(64, 128, 3, 17), (32, 64, 2, 37), (128, 256, 3, 50),
+                (384, 1536, 4, 197)]
+
+
+@pytest.mark.parametrize("qspec", FLOAT_QSPECS)
+@pytest.mark.parametrize("c,hid,b,n", FLOAT_SHAPES)
+def test_float_kernels_match_plain(dev, c, hid, b, n, qspec):
+    x, attn, mlp = float_block(c, hid, b, n, n + 9, dev, qspec)
+    heads = max(c // 64, 1)
+    scale = (c // heads) ** -0.5
+    x2 = x.view(-1, c)
+    before = dict(K.LAUNCHES)
+    close_float(K.layernorm_snap_rows_cuda(x2, attn[0], attn[1], qspec),
+                K.layernorm_snap_rows_plain(x2, attn[0], attn[1], qspec),
+                qspec)
+    xn = K.layernorm_snap_rows_plain(x2, attn[0], attn[1], qspec)
+    args = (xn, attn[2], attn[3], "bias_snap", qspec)
+    close_float(K.gemm_f32x3_epilogue_cuda(*args),
+                K.gemm_f32x3_epilogue_plain(*args), qspec)
+    qkv = K.gemm_f32x3_epilogue_plain(*args).view(b, n, 3 * c)
+    close_float(K.attention_core_snap_cuda(qkv, heads, scale, qspec),
+                K.attention_core_snap_plain(qkv, heads, scale, qspec), qspec)
+    ctx = K.attention_core_snap_plain(qkv, heads, scale, qspec).view(-1, c)
+    args = (ctx, attn[4], attn[5], "bias_snap_residual_snap", qspec)
+    ref = K.gemm_f32x3_epilogue_plain(*args, residual=x2)
+    close_float(K.gemm_f32x3_epilogue_cuda(*args, residual=x2), ref, qspec,
+                first=ref - x2)
+    args = (xn, mlp[2], mlp[3], "bias_snap_gelu_snap", qspec)
+    close_float(K.gemm_f32x3_epilogue_cuda(*args),
+                K.gemm_f32x3_epilogue_plain(*args), qspec,
+                first=K.gemm_f32x3_epilogue_plain(xn, mlp[2], mlp[3],
+                                                  "bias_snap", qspec))
+    assert {k: K.LAUNCHES[k] - before[k] for k in
+            ("layernorm_snap_rows", "gemm_f32x3_epilogue",
+             "attention_core_f32")} == {"layernorm_snap_rows": 1,
+                                        "gemm_f32x3_epilogue": 3,
+                                        "attention_core_f32": 1}
+
+
+@pytest.mark.parametrize("qspec", FLOAT_QSPECS)
+@pytest.mark.parametrize("c,hid,b,n", FLOAT_SHAPES)
+def test_float_chains_match_plain(dev, c, hid, b, n, qspec):
+    x, attn, mlp = float_block(c, hid, b, n, n + 10, dev, qspec)
+    heads = max(c // 64, 1)
+    scale = (c // heads) ** -0.5
+    before = (fused_attention_block.launches, fused_mlp_block.launches)
+    close_float(fused_attention_block(x, *attn, heads, scale, qspec=qspec),
+                fused_attention_block_plain(x, *attn, heads, scale,
+                                            qspec=qspec), qspec, chain=True)
+    close_float(fused_mlp_block(x, *mlp, qspec=qspec),
+                fused_mlp_block_plain(x, *mlp, qspec=qspec), qspec,
+                chain=True)
+    assert (fused_attention_block.launches - before[0],
+            fused_mlp_block.launches - before[1]) == (1, 1)
+
+
+def test_float_kernels_refuse_what_they_do_not_take(dev):
+    qspec = (5, 10, False)
+    n = K.attention_core_f32_max_n() + 1
+    with pytest.raises(NotImplementedError, match="ROADMAP A5a"):
+        K.attention_core_snap_cuda(torch.zeros(1, n, 3 * 64, device=dev), 1,
+                                   0.125, qspec)
+    a = torch.zeros(4, 6, device=dev)
+    w = torch.zeros(8, 6, device=dev)
+    bias = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        K.gemm_f32x3_epilogue_cuda(a, w.t(), bias, "bias_snap", qspec)
+    with pytest.raises(ValueError, match="transpose of a row-major"):
+        K.gemm_f32x3_epilogue_cuda(a[:, :4].contiguous(),
+                                   w[:, :4].t().contiguous(), bias,
+                                   "bias_snap", qspec)
+    with pytest.raises(TypeError, match="fp32"):
+        K.fake_quant_rows_cuda(a.to(torch.bfloat16), "float", 5, 10)
+    x = torch.zeros(2, 3, 64, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A5a"):
+        fused_mlp_block(x, *[torch.ones(64, device=dev)] * 2,
+                        torch.zeros(64, 128, device=dev), bias.new_zeros(128),
+                        torch.zeros(128, 64, device=dev),
+                        torch.zeros(64, device=dev), qspec=qspec)
+
+
+@pytest.mark.parametrize("q_format", ["FP16_16", "FP16_32", "TF32"])
+def test_float_model_runs_through_the_kernels(dev, q_format):
+    from myrtle_vision_tpu_torch.ops import fused_mlp
+
+    depth = 2
+    model = ViT("classification", 224, 16, 10, 128, depth, 2, 256,
+                q_format=q_format, converted=True, device=dev).eval()
+    img = torch.randn(3, 224, 224, 3, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0))
+    K.reset_launches()
+    before = (fused_attention_block.launches,
+              fused_mlp.fused_mlp_block.launches)
+    with torch.inference_mode():
+        out = model(img)
+        ref = model(img, plain=True)
+    torch.cuda.synchronize()
+    assert (fused_attention_block.launches - before[0],
+            fused_mlp.fused_mlp_block.launches - before[1]) == (depth, depth)
+    assert K.LAUNCHES["layernorm_snap_rows"] == 2 * depth
+    assert K.LAUNCHES["gemm_f32x3_epilogue"] == 4 * depth
+    assert K.LAUNCHES["attention_core_f32"] == depth
+    # the sites outside the blocks and every weight's fake-quant
+    assert K.LAUNCHES["fake_quant_rows"] >= 6 * depth + 6
+    assert out.shape == (3, 10) and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 2.0 ** -6 * max(
+        1.0, float(ref.abs().max()))

@@ -273,9 +273,19 @@ def test_loads_refuse_the_other_storage(jax_int8):
 
 
 @pytest.mark.parametrize("q_format", ["FP16_16", "FP16_32", "TF32"])
-def test_float_formats_raise_with_the_roadmap_item(q_format):
-    with pytest.raises(NotImplementedError, match="A5"):
-        ViT(q_format=q_format, **KW)
+def test_float_formats_raise_with_the_roadmap_item(q_format, monkeypatch):
+    """What the float formats still refuse: detection, a forward that
+    would record gradients (QAT), a sequence past the fused gate."""
+    with pytest.raises(NotImplementedError, match="A5a"):
+        ViT(**dict(KW, decoder="detection"), q_format=q_format)
+    model = ViT(q_format=q_format, **KW)
+    img = torch.zeros(1, 80, 80, 3)
+    with pytest.raises(NotImplementedError, match="A5a"):
+        model(img)
+    monkeypatch.setattr("myrtle_vision_tpu_torch.models.vit.fuses_at",
+                        lambda n, heads, d: False)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="A5a"):
+        model(img)
 
 
 # ------------------------------------------------------------------- CLI
@@ -327,8 +337,6 @@ def cli_setup(tmp_path_factory):
 
 
 def test_cli_predicts_as_the_jax_cli(cli_setup, capsys, tmp_path):
-    from conftest import load_script_module
-
     saved = tmp_path / "converted.pth"
     gts, preds, logits = cli.main(["-c", cli_setup["cfg"], "--device", "cpu",
                                    "--calib_steps", "2",
@@ -341,9 +349,19 @@ def test_cli_predicts_as_the_jax_cli(cli_setup, capsys, tmp_path):
     assert load_reference_checkpoint(str(saved))[
         "transformer.layers.0.0.fn.fn.to_qkv.weight"].dtype == torch.int8
 
+    assert_as_the_jax_cli(cli_setup, cli_setup["config"], "parity", gts,
+                          preds, logits)
+
+
+def assert_as_the_jax_cli(cli_setup, config, name, gts, preds, logits):
+    """The JAX classification/test_quantize.py on ``config`` and the msgpack
+    checkpoint, its ``evaluate_dataset`` wrapped to capture its
+    predictions: the same labels and predictions as the port's CLI."""
+    from conftest import load_script_module
+
     tq = load_script_module(
         os.path.join(REPO, "classification", "test_quantize.py"),
-        "cls_tq_script_torch_parity")
+        f"cls_tq_script_torch_{name}")
     seen = {}
 
     def capture(predict_fn, state, loader):
@@ -352,7 +370,7 @@ def test_cli_predicts_as_the_jax_cli(cli_setup, capsys, tmp_path):
 
     evaluate = tq.evaluate_dataset
     tq.evaluate_dataset = capture
-    config = json.loads(json.dumps(cli_setup["config"]))
+    config = json.loads(json.dumps(config))
     config["train_config"]["checkpoint_path"] = cli_setup["msgpack"]
     tq.test_deit(config, calib_steps=2, quantized_ckpt=False)
     assert len(preds) == len(seen["preds"]) == 20
@@ -361,20 +379,45 @@ def test_cli_predicts_as_the_jax_cli(cli_setup, capsys, tmp_path):
     assert logits.shape == (20, 10) and torch.isfinite(logits).all()
 
 
+@pytest.mark.parametrize("q_format", ["FP16_16", "FP16_32", "TF32"])
+def test_float_cli_predicts_as_the_jax_cli(cli_setup, capsys, tmp_path,
+                                           q_format):
+    config = json.loads(json.dumps(cli_setup["config"]))
+    config["vit_config"]["q_format"] = q_format
+    cfg = tmp_path / f"{q_format}.json"
+    cfg.write_text(json.dumps(config))
+    saved = tmp_path / "converted.pth"
+    gts, preds, logits = cli.main(["-c", str(cfg), "--device", "cpu",
+                                   "--calib_steps", "2",
+                                   "--save_converted", str(saved)])
+    out = capsys.readouterr().out
+    assert "Running 2 calibration steps" in out and "precision" in out
+    sizes = [float(line.split(":")[1].split()[0]) for line in out.splitlines()
+             if "model size" in line]
+    weight = load_reference_checkpoint(str(saved))[
+        "transformer.layers.0.0.fn.fn.to_qkv.weight"]
+    if q_format == "TF32":  # TF32 values keep their 32-bit containers
+        assert sizes[1] == sizes[0] and weight.dtype == torch.float32
+    else:
+        assert sizes[1] < 0.6 * sizes[0] and weight.dtype == torch.float16
+    assert_as_the_jax_cli(cli_setup, config, q_format, gts, preds, logits)
+
+
 def test_cli_cuda_without_a_card_raises(cli_setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["-c", cli_setup["cfg"], "--device", "cuda"])
 
 
-@pytest.mark.parametrize("q_format,error,match", [
-    ("FP16_32", NotImplementedError, "A5"),
-    ("FP32", ValueError, "nothing to quantize"),
+@pytest.mark.parametrize("q_format,decoder,error,match", [
+    ("FP16_32", "detection", NotImplementedError, "A5a"),
+    ("FP32", "classification", ValueError, "nothing to quantize"),
 ])
-def test_cli_refuses_other_formats(cli_setup, tmp_path, q_format, error,
-                                   match):
+def test_cli_refuses_other_formats(cli_setup, tmp_path, q_format, decoder,
+                                   error, match):
     config = json.loads(json.dumps(cli_setup["config"]))
     config["vit_config"]["q_format"] = q_format
+    config["vit_config"]["decoder"] = decoder
     cfg = tmp_path / f"{q_format}.json"
     cfg.write_text(json.dumps(config))
     with pytest.raises(error, match=match):

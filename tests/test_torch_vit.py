@@ -101,4 +101,4 @@ def test_kwargs_from_config_and_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ViT(**{**KW, "decoder": "segmentation"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ViT(**{**KW, "q_format": "FP16_32"})
+        ViT(**{**KW, "decoder": "detection", "q_format": "FP16_32"})
