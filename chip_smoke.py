@@ -28,7 +28,11 @@ Phases, each ending in one line of output:
               (bit-identical to its plain version), the LayerNorm, 3-pass
               GEMM and attention-core stages and both block-half chains
               with each qspec (FP16_16, FP16_32, TF32) at B=64, N=197 and
-              the ragged B=3, N=50
+              the ragged B=3, N=50; the float formats' backward kernels
+              (the qspec forms of K2 and K4: the 3-pass GEMM in the
+              backward's layouts and epilogues, the snap-mode core's
+              statistics, attention_core_f32_bwd, layernorm_snap_rows_bwd)
+              and both backward chains, in each format at B=64, N=197
   4. main     the ViT-S/16 eval CLI on a synthetic RESISC-layout dataset
               with seeded random weights: launch counts, logits of the
               kernel path against the plain path
@@ -49,6 +53,11 @@ Phases, each ending in one line of output:
               (K11 at the sites outside the blocks, the qspec block-half
               chains); launch counts, the converted forward stage by stage
               and end to end against the plain path
+  6c. qat     the ViT-S/16 train CLI in FP16_32 (QAT) for one epoch of
+              the same dataset: launch counts of every block half's
+              forward and backward, no call of a plain version, finite
+              losses, the first step's loss and gradients against the
+              plain path, the last checkpoint through the eval CLI
   7. detect   the YOLOS-S detection eval CLI (detection/test.py's path;
               detection/train_configs/yolos_small.json, local batch 2) on
               the synthetic DIOR-layout test split (96 images, 160 px)
@@ -76,7 +85,9 @@ Phases, each ending in one line of output:
               (8, 6, 1545, 64) and (8, 6, 1125, 64), the long core backward
               at N=677, and the YOLOS-S train step at 608 and 384 px; the
               float formats' kernels and chains in FP16_32 and the
-              converted FP16_32 forward
+              converted FP16_32 forward; the QAT backward kernels and
+              chains in FP16_32 and one FP16_32 QAT train step beside the
+              FP32 one (img/s, peak memory, a device profile)
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -221,6 +232,7 @@ TPU_FLASH_BWD = ("myrtle_vision_tpu/ops/flash_attention.py:388; "
 TPU_K11 = ("myrtle_vision_tpu/ops/fake_quant.py:131; "
            "myrtle_vision_tpu/ops/fake_quant.py:127")  # float; fixed point
 TPU_QSPEC = f"{TPU_ATTN} (qspec); {TPU_MLP} (qspec)"
+TPU_QSPEC_BWD = f"{TPU_ATTN_BWD} (qspec); {TPU_MLP_BWD} (qspec)"
 CSRC = "myrtle_vision_tpu_torch/csrc/"
 ALL_FOUR = f"{TPU_ATTN}; {TPU_MLP}; {TPU_ATTN_BWD}; {TPU_MLP_BWD}"
 INT8_BOTH = f"{TPU_INT8_ATTN}; {TPU_INT8_MLP}"
@@ -247,15 +259,21 @@ KERNELS = {
     "fake_quant_rows": (CSRC + "fake_quant_rows.cu", TPU_K11),
     "layernorm_snap_rows": (CSRC + "layernorm_snap_rows.cu", TPU_QSPEC),
     "gemm_f32x3_epilogue": (CSRC + "gemm_f32x3_epilogue.cu", TPU_QSPEC),
+    "attention_core_f32_bwd": (CSRC + "attention_core_f32_bwd.cu",
+                               f"{TPU_ATTN_BWD} (qspec)"),
+    "layernorm_snap_rows_bwd": (CSRC + "layernorm_rows_bwd.cu",
+                                TPU_QSPEC_BWD),
 }
 INT8_KERNELS = ("layernorm_quant_rows", "gemm_s8_epilogue",
                 "attention_core_f32")
 # the discrete attention path's kernels, run by the detection eval (phase 7)
 # and the detection training (phase 8)
 DETECT_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
-# the float formats' own kernels (phase 6b)
+# the float formats' own kernels (phase 6b), and those only their
+# backward runs (phase 6c)
 FLOAT_KERNELS = ("fake_quant_rows", "layernorm_snap_rows",
                  "gemm_f32x3_epilogue")
+QAT_KERNELS = ("attention_core_f32_bwd", "layernorm_snap_rows_bwd")
 # each TPU kernel: the chain that replaces it and the kernel cases that
 # chain runs once per call, for its bound and yardstick sums
 _G = "gemm_bf16_epilogue"
@@ -288,9 +306,24 @@ TPU_CHAINS = {
     "K3 qspec": ("fused_mlp_block[qspec]", [
         "layernorm_snap_rows", "gemm_f32x3_epilogue[fc1,bias+snap+gelu+snap]",
         "gemm_f32x3_epilogue[fc2,bias+snap+residual+snap]"]),
+    "K2 qspec": ("fused_attention_block[qspec,bwd,saved qkv]", [
+        "layernorm_snap_rows", "gemm_f32x3_epilogue[d_o=do.Wp^T,f32]",
+        "attention_core_f32_bwd", "colsum_rows[dbqkv,fp32]",
+        "gemm_f32x3_epilogue[dWp=do^T.ctx,A^T]", "colsum_rows[dbp,db2,fp32]",
+        "gemm_f32x3_epilogue[dWqkv=dqkv^T.xn,A^T]",
+        "gemm_f32x3_epilogue[dxn=dqkv.Wqkv^T,f32]",
+        "layernorm_snap_rows_bwd"]),
+    "K4 qspec": ("fused_mlp_block[qspec,bwd]", [
+        "layernorm_snap_rows",
+        "gemm_f32x3_epilogue[fc1 remat,bias+snap+gelu+snap+gelu']",
+        "gemm_f32x3_epilogue[dW2=do^T.g,A^T]", "colsum_rows[dbp,db2,fp32]",
+        "gemm_f32x3_epilogue[dh=do.W2^T*gelu',colsum]",
+        "gemm_f32x3_epilogue[dW1=dh^T.xn,A^T]",
+        "gemm_f32x3_epilogue[dxn=dh.W1^T,f32]", "layernorm_snap_rows_bwd"]),
 }
 FP32_KERNELS = tuple(k for k in KERNELS
-                     if k not in INT8_KERNELS + DETECT_KERNELS + FLOAT_KERNELS)
+                     if k not in INT8_KERNELS + DETECT_KERNELS + FLOAT_KERNELS
+                     + QAT_KERNELS)
 # flash_attention_fwd cases (B, H, N, D, n_valid, tag): YOLOS-S at 800 px
 # (2601 tokens, n_pad 2688 > 1536: the blocked regime K6) and at 512 px
 # (1125 tokens: the unblocked K5), and a ragged case with masked keys
@@ -1105,6 +1138,203 @@ def phase_kernels_float(device):
     return errors
 
 
+def qat_kernel_cases(x, attn, mlp, do, qspec):
+    """(name, kernel thunk, plain thunk, bar kinds, launches per block in
+    a QAT train step's backward, cost, a thunk of the first of two values
+    snapped in series or None) for each kernel of the float-format
+    backward chains (K2 and K4 with qspec) at the main path's shapes and
+    layouts, inputs prepared with the plain versions as the chains
+    prepare them: the data-gradient products read the torch (out, in)
+    weight row-major as it is stored, the weight-gradient products the
+    (K, M) activation as it is stored.  Bar kinds as the FP32 ones
+    ("kernel", "chain", "sum", "psum": the outputs are unsnapped fp32
+    gradients), and "float" for the snapped GELU output of the fc1
+    recompute (the float bar, its input snapped before it).  Yardsticks:
+    three bf16 ``torch.matmul`` of each product's pre-split operands, the
+    backward of fp32 ``F.scaled_dot_product_attention`` for the core,
+    ``F.layer_norm``'s autograd backward, ``torch.sum``."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.high_precision import split_bf16
+
+    b, n, _ = x.shape
+    rows = b * n
+    x2, do2 = x.view(rows, C), do.view(rows, C)
+    s_a, b_a, wqkv, bqkv, wp, _ = attn
+    s_m, b_m, w1, b1, w2, _ = mlp
+    check(wp.t().is_contiguous() and w2.t().is_contiguous(),
+          "weights not in the main path's layout")
+    xn = K.layernorm_snap_rows_plain(x2, s_a, b_a, qspec)
+    qkv3 = K.gemm_f32x3_epilogue_plain(xn, wqkv, bqkv, "bias_snap",
+                                       qspec).view(b, n, 3 * C)
+    ctx, m, rs = K.attention_core_snap_plain(qkv3, HEADS, SCALE, qspec,
+                                             stats=True)
+    ctx2 = ctx.view(rows, C)
+    d_o = K.gemm_f32x3_epilogue_plain(do2, wp.t(), None, "f32", qspec)
+    d_o3 = d_o.view(b, n, C)
+    dqkv, dbq_image = K.attention_core_f32_bwd_plain(qkv3, d_o3, m, rs,
+                                                     HEADS, SCALE)
+    dqkv2 = dqkv.view(rows, 3 * C)
+    dxn = K.gemm_f32x3_epilogue_plain(dqkv2, wqkv.t(), None, "f32", qspec)
+    xm = K.layernorm_snap_rows_plain(x2, s_m, b_m, qspec)
+    g, gp = K.gemm_f32x3_epilogue_plain(xm, w1, b1,
+                                        "bias_snap_gelu_snap_grad", qspec)
+    dh, _ = K.gemm_f32x3_epilogue_plain(do2, w2.t(), None, "mul_aux", qspec,
+                                        aux=gp)
+    q, k, v = heads_of(qkv3)
+    d_oh = heads_of(torch.cat([d_o3] * 3, -1))[0]
+    sdpa = []  # the forward's graph, made at the first (warm-up) call
+
+    def sdpa_bwd():
+        if not sdpa:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa.append((F.scaled_dot_product_attention(
+                *leaves, scale=SCALE), leaves))
+        out, leaves = sdpa[0]
+        return torch.autograd.grad(out, leaves, d_oh, retain_graph=True)
+
+    ln = []
+
+    def ln_bwd():
+        if not ln:
+            leaves = [t.detach().requires_grad_() for t in (x2, s_a, b_a)]
+            ln.append((F.layer_norm(leaves[0], (C,), *leaves[1:], K.EPS),
+                       leaves))
+        out, leaves = ln[0]
+        return torch.autograd.grad(out, leaves, dxn, retain_graph=True)
+
+    def mm(name, a, w, epilogue, kinds, count, bias=None, aux=None,
+           first=None):
+        m_, kk, nn = a.shape[0], a.shape[1], w.shape[1]
+        ah, al = (t.to(torch.bfloat16) for t in split_bf16(a))
+        wh, wl = (t.to(torch.bfloat16) for t in split_bf16(w))
+        out = (8 if epilogue == "bias_snap_gelu_snap_grad" else 4) * m_ * nn
+        c = cost(nbytes(a, w, bias, aux) + out, 3 * 2 * m_ * nn * kk, "bf16",
+                 lambda: (torch.matmul(ah, wh), torch.matmul(ah, wl),
+                          torch.matmul(al, wh)))
+        args = (a, w, bias, epilogue, qspec)
+        return (f"gemm_f32x3_epilogue[{name}]",
+                lambda: K.gemm_f32x3_epilogue_cuda(*args, aux=aux),
+                lambda: K.gemm_f32x3_epilogue_plain(*args, aux=aux),
+                kinds, count, c, first)
+
+    core = 4 * b * HEADS * n * n * (C // HEADS)  # one N x N x D product
+    return [
+        ("attention_core_f32[snap,stats]",
+         lambda: K.attention_core_snap_cuda(qkv3, HEADS, SCALE, qspec,
+                                            stats=True),
+         lambda: K.attention_core_snap_plain(qkv3, HEADS, SCALE, qspec,
+                                             stats=True),
+         ("float", "kernel", "kernel"), 0,
+         cost(nbytes(qkv3) * 4 // 3 + nbytes(m, rs), 3 * core, "bf16",
+              lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE)),
+         None),
+        mm("d_o=do.Wp^T,f32", do2, wp.t(), "f32", ("kernel",), 1),
+        ("attention_core_f32_bwd",
+         lambda: K.attention_core_f32_bwd_cuda(qkv3, d_o3, m, rs, HEADS,
+                                               SCALE),
+         lambda: K.attention_core_f32_bwd_plain(qkv3, d_o3, m, rs, HEADS,
+                                                SCALE),
+         ("chain", "psum"), 1,
+         # s (recomputed), dp, dv, dq, dk: five products, three passes
+         cost(2 * nbytes(qkv3) + nbytes(d_o3, m, rs, dbq_image),
+              3 * core * 5 // 2, "bf16", sdpa_bwd), None),
+        ("colsum_rows[dbqkv,fp32]", lambda: K.colsum_rows_cuda(dbq_image),
+         lambda: K.colsum_rows_plain(dbq_image), ("sum",), 1,
+         cost(nbytes(dbq_image) + 4 * dbq_image.shape[1], dbq_image.numel(),
+              "fp32", lambda: torch.sum(dbq_image, 0)), None),
+        mm("dWp=do^T.ctx,A^T", do2.t(), ctx2, "f32", ("sum",), 1),
+        ("colsum_rows[dbp,db2,fp32]", lambda: K.colsum_rows_cuda(do2),
+         lambda: K.colsum_rows_plain(do2), ("sum",), 2,
+         cost(nbytes(do2) + 4 * C, do2.numel(), "fp32",
+              lambda: torch.sum(do2, 0)), None),
+        mm("dWqkv=dqkv^T.xn,A^T", dqkv2.t(), xn, "f32", ("sum",), 1),
+        mm("dxn=dqkv.Wqkv^T,f32", dqkv2, wqkv.t(), "f32", ("kernel",), 1),
+        ("layernorm_snap_rows_bwd",
+         lambda: K.layernorm_rows_bwd_cuda(x2, s_a, dxn, do2, qspec),
+         lambda: K.layernorm_rows_bwd_plain(x2, s_a, dxn, do2, qspec),
+         ("kernel", "sum", "sum"), 2,
+         cost(nbytes(x2, s_a, dxn, do2, x2) + 8 * C, 16 * x2.numel(),
+              "fp32", ln_bwd), None),
+        mm("fc1 remat,bias+snap+gelu+snap+gelu'", xm, w1,
+           "bias_snap_gelu_snap_grad", ("float", "kernel"), 1, bias=b1,
+           first=lambda: K.gemm_f32x3_epilogue_plain(xm, w1, b1, "bias_snap",
+                                                     qspec)),
+        mm("dW2=do^T.g,A^T", do2.t(), g, "f32", ("sum",), 1),
+        mm("dh=do.W2^T*gelu',colsum", do2, w2.t(), "mul_aux",
+           ("kernel", "sum"), 1, aux=gp),
+        mm("dW1=dh^T.xn,A^T", dh.t(), xm, "f32", ("sum",), 1),
+        mm("dxn=dh.W1^T,f32", dh, w1.t(), "f32", ("kernel",), 1),
+    ]
+
+
+def qat_op_cases(x, attn, mlp, do, qspec):
+    """(name, kernel thunk, plain thunk, bar kinds) of both float-format
+    backward chains, the attention's with its qkv rows saved and
+    recomputed, each path from its own forward's residuals."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
+    from myrtle_vision_tpu_torch.ops import fused_mlp as fm
+
+    res = [fa._forward_q(kern, x, *attn, HEADS, SCALE, qspec,
+                         record=True)[1] for kern in (K.CUDA, K.PLAIN)]
+    grads = ("chain",) + ("sum",) * 6
+
+    def attn_back(kern, saved):
+        ctx, m, rs, qkv = res[kern is K.PLAIN]
+        return fa._backward_q(kern, do, x, *attn[:-1], ctx, m, rs,
+                              qkv if saved else None, HEADS, SCALE, qspec)
+
+    return [
+        ("fused_attention_block[qspec,bwd,saved qkv]",
+         lambda: attn_back(K.CUDA, True), lambda: attn_back(K.PLAIN, True),
+         grads),
+        ("fused_attention_block[qspec,bwd,recomputed qkv]",
+         lambda: attn_back(K.CUDA, False), lambda: attn_back(K.PLAIN, False),
+         grads),
+        ("fused_mlp_block[qspec,bwd]",
+         lambda: fm._backward_q(K.CUDA, do, x, *mlp[:-1], qspec),
+         lambda: fm._backward_q(K.PLAIN, do, x, *mlp[:-1], qspec), grads),
+    ]
+
+
+def phase_kernels_qat(device):
+    """The float-format backward kernels and chains, each against its
+    plain version, in each format at B=64, N=197; returns the largest abs
+    errors by kernel."""
+    errors = {}
+    for qname, qspec in FLOAT_QSPECS.items():
+        x, attn, mlp = float_block_inputs(64, N, seed=64197 + 3, device=device,
+                                          qspec=qspec)
+        do = seeded(np.random.RandomState(64197 + 4), (64, N, C), 1.0, device)
+        cases = [(name, kern, plain, kinds, first) for name, kern, plain,
+                 kinds, _, _, first in qat_kernel_cases(x, attn, mlp, do,
+                                                        qspec)]
+        cases += [c + (None,) for c in qat_op_cases(x, attn, mlp, do, qspec)]
+        for name, kernel, plain, kinds, first in cases:
+            outs, refs = as_tuple(kernel()), as_tuple(plain())
+            check(len(outs) == len(refs) == len(kinds),
+                  f"{name}: {len(outs)} outputs")
+            worst = (0.0, 0.0)
+            for i, (got, ref, kind) in enumerate(zip(outs, refs, kinds)):
+                label = f"{name} {qname} output {i}"
+                if kind == "float":
+                    max_abs, of_bar, _ = compare_float(
+                        label, got, ref, qspec,
+                        None if first is None else first())
+                else:
+                    max_abs, of_bar = compare(label, got, ref,
+                                              *bar(kind, ref))
+                worst = max(worst, (of_bar, max_abs))
+            print(f"kernels: {name} {qname} B=64,N=197 max_abs "
+                  f"{worst[1]:.6g}, {worst[0]:.4f} of the bar (kinds "
+                  f"{'/'.join(kinds)})")
+            key = name.split("[")[0]
+            errors[key] = max(errors.get(key, 0.0), worst[1])
+    return errors
+
+
 def phase_kernels(device):
     errors = {}
     for b, n, tag in ((64, N, "B=64,N=197"), (3, 50, "B=3,N=50")):
@@ -1147,6 +1377,11 @@ def phase_kernels(device):
         phase_kernels_long(device)
     for key, err in phase_kernels_float(device).items():
         errors[key] = max(errors.get(key, 0.0), err)
+    for key in QAT_KERNELS:
+        errors[key] = 0.0
+    for key, err in phase_kernels_qat(device).items():
+        if key in QAT_KERNELS:
+            errors[key] = max(errors[key], err)
     print(f"kernels: all within their bars (|d| <= {RTOL:g}*|ref| + atol; "
           f"atol {KERNEL_ATOL:g} kernel, {CHAIN_ATOL:g} chain, "
           f"{SUM_ATOL:g}*max|ref| sum; psum |d| <= {PSUM_ATOL:g}*max|ref|; "
@@ -1409,11 +1644,11 @@ def phase_main(device, data_config, data_cfg):
 
 
 def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
-                     first_loss):
+                     first_loss, tag="train"):
     """The train CLI's first step again, from its iteration-0 checkpoint
     and its first batch (``model`` and ``train_loader`` as the CLI's
     ``build_train`` sets them up), on the kernel path and on the plain
-    path."""
+    path; ``tag`` leads the printed line."""
     from myrtle_vision_tpu_torch.training.optim import cross_entropy_loss
     from myrtle_vision_tpu_torch.utils.convert import (
         load_reference_checkpoint,
@@ -1445,7 +1680,7 @@ def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
         rel = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
         if rel > worst:
             worst, worst_name = rel, name
-    print(f"train: first step, kernel vs plain path on the card: loss "
+    print(f"{tag}: first step, kernel vs plain path on the card: loss "
           f"{k_loss:.6f} vs {p_loss:.6f} (|d| {loss_diff:.3g}, bar "
           f"{LOSS_BAR * max(1.0, abs(p_loss)):.3g}; the CLI printed "
           f"{first_loss}), largest relative gradient error {worst:.4g} in "
@@ -1534,6 +1769,116 @@ def phase_train(device, data_config, data_cfg):
           f"{float(np.mean(gts == preds)):.4f}, op launches {ops_eval}")
     check(logits.shape == (test_batches * micro,
                            data_config["number_of_classes"])
+          and bool(torch.isfinite(logits).all()), "eval of the checkpoint")
+    check(ops_eval["fused_attention_block"] == (depth * test_batches, 0),
+          f"eval launches {ops_eval}")
+    return launches
+
+
+@contextlib.contextmanager
+def counting_plain_calls():
+    """Counts, in the yielded dict, every call of a plain version through
+    ``K.PLAIN`` (the block-half chains' plain path) while it is open."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    calls = {"n": 0}
+    saved = dict(vars(K.PLAIN))
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            calls["n"] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    for name, fn in saved.items():
+        setattr(K.PLAIN, name, counted(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(K.PLAIN, name, fn)
+
+
+def phase_qat(device, data_config, data_cfg):
+    """The ViT-S/16 train CLI in FP16_32 (QAT) through the float-format
+    kernels, forward and backward; returns the kernel launches of its
+    run."""
+    from myrtle_vision_tpu_torch.classification import test as eval_cli
+    from myrtle_vision_tpu_torch.classification import train as train_cli
+
+    q_format = "FP16_32"
+    config = vit_small_config()
+    config["vit_config"]["q_format"] = q_format
+    tc = config["train_config"]
+    tc.update(output_directory=os.path.join(WORK, "qat"),
+              checkpoint_path="", epochs=1, warmup_epochs=0,
+              pretrained_backbone=None, iters_per_checkpoint=3,
+              iters_per_val=3)
+    config["data_config_path"] = data_cfg
+    cfg = write_json("vit_small_qat.json", config)
+    depth = config["vit_config"]["depth"]
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with counting_plain_calls() as plain_calls, \
+            contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "Epoch", "WARNING")):
+            print(f"qat: {line}")
+    steps = state.iteration
+    losses = [float(v) for v in
+              re.findall(r"Iteration \d+:\tloss=(\S+)\tacc=", text)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, train_loader, val_loader, (micro, n_accum) = \
+            train_cli.build_train(config, device)
+    val_batches = len(val_loader)
+    validations = len(range(0, steps, tc["iters_per_val"]))
+    bwd = depth * n_accum * steps
+    fwd = bwd + depth * validations * val_batches
+    print(f"qat: ViT-S/16 train CLI in {q_format} on cuda, {steps} steps of "
+          f"{n_accum} x {micro} images and {validations} validations of "
+          f"{val_batches} batch in {took:.1f} s: op launches (forward, "
+          f"backward) {ops}, expected ({fwd}, {bwd}) each ({depth} a "
+          f"micro-batch); plain-version calls {plain_calls['n']}; kernels "
+          f"{launches}")
+    check(steps >= 3 and len(losses) == steps, f"{steps} steps, {losses}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    for op in ("fused_attention_block", "fused_mlp_block"):
+        check(ops[op] == (fwd, bwd), f"{op} launches {ops[op]}")
+    check(plain_calls["n"] == 0, "the QAT run called a plain version")
+    check(all(launches[k] > 0 for k in FLOAT_KERNELS + QAT_KERNELS
+              + ("attention_core_f32", "colsum_rows")),
+          f"a kernel never launched: {launches}")
+    check(launches["attention_core_f32_bwd"] == bwd
+          and launches["layernorm_snap_rows_bwd"] == 2 * bwd,
+          f"backward kernel launches {launches}")
+
+    run_dir = sorted(glob.glob(tc["output_directory"] + "_*"))[-1]
+    ckpts = sorted(os.listdir(run_dir))
+    check(ckpts == [f"vit_{i:06}" for i in range(0, steps, 3)]
+          + [f"vit_{steps:06}"], f"checkpoints {ckpts}")
+    first_step_check(model, train_loader, os.path.join(run_dir, "vit_000000"),
+                     n_accum, micro, losses[0], tag="qat")
+    del model, train_loader, val_loader
+
+    tc["checkpoint_path"] = os.path.join(run_dir, ckpts[-1])
+    cfg = write_json("vit_small_qat_eval.json", config)
+    with open(os.path.join(data_config["dataset_path"],
+                           data_config["test_files"])) as f:
+        test_batches = len(f.read().split()) // micro  # drop_last_batch
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gts, preds, logits = eval_cli.main(["-c", cfg, "--device", "cuda"])
+    _, ops_eval = read_counts()
+    print(f"qat: checkpoint {ckpts[-1]} through the eval CLI ({q_format}): "
+          f"{len(gts)} test images, accuracy "
+          f"{float(np.mean(gts == preds)):.4f}, op launches {ops_eval}")
+    check(logits.shape[1] == data_config["number_of_classes"]
           and bool(torch.isfinite(logits).all()), "eval of the checkpoint")
     check(ops_eval["fused_attention_block"] == (depth * test_batches, 0),
           f"eval launches {ops_eval}")
@@ -2240,7 +2585,19 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
                                 tag + " (converted FP16_32 forward)")
     for name, kernel, plain in float_op_cases(xf, af, mf, qspec):
         time_chain(cases, name, kernel, plain, power, tag)
-    del xf, af, mf
+    # the QAT step's backward kernels and chains (FP16_32); only the two
+    # kernels that run nowhere else enter the kernels' totals
+    do_f = seeded(np.random.RandomState(260), (b, N, C), 1.0, device)
+    qat_totals = {}
+    for name, kernel, plain, _, count, c, _ in qat_kernel_cases(
+            xf, af, mf, do_f, qspec):
+        cases[name] = time_case(qat_totals, name, kernel, plain, count, c,
+                                power, tag + " (FP16_32 QAT step)")
+    for key in QAT_KERNELS:
+        totals[key] = qat_totals[key]
+    for name, kernel, plain, _ in qat_op_cases(xf, af, mf, do_f, qspec):
+        time_chain(cases, name, kernel, plain, power, tag)
+    del xf, af, mf, do_f
     # K11 at the patch embedding's pre_linear site, once a forward
     from myrtle_vision_tpu_torch.ops import _kernels as K
 
@@ -2336,10 +2693,74 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
           f"kernel path {k_ms:.3f} ms = {b / k_ms * 1e3:.1f} img/s, plain "
           f"path {p_ms:.3f} ms = {b / p_ms * 1e3:.1f} img/s, peak device "
           f"memory {peak:.2f} GiB [{power}]")
-    del state, model, imgs, batch
+    fp32_step = (k_ms, kernel_peak(lambda: kernel_step(state, batch,
+                                                       tc["lr"])))
+    del state, model
+    time_qat_step(imgs, batch, tc, fp32_step, power)
+    del imgs, batch
     time_detection(totals, device, power)
     time_detection_train(totals, device, power)
     return totals
+
+
+def kernel_peak(step):
+    """Peak device memory of one call of ``step`` in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def time_qat_step(imgs, batch, tc, fp32_step, power):
+    """One FP16_32 QAT train step of ViT-S/16 (forward, backward, AdamW)
+    at the batch of the FP32 step, kernel and plain path, beside the FP32
+    step of this run (``fp32_step``: its kernel-path ms and peak GiB);
+    its peak device memory and a device profile of one kernel-path
+    step."""
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.training.classification import make_loss_fn
+    from myrtle_vision_tpu_torch.training.optim import (
+        create_optimizer,
+        cross_entropy_loss,
+    )
+    from myrtle_vision_tpu_torch.training.trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    b = imgs.shape[0]
+    model = ViT("classification", 224, 16, 45, 384, 12, 6, 1536,
+                q_format="FP16_32", device=imgs.device)
+    state = TrainState(model, create_optimizer(tc, model))
+
+    def plain_loss(mb):
+        logits = model(mb["image"], plain=True)
+        return cross_entropy_loss(logits, mb["label"]), {"metrics": {}}
+
+    kernel_step = make_train_step(make_loss_fn(model), 1)
+    plain_step = make_train_step(plain_loss, 1)
+    k_ms, p_ms = paired_ms(lambda: kernel_step(state, batch, tc["lr"]),
+                           lambda: plain_step(state, batch, tc["lr"]),
+                           iters=3, warmup=1)
+    peak = kernel_peak(lambda: kernel_step(state, batch, tc["lr"]))
+    print(f"timing: ViT-S/16 FP16_32 QAT train step B={b} (forward, "
+          f"backward, AdamW): kernel path {k_ms:.3f} ms = "
+          f"{b / k_ms * 1e3:.1f} img/s, plain path {p_ms:.3f} ms = "
+          f"{b / p_ms * 1e3:.1f} img/s, peak device memory {peak:.2f} GiB; "
+          f"the FP32 step of this run {fp32_step[0]:.3f} ms = "
+          f"{b / fp32_step[0] * 1e3:.1f} img/s, {fp32_step[1]:.2f} GiB "
+          f"[{power}]")
+    line = device_profile(lambda: kernel_step(state, batch, tc["lr"]), {
+        "gemm_f32x3_epilogue": ("gemm_f32x3",),
+        "attention_core_f32": ("attention_core_f32_kernel",),
+        "attention_core_f32_bwd": ("attention_core_f32_bwd",),
+        "LayerNorm, forward and backward": ("layernorm_snap_rows",
+                                            "layernorm_rows_bwd"),
+        "fake_quant_rows": ("fake_quant_rows",),
+        "colsum_rows": ("colsum",)})
+    print(f"timing: FP16_32 QAT train step profile (B={b}, one kernel-path "
+          f"step): {line} [{power}]")
 
 
 def time_detection(totals, device, power):
@@ -2594,6 +3015,7 @@ def main():
         device, data_config, data_cfg)
     float_launches, float_ckpt, float_kwargs = phase_quantize_float(
         device, data_config, data_cfg)
+    qat_launches = phase_qat(device, data_config, data_cfg)
     t0 = time.perf_counter()
     det_data = make_detection_dataset()
     print(f"detect: synthetic DIOR-layout set (600 train, 96 val, 96 test "
@@ -2611,10 +3033,13 @@ def main():
             "replaces": replaces,
             # launches on the path's own run: the train CLI for the FP32
             # kernels, the PTQ CLI for the INT8 ones and for the float
-            # formats' (FP16_32), the detection eval CLI for the flash
-            # forward, the detection train CLI for the flash backward
+            # formats' (FP16_32), the QAT train CLI (FP16_32) for the
+            # float formats' backward, the detection eval CLI for the
+            # flash forward, the detection train CLI for the flash
+            # backward
             "launches": (int8_launches if name in INT8_KERNELS
                          else float_launches if name in FLOAT_KERNELS
+                         else qat_launches if name in QAT_KERNELS
                          else det_launches if name == "flash_attention_fwd"
                          else det_train_launches
                          if name == "flash_attention_bwd"
@@ -2622,7 +3047,8 @@ def main():
             "max_abs_err": errors[name],
             # sums over this kernel's launches in one ViT-S/16 block at
             # B=256: a train step (FP32 kernels), a converted forward
-            # (INT8, FP16_32); the flash forward's one launch in a YOLOS-S
+            # (INT8, FP16_32), a QAT step's backward (FP16_32: the two
+            # float backward kernels); the flash forward's one launch in a YOLOS-S
             # block at 800 px, B=8; the flash backward's one call (three
             # kernels) in a YOLOS-S block at 608 px, B=8
             "ms": t["ms"], "plain_ms": t["plain_ms"],

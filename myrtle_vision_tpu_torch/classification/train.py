@@ -13,10 +13,15 @@ epoch from the cosine/warmup schedule, a checkpoint every
 final checkpoint.  One optimizer step sums the gradients of
 ``global_batch_size / local_batch_size`` micro-batches.  Checkpoints are
 ``torch.save`` files (utils/checkpoint.py) that the port's eval CLI
-reads as they are; ``checkpoint_path`` resumes from one.  ``--device``
+reads as they are; ``checkpoint_path`` resumes from one.
+``vit_config.q_format`` FP16_16, FP16_32 or TF32 trains the float
+format's simulation (QAT: fp32 compute, the format's snaps at the JAX
+sites, straight-through gradients, AdamW as for FP32); its checkpoints
+hold fp32 parameters, which the eval CLI and the PTQ CLI
+(``test_quantize``) read as they read the JAX CLI's.  ``--device``
 defaults to ``cuda``; without a CUDA device that raises, it never carries
-on on the CPU.  Multi-device training and distillation are not ported
-yet (ROADMAP A9, A8).
+on on the CPU.  PyTorchINT8 QAT, multi-device training and distillation
+are not ported yet (ROADMAP A5b, A9, A8).
 """
 from __future__ import annotations
 
@@ -83,11 +88,10 @@ def build_train(config, device):
         raise NotImplementedError(
             "distillation (distiller_config) is not ported yet; see "
             "ROADMAP.md A8")
-    if config["vit_config"]["q_format"] != "FP32":
+    if config["vit_config"]["q_format"] == "PyTorchINT8":
         raise NotImplementedError(
-            f"training in q_format {config['vit_config']['q_format']} (QAT) "
-            "is not ported yet; see ROADMAP.md A5a (float formats) and A5b "
-            "(INT8)")
+            "training in q_format PyTorchINT8 (two-pass INT8 QAT) is not "
+            "ported yet; see ROADMAP.md A5b")
     seed = train_config["seed"]
     seed_everything(seed)
 

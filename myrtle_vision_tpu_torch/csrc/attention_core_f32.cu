@@ -15,7 +15,11 @@
 //   int8 mode:  out = clip(rint(ctx / s2) + zp2, 0, 255) - 128, int8
 //               (site 2, quant_out)
 //   snap mode:  out = snap(ctx), fp32 (the FloatingPoint(exp, man) snap
-//               of fake_quant.cuh, the pre_linear site of the projection)
+//               of fake_quant.cuh, the pre_linear site of the projection);
+//               when the caller records for the backward, also the rowmax
+//               m and rs = 1 / rowsum (a true divide) of each query row,
+//               (B, H, N) fp32, as `_attn_heads_fwd` returns them (null
+//               pointers, as inference passes, write nothing)
 // where x = xh + xl splits an fp32 value into two bf16 values, xh =
 // bf16(x), xl = bf16(x - xh): the 3-pass products of the JAX package
 // (ops/high_precision.py dot_high3), each pass an exact bf16 product
@@ -73,7 +77,8 @@ template <int D, bool kSnap>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_core_f32_kernel(const float* __restrict__ qkv,
                           const float* __restrict__ site,
-                          void* __restrict__ out, int N, int heads,
+                          void* __restrict__ out, float* __restrict__ m_out,
+                          float* __restrict__ rs_out, int N, int heads,
                           float scale, mvt::FloatFmt fmt) {
   constexpr int KLD = Layout<D>::KLD;
   constexpr int KT = D / 16;
@@ -180,6 +185,11 @@ attention_core_f32_kernel(const float* __restrict__ qkv,
         sum = __fadd_rn(sum, s[i]);
       }
       sum = mvt::warp_sum(sum);
+      if (kSnap && m_out != nullptr && lane == 0 && q0 + r < N) {
+        const size_t o = static_cast<size_t>(blockIdx.x) * N + q0 + r;
+        m_out[o] = m;
+        rs_out[o] = __fdiv_rn(1.0f, sum);
+      }
       __syncwarp();  // the row is read in full before P overwrites it
       bf16* prow = p_w + r * 2 * sld;
 #pragma unroll
@@ -240,8 +250,9 @@ attention_core_f32_kernel(const float* __restrict__ qkv,
 }
 
 template <int D, bool kSnap>
-int launch(const void* qkv, const void* site, void* out, int B, int N,
-           int heads, float scale, mvt::FloatFmt fmt, cudaStream_t stream) {
+int launch(const void* qkv, const void* site, void* out, void* m, void* rs,
+           int B, int N, int heads, float scale, mvt::FloatFmt fmt,
+           cudaStream_t stream) {
   const size_t smem = Layout<D>(N).bytes();
   cudaError_t err = cudaFuncSetAttribute(
       attention_core_f32_kernel<D, kSnap>,
@@ -250,20 +261,24 @@ int launch(const void* qkv, const void* site, void* out, int B, int N,
   attention_core_f32_kernel<D, kSnap>
       <<<B * heads, kWarps * 32, smem, stream>>>(
           static_cast<const float*>(qkv), static_cast<const float*>(site),
-          out, N, heads, scale, fmt);
+          out, static_cast<float*>(m), static_cast<float*>(rs), N, heads,
+          scale, fmt);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kSnap>
-int launch_d(const void* qkv, const void* site, void* out, int B, int N,
-             int heads, int D, float scale, mvt::FloatFmt fmt,
+int launch_d(const void* qkv, const void* site, void* out, void* m, void* rs,
+             int B, int N, int heads, int D, float scale, mvt::FloatFmt fmt,
              cudaStream_t stream) {
-  if (B <= 0 || heads <= 0 || N <= 0 || N > kMaxN)
+  if (B <= 0 || heads <= 0 || N <= 0 || N > kMaxN ||
+      (m == nullptr) != (rs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64)
-    return launch<64, kSnap>(qkv, site, out, B, N, heads, scale, fmt, stream);
+    return launch<64, kSnap>(qkv, site, out, m, rs, B, N, heads, scale, fmt,
+                             stream);
   if (D == 32)
-    return launch<32, kSnap>(qkv, site, out, B, N, heads, scale, fmt, stream);
+    return launch<32, kSnap>(qkv, site, out, m, rs, B, N, heads, scale, fmt,
+                             stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -277,20 +292,22 @@ MVT_EXPORT int mvt_attention_core_f32(const void* qkv, const void* site,
                                       void* out, int B, int N, int heads,
                                       int D, float scale, void* stream) {
   if (site == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_d<false>(qkv, site, out, B, N, heads, D, scale,
-                         mvt::FloatFmt(8, 22),
+  return launch_d<false>(qkv, site, out, nullptr, nullptr, B, N, heads, D,
+                         scale, mvt::FloatFmt(8, 22),
                          static_cast<cudaStream_t>(stream));
 }
 
 // qkv (B, N, 3C) fp32; out (B, N, C) fp32, the context through the
-// FloatingPoint(exp_bits, man_bits) snap
-MVT_EXPORT int mvt_attention_core_f32_snap(const void* qkv, void* out, int B,
-                                           int N, int heads, int D,
-                                           float scale, int exp_bits,
-                                           int man_bits, void* stream) {
+// FloatingPoint(exp_bits, man_bits) snap; m and rs (B, H, N) fp32, the
+// rowmax and reciprocal rowsum, or both null
+MVT_EXPORT int mvt_attention_core_f32_snap(const void* qkv, void* out,
+                                           void* m, void* rs, int B, int N,
+                                           int heads, int D, float scale,
+                                           int exp_bits, int man_bits,
+                                           void* stream) {
   if (!mvt::float_fmt_ok(exp_bits, man_bits))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_d<true>(qkv, nullptr, out, B, N, heads, D, scale,
+  return launch_d<true>(qkv, nullptr, out, m, rs, B, N, heads, D, scale,
                         mvt::FloatFmt(exp_bits, man_bits),
                         static_cast<cudaStream_t>(stream));
 }

@@ -1,26 +1,36 @@
-// gemm_f32x3_epilogue: the fp32 projections of the float-format block
-// halves, out[M, N] = epilogue(A[M, K] @ W[K, N] + bias[N]).
+// gemm_f32x3_epilogue: the fp32 products of the float-format block halves,
+// forward and backward, out[M, N] = epilogue(A[M, K] @ B[K, N] (+ bias[N])).
 //
-// The projections inside the TPU block kernels with qspec set
-// (myrtle_vision_tpu/ops/fused_attention_block.py `_qkv_rows` and the
-// output projection of `_fwd_kernel`; myrtle_vision_tpu/ops/fused_mlp.py
-// `fc1` and `fc2`): fp32 operands through the 3-pass bf16 product of
-// `dot_high3` (myrtle_vision_tpu/ops/high_precision.py).  Each operand is
-// split on load, x = hi + lo with hi = bf16(x), lo = bf16(x - hi); the
-// three products ah.bh, ah.bl and al.bh each run over the whole K on the
-// tensor cores (WMMA 16x16x16, bf16 in, fp32 accumulators: every term is
-// exact, only the fp32 sum order is the hardware's), and are added as
-// (P1 + P2) + P3, the order of `dot_high3`.  Epilogues, with the snaps of
-// fake_quant.cuh (qspec = (exp_bits, man_bits, all_sites) at run time),
-// each rounding in the plain version's order:
+// The products inside the TPU block kernels with qspec set
+// (myrtle_vision_tpu/ops/fused_attention_block.py `_qkv_rows`, the output
+// projection of `_fwd_kernel` and the products of `_bwd_one_image`;
+// myrtle_vision_tpu/ops/fused_mlp.py `fc1`, `fc2` and `_bwd_one_image`):
+// fp32 operands through the 3-pass bf16 product of `dot_high3`
+// (myrtle_vision_tpu/ops/high_precision.py).  Each operand, the incoming
+// gradient included, is split on load, x = hi + lo with hi = bf16(x), lo =
+// bf16(x - hi); the three products ah.bh, ah.bl and al.bh each run over the
+// whole K on the tensor cores (WMMA 16x16x16, bf16 in, fp32 accumulators:
+// every term is exact, only the fp32 sum order is the hardware's), and are
+// added as (P1 + P2) + P3, the order of `dot_high3`.  Epilogues, with the
+// snaps of fake_quant.cuh (qspec = (exp_bits, man_bits, all_sites) at run
+// time), each rounding in the plain version's order:
 //   0  snap_all(P + bias)                                    (QKV)
 //   1  snap(snap_all(GELU(snap_all(P + bias))))              (fc1: fc1
 //      act_out, GELU act_out, fc2 act_in; the polynomial erf, exact divide)
 //   2  snap_all(residual + snap_all(P + bias))       (output projection
 //      and fc2: act_out, then the residual add's functional site)
-// A is row-major (M, K); W is read in place as the (in, out) view of the
-// torch (out, in) weight, i.e. the (N, K) weight row-major, so both
-// operands run along K in memory.
+//   3  P, no bias, no snap                 (d_o, dxn, dg and the weight
+//      gradients; with split K, one partial product per blockIdx.z)
+//   4  h = snap_all(P + bias): snap(snap_all(GELU(h))) out and GELU'(h) into
+//      `aux`                   (the backward's fc1 recompute, one erf)
+//   5  P * aux, and the fp32 column sums of that per 128-row tile into
+//      `colpart`               (dh = dg * GELU'(h), db1)
+// Layouts: A is row-major (M, K), or column-major -- the (K, M) activation
+// as it is stored, for a weight gradient dW^T = dY^T X -- and B is read as
+// the (N, K) torch (out, in) weight row-major (the forward epilogues 0, 1,
+// 2, 4: the (in, out) view of the weight) or row-major (K, N) (3 and 5: the
+// weight as it is stored, for dX = dY W^T, and an activation for a weight
+// gradient); no transposed copy is ever made.
 //
 // The three passes triple the bf16 tensor-core work of the FP32 format's
 // products, so at ViT-S/16 shapes they are compute bound (3 x 2MNK bf16
@@ -28,10 +38,16 @@
 // owns a 128x64 output tile (each warp 32x32, with three accumulators per
 // fragment) and walks K in 32-deep steps: the next step's fp32 values are
 // loaded into registers while the tensor cores work on this one, then
-// split into bf16 hi and lo tiles in shared memory.  Ragged M and N are
-// zero-filled on load and masked on store; K must be a multiple of 4.
-// wgmma and TMA are not used yet.
+// split into bf16 hi and lo tiles in shared memory.  Ragged edges are
+// zero-filled on load and masked on store; a 4-float load runs along K or
+// along M / N, so that dimension must be a multiple of 4.  A weight
+// gradient has few output tiles (18 at 384x384) and a long K (B*N rows),
+// so it splits K over blockIdx.z and the caller sums the partial products
+// in a fixed order (no atomics: bitwise reproducible).  wgmma and TMA are
+// not used yet.
 #include <mma.h>
+
+#include <type_traits>
 
 #include "fake_quant.cuh"
 
@@ -43,48 +59,64 @@ using mvt::bf16;
 constexpr int BM = 128, BN = 64, BK = 32;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int LD = BK + 8;     // bf16 row stride of a split tile
-constexpr int E_LD = 16 + 4;   // per-warp fp32 staging of one fragment
+constexpr int LD = BK + 8;      // row-major A / (N, K) B split tile stride
+constexpr int AC_LD = BM + 8;   // column-major A, stored BK x BM
+constexpr int BR_LD = BN + 8;   // row-major B, stored BK x BN
+constexpr int E_LD = 16 + 4;    // per-warp fp32 staging of one fragment
 constexpr int kARegs = BM * BK / 4 / kThreads;  // float4 loads a thread
 constexpr int kBRegs = BN * BK / 4 / kThreads;
-constexpr int kATile = BM * LD;  // bf16 elements of one A half
-constexpr int kBTile = BN * LD;
-constexpr size_t kSmemBytes =
-    sizeof(bf16) * 2 * (kATile + kBTile) + sizeof(float) * kWarps * 16 * E_LD;
+constexpr int kATile = (BM * LD > BK * AC_LD) ? BM * LD : BK * AC_LD;
+constexpr int kBTile = (BN * LD > BK * BR_LD) ? BN * LD : BK * BR_LD;
+constexpr size_t kSmemBytes = sizeof(bf16) * 2 * (kATile + kBTile) +
+                              sizeof(float) * kWarps * 16 * E_LD +
+                              sizeof(float) * 4 * BN;  // column sums
 
 enum Epilogue {
   kBiasSnap = 0,
   kBiasSnapGeluSnap = 1,
   kBiasSnapResidualSnap = 2,
+  kF32 = 3,
+  kBiasSnapGeluSnapGrad = 4,
+  kMulAux = 5,
 };
 
-// the next BK-deep step of A (BM rows) and W^T (BN rows), 16 bytes a load,
-// zeros outside the matrices (K % 4 == 0: a 4-float chunk is all in or out)
+// one 4-float chunk of a (rows, cols) row-major matrix at (r, c), zeros
+// outside [0, rows) x [0, cols) (cols % 4 == 0 or c < cols - 3)
+__device__ __forceinline__ float4 load4(const float* p, int r, int c,
+                                        int rows, int cols, size_t ld) {
+  return (r < rows && c < cols)
+             ? *reinterpret_cast<const float4*>(p + static_cast<size_t>(r) *
+                                                        ld + c)
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// the next BK-deep step of A (BM rows of M) and B (BN columns of N) into
+// registers, 16 bytes a load, K bounded by k_end
+template <bool kACol, bool kBRow>
 __device__ __forceinline__ void load_step(float4 (&ra)[kARegs],
                                           float4 (&rb)[kBRegs],
-                                          const float* A, const float* Wt,
-                                          int M, int N, int K, int m0, int n0,
-                                          int k0, int tid) {
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+                                          const float* A, const float* B,
+                                          int M, int N, int K, int k_end,
+                                          int m0, int n0, int k0, int tid) {
 #pragma unroll
   for (int i = 0; i < kARegs; ++i) {
     const int c = tid + i * kThreads;
-    const int r = c / (BK / 4), gk = k0 + (c % (BK / 4)) * 4;
-    const int gr = m0 + r;
-    ra[i] = (gr < M && gk < K)
-                ? *reinterpret_cast<const float4*>(
-                      A + static_cast<size_t>(gr) * K + gk)
-                : zero;
+    if (kACol)  // (K, M) stored: rows of K, 4 columns of M
+      ra[i] = load4(A, k0 + c / (BM / 4), m0 + (c % (BM / 4)) * 4, k_end, M,
+                    M);
+    else
+      ra[i] = load4(A, m0 + c / (BK / 4), k0 + (c % (BK / 4)) * 4, M, k_end,
+                    K);
   }
 #pragma unroll
   for (int i = 0; i < kBRegs; ++i) {
     const int c = tid + i * kThreads;
-    const int r = c / (BK / 4), gk = k0 + (c % (BK / 4)) * 4;
-    const int gn = n0 + r;
-    rb[i] = (gn < N && gk < K)
-                ? *reinterpret_cast<const float4*>(
-                      Wt + static_cast<size_t>(gn) * K + gk)
-                : zero;
+    if (kBRow)  // (K, N) stored: rows of K, 4 columns of N
+      rb[i] = load4(B, k0 + c / (BN / 4), n0 + (c % (BN / 4)) * 4, k_end, N,
+                    N);
+    else  // (N, K) stored
+      rb[i] = load4(B, n0 + c / (BK / 4), k0 + (c % (BK / 4)) * 4, N, k_end,
+                    K);
   }
 }
 
@@ -105,18 +137,24 @@ __device__ __forceinline__ void split4(float4 v, bf16* hi, bf16* lo) {
   reinterpret_cast<__nv_bfloat162*>(lo)[1] = l23;
 }
 
-template <int kEpi>
+template <bool kACol, bool kBRow, int kEpi>
 __global__ void __launch_bounds__(kThreads)
-gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
+gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
                   const float* __restrict__ bias,
                   const float* __restrict__ residual, float* __restrict__ out,
-                  int M, int N, int K, mvt::QSpec q) {
+                  float* __restrict__ aux, float* __restrict__ colpart, int M,
+                  int N, int K, int k_split, mvt::QSpec q) {
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
   bf16* Ah = reinterpret_cast<bf16*>(smem);
   bf16* Al = Ah + kATile;
   bf16* Bh = Al + kATile;
   bf16* Bl = Bh + kBTile;
   float* Es = reinterpret_cast<float*>(Bl + kBTile);
+  float* colbuf = Es + kWarps * 16 * E_LD;  // 4 x BN
+  using ALayout = typename std::conditional<kACol, wmma::col_major,
+                                            wmma::row_major>::type;
+  using BLayout = typename std::conditional<kBRow, wmma::row_major,
+                                            wmma::col_major>::type;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -125,6 +163,8 @@ gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
   const int n0 = blockIdx.x * BN;
   const int wm = (warp >> 1) * 32;  // 4 warps down M
   const int wn = (warp & 1) * 32;   // 2 warps across N
+  const int k_begin = blockIdx.z * k_split;
+  const int k_end = min(K, k_begin + k_split);
 
   // the three passes, each summed over all of K: hi.hi, hi.lo, lo.hi
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> hh[2][2], hl[2][2],
@@ -139,38 +179,48 @@ gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
     }
 
   float4 ra[kARegs], rb[kBRegs];
-  const int k_tiles = (K + BK - 1) / BK;
-  load_step(ra, rb, A, Wt, M, N, K, m0, n0, 0, tid);
+  const int k_tiles = (k_end - k_begin + BK - 1) / BK;
+  load_step<kACol, kBRow>(ra, rb, A, B, M, N, K, k_end, m0, n0, k_begin,
+                          tid);
   for (int kt = 0; kt < k_tiles; ++kt) {
     __syncthreads();  // every warp is done with the previous step's tiles
 #pragma unroll
     for (int i = 0; i < kARegs; ++i) {
       const int c = tid + i * kThreads;
-      const int off = (c / (BK / 4)) * LD + (c % (BK / 4)) * 4;
+      const int off = kACol ? (c / (BM / 4)) * AC_LD + (c % (BM / 4)) * 4
+                            : (c / (BK / 4)) * LD + (c % (BK / 4)) * 4;
       split4(ra[i], Ah + off, Al + off);
     }
 #pragma unroll
     for (int i = 0; i < kBRegs; ++i) {
       const int c = tid + i * kThreads;
-      const int off = (c / (BK / 4)) * LD + (c % (BK / 4)) * 4;
+      const int off = kBRow ? (c / (BN / 4)) * BR_LD + (c % (BN / 4)) * 4
+                            : (c / (BK / 4)) * LD + (c % (BK / 4)) * 4;
       split4(rb[i], Bh + off, Bl + off);
     }
     __syncthreads();
     if (kt + 1 < k_tiles)  // in flight while the tensor cores work
-      load_step(ra, rb, A, Wt, M, N, K, m0, n0, (kt + 1) * BK, tid);
+      load_step<kACol, kBRow>(ra, rb, A, B, M, N, K, k_end, m0, n0,
+                              k_begin + (kt + 1) * BK, tid);
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          ah[2], al[2];
-      // W^T rows (n, k) read as the column-major (K, N) operand
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-          bh[2], bl[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> ah[2], al[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bh[2], bl[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(ah[i], Ah + (wm + 16 * i) * LD + ks, LD);
-        wmma::load_matrix_sync(al[i], Al + (wm + 16 * i) * LD + ks, LD);
-        wmma::load_matrix_sync(bh[i], Bh + (wn + 16 * i) * LD + ks, LD);
-        wmma::load_matrix_sync(bl[i], Bl + (wn + 16 * i) * LD + ks, LD);
+        // column-major A: element (m, k) at k * AC_LD + m; the (N, K) B read
+        // as the column-major (K, N) operand; row-major B: (k, n) at
+        // k * BR_LD + n
+        const int a_off = kACol ? ks * AC_LD + wm + 16 * i
+                                : (wm + 16 * i) * LD + ks;
+        const int b_off = kBRow ? ks * BR_LD + wn + 16 * i
+                                : (wn + 16 * i) * LD + ks;
+        const int a_ld = kACol ? AC_LD : LD;
+        const int b_ld = kBRow ? BR_LD : LD;
+        wmma::load_matrix_sync(ah[i], Ah + a_off, a_ld);
+        wmma::load_matrix_sync(al[i], Al + a_off, a_ld);
+        wmma::load_matrix_sync(bh[i], Bh + b_off, b_ld);
+        wmma::load_matrix_sync(bl[i], Bl + b_off, b_ld);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -186,6 +236,8 @@ gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
   // epilogue, one 16x16 fragment at a time through the warp's staging area;
   // lane handles column (lane & 15) of rows 2t + (lane >> 4)
   float* e_w = Es + warp * 16 * E_LD;
+  float col_acc[2] = {0.f, 0.f};
+  const size_t out_base = static_cast<size_t>(blockIdx.z) * M * N;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -204,55 +256,125 @@ gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
         const int gc = n0 + wn + 16 * j + c;
         if (gr < M && gc < N) {
           const size_t o = static_cast<size_t>(gr) * N + gc;
-          float v = mvt::snap_all(__fadd_rn(e_w[r * E_LD + c], bias[gc]), q);
-          if (kEpi == kBiasSnapGeluSnap)
+          float v = e_w[r * E_LD + c];
+          if (kEpi == kF32) {
+            out[out_base + o] = v;
+            continue;
+          }
+          if (kEpi == kMulAux) {
+            v = __fmul_rn(v, aux[o]);
+            col_acc[j] += v;
+            out[o] = v;
+            continue;
+          }
+          v = mvt::snap_all(__fadd_rn(v, bias[gc]), q);
+          if (kEpi == kBiasSnapGeluSnap) {
             v = mvt::snap(mvt::snap_all(mvt::gelu_poly(v), q), q);
-          else if (kEpi == kBiasSnapResidualSnap)
+          } else if (kEpi == kBiasSnapGeluSnapGrad) {
+            float grad;
+            v = mvt::snap(mvt::snap_all(mvt::gelu_and_grad_poly(v, &grad), q),
+                          q);
+            aux[o] = grad;
+          } else if (kEpi == kBiasSnapResidualSnap) {
             v = mvt::snap_all(__fadd_rn(residual[o], v), q);
+          }
           out[o] = v;
         }
       }
       __syncwarp();
     }
   }
+  if (kEpi == kMulAux) {
+    // the warp's 32-row sums of its 32 columns, then the four warps that
+    // share those columns, in a fixed order
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float s = col_acc[j] + __shfl_xor_sync(0xffffffffu, col_acc[j], 16);
+      if (lane < 16) colbuf[(warp >> 1) * BN + wn + 16 * j + lane] = s;
+    }
+    __syncthreads();
+    if (tid < BN && n0 + tid < N)
+      colpart[static_cast<size_t>(blockIdx.y) * N + n0 + tid] =
+          ((colbuf[tid] + colbuf[BN + tid]) + colbuf[2 * BN + tid]) +
+          colbuf[3 * BN + tid];
+  }
 }
 
-template <int kEpi>
-int launch(const void* a, const void* w, const void* bias,
-           const void* residual, void* out, int M, int N, int K,
-           mvt::QSpec q, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_f32x3_kernel<kEpi><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(w),
+template <bool kACol, bool kBRow, int kEpi>
+int launch(dim3 grid, const void* a, const void* b, const void* bias,
+           const void* residual, void* out, void* aux, void* colpart, int M,
+           int N, int K, int k_split, mvt::QSpec q, cudaStream_t stream) {
+  gemm_f32x3_kernel<kACol, kBRow, kEpi><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(bias), static_cast<const float*>(residual),
-      static_cast<float*>(out), M, N, K, q);
+      static_cast<float*>(out), static_cast<float*>(aux),
+      static_cast<float*>(colpart), M, N, K, k_split, q);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// a (M, K) fp32 row-major, 16-byte aligned; w the (N, K) fp32 torch weight,
-// row-major, 16-byte aligned; bias fp32 (N,); residual fp32 (M, N)
-// (epilogue 2); out fp32 (M, N); qspec (exp_bits, man_bits, all_sites)
-MVT_EXPORT int mvt_gemm_f32x3(const void* a, const void* w, const void* bias,
-                              const void* residual, void* out, int M, int N,
-                              int K, int epilogue, int exp_bits, int man_bits,
-                              int all_sites, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 4 != 0 || bias == nullptr ||
-      epilogue < kBiasSnap || epilogue > kBiasSnapResidualSnap ||
+// a (M, K) fp32 row-major, 16-byte aligned; b fp32, 16-byte aligned: the
+// (N, K) torch weight row-major for epilogues 0, 1, 2 and 4 (b_row_major
+// 0), a row-major (K, N) matrix for 3 and 5 (b_row_major 1); bias fp32 (N,)
+// (0, 1, 2, 4); residual fp32 (M, N) (2); aux fp32 (M, N), written by 4 and
+// read by 5; colpart fp32 (ceil(M / 128), N) (5); out fp32 (M, N); qspec
+// (exp_bits, man_bits, all_sites) of the snaps (0, 1, 2, 4).  K % 4 == 0,
+// and N % 4 == 0 for a row-major b.
+MVT_EXPORT int mvt_gemm_f32x3(const void* a, const void* b, const void* bias,
+                              const void* residual, void* out, void* aux,
+                              void* colpart, int M, int N, int K,
+                              int b_row_major, int epilogue, int exp_bits,
+                              int man_bits, int all_sites, void* stream) {
+  const bool row_b = epilogue == kF32 || epilogue == kMulAux;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 != 0 || epilogue < kBiasSnap ||
+      epilogue > kMulAux || (b_row_major != 0) != row_b ||
+      (row_b && N % 4 != 0) || (!row_b && bias == nullptr) ||
       (epilogue == kBiasSnapResidualSnap && residual == nullptr) ||
+      ((epilogue == kBiasSnapGeluSnapGrad || epilogue == kMulAux) &&
+       aux == nullptr) ||
+      (epilogue == kMulAux && colpart == nullptr) ||
       !mvt::float_fmt_ok(exp_bits, man_bits))
     return static_cast<int>(cudaErrorInvalidValue);
   const mvt::QSpec q(exp_bits, man_bits, all_sites);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   switch (epilogue) {
     case kBiasSnap:
-      return launch<kBiasSnap>(a, w, bias, residual, out, M, N, K, q, s);
+      return launch<false, false, kBiasSnap>(grid, a, b, bias, residual, out,
+                                             aux, colpart, M, N, K, K, q, s);
     case kBiasSnapGeluSnap:
-      return launch<kBiasSnapGeluSnap>(a, w, bias, residual, out, M, N, K, q,
-                                       s);
+      return launch<false, false, kBiasSnapGeluSnap>(
+          grid, a, b, bias, residual, out, aux, colpart, M, N, K, K, q, s);
+    case kBiasSnapResidualSnap:
+      return launch<false, false, kBiasSnapResidualSnap>(
+          grid, a, b, bias, residual, out, aux, colpart, M, N, K, K, q, s);
+    case kBiasSnapGeluSnapGrad:
+      return launch<false, false, kBiasSnapGeluSnapGrad>(
+          grid, a, b, bias, residual, out, aux, colpart, M, N, K, K, q, s);
+    case kF32:
+      return launch<false, true, kF32>(grid, a, b, bias, residual, out, aux,
+                                       colpart, M, N, K, K, q, s);
     default:
-      return launch<kBiasSnapResidualSnap>(a, w, bias, residual, out, M, N, K,
-                                           q, s);
+      return launch<false, true, kMulAux>(grid, a, b, bias, residual, out,
+                                          aux, colpart, M, N, K, K, q, s);
   }
+}
+
+// Weight gradient: out = A^T-stored x B, i.e. A stored (K, M) row-major and
+// B (K, N) row-major, K ragged, fp32 out, no epilogue.  K is split into
+// chunks of k_split rows (a multiple of 32); chunk z writes out[z] of
+// (splits, M, N).  M % 4 == 0 and N % 4 == 0.
+MVT_EXPORT int mvt_gemm_f32x3_at(const void* a, const void* b, void* out,
+                                 int M, int N, int K, int k_split,
+                                 void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || M % 4 != 0 || N % 4 != 0 ||
+      k_split <= 0 || k_split % BK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM,
+                  (K + k_split - 1) / k_split);
+  return launch<true, true, kF32>(grid, a, b, nullptr, nullptr, out, nullptr,
+                                  nullptr, M, N, K, k_split,
+                                  mvt::QSpec(8, 10, 0),
+                                  static_cast<cudaStream_t>(stream));
 }

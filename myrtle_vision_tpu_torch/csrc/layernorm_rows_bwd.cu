@@ -1,7 +1,8 @@
 // layernorm_rows_bwd and colsum_rows: the LayerNorm backward and the
 // cross-row sums (bias and LayerNorm-parameter gradients) of both TPU
 // block backward kernels (myrtle_vision_tpu/ops/fused_attention_block.py
-// `_bwd_one_image`, myrtle_vision_tpu/ops/fused_mlp.py `_bwd_one_image`).
+// `_bwd_one_image`, myrtle_vision_tpu/ops/fused_mlp.py `_bwd_one_image`),
+// also with qspec set (a stateless float format).
 //
 // layernorm_rows_bwd, one warp per row, from x (bf16), the LayerNorm scale
 // (bf16), dxn (fp32, the gradient at the LayerNorm output) and the block's
@@ -11,7 +12,11 @@
 //   dx    = bf16(do + rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat*xhat)))
 // and per block the column partial sums of dxn * xhat (dscale) and dxn
 // (dbias) over its rows, (blocks, 2, cols) fp32, which colsum_rows adds.
-// Memory bound: about 12 bytes moved per element.
+// Memory bound: about 12 bytes moved per element.  Its float-format form,
+// layernorm_snap_rows_bwd, takes fp32 x, scale and do, gives fp32 dx, and
+// recomputes xhat and rstd from snap(x) (the norm's act_in site, whose
+// gradient is straight-through; fake_quant.cuh), about 16 bytes moved per
+// element.
 //
 // colsum_rows: fp32 column sums of a (rows, cols) bf16 or fp32 matrix, one
 // thread per column.  Where the TPU kernels accumulate these sums across
@@ -19,7 +24,7 @@
 // passes: chunks of kChunk rows into (ceil(rows / kChunk), cols) partials,
 // then one pass over the partials.  Every sum runs in a fixed order, so
 // results are bitwise reproducible.
-#include "common.cuh"
+#include "fake_quant.cuh"
 
 namespace {
 
@@ -30,13 +35,32 @@ constexpr int kMaxCols = 768;  // ViT-B width
 constexpr int kPer = kMaxCols / 32;  // columns per lane
 constexpr int kChunk = 64;           // rows per colsum partial
 
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f32<bf16>(bf16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// kSnap: x through the format's snap first (fp32 in and out)
+template <typename T, bool kSnap>
 __global__ void __launch_bounds__(kWarps * 32)
-layernorm_rows_bwd_kernel(const bf16* __restrict__ x,
-                          const bf16* __restrict__ scale,
+layernorm_rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                           const float* __restrict__ dxn,
-                          const bf16* __restrict__ d_out,
-                          bf16* __restrict__ dx, float* __restrict__ part,
-                          int rows, int cols, float eps) {
+                          const T* __restrict__ d_out, T* __restrict__ dx,
+                          float* __restrict__ part, int rows, int cols,
+                          float eps, mvt::QSpec q) {
   extern __shared__ float wsum[];  // kWarps x 2 x cols
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -53,7 +77,8 @@ layernorm_rows_bwd_kernel(const bf16* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int c = lane + 32 * i;
-      xv[i] = c < cols ? __bfloat162float(x[off + c]) : 0.f;
+      xv[i] = c < cols ? to_f32(x[off + c]) : 0.f;
+      if (kSnap) xv[i] = mvt::snap(xv[i], q);
       s += xv[i];
     }
     const float mu = mvt::warp_sum(s) / n;
@@ -74,7 +99,7 @@ layernorm_rows_bwd_kernel(const bf16* __restrict__ x,
         const float g = dxn[off + c];
         ds_acc[i] += g * xv[i];
         db_acc[i] += g;
-        gv[i] = g * __bfloat162float(scale[c]);  // dxhat
+        gv[i] = g * to_f32(scale[c]);  // dxhat
         m1 += gv[i];
         m2 += gv[i] * xv[i];
       }
@@ -85,9 +110,8 @@ layernorm_rows_bwd_kernel(const bf16* __restrict__ x,
     for (int i = 0; i < kPer; ++i) {
       const int c = lane + 32 * i;
       if (c < cols)
-        dx[off + c] = __float2bfloat16_rn(
-            __bfloat162float(d_out[off + c]) +
-            rstd * (gv[i] - m1 - xv[i] * m2));
+        dx[off + c] = from_f32<T>(to_f32(d_out[off + c]) +
+                                  rstd * (gv[i] - m1 - xv[i] * m2));
     }
   }
 #pragma unroll
@@ -105,15 +129,6 @@ layernorm_rows_bwd_kernel(const bf16* __restrict__ x,
     for (int w = 0; w < kWarps; ++w) acc += wsum[(w * 2 + which) * cols + col];
     part[static_cast<size_t>(blockIdx.x) * 2 * cols + c] = acc;
   }
-}
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<bf16>(bf16 v) {
-  return __bfloat162float(v);
 }
 
 // out[blockIdx.y, c] = sum of in[r, c] over rows r of chunk blockIdx.y
@@ -165,25 +180,54 @@ MVT_EXPORT int mvt_colsum_chunk() { return kChunk; }
 
 MVT_EXPORT int mvt_layernorm_rows_bwd_max_cols() { return kMaxCols; }
 
+namespace {
+
+template <typename T, bool kSnap>
+int launch_ln_bwd(const void* x, const void* scale, const void* dxn,
+                  const void* d_out, void* dx, void* part, int rows, int cols,
+                  int blocks, float eps, mvt::QSpec q, void* stream) {
+  if (rows <= 0 || cols <= 0 || cols > kMaxCols || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * kWarps * 2 * cols;
+  cudaError_t err = cudaFuncSetAttribute(
+      layernorm_rows_bwd_kernel<T, kSnap>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  layernorm_rows_bwd_kernel<T, kSnap><<<blocks, kWarps * 32, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale),
+      static_cast<const float*>(dxn), static_cast<const T*>(d_out),
+      static_cast<T*>(dx), static_cast<float*>(part), rows, cols, eps, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // part: (blocks, 2, cols) fp32, blocks as the caller chose them
 MVT_EXPORT int mvt_layernorm_rows_bwd(const void* x, const void* scale,
                                       const void* dxn, const void* d_out,
                                       void* dx, void* part, int rows,
                                       int cols, int blocks, float eps,
                                       void* stream) {
-  if (rows <= 0 || cols <= 0 || cols > kMaxCols || blocks <= 0)
+  return launch_ln_bwd<bf16, false>(x, scale, dxn, d_out, dx, part, rows,
+                                    cols, blocks, eps, mvt::QSpec(8, 10, 0),
+                                    stream);
+}
+
+// the float-format form: x, dxn, d_out, dx fp32 (rows, cols); scale fp32
+// (cols,); qspec (exp_bits, man_bits, all_sites)
+MVT_EXPORT int mvt_layernorm_snap_rows_bwd(const void* x, const void* scale,
+                                           const void* dxn, const void* d_out,
+                                           void* dx, void* part, int rows,
+                                           int cols, int blocks, float eps,
+                                           int exp_bits, int man_bits,
+                                           int all_sites, void* stream) {
+  if (!mvt::float_fmt_ok(exp_bits, man_bits))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * kWarps * 2 * cols;
-  cudaError_t err = cudaFuncSetAttribute(
-      layernorm_rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  layernorm_rows_bwd_kernel<<<blocks, kWarps * 32, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
-      static_cast<const float*>(dxn), static_cast<const bf16*>(d_out),
-      static_cast<bf16*>(dx), static_cast<float*>(part), rows, cols, eps);
-  return static_cast<int>(cudaGetLastError());
+  return launch_ln_bwd<float, true>(x, scale, dxn, d_out, dx, part, rows,
+                                    cols, blocks, eps,
+                                    mvt::QSpec(exp_bits, man_bits, all_sites),
+                                    stream);
 }
 
 // out (cols,) fp32 = column sums of in (rows, cols), bf16 (in_bf16 = 1) or

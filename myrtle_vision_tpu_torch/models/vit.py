@@ -1,14 +1,13 @@
 """Vision Transformer for classification and detection, in PyTorch:
 eval and training forward in FP32, the PyTorchINT8 format's calibration
 and converted inference, and the stateless float formats' (FP16_16,
-FP16_32, TF32) simulation and converted inference.
+FP16_32, TF32) simulation, QAT training and converted inference.
 
 Port of myrtle_vision_tpu/models/vit.py for the paths this package runs
 so far: without active dropout, ``decoder="classification"`` in
 ``q_format`` FP32 (inference and training), PyTorchINT8 (the calibrating
-forward and the converted model) and the float formats (inference, up to
-the fused Block's length; QAT training is not ported yet in any format),
-and ``decoder="detection"`` (YOLOS: det tokens after the patches, the
+forward and the converted model) and the float formats (inference and QAT
+training, up to the fused Block's length), and ``decoder="detection"`` (YOLOS: det tokens after the patches, the
 class and box heads on them) in FP32.  Parameters are named as in
 the upstream reference state dict that myrtle_vision_tpu/utils/export.py
 writes
@@ -57,8 +56,12 @@ weight's snap, the 3-pass product, the bias, the post_op snap;
 QLayerNorm, the token sites), the products as plain PyTorch, as XLA runs
 them there; each block half is one op with the format's ``qspec``
 (ops/fused_attention_block.py, ops/fused_mlp.py, the TPU kernels K1 and
-K3 with their snaps).  ``forward(img, calibrating=True)`` is the same
-forward: these formats have no observers to update.  With
+K3 with their snaps, K2 and K4 for their backward).  The simulation
+trains (QAT): every site and weight fake-quant is straight-through
+(ops/fake_quant.py), the products outside the blocks take
+``matmul_high3``'s 3-pass backward, and the fused ops their own.
+``forward(img, calibrating=True)`` is the same forward: these formats
+have no observers to update.  With
 ``converted=True`` the Linear and LayerNorm weights are stored as fp16
 (FP16_16, FP16_32) or as TF32 values in fp32 (quantize.convert_params),
 cast to fp32 on use, and snapped again as the JAX model snaps them
@@ -112,11 +115,9 @@ from myrtle_vision_tpu_torch.quantize import (
 MIN_NUM_PATCHES = 16  # reference vit.py:14
 # the port runs without active dropout: the classification decoder in FP32
 # for inference and training, in PyTorchINT8 for calibration and converted
-# inference and in the float formats for inference, the detection decoder
-# in FP32
+# inference and in the float formats for inference and QAT training, the
+# detection decoder in FP32
 _NOT_PORTED = "not ported yet; see ROADMAP.md (Queue A)"
-_FLOAT_QAT_NOT_PORTED = (
-    "training in a float format (QAT) is not ported yet; see ROADMAP.md A5a")
 # the weights a converted float model stores in fp16
 _FP16_STORAGE = (QFormat.FP16_16, QFormat.FP16_32)
 
@@ -530,8 +531,9 @@ class ViT(nn.Module):
     above 256 tokens, the discrete path has the flash backward);
     ``plain`` selects the plain PyTorch versions in place of the kernels;
     ``calibrating`` (PyTorchINT8 before convert, the only forward that
-    model runs here) updates the observers.  The float formats run
-    inference only (a forward that would record gradients raises).
+    model runs here) updates the observers.  The float formats'
+    simulation is differentiable too (QAT); a converted model's fp16
+    weights take no gradient.
     The detection parameters (``pos_embedding_det``, ``det_tokens``)
     exist in every model so that the reference state dict loads strictly;
     the classification forward does not read them.
@@ -765,9 +767,6 @@ class ViT(nn.Module):
         ViT's discrete sites around the blocks (the stubs are identities
         in these formats), each block half one op with the format's
         ``qspec``."""
-        if torch.is_grad_enabled() and any(p.requires_grad
-                                           for p in self.parameters()):
-            raise NotImplementedError(_FLOAT_QAT_NOT_PORTED)
         x = self.embed_float(img, plain)
         for block in self.transformer.layers:
             x = block.forward_float(x, plain)

@@ -29,13 +29,16 @@ backward (ops/flash_attention.py holds their plain versions):
 
 and those of the stateless float formats (FP16_16, FP16_32, TF32): the
 qtorch fake-quant K11 and the block halves with ``qspec = (exp_bits,
-man_bits, all_sites)``, fp32 activations, every snap from
-csrc/fake_quant.cuh:
+man_bits, all_sites)``, forward and backward, fp32 activations, every
+snap from csrc/fake_quant.cuh:
 
-- ``fake_quant_rows``      csrc/fake_quant_rows.cu
-- ``layernorm_snap_rows``  csrc/layernorm_snap_rows.cu
-- ``gemm_f32x3_epilogue``  csrc/gemm_f32x3_epilogue.cu
-- ``attention_core_f32``   csrc/attention_core_f32.cu, its fp32 snap mode
+- ``fake_quant_rows``          csrc/fake_quant_rows.cu
+- ``layernorm_snap_rows``      csrc/layernorm_snap_rows.cu
+- ``gemm_f32x3_epilogue``      csrc/gemm_f32x3_epilogue.cu
+- ``attention_core_f32``       csrc/attention_core_f32.cu, its fp32 snap mode
+- ``attention_core_f32_bwd``   csrc/attention_core_f32_bwd.cu
+- ``layernorm_rows_bwd``       csrc/layernorm_rows_bwd.cu, its fp32 snap form
+                               (counted as ``layernorm_snap_rows_bwd``)
 
 A PyTorchINT8 observer site is a (3,) fp32 tensor (scale, zero point,
 has_stats as 1 or 0), a row of the model's site table.
@@ -83,12 +86,15 @@ LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
             "layernorm_quant_rows": 0, "gemm_s8_epilogue": 0,
             "attention_core_f32": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd": 0, "fake_quant_rows": 0,
-            "layernorm_snap_rows": 0, "gemm_f32x3_epilogue": 0}
+            "layernorm_snap_rows": 0, "gemm_f32x3_epilogue": 0,
+            "attention_core_f32_bwd": 0, "layernorm_snap_rows_bwd": 0}
 INT8_EPILOGUES = {"requant": 0, "requant_gelu_quant": 1,
                   "requant_residual_requant": 2}
 FAKE_QUANT_MODES = {"float": 0, "fixed": 1}
 F32X3_EPILOGUES = {"bias_snap": 0, "bias_snap_gelu_snap": 1,
-                   "bias_snap_residual_snap": 2}
+                   "bias_snap_residual_snap": 2, "f32": 3,
+                   "bias_snap_gelu_snap_grad": 4, "mul_aux": 5}
+_F32X3_TILE = (128, 64)  # rows and columns of one gemm_f32x3 output tile
 
 
 def reset_launches() -> None:
@@ -215,12 +221,14 @@ def attention_core_bwd_plain(qkv, d_o, m, rs, heads, scale):
     return dqkv.to(dt), dqkv.sum(1)
 
 
-def layernorm_rows_bwd_plain(x, scale, dxn, do):
+def layernorm_rows_bwd_plain(x, scale, dxn, do, qspec=None):
     """LayerNorm backward with the residual gradient (``_bwd_one_image``):
     x, do (rows, C) in the activation dtype, scale (C,), dxn (rows, C)
     fp32 -> (dx rounded to x.dtype, dscale, dbias), the last two fp32
-    column sums of dxn * xhat and dxn."""
-    xf = x.float()
+    column sums of dxn * xhat and dxn.  With a float format's ``qspec``
+    (fp32 throughout) xhat is recomputed from snap(x), the norm's act_in
+    site, whose gradient is straight-through."""
+    xf = snap(x, qspec).float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     rstd = torch.rsqrt(var + EPS)
@@ -294,17 +302,24 @@ def gemm_s8_epilogue_plain(a, w, colsum, w_scale, a_site, bias, epilogue,
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
-def attention_context_f32(qkv, heads, scale):
+def attention_context_f32(qkv, heads, scale, stats=False):
     """fp32 (B, N, 3C) qkv rows, feature order [3][h][d] -> the fp32 (B,
     N, C) context: the 3-pass bf16 scores (ops/high_precision.py), x
     scale after the product, softmax with a true divide, the 3-pass P V
-    (the core of ``_attn_kernel``)."""
+    (the core of ``_attn_kernel``).  ``stats`` adds the rowmax and the
+    reciprocal rowsum (a true divide), (B, H, N) fp32 each, as
+    ``_attn_heads_fwd`` with ``qspec`` returns them."""
     b, n, c3 = qkv.shape
     q, k, v = _heads(qkv, heads)
     s = bdot_qk_high3(q, k) * scale
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    p = e / e.sum(-1, keepdim=True)
-    return bdot_pv_high3(p, v).permute(0, 2, 1, 3).reshape(b, n, c3 // 3)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    ssum = e.sum(-1, keepdim=True)
+    ctx = bdot_pv_high3(e / ssum, v).permute(0, 2, 1, 3).reshape(
+        b, n, c3 // 3)
+    if stats:
+        return ctx, m[..., 0], (1.0 / ssum)[..., 0]
+    return ctx
 
 
 def attention_core_f32_plain(qkv, heads, scale, site):
@@ -330,27 +345,67 @@ def layernorm_snap_rows_plain(x, scale, bias, qspec):
     return snap(snap_all(y, qspec), qspec)
 
 
-def gemm_f32x3_epilogue_plain(a, w, bias, epilogue, qspec, residual=None):
-    """fp32 a (M, K) @ w (K, N) at 3-pass precision (``dot_high3``), plus
-    bias, then
-    "bias_snap":               snap_all(v);
-    "bias_snap_gelu_snap":     snap(snap_all(GELU(snap_all(v)))), the
-                               polynomial erf with an exact divide;
-    "bias_snap_residual_snap": snap_all(residual + snap_all(v))."""
-    v = snap_all(matmul_high3(a, w) + bias, qspec)
+def gemm_f32x3_epilogue_plain(a, w, bias, epilogue, qspec, residual=None,
+                              aux=None):
+    """fp32 a (M, K) @ w (K, N) at 3-pass precision (``dot_high3``: both
+    operands split, the incoming gradient too), then
+    "f32":                      the product, no bias, no snap;
+    "mul_aux":                  (product * aux, its fp32 column sums);
+    and with the bias added, v = product + bias:
+    "bias_snap":                snap_all(v);
+    "bias_snap_gelu_snap":      snap(snap_all(GELU(snap_all(v)))), the
+                                polynomial erf with an exact divide;
+    "bias_snap_gelu_snap_grad": (that, fp32 GELU'(snap_all(v))) from one
+                                erf (the backward's fc1 recompute);
+    "bias_snap_residual_snap":  snap_all(residual + snap_all(v))."""
+    p = matmul_high3(a, w)
+    if epilogue == "f32":
+        return p
+    if epilogue == "mul_aux":
+        v = p * aux
+        return v, v.sum(0)
+    v = snap_all(p + bias, qspec)
     if epilogue == "bias_snap":
         return v
     if epilogue == "bias_snap_gelu_snap":
         return snap(snap_all(gelu_poly(v), qspec), qspec)
+    if epilogue == "bias_snap_gelu_snap_grad":
+        g, gp = gelu_and_grad_poly(v)
+        return snap(snap_all(g, qspec), qspec), gp
     if epilogue == "bias_snap_residual_snap":
         return snap_all(residual + v, qspec)
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
-def attention_core_snap_plain(qkv, heads, scale, qspec):
+def attention_core_snap_plain(qkv, heads, scale, qspec, stats=False):
     """:func:`attention_context_f32` through the projection's pre_linear
-    ``snap`` (``_attn_heads_fwd`` with ``qspec``, then to_out.act_in)."""
+    ``snap`` (``_attn_heads_fwd`` with ``qspec``, then to_out.act_in);
+    ``stats`` adds the rowmax and reciprocal rowsum."""
+    if stats:
+        ctx, m, rs = attention_context_f32(qkv, heads, scale, stats=True)
+        return snap(ctx, qspec), m, rs
     return snap(attention_context_f32(qkv, heads, scale), qspec)
+
+
+def attention_core_f32_bwd_plain(qkv, d_o, m, rs, heads, scale):
+    """The per-head backward of ``_bwd_one_image`` with ``qspec``, fp32
+    throughout, every product 3-pass: qkv (B, N, 3C) (the forward's
+    snapped rows), d_o = do @ Wp^T (B, N, C), the saved m and rs (B, H,
+    N) -> (dqkv (B, N, 3C), its column sums per image (B, 3C))."""
+    b, n, c3 = qkv.shape
+    q, k, v = _heads(qkv, heads)
+    e = torch.exp(bdot_qk_high3(q, k) * scale - m[..., None])
+    du = d_o.reshape(b, n, heads, -1).permute(0, 2, 1, 3) * rs[..., None]
+    dv = bdot_pv_high3(e.transpose(-1, -2), du)
+    dp = bdot_qk_high3(du, v)
+    r = (dp * e).sum(-1, keepdim=True)
+    ds = e * (dp - r * rs[..., None])
+    dq = bdot_pv_high3(ds, k) * scale
+    dk = bdot_pv_high3(ds.transpose(-1, -2), q) * scale
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(b, n, c3)
+    return dqkv, dqkv.sum(1)
+
+
 
 
 PLAIN = SimpleNamespace(
@@ -367,6 +422,7 @@ PLAIN = SimpleNamespace(
     layernorm_snap_rows=layernorm_snap_rows_plain,
     gemm_f32x3=gemm_f32x3_epilogue_plain,
     attention_core_snap=attention_core_snap_plain,
+    attention_core_f32_bwd=attention_core_f32_bwd_plain,
 )
 
 
@@ -445,10 +501,11 @@ def _sms(t) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
-def _k_split(m, n, k, sms):
-    """K rows per split of a weight-gradient product: enough splits that
-    two blocks per SM have work, each at least 8 steps of 32 deep."""
-    tiles = math.ceil(m / _GEMM_TILE) * math.ceil(n / _GEMM_TILE)
+def _k_split(m, n, k, sms, tile=(_GEMM_TILE, _GEMM_TILE)):
+    """K rows per split of a weight-gradient product with output tiles of
+    ``tile``: enough splits for two waves of blocks on the SMs, each at
+    least 8 steps of 32 deep."""
+    tiles = math.ceil(m / tile[0]) * math.ceil(n / tile[1])
     splits = max(1, min(math.ceil(2 * sms / tiles), k // 256))
     return math.ceil(math.ceil(k / splits) / 32) * 32
 
@@ -582,24 +639,31 @@ def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale):
     return dqkv, dbias
 
 
-def layernorm_rows_bwd_cuda(x, scale, dxn, do):
+def layernorm_rows_bwd_cuda(x, scale, dxn, do, qspec=None):
     """The CUDA version of :func:`layernorm_rows_bwd_plain`: x, do bf16
-    (rows, C), scale bf16 (C,), dxn fp32 (rows, C)."""
-    _require(x, "x")
+    (rows, C), scale bf16 (C,), dxn fp32 (rows, C); with ``qspec`` x, do
+    and scale fp32, its snap form (``layernorm_snap_rows_bwd``)."""
+    dt = torch.bfloat16 if qspec is None else torch.float32
+    _require(x, "x", dt)
     rows, cols = x.shape
-    if cols > _lib().mvt_layernorm_rows_bwd_max_cols():
+    lib = _lib()
+    if cols > lib.mvt_layernorm_rows_bwd_max_cols():
         raise ValueError(f"layernorm_rows_bwd: width {cols} exceeds the "
                          "kernel's maximum")
-    _require_shape(scale, "scale", (cols,), torch.bfloat16)
+    _require_shape(scale, "scale", (cols,), dt)
     _require_shape(dxn, "dxn", (rows, cols))
-    _require_shape(do, "do", (rows, cols), torch.bfloat16)
+    _require_shape(do, "do", (rows, cols), dt)
     blocks = min(math.ceil(rows / 8), 4 * _sms(x))
     dx = torch.empty_like(x)
     part = torch.empty((blocks, 2 * cols), dtype=torch.float32,
                        device=x.device)
-    _launch("layernorm_rows_bwd", _lib().mvt_layernorm_rows_bwd, x,
-            x.data_ptr(), scale.data_ptr(), dxn.data_ptr(), do.data_ptr(),
+    args = (x.data_ptr(), scale.data_ptr(), dxn.data_ptr(), do.data_ptr(),
             dx.data_ptr(), part.data_ptr(), rows, cols, blocks, EPS)
+    if qspec is None:
+        _launch("layernorm_rows_bwd", lib.mvt_layernorm_rows_bwd, x, *args)
+    else:
+        _launch("layernorm_snap_rows_bwd", lib.mvt_layernorm_snap_rows_bwd,
+                x, *args, *_qspec_args(qspec))
     sums = colsum_rows_cuda(part)
     return dx, sums[:cols], sums[cols:]
 
@@ -750,40 +814,85 @@ def layernorm_snap_rows_cuda(x, scale, bias, qspec):
     return out
 
 
-def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None):
-    """The CUDA version of :func:`gemm_f32x3_epilogue_plain`: a fp32 (M, K)
-    row-major, w fp32 (K, N) read in place as the transpose of a row-major
-    (N, K) tensor (the (in, out) view of a torch (out, in) weight); K a
-    multiple of 4, M and N any."""
+def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
+                             aux=None):
+    """The CUDA version of :func:`gemm_f32x3_epilogue_plain`, each operand
+    read in place.  The forward epilogues take a fp32 (M, K) row-major and
+    w (K, N) as the transpose of a row-major (N, K) tensor (the (in, out)
+    view of a torch (out, in) weight); "f32" and "mul_aux" a row-major w
+    (a torch weight as it is stored, for dX = dY W^T); K a multiple of 4.
+    A transposed ``a`` (the (K, M) activation as it is stored) takes the
+    weight-gradient kernel: a row-major w, fp32 out ("f32" only), any K,
+    K split across blocks and the partial products summed in order by
+    ``colsum_rows``; M and N multiples of 4."""
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"gemm_f32x3: shapes {tuple(a.shape)} @ "
                          f"{tuple(w.shape)}")
     m, k = a.shape
     n = w.shape[1]
-    wt, col_major = _operand(w, "w")
-    if not col_major:
+    a, a_col_major = _operand(a, "a")
+    w, w_col_major = _operand(w, "w")
+    _require(a, "a", torch.float32)
+    _require(w, "w", torch.float32)
+    lib = _lib()
+    if a_col_major:
+        if epilogue != "f32" or w_col_major:
+            raise ValueError("gemm_f32x3: a transposed `a` takes a row-major "
+                             "`w` and the f32 epilogue")
+        if m % 4 or n % 4:
+            raise ValueError(f"gemm_f32x3: M={m} and N={n} must be multiples "
+                             "of 4")
+        k_split = _k_split(m, n, k, _sms(a), _F32X3_TILE)
+        splits = math.ceil(k / k_split)
+        part = torch.empty((splits, m, n), dtype=torch.float32,
+                           device=a.device)
+        _launch("gemm_f32x3_epilogue", lib.mvt_gemm_f32x3_at, a,
+                a.data_ptr(), w.data_ptr(), part.data_ptr(), m, n, k, k_split)
+        if splits == 1:
+            return part[0]
+        return colsum_rows_cuda(part.view(splits, m * n)).view(m, n)
+    row_b = epilogue in ("f32", "mul_aux")
+    if row_b and w_col_major:
+        raise ValueError(f"gemm_f32x3: epilogue {epilogue} takes a row-major "
+                         "w, as a torch weight is stored")
+    if not row_b and not w_col_major:
         raise ValueError("gemm_f32x3: w must be the transpose of a row-major "
                          "(N, K) tensor, as a torch weight's (in, out) view")
-    _require(a, "a", torch.float32)
-    _require(wt, "w", torch.float32)
-    if k % 4:
-        raise ValueError(f"gemm_f32x3: K={k} must be a multiple of 4")
+    if k % 4 or (row_b and n % 4):
+        raise ValueError(f"gemm_f32x3: K={k} (and N={n} for a row-major w) "
+                         "must be a multiple of 4")
     code = F32X3_EPILOGUES[epilogue]
-    _require_shape(bias, "bias", (n,))
-    res_ptr = None
+    if not row_b:
+        _require_shape(bias, "bias", (n,))
+    res_ptr = aux_ptr = col_ptr = colpart = None
     if epilogue == "bias_snap_residual_snap":
         _require_shape(residual, "residual", (m, n))
         res_ptr = residual.data_ptr()
+    if epilogue == "bias_snap_gelu_snap_grad":
+        aux = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if epilogue in ("bias_snap_gelu_snap_grad", "mul_aux"):
+        _require_shape(aux, "aux", (m, n))
+        aux_ptr = aux.data_ptr()
+    if epilogue == "mul_aux":
+        colpart = torch.empty((math.ceil(m / _F32X3_TILE[0]), n),
+                              dtype=torch.float32, device=a.device)
+        col_ptr = colpart.data_ptr()
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _launch("gemm_f32x3_epilogue", _lib().mvt_gemm_f32x3, a,
-            a.data_ptr(), wt.data_ptr(), bias.data_ptr(), res_ptr,
-            out.data_ptr(), m, n, k, code, *_qspec_args(qspec))
+    _launch("gemm_f32x3_epilogue", lib.mvt_gemm_f32x3, a,
+            a.data_ptr(), w.data_ptr(), None if row_b else bias.data_ptr(),
+            res_ptr, out.data_ptr(), aux_ptr, col_ptr, m, n, k, int(row_b),
+            code, *_qspec_args(qspec))
+    if epilogue == "bias_snap_gelu_snap_grad":
+        return out, aux
+    if epilogue == "mul_aux":
+        return out, colsum_rows_cuda(colpart)
     return out
 
 
-def attention_core_snap_cuda(qkv, heads, scale, qspec):
+def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False):
     """The CUDA version of :func:`attention_core_snap_plain`, the fp32 snap
-    mode of ``attention_core_f32``: fp32 (B, N, 3C) -> fp32 (B, N, C); D =
+    mode of ``attention_core_f32``: fp32 (B, N, 3C) -> fp32 (B, N, C), and
+    with ``stats`` the rowmax and reciprocal rowsum (B, H, N) fp32; D =
     C/heads must be 32 or 64 and N at most
     :func:`attention_core_f32_max_n`."""
     _require(qkv, "qkv", torch.float32)
@@ -796,10 +905,42 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec):
             "for the discrete float Block (ROADMAP A5a)")
     exp_bits, man_bits, _ = _qspec_args(qspec)
     out = torch.empty((b, n, c), dtype=torch.float32, device=qkv.device)
+    m = rs = None
+    if stats:
+        m = torch.empty((b, heads, n), dtype=torch.float32,
+                        device=qkv.device)
+        rs = torch.empty_like(m)
     _launch("attention_core_f32", _lib().mvt_attention_core_f32_snap, qkv,
-            qkv.data_ptr(), out.data_ptr(), b, n, heads, d, float(scale),
-            exp_bits, man_bits)
-    return out
+            qkv.data_ptr(), out.data_ptr(),
+            None if m is None else m.data_ptr(),
+            None if rs is None else rs.data_ptr(), b, n, heads, d,
+            float(scale), exp_bits, man_bits)
+    return (out, m, rs) if stats else out
+
+
+def attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale):
+    """The CUDA version of :func:`attention_core_f32_bwd_plain`: fp32 qkv
+    (B, N, 3C), d_o (B, N, C), m and rs (B, H, N); D = C/heads must be 32
+    or 64 and N at most :func:`attention_core_f32_max_n`."""
+    _require(qkv, "qkv", torch.float32)
+    b, n, c3 = qkv.shape
+    c, d = _head_width(c3, heads, "attention_core_f32_bwd")
+    lib = _lib()
+    if n > lib.mvt_attention_core_f32_bwd_max_n():
+        raise NotImplementedError(
+            f"attention_core_f32_bwd: sequence {n} exceeds the kernel's "
+            f"maximum {lib.mvt_attention_core_f32_bwd_max_n()}; a float "
+            "format above it waits for the discrete float Block (ROADMAP "
+            "A5a)")
+    _require_shape(d_o, "d_o", (b, n, c))
+    _require_shape(m, "m", (b, heads, n))
+    _require_shape(rs, "rs", (b, heads, n))
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((b, c3), dtype=torch.float32, device=qkv.device)
+    _launch("attention_core_f32_bwd", lib.mvt_attention_core_f32_bwd, qkv,
+            qkv.data_ptr(), d_o.data_ptr(), m.data_ptr(), rs.data_ptr(),
+            dqkv.data_ptr(), dbias.data_ptr(), b, n, heads, d, float(scale))
+    return dqkv, dbias
 
 
 def _require_rows(t, name):
@@ -898,6 +1039,7 @@ CUDA = SimpleNamespace(
     layernorm_snap_rows=layernorm_snap_rows_cuda,
     gemm_f32x3=gemm_f32x3_epilogue_cuda,
     attention_core_snap=attention_core_snap_cuda,
+    attention_core_f32_bwd=attention_core_f32_bwd_cuda,
 )
 
 

@@ -23,10 +23,12 @@ it for a CUDA tensor and run the plain function above for a CPU tensor.
 float format's ``qspec = (exp_bits, man_bits, all_sites)``, in their
 plain form.
 
-The int8 pair also comes as straight-through ``autograd.Function``s
-(``*_ste``): the gradient passes to ``x`` unchanged and not to the
-quantization parameters, as the JAX custom VJPs do.  The float formats'
-STEs come with QAT (ROADMAP A5a).
+Each also comes as a straight-through ``autograd.Function`` (``*_ste``,
+the JAX ``_make_ste`` and int8 custom VJPs): the gradient passes to ``x``
+unchanged and not to the quantization parameters.  The float formats'
+STEs run K11 (``fake_quant_rows``) for a CUDA tensor, or the plain
+function with ``plain``; they carry QAT's weight fake-quant and the sites
+outside the fused blocks.
 """
 from __future__ import annotations
 
@@ -92,6 +94,32 @@ def fixed_point_quantize_rows(x, wl: int, fl: int):
     """:func:`fixed_point_quantize` through K11, as
     :func:`float_quantize_rows`."""
     return _rows(x, "fixed", wl, fl)
+
+
+class _StraightThrough(torch.autograd.Function):
+    """``fn(x, a, b)`` forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, fn, a, b):
+        return fn(x, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def float_quantize_ste(x, exp_bits: int, man_bits: int, plain: bool = False):
+    """:func:`float_quantize_rows` (:func:`float_quantize` with ``plain``)
+    with a straight-through gradient."""
+    fn = float_quantize if plain else float_quantize_rows
+    return _StraightThrough.apply(x, fn, exp_bits, man_bits)
+
+
+def fixed_point_quantize_ste(x, wl: int, fl: int, plain: bool = False):
+    """:func:`fixed_point_quantize_rows` (:func:`fixed_point_quantize` with
+    ``plain``) with a straight-through gradient."""
+    fn = fixed_point_quantize if plain else fixed_point_quantize_rows
+    return _StraightThrough.apply(x, fn, wl, fl)
 
 
 def snap(x, qspec):

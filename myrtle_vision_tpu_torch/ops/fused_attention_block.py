@@ -6,7 +6,7 @@ with ``res_scale`` 1: in the plain FP32 form (no quantization snaps) the
 forward ``_fwd_kernel`` (launched by ``_attn_forward``) and the backward
 ``_bwd_kernel`` / ``_bwd_one_image`` (launched by ``_bwd_rule``); with a
 stateless float format's ``qspec = (exp_bits, man_bits, all_sites)``
-(FP16_16, FP16_32, TF32) the forward, inference only.
+(FP16_16, FP16_32, TF32) the same forward and backward (QAT).
 
 The TPU kernel runs one image's whole block half per program with the
 weights resident in VMEM; on the H100 the QKV weight alone (864 KiB in
@@ -53,8 +53,21 @@ TPU kernel does, every snap the code of K11 (csrc/fake_quant.cuh):
       -> gemm_f32x3_epilogue (projection + bias, snap_all; + x, snap_all)
 
 up to 256 tokens on the card (a longer sequence raises, naming its
-ROADMAP item).  Its backward (float-format QAT) is not ported: a call that
-would record for one raises (ROADMAP A5a).
+ROADMAP item).  When it records, the core also writes its rowmax and
+reciprocal rowsum, and the forward keeps what the JAX ``_fwd_rule``
+keeps: x, the parameters, the snapped context (the projection's actual
+input), m, rs and, when ``save_acts`` affords them at fp32 itemsize, the
+qkv rows.  Every site is straight-through, so the backward is the FP32
+backward with the snapped forward values recomputed at the same
+positions and every product 3-pass (``_bwd_one_image`` with ``qspec``):
+
+    layernorm_snap_rows (xn) -> [gemm_f32x3_epilogue, bias_snap (qkv),
+      when not saved] -> gemm_f32x3_epilogue, f32 (d_o = do Wp^T)
+      -> attention_core_f32_bwd (dqkv, per-image dbqkv)
+      -> gemm_f32x3_epilogue, A transposed (dWp, dWqkv)
+      -> gemm_f32x3_epilogue, f32 (dxn = dqkv Wqkv^T)
+      -> layernorm_rows_bwd (its snap form)
+    and the bias sums through colsum_rows.
 
 Weights keep the JAX layout: wqkv (C, 3C) with feature order [3][h][d],
 wp (C, C), i.e. (in, out).  A transposed view of a torch (out, in)
@@ -116,10 +129,11 @@ def _forward(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
 
 
 def _forward_q(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
-               qspec):
+               qspec, record=False):
     """The float-format chain (``_fwd_kernel`` with ``qspec``): fp32
     activations, parameters and weights, the weights' snaps already
-    applied by the caller."""
+    applied by the caller; with ``record`` also (ctx, m, rs, qkv) for the
+    backward."""
     if x.dtype != torch.float32:
         raise TypeError(f"fused_attention_block with qspec takes fp32 "
                         f"activations, got {x.dtype}")
@@ -129,13 +143,18 @@ def _forward_q(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
     xn = kern.layernorm_snap_rows(x2, scale_ln.float().contiguous(),
                                   bias_ln.float().contiguous(), qspec)
     qkv = kern.gemm_f32x3(xn, wqkv.float(), bqkv.float().contiguous(),
-                          "bias_snap", qspec)
-    ctx = kern.attention_core_snap(qkv.view(b, n, 3 * cl), heads, scale,
-                                   qspec)
+                          "bias_snap", qspec).view(b, n, 3 * cl)
+    if record:
+        ctx, m, rs = kern.attention_core_snap(qkv, heads, scale, qspec,
+                                              stats=True)
+    else:
+        ctx = kern.attention_core_snap(qkv, heads, scale, qspec)
     out = kern.gemm_f32x3(ctx.view(b * n, cl), wp.float(),
                           bp.float().contiguous(), "bias_snap_residual_snap",
-                          qspec, residual=x2)
-    return out.view(b, n, c)
+                          qspec, residual=x2).view(b, n, c)
+    if record:
+        return out, (ctx, m, rs, qkv)
+    return out
 
 
 def _backward(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
@@ -167,33 +186,75 @@ def _backward(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
     return dx.view(b, n, c), dscale, dbias, dwqkv, dbq, dwp, dbp
 
 
+def _backward_q(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
+                qkv, heads, scale, qspec):
+    """``_bwd_one_image`` with ``qspec`` over the batch, fp32 -> (dx,
+    dscale, dbias, dwqkv, dbqkv, dwp, dbp), weight gradients in the (in,
+    out) shape."""
+    b, n, c = x.shape
+    cl = wp.shape[0]
+    rows = b * n
+    x2 = x.contiguous().view(rows, c)
+    do2 = do.float().contiguous().view(rows, c)
+    s32 = scale_ln.float().contiguous()
+    wqkv, wp = wqkv.float(), wp.float()
+    xn = kern.layernorm_snap_rows(x2, s32, bias_ln.float().contiguous(),
+                                  qspec)
+    if qkv is None:
+        qkv = kern.gemm_f32x3(xn, wqkv, bqkv.float().contiguous(),
+                              "bias_snap", qspec)
+    d_o = kern.gemm_f32x3(do2, wp.t(), None, "f32", qspec)
+    dqkv, dbq_image = kern.attention_core_f32_bwd(
+        qkv.view(b, n, 3 * cl), d_o.view(b, n, cl), m, rs, heads, scale)
+    dqkv = dqkv.view(rows, 3 * cl)
+    dbq = kern.colsum_rows(dbq_image)
+    # weight gradients in the torch (out, in) layout, returned as views
+    dwp = kern.gemm_f32x3(do2.t(), ctx.view(rows, cl), None, "f32",
+                          qspec).t()
+    dbp = kern.colsum_rows(do2)
+    dwqkv = kern.gemm_f32x3(dqkv.t(), xn, None, "f32", qspec).t()
+    dxn = kern.gemm_f32x3(dqkv, wqkv.t(), None, "f32", qspec)
+    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s32, dxn, do2, qspec)
+    return dx.view(b, n, c), dscale, dbias, dwqkv, dbq, dwp, dbp
+
+
 class _FusedAttentionBlock(torch.autograd.Function):
+    """The op with the JAX ``_fwd_rule`` / ``_bwd_rule`` pair, FP32 or
+    with a float format's ``qspec``."""
+
     @staticmethod
     def forward(ctx, kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
-                scale, depth):
+                scale, depth, qspec):
         b, n, _ = x.shape
         cl = wp.shape[0]
-        out, (attn, m, rs, qkv) = _forward(
-            kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
-            record=True)
-        if not save_acts(b * n * 3 * cl * x.element_size(), depth):
+        inputs = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
+        if qspec is None:
+            out, (attn, m, rs, qkv) = _forward(kern, *inputs, heads, scale,
+                                               record=True)
+        else:
+            out, (attn, m, rs, qkv) = _forward_q(kern, *inputs, heads, scale,
+                                                 qspec, record=True)
+        if not save_acts(b * n * 3 * cl * qkv.element_size(), depth):
             qkv = None
-        ctx.save_for_backward(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, attn,
-                              m, rs, qkv)
-        ctx.kern, ctx.heads, ctx.scale = kern, heads, scale
+        ctx.save_for_backward(*inputs, attn, m, rs, qkv)
+        ctx.kern, ctx.heads, ctx.scale, ctx.qspec = kern, heads, scale, qspec
         return out
 
     @staticmethod
     def backward(ctx, do):
         x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, attn, m, rs, qkv = \
             ctx.saved_tensors
-        grads = _backward(ctx.kern, do, x, scale_ln, bias_ln, wqkv, bqkv,
-                          wp, attn, m, rs, qkv, ctx.heads, ctx.scale)
+        args = (ctx.kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, attn, m,
+                rs, qkv, ctx.heads, ctx.scale)
+        if ctx.qspec is None:
+            grads = _backward(*args)
+        else:
+            grads = _backward_q(*args, ctx.qspec)
         if ctx.kern is K.CUDA:
             fused_attention_block.bwd_launches += 1
         inputs = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
         return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)),
-                None, None, None)
+                None, None, None, None)
 
 
 def records(tensors) -> bool:
@@ -201,21 +262,14 @@ def records(tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-QAT_NOT_PORTED = ("the float formats' backward (QAT training) is not "
-                  "ported yet; see ROADMAP.md A5a")
-
-
 def _apply(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
            depth, qspec):
     tensors = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
-    if qspec is not None:
-        if records(tensors):
-            raise NotImplementedError(
-                f"fused_attention_block: {QAT_NOT_PORTED}")
-        return _forward_q(kern, *tensors, heads, scale, qspec)
     if records(tensors):
         return _FusedAttentionBlock.apply(kern, *tensors, heads, scale,
-                                          depth)
+                                          depth, qspec)
+    if qspec is not None:
+        return _forward_q(kern, *tensors, heads, scale, qspec)
     return _forward(kern, *tensors, heads, scale, record=False)
 
 
@@ -236,9 +290,10 @@ def fused_attention_block(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
     chain; a CUDA tensor the kernel chain, forward and backward, or an
     error; any other device an error.  ``depth``, the model's layer
     count, sizes the qkv-saving budget as in the JAX package.  ``qspec``
-    (exp_bits, man_bits, all_sites) selects a float format's forward;
-    it takes fp32 activations, weights already fake-quantized, and
-    raises where it would record for a backward."""
+    (exp_bits, man_bits, all_sites) selects a float format's chains,
+    forward and backward; it takes fp32 activations and weights already
+    fake-quantized (the caller's straight-through estimator carries
+    their gradient)."""
     kern = K.for_device(x)
     out = _apply(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
                  scale, depth, qspec)

@@ -5,7 +5,7 @@ Replaces the TPU kernels of myrtle_vision_tpu/ops/fused_mlp.py: in their
 plain FP32 form the forward ``_fwd_kernel`` (launched by
 ``_mlp_forward``) and the backward ``_bwd_kernel`` / ``_bwd_one_image``
 (launched by ``_bwd_rule``); with a stateless float format's ``qspec``
-the forward, inference only.  GELU is the Abramowitz & Stegun erf
+the same forward and backward (QAT).  GELU is the Abramowitz & Stegun erf
 polynomial with an exact divide, as in the TPU kernel's interpret mode.
 
 On the H100 the two weights (2 x 1.2 MB in bf16 at ViT-S) do not fit an
@@ -37,8 +37,18 @@ does, every snap the code of K11 (csrc/fake_quant.cuh):
          snap_all, snap)
       -> gemm_f32x3_epilogue (fc2 + bias, snap_all; + x, snap_all)
 
-Its backward (float-format QAT) is not ported: a call that would record
-for one raises (ROADMAP A5a).
+Its backward keeps only the inputs, as the JAX ``_fwd_rule`` does, and
+recomputes LN, fc1 and the GELU with their snaps; every site is
+straight-through and every product 3-pass (``_bwd_one_image`` with
+``qspec``):
+
+    layernorm_snap_rows (xn) -> gemm_f32x3_epilogue, fc1 with
+      bias_snap_gelu_snap_grad (g and GELU', one erf)
+      -> dW2 (gemm_f32x3_epilogue, A transposed, split K)
+      -> dh = (do W2^T) * GELU' (gemm_f32x3_epilogue, mul_aux) with the
+         db1 sums -> dW1 (A transposed) -> dxn = dh W1^T (f32)
+      -> layernorm_rows_bwd (its snap form)
+    and db2 through colsum_rows.
 
 Weights keep the JAX layout: w1 (C, H), w2 (H, C), i.e. (in, out);
 gradients come back in each input's dtype and layout.
@@ -48,10 +58,7 @@ from __future__ import annotations
 import torch
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
-from myrtle_vision_tpu_torch.ops.fused_attention_block import (
-    QAT_NOT_PORTED,
-    records,
-)
+from myrtle_vision_tpu_torch.ops.fused_attention_block import records
 
 
 def _forward(kern, x, scale, bias, w1, b1, w2, b2):
@@ -111,29 +118,58 @@ def _backward(kern, do, x, scale, bias, w1, b1, w2):
     return dx.view(x.shape), dscale, dbias, dw1, db1, dw2, db2
 
 
+def _backward_q(kern, do, x, scale, bias, w1, b1, w2, qspec):
+    """``_bwd_one_image`` with ``qspec`` over the batch, fp32 -> (dx,
+    dscale, dbias, dw1, db1, dw2, db2), weight gradients in the (in, out)
+    shape."""
+    c = x.shape[-1]
+    x2 = x.contiguous().view(-1, c)
+    do2 = do.float().contiguous().view(-1, c)
+    s32 = scale.float().contiguous()
+    w1, w2 = w1.float(), w2.float()
+    xn = kern.layernorm_snap_rows(x2, s32, bias.float().contiguous(), qspec)
+    g, gp = kern.gemm_f32x3(xn, w1, b1.float().contiguous(),
+                            "bias_snap_gelu_snap_grad", qspec)
+    # weight gradients in the torch (out, in) layout, returned as views
+    dw2 = kern.gemm_f32x3(do2.t(), g, None, "f32", qspec).t()
+    db2 = kern.colsum_rows(do2)
+    dh, db1 = kern.gemm_f32x3(do2, w2.t(), None, "mul_aux", qspec, aux=gp)
+    dw1 = kern.gemm_f32x3(dh.t(), xn, None, "f32", qspec).t()
+    dxn = kern.gemm_f32x3(dh, w1.t(), None, "f32", qspec)
+    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s32, dxn, do2, qspec)
+    return dx.view(x.shape), dscale, dbias, dw1, db1, dw2, db2
+
+
 class _FusedMlpBlock(torch.autograd.Function):
+    """The op, FP32 or with a float format's ``qspec``: the forward keeps
+    its inputs, the backward recomputes (the JAX ``_fwd_rule`` /
+    ``_bwd_rule`` pair)."""
+
     @staticmethod
-    def forward(ctx, kern, x, scale, bias, w1, b1, w2, b2):
+    def forward(ctx, kern, x, scale, bias, w1, b1, w2, b2, qspec):
         ctx.save_for_backward(x, scale, bias, w1, b1, w2, b2)
-        ctx.kern = kern
-        return _forward(kern, x, scale, bias, w1, b1, w2, b2)
+        ctx.kern, ctx.qspec = kern, qspec
+        if qspec is None:
+            return _forward(kern, x, scale, bias, w1, b1, w2, b2)
+        return _forward_q(kern, x, scale, bias, w1, b1, w2, b2, qspec)
 
     @staticmethod
     def backward(ctx, do):
         inputs = ctx.saved_tensors
-        grads = _backward(ctx.kern, do, *inputs[:-1])
+        if ctx.qspec is None:
+            grads = _backward(ctx.kern, do, *inputs[:-1])
+        else:
+            grads = _backward_q(ctx.kern, do, *inputs[:-1], ctx.qspec)
         if ctx.kern is K.CUDA:
             fused_mlp_block.bwd_launches += 1
-        return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)))
+        return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)), None)
 
 
 def _apply(kern, tensors, qspec):
-    if qspec is not None:
-        if records(tensors):
-            raise NotImplementedError(f"fused_mlp_block: {QAT_NOT_PORTED}")
-        return _forward_q(kern, *tensors, qspec)
     if records(tensors):
-        return _FusedMlpBlock.apply(kern, *tensors)
+        return _FusedMlpBlock.apply(kern, *tensors, qspec)
+    if qspec is not None:
+        return _forward_q(kern, *tensors, qspec)
     return _forward(kern, *tensors)
 
 
@@ -150,9 +186,9 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, qspec=None):
     (H, C), differentiable.  A CPU tensor takes the plain chain; a CUDA
     tensor the kernel chain, forward and backward, or an error; any
     other device an error.  ``qspec`` (exp_bits, man_bits, all_sites)
-    selects a float format's forward; it takes fp32 activations, weights
-    already fake-quantized, and raises where it would record for a
-    backward."""
+    selects a float format's chains, forward and backward; it takes fp32
+    activations and weights already fake-quantized (the caller's
+    straight-through estimator carries their gradient)."""
     kern = K.for_device(x)
     out = _apply(kern, (x, scale, bias, w1, b1, w2, b2), qspec)
     if kern is K.CUDA:

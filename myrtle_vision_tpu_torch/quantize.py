@@ -21,8 +21,9 @@ myrtle_vision_tpu/quantize.py).
   real, int8 Linear weights with a per-tensor fp32 ``weight_scale`` for
   PyTorchINT8, fp16 storage for FP16_16 / FP16_32.
 
-Post-training quantization runs in every format; QAT training in none yet
-(ROADMAP A5a, A5b).
+Post-training quantization runs in every format; QAT training in the
+float formats (their sites and weights straight-through, as in the JAX
+package), not yet in PyTorchINT8 (ROADMAP A5b).
 """
 from __future__ import annotations
 
@@ -60,23 +61,22 @@ class NumberFormat(enum.Enum):
     FixedPoint11Integral4 = enum.auto()
 
     def quantize(self, x, plain: bool = False):
-        """The format's fake-quant (forward values): K11 for a CUDA
-        tensor unless ``plain``, the plain function otherwise."""
-        flt, fixed = ((fq.float_quantize, fq.fixed_point_quantize) if plain
-                      else (fq.float_quantize_rows,
-                            fq.fixed_point_quantize_rows))
+        """The format's fake-quant with a straight-through gradient: K11
+        for a CUDA tensor unless ``plain``, the plain function
+        otherwise."""
+        flt, fixed = fq.float_quantize_ste, fq.fixed_point_quantize_ste
         if self == NumberFormat.HalfPrecisionFloat:
-            return flt(x, 5, 10)
+            return flt(x, 5, 10, plain)
         if self == NumberFormat.SinglePrecisionFloat:
             return x
         if self == NumberFormat.TensorFloat32:
-            return flt(x, 8, 10)
+            return flt(x, 8, 10, plain)
         if self == NumberFormat.FixedPoint11Integral2:
-            return fixed(x, 11, 9)
+            return fixed(x, 11, 9, plain)
         if self == NumberFormat.FixedPoint11Integral3:
-            return fixed(x, 11, 8)
+            return fixed(x, 11, 8, plain)
         if self == NumberFormat.FixedPoint11Integral4:
-            return fixed(x, 11, 7)
+            return fixed(x, 11, 7, plain)
         raise NotImplementedError(self)
 
 
@@ -104,8 +104,9 @@ def act_number_format(q_format, site: str):
 
 def act_quant(x, q_format, site: str, plain: bool = False):
     """A stateless float format's activation site: ``x`` through its
-    format's fake-quant (K11 on the card unless ``plain``), or as it is
-    where the format leaves the site alone."""
+    format's fake-quant (K11 on the card unless ``plain``;
+    straight-through), or as it is where the format leaves the site
+    alone."""
     fmt = act_number_format(q_format, site)
     return x if fmt is None else fmt.quantize(x.float(), plain).to(x.dtype)
 
@@ -182,7 +183,7 @@ def quantize_weight(w, q_format, kind: str, converted: bool,
     parameter.  PyTorchINT8 Linear weights take a symmetric int8 scale
     from their current range (torch's QAT weight observer re-observes
     every step); the float formats their number format, through K11 on
-    the card unless ``plain``."""
+    the card unless ``plain``; both straight-through."""
     if q_format == QFormat.PyTorchINT8 and kind == "linear":
         wf = w.float()
         scale = symmetric_int8_scale(wf.abs().max())

@@ -287,15 +287,36 @@ def test_qspec_mlp_block_matches_jax(qspec, n):
 
 
 def test_qspec_ops_refuse_a_backward():
+    """The qspec ops now record and run their backward (QAT): the
+    gradients of every input against ``jax.vjp`` of the JAX op (its K2 /
+    K4 kernel with qspec in interpret mode), each within 2e-4 of the
+    leaf's largest magnitude (the key third of dbqkv, zero up to
+    roundoff on both sides, left out); under no_grad nothing records.
+    tests/test_torch_float_qat.py holds every format and both save_acts
+    branches."""
+    qspec = (5, 10, False)
     x, attn, mlp = block_inputs(17, seed=0)
-    tx = torch.from_numpy(x).requires_grad_()
-    with pytest.raises(NotImplementedError, match="A5a"):
-        fused_attention_block(tx, *map(torch.from_numpy, attn), HEADS, 0.1,
-                              qspec=(5, 10, False))
-    with pytest.raises(NotImplementedError, match="A5a"):
-        fused_mlp_block(tx, *map(torch.from_numpy, mlp), qspec=(5, 10, False))
-    with torch.no_grad():  # nothing records: the forward runs
-        fused_mlp_block(tx, *map(torch.from_numpy, mlp), qspec=(5, 10, False))
+    g = np.random.RandomState(1).randn(*x.shape).astype(np.float32)
+    scale = (C // HEADS) ** -0.5
+    for op, params in ((fused_attention_block, attn),
+                       (fused_mlp_block, mlp)):
+        extra = (HEADS, scale) if op is fused_attention_block else ()
+        args = [x] + params
+        t = [torch.from_numpy(a).requires_grad_() for a in args]
+        out = op(*t, *extra, qspec=qspec)
+        ours = torch.autograd.grad(out, t, torch.from_numpy(g))
+        jax_op = jfa.fused_attention_block if op is fused_attention_block \
+            else jfm.fused_mlp_block
+        _, vjp = jax.vjp(lambda *a: jax_op(*a, *extra, qspec),
+                         *map(jnp.asarray, args))
+        for i, (a, r) in enumerate(zip(ours, vjp(jnp.asarray(g)))):
+            a, r = a.numpy(), np.asarray(r)
+            if op is fused_attention_block and i == 4:
+                a, r = np.delete(a, np.s_[C:2 * C]), np.delete(r,
+                                                                np.s_[C:2 * C])
+            assert np.abs(a - r).max() <= 2e-4 * np.abs(r).max(), (op, i)
+        with torch.no_grad():  # nothing records: the forward alone
+            assert op(*t, *extra, qspec=qspec).grad_fn is None
 
 
 # -------------------------------------------------------------------- ViT

@@ -822,10 +822,11 @@ def float_block(c, hid, b, n, seed, dev, qspec):
     return x, attn, mlp
 
 
-# (C, hidden, B, N): head widths 32 and 64, ragged against the tiles, and
-# ViT-S/16
+# (C, hidden, B, N): head widths 32 and 64, ragged against the tiles,
+# ViT-S/16, and a length past the 224 tokens up to which the fp32 core's
+# backward runs eight warps (four above)
 FLOAT_SHAPES = [(64, 128, 3, 17), (32, 64, 2, 37), (128, 256, 3, 50),
-                (384, 1536, 4, 197)]
+                (384, 1536, 4, 197), (128, 256, 2, 250)]
 
 
 @pytest.mark.parametrize("qspec", FLOAT_QSPECS)
@@ -897,12 +898,27 @@ def test_float_kernels_refuse_what_they_do_not_take(dev):
                                    "bias_snap", qspec)
     with pytest.raises(TypeError, match="fp32"):
         K.fake_quant_rows_cuda(a.to(torch.bfloat16), "float", 5, 10)
+    with pytest.raises(ValueError, match="row-major w"):
+        K.gemm_f32x3_epilogue_cuda(a[:, :4].contiguous(),
+                                   w[:, :4].contiguous().t(), None, "f32",
+                                   qspec)
+    with pytest.raises(ValueError, match="transposed `a`"):
+        K.gemm_f32x3_epilogue_cuda(a.t(), a, bias[:6], "bias_snap", qspec)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5a"):
+        K.attention_core_f32_bwd_cuda(
+            torch.zeros(1, n, 3 * 64, device=dev), torch.zeros(
+                1, n, 64, device=dev), *[torch.zeros(1, 1, n, device=dev)] * 2,
+            1, 0.125)
+    # a qspec op that records now runs its backward (QAT) on the card
     x = torch.zeros(2, 3, 64, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A5a"):
-        fused_mlp_block(x, *[torch.ones(64, device=dev)] * 2,
-                        torch.zeros(64, 128, device=dev), bias.new_zeros(128),
-                        torch.zeros(128, 64, device=dev),
-                        torch.zeros(64, device=dev), qspec=qspec)
+    before = fused_mlp_block.bwd_launches
+    fused_mlp_block(x, *[torch.ones(64, device=dev)] * 2,
+                    torch.zeros(128, 64, device=dev).t(), bias.new_zeros(128),
+                    torch.zeros(64, 128, device=dev).t(),
+                    torch.zeros(64, device=dev), qspec=qspec).sum().backward()
+    torch.cuda.synchronize()
+    assert fused_mlp_block.bwd_launches == before + 1
+    assert torch.equal(x.grad, torch.ones_like(x))  # the residual alone
 
 
 @pytest.mark.parametrize("q_format", ["FP16_16", "FP16_32", "TF32"])
@@ -931,3 +947,137 @@ def test_float_model_runs_through_the_kernels(dev, q_format):
     assert out.shape == (3, 10) and bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= 2.0 ** -6 * max(
         1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("qspec", FLOAT_QSPECS)
+@pytest.mark.parametrize("c,hid,b,n", FLOAT_SHAPES)
+def test_float_backward_kernels_match_plain(dev, c, hid, b, n, qspec):
+    """Each kernel of the qspec backward chains (K2 and K4 with qspec)
+    against its plain version at the main path's operand layouts: the
+    fp32 bars of the FP32 backward (the outputs are unsnapped gradients),
+    the float bar for the snapped GELU output."""
+    x, attn, mlp = float_block(c, hid, b, n, n + 19, dev, qspec)
+    heads = max(c // 64, 1)
+    scale = (c // heads) ** -0.5
+    x2 = x.view(-1, c)
+    do2 = torch.randn(x2.shape, device=dev,
+                      generator=torch.Generator(dev).manual_seed(n))
+    before = dict(K.LAUNCHES)
+    xn = K.layernorm_snap_rows_plain(x2, attn[0], attn[1], qspec)
+    qkv = K.gemm_f32x3_epilogue_plain(xn, attn[2], attn[3], "bias_snap",
+                                      qspec).view(b, n, 3 * c)
+    got = K.attention_core_snap_cuda(qkv, heads, scale, qspec, stats=True)
+    ref = K.attention_core_snap_plain(qkv, heads, scale, qspec, stats=True)
+    close_float(got[0], ref[0], qspec)
+    close(got[1], ref[1])
+    close(got[2], ref[2])
+    ctx, m, rs = ref
+    wp_t = attn[4].t()  # the torch (out, in) weight as it is stored
+    assert wp_t.is_contiguous()
+    d_o = K.gemm_f32x3_epilogue_plain(do2, wp_t, None, "f32", qspec)
+    close(K.gemm_f32x3_epilogue_cuda(do2, wp_t, None, "f32", qspec), d_o)
+    got = K.attention_core_f32_bwd_cuda(qkv, d_o.view(b, n, c), m, rs,
+                                        heads, scale)
+    want = K.attention_core_f32_bwd_plain(qkv, d_o.view(b, n, c), m, rs,
+                                          heads, scale)
+    close(got[0], want[0], CHAIN_ATOL)
+    close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+    dqkv = want[0].view(-1, 3 * c)
+    for a, w in ((do2.t(), ctx.view(-1, c)), (dqkv.t(), xn)):
+        want = K.gemm_f32x3_epilogue_plain(a, w, None, "f32", qspec)
+        close(K.gemm_f32x3_epilogue_cuda(a, w, None, "f32", qspec), want,
+              SUM_ATOL * float(want.abs().max()))
+    args = (xn, mlp[2], mlp[3], "bias_snap_gelu_snap_grad", qspec)
+    got, want = K.gemm_f32x3_epilogue_cuda(*args), \
+        K.gemm_f32x3_epilogue_plain(*args)
+    close_float(got[0], want[0], qspec,
+                first=K.gemm_f32x3_epilogue_plain(xn, mlp[2], mlp[3],
+                                                  "bias_snap", qspec))
+    close(got[1], want[1])
+    gp = want[1]
+    w2_t = mlp[4].t()
+    got = K.gemm_f32x3_epilogue_cuda(do2, w2_t, None, "mul_aux", qspec,
+                                     aux=gp)
+    want = K.gemm_f32x3_epilogue_plain(do2, w2_t, None, "mul_aux", qspec,
+                                       aux=gp)
+    close(got[0], want[0])
+    close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+    dxn = K.gemm_f32x3_epilogue_plain(want[0], mlp[2].t(), None, "f32", qspec)
+    got = K.layernorm_rows_bwd_cuda(x2, attn[0], dxn, do2, qspec)
+    want = K.layernorm_rows_bwd_plain(x2, attn[0], dxn, do2, qspec)
+    close(got[0], want[0])
+    for g, r in zip(got[1:], want[1:]):
+        close(g, r, SUM_ATOL * float(r.abs().max()))
+    launched = {k: K.LAUNCHES[k] - before[k] for k in
+                ("attention_core_f32", "attention_core_f32_bwd",
+                 "layernorm_snap_rows_bwd")}
+    assert launched == {"attention_core_f32": 1, "attention_core_f32_bwd": 1,
+                        "layernorm_snap_rows_bwd": 1}
+
+
+@pytest.mark.parametrize("save", ["0", "1"])
+@pytest.mark.parametrize("qspec", FLOAT_QSPECS)
+@pytest.mark.parametrize("c,hid,b,n", FLOAT_SHAPES)
+def test_float_backward_chains_match_plain(dev, c, hid, b, n, qspec, save,
+                                           monkeypatch):
+    monkeypatch.setenv("MVT_SAVE_ACTS", save)
+    x, attn, mlp = float_block(c, hid, b, n, n + 29, dev, qspec)
+    heads = max(c // 64, 1)
+    extra = (heads, (c // heads) ** -0.5)
+    do = torch.randn(x.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(n))
+
+    def with_q(op):
+        def run(*args):
+            return op(*args, qspec=qspec)
+        return run
+
+    before = (fused_attention_block.bwd_launches,
+              fused_mlp_block.bwd_launches)
+    got = grads_of(with_q(fused_attention_block), x, attn, extra, do)
+    ref = grads_of(with_q(fused_attention_block_plain), x, attn, extra, do)
+    close_grads(got, ref, ["x", "scale", "bias", "wqkv", "bqkv", "wp", "bp"])
+    got = grads_of(with_q(fused_mlp_block), x, mlp, (), do)
+    ref = grads_of(with_q(fused_mlp_block_plain), x, mlp, (), do)
+    close_grads(got, ref, ["x", "scale", "bias", "w1", "b1", "w2", "b2"])
+    assert (fused_attention_block.bwd_launches - before[0],
+            fused_mlp_block.bwd_launches - before[1]) == (1, 1)
+
+
+@pytest.mark.parametrize("q_format", ["FP16_16", "FP16_32", "TF32"])
+def test_float_model_trains_through_the_kernels(dev, q_format):
+    """One QAT step of a small float-format ViT through the kernels: the
+    backward chains launch once per block half, the fake-quant of the
+    weights and sites run K11, and the gradients agree with the plain
+    path's (relative L2 2^-4, chip_smoke.py's first-step bar)."""
+    from myrtle_vision_tpu_torch.training.optim import cross_entropy_loss
+
+    depth = 2
+    model = ViT("classification", 224, 16, 10, 128, depth, 2, 256,
+                q_format=q_format, device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    img = torch.randn(4, 224, 224, 3, device=dev, generator=gen)
+    labels = torch.randint(0, 10, (4,), device=dev, generator=gen)
+    runs = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        K.reset_launches()
+        before = fused_attention_block.bwd_launches
+        loss = cross_entropy_loss(model(img, plain=plain), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        if not plain:
+            assert fused_attention_block.bwd_launches - before == depth
+            assert K.LAUNCHES["attention_core_f32_bwd"] == depth
+            assert K.LAUNCHES["layernorm_snap_rows_bwd"] == 2 * depth
+            assert K.LAUNCHES["fake_quant_rows"] >= 4 * depth + 2
+        runs.append((float(loss), {n: p.grad.clone()
+                                   for n, p in model.named_parameters()
+                                   if p.grad is not None}))
+    (k_loss, k_grads), (p_loss, p_grads) = runs
+    assert abs(k_loss - p_loss) <= 2.0 ** -6 * max(1.0, abs(p_loss))
+    for name, ref in p_grads.items():
+        got = k_grads[name]
+        assert bool(torch.isfinite(got).all()), name
+        assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= \
+            2.0 ** -4, name

@@ -274,16 +274,18 @@ def test_loads_refuse_the_other_storage(jax_int8):
 
 @pytest.mark.parametrize("q_format", ["FP16_16", "FP16_32", "TF32"])
 def test_float_formats_raise_with_the_roadmap_item(q_format, monkeypatch):
-    """What the float formats still refuse: detection, a forward that
-    would record gradients (QAT), a sequence past the fused gate."""
+    """What the float formats still refuse: detection and a sequence past
+    the fused gate; a forward that records gradients (QAT) now runs
+    (tests/test_torch_float_qat.py holds it against JAX)."""
     with pytest.raises(NotImplementedError, match="A5a"):
         ViT(**dict(KW, decoder="detection"), q_format=q_format)
     model = ViT(q_format=q_format, **KW)
     img = torch.zeros(1, 80, 80, 3)
-    with pytest.raises(NotImplementedError, match="A5a"):
-        model(img)
+    assert model(img).grad_fn is not None
     monkeypatch.setattr("myrtle_vision_tpu_torch.models.vit.fuses_at",
                         lambda n, heads, d: False)
+    with pytest.raises(NotImplementedError, match="A5a"):
+        model(img)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="A5a"):
         model(img)
 

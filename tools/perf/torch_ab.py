@@ -10,8 +10,9 @@ fresh process that puts its checkout's root first on ``sys.path`` and so
 builds and runs that checkout's kernels.  A measurement times, with CUDA
 events at batch 256 and weights drawn from seed 0: the bf16 (FP32 format)
 forward, the converted INT8 forward (calibrated on 2 batches of seeded
-random images), and one train step (forward, backward, AdamW) of the
-``vit_small.json`` optimizer, all kernel path.  Prints one line per
+random images), the converted FP16_32 forward, and one train step
+(forward, backward, AdamW) of the ``vit_small.json`` optimizer, all
+kernel path.  Prints one line per
 measurement and, last, each metric's per-checkout times, medians and the
 change's median against the parent's.  Needs a CUDA device.
 """
@@ -39,7 +40,7 @@ def cuda_ms(torch, fn, iters, warmup=3):
 
 
 def measure(root):
-    """The three times (ms) of the checkout at ``root``."""
+    """The four times (ms) of the checkout at ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -79,6 +80,15 @@ def measure(root):
     with torch.inference_mode():
         out["converted INT8 forward"] = cuda_ms(torch, lambda: conv(imgs), 10)
     del calib, conv
+
+    conv = ViT(*widths, q_format="FP16_32", converted=True, device=device)
+    conv.load_state_dict(convert_params(model.state_dict(), QFormat.FP16_32),
+                         strict=True)
+    conv.eval()
+    with torch.inference_mode():
+        out["converted FP16_32 forward"] = cuda_ms(torch, lambda: conv(imgs),
+                                                   5)
+    del conv
 
     with open(os.path.join(root, "classification", "train_configs",
                            "vit_small.json")) as f:
