@@ -58,6 +58,17 @@ Phases, each ending in one line of output:
               forward and backward, no call of a plain version, finite
               losses, the first step's loss and gradients against the
               plain path, the last checkpoint through the eval CLI
+  6d. qat-int8  the PyTorchINT8 QAT kernels and ops against their plain
+              versions (each kernel's int8-site mode forward and backward,
+              both ops' chains, at B=64, N=197 with calibrated sites and
+              with a site that has no statistics), then the ViT-S/16 train
+              CLI in PyTorchINT8 (the two-pass QAT step) for one epoch of
+              the same dataset: launches of both INT8 QAT ops, forward and
+              backward, no call of a plain version, the first step against
+              the plain path, the last checkpoint through the eval CLI
+              (the INT8 simulation) and the PTQ CLI (convert, the
+              converted K9 / K10 forward): both accuracies and the share
+              of agreeing argmaxes
   7. detect   the YOLOS-S detection eval CLI (detection/test.py's path;
               detection/train_configs/yolos_small.json, local batch 2) on
               the synthetic DIOR-layout test split (96 images, 160 px)
@@ -87,7 +98,9 @@ Phases, each ending in one line of output:
               float formats' kernels and chains in FP16_32 and the
               converted FP16_32 forward; the QAT backward kernels and
               chains in FP16_32 and one FP16_32 QAT train step beside the
-              FP32 one (img/s, peak memory, a device profile)
+              FP32 one (img/s, peak memory, a device profile); the INT8 QAT
+              chains per block and the two-pass PyTorchINT8 QAT step (pass
+              1, pass 2 and the backward apart, peak memory, a profile)
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -212,6 +225,24 @@ FLOAT_QSPECS = {"FP16_16": (5, 10, True), "FP16_32": (5, 10, False),
 FAKE_QUANT_MODES = [("float", 5, 10), ("float", 8, 10), ("fixed", 11, 9),
                     ("fixed", 11, 8), ("fixed", 11, 7)]
 FAKE_QUANT_N = 2 ** 24 + 7
+# PyTorchINT8 QAT (phase qat-int8), kernel against plain version: the float
+# chains' kernels with the frozen observer sites in place of the float
+# snaps, every snap bit-identical to its plain version, every other step
+# the same fp32 operations but for the order of fp32 sums.  Such a
+# difference is fp32 noise (FLOAT_TIGHT of the output's largest magnitude)
+# unless it moves a value across a site's rint edge, which moves that
+# element by a whole step of the site's grid (its scale, ~1/255 of the
+# site's range).  Bar, per snapped output: at least I8_SAME of its
+# elements within the noise, every element within one step of its site;
+# where an epilogue snaps twice in series (GELU, the residual sum) a flip
+# of the first site, through a slope of at most 1.2 (GELU' < 1.13), reaches
+# the second grid as up to ceil(1.2 s1 / s2) + 1 of its steps.  A
+# block-half chain: I8_CHAIN_SAME within the noise, every element within
+# I8_CHAIN_STEPS steps of the output's site (the converted INT8 chain
+# bar).  The unsnapped outputs (the gradients) take the FP32 bars.
+I8_SAME = 0.998
+I8_CHAIN_SAME = 0.99
+I8_CHAIN_STEPS = 4
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense), for the least
 # time the card could take: bytes at 3.35 TB/s, operations at the peak of
 # their type (fp32 outside the tensor cores for the elementwise kernels).
@@ -321,6 +352,29 @@ TPU_CHAINS = {
         "gemm_f32x3_epilogue[dW1=dh^T.xn,A^T]",
         "gemm_f32x3_epilogue[dxn=dh.W1^T,f32]", "layernorm_snap_rows_bwd"]),
 }
+# the INT8 QAT variants of K1-K4: the qspec chains' kernels with the
+# observer sites, so the same cases' bounds and yardsticks
+for _k in ("K1", "K2", "K3", "K4"):
+    _chain, _parts = TPU_CHAINS[f"{_k} qspec"]
+    TPU_CHAINS[f"{_k} int8"] = (
+        _chain.replace("[qspec,", "_i8[").replace("[qspec]", "_i8"), _parts)
+# the four INT8 QAT variants in the kernels line: (its sources, the TPU
+# kernel it replaces, the chain's timing name)
+_Q_SRC = (f"{CSRC}layernorm_snap_rows.cu; {CSRC}gemm_f32x3_epilogue.cu; "
+          f"{CSRC}attention_core_f32.cu")
+_Q_BWD_SRC = (f"{CSRC}layernorm_snap_rows.cu; {CSRC}gemm_f32x3_epilogue.cu; "
+              f"{CSRC}attention_core_f32_bwd.cu; {CSRC}layernorm_rows_bwd.cu")
+INT8_QAT_VARIANTS = {
+    "fused_attention_block_i8": (_Q_SRC, f"{TPU_ATTN} (int8)", "K1 int8"),
+    "fused_attention_block_i8[bwd]": (_Q_BWD_SRC, f"{TPU_ATTN_BWD} (int8)",
+                                      "K2 int8"),
+    "fused_mlp_block_i8": (f"{CSRC}layernorm_snap_rows.cu; "
+                           f"{CSRC}gemm_f32x3_epilogue.cu",
+                           f"{TPU_MLP} (int8)", "K3 int8"),
+    "fused_mlp_block_i8[bwd]": (_Q_BWD_SRC.replace(
+        f"{CSRC}attention_core_f32_bwd.cu; ", ""), f"{TPU_MLP_BWD} (int8)",
+        "K4 int8"),
+}
 FP32_KERNELS = tuple(k for k in KERNELS
                      if k not in INT8_KERNELS + DETECT_KERNELS + FLOAT_KERNELS
                      + QAT_KERNELS)
@@ -389,17 +443,23 @@ def power_line():
 
 
 def _ops():
+    """(the differentiable ops, forward and backward counted: FP32, the
+    float formats and INT8 QAT; the converted INT8 ops, forward only)."""
     from myrtle_vision_tpu_torch.ops.fused_attention_block import (
         fused_attention_block,
+        fused_attention_block_i8,
     )
     from myrtle_vision_tpu_torch.ops.fused_int8_block import (
         int8_attention_block,
         int8_mlp_block,
     )
-    from myrtle_vision_tpu_torch.ops.fused_mlp import fused_mlp_block
+    from myrtle_vision_tpu_torch.ops.fused_mlp import (
+        fused_mlp_block,
+        fused_mlp_block_i8,
+    )
 
-    return (fused_attention_block, fused_mlp_block), (int8_attention_block,
-                                                      int8_mlp_block)
+    return ((fused_attention_block, fused_mlp_block, fused_attention_block_i8,
+             fused_mlp_block_i8), (int8_attention_block, int8_mlp_block))
 
 
 def reset_counts():
@@ -693,17 +753,38 @@ def int8_block_inputs(b, n, seed, device):
     (out, in) tensor, as the converted block passes it."""
     from myrtle_vision_tpu_torch.models.vit import Block
     from myrtle_vision_tpu_torch.ops.fused_int8_block import weight_colsum
-    from myrtle_vision_tpu_torch.quantize import (
-        QFormat,
-        convert_params,
-        is_observer,
-    )
+    from myrtle_vision_tpu_torch.quantize import QFormat, convert_params
+
+    x, fp = calibrated_int8_block(b, n, seed, device)
+    conv = Block(C, HEADS, C // HEADS, HID, 0.0, 12, device,
+                 QFormat.PyTorchINT8, True)
+    conv.load_state_dict(convert_params(fp.state_dict(), "PyTorchINT8"))
+    for lin in conv._linears():
+        lin.weight_colsum.copy_(weight_colsum(lin.weight.t()))
+    sites = conv.site_table()
+    a, f = conv._modules["0"].fn, conv._modules["1"].fn
+    qkv, out, fc1, fc2 = conv._linears()
+    attn = [a.norm.weight, a.norm.bias, qkv.weight.t(), qkv.weight_scale,
+            qkv.bias, out.weight.t(), out.weight_scale, out.bias, sites[0]]
+    mlp = [f.norm.weight, f.norm.bias, fc1.weight.t(), fc1.weight_scale,
+           fc1.bias, fc2.weight.t(), fc2.weight_scale, fc2.bias, sites[1]]
+    colsums = ((qkv.weight_colsum, out.weight_colsum),
+               (fc1.weight_colsum, fc2.weight_colsum))
+    return x, attn, mlp, colsums
+
+
+def calibrated_int8_block(b, n, seed, device):
+    """fp32 activations from a numpy seed and a ViT-S/16 PyTorchINT8 Block
+    of seeded fp32 weights (Linear U(+-1/sqrt(fan_in)) and biases std 1,
+    LayerNorm 1 + noise) calibrated by its own calibrating forward on
+    them."""
+    from myrtle_vision_tpu_torch.models.vit import Block
+    from myrtle_vision_tpu_torch.quantize import QFormat, is_observer
 
     rng = np.random.RandomState(seed)
     x = seeded(rng, (b, n, C), 1.0, device)
-    fp, conv = (Block(C, HEADS, C // HEADS, HID, 0.0, 12, device,
-                      QFormat.PyTorchINT8, converted)
-                for converted in (False, True))
+    fp = Block(C, HEADS, C // HEADS, HID, 0.0, 12, device,
+               QFormat.PyTorchINT8)
     sd = {}
     for name, t in fp.state_dict().items():
         shape = tuple(t.shape)
@@ -722,20 +803,8 @@ def int8_block_inputs(b, n, seed, device):
                         if not torch.is_tensor(v) else v
                         for k, v in sd.items()})
     with torch.no_grad():
-        fp.forward_calibrating(x)
-    conv.load_state_dict(convert_params(fp.state_dict(), "PyTorchINT8"))
-    for lin in conv._linears():
-        lin.weight_colsum.copy_(weight_colsum(lin.weight.t()))
-    sites = conv.site_table()
-    a, f = conv._modules["0"].fn, conv._modules["1"].fn
-    qkv, out, fc1, fc2 = conv._linears()
-    attn = [a.norm.weight, a.norm.bias, qkv.weight.t(), qkv.weight_scale,
-            qkv.bias, out.weight.t(), out.weight_scale, out.bias, sites[0]]
-    mlp = [f.norm.weight, f.norm.bias, fc1.weight.t(), fc1.weight_scale,
-           fc1.bias, fc2.weight.t(), fc2.weight_scale, fc2.bias, sites[1]]
-    colsums = ((qkv.weight_colsum, out.weight_colsum),
-               (fc1.weight_colsum, fc2.weight_colsum))
-    return x, attn, mlp, colsums
+        fp.forward_int8(x)
+    return x, fp
 
 
 def int8_kernel_cases(x, attn, mlp, colsums):
@@ -1643,12 +1712,23 @@ def phase_main(device, data_config, data_cfg):
           "kernel-path logits disagree with the plain path")
 
 
+def two_pass(model, images, plain=False):
+    """The two-pass INT8 QAT forward of training/classification.py: the
+    calibrating pass (no gradient), then the differentiable pass with the
+    observers it left, through the kernels or, with ``plain``, the plain
+    chains."""
+    with torch.no_grad():
+        model(images, calibrating=True)
+    return model(images, plain=plain, int8_fused=True)
+
+
 def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
                      first_loss, tag="train"):
     """The train CLI's first step again, from its iteration-0 checkpoint
-    and its first batch (``model`` and ``train_loader`` as the CLI's
-    ``build_train`` sets them up), on the kernel path and on the plain
-    path; ``tag`` leads the printed line."""
+    (loaded before each path, observers and all) and its first batch
+    (``model`` and ``train_loader`` as the CLI's ``build_train`` sets them
+    up), on the kernel path and on the plain path; a PyTorchINT8 model
+    takes the two-pass step; ``tag`` leads the printed line."""
     from myrtle_vision_tpu_torch.training.optim import cross_entropy_loss
     from myrtle_vision_tpu_torch.utils.convert import (
         load_reference_checkpoint,
@@ -1657,15 +1737,19 @@ def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
     epoch = train_loader.epoch(0)
     batch = next(epoch)
     epoch.close()
-    model.load_state_dict(load_reference_checkpoint(init_ckpt), strict=True)
+    int8 = model.int8 and not model.converted
     runs = {}
     for plain in (False, True):
+        model.load_state_dict(load_reference_checkpoint(init_ckpt),
+                              strict=True)
         model.zero_grad(set_to_none=True)
         loss_sum = 0.0
         for i in range(n_accum):
             sl = slice(i * micro, (i + 1) * micro)
-            loss = cross_entropy_loss(model(batch["image"][sl], plain=plain),
-                                      batch["label"][sl])
+            images = batch["image"][sl]
+            logits = (two_pass(model, images, plain) if int8
+                      else model(images, plain=plain))
+            loss = cross_entropy_loss(logits, batch["label"][sl])
             loss.backward()
             loss_sum += loss.item()
         runs[plain] = (loss_sum / n_accum,
@@ -1883,6 +1967,333 @@ def phase_qat(device, data_config, data_cfg):
     check(ops_eval["fused_attention_block"] == (depth * test_batches, 0),
           f"eval launches {ops_eval}")
     return launches
+
+
+def qat_int8_block_inputs(b, n, seed, device, fresh=False):
+    """fp32 activations and one ViT-S/16 block's INT8 QAT operands: the
+    Block of :func:`calibrated_int8_block`, each Linear weight through
+    its symmetric int8 fake-quant as the Block's second pass passes it
+    (the (in, out) view of the (out, in) result), and its (2, 5, 3) site
+    table, calibrated on these activations; ``fresh``: row 2 of each half
+    without statistics, as an observer that has seen nothing."""
+    from myrtle_vision_tpu_torch.quantize import QFormat, quantize_weight
+
+    x, fp = calibrated_int8_block(b, n, seed, device)
+    with torch.no_grad():
+        sites = fp.site_table()
+        if fresh:
+            sites[:, 2] = torch.tensor([1.1920929e-7, 0.0, 0.0],
+                                       device=device)
+    qkv, out, fc1, fc2 = fp._linears()
+    a, f = fp._modules["0"].fn.norm, fp._modules["1"].fn.norm
+
+    def qw(lin):
+        return quantize_weight(lin.weight.detach(), QFormat.PyTorchINT8,
+                               "linear", False).t()
+
+    attn = [a.weight.detach(), a.bias.detach(), qw(qkv), qkv.bias.detach(),
+            qw(out), out.bias.detach()]
+    mlp = [f.weight.detach(), f.bias.detach(), qw(fc1), fc1.bias.detach(),
+           qw(fc2), fc2.bias.detach()]
+    return x, attn, mlp, sites
+
+
+def site_step(site):
+    """The grid step of a site row: its scale, 0 without statistics."""
+    return float(site[0]) if float(site[2]) > 0.5 else 0.0
+
+
+def series_bar(s1, s2):
+    """(step, steps) of an output snapped at a site of step ``s2`` after
+    one of step ``s1`` in series (either 0 where it has no statistics):
+    the first's flip, through a slope under 1.2, reaches the second grid
+    as up to ceil(1.2 s1 / s2) + 1 of its steps."""
+    if s2 == 0.0:
+        return 1.2 * s1, 1
+    return s2, 1 + math.ceil(1.2 * s1 / s2)
+
+
+def compare_sites(label, got, ref, step, steps=1, same=I8_SAME):
+    """(max abs difference, share of the INT8 QAT bar taken, share of the
+    elements past the fp32 noise) of an output on a site's grid of step
+    ``step`` (0: unsnapped, the noise alone); fails the run past the
+    bar."""
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{label}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    diff = (got.double() - ref.double()).abs()
+    tight = FLOAT_TIGHT * ref.abs().max().item()
+    share = (diff > tight).double().mean().item()
+    worst = diff.max().item() / (tight + steps * step * (1 + 1e-5))
+    of_bar = max(share / (1 - same), worst)
+    check(of_bar <= 1.0, f"{label}: {share:.3g} of the elements past the "
+          f"fp32 noise, max abs {diff.max().item()} ({worst:.3g} of "
+          f"{steps} steps of {step:g})")
+    return diff.max().item(), of_bar, share
+
+
+def qat_int8_kernel_cases(x, attn, mlp, do, sites):
+    """(name, kernel thunk, plain thunk, bars) of each kernel in its INT8
+    mode on the two-pass QAT path at the main path's shapes and layouts,
+    inputs prepared with the plain versions as the chains prepare them:
+    the forward chains' LayerNorm, QKV, attention core (with its
+    statistics), projection, fc1 and fc2, and the backward's fc1
+    recompute and LayerNorm backward.  ``bars``: per output, (step,
+    steps) of its site grid, or an FP32 bar kind for an unsnapped
+    gradient."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    b, n, _ = x.shape
+    rows = b * n
+    x2, do2 = x.view(rows, C), do.view(rows, C)
+    sa, sm = sites[0], sites[1]
+    step = [[site_step(r) for r in t] for t in (sa, sm)]
+    s_a, b_a, wqkv, bqkv, wp, bp = attn
+    s_m, b_m, w1, b1, w2, _ = mlp
+    check(wqkv.t().is_contiguous() and w1.t().is_contiguous(),
+          "weights not in the main path's layout")
+    xn = K.layernorm_snap_rows_plain(x2, s_a, b_a, Int8Sites(sa[0]))
+    qkv3 = K.gemm_f32x3_epilogue_plain(xn, wqkv, bqkv, "bias_snap",
+                                       Int8Sites(sa[1])).view(b, n, 3 * C)
+    ctx = K.attention_core_snap_plain(qkv3, HEADS, SCALE, Int8Sites(sa[2]))
+    xm = K.layernorm_snap_rows_plain(x2, s_m, b_m, Int8Sites(sm[0]))
+    g = K.gemm_f32x3_epilogue_plain(xm, w1, b1, "bias_snap_gelu_snap",
+                                    Int8Sites(sm[1], sm[2]))
+    dxn = K.gemm_f32x3_epilogue_plain(do2, wp.t(), None, "f32", Int8Sites())
+
+    def mm(name, a, w, bias, epilogue, q, bars, residual=None):
+        args = (a, w, bias, epilogue, q)
+        return (f"gemm_f32x3_epilogue[{name}]",
+                lambda: K.gemm_f32x3_epilogue_cuda(*args, residual=residual),
+                lambda: K.gemm_f32x3_epilogue_plain(*args, residual=residual),
+                bars)
+
+    fc1_bar = series_bar(step[1][1], step[1][2])
+    return [
+        ("layernorm_snap_rows[int8]",
+         lambda: K.layernorm_snap_rows_cuda(x2, s_a, b_a, Int8Sites(sa[0])),
+         lambda: K.layernorm_snap_rows_plain(x2, s_a, b_a, Int8Sites(sa[0])),
+         ((step[0][0], 1),)),
+        mm("qkv,bias+site", xn, wqkv, bqkv, "bias_snap", Int8Sites(sa[1]),
+           ((step[0][1], 1),)),
+        ("attention_core_f32[site,stats]",
+         lambda: K.attention_core_snap_cuda(qkv3, HEADS, SCALE,
+                                            Int8Sites(sa[2]), stats=True),
+         lambda: K.attention_core_snap_plain(qkv3, HEADS, SCALE,
+                                             Int8Sites(sa[2]), stats=True),
+         ((step[0][2], 1), "kernel", "kernel")),
+        mm("proj,bias+site+residual+site", ctx.view(rows, C), wp, bp,
+           "bias_snap_residual_snap", Int8Sites(sa[3], sa[4]),
+           (series_bar(step[0][3], step[0][4]),), residual=x2),
+        mm("fc1,bias+site+gelu+site", xm, w1, b1, "bias_snap_gelu_snap",
+           Int8Sites(sm[1], sm[2]), (fc1_bar,)),
+        mm("fc2,bias+site+residual+site", g, w2, mlp[5],
+           "bias_snap_residual_snap", Int8Sites(sm[3], sm[4]),
+           (series_bar(step[1][3], step[1][4]),), residual=x2),
+        # GELU' of a flipped h moves by at most max|GELU''| (0.8) a step
+        mm("fc1 remat,bias+site+gelu+site+gelu'", xm, w1, b1,
+           "bias_snap_gelu_snap_grad", Int8Sites(sm[1], sm[2]),
+           (fc1_bar, (step[1][1], 1))),
+        ("layernorm_snap_rows_bwd[int8]",
+         lambda: K.layernorm_rows_bwd_cuda(x2, s_a, dxn, do2, Int8Sites()),
+         lambda: K.layernorm_rows_bwd_plain(x2, s_a, dxn, do2, Int8Sites()),
+         ("kernel", "sum", "sum")),
+    ]
+
+
+def qat_int8_op_cases(x, attn, mlp, do, sites):
+    """(name, kernel thunk, plain thunk, bars) of both INT8 QAT ops,
+    forward and backward (the attention's with its qkv rows saved and
+    recomputed), each backward from its own path's forward."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
+    from myrtle_vision_tpu_torch.ops import fused_mlp as fm
+
+    res = [fa._forward_q(kern, x, *attn, HEADS, SCALE, sites[0],
+                         record=True)[1] for kern in (K.CUDA, K.PLAIN)]
+    grads = ("chain",) + ("sum",) * 6
+    chain = ((site_step(sites[0][4]), I8_CHAIN_STEPS),)
+
+    def attn_back(kern, saved):
+        ctx, m, rs, qkv = res[kern is K.PLAIN]
+        return fa._backward_q(kern, do, x, *attn[:-1], ctx, m, rs,
+                              qkv if saved else None, HEADS, SCALE, sites[0])
+
+    return [
+        ("fused_attention_block_i8",
+         lambda: fa.fused_attention_block_i8(x, *attn, sites[0], HEADS,
+                                             SCALE),
+         lambda: fa.fused_attention_block_i8_plain(x, *attn, sites[0],
+                                                   HEADS, SCALE), chain),
+        ("fused_mlp_block_i8",
+         lambda: fm.fused_mlp_block_i8(x, *mlp, sites[1]),
+         lambda: fm.fused_mlp_block_i8_plain(x, *mlp, sites[1]),
+         ((site_step(sites[1][4]), I8_CHAIN_STEPS),)),
+        ("fused_attention_block_i8[bwd,saved qkv]",
+         lambda: attn_back(K.CUDA, True), lambda: attn_back(K.PLAIN, True),
+         grads),
+        ("fused_attention_block_i8[bwd,recomputed qkv]",
+         lambda: attn_back(K.CUDA, False), lambda: attn_back(K.PLAIN, False),
+         grads),
+        ("fused_mlp_block_i8[bwd]",
+         lambda: fm._backward_q(K.CUDA, do, x, *mlp[:-1], sites[1]),
+         lambda: fm._backward_q(K.PLAIN, do, x, *mlp[:-1], sites[1]), grads),
+    ]
+
+
+def phase_kernels_qat_int8(device):
+    """Each kernel's INT8 mode and both INT8 QAT ops, forward and
+    backward, against the plain versions at B=64, N=197, with calibrated
+    sites and with row 2 of each half fresh; returns the largest abs error
+    of each op, forward and backward, with calibrated sites."""
+    errors = {}
+    for fresh in (False, True):
+        tag = "B=64,N=197, " + ("row 2 fresh" if fresh else "calibrated")
+        x, attn, mlp, sites = qat_int8_block_inputs(64, N, seed=64197 + 5,
+                                                    device=device,
+                                                    fresh=fresh)
+        do = seeded(np.random.RandomState(64197 + 6), (64, N, C), 1.0,
+                    device)
+        cases = (qat_int8_kernel_cases(x, attn, mlp, do, sites)
+                 + qat_int8_op_cases(x, attn, mlp, do, sites))
+        for name, kernel, plain, bars in cases:
+            outs, refs = as_tuple(kernel()), as_tuple(plain())
+            check(len(outs) == len(refs) == len(bars),
+                  f"{name}: {len(outs)} outputs")
+            worst, shares = (0.0, 0.0), []
+            for i, (got, ref, kind) in enumerate(zip(outs, refs, bars)):
+                label = f"qat-int8: {name} {tag} output {i}"
+                if isinstance(kind, tuple):
+                    step, steps = kind
+                    same = (I8_CHAIN_SAME if steps == I8_CHAIN_STEPS
+                            else I8_SAME)
+                    max_abs, of_bar, share = compare_sites(
+                        label, got, ref, step, steps, same)
+                    shares.append(f"{share:.5f}")
+                else:
+                    max_abs, of_bar = compare(label, got, ref,
+                                              *bar(kind, ref))
+                worst = max(worst, (of_bar, max_abs))
+            kinds = "/".join(k if isinstance(k, str) else
+                             f"{k[1]} step(s) of {k[0]:.4g}" for k in bars)
+            print(f"qat-int8: kernels: {name} {tag} max_abs {worst[1]:.6g}, "
+                  f"{worst[0]:.4f} of the bar ({kinds}; shares past the "
+                  f"fp32 noise {', '.join(shares) or 'n/a'})")
+            if not fresh and name.startswith("fused_"):
+                key = (name.split("[")[0]
+                       + ("[bwd]" if "[bwd" in name else ""))
+                errors[key] = max(errors.get(key, 0.0), worst[1])
+        del x, attn, mlp, sites, do
+    return errors
+
+
+def phase_qat_int8(device, data_config, data_cfg):
+    """The ViT-S/16 train CLI in PyTorchINT8 (two-pass QAT) through the
+    INT8 QAT ops, forward and backward; its last checkpoint through the
+    eval CLI (the simulation's eval forward) and the PTQ CLI (convert, the
+    converted K9 / K10 forward).  Returns the op launches of the train
+    run."""
+    from myrtle_vision_tpu_torch.classification import test as eval_cli
+    from myrtle_vision_tpu_torch.classification import test_quantize as ptq
+    from myrtle_vision_tpu_torch.classification import train as train_cli
+
+    config = vit_small_config()
+    config["vit_config"]["q_format"] = "PyTorchINT8"
+    tc = config["train_config"]
+    tc.update(output_directory=os.path.join(WORK, "int8_qat"),
+              checkpoint_path="", epochs=1, warmup_epochs=0,
+              pretrained_backbone=None, iters_per_checkpoint=3,
+              iters_per_val=3)
+    config["data_config_path"] = data_cfg
+    cfg = write_json("vit_small_qat_int8.json", config)
+    depth = config["vit_config"]["depth"]
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with counting_plain_calls() as plain_calls, \
+            contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "Epoch", "WARNING")):
+            print(f"qat-int8: {line}")
+    steps = state.iteration
+    losses = [float(v) for v in
+              re.findall(r"Iteration \d+:\tloss=(\S+)\tacc=", text)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, train_loader, val_loader, (micro, n_accum) = \
+            train_cli.build_train(config, device)
+    validations = len(range(0, steps, tc["iters_per_val"]))
+    per = depth * n_accum * steps  # validation runs no fused op
+    print(f"qat-int8: ViT-S/16 train CLI in PyTorchINT8 on cuda, {steps} "
+          f"steps of {n_accum} x {micro} images and {validations} "
+          f"validations of {len(val_loader)} batch (the simulation's eval "
+          f"forward) in {took:.1f} s: op launches (forward, backward) {ops}, "
+          f"expected ({per}, {per}) of each INT8 QAT op ({depth} a "
+          f"micro-batch) and none of another; plain-version calls "
+          f"{plain_calls['n']}; kernels {launches}")
+    check(steps >= 3 and len(losses) == steps, f"{steps} steps, {losses}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    for op, count in ops.items():
+        want = (per, per) if op.endswith("_i8") else (0, 0)
+        check(count == want, f"{op} launches {count}, expected {want}")
+    check(plain_calls["n"] == 0, "the INT8 QAT run called a plain version")
+    check(all(launches[k] > 0 for k in ("layernorm_snap_rows",
+                                         "gemm_f32x3_epilogue",
+                                         "attention_core_f32",
+                                         "colsum_rows") + QAT_KERNELS),
+          f"a kernel never launched: {launches}")
+    check(launches["attention_core_f32"] == per
+          and launches["attention_core_f32_bwd"] == per
+          and launches["layernorm_snap_rows_bwd"] == 2 * per,
+          f"kernel launches {launches}")
+
+    run_dir = sorted(glob.glob(tc["output_directory"] + "_*"))[-1]
+    ckpts = sorted(os.listdir(run_dir))
+    check(ckpts == [f"vit_{i:06}" for i in range(0, steps, 3)]
+          + [f"vit_{steps:06}"], f"checkpoints {ckpts}")
+    first_step_check(model, train_loader, os.path.join(run_dir, "vit_000000"),
+                     n_accum, micro, losses[0], tag="qat-int8")
+    del model, train_loader, val_loader
+
+    # the last checkpoint, observers and all, through the eval CLI and the
+    # PTQ CLI
+    tc["checkpoint_path"] = os.path.join(run_dir, ckpts[-1])
+    tc["drop_last_batch"] = False
+    cfg = write_json("vit_small_qat_int8_eval.json", config)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gts, preds, logits = eval_cli.main(["-c", cfg, "--device", "cuda"])
+    _, ops_eval = read_counts()
+    check(logits.shape == (len(gts), data_config["number_of_classes"])
+          and bool(torch.isfinite(logits).all()), "eval of the checkpoint")
+    check(all(v == (0, 0) for v in ops_eval.values()),
+          f"the simulation's eval forward launched {ops_eval}")
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gts_q, preds_q, logits_q = ptq.main(["-c", cfg, "--device", "cuda",
+                                             "--calib_steps", "2"])
+    launches_q, ops_q = read_counts()
+    batches = math.ceil(len(gts_q) / micro)
+    check(np.array_equal(gts, gts_q) and bool(torch.isfinite(logits_q).all()),
+          "the PTQ CLI's test split")
+    check(ops_q["int8_attention_block"] == (depth * batches, 0)
+          and ops_q["int8_mlp_block"] == (depth * batches, 0),
+          f"converted INT8 launches {ops_q}")
+    print(f"qat-int8: checkpoint {ckpts[-1]} through the eval CLI (the INT8 "
+          f"simulation): {len(gts)} test images, accuracy "
+          f"{float(np.mean(gts == preds)):.4f}; through the PTQ CLI (2 more "
+          f"calibration batches, convert, the converted K9 / K10 forward: "
+          f"int8_attention_block {ops_q['int8_attention_block'][0]} "
+          f"launches, gemm_s8_epilogue {launches_q['gemm_s8_epilogue']}): "
+          f"accuracy {float(np.mean(gts_q == preds_q)):.4f}; the two argmax "
+          f"agree on {float(np.mean(preds == preds_q)):.4f} of the images")
+    return ops
 
 
 def phase_quantize(device, data_config, data_cfg):
@@ -2500,7 +2911,7 @@ def paired_ms(kernel, plain, iters=20, warmup=3):
 def time_case(totals, name, kernel, plain, count, c, power, tag):
     """Kernel and plain ms of one case (paired), its yardstick's ms, its
     bound; added, times ``count``, to its kernel's totals; returns
-    (bound ms, yardstick ms or None)."""
+    (bound ms, yardstick ms or None, what bounds it)."""
     k_ms, p_ms = paired_ms(kernel, plain)
     lib_ms = None if c["library"] is None else cuda_ms(c["library"])
     b_ms, by = bound(c)
@@ -2519,29 +2930,39 @@ def time_case(totals, name, kernel, plain, count, c, power, tag):
         acc["library_ms"] = None
     else:
         acc["library_ms"] += count * lib_ms
-    return b_ms, lib_ms
+    return b_ms, lib_ms, by
 
 
 def time_chain(cases, name, kernel, plain, power, tag):
     """A block-half chain: paired kernel and plain ms, and for the TPU
     kernel it replaces, the kernel launches of one call and the sums of
-    its cases' bounds and yardsticks."""
+    its cases' bounds and yardsticks.  Returns {ms, plain_ms, bound_ms,
+    bound_by, library_ms} (the last three None where no TPU kernel names
+    the chain)."""
     k_ms, p_ms = paired_ms(kernel, plain)
     reset_counts()
     kernel()
     launches = {k: v for k, v in read_counts()[0].items() if v}
     line = (f"timing: {name} {tag} kernel chain {k_ms:.4f} ms plain "
             f"{p_ms:.4f} ms [{power}]")
+    out = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": None, "bound_by": None,
+           "library_ms": None}
     for tpu, (chain, parts) in TPU_CHAINS.items():
         if chain == name:
             b_ms = sum(cases[p][0] for p in parts)
             libs = [cases[p][1] for p in parts if cases[p][1] is not None]
             missing = [p for p in parts if cases[p][1] is None]
+            by = {"bytes": 0.0, "operations": 0.0}
+            for p in parts:
+                by[cases[p][2]] += cases[p][0]
+            out.update(bound_ms=b_ms, bound_by=max(by, key=by.get),
+                       library_ms=sum(libs))
             line += (f"; {tpu}: launches {launches}, bound {b_ms:.4f} ms, "
                      f"yardsticks {sum(libs):.4f} ms"
                      + (f" (none for {', '.join(missing)})" if missing
                         else ""))
     print(line)
+    return out
 
 
 def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
@@ -2598,6 +3019,17 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     for name, kernel, plain, _ in qat_op_cases(xf, af, mf, do_f, qspec):
         time_chain(cases, name, kernel, plain, power, tag)
     del xf, af, mf, do_f
+    # the INT8 QAT chains (K1-K4 int8): the qspec chains' kernels at the
+    # same shapes, so the cases' bounds and yardsticks above
+    xq, aq, mq, sq = qat_int8_block_inputs(b, N, seed=261, device=device)
+    do_q = seeded(np.random.RandomState(262), (b, N, C), 1.0, device)
+    for name, kernel, plain, _ in qat_int8_op_cases(xq, aq, mq, do_q, sq):
+        timed = time_chain(cases, name, kernel, plain, power,
+                           tag + " (INT8 QAT step)")
+        for tpu, (chain, _) in TPU_CHAINS.items():
+            if chain == name:
+                totals[tpu] = timed
+    del xq, aq, mq, sq, do_q
     # K11 at the patch embedding's pre_linear site, once a forward
     from myrtle_vision_tpu_torch.ops import _kernels as K
 
@@ -2696,7 +3128,8 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     fp32_step = (k_ms, kernel_peak(lambda: kernel_step(state, batch,
                                                        tc["lr"])))
     del state, model
-    time_qat_step(imgs, batch, tc, fp32_step, power)
+    qat_ms = time_qat_step(imgs, batch, tc, fp32_step, power)
+    time_qat_int8_step(imgs, batch, tc, qat_ms, power)
     del imgs, batch
     time_detection(totals, device, power)
     time_detection_train(totals, device, power)
@@ -2761,6 +3194,74 @@ def time_qat_step(imgs, batch, tc, fp32_step, power):
         "colsum_rows": ("colsum",)})
     print(f"timing: FP16_32 QAT train step profile (B={b}, one kernel-path "
           f"step): {line} [{power}]")
+    return k_ms
+
+
+def time_qat_int8_step(imgs, batch, tc, qat_ms, power):
+    """One two-pass PyTorchINT8 QAT train step of ViT-S/16 (the
+    calibrating pass, the differentiated pass, backward, AdamW) at the
+    batch of the FP32 step, kernel and plain path, beside this run's
+    FP16_32 QAT step (``qat_ms``); pass 1, pass 2 and the backward apart
+    (CUDA events, the mean of three steps), the peak device memory and a
+    device profile of one kernel-path step."""
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.training.classification import make_loss_fn
+    from myrtle_vision_tpu_torch.training.optim import (
+        create_optimizer,
+        cross_entropy_loss,
+    )
+    from myrtle_vision_tpu_torch.training.trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    b = imgs.shape[0]
+    model = ViT("classification", 224, 16, 45, 384, 12, 6, 1536,
+                q_format="PyTorchINT8", device=imgs.device)
+    state = TrainState(model, create_optimizer(tc, model))
+
+    def plain_loss(mb):
+        logits = two_pass(model, mb["image"], plain=True)
+        return cross_entropy_loss(logits, mb["label"]), {"metrics": {}}
+
+    kernel_step = make_train_step(make_loss_fn(model), 1)
+    plain_step = make_train_step(plain_loss, 1)
+    k_ms, p_ms = paired_ms(lambda: kernel_step(state, batch, tc["lr"]),
+                           lambda: plain_step(state, batch, tc["lr"]),
+                           iters=3, warmup=1)
+    peak = kernel_peak(lambda: kernel_step(state, batch, tc["lr"]))
+    img, labels = batch["image"][0], batch["label"][0]
+    splits = []
+    for _ in range(4):  # the first warms up
+        model.zero_grad(set_to_none=True)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with torch.no_grad():
+            model(img, calibrating=True)
+        ev[1].record()
+        loss = cross_entropy_loss(model(img, int8_fused=True), labels)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    p1, p2, bw = (sum(v) / 3 for v in zip(*splits[1:]))
+    print(f"timing: ViT-S/16 PyTorchINT8 two-pass QAT train step B={b} "
+          f"(calibrating pass, differentiated pass, backward, AdamW): kernel "
+          f"path {k_ms:.3f} ms = {b / k_ms * 1e3:.1f} img/s, plain path "
+          f"{p_ms:.3f} ms = {b / p_ms * 1e3:.1f} img/s, peak device memory "
+          f"{peak:.2f} GiB; pass 1 {p1:.3f} ms, pass 2 {p2:.3f} ms, backward "
+          f"{bw:.3f} ms (CUDA events, mean of 3); the FP16_32 QAT step of "
+          f"this run {qat_ms:.3f} ms [{power}]")
+    line = device_profile(lambda: kernel_step(state, batch, tc["lr"]), {
+        "gemm_f32x3_epilogue": ("gemm_f32x3",),
+        "attention_core_f32": ("attention_core_f32_kernel",),
+        "attention_core_f32_bwd": ("attention_core_f32_bwd",),
+        "LayerNorm, forward and backward": ("layernorm_snap_rows",
+                                            "layernorm_rows_bwd"),
+        "colsum_rows": ("colsum",)})
+    print(f"timing: PyTorchINT8 two-pass QAT train step profile (B={b}, one "
+          f"kernel-path step): {line} [{power}]")
 
 
 def time_detection(totals, device, power):
@@ -3016,6 +3517,8 @@ def main():
     float_launches, float_ckpt, float_kwargs = phase_quantize_float(
         device, data_config, data_cfg)
     qat_launches = phase_qat(device, data_config, data_cfg)
+    i8_errors = phase_kernels_qat_int8(device)
+    i8_ops = phase_qat_int8(device, data_config, data_cfg)
     t0 = time.perf_counter()
     det_data = make_detection_dataset()
     print(f"detect: synthetic DIOR-layout set (600 train, 96 val, 96 test "
@@ -3054,6 +3557,21 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": max(t["by"], key=t["by"].get),
+            "library_ms": t["library_ms"],
+        })
+    for name, (source, replaces, tpu) in INT8_QAT_VARIANTS.items():
+        t = totals[tpu]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            # the INT8 QAT train CLI's launches of the op, forward or
+            # backward; its largest error against the plain chain at B=64;
+            # per ViT-S/16 block at B=256 the chain's ms, the sums of its
+            # kernels' bounds and yardsticks
+            "launches": i8_ops[name.split("[")[0]][int("[bwd]" in name)],
+            "max_abs_err": i8_errors[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
     print(f"elapsed: {time.perf_counter() - START:.1f} s since the script "

@@ -18,10 +18,17 @@ reads as they are; ``checkpoint_path`` resumes from one.
 format's simulation (QAT: fp32 compute, the format's snaps at the JAX
 sites, straight-through gradients, AdamW as for FP32); its checkpoints
 hold fp32 parameters, which the eval CLI and the PTQ CLI
-(``test_quantize``) read as they read the JAX CLI's.  ``--device``
-defaults to ``cuda``; without a CUDA device that raises, it never carries
-on on the CPU.  PyTorchINT8 QAT, multi-device training and distillation
-are not ported yet (ROADMAP A5b, A9, A8).
+(``test_quantize``) read as they read the JAX CLI's.  ``q_format``
+PyTorchINT8 trains the INT8 simulation in the JAX package's two-pass QAT
+step (training/classification.py: a calibrating pass folds each batch
+into the observers, a second pass with the observers frozen is
+differentiated through the INT8 block-half ops); validation runs the
+simulation's eval forward, and the checkpoints carry the observers, so
+that the eval CLI evaluates them and the PTQ CLI calibrates on, converts
+and runs the converted INT8 model.  ``--device`` defaults to ``cuda``;
+without a CUDA device that raises, it never carries on on the CPU.
+Multi-device training and distillation are not ported yet (ROADMAP A9,
+A8).
 """
 from __future__ import annotations
 
@@ -88,10 +95,6 @@ def build_train(config, device):
         raise NotImplementedError(
             "distillation (distiller_config) is not ported yet; see "
             "ROADMAP.md A8")
-    if config["vit_config"]["q_format"] == "PyTorchINT8":
-        raise NotImplementedError(
-            "training in q_format PyTorchINT8 (two-pass INT8 QAT) is not "
-            "ported yet; see ROADMAP.md A5b")
     seed = train_config["seed"]
     seed_everything(seed)
 

@@ -1,6 +1,6 @@
 // attention_core_f32: the fp32 softmax attention core of the converted-INT8
 // attention block, ending on the int8 grid of the next observer site, and
-// of the float-format attention block, ending on the format's snap.
+// of the float-format and INT8 QAT attention blocks, ending on their snap.
 //
 // The per-head loop of the TPU kernels `_attn_kernel`
 // (myrtle_vision_tpu/ops/fused_int8_block.py; the same ops as
@@ -14,8 +14,11 @@
 //   ctx = (ph.vh + ph.vl) + pl.vh
 //   int8 mode:  out = clip(rint(ctx / s2) + zp2, 0, 255) - 128, int8
 //               (site 2, quant_out)
-//   snap mode:  out = snap(ctx), fp32 (the FloatingPoint(exp, man) snap
-//               of fake_quant.cuh, the pre_linear site of the projection);
+//   snap mode:  out = site0(snap(ctx)), fp32, under a snap policy of
+//               fake_quant.cuh: a float format's FloatingPoint(exp, man)
+//               snap (the pre_linear site of the projection), or INT8
+//               QAT's affine site snap with the quant_out observer's frozen
+//               row (`_snap_int8` of `_fwd_kernel`, qspec "int8");
 //               when the caller records for the backward, also the rowmax
 //               m and rs = 1 / rowsum (a true divide) of each query row,
 //               (B, H, N) fp32, as `_attn_heads_fwd` returns them (null
@@ -71,15 +74,15 @@ __device__ __forceinline__ void split(float x, bf16* hi, bf16* lo) {
   *lo = __float2bfloat16_rn(__fsub_rn(x, __bfloat162float(h)));
 }
 
-// kSnap: fp32 out through `snap` with format `fmt`; else int8 out on the
+// kSnap: fp32 out through the snap policy `policy`; else int8 out on the
 // grid of `site`
-template <int D, bool kSnap>
+template <int D, bool kSnap, class Snaps>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_core_f32_kernel(const float* __restrict__ qkv,
                           const float* __restrict__ site,
                           void* __restrict__ out, float* __restrict__ m_out,
                           float* __restrict__ rs_out, int N, int heads,
-                          float scale, mvt::FloatFmt fmt) {
+                          float scale, Snaps policy) {
   constexpr int KLD = Layout<D>::KLD;
   constexpr int KT = D / 16;
   const Layout<D> lay(N);
@@ -231,12 +234,13 @@ attention_core_f32_kernel(const float* __restrict__ qkv,
       wmma::store_matrix_sync(s_w + dt * 16, u[dt][0], D, wmma::mem_row_major);
     }
     __syncwarp();
+    const auto q = mvt::resolve(policy);
     for (int c = lane; c < 16 * D; c += 32) {
       const int i = c / D, d = c % D;
       if (q0 + i < N) {
         const size_t o = (static_cast<size_t>(b) * N + q0 + i) * C + h * D + d;
         if (kSnap) {
-          static_cast<float*>(out)[o] = mvt::float_snap(s_w[c], fmt);
+          static_cast<float*>(out)[o] = mvt::site(mvt::snap(s_w[c], q), q, 0);
         } else {
           const float q = fminf(
               fmaxf(__fadd_rn(rintf(s_w[c] / s_out), zp_out), 0.f), 255.f);
@@ -249,36 +253,36 @@ attention_core_f32_kernel(const float* __restrict__ qkv,
   }
 }
 
-template <int D, bool kSnap>
+template <int D, bool kSnap, class Snaps>
 int launch(const void* qkv, const void* site, void* out, void* m, void* rs,
-           int B, int N, int heads, float scale, mvt::FloatFmt fmt,
+           int B, int N, int heads, float scale, Snaps policy,
            cudaStream_t stream) {
   const size_t smem = Layout<D>(N).bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_core_f32_kernel<D, kSnap>,
+      attention_core_f32_kernel<D, kSnap, Snaps>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_core_f32_kernel<D, kSnap>
+  attention_core_f32_kernel<D, kSnap, Snaps>
       <<<B * heads, kWarps * 32, smem, stream>>>(
           static_cast<const float*>(qkv), static_cast<const float*>(site),
           out, static_cast<float*>(m), static_cast<float*>(rs), N, heads,
-          scale, fmt);
+          scale, policy);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kSnap>
+template <bool kSnap, class Snaps>
 int launch_d(const void* qkv, const void* site, void* out, void* m, void* rs,
-             int B, int N, int heads, int D, float scale, mvt::FloatFmt fmt,
+             int B, int N, int heads, int D, float scale, Snaps policy,
              cudaStream_t stream) {
   if (B <= 0 || heads <= 0 || N <= 0 || N > kMaxN ||
       (m == nullptr) != (rs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64)
-    return launch<64, kSnap>(qkv, site, out, m, rs, B, N, heads, scale, fmt,
-                             stream);
+    return launch<64, kSnap>(qkv, site, out, m, rs, B, N, heads, scale,
+                             policy, stream);
   if (D == 32)
-    return launch<32, kSnap>(qkv, site, out, m, rs, B, N, heads, scale, fmt,
-                             stream);
+    return launch<32, kSnap>(qkv, site, out, m, rs, B, N, heads, scale,
+                             policy, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -293,21 +297,27 @@ MVT_EXPORT int mvt_attention_core_f32(const void* qkv, const void* site,
                                       int D, float scale, void* stream) {
   if (site == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_d<false>(qkv, site, out, nullptr, nullptr, B, N, heads, D,
-                         scale, mvt::FloatFmt(8, 22),
+                         scale, mvt::QSpec(8, 22, 0),
                          static_cast<cudaStream_t>(stream));
 }
 
-// qkv (B, N, 3C) fp32; out (B, N, C) fp32, the context through the
-// FloatingPoint(exp_bits, man_bits) snap; m and rs (B, H, N) fp32, the
-// rowmax and reciprocal rowsum, or both null
+// qkv (B, N, 3C) fp32; out (B, N, C) fp32, the context through the snap
+// policy: site, the (3,) fp32 row (scale, zero point, has_stats) of the
+// INT8 site table on the device, or null for the FloatingPoint(exp_bits,
+// man_bits) snap; m and rs (B, H, N) fp32, the rowmax and reciprocal
+// rowsum, or both null
 MVT_EXPORT int mvt_attention_core_f32_snap(const void* qkv, void* out,
                                            void* m, void* rs, int B, int N,
                                            int heads, int D, float scale,
                                            int exp_bits, int man_bits,
-                                           void* stream) {
+                                           const void* site, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (site != nullptr)
+    return launch_d<true>(
+        qkv, nullptr, out, m, rs, B, N, heads, D, scale,
+        mvt::Int8Sites{static_cast<const float*>(site), nullptr}, s);
   if (!mvt::float_fmt_ok(exp_bits, man_bits))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_d<true>(qkv, nullptr, out, m, rs, B, N, heads, D, scale,
-                        mvt::FloatFmt(exp_bits, man_bits),
-                        static_cast<cudaStream_t>(stream));
+                        mvt::QSpec(exp_bits, man_bits, 0), s);
 }

@@ -1,7 +1,10 @@
-// gemm_f32x3_epilogue: the fp32 products of the float-format block halves,
-// forward and backward, out[M, N] = epilogue(A[M, K] @ B[K, N] (+ bias[N])).
+// gemm_f32x3_epilogue: the fp32 products of the float-format and INT8 QAT
+// block halves, forward and backward, out[M, N] = epilogue(A[M, K] @ B[K, N]
+// (+ bias[N])).
 //
-// The products inside the TPU block kernels with qspec set
+// The products inside the TPU block kernels with qspec set (a float format,
+// or "int8", the two-pass INT8 QAT variants `fused_attention_block_i8` and
+// `fused_mlp_block_i8`)
 // (myrtle_vision_tpu/ops/fused_attention_block.py `_qkv_rows`, the output
 // projection of `_fwd_kernel` and the products of `_bwd_one_image`;
 // myrtle_vision_tpu/ops/fused_mlp.py `fc1`, `fc2` and `_bwd_one_image`):
@@ -12,17 +15,20 @@
 // whole K on the tensor cores (WMMA 16x16x16, bf16 in, fp32 accumulators:
 // every term is exact, only the fp32 sum order is the hardware's), and are
 // added as (P1 + P2) + P3, the order of `dot_high3`.  Epilogues, with the
-// snaps of fake_quant.cuh (qspec = (exp_bits, man_bits, all_sites) at run
-// time), each rounding in the plain version's order:
-//   0  snap_all(P + bias)                                    (QKV)
-//   1  snap(snap_all(GELU(snap_all(P + bias))))              (fc1: fc1
-//      act_out, GELU act_out, fc2 act_in; the polynomial erf, exact divide)
-//   2  snap_all(residual + snap_all(P + bias))       (output projection
-//      and fc2: act_out, then the residual add's functional site)
+// snap policies of fake_quant.cuh (a float format's qspec = (exp_bits,
+// man_bits, all_sites), or PyTorchINT8's frozen observer sites, site0 and
+// site1 the epilogue's first and second; each snap the identity under the
+// other policy), each rounding in the plain version's order:
+//   0  site0(snap_all(P + bias))                             (QKV)
+//   1  h = site0(snap_all(P + bias)), site1(snap(snap_all(GELU(h))))
+//      (fc1: fc1 act_out, GELU act_out, fc2 act_in; the polynomial erf,
+//      exact divide)
+//   2  site1(snap_all(residual + site0(snap_all(P + bias))))  (output
+//      projection and fc2: act_out, then the residual add's functional site)
 //   3  P, no bias, no snap                 (d_o, dxn, dg and the weight
 //      gradients; with split K, one partial product per blockIdx.z)
-//   4  h = snap_all(P + bias): snap(snap_all(GELU(h))) out and GELU'(h) into
-//      `aux`                   (the backward's fc1 recompute, one erf)
+//   4  h = site0(snap_all(P + bias)): site1(snap(snap_all(GELU(h)))) out and
+//      GELU'(h) into `aux`     (the backward's fc1 recompute, one erf)
 //   5  P * aux, and the fp32 column sums of that per 128-row tile into
 //      `colpart`               (dh = dg * GELU'(h), db1)
 // Layouts: A is row-major (M, K), or column-major -- the (K, M) activation
@@ -137,13 +143,13 @@ __device__ __forceinline__ void split4(float4 v, bf16* hi, bf16* lo) {
   reinterpret_cast<__nv_bfloat162*>(lo)[1] = l23;
 }
 
-template <bool kACol, bool kBRow, int kEpi>
+template <bool kACol, bool kBRow, int kEpi, class Snaps>
 __global__ void __launch_bounds__(kThreads)
 gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
                   const float* __restrict__ bias,
                   const float* __restrict__ residual, float* __restrict__ out,
                   float* __restrict__ aux, float* __restrict__ colpart, int M,
-                  int N, int K, int k_split, mvt::QSpec q) {
+                  int N, int K, int k_split, Snaps policy) {
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
   bf16* Ah = reinterpret_cast<bf16*>(smem);
   bf16* Al = Ah + kATile;
@@ -234,7 +240,10 @@ gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 
   // epilogue, one 16x16 fragment at a time through the warp's staging area;
-  // lane handles column (lane & 15) of rows 2t + (lane >> 4)
+  // lane handles column (lane & 15) of rows 2t + (lane >> 4); the INT8
+  // sites' rows are read here, after the main loop has released its
+  // registers
+  const auto q = mvt::resolve(policy);
   float* e_w = Es + warp * 16 * E_LD;
   float col_acc[2] = {0.f, 0.f};
   const size_t out_base = static_cast<size_t>(blockIdx.z) * M * N;
@@ -267,16 +276,19 @@ gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
             out[o] = v;
             continue;
           }
-          v = mvt::snap_all(__fadd_rn(v, bias[gc]), q);
+          v = mvt::site(mvt::snap_all(__fadd_rn(v, bias[gc]), q), q, 0);
           if (kEpi == kBiasSnapGeluSnap) {
-            v = mvt::snap(mvt::snap_all(mvt::gelu_poly(v), q), q);
+            v = mvt::site(mvt::snap(mvt::snap_all(mvt::gelu_poly(v), q), q),
+                          q, 1);
           } else if (kEpi == kBiasSnapGeluSnapGrad) {
             float grad;
-            v = mvt::snap(mvt::snap_all(mvt::gelu_and_grad_poly(v, &grad), q),
-                          q);
+            v = mvt::site(
+                mvt::snap(mvt::snap_all(mvt::gelu_and_grad_poly(v, &grad), q),
+                          q),
+                q, 1);
             aux[o] = grad;
           } else if (kEpi == kBiasSnapResidualSnap) {
-            v = mvt::snap_all(__fadd_rn(residual[o], v), q);
+            v = mvt::site(mvt::snap_all(__fadd_rn(residual[o], v), q), q, 1);
           }
           out[o] = v;
         }
@@ -300,16 +312,38 @@ gemm_f32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-template <bool kACol, bool kBRow, int kEpi>
+template <bool kACol, bool kBRow, int kEpi, class Snaps = mvt::QSpec>
 int launch(dim3 grid, const void* a, const void* b, const void* bias,
            const void* residual, void* out, void* aux, void* colpart, int M,
-           int N, int K, int k_split, mvt::QSpec q, cudaStream_t stream) {
-  gemm_f32x3_kernel<kACol, kBRow, kEpi><<<grid, kThreads, 0, stream>>>(
+           int N, int K, int k_split, Snaps q, cudaStream_t stream) {
+  gemm_f32x3_kernel<kACol, kBRow, kEpi, Snaps><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(bias), static_cast<const float*>(residual),
       static_cast<float*>(out), static_cast<float*>(aux),
       static_cast<float*>(colpart), M, N, K, k_split, q);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the forward epilogues (0, 1, 2, 4) under snap policy q
+template <class Snaps>
+int launch_snapping(dim3 grid, int epilogue, const void* a, const void* b,
+                    const void* bias, const void* residual, void* out,
+                    void* aux, int M, int N, int K, Snaps q,
+                    cudaStream_t s) {
+  switch (epilogue) {
+    case kBiasSnap:
+      return launch<false, false, kBiasSnap>(grid, a, b, bias, residual, out,
+                                             aux, nullptr, M, N, K, K, q, s);
+    case kBiasSnapGeluSnap:
+      return launch<false, false, kBiasSnapGeluSnap>(
+          grid, a, b, bias, residual, out, aux, nullptr, M, N, K, K, q, s);
+    case kBiasSnapResidualSnap:
+      return launch<false, false, kBiasSnapResidualSnap>(
+          grid, a, b, bias, residual, out, aux, nullptr, M, N, K, K, q, s);
+    default:
+      return launch<false, false, kBiasSnapGeluSnapGrad>(
+          grid, a, b, bias, residual, out, aux, nullptr, M, N, K, K, q, s);
+  }
 }
 
 }  // namespace
@@ -318,15 +352,19 @@ int launch(dim3 grid, const void* a, const void* b, const void* bias,
 // (N, K) torch weight row-major for epilogues 0, 1, 2 and 4 (b_row_major
 // 0), a row-major (K, N) matrix for 3 and 5 (b_row_major 1); bias fp32 (N,)
 // (0, 1, 2, 4); residual fp32 (M, N) (2); aux fp32 (M, N), written by 4 and
-// read by 5; colpart fp32 (ceil(M / 128), N) (5); out fp32 (M, N); qspec
-// (exp_bits, man_bits, all_sites) of the snaps (0, 1, 2, 4).  K % 4 == 0,
-// and N % 4 == 0 for a row-major b.
+// read by 5; colpart fp32 (ceil(M / 128), N) (5); out fp32 (M, N).  The
+// snap policy of 0, 1, 2 and 4: site0 (and for 1, 2, 4 site1), (3,) fp32
+// rows (scale, zero point, has_stats) of the INT8 site table on the device,
+// or site0 null for the float format qspec (exp_bits, man_bits,
+// all_sites).  K % 4 == 0, and N % 4 == 0 for a row-major b.
 MVT_EXPORT int mvt_gemm_f32x3(const void* a, const void* b, const void* bias,
                               const void* residual, void* out, void* aux,
                               void* colpart, int M, int N, int K,
                               int b_row_major, int epilogue, int exp_bits,
-                              int man_bits, int all_sites, void* stream) {
+                              int man_bits, int all_sites, const void* site0,
+                              const void* site1, void* stream) {
   const bool row_b = epilogue == kF32 || epilogue == kMulAux;
+  const bool int8 = site0 != nullptr;
   if (M <= 0 || N <= 0 || K <= 0 || K % 4 != 0 || epilogue < kBiasSnap ||
       epilogue > kMulAux || (b_row_major != 0) != row_b ||
       (row_b && N % 4 != 0) || (!row_b && bias == nullptr) ||
@@ -334,31 +372,26 @@ MVT_EXPORT int mvt_gemm_f32x3(const void* a, const void* b, const void* bias,
       ((epilogue == kBiasSnapGeluSnapGrad || epilogue == kMulAux) &&
        aux == nullptr) ||
       (epilogue == kMulAux && colpart == nullptr) ||
-      !mvt::float_fmt_ok(exp_bits, man_bits))
+      (int8 && (row_b || (epilogue != kBiasSnap && site1 == nullptr))) ||
+      (!int8 && !row_b && !mvt::float_fmt_ok(exp_bits, man_bits)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const mvt::QSpec q(exp_bits, man_bits, all_sites);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  switch (epilogue) {
-    case kBiasSnap:
-      return launch<false, false, kBiasSnap>(grid, a, b, bias, residual, out,
-                                             aux, colpart, M, N, K, K, q, s);
-    case kBiasSnapGeluSnap:
-      return launch<false, false, kBiasSnapGeluSnap>(
-          grid, a, b, bias, residual, out, aux, colpart, M, N, K, K, q, s);
-    case kBiasSnapResidualSnap:
-      return launch<false, false, kBiasSnapResidualSnap>(
-          grid, a, b, bias, residual, out, aux, colpart, M, N, K, K, q, s);
-    case kBiasSnapGeluSnapGrad:
-      return launch<false, false, kBiasSnapGeluSnapGrad>(
-          grid, a, b, bias, residual, out, aux, colpart, M, N, K, K, q, s);
-    case kF32:
-      return launch<false, true, kF32>(grid, a, b, bias, residual, out, aux,
-                                       colpart, M, N, K, K, q, s);
-    default:
-      return launch<false, true, kMulAux>(grid, a, b, bias, residual, out,
-                                          aux, colpart, M, N, K, K, q, s);
-  }
+  const mvt::QSpec none(8, 10, 0);  // the unsnapped epilogues read no snap
+  if (epilogue == kF32)
+    return launch<false, true, kF32>(grid, a, b, bias, residual, out, aux,
+                                     colpart, M, N, K, K, none, s);
+  if (epilogue == kMulAux)
+    return launch<false, true, kMulAux>(grid, a, b, bias, residual, out, aux,
+                                        colpart, M, N, K, K, none, s);
+  if (int8)
+    return launch_snapping(
+        grid, epilogue, a, b, bias, residual, out, aux, M, N, K,
+        mvt::Int8Sites{static_cast<const float*>(site0),
+                       static_cast<const float*>(site1)},
+        s);
+  return launch_snapping(grid, epilogue, a, b, bias, residual, out, aux, M, N,
+                         K, mvt::QSpec(exp_bits, man_bits, all_sites), s);
 }
 
 // Weight gradient: out = A^T-stored x B, i.e. A stored (K, M) row-major and

@@ -16,7 +16,7 @@
 // layernorm_snap_rows_bwd, takes fp32 x, scale and do, gives fp32 dx, and
 // recomputes xhat and rstd from snap(x) (the norm's act_in site, whose
 // gradient is straight-through; fake_quant.cuh), about 16 bytes moved per
-// element.
+// element; in INT8 QAT (qspec "int8", whose `snap` is the identity) from x.
 //
 // colsum_rows: fp32 column sums of a (rows, cols) bf16 or fp32 matrix, one
 // thread per column.  Where the TPU kernels accumulate these sums across
@@ -215,13 +215,19 @@ MVT_EXPORT int mvt_layernorm_rows_bwd(const void* x, const void* scale,
 }
 
 // the float-format form: x, dxn, d_out, dx fp32 (rows, cols); scale fp32
-// (cols,); qspec (exp_bits, man_bits, all_sites)
+// (cols,); qspec (exp_bits, man_bits, all_sites); int8 1 for PyTorchINT8's
+// sites, whose `snap` is the identity (x unsnapped, the qspec not read)
 MVT_EXPORT int mvt_layernorm_snap_rows_bwd(const void* x, const void* scale,
                                            const void* dxn, const void* d_out,
                                            void* dx, void* part, int rows,
                                            int cols, int blocks, float eps,
                                            int exp_bits, int man_bits,
-                                           int all_sites, void* stream) {
+                                           int all_sites, int int8,
+                                           void* stream) {
+  if (int8)
+    return launch_ln_bwd<float, false>(x, scale, dxn, d_out, dx, part, rows,
+                                       cols, blocks, eps, mvt::QSpec(8, 10, 0),
+                                       stream);
   if (!mvt::float_fmt_ok(exp_bits, man_bits))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_ln_bwd<float, true>(x, scale, dxn, d_out, dx, part, rows,

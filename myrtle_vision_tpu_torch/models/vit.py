@@ -1,14 +1,17 @@
 """Vision Transformer for classification and detection, in PyTorch:
-eval and training forward in FP32, the PyTorchINT8 format's calibration
-and converted inference, and the stateless float formats' (FP16_16,
-FP16_32, TF32) simulation, QAT training and converted inference.
+eval and training forward in FP32, the PyTorchINT8 format's calibration,
+simulation, two-pass QAT training and converted inference, and the
+stateless float formats' (FP16_16, FP16_32, TF32) simulation, QAT
+training and converted inference.
 
 Port of myrtle_vision_tpu/models/vit.py for the paths this package runs
 so far: without active dropout, ``decoder="classification"`` in
 ``q_format`` FP32 (inference and training), PyTorchINT8 (the calibrating
-forward and the converted model) and the float formats (inference and QAT
-training, up to the fused Block's length), and ``decoder="detection"`` (YOLOS: det tokens after the patches, the
-class and box heads on them) in FP32.  Parameters are named as in
+forward, the simulation's eval forward, QAT training up to the fused
+Block's length, and the converted model) and the float formats
+(inference and QAT training, up to the fused Block's length), and
+``decoder="detection"`` (YOLOS: det tokens after the patches, the class
+and box heads on them) in FP32.  Parameters are named as in
 the upstream reference state dict that myrtle_vision_tpu/utils/export.py
 writes
 (``transformer.layers.{i}.0.fn.fn.to_qkv.weight``, ...), so
@@ -39,7 +42,18 @@ residual (``transformer.layers.{i}.0`` and ``.1``).
 forward, folding each site's input into its observer first: the 3-pass
 bf16 products (ops/high_precision.py), the polynomial-erf GELU, the fp32
 attention core, all in plain PyTorch on any device, as the JAX package
-runs it outside any kernel.  With ``converted=True`` each Linear weight
+runs it outside any kernel.  ``forward(img)`` is the simulation's eval
+forward, the same composition with the observers frozen, full fp32
+products (the JAX HIGHEST dot) and the exact-erf GELU, as the JAX QDense
+and QGelu run it with ``calibrating=False``.  ``forward(img,
+int8_fused=True)`` is the second pass of the two-pass QAT step
+(training/classification.py): the calibrating forward's operations with
+the observers as the first pass left them, each block half one
+differentiable op with the frozen site table
+(ops/fused_attention_block.py ``fused_attention_block_i8``,
+ops/fused_mlp.py ``fused_mlp_block_i8``: the TPU kernels K1-K4 with
+``qspec="int8"``), the weights through their symmetric int8 fake-quant,
+every site straight-through.  With ``converted=True`` each Linear weight
 is int8 with an fp32 ``weight_scale`` (quantize.convert_params), and the
 forward is the converted model's: the patch embedding and the head as
 int8 products (``gemm_s8_epilogue``, the integer path of QDense), each
@@ -84,11 +98,15 @@ from myrtle_vision_tpu_torch.ops.attention import multi_head_attention
 from myrtle_vision_tpu_torch.ops.flash_attention import flash_attention
 from myrtle_vision_tpu_torch.ops.fused_attention_block import (
     fused_attention_block,
+    fused_attention_block_i8,
+    fused_attention_block_i8_plain,
     fused_attention_block_plain,
     fuses_at,
 )
 from myrtle_vision_tpu_torch.ops.fused_mlp import (
     fused_mlp_block,
+    fused_mlp_block_i8,
+    fused_mlp_block_i8_plain,
     fused_mlp_block_plain,
 )
 from myrtle_vision_tpu_torch.ops.fused_int8_block import (
@@ -99,13 +117,17 @@ from myrtle_vision_tpu_torch.ops.fused_int8_block import (
     int8_mlp_block_plain,
     weight_colsum,
 )
-from myrtle_vision_tpu_torch.ops.high_precision import matmul_high3
+from myrtle_vision_tpu_torch.ops.high_precision import (
+    matmul_fp32,
+    matmul_high3,
+)
 from myrtle_vision_tpu_torch.ops.interpolate import resize_bicubic
 from myrtle_vision_tpu_torch.quantize import (
     QSPECS,
     ActQuant,
     QFormat,
     act_quant,
+    affine_uint8_qparams,
     is_observer,
     quantize_weight,
     site_row,
@@ -156,12 +178,18 @@ def _make_int8(linear):
                            persistent=False)
 
 
-def _qdense(linear, x):
-    """QDense of the calibrating PyTorchINT8 forward: the Linear's weight
-    through its symmetric int8 fake-quant, a 3-pass product, the bias,
-    then the ``act_out`` site, which observes the result first."""
+def _qdense(linear, x, calibrating=True, update=None):
+    """QDense of the PyTorchINT8 simulation: the Linear's weight through
+    its symmetric int8 fake-quant (straight-through), the product, the
+    bias, then the ``act_out`` site.  ``calibrating`` (the JAX
+    ``calibrating=True``): a 3-pass product, the site observing the result
+    first unless ``update`` is False (the QAT step's second pass, its
+    observers frozen); else the eval forward's full fp32 product (the JAX
+    HIGHEST dot), the observers frozen."""
     w = quantize_weight(linear.weight, QFormat.PyTorchINT8, "linear", False)
-    return linear.act_out(matmul_high3(x, w.t()) + linear.bias, True)
+    y = (matmul_high3 if calibrating else matmul_fp32)(x, w.t())
+    return linear.act_out(y + linear.bias,
+                          calibrating if update is None else update)
 
 
 def _make_fp16(module):
@@ -255,11 +283,13 @@ class Block(nn.Module):
     count, sizes the attention op's qkv-saving budget as ``model_depth``
     does in the JAX Block.
     PyTorchINT8: the observer sites (see the module docstring), the
-    calibrating discrete-site forward (:meth:`forward_calibrating`) and,
-    converted, one INT8 op per half (:meth:`forward_converted`, the
-    ``int8_fuse`` branch).  A stateless float format: one op per half
-    with the format's ``qspec`` (:meth:`forward_float`, the ``fuse``
-    branch)."""
+    discrete-site forward, calibrating or the simulation's eval
+    (:meth:`forward_int8`), the two-pass QAT step's second pass, one op
+    per half with the frozen sites (:meth:`forward_int8_qat`, the
+    ``int8_qat_fuse`` branch) and, converted, one INT8 op per half
+    (:meth:`forward_converted`, the ``int8_fuse`` branch).  A stateless
+    float format: one op per half with the format's ``qspec``
+    (:meth:`forward_float`, the ``fuse`` branch)."""
 
     def __init__(self, dim, heads, dim_head, mlp_dim, dropout, depth,
                  device=None, q_format=QFormat.FP32, converted=False):
@@ -302,27 +332,69 @@ class Block(nn.Module):
 
     def site_table(self):
         """(2, 5, 3) fp32: the (scale, zero point, has_stats) rows of the
-        attention and the MLP half's sites."""
-        return torch.stack([site_row(getattr(m, n))
-                            for m, n in self._sites()]).view(2, 5, 3)
+        attention and the MLP half's sites, computed on the observers'
+        device from their buffers (each row :func:`site_row` of its
+        observer; nothing read on the host)."""
+        observers = [getattr(m, n) for m, n in self._sites()]
+        lo = torch.stack([o.min for o in observers])
+        hi = torch.stack([o.max for o in observers])
+        scale, zp = affine_uint8_qparams(lo, hi)
+        return torch.stack([scale, zp, (lo <= hi).float()], -1).view(2, 5, 3)
 
-    def forward_calibrating(self, x):
-        """The JAX Block's discrete-site composition for PyTorchINT8 with
-        ``calibrating=True``, fp32 (B, N, C) in and out: every site folds
-        its input into its observer, then fake-quantizes it."""
+    def forward_int8(self, x, calibrating=True):
+        """The JAX Block's discrete-site composition for PyTorchINT8
+        before convert, fp32 (B, N, C) in and out.  ``calibrating`` (the
+        JAX ``calibrating=True``): every site folds its input into its
+        observer, then fake-quantizes it; 3-pass products, the polynomial
+        erf.  Else the simulation's eval forward: the observers frozen,
+        full fp32 products (the JAX HIGHEST dot) and the exact erf, as the
+        JAX QDense and QGelu switch them."""
         a, f = self._modules["0"], self._modules["1"]
         attn, net = a.fn.fn, f.fn.fn.net
         y = a.fn.norm.act_out(layernorm_rows_plain(
-            x, a.fn.norm.weight, a.fn.norm.bias), True)
-        ctx = K.attention_context_f32(_qdense(attn.to_qkv, y), self.heads,
-                                      self.scale)
-        ctx = attn.quant_out(ctx, True)
-        x = a.res_add(_qdense(attn.to_out[0], ctx) + x, True)
+            x, a.fn.norm.weight, a.fn.norm.bias), calibrating)
+        ctx = K.attention_context_f32(_qdense(attn.to_qkv, y, calibrating),
+                                      self.heads, self.scale)
+        ctx = attn.quant_out(ctx, calibrating)
+        x = a.res_add(_qdense(attn.to_out[0], ctx, calibrating) + x,
+                      calibrating)
         y = f.fn.norm.act_out(layernorm_rows_plain(
-            x, f.fn.norm.weight, f.fn.norm.bias), True)
-        # QGelu calibrating: the polynomial erf
-        g = net[1].act_out(K.gelu_poly(_qdense(net[0], y)), True)
-        return f.res_add(_qdense(net[3], g) + x, True)
+            x, f.fn.norm.weight, f.fn.norm.bias), calibrating)
+        h = _qdense(net[0], y, calibrating)
+        g = K.gelu_poly(h) if calibrating else \
+            torch.nn.functional.gelu(h)
+        g = net[1].act_out(g, calibrating)
+        return f.res_add(_qdense(net[3], g, calibrating) + x, calibrating)
+
+    def forward_int8_qat(self, x, plain=False):
+        """The JAX Block's ``int8_qat_fuse`` branch, the second pass of
+        the two-pass INT8 QAT step, fp32 (B, N, C) in and out: each Linear
+        weight through its symmetric int8 fake-quant (straight-through),
+        then one op per half with the site table of the observers, which
+        the first pass has updated and this pass leaves as they are."""
+        n = x.shape[1]
+        if not fuses_at(n, self.heads, self.dim_head):
+            raise NotImplementedError(
+                f"{n} tokens in PyTorchINT8 QAT: the one-pass discrete step "
+                "beyond the fused gate is not ported yet (it needs the "
+                "3-pass attention products' backward); see ROADMAP.md A5b "
+                "and A5a")
+        a, f = self._modules["0"].fn, self._modules["1"].fn
+        qkv, out = a.fn.to_qkv, a.fn.to_out[0]
+        fc1, fc2 = f.fn.net[0], f.fn.net[3]
+
+        def qw(linear):
+            return quantize_weight(linear.weight, QFormat.PyTorchINT8,
+                                   "linear", False).t()
+
+        attn_op = fused_attention_block_i8_plain if plain else \
+            fused_attention_block_i8
+        mlp_op = fused_mlp_block_i8_plain if plain else fused_mlp_block_i8
+        sites = self.site_table().detach()
+        x = attn_op(x, a.norm.weight, a.norm.bias, qw(qkv), qkv.bias, qw(out),
+                    out.bias, sites[0], self.heads, self.scale, self.depth)
+        return mlp_op(x, f.norm.weight, f.norm.bias, qw(fc1), fc1.bias,
+                      qw(fc2), fc2.bias, sites[1])
 
     def forward_converted(self, x, sites, plain=False):
         """The converted model's block: one INT8 op per half, fp32 (B, N,
@@ -453,9 +525,12 @@ class ClassificationDecoder(nn.Module):
         y = layernorm_rows_plain(x[:, 0], self.norm.weight, self.norm.bias)
         return _dense(y, self.linear, dtype)
 
-    def forward_calibrating(self, x):
+    def forward_int8(self, x, calibrating=True, update=None):
+        """The PyTorchINT8 simulation's head (see :func:`_qdense`)."""
+        update = calibrating if update is None else update
         y = layernorm_rows_plain(x[:, 0], self.norm.weight, self.norm.bias)
-        return _qdense(self.linear, self.norm.act_out(y, True))
+        return _qdense(self.linear, self.norm.act_out(y, update), calibrating,
+                       update)
 
     def forward_float(self, x, q_format, converted, plain):
         """QLayerNorm and QDense in a stateless float format: the norm's
@@ -523,17 +598,19 @@ class ViT(nn.Module):
     """The ViT backbone with the classification or detection decoder
     (reference vit.py:164-323).
 
-    ``forward(img, plain=False, calibrating=False)``: img (B, H, W, C)
-    float NHWC -> fp32 logits (B, num_classes), or for detection the
-    {"pred_logits" (B, num_det_tokens, num_classes + 1), "pred_boxes"
-    (B, num_det_tokens, 4)} dict of fp32 tensors; differentiable in FP32,
-    on the card at any length (the fused ops' backward walks KV tiles
-    above 256 tokens, the discrete path has the flash backward);
-    ``plain`` selects the plain PyTorch versions in place of the kernels;
-    ``calibrating`` (PyTorchINT8 before convert, the only forward that
-    model runs here) updates the observers.  The float formats'
-    simulation is differentiable too (QAT); a converted model's fp16
-    weights take no gradient.
+    ``forward(img, plain=False, calibrating=False, int8_fused=False)``:
+    img (B, H, W, C) float NHWC -> fp32 logits (B, num_classes), or for
+    detection the {"pred_logits" (B, num_det_tokens, num_classes + 1),
+    "pred_boxes" (B, num_det_tokens, 4)} dict of fp32 tensors;
+    differentiable in FP32, on the card at any length (the fused ops'
+    backward walks KV tiles above 256 tokens, the discrete path has the
+    flash backward); ``plain`` selects the plain PyTorch versions in
+    place of the kernels; ``calibrating`` (PyTorchINT8 before convert)
+    updates the observers, and without it that model runs the
+    simulation's eval forward; ``int8_fused`` (PyTorchINT8 before
+    convert) is the QAT step's differentiable second pass.  The float
+    formats' simulation is differentiable too (QAT); a converted model's
+    fp16 weights take no gradient.
     The detection parameters (``pos_embedding_det``, ``det_tokens``)
     exist in every model so that the reference state dict loads strictly;
     the classification forward does not read them.
@@ -731,9 +808,15 @@ class ViT(nn.Module):
         pos = self.quant_pos_embedding(pos, calibrating)
         return self.pos_embedding_add(x + pos, calibrating)
 
-    def forward(self, img, plain: bool = False, calibrating: bool = False):
+    def forward(self, img, plain: bool = False, calibrating: bool = False,
+                int8_fused: bool = False):
         if self.training and (self.dropout or self.emb_dropout):
             raise NotImplementedError(f"active dropout: {_NOT_PORTED}")
+        if int8_fused and (not self.int8 or self.converted or calibrating):
+            raise ValueError(
+                "int8_fused is the second pass of the PyTorchINT8 QAT step: "
+                "a model before convert, its observers updated by a "
+                "calibrating forward first and frozen in this one")
         if self.float_format:
             return self._forward_float(img, plain)
         if self.converted:
@@ -742,11 +825,8 @@ class ViT(nn.Module):
                                  "calibrate before convert")
             return self._forward_converted(img, plain)
         if self.int8:
-            if not calibrating:
-                raise NotImplementedError(
-                    "the PyTorchINT8 simulation's eval forward (before "
-                    f"convert) is {_NOT_PORTED}; calibrate, then convert")
-            return self._forward_calibrating(img)
+            return self._forward_int8(img, calibrating or int8_fused,
+                                      int8_fused, plain)
         b, h, w, _ = img.shape
         dtype = self.compute_dtype
         x = _dense(self.patchify(img.to(dtype)), self.patch_to_embedding,
@@ -787,16 +867,24 @@ class ViT(nn.Module):
         pos = act_quant(self._positions(h, w).float(), q, "functional", plain)
         return act_quant(x + pos, q, "functional", plain)
 
-    def _forward_calibrating(self, img):
-        """PyTorchINT8 before convert: the discrete-site forward with
-        every observer updated."""
+    def _forward_int8(self, img, calibrating, fused=False, plain=False):
+        """PyTorchINT8 before convert, the JAX ViT's discrete sites.
+        ``calibrating``: every observer updated, 3-pass products, the
+        polynomial erf; else the simulation's eval forward (observers
+        frozen, full fp32 products, the exact erf).  ``fused``: the QAT
+        step's second pass, the calibrating forward's operations with the
+        observers frozen and each block half one op with their site table
+        (``plain`` takes its plain chains)."""
         _, h, w, _ = img.shape
-        x = self.quant_img(self.patchify(img.float()), True)
-        x = self._tokens_int8(_qdense(self.patch_to_embedding, x), h, w,
-                              True)
+        update = calibrating and not fused
+        x = self.quant_img(self.patchify(img.float()), update)
+        x = self._tokens_int8(
+            _qdense(self.patch_to_embedding, x, calibrating, update), h, w,
+            update)
         for block in self.transformer.layers:
-            x = block.forward_calibrating(x)
-        return self.decoder.forward_calibrating(x)
+            x = (block.forward_int8_qat(x, plain) if fused
+                 else block.forward_int8(x, calibrating))
+        return self.decoder.forward_int8(x, calibrating, update)
 
     def _forward_converted(self, img, plain):
         """The converted PyTorchINT8 model: int8 products throughout."""

@@ -136,15 +136,16 @@ def lib() -> ctypes.CDLL:
             ("mvt_attention_core_f32", [p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_f32_max_n", []),
             ("mvt_attention_core_f32_snap",
-             [p, p, p, p, i, i, i, i, f, i, i, p]),
+             [p, p, p, p, i, i, i, i, f, i, i, p, p]),
             ("mvt_attention_core_f32_bwd", [p] * 6 + [i, i, i, i, f, p]),
             ("mvt_attention_core_f32_bwd_max_n", []),
             ("mvt_fake_quant_rows", [p, p, ll, i, i, i, p]),
-            ("mvt_layernorm_snap_rows", [p, p, p, p, i, i, f, i, i, i, p]),
-            ("mvt_gemm_f32x3", [p] * 7 + [i] * 8 + [p]),
+            ("mvt_layernorm_snap_rows",
+             [p, p, p, p, i, i, f, i, i, i, p, p]),
+            ("mvt_gemm_f32x3", [p] * 7 + [i] * 8 + [p] * 3),
             ("mvt_gemm_f32x3_at", [p, p, p, i, i, i, i, p]),
             ("mvt_layernorm_snap_rows_bwd",
-             [p] * 6 + [i, i, i, f, i, i, i, p]),
+             [p] * 6 + [i, i, i, f, i, i, i, i, p]),
             ("mvt_flash_attention_fwd",
              [p] * 5 + [ll, i, i, ll, i, i, i, i, i, i, i, f, p]),
             ("mvt_flash_attention_bwd",

@@ -40,6 +40,14 @@ snap from csrc/fake_quant.cuh:
 - ``layernorm_rows_bwd``       csrc/layernorm_rows_bwd.cu, its fp32 snap form
                                (counted as ``layernorm_snap_rows_bwd``)
 
+and, with the same kernels, the PyTorchINT8 two-pass QAT block halves
+(``fused_attention_block_i8``, ``fused_mlp_block_i8``): each float-format
+function above takes, where it takes a ``qspec``, an
+:class:`~myrtle_vision_tpu_torch.ops.fake_quant.Int8Sites` instead, the
+frozen observer rows it snaps at, read on the device (the snap policy:
+``snap`` and ``snap_all`` are identities under it, ``snap_int8`` applies
+its rows).
+
 A PyTorchINT8 observer site is a (3,) fp32 tensor (scale, zero point,
 has_stats as 1 or 0), a row of the model's site table.
 
@@ -61,10 +69,12 @@ from types import SimpleNamespace
 import torch
 
 from myrtle_vision_tpu_torch.ops.fake_quant import (
+    Int8Sites,
     fixed_point_quantize,
     float_quantize,
     snap,
     snap_all,
+    snap_int8,
 )
 from myrtle_vision_tpu_torch.ops.high_precision import (
     bdot_pv_high3,
@@ -227,7 +237,8 @@ def layernorm_rows_bwd_plain(x, scale, dxn, do, qspec=None):
     fp32 -> (dx rounded to x.dtype, dscale, dbias), the last two fp32
     column sums of dxn * xhat and dxn.  With a float format's ``qspec``
     (fp32 throughout) xhat is recomputed from snap(x), the norm's act_in
-    site, whose gradient is straight-through."""
+    site, whose gradient is straight-through; with :class:`Int8Sites`
+    (fp32) from x."""
     xf = snap(x, qspec).float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
@@ -263,10 +274,9 @@ def quantize_i8(x, site):
 
 def requant(x, site):
     """The site's uint8 affine fake-quant; without statistics x as it is
-    (``_requant`` of myrtle_vision_tpu/ops/fused_int8_block.py)."""
-    s, zp = site[0], site[1]
-    q = torch.clamp(torch.round(x / s) + zp, 0.0, 255.0)
-    return torch.where(site[2] > 0.5, (q - zp) * s, x)
+    (``_requant`` of myrtle_vision_tpu/ops/fused_int8_block.py, the same
+    snap as the QAT kernels' ``snap_int8``)."""
+    return snap_int8(x, Int8Sites(site), 0)
 
 
 def layernorm_quant_rows_plain(x, scale, bias, site):
@@ -339,10 +349,11 @@ def fake_quant_rows_plain(x, mode, a, b):
 
 
 def layernorm_snap_rows_plain(x, scale, bias, qspec):
-    """The float-format LayerNorm prologue (``_qkv_rows`` / ``fc1`` with
-    ``qspec``): fp32 (..., C) -> snap(snap_all(LN(snap(x))))."""
+    """The float-format and INT8 QAT LayerNorm prologue (``_qkv_rows`` /
+    ``fc1`` with ``qspec``): fp32 (..., C) ->
+    snap_int8(snap(snap_all(LN(snap(x)))), site 0)."""
     y = layernorm_rows_plain(snap(x, qspec), scale, bias)
-    return snap(snap_all(y, qspec), qspec)
+    return snap_int8(snap(snap_all(y, qspec), qspec), qspec, 0)
 
 
 def gemm_f32x3_epilogue_plain(a, w, bias, epilogue, qspec, residual=None,
@@ -351,40 +362,43 @@ def gemm_f32x3_epilogue_plain(a, w, bias, epilogue, qspec, residual=None,
     operands split, the incoming gradient too), then
     "f32":                      the product, no bias, no snap;
     "mul_aux":                  (product * aux, its fp32 column sums);
-    and with the bias added, v = product + bias:
-    "bias_snap":                snap_all(v);
-    "bias_snap_gelu_snap":      snap(snap_all(GELU(snap_all(v)))), the
+    and with the bias added, h = site0(snap_all(product + bias)) (site0,
+    site1: ``snap_int8`` at the first and second INT8 site):
+    "bias_snap":                h;
+    "bias_snap_gelu_snap":      site1(snap(snap_all(GELU(h)))), the
                                 polynomial erf with an exact divide;
-    "bias_snap_gelu_snap_grad": (that, fp32 GELU'(snap_all(v))) from one
-                                erf (the backward's fc1 recompute);
-    "bias_snap_residual_snap":  snap_all(residual + snap_all(v))."""
+    "bias_snap_gelu_snap_grad": (that, fp32 GELU'(h)) from one erf (the
+                                backward's fc1 recompute);
+    "bias_snap_residual_snap":  site1(snap_all(residual + h))."""
     p = matmul_high3(a, w)
     if epilogue == "f32":
         return p
     if epilogue == "mul_aux":
         v = p * aux
         return v, v.sum(0)
-    v = snap_all(p + bias, qspec)
+    v = snap_int8(snap_all(p + bias, qspec), qspec, 0)
     if epilogue == "bias_snap":
         return v
     if epilogue == "bias_snap_gelu_snap":
-        return snap(snap_all(gelu_poly(v), qspec), qspec)
+        return snap_int8(snap(snap_all(gelu_poly(v), qspec), qspec), qspec, 1)
     if epilogue == "bias_snap_gelu_snap_grad":
         g, gp = gelu_and_grad_poly(v)
-        return snap(snap_all(g, qspec), qspec), gp
+        return snap_int8(snap(snap_all(g, qspec), qspec), qspec, 1), gp
     if epilogue == "bias_snap_residual_snap":
-        return snap_all(residual + v, qspec)
+        return snap_int8(snap_all(residual + v, qspec), qspec, 1)
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
 def attention_core_snap_plain(qkv, heads, scale, qspec, stats=False):
     """:func:`attention_context_f32` through the projection's pre_linear
-    ``snap`` (``_attn_heads_fwd`` with ``qspec``, then to_out.act_in);
-    ``stats`` adds the rowmax and reciprocal rowsum."""
+    ``snap`` (``_attn_heads_fwd`` with ``qspec``, then to_out.act_in), or
+    INT8's quant_out site (``snap_int8`` at site 0); ``stats`` adds the
+    rowmax and reciprocal rowsum."""
     if stats:
         ctx, m, rs = attention_context_f32(qkv, heads, scale, stats=True)
-        return snap(ctx, qspec), m, rs
-    return snap(attention_context_f32(qkv, heads, scale), qspec)
+        return snap_int8(snap(ctx, qspec), qspec, 0), m, rs
+    return snap_int8(snap(attention_context_f32(qkv, heads, scale), qspec),
+                     qspec, 0)
 
 
 def attention_core_f32_bwd_plain(qkv, d_o, m, rs, heads, scale):
@@ -641,8 +655,9 @@ def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale):
 
 def layernorm_rows_bwd_cuda(x, scale, dxn, do, qspec=None):
     """The CUDA version of :func:`layernorm_rows_bwd_plain`: x, do bf16
-    (rows, C), scale bf16 (C,), dxn fp32 (rows, C); with ``qspec`` x, do
-    and scale fp32, its snap form (``layernorm_snap_rows_bwd``)."""
+    (rows, C), scale bf16 (C,), dxn fp32 (rows, C); with ``qspec`` (a
+    float format's, or :class:`Int8Sites`) x, do and scale fp32, its snap
+    form (``layernorm_snap_rows_bwd``)."""
     dt = torch.bfloat16 if qspec is None else torch.float32
     _require(x, "x", dt)
     rows, cols = x.shape
@@ -662,8 +677,10 @@ def layernorm_rows_bwd_cuda(x, scale, dxn, do, qspec=None):
     if qspec is None:
         _launch("layernorm_rows_bwd", lib.mvt_layernorm_rows_bwd, x, *args)
     else:
+        int8 = isinstance(qspec, Int8Sites)
         _launch("layernorm_snap_rows_bwd", lib.mvt_layernorm_snap_rows_bwd,
-                x, *args, *_qspec_args(qspec))
+                x, *args, *(_NO_SNAP if int8 else _qspec_args(qspec)),
+                int(int8))
     sums = colsum_rows_cuda(part)
     return dx, sums[:cols], sums[cols:]
 
@@ -785,6 +802,26 @@ def _qspec_args(qspec):
     return int(exp_bits), int(man_bits), int(bool(all_sites))
 
 
+_NO_SNAP = (8, 10, 0)  # the qspec arguments of a call that snaps nothing
+
+
+def _policy_args(qspec, sites, slots=1):
+    """The C arguments of a snap policy: (exp_bits, man_bits, all_sites)
+    and ``slots`` site pointers, the device rows of the ``sites`` INT8
+    sites the kernel snaps at (null for a float format, and past
+    ``sites``)."""
+    if not isinstance(qspec, Int8Sites):
+        return (*_qspec_args(qspec), *([None] * slots))
+    rows = (qspec.first, qspec.second)[:sites]
+    for k, row in enumerate(rows):
+        if row is None:
+            raise ValueError(f"Int8Sites: the kernel snaps at {sites} "
+                             f"sites, site {k} is missing")
+        _require_site(row, f"site {k}")
+    return (*_NO_SNAP, *(row.data_ptr() for row in rows),
+            *([None] * (slots - sites)))
+
+
 def fake_quant_rows_cuda(x, mode, a, b):
     """The CUDA version of :func:`fake_quant_rows_plain`: fp32, any shape
     and length, contiguous (16-byte vectors where aligned)."""
@@ -802,7 +839,8 @@ def fake_quant_rows_cuda(x, mode, a, b):
 
 def layernorm_snap_rows_cuda(x, scale, bias, qspec):
     """The CUDA version of :func:`layernorm_snap_rows_plain`: x fp32
-    (..., C), scale and bias fp32 (C,)."""
+    (..., C), scale and bias fp32 (C,); ``qspec`` a float format's or
+    :class:`Int8Sites` (one site)."""
     cols = x.shape[-1]
     _require(x, "x", torch.float32)
     for t, name in ((scale, "scale"), (bias, "bias")):
@@ -810,7 +848,7 @@ def layernorm_snap_rows_cuda(x, scale, bias, qspec):
     out = torch.empty_like(x)
     _launch("layernorm_snap_rows", _lib().mvt_layernorm_snap_rows, x,
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            x.numel() // cols, cols, EPS, *_qspec_args(qspec))
+            x.numel() // cols, cols, EPS, *_policy_args(qspec, 1))
     return out
 
 
@@ -824,7 +862,9 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
     A transposed ``a`` (the (K, M) activation as it is stored) takes the
     weight-gradient kernel: a row-major w, fp32 out ("f32" only), any K,
     K split across blocks and the partial products summed in order by
-    ``colsum_rows``; M and N multiples of 4."""
+    ``colsum_rows``; M and N multiples of 4.  ``qspec``: a float format's,
+    or :class:`Int8Sites` (one site for "bias_snap", two for the other
+    snapping epilogues); "f32" and "mul_aux" read none."""
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"gemm_f32x3: shapes {tuple(a.shape)} @ "
                          f"{tuple(w.shape)}")
@@ -881,7 +921,8 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
     _launch("gemm_f32x3_epilogue", lib.mvt_gemm_f32x3, a,
             a.data_ptr(), w.data_ptr(), None if row_b else bias.data_ptr(),
             res_ptr, out.data_ptr(), aux_ptr, col_ptr, m, n, k, int(row_b),
-            code, *_qspec_args(qspec))
+            code, *((*_NO_SNAP, None, None) if row_b else _policy_args(
+                qspec, 1 if epilogue == "bias_snap" else 2, slots=2)))
     if epilogue == "bias_snap_gelu_snap_grad":
         return out, aux
     if epilogue == "mul_aux":
@@ -894,16 +935,17 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False):
     mode of ``attention_core_f32``: fp32 (B, N, 3C) -> fp32 (B, N, C), and
     with ``stats`` the rowmax and reciprocal rowsum (B, H, N) fp32; D =
     C/heads must be 32 or 64 and N at most
-    :func:`attention_core_f32_max_n`."""
+    :func:`attention_core_f32_max_n`; ``qspec`` a float format's or
+    :class:`Int8Sites` (one site)."""
     _require(qkv, "qkv", torch.float32)
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_f32")
     if n > attention_core_f32_max_n():
         raise NotImplementedError(
             f"attention_core_f32: sequence {n} exceeds the kernel's maximum "
-            f"{attention_core_f32_max_n()}; a float format above it waits "
-            "for the discrete float Block (ROADMAP A5a)")
-    exp_bits, man_bits, _ = _qspec_args(qspec)
+            f"{attention_core_f32_max_n()}; a float format or INT8 QAT above "
+            "it waits for the f32 core's KV tiles (ROADMAP A5a)")
+    exp_bits, man_bits, _, site = _policy_args(qspec, 1)
     out = torch.empty((b, n, c), dtype=torch.float32, device=qkv.device)
     m = rs = None
     if stats:
@@ -914,7 +956,7 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False):
             qkv.data_ptr(), out.data_ptr(),
             None if m is None else m.data_ptr(),
             None if rs is None else rs.data_ptr(), b, n, heads, d,
-            float(scale), exp_bits, man_bits)
+            float(scale), exp_bits, man_bits, site)
     return (out, m, rs) if stats else out
 
 
@@ -930,8 +972,8 @@ def attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale):
         raise NotImplementedError(
             f"attention_core_f32_bwd: sequence {n} exceeds the kernel's "
             f"maximum {lib.mvt_attention_core_f32_bwd_max_n()}; a float "
-            "format above it waits for the discrete float Block (ROADMAP "
-            "A5a)")
+            "format or INT8 QAT above it waits for the f32 core's KV tiles "
+            "(ROADMAP A5a)")
     _require_shape(d_o, "d_o", (b, n, c))
     _require_shape(m, "m", (b, heads, n))
     _require_shape(rs, "rs", (b, heads, n))

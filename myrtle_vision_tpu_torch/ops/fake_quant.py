@@ -21,7 +21,9 @@ csrc/fake_quant.cuh, the float-format block chains share):
 it for a CUDA tensor and run the plain function above for a CPU tensor.
 :func:`snap` and :func:`snap_all` are the JAX kernels' site helpers for a
 float format's ``qspec = (exp_bits, man_bits, all_sites)``, in their
-plain form.
+plain form, and :func:`snap_int8` the PyTorchINT8 observer-site snap of
+the two-pass INT8 QAT kernels, whose sites an :class:`Int8Sites` names
+(the snap policy that stands where a kernel takes a float qspec).
 
 Each also comes as a straight-through ``autograd.Function`` (``*_ste``,
 the JAX ``_make_ste`` and int8 custom VJPs): the gradient passes to ``x``
@@ -31,6 +33,8 @@ function with ``plain``; they carry QAT's weight fake-quant and the sites
 outside the fused blocks.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -122,10 +126,35 @@ def fixed_point_quantize_ste(x, wl: int, fl: int, plain: bool = False):
     return _StraightThrough.apply(x, fn, wl, fl)
 
 
+class Int8Sites(NamedTuple):
+    """PyTorchINT8's frozen observer sites of one kernel of the two-pass
+    INT8 QAT chains: (3,) fp32 rows (scale, zero point, has_stats as 1 or
+    0) of a block half's (5, 3) site table, the first and the second site
+    the kernel snaps at (``second`` None where it snaps at one).  The snap
+    policy that stands where a float-format kernel takes its ``qspec``:
+    :func:`snap` and :func:`snap_all` are identities under it, as
+    :func:`snap_int8` is under a qspec (the JAX kernels' ``qspec ==
+    "int8"``)."""
+
+    first: Optional[torch.Tensor] = None
+    second: Optional[torch.Tensor] = None
+
+
+def kernel_sites(qspec, *rows):
+    """The snap policy of one kernel of a block-half chain: a float
+    format's ``qspec`` as it is (or None), or for a PyTorchINT8 (5, 3)
+    site table the :class:`Int8Sites` of its ``rows`` (views, nothing read
+    on the host)."""
+    if isinstance(qspec, torch.Tensor):
+        return Int8Sites(*(qspec[r] for r in rows))
+    return qspec
+
+
 def snap(x, qspec):
     """The pre_linear-site snap of a float format's ``qspec`` (exp_bits,
-    man_bits, all_sites); ``x`` as it is for None (FP32)."""
-    if qspec is None:
+    man_bits, all_sites); ``x`` as it is for None (FP32) and for
+    :class:`Int8Sites`."""
+    if qspec is None or isinstance(qspec, Int8Sites):
         return x
     return float_quantize(x, qspec[0], qspec[1])
 
@@ -133,9 +162,22 @@ def snap(x, qspec):
 def snap_all(x, qspec):
     """The post_op / functional / GELU-site snap, which only the
     all-sites format (FP16_16) applies."""
-    if qspec is None or not qspec[2]:
+    if qspec is None or isinstance(qspec, Int8Sites) or not qspec[2]:
         return x
     return float_quantize(x, qspec[0], qspec[1])
+
+
+def snap_int8(x, qspec, k):
+    """The PyTorchINT8 observer-site snap (JAX ``snap_int8``) at the
+    ``k``-th site (0 or 1) of :class:`Int8Sites` ``qspec``: the uint8
+    affine fake-quant of the site's (scale, zero point) where it has
+    statistics, ``x`` as it is where it has none; ``x`` as it is under a
+    float qspec."""
+    if not isinstance(qspec, Int8Sites):
+        return x
+    site = qspec[k]
+    q = int8_affine_fake_quant(x, site[0], site[1])
+    return torch.where(site[2] > 0, q, x)
 
 
 def int8_affine_fake_quant(x, scale, zero_point):

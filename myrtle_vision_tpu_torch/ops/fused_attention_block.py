@@ -69,6 +69,18 @@ positions and every product 3-pass (``_bwd_one_image`` with ``qspec``):
       -> layernorm_rows_bwd (its snap form)
     and the bias sums through colsum_rows.
 
+PyTorchINT8's two-pass QAT (the JAX ``fused_attention_block_i8``: the
+TPU kernels with ``qspec="int8"``) runs the same chains with the frozen
+observer sites in place of the float snaps: ``qspec`` is then the block
+half's (5, 3) site table (scale, zero point, has_stats per row, on the
+activation's device), and each kernel takes the rows it snaps at
+(ops/fake_quant.py ``Int8Sites``; ``snap`` and ``snap_all`` are
+identities): the LayerNorm's output (row 0), the qkv rows after their
+bias (1), the context (2, the quant_out stub, also the saved residual),
+the projection after its bias (3) and the residual sum (4).  The table
+is read on the device, so no step waits on the host.  Its gradient is
+None, as the JAX rule gives it zeros.
+
 Weights keep the JAX layout: wqkv (C, 3C) with feature order [3][h][d],
 wp (C, C), i.e. (in, out).  A transposed view of a torch (out, in)
 weight is read in place, and its gradient is returned as the same kind
@@ -81,6 +93,7 @@ import torch
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
 from myrtle_vision_tpu_torch.ops.acts_policy import save_acts
+from myrtle_vision_tpu_torch.ops.fake_quant import kernel_sites
 
 
 def _per_image_stack_bytes(n: int, heads: int, d: int) -> int:
@@ -130,10 +143,10 @@ def _forward(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
 
 def _forward_q(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
                qspec, record=False):
-    """The float-format chain (``_fwd_kernel`` with ``qspec``): fp32
-    activations, parameters and weights, the weights' snaps already
-    applied by the caller; with ``record`` also (ctx, m, rs, qkv) for the
-    backward."""
+    """The float-format chain (``_fwd_kernel`` with ``qspec``), or INT8
+    QAT's (``qspec`` the (5, 3) site table): fp32 activations, parameters
+    and weights, the weights' snaps already applied by the caller; with
+    ``record`` also (ctx, m, rs, qkv) for the backward."""
     if x.dtype != torch.float32:
         raise TypeError(f"fused_attention_block with qspec takes fp32 "
                         f"activations, got {x.dtype}")
@@ -141,17 +154,21 @@ def _forward_q(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
     cl = wp.shape[0]
     x2 = x.contiguous().view(b * n, c)
     xn = kern.layernorm_snap_rows(x2, scale_ln.float().contiguous(),
-                                  bias_ln.float().contiguous(), qspec)
+                                  bias_ln.float().contiguous(),
+                                  kernel_sites(qspec, 0))
     qkv = kern.gemm_f32x3(xn, wqkv.float(), bqkv.float().contiguous(),
-                          "bias_snap", qspec).view(b, n, 3 * cl)
+                          "bias_snap", kernel_sites(qspec, 1)
+                          ).view(b, n, 3 * cl)
+    q_ctx = kernel_sites(qspec, 2)
     if record:
-        ctx, m, rs = kern.attention_core_snap(qkv, heads, scale, qspec,
+        ctx, m, rs = kern.attention_core_snap(qkv, heads, scale, q_ctx,
                                               stats=True)
     else:
-        ctx = kern.attention_core_snap(qkv, heads, scale, qspec)
+        ctx = kern.attention_core_snap(qkv, heads, scale, q_ctx)
     out = kern.gemm_f32x3(ctx.view(b * n, cl), wp.float(),
                           bp.float().contiguous(), "bias_snap_residual_snap",
-                          qspec, residual=x2).view(b, n, c)
+                          kernel_sites(qspec, 3, 4), residual=x2
+                          ).view(b, n, c)
     if record:
         return out, (ctx, m, rs, qkv)
     return out
@@ -188,9 +205,9 @@ def _backward(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
 
 def _backward_q(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
                 qkv, heads, scale, qspec):
-    """``_bwd_one_image`` with ``qspec`` over the batch, fp32 -> (dx,
-    dscale, dbias, dwqkv, dbqkv, dwp, dbp), weight gradients in the (in,
-    out) shape."""
+    """``_bwd_one_image`` with ``qspec`` (a float format's, or INT8's
+    site table) over the batch, fp32 -> (dx, dscale, dbias, dwqkv, dbqkv,
+    dwp, dbp), weight gradients in the (in, out) shape."""
     b, n, c = x.shape
     cl = wp.shape[0]
     rows = b * n
@@ -199,10 +216,11 @@ def _backward_q(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
     s32 = scale_ln.float().contiguous()
     wqkv, wp = wqkv.float(), wp.float()
     xn = kern.layernorm_snap_rows(x2, s32, bias_ln.float().contiguous(),
-                                  qspec)
+                                  kernel_sites(qspec, 0))
     if qkv is None:
         qkv = kern.gemm_f32x3(xn, wqkv, bqkv.float().contiguous(),
-                              "bias_snap", qspec)
+                              "bias_snap", kernel_sites(qspec, 1))
+    qspec = kernel_sites(qspec)  # the products below snap nothing
     d_o = kern.gemm_f32x3(do2, wp.t(), None, "f32", qspec)
     dqkv, dbq_image = kern.attention_core_f32_bwd(
         qkv.view(b, n, 3 * cl), d_o.view(b, n, cl), m, rs, heads, scale)
@@ -219,8 +237,9 @@ def _backward_q(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
 
 
 class _FusedAttentionBlock(torch.autograd.Function):
-    """The op with the JAX ``_fwd_rule`` / ``_bwd_rule`` pair, FP32 or
-    with a float format's ``qspec``."""
+    """The op with the JAX ``_fwd_rule`` / ``_bwd_rule`` pair, FP32, with
+    a float format's ``qspec``, or with INT8's site table (``_fwd_rule_i8``
+    / ``_bwd_rule_i8``)."""
 
     @staticmethod
     def forward(ctx, kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
@@ -251,7 +270,10 @@ class _FusedAttentionBlock(torch.autograd.Function):
         else:
             grads = _backward_q(*args, ctx.qspec)
         if ctx.kern is K.CUDA:
-            fused_attention_block.bwd_launches += 1
+            op = (fused_attention_block_i8
+                  if isinstance(ctx.qspec, torch.Tensor)
+                  else fused_attention_block)
+            op.bwd_launches += 1
         inputs = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
         return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)),
                 None, None, None, None)
@@ -302,7 +324,44 @@ def fused_attention_block(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
     return out
 
 
+def _site_table(qs, x):
+    if tuple(qs.shape) != (5, 3) or qs.dtype != torch.float32 or \
+            qs.device != x.device:
+        raise ValueError(f"qs: expected a (5, 3) fp32 site table on "
+                         f"{x.device}, got {tuple(qs.shape)} {qs.dtype} on "
+                         f"{qs.device}")
+    return qs.detach().contiguous()
+
+
+def fused_attention_block_i8_plain(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp,
+                                   qs, heads, scale, depth=None):
+    """The plain PyTorch chain of :func:`fused_attention_block_i8` on any
+    device, forward and backward."""
+    return _apply(K.PLAIN, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
+                  scale, depth, _site_table(qs, x))
+
+
+def fused_attention_block_i8(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, qs,
+                             heads, scale, depth=None):
+    """The JAX ``fused_attention_block_i8`` (two-pass INT8 QAT): x +
+    proj(MHA(qkv(LN(x)))) over fp32 (B, N, C) with PyTorchINT8's affine
+    uint8 snaps at the five observer sites of the discrete path, rows 0-4
+    of ``qs`` (5, 3) = (scale, zero point, has_stats) per site, frozen for
+    the pass.  Every site is straight-through and ``qs`` takes no
+    gradient; the weights arrive already fake-quantized (the caller's
+    straight-through estimator carries their gradient).  A CPU tensor
+    takes the plain chain, a CUDA tensor the kernel chain or an error."""
+    kern = K.for_device(x)
+    out = _apply(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
+                 scale, depth, _site_table(qs, x))
+    if kern is K.CUDA:
+        fused_attention_block_i8.launches += 1
+    return out
+
+
 # kernel-chain launches since the last reset (CUDA tensors only), forward
 # and backward
 fused_attention_block.launches = 0
 fused_attention_block.bwd_launches = 0
+fused_attention_block_i8.launches = 0
+fused_attention_block_i8.bwd_launches = 0

@@ -50,6 +50,14 @@ straight-through and every product 3-pass (``_bwd_one_image`` with
       -> layernorm_rows_bwd (its snap form)
     and db2 through colsum_rows.
 
+PyTorchINT8's two-pass QAT (the JAX ``fused_mlp_block_i8``: the TPU
+kernels with ``qspec="int8"``) runs the same chains with the frozen
+observer sites in place of the float snaps, ``qspec`` the block half's
+(5, 3) site table on the activation's device (ops/fused_attention_block.py
+says how): the LayerNorm's output (row 0), fc1 after its bias (1), the
+GELU's output (2; the backward's fc1 recompute snaps it again, and dW2
+contracts against it), fc2 after its bias (3) and the residual sum (4).
+
 Weights keep the JAX layout: w1 (C, H), w2 (H, C), i.e. (in, out);
 gradients come back in each input's dtype and layout.
 """
@@ -58,7 +66,11 @@ from __future__ import annotations
 import torch
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
-from myrtle_vision_tpu_torch.ops.fused_attention_block import records
+from myrtle_vision_tpu_torch.ops.fake_quant import kernel_sites
+from myrtle_vision_tpu_torch.ops.fused_attention_block import (
+    _site_table,
+    records,
+)
 
 
 def _forward(kern, x, scale, bias, w1, b1, w2, b2):
@@ -79,20 +91,22 @@ def _forward(kern, x, scale, bias, w1, b1, w2, b2):
 
 
 def _forward_q(kern, x, scale, bias, w1, b1, w2, b2, qspec):
-    """The float-format chain (``_fwd_kernel`` with ``qspec``): fp32
-    activations, parameters and weights, the weights' snaps already
-    applied by the caller."""
+    """The float-format chain (``_fwd_kernel`` with ``qspec``), or INT8
+    QAT's (``qspec`` the (5, 3) site table): fp32 activations, parameters
+    and weights, the weights' snaps already applied by the caller."""
     if x.dtype != torch.float32:
         raise TypeError(f"fused_mlp_block with qspec takes fp32 activations, "
                         f"got {x.dtype}")
     c = x.shape[-1]
     x2 = x.contiguous().view(-1, c)
     xn = kern.layernorm_snap_rows(x2, scale.float().contiguous(),
-                                  bias.float().contiguous(), qspec)
+                                  bias.float().contiguous(),
+                                  kernel_sites(qspec, 0))
     g = kern.gemm_f32x3(xn, w1.float(), b1.float().contiguous(),
-                        "bias_snap_gelu_snap", qspec)
+                        "bias_snap_gelu_snap", kernel_sites(qspec, 1, 2))
     out = kern.gemm_f32x3(g, w2.float(), b2.float().contiguous(),
-                          "bias_snap_residual_snap", qspec, residual=x2)
+                          "bias_snap_residual_snap", kernel_sites(qspec, 3, 4),
+                          residual=x2)
     return out.view(x.shape)
 
 
@@ -119,17 +133,20 @@ def _backward(kern, do, x, scale, bias, w1, b1, w2):
 
 
 def _backward_q(kern, do, x, scale, bias, w1, b1, w2, qspec):
-    """``_bwd_one_image`` with ``qspec`` over the batch, fp32 -> (dx,
-    dscale, dbias, dw1, db1, dw2, db2), weight gradients in the (in, out)
-    shape."""
+    """``_bwd_one_image`` with ``qspec`` (a float format's, or INT8's
+    site table) over the batch, fp32 -> (dx, dscale, dbias, dw1, db1, dw2,
+    db2), weight gradients in the (in, out) shape."""
     c = x.shape[-1]
     x2 = x.contiguous().view(-1, c)
     do2 = do.float().contiguous().view(-1, c)
     s32 = scale.float().contiguous()
     w1, w2 = w1.float(), w2.float()
-    xn = kern.layernorm_snap_rows(x2, s32, bias.float().contiguous(), qspec)
+    xn = kern.layernorm_snap_rows(x2, s32, bias.float().contiguous(),
+                                  kernel_sites(qspec, 0))
     g, gp = kern.gemm_f32x3(xn, w1, b1.float().contiguous(),
-                            "bias_snap_gelu_snap_grad", qspec)
+                            "bias_snap_gelu_snap_grad",
+                            kernel_sites(qspec, 1, 2))
+    qspec = kernel_sites(qspec)  # the products below snap nothing
     # weight gradients in the torch (out, in) layout, returned as views
     dw2 = kern.gemm_f32x3(do2.t(), g, None, "f32", qspec).t()
     db2 = kern.colsum_rows(do2)
@@ -141,9 +158,9 @@ def _backward_q(kern, do, x, scale, bias, w1, b1, w2, qspec):
 
 
 class _FusedMlpBlock(torch.autograd.Function):
-    """The op, FP32 or with a float format's ``qspec``: the forward keeps
-    its inputs, the backward recomputes (the JAX ``_fwd_rule`` /
-    ``_bwd_rule`` pair)."""
+    """The op, FP32, with a float format's ``qspec`` or with INT8's site
+    table: the forward keeps its inputs, the backward recomputes (the JAX
+    ``_fwd_rule`` / ``_bwd_rule`` pair, and their ``_i8`` forms)."""
 
     @staticmethod
     def forward(ctx, kern, x, scale, bias, w1, b1, w2, b2, qspec):
@@ -161,7 +178,9 @@ class _FusedMlpBlock(torch.autograd.Function):
         else:
             grads = _backward_q(ctx.kern, do, *inputs[:-1], ctx.qspec)
         if ctx.kern is K.CUDA:
-            fused_mlp_block.bwd_launches += 1
+            op = (fused_mlp_block_i8 if isinstance(ctx.qspec, torch.Tensor)
+                  else fused_mlp_block)
+            op.bwd_launches += 1
         return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)), None)
 
 
@@ -196,7 +215,30 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, qspec=None):
     return out
 
 
+def fused_mlp_block_i8_plain(x, scale, bias, w1, b1, w2, b2, qs):
+    """The plain PyTorch chain of :func:`fused_mlp_block_i8` on any
+    device, forward and backward."""
+    return _apply(K.PLAIN, (x, scale, bias, w1, b1, w2, b2),
+                  _site_table(qs, x))
+
+
+def fused_mlp_block_i8(x, scale, bias, w1, b1, w2, b2, qs):
+    """The JAX ``fused_mlp_block_i8`` (two-pass INT8 QAT): x +
+    fc2(GELU(fc1(LN(x)))) over fp32 (..., C) with PyTorchINT8's affine
+    uint8 snaps at the five observer sites of the discrete path, rows 0-4
+    of ``qs`` (5, 3), frozen for the pass; straight-through sites, no
+    gradient for ``qs``, weights already fake-quantized.  A CPU tensor
+    takes the plain chain, a CUDA tensor the kernel chain or an error."""
+    kern = K.for_device(x)
+    out = _apply(kern, (x, scale, bias, w1, b1, w2, b2), _site_table(qs, x))
+    if kern is K.CUDA:
+        fused_mlp_block_i8.launches += 1
+    return out
+
+
 # kernel-chain launches since the last reset (CUDA tensors only), forward
 # and backward
 fused_mlp_block.launches = 0
 fused_mlp_block.bwd_launches = 0
+fused_mlp_block_i8.launches = 0
+fused_mlp_block_i8.bwd_launches = 0

@@ -85,6 +85,14 @@ def matmul_high3(x, w):
     return _MatmulHigh3.apply(x, w)
 
 
+def matmul_fp32(x, w):
+    """(..., K) @ (K, N) in full fp32 on any device (TF32 off): the JAX
+    package's ``precision=HIGHEST`` dot, which the PyTorchINT8
+    simulation's eval forward runs outside any kernel."""
+    with _fp32_products():
+        return torch.matmul(x.float(), w.float())
+
+
 def bdot_qk_high3(q, k):
     """scores[b,h,n,m] = sum_d q[b,h,n,d] k[b,h,m,d] at 3-pass
     precision."""

@@ -21,9 +21,11 @@ myrtle_vision_tpu/quantize.py).
   real, int8 Linear weights with a per-tensor fp32 ``weight_scale`` for
   PyTorchINT8, fp16 storage for FP16_16 / FP16_32.
 
-Post-training quantization runs in every format; QAT training in the
-float formats (their sites and weights straight-through, as in the JAX
-package), not yet in PyTorchINT8 (ROADMAP A5b).
+Post-training quantization runs in every format, and QAT training too
+(the sites and weights straight-through, as in the JAX package): in
+PyTorchINT8 the two-pass step, a calibrating pass that updates the
+observers and a differentiated pass with them frozen
+(training/classification.py).
 """
 from __future__ import annotations
 

@@ -547,9 +547,3 @@ def test_qat_cli_trains_and_its_checkpoint_evaluates(synth, capsys):
         again = model(batch["image"])
     n = len(batch["label"])
     torch.testing.assert_close(again, logits[:n], rtol=0, atol=0)
-
-
-def test_int8_qat_still_raises(synth):
-    cfg, config = qat_config(synth, "int8", "PyTorchINT8")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        train_cli.train(config, torch.device("cpu"))

@@ -1081,3 +1081,294 @@ def test_float_model_trains_through_the_kernels(dev, q_format):
         assert bool(torch.isfinite(got).all()), name
         assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= \
             2.0 ** -4, name
+
+
+# ------------------------------------------------------- INT8 QAT
+# The two-pass INT8 QAT chains (K1-K4 with qspec "int8"): the float
+# chains' kernels with PyTorchINT8's frozen observer sites in place of the
+# float snaps.  Kernel and plain version run the same fp32 operations and
+# snap with bit-identical code, so they differ by fp32 noise (FLOAT_TIGHT
+# of the largest magnitude) unless a sum-order difference moves a value
+# across a site's rint edge, which moves it a whole step of the site's
+# grid (its scale).  Bars (chip_smoke.py): a snapped output at least
+# 99.8% within the noise and every element within one step of its site; a
+# block-half chain 99% and 4 steps of the output's site; the unsnapped
+# outputs (the gradients) the FP32 bars.
+I8_SAME = 0.998
+I8_CHAIN_SAME = 0.99
+I8_CHAIN_STEPS = 4
+
+
+def close_sites(got, ref, step, same=I8_SAME, steps=1):
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype == torch.float32
+    diff = (got.double() - ref.double()).abs()
+    tight = FLOAT_TIGHT * float(ref.abs().max())
+    assert float((diff > tight).double().mean()) <= 1 - same
+    assert float(diff.max()) <= tight + steps * float(step) * (1 + 1e-5)
+
+
+def i8_block(c, hid, b, n, seed, dev, fresh=False):
+    """fp32 x; both halves' parameters with the Linear weights through
+    their symmetric int8 fake-quant, each the (in, out) view of a torch
+    (out, in) tensor; std-1 biases; the (2, 5, 3) site table of a port
+    Block calibrated on x (``fresh``: row 2 of each half without
+    statistics, as a new observer has none)."""
+    from myrtle_vision_tpu_torch.models.vit import Block
+    from myrtle_vision_tpu_torch.quantize import (
+        QFormat,
+        is_observer,
+        quantize_weight,
+    )
+
+    rng = np.random.RandomState(seed)
+    heads = max(c // 64, 1)
+    block = Block(c, heads, c // heads, hid, 0.0, 12, dev,
+                  QFormat.PyTorchINT8)
+    sd = {}
+    for name, t in block.state_dict().items():
+        if is_observer(name):
+            sd[name] = t
+            continue
+        std = (t.shape[1] ** -0.5 if t.dim() == 2 else
+               0.1 if "norm" in name else 1.0)
+        arr = rng.randn(*t.shape) * std + (1 if name.endswith(
+            "norm.weight") else 0)
+        sd[name] = torch.from_numpy(arr.astype(np.float32)).to(dev)
+    block.load_state_dict(sd)
+    x = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        block.forward_int8(x)
+        sites = block.site_table()
+    if fresh:
+        sites[:, 2] = torch.tensor([1.1920929e-7, 0.0, 0.0], device=dev)
+    qkv, out, fc1, fc2 = block._linears()
+    a, f = block._modules["0"].fn.norm, block._modules["1"].fn.norm
+
+    def qw(lin):
+        return quantize_weight(lin.weight.detach(), QFormat.PyTorchINT8,
+                               "linear", False).t()
+
+    attn = [a.weight.detach(), a.bias.detach(), qw(qkv), qkv.bias.detach(),
+            qw(out), out.bias.detach()]
+    mlp = [f.weight.detach(), f.bias.detach(), qw(fc1), fc1.bias.detach(),
+           qw(fc2), fc2.bias.detach()]
+    return x, attn, mlp, sites
+
+
+def step_of(site):
+    return float(site[0]) if float(site[2]) > 0 else 0.0
+
+
+def series_bar(s1, s2):
+    """(step, steps) of an output snapped at a site of step s2 after one of
+    step s1 (either 0 without statistics): a flip of the first, through a
+    slope under 1.2 (GELU' < 1.13), reaches the second grid as up to
+    ceil(1.2 s1 / s2) + 1 of its steps (chip_smoke.py)."""
+    if s2 == 0.0:
+        return 1.2 * s1, 1
+    return s2, 1 + int(np.ceil(1.2 * s1 / s2))
+
+
+I8_SHAPES = [(64, 128, 3, 17), (32, 64, 2, 37), (384, 1536, 4, 197)]
+
+
+@pytest.mark.parametrize("fresh", [False, True])
+@pytest.mark.parametrize("c,hid,b,n", I8_SHAPES)
+def test_int8_qat_kernels_match_plain(dev, c, hid, b, n, fresh):
+    """Each kernel in its INT8 mode against its plain version, forward
+    (the LayerNorm, the QKV, projection, fc1 and fc2 epilogues, the
+    attention core's site snap with its statistics) and backward (the fc1
+    recompute, the LayerNorm backward with x unsnapped)."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    x, attn, mlp, sites = i8_block(c, hid, b, n, n + 41, dev, fresh)
+    heads = max(c // 64, 1)
+    scale = (c // heads) ** -0.5
+    x2 = x.view(-1, c)
+    qa, qm = sites[0], sites[1]
+    before = dict(K.LAUNCHES)
+    args = (x2, attn[0], attn[1], Int8Sites(qa[0]))
+    xn = K.layernorm_snap_rows_plain(*args)
+    close_sites(K.layernorm_snap_rows_cuda(*args), xn, step_of(qa[0]))
+    args = (xn, attn[2], attn[3], "bias_snap", Int8Sites(qa[1]))
+    qkv = K.gemm_f32x3_epilogue_plain(*args)
+    close_sites(K.gemm_f32x3_epilogue_cuda(*args), qkv, step_of(qa[1]))
+    qkv = qkv.view(b, n, 3 * c)
+    got = K.attention_core_snap_cuda(qkv, heads, scale, Int8Sites(qa[2]),
+                                     stats=True)
+    ref = K.attention_core_snap_plain(qkv, heads, scale, Int8Sites(qa[2]),
+                                      stats=True)
+    close_sites(got[0], ref[0], step_of(qa[2]))
+    close(got[1], ref[1])
+    close(got[2], ref[2])
+    ctx = ref[0].view(-1, c)
+    # two sites in series: the first's step reaches the second's grid as
+    # up to ceil(s1 / s2) + 1 steps of it
+    for a_in, w, bias, sp, epi in (
+            (ctx, attn[4], attn[5], qa, "bias_snap_residual_snap"),
+            (xn, mlp[2], mlp[3], qm, "bias_snap_gelu_snap")):
+        kw = {"residual": x2} if epi.endswith("residual_snap") else {}
+        args = (a_in, w, bias, epi, Int8Sites(*(
+            sp[3:5] if kw else sp[1:3])))
+        want = K.gemm_f32x3_epilogue_plain(*args, **kw)
+        s1, s2 = (step_of(sp[3]), step_of(sp[4])) if kw else \
+            (step_of(sp[1]), step_of(sp[2]))
+        step, steps = series_bar(s1, s2)
+        close_sites(K.gemm_f32x3_epilogue_cuda(*args, **kw), want, step,
+                    steps=steps)
+    args = (xn, mlp[2], mlp[3], "bias_snap_gelu_snap_grad",
+            Int8Sites(qm[1], qm[2]))
+    got, want = K.gemm_f32x3_epilogue_cuda(*args), \
+        K.gemm_f32x3_epilogue_plain(*args)
+    s1, s2 = step_of(qm[1]), step_of(qm[2])
+    step, steps = series_bar(s1, s2)
+    close_sites(got[0], want[0], step, steps=steps)
+    # GELU' of h, itself snapped: a flipped h moves GELU' by up to
+    # max|GELU''| (~0.8) times a step
+    close(got[1], want[1], KERNEL_ATOL + s1)
+    do2 = torch.randn(x2.shape, device=dev,
+                      generator=torch.Generator(dev).manual_seed(n))
+    dxn = K.gemm_f32x3_epilogue_plain(do2, attn[4].t(), None, "f32",
+                                      Int8Sites())
+    got = K.layernorm_rows_bwd_cuda(x2, attn[0], dxn, do2, Int8Sites())
+    want = K.layernorm_rows_bwd_plain(x2, attn[0], dxn, do2, Int8Sites())
+    close(got[0], want[0])
+    for g, r in zip(got[1:], want[1:]):
+        close(g, r, SUM_ATOL * float(r.abs().max()))
+    launched = {k: K.LAUNCHES[k] - before[k] for k in
+                ("layernorm_snap_rows", "gemm_f32x3_epilogue",
+                 "attention_core_f32", "layernorm_snap_rows_bwd")}
+    assert launched == {"layernorm_snap_rows": 1, "gemm_f32x3_epilogue": 4,
+                        "attention_core_f32": 1,
+                        "layernorm_snap_rows_bwd": 1}
+
+
+@pytest.mark.parametrize("save", ["0", "1"])
+@pytest.mark.parametrize("fresh", [False, True])
+@pytest.mark.parametrize("c,hid,b,n", I8_SHAPES)
+def test_int8_qat_chains_match_plain(dev, c, hid, b, n, fresh, save,
+                                     monkeypatch):
+    """Both INT8 QAT ops, forward (the chain bar on the residual sum's
+    grid) and backward (the FP32 gradient bars), kernel chain against
+    plain chain, each from its own forward; one launch of each op and of
+    each backward."""
+    from myrtle_vision_tpu_torch.ops.fused_attention_block import (
+        fused_attention_block_i8,
+        fused_attention_block_i8_plain,
+    )
+    from myrtle_vision_tpu_torch.ops.fused_mlp import (
+        fused_mlp_block_i8,
+        fused_mlp_block_i8_plain,
+    )
+
+    monkeypatch.setenv("MVT_SAVE_ACTS", save)
+    x, attn, mlp, sites = i8_block(c, hid, b, n, n + 43, dev, fresh)
+    heads = max(c // 64, 1)
+    extra = (heads, (c // heads) ** -0.5)
+    do = torch.randn(x.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(n))
+
+    def with_sites(op, table, *tail):
+        def run(*args):
+            return op(*args, table, *tail)
+        return run
+
+    before = (fused_attention_block_i8.launches,
+              fused_attention_block_i8.bwd_launches,
+              fused_mlp_block_i8.launches, fused_mlp_block_i8.bwd_launches)
+    with torch.no_grad():
+        for op, plain, table, params, tail in (
+                (fused_attention_block_i8, fused_attention_block_i8_plain,
+                 sites[0], attn, extra),
+                (fused_mlp_block_i8, fused_mlp_block_i8_plain, sites[1],
+                 mlp, ())):
+            close_sites(op(x, *params, table, *tail),
+                        plain(x, *params, table, *tail),
+                        step_of(table[4]), I8_CHAIN_SAME, I8_CHAIN_STEPS)
+    got = grads_of(with_sites(fused_attention_block_i8, sites[0], *extra), x,
+                   attn, (), do)
+    ref = grads_of(with_sites(fused_attention_block_i8_plain, sites[0],
+                              *extra), x, attn, (), do)
+    close_grads(got, ref, ["x", "scale", "bias", "wqkv", "bqkv", "wp", "bp"])
+    got = grads_of(with_sites(fused_mlp_block_i8, sites[1]), x, mlp, (), do)
+    ref = grads_of(with_sites(fused_mlp_block_i8_plain, sites[1]), x, mlp,
+                   (), do)
+    close_grads(got, ref, ["x", "scale", "bias", "w1", "b1", "w2", "b2"])
+    assert (fused_attention_block_i8.launches - before[0],
+            fused_attention_block_i8.bwd_launches - before[1],
+            fused_mlp_block_i8.launches - before[2],
+            fused_mlp_block_i8.bwd_launches - before[3]) == (2, 1, 2, 1)
+
+
+def test_int8_qat_step_reads_the_sites_on_the_device(dev):
+    """The two-pass step of a small PyTorchINT8 ViT through the kernels:
+    pass 2 and the backward never wait on the host (the site tables are
+    computed and read on the device: CUDA's sync debug mode raises on any
+    synchronizing call), one launch of each INT8 op per block and
+    direction, and the gradients as the plain path's (relative L2 2^-4,
+    chip_smoke.py's first-step bar); the observers after pass 2 are pass
+    1's."""
+    from myrtle_vision_tpu_torch.ops.fused_attention_block import (
+        fused_attention_block_i8,
+    )
+    from myrtle_vision_tpu_torch.ops.fused_mlp import fused_mlp_block_i8
+    from myrtle_vision_tpu_torch.training.optim import cross_entropy_loss
+
+    depth = 2
+    model = ViT("classification", 224, 16, 10, 128, depth, 2, 256,
+                q_format="PyTorchINT8", device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    img = torch.randn(4, 224, 224, 3, device=dev, generator=gen)
+    labels = torch.randint(0, 10, (4,), device=dev, generator=gen)
+    with torch.no_grad():
+        model(img, calibrating=True)
+    observers = {n: t.clone() for n, t in model.state_dict().items()}
+    runs = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        before = (fused_attention_block_i8.launches,
+                  fused_attention_block_i8.bwd_launches,
+                  fused_mlp_block_i8.launches,
+                  fused_mlp_block_i8.bwd_launches)
+        torch.cuda.synchronize()
+        if not plain:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = cross_entropy_loss(model(img, plain=plain,
+                                            int8_fused=True), labels)
+            loss.backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launched = (fused_attention_block_i8.launches - before[0],
+                    fused_attention_block_i8.bwd_launches - before[1],
+                    fused_mlp_block_i8.launches - before[2],
+                    fused_mlp_block_i8.bwd_launches - before[3])
+        assert launched == ((0,) * 4 if plain else (depth,) * 4)
+        runs.append((float(loss), {n: p.grad.clone()
+                                   for n, p in model.named_parameters()
+                                   if p.grad is not None}))
+    for name, t in model.state_dict().items():
+        assert torch.equal(t, observers[name]), name
+    (k_loss, k_grads), (p_loss, p_grads) = runs
+    assert abs(k_loss - p_loss) <= 2.0 ** -6 * max(1.0, abs(p_loss))
+    for name, ref in p_grads.items():
+        got = k_grads[name]
+        assert bool(torch.isfinite(got).all()), name
+        assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= \
+            2.0 ** -4, name
+    # a site table changed on the device changes what the kernels snap to
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    x2 = torch.randn(64, 128, device=dev, generator=gen)
+    site = torch.tensor([0.5, 128.0, 1.0], device=dev)
+    ones, zeros = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    a = K.layernorm_snap_rows_cuda(x2, ones, zeros, Int8Sites(site))
+    site[0] = 0.25
+    b = K.layernorm_snap_rows_cuda(x2, ones, zeros, Int8Sites(site))
+    torch.cuda.synchronize()
+    assert torch.equal(a, torch.round(a / 0.5) * 0.5)
+    assert not torch.equal(a, b)
+    assert torch.equal(b, K.layernorm_snap_rows_plain(x2, ones, zeros,
+                                                      Int8Sites(site)))

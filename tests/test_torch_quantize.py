@@ -424,8 +424,3 @@ def test_cli_refuses_other_formats(cli_setup, tmp_path, q_format, decoder,
     cfg.write_text(json.dumps(config))
     with pytest.raises(error, match=match):
         cli.main(["-c", str(cfg), "--device", "cpu"])
-
-
-def test_int8_simulation_eval_forward_raises():
-    with pytest.raises(NotImplementedError, match="calibrate, then convert"):
-        ViT(q_format="PyTorchINT8", **KW)(torch.zeros(1, 80, 80, 3))

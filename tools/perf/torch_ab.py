@@ -10,9 +10,10 @@ fresh process that puts its checkout's root first on ``sys.path`` and so
 builds and runs that checkout's kernels.  A measurement times, with CUDA
 events at batch 256 and weights drawn from seed 0: the bf16 (FP32 format)
 forward, the converted INT8 forward (calibrated on 2 batches of seeded
-random images), the converted FP16_32 forward, and one train step
-(forward, backward, AdamW) of the ``vit_small.json`` optimizer, all
-kernel path.  Prints one line per
+random images), the converted FP16_32 forward, one train step (forward,
+backward, AdamW) of the ``vit_small.json`` optimizer in FP32 and one in
+FP16_32 (QAT), all kernel path; and the YOLOS-S detection forward at
+800 px (2601 tokens) at batch 8.  Prints one line per
 measurement and, last, each metric's per-checkout times, medians and the
 change's median against the parent's.  Needs a CUDA device.
 """
@@ -100,6 +101,21 @@ def measure(root):
     step = make_train_step(make_loss_fn(model), 1)
     out["train step"] = cuda_ms(torch, lambda: step(state, batch, tc["lr"]),
                                 10)
+    del state, step, model
+
+    model = ViT(*widths, q_format="FP16_32", device=device)
+    state = TrainState(model, create_optimizer(tc, model))
+    step = make_train_step(make_loss_fn(model), 1)
+    out["FP16_32 QAT step"] = cuda_ms(
+        torch, lambda: step(state, batch, tc["lr"]), 5, warmup=2)
+    del state, step, model, imgs, batch
+
+    model = ViT("detection", 224, 16, 20, 384, 12, 6, 1536, device=device)
+    model.eval()
+    det = torch.randn(8, 800, 800, 3, device=device, generator=gen)
+    with torch.inference_mode():
+        out["YOLOS-S forward 800 px B=8"] = cuda_ms(torch,
+                                                    lambda: model(det), 10)
     out["device"] = torch.cuda.get_device_name(0)
     return out
 
@@ -138,7 +154,7 @@ def main():
     for metric in times["parent"]:
         p, c = times["parent"][metric], times["change"][metric]
         mp, mc = statistics.median(p), statistics.median(c)
-        print(f"torch_ab: {metric} B={BATCH}: parent {p} ms (median {mp:.3f}), "
+        print(f"torch_ab: {metric}: parent {p} ms (median {mp:.3f}), "
               f"change {c} ms (median {mc:.3f}), change / parent "
               f"{mc / mp:.4f} [{power}]")
 
