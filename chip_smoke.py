@@ -33,6 +33,19 @@ Phases, each ending in one line of output:
               backward's layouts and epilogues, the snap-mode core's
               statistics, attention_core_f32_bwd, layernorm_snap_rows_bwd)
               and both backward chains, in each format at B=64, N=197
+  3b. probes the probes of the port's kernels, K12-K14
+              (myrtle_vision_tpu_torch/perf/): every K12 attention-core
+              mode and K13 GELU mode in its block chain, and every K14
+              layout case, against its plain version at B=64, N=197 and
+              B=3, N=50 (K12's "none" through its parts, the undivided
+              product and the rowsum); the FP32 chains K1-K4, forward and
+              backward, and the K12 / K13 chains at the widths of
+              vit_tiny.json (192, 3 heads) and vit_base.json (768, 12
+              heads), B=16; then the three probe tools at their default
+              shapes (B=512), every count reset just before and read just
+              after (their kernels must have launched), each variant's
+              plain version, bound and yardstick, and the attribution
+              tools train_gap_bench and int8_component_bench at B=256
   4. main     the ViT-S/16 eval CLI on a synthetic RESISC-layout dataset
               with seeded random weights: launch counts, logits of the
               kernel path against the plain path
@@ -118,6 +131,14 @@ import time
 
 import numpy as np
 import torch
+
+from myrtle_vision_tpu_torch.perf._timing import (
+    bound,
+    cost,
+    cuda_ms,
+    nbytes,
+    power_line,
+)
 
 START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -243,12 +264,6 @@ FAKE_QUANT_N = 2 ** 24 + 7
 I8_SAME = 0.998
 I8_CHAIN_SAME = 0.99
 I8_CHAIN_STEPS = 4
-# Peak rates of one H100 SXM (NVIDIA's data sheet, dense), for the least
-# time the card could take: bytes at 3.35 TB/s, operations at the peak of
-# their type (fp32 outside the tensor cores for the elementwise kernels).
-HBM_BYTES_PER_S = 3.35e12
-PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
-
 # the TPU kernels these CUDA kernels replace (file:line of the Pallas body)
 TPU_ATTN = "myrtle_vision_tpu/ops/fused_attention_block.py:196"
 TPU_MLP = "myrtle_vision_tpu/ops/fused_mlp.py:159"
@@ -433,15 +448,6 @@ def require_cuda():
                  "script runs on a CUDA device only")
 
 
-def power_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
 def _ops():
     """(the differentiable ops, forward and backward counted: FP32, the
     float formats and INT8 QAT; the converted INT8 ops, forward only)."""
@@ -517,26 +523,26 @@ def seeded(rng, shape, std, device, dtype=torch.float32):
     ).to(device=device, dtype=dtype)
 
 
-def block_inputs(b, n, seed, device):
+def block_inputs(b, n, seed, device, c=C, hid=HID):
     """bf16 activations and upstream gradient, fp32 parameters of one
-    block, from a numpy seed.  Each weight is the (in, out) view of a
-    torch (out, in) tensor, as the ViT block passes it, so the kernels
-    read every weight in the main path's layout.  Biases and the upstream
-    gradient are std 1, as large as what they are added to, so that each
-    one shows in the output."""
+    block of width ``c`` and MLP ``hid``, from a numpy seed.  Each weight
+    is the (in, out) view of a torch (out, in) tensor, as the ViT block
+    passes it, so the kernels read every weight in the main path's
+    layout.  Biases and the upstream gradient are std 1, as large as what
+    they are added to, so that each one shows in the output."""
     rng = np.random.RandomState(seed)
-    x = seeded(rng, (b, n, C), 1.0, device, torch.bfloat16)
-    attn = [seeded(rng, (C,), 0.1, device) + 1, seeded(rng, (C,), 0.1, device),
-            seeded(rng, (3 * C, C), C ** -0.5, device).t(),
-            seeded(rng, (3 * C,), 1.0, device),
-            seeded(rng, (C, C), C ** -0.5, device).t(),
-            seeded(rng, (C,), 1.0, device)]
-    mlp = [seeded(rng, (C,), 0.1, device) + 1, seeded(rng, (C,), 0.1, device),
-           seeded(rng, (HID, C), C ** -0.5, device).t(),
-           seeded(rng, (HID,), 1.0, device),
-           seeded(rng, (C, HID), HID ** -0.5, device).t(),
-           seeded(rng, (C,), 1.0, device)]
-    do = seeded(rng, (b, n, C), 1.0, device, torch.bfloat16)
+    x = seeded(rng, (b, n, c), 1.0, device, torch.bfloat16)
+    attn = [seeded(rng, (c,), 0.1, device) + 1, seeded(rng, (c,), 0.1, device),
+            seeded(rng, (3 * c, c), c ** -0.5, device).t(),
+            seeded(rng, (3 * c,), 1.0, device),
+            seeded(rng, (c, c), c ** -0.5, device).t(),
+            seeded(rng, (c,), 1.0, device)]
+    mlp = [seeded(rng, (c,), 0.1, device) + 1, seeded(rng, (c,), 0.1, device),
+           seeded(rng, (hid, c), c ** -0.5, device).t(),
+           seeded(rng, (hid,), 1.0, device),
+           seeded(rng, (c, hid), hid ** -0.5, device).t(),
+           seeded(rng, (c,), 1.0, device)]
+    do = seeded(rng, (b, n, c), 1.0, device, torch.bfloat16)
     return x, attn, mlp, do
 
 
@@ -546,6 +552,8 @@ def bar(kind, ref):
         return RTOL, KERNEL_ATOL
     if kind == "chain":
         return RTOL, CHAIN_ATOL
+    if kind == "scaled chain":
+        return RTOL, CHAIN_ATOL * ref.float().square().mean().sqrt().item()
     largest = ref.float().abs().max().item()
     if kind == "psum":
         return 0.0, PSUM_ATOL * largest
@@ -574,24 +582,6 @@ def compare(label, got, ref, rtol, atol):
 
 def as_tuple(v):
     return v if isinstance(v, tuple) else (v,)
-
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def cost(moved, ops, peak, library=None):
-    """What bounds a case: bytes it must move (each input read once, each
-    output written once), operations of type ``peak``, and a thunk of one
-    PyTorch call of the same function (a yardstick) or None."""
-    return {"bytes": moved, "ops": ops, "peak": peak, "library": library}
-
-
-def bound(c):
-    """(least ms on the card, what bounds it) of a cost."""
-    t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = c["ops"] / PEAK[c["peak"]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def heads_of(qkv3):
@@ -910,9 +900,10 @@ def compare_grid(label, got, ref, step, same=INT8_SAME, steps=INT8_STEPS):
     return max_abs, of_bar
 
 
-def op_cases(x, attn, mlp, do):
+def op_cases(x, attn, mlp, do, heads=HEADS):
     """(name, kernel thunk, plain thunk, bar kinds) of each block-half
-    chain, forward and backward (with the qkv rows saved and recomputed).
+    chain, forward and backward (with the qkv rows saved and recomputed),
+    ``heads`` heads of 64.
     Each path's backward starts from its own forward's residuals, as on
     the main path: rows recomputed by one GEMM have to meet the rowmax
     and rowsum that the same GEMM's rows gave in the forward."""
@@ -920,20 +911,22 @@ def op_cases(x, attn, mlp, do):
     from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
     from myrtle_vision_tpu_torch.ops import fused_mlp as fm
 
-    res_kernel = fa._forward(K.CUDA, x, *attn, HEADS, SCALE, record=True)[1]
-    res_plain = fa._forward(K.PLAIN, x, *attn, HEADS, SCALE, record=True)[1]
+    scale = (x.shape[-1] // heads) ** -0.5
+
+    res_kernel = fa._forward(K.CUDA, x, *attn, heads, scale, record=True)[1]
+    res_plain = fa._forward(K.PLAIN, x, *attn, heads, scale, record=True)[1]
     attn_bwd = attn[:-1]  # the backward takes no bp
     grads = ("chain",) + ("sum",) * 6
 
     def attn_back(kern, saved):
         ctx, m, rs, qkv = res_kernel if kern is K.CUDA else res_plain
         return fa._backward(kern, do, x, *attn_bwd, ctx, m, rs,
-                            qkv if saved else None, HEADS, SCALE)
+                            qkv if saved else None, heads, scale)
 
     return [
         ("fused_attention_block",
-         lambda: fa.fused_attention_block(x, *attn, HEADS, SCALE),
-         lambda: fa.fused_attention_block_plain(x, *attn, HEADS, SCALE),
+         lambda: fa.fused_attention_block(x, *attn, heads, scale),
+         lambda: fa.fused_attention_block_plain(x, *attn, heads, scale),
          ("chain",)),
         ("fused_mlp_block",
          lambda: fm.fused_mlp_block(x, *mlp),
@@ -1462,6 +1455,264 @@ def phase_kernels(device):
     return errors
 
 
+# the probes' check shapes (B, N) at ViT-S/16 widths, and the widths of
+# classification/train_configs/vit_{tiny,base}.json (dim, heads, MLP) at
+# which the FP32 block chains K1-K4 and the K12 / K13 probes are held
+PROBE_SHAPES = ((64, N, "B=64,N=197"), (3, 50, "B=3,N=50"))
+# the probe tools' default batch, at which they and the variants' plain
+# versions and yardsticks are timed; the attribution tools' batch, that
+# of PERF.md's main-path metrics
+PROBE_BATCH = 512
+ATTRIBUTION_BATCH = 256
+PROBE_WIDTHS = ((192, 3, 768, "dim 192, 3 heads, MLP 768 (vit_tiny.json)"),
+                (768, 12, 3072, "dim 768, 12 heads, MLP 3072 (vit_base.json)"))
+# The K12 variant "none" divides by the rowsum of e = 0.01 s, a sum of
+# signed scores that can come near 0, where its fp32 noise (2^-24 of the
+# sum of |e|) is no longer small against the sum: the divided output has
+# no fixed relative bar.  The phase holds the parts apart instead: the
+# undivided product bf16(bf16(e) v) to the kernel bar and the rowsum to
+# the sum bar; the divided chain's share of the chain bar is printed.
+# The K12 variant "dotonly" normalizes nothing (no LayerNorm, no scale,
+# no softmax): its unscaled scores (~8), context and output (~100) are
+# ~100x the other chains' activations, and so is what one flipped bf16
+# rounding moves, so its chain bar's atol is CHAIN_ATOL times the output's
+# RMS ("scaled chain").  The K14 products sum exact products of bf16
+# values in fp32, kernel and plain version alike: bar 2^-16 of the largest
+# output (FLOAT_TIGHT).
+# the probes in the kernels line: (source, the TPU kernel, the headline
+# variant, its tool)
+PROBES = {
+    "K12": (f"{CSRC}attention_core.cu (probe modes); "
+            f"{CSRC}gemm_bf16_epilogue.cu (probe instantiations)",
+            "tools/perf/attn_microbench.py:275", "defer"),
+    "K13": (f"{CSRC}gemm_bf16_epilogue.cu (GELU modes)",
+            "tools/perf/mlp_microbench.py:119", "base"),
+    "K14": (f"{CSRC}gemm_layout_probe.cu",
+            "tools/perf/layout_probe.py:81", "dw  xn^T@dqkv implicit (0,0)"),
+}
+# the launch counter of each probe's kernel
+PROBE_COUNTERS = {"K12": "attention_core_probe",
+                  "K13": "gemm_bf16_gelu_probe", "K14": "gemm_layout_probe"}
+
+
+def probe_check(label, kernel, plain, kind):
+    """Hold one probe output against its plain version; returns its max
+    abs difference."""
+    if kind == "fp32":
+        ref = plain.float()
+        max_abs, of_bar = compare(label, kernel, plain, 0.0,
+                                  FLOAT_TIGHT * ref.abs().max().item())
+    else:
+        max_abs, of_bar = compare(label, kernel, plain, *bar(kind, plain))
+    print(f"probes: {label} max_abs {max_abs:.6g}, {of_bar:.4f} of the bar "
+          f"({kind})")
+    return max_abs
+
+
+def check_probes(b, n, c, heads, tag, device, seed):
+    """Every K12 and K13 variant (the kernels' chains) against its plain
+    chain; K12 ``none`` through its parts.  Returns {probe: max abs}."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.perf import attn_microbench as am
+    from myrtle_vision_tpu_torch.perf import mlp_microbench as mm
+
+    inputs = am.make_inputs(b, n, c, heads, seed, device)
+    k12, p12 = am.variants(inputs, heads), am.variants(inputs, heads, True)
+    mlp_in = mm.make_inputs(b, n, c, seed + 1, device)
+    k13, p13 = mm.variants(mlp_in), mm.variants(mlp_in, True)
+    errors = {"K12": 0.0, "K13": 0.0}
+    for name in am.VARIANTS:
+        if name in am.YARDSTICKS:
+            continue
+        out, ref = k12[name](), p12[name]()
+        if name == "none":
+            max_abs, of_bar = bar_share(f"K12 none {tag}", out, ref,
+                                        *bar("chain", ref))
+            print(f"probes: K12 none {tag} max_abs {max_abs:.6g}, "
+                  f"{of_bar:.4f} of the chain bar (printed, not held: the "
+                  "parts below are)")
+            x2 = inputs["x"].view(b * n, c)
+            w, bq = am.variant_weights(inputs["wqkv"], inputs["bqkv"],
+                                       inputs["wp"], inputs["bp"],
+                                       heads)["none"][:2]
+            qkv = K.gemm_bf16_epilogue_plain(
+                K.layernorm_rows_plain(x2, inputs["ln_s"], inputs["ln_b"]),
+                w, bq, "bias").view(b, n, 3 * c)
+            scale = (c // heads) ** -0.5
+            parts = K.attention_core_probe_cuda(qkv, heads, scale, "none",
+                                                parts=True)
+            plain = K.attention_core_probe_plain(qkv, heads, scale, "none",
+                                                 parts=True)
+            for part, got, want, kind in zip(("u", "rowmax", "rowsum"),
+                                             parts, plain,
+                                             ("kernel", "kernel", "sum")):
+                errors["K12"] = max(errors["K12"], probe_check(
+                    f"K12 none[{part}] {tag}", got, want, kind))
+            continue
+        errors["K12"] = max(errors["K12"], probe_check(
+            f"K12 {name} {tag}", out, ref,
+            "scaled chain" if name == "dotonly" else "chain"))
+    for name in mm.VARIANTS:
+        errors["K13"] = max(errors["K13"], probe_check(
+            f"K13 {name} {tag}", mm.joined(k13[name]()),
+            mm.joined(p13[name]()), "chain"))
+    return errors
+
+
+def check_layout(b, n, tag, device):
+    """Every K14 case against its plain version; returns the max abs."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.perf import layout_probe as lp
+
+    err = 0.0
+    for i, (name, shapes, contract, per_head, explicit) in enumerate(
+            lp.cases(n, C, HEADS)):
+        a, bb = lp.make_operands(shapes, b, 40 + i, device)
+        heads = HEADS if per_head else None
+        err = max(err, probe_check(
+            f"K14 {name.strip()} {tag}",
+            lp.case_fn(K.CUDA, a, bb, contract, heads, explicit)(),
+            lp.case_fn(K.PLAIN, a, bb, contract, heads, explicit)(), "fp32"))
+    return err
+
+
+def check_widths(device):
+    """The FP32 block chains K1-K4, forward and backward through the
+    port's ops, and every K12 / K13 variant, at the tiny and base widths,
+    B=16, N=197."""
+    for c, heads, hid, tag in PROBE_WIDTHS:
+        x, attn, mlp, do = block_inputs(16, N, seed=c, device=device, c=c,
+                                        hid=hid)
+        for name, kernel, plain, kinds in op_cases(x, attn, mlp, do, heads):
+            outs, refs = as_tuple(kernel()), as_tuple(plain())
+            check(len(outs) == len(refs) == len(kinds),
+                  f"{name}: {len(outs)} outputs")
+            worst = (0.0, 0.0)
+            for i, (got, ref, kind) in enumerate(zip(outs, refs, kinds)):
+                max_abs, of_bar = compare(f"{name} {tag} output {i}", got,
+                                          ref, *bar(kind, ref))
+                worst = max(worst, (of_bar, max_abs))
+            print(f"probes: {name} B=16,N=197 {tag} max_abs {worst[1]:.6g}, "
+                  f"{worst[0]:.4f} of the bar (kinds {'/'.join(kinds)})")
+        del x, attn, mlp, do
+        check_probes(16, N, c, heads, f"B=16,N=197 {tag}", device, seed=c)
+
+
+def run_tool(module, argv):
+    """Run a probe tool's ``main`` on the card with ``argv``, each line it
+    prints repeated as a ``probes:`` line; returns its results."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = module.main(["--device", "cuda", *argv])
+    name = module.__name__.rsplit(".", 1)[-1]
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            print(f"probes: {name}: {line}")
+    return results
+
+
+def phase_probes(device, power):
+    """The probes K12-K14 and the attribution tools (myrtle_vision_tpu_
+    torch/perf/): each probe kernel against its plain version, the K1-K4
+    chains and the probes at the tiny and base widths, then the probe
+    tools themselves at their default shapes (B=512) with every count
+    reset just before and read just after, each variant's plain version,
+    bound and yardstick, and both attribution tools at B=256.  Returns
+    the kernels-line entries of K12-K14."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.perf import attn_microbench as am
+    from myrtle_vision_tpu_torch.perf import int8_component_bench as icb
+    from myrtle_vision_tpu_torch.perf import layout_probe as lp
+    from myrtle_vision_tpu_torch.perf import mlp_microbench as mm
+    from myrtle_vision_tpu_torch.perf import train_gap_bench as tgb
+
+    t0 = time.perf_counter()
+    errors = {"K12": 0.0, "K13": 0.0, "K14": 0.0}
+    for b, n, tag in PROBE_SHAPES:
+        for key, err in check_probes(b, n, C, HEADS, tag, device,
+                                     seed=b * 1000 + n + 7).items():
+            if b == 64:
+                errors[key] = max(errors[key], err)
+        err = check_layout(b, n, tag, device)
+        if b == 64:
+            errors["K14"] = max(errors["K14"], err)
+    check_widths(device)
+    print(f"probes: every K12 / K13 variant, K14 case and width within its "
+          f"bar ({time.perf_counter() - t0:.1f} s)")
+
+    # the probe tools at their default shapes: the slice's main path
+    reset_counts()
+    argv = ["--batch", str(PROBE_BATCH), "--iters", "10"]
+    tool_ms = {"K12": run_tool(am, argv), "K13": run_tool(mm, argv),
+               "K14": run_tool(lp, argv)}
+    launches = read_counts()[0]
+    for probe, counter in PROBE_COUNTERS.items():
+        check(launches[counter] > 0,
+              f"{probe}: {counter} never launched by its tool")
+    print("probes: launches in the tools' runs: "
+          + ", ".join(f"{k} {launches[c]} ({c})"
+                      for k, c in PROBE_COUNTERS.items()))
+
+    # plain versions, bounds and yardsticks at the same shapes (B=512)
+    timed = {}
+    inputs = am.make_inputs(PROBE_BATCH, N, C, HEADS, 0, device)
+    p12 = am.variants(inputs, HEADS, True)
+    mlp_in = mm.make_inputs(PROBE_BATCH, N, C, 0, device)
+    p13 = mm.variants(mlp_in, True)
+    rows = [("K12", name, p12[name], am.variant_cost(name, inputs, HEADS),
+             name in ("base", "pvrow", "rowmajor", "defer", "pipe", "sumdot",
+                      "mlp"))
+            for name in am.VARIANTS if name not in am.YARDSTICKS]
+    rows += [("K13", name, p13[name], mm.variant_cost(mlp_in),
+              name not in ("nogelu", "noexp")) for name in mm.VARIANTS]
+    for probe, name, plain, c_, same_function in rows:
+        k_ms = tool_ms[probe][name]["ms"]
+        p_ms = cuda_ms(plain, iters=2, warmup=1)
+        lib_ms = cuda_ms(c_["library"]) if same_function else None
+        b_ms, by = bound(c_)
+        timed[(probe, name)] = (k_ms, p_ms, b_ms, by, lib_ms)
+    del inputs, p12, mlp_in, p13
+    for i, (name, shapes, contract, per_head, explicit) in enumerate(
+            lp.cases(N, C, HEADS)):
+        a, bb = lp.make_operands(shapes, PROBE_BATCH, i, device)
+        heads = HEADS if per_head else None
+        out_shape = lp.case_fn(K.CUDA, a, bb, contract, heads, explicit)(
+            ).shape
+        c_ = lp.case_cost(a, bb, contract, heads, out_shape)
+        p_ms = cuda_ms(lp.case_fn(K.PLAIN, a, bb, contract, heads,
+                                  explicit), iters=2, warmup=1)
+        b_ms, by = bound(c_)
+        timed[("K14", name)] = (tool_ms["K14"][name]["ms"], p_ms, b_ms, by,
+                                cuda_ms(c_["library"]))
+        del a, bb
+    for (probe, name), (k_ms, p_ms, b_ms, by, lib_ms) in timed.items():
+        lib = "none (another function)" if lib_ms is None \
+            else f"{lib_ms:.4f} ms"
+        print(f"timing: {probe} {name.strip()} B={PROBE_BATCH} N={N} kernel "
+              f"{k_ms:.4f} ms plain {p_ms:.4f} ms, library {lib}, bound "
+              f"{b_ms:.4f} ms ({by}) [{power}]")
+
+    # attribution at the main-path batch
+    run_tool(tgb, ["--batch", str(ATTRIBUTION_BATCH), "--iters", "5"])
+    run_tool(icb, ["--batch", str(ATTRIBUTION_BATCH), "--iters", "5"])
+    print(f"probes: phase done in {time.perf_counter() - t0:.1f} s")
+    entries = []
+    for probe, (source, replaces, headline) in PROBES.items():
+        k_ms, p_ms, b_ms, by, lib_ms = timed[(probe, headline)]
+        entries.append({
+            "name": probe, "route": "cuda", "source": source,
+            "replaces": replaces,
+            # launches in the probe tools' run at their default shapes;
+            # the largest error of any variant against its plain version
+            # at B=64; the headline variant's times at B=512
+            "launches": launches[PROBE_COUNTERS[probe]],
+            "max_abs_err": errors[probe],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms,
+        })
+    return entries
+
+
 def flash_inputs(b, h, n, d, seed, device, count=3):
     """bf16 (B, H, N, D) q, k, v (and with count 4 an output gradient),
     std 1, from a numpy seed."""
@@ -1686,7 +1937,7 @@ def phase_main(device, data_config, data_cfg):
           f"op launches {ops}")
     check(op_launches == (depth * batches, depth * batches),
           f"op launches {op_launches}, expected {depth} per batch")
-    expect = {k: 0 for k in KERNELS}
+    expect = dict.fromkeys(launches, 0)  # every counter, probes too
     expect.update(layernorm_rows=2 * depth * batches,
                   gemm_bf16_epilogue=4 * depth * batches,
                   attention_core=depth * batches)
@@ -2341,7 +2592,7 @@ def phase_quantize(device, data_config, data_cfg):
           f"INT8 op launches {int8_ops}, expected {depth} per batch")
     # per batch: 2 LayerNorms per block and the head's; 4 products per
     # block, the patch embedding and the head; one core per block
-    expect = {k: 0 for k in KERNELS}
+    expect = dict.fromkeys(launches, 0)  # every counter, probes too
     expect.update(layernorm_quant_rows=(2 * depth + 1) * batches,
                   gemm_s8_epilogue=(4 * depth + 2) * batches,
                   attention_core_f32=depth * batches)
@@ -2474,7 +2725,7 @@ def phase_quantize_float(device, data_config, data_cfg):
     # weight) and the head (norm act_in, act_in, weight), the converted
     # forward's also at the LayerNorm scales, and convert's at every
     # Linear and LayerNorm weight on the card
-    expect = {k: 0 for k in KERNELS}
+    expect = dict.fromkeys(launches, 0)  # every counter, probes too
     expect.update(layernorm_snap_rows=2 * depth * forwards,
                   gemm_f32x3_epilogue=4 * depth * forwards,
                   attention_core_f32=depth * forwards,
@@ -2594,7 +2845,7 @@ def phase_detect(device, data_config, data_cfg):
     took = time.perf_counter() - t0
     n_img = len(preds)
     batches = math.ceil(n_img / batch)
-    expect = {k: 0 for k in KERNELS}
+    expect = dict.fromkeys(launches, 0)  # every counter, probes too
     expect["flash_attention_fwd"] = depth * batches
     print(f"detect: YOLOS-S detection eval CLI on cuda, {n_img} images in "
           f"{batches} batches of {batch} in {took:.1f} s (set-up: weights "
@@ -2885,20 +3136,6 @@ def phase_detect_train(device, data_config, data_cfg):
           and eval_launches["flash_attention_bwd"] == 0,
           f"eval launches {eval_launches}")
     return launches
-
-
-def cuda_ms(fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def paired_ms(kernel, plain, iters=20, warmup=3):
@@ -3509,6 +3746,7 @@ def main():
     phase_device()
     phase_build()
     errors = phase_kernels(device)
+    probe_entries = phase_probes(device, power_line())
     data_config, data_cfg = make_dataset()
     phase_main(device, data_config, data_cfg)
     launches = phase_train(device, data_config, data_cfg)
@@ -3574,6 +3812,7 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    kernels += probe_entries
     print(f"elapsed: {time.perf_counter() - START:.1f} s since the script "
           "started")
     print(json.dumps({"kernels": kernels}))

@@ -32,6 +32,20 @@
 // output tiles (27 at 1152x384) and a long K, so it splits K over
 // blockIdx.z and the caller sums the partial products.  wgmma and TMA are
 // not used yet.
+//
+// Probe instantiations (mvt_gemm_bf16_probe), for the K12 / K13 probes of
+// tools/perf/{attn,mlp}_microbench.py; the production ones above are
+// these templates at their defaults, unchanged:
+//   - the GELU of epilogue 1 in the modes of `_erf_variant`
+//     (mlp_microbench.py:54): 0 base (the erf above), 1 nogelu (h as it
+//     is), 2 noexp (s (1 - poly 0.1), wrong on purpose: a diagnostic of
+//     the exp's cost), 3 nodiv (t from the approximate reciprocal
+//     rcp.approx.ftz.f32 and one Newton step r (2 - y r), ~2^-24 relative);
+//   - epilogue 6, a bf16 store with no bias and no residual (the
+//     `dotonly` probe's projections);
+//   - B read head-major: (3, H, K, 64) panels of 64 columns, column
+//     (t, h, d) of the (K, 3 H 64) operand at ((t H + h) K + k) 64 + d
+//     (attn_microbench.py's `pvrow` weight w3).
 #include <mma.h>
 
 #include <type_traits>
@@ -66,21 +80,44 @@ enum Epilogue {
   kF32 = 3,
   kBiasGeluGrad = 4,
   kMulAuxColsum = 5,
+  kStore = 6,  // probes only
 };
 
+// GELU modes of the probe (the header); production takes kGeluBase
+enum GeluMode { kGeluBase = 0, kGeluNone = 1, kGeluNoExp = 2, kGeluNoDiv = 3 };
+
+// the approximate reciprocal of the special-function unit (not __frcp_rn,
+// which is the exact IEEE one)
+__device__ __forceinline__ float rcp_approx(float y) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+  return r;
+}
+
+template <int kGelu = kGeluBase>
 __device__ __forceinline__ float erf_as(float x) {
   const float s = (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f);
   const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * ax);
+  float t;
+  if constexpr (kGelu == kGeluNoDiv) {
+    const float y = 1.0f + 0.3275911f * ax;
+    const float r = rcp_approx(y);
+    t = r * (2.0f - y * r);
+  } else {
+    t = 1.0f / (1.0f + 0.3275911f * ax);
+  }
   const float poly =
       t * (0.254829592f +
            t * (-0.284496736f +
                 t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  if constexpr (kGelu == kGeluNoExp) return s * (1.0f - poly * 0.1f);
   return s * (1.0f - poly * expf(-ax * ax));
 }
 
+template <int kGelu = kGeluBase>
 __device__ __forceinline__ float gelu_as(float h) {
-  return 0.5f * h * (1.0f + erf_as(h / 1.4142135623730951f));
+  if constexpr (kGelu == kGeluNone) return h;
+  return 0.5f * h * (1.0f + erf_as<kGelu>(h / 1.4142135623730951f));
 }
 
 // 16-byte asynchronous copy; when !ok nothing is read and zeros are written
@@ -101,8 +138,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// one BK-deep step of both tiles; rows of K at or past k_end read as zero
-template <bool kAColMajor, bool kBColMajor>
+// one BK-deep step of both tiles; rows of K at or past k_end read as zero;
+// kBPanel > 0: B row-major in panels of kBPanel columns (head-major)
+template <bool kAColMajor, bool kBColMajor, int kBPanel = 0>
 __device__ __forceinline__ void load_stage(bf16* stage, const bf16* A,
                                            const bf16* B, int M, int N, int K,
                                            int k_end, int m0, int n0, int k0,
@@ -142,13 +180,21 @@ __device__ __forceinline__ void load_stage(bf16* stage, const bf16* A,
       const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
       const int gk = k0 + r, gn = n0 + nc;
       const bool ok = gk < k_end && gn < N;
-      cp_async16(&Bs[r * BR_LD + nc],
-                 ok ? B + static_cast<size_t>(gk) * N + gn : B, ok);
+      if constexpr (kBPanel > 0) {
+        // a chunk of 8 columns lies in one panel (kBPanel % 8 == 0)
+        const size_t at = (static_cast<size_t>(gn / kBPanel) * K + gk) *
+                              kBPanel + gn % kBPanel;
+        cp_async16(&Bs[r * BR_LD + nc], ok ? B + at : B, ok);
+      } else {
+        cp_async16(&Bs[r * BR_LD + nc],
+                   ok ? B + static_cast<size_t>(gk) * N + gn : B, ok);
+      }
     }
   }
 }
 
-template <bool kAColMajor, bool kBColMajor, int kEpi>
+template <bool kAColMajor, bool kBColMajor, int kEpi,
+          int kGelu = kGeluBase, int kBPanel = 0>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
             const float* __restrict__ bias, const bf16* __restrict__ residual,
@@ -185,9 +231,9 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < k_tiles)
-      load_stage<kAColMajor, kBColMajor>(stages + s * kStageElems, A, B, M,
-                                         N, K, k_end, m0, n0,
-                                         k_begin + s * BK, tid);
+      load_stage<kAColMajor, kBColMajor, kBPanel>(
+          stages + s * kStageElems, A, B, M, N, K, k_end, m0, n0,
+          k_begin + s * BK, tid);
     cp_async_commit();
   }
 
@@ -198,7 +244,7 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
     __syncthreads();
     const int next = kt + kStages - 1;
     if (next < k_tiles)
-      load_stage<kAColMajor, kBColMajor>(
+      load_stage<kAColMajor, kBColMajor, kBPanel>(
           stages + (next % kStages) * kStageElems, A, B, M, N, K, k_end, m0,
           n0, k_begin + next * BK, tid);
     cp_async_commit();
@@ -257,6 +303,10 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
             static_cast<float*>(out)[out_base + o] = v;
             continue;
           }
+          if constexpr (kEpi == kStore) {
+            static_cast<bf16*>(out)[o] = __float2bfloat16_rn(v);
+            continue;
+          }
           if (kEpi == kMulAuxColsum) {
             v *= aux[o];
             col_acc[j] += v;
@@ -264,7 +314,7 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
             v += bias[gc];
           }
           if (kEpi == kBiasGelu) {
-            v = gelu_as(v);
+            v = gelu_as<kGelu>(v);
           } else if (kEpi == kBiasResidual) {
             v = __bfloat162float(residual[o]) + v;
           } else if (kEpi == kBiasGeluGrad) {
@@ -295,11 +345,12 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   }
 }
 
-template <bool kAColMajor, bool kBColMajor, int kEpi>
+template <bool kAColMajor, bool kBColMajor, int kEpi, int kGelu = kGeluBase,
+          int kBPanel = 0>
 int launch(dim3 grid, cudaStream_t stream, const void* a, const void* b,
            const void* bias, const void* residual, void* out, void* aux,
            void* colpart, int M, int N, int K, int k_split) {
-  auto kernel = gemm_kernel<kAColMajor, kBColMajor, kEpi>;
+  auto kernel = gemm_kernel<kAColMajor, kBColMajor, kEpi, kGelu, kBPanel>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
@@ -335,6 +386,41 @@ int launch_epi(int epilogue, dim3 grid, cudaStream_t s, const void* a,
     default:
       return launch<false, kBColMajor, kMulAuxColsum>(
           grid, s, a, b, bias, residual, out, aux, colpart, M, N, K, K);
+  }
+}
+
+// the probe instantiations: B row-major, or head-major panels of kBPanel
+// columns (the QKV product of `pvrow` only)
+template <int kBPanel>
+int launch_probe(int epilogue, int gelu, dim3 grid, cudaStream_t s,
+                 const void* a, const void* b, const void* bias,
+                 const void* residual, void* out, int M, int N, int K) {
+  if (kBPanel > 0 || epilogue == kBias)
+    return launch<false, false, kBias, kGeluBase, kBPanel>(
+        grid, s, a, b, bias, residual, out, nullptr, nullptr, M, N, K, K);
+  switch (epilogue) {
+    case kBiasResidual:
+      return launch<false, false, kBiasResidual>(
+          grid, s, a, b, bias, residual, out, nullptr, nullptr, M, N, K, K);
+    case kStore:
+      return launch<false, false, kStore>(grid, s, a, b, bias, residual, out,
+                                          nullptr, nullptr, M, N, K, K);
+    default:
+      break;
+  }
+  switch (gelu) {  // epilogue kBiasGelu
+    case kGeluBase:
+      return launch<false, false, kBiasGelu>(
+          grid, s, a, b, bias, residual, out, nullptr, nullptr, M, N, K, K);
+    case kGeluNone:
+      return launch<false, false, kBiasGelu, kGeluNone>(
+          grid, s, a, b, bias, residual, out, nullptr, nullptr, M, N, K, K);
+    case kGeluNoExp:
+      return launch<false, false, kBiasGelu, kGeluNoExp>(
+          grid, s, a, b, bias, residual, out, nullptr, nullptr, M, N, K, K);
+    default:
+      return launch<false, false, kBiasGelu, kGeluNoDiv>(
+          grid, s, a, b, bias, residual, out, nullptr, nullptr, M, N, K, K);
   }
 }
 
@@ -379,4 +465,31 @@ MVT_EXPORT int mvt_gemm_bf16_at(const void* a, const void* b, void* out,
   return launch<true, false, kF32>(grid, static_cast<cudaStream_t>(stream),
                                    a, b, nullptr, nullptr, out, nullptr,
                                    nullptr, M, N, K, k_split);
+}
+
+// The probes' GEMMs (see the header): row-major A; epilogue 0, 1 (with
+// GELU mode `gelu`, 0-3), 2 or 6, bf16 out; b_layout 0 row-major (K, N),
+// or 64: head-major panels of 64 columns with epilogue 0.
+MVT_EXPORT int mvt_gemm_bf16_probe(const void* a, const void* b,
+                                   const void* bias, const void* residual,
+                                   void* out, int M, int N, int K,
+                                   int b_layout, int epilogue, int gelu,
+                                   void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 ||
+      !(epilogue == kBias || epilogue == kBiasGelu ||
+        epilogue == kBiasResidual || epilogue == kStore) ||
+      gelu < kGeluBase || gelu > kGeluNoDiv ||
+      (gelu != kGeluBase && epilogue != kBiasGelu) ||
+      (epilogue != kStore && bias == nullptr) ||
+      (epilogue == kBiasResidual && residual == nullptr) ||
+      !(b_layout == 0 || (b_layout == 64 && epilogue == kBias &&
+                          N % 64 == 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b_layout == 64)
+    return launch_probe<64>(epilogue, gelu, grid, s, a, b, bias, residual,
+                            out, M, N, K);
+  return launch_probe<0>(epilogue, gelu, grid, s, a, b, bias, residual, out,
+                         M, N, K);
 }

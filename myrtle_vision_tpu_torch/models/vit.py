@@ -399,20 +399,28 @@ class Block(nn.Module):
     def forward_converted(self, x, sites, plain=False):
         """The converted model's block: one INT8 op per half, fp32 (B, N,
         C) in and out; ``sites`` is :meth:`site_table` as loaded."""
-        a, f = self._modules["0"].fn, self._modules["1"].fn
+        x = self.converted_attention(x, sites, plain)
+        return self.converted_mlp(x, sites, plain)
+
+    def converted_attention(self, x, sites, plain=False):
+        """The converted block's attention half (K9's op)."""
+        a = self._modules["0"].fn
         qkv, out = a.fn.to_qkv, a.fn.to_out[0]
-        fc1, fc2 = f.fn.net[0], f.fn.net[3]
-        attn_op = int8_attention_block_plain if plain else \
-            int8_attention_block
-        mlp_op = int8_mlp_block_plain if plain else int8_mlp_block
-        x = attn_op(
+        op = int8_attention_block_plain if plain else int8_attention_block
+        return op(
             x, a.norm.weight, a.norm.bias,
             qkv.weight.t(), qkv.weight_scale, qkv.bias,
             out.weight.t(), out.weight_scale, out.bias, sites[0],
             self.heads, self.scale,
             colsums=(qkv.weight_colsum, out.weight_colsum),
         )
-        return mlp_op(
+
+    def converted_mlp(self, x, sites, plain=False):
+        """The converted block's MLP half (K10's op)."""
+        f = self._modules["1"].fn
+        fc1, fc2 = f.fn.net[0], f.fn.net[3]
+        op = int8_mlp_block_plain if plain else int8_mlp_block
+        return op(
             x, f.norm.weight, f.norm.bias,
             fc1.weight.t(), fc1.weight_scale, fc1.bias,
             fc2.weight.t(), fc2.weight_scale, fc2.bias, sites[1],

@@ -150,6 +150,10 @@ def lib() -> ctypes.CDLL:
              [p] * 5 + [ll, i, i, ll, i, i, i, i, i, i, i, f, p]),
             ("mvt_flash_attention_bwd",
              [p] * 10 + [ll, i, i] * 4 + [i] * 5 + [f, p, p]),
+            ("mvt_attention_core_probe", [p, p, p, p, i, i, i, i, f, i, p]),
+            ("mvt_gemm_bf16_probe", [p] * 5 + [i] * 6 + [p]),
+            ("mvt_gemm_layout_probe",
+             [p, p, p] + [i] * 5 + [ll, ll, i] * 3 + [i, i, i, p]),
         ):
             fn = getattr(handle, name)
             fn.argtypes = args

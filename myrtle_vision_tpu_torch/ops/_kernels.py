@@ -48,6 +48,19 @@ frozen observer rows it snaps at, read on the device (the snap policy:
 ``snap`` and ``snap_all`` are identities under it, ``snap_int8`` applies
 its rows).
 
+and the probes of the port's kernels (myrtle_vision_tpu_torch/perf/, the
+counterparts of the TPU probes K12-K14 in tools/perf/), each an
+instantiation of a kernel above or a kernel of its own:
+
+- ``attention_core_probe``  csrc/attention_core.cu in a probe mode (K12)
+- ``gemm_bf16_probe``       csrc/gemm_bf16_epilogue.cu: the GELU modes of
+                            the fc1 epilogue (K13; counted as
+                            ``gemm_bf16_gelu_probe``), a bf16 store without
+                            bias, a head-major weight (K12)
+- ``gemm_layout_probe``     csrc/gemm_layout_probe.cu, batched per-image
+                            products with transposed operands read in
+                            place or transposed as staged (K14)
+
 A PyTorchINT8 observer site is a (3,) fp32 tensor (scale, zero point,
 has_stats as 1 or 0), a row of the model's site table.
 
@@ -86,7 +99,15 @@ EPS = 1e-5
 _SQRT_2 = 1.4142135623730951
 _INV_SQRT_2PI = 0.3989422804014327
 EPILOGUES = {"bias": 0, "bias_gelu": 1, "bias_residual": 2, "f32": 3,
-             "bias_gelu_grad": 4, "mul_aux": 5}
+             "bias_gelu_grad": 4, "mul_aux": 5, "store": 6}
+# the GELU of the fc1 epilogue in the K13 probe's modes
+# (tools/perf/mlp_microbench.py ``_erf_variant``); production is "base"
+GELU_MODES = {"base": 0, "nogelu": 1, "noexp": 2, "nodiv": 3}
+# the attention core's K12 probe modes (csrc/attention_core.cu), and those
+# that divide the P V product by the rowsum
+PROBE_MODES = {"defer": 1, "rowmajor": 2, "none": 3, "nomax": 4,
+               "sumdot": 5, "pipe": 6, "dotonly": 7}
+DEFERRED_MODES = ("defer", "none", "nomax", "sumdot", "pipe")
 _GEMM_TILE = 128  # rows and columns of one GEMM output tile
 
 # launches of each kernel since the last reset_launches()
@@ -97,7 +118,9 @@ LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
             "attention_core_f32": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd": 0, "fake_quant_rows": 0,
             "layernorm_snap_rows": 0, "gemm_f32x3_epilogue": 0,
-            "attention_core_f32_bwd": 0, "layernorm_snap_rows_bwd": 0}
+            "attention_core_f32_bwd": 0, "layernorm_snap_rows_bwd": 0,
+            "attention_core_probe": 0, "gemm_bf16_probe": 0,
+            "gemm_bf16_gelu_probe": 0, "gemm_layout_probe": 0}
 INT8_EPILOGUES = {"requant": 0, "requant_gelu_quant": 1,
                   "requant_residual_requant": 2}
 FAKE_QUANT_MODES = {"float": 0, "fixed": 1}
@@ -124,11 +147,22 @@ def layernorm_rows_plain(x, scale, bias):
     return (xhat * scale.float() + bias.float()).to(x.dtype)
 
 
-def erf_poly(x):
+def erf_poly(x, mode="base"):
     """erf by Abramowitz & Stegun 7.1.26 (max abs error 1.5e-7) with an
-    exact divide (``_erf_f32`` of myrtle_vision_tpu/ops/fused_mlp.py)."""
+    exact divide (``_erf_f32`` of myrtle_vision_tpu/ops/fused_mlp.py).
+    The K13 probe's modes (``_erf_variant`` of
+    tools/perf/mlp_microbench.py): "noexp" drops the exp term (wrong on
+    purpose, a diagnostic); "nodiv" takes t from an approximate
+    reciprocal r of y = 1 + 0.3275911 |x| and one Newton step r (2 - y r).
+    Here r is 1 / y: the card's ``rcp.approx`` is within 2^-23 of it, and
+    the Newton step leaves both within 2^-24 of 1 / y."""
     ax = x.abs()
-    t = 1.0 / (1.0 + 0.3275911 * ax)
+    if mode == "nodiv":
+        y = 1.0 + 0.3275911 * ax
+        r = 1.0 / y
+        t = r * (2.0 - y * r)
+    else:
+        t = 1.0 / (1.0 + 0.3275911 * ax)
     poly = t * (
         0.254829592
         + t * (
@@ -136,12 +170,17 @@ def erf_poly(x):
             + t * (1.421413741 + t * (-1.453152027 + t * 1.061405429))
         )
     )
+    if mode == "noexp":
+        return torch.sign(x) * (1.0 - poly * 0.1)
     return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
 
 
-def gelu_poly(h):
-    """GELU with :func:`erf_poly`, in fp32."""
-    return 0.5 * h * (1.0 + erf_poly(h / _SQRT_2))
+def gelu_poly(h, mode="base"):
+    """GELU with :func:`erf_poly`, in fp32; the K13 probe's mode "nogelu"
+    passes h through."""
+    if mode == "nogelu":
+        return h
+    return 0.5 * h * (1.0 + erf_poly(h / _SQRT_2, mode))
 
 
 def gelu_and_grad_poly(h):
@@ -152,24 +191,33 @@ def gelu_and_grad_poly(h):
     return h * cdf, cdf + h * pdf
 
 
-def gemm_bf16_epilogue_plain(a, b, bias, epilogue, residual=None, aux=None):
+def gemm_bf16_epilogue_plain(a, b, bias, epilogue, residual=None, aux=None,
+                             gelu="base"):
     """epilogue(a @ b + bias): a (..., K), b (K, N), products of the
-    rounded operands summed in fp32.
-    "bias", "bias_gelu", "bias_residual": rounded to a.dtype.
+    rounded operands summed in fp32; b may also be head-major (3, H, K,
+    D), column (t, h, d) of the (K, 3HD) operand at [t, h, :, d] (the K12
+    probe's ``pvrow`` weight).
+    "bias", "bias_gelu", "bias_residual": rounded to a.dtype; "bias_gelu"
+    with ``gelu`` one of :data:`GELU_MODES` (:func:`gelu_poly`).
+    "store": a @ b rounded to a.dtype, no bias.
     "f32": fp32 a @ b, no bias.
     "bias_gelu_grad": (GELU rounded to a.dtype, fp32 GELU'), both of
     a @ b + bias.
     "mul_aux": (a @ b * aux rounded to a.dtype, fp32 column sums of
     a @ b * aux), no bias."""
+    if b.dim() == 4:
+        b = b.permute(2, 0, 1, 3).reshape(b.shape[2], -1)
     v = torch.matmul(a.float(), b.float())
     if epilogue == "f32":
         return v
+    if epilogue == "store":
+        return v.to(a.dtype)
     if epilogue == "mul_aux":
         v = v * aux
         return v.to(a.dtype), v.reshape(-1, v.shape[-1]).sum(0)
     v = v + bias.float()
     if epilogue == "bias_gelu":
-        v = gelu_poly(v)
+        v = gelu_poly(v, gelu)
     elif epilogue == "bias_residual":
         v = residual.float() + v
     elif epilogue == "bias_gelu_grad":
@@ -206,6 +254,94 @@ def attention_core_plain(qkv, heads, scale, stats=False):
     if stats:
         return o, m[..., 0], rs[..., 0]
     return o
+
+
+def attention_core_probe_plain(qkv, heads, scale, mode, parts=False):
+    """The attention core in a K12 probe mode (:data:`PROBE_MODES`, the
+    per-head bodies of tools/perf/attn_microbench.py): (B, N, 3C) qkv rows
+    -> (B, N, C) context, rounded to qkv.dtype.
+    "defer", "pipe": bf16(bf16(e) v / rowsum(e)), e = exp(s - rowmax),
+        s = bf16(q scale) k^T (the production core with a true divide);
+    "none": e = s 0.01; "nomax": e = exp(s); "sumdot": the rowsum over
+        bf16(e); each then as "defer";
+    "rowmajor": s = (q k^T) scale in fp32, bf16(bf16(e / rowsum) v);
+    "dotonly": bf16(bf16(q k^T) v), no scale, no softmax.
+    ``parts`` (a deferred-divide mode): (bf16(bf16(e) v) undivided, the
+    rowmax (0 where the mode takes none), the rowsum), the last two (B,
+    H, N) fp32."""
+    b, n, c3 = qkv.shape
+    dt = qkv.dtype
+    q, k, v = _heads(qkv, heads)
+    kt, vf = k.float().transpose(-1, -2), v.float()
+    if mode in ("rowmajor", "dotonly"):
+        s = torch.matmul(q.float(), kt)
+        if mode == "dotonly":
+            o = torch.matmul(s.to(dt).float(), vf)
+        else:
+            s = s * scale
+            e = torch.exp(s - s.amax(-1, keepdim=True))
+            p = (e / e.sum(-1, keepdim=True)).to(dt)
+            o = torch.matmul(p.float(), vf)
+    elif mode in DEFERRED_MODES:
+        s = torch.matmul((q.float() * scale).to(dt).float(), kt)
+        m = torch.zeros_like(s[..., :1])
+        if mode == "none":
+            e = s * 0.01
+        elif mode == "nomax":
+            e = torch.exp(s)
+        else:
+            m = s.amax(-1, keepdim=True)
+            e = torch.exp(s - m)
+        eb = e.to(dt).float()
+        ssum = (eb if mode == "sumdot" else e).sum(-1, keepdim=True)
+        o = torch.matmul(eb, vf)
+        if parts:
+            u = o.to(dt).permute(0, 2, 1, 3).reshape(b, n, c3 // 3)
+            return u, m[..., 0], ssum[..., 0]
+        o = o / ssum
+    else:
+        raise ValueError(f"unknown probe mode {mode!r}")
+    if parts:
+        raise ValueError(f"probe mode {mode!r} has no parts")
+    return o.to(dt).permute(0, 2, 1, 3).reshape(b, n, c3 // 3)
+
+
+def _layout_heads(a, b, contract, heads):
+    """(a's and b's contracted dimensions, the number of heads, a's and
+    b's head widths) of :func:`batched_layout_dot_plain`: both operands
+    split into ``heads`` equal column slices (one without heads)."""
+    (ca,), (cb,) = contract
+    h = heads or 1
+    if a.shape[-1] % h or b.shape[-1] % h or ca not in (0, 1) or \
+            cb not in (0, 1):
+        raise ValueError(f"layout_dot: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, contract {contract}, heads "
+                         f"{heads}")
+    return ca, cb, h, a.shape[-1] // h, b.shape[-1] // h
+
+
+def batched_layout_dot_plain(a, b, contract, heads=None, explicit=False):
+    """The K14 probe's contraction (``_dot`` of tools/perf/layout_probe.py
+    per image): a (B, r, c) batched, b (B, r', c') batched or (r', c')
+    shared, ``contract`` ((i,), (j,)) the dimensions of a's and b's
+    per-image matrices to sum over; with ``heads`` each operand is that
+    many equal column slices and the heads' products are concatenated
+    along the last axis.  fp32 products of the rounded operands, fp32
+    out.  ``explicit`` transposes a transposed operand into a contiguous
+    copy first (the same function)."""
+    ca, cb, h, wa, wb = _layout_heads(a, b, contract, heads)
+    outs = []
+    for i in range(h):
+        ah = a[..., i * wa:(i + 1) * wa].float()
+        bh = b[..., i * wb:(i + 1) * wb].float()
+        if ca == 0:
+            ah = ah.transpose(-1, -2)
+        if cb == 1:
+            bh = bh.transpose(-1, -2)
+        if explicit:
+            ah, bh = ah.contiguous(), bh.contiguous()
+        outs.append(torch.matmul(ah, bh))
+    return torch.cat(outs, -1)
 
 
 def attention_core_bwd_plain(qkv, d_o, m, rs, heads, scale):
@@ -437,6 +573,9 @@ PLAIN = SimpleNamespace(
     gemm_f32x3=gemm_f32x3_epilogue_plain,
     attention_core_snap=attention_core_snap_plain,
     attention_core_f32_bwd=attention_core_f32_bwd_plain,
+    attention_core_probe=attention_core_probe_plain,
+    gemm_probe=gemm_bf16_epilogue_plain,
+    layout_dot=batched_layout_dot_plain,
 )
 
 
@@ -1067,6 +1206,110 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, scale, n_valid=None):
     return tuple(g.permute(0, 2, 1, 3) for g in grads)
 
 
+def attention_core_probe_cuda(qkv, heads, scale, mode, parts=False):
+    """The CUDA version of :func:`attention_core_probe_plain`
+    (csrc/attention_core.cu in a probe mode): bf16 (B, N, 3C) qkv rows, D
+    = C/heads 64, N at most :func:`attention_core_max_n`."""
+    _require(qkv, "qkv")
+    b, n, c3 = qkv.shape
+    c, d = _head_width(c3, heads, "attention_core_probe")
+    if d != 64:
+        raise ValueError(f"attention_core_probe: head width {d}; the probe "
+                         "modes take 64")
+    if n > attention_core_max_n():
+        raise ValueError(f"attention_core_probe: sequence {n} exceeds the "
+                         f"kernel's maximum {attention_core_max_n()}")
+    if mode not in PROBE_MODES or (parts and mode not in DEFERRED_MODES):
+        raise ValueError(f"attention_core_probe: mode {mode!r}"
+                         + (" has no parts" if parts else ""))
+    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    m = rs = None
+    if parts:
+        m = torch.empty((b, heads, n), dtype=torch.float32,
+                        device=qkv.device)
+        rs = torch.empty_like(m)
+    _launch("attention_core_probe", _lib().mvt_attention_core_probe, qkv,
+            qkv.data_ptr(), out.data_ptr(),
+            None if m is None else m.data_ptr(),
+            None if rs is None else rs.data_ptr(), b, n, heads, d,
+            float(scale), PROBE_MODES[mode])
+    return (out, m, rs) if parts else out
+
+
+def gemm_bf16_probe_cuda(a, b, bias, epilogue, residual=None, gelu="base"):
+    """The probes' GEMMs (csrc/gemm_bf16_epilogue.cu, its probe
+    instantiations): :func:`gemm_bf16_epilogue_plain` for a row-major bf16
+    a (M, K) and the epilogues "bias", "bias_gelu" (in GELU mode
+    ``gelu``), "bias_residual" and "store"; b bf16 (K, N) row-major, or
+    for "bias" head-major (3, H, K, 64), read in place."""
+    if b.dim() == 4:
+        _require(b, "b")
+        three, h, k, d = b.shape
+        n, layout = three * h * d, d
+        if d != 64 or epilogue != "bias":
+            raise ValueError(f"gemm_probe: a head-major b takes width 64 and "
+                             f"the bias epilogue, got {d} and {epilogue!r}")
+    else:
+        k, n = b.shape
+        _require(b, "b")
+        layout = 0
+    if a.dim() != 2 or a.shape[1] != k:
+        raise ValueError(f"gemm_probe: shapes {tuple(a.shape)} @ "
+                         f"({k}, {n})")
+    _require(a, "a")
+    m = a.shape[0]
+    if k % 8 or n % 8:
+        raise ValueError(f"gemm_probe: K={k} and N={n} must be multiples "
+                         "of 8")
+    if epilogue not in ("bias", "bias_gelu", "bias_residual", "store") or \
+            gelu not in GELU_MODES or (gelu != "base" and
+                                       epilogue != "bias_gelu"):
+        raise ValueError(f"gemm_probe: epilogue {epilogue!r}, GELU mode "
+                         f"{gelu!r}")
+    if epilogue != "store":
+        _require_shape(bias, "bias", (n,))
+    res_ptr = None
+    if epilogue == "bias_residual":
+        _require_shape(residual, "residual", (m, n), torch.bfloat16)
+        res_ptr = residual.data_ptr()
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    _launch("gemm_bf16_gelu_probe" if epilogue == "bias_gelu"
+            else "gemm_bf16_probe", _lib().mvt_gemm_bf16_probe, a,
+            a.data_ptr(), b.data_ptr(),
+            None if epilogue == "store" else bias.data_ptr(), res_ptr,
+            out.data_ptr(), m, n, k, layout, EPILOGUES[epilogue],
+            GELU_MODES[gelu])
+    return out
+
+
+def batched_layout_dot_cuda(a, b, contract, heads=None, explicit=False):
+    """The CUDA version of :func:`batched_layout_dot_plain`
+    (csrc/gemm_layout_probe.cu): a bf16 (B, r, c) and b bf16 (B, r', c')
+    or (r', c'), contiguous, read in place; a transposed operand read by
+    column-major fragments, or with ``explicit`` transposed as it is
+    staged into shared memory."""
+    ca, cb, h, wa, wb = _layout_heads(a, b, contract, heads)
+    _require(a, "a")
+    _require(b, "b")
+    if a.dim() != 3 or b.dim() not in (2, 3) or \
+            (b.dim() == 3 and b.shape[0] != a.shape[0]):
+        raise ValueError(f"layout_dot: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    bsz, ra, cols_a = a.shape
+    rb, cols_b = b.shape[-2:]
+    m, k = (ra, wa) if ca == 1 else (wa, ra)
+    kb, n = (rb, wb) if cb == 0 else (wb, rb)
+    if k != kb:
+        raise ValueError(f"layout_dot: contracted lengths {k} and {kb}")
+    out = torch.empty((bsz, m, h * n), dtype=torch.float32, device=a.device)
+    _launch("gemm_layout_probe", _lib().mvt_gemm_layout_probe, a,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bsz, h,
+            ra * cols_a, wa, cols_a, 0 if b.dim() == 2 else rb * cols_b, wb,
+            cols_b, m * h * n, n, h * n, int(ca == 0), int(cb == 1),
+            int(explicit))
+    return out
+
+
 CUDA = SimpleNamespace(
     layernorm_rows=layernorm_rows_cuda,
     gemm=gemm_bf16_epilogue_cuda,
@@ -1082,6 +1325,9 @@ CUDA = SimpleNamespace(
     gemm_f32x3=gemm_f32x3_epilogue_cuda,
     attention_core_snap=attention_core_snap_cuda,
     attention_core_f32_bwd=attention_core_f32_bwd_cuda,
+    attention_core_probe=attention_core_probe_cuda,
+    gemm_probe=gemm_bf16_probe_cuda,
+    layout_dot=batched_layout_dot_cuda,
 )
 
 

@@ -92,9 +92,12 @@ def block(c, hid, b, n, seed, dev):
 
 
 # (C, heads, hidden, B, N): head widths 32 and 64, sequences shorter than
-# a head (N < D), ragged against the 16-row tiles, and ViT-S/16
+# a head (N < D), ragged against the 16-row tiles, ViT-S/16, and the
+# widths of ViT-Ti/16 and ViT-B/16 (classification/train_configs/
+# vit_{tiny,base}.json)
 SHAPES = [(64, 2, 128, 3, 17), (64, 2, 128, 3, 50), (128, 2, 256, 3, 17),
-          (128, 2, 256, 2, 37), (384, 6, 1536, 4, 197)]
+          (128, 2, 256, 2, 37), (384, 6, 1536, 4, 197),
+          (192, 3, 768, 2, 197), (768, 12, 3072, 2, 197)]
 
 
 @pytest.mark.parametrize("c,heads,hid,b,n", SHAPES)
@@ -1372,3 +1375,138 @@ def test_int8_qat_step_reads_the_sites_on_the_device(dev):
     assert not torch.equal(a, b)
     assert torch.equal(b, K.layernorm_snap_rows_plain(x2, ones, zeros,
                                                       Int8Sites(site)))
+
+
+# ------------------------------------------------------------------ probes
+# The probes of the port's kernels (myrtle_vision_tpu_torch/perf/, K12-K14):
+# each new kernel mode against its plain version, with the bars above.
+
+def probe_qkv(b, n, c, seed, dev):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randn(b, n, 3 * c).astype(np.float32)).to(
+        dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", sorted(K.PROBE_MODES))
+@pytest.mark.parametrize("b,n", [(2, 197), (3, 50), (2, 17), (1, 256)])
+def test_attention_core_probe_matches_plain(dev, mode, b, n):
+    qkv = probe_qkv(b, n, 128, n, dev)
+    before = K.LAUNCHES["attention_core_probe"]
+    got = K.attention_core_probe_cuda(qkv, 2, 0.125, mode)
+    assert K.LAUNCHES["attention_core_probe"] == before + 1
+    if mode != "none":  # none divides by a sum of signed scores: parts
+        close(got, K.attention_core_probe_plain(qkv, 2, 0.125, mode))
+    if mode in K.DEFERRED_MODES:
+        parts = K.attention_core_probe_cuda(qkv, 2, 0.125, mode, parts=True)
+        ref = K.attention_core_probe_plain(qkv, 2, 0.125, mode, parts=True)
+        close(parts[0], ref[0])
+        close(parts[1], ref[1])
+        torch.testing.assert_close(parts[2], ref[2], rtol=RTOL,
+                                   atol=SUM_ATOL * float(ref[2].abs().max()))
+
+
+def test_attention_core_probe_refuses_what_it_does_not_take(dev):
+    with pytest.raises(ValueError, match="take 64"):
+        K.attention_core_probe_cuda(probe_qkv(1, 17, 64, 0, dev), 2, 0.125,
+                                    "defer")
+    with pytest.raises(ValueError, match="no parts"):
+        K.attention_core_probe_cuda(probe_qkv(1, 17, 128, 0, dev), 2, 0.125,
+                                    "rowmajor", parts=True)
+    with pytest.raises(ValueError, match="exceeds"):
+        K.attention_core_probe_cuda(probe_qkv(1, 257, 128, 0, dev), 2,
+                                    0.125, "defer")
+
+
+@pytest.mark.parametrize("gelu", sorted(K.GELU_MODES))
+@pytest.mark.parametrize("m", [2 * 197, 50])
+def test_gemm_probe_gelu_modes_match_plain(dev, gelu, m):
+    rng = np.random.RandomState(m)
+
+    def t(*shape, std=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(
+            np.float32)).to(dev, dtype)
+
+    a, w = t(m, 384), t(384, 1536, std=384 ** -0.5)
+    bias = t(1536, dtype=torch.float32)
+    before = K.LAUNCHES["gemm_bf16_gelu_probe"]
+    got = K.gemm_bf16_probe_cuda(a, w, bias, "bias_gelu", gelu=gelu)
+    assert K.LAUNCHES["gemm_bf16_gelu_probe"] == before + 1
+    close(got, K.gemm_bf16_epilogue_plain(a, w, bias, "bias_gelu",
+                                          gelu=gelu))
+
+
+def test_gemm_probe_store_residual_and_head_major(dev):
+    rng = np.random.RandomState(3)
+
+    def t(*shape, std=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(
+            np.float32)).to(dev, dtype)
+
+    a, w = t(150, 384), t(384, 1152, std=0.05)
+    bias = t(1152, dtype=torch.float32)
+    w3 = w.view(384, 3, 6, 64).permute(1, 2, 0, 3).contiguous()
+    close(K.gemm_bf16_probe_cuda(a, w3, bias, "bias"),
+          K.gemm_bf16_epilogue_plain(a, w, bias, "bias"))
+    close(K.gemm_bf16_probe_cuda(a, w3, bias, "bias"),
+          K.gemm_bf16_probe_cuda(a, w, bias, "bias"))
+    close(K.gemm_bf16_probe_cuda(a, w, None, "store"),
+          K.gemm_bf16_epilogue_plain(a, w, None, "store"))
+    r = t(150, 1152)
+    close(K.gemm_bf16_probe_cuda(a, w, bias, "bias_residual", residual=r),
+          K.gemm_bf16_epilogue_plain(a, w, bias, "bias_residual",
+                                     residual=r))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.gemm_bf16_probe_cuda(a, w.t().contiguous().t(), bias, "bias")
+
+
+@pytest.mark.parametrize("n", [197, 50])
+@pytest.mark.parametrize("case", range(10))
+def test_layout_probe_matches_plain(dev, case, n):
+    from myrtle_vision_tpu_torch.perf import layout_probe as lp
+
+    name, shapes, contract, per_head, explicit = lp.cases(n, 384, 6)[case]
+    a, b = lp.make_operands(shapes, 3, case, dev)
+    heads = 6 if per_head else None
+    before = K.LAUNCHES["gemm_layout_probe"]
+    got = K.batched_layout_dot_cuda(a, b, contract, heads, explicit)
+    assert K.LAUNCHES["gemm_layout_probe"] == before + 1
+    ref = K.batched_layout_dot_plain(a, b, contract, heads, explicit)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.float32, name
+    # exact products of bf16 values summed in fp32 on both sides
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=2.0 ** -16 * float(ref.abs().max()),
+                               msg=name)
+
+
+@pytest.mark.parametrize("dim,heads", [(384, 6), (192, 3), (768, 12)])
+def test_probe_chains_match_plain(dev, dim, heads):
+    """Every K12 / K13 variant's chain against its plain chain, at the
+    widths of vit_small, vit_tiny and vit_base; K12 none by its parts
+    (the tests above), the mlp pipe on two streams."""
+    from myrtle_vision_tpu_torch.perf import attn_microbench as am
+    from myrtle_vision_tpu_torch.perf import mlp_microbench as mm
+
+    inputs = am.make_inputs(4, 197, dim, heads, dim, dev)
+    kern, plain = am.variants(inputs, heads), am.variants(inputs, heads, True)
+    failed = []
+    for name in am.VARIANTS:
+        if name in am.YARDSTICKS + ("none",):
+            continue
+        got, ref = kern[name]().float(), plain[name]().float()
+        torch.cuda.synchronize()
+        # dotonly normalizes nothing: its activations are ~100x the
+        # others', and so is what one flipped bf16 rounding moves
+        atol = CHAIN_ATOL * (float(ref.square().mean().sqrt())
+                             if name == "dotonly" else 1.0)
+        if not ((got - ref).abs() <= RTOL * ref.abs() + atol).all():
+            failed.append((name, float((got - ref).abs().max())))
+    inputs = mm.make_inputs(4, 197, dim, dim + 1, dev)
+    kern, plain = mm.variants(inputs), mm.variants(inputs, True)
+    for name in mm.VARIANTS:
+        got = mm.joined(kern[name]()).float()
+        ref = mm.joined(plain[name]()).float()
+        torch.cuda.synchronize()
+        if not ((got - ref).abs() <= RTOL * ref.abs() + CHAIN_ATOL).all():
+            failed.append((f"mlp {name}", float((got - ref).abs().max())))
+    assert not failed, failed
