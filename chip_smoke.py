@@ -289,8 +289,8 @@ INT8_BOTH = f"{TPU_INT8_ATTN}; {TPU_INT8_MLP}"
 # detection training (phase 8), the last three on the float path (6b)
 KERNELS = {
     "layernorm_rows": (CSRC + "layernorm_rows.cu", ALL_FOUR),
-    "gemm_bf16_epilogue": (CSRC + "gemm_bf16_epilogue.cu", ALL_FOUR),
-    "attention_core": (CSRC + "attention_core.cu", TPU_ATTN),
+    "gemm_bf16_epilogue": (CSRC + "gemm_bf16_wgmma.cu", ALL_FOUR),
+    "attention_core": (CSRC + "attention_core_wgmma.cu", TPU_ATTN),
     "attention_core_bwd": (CSRC + "attention_core_bwd.cu", TPU_ATTN_BWD),
     "layernorm_rows_bwd": (CSRC + "layernorm_rows_bwd.cu",
                            f"{TPU_ATTN_BWD}; {TPU_MLP_BWD}"),
@@ -1480,7 +1480,9 @@ PROBE_WIDTHS = ((192, 3, 768, "dim 192, 3 heads, MLP 768 (vit_tiny.json)"),
 # values in fp32, kernel and plain version alike: bar 2^-16 of the largest
 # output (FLOAT_TIGHT).
 # the probes in the kernels line: (source, the TPU kernel, the headline
-# variant, its tool)
+# variant, its tool).  The probe modes and instantiations keep the WMMA
+# designs that the wgmma kernels replaced; K12's `base` and K13's `prod`
+# run the production chains, and so time the wgmma kernels.
 PROBES = {
     "K12": (f"{CSRC}attention_core.cu (probe modes); "
             f"{CSRC}gemm_bf16_epilogue.cu (probe instantiations)",
@@ -3153,9 +3155,15 @@ def time_case(totals, name, kernel, plain, count, c, power, tag):
     lib_ms = None if c["library"] is None else cuda_ms(c["library"])
     b_ms, by = bound(c)
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    # the tensor-core products' achieved rate, kernel and library
+    rate = ""
+    if c["peak"] == "bf16":
+        rate = f", kernel {c['ops'] / (k_ms * 1e9):.1f} TFLOP/s" + (
+            "" if lib_ms is None
+            else f", library {c['ops'] / (lib_ms * 1e9):.1f} TFLOP/s")
     print(f"timing: {name} {tag} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms, "
           f"library {lib}, bound {b_ms:.4f} ms ({by}: {c['bytes']} bytes, "
-          f"{c['ops']} {c['peak']} ops), {count} per block [{power}]")
+          f"{c['ops']} {c['peak']} ops){rate}, {count} per block [{power}]")
     acc = totals.setdefault(name.split("[")[0], {
         "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
         "by": {"bytes": 0.0, "operations": 0.0}})
@@ -3364,6 +3372,15 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
           f"memory {peak:.2f} GiB [{power}]")
     fp32_step = (k_ms, kernel_peak(lambda: kernel_step(state, batch,
                                                        tc["lr"])))
+    line = device_profile(lambda: kernel_step(state, batch, tc["lr"]), {
+        "gemm_bf16_epilogue": ("gemm_wgmma",),
+        "attention_core": ("attention_core_kernel",),
+        "attention_core_bwd": ("attention_core_bwd",),
+        "LayerNorm, forward and backward": ("layernorm_rows",),
+        "colsum_rows": ("colsum",)})
+    print(f"timing: ViT-S/16 train step profile (B={b}, one kernel-path "
+          f"step): {line} [{power}]")
+    time_encode(imgs.device, power)
     del state, model
     qat_ms = time_qat_step(imgs, batch, tc, fp32_step, power)
     time_qat_int8_step(imgs, batch, tc, qat_ms, power)
@@ -3371,6 +3388,34 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     time_detection(totals, device, power)
     time_detection_train(totals, device, power)
     return totals
+
+
+def time_encode(device, power):
+    """The host cost of a GEMM launch's tensor maps: the two encodings of
+    each gemm_bf16_epilogue launch (about 164 a ViT-S/16 train step),
+    and one whole wrapper call of the smallest product, host clock, the
+    device left to run."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    a = torch.zeros(256 * N, C, dtype=torch.bfloat16, device=device)
+    w = torch.zeros(3 * C, C, dtype=torch.bfloat16, device=device).t()
+    ns = K._lib().mvt_gemm_bf16_encode_ns(a.data_ptr(), w.data_ptr(),
+                                          256 * N, 3 * C, C, 10000)
+    check(ns >= 0, "tensor map encoding failed")
+    small = a[:8]
+    bias = torch.zeros(3 * C, device=device)
+    K.gemm_bf16_epilogue_cuda(small, w, bias, "bias")
+    torch.cuda.synchronize()
+    calls = 2000
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        K.gemm_bf16_epilogue_cuda(small, w, bias, "bias")
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    print(f"timing: gemm_bf16_epilogue host cost: {ns / 1e3:.3f} us to "
+          f"encode a launch's two tensor maps (mean of 10000), "
+          f"{host_us:.2f} us a whole wrapper call (M=8, host clock) "
+          f"[{power}]")
 
 
 def kernel_peak(step):

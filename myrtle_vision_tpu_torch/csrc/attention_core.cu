@@ -1,30 +1,22 @@
-// attention_core: per-head softmax attention over the fused qkv rows.
+// attention_core_probe: the WMMA design of the attention core, kept for
+// the K12 probe of tools/perf/attn_microbench.py.  The production core is
+// csrc/attention_core_wgmma.cu (wgmma, TMA); this file's kernel is the
+// one it replaced, in the probe's modes only, so that the probe compares
+// its variants within one design.
 //
-// The per-head part of the TPU attention block kernel
-// (myrtle_vision_tpu/ops/fused_attention_block.py `_attn_heads_fwd`,
-// called from `_fwd_kernel`).  Input qkv (B, N, 3C) bf16 with feature
-// order [3][h][d]; output ctx (B, N, C) bf16, head h at columns h*D...
-// For each query row, as the TPU kernel does it:
-//   s   = bf16(q * scale) . k^T       fp32 accumulation
-//   s   = -inf for keys >= N
-//   e   = exp(s - rowmax(s))          fp32
-//   u   = bf16(e) . v                 fp32 accumulation
-//   out = bf16(u * (1 / rowsum(e)))   rowsum over the fp32 e, exact divide
-// When the op records for the backward, the rowmax and the reciprocal
-// rowsum of every row also go out, (B, H, N) fp32 each (`_fwd_kernel`'s
-// `save_stats` outputs, which attention_core_bwd.cu reads).
+// The function of every mode is that of the core (`_attn_heads_fwd` of
+// myrtle_vision_tpu/ops/fused_attention_block.py) with what lies between
+// and around the two products changed: s = bf16(q * scale) . k^T in fp32,
+// -inf for keys >= N, e = exp(s - rowmax), u = bf16(e) . v.
 //
 // One block per (image, head) holds K and V of the head in shared memory
 // (rows padded to a multiple of 16 and zero-filled); each warp takes a
 // 16-query tile at a time.  Both products run on the tensor cores (WMMA
 // 16x16x16, bf16 in, fp32 out): S = Q K^T goes to a per-warp fp32 row
 // buffer, the warp takes rowmax / exp / rowsum over it and writes the
-// bf16 probabilities over the same buffer, then U = P V, scaled by the
-// reciprocal rowsum.  At ViT-S/16 (N=197, D=64) the core is ~15 GFLOP per
-// layer at batch 256, against ~178 GFLOP in the projections around it;
-// what bounds this design is shared-memory traffic and the fp32 softmax
-// between the two products, not the tensor cores.  The whole score row of
-// a tile lives in shared memory, which limits this kernel to N <= kMaxN.
+// bf16 probabilities over the same buffer, then U = P V.  The whole score
+// row of a tile lives in shared memory, which limits this kernel to
+// N <= kMaxN.
 //
 // Probe modes (mvt_attention_core_probe): the K12 variants of the TPU
 // probe tools/perf/attn_microbench.py (`_kernel_rowmajor` :109,
@@ -45,21 +37,11 @@
 // The deferred-divide modes write, when given the statistics pointers,
 // the parts instead: bf16(u) undivided, the rowmax (0 where a mode takes
 // none) and the rowsum, so that a check can hold the product and the sum
-// apart where the sum of signed scores (mode none) comes near 0.  The
-// production instantiation (kProd) is the code above, unchanged.
-//
-// Longer sequences (the fused block runs up to the `fuses_at` gate of
-// myrtle_vision_tpu/ops/fused_attention_block.py, 701 tokens at 6 heads of
-// 64, e.g. YOLOS-S at 384 px with 677) take the KV-tiled kernel of
-// flash_tiles.cuh in its kCore form: the same conventions (bf16(q * scale),
-// e . V, then x reciprocal rowsum, the saved rowmax and reciprocal rowsum)
-// with an online softmax over 64-key tiles, so e is rounded to bf16 against
-// the running rowmax of its tile, not the final one (about 2^-9 of an
-// output).  It reads the (B, H, N, D) view of the qkv rows in place.
+// apart where the sum of signed scores (mode none) comes near 0.
+
 #include <mma.h>
 
 #include "common.cuh"
-#include "flash_tiles.cuh"
 
 namespace {
 
@@ -70,9 +52,8 @@ constexpr int kWarps = 8;
 constexpr int kMaxN = 256;
 constexpr int kMaxI = kMaxN / 32;  // score columns per lane
 
-// the production core and the probe modes (see the header)
+// the probe modes (see the header)
 enum Mode {
-  kProd = 0,
   kDefer = 1,
   kRowmajor = 2,
   kNone = 3,
@@ -89,7 +70,7 @@ struct Warps {
   static constexpr int kBufs = kMode == kPipe ? 2 : 1;
 };
 
-template <int D, int kMode = kProd>
+template <int D, int kMode>
 struct Layout {
   static constexpr int KLD = D + 8;  // padded rows of K, V and Q tiles
   static constexpr int W = Warps<kMode>::kW;
@@ -109,7 +90,7 @@ struct Layout {
   }
 };
 
-template <int D, int kMode = kProd>
+template <int D, int kMode>
 __global__ void __launch_bounds__(Warps<kMode>::kW * 32)
 attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                       float* __restrict__ m_out, float* __restrict__ rs_out,
@@ -257,14 +238,7 @@ attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
         }
       }
       if (lane == 0) {
-        if constexpr (kMode == kProd) {
-          r_w[r] = 1.0f / sum;
-          if (m_out != nullptr && q0 + r < N) {
-            const size_t o = static_cast<size_t>(blockIdx.x) * N + q0 + r;
-            m_out[o] = m;
-            rs_out[o] = 1.0f / sum;
-          }
-        } else if constexpr (kDiv) {
+        if constexpr (kDiv) {
           r_w[r] = sum;  // sumdot: replaced by the product's column below
           if (m_out != nullptr && q0 + r < N) {
             const size_t o = static_cast<size_t>(blockIdx.x) * N + q0 + r;
@@ -320,9 +294,7 @@ attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
       const int i = c / D, d = c % D;
       if (q0 + i < N) {
         float v;
-        if constexpr (kMode == kProd)
-          v = s_w[c] * r_w[i];
-        else if constexpr (kDiv)
+        if constexpr (kDiv)
           v = parts ? s_w[c] : s_w[c] / r_w[i];
         else
           v = s_w[c];
@@ -334,7 +306,7 @@ attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   }
 }
 
-template <int D, int kMode = kProd>
+template <int D, int kMode>
 int launch(const void* qkv, void* out, void* m, void* rs, int B, int N,
            int heads, float scale, cudaStream_t stream) {
   const size_t smem = Layout<D, kMode>(N).bytes();
@@ -371,47 +343,6 @@ int launch_probe(int mode, const void* qkv, void* out, void* m, void* rs,
 }
 
 }  // namespace
-
-// the longest sequence of the one-block kernel (and of the backward)
-MVT_EXPORT int mvt_attention_core_max_n() { return kMaxN; }
-
-// m and rs: (B, heads, N) fp32 rowmax and reciprocal rowsum, both null or
-// both set; N above kMaxN takes the KV-tiled kernel
-MVT_EXPORT int mvt_attention_core(const void* qkv, void* out, void* m,
-                                  void* rs, int B, int N, int heads, int D,
-                                  float scale, void* stream) {
-  if (B <= 0 || heads <= 0 || N <= 0 ||
-      static_cast<long long>(B) * heads > 65535 ||
-      (m == nullptr) != (rs == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N > kMaxN) {
-    const int C = heads * D;
-    mvt::flash::Params p;
-    p.q = static_cast<const mvt::bf16*>(qkv);
-    p.k = p.q + C;
-    p.v = p.q + 2 * C;
-    p.o = static_cast<mvt::bf16*>(out);
-    p.stat0 = static_cast<float*>(m);
-    p.stat1 = static_cast<float*>(rs);
-    p.in_image = static_cast<long long>(N) * 3 * C;
-    p.in_head = D;
-    p.in_row = 3 * C;
-    p.out_image = static_cast<long long>(N) * C;
-    p.out_head = D;
-    p.out_row = C;
-    p.heads = heads;
-    p.n = N;
-    p.n_valid = N;
-    p.scale = scale;
-    if (D == 64) return mvt::flash::launch<64, true>(p, B, s);
-    if (D == 32) return mvt::flash::launch<32, true>(p, B, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (D == 64) return launch<64>(qkv, out, m, rs, B, N, heads, scale, s);
-  if (D == 32) return launch<32>(qkv, out, m, rs, B, N, heads, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
 
 // The K12 probe modes (1 defer, 2 rowmajor, 3 none, 4 nomax, 5 sumdot,
 // 6 pipe, 7 dotonly; see the header), D = 64 (the probe's head width, and

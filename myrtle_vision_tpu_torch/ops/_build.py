@@ -7,7 +7,9 @@ interface, in ``myrtle_vision_tpu_torch/_build/`` (listed in
 ``.gitignore``), and loaded with ``ctypes``.  The library's name
 carries a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is reused.  Nothing is downloaded; only sources in
-the repository are built.
+the repository are built.  The TMA kernels reach the driver's
+tensor-map encoder through ``cudaGetDriverEntryPoint`` (csrc/sm90.cuh), so
+the library links the CUDA runtime only, not ``-lcuda``.
 
 Importing this module compiles nothing: the kernels build when
 :func:`lib` is first called, which happens only for CUDA tensors.
@@ -124,6 +126,8 @@ def lib() -> ctypes.CDLL:
             ("mvt_layernorm_rows", [p, p, p, p, i, i, f, p]),
             ("mvt_gemm_bf16", [p, p, p, p, p, p, p, i, i, i, i, i, p]),
             ("mvt_gemm_bf16_at", [p, p, p, i, i, i, i, p]),
+            ("mvt_gemm_bf16_tile", [i]),
+            ("mvt_gemm_bf16_encode_ns", [p, p, i, i, i, i]),
             ("mvt_attention_core", [p, p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_max_n", []),
             ("mvt_attention_core_bwd", [p] * 9 + [i, i, i, i, f, p, p]),

@@ -8,8 +8,8 @@ kernel (ops/fused_attention_block.py, ops/fused_mlp.py).  The kernels
 (``csrc/``):
 
 - ``layernorm_rows``       csrc/layernorm_rows.cu
-- ``gemm_bf16_epilogue``   csrc/gemm_bf16_epilogue.cu
-- ``attention_core``       csrc/attention_core.cu
+- ``gemm_bf16_epilogue``   csrc/gemm_bf16_wgmma.cu (wgmma, TMA)
+- ``attention_core``       csrc/attention_core_wgmma.cu (wgmma, TMA)
 - ``attention_core_bwd``   csrc/attention_core_bwd.cu
 - ``layernorm_rows_bwd``   csrc/layernorm_rows_bwd.cu
 - ``colsum_rows``          csrc/layernorm_rows_bwd.cu
@@ -52,8 +52,10 @@ and the probes of the port's kernels (myrtle_vision_tpu_torch/perf/, the
 counterparts of the TPU probes K12-K14 in tools/perf/), each an
 instantiation of a kernel above or a kernel of its own:
 
-- ``attention_core_probe``  csrc/attention_core.cu in a probe mode (K12)
-- ``gemm_bf16_probe``       csrc/gemm_bf16_epilogue.cu: the GELU modes of
+- ``attention_core_probe``  csrc/attention_core.cu in a probe mode (K12):
+                            the WMMA design that attention_core replaced
+- ``gemm_bf16_probe``       csrc/gemm_bf16_epilogue.cu, the WMMA design that
+                            gemm_bf16_epilogue replaced: the GELU modes of
                             the fc1 epilogue (K13; counted as
                             ``gemm_bf16_gelu_probe``), a bf16 store without
                             bias, a head-major weight (K12)
@@ -108,7 +110,10 @@ GELU_MODES = {"base": 0, "nogelu": 1, "noexp": 2, "nodiv": 3}
 PROBE_MODES = {"defer": 1, "rowmajor": 2, "none": 3, "nomax": 4,
                "sumdot": 5, "pipe": 6, "dotonly": 7}
 DEFERRED_MODES = ("defer", "none", "nomax", "sumdot", "pipe")
-_GEMM_TILE = 128  # rows and columns of one GEMM output tile
+# gemm_bf16_epilogue's output tile (rows, columns) and K step
+# (csrc/gemm_bf16_wgmma.cu BM, BN, BK)
+GEMM_TILE = (128, 128)
+GEMM_BK = 64
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
@@ -654,7 +659,7 @@ def _sms(t) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
-def _k_split(m, n, k, sms, tile=(_GEMM_TILE, _GEMM_TILE)):
+def _k_split(m, n, k, sms, tile):
     """K rows per split of a weight-gradient product with output tiles of
     ``tile``: enough splits for two waves of blocks on the SMs, each at
     least 8 steps of 32 deep."""
@@ -663,12 +668,52 @@ def _k_split(m, n, k, sms, tile=(_GEMM_TILE, _GEMM_TILE)):
     return math.ceil(math.ceil(k / splits) / 32) * 32
 
 
+def gemm_plan(m, n, k, a_col_major, sms):
+    """How gemm_bf16_epilogue covers an (M, N) output with K deep
+    products: {"tile": (rows, cols), "k_split": K rows of a tile, "grid":
+    (column tiles, row tiles, K chunks)}, the tiles that the persistent
+    CTAs of csrc/gemm_bf16_wgmma.cu walk.  A transposed ``a`` (a weight
+    gradient) splits K in multiples of :data:`GEMM_BK` into at most one
+    wave of the kernel's two CTAs on each of ``sms`` SMs; any other
+    product takes K whole."""
+    bm, bn = GEMM_TILE
+    k_split = k
+    if a_col_major:
+        # as many chunks as one wave of two CTAs an SM holds, each at
+        # least 256 rows deep
+        tiles = math.ceil(m / bm) * math.ceil(n / bn)
+        splits = max(1, min(2 * sms // tiles, k // 256))
+        k_split = math.ceil(math.ceil(k / splits) / GEMM_BK) * GEMM_BK
+    return {"tile": GEMM_TILE, "k_split": k_split,
+            "grid": (math.ceil(n / bn), math.ceil(m / bm),
+                     math.ceil(k / k_split))}
+
+
+def tma_operand(t, name):
+    """Raise ``ValueError`` unless the row-major 2-D bf16 tensor ``t`` can
+    be a TMA tensor map's base: a 16-byte aligned address and rows a
+    multiple of 16 bytes apart (the tensor-map encoding's rules)."""
+    if t.dim() != 2 or t.stride(1) != 1:
+        raise ValueError(f"gemm: {name} must be a row-major 2-D tensor for "
+                         f"TMA, got shape {tuple(t.shape)} strides "
+                         f"{t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"gemm: {name} starts at an address that is not "
+                         "16-byte aligned, which TMA cannot load")
+    if (t.stride(0) * t.element_size()) % 16:
+        raise ValueError(f"gemm: {name}'s rows are {t.stride(0)} elements "
+                         "apart, not a multiple of 16 bytes, which TMA "
+                         "cannot load")
+
+
 def gemm_bf16_epilogue_cuda(a, b, bias, epilogue, residual=None, aux=None):
     """The CUDA version of :func:`gemm_bf16_epilogue_plain` for a bf16
-    (M, K) and b bf16 (K, N), each read in place when it is row-major or
-    the transpose of a row-major tensor.  A transposed ``a`` takes the
-    weight-gradient kernel: fp32 out ("f32" only), any K, K split across
-    blocks and the partial products summed by ``colsum_rows``."""
+    (M, K) and b bf16 (K, N), each read in place by TMA when it is
+    row-major or the transpose of a row-major tensor, with 16-byte
+    aligned bases and rows (:func:`tma_operand`; anything else raises
+    ``ValueError``).  A transposed ``a`` takes the weight-gradient form:
+    fp32 out ("f32" only), any K, K split across CTAs (:func:`gemm_plan`)
+    and the partial products summed in order by ``colsum_rows``."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape
@@ -677,25 +722,28 @@ def gemm_bf16_epilogue_cuda(a, b, bias, epilogue, residual=None, aux=None):
     b, b_col_major = _operand(b, "b")
     _require(a, "a")
     _require(b, "b")
-    lib = _lib()
     if a_col_major:
         if epilogue != "f32" or b_col_major:
             raise ValueError("gemm: a transposed `a` takes a row-major `b` "
                              "and the f32 epilogue")
         if m % 8 or n % 8:
             raise ValueError(f"gemm: M={m} and N={n} must be multiples of 8")
-        k_split = _k_split(m, n, k, _sms(a))
-        splits = math.ceil(k / k_split)
+    elif k % 8 or n % 8:
+        raise ValueError(f"gemm: K={k} and N={n} must be multiples of 8")
+    tma_operand(a, "a")
+    tma_operand(b, "b")
+    lib = _lib()
+    if a_col_major:
+        plan = gemm_plan(m, n, k, True, _sms(a))
+        splits = plan["grid"][2]
         part = torch.empty((splits, m, n), dtype=torch.float32,
                            device=a.device)
         _launch("gemm_bf16_epilogue", lib.mvt_gemm_bf16_at, a,
                 a.data_ptr(), b.data_ptr(), part.data_ptr(), m, n, k,
-                k_split)
+                plan["k_split"])
         if splits == 1:
             return part[0]
         return colsum_rows_cuda(part.view(splits, m * n)).view(m, n)
-    if k % 8 or n % 8:
-        raise ValueError(f"gemm: K={k} and N={n} must be multiples of 8")
     code = EPILOGUES[epilogue]
     if epilogue not in ("f32", "mul_aux"):
         _require_shape(bias, "bias", (n,))
@@ -710,7 +758,7 @@ def gemm_bf16_epilogue_cuda(a, b, bias, epilogue, residual=None, aux=None):
         aux_ptr = aux.data_ptr()
     colpart = None
     if epilogue == "mul_aux":
-        colpart = torch.empty((math.ceil(m / _GEMM_TILE), n),
+        colpart = torch.empty((math.ceil(m / GEMM_TILE[0]), n),
                               dtype=torch.float32, device=a.device)
         col_ptr = colpart.data_ptr()
     out = torch.empty((m, n), device=a.device,

@@ -7,7 +7,10 @@ kernels with the attention core (csrc/attention_core.cu) in the mode that
 computes what the TPU variant's body computes, so the probe splits the
 time of the port's kernel, not of a copy:
 
-  base      the production ``fused_attention_block`` (K1's chain)
+  base      the production ``fused_attention_block`` (K1's chain, on the
+            wgmma kernels csrc/gemm_bf16_wgmma.cu and
+            csrc/attention_core_wgmma.cu; the variants below run the
+            WMMA designs those replaced, so they compare within one)
   pvrow     rowmajor's function with the QKV weight head-major (3, H, C,
             D), read in panels by the GEMM (``_kernel_pvrow``)
   rowmajor  s = (q k^T) scale in fp32, p = bf16(e / rowsum), p v
@@ -24,7 +27,7 @@ time of the port's kernel, not of a copy:
             scaled_dot_product_attention): a yardstick, as XLA is in the
             TPU tool; the port never calls it
   xlamlp    the MLP block in eager PyTorch (F.gelu): a yardstick
-  mlp       the production ``fused_mlp_block`` (K3's chain)
+  mlp       the production ``fused_mlp_block`` (K3's chain, on the wgmma GEMM)
 
 It checks each variant against ``base`` (``mlp`` for ``xlamlp``) and
 prints the largest difference, then each variant's ms per call and its

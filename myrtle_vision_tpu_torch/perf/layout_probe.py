@@ -11,8 +11,9 @@ and h D of the (N, C) stack, the heads' products concatenated), bf16 in,
 fp32 out, in the batched kernel csrc/gemm_layout_probe.cu:
 
   implicit        the transposed operand read as it is stored, through
-                  column-major WMMA fragments (as the port's backward
-                  GEMMs read theirs)
+                  column-major WMMA fragments (as the WMMA backward
+                  GEMMs read theirs before csrc/gemm_bf16_wgmma.cu, which
+                  reads it through the wgmma transpose bits)
   explicit T      the same product with the operand transposed as it is
                   staged into shared memory, so the fragments load
                   row-major

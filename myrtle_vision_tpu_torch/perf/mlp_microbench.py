@@ -6,8 +6,10 @@ The counterpart of the TPU probe tools/perf/mlp_microbench.py (``_call``
 a chain of the port's kernels, the GELU in the fc1 GEMM's epilogue
 (csrc/gemm_bf16_epilogue.cu) in the variant's mode:
 
-  prod    the production ``fused_mlp_block`` (K3's chain; it rounds the
-          fc1 and fc2 biases to bf16, as the JAX op does)
+  prod    the production ``fused_mlp_block`` (K3's chain on the wgmma
+          GEMM csrc/gemm_bf16_wgmma.cu; it rounds the fc1 and fc2 biases
+          to bf16, as the JAX op does); the variants below run the WMMA
+          GEMM that it replaced
   base    the production GELU: the A&S 7.1.26 erf with an exact divide
   nogelu  h passed through: bounds all of the GELU's cost (a diagnostic)
   noexp   the erf without its exp term: the exp's cost (wrong on purpose,

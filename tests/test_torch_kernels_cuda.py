@@ -1510,3 +1510,122 @@ def test_probe_chains_match_plain(dev, dim, heads):
         if not ((got - ref).abs() <= RTOL * ref.abs() + CHAIN_ATOL).all():
             failed.append((f"mlp {name}", float((got - ref).abs().max())))
     assert not failed, failed
+
+
+# The wgmma GEMM (csrc/gemm_bf16_wgmma.cu): every (A layout, B layout,
+# epilogue) the wrapper takes.  (M, K, N) with A row-major: one row, a
+# row past a 128-row tile, 4 x 197 + 3 rows with K = 3072 (48 steps), the
+# ViT-S/16 batch of 256 x 197 rows; N = 576 and 192 are not multiples of
+# the 128-column tile.  With A transposed (a weight gradient) the rows are
+# the K of the product: (K, M, N), K split across CTAs at the largest; the
+# fewest are 3, since an (M, 1) view is row-major as well.
+GEMM_ROWS = [(1, 192, 576), (197, 384, 1152), (4 * 197 + 3, 3072, 192),
+             (256 * 197, 1536, 384)]
+GEMM_AT = [(3, 192, 576), (197, 384, 1152), (4 * 197 + 3, 1536, 192),
+           (256 * 197, 1152, 384), (256 * 197, 384, 1536)]
+GEMM_EPILOGUES = ["bias", "bias_gelu", "bias_residual", "f32",
+                  "bias_gelu_grad", "mul_aux"]
+
+
+def gemm_operands(m, k, n, seed, dev, b_col_major=False, a_col_major=False):
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def t(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, device=dev, generator=gen) * std).to(
+            dtype)
+
+    a = t(k, m).t() if a_col_major else t(m, k)
+    w = (t(n, k, std=k ** -0.5).t() if b_col_major
+         else t(k, n, std=k ** -0.5))
+    return (a, w, t(n, dtype=torch.float32), t(m, n),
+            t(m, n, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
+@pytest.mark.parametrize("b_col_major", [False, True])
+@pytest.mark.parametrize("m,k,n", GEMM_ROWS)
+def test_wgmma_gemm_layouts_and_epilogues(dev, m, k, n, b_col_major,
+                                          epilogue):
+    a, w, bias, res, aux = gemm_operands(m, k, n, m + k + n, dev,
+                                         b_col_major)
+    kw = {"residual": res} if epilogue == "bias_residual" else (
+        {"aux": aux} if epilogue == "mul_aux" else {})
+    before = K.LAUNCHES["gemm_bf16_epilogue"]
+    got = K.gemm_bf16_epilogue_cuda(a, w, bias, epilogue, **kw)
+    assert K.LAUNCHES["gemm_bf16_epilogue"] == before + 1
+    ref = K.gemm_bf16_epilogue_plain(a, w, bias, epilogue, **kw)
+    if epilogue == "mul_aux":
+        close(got[0], ref[0])
+        close(got[1], ref[1], SUM_ATOL * float(ref[1].abs().max()))
+    elif epilogue == "bias_gelu_grad":
+        for g, r in zip(got, ref):
+            close(g, r)
+    else:
+        close(got, ref)
+
+
+@pytest.mark.parametrize("k,m,n", GEMM_AT)
+def test_wgmma_gemm_weight_gradient(dev, k, m, n):
+    a, b, *_ = gemm_operands(m, k, n, k + m, dev, a_col_major=True)
+    got = K.gemm_bf16_epilogue_cuda(a, b, None, "f32")
+    ref = K.gemm_bf16_epilogue_plain(a, b, None, "f32")
+    plan = K.gemm_plan(m, n, k, True, K._sms(a))
+    assert plan["grid"][2] > 1 or k < 256 * 197
+    close(got, ref, SUM_ATOL * float(ref.abs().max()))
+
+
+def test_wgmma_gemm_plan_matches_the_kernel(dev):
+    lib = K._lib()
+    assert tuple(lib.mvt_gemm_bf16_tile(i) for i in range(3)) == (
+        *K.GEMM_TILE, K.GEMM_BK)
+
+
+def test_wgmma_gemm_refuses_what_tma_cannot_load(dev):
+    flat = torch.zeros(64 * 384 + 8, device=dev, dtype=torch.bfloat16)
+    a = flat[1:1 + 64 * 384].view(64, 384)
+    w = torch.zeros(384, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_bf16_epilogue_cuda(a, w, None, "f32")
+    # a weight gradient's A stored with rows of 12 elements (24 bytes)
+    a = torch.zeros(100, 12, device=dev, dtype=torch.bfloat16).t()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K.gemm_bf16_epilogue_cuda(a, w[:100].contiguous(), None, "f32")
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("heads", [3, 6, 12])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [1, 16, 17, 197, 255, 256])
+def test_wgmma_attention_core(dev, n, d, heads, stats):
+    gen = torch.Generator(dev).manual_seed(n * d + heads)
+    qkv = torch.randn(2, n, 3 * heads * d, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    before = K.LAUNCHES["attention_core"]
+    got = K.attention_core_cuda(qkv, heads, d ** -0.5, stats=stats)
+    assert K.LAUNCHES["attention_core"] == before + 1
+    ref = K.attention_core_plain(qkv, heads, d ** -0.5, stats=stats)
+    for g, r in zip(*((got, ref) if stats else ((got,), (ref,)))):
+        close(g, r)
+
+
+def test_wgmma_kernels_are_deterministic(dev):
+    """Two launches on the same inputs give the same bits: the split-K
+    weight gradient (partials summed in order), the column sums of the
+    mul_aux epilogue, a forward product and the attention core."""
+    m, k, n = 256 * 197, 384, 1152
+    a, w, bias, _, aux = gemm_operands(m, k, n, 5, dev, b_col_major=True)
+    dy = torch.randn(m, n, device=dev).to(torch.bfloat16)
+    qkv = torch.randn(64, 197, 3 * 384, device=dev).to(torch.bfloat16)
+    runs = [
+        lambda: (K.gemm_bf16_epilogue_cuda(dy.t(), a, None, "f32"),),
+        lambda: K.gemm_bf16_epilogue_cuda(a, w.contiguous(), None,
+                                          "mul_aux", aux=aux),
+        lambda: (K.gemm_bf16_epilogue_cuda(a, w, bias, "bias_gelu"),),
+        lambda: K.attention_core_cuda(qkv, 6, 0.125, stats=True),
+    ]
+    for run in runs:
+        first = [t.clone() for t in run()]
+        second = run()
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
