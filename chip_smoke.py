@@ -100,7 +100,8 @@ Phases, each ending in one line of output:
               fused long backward, K8, K7), the first step's loss and every
               gradient, kernel path against plain path
   9. timing   CUDA-event times at batch 256: each kernel, forward and
-              backward, and each chain against its plain version and,
+              backward (also the profiler's device time, kernel by
+              kernel), and each chain against its plain version and,
               where one exists, a PyTorch call of the same function (a
               yardstick the port never calls); the whole-model forward (bf16
               and converted INT8) and one train step in images per second;
@@ -136,6 +137,7 @@ from myrtle_vision_tpu_torch.perf._timing import (
     bound,
     cost,
     cuda_ms,
+    kernel_device_ms,
     nbytes,
     power_line,
 )
@@ -291,7 +293,8 @@ KERNELS = {
     "layernorm_rows": (CSRC + "layernorm_rows.cu", ALL_FOUR),
     "gemm_bf16_epilogue": (CSRC + "gemm_bf16_wgmma.cu", ALL_FOUR),
     "attention_core": (CSRC + "attention_core_wgmma.cu", TPU_ATTN),
-    "attention_core_bwd": (CSRC + "attention_core_bwd.cu", TPU_ATTN_BWD),
+    "attention_core_bwd": (CSRC + "attention_core_bwd_wgmma.cu",
+                           TPU_ATTN_BWD),
     "layernorm_rows_bwd": (CSRC + "layernorm_rows_bwd.cu",
                            f"{TPU_ATTN_BWD}; {TPU_MLP_BWD}"),
     "colsum_rows": (CSRC + "layernorm_rows_bwd.cu",
@@ -584,14 +587,14 @@ def as_tuple(v):
     return v if isinstance(v, tuple) else (v,)
 
 
-def heads_of(qkv3):
+def heads_of(qkv3, heads=HEADS):
     """q, k, v (B, H, N, D) of (B, N, 3C) rows, contiguous."""
     b, n, c3 = qkv3.shape
-    t = qkv3.view(b, n, 3, HEADS, c3 // 3 // HEADS).permute(2, 0, 3, 1, 4)
+    t = qkv3.view(b, n, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4)
     return [u.contiguous() for u in t]
 
 
-def kernel_cases(x, attn, mlp, do):
+def kernel_cases(x, attn, mlp, do, heads=HEADS):
     """(name, kernel thunk, plain thunk, bar kind of each output, launches
     per block in a train step, cost) for each CUDA kernel at the shapes
     and operand layouts the main path gives it, inputs prepared with the
@@ -609,9 +612,10 @@ def kernel_cases(x, attn, mlp, do):
     from myrtle_vision_tpu_torch.ops import _kernels as K
 
     bf = torch.bfloat16
-    b, n, _ = x.shape
+    b, n, c = x.shape
     rows = b * n
-    x2, do2 = x.view(rows, C), do.view(rows, C)
+    scale = (c // heads) ** -0.5
+    x2, do2 = x.view(rows, c), do.view(rows, c)
     s, bi = attn[0].to(bf), attn[1].to(bf)
     xn = K.layernorm_rows_plain(x2, s, bi)
     wqkv, bqkv = attn[2].to(bf), attn[3]
@@ -623,16 +627,16 @@ def kernel_cases(x, attn, mlp, do):
           and wp.t().is_contiguous() and w1.t().is_contiguous()
           and w2.t().is_contiguous(), "weights not in the main path's layout")
     g = K.gemm_bf16_epilogue_plain(xn, w1, b1, "bias_gelu")
-    qkv3 = qkv.view(b, n, 3 * C)
-    ctx, m, rs = K.attention_core_plain(qkv3, HEADS, SCALE, stats=True)
-    ctx = ctx.view(rows, C)
+    qkv3 = qkv.view(b, n, 3 * c)
+    ctx, m, rs = K.attention_core_plain(qkv3, heads, scale, stats=True)
+    ctx = ctx.view(rows, c)
     # the same weights laid out the other way
     wqkv_o, wp_o = wqkv.contiguous(), wp.contiguous()
     # backward intermediates
     d_o = K.gemm_bf16_epilogue_plain(do2, wp.t(), None, "f32")
     dqkv, dbq_image = K.attention_core_bwd_plain(
-        qkv3, d_o.view(b, n, C), m, rs, HEADS, SCALE)
-    dqkv = dqkv.view(rows, 3 * C)
+        qkv3, d_o.view(b, n, c), m, rs, heads, scale)
+    dqkv = dqkv.view(rows, 3 * c)
     dxn = K.gemm_bf16_epilogue_plain(dqkv, wqkv.t(), None, "f32")
     g_r, gp = K.gemm_bf16_epilogue_plain(xn, w1, b1, "bias_gelu_grad")
     dh, _ = K.gemm_bf16_epilogue_plain(do2, w2.t(), None, "mul_aux", aux=gp)
@@ -643,35 +647,38 @@ def kernel_cases(x, attn, mlp, do):
         m, k, nn = a.shape[0], a.shape[1], w.shape[1]
         out = {"f32": 4, "bias_gelu_grad": 6}.get(epilogue, 2) * m * nn
         extra = nbytes(bias, kw.get("residual"), kw.get("aux"))
-        c = cost(nbytes(a, w) + out + extra, 2 * m * nn * k, "bf16",
-                 lambda: torch.matmul(a, w))
+        cst = cost(nbytes(a, w) + out + extra, 2 * m * nn * k, "bf16",
+                   lambda: torch.matmul(a, w))
         return (f"gemm_bf16_epilogue[{name}]",
                 lambda: gemm[0](*args, **kw), lambda: gemm[1](*args, **kw),
-                kinds, count, c)
+                kinds, count, cst)
 
-    q, k, v = heads_of(qkv3)
-    core_ops = 4 * b * HEADS * n * n * (C // HEADS)
-    d_oh = heads_of(torch.cat([d_o.view(b, n, C)] * 3, -1).to(bf))[0]
+    q, k, v = heads_of(qkv3, heads)
+    core_ops = 4 * b * heads * n * n * (c // heads)
+    d_oh = heads_of(torch.cat([d_o.view(b, n, c)] * 3, -1).to(bf),
+                    heads)[0]
     flash = []  # the forward's outputs, made at the first (warm-up) call
 
     def flash_bwd():
         if not flash:
             flash.extend(torch.ops.aten._scaled_dot_product_flash_attention(
-                q, k, v, 0.0, False, False, scale=SCALE))
+                q, k, v, 0.0, False, False, scale=scale))
         out, lse, cq, ck, mq, mk, ps, po = flash[:8]
         return torch.ops.aten._scaled_dot_product_flash_attention_backward(
             d_oh, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, ps, po,
-            scale=SCALE)
+            scale=scale)
 
-    ln_mean, ln_rstd = torch.ops.aten.native_layer_norm(x2, [C], s, bi,
+    ln_mean, ln_rstd = torch.ops.aten.native_layer_norm(x2, [c], s, bi,
                                                         K.EPS)[1:]
     dxn_bf = dxn.to(bf)
-    stats = 2 * b * HEADS * n * 4
+    stats = 2 * b * heads * n * 4
+    core_bwd_cost = cost(2 * nbytes(qkv3) + nbytes(d_o, m, rs, dbq_image),
+                         core_ops * 5 // 2, "bf16", flash_bwd)
     return [
         ("layernorm_rows", lambda: K.layernorm_rows_cuda(x2, s, bi),
          lambda: K.layernorm_rows_plain(x2, s, bi), ("kernel",), 4,
          cost(2 * nbytes(x2) + nbytes(s, bi), 8 * x2.numel(), "fp32",
-              lambda: F.layer_norm(x2, (C,), s, bi, K.EPS))),
+              lambda: F.layer_norm(x2, (c,), s, bi, K.EPS))),
         mm("qkv,bias", (xn, wqkv, bqkv, "bias"), ("kernel",), 1),
         mm("qkv,bias, other layout", (xn, wqkv_o, bqkv, "bias"),
            ("kernel",), 0),
@@ -680,28 +687,33 @@ def kernel_cases(x, attn, mlp, do):
         mm("fc1,bias+gelu", (xn, w1, b1, "bias_gelu"), ("kernel",), 1),
         mm("fc2,bias+residual", (g, w2, b2, "bias_residual"), ("kernel",), 1,
            residual=x2),
-        ("attention_core", lambda: K.attention_core_cuda(qkv3, HEADS, SCALE),
-         lambda: K.attention_core_plain(qkv3, HEADS, SCALE), ("kernel",), 0,
+        ("attention_core", lambda: K.attention_core_cuda(qkv3, heads, scale),
+         lambda: K.attention_core_plain(qkv3, heads, scale), ("kernel",), 0,
          cost(nbytes(qkv3) * 4 // 3, core_ops, "bf16",
-              lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE))),
+              lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))),
         ("attention_core[stats]",
-         lambda: K.attention_core_cuda(qkv3, HEADS, SCALE, stats=True),
-         lambda: K.attention_core_plain(qkv3, HEADS, SCALE, stats=True),
+         lambda: K.attention_core_cuda(qkv3, heads, scale, stats=True),
+         lambda: K.attention_core_plain(qkv3, heads, scale, stats=True),
          ("kernel", "kernel", "kernel"), 1,
          cost(nbytes(qkv3) * 4 // 3 + stats, core_ops, "bf16",
-              lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE))),
+              lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))),
         # backward
         mm("d_o=do.Wp^T,f32", (do2, wp.t(), None, "f32"), ("kernel",), 1),
         mm("d_o=do.Wp^T,f32, other layout", (do2, wp_o.t(), None, "f32"),
            ("kernel",), 0),
         ("attention_core_bwd",
-         lambda: K.attention_core_bwd_cuda(qkv3, d_o.view(b, n, C), m, rs,
-                                           HEADS, SCALE),
-         lambda: K.attention_core_bwd_plain(qkv3, d_o.view(b, n, C), m, rs,
-                                            HEADS, SCALE),
-         ("chain", "psum"), 1,
-         cost(2 * nbytes(qkv3) + nbytes(d_o, m, rs, dbq_image),
-              core_ops * 5 // 2, "bf16", flash_bwd)),
+         lambda: K.attention_core_bwd_cuda(qkv3, d_o.view(b, n, c), m, rs,
+                                           heads, scale),
+         lambda: K.attention_core_bwd_plain(qkv3, d_o.view(b, n, c), m, rs,
+                                            heads, scale),
+         ("chain", "psum"), 1, core_bwd_cost),
+        # the KV-tiled route (four kernels) forced at this N, timed beside
+        ("attention_core_bwd[KV-tiled]",
+         lambda: K.attention_core_bwd_cuda(qkv3, d_o.view(b, n, c), m, rs,
+                                           heads, scale, tiled=True),
+         lambda: K.attention_core_bwd_plain(qkv3, d_o.view(b, n, c), m, rs,
+                                            heads, scale),
+         ("chain", "psum"), 0, core_bwd_cost),
         ("colsum_rows[dbqkv]", lambda: K.colsum_rows_cuda(dbq_image),
          lambda: K.colsum_rows_plain(dbq_image), ("sum",), 1,
          cost(nbytes(dbq_image) + 4 * dbq_image.shape[1], dbq_image.numel(),
@@ -709,7 +721,7 @@ def kernel_cases(x, attn, mlp, do):
         mm("dWp=do^T.ctx,A^T", (do2.t(), ctx, None, "f32"), ("sum",), 1),
         ("colsum_rows[dbp,db2]", lambda: K.colsum_rows_cuda(do2),
          lambda: K.colsum_rows_plain(do2), ("sum",), 2,
-         cost(nbytes(do2) + 4 * C, do2.numel(), "fp32",
+         cost(nbytes(do2) + 4 * c, do2.numel(), "fp32",
               lambda: torch.sum(do2, 0, dtype=torch.float32))),
         mm("dWqkv=dqkv^T.xn,A^T", (dqkv.t(), xn, None, "f32"), ("sum",), 1),
         mm("dxn=dqkv.Wqkv^T,f32", (dqkv, wqkv.t(), None, "f32"), ("kernel",),
@@ -720,9 +732,9 @@ def kernel_cases(x, attn, mlp, do):
          lambda: K.layernorm_rows_bwd_cuda(x2, s, dxn, do2),
          lambda: K.layernorm_rows_bwd_plain(x2, s, dxn, do2),
          ("kernel", "sum", "sum"), 2,
-         cost(nbytes(x2, s, dxn, do2, x2) + 8 * C, 12 * x2.numel(), "fp32",
+         cost(nbytes(x2, s, dxn, do2, x2) + 8 * c, 12 * x2.numel(), "fp32",
               lambda: torch.ops.aten.native_layer_norm_backward(
-                  dxn_bf, x2, [C], ln_mean, ln_rstd, s, bi,
+                  dxn_bf, x2, [c], ln_mean, ln_rstd, s, bi,
                   [True, True, True]))),
         mm("fc1 remat,bias+gelu+gelu'", (xn, w1, b1, "bias_gelu_grad"),
            ("kernel", "kernel"), 1),
@@ -3150,7 +3162,11 @@ def paired_ms(kernel, plain, iters=20, warmup=3):
 def time_case(totals, name, kernel, plain, count, c, power, tag):
     """Kernel and plain ms of one case (paired), its yardstick's ms, its
     bound; added, times ``count``, to its kernel's totals; returns
-    (bound ms, yardstick ms or None, what bounds it)."""
+    (bound ms, yardstick ms or None, what bounds it).  The line adds the
+    kernel's and the yardstick's device time by the profiler, kernel by
+    kernel (a two-pass column sum's passes apart): for a call as small as
+    a column sum, CUDA events around back-to-back calls time the
+    wrapper's host cost."""
     k_ms, p_ms = paired_ms(kernel, plain)
     lib_ms = None if c["library"] is None else cuda_ms(c["library"])
     b_ms, by = bound(c)
@@ -3161,9 +3177,18 @@ def time_case(totals, name, kernel, plain, count, c, power, tag):
         rate = f", kernel {c['ops'] / (k_ms * 1e9):.1f} TFLOP/s" + (
             "" if lib_ms is None
             else f", library {c['ops'] / (lib_ms * 1e9):.1f} TFLOP/s")
+    dev_ms, by_kernel = kernel_device_ms(kernel)
+    device = (", device not measured (no kernel record)" if dev_ms is None
+              else f", device {dev_ms:.4f} ms (" + "; ".join(
+                  f"{k} {v:.4f}" for k, v in sorted(by_kernel.items())) + ")")
+    if c["library"] is not None:
+        lib_dev = kernel_device_ms(c["library"])[0]
+        device += (", library device not measured" if lib_dev is None
+                   else f", library device {lib_dev:.4f} ms")
     print(f"timing: {name} {tag} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms, "
           f"library {lib}, bound {b_ms:.4f} ms ({by}: {c['bytes']} bytes, "
-          f"{c['ops']} {c['peak']} ops){rate}, {count} per block [{power}]")
+          f"{c['ops']} {c['peak']} ops){rate}{device}, {count} per block "
+          f"[{power}]")
     acc = totals.setdefault(name.split("[")[0], {
         "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
         "by": {"bytes": 0.0, "operations": 0.0}})
@@ -3171,9 +3196,10 @@ def time_case(totals, name, kernel, plain, count, c, power, tag):
     acc["plain_ms"] += count * p_ms
     acc["bound_ms"] += count * b_ms
     acc["by"][by] += count * b_ms
-    if lib_ms is None or acc["library_ms"] is None:
+    # a case outside the block (count 0) leaves the yardstick sum alone
+    if count and (lib_ms is None or acc["library_ms"] is None):
         acc["library_ms"] = None
-    else:
+    elif count:
         acc["library_ms"] += count * lib_ms
     return b_ms, lib_ms, by
 
@@ -3295,6 +3321,7 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     for name, kernel, plain, _ in op_cases(x, attn, mlp, do):
         time_chain(cases, name, kernel, plain, power, tag)
     del x, attn, mlp, do
+    time_widths(b, device, power, tag)
 
     model = ViT("classification", 224, 16, 45, 384, 12, 6, 1536,
                 device=device)
@@ -3388,6 +3415,28 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     time_detection(totals, device, power)
     time_detection_train(totals, device, power)
     return totals
+
+
+def time_widths(b, device, power, tag):
+    """K1-K4 at the widths of vit_tiny.json and vit_base.json, batch ``b``:
+    each chain, kernel and plain, beside the sums of its kernels' bounds
+    and yardsticks at that width (its own function, so that nothing of
+    these inputs outlives it into the later timings and their peaks)."""
+    for c_w, heads_w, hid_w, label in PROBE_WIDTHS:
+        xw, aw, mw, dw = block_inputs(b, N, seed=c_w, device=device, c=c_w,
+                                      hid=hid_w)
+        cases = {}
+        for name, _, _, _, count, cst in kernel_cases(xw, aw, mw, dw,
+                                                      heads_w):
+            if count:
+                lib_ms = (None if cst["library"] is None
+                          else cuda_ms(cst["library"]))
+                least, by = bound(cst)
+                cases[name] = (least, lib_ms, by)
+        for name, kernel, plain, _ in op_cases(xw, aw, mw, dw, heads_w):
+            if "recomputed" not in name:
+                time_chain(cases, name, kernel, plain, power,
+                           f"{tag}, {label}")
 
 
 def time_encode(device, power):
@@ -3723,8 +3772,8 @@ def time_detection_train(totals, device, power):
              "flash-tile backward": ("flash_bwd_", "core_bwd_du",
                                      "core_bwd_colsum"),
              "fused block kernels": ("attention_core_kernel",
-                                     "attention_core_bwd_kernel",
-                                     "layernorm_rows", "gemm_kernel",
+                                     "attention_core_bwd_wgmma_kernel",
+                                     "layernorm_rows", "gemm_wgmma_kernel",
                                      "colsum_kernel"),
              "optimizer": ("multi_tensor",)})
         print(f"timing: YOLOS-S train step profile at {size} px (one "
@@ -3747,13 +3796,32 @@ def profile_forward(forward, power):
           f"forward): {line} [{power}]")
 
 
+def port_kernel_names():
+    """The names of the port's own CUDA kernels: every ``__global__``
+    function under csrc/."""
+    names = set()
+    for path in glob.glob(os.path.join(ROOT, CSRC, "*.cu*")):
+        with open(path) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|"
+                r"\([^()]*\))*\)\s*)?(\w+)\s*\(", f.read()))
+    return names
+
+
 def device_profile(run, named):
     """Device ms by kernel group of one call of ``run`` (``named``: group
-    -> substrings of its kernels' names; then cuBLAS products and
-    everything else), the device's busy ms (the union of its kernel
-    intervals) over the window from the first kernel's start to the last
-    one's end, and the idle share of that window."""
+    -> substrings of its kernels' names; then the port's other kernels,
+    matched by their names in csrc/ so that none is taken for a library
+    kernel; then cuBLAS products and everything else), the device's busy
+    ms (the union of its kernel intervals) over the window from the first
+    kernel's start to the last one's end, and the idle share of that
+    window."""
     from torch.profiler import ProfilerActivity, profile
+
+    # a name as the profiler shows it, demangled (`ns::name<...>(`) or
+    # not (`<length>name` then `I` or `E`)
+    own = re.compile(r"(?:^|[\s:\d])(?:" + "|".join(
+        sorted(port_kernel_names())) + r")[<(IE]")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3764,12 +3832,14 @@ def device_profile(run, named):
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         return "no device events (not measured)"
-    groups = {**{k: 0.0 for k in named}, "cuBLAS products": 0.0,
-              "other": 0.0}
+    groups = {**{k: 0.0 for k in named}, "other port kernels": 0.0,
+              "cuBLAS products": 0.0, "other": 0.0}
     busy, end = 0.0, spans[0][0]
     for start, stop, name in spans:
         key = next((k for k, subs in named.items()
                     if any(t in name for t in subs)), None)
+        if key is None and own.search(name):
+            key = "other port kernels"
         if key is None:
             key = ("cuBLAS products" if any(
                 t in name.lower() for t in ("gemm", "cutlass", "xmma",

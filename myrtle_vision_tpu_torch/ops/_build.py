@@ -131,10 +131,11 @@ def lib() -> ctypes.CDLL:
             ("mvt_attention_core", [p, p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_max_n", []),
             ("mvt_attention_core_bwd", [p] * 9 + [i, i, i, i, f, p, p]),
+            ("mvt_attention_core_bwd_tiled",
+             [p] * 9 + [i, i, i, i, f, p, p]),
             ("mvt_layernorm_rows_bwd", [p, p, p, p, p, p, i, i, i, f, p]),
             ("mvt_layernorm_rows_bwd_max_cols", []),
-            ("mvt_colsum_rows", [p, i, p, p, i, i, p, p]),
-            ("mvt_colsum_chunk", []),
+            ("mvt_colsum_rows", [p, i, p, p, i, i, i, p, p]),
             ("mvt_layernorm_quant_rows", [p, p, p, p, p, i, i, f, p]),
             ("mvt_gemm_s8", [p] * 10 + [i, i, i, i, p]),
             ("mvt_attention_core_f32", [p, p, p, i, i, i, i, f, p]),

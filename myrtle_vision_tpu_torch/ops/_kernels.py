@@ -78,6 +78,7 @@ under the same names, so that one chain of calls serves both.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from types import SimpleNamespace
 
@@ -114,6 +115,14 @@ DEFERRED_MODES = ("defer", "none", "nomax", "sumdot", "pipe")
 # (csrc/gemm_bf16_wgmma.cu BM, BN, BK)
 GEMM_TILE = (128, 128)
 GEMM_BK = 64
+# colsum_rows (csrc/layernorm_rows_bwd.cu): up to this many rows one
+# kernel sums them, above it two passes; a first-pass block's columns
+# (kPass1Cols there), its least chunk of rows, and the first-pass blocks
+# an SM that the chunk aims at
+COLSUM_ONE_PASS = 64
+COLSUM_COLS = 128
+COLSUM_MIN_CHUNK = 32
+COLSUM_BLOCKS_PER_SM = 4
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
@@ -656,7 +665,14 @@ def _operand(t, name):
 
 def _sms(t) -> int:
     """Streaming multiprocessors of ``t``'s device."""
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+    return _sm_count(t.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    # one lookup a device: colsum_rows needs the count on every call, and
+    # the properties call is host time a short kernel waits on
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _k_split(m, n, k, sms, tile):
@@ -687,6 +703,25 @@ def gemm_plan(m, n, k, a_col_major, sms):
     return {"tile": GEMM_TILE, "k_split": k_split,
             "grid": (math.ceil(n / bn), math.ceil(m / bm),
                      math.ceil(k / k_split))}
+
+
+def colsum_plan(rows, cols, sms):
+    """How colsum_rows sums a (rows, cols) matrix on ``sms`` SMs:
+    {"chunk": rows a first-pass block sums, "chunks": the partial rows
+    it writes (1: the sums themselves, one kernel)}.  Up to
+    :data:`COLSUM_ONE_PASS` rows take one chunk; above it the chunk, a
+    multiple of 8 and at least :data:`COLSUM_MIN_CHUNK` rows, gives about
+    :data:`COLSUM_BLOCKS_PER_SM` first-pass blocks an SM (of
+    :data:`COLSUM_COLS` columns each), so the grid fills the card and the
+    second pass adds at most that many partials a column (and never fewer
+    than two chunks)."""
+    if rows <= COLSUM_ONE_PASS:
+        chunk = rows
+    else:
+        col_blocks = math.ceil(cols / COLSUM_COLS)
+        want = max(2, math.ceil(COLSUM_BLOCKS_PER_SM * sms / col_blocks))
+        chunk = max(COLSUM_MIN_CHUNK, math.ceil(rows / want / 8) * 8)
+    return {"chunk": chunk, "chunks": math.ceil(rows / chunk)}
 
 
 def tma_operand(t, name):
@@ -811,10 +846,12 @@ def attention_core_cuda(qkv, heads, scale, stats=False):
     return (out, m, rs) if stats else out
 
 
-def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale):
+def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale, tiled=False):
     """The CUDA version of :func:`attention_core_bwd_plain`, any N: up to
-    :func:`attention_core_max_n` one block per (image, head), above it the
-    KV-tiled kernels of csrc/flash_bwd_tiles.cuh (four launches)."""
+    :func:`attention_core_max_n` one wgmma CTA per (image, head)
+    (csrc/attention_core_bwd_wgmma.cu), above it the KV-tiled kernels of
+    csrc/flash_bwd_tiles.cuh (four launches).  ``tiled`` takes the
+    KV-tiled route at any N (for timing the two against each other)."""
     _require(qkv, "qkv")
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_bwd")
@@ -824,13 +861,17 @@ def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale):
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((b, c3), dtype=torch.float32, device=qkv.device)
     du = rowterm = colpart = None
-    if n > attention_core_max_n():
+    tiled = tiled or n > attention_core_max_n()
+    if tiled:
         du = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
         rowterm = torch.empty_like(m)
         colpart = torch.empty((b, math.ceil(n / 64), c3),
                               dtype=torch.float32, device=qkv.device)
+    lib = _lib()
     launched = ctypes.c_int(0)
-    _launch("attention_core_bwd", _lib().mvt_attention_core_bwd, qkv,
+    _launch("attention_core_bwd",
+            lib.mvt_attention_core_bwd_tiled if tiled
+            else lib.mvt_attention_core_bwd, qkv,
             qkv.data_ptr(), d_o.data_ptr(), m.data_ptr(), rs.data_ptr(),
             dqkv.data_ptr(), dbias.data_ptr(),
             *(None if t is None else t.data_ptr()
@@ -873,19 +914,23 @@ def layernorm_rows_bwd_cuda(x, scale, dxn, do, qspec=None):
 
 
 def colsum_rows_cuda(t):
-    """fp32 column sums of a bf16 or fp32 (rows, cols) matrix."""
+    """fp32 column sums of a bf16 or fp32 (rows, cols) matrix, in the
+    chunks of :func:`colsum_plan`: one kernel, or two above one chunk."""
     _require(t, "t", t.dtype)
     if t.dtype not in (torch.bfloat16, torch.float32) or t.dim() != 2:
         raise TypeError("colsum_rows: expected a 2-D bf16 or fp32 tensor")
     rows, cols = t.shape
-    lib = _lib()
-    scratch = torch.empty((math.ceil(rows / lib.mvt_colsum_chunk()), cols),
-                          dtype=torch.float32, device=t.device)
+    plan = colsum_plan(rows, cols, _sms(t))
+    scratch = None
+    if plan["chunks"] > 1:
+        scratch = torch.empty((plan["chunks"], cols), dtype=torch.float32,
+                              device=t.device)
     out = torch.empty(cols, dtype=torch.float32, device=t.device)
     launched = ctypes.c_int(0)  # one kernel, or two above a chunk of rows
-    _launch("colsum_rows", lib.mvt_colsum_rows, t,
-            t.data_ptr(), int(t.dtype == torch.bfloat16), scratch.data_ptr(),
-            out.data_ptr(), rows, cols, ctypes.addressof(launched),
+    _launch("colsum_rows", _lib().mvt_colsum_rows, t,
+            t.data_ptr(), int(t.dtype == torch.bfloat16),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            rows, cols, plan["chunk"], ctypes.addressof(launched),
             launched=launched)
     return out
 

@@ -55,6 +55,34 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, iters=20, tries=2):
+    """(device ms per call of ``fn``, {kernel name: device ms per call}),
+    from the profiler's CUDA kernel records over ``iters`` calls after a
+    warm-up call; (None, {}) when ``tries`` profiles in a row return no
+    kernel record (the time is then not measured, never 0).  For a call
+    so short that the wrapper's host cost sets the pace of back-to-back
+    calls, :func:`cuda_ms` times that host cost and this the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                span = (e.time_range.end - e.time_range.start) / 1e3 / iters
+                name = e.name.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].removeprefix("void ")
+                by_name[name] = by_name.get(name, 0.0) + span
+        if by_name:
+            return sum(by_name.values()), by_name
+    return None, {}
+
+
 def time_ms(fn, device, iters=20, warmup=3):
     """:func:`cuda_ms` on the card; on the CPU host ms per call."""
     if device.type == "cuda":

@@ -1629,3 +1629,92 @@ def test_wgmma_kernels_are_deterministic(dev):
         torch.cuda.synchronize()
         for x, y in zip(first, second):
             assert torch.equal(x, y)
+
+
+def core_bwd_inputs(b, n, heads, d, seed, dev):
+    """qkv rows, the plain forward's saved m and rs, and an fp32 d_o."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * heads * d, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    _, m, rs = K.attention_core_plain(qkv, heads, d ** -0.5, stats=True)
+    d_o = torch.randn(b, n, heads * d, device=dev, generator=gen)
+    return qkv, d_o, m, rs
+
+
+@pytest.mark.parametrize("heads", [2, 6])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 64, 65, 128, 197, 208, 255,
+                               256])
+def test_wgmma_attention_core_backward(dev, n, d, heads):
+    """The one-CTA wgmma core backward at every tile edge up to 256
+    tokens: one launch, dqkv under the chain bar and its per-image column
+    sums under the sum bar, as the WMMA kernel it replaced was held."""
+    qkv, d_o, m, rs = core_bwd_inputs(2, n, heads, d, n * d + heads, dev)
+    before = K.LAUNCHES["attention_core_bwd"]
+    got = K.attention_core_bwd_cuda(qkv, d_o, m, rs, heads, d ** -0.5)
+    assert K.LAUNCHES["attention_core_bwd"] == before + 1
+    want = K.attention_core_bwd_plain(qkv, d_o, m, rs, heads, d ** -0.5)
+    close(got[0], want[0], CHAIN_ATOL)
+    close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+
+
+@pytest.mark.parametrize("n", [17, 197, 256])
+def test_wgmma_attention_core_backward_is_deterministic(dev, n):
+    qkv, d_o, m, rs = core_bwd_inputs(8, n, 6, 64, n, dev)
+    first = [t.clone() for t in K.attention_core_bwd_cuda(qkv, d_o, m, rs,
+                                                          6, 0.125)]
+    second = K.attention_core_bwd_cuda(qkv, d_o, m, rs, 6, 0.125)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_tiled_core_backward_agrees_at_197(dev, d):
+    """The KV-tiled route forced at 197 tokens (four launches) against the
+    one-CTA kernel and the plain version, under the same bars."""
+    qkv, d_o, m, rs = core_bwd_inputs(4, 197, 6, d, 197 + d, dev)
+    before = K.LAUNCHES["attention_core_bwd"]
+    tiled = K.attention_core_bwd_cuda(qkv, d_o, m, rs, 6, d ** -0.5,
+                                      tiled=True)
+    assert K.LAUNCHES["attention_core_bwd"] == before + 4
+    one = K.attention_core_bwd_cuda(qkv, d_o, m, rs, 6, d ** -0.5)
+    want = K.attention_core_bwd_plain(qkv, d_o, m, rs, 6, d ** -0.5)
+    for ref in (one, want):
+        close(tiled[0], ref[0], CHAIN_ATOL)
+        close(tiled[1], ref[1], SUM_ATOL * float(ref[1].abs().max()))
+
+
+# colsum_rows: rows at and around the one-kernel limit (64) and the
+# 50,432 rows of a ViT-S/16 block at batch 256; widths of dbp/db2 (384),
+# dbqkv (1152) and one that takes the scalar path (100)
+COLSUM_ROWS = [1, 63, 64, 65, 257, 50432]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cols", [384, 1152, 100])
+@pytest.mark.parametrize("rows", COLSUM_ROWS)
+def test_colsum_rows(dev, rows, cols, dtype):
+    gen = torch.Generator(dev).manual_seed(rows + cols)
+    t = torch.randn(rows, cols, device=dev, generator=gen).to(dtype)
+    want = K.colsum_rows_plain(t)
+    before = K.LAUNCHES["colsum_rows"]
+    got = K.colsum_rows_cuda(t)
+    assert K.LAUNCHES["colsum_rows"] - before == (1 if rows <= 64 else 2)
+    close(got, want, SUM_ATOL * float(want.abs().max()))
+    again = K.colsum_rows_cuda(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_colsum_rows_split_k_partials(dev):
+    """The split-K weight gradient's partial products, (splits, M N) fp32
+    with M N = 384 x 1536: one kernel over 7 rows."""
+    t = torch.randn(7, 384 * 1536, device=dev,
+                    generator=torch.Generator(dev).manual_seed(7))
+    before = K.LAUNCHES["colsum_rows"]
+    got = K.colsum_rows_cuda(t)
+    assert K.LAUNCHES["colsum_rows"] - before == 1
+    want = K.colsum_rows_plain(t)
+    close(got, want, SUM_ATOL * float(want.abs().max()))
+    assert torch.equal(got, K.colsum_rows_cuda(t))
