@@ -300,14 +300,14 @@ KERNELS = {
     "colsum_rows": (CSRC + "layernorm_rows_bwd.cu",
                     f"{TPU_ATTN_BWD}; {TPU_MLP_BWD}"),
     "layernorm_quant_rows": (CSRC + "layernorm_quant_rows.cu", INT8_BOTH),
-    "gemm_s8_epilogue": (CSRC + "gemm_s8_epilogue.cu", INT8_BOTH),
+    "gemm_s8_epilogue": (CSRC + "gemm_s8_wgmma.cu", INT8_BOTH),
     "attention_core_f32": (CSRC + "attention_core_f32.cu",
                            f"{TPU_INT8_ATTN}; {TPU_ATTN} (qspec)"),
     "flash_attention_fwd": (CSRC + "flash_attention_fwd.cu", TPU_FLASH),
     "flash_attention_bwd": (CSRC + "flash_attention_bwd.cu", TPU_FLASH_BWD),
     "fake_quant_rows": (CSRC + "fake_quant_rows.cu", TPU_K11),
     "layernorm_snap_rows": (CSRC + "layernorm_snap_rows.cu", TPU_QSPEC),
-    "gemm_f32x3_epilogue": (CSRC + "gemm_f32x3_epilogue.cu", TPU_QSPEC),
+    "gemm_f32x3_epilogue": (CSRC + "gemm_f32x3_wgmma.cu", TPU_QSPEC),
     "attention_core_f32_bwd": (CSRC + "attention_core_f32_bwd.cu",
                                f"{TPU_ATTN_BWD} (qspec)"),
     "layernorm_snap_rows_bwd": (CSRC + "layernorm_rows_bwd.cu",
@@ -378,16 +378,16 @@ for _k in ("K1", "K2", "K3", "K4"):
         _chain.replace("[qspec,", "_i8[").replace("[qspec]", "_i8"), _parts)
 # the four INT8 QAT variants in the kernels line: (its sources, the TPU
 # kernel it replaces, the chain's timing name)
-_Q_SRC = (f"{CSRC}layernorm_snap_rows.cu; {CSRC}gemm_f32x3_epilogue.cu; "
+_Q_SRC = (f"{CSRC}layernorm_snap_rows.cu; {CSRC}gemm_f32x3_wgmma.cu; "
           f"{CSRC}attention_core_f32.cu")
-_Q_BWD_SRC = (f"{CSRC}layernorm_snap_rows.cu; {CSRC}gemm_f32x3_epilogue.cu; "
+_Q_BWD_SRC = (f"{CSRC}layernorm_snap_rows.cu; {CSRC}gemm_f32x3_wgmma.cu; "
               f"{CSRC}attention_core_f32_bwd.cu; {CSRC}layernorm_rows_bwd.cu")
 INT8_QAT_VARIANTS = {
     "fused_attention_block_i8": (_Q_SRC, f"{TPU_ATTN} (int8)", "K1 int8"),
     "fused_attention_block_i8[bwd]": (_Q_BWD_SRC, f"{TPU_ATTN_BWD} (int8)",
                                       "K2 int8"),
     "fused_mlp_block_i8": (f"{CSRC}layernorm_snap_rows.cu; "
-                           f"{CSRC}gemm_f32x3_epilogue.cu",
+                           f"{CSRC}gemm_f32x3_wgmma.cu",
                            f"{TPU_MLP} (int8)", "K3 int8"),
     "fused_mlp_block_i8[bwd]": (_Q_BWD_SRC.replace(
         f"{CSRC}attention_core_f32_bwd.cu; ", ""), f"{TPU_MLP_BWD} (int8)",
@@ -1725,6 +1725,32 @@ def phase_probes(device, power):
             "library_ms": lib_ms,
         })
     return entries
+
+
+def probe_device_ms(device):
+    """{probe: the profiler's device ms of its headline variant} at the
+    probe tools' shapes (B=512), the kernel path."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.perf import attn_microbench as am
+    from myrtle_vision_tpu_torch.perf import layout_probe as lp
+    from myrtle_vision_tpu_torch.perf import mlp_microbench as mm
+
+    out = {}
+    inputs = am.make_inputs(PROBE_BATCH, N, C, HEADS, 0, device)
+    out["K12"] = kernel_device_ms(
+        am.variants(inputs, HEADS)[PROBES["K12"][2]])[0]
+    del inputs
+    mlp_in = mm.make_inputs(PROBE_BATCH, N, C, 0, device)
+    out["K13"] = kernel_device_ms(mm.variants(mlp_in)[PROBES["K13"][2]])[0]
+    del mlp_in
+    for i, (name, shapes, contract, per_head, explicit) in enumerate(
+            lp.cases(N, C, HEADS)):
+        if name == PROBES["K14"][2]:
+            a, bb = lp.make_operands(shapes, PROBE_BATCH, i, device)
+            out["K14"] = kernel_device_ms(lp.case_fn(
+                K.CUDA, a, bb, contract, HEADS if per_head else None,
+                explicit))[0]
+    return out
 
 
 def flash_inputs(b, h, n, d, seed, device, count=3):
@@ -3173,10 +3199,11 @@ def time_case(totals, name, kernel, plain, count, c, power, tag):
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     # the tensor-core products' achieved rate, kernel and library
     rate = ""
-    if c["peak"] == "bf16":
-        rate = f", kernel {c['ops'] / (k_ms * 1e9):.1f} TFLOP/s" + (
+    if c["peak"] in ("bf16", "int8"):
+        unit = "TFLOP/s" if c["peak"] == "bf16" else "TOP/s"
+        rate = f", kernel {c['ops'] / (k_ms * 1e9):.1f} {unit}" + (
             "" if lib_ms is None
-            else f", library {c['ops'] / (lib_ms * 1e9):.1f} TFLOP/s")
+            else f", library {c['ops'] / (lib_ms * 1e9):.1f} {unit}")
     dev_ms, by_kernel = kernel_device_ms(kernel)
     device = (", device not measured (no kernel record)" if dev_ms is None
               else f", device {dev_ms:.4f} ms (" + "; ".join(
@@ -3191,8 +3218,13 @@ def time_case(totals, name, kernel, plain, count, c, power, tag):
           f"[{power}]")
     acc = totals.setdefault(name.split("[")[0], {
         "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-        "by": {"bytes": 0.0, "operations": 0.0}})
+        "device_ms": 0.0, "by": {"bytes": 0.0, "operations": 0.0}})
     acc["ms"] += count * k_ms
+    # a case without a kernel record leaves its kernel's device sum unknown
+    if count and (dev_ms is None or acc["device_ms"] is None):
+        acc["device_ms"] = None
+    elif count:
+        acc["device_ms"] += count * dev_ms
     acc["plain_ms"] += count * p_ms
     acc["bound_ms"] += count * b_ms
     acc["by"][by] += count * b_ms
@@ -3201,23 +3233,50 @@ def time_case(totals, name, kernel, plain, count, c, power, tag):
         acc["library_ms"] = None
     elif count:
         acc["library_ms"] += count * lib_ms
-    return b_ms, lib_ms, by
+    return b_ms, lib_ms, by, k_ms, dev_ms
+
+
+def f32x3_block_line(forward, backward, power, tag):
+    """One line of gemm_f32x3_epilogue per ViT-S/16 block: the converted
+    forward's four products (``forward``, the kernels line's totals)
+    beside the QAT step's backward products (``backward``: {case name:
+    time_case's result}), the weight gradients and the mul_aux product
+    (dh and db1) apart, each with the profiler's device time."""
+    def part(names):
+        ms = sum(backward[n][3] for n in names)
+        devs = [backward[n][4] for n in names]
+        dev = "not measured" if None in devs else f"{sum(devs):.4f} ms"
+        return f"{ms:.4f} ms (device {dev})"
+
+    grads = [n for n in backward if "A^T]" in n]
+    aux = [n for n in backward if "colsum]" in n]
+    rest = [n for n in backward if n not in grads + aux]
+    dev = ("not measured" if forward["device_ms"] is None
+           else f"{forward['device_ms']:.4f} ms")
+    print(f"timing: gemm_f32x3_epilogue {tag} per block: converted FP16_32 "
+          f"forward {forward['ms']:.4f} ms (device {dev}); the FP16_32 QAT "
+          f"step's backward products {part(list(backward))}: weight "
+          f"gradients {part(grads)}, mul_aux {part(aux)}, the rest "
+          f"{part(rest)} [{power}]")
 
 
 def time_chain(cases, name, kernel, plain, power, tag):
-    """A block-half chain: paired kernel and plain ms, and for the TPU
-    kernel it replaces, the kernel launches of one call and the sums of
-    its cases' bounds and yardsticks.  Returns {ms, plain_ms, bound_ms,
-    bound_by, library_ms} (the last three None where no TPU kernel names
-    the chain)."""
+    """A block-half chain: paired kernel and plain ms, the profiler's
+    device time, and for the TPU kernel it replaces, the kernel launches
+    of one call and the sums of its cases' bounds and yardsticks.  Returns
+    {ms, plain_ms, bound_ms, bound_by, library_ms, device_ms} (bound_ms,
+    bound_by and library_ms None where no TPU kernel names the chain)."""
     k_ms, p_ms = paired_ms(kernel, plain)
     reset_counts()
     kernel()
     launches = {k: v for k, v in read_counts()[0].items() if v}
-    line = (f"timing: {name} {tag} kernel chain {k_ms:.4f} ms plain "
-            f"{p_ms:.4f} ms [{power}]")
+    dev_ms = kernel_device_ms(kernel)[0]
+    device = ("device not measured (no kernel record)" if dev_ms is None
+              else f"device {dev_ms:.4f} ms")
+    line = (f"timing: {name} {tag} kernel chain {k_ms:.4f} ms ({device}) "
+            f"plain {p_ms:.4f} ms [{power}]")
     out = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": None, "bound_by": None,
-           "library_ms": None}
+           "library_ms": None, "device_ms": dev_ms}
     for tpu, (chain, parts) in TPU_CHAINS.items():
         if chain == name:
             b_ms = sum(cases[p][0] for p in parts)
@@ -3260,6 +3319,12 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     b = 256
     tag = f"B={b} N={N}"
     totals, cases = {}, {}
+    # the process's first profiler session can come back without kernel
+    # records, which left the first profiled case unmeasured: one session
+    # first, and every session here, none before (sessions opened early in
+    # the script were seen to drop records of later ones)
+    kernel_device_ms(lambda: torch.ones(1, device=device).add_(1))
+    totals["probes"] = probe_device_ms(device)
     xi, ai, mi, ci = int8_block_inputs(b, N, seed=257, device=device)
     for name, kernel, plain, _, count, c in int8_kernel_cases(xi, ai, mi, ci):
         cases[name] = time_case(totals, name, kernel, plain, count, c, power,
@@ -3280,13 +3345,16 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     # the QAT step's backward kernels and chains (FP16_32); only the two
     # kernels that run nowhere else enter the kernels' totals
     do_f = seeded(np.random.RandomState(260), (b, N, C), 1.0, device)
-    qat_totals = {}
+    qat_totals, qat_f32x3 = {}, {}
     for name, kernel, plain, _, count, c, _ in qat_kernel_cases(
             xf, af, mf, do_f, qspec):
         cases[name] = time_case(qat_totals, name, kernel, plain, count, c,
                                 power, tag + " (FP16_32 QAT step)")
+        if name.startswith("gemm_f32x3_epilogue["):
+            qat_f32x3[name] = cases[name]
     for key in QAT_KERNELS:
         totals[key] = qat_totals[key]
+    f32x3_block_line(totals["gemm_f32x3_epilogue"], qat_f32x3, power, tag)
     for name, kernel, plain, _ in qat_op_cases(xf, af, mf, do_f, qspec):
         time_chain(cases, name, kernel, plain, power, tag)
     del xf, af, mf, do_f
@@ -3911,6 +3979,8 @@ def main():
             "bound_ms": t["bound_ms"],
             "bound_by": max(t["by"], key=t["by"].get),
             "library_ms": t["library_ms"],
+            # the profiler's device time of the same launches
+            "device_ms": t["device_ms"],
         })
     for name, (source, replaces, tpu) in INT8_QAT_VARIANTS.items():
         t = totals[tpu]
@@ -3925,8 +3995,11 @@ def main():
             "max_abs_err": i8_errors[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
         })
+    for entry in probe_entries:
+        # the profiler's device time of the headline variant, B=512
+        entry["device_ms"] = totals["probes"][entry["name"]]
     kernels += probe_entries
     print(f"elapsed: {time.perf_counter() - START:.1f} s since the script "
           "started")

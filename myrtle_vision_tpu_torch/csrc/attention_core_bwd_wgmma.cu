@@ -427,7 +427,7 @@ attention_core_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_qkv,
     }
   }
   // the generic-proxy writes of qs and du, before wgmma reads them
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  sm::fence_proxy_async();
   __syncthreads();
   sm::mbar_wait(bar, 0);
 

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: TMA tensor
 // maps (encoded on the host), TMA loads completing on mbarriers, wgmma
 // matrix descriptors and the wgmma fences (the products themselves are in
-// sm90_wgmma.cuh).
+// sm90_wgmma.cuh).  Tensor maps of bf16, fp32 and int8 elements.
 //
 // The driver's cuTensorMapEncodeTiled is reached through the runtime's
 // cudaGetDriverEntryPoint, so the library links against the CUDA runtime
@@ -41,14 +41,15 @@ inline EncodeTiled encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions, innermost first: dims[i]
-// elements, strides[i] bytes between consecutive indices of dimension
-// i + 1, a box of box[i] elements, swizzled in rows of `swizzle` bytes
-// (128 or 64; the box's inner extent is one such row).  Elements outside
-// the tensor read as zero.  Returns a cudaError_t value.
-inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
-                       const uint64_t* dims, const uint64_t* strides,
-                       const uint32_t* box, int swizzle) {
+// A tensor map of `rank` dimensions and element type `type`, innermost
+// first: dims[i] elements, strides[i] bytes between consecutive indices of
+// dimension i + 1, a box of box[i] elements, swizzled in rows of `swizzle`
+// bytes (128 or 64; the box's inner extent is one such row).  Elements
+// outside the tensor read as zero.  Returns a cudaError_t value.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, int rank, const uint64_t* dims,
+                      const uint64_t* strides, const uint32_t* box,
+                      int swizzle) {
   EncodeTiled fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[3], s[2];
@@ -59,11 +60,33 @@ inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
     if (i + 1 < rank) s[i] = strides[i];
   }
   const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-      const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d,
+      s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the same for bf16, fp32 and int8 elements (int8 as raw bytes)
+inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
+                       const uint64_t* dims, const uint64_t* strides,
+                       const uint32_t* box, int swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides, box, swizzle);
+}
+
+inline int encode_f32(CUtensorMap* map, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides,
+                      const uint32_t* box, int swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims,
+                    strides, box, swizzle);
+}
+
+inline int encode_s8(CUtensorMap* map, const void* base, int rank,
+                     const uint64_t* dims, const uint64_t* strides,
+                     const uint32_t* box, int swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims,
+                    strides, box, swizzle);
 }
 
 // ---------------------------------------------------------------- device
@@ -183,6 +206,36 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_reg(uint64_t& r) {
+  asm volatile("" : "+l"(r)::"memory");
+}
+
+// move registers between warpgroups: a warpgroup that needs few gives
+// them back (dec), one that needs many takes them (inc, waiting until they
+// are free); every warp of the warpgroup executes it, inside the branch of
+// its role
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// make this thread's writes to shared memory visible to the async proxy
+// (a wgmma or TMA store that reads them next)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -138,6 +138,7 @@ def lib() -> ctypes.CDLL:
             ("mvt_colsum_rows", [p, i, p, p, i, i, i, p, p]),
             ("mvt_layernorm_quant_rows", [p, p, p, p, p, i, i, f, p]),
             ("mvt_gemm_s8", [p] * 10 + [i, i, i, i, p]),
+            ("mvt_gemm_s8_tile", [i]),
             ("mvt_attention_core_f32", [p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_f32_max_n", []),
             ("mvt_attention_core_f32_snap",
@@ -149,6 +150,7 @@ def lib() -> ctypes.CDLL:
              [p, p, p, p, i, i, f, i, i, i, p, p]),
             ("mvt_gemm_f32x3", [p] * 7 + [i] * 8 + [p] * 3),
             ("mvt_gemm_f32x3_at", [p, p, p, i, i, i, i, p]),
+            ("mvt_gemm_f32x3_tile", [i]),
             ("mvt_layernorm_snap_rows_bwd",
              [p] * 6 + [i, i, i, f, i, i, i, i, p]),
             ("mvt_flash_attention_fwd",

@@ -18,7 +18,7 @@ and those of the converted-INT8 block halves (ops/fused_int8_block.py),
 fp32 activations, int8 operands:
 
 - ``layernorm_quant_rows`` csrc/layernorm_quant_rows.cu
-- ``gemm_s8_epilogue``     csrc/gemm_s8_epilogue.cu
+- ``gemm_s8_epilogue``     csrc/gemm_s8_wgmma.cu (int8 wgmma, TMA)
 - ``attention_core_f32``   csrc/attention_core_f32.cu
 
 and the flash attention of the discrete attention path, forward and
@@ -34,7 +34,7 @@ snap from csrc/fake_quant.cuh:
 
 - ``fake_quant_rows``          csrc/fake_quant_rows.cu
 - ``layernorm_snap_rows``      csrc/layernorm_snap_rows.cu
-- ``gemm_f32x3_epilogue``      csrc/gemm_f32x3_epilogue.cu
+- ``gemm_f32x3_epilogue``      csrc/gemm_f32x3_wgmma.cu (wgmma, TMA)
 - ``attention_core_f32``       csrc/attention_core_f32.cu, its fp32 snap mode
 - ``attention_core_f32_bwd``   csrc/attention_core_f32_bwd.cu
 - ``layernorm_rows_bwd``       csrc/layernorm_rows_bwd.cu, its fp32 snap form
@@ -141,7 +141,19 @@ FAKE_QUANT_MODES = {"float": 0, "fixed": 1}
 F32X3_EPILOGUES = {"bias_snap": 0, "bias_snap_gelu_snap": 1,
                    "bias_snap_residual_snap": 2, "f32": 3,
                    "bias_snap_gelu_snap_grad": 4, "mul_aux": 5}
-_F32X3_TILE = (128, 64)  # rows and columns of one gemm_f32x3 output tile
+# gemm_f32x3_epilogue's output tile (rows, columns), that of its two GELU
+# epilogues, and its fp32 K step (csrc/gemm_f32x3_wgmma.cu BM, bn_of, BK),
+# the waves of its one persistent CTA an SM that a weight gradient's split
+# K aims at, and a K chunk's least depth
+F32X3_TILE = (128, 128)
+F32X3_GELU_TILE = (192, 64)
+F32X3_BK = 32
+F32X3_WAVES = 4
+F32X3_MIN_CHUNK = 256
+# gemm_s8_epilogue's output tile and K step in int8 elements
+# (csrc/gemm_s8_wgmma.cu)
+S8_TILE = (128, 128)
+S8_BK = 128
 
 
 def reset_launches() -> None:
@@ -675,15 +687,6 @@ def _sm_count(index) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _k_split(m, n, k, sms, tile):
-    """K rows per split of a weight-gradient product with output tiles of
-    ``tile``: enough splits for two waves of blocks on the SMs, each at
-    least 8 steps of 32 deep."""
-    tiles = math.ceil(m / tile[0]) * math.ceil(n / tile[1])
-    splits = max(1, min(math.ceil(2 * sms / tiles), k // 256))
-    return math.ceil(math.ceil(k / splits) / 32) * 32
-
-
 def gemm_plan(m, n, k, a_col_major, sms):
     """How gemm_bf16_epilogue covers an (M, N) output with K deep
     products: {"tile": (rows, cols), "k_split": K rows of a tile, "grid":
@@ -703,6 +706,42 @@ def gemm_plan(m, n, k, a_col_major, sms):
     return {"tile": GEMM_TILE, "k_split": k_split,
             "grid": (math.ceil(n / bn), math.ceil(m / bm),
                      math.ceil(k / k_split))}
+
+
+def gemm_f32x3_plan(m, n, k, a_col_major, sms, epilogue="f32"):
+    """How gemm_f32x3_epilogue covers an (M, N) output with K deep
+    products: {"tile": (rows, cols), "k_split": K rows of a tile, "grid":
+    (column tiles, row tiles, K chunks)}, the tiles that the one
+    persistent CTA an SM of csrc/gemm_f32x3_wgmma.cu walks:
+    :data:`F32X3_TILE`, or :data:`F32X3_GELU_TILE` for the two GELU
+    epilogues (``epilogue``, a key of :data:`F32X3_EPILOGUES`).  A transposed
+    ``a`` (a weight gradient) splits K in multiples of :data:`F32X3_BK`
+    into about :data:`F32X3_WAVES` waves of tiles on ``sms`` SMs, each
+    chunk at least :data:`F32X3_MIN_CHUNK` rows deep (8 steps); any other
+    product takes K whole.  Row tile y of an epilogue-5 product writes
+    row y of its column sums (``colpart``)."""
+    tile = F32X3_GELU_TILE if "gelu" in epilogue else F32X3_TILE
+    bm, bn = tile
+    k_split = k
+    if a_col_major:
+        tiles = math.ceil(m / bm) * math.ceil(n / bn)
+        splits = max(1, min(F32X3_WAVES * sms // tiles,
+                            k // F32X3_MIN_CHUNK))
+        k_split = math.ceil(math.ceil(k / splits) / F32X3_BK) * F32X3_BK
+    return {"tile": tile, "k_split": k_split,
+            "grid": (math.ceil(n / bn), math.ceil(m / bm),
+                     math.ceil(k / k_split))}
+
+
+def gemm_s8_plan(m, n, k):
+    """How gemm_s8_epilogue covers an (M, N) output: {"tile": (rows,
+    cols), "k_split": K (never split), "steps": K steps of
+    :data:`S8_BK` (the last zero-filled past K), "grid": (column tiles,
+    row tiles, 1)}, the tiles that the two persistent CTAs an SM of
+    csrc/gemm_s8_wgmma.cu walk."""
+    bm, bn = S8_TILE
+    return {"tile": S8_TILE, "k_split": k, "steps": math.ceil(k / S8_BK),
+            "grid": (math.ceil(n / bn), math.ceil(m / bm), 1)}
 
 
 def colsum_plan(rows, cols, sms):
@@ -725,9 +764,10 @@ def colsum_plan(rows, cols, sms):
 
 
 def tma_operand(t, name):
-    """Raise ``ValueError`` unless the row-major 2-D bf16 tensor ``t`` can
-    be a TMA tensor map's base: a 16-byte aligned address and rows a
-    multiple of 16 bytes apart (the tensor-map encoding's rules)."""
+    """Raise ``ValueError`` unless the row-major 2-D tensor ``t`` (bf16,
+    fp32 or int8) can be a TMA tensor map's base: a 16-byte aligned
+    address and rows a multiple of 16 bytes apart (the tensor-map
+    encoding's rules)."""
     if t.dim() != 2 or t.stride(1) != 1:
         raise ValueError(f"gemm: {name} must be a row-major 2-D tensor for "
                          f"TMA, got shape {tuple(t.shape)} strides "
@@ -966,7 +1006,9 @@ def gemm_s8_epilogue_cuda(a, w, colsum, w_scale, a_site, bias, epilogue,
     """The CUDA version of :func:`gemm_s8_epilogue_plain`: a int8 (M, K)
     row-major, w int8 (K, N) read in place as the transpose of a
     row-major (N, K) tensor (the (in, out) view of a torch (out, in)
-    weight); K a multiple of 16, M and N any."""
+    weight), both by TMA (:func:`tma_operand`: 16-byte aligned bases;
+    anything else raises ``ValueError``); K a multiple of 16, M and N
+    any (:func:`gemm_s8_plan`)."""
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"gemm_s8: shapes {tuple(a.shape)} @ "
                          f"{tuple(w.shape)}")
@@ -980,6 +1022,8 @@ def gemm_s8_epilogue_cuda(a, w, colsum, w_scale, a_site, bias, epilogue,
     _require(wt, "w", torch.int8)
     if k % 16:
         raise ValueError(f"gemm_s8: K={k} must be a multiple of 16")
+    tma_operand(a, "a")
+    tma_operand(wt, "w")
     code = INT8_EPILOGUES[epilogue]
     _require_shape(colsum, "colsum", (n,))
     _require_shape(bias, "bias", (n,))
@@ -1087,14 +1131,16 @@ def layernorm_snap_rows_cuda(x, scale, bias, qspec):
 def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
                              aux=None):
     """The CUDA version of :func:`gemm_f32x3_epilogue_plain`, each operand
-    read in place.  The forward epilogues take a fp32 (M, K) row-major and
-    w (K, N) as the transpose of a row-major (N, K) tensor (the (in, out)
-    view of a torch (out, in) weight); "f32" and "mul_aux" a row-major w
-    (a torch weight as it is stored, for dX = dY W^T); K a multiple of 4.
-    A transposed ``a`` (the (K, M) activation as it is stored) takes the
-    weight-gradient kernel: a row-major w, fp32 out ("f32" only), any K,
-    K split across blocks and the partial products summed in order by
-    ``colsum_rows``; M and N multiples of 4.  ``qspec``: a float format's,
+    read in place by TMA (16-byte aligned bases, :func:`tma_operand`;
+    anything else raises ``ValueError``).  The forward epilogues take a
+    fp32 (M, K) row-major and w (K, N) as the transpose of a row-major
+    (N, K) tensor (the (in, out) view of a torch (out, in) weight); "f32"
+    and "mul_aux" a row-major w (a torch weight as it is stored, for dX =
+    dY W^T); K a multiple of 4.  A transposed ``a`` (the (K, M)
+    activation as it is stored) takes the weight-gradient form: a
+    row-major w, fp32 out ("f32" only), any K, K split across CTAs
+    (:func:`gemm_f32x3_plan`) and the partial products summed in order
+    by ``colsum_rows``; M and N multiples of 4.  ``qspec``: a float format's,
     or :class:`Int8Sites` (one site for "bias_snap", two for the other
     snapping epilogues); "f32" and "mul_aux" read none."""
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
@@ -1114,12 +1160,15 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
         if m % 4 or n % 4:
             raise ValueError(f"gemm_f32x3: M={m} and N={n} must be multiples "
                              "of 4")
-        k_split = _k_split(m, n, k, _sms(a), _F32X3_TILE)
-        splits = math.ceil(k / k_split)
+        tma_operand(a, "a")
+        tma_operand(w, "w")
+        plan = gemm_f32x3_plan(m, n, k, True, _sms(a))
+        splits = plan["grid"][2]
         part = torch.empty((splits, m, n), dtype=torch.float32,
                            device=a.device)
         _launch("gemm_f32x3_epilogue", lib.mvt_gemm_f32x3_at, a,
-                a.data_ptr(), w.data_ptr(), part.data_ptr(), m, n, k, k_split)
+                a.data_ptr(), w.data_ptr(), part.data_ptr(), m, n, k,
+                plan["k_split"])
         if splits == 1:
             return part[0]
         return colsum_rows_cuda(part.view(splits, m * n)).view(m, n)
@@ -1133,6 +1182,8 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
     if k % 4 or (row_b and n % 4):
         raise ValueError(f"gemm_f32x3: K={k} (and N={n} for a row-major w) "
                          "must be a multiple of 4")
+    tma_operand(a, "a")
+    tma_operand(w, "w")
     code = F32X3_EPILOGUES[epilogue]
     if not row_b:
         _require_shape(bias, "bias", (n,))
@@ -1146,8 +1197,9 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
         _require_shape(aux, "aux", (m, n))
         aux_ptr = aux.data_ptr()
     if epilogue == "mul_aux":
-        colpart = torch.empty((math.ceil(m / _F32X3_TILE[0]), n),
-                              dtype=torch.float32, device=a.device)
+        colpart = torch.empty(
+            (gemm_f32x3_plan(m, n, k, False, 1, epilogue)["grid"][1], n),
+            dtype=torch.float32, device=a.device)
         col_ptr = colpart.data_ptr()
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     _launch("gemm_f32x3_epilogue", lib.mvt_gemm_f32x3, a,

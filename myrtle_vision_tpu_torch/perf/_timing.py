@@ -55,12 +55,15 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters=20, tries=2):
+def kernel_device_ms(fn, iters=20, tries=3):
     """(device ms per call of ``fn``, {kernel name: device ms per call}),
     from the profiler's CUDA kernel records over ``iters`` calls after a
-    warm-up call; (None, {}) when ``tries`` profiles in a row return no
-    kernel record (the time is then not measured, never 0).  For a call
-    so short that the wrapper's host cost sets the pace of back-to-back
+    warm-up call.  A profile counts only when it holds every call's
+    records: each kernel's records a whole multiple of ``iters`` (a
+    session can come back with none, or with some dropped, which would
+    read as a shorter time); (None, {}) when ``tries`` profiles in a row
+    fall short (the time is then not measured, never 0).  For a call so
+    short that the wrapper's host cost sets the pace of back-to-back
     calls, :func:`cuda_ms` times that host cost and this the kernels."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -71,14 +74,15 @@ def kernel_device_ms(fn, iters=20, tries=2):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, count = {}, {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 span = (e.time_range.end - e.time_range.start) / 1e3 / iters
                 name = e.name.replace("(anonymous namespace)::", "")
                 name = name.split("(")[0].removeprefix("void ")
                 by_name[name] = by_name.get(name, 0.0) + span
-        if by_name:
+                count[name] = count.get(name, 0) + 1
+        if by_name and all(c % iters == 0 for c in count.values()):
             return sum(by_name.values()), by_name
     return None, {}
 

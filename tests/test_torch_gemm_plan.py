@@ -90,12 +90,16 @@ def test_split_k_fills_one_wave():
 
 
 def test_f32x3_split_is_unchanged():
-    # gemm_f32x3 keeps its 32-deep split (its own tile and kernel)
+    # gemm_f32x3 keeps its own tile, step and split (gemm_f32x3_plan):
+    # 128 x 128 tiles, 32-deep fp32 steps, about four waves of one CTA an
+    # SM, each chunk at least 8 steps deep
     for m, n, k in ((384, 384, ROWS), (1152, 384, ROWS), (136, 72, 150)):
-        tiles = -(-m // 128) * -(-n // 64)
-        splits = max(1, min(-(-2 * 132 // tiles), k // 256))
+        tiles = -(-m // 128) * -(-n // 128)
+        splits = max(1, min(4 * 132 // tiles, k // 256))
         want = -(-(-(-k // splits)) // 32) * 32
-        assert K._k_split(m, n, k, 132, K._F32X3_TILE) == want
+        plan = K.gemm_f32x3_plan(m, n, k, True, 132)
+        assert plan["tile"] == K.F32X3_TILE == (128, 128)
+        assert plan["k_split"] == want and want % K.F32X3_BK == 0
 
 
 def test_tma_takes_aligned_rows():

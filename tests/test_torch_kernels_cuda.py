@@ -1718,3 +1718,174 @@ def test_colsum_rows_split_k_partials(dev):
     want = K.colsum_rows_plain(t)
     close(got, want, SUM_ATOL * float(want.abs().max()))
     assert torch.equal(got, K.colsum_rows_cuda(t))
+
+
+# ----------------------------------- the wgmma 3-pass and int8 GEMMs
+# csrc/gemm_f32x3_wgmma.cu and csrc/gemm_s8_wgmma.cu against their plain
+# versions at ragged shapes (one row, M = 4 * 197 + 3, N = 45, K not a
+# multiple of the kernel's step) and a full tile, with the existing
+# per-element bars; each output again from a second launch, bit for bit.
+
+def test_f32x3_and_s8_tiles_match_the_plans(dev):
+    lib = K._lib()
+    assert tuple(lib.mvt_gemm_f32x3_tile(i) for i in range(5)) == (
+        *K.F32X3_TILE, K.F32X3_BK, *K.F32X3_GELU_TILE)
+    assert tuple(lib.mvt_gemm_s8_tile(i) for i in range(3)) == (
+        *K.S8_TILE, K.S8_BK)
+
+
+def _seeded(seed, dev):
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * std).astype(np.float32)).to(dev)
+    return t
+
+
+def _same_twice(fn, got):
+    """A second launch gives the same bits."""
+    again = fn()
+    torch.cuda.synchronize()
+    for g, a in zip(got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,)):
+        assert torch.equal(g, a)
+
+
+F32X3_POLICIES = {"FP16_16": (5, 10, True), "FP16_32": (5, 10, False),
+                  "int8": None}
+F32X3_CASES = [(1, 45, 388), (4 * 197 + 3, 200, 388), (300, 1152, 384)]
+F32X3_EPI_POLICY = [(e, p) for e in ("bias_snap", "bias_snap_gelu_snap",
+                                     "bias_snap_residual_snap",
+                                     "bias_snap_gelu_snap_grad")
+                    for p in F32X3_POLICIES] + [("f32", "FP16_32"),
+                                                ("mul_aux", "FP16_32")]
+
+
+@pytest.mark.parametrize("epilogue,policy", F32X3_EPI_POLICY)
+@pytest.mark.parametrize("m,n,k", F32X3_CASES)
+def test_wgmma_f32x3_epilogues(dev, m, n, k, epilogue, policy):
+    """All six epilogues, the snapping ones under a float qspec (FP16_16
+    snaps at every site, FP16_32 at the pre_linear ones) and under
+    Int8Sites observed on the plain values, with the (N, K) weight read
+    in place; "f32" and "mul_aux" with a row-major (K, N) matrix."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+    from myrtle_vision_tpu_torch.ops.high_precision import matmul_high3
+
+    t = _seeded(m + n + k, dev)
+    row_b = epilogue in ("f32", "mul_aux")
+    n = n if not row_b else -(-n // 4) * 4
+    a = t(m, k)
+    w = t(k, n, std=k ** -0.5) if row_b else t(n, k, std=k ** -0.5).t()
+    bias, residual, aux = t(n), t(m, n), t(m, n)
+    qspec = F32X3_POLICIES[policy]
+    s0 = s1 = 0.0
+    if qspec is None:
+        p = matmul_high3(a, w) + bias
+        site0 = site_of(p)
+        h = K.requant(p, site0)
+        site1 = site_of(h + residual if "residual" in epilogue
+                        else K.gelu_poly(h))
+        qspec = Int8Sites(site0, None if epilogue == "bias_snap" else site1)
+        s0, s1 = step_of(site0), step_of(site1)
+    kw = {"residual": residual} if "residual" in epilogue else \
+        {"aux": aux} if epilogue == "mul_aux" else {}
+    args = (a, w, None if row_b else bias, epilogue, qspec)
+    before = K.LAUNCHES["gemm_f32x3_epilogue"]
+    got = K.gemm_f32x3_epilogue_cuda(*args, **kw)
+    want = K.gemm_f32x3_epilogue_plain(*args, **kw)
+    assert K.LAUNCHES["gemm_f32x3_epilogue"] - before == 1
+    if row_b:
+        if epilogue == "f32":
+            close(got, want)
+        else:
+            close(got[0], want[0])
+            close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+    else:
+        out, ref = (got[0], want[0]) if isinstance(got, tuple) else (got,
+                                                                     want)
+        if isinstance(qspec, Int8Sites):
+            step, steps = (s0, 1) if epilogue == "bias_snap" else \
+                series_bar(s0, s1)
+            close_sites(out, ref, step, steps=steps)
+        else:
+            first = None if epilogue == "bias_snap" else \
+                K.gemm_f32x3_epilogue_plain(a, w, bias, "bias_snap", qspec)
+            close_float(out, ref, qspec, first=first)
+        if epilogue == "bias_snap_gelu_snap_grad":
+            close(got[1], want[1], KERNEL_ATOL + s0)
+    _same_twice(lambda: K.gemm_f32x3_epilogue_cuda(*args, **kw), got)
+
+
+@pytest.mark.parametrize("m,n,k", [(384, 1152, 3 * 197), (136, 72, 150),
+                                   (1152, 384, 64 * 197), (8, 8, 4)])
+def test_wgmma_f32x3_weight_gradient_split_k(dev, m, n, k):
+    """The transposed-A weight gradient: each K chunk's partial product
+    against the plain product of its rows, colsum_rows' ordered sum of
+    the partials as the wrapper's result, and the result against the
+    plain product with the sum bar."""
+    t = _seeded(m * n + k, dev)
+    a = t(k, m).t()  # the (K, M) activation as it is stored
+    w = t(k, n)
+    qspec = (5, 10, False)
+    got = K.gemm_f32x3_epilogue_cuda(a, w, None, "f32", qspec)
+    want = K.gemm_f32x3_epilogue_plain(a, w, None, "f32", qspec)
+    close(got, want, SUM_ATOL * float(want.abs().max()))
+    plan = K.gemm_f32x3_plan(m, n, k, True, K._sms(a))
+    ks, splits = plan["k_split"], plan["grid"][2]
+    assert splits > 1 or k < 2 * K.F32X3_MIN_CHUNK
+    part = torch.empty((splits, m, n), device=dev)
+    at = a.t()
+    K._launch("gemm_f32x3_epilogue", K._lib().mvt_gemm_f32x3_at, at,
+              at.data_ptr(), w.data_ptr(), part.data_ptr(), m, n, k, ks)
+    for z in range(splits):
+        chunk = K.gemm_f32x3_epilogue_plain(
+            a[:, z * ks:(z + 1) * ks], w[z * ks:(z + 1) * ks], None, "f32",
+            qspec)
+        close(part[z], chunk, SUM_ATOL * float(chunk.abs().max()))
+    summed = part[0] if splits == 1 else K.colsum_rows_cuda(
+        part.view(splits, m * n)).view(m, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, summed)
+    _same_twice(lambda: K.gemm_f32x3_epilogue_cuda(a, w, None, "f32", qspec),
+                got)
+
+
+S8_CASES = [(3, 16, 16), (4 * 197 + 3, 1152, 384), (256, 45, 384),
+            (197, 45, 400), (300, 1536, 768)]
+
+
+@pytest.mark.parametrize("epilogue", list(K.INT8_EPILOGUES))
+@pytest.mark.parametrize("m,n,k", S8_CASES)
+def test_wgmma_s8_epilogues(dev, m, n, k, epilogue):
+    """All three epilogues with the weight read in place as the (in, out)
+    view of the (N, K) int8 weight; sites observed on the plain values."""
+    from myrtle_vision_tpu_torch.ops.fused_int8_block import weight_colsum
+
+    gen = torch.Generator(dev).manual_seed(m + n + k)
+    t = _seeded(m * n + k, dev)
+    a = torch.randint(-128, 128, (m, k), device=dev, generator=gen,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), device=dev, generator=gen,
+                      dtype=torch.int8).t()
+    colsum = weight_colsum(w)
+    w_scale = torch.tensor(0.02 * k ** -0.5, device=dev)
+    a_site = torch.tensor([0.05, 121.0, 1.0], device=dev)
+    bias, residual = t(n), t(m, n)
+    nosite = torch.zeros(3, device=dev)
+    v = K.gemm_s8_epilogue_plain(a, w, colsum, w_scale, a_site, bias,
+                                 "requant", nosite)
+    site = site_of(v)
+    h = K.requant(v, site)
+    site2 = site_of(h + residual if epilogue.endswith("residual_requant")
+                    else K.gelu_poly(h))
+    kw = {"residual": residual} if epilogue.endswith("residual_requant") \
+        else {}
+    args = (a, w, colsum, w_scale, a_site, bias, epilogue, site, site2)
+    before = K.LAUNCHES["gemm_s8_epilogue"]
+    got = K.gemm_s8_epilogue_cuda(*args, **kw)
+    assert K.LAUNCHES["gemm_s8_epilogue"] - before == 1
+    step = 1 if epilogue == "requant_gelu_quant" else \
+        float(site2[0]) if kw else float(site[0])
+    close_on_grid(got, K.gemm_s8_epilogue_plain(*args, **kw), step)
+    _same_twice(lambda: K.gemm_s8_epilogue_cuda(*args, **kw), got)
