@@ -301,14 +301,14 @@ KERNELS = {
                     f"{TPU_ATTN_BWD}; {TPU_MLP_BWD}"),
     "layernorm_quant_rows": (CSRC + "layernorm_quant_rows.cu", INT8_BOTH),
     "gemm_s8_epilogue": (CSRC + "gemm_s8_wgmma.cu", INT8_BOTH),
-    "attention_core_f32": (CSRC + "attention_core_f32.cu",
+    "attention_core_f32": (CSRC + "attention_core_f32_wgmma.cu",
                            f"{TPU_INT8_ATTN}; {TPU_ATTN} (qspec)"),
     "flash_attention_fwd": (CSRC + "flash_attention_fwd.cu", TPU_FLASH),
     "flash_attention_bwd": (CSRC + "flash_attention_bwd.cu", TPU_FLASH_BWD),
     "fake_quant_rows": (CSRC + "fake_quant_rows.cu", TPU_K11),
     "layernorm_snap_rows": (CSRC + "layernorm_snap_rows.cu", TPU_QSPEC),
     "gemm_f32x3_epilogue": (CSRC + "gemm_f32x3_wgmma.cu", TPU_QSPEC),
-    "attention_core_f32_bwd": (CSRC + "attention_core_f32_bwd.cu",
+    "attention_core_f32_bwd": (CSRC + "attention_core_f32_bwd_wgmma.cu",
                                f"{TPU_ATTN_BWD} (qspec)"),
     "layernorm_snap_rows_bwd": (CSRC + "layernorm_rows_bwd.cu",
                                 TPU_QSPEC_BWD),
@@ -379,9 +379,10 @@ for _k in ("K1", "K2", "K3", "K4"):
 # the four INT8 QAT variants in the kernels line: (its sources, the TPU
 # kernel it replaces, the chain's timing name)
 _Q_SRC = (f"{CSRC}layernorm_snap_rows.cu; {CSRC}gemm_f32x3_wgmma.cu; "
-          f"{CSRC}attention_core_f32.cu")
+          f"{CSRC}attention_core_f32_wgmma.cu")
 _Q_BWD_SRC = (f"{CSRC}layernorm_snap_rows.cu; {CSRC}gemm_f32x3_wgmma.cu; "
-              f"{CSRC}attention_core_f32_bwd.cu; {CSRC}layernorm_rows_bwd.cu")
+              f"{CSRC}attention_core_f32_bwd_wgmma.cu; "
+              f"{CSRC}layernorm_rows_bwd.cu")
 INT8_QAT_VARIANTS = {
     "fused_attention_block_i8": (_Q_SRC, f"{TPU_ATTN} (int8)", "K1 int8"),
     "fused_attention_block_i8[bwd]": (_Q_BWD_SRC, f"{TPU_ATTN_BWD} (int8)",
@@ -390,8 +391,8 @@ INT8_QAT_VARIANTS = {
                            f"{CSRC}gemm_f32x3_wgmma.cu",
                            f"{TPU_MLP} (int8)", "K3 int8"),
     "fused_mlp_block_i8[bwd]": (_Q_BWD_SRC.replace(
-        f"{CSRC}attention_core_f32_bwd.cu; ", ""), f"{TPU_MLP_BWD} (int8)",
-        "K4 int8"),
+        f"{CSRC}attention_core_f32_bwd_wgmma.cu; ", ""),
+        f"{TPU_MLP_BWD} (int8)", "K4 int8"),
 }
 FP32_KERNELS = tuple(k for k in KERNELS
                      if k not in INT8_KERNELS + DETECT_KERNELS + FLOAT_KERNELS
@@ -3303,6 +3304,7 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     kernels, a converted forward for the INT8 and the float (FP16_32)
     ones."""
     from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.ops import _kernels as K
     from myrtle_vision_tpu_torch.training.classification import make_loss_fn
     from myrtle_vision_tpu_torch.training.optim import (
         create_optimizer,
@@ -3354,6 +3356,19 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
             qat_f32x3[name] = cases[name]
     for key in QAT_KERNELS:
         totals[key] = qat_totals[key]
+    # the fp32 core's true divide priced: the same call with p = e * (1 /
+    # rowsum), a variant that no path runs
+    qkv_r = seeded(np.random.RandomState(263), (b, N, 3 * C), 1.0, device)
+    div_ms, mul_ms = paired_ms(
+        lambda: K.attention_core_snap_cuda(qkv_r, HEADS, SCALE, qspec,
+                                           stats=True),
+        lambda: K.attention_core_f32_recip_probe_cuda(qkv_r, HEADS, SCALE,
+                                                      qspec))
+    print(f"timing: attention_core_f32[snap,stats] {tag} (FP16_32 QAT "
+          f"step): true divide {div_ms:.4f} ms, the variant that multiplies "
+          f"by the reciprocal rowsum {mul_ms:.4f} ms, the divide's cost "
+          f"{div_ms - mul_ms:.4f} ms [{power}]")
+    del qkv_r
     f32x3_block_line(totals["gemm_f32x3_epilogue"], qat_f32x3, power, tag)
     for name, kernel, plain, _ in qat_op_cases(xf, af, mf, do_f, qspec):
         time_chain(cases, name, kernel, plain, power, tag)
@@ -3370,8 +3385,6 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
                 totals[tpu] = timed
     del xq, aq, mq, sq, do_q
     # K11 at the patch embedding's pre_linear site, once a forward
-    from myrtle_vision_tpu_torch.ops import _kernels as K
-
     xe = seeded(np.random.RandomState(259), (b, N - 1, 768), 1.0, device)
     time_case(totals, "fake_quant_rows[patch embedding act_in]",
               lambda: K.fake_quant_rows_cuda(xe, "float", 5, 10),
@@ -3438,7 +3451,7 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
             "fake_quant_rows": ("fake_quant_rows",),
             "layernorm_snap_rows": ("layernorm_snap_rows",),
             "gemm_f32x3_epilogue": ("gemm_f32x3",),
-            "attention_core_f32": ("attention_core_f32",)})
+            "attention_core_f32": ("attention_core_f32_wgmma",)})
     print(f"timing: converted FP16_32 forward profile (B={b}, one kernel-path "
           f"forward): {line} [{power}]")
     del conv
@@ -3585,8 +3598,8 @@ def time_qat_step(imgs, batch, tc, fp32_step, power):
           f"[{power}]")
     line = device_profile(lambda: kernel_step(state, batch, tc["lr"]), {
         "gemm_f32x3_epilogue": ("gemm_f32x3",),
-        "attention_core_f32": ("attention_core_f32_kernel",),
-        "attention_core_f32_bwd": ("attention_core_f32_bwd",),
+        "attention_core_f32": ("attention_core_f32_wgmma",),
+        "attention_core_f32_bwd": ("attention_core_f32_bwd_wgmma",),
         "LayerNorm, forward and backward": ("layernorm_snap_rows",
                                             "layernorm_rows_bwd"),
         "fake_quant_rows": ("fake_quant_rows",),
@@ -3654,8 +3667,8 @@ def time_qat_int8_step(imgs, batch, tc, qat_ms, power):
           f"this run {qat_ms:.3f} ms [{power}]")
     line = device_profile(lambda: kernel_step(state, batch, tc["lr"]), {
         "gemm_f32x3_epilogue": ("gemm_f32x3",),
-        "attention_core_f32": ("attention_core_f32_kernel",),
-        "attention_core_f32_bwd": ("attention_core_f32_bwd",),
+        "attention_core_f32": ("attention_core_f32_wgmma",),
+        "attention_core_f32_bwd": ("attention_core_f32_bwd_wgmma",),
         "LayerNorm, forward and backward": ("layernorm_snap_rows",
                                             "layernorm_rows_bwd"),
         "colsum_rows": ("colsum",)})

@@ -89,25 +89,9 @@ struct Layout {
   static_assert(8 * 3 * D <= 64 * D, "column sums fit the hand-over");
 };
 
-// byte offset of a 16-byte chunk in a tile swizzled as TMA writes it
-// (128- or 64-byte rows, the tile 1024-byte aligned)
-template <int kRow>
-__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
-  return off ^ (((off >> 7) & (kRow == 128 ? 7 : 3)) << 4);
-}
-
 // a named barrier of both warpgroups, reached from either's code path
 __device__ __forceinline__ void both_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-// K-major descriptor of the rows of a swizzled buffer from row `row`; the
-// same bits read MN-major through the transpose bit
-template <int D>
-__device__ __forceinline__ uint64_t rows_desc(const unsigned char* buf,
-                                              int row) {
-  constexpr int kRow = 2 * D;
-  return sm::make_desc(buf + row * kRow, 16, 8 * kRow, kRow);
 }
 
 // one 64-query tile's share of the query pass for a warpgroup whose keys
@@ -130,8 +114,8 @@ __device__ __forceinline__ void query_tile(
   for (int i = 0; i < kS; ++i) s[i] = p[i] = 0.f;
   float r0 = 0.f, r1 = 0.f;
   if constexpr (KW > 0) {
-    const uint64_t da = rows_desc<D>(Qs, q0), du = rows_desc<D>(Us, q0);
-    const uint64_t dk = rows_desc<D>(Ks, kb), dv = rows_desc<D>(Vs, kb);
+    const uint64_t da = sm::rows_desc<D>(Qs, q0), du = sm::rows_desc<D>(Us, q0);
+    const uint64_t dk = sm::rows_desc<D>(Ks, kb), dv = sm::rows_desc<D>(Vs, kb);
     sm::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
@@ -201,7 +185,7 @@ __device__ __forceinline__ void query_tile(
       a[kt][2] = sm::pack_bf16(ds[4], ds[5]);
       a[kt][3] = sm::pack_bf16(ds[6], ds[7]);
     }
-    const uint64_t dk = rows_desc<D>(Ks, kb);
+    const uint64_t dk = sm::rows_desc<D>(Ks, kb);
     sm::wgmma_fence();
 #pragma unroll
     for (int kt = 0; kt < KW / 16; ++kt)
@@ -227,8 +211,8 @@ __device__ __forceinline__ void key_chunk(
   float s[QC / 2], p[QC / 2];
 #pragma unroll
   for (int i = 0; i < QC / 2; ++i) s[i] = p[i] = 0.f;
-  const uint64_t dka = rows_desc<D>(Ks, k0), dva = rows_desc<D>(Vs, k0);
-  const uint64_t dq = rows_desc<D>(Qs, qc), du = rows_desc<D>(Us, qc);
+  const uint64_t dka = sm::rows_desc<D>(Ks, k0), dva = sm::rows_desc<D>(Vs, k0);
+  const uint64_t dq = sm::rows_desc<D>(Qs, qc), du = sm::rows_desc<D>(Us, qc);
   sm::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
@@ -322,23 +306,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
   }
 }
 
-// a warp's column sums (the lanes of one t hold one column pair) into
-// row `warp` of section `sec` of the column buffer
-template <int D>
-__device__ __forceinline__ void warp_colsums(const float (&col)[D / 4],
-                                             float* colbuf, int warp,
-                                             int sec, int g, int t) {
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) {
-    float v = col[i];
-    v += __shfl_xor_sync(0xffffffffu, v, 4);
-    v += __shfl_xor_sync(0xffffffffu, v, 8);
-    v += __shfl_xor_sync(0xffffffffu, v, 16);
-    const int col_i = 8 * (i / 2) + 2 * t + (i & 1);
-    if (g == 0) colbuf[(warp * 3 + sec) * D + col_i] = v;
-  }
-}
-
 template <int D, int NP>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_core_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_qkv,
@@ -417,7 +384,7 @@ attention_core_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_qkv,
         uv.z = sm::pack_bf16(d1.x * rsv, d1.y * rsv);
         uv.w = sm::pack_bf16(d1.z * rsv, d1.w * rsv);
       }
-      const uint32_t off = swizzle<kRow>(r * kRow + 16 * c);
+      const uint32_t off = sm::swizzle_chunk<kRow>(r * kRow + 16 * c);
       *reinterpret_cast<uint4*>(Qs + off) = qv;
       *reinterpret_cast<uint4*>(Us + off) = uv;
     }
@@ -464,7 +431,7 @@ attention_core_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_qkv,
   float* colbuf = exch;
   if (wg == 0) {
     asm volatile("bar.sync 2, 128;\n" ::: "memory");
-    warp_colsums<D>(colq, colbuf, warp, 0, g, t);
+    sm::warp_colsums<D>(colq, colbuf, warp, 0, g, t);
   }
 
   // ---- key pass: dK and dV, one 64-key tile a warpgroup ----
@@ -488,8 +455,8 @@ attention_core_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_qkv,
                   row_stride, t, colv);
   }
   both_sync();
-  warp_colsums<D>(colk, colbuf, warp, 1, g, t);
-  warp_colsums<D>(colv, colbuf, warp, 2, g, t);
+  sm::warp_colsums<D>(colk, colbuf, warp, 1, g, t);
+  sm::warp_colsums<D>(colv, colbuf, warp, 2, g, t);
   __syncthreads();
   // the image's column sums: the warps in order (dQ: warpgroup 0's four)
   for (int c = tid; c < 3 * D; c += kThreads) {

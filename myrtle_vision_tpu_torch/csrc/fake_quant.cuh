@@ -5,8 +5,8 @@
 // header for K11's elementwise kernel (fake_quant_rows.cu) and for the
 // prologues and epilogues of the float-format and INT8 QAT block-half
 // chains (layernorm_snap_rows.cu, gemm_f32x3_wgmma.cu,
-// attention_core_f32.cu), so that every snap of the port runs the same
-// code.  fp32 in, fp32 out; bit-identical to the plain versions
+// attention_core_f32_wgmma.cu), so that every snap of the port runs the
+// same code.  fp32 in, fp32 out; bit-identical to the plain versions
 // (ops/fake_quant.py), fp32 subnormal inputs included (built without
 // flush-to-zero), NaN passed through by the float snaps.
 #pragma once

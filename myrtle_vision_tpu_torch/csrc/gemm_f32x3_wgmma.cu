@@ -160,17 +160,6 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// hi = bf16(x), lo = bf16(x - hi) of a pair, as packed words (x in the low
-// half): the arithmetic of `dot_high3`'s `_split`
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(
-      __fsub_rn(x, __low2float(h)), __fsub_rn(y, __high2float(h)));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // The m64k16 A fragment of 16-deep step kk from the fp32 stage, split:
 // thread (warp w of the warpgroup, lane 4 g + t) holds rows r and r + 8
 // (r = 16 w + g of the warpgroup's 64) at columns 2 t, 2 t + 1 and 2 t + 8,
@@ -200,7 +189,8 @@ __device__ __forceinline__ void load_a(const unsigned char* a_s, int r,
     }
   }
 #pragma unroll
-  for (int q = 0; q < 4; ++q) split2(v[2 * q], v[2 * q + 1], hi[q], lo[q]);
+  for (int q = 0; q < 4; ++q)
+    sm::split_bf16x2(v[2 * q], v[2 * q + 1], hi[q], lo[q]);
 }
 
 // 16-byte chunk `ng` (columns 8 ng .. 8 ng + 7) of K row k of a bf16
@@ -231,10 +221,10 @@ __device__ __forceinline__ void split_b(const unsigned char* b_s,
           box + swz(k, 2 * (ng & 3) + 1 - odd));
       const float4 x0 = odd ? xb : xa, x1 = odd ? xa : xb;
       uint4 h, l;
-      split2(x0.x, x0.y, h.x, l.x);
-      split2(x0.z, x0.w, h.y, l.y);
-      split2(x1.x, x1.y, h.z, l.z);
-      split2(x1.z, x1.w, h.w, l.w);
+      sm::split_bf16x2(x0.x, x0.y, h.x, l.x);
+      sm::split_bf16x2(x0.z, x0.w, h.y, l.y);
+      sm::split_bf16x2(x1.x, x1.y, h.z, l.z);
+      sm::split_bf16x2(x1.z, x1.w, h.w, l.w);
       *reinterpret_cast<uint4*>(hi_s + split_at(k, ng)) = h;
       *reinterpret_cast<uint4*>(lo_s + split_at(k, ng)) = l;
     }
@@ -254,7 +244,7 @@ __device__ __forceinline__ void split_b(const unsigned char* b_s,
         uint32_t h[4], l[4];
 #pragma unroll
         for (int p = 0; p < 4; ++p)
-          split2(e ? x[2 * p].y : x[2 * p].x,
+          sm::split_bf16x2(e ? x[2 * p].y : x[2 * p].x,
                  e ? x[2 * p + 1].y : x[2 * p + 1].x, h[p], l[p]);
         const int k = 2 * kh + e;
         *reinterpret_cast<uint4*>(hi_s + split_at(k, ng)) =

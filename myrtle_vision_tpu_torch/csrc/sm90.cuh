@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: TMA tensor
 // maps (encoded on the host), TMA loads completing on mbarriers, wgmma
 // matrix descriptors and the wgmma fences (the products themselves are in
-// sm90_wgmma.cuh).  Tensor maps of bf16, fp32 and int8 elements.
+// sm90_wgmma.cuh), and the helpers several kernels share: the bf16 hi / lo
+// split, the swizzled tile layout that threads write, the column sums of
+// an accumulator tile.  Tensor maps of bf16, fp32 and int8 elements.
 //
 // The driver's cuTensorMapEncodeTiled is reached through the runtime's
 // cudaGetDriverEntryPoint, so the library links against the CUDA runtime
@@ -241,6 +243,53 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// hi = bf16(x), lo = bf16(x - hi) of a pair, as packed words (x in the low
+// half): the split of `dot_high3` (myrtle_vision_tpu/ops/high_precision.py)
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      __fsub_rn(x, __low2float(h)), __fsub_rn(y, __high2float(h)));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// byte offset of a 16-byte chunk in a tile swizzled as TMA writes it
+// (kRow = 128- or 64-byte rows, the tile 1024-byte aligned)
+template <int kRow>
+__device__ __forceinline__ uint32_t swizzle_chunk(uint32_t off) {
+  return off ^ (((off >> 7) & (kRow == 128 ? 7 : 3)) << 4);
+}
+
+// K-major descriptor of the rows of a swizzled tile of D bf16 columns
+// (one swizzle row) from row `row`; the same bits read MN-major through
+// the transpose bit
+template <int D>
+__device__ __forceinline__ uint64_t rows_desc(const unsigned char* tile,
+                                              int row) {
+  constexpr int kRow = 2 * D;
+  return make_desc(tile + row * kRow, 16, 8 * kRow, kRow);
+}
+
+// the column sums of a warp's rows of an m64nD accumulator tile (col[2 j
+// + e]: the thread's column 8 j + 2 t + e, summed over its rows) into row
+// `warp` of section `sec` of colbuf (warps x 3 sections x D fp32): the
+// lanes of one t hold one column pair
+template <int D>
+__device__ __forceinline__ void warp_colsums(const float (&col)[D / 4],
+                                             float* colbuf, int warp,
+                                             int sec, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) {
+    float v = col[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    const int col_i = 8 * (i / 2) + 2 * t + (i & 1);
+    if (g == 0) colbuf[(warp * 3 + sec) * D + col_i] = v;
+  }
 }
 
 }  // namespace sm90

@@ -145,6 +145,10 @@ def lib() -> ctypes.CDLL:
              [p, p, p, p, i, i, i, i, f, i, i, p, p]),
             ("mvt_attention_core_f32_bwd", [p] * 6 + [i, i, i, i, f, p]),
             ("mvt_attention_core_f32_bwd_max_n", []),
+            ("mvt_attention_core_f32_snap_recip",
+             [p, p, p, p, i, i, i, i, f, i, i, p]),
+            ("mvt_attention_core_f32_launch", [i, i, p]),
+            ("mvt_attention_core_f32_bwd_launch", [i, i, p]),
             ("mvt_fake_quant_rows", [p, p, ll, i, i, i, p]),
             ("mvt_layernorm_snap_rows",
              [p, p, p, p, i, i, f, i, i, i, p, p]),

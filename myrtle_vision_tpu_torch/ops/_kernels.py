@@ -19,7 +19,7 @@ fp32 activations, int8 operands:
 
 - ``layernorm_quant_rows`` csrc/layernorm_quant_rows.cu
 - ``gemm_s8_epilogue``     csrc/gemm_s8_wgmma.cu (int8 wgmma, TMA)
-- ``attention_core_f32``   csrc/attention_core_f32.cu
+- ``attention_core_f32``   csrc/attention_core_f32_wgmma.cu (3-pass wgmma)
 
 and the flash attention of the discrete attention path, forward and
 backward (ops/flash_attention.py holds their plain versions):
@@ -35,8 +35,11 @@ snap from csrc/fake_quant.cuh:
 - ``fake_quant_rows``          csrc/fake_quant_rows.cu
 - ``layernorm_snap_rows``      csrc/layernorm_snap_rows.cu
 - ``gemm_f32x3_epilogue``      csrc/gemm_f32x3_wgmma.cu (wgmma, TMA)
-- ``attention_core_f32``       csrc/attention_core_f32.cu, its fp32 snap mode
-- ``attention_core_f32_bwd``   csrc/attention_core_f32_bwd.cu
+- ``attention_core_f32``       csrc/attention_core_f32_wgmma.cu, its fp32
+                               snap mode
+- ``attention_core_f32_bwd``   csrc/attention_core_f32_bwd_wgmma.cu (3-pass
+                               wgmma; the score chain of both in
+                               csrc/attention_f32_tiles.cuh)
 - ``layernorm_rows_bwd``       csrc/layernorm_rows_bwd.cu, its fp32 snap form
                                (counted as ``layernorm_snap_rows_bwd``)
 
@@ -154,6 +157,15 @@ F32X3_MIN_CHUNK = 256
 # (csrc/gemm_s8_wgmma.cu)
 S8_TILE = (128, 128)
 S8_BK = 128
+# attention_core_f32 and its backward (csrc/attention_core_f32_wgmma.cu,
+# csrc/attention_core_f32_bwd_wgmma.cu, csrc/attention_f32_tiles.cuh): an
+# SM's shared memory, what the card keeps of it for each CTA, the 1024
+# bytes each kernel adds to align its swizzled tiles, and the longest
+# sequence
+SM_SHARED_BYTES = 233472
+CTA_RESERVED_BYTES = 1024
+TILE_ALIGN_BYTES = 1024
+F32_CORE_MAX_N = 256
 
 
 def reset_launches() -> None:
@@ -733,6 +745,39 @@ def gemm_f32x3_plan(m, n, k, a_col_major, sms, epilogue="f32"):
                      math.ceil(k / k_split))}
 
 
+def attention_core_f32_plan(n, d):
+    """How ``attention_core_f32`` (every mode) and
+    ``attention_core_f32_bwd`` cover one (image, head) of ``n`` tokens
+    (1 to :data:`F32_CORE_MAX_N`) at head width ``d`` (32 or 64): {"n_pad":
+    n rounded up to 16, "fwd": figures, "bwd": figures}, each with
+    "warpgroups" of a CTA, "ka" (the keys of warpgroup 0 in the
+    backward's query pass, a multiple of 16; warpgroup 1 takes the rest
+    of n_pad; 0 in the forward), "launches" per call, "smem" (dynamic
+    shared memory bytes a CTA) and "ctas_per_sm", the CTAs an SM that
+    the kernel's launch bounds count on (a short sequence may fit more).
+    One CTA per (image, head).  The forward holds the hi and lo halves of
+    K and V (4 n_pad d bf16): one warpgroup a CTA where two CTAs fit an
+    SM, else one CTA of two warpgroups.  The backward, two warpgroups,
+    holds K and V or q and du in turn (4 n_pad d bf16), the query tile's
+    or the key tiles' halves (8 x 64 d bf16), and m, rs, r rs of each
+    query, the rowsum partials and the column sums in fp32."""
+    if not 1 <= n <= F32_CORE_MAX_N or d not in (32, 64):
+        raise ValueError(f"attention_core_f32_plan: n={n}, d={d}")
+    n_pad = math.ceil(n / 16) * 16
+    row = 2 * d  # bytes of a split bf16 row
+    fwd_smem = TILE_ALIGN_BYTES + 4 * n_pad * row
+    two = 2 * (fwd_smem + CTA_RESERVED_BYTES) <= SM_SHARED_BYTES
+    stats = 3 * F32_CORE_MAX_N + 128 + 8 * 3 * d  # floats
+    bwd_smem = TILE_ALIGN_BYTES + 4 * n_pad * row + 8 * 64 * row + 4 * stats
+    return {
+        "n_pad": n_pad,
+        "fwd": {"warpgroups": 1 if two else 2, "ka": 0, "launches": 1,
+                "smem": fwd_smem, "ctas_per_sm": 2 if two else 1},
+        "bwd": {"warpgroups": 2, "ka": math.ceil(n_pad / 32) * 16,
+                "launches": 1, "smem": bwd_smem, "ctas_per_sm": 1},
+    }
+
+
 def gemm_s8_plan(m, n, k):
     """How gemm_s8_epilogue covers an (M, N) output: {"tile": (rows,
     cols), "k_split": K (never split), "steps": K steps of
@@ -1242,6 +1287,42 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False):
             None if rs is None else rs.data_ptr(), b, n, heads, d,
             float(scale), exp_bits, man_bits, site)
     return (out, m, rs) if stats else out
+
+
+def attention_core_f32_recip_probe_cuda(qkv, heads, scale, qspec):
+    """:func:`attention_core_snap_cuda` with ``stats`` under a float
+    format, but p = e * (1 / rowsum) in place of the true divide: a timing
+    variant that prices the divide (chip_smoke.py), which no path calls;
+    head width 64 and N 193-208 only.  Counts as ``attention_core_f32``."""
+    _require(qkv, "qkv", torch.float32)
+    b, n, c3 = qkv.shape
+    c, d = _head_width(c3, heads, "attention_core_f32")
+    out = torch.empty((b, n, c), dtype=torch.float32, device=qkv.device)
+    m = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+    rs = torch.empty_like(m)
+    exp_bits, man_bits, _ = _qspec_args(qspec)
+    _launch("attention_core_f32", _lib().mvt_attention_core_f32_snap_recip,
+            qkv, qkv.data_ptr(), out.data_ptr(), m.data_ptr(), rs.data_ptr(),
+            b, n, heads, d, float(scale), exp_bits, man_bits)
+    return out, m, rs
+
+
+def attention_core_f32_launch(n, d):
+    """The launch figures that the fp32 core's kernels report for ``n``
+    tokens at head width ``d``, in the form of
+    :func:`attention_core_f32_plan` ("ctas_per_sm" the runtime's
+    occupancy of the compiled kernel)."""
+    from myrtle_vision_tpu_torch.ops import _build
+
+    lib = _lib()
+    figures = {}
+    for key, fn in (("fwd", lib.mvt_attention_core_f32_launch),
+                    ("bwd", lib.mvt_attention_core_f32_bwd_launch)):
+        f = (ctypes.c_int * 5)()
+        _build.check(fn(n, d, f), f"attention_core_f32_launch[{key}]")
+        figures[key] = dict(zip(("warpgroups", "ka", "launches", "smem",
+                                 "ctas_per_sm"), f))
+    return figures
 
 
 def attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale):

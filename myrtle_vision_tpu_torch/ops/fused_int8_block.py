@@ -45,8 +45,8 @@ import torch
 from myrtle_vision_tpu_torch.ops import _kernels as K
 
 # the longest sequence the ops take, on any device: the attention core
-# kernel's limit (csrc/attention_core_f32.cu), which stands where the JAX
-# model's ``fuses_at`` gate stands
+# kernel's limit (csrc/attention_core_f32_wgmma.cu), which stands where the
+# JAX model's ``fuses_at`` gate stands
 MAX_N = 256
 
 def weight_colsum(w8):

@@ -12,8 +12,8 @@ These functions are the plain form, used outside any kernel (the
 calibrating INT8 forward; the float formats' QDense sites around the
 blocks, as XLA runs them in the JAX package) and by the plain versions
 of the kernels that do the same split on the tensor cores
-(csrc/gemm_f32x3_wgmma.cu, csrc/attention_core_f32.cu,
-csrc/attention_core_f32_bwd.cu).  On the card fp32 products run without
+(csrc/gemm_f32x3_wgmma.cu, csrc/attention_core_f32_wgmma.cu,
+csrc/attention_core_f32_bwd_wgmma.cu).  On the card fp32 products run without
 TF32 (the package turns TF32 off at import, and :func:`_fp32_products`
 pins it around these calls).
 

@@ -1889,3 +1889,165 @@ def test_wgmma_s8_epilogues(dev, m, n, k, epilogue):
         float(site2[0]) if kw else float(site[0])
     close_on_grid(got, K.gemm_s8_epilogue_plain(*args, **kw), step)
     _same_twice(lambda: K.gemm_s8_epilogue_cuda(*args, **kw), got)
+
+
+# ------------------------------- the wgmma 3-pass fp32 attention core
+# csrc/attention_core_f32_wgmma.cu and csrc/attention_core_f32_bwd_wgmma.cu
+# against their plain versions at every tile edge up to 256 tokens, head
+# widths 32 and 64, with the existing per-element bars; each output again
+# from a second launch, bit for bit.
+
+F32_CORE_NS = [1, 16, 17, 63, 64, 65, 197, 208, 250, 256]
+# the forward's output modes: the converted model's int8 grid, the snap
+# under a float format or an INT8 QAT site, and the snap with statistics
+F32_CORE_MODES = ["int8", "FP16_16", "FP16_32", "TF32", "sites",
+                  "FP16_32+stats", "sites+stats"]
+F32_CORE_QSPECS = {"FP16_16": (5, 10, True), "FP16_32": (5, 10, False),
+                   "TF32": (8, 10, False)}
+
+
+def test_f32_core_launches_match_the_plan(dev):
+    """The kernels' own launch figures against attention_core_f32_plan:
+    warpgroups, KA, launches and shared memory exactly; CTAs an SM from
+    the runtime's occupancy of the compiled kernels, equal to the plan's
+    where shared memory alone sets it, else at least the plan's."""
+    for n in (1, 16, 17, 63, 64, 65, 193, 197, 208, 209, 224, 225, 250,
+              256):
+        for d in (32, 64):
+            plan = K.attention_core_f32_plan(n, d)
+            got = K.attention_core_f32_launch(n, d)
+            for key in ("fwd", "bwd"):
+                want, have = plan[key], got[key]
+                for field in ("warpgroups", "ka", "launches", "smem"):
+                    assert have[field] == want[field], (n, d, key, field)
+                fits = K.SM_SHARED_BYTES // (want["smem"] +
+                                             K.CTA_RESERVED_BYTES)
+                if fits == want["ctas_per_sm"]:
+                    assert have["ctas_per_sm"] == fits, (n, d, key)
+                else:
+                    assert have["ctas_per_sm"] >= want["ctas_per_sm"], (
+                        n, d, key)
+
+
+def f32_core_qkv(b, n, heads, d, seed, dev):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(b, n, 3 * heads * d, device=dev, generator=gen)
+
+
+@pytest.mark.parametrize("mode", F32_CORE_MODES)
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", F32_CORE_NS)
+def test_wgmma_f32_core_forward(dev, n, d, mode):
+    """Every output mode against its plain version: the int8 grid with
+    the INT8 bar, a float format's snap with the float bar, an INT8
+    site's snap with the site bar, the rowmax and reciprocal rowsum with
+    the one-kernel bar; one launch a call."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    heads, scale = 2, d ** -0.5
+    qkv = f32_core_qkv(2, n, heads, d, n * d + len(mode), dev)
+    ctx = K.attention_context_f32(qkv, heads, scale)
+    site = site_of(ctx)
+    policy, stats = mode.split("+")[0], mode.endswith("+stats")
+    if policy == "int8":
+        run = lambda: K.attention_core_f32_cuda(qkv, heads, scale, site)
+        ref = K.attention_core_f32_plain(qkv, heads, scale, site)
+    else:
+        qspec = Int8Sites(site) if policy == "sites" else \
+            F32_CORE_QSPECS[policy]
+        run = lambda: K.attention_core_snap_cuda(qkv, heads, scale, qspec,
+                                                 stats=stats)
+        ref = K.attention_core_snap_plain(qkv, heads, scale, qspec,
+                                          stats=stats)
+    before = K.LAUNCHES["attention_core_f32"]
+    got = run()
+    assert K.LAUNCHES["attention_core_f32"] == before + 1
+    out, want = (got[0], ref[0]) if stats else (got, ref)
+    if policy == "int8":
+        close_on_grid(out, want, 1)
+    elif policy == "sites":
+        close_sites(out, want, step_of(site))
+    else:
+        close_float(out, want, qspec)
+    if stats:
+        close(got[1], ref[1])
+        close(got[2], ref[2])
+    _same_twice(run, got)
+
+
+def f32_core_bwd_inputs(b, n, heads, d, seed, dev):
+    """qkv rows, the plain forward's saved m and rs, and an fp32 d_o."""
+    qkv = f32_core_qkv(b, n, heads, d, seed, dev)
+    _, m, rs = K.attention_context_f32(qkv, heads, d ** -0.5, stats=True)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    d_o = torch.randn(b, n, heads * d, device=dev, generator=gen)
+    return qkv, d_o, m, rs
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", F32_CORE_NS)
+def test_wgmma_f32_core_backward(dev, n, d):
+    """The backward at every tile edge: one launch, dqkv under the chain
+    bar and its per-image column sums under the sum bar, as the WMMA
+    kernel it replaced was held; a second launch gives the same bits."""
+    heads, scale = 2, d ** -0.5
+    qkv, d_o, m, rs = f32_core_bwd_inputs(2, n, heads, d, n * d, dev)
+    before = K.LAUNCHES["attention_core_f32_bwd"]
+    run = lambda: K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads,
+                                                scale)
+    got = run()
+    assert K.LAUNCHES["attention_core_f32_bwd"] == before + 1
+    want = K.attention_core_f32_bwd_plain(qkv, d_o, m, rs, heads, scale)
+    close(got[0], want[0], CHAIN_ATOL)
+    close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+    _same_twice(run, got)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_wgmma_f32_core_dominant_key(dev, d):
+    """Rows whose scores one key dominates (by ~100 before the exp, so
+    every other e underflows): the kernel forward's statistics feed the
+    kernel backward, the plain forward's the plain backward; outputs and
+    gradients finite and within their bars."""
+    b, n, heads, scale = 2, 197, 2, d ** -0.5
+    gen = torch.Generator(dev).manual_seed(d)
+    qkv = f32_core_qkv(b, n, heads, d, d + 7, dev)
+    c = heads * d
+    u = torch.randn(d, device=dev, generator=gen)
+    u = u * (100.0 / (scale * float(u.square().sum()))) ** 0.5
+    for h in range(heads):
+        qkv[:, :, h * d:(h + 1) * d] += u  # every query
+        qkv[:, 3 + 50 * h, c + h * d:c + (h + 1) * d] = u  # one key
+    qspec = F32_CORE_QSPECS["FP16_32"]
+    got = K.attention_core_snap_cuda(qkv, heads, scale, qspec, stats=True)
+    ref = K.attention_core_snap_plain(qkv, heads, scale, qspec, stats=True)
+    for t in got:
+        assert bool(torch.isfinite(t).all())
+    close_float(got[0], ref[0], qspec)
+    close(got[1], ref[1])
+    close(got[2], ref[2])
+    d_o = torch.randn(b, n, c, device=dev, generator=gen)
+    dq = K.attention_core_f32_bwd_cuda(qkv, d_o, got[1], got[2], heads,
+                                       scale)
+    want = K.attention_core_f32_bwd_plain(qkv, d_o, ref[1], ref[2], heads,
+                                          scale)
+    for t in dq:
+        assert bool(torch.isfinite(t).all())
+    close(dq[0], want[0], CHAIN_ATOL)
+    close(dq[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+
+
+def test_wgmma_f32_core_recip_probe(dev):
+    """The timing variant that multiplies by the reciprocal rowsum stays
+    within the float bar of the exact divide; it takes only N_pad 208 at
+    head width 64."""
+    qspec = F32_CORE_QSPECS["FP16_32"]
+    qkv = f32_core_qkv(4, 197, 6, 64, 11, dev)
+    got = K.attention_core_f32_recip_probe_cuda(qkv, 6, 0.125, qspec)
+    ref = K.attention_core_snap_plain(qkv, 6, 0.125, qspec, stats=True)
+    close_float(got[0], ref[0], qspec)
+    close(got[1], ref[1])
+    close(got[2], ref[2])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K.attention_core_f32_recip_probe_cuda(qkv[:, :100].contiguous(), 6,
+                                              0.125, qspec)
