@@ -134,6 +134,7 @@ import numpy as np
 import torch
 
 from myrtle_vision_tpu_torch.perf._timing import (
+    SFU_EXP_PER_S,
     bound,
     cost,
     cuda_ms,
@@ -303,8 +304,10 @@ KERNELS = {
     "gemm_s8_epilogue": (CSRC + "gemm_s8_wgmma.cu", INT8_BOTH),
     "attention_core_f32": (CSRC + "attention_core_f32_wgmma.cu",
                            f"{TPU_INT8_ATTN}; {TPU_ATTN} (qspec)"),
-    "flash_attention_fwd": (CSRC + "flash_attention_fwd.cu", TPU_FLASH),
-    "flash_attention_bwd": (CSRC + "flash_attention_bwd.cu", TPU_FLASH_BWD),
+    "flash_attention_fwd": (CSRC + "flash_attention_fwd_wgmma.cu",
+                            TPU_FLASH),
+    "flash_attention_bwd": (CSRC + "flash_attention_bwd_wgmma.cu",
+                            TPU_FLASH_BWD),
     "fake_quant_rows": (CSRC + "fake_quant_rows.cu", TPU_K11),
     "layernorm_snap_rows": (CSRC + "layernorm_snap_rows.cu", TPU_QSPEC),
     "gemm_f32x3_epilogue": (CSRC + "gemm_f32x3_wgmma.cu", TPU_QSPEC),
@@ -425,7 +428,7 @@ DET_CANVASES = ((384, "fused, long core backward"), (512, "discrete, K8"),
                 (608, "discrete, K7"))
 # Detection eval, kernel path against plain path (phase 7): in the
 # discrete blocks the flash kernel is the only step that differs (it
-# rounds e against each 64-key tile's running max where the plain K6
+# rounds e against each 128-key tile's running max where the plain K6
 # order uses 384-key tiles, about 2^-9 of an attention output), and
 # everything around it is the same PyTorch call on the same inputs, so a
 # difference has to pass through 12 blocks' bf16 residual stream.
@@ -3205,13 +3208,15 @@ def time_case(totals, name, kernel, plain, count, c, power, tag):
         rate = f", kernel {c['ops'] / (k_ms * 1e9):.1f} {unit}" + (
             "" if lib_ms is None
             else f", library {c['ops'] / (lib_ms * 1e9):.1f} {unit}")
-    dev_ms, by_kernel = kernel_device_ms(kernel)
-    device = (", device not measured (no kernel record)" if dev_ms is None
+    dev_ms, by_kernel, miss = kernel_device_ms(kernel)
+    device = (f", device not measured ({miss})"
+              if dev_ms is None
               else f", device {dev_ms:.4f} ms (" + "; ".join(
                   f"{k} {v:.4f}" for k, v in sorted(by_kernel.items())) + ")")
     if c["library"] is not None:
-        lib_dev = kernel_device_ms(c["library"])[0]
-        device += (", library device not measured" if lib_dev is None
+        lib_dev, _, miss = kernel_device_ms(c["library"])
+        device += (f", library device not measured ({miss})"
+                   if lib_dev is None
                    else f", library device {lib_dev:.4f} ms")
     print(f"timing: {name} {tag} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms, "
           f"library {lib}, bound {b_ms:.4f} ms ({by}: {c['bytes']} bytes, "
@@ -3221,6 +3226,10 @@ def time_case(totals, name, kernel, plain, count, c, power, tag):
         "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
         "device_ms": 0.0, "by": {"bytes": 0.0, "operations": 0.0}})
     acc["ms"] += count * k_ms
+    # every case apart, also those outside the block (count 0)
+    acc.setdefault("cases", {})[name] = {
+        "shape": tag, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": by, "library_ms": lib_ms, "device_ms": dev_ms}
     # a case without a kernel record leaves its kernel's device sum unknown
     if count and (dev_ms is None or acc["device_ms"] is None):
         acc["device_ms"] = None
@@ -3271,8 +3280,8 @@ def time_chain(cases, name, kernel, plain, power, tag):
     reset_counts()
     kernel()
     launches = {k: v for k, v in read_counts()[0].items() if v}
-    dev_ms = kernel_device_ms(kernel)[0]
-    device = ("device not measured (no kernel record)" if dev_ms is None
+    dev_ms, _, miss = kernel_device_ms(kernel)
+    device = (f"device not measured ({miss})" if dev_ms is None
               else f"device {dev_ms:.4f} ms")
     line = (f"timing: {name} {tag} kernel chain {k_ms:.4f} ms ({device}) "
             f"plain {p_ms:.4f} ms [{power}]")
@@ -3700,6 +3709,7 @@ def time_detection(totals, device, power):
                   lambda: flash_attention_plain(q, k, v, sc),
                   1 if tag.startswith("K6") else 0, c, power,
                   f"B={b} H={h} N={n} D={d}")
+        exp_floor(f"flash_attention_fwd[{tag}]", b * h * n * n, power)
         del q, k, v
 
     b = 8
@@ -3715,6 +3725,17 @@ def time_detection(totals, device, power):
           f" kernel path {k_ms:.3f} ms = {b / k_ms * 1e3:.2f} img/s, plain "
           f"path {p_ms:.3f} ms = {b / p_ms * 1e3:.2f} img/s [{power}]")
     profile_forward(lambda: model(imgs), power)
+
+
+def exp_floor(name, exps, power):
+    """The least time the SFUs take for a flash case's ``exps``
+    exponentials (``SFU_EXP_PER_S``), beside the operations bound: at head
+    width 64 the softmax's exponentials take about as long as the
+    products.  Printed on a line of its own; the kernels line keeps only
+    the measured times and ``bound_ms``."""
+    ms = exps / SFU_EXP_PER_S * 1e3
+    print(f"timing: {name} exp floor {ms:.4f} ms ({exps} exponentials at "
+          f"{SFU_EXP_PER_S:.4g} a second on the SFUs) [{power}]")
 
 
 def sdpa_backward(q, k, v, do, scale):
@@ -3781,6 +3802,8 @@ def time_detection_train(totals, device, power):
                                                     sc),
                   1 if tag.startswith("K7") else 0, c, power,
                   f"B={b} H={h} N={n} D={d}")
+        # p recomputed in both the dk / dv and the dq kernel
+        exp_floor(f"flash_attention_bwd[{tag}]", 2 * b * h * n * n, power)
         del q, k, v, do, o, lse, o_p, lse_p
 
     b, n = 8, 677
@@ -3847,10 +3870,16 @@ def time_detection_train(totals, device, power):
               f"[{power}]")
         line = device_profile(
             lambda: steps[0](state, batch, tc["lr"]),
-            # the flash-tile kernels serve the flash op and, above 256
-            # tokens, the fused attention core (forward and backward)
-            {"flash-tile forward": ("flash_fwd_kernel",),
-             "flash-tile backward": ("flash_bwd_", "core_bwd_du",
+            # the flash op's wgmma kernels, and the flash-tile kernels of
+            # the fused attention core above 256 tokens (forward and
+            # backward)
+            {"flash forward": ("flash_fwd_wgmma_kernel",),
+             "flash backward": ("flash_bwd_dsum_kernel",
+                                "flash_bwd_dkdv_wgmma_kernel",
+                                "flash_bwd_dq_wgmma_kernel"),
+             "flash-tile forward": ("flash_fwd_kernel",),
+             "flash-tile backward": ("flash_bwd_dq_kernel",
+                                     "flash_bwd_dkdv_kernel", "core_bwd_du",
                                      "core_bwd_colsum"),
              "fused block kernels": ("attention_core_kernel",
                                      "attention_core_bwd_wgmma_kernel",
@@ -3872,7 +3901,7 @@ def profile_forward(forward, power):
         forward()
         torch.cuda.synchronize()
         line = device_profile(forward, {"flash_attention_fwd":
-                                        ("flash_fwd_kernel",)})
+                                        ("flash_fwd_wgmma_kernel",)})
     print(f"timing: YOLOS-S forward profile (800 px, B=8, one kernel-path "
           f"forward): {line} [{power}]")
 
@@ -3995,6 +4024,10 @@ def main():
             # the profiler's device time of the same launches
             "device_ms": t["device_ms"],
         })
+        if name in DETECT_KERNELS:
+            # the flash kernels at both regimes' shapes, each case's own
+            # numbers: the K6 / K7 shapes summed above and the K5 / K8 ones
+            kernels[-1]["cases"] = t["cases"]
     for name, (source, replaces, tpu) in INT8_QAT_VARIANTS.items():
         t = totals[tpu]
         kernels.append({

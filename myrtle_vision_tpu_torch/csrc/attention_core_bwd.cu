@@ -13,7 +13,7 @@
 // The fused block runs up to the `fuses_at` gate of
 // myrtle_vision_tpu/ops/fused_attention_block.py, 701 tokens at 6 heads of
 // 64 (YOLOS-S training at 256-384 px, 357-677 tokens).  Those sequences
-// take the KV-tiled kernels of flash_bwd_tiles.cuh in their kCore form: a
+// take the KV-tiled kernels of flash_bwd_tiles.cuh: a
 // pre-pass writes du = bf16(d_o * rs) (B, N, C); the dq kernel walks the
 // key tiles twice, first for r = rowsum(dp * e) of its 64 queries
 // (written out as r * rs), then for dq; the dk/dv kernel walks the query
@@ -101,7 +101,7 @@ int launch_long(const void* qkv, const void* d_o, const void* m,
   p.n = N;
   p.n_valid = N;
   p.scale = scale;
-  const int e = mvt::flash::launch_bwd<D, true>(p, B, stream);
+  const int e = mvt::flash::launch_bwd<D>(p, B, stream);
   if (e != 0) return e;
   const int tiles = (N + mvt::flash::kBM - 1) / mvt::flash::kBM;
   core_bwd_colsum_kernel<<<(B * 3 * C + 255) / 256, 256, 0, stream>>>(

@@ -50,7 +50,7 @@
 // Longer sequences (the fused block runs up to the `fuses_at` gate of
 // myrtle_vision_tpu/ops/fused_attention_block.py, 701 tokens at 6 heads of
 // 64, e.g. YOLOS-S at 384 px with 677) take the KV-tiled kernel of
-// flash_tiles.cuh in its kCore form: the same conventions (bf16(q * scale),
+// flash_tiles.cuh: the same conventions (bf16(q * scale),
 // e . V, then x reciprocal rowsum, the saved rowmax and reciprocal rowsum)
 // with an online softmax over 64-key tiles, so e is rounded to bf16 against
 // the running rowmax of its tile, not the final one (about 2^-9 of an
@@ -319,8 +319,8 @@ MVT_EXPORT int mvt_attention_core(const void* qkv, void* out, void* m,
     p.n = N;
     p.n_valid = N;
     p.scale = scale;
-    if (D == 64) return mvt::flash::launch<64, true>(p, B, s);
-    if (D == 32) return mvt::flash::launch<32, true>(p, B, s);
+    if (D == 64) return mvt::flash::launch<64>(p, B, s);
+    if (D == 32) return mvt::flash::launch<32>(p, B, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (D == 64) return launch_n<64>(qkv, out, m, rs, B, N, heads, scale, s);

@@ -11,29 +11,23 @@
 //     the key tiles (K and V double-buffered) and keeps dq in registers.
 // Every sum runs in a fixed order, so results are bitwise reproducible.
 //
-// Per (query row i, key j), with U the upstream operand and T_i the row
-// term:
-//   s    = q_i . k_j                    fp32 (kCore: q pre-scaled)
-//   p    = exp(alpha * s - beta_i)      0 for j or i >= n_valid
-//   dp   = u_i . v_j                    fp32
-//   ds   = p * (dp - T_i)
-//   dv_j += bf16(p) u_i      dk_j += bf16(ds) q_i      dq_i += bf16(ds) k_j
-// and at the end dq *= scale, dk *= (kCore ? 1 : scale).
-//
-// Two instantiations share this body:
-// - flash mode (flash_attention_bwd.cu): the TPU flash backwards K7 and K8
-//   (myrtle_vision_tpu/ops/flash_attention.py `_blk_bwd_kernel`,
-//   `_bwd_kernel`): alpha = scale, beta = the forward's LSE, U = do, T =
-//   dsum = rowsum(do * o) from a pre-pass;
-// - kCore (attention_core_bwd.cu): the fused attention block's backward
-//   core (`_bwd_one_image`) for sequences longer than the one-block kernel
-//   holds: q rounded to bf16(q * scale) where it is read (as the forward's
-//   kCore), alpha = 1, beta = the saved rowmax m, U = du = bf16(d_o * rs)
-//   from a pre-pass, and T = r * rs with r = rowsum(dp * e), which needs a
-//   whole row: the dq kernel walks the keys twice, first for r (written
-//   out for the dk/dv kernel, which runs after it), then for dq.  kCore
-//   also writes each tile's fp32 column sums of dq, dk and dv, which a
-//   last pass adds up per image in order (the dbqkv of the block).
+// This is the fused attention block's backward core (attention_core_bwd.cu,
+// `_bwd_one_image` of myrtle_vision_tpu/ops/fused_attention_block.py) for
+// sequences longer than its one-CTA kernel holds.  Per (query row i, key
+// j), with qs = bf16(q * scale) (rounded where q is read, as the forward
+// core rounds it), the saved rowmax m and reciprocal rowsum rs, du =
+// bf16(d_o * rs) from a pre-pass and T_i = r_i * rs_i:
+//   s    = qs_i . k_j                   fp32
+//   e    = exp(s - m_i)                 0 for j or i >= n_valid
+//   dp   = du_i . v_j                   fp32
+//   r_i  = rowsum(dp * e)
+//   ds   = e * (dp - T_i)
+//   dv_j += bf16(e) du_i     dk_j += bf16(ds) qs_i     dq_i += bf16(ds) k_j
+// and at the end dq *= scale.  r needs a whole row: the dq kernel walks
+// the keys twice, first for r (written out as T for the dk/dv kernel,
+// which runs after it), then for dq.  Both kernels also write each tile's
+// fp32 column sums of dq, dk and dv, which a last pass adds up per image
+// in order (the dbqkv of the block).
 //
 // Operands are read in place through element strides (image, head, row;
 // the head dimension contiguous), outputs written through another set.
@@ -51,15 +45,15 @@ struct BwdParams {
   const bf16* q;
   const bf16* k;
   const bf16* v;
-  const bf16* u;        // flash: do; kCore: du
-  const float* beta;    // (images * heads, n): flash LSE; kCore rowmax m
-  float* rowterm;       // (images * heads, n): flash dsum (read); kCore
-                        // r * rs (written by the dq kernel)
-  const float* rs;      // kCore: reciprocal rowsum (images * heads, n)
+  const bf16* u;        // du
+  const float* beta;    // (images * heads, n): the rowmax m
+  float* rowterm;       // (images * heads, n): r * rs (written by the dq
+                        // kernel)
+  const float* rs;      // reciprocal rowsum (images * heads, n)
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  float* colpart;       // kCore: (images, tiles, 3 * heads * D) or null
+  float* colpart;       // (images, tiles, 3 * heads * D) or null
   long long in_image;   // element strides of q, k and v
   int in_head, in_row;
   long long u_image;    // element strides of u
@@ -194,7 +188,7 @@ __device__ __forceinline__ void store_colpart(const BwdParams& p,
   __syncthreads();
 }
 
-template <int D, bool kCore>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int LD = D + 8, kTile = kBN * LD;
@@ -216,7 +210,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
   const bf16* kb = p.k + in_off;
   const bf16* vb = p.v + in_off;
   const int n_tiles = (p.n_valid + kBN - 1) / kBN;
-  const int total = (kCore ? 2 : 1) * n_tiles;
+  const int total = 2 * n_tiles;
 
   load_tile<D>(Qs, p.q + in_off, q0, p.n, p.in_row, tid);
   load_tile<D>(Us,
@@ -234,10 +228,9 @@ flash_bwd_dq_kernel(const BwdParams p) {
     const size_t si = static_cast<size_t>(bh) * p.n + row;
     const bool ok = row < p.n;
     beta[i] = ok ? p.beta[si] : 0.f;
-    term[i] = (!kCore && ok) ? p.rowterm[si] : 0.f;
-    rsr[i] = (kCore && ok) ? p.rs[si] : 0.f;
+    term[i] = 0.f;
+    rsr[i] = ok ? p.rs[si] : 0.f;
   }
-  const float alpha = kCore ? 1.f : p.scale;
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
@@ -256,8 +249,8 @@ flash_bwd_dq_kernel(const BwdParams p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bool first_walk = kCore && it < n_tiles;
-    if (kCore && it == n_tiles) {
+    const bool first_walk = it < n_tiles;
+    if (it == n_tiles) {
       // r of the lane's rows is complete: T = r * rs, kept for dk/dv
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -271,7 +264,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
     }
 
     float s[kBN / 8][4], dp[kBN / 8][4];
-    tile_xyt<D, kCore, false>(s, Qs, warp * 16, Ks + st * kTile, lane,
+    tile_xyt<D, true, false>(s, Qs, warp * 16, Ks + st * kTile, lane,
                               p.scale);
     tile_xyt<D, false, false>(dp, Us, warp * 16, Vs + st * kTile, lane,
                               p.scale);
@@ -282,7 +275,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
         const int col = j * kBN + nt * 8 + 2 * t + (e & 1);
         const int row = q0 + warp * 16 + g + 8 * (e >> 1);
         const float pv = (col < p.n_valid && row < p.n_valid)
-                             ? expf(alpha * s[nt][e] - beta[e >> 1])
+                             ? expf(s[nt][e] - beta[e >> 1])
                              : 0.f;
         if (first_walk)
           r[e >> 1] += dp[nt][e] * pv;
@@ -296,13 +289,13 @@ flash_bwd_dq_kernel(const BwdParams p) {
 
   const size_t out_off = static_cast<size_t>(b) * p.out_image +
                          static_cast<size_t>(h) * p.out_head;
-  const bool sums = kCore && p.colpart != nullptr;
+  const bool sums = p.colpart != nullptr;
   store_rows<D>(acc, p.scale, p.dq + out_off, p.out_row, q0 + warp * 16, p.n,
                 sums ? colbuf : nullptr, lane, warp);
   if (sums) store_colpart<D>(p, colbuf, b, h, 0, tid);
 }
 
-template <int D, bool kCore>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_bwd_dkdv_kernel(const BwdParams p) {
   constexpr int LD = D + 8, kTile = kBN * LD;
@@ -347,7 +340,6 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
     load_stats(0, 0);
   }
 
-  const float alpha = kCore ? 1.f : p.scale;
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
@@ -372,7 +364,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
 
     // S^T and dP^T: rows the warp's 16 keys, columns the 64 queries
     float s[kBN / 8][4], dp[kBN / 8][4];
-    tile_xyt<D, false, kCore>(s, Ks, warp * 16, Qs + st * kTile, lane,
+    tile_xyt<D, false, true>(s, Ks, warp * 16, Qs + st * kTile, lane,
                               p.scale);
     tile_xyt<D, false, false>(dp, Vs, warp * 16, Us + st * kTile, lane,
                               p.scale);
@@ -385,21 +377,21 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
         const int qc = nt * 8 + 2 * t + (e & 1);
         const int key = k0 + warp * 16 + g + 8 * (e >> 1);
         const float pv = (key < p.n_valid && i * kBM + qc < p.n_valid)
-                             ? expf(alpha * s[nt][e] - bs[qc])
+                             ? expf(s[nt][e] - bs[qc])
                              : 0.f;
         s[nt][e] = pv;
         dp[nt][e] = pv * (dp[nt][e] - ts[qc]);
       }
     }
     tile_pz<D, false>(dv, s, Us + st * kTile, lane, p.scale);
-    tile_pz<D, kCore>(dk, dp, Qs + st * kTile, lane, p.scale);
+    tile_pz<D, true>(dk, dp, Qs + st * kTile, lane, p.scale);
     __syncthreads();  // this stage is refilled by the next iteration
   }
 
   const size_t out_off = static_cast<size_t>(b) * p.out_image +
                          static_cast<size_t>(h) * p.out_head;
-  const bool sums = kCore && p.colpart != nullptr;
-  store_rows<D>(dk, kCore ? 1.f : p.scale, p.dk + out_off, p.out_row,
+  const bool sums = p.colpart != nullptr;
+  store_rows<D>(dk, 1.f, p.dk + out_off, p.out_row,
                 k0 + warp * 16, p.n, sums ? colbuf : nullptr, lane, warp);
   if (sums) store_colpart<D>(p, colbuf, b, h, 1, tid);
   store_rows<D>(dv, 1.f, p.dv + out_off, p.out_row, k0 + warp * 16, p.n,
@@ -408,23 +400,23 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
 }
 
 // grid: (64-row tiles, images x heads) for both kernels, the dq kernel
-// first (kCore's dk/dv kernel reads the row term it writes); 2 launches
-template <int D, bool kCore>
+// first (the dk/dv kernel reads the row term it writes); 2 launches
+template <int D>
 int launch_bwd(const BwdParams& p, int images, cudaStream_t stream) {
   const int smem = static_cast<int>(bwd_smem_bytes<D>());
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, kCore>,
+      flash_bwd_dq_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, kCore>,
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.n + kBM - 1) / kBM, images * p.heads);
-  flash_bwd_dq_kernel<D, kCore><<<grid, kWarps * 32, smem, stream>>>(p);
+  flash_bwd_dq_kernel<D><<<grid, kWarps * 32, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<D, kCore><<<grid, kWarps * 32, smem, stream>>>(p);
+  flash_bwd_dkdv_kernel<D><<<grid, kWarps * 32, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

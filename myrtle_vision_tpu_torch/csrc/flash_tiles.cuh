@@ -7,26 +7,20 @@
 // accumulator stay in registers: the (N, N) score matrix never exists.
 //
 // Per KV tile, for each query row (rowmax m, rowsum l, accumulator acc):
-//   s     = q . k^T                         fp32 (kCore: q pre-scaled)
-//   s     = scale * s                       (flash mode only)
+//   s     = bf16(q * scale) . k^T           fp32
 //   s     = -inf for keys >= n_valid
 //   m'    = max(m, rowmax(s)),  a = exp(m - m')
 //   e     = exp(s - m')                     fp32
 //   l     = a * l + rowsum(e)               fp32 e
 //   acc   = a * acc + bf16(e) . v           fp32 accumulation
-// and at the end o = acc / l (flash mode, with LSE m + log l) or
-// o = acc * (1 / l) (kCore, with the rowmax m and the reciprocal 1 / l).
+// and at the end o = acc * (1 / l), with the rowmax m and the reciprocal
+// 1 / l saved for the backward.
 //
-// Two instantiations share this body:
-// - flash mode (flash_attention_fwd.cu): the TPU flash forwards K5 and K6
-//   (myrtle_vision_tpu/ops/flash_attention.py `_fwd_kernel`,
-//   `_blk_fwd_kernel`): scale applied to the fp32 scores, keys masked from
-//   n_valid, optional LSE;
-// - kCore (attention_core.cu): the fused attention block's core for
-//   sequences longer than one block of shared memory holds, with the
-//   conventions of `_attn_heads_fwd` (q * scale rounded to bf16 before the
-//   product, e . V first, then x reciprocal rowsum, the rowmax and the
-//   reciprocal rowsum saved for the backward).
+// This is the fused attention block's core (attention_core_wgmma.cu) for
+// sequences longer than its one-CTA kernel holds, with the conventions of
+// `_attn_heads_fwd` (myrtle_vision_tpu/ops/fused_attention_block.py):
+// q * scale rounded to bf16 before the product, e . V first, then x
+// reciprocal rowsum.
 //
 // The operands are read in place through element strides (image, head,
 // row; the head dimension contiguous), so the (B, H, N, D) view of the
@@ -55,8 +49,8 @@ struct Params {
   const bf16* k;
   const bf16* v;
   bf16* o;
-  float* stat0;  // flash: LSE or null; kCore: rowmax or null
-  float* stat1;  // kCore: reciprocal rowsum (null with stat0)
+  float* stat0;  // rowmax or null
+  float* stat1;  // reciprocal rowsum (null with stat0)
   long long in_image;  // element strides of q, k and v
   int in_head, in_row;
   long long out_image;  // element strides of o
@@ -138,7 +132,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
   }
 }
 
-template <int D, bool kCore>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const Params p) {
   // rows padded by 8 elements: 16-byte aligned for ldmatrix and cp.async,
@@ -189,10 +183,8 @@ flash_fwd_kernel(const Params p) {
       for (int kk = 0; kk < D / 16; ++kk) {
         ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
                             (lane >> 4) * 8);
-        if (kCore) {
 #pragma unroll
-          for (int r = 0; r < 4; ++r) qa[kk][r] = scale_bf16x2(qa[kk][r], p.scale);
-        }
+        for (int r = 0; r < 4; ++r) qa[kk][r] = scale_bf16x2(qa[kk][r], p.scale);
       }
     }
 
@@ -215,15 +207,14 @@ flash_fwd_kernel(const Params p) {
       }
     }
 
-    // scale, mask, online softmax; lane holds rows g (i = 0) and g + 8
+    // mask, online softmax; lane holds rows g (i = 0) and g + 8
     float mx[2] = {neg_inf(), neg_inf()};
 #pragma unroll
     for (int nt = 0; nt < kBN / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * kBN + nt * 8 + 2 * t + (e & 1);
-        float v = kCore ? s[nt][e] : s[nt][e] * p.scale;
-        v = col < p.n_valid ? v : neg_inf();
+        const float v = col < p.n_valid ? s[nt][e] : neg_inf();
         s[nt][e] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], v);
       }
@@ -294,36 +285,23 @@ flash_fwd_kernel(const Params p) {
     const float rs = 1.0f / l[i];
     bf16* orow = p.o + out_off + static_cast<size_t>(row) * p.out_row;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      float x0 = o[dn][2 * i], x1 = o[dn][2 * i + 1];
-      if (kCore) {
-        x0 *= rs;
-        x1 *= rs;
-      } else {
-        x0 /= l[i];
-        x1 /= l[i];
-      }
+    for (int dn = 0; dn < D / 8; ++dn)
       *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + 2 * t) =
-          __floats2bfloat162_rn(x0, x1);
-    }
+          __floats2bfloat162_rn(o[dn][2 * i] * rs, o[dn][2 * i + 1] * rs);
     if (t == 0 && p.stat0 != nullptr) {
       const size_t si = static_cast<size_t>(bh) * p.n + row;
-      if (kCore) {
-        p.stat0[si] = m[i];
-        p.stat1[si] = rs;
-      } else {
-        p.stat0[si] = m[i] + logf(l[i]);
-      }
+      p.stat0[si] = m[i];
+      p.stat1[si] = rs;
     }
   }
 }
 
 // grid: (query tiles, images x heads); 46,080 bytes of static shared
 // memory at D = 64
-template <int D, bool kCore>
+template <int D>
 int launch(const Params& p, int images, cudaStream_t stream) {
   const dim3 grid((p.n + kBM - 1) / kBM, images * p.heads);
-  flash_fwd_kernel<D, kCore><<<grid, kWarps * 32, 0, stream>>>(p);
+  flash_fwd_kernel<D><<<grid, kWarps * 32, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,19 +43,21 @@ inline EncodeTiled encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map of `rank` dimensions and element type `type`, innermost
-// first: dims[i] elements, strides[i] bytes between consecutive indices of
-// dimension i + 1, a box of box[i] elements, swizzled in rows of `swizzle`
-// bytes (128 or 64; the box's inner extent is one such row).  Elements
-// outside the tensor read as zero.  Returns a cudaError_t value.
+// A tensor map of `rank` (1 to 5) dimensions and element type `type`,
+// innermost first: dims[i] elements, strides[i] bytes between consecutive
+// indices of dimension i + 1, a box of box[i] elements, swizzled in rows
+// of `swizzle` bytes (128 or 64; the box's inner extent is one such row),
+// or not swizzled (0).  Elements outside the tensor read as zero.
+// Returns a cudaError_t value.
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
                       const void* base, int rank, const uint64_t* dims,
                       const uint64_t* strides, const uint32_t* box,
                       int swizzle) {
   EncodeTiled fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  cuuint64_t d[3], s[2];
-  cuuint32_t b[3], e[3] = {1, 1, 1};
+  if (rank < 1 || rank > 5) return static_cast<int>(cudaErrorInvalidValue);
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], e[5] = {1, 1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
@@ -64,7 +66,9 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
   const CUresult r = fn(
       map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d,
       s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -143,6 +147,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -162,6 +175,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 2^x on the SFU (MUFU.EX2), subnormal results flushed to zero; -inf
+// gives 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // wgmma matrix descriptor of a tile in shared memory swizzled in rows of

@@ -24,8 +24,9 @@ fp32 activations, int8 operands:
 and the flash attention of the discrete attention path, forward and
 backward (ops/flash_attention.py holds their plain versions):
 
-- ``flash_attention_fwd``  csrc/flash_attention_fwd.cu
-- ``flash_attention_bwd``  csrc/flash_attention_bwd.cu
+- ``flash_attention_fwd``  csrc/flash_attention_fwd_wgmma.cu (wgmma, TMA)
+- ``flash_attention_bwd``  csrc/flash_attention_bwd_wgmma.cu (wgmma, TMA;
+                           what both share in csrc/flash_wgmma.cuh)
 
 and those of the stateless float formats (FP16_16, FP16_32, TF32): the
 qtorch fake-quant K11 and the block halves with ``qspec = (exp_bits,
@@ -166,6 +167,15 @@ SM_SHARED_BYTES = 233472
 CTA_RESERVED_BYTES = 1024
 TILE_ALIGN_BYTES = 1024
 F32_CORE_MAX_N = 256
+# the flash kernels (csrc/flash_wgmma.cuh): a CTA's own query or key rows
+# and threads (two consumer warpgroups and a producer), the forward's KV
+# tile and ring stages, the backward's walked tile and ring stages
+FLASH_ROWS = 128
+FLASH_THREADS = 384
+FLASH_FWD_TILE = 128
+FLASH_FWD_STAGES = 3
+FLASH_BWD_TILE = 64
+FLASH_BWD_STAGES = 4
 
 
 def reset_launches() -> None:
@@ -778,6 +788,72 @@ def attention_core_f32_plan(n, d):
     }
 
 
+def flash_plan(n, d):
+    """How ``flash_attention_fwd`` and ``flash_attention_bwd`` cover one
+    (image, head) of ``n`` tokens (n_valid = n) at head width ``d`` (32 or
+    64): {"fwd": figures, "dkdv": figures, "dq": figures, "launches":
+    {"fwd": 1, "bwd": 3}}.  Each kernel's figures: "grid" (its CTAs per
+    (image, head): tiles of :data:`FLASH_ROWS` queries, or keys for dk /
+    dv; the grid's second axis is the B H images and heads), "rows" (a
+    CTA's own rows), "tile" (the rows of a tile it walks: keys, or
+    queries for dk / dv), "walk" (the tiles it walks), "threads",
+    "stages" (the ring's tiles), "smem" (dynamic shared memory bytes) and
+    "ctas_per_sm" (their registers keep one CTA an SM).  The forward holds
+    its Q tile and a ring of K and V tiles and the ring's barriers; dk /
+    dv its K and V and a ring of q and do tiles with their LSE and dsum
+    (each stage padded to 1024 bytes); dq its q and do and a ring of K and
+    V tiles.  The backward's third launch, the dsum pre-pass, takes no
+    shared memory."""
+    if n < 1 or d not in (32, 64):
+        raise ValueError(f"flash_plan: n={n}, d={d}")
+    row = 2 * d  # bytes of a q, k, v or do row
+    own = FLASH_ROWS * row
+    tile = FLASH_BWD_TILE * row
+    stages = FLASH_BWD_STAGES
+
+    def kernel(walked, n_stages, smem):
+        return {"grid": math.ceil(n / FLASH_ROWS), "rows": FLASH_ROWS,
+                "tile": walked, "walk": math.ceil(n / walked),
+                "threads": FLASH_THREADS, "stages": n_stages, "smem": smem,
+                "ctas_per_sm": 1}
+
+    return {
+        "fwd": kernel(FLASH_FWD_TILE, FLASH_FWD_STAGES,
+                      TILE_ALIGN_BYTES + own
+                      + 2 * FLASH_FWD_STAGES * FLASH_FWD_TILE * row
+                      + 8 * (1 + 4 * FLASH_FWD_STAGES)),
+        "dkdv": kernel(FLASH_BWD_TILE, stages,
+                       TILE_ALIGN_BYTES + 2 * own
+                       + stages * (2 * tile + 1024) + 8 * (1 + 2 * stages)),
+        "dq": kernel(FLASH_BWD_TILE, stages,
+                     TILE_ALIGN_BYTES + 2 * own + stages * 2 * tile
+                     + 8 * (1 + 2 * stages)),
+        "launches": {"fwd": 1, "bwd": 3},
+    }
+
+
+def flash_launch(n, d):
+    """The launch figures that the flash kernels report for ``n`` tokens
+    at head width ``d``, in the form of :func:`flash_plan` without "walk"
+    ("ctas_per_sm" the runtime's occupancy of the compiled kernel)."""
+    from myrtle_vision_tpu_torch.ops import _build
+
+    lib = _lib()
+    keys = ("grid", "rows", "tile", "threads", "stages", "smem",
+            "ctas_per_sm")
+    f = (ctypes.c_int * 7)()
+    _build.check(lib.mvt_flash_attention_fwd_plan(n, d, f),
+                 "flash_launch[fwd]")
+    figures = {"fwd": dict(zip(keys, f))}
+    b = (ctypes.c_int * 15)()
+    _build.check(lib.mvt_flash_attention_bwd_plan(n, d, b),
+                 "flash_launch[bwd]")
+    figures["dkdv"] = dict(zip(keys, b[:7]))
+    figures["dq"] = dict(zip(keys, b[7:14]))
+    figures["launches"] = {"fwd": 1, "bwd": b[14]}
+    return figures
+
+
 def gemm_s8_plan(m, n, k):
     """How gemm_s8_epilogue covers an (M, N) output: {"tile": (rows,
     cols), "k_split": K (never split), "steps": K steps of
@@ -1368,7 +1444,8 @@ def flash_attention_fwd_cuda(q, k, v, scale, n_valid=None, lse=False):
     storage (so the heads' concatenation is a view too), and with ``lse``
     the fp32 (B, H, N) log-sum-exp.  q, k and v share one set of strides
     with the last dimension contiguous, e.g. the (B, H, N, D) views of
-    the fused (B, N, 3C) qkv rows, read in place; D must be 32 or 64."""
+    the fused (B, N, 3C) qkv rows, read in place by TMA; D must be 32 or
+    64 (csrc/flash_attention_fwd_wgmma.cu, :func:`flash_plan`)."""
     if not q.shape == k.shape == v.shape or q.dim() != 4:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -1397,7 +1474,8 @@ def flash_attention_fwd_cuda(q, k, v, scale, n_valid=None, lse=False):
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, scale, n_valid=None):
     """The backward of :func:`flash_attention_fwd_cuda`
-    (csrc/flash_attention_bwd.cu, three launches): bf16 (B, H, N, D) q, k,
+    (csrc/flash_attention_bwd_wgmma.cu, three launches: the dsum pre-pass,
+    dk / dv, dq; :func:`flash_plan`): bf16 (B, H, N, D) q, k,
     v with the forward's strides, its output o, the output gradient do
     (each with rows contiguous and 16-byte aligned, strides of their own)
     and its fp32 (B, H, N) LSE -> bf16 (dq, dk, dv), (B, H, N, D) views of
@@ -1418,13 +1496,16 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, scale, n_valid=None):
     if not 1 <= n_valid <= n:
         raise ValueError(f"flash_attention_bwd: n_valid {n_valid} of {n}")
     _require_shape(lse, "lse", (b, h, n))
-    dsum = torch.empty_like(lse)
+    # the pre-pass's rows: LSE log2(e) and dsum, n padded to the tile
+    n_pad = math.ceil(n / FLASH_BWD_TILE) * FLASH_BWD_TILE
+    stats = torch.empty(2 * b * h * n_pad, dtype=torch.float32,
+                        device=q.device)
     grads = [torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
              for _ in range(3)]
     launched = ctypes.c_int(0)
     _launch("flash_attention_bwd", _lib().mvt_flash_attention_bwd, q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
             *(g.data_ptr() for g in grads), *q.stride()[:3],
             *o.stride()[:3], *do.stride()[:3], n * h * d, d, h * d, b, h, n,
             d, n_valid, float(scale), ctypes.addressof(launched),

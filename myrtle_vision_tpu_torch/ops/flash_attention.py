@@ -10,11 +10,12 @@ over KV tiles that also emits the LSE for the backward); and their
 backwards, ``_bwd_kernel`` (K8, ``_flash_backward``) and
 ``_blk_bwd_kernel`` (K7, ``_blocked_backward``), which the custom VJP
 ``_fa_bwd`` picks by the same regime.  On the H100 one CUDA kernel
-computes both forwards (csrc/flash_attention_fwd.cu, csrc/flash_tiles.cuh):
-64-query blocks, 64-key tiles double-buffered in shared memory, both
-products on the tensor cores, the softmax state in registers; and one
-CUDA backward both backwards (csrc/flash_attention_bwd.cu,
-csrc/flash_bwd_tiles.cuh).
+computes both forwards (csrc/flash_attention_fwd_wgmma.cu): 128-query
+CTAs of two consumer warpgroups and a TMA producer, a ring of 128-key K
+and V tiles, both products on wgmma, the softmax state in registers and
+one tile's softmax under the next tile's products; and one CUDA backward
+both backwards (csrc/flash_attention_bwd_wgmma.cu: a dsum pre-pass, a
+dk / dv kernel walking query tiles, a dq kernel walking key tiles).
 
 The plain version follows the JAX function regime by regime, so that the
 CPU tests hold it against the JAX kernels in interpret mode:
@@ -25,7 +26,7 @@ CPU tests hold it against the JAX kernels in interpret mode:
   exp(s - running max), bf16(e) . v accumulated in fp32 with the running
   rescale, / l at the end.
 
-The kernel rounds as K6 does, with 64-key tiles.  In the K5 regime it
+The kernel rounds as K6 does, with 128-key tiles.  In the K5 regime it
 therefore rounds e where K5 rounds p, and in both its tile boundaries
 differ from the plain version's, which moves an output element by about
 2^-9 of itself (one rounding of a bf16 probability, averaged over the

@@ -19,6 +19,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# exponentials per second on the SFUs (MUFU.EX2): 16 a clock on each of
+# the 132 SMs at the 1,980 MHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def power_line() -> str:
@@ -55,36 +58,67 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+# the marker kernels that pad each profile: torch.cuda._sleep's spin kernel
+_MARK = "spin_kernel"
+_PAD = 64
+
+
+def _kernel_name(name):
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].removeprefix("void ")
+
+
 def kernel_device_ms(fn, iters=20, tries=3):
-    """(device ms per call of ``fn``, {kernel name: device ms per call}),
-    from the profiler's CUDA kernel records over ``iters`` calls after a
-    warm-up call.  A profile counts only when it holds every call's
-    records: each kernel's records a whole multiple of ``iters`` (a
-    session can come back with none, or with some dropped, which would
-    read as a shorter time); (None, {}) when ``tries`` profiles in a row
-    fall short (the time is then not measured, never 0).  For a call so
-    short that the wrapper's host cost sets the pace of back-to-back
-    calls, :func:`cuda_ms` times that host cost and this the kernels."""
+    """(device ms per call of ``fn``, {kernel name: device ms per call},
+    why it is not measured or ""), from the profiler's CUDA kernel
+    records over ``iters`` calls after a warm-up call.  After a long
+    profile earlier in the process a profile can lose kernel records at
+    one end, so the calls run between 64 marker kernels
+    (``torch.cuda._sleep``) on each side, the profile records the host's
+    side too (which the device times ignore), and a profile counts only
+    when markers survive on both sides of the calls' records and each
+    kernel's records are a whole multiple of ``iters``: the loss would
+    read as a shorter time.  With CUDA activity alone, or without the
+    markers, such profiles were seen to come back short
+    (tools/perf/profile_records_probe.py).  (None, {}, what each profile
+    held) when ``tries`` profiles in a row fall short: the time is then
+    not measured, never 0.  For a call so short that the wrapper's host
+    cost sets the pace of back-to-back calls, :func:`cuda_ms` times that
+    host cost and this the kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    misses = []
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(_PAD):
+                torch.cuda._sleep(1)
             for _ in range(iters):
                 fn()
+            for _ in range(_PAD):
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
+        spans = sorted(
+            (e.time_range.start, e.time_range.end, _kernel_name(e.name))
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        own = [i for i, sp in enumerate(spans) if _MARK not in sp[2]]
+        if not own or own[0] == 0 or own[-1] == len(spans) - 1:
+            misses.append(f"{len(spans)} records, {len(own)} of the calls, "
+                          "no marker on one side")
+            continue
         by_name, count = {}, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                span = (e.time_range.end - e.time_range.start) / 1e3 / iters
-                name = e.name.replace("(anonymous namespace)::", "")
-                name = name.split("(")[0].removeprefix("void ")
-                by_name[name] = by_name.get(name, 0.0) + span
-                count[name] = count.get(name, 0) + 1
-        if by_name and all(c % iters == 0 for c in count.values()):
-            return sum(by_name.values()), by_name
-    return None, {}
+        for i in own:
+            start, end, name = spans[i]
+            by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3 / iters
+            count[name] = count.get(name, 0) + 1
+        if all(c % iters == 0 for c in count.values()):
+            return sum(by_name.values()), by_name, ""
+        misses.append("records " + ", ".join(
+            f"{n} x{c}" for n, c in sorted(count.items())))
+    return None, {}, "; ".join(misses)
 
 
 def time_ms(fn, device, iters=20, warmup=3):

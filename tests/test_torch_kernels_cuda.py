@@ -640,6 +640,113 @@ def test_flash_attention_backward_matches_plain(dev, b, h, n, d, n_valid):
             assert not g[:, :, n_valid:].any()
 
 
+# the wgmma flash kernels' tile edges (128-row CTAs, 128-key forward tiles,
+# 64-row backward tiles): both head widths, 2 and 6 heads, every key valid
+# or the last third masked, q, k and v the in-place (B, H, N, D) views of
+# fused (B, N, 3 H D) qkv rows, as the discrete Block hands them over
+FLASH_EDGE_N = [1, 63, 64, 65, 127, 128, 129, 1125, 1536, 1537, 2601]
+FLASH_BWD_EDGE_N = [1, 65, 129, 726, 1470, 1545, 2495]
+
+
+def qkv_views(b, n, h, d, seed, dev):
+    """q, k, v: views of fused bf16 qkv rows, std 1, from a seed."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    rows = torch.randn(b, n, 3 * h * d, device=dev, generator=gen).to(
+        torch.bfloat16)
+    return rows.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+
+
+def edge_n_valid(n, masked):
+    return max(1, n - n // 3) if masked else None
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("h", [2, 6])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", FLASH_EDGE_N)
+def test_wgmma_flash_forward_tile_edges(dev, n, d, h, masked):
+    """Output and LSE against the plain version in its regime under the
+    one-kernel bar; one launch a call."""
+    q, k, v = qkv_views(2, n, h, d, n * d + h, dev)
+    n_valid = edge_n_valid(n, masked)
+    before = K.LAUNCHES["flash_attention_fwd"]
+    got = K.flash_attention_fwd_cuda(q, k, v, d ** -0.5, n_valid, lse=True)
+    assert K.LAUNCHES["flash_attention_fwd"] == before + 1
+    ref = flash_attention_plain(q, k, v, d ** -0.5, n_valid, lse=True)
+    close(got[0], ref[0])
+    close(got[1], ref[1])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("h", [2, 6])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", FLASH_BWD_EDGE_N)
+def test_wgmma_flash_backward_tile_edges(dev, n, d, h, masked):
+    """The backward kernel against the plain backward in its regime, both
+    from the kernel forward's residuals (o and the LSE; the forward is
+    held by the test above): dq under the chain bar, dk and dv under the
+    sum bar, zero rows past n_valid; three launches a call.  o is the
+    forward's (B, N, H, D)-storage view, do a contiguous tensor: both read
+    through strides of their own.  (Each backward from its own forward,
+    as test_flash_attention_backward_matches_plain holds it, carries the
+    forward's roundings into dsum: at N 65, D 64, 6 heads one dk element
+    then passes the sum bar, with this kernel and with the mma.sync
+    kernel it replaced alike.)"""
+    q, k, v = qkv_views(2, n, h, d, n * d + h + 1, dev)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        dev).manual_seed(n + 3)).to(torch.bfloat16)
+    n_valid, sc = edge_n_valid(n, masked), d ** -0.5
+    o, lse = K.flash_attention_fwd_cuda(q, k, v, sc, n_valid, lse=True)
+    before = K.LAUNCHES["flash_attention_bwd"]
+    got = K.flash_attention_bwd_cuda(q, k, v, o, do, lse, sc, n_valid)
+    assert K.LAUNCHES["flash_attention_bwd"] == before + 3
+    ref = flash_attention_bwd_plain(q, k, v, o, do, lse, sc, n_valid)
+    close(got[0], ref[0], CHAIN_ATOL)
+    for g, r in zip(got[1:], ref[1:]):
+        close(g, r, SUM_ATOL * max(1.0, float(r.float().abs().max())))
+    if n_valid is not None:
+        for g in got:
+            assert not g[:, :, n_valid:].any()
+
+
+def test_wgmma_flash_forward_is_deterministic(dev):
+    """Two launches on the same inputs give the same bits."""
+    q, k, v = qkv_views(2, 1545, 6, 64, 11, dev)
+    first = K.flash_attention_fwd_cuda(q, k, v, 0.125, 1500, lse=True)
+    again = K.flash_attention_fwd_cuda(q, k, v, 0.125, 1500, lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0])
+    assert torch.equal(first[1], again[1])
+
+
+def test_wgmma_flash_backward_is_deterministic(dev):
+    """No atomics and a fixed summation order: two launches give the same
+    bits."""
+    q, k, v = qkv_views(2, 1545, 6, 64, 12, dev)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        dev).manual_seed(13)).to(torch.bfloat16)
+    o, lse = K.flash_attention_fwd_cuda(q, k, v, 0.125, 1500, lse=True)
+    first = K.flash_attention_bwd_cuda(q, k, v, o, do, lse, 0.125, 1500)
+    again = K.flash_attention_bwd_cuda(q, k, v, o, do, lse, 0.125, 1500)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_launches_match_the_plan(dev):
+    """The kernels' own figures (grid, rows, tiles, threads, stages,
+    shared memory, and the runtime's occupancy of the compiled kernels)
+    and launches against flash_plan."""
+    for n in (1, 63, 128, 129, 1125, 1545, 2601, 4096):
+        for d in (32, 64):
+            plan = K.flash_plan(n, d)
+            got = K.flash_launch(n, d)
+            for key in ("fwd", "dkdv", "dq"):
+                want = {f: v for f, v in plan[key].items() if f != "walk"}
+                assert got[key] == want, (n, d, key)
+            assert got["launches"] == plan["launches"]
+
+
 def test_flash_gradient_through_the_qkv_rows(dev):
     """The autograd node on the card: gradients of the (B, H, N, D) views
     of fused qkv rows, as the discrete Block takes them, from a sum (an
