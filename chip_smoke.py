@@ -421,6 +421,9 @@ FLASH_BWD_CASES = [(2, 6, 726, 64, None, "K8 regime, 400 px"),
 # the fused attention backward above 256 tokens: YOLOS-S training at 256
 # and 384 px, both under the fused gate
 LONG_BWD_N = (357, 677)
+# the fused core's kernels, whose long route above 256 tokens the kernels
+# line lists case by case
+LONG_KERNELS = ("attention_core", "attention_core_bwd")
 # detection training (phase 8): images of the train split per epoch, and
 # the canvases forced for the first-step check, one per backward regime
 DET_TRAIN_SUBSET = 32
@@ -701,6 +704,14 @@ def kernel_cases(x, attn, mlp, do, heads=HEADS):
          ("kernel", "kernel", "kernel"), 1,
          cost(nbytes(qkv3) * 4 // 3 + stats, core_ops, "bf16",
               lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))),
+        # the long route (one kernel) forced at this N, timed beside
+        ("attention_core[KV-tiled]",
+         lambda: K.attention_core_cuda(qkv3, heads, scale, stats=True,
+                                       tiled=True),
+         lambda: K.attention_core_plain(qkv3, heads, scale, stats=True),
+         ("kernel", "kernel", "kernel"), 0,
+         cost(nbytes(qkv3) * 4 // 3 + stats, core_ops, "bf16",
+              lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))),
         # backward
         mm("d_o=do.Wp^T,f32", (do2, wp.t(), None, "f32"), ("kernel",), 1),
         mm("d_o=do.Wp^T,f32, other layout", (do2, wp_o.t(), None, "f32"),
@@ -711,7 +722,7 @@ def kernel_cases(x, attn, mlp, do, heads=HEADS):
          lambda: K.attention_core_bwd_plain(qkv3, d_o.view(b, n, c), m, rs,
                                             heads, scale),
          ("chain", "psum"), 1, core_bwd_cost),
-        # the KV-tiled route (four kernels) forced at this N, timed beside
+        # the long route (four kernels) forced at this N, timed beside
         ("attention_core_bwd[KV-tiled]",
          lambda: K.attention_core_bwd_cuda(qkv3, d_o.view(b, n, c), m, rs,
                                            heads, scale, tiled=True),
@@ -3761,10 +3772,13 @@ def time_detection_train(totals, device, power):
     shapes (batch 8), beside its plain version, its bound and PyTorch's
     flash-attention backward on the same inputs; the K7 shape (608 px)
     goes into the kernels line, once per block.  The long attention core
-    backward at N=677 (384 px, batch 8).  Then the YOLOS-S train step
+    forward (with SDPA's forward) and backward at N=677 (384 px), batch
+    8 and the train step's micro-batch of 2.  Then the YOLOS-S train step
     (forward, backward with the host matcher, AdamW) at the config's 2
     micro-batches of 2, at 608 and 384 px, kernel path against plain
     path."""
+    import torch.nn.functional as F
+
     from myrtle_vision_tpu_torch.models.detector import (
         build_weight_dict,
         criterion,
@@ -3806,26 +3820,48 @@ def time_detection_train(totals, device, power):
         exp_floor(f"flash_attention_bwd[{tag}]", 2 * b * h * n * n, power)
         del q, k, v, do, o, lse, o_p, lse_p
 
-    b, n = 8, 677
-    x, attn, _, do = block_inputs(b, n, seed=8677, device=device)
-    _, m, rs, qkv = fa._forward(K.PLAIN, x, *attn, HEADS, SCALE,
-                                record=True)[1]
-    d_o = K.gemm_bf16_epilogue_plain(do.view(-1, C),
-                                     attn[4].to(torch.bfloat16).t(), None,
-                                     "f32").view(b, n, C)
-    q, k, v = heads_of(qkv)
-    dbq = torch.empty(b, 3 * C, device=device)
-    c = cost(2 * nbytes(qkv) + nbytes(d_o, m, rs, dbq),
-             10 * b * HEADS * n * n * (C // HEADS), "bf16",
-             sdpa_backward(q, k, v, heads_of(torch.cat([d_o.to(
-                 torch.bfloat16)] * 3, -1))[0], SCALE))
-    time_case(totals, "attention_core_bwd[KV-tiled, 384 px]",
-              lambda: K.attention_core_bwd_cuda(qkv, d_o, m, rs, HEADS,
-                                                SCALE),
-              lambda: K.attention_core_bwd_plain(qkv, d_o, m, rs, HEADS,
-                                                 SCALE),
-              0, c, power, f"B={b} N={n}")
-    del x, attn, do, m, rs, qkv, d_o, q, k, v
+    # the fused core's long route (csrc/attention_core_long_wgmma.cu,
+    # csrc/attention_core_bwd_long_wgmma.cu) at YOLOS-S's 384 px shape, at
+    # batch 8 and at the train step's micro-batch of 2, each beside SDPA
+    for b in (8, 2):
+        n = 677
+        x, attn, _, do = block_inputs(b, n, seed=8677, device=device)
+        _, m, rs, qkv = fa._forward(K.PLAIN, x, *attn, HEADS, SCALE,
+                                    record=True)[1]
+        d_o = K.gemm_bf16_epilogue_plain(do.view(-1, C),
+                                         attn[4].to(torch.bfloat16).t(), None,
+                                         "f32").view(b, n, C)
+        q, k, v = heads_of(qkv)
+        dbq = torch.empty(b, 3 * C, device=device)
+        tag = f"KV-tiled, 384 px{', B=2' if b == 2 else ''}"
+        # reads the qkv rows, writes the context and both statistics; two
+        # products of 2 N^2 D per (image, head)
+        c = cost(nbytes(qkv) * 4 // 3 + 2 * nbytes(m),
+                 4 * b * HEADS * n * n * (C // HEADS), "bf16",
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        scale=SCALE))
+        time_case(totals, f"attention_core[{tag}]",
+                  lambda: K.attention_core_cuda(qkv, HEADS, SCALE,
+                                                stats=True),
+                  lambda: K.attention_core_plain(qkv, HEADS, SCALE,
+                                                 stats=True),
+                  0, c, power, f"B={b} N={n}")
+        exp_floor(f"attention_core[{tag}]", b * HEADS * n * n, power)
+        c = cost(2 * nbytes(qkv) + nbytes(d_o, m, rs, dbq),
+                 10 * b * HEADS * n * n * (C // HEADS), "bf16",
+                 sdpa_backward(q, k, v, heads_of(torch.cat([d_o.to(
+                     torch.bfloat16)] * 3, -1))[0], SCALE))
+        time_case(totals, f"attention_core_bwd[{tag}]",
+                  lambda: K.attention_core_bwd_cuda(qkv, d_o, m, rs, HEADS,
+                                                    SCALE),
+                  lambda: K.attention_core_bwd_plain(qkv, d_o, m, rs, HEADS,
+                                                     SCALE),
+                  0, c, power, f"B={b} N={n}")
+        # e recomputed in both walks of the dq kernel and in the dk / dv
+        # kernel
+        exp_floor(f"attention_core_bwd[{tag}]", 3 * b * HEADS * n * n,
+                  power)
+        del x, attn, do, m, rs, qkv, d_o, q, k, v
 
     tc = yolos_small_config()["train_config"]
     n_classes = 20
@@ -3870,17 +3906,18 @@ def time_detection_train(totals, device, power):
               f"[{power}]")
         line = device_profile(
             lambda: steps[0](state, batch, tc["lr"]),
-            # the flash op's wgmma kernels, and the flash-tile kernels of
+            # the flash op's wgmma kernels, and the long-route kernels of
             # the fused attention core above 256 tokens (forward and
             # backward)
             {"flash forward": ("flash_fwd_wgmma_kernel",),
              "flash backward": ("flash_bwd_dsum_kernel",
                                 "flash_bwd_dkdv_wgmma_kernel",
                                 "flash_bwd_dq_wgmma_kernel"),
-             "flash-tile forward": ("flash_fwd_kernel",),
-             "flash-tile backward": ("flash_bwd_dq_kernel",
-                                     "flash_bwd_dkdv_kernel", "core_bwd_du",
-                                     "core_bwd_colsum"),
+             "long core forward": ("attention_core_long_kernel",),
+             "long core backward": ("core_long_prep_kernel",
+                                    "core_long_dq_kernel",
+                                    "core_long_dkdv_kernel",
+                                    "core_long_colsum_kernel"),
              "fused block kernels": ("attention_core_kernel",
                                      "attention_core_bwd_wgmma_kernel",
                                      "layernorm_rows", "gemm_wgmma_kernel",
@@ -4024,9 +4061,11 @@ def main():
             # the profiler's device time of the same launches
             "device_ms": t["device_ms"],
         })
-        if name in DETECT_KERNELS:
+        if name in DETECT_KERNELS + LONG_KERNELS:
             # the flash kernels at both regimes' shapes, each case's own
-            # numbers: the K6 / K7 shapes summed above and the K5 / K8 ones
+            # numbers: the K6 / K7 shapes summed above and the K5 / K8
+            # ones; the fused core's cases: the ViT-S/16 block's, the long
+            # route forced at 197 tokens and at YOLOS-S's 677 (B=8 and 2)
             kernels[-1]["cases"] = t["cases"]
     for name, (source, replaces, tpu) in INT8_QAT_VARIANTS.items():
         t = totals[tpu]

@@ -527,27 +527,27 @@ int launch_n(const void* qkv, const void* d_o, const void* m, const void* rs,
 
 }  // namespace
 
-// the KV-tiled route of attention_core_bwd.cu, any N
+// the long route of attention_core_bwd_long_wgmma.cu, any N
 MVT_EXPORT int mvt_attention_core_bwd_tiled(
     const void* qkv, const void* d_o, const void* m, const void* rs,
-    void* dqkv, void* dbias, void* du, void* rowterm, void* colpart, int B,
+    void* dqkv, void* dbias, void* qd, void* stats, void* colpart, int B,
     int N, int heads, int D, float scale, int* launched, void* stream);
 
 // Up to kMaxN tokens one launch of the kernel above (the scratch pointers
-// unused), above it the KV-tiled route: du (B, N, C) bf16, rowterm (B,
-// heads, N) fp32, colpart (B, ceil(N / 64), 3C) fp32.  *launched receives
-// the kernels launched: 1 up to kMaxN, else 4.  qkv 16-byte aligned (the
-// tensor map's base), d_o too (16-byte loads).
+// unused), above it the long route, with its scratch (qs and du, the row
+// statistics, the column partials: mvt_attention_core_bwd_tiled).
+// *launched receives the kernels launched: 1 up to kMaxN, else 4.  qkv
+// 16-byte aligned (the tensor map's base), d_o too (16-byte loads).
 MVT_EXPORT int mvt_attention_core_bwd(const void* qkv, const void* d_o,
                                       const void* m, const void* rs,
-                                      void* dqkv, void* dbias, void* du,
-                                      void* rowterm, void* colpart, int B,
+                                      void* dqkv, void* dbias, void* qd,
+                                      void* stats, void* colpart, int B,
                                       int N, int heads, int D, float scale,
                                       int* launched, void* stream) {
   *launched = 0;
   if (N > kMaxN)
-    return mvt_attention_core_bwd_tiled(qkv, d_o, m, rs, dqkv, dbias, du,
-                                        rowterm, colpart, B, N, heads, D,
+    return mvt_attention_core_bwd_tiled(qkv, d_o, m, rs, dqkv, dbias, qd,
+                                        stats, colpart, B, N, heads, D,
                                         scale, launched, stream);
   if (B <= 0 || heads <= 0 || N <= 0 ||
       static_cast<long long>(B) * heads > 65535 ||

@@ -13,7 +13,7 @@
 //   out = bf16(u * (1 / rowsum(e)))   rowsum over the fp32 e, exact divide
 // When the op records for the backward, the rowmax and the reciprocal
 // rowsum of every row also go out, (B, H, N) fp32 each (`_fwd_kernel`'s
-// `save_stats` outputs, which attention_core_bwd.cu reads).
+// `save_stats` outputs, which the backward reads).
 //
 // What bounds it: at ViT-S/16 (B = 256, N = 197, 6 heads of 64) the two
 // products are 15.3 GFLOP (0.015 ms of bf16 tensor-core time) and the qkv
@@ -49,14 +49,12 @@
 //
 // Longer sequences (the fused block runs up to the `fuses_at` gate of
 // myrtle_vision_tpu/ops/fused_attention_block.py, 701 tokens at 6 heads of
-// 64, e.g. YOLOS-S at 384 px with 677) take the KV-tiled kernel of
-// flash_tiles.cuh: the same conventions (bf16(q * scale),
-// e . V, then x reciprocal rowsum, the saved rowmax and reciprocal rowsum)
-// with an online softmax over 64-key tiles, so e is rounded to bf16 against
-// the running rowmax of its tile, not the final one (about 2^-9 of an
-// output).  It reads the (B, H, N, D) view of the qkv rows in place.
+// 64, e.g. YOLOS-S at 384 px with 677) take attention_core_long_wgmma.cu:
+// the same conventions (bf16(q * scale), e . V, then x reciprocal rowsum,
+// the saved rowmax and reciprocal rowsum) with an online softmax over
+// 128-key tiles fed by TMA, so e is rounded to bf16 against the running
+// rowmax of its tile, not the final one (about 2^-9 of an output).
 #include "common.cuh"
-#include "flash_tiles.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -288,8 +286,13 @@ int launch_n(const void* qkv, void* out, void* m, void* rs, int B, int N,
 // the longest sequence of the one-CTA kernel (and of the backward)
 MVT_EXPORT int mvt_attention_core_max_n() { return kMaxN; }
 
+// the long route of attention_core_long_wgmma.cu, any N
+MVT_EXPORT int mvt_attention_core_long(const void* qkv, void* out, void* m,
+                                       void* rs, int B, int N, int heads,
+                                       int D, float scale, void* stream);
+
 // m and rs: (B, heads, N) fp32 rowmax and reciprocal rowsum, both null or
-// both set; N above kMaxN takes the KV-tiled kernel.  qkv 16-byte aligned
+// both set; N above kMaxN takes the long route.  qkv 16-byte aligned
 // (the tensor map's base).
 MVT_EXPORT int mvt_attention_core(const void* qkv, void* out, void* m,
                                   void* rs, int B, int N, int heads, int D,
@@ -299,30 +302,10 @@ MVT_EXPORT int mvt_attention_core(const void* qkv, void* out, void* m,
       (m == nullptr) != (rs == nullptr) ||
       reinterpret_cast<uintptr_t>(qkv) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (N > kMaxN)
+    return mvt_attention_core_long(qkv, out, m, rs, B, N, heads, D, scale,
+                                   stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N > kMaxN) {
-    const int C = heads * D;
-    mvt::flash::Params p;
-    p.q = static_cast<const mvt::bf16*>(qkv);
-    p.k = p.q + C;
-    p.v = p.q + 2 * C;
-    p.o = static_cast<mvt::bf16*>(out);
-    p.stat0 = static_cast<float*>(m);
-    p.stat1 = static_cast<float*>(rs);
-    p.in_image = static_cast<long long>(N) * 3 * C;
-    p.in_head = D;
-    p.in_row = 3 * C;
-    p.out_image = static_cast<long long>(N) * C;
-    p.out_head = D;
-    p.out_row = C;
-    p.heads = heads;
-    p.n = N;
-    p.n_valid = N;
-    p.scale = scale;
-    if (D == 64) return mvt::flash::launch<64>(p, B, s);
-    if (D == 32) return mvt::flash::launch<32>(p, B, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   if (D == 64) return launch_n<64>(qkv, out, m, rs, B, N, heads, scale, s);
   if (D == 32) return launch_n<32>(qkv, out, m, rs, B, N, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);

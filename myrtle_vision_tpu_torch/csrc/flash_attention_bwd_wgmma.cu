@@ -135,42 +135,6 @@ __device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
   }
 }
 
-// x[4 j + e] (a 64 x 64 accumulator tile) as the A fragments of the
-// 16-deep steps of the next product: step kt holds blocks 2 kt, 2 kt + 1
-__device__ __forceinline__ void pack_frags(const float (&x)[fw::kBwdTile / 2],
-                                           uint32_t (&f)[fw::kBwdTile / 16]
-                                                        [4]) {
-#pragma unroll
-  for (int kt = 0; kt < fw::kBwdTile / 16; ++kt) {
-    f[kt][0] = sm::pack_bf16(x[8 * kt], x[8 * kt + 1]);
-    f[kt][1] = sm::pack_bf16(x[8 * kt + 2], x[8 * kt + 3]);
-    f[kt][2] = sm::pack_bf16(x[8 * kt + 4], x[8 * kt + 5]);
-    f[kt][3] = sm::pack_bf16(x[8 * kt + 6], x[8 * kt + 7]);
-  }
-}
-
-// x = A B^T and y = C E^T (64 x 64 each, all four K-major 64-row tiles in
-// shared memory), each its own group
-template <int D>
-__device__ __forceinline__ void issue_pair(float (&x)[fw::kBwdTile / 2],
-                                           uint64_t da, uint64_t db,
-                                           float (&y)[fw::kBwdTile / 2],
-                                           uint64_t dc, uint64_t de) {
-  sm::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    sm::WgmmaSS<fw::kBwdTile>::template mma<0, 0>(
-        x, sm::desc_add(da, kk * 32), sm::desc_add(db, kk * 32),
-        kk > 0 ? 1 : 0);
-  sm::wgmma_commit();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    sm::WgmmaSS<fw::kBwdTile>::template mma<0, 0>(
-        y, sm::desc_add(dc, kk * 32), sm::desc_add(de, kk * 32),
-        kk > 0 ? 1 : 0);
-  sm::wgmma_commit();
-}
-
 template <int D>
 __global__ void __launch_bounds__(fw::kThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -258,7 +222,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint64_t dut = sm::rows_desc<D>(st + L::kTile, 0);
       sm::mbar_wait(&full[si], (i / S) & 1);
       // S^T = K q^T, dP^T = V do^T
-      issue_pair<D>(s, dka, dqt, dp, dva, dut);
+      fw::issue_pair<D>(s, dka, dqt, dp, dva, dut);
       sm::wgmma_wait<1>();
       sm::fence_regs(s);
       if (i > 0) fw::release(&empty[(i - 1) % S], lane);
@@ -277,7 +241,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           s[4 * j + e] = v ? x : 0.f;
         }
       }
-      pack_frags(s, pa);
+      fw::pack_frags(s, pa);
       sm::wgmma_wait<0>();
       sm::fence_regs(dp);
 #pragma unroll
@@ -289,7 +253,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           dp[4 * j + e] =
               s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dq2.y : dq2.x));
       }
-      pack_frags(dp, da);
+      fw::pack_frags(dp, da);
       // dV += bf16(P^T) do, dK += bf16(dS^T) q: do and q MN-major
       sm::wgmma_fence();
 #pragma unroll
@@ -411,7 +375,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint64_t dvt = sm::rows_desc<D>(st + L::kTile, 0);
       sm::mbar_wait(&full[sj], (j / S) & 1);
       // S = q K^T, dP = do V^T; the last tile's dQ runs on
-      issue_pair<D>(s, dqa, dkt, dp, dua, dvt);
+      fw::issue_pair<D>(s, dqa, dkt, dp, dua, dvt);
       sm::wgmma_wait<1>();
       sm::fence_regs(s);
       sm::fence_regs(dq);
@@ -435,7 +399,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i)
         dp[i] = s[i] * (dp[i] - dsr[(i >> 1) & 1]);
-      pack_frags(dp, da);
+      fw::pack_frags(dp, da);
       // dQ += bf16(dS) K: K MN-major
       sm::wgmma_fence();
 #pragma unroll
@@ -452,13 +416,6 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const size_t out0 = static_cast<size_t>(b) * a.out_image +
                       static_cast<size_t>(h) * a.out_head;
   store_tile<D>(dq, a.scale, a.dq + out0, ra, a.n, a.out_row, t);
-}
-
-// the 1-D tensor map of `count` fp32 values, boxes of one tile
-inline int encode_stats(CUtensorMap* map, const void* base, long long count) {
-  const uint64_t dims[1] = {static_cast<uint64_t>(count)};
-  const uint32_t box[1] = {fw::kBwdTile};
-  return sm::encode_f32(map, base, 1, dims, nullptr, box, 0);
 }
 
 struct Strides {
@@ -497,8 +454,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err == 0)
     err = fw::encode_rows<D>(&mu, d_o, B, H, n, us.image, us.head, us.row,
                              fw::kBwdTile, &a.u_axes);
-  if (err == 0) err = encode_stats(&ml, stats, rows);
-  if (err == 0) err = encode_stats(&md, stats + rows, rows);
+  if (err == 0) err = fw::encode_stats(&ml, stats, rows);
+  if (err == 0) err = fw::encode_stats(&md, stats + rows, rows);
   if (err != 0) return err;
   const dim3 grid((n + fw::kRowsCta - 1) / fw::kRowsCta, B * H);
   constexpr int smem_kv = fw::DkdvLayout<D>::kBytes;

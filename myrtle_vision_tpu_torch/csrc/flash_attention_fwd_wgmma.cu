@@ -76,81 +76,6 @@ __device__ __forceinline__ void issue_scores(float (&s)[fw::kFwdTile / 2],
   sm::wgmma_commit();
 }
 
-// O += P V over a 128-key tile (V MN-major), issued and committed
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&p)[fw::kFwdTile / 16]
-                                                            [4],
-                                         uint64_t dv) {
-  sm::wgmma_fence();
-#pragma unroll
-  for (int kt = 0; kt < fw::kFwdTile / 16; ++kt)
-    sm::WgmmaRS<D>::template mma<1>(o, p[kt],
-                                    sm::desc_add(dv, kt * 16 * 2 * D), 1);
-  sm::wgmma_commit();
-}
-
-// The online softmax of one tile's scores (s[4 j + e]: row ra for e < 2,
-// else rb; key col0 + 8 j + 2 t + (e % 2)): keys at or past n_valid
-// masked when the tile reaches them, the running maxima m (raw scores),
-// the factors a of the old state, e in place of s, the thread's partial
-// row sums l.
-__device__ __forceinline__ void softmax_tile(float (&s)[fw::kFwdTile / 2],
-                                             float (&m)[2], float (&a)[2],
-                                             float (&l)[2], float c,
-                                             int col0, int n_valid, int t) {
-  constexpr int kN = fw::kFwdTile;
-  if (col0 + kN > n_valid) {
-#pragma unroll
-    for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (col0 + 8 * j + 2 * t + (e & 1) >= n_valid)
-          s[4 * j + e] = mvt::neg_inf();
-  }
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int j = 0; j < kN / 8; ++j) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
-  }
-  float mc[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    // the first tile holds key 0 < n_valid, so mx is finite from it on;
-    // before it m = -inf and a = 0 scales an empty state
-    a[i] = sm::exp2_approx((m[i] - mx[i]) * c);
-    m[i] = mx[i];
-    mc[i] = mx[i] * c;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = sm::exp2_approx(fmaf(s[4 * j + e], c, -mc[e >> 1]));
-      s[4 * j + e] = x;
-      sum[e >> 1] += x;
-    }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) l[i] = l[i] * a[i] + sum[i];
-}
-
-// P = bf16(e) as the A fragments of the 16-key steps: step kt holds score
-// blocks 2 kt and 2 kt + 1
-__device__ __forceinline__ void pack_p(const float (&s)[fw::kFwdTile / 2],
-                                       uint32_t (&p)[fw::kFwdTile / 16][4]) {
-#pragma unroll
-  for (int kt = 0; kt < fw::kFwdTile / 16; ++kt) {
-    p[kt][0] = sm::pack_bf16(s[8 * kt], s[8 * kt + 1]);
-    p[kt][1] = sm::pack_bf16(s[8 * kt + 2], s[8 * kt + 3]);
-    p[kt][2] = sm::pack_bf16(s[8 * kt + 4], s[8 * kt + 5]);
-    p[kt][3] = sm::pack_bf16(s[8 * kt + 6], s[8 * kt + 7]);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(fw::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -231,8 +156,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   sm::wgmma_wait<0>();
   sm::fence_regs(s);
   fw::release(&k_empty[0], lane);
-  softmax_tile(s, m, al, l, c, 0, a.n_valid, t);
-  pack_p(s, p);
+  fw::softmax_tile(s, m, al, l, c, 0, a.n_valid, t);
+  fw::pack_p(s, p);
 
   for (int j = 1; j < n_tiles; ++j) {
     const int st = j % S, pv = (j - 1) % S;
@@ -243,24 +168,24 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= al[(i >> 1) & 1];
     sm::mbar_wait(&v_full[pv], ((j - 1) / S) & 1);
-    issue_pv<D>(o, p, sm::rows_desc<D>(Vs + pv * L::kKV, 0));
+    fw::issue_pv<D>(o, p, sm::rows_desc<D>(Vs + pv * L::kKV, 0));
     sm::wgmma_wait<1>();
     sm::fence_regs(s);
     fw::release(&k_empty[st], lane);
-    softmax_tile(s, m, al, l, c, j * BN, a.n_valid, t);
+    fw::softmax_tile(s, m, al, l, c, j * BN, a.n_valid, t);
     sm::wgmma_wait<0>();
     sm::fence_regs(o);
 #pragma unroll
     for (int kt = 0; kt < BN / 16; ++kt) sm::fence_regs(p[kt]);
     fw::release(&v_empty[pv], lane);
-    pack_p(s, p);
+    fw::pack_p(s, p);
   }
   {
     const int last = (n_tiles - 1) % S;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= al[(i >> 1) & 1];
     sm::mbar_wait(&v_full[last], ((n_tiles - 1) / S) & 1);
-    issue_pv<D>(o, p, sm::rows_desc<D>(Vs + last * L::kKV, 0));
+    fw::issue_pv<D>(o, p, sm::rows_desc<D>(Vs + last * L::kKV, 0));
     sm::wgmma_wait<0>();
     sm::fence_regs(o);
 #pragma unroll

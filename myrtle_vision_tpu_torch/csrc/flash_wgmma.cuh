@@ -3,7 +3,8 @@
 // layouts, which `K.flash_plan` (ops/_kernels.py) repeats and a CUDA test
 // holds against `mvt_flash_attention_plan`; the tensor maps of a (B, H,
 // N, D) bf16 view read in place through its element strides; the roles
-// of a CTA.
+// of a CTA; and the steps of a tile that the fused core's kernels above
+// 256 tokens (core_long_wgmma.cuh) share with these.
 //
 // Every kernel here is a CTA of three warpgroups: warpgroup 2 the
 // producer (one thread issues every TMA load; the warpgroup gives its
@@ -149,6 +150,130 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   __syncwarp();
   if (lane == 0) sm::mbar_arrive(bar);
+}
+
+// The forward's steps, which the fused core's long forward shares
+// (attention_core_long_wgmma.cu).
+
+// O += P V over a 128-key tile (V MN-major), issued and committed
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[kFwdTile / 16]
+                                                            [4],
+                                         uint64_t dv) {
+  sm::wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < kFwdTile / 16; ++kt)
+    sm::WgmmaRS<D>::template mma<1>(o, p[kt],
+                                    sm::desc_add(dv, kt * 16 * 2 * D), 1);
+  sm::wgmma_commit();
+}
+
+// The online softmax of one tile's scores (s[4 j + e]: row ra for e < 2,
+// else rb; key col0 + 8 j + 2 t + (e % 2)): keys at or past n_valid
+// masked when the tile reaches them, the running maxima m (in the units
+// of s; c takes s to a base-2 exponent), the factors a of the old state,
+// e in place of s, the thread's partial row sums l.
+__device__ __forceinline__ void softmax_tile(float (&s)[kFwdTile / 2],
+                                             float (&m)[2], float (&a)[2],
+                                             float (&l)[2], float c,
+                                             int col0, int n_valid, int t) {
+  constexpr int kN = kFwdTile;
+  if (col0 + kN > n_valid) {
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col0 + 8 * j + 2 * t + (e & 1) >= n_valid)
+          s[4 * j + e] = mvt::neg_inf();
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float mc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // the first tile holds key 0 < n_valid, so mx is finite from it on;
+    // before it m = -inf and a = 0 scales an empty state
+    a[i] = sm::exp2_approx((m[i] - mx[i]) * c);
+    m[i] = mx[i];
+    mc[i] = mx[i] * c;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = sm::exp2_approx(fmaf(s[4 * j + e], c, -mc[e >> 1]));
+      s[4 * j + e] = x;
+      sum[e >> 1] += x;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * a[i] + sum[i];
+}
+
+// P = bf16(e) as the A fragments of the 16-key steps: step kt holds score
+// blocks 2 kt and 2 kt + 1
+__device__ __forceinline__ void pack_p(const float (&s)[kFwdTile / 2],
+                                       uint32_t (&p)[kFwdTile / 16][4]) {
+#pragma unroll
+  for (int kt = 0; kt < kFwdTile / 16; ++kt) {
+    p[kt][0] = sm::pack_bf16(s[8 * kt], s[8 * kt + 1]);
+    p[kt][1] = sm::pack_bf16(s[8 * kt + 2], s[8 * kt + 3]);
+    p[kt][2] = sm::pack_bf16(s[8 * kt + 4], s[8 * kt + 5]);
+    p[kt][3] = sm::pack_bf16(s[8 * kt + 6], s[8 * kt + 7]);
+  }
+}
+
+// The backward's steps, which the fused core's long backward shares
+// (attention_core_bwd_long_wgmma.cu).
+
+// x[4 j + e] (a 64 x 64 accumulator tile) as the A fragments of the
+// 16-deep steps of the next product: step kt holds blocks 2 kt, 2 kt + 1
+__device__ __forceinline__ void pack_frags(const float (&x)[kBwdTile / 2],
+                                           uint32_t (&f)[kBwdTile / 16]
+                                                        [4]) {
+#pragma unroll
+  for (int kt = 0; kt < kBwdTile / 16; ++kt) {
+    f[kt][0] = sm::pack_bf16(x[8 * kt], x[8 * kt + 1]);
+    f[kt][1] = sm::pack_bf16(x[8 * kt + 2], x[8 * kt + 3]);
+    f[kt][2] = sm::pack_bf16(x[8 * kt + 4], x[8 * kt + 5]);
+    f[kt][3] = sm::pack_bf16(x[8 * kt + 6], x[8 * kt + 7]);
+  }
+}
+
+// x = A B^T and y = C E^T (64 x 64 each, all four K-major 64-row tiles in
+// shared memory), each its own group
+template <int D>
+__device__ __forceinline__ void issue_pair(float (&x)[kBwdTile / 2],
+                                           uint64_t da, uint64_t db,
+                                           float (&y)[kBwdTile / 2],
+                                           uint64_t dc, uint64_t de) {
+  sm::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    sm::WgmmaSS<kBwdTile>::template mma<0, 0>(
+        x, sm::desc_add(da, kk * 32), sm::desc_add(db, kk * 32),
+        kk > 0 ? 1 : 0);
+  sm::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    sm::WgmmaSS<kBwdTile>::template mma<0, 0>(
+        y, sm::desc_add(dc, kk * 32), sm::desc_add(de, kk * 32),
+        kk > 0 ? 1 : 0);
+  sm::wgmma_commit();
+}
+
+// the 1-D tensor map of `count` fp32 values, boxes of one tile
+inline int encode_stats(CUtensorMap* map, const void* base, long long count) {
+  const uint64_t dims[1] = {static_cast<uint64_t>(count)};
+  const uint32_t box[1] = {kBwdTile};
+  return sm::encode_f32(map, base, 1, dims, nullptr, box, 0);
 }
 
 }  // namespace flashw

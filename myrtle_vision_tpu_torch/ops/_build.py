@@ -130,6 +130,8 @@ def lib() -> ctypes.CDLL:
             ("mvt_gemm_bf16_encode_ns", [p, p, i, i, i, i]),
             ("mvt_attention_core", [p, p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_max_n", []),
+            ("mvt_attention_core_long", [p, p, p, p, i, i, i, i, f, p]),
+            ("mvt_attention_core_long_plan", [i, i, p]),
             ("mvt_attention_core_bwd", [p] * 9 + [i, i, i, i, f, p, p]),
             ("mvt_attention_core_bwd_tiled",
              [p] * 9 + [i, i, i, i, f, p, p]),

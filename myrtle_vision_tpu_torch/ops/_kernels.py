@@ -9,8 +9,12 @@ kernel (ops/fused_attention_block.py, ops/fused_mlp.py).  The kernels
 
 - ``layernorm_rows``       csrc/layernorm_rows.cu
 - ``gemm_bf16_epilogue``   csrc/gemm_bf16_wgmma.cu (wgmma, TMA)
-- ``attention_core``       csrc/attention_core_wgmma.cu (wgmma, TMA)
-- ``attention_core_bwd``   csrc/attention_core_bwd.cu
+- ``attention_core``       csrc/attention_core_wgmma.cu (wgmma, TMA); above
+                           256 tokens csrc/attention_core_long_wgmma.cu
+- ``attention_core_bwd``   csrc/attention_core_bwd_wgmma.cu (wgmma, TMA);
+                           above 256 tokens
+                           csrc/attention_core_bwd_long_wgmma.cu (both long
+                           routes' shapes in csrc/core_long_wgmma.cuh)
 - ``layernorm_rows_bwd``   csrc/layernorm_rows_bwd.cu
 - ``colsum_rows``          csrc/layernorm_rows_bwd.cu
 
@@ -176,6 +180,20 @@ FLASH_FWD_TILE = 128
 FLASH_FWD_STAGES = 3
 FLASH_BWD_TILE = 64
 FLASH_BWD_STAGES = 4
+# the fused core above 256 tokens (csrc/core_long_wgmma.cuh): a CTA's own
+# query or key rows, the threads of the forward's CTA (one warpgroup) and
+# of the backward's (a warpgroup and a producer warp), the CTAs an SM
+# their launch bounds count on, the forward's KV tile and ring stages, the
+# backward's walked tile and ring stages, and the backward's kernels a call
+CORE_LONG_ROWS = 64
+CORE_LONG_FWD_THREADS = 128
+CORE_LONG_THREADS = 160
+CORE_LONG_CTAS_PER_SM = 2
+CORE_LONG_FWD_TILE = 128
+CORE_LONG_FWD_STAGES = 3
+CORE_LONG_BWD_TILE = 64
+CORE_LONG_BWD_STAGES = 4
+CORE_LONG_BWD_LAUNCHES = 4
 
 
 def reset_launches() -> None:
@@ -854,6 +872,93 @@ def flash_launch(n, d):
     return figures
 
 
+def core_long_plan(n, d, b=1, heads=1):
+    """How the fused attention core's long route (``attention_core``
+    above :func:`attention_core_max_n`, ``attention_core_bwd`` with
+    ``tiled``) covers ``b`` images of ``heads`` heads of ``n`` tokens at
+    head width ``d`` (32 or 64): {"fwd": figures, "dq": figures, "dkdv":
+    figures, "launches": {"fwd": 1, "bwd": 4}, "n_pad": n rounded up to
+    :data:`CORE_LONG_BWD_TILE`, "scratch": the backward's scratch
+    shapes}.  Each kernel's figures: "grid" (its CTAs per (image, head):
+    tiles of :data:`CORE_LONG_ROWS` queries, or keys for dk / dv; the
+    grid's second axis is the b heads images and heads), "rows" (a CTA's
+    own rows), "tile" (the rows of a tile it walks: keys, or queries for
+    dk / dv), "walk" (the tiles of a pass), "passes" (the dq kernel walks
+    the keys twice: r of every row, then ds and dQ), "threads", "stages"
+    (the ring's tiles), "smem" (dynamic shared memory bytes) and
+    "ctas_per_sm" (what the launch bounds count on).  The forward, one
+    warpgroup whose thread 0 issues its loads, holds a ring of K and V
+    tiles and their full barriers (its q rows live in registers); the
+    backward's kernels add a producer warp; dq holds its qs and
+    du rows and a ring of K and V tiles; dk / dv its K and V and a ring of
+    qs and du tiles with their m log2(e) and r rs (each stage padded to
+    1024 bytes); both backward kernels a column-sum buffer of 4 warps x 3
+    sections x d fp32.  The backward's scratch: "qd" (qs, then du, each
+    (b, n, heads d) bf16), "stats" (m log2(e), then r rs, in rows of
+    n_pad per image and head) and "colpart" (each 64-row tile's column
+    sums, (b, n_pad / 64, 3 heads d)); its other two launches, the prep
+    pass and the column sums, take no shared memory.  64-row CTAs make
+    the YOLOS-S train step's micro-batch (2 images of 6 heads, 677
+    tokens) 132 CTAs, and two CTAs an SM fill the card at batch 8."""
+    if n < 1 or d not in (32, 64) or b < 1 or heads < 1:
+        raise ValueError(f"core_long_plan: n={n}, d={d}, b={b}, "
+                         f"heads={heads}")
+    row = 2 * d  # bytes of a qkv, qs or du row
+    own = CORE_LONG_ROWS * row
+    tile = CORE_LONG_BWD_TILE * row
+    stages = CORE_LONG_BWD_STAGES
+    n_pad = math.ceil(n / CORE_LONG_BWD_TILE) * CORE_LONG_BWD_TILE
+    colbuf = 4 * (4 * 3 * d)  # bytes: 4 warps x 3 sections x d fp32
+
+    def kernel(grid, walked, n_stages, smem, passes=1,
+               threads=CORE_LONG_THREADS):
+        return {"grid": grid, "rows": CORE_LONG_ROWS, "tile": walked,
+                "walk": math.ceil(n / walked), "passes": passes,
+                "threads": threads, "stages": n_stages, "smem": smem,
+                "ctas_per_sm": CORE_LONG_CTAS_PER_SM}
+
+    fwd_stages = CORE_LONG_FWD_STAGES
+    bwd_grid = n_pad // CORE_LONG_ROWS
+    return {
+        "fwd": kernel(math.ceil(n / CORE_LONG_ROWS), CORE_LONG_FWD_TILE,
+                      fwd_stages,
+                      TILE_ALIGN_BYTES
+                      + 2 * fwd_stages * CORE_LONG_FWD_TILE * row
+                      + 8 * 2 * fwd_stages,
+                      threads=CORE_LONG_FWD_THREADS),
+        "dq": kernel(bwd_grid, CORE_LONG_BWD_TILE, stages,
+                     TILE_ALIGN_BYTES + 2 * own + stages * 2 * tile
+                     + 8 * (1 + 2 * stages) + colbuf, passes=2),
+        "dkdv": kernel(bwd_grid, CORE_LONG_BWD_TILE, stages,
+                       TILE_ALIGN_BYTES + 2 * own
+                       + stages * (2 * tile + 1024) + 8 * (1 + 2 * stages)
+                       + colbuf),
+        "launches": {"fwd": 1, "bwd": CORE_LONG_BWD_LAUNCHES},
+        "n_pad": n_pad,
+        "scratch": {"qd": (2, b, n, heads * d),
+                    "stats": (2, b * heads * n_pad),
+                    "colpart": (b, bwd_grid, 3 * heads * d)},
+    }
+
+
+def core_long_launch(n, d):
+    """The launch figures that the long route's kernels report for ``n``
+    tokens at head width ``d``, in the form of :func:`core_long_plan`
+    without "walk", "passes", "n_pad" and "scratch" ("ctas_per_sm" the
+    runtime's occupancy of the compiled kernel)."""
+    from myrtle_vision_tpu_torch.ops import _build
+
+    keys = ("grid", "rows", "tile", "threads", "stages", "smem",
+            "ctas_per_sm")
+    f = (ctypes.c_int * 23)()
+    _build.check(_lib().mvt_attention_core_long_plan(n, d, f),
+                 "core_long_launch")
+    figures = {key: dict(zip(keys, f[7 * i:7 * i + 7]))
+               for i, key in enumerate(("fwd", "dq", "dkdv"))}
+    figures["launches"] = {"fwd": f[22], "bwd": f[21]}
+    return figures
+
+
 def gemm_s8_plan(m, n, k):
     """How gemm_s8_epilogue covers an (M, N) output: {"tile": (rows,
     cols), "k_split": K (never split), "steps": K steps of
@@ -985,11 +1090,13 @@ def _head_width(c3, heads, name):
     return c, d
 
 
-def attention_core_cuda(qkv, heads, scale, stats=False):
+def attention_core_cuda(qkv, heads, scale, stats=False, tiled=False):
     """bf16 (B, N, 3C) qkv rows -> bf16 (B, N, C) context, and with
     ``stats`` the rowmax and reciprocal rowsum (B, H, N) fp32; D = C/heads
-    must be 32 or 64.  N above :func:`attention_core_max_n` takes the
-    KV-tiled kernel (csrc/flash_tiles.cuh), any N."""
+    must be 32 or 64.  N above :func:`attention_core_max_n` takes the long
+    route (csrc/attention_core_long_wgmma.cu, :func:`core_long_plan`), any
+    N; ``tiled`` takes it at any N (for timing the two against each
+    other)."""
     _require(qkv, "qkv")
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core")
@@ -999,8 +1106,10 @@ def attention_core_cuda(qkv, heads, scale, stats=False):
         m = torch.empty((b, heads, n), dtype=torch.float32,
                         device=qkv.device)
         rs = torch.empty_like(m)
-    _launch("attention_core", _lib().mvt_attention_core, qkv,
-            qkv.data_ptr(), out.data_ptr(),
+    lib = _lib()
+    _launch("attention_core",
+            lib.mvt_attention_core_long if tiled else lib.mvt_attention_core,
+            qkv, qkv.data_ptr(), out.data_ptr(),
             None if m is None else m.data_ptr(),
             None if rs is None else rs.data_ptr(), b, n, heads, d,
             float(scale))
@@ -1010,9 +1119,10 @@ def attention_core_cuda(qkv, heads, scale, stats=False):
 def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale, tiled=False):
     """The CUDA version of :func:`attention_core_bwd_plain`, any N: up to
     :func:`attention_core_max_n` one wgmma CTA per (image, head)
-    (csrc/attention_core_bwd_wgmma.cu), above it the KV-tiled kernels of
-    csrc/flash_bwd_tiles.cuh (four launches).  ``tiled`` takes the
-    KV-tiled route at any N (for timing the two against each other)."""
+    (csrc/attention_core_bwd_wgmma.cu), above it the long route
+    (csrc/attention_core_bwd_long_wgmma.cu: four launches, the scratch of
+    :func:`core_long_plan`).  ``tiled`` takes the long route at any N
+    (for timing the two against each other)."""
     _require(qkv, "qkv")
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_bwd")
@@ -1021,13 +1131,16 @@ def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale, tiled=False):
     _require_shape(rs, "rs", (b, heads, n))
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((b, c3), dtype=torch.float32, device=qkv.device)
-    du = rowterm = colpart = None
+    scratch = (None, None, None)
     tiled = tiled or n > attention_core_max_n()
     if tiled:
-        du = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-        rowterm = torch.empty_like(m)
-        colpart = torch.empty((b, math.ceil(n / 64), c3),
-                              dtype=torch.float32, device=qkv.device)
+        shapes = core_long_plan(n, d, b, heads)["scratch"]
+        scratch = (torch.empty(shapes["qd"], dtype=qkv.dtype,
+                               device=qkv.device),
+                   torch.empty(shapes["stats"], dtype=torch.float32,
+                               device=qkv.device),
+                   torch.empty(shapes["colpart"], dtype=torch.float32,
+                               device=qkv.device))
     lib = _lib()
     launched = ctypes.c_int(0)
     _launch("attention_core_bwd",
@@ -1035,8 +1148,7 @@ def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale, tiled=False):
             else lib.mvt_attention_core_bwd, qkv,
             qkv.data_ptr(), d_o.data_ptr(), m.data_ptr(), rs.data_ptr(),
             dqkv.data_ptr(), dbias.data_ptr(),
-            *(None if t is None else t.data_ptr()
-              for t in (du, rowterm, colpart)),
+            *(None if t is None else t.data_ptr() for t in scratch),
             b, n, heads, d, float(scale), ctypes.addressof(launched),
             launched=launched)
     return dqkv, dbias
@@ -1044,16 +1156,16 @@ def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale, tiled=False):
 
 def layernorm_rows_bwd_cuda(x, scale, dxn, do, qspec=None):
     """The CUDA version of :func:`layernorm_rows_bwd_plain`: x, do bf16
-    (rows, C), scale bf16 (C,), dxn fp32 (rows, C); with ``qspec`` (a
-    float format's, or :class:`Int8Sites`) x, do and scale fp32, its snap
-    form (``layernorm_snap_rows_bwd``)."""
+    (rows, C), C a multiple of 4 up to 768, scale bf16 (C,), dxn fp32
+    (rows, C); with ``qspec`` (a float format's, or :class:`Int8Sites`)
+    x, do and scale fp32, its snap form (``layernorm_snap_rows_bwd``)."""
     dt = torch.bfloat16 if qspec is None else torch.float32
     _require(x, "x", dt)
     rows, cols = x.shape
     lib = _lib()
-    if cols > lib.mvt_layernorm_rows_bwd_max_cols():
+    if cols > lib.mvt_layernorm_rows_bwd_max_cols() or cols % 4:
         raise ValueError(f"layernorm_rows_bwd: width {cols} exceeds the "
-                         "kernel's maximum")
+                         "kernel's maximum or is not a multiple of 4")
     _require_shape(scale, "scale", (cols,), dt)
     _require_shape(dxn, "dxn", (rows, cols))
     _require_shape(do, "do", (rows, cols), dt)

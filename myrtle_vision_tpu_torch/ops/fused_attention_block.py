@@ -35,10 +35,9 @@ the order of fp32 sums.
 
 The chain takes any sequence length on the card, forward and backward:
 up to 256 tokens the attention core and its backward hold one image's
-keys in shared memory, above that they walk them in tiles
-(csrc/attention_core.cu, csrc/attention_core_bwd.cu with
-csrc/flash_bwd_tiles.cuh).  Which sequences take this op at all is the
-JAX package's decision,
+keys in shared memory, above that they walk them in tiles fed by TMA
+(csrc/attention_core_long_wgmma.cu, csrc/attention_core_bwd_long_wgmma.cu).
+Which sequences take this op at all is the JAX package's decision,
 copied here as :func:`fuses_at`: the ViT Block fuses where the TPU kernel
 fits its VMEM and otherwise runs the discrete composition, whose attention
 is the flash kernel (ops/flash_attention.py).

@@ -1792,6 +1792,163 @@ def test_tiled_core_backward_agrees_at_197(dev, d):
         close(tiled[1], ref[1], SUM_ATOL * float(ref[1].abs().max()))
 
 
+# the fused core's long route (csrc/attention_core_long_wgmma.cu,
+# csrc/attention_core_bwd_long_wgmma.cu) at its tile edges: 64-row CTAs,
+# 128-key forward tiles, 64-row backward tiles; up to the fused gate (701)
+LONG_CORE_EDGE_N = [257, 319, 320, 321, 383, 384, 385, 511, 512, 513, 677,
+                    701]
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("heads", [2, 6])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", LONG_CORE_EDGE_N)
+def test_long_core_forward_tile_edges(dev, n, d, heads, b):
+    """Context, rowmax and reciprocal rowsum against the plain version
+    under the one-kernel bar; one launch a call."""
+    gen = torch.Generator(dev).manual_seed(n * d + heads + b)
+    qkv = torch.randn(b, n, 3 * heads * d, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    before = K.LAUNCHES["attention_core"]
+    got = K.attention_core_cuda(qkv, heads, d ** -0.5, stats=True)
+    assert K.LAUNCHES["attention_core"] == before + 1
+    ref = K.attention_core_plain(qkv, heads, d ** -0.5, stats=True)
+    for g, r in zip(got, ref):
+        close(g, r)
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("heads", [2, 6])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", LONG_CORE_EDGE_N)
+def test_long_core_backward_tile_edges(dev, n, d, heads, b):
+    """dqkv under the chain bar and its per-image column sums under the
+    sum bar, from the plain forward's statistics; the plan's launches a
+    call."""
+    qkv, d_o, m, rs = core_bwd_inputs(b, n, heads, d, n * d + heads + b, dev)
+    before = K.LAUNCHES["attention_core_bwd"]
+    got = K.attention_core_bwd_cuda(qkv, d_o, m, rs, heads, d ** -0.5)
+    assert K.LAUNCHES["attention_core_bwd"] == before + K.core_long_plan(
+        n, d)["launches"]["bwd"]
+    want = K.attention_core_bwd_plain(qkv, d_o, m, rs, heads, d ** -0.5)
+    close(got[0], want[0], CHAIN_ATOL)
+    close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+
+
+def test_long_core_is_deterministic(dev):
+    """Two launches of each long kernel on the same inputs give the same
+    bits (no atomics, every sum in a fixed order)."""
+    qkv, d_o, m, rs = core_bwd_inputs(8, 677, 6, 64, 677, dev)
+    runs = [lambda: K.attention_core_cuda(qkv, 6, 0.125, stats=True),
+            lambda: K.attention_core_bwd_cuda(qkv, d_o, m, rs, 6, 0.125)]
+    for run in runs:
+        first = [t.clone() for t in run()]
+        second = run()
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [1, 17, 197])
+def test_long_core_forced_agrees_with_one_cta(dev, n, d):
+    """The long route forced at lengths the one-CTA kernels take, forward
+    and backward, against those kernels and the plain versions under the
+    same bars."""
+    heads, sc = 6, d ** -0.5
+    qkv, d_o, m, rs = core_bwd_inputs(2, n, heads, d, n + d + 1, dev)
+    before = K.LAUNCHES["attention_core"]
+    fwd = K.attention_core_cuda(qkv, heads, sc, stats=True, tiled=True)
+    assert K.LAUNCHES["attention_core"] == before + 1
+    for ref in (K.attention_core_cuda(qkv, heads, sc, stats=True),
+                K.attention_core_plain(qkv, heads, sc, stats=True)):
+        for g, r in zip(fwd, ref):
+            close(g, r)
+    before = K.LAUNCHES["attention_core_bwd"]
+    bwd = K.attention_core_bwd_cuda(qkv, d_o, m, rs, heads, sc, tiled=True)
+    assert K.LAUNCHES["attention_core_bwd"] == before + 4
+    for ref in (K.attention_core_bwd_cuda(qkv, d_o, m, rs, heads, sc),
+                K.attention_core_bwd_plain(qkv, d_o, m, rs, heads, sc)):
+        close(bwd[0], ref[0], CHAIN_ATOL)
+        close(bwd[1], ref[1], SUM_ATOL * float(ref[1].abs().max()))
+
+
+def test_core_long_launches_match_the_plan(dev):
+    """The long kernels' own figures (grid, rows, tiles, threads, stages,
+    shared memory) and launches against core_long_plan, and the runtime's
+    occupancy of the compiled kernels: at least the two CTAs an SM that
+    their launch bounds count on (at head width 32 the smaller tiles and
+    fewer registers let some fit three)."""
+    skip = ("walk", "passes", "ctas_per_sm")
+    for n in (1, 17, 197, 257, 677, 701, 4096):
+        for d in (32, 64):
+            plan = K.core_long_plan(n, d)
+            got = K.core_long_launch(n, d)
+            for key in ("fwd", "dq", "dkdv"):
+                want = {f: v for f, v in plan[key].items() if f not in skip}
+                ctas = got[key].pop("ctas_per_sm")
+                assert got[key] == want, (n, d, key)
+                assert ctas >= plan[key]["ctas_per_sm"], (n, d, key)
+                if d == 64:
+                    assert ctas == plan[key]["ctas_per_sm"], (n, key)
+            assert got["launches"] == plan["launches"]
+
+
+# the LayerNorm backward's widths: one to six chunks of four columns a
+# lane (128 columns a chunk step), idle lanes in the last one, the model
+# widths 192 (ViT-Ti), 384 (ViT-S), 768 (ViT-B)
+LN_BWD_COLS = [32, 64, 128, 132, 192, 384, 640, 764, 768]
+
+
+@pytest.mark.parametrize("form", ["bf16", "FP16_32", "FP16_16", "int8"])
+@pytest.mark.parametrize("cols", LN_BWD_COLS)
+@pytest.mark.parametrize("rows", [1, 50, 3 * 197])
+def test_layernorm_bwd_widths(dev, rows, cols, form):
+    """dx under the one-kernel bar (the float formats' snap of x is the
+    plain version's), dscale and dbias under the sum bar, in the bf16
+    form, two float formats' snap form and INT8 QAT's form."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    rng = np.random.RandomState(rows * cols)
+    dt = torch.bfloat16 if form == "bf16" else torch.float32
+    qspec = {"bf16": None, "int8": Int8Sites(),
+             "FP16_32": (5, 10, False), "FP16_16": (5, 10, True)}[form]
+
+    def t(*shape, dtype=dt):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+
+    x, do, scale = t(rows, cols), t(rows, cols), t(cols)
+    dxn = t(rows, cols, dtype=torch.float32)
+    name = "layernorm_rows_bwd" if form == "bf16" else \
+        "layernorm_snap_rows_bwd"
+    before = K.LAUNCHES[name]
+    got = K.layernorm_rows_bwd_cuda(x, scale, dxn, do, qspec)
+    assert K.LAUNCHES[name] == before + 1
+    ref = K.layernorm_rows_bwd_plain(x, scale, dxn, do, qspec)
+    close(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        close(g, r, SUM_ATOL * max(1.0, float(r.abs().max())))
+
+
+def test_layernorm_bwd_is_deterministic_and_refuses_ragged_widths(dev):
+    """Two launches give the same bits; a width that is not a multiple of
+    four (the kernel's 16-byte chunks) is refused before any launch."""
+    x = torch.randn(3 * 197, 384, device=dev)
+    dxn = torch.randn(3 * 197, 384, device=dev)
+    args = (x, torch.randn(384, device=dev), dxn, torch.randn_like(x),
+            (5, 10, False))
+    first = [t.clone() for t in K.layernorm_rows_bwd_cuda(*args)]
+    again = K.layernorm_rows_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    r = torch.randn(5, 130, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        K.layernorm_rows_bwd_cuda(r, torch.randn(130, device=dev), r, r,
+                                  (5, 10, False))
+
+
 # colsum_rows: rows at and around the one-kernel limit (64) and the
 # 50,432 rows of a ViT-S/16 block at batch 256; widths of dbp/db2 (384),
 # dbqkv (1152) and one that takes the scalar path (100)
