@@ -32,7 +32,12 @@ Phases, each ending in one line of output:
               (the qspec forms of K2 and K4: the 3-pass GEMM in the
               backward's layouts and epilogues, the snap-mode core's
               statistics, attention_core_f32_bwd, layernorm_snap_rows_bwd)
-              and both backward chains, in each format at B=64, N=197
+              and both backward chains, in each format at B=64, N=197; the
+              float formats' long core above 256 tokens
+              (attention_core_f32_long, attention_core_f32_bwd_long) at N
+              = 257, 357, 677, 701, head widths 64 and 32, B = 2 and 8, in
+              each format with and without the statistics, and forced at
+              B=64, N=197 against the one-CTA kernels
   3b. probes the probes of the port's kernels, K12-K14
               (myrtle_vision_tpu_torch/perf/): every K12 attention-core
               mode and K13 GELU mode in its block chain, and every K14
@@ -99,6 +104,15 @@ Phases, each ending in one line of output:
               CLI; then, at forced canvases of 384, 512 and 608 px (the
               fused long backward, K8, K7), the first step's loss and every
               gradient, kernel path against plain path
+  8b. detect-float  YOLOS-S in FP16_32 (yolos_small.json with q_format
+              FP16_32): the 800 px eval forward at batch 8 (the discrete
+              float Block) against the plain path; the first QAT step at
+              384 px (677 tokens: the long f32 core, launches counted) and
+              608 px (the discrete float Block) against the plain path;
+              the train CLI for one epoch of 32 synthetic images at
+              288-352 px (425-585 tokens, every step through the long
+              core, launches counted), its validation at 800 px, and its
+              checkpoint through the detection eval CLI
   9. timing   CUDA-event times at batch 256: each kernel, forward and
               backward (also the profiler's device time, kernel by
               kernel), and each chain against its plain version and,
@@ -114,7 +128,10 @@ Phases, each ending in one line of output:
               chains in FP16_32 and one FP16_32 QAT train step beside the
               FP32 one (img/s, peak memory, a device profile); the INT8 QAT
               chains per block and the two-pass PyTorchINT8 QAT step (pass
-              1, pass 2 and the backward apart, peak memory, a profile)
+              1, pass 2 and the backward apart, peak memory, a profile);
+              the float long core and its backward at N=677, B=8 and 2,
+              beside fp32 SDPA; the YOLOS-S FP16_32 QAT step at 608 and 384
+              px and its 800 px forward at batch 8, with device profiles
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -315,6 +332,11 @@ KERNELS = {
                                f"{TPU_ATTN_BWD} (qspec)"),
     "layernorm_snap_rows_bwd": (CSRC + "layernorm_rows_bwd.cu",
                                 TPU_QSPEC_BWD),
+    "attention_core_f32_long": (CSRC + "attention_core_f32_long_wgmma.cu",
+                                f"{TPU_ATTN} (qspec, above 256 tokens)"),
+    "attention_core_f32_bwd_long": (
+        CSRC + "attention_core_f32_bwd_long_wgmma.cu",
+        f"{TPU_ATTN_BWD} (qspec, above 256 tokens)"),
 }
 INT8_KERNELS = ("layernorm_quant_rows", "gemm_s8_epilogue",
                 "attention_core_f32")
@@ -326,6 +348,9 @@ DETECT_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 FLOAT_KERNELS = ("fake_quant_rows", "layernorm_snap_rows",
                  "gemm_f32x3_epilogue")
 QAT_KERNELS = ("attention_core_f32_bwd", "layernorm_snap_rows_bwd")
+# the float formats' fp32 core above 256 tokens, forward and backward, run
+# by YOLOS-S detection in a float format (phase detect-float)
+LONG_FLOAT_KERNELS = ("attention_core_f32_long", "attention_core_f32_bwd_long")
 # each TPU kernel: the chain that replaces it and the kernel cases that
 # chain runs once per call, for its bound and yardstick sums
 _G = "gemm_bf16_epilogue"
@@ -399,7 +424,7 @@ INT8_QAT_VARIANTS = {
 }
 FP32_KERNELS = tuple(k for k in KERNELS
                      if k not in INT8_KERNELS + DETECT_KERNELS + FLOAT_KERNELS
-                     + QAT_KERNELS)
+                     + QAT_KERNELS + LONG_FLOAT_KERNELS)
 # flash_attention_fwd cases (B, H, N, D, n_valid, tag): YOLOS-S at 800 px
 # (2601 tokens, n_pad 2688 > 1536: the blocked regime K6) and at 512 px
 # (1125 tokens: the unblocked K5), and a ragged case with masked keys
@@ -424,6 +449,18 @@ LONG_BWD_N = (357, 677)
 # the fused core's kernels, whose long route above 256 tokens the kernels
 # line lists case by case
 LONG_KERNELS = ("attention_core", "attention_core_bwd")
+# the float formats' long core (phase 3): YOLOS-S's fused canvases from
+# 257 tokens to the fused gate (357 at 256 px, 677 at 384 px, 701 the
+# gate), at head widths 64 (6 heads) and 32 (12 heads, the same C), at the
+# train step's micro-batch of 2 and at batch 8
+LONG_FLOAT_N = (257, 357, 677, 701)
+# YOLOS-S in FP16_32 (phase detect-float): the first QAT step's canvases
+# (384 px: 677 tokens, the long kernels; 608 px: 1545 tokens, the discrete
+# float Block), and the train CLI's scales (288-352 px: 425-585 tokens, all
+# through the long kernels; DIOR's train scales run 256-608 px)
+FLOAT_DET_CANVASES = ((384, "fused, long f32 core"),
+                      (608, "discrete float Block"))
+FLOAT_TRAIN_SCALES = [288, 320, 352]
 # detection training (phase 8): images of the train split per epoch, and
 # the canvases forced for the first-step check, one per backward regime
 DET_TRAIN_SUBSET = 32
@@ -1471,6 +1508,7 @@ def phase_kernels(device):
     for key, err in phase_kernels_qat(device).items():
         if key in QAT_KERNELS:
             errors[key] = max(errors[key], err)
+    errors.update(phase_kernels_long_float(device))
     print(f"kernels: all within their bars (|d| <= {RTOL:g}*|ref| + atol; "
           f"atol {KERNEL_ATOL:g} kernel, {CHAIN_ATOL:g} chain, "
           f"{SUM_ATOL:g}*max|ref| sum; psum |d| <= {PSUM_ATOL:g}*max|ref|; "
@@ -1479,6 +1517,117 @@ def phase_kernels(device):
           f">= {FLOAT_SAME} within {FLOAT_TIGHT:g}*max|ref| and the rest "
           f"within 1-2 format steps, a chain {FLOAT_CHAIN_SAME} and one step "
           f"at max|ref|; K11 bit-identical)")
+    return errors
+
+
+def phase_kernels_long_float(device):
+    """The float formats' long core against its plain version at
+    :data:`LONG_FLOAT_N` x head widths 64 and 32 x batches 2 and 8: the
+    forward (attention_core_f32_long) in each format, with and without the
+    statistics, the context under the float bar and the rowmax and
+    reciprocal rowsum under the one-kernel bar; the backward
+    (attention_core_f32_bwd_long) from the plain forward's statistics,
+    dqkv under the chain bar and the per-image column sums under the psum
+    bar; each call's launches counted (1 and 3, none of the one-CTA
+    kernels').  Then, forced at 197 tokens (``tiled``; ViT-S/16, B=64),
+    both against the one-CTA kernels.  Inputs: fp32 qkv rows and d_o drawn
+    at std 1.  Returns the largest max abs differences by kernel."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    errors = dict.fromkeys(LONG_FLOAT_KERNELS, 0.0)
+
+    def counted(name, n_launch, fn):
+        before = dict(K.LAUNCHES)
+        out = fn()
+        grew = {k: K.LAUNCHES[k] - v for k, v in before.items()
+                if K.LAUNCHES[k] != v}
+        check(grew == {name: n_launch}, f"{name}: launches {grew}")
+        return out
+
+    for n in LONG_FLOAT_N:
+        for d in (64, 32):
+            heads = C // d
+            sc = d ** -0.5
+            for b in (2, 8):
+                rng = np.random.RandomState(n * 1000 + d * 10 + b)
+                qkv = seeded(rng, (b, n, 3 * C), 1.0, device)
+                d_o = seeded(rng, (b, n, C), 1.0, device)
+                tag = f"B={b} N={n} D={d}"
+                fwd = (0.0, 0.0, 0.0)
+                for qname, qspec in FLOAT_QSPECS.items():
+                    for stats in (False, True):
+                        got = as_tuple(counted(
+                            "attention_core_f32_long", 1,
+                            lambda: K.attention_core_snap_cuda(
+                                qkv, heads, sc, qspec, stats=stats)))
+                        ref = as_tuple(K.attention_core_snap_plain(
+                            qkv, heads, sc, qspec, stats=stats))
+                        label = (f"attention_core_f32_long {qname}"
+                                 f"{'+stats' if stats else ''} {tag}")
+                        max_abs, of_bar, share = compare_float(
+                            f"{label} context", got[0], ref[0], qspec)
+                        for i in range(1, len(got)):
+                            m_abs, m_bar = compare(f"{label} output {i}",
+                                                   got[i], ref[i], RTOL,
+                                                   KERNEL_ATOL)
+                            max_abs, of_bar = max(max_abs, m_abs), max(
+                                of_bar, m_bar)
+                        fwd = max(fwd, (of_bar, max_abs, share))
+                errors["attention_core_f32_long"] = max(
+                    errors["attention_core_f32_long"], fwd[1])
+                _, m, rs = K.attention_context_f32(qkv, heads, sc,
+                                                   stats=True)
+                got = counted("attention_core_f32_bwd_long",
+                              K.F32_LONG_BWD_LAUNCHES,
+                              lambda: K.attention_core_f32_bwd_cuda(
+                                  qkv, d_o, m, rs, heads, sc))
+                ref = K.attention_core_f32_bwd_plain(qkv, d_o, m, rs, heads,
+                                                     sc)
+                bwd = (0.0, 0.0)
+                for i, (g, r, kind) in enumerate(zip(got, ref,
+                                                     ("chain", "psum"))):
+                    max_abs, of_bar = compare(
+                        f"attention_core_f32_bwd_long {tag} output {i}", g,
+                        r, *bar(kind, r))
+                    bwd = max(bwd, (of_bar, max_abs))
+                errors["attention_core_f32_bwd_long"] = max(
+                    errors["attention_core_f32_bwd_long"], bwd[1])
+                print(f"kernels: attention_core_f32_long {tag} (FP16_16, "
+                      f"FP16_32, TF32; with and without statistics) max_abs "
+                      f"{fwd[1]:.6g}, {fwd[0]:.4f} of the bar, at most "
+                      f"{fwd[2]:.5f} of a context past the fp32 noise; "
+                      f"attention_core_f32_bwd_long max_abs {bwd[1]:.6g}, "
+                      f"{bwd[0]:.4f} of the bar (kinds chain/psum)")
+                del qkv, d_o, m, rs, got, ref
+
+    # forced at 197 tokens, against the one-CTA kernels
+    qspec = FLOAT_QSPECS["FP16_32"]
+    rng = np.random.RandomState(64197 + 5)
+    qkv = seeded(rng, (64, N, 3 * C), 1.0, device)
+    d_o = seeded(rng, (64, N, C), 1.0, device)
+    long = counted("attention_core_f32_long", 1,
+                   lambda: K.attention_core_snap_cuda(
+                       qkv, HEADS, SCALE, qspec, stats=True, tiled=True))
+    short = K.attention_core_snap_cuda(qkv, HEADS, SCALE, qspec, stats=True)
+    worst = [compare_float("forced long core context", long[0], short[0],
+                           qspec)[:2]]
+    worst += [compare(f"forced long core output {i}", long[i], short[i],
+                      RTOL, KERNEL_ATOL) for i in (1, 2)]
+    got = counted("attention_core_f32_bwd_long", K.F32_LONG_BWD_LAUNCHES,
+                  lambda: K.attention_core_f32_bwd_cuda(
+                      qkv, d_o, short[1], short[2], HEADS, SCALE,
+                      tiled=True))
+    want = K.attention_core_f32_bwd_cuda(qkv, d_o, short[1], short[2], HEADS,
+                                         SCALE)
+    worst_b = [compare(f"forced long backward output {i}", g, r,
+                       *bar(kind, r))
+               for i, (g, r, kind) in enumerate(zip(got, want,
+                                                    ("chain", "psum")))]
+    print(f"kernels: the long f32 core forced at B=64,N=197 (FP16_32) "
+          f"against the one-CTA kernels: forward max_abs "
+          f"{max(w[0] for w in worst):.6g}, {max(w[1] for w in worst):.4f} "
+          f"of the bar; backward max_abs {max(w[0] for w in worst_b):.6g}, "
+          f"{max(w[1] for w in worst_b):.4f} of the bar")
     return errors
 
 
@@ -2993,9 +3142,9 @@ def expected_train_launches(canvases, n_accum, depth, val_batches):
     return want
 
 
-def forced_batch(data_config, size, max_boxes):
-    """The first 4 images of the train split resized to ``size`` px (the
-    longer side capped as DIOR's transform caps it), collated."""
+def forced_batch(data_config, size, max_boxes, count=4):
+    """The first ``count`` images of the train split resized to ``size``
+    px (the longer side capped as DIOR's transform caps it), collated."""
     from myrtle_vision_tpu_torch.datasets.coco import CocoDetection
     from myrtle_vision_tpu_torch.transforms import detection as T
 
@@ -3007,14 +3156,25 @@ def forced_batch(data_config, size, max_boxes):
                                         "max_size_ratio": [1333, 800]},
                        "Normalize": {"Mean": [0.5] * 3, "Std": [0.5] * 3}}))
     items = [ds.__getitem__(i, rng=np.random.default_rng((0, i)))
-             for i in range(4)]
+             for i in range(count)]
     return T.collate_detection(items, max_boxes=max_boxes)
 
 
+def fp32_step_launches(n_tok, n_accum, depth):
+    """The fused attention core's and the flash kernels' launches of one
+    FP32 train step at ``n_tok`` tokens."""
+    return expected_train_launches([n_tok], n_accum, depth, 0)
+
+
 def forced_step_check(model, data_config, n_classes, weight_dict, eos_coef,
-                      n_accum, micro, device):
-    """The first step's loss and gradients at each of :data:`DET_CANVASES`,
-    kernel path against plain path, from the CLI's initial weights.  Both
+                      n_accum, micro, device, canvases=DET_CANVASES,
+                      expect=fp32_step_launches, require=(),
+                      phase="detect-train"):
+    """The first step's loss and gradients at each of ``canvases`` (size,
+    regime), kernel path against plain path, from the CLI's initial
+    weights; the kernel path's launches as ``expect(tokens, n_accum,
+    depth)`` gives them, and at least one of each kernel in ``require``;
+    returns {size: launches}.  Both
     paths take the matches the plain path's outputs give, so that a
     near-tie in the matcher cannot part them, and both backpropagate the
     gradient of the plain path's loss at the outputs: the box losses have
@@ -3030,7 +3190,8 @@ def forced_step_check(model, data_config, n_classes, weight_dict, eos_coef,
     init = {n: t.detach().clone() for n, t in model.state_dict().items()}
     depth = len(model.transformer.layers)
     keys = ("pred_logits", "pred_boxes")
-    for size, regime in DET_CANVASES:
+    step_launches = {}
+    for size, regime in canvases:
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in forced_batch(data_config, size,
                                           model.num_det_tokens).items()}
@@ -3077,11 +3238,12 @@ def forced_step_check(model, data_config, n_classes, weight_dict, eos_coef,
             runs[False], runs[True]
         largest = max(g.abs().max().item() for gs in out_grads for g in gs)
         check(not any(p_launch.values()), f"plain path launched {p_launch}")
-        want = expected_train_launches([n_tok], n_accum, depth, 0)
+        want = expect(n_tok, n_accum, depth)
         got = {k: k_launch[k] for k in want}
-        check(got == want and max(got["attention_core_bwd"],
-                                  got["flash_attention_bwd"]) > 0,
-              f"{size} px launches {got}, expected {want}")
+        check(got == want and all(k_launch[k] > 0 for k in require),
+              f"{size} px launches {k_launch}, expected {want} and "
+              f"{require}")
+        step_launches[size] = k_launch
         worst, worst_name = 0.0, ""
         for name, ref in p_grads.items():
             g = k_grads[name]
@@ -3090,7 +3252,7 @@ def forced_step_check(model, data_config, n_classes, weight_dict, eos_coef,
             if rel > worst:
                 worst, worst_name = rel, name
         loss_diff = abs(k_loss - p_loss)
-        print(f"detect-train: first step at {size} px ({n_tok} tokens, "
+        print(f"{phase}: first step at {size} px ({n_tok} tokens, "
               f"{regime}), kernel vs plain: loss {k_loss:.6f} vs "
               f"{p_loss:.6f} (|d| {loss_diff:.3g}, bar "
               f"{LOSS_BAR * max(1.0, abs(p_loss)):.3g}), largest relative "
@@ -3104,6 +3266,7 @@ def forced_step_check(model, data_config, n_classes, weight_dict, eos_coef,
         check(worst <= GRAD_BAR,
               f"{size} px first-step gradients: kernel path disagrees")
     model.load_state_dict(init)
+    return step_launches
 
 
 def phase_detect_train(device, data_config, data_cfg):
@@ -3190,6 +3353,179 @@ def phase_detect_train(device, data_config, data_cfg):
     check(eval_launches["flash_attention_fwd"] == depth * batches
           and eval_launches["flash_attention_bwd"] == 0,
           f"eval launches {eval_launches}")
+    return launches
+
+
+def float_step_launches(n_tok, n_accum, depth):
+    """The fp32 attention core's launches of one float-format train step at
+    ``n_tok`` tokens: per block and micro-batch, where the Block fuses
+    above 256 tokens, one long forward (with the statistics) and one long
+    backward (three kernels); past the gate none (the discrete Block's
+    core is PyTorch operations); never a one-CTA or a flash kernel."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.fused_attention_block import fuses_at
+
+    fused = fuses_at(n_tok, HEADS, C // HEADS)
+    calls = depth * n_accum if fused and n_tok > K.F32_CORE_MAX_N else 0
+    return {"attention_core_f32_long": calls,
+            "attention_core_f32_bwd_long": calls * K.F32_LONG_BWD_LAUNCHES,
+            "attention_core_f32": 0, "attention_core_f32_bwd": 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+
+
+def float_detection_config(data_cfg, name):
+    """yolos_small.json with q_format FP16_32 (no pretrained backbone),
+    written as ``name``."""
+    config = yolos_small_config()
+    config["vit_config"]["q_format"] = "FP16_32"
+    config["data_config_path"] = data_cfg
+    config["train_config"]["pretrained_backbone"] = None
+    return config, write_json(name, config)
+
+
+def phase_detect_float(device, data_config, data_cfg):
+    """YOLOS-S in FP16_32 (yolos_small.json with q_format FP16_32, random
+    weights from a seed): the 800 px eval forward at batch 8 (the discrete
+    float Block: K11 at its sites, no fused op) against the plain path; the
+    first QAT step at :data:`FLOAT_DET_CANVASES` against the plain path
+    (the long kernels at 384 px, counted); the train CLI for one epoch of
+    32 synthetic images at :data:`FLOAT_TRAIN_SCALES` (every step through
+    the long kernels, counted), its validation at 800 px, and its last
+    checkpoint through the eval CLI.  Returns the train CLI's kernel
+    launches."""
+    from myrtle_vision_tpu_torch.detection import test as eval_cli
+    from myrtle_vision_tpu_torch.detection import train as train_cli
+    from myrtle_vision_tpu_torch.models.detector import build_weight_dict
+    from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
+
+    t0 = time.perf_counter()
+    config, _ = float_detection_config(data_cfg, "yolos_small_fp16_32.json")
+    tc = config["train_config"]
+    depth = config["vit_config"]["depth"]
+    model = ViT(**vit_kwargs_from_config(config, data_config), device=device)
+    model.load_state_dict(smoke_state_dict(model, seed=2))
+
+    # the 800 px eval at batch 8, kernel path against plain path
+    imgs = torch.from_numpy(forced_batch(data_config, 800, 100, 8)["image"]
+                            ).to(device)
+    model.eval()
+    with torch.inference_mode():
+        reset_counts()
+        got = model(imgs)
+        launches, ops = read_counts()
+        ref = model(imgs, plain=True)
+    check(launches["fake_quant_rows"] > 0
+          and all(v == 0 for k, v in launches.items()
+                  if k != "fake_quant_rows")
+          and all(v == (0, 0) for v in ops.values()),
+          f"800 px FP16_32 eval launches {launches}, ops {ops}")
+    largest = ref["pred_logits"].abs().max().item()
+    logit_diff, _ = bar_share("FP16_32 detection logits", got["pred_logits"],
+                              ref["pred_logits"], RTOL, CHAIN_ATOL)
+    box_diff, box_bar = bar_share("FP16_32 detection boxes",
+                                  got["pred_boxes"], ref["pred_boxes"], RTOL,
+                                  CHAIN_ATOL)
+    agree = (got["pred_logits"].argmax(-1)
+             == ref["pred_logits"].argmax(-1)).double().mean().item()
+    print(f"detect-float: YOLOS-S FP16_32 eval forward at 800 px "
+          f"({tokens_of(800, 800)} tokens, the discrete float Block) B=8, "
+          f"kernel vs plain path: pred_logits max_abs {logit_diff:.6g} (bar "
+          f"{LOGIT_BAR * max(1.0, largest):.6g}), pred_boxes max_abs "
+          f"{box_diff:.6g} ({box_bar:.4f} of the chain bar), argmax "
+          f"agreement {agree:.4f}; fake_quant_rows "
+          f"{launches['fake_quant_rows']} launches, no other kernel")
+    check(logit_diff <= LOGIT_BAR * max(1.0, largest) and box_bar <= 1.0
+          and agree >= DET_ARGMAX_BAR,
+          "FP16_32 detection eval: kernel path disagrees with the plain path")
+    del imgs, got, ref
+
+    # the first QAT step at 384 and 608 px, kernel path against plain path
+    model.train()
+    step_launches = forced_step_check(
+        model, data_config, data_config["number_of_classes"],
+        build_weight_dict(tc), tc["eos_coef"], 2, 2, device,
+        canvases=FLOAT_DET_CANVASES, expect=float_step_launches,
+        require=("fake_quant_rows",), phase="detect-float")
+    del model
+    setup_s = time.perf_counter() - t0
+
+    # the train CLI at 288-352 px, then its checkpoint through the eval CLI
+    train_data = dict(data_config, train_subset=DET_TRAIN_SUBSET)
+    train_data["transform_ops_train"] = {
+        "RandomHorizontalFlip": None,
+        "RandomResize": {"scales": FLOAT_TRAIN_SCALES,
+                         "max_size_ratio": [1333, 800]},
+        "Normalize": data_config["transform_ops_train"]["Normalize"]}
+    train_cfg = write_json("dior_synth_float_train_data_config.json",
+                           train_data)
+    config, _ = float_detection_config(train_cfg, "yolos_small_fp16_32.json")
+    tc = config["train_config"]
+    tc.update(output_directory=os.path.join(WORK, "detect_float"),
+              checkpoint_path="", epochs=1, warmup_epochs=0)
+    cfg = write_json("yolos_small_fp16_32_train.json", config)
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "Epoch")):
+            print(f"detect-float: {line.strip()}")
+    losses = [[float(v) for v in m] for m in re.findall(
+        r"Iteration \d+:\tloss=(\S+)\tce=(\S+)\tbbox=(\S+)\tgiou=(\S+)",
+        text)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, train_loader, val_loader, _, (micro, n_accum) = \
+            train_cli.build_train(config, device)
+    canvases = [tokens_of(*b["image"].shape[1:3])
+                for b in train_loader.epoch(0)]
+    steps = state.iteration
+    want = dict.fromkeys(float_step_launches(canvases[0], n_accum, depth), 0)
+    for n in canvases:
+        for k, v in float_step_launches(n, n_accum, depth).items():
+            want[k] += v
+    got = {k: launches[k] for k in want}
+    print(f"detect-float: YOLOS-S FP16_32 train CLI on cuda, {steps} steps "
+          f"of {n_accum} x {micro} images ({DET_TRAIN_SUBSET} of the train "
+          f"split at {FLOAT_TRAIN_SCALES} px) and a validation of "
+          f"{len(val_loader)} batches at 800 px in {took:.1f} s (the steps "
+          f"and set-up before it: {setup_s:.1f} s); step canvases in tokens "
+          f"{canvases}; launches {got}, expected {want}; all kernels "
+          f"{launches}; block-half ops {ops}")
+    check(steps == len(canvases) == len(losses) == DET_TRAIN_SUBSET // 4,
+          f"{steps} steps, {len(losses)} iteration lines")
+    check(all(math.isfinite(v) for row in losses for v in row),
+          f"losses {losses}")
+    check(all(256 < n <= 701 for n in canvases), f"canvases {canvases}")
+    check(got == want, "FP16_32 detection training launches")
+    run_dir = sorted(glob.glob(tc["output_directory"] + "_*"))[-1]
+    ckpts = sorted(os.listdir(run_dir))
+    check(ckpts == [f"vit_{steps:06}", "vit_best"], f"checkpoints {ckpts}")
+    ckpt = os.path.join(run_dir, f"vit_{steps:06}")
+    check(torch.load(ckpt, weights_only=True)["q_format"] == "FP16_32",
+          "the checkpoint's q_format")
+    tc["checkpoint_path"] = ckpt
+    cfg = write_json("yolos_small_fp16_32_eval.json", config)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        evaluator, preds = eval_cli.main(["-c", cfg, "--device", "cuda"])
+    eval_launches, eval_ops = read_counts()
+    stats = np.asarray(evaluator.stats, np.float64)
+    print(f"detect-float: vit_{steps:06} through the detection eval CLI in "
+          f"FP16_32: {len(preds)} test images at 800 px, COCO summary "
+          f"{' '.join(f'{v:.4f}' for v in stats)}, fake_quant_rows "
+          f"{eval_launches['fake_quant_rows']} launches, block-half ops "
+          f"{eval_ops}")
+    check(stats.shape == (12,) and bool(np.isfinite(stats).all()),
+          "COCO summary of the FP16_32 checkpoint")
+    check(eval_launches["fake_quant_rows"] > 0
+          and all(v == (0, 0) for v in eval_ops.values()),
+          f"FP16_32 eval launches {eval_launches}")
+    print(f"detect-float: the 384 px QAT step's launches "
+          f"{ {k: v for k, v in step_launches[384].items() if v} }")
     return launches
 
 
@@ -3515,6 +3851,7 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     del imgs, batch
     time_detection(totals, device, power)
     time_detection_train(totals, device, power)
+    time_float_detection(totals, device, power)
     return totals
 
 
@@ -3723,19 +4060,10 @@ def time_detection(totals, device, power):
         exp_floor(f"flash_attention_fwd[{tag}]", b * h * n * n, power)
         del q, k, v
 
-    b = 8
-    model = ViT("detection", 224, 16, 20, 384, 12, 6, 1536, device=device)
-    gen = torch.Generator(device).manual_seed(1)
-    imgs = torch.randn(b, 800, 800, 3, device=device, generator=gen)
-    model.eval()
-    with torch.inference_mode():
-        k_ms, p_ms = paired_ms(lambda: model(imgs),
-                               lambda: model(imgs, plain=True), iters=5,
-                               warmup=2)
-    print(f"timing: YOLOS-S detection forward at 800 px (2601 tokens) B={b}:"
-          f" kernel path {k_ms:.3f} ms = {b / k_ms * 1e3:.2f} img/s, plain "
-          f"path {p_ms:.3f} ms = {b / p_ms * 1e3:.2f} img/s [{power}]")
-    profile_forward(lambda: model(imgs), power)
+    time_yolos_forward(ViT("detection", 224, 16, 20, 384, 12, 6, 1536,
+                           device=device), "",
+                       {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",)},
+                       device, power)
 
 
 def exp_floor(name, exps, power):
@@ -3779,22 +4107,12 @@ def time_detection_train(totals, device, power):
     path."""
     import torch.nn.functional as F
 
-    from myrtle_vision_tpu_torch.models.detector import (
-        build_weight_dict,
-        criterion,
-    )
     from myrtle_vision_tpu_torch.models.vit import ViT
     from myrtle_vision_tpu_torch.ops import _kernels as K
     from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
     from myrtle_vision_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain,
         flash_attention_plain,
-    )
-    from myrtle_vision_tpu_torch.training.detection import make_loss_fn
-    from myrtle_vision_tpu_torch.training.optim import create_optimizer
-    from myrtle_vision_tpu_torch.training.trainer import (
-        TrainState,
-        make_train_step,
     )
 
     for b, h, n, d, tag in ((8, 6, 1545, 64, "K7 regime, 608 px"),
@@ -3863,10 +4181,47 @@ def time_detection_train(totals, device, power):
                   power)
         del x, attn, do, m, rs, qkv, d_o, q, k, v
 
+    time_yolos_step(ViT("detection", 224, 16, 20, 384, 12, 6, 1536,
+                        device=device), "",
+                    # the flash op's wgmma kernels, and the long-route
+                    # kernels of the fused attention core above 256 tokens
+                    # (forward and backward)
+                    {"flash forward": ("flash_fwd_wgmma_kernel",),
+                     "flash backward": ("flash_bwd_dsum_kernel",
+                                        "flash_bwd_dkdv_wgmma_kernel",
+                                        "flash_bwd_dq_wgmma_kernel"),
+                     "long core forward": ("attention_core_long_kernel",),
+                     "long core backward": ("core_long_prep_kernel",
+                                            "core_long_dq_kernel",
+                                            "core_long_dkdv_kernel",
+                                            "core_long_colsum_kernel"),
+                     "fused block kernels": ("attention_core_kernel",
+                                             "attention_core_bwd_wgmma_kernel",
+                                             "layernorm_rows",
+                                             "gemm_wgmma_kernel",
+                                             "colsum_kernel"),
+                     "optimizer": ("multi_tensor",)}, device, power)
+
+
+def time_yolos_step(model, label, groups, device, power):
+    """The YOLOS-S train step of ``model`` (the config's 2 micro-batches
+    of 2 images: forward, backward with the host matcher, AdamW) at 608
+    and 384 px, kernel path against plain path, and a device profile of
+    one kernel-path step by the kernel ``groups``; ``label`` names the
+    format in the lines."""
+    from myrtle_vision_tpu_torch.models.detector import (
+        build_weight_dict,
+        criterion,
+    )
+    from myrtle_vision_tpu_torch.training.detection import make_loss_fn
+    from myrtle_vision_tpu_torch.training.optim import create_optimizer
+    from myrtle_vision_tpu_torch.training.trainer import (
+        TrainState,
+        make_train_step,
+    )
+
     tc = yolos_small_config()["train_config"]
-    n_classes = 20
-    model = ViT("detection", 224, 16, n_classes, 384, 12, 6, 1536,
-                device=device)
+    n_classes = model.decoder.class_embed.out_features - 1
     weights = build_weight_dict(tc)
     for size in (608, 384):
         rng = np.random.RandomState(size)
@@ -3899,48 +4254,125 @@ def time_detection_train(totals, device, power):
                                lambda: steps[1](state, batch, tc["lr"]),
                                iters=5, warmup=2)
         n_tok = tokens_of(size, size)
-        print(f"timing: YOLOS-S train step at {size} px ({n_tok} tokens, "
-              f"2 x 2 images: forward, backward with the host matcher, "
-              f"AdamW): kernel path {k_ms:.3f} ms = {4 / k_ms * 1e3:.2f} "
-              f"img/s, plain path {p_ms:.3f} ms = {4 / p_ms * 1e3:.2f} img/s "
-              f"[{power}]")
-        line = device_profile(
-            lambda: steps[0](state, batch, tc["lr"]),
-            # the flash op's wgmma kernels, and the long-route kernels of
-            # the fused attention core above 256 tokens (forward and
-            # backward)
-            {"flash forward": ("flash_fwd_wgmma_kernel",),
-             "flash backward": ("flash_bwd_dsum_kernel",
-                                "flash_bwd_dkdv_wgmma_kernel",
-                                "flash_bwd_dq_wgmma_kernel"),
-             "long core forward": ("attention_core_long_kernel",),
-             "long core backward": ("core_long_prep_kernel",
-                                    "core_long_dq_kernel",
-                                    "core_long_dkdv_kernel",
-                                    "core_long_colsum_kernel"),
-             "fused block kernels": ("attention_core_kernel",
-                                     "attention_core_bwd_wgmma_kernel",
-                                     "layernorm_rows", "gemm_wgmma_kernel",
-                                     "colsum_kernel"),
-             "optimizer": ("multi_tensor",)})
-        print(f"timing: YOLOS-S train step profile at {size} px (one "
+        print(f"timing: YOLOS-S {label}train step at {size} px ({n_tok} "
+              f"tokens, 2 x 2 images: forward, backward with the host "
+              f"matcher, AdamW): kernel path {k_ms:.3f} ms = "
+              f"{4 / k_ms * 1e3:.2f} img/s, plain path {p_ms:.3f} ms = "
+              f"{4 / p_ms * 1e3:.2f} img/s [{power}]")
+        line = device_profile(lambda: steps[0](state, batch, tc["lr"]),
+                              groups)
+        print(f"timing: YOLOS-S {label}train step profile at {size} px (one "
               f"kernel-path step): {line} [{power}]")
         del state, steps, batch
 
 
-def profile_forward(forward, power):
-    """Where one kernel-path forward's device time goes: device time by
-    kernel group (the flash kernel; cuBLAS products, the discrete blocks'
-    projections; everything else) and the device's busy share of the
-    window, the union of its kernel intervals over the window from the
-    first kernel's start to the last one's end, from ``torch.profiler``."""
+def time_yolos_forward(model, label, groups, device, power):
+    """The YOLOS-S forward of ``model`` at 800 px (2601 tokens), batch 8,
+    kernel path against plain path, and where one kernel-path forward's
+    device time goes: by the kernel ``groups``, cuBLAS products (the
+    discrete blocks' projections) and everything else, and the device's
+    idle share of the window from the first kernel's start to the last
+    one's end (``torch.profiler``)."""
+    b = 8
+    gen = torch.Generator(device).manual_seed(1)
+    imgs = torch.randn(b, 800, 800, 3, device=device, generator=gen)
+    model.eval()
     with torch.inference_mode():
-        forward()
+        k_ms, p_ms = paired_ms(lambda: model(imgs),
+                               lambda: model(imgs, plain=True), iters=5,
+                               warmup=2)
+        print(f"timing: YOLOS-S {label}detection forward at 800 px (2601 "
+              f"tokens) B={b}: kernel path {k_ms:.3f} ms = "
+              f"{b / k_ms * 1e3:.2f} img/s, plain path {p_ms:.3f} ms = "
+              f"{b / p_ms * 1e3:.2f} img/s [{power}]")
+        model(imgs)
         torch.cuda.synchronize()
-        line = device_profile(forward, {"flash_attention_fwd":
-                                        ("flash_fwd_wgmma_kernel",)})
-    print(f"timing: YOLOS-S forward profile (800 px, B=8, one kernel-path "
-          f"forward): {line} [{power}]")
+        line = device_profile(lambda: model(imgs), groups)
+    print(f"timing: YOLOS-S {label}forward profile (800 px, B={b}, one "
+          f"kernel-path forward): {line} [{power}]")
+
+
+def time_float_detection(totals, device, power):
+    """The float formats' long core per call at YOLOS-S's 384 px shape (N
+    = 677, 6 heads of 64), at batch 8 and at the train step's micro-batch
+    of 2, FP16_32 with the statistics (as the QAT forward runs it) and its
+    backward, beside the plain version, the bound (the 3-pass products'
+    bf16 operations, the bytes each reads once and writes once) and fp32
+    ``F.scaled_dot_product_attention``, forward and backward (the
+    yardstick of the short fp32 core); the (8, 677) cases go into the
+    kernels line, once per block.  Then YOLOS-S in FP16_32: the train step
+    (2 x 2 images, the host matcher, AdamW) at 608 and 384 px and the 800
+    px eval forward at batch 8, kernel path against plain path, each with
+    a device profile of one kernel-path call (the FP32 figures are
+    time_detection's and time_detection_train's)."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    qspec = FLOAT_QSPECS["FP16_32"]
+    for b in (8, 2):
+        n = 677
+        rng = np.random.RandomState(8677 + b)
+        qkv = seeded(rng, (b, n, 3 * C), 1.0, device)
+        d_o = seeded(rng, (b, n, C), 1.0, device)
+        _, m, rs = K.attention_context_f32(qkv, HEADS, SCALE, stats=True)
+        q, k, v = heads_of(qkv)
+        dbq = torch.empty(b, 3 * C, device=device)
+        d_oh = heads_of(torch.cat([d_o] * 3, -1))[0]
+        core = 4 * b * HEADS * n * n * (C // HEADS)  # two N x N x D products
+        count = 1 if b == 8 else 0
+        tag = f"B={b} N={n}"
+        sdpa = []
+
+        def sdpa_bwd():
+            if not sdpa:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                sdpa.append((F.scaled_dot_product_attention(
+                    *leaves, scale=SCALE), leaves))
+            out, leaves = sdpa[0]
+            return torch.autograd.grad(out, leaves, d_oh, retain_graph=True)
+
+        # reads the qkv rows, writes the context and both statistics; two
+        # products of three passes
+        c = cost(nbytes(qkv) * 4 // 3 + nbytes(m, rs), 3 * core, "bf16",
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        scale=SCALE))
+        time_case(totals, f"attention_core_f32_long[384 px, {tag}]",
+                  lambda: K.attention_core_snap_cuda(qkv, HEADS, SCALE,
+                                                     qspec, stats=True),
+                  lambda: K.attention_core_snap_plain(qkv, HEADS, SCALE,
+                                                      qspec, stats=True),
+                  count, c, power, tag)
+        # reads qkv, d_o, m, rs, writes dqkv and the column sums; five
+        # products (s recomputed, dp, dv, dq, dk) of three passes
+        c = cost(2 * nbytes(qkv) + nbytes(d_o, m, rs, dbq),
+                 3 * core * 5 // 2, "bf16", sdpa_bwd)
+        time_case(totals, f"attention_core_f32_bwd_long[384 px, {tag}]",
+                  lambda: K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs,
+                                                        HEADS, SCALE),
+                  lambda: K.attention_core_f32_bwd_plain(qkv, d_o, m, rs,
+                                                         HEADS, SCALE),
+                  count, c, power, tag)
+        del qkv, d_o, m, rs, q, k, v, dbq, d_oh, sdpa
+
+    model = ViT("detection", 224, 16, 20, 384, 12, 6, 1536,
+                q_format="FP16_32", device=device)
+    time_yolos_step(model, "FP16_32 QAT ",
+                    {"long f32 core forward": (
+                        "attention_core_f32_long_kernel",),
+                     "long f32 core backward": ("f32_long_dq_kernel",
+                                                "f32_long_dkdv_kernel",
+                                                "f32_long_colsum_kernel"),
+                     "fake_quant_rows": ("fake_quant_rows",),
+                     "fused block kernels": ("layernorm_snap_rows",
+                                             "gemm_f32x3",
+                                             "layernorm_rows_bwd",
+                                             "colsum_kernel"),
+                     "optimizer": ("multi_tensor",)}, device, power)
+    time_yolos_forward(model, "FP16_32 ",
+                       {"fake_quant_rows": ("fake_quant_rows",)}, device,
+                       power)
 
 
 def port_kernel_names():
@@ -4025,6 +4457,7 @@ def main():
           f"images of 160 px) in {time.perf_counter() - t0:.1f} s")
     det_launches = phase_detect(device, *det_data)
     det_train_launches = phase_detect_train(device, *det_data)
+    float_det_launches = phase_detect_float(device, *det_data)
     power = power_line()
     totals = phase_timing(device, power, int8_ckpt, int8_kwargs,
                           float_ckpt, float_kwargs)
@@ -4039,13 +4472,16 @@ def main():
             # formats' (FP16_32), the QAT train CLI (FP16_32) for the
             # float formats' backward, the detection eval CLI for the
             # flash forward, the detection train CLI for the flash
-            # backward
+            # backward, the FP16_32 detection train CLI for the float
+            # formats' long core
             "launches": (int8_launches if name in INT8_KERNELS
                          else float_launches if name in FLOAT_KERNELS
                          else qat_launches if name in QAT_KERNELS
                          else det_launches if name == "flash_attention_fwd"
                          else det_train_launches
                          if name == "flash_attention_bwd"
+                         else float_det_launches
+                         if name in LONG_FLOAT_KERNELS
                          else launches)[name],
             "max_abs_err": errors[name],
             # sums over this kernel's launches in one ViT-S/16 block at
@@ -4053,7 +4489,9 @@ def main():
             # (INT8, FP16_32), a QAT step's backward (FP16_32: the two
             # float backward kernels); the flash forward's one launch in a YOLOS-S
             # block at 800 px, B=8; the flash backward's one call (three
-            # kernels) in a YOLOS-S block at 608 px, B=8
+            # kernels) in a YOLOS-S block at 608 px, B=8; the float long
+            # core's one call, forward or backward (three kernels), in a
+            # YOLOS-S FP16_32 block at 384 px, B=8
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": max(t["by"], key=t["by"].get),
@@ -4061,11 +4499,12 @@ def main():
             # the profiler's device time of the same launches
             "device_ms": t["device_ms"],
         })
-        if name in DETECT_KERNELS + LONG_KERNELS:
+        if name in DETECT_KERNELS + LONG_KERNELS + LONG_FLOAT_KERNELS:
             # the flash kernels at both regimes' shapes, each case's own
             # numbers: the K6 / K7 shapes summed above and the K5 / K8
             # ones; the fused core's cases: the ViT-S/16 block's, the long
-            # route forced at 197 tokens and at YOLOS-S's 677 (B=8 and 2)
+            # route forced at 197 tokens and at YOLOS-S's 677 (B=8 and 2);
+            # the float long core's at 677 (B=8 and 2)
             kernels[-1]["cases"] = t["cases"]
     for name, (source, replaces, tpu) in INT8_QAT_VARIANTS.items():
         t = totals[tpu]

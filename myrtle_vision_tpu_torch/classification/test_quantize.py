@@ -63,6 +63,14 @@ def build_quantize(config, device):
     loaded strictly; the validation loader unpadded, the test loader
     padding its last batch."""
     train_config = config["train_config"]
+    decoder = config["vit_config"]["decoder"]
+    if decoder != "classification":
+        raise NotImplementedError(
+            f"post-training quantization of a {decoder} model: this CLI "
+            "quantizes classifiers, as the JAX classification/"
+            "test_quantize.py does; a float-format detector trains and "
+            "evaluates through detection/train.py and detection/test.py "
+            "(ROADMAP A5a)")
     if config["vit_config"]["q_format"] == "FP32":
         raise ValueError("q_format FP32: nothing to quantize; "
                          "classification/test.py evaluates it")

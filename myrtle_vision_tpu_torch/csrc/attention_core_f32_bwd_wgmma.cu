@@ -332,35 +332,6 @@ __device__ __forceinline__ void key_chunk(
   }
 }
 
-// stores a 64-row accumulator tile (times `mul`) into columns [col0, col0
-// + D) of rows ra, ra + 8 (those below N) and adds the stored values to
-// the thread's column sums col[2 j + e] (column 8 j + 2 t + e)
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
-                                           float mul, float* out_a, bool va,
-                                           bool vb, size_t row_stride, int t,
-                                           float (&col)[D / 4]) {
-  float* out_b = out_a + 8 * row_stride;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int d = 8 * j + 2 * t;
-    const float a0 = __fmul_rn(acc[4 * j], mul);
-    const float a1 = __fmul_rn(acc[4 * j + 1], mul);
-    const float b0 = __fmul_rn(acc[4 * j + 2], mul);
-    const float b1 = __fmul_rn(acc[4 * j + 3], mul);
-    if (va) {
-      *reinterpret_cast<float2*>(out_a + d) = make_float2(a0, a1);
-      col[2 * j] = __fadd_rn(col[2 * j], a0);
-      col[2 * j + 1] = __fadd_rn(col[2 * j + 1], a1);
-    }
-    if (vb) {
-      *reinterpret_cast<float2*>(out_b + d) = make_float2(b0, b1);
-      col[2 * j] = __fadd_rn(col[2 * j], b0);
-      col[2 * j + 1] = __fadd_rn(col[2 * j + 1], b1);
-    }
-  }
-}
-
 template <int D, int NP>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_core_f32_bwd_wgmma_kernel(const float* __restrict__ qkv,

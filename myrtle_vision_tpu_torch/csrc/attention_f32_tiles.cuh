@@ -1,6 +1,8 @@
 // The 3-pass fp32 attention products on wgmma, shared by the fp32
 // attention core (attention_core_f32_wgmma.cu) and its backward
-// (attention_core_f32_bwd_wgmma.cu).
+// (attention_core_f32_bwd_wgmma.cu), and by their long routes above 256
+// tokens (attention_core_f32_long_wgmma.cu,
+// attention_core_f32_bwd_long_wgmma.cu).
 //
 // Every product is `dot_high3` (myrtle_vision_tpu/ops/high_precision.py):
 // each fp32 operand is split as x = hi + lo, hi = bf16(x), lo = bf16(x -
@@ -54,6 +56,12 @@ constexpr int kMaxN = 256;
 // an SM's shared memory and what the card keeps of it for each CTA
 constexpr size_t kSmemPerSm = 233472;
 constexpr size_t kSmemPerCta = 1024;
+// the long route above kMaxN (attention_core_f32_long_wgmma.cu,
+// attention_core_f32_bwd_long_wgmma.cu): a CTA's own 64 rows, the 64-row
+// tiles it walks, and the longest sequence, whose 64 x 768 fp32 score block
+// is what the forward's shared memory holds
+constexpr int kLongTile = 64;
+constexpr int kLongMaxN = 768;
 
 // Rows r0 .. r0 + rows - 1 of an fp32 (., D) operand (`src` its row 0,
 // rows `ld` floats apart; rows at or past n read as zero; each row times
@@ -106,6 +114,36 @@ __device__ __forceinline__ void chain3(const Mma& mma) {
   for (int k = 0; k < kSteps; ++k) mma(1, 0, k);
 #pragma unroll
   for (int k = 0; k < kSteps; ++k) mma(0, 0, k);
+}
+
+// stores a 64-row accumulator tile (times `mul`) into D columns from
+// out_a of rows ra, ra + 8 (those below N: va, vb) and adds the
+// stored values to the thread's column sums col[2 j + e] (column 8 j + 2 t
+// + e): the backwards' dQ, dK and dV tiles
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           float mul, float* out_a, bool va,
+                                           bool vb, size_t row_stride, int t,
+                                           float (&col)[D / 4]) {
+  float* out_b = out_a + 8 * row_stride;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int d = 8 * j + 2 * t;
+    const float a0 = __fmul_rn(acc[4 * j], mul);
+    const float a1 = __fmul_rn(acc[4 * j + 1], mul);
+    const float b0 = __fmul_rn(acc[4 * j + 2], mul);
+    const float b1 = __fmul_rn(acc[4 * j + 3], mul);
+    if (va) {
+      *reinterpret_cast<float2*>(out_a + d) = make_float2(a0, a1);
+      col[2 * j] = __fadd_rn(col[2 * j], a0);
+      col[2 * j + 1] = __fadd_rn(col[2 * j + 1], a1);
+    }
+    if (vb) {
+      *reinterpret_cast<float2*>(out_b + d) = make_float2(b0, b1);
+      col[2 * j] = __fadd_rn(col[2 * j], b0);
+      col[2 * j + 1] = __fadd_rn(col[2 * j + 1], b1);
+    }
+  }
 }
 
 // s = chain * scale, rounded once (never contracted with what follows)

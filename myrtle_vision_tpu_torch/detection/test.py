@@ -8,7 +8,10 @@ Evaluates the checkpoint named in ``train_config.checkpoint_path`` (a
 reference-format ``.pth``, as classification/export_checkpoint.py and
 myrtle_vision_tpu/utils/export.py write it, or a port checkpoint) on the
 test split through ``post_process`` and the COCO evaluator, and prints
-the 12-number summary.  The configs are the JAX CLI's, and relative paths
+the 12-number summary.  The model is the config's ``q_format``: FP32 or
+a stateless float format (FP16_16, FP16_32, TF32); a port checkpoint
+carries the format it was trained in, and one of another format is
+refused.  The configs are the JAX CLI's, and relative paths
 resolve against the working directory as there.  ``--device`` defaults
 to ``cuda``; without a CUDA device that raises, it never carries on on
 the CPU.
@@ -29,7 +32,10 @@ from myrtle_vision_tpu_torch.training.detection import (
 )
 from myrtle_vision_tpu_torch.transforms import detection as T
 from myrtle_vision_tpu_torch.utils.config import parse_config
-from myrtle_vision_tpu_torch.utils.convert import load_reference_checkpoint
+from myrtle_vision_tpu_torch.utils.convert import (
+    checkpoint_q_format,
+    load_reference_checkpoint,
+)
 
 
 def build_eval(config, device):
@@ -61,12 +67,14 @@ def build_eval(config, device):
     config["vit_config"]["dropout"] = 0.0
     config["vit_config"]["emb_dropout"] = 0.0
     model = ViT(**vit_kwargs_from_config(config, data_config), device=device)
-    if not train_config["checkpoint_path"]:
+    path = train_config["checkpoint_path"]
+    if not path:
         raise ValueError("Must provide a checkpoint path in the config file")
-    model.load_state_dict(
-        load_reference_checkpoint(train_config["checkpoint_path"]),
-        strict=True,
-    )
+    fmt = checkpoint_q_format(path)
+    if fmt is not None and fmt != model.q_format.name:
+        raise ValueError(f"{path} holds a q_format {fmt} model; the config "
+                         f"asks for {model.q_format.name}")
+    model.load_state_dict(load_reference_checkpoint(path), strict=True)
     return model, loader, testset
 
 

@@ -19,6 +19,9 @@ port's detection eval CLI reads as they are; ``checkpoint_path``
 resumes from one.  ``--device`` defaults to ``cuda``; without a CUDA
 device that raises, it never carries on on the CPU.  Multi-device
 training and TensorBoard scalars are not ported yet (ROADMAP A9).
+``vit_config.q_format`` FP32 trains with bf16 compute; FP16_16, FP16_32
+and TF32 train the float simulation (QAT: straight-through sites and
+weights, fp32 compute); PyTorchINT8 is refused (ROADMAP A5b).
 """
 from __future__ import annotations
 
@@ -71,10 +74,10 @@ def build_train(config, device):
     train_config = config["train_config"]
     vit_config = config["vit_config"]
     data_config = parse_config(config["data_config_path"])
-    if vit_config["q_format"] != "FP32":
+    if vit_config["q_format"] == "PyTorchINT8":
         raise NotImplementedError(
-            f"detection training in q_format {vit_config['q_format']} is not "
-            "ported yet; see ROADMAP.md A5a (float formats) and A5b (INT8)")
+            "detection training in q_format PyTorchINT8 is not ported yet; "
+            "see ROADMAP.md A5b")
     seed = train_config["seed"]
     seed_everything(seed)
     num_det_tokens = vit_config.get("num_det_tokens", 100)

@@ -9,9 +9,9 @@ so far: without active dropout, ``decoder="classification"`` in
 ``q_format`` FP32 (inference and training), PyTorchINT8 (the calibrating
 forward, the simulation's eval forward, QAT training up to the fused
 Block's length, and the converted model) and the float formats
-(inference and QAT training, up to the fused Block's length), and
-``decoder="detection"`` (YOLOS: det tokens after the patches, the class
-and box heads on them) in FP32.  Parameters are named as in
+(inference and QAT training), and ``decoder="detection"`` (YOLOS: det
+tokens after the patches, the class and box heads on them) in FP32 and
+in the float formats.  Parameters are named as in
 the upstream reference state dict that myrtle_vision_tpu/utils/export.py
 writes
 (``transformer.layers.{i}.0.fn.fn.to_qkv.weight``, ...), so
@@ -68,9 +68,11 @@ K11 (``fake_quant_rows``), as does each weight's fake-quant
 discrete sites run as it runs them (QDense: the pre_linear snap, the
 weight's snap, the 3-pass product, the bias, the post_op snap;
 QLayerNorm, the token sites), the products as plain PyTorch, as XLA runs
-them there; each block half is one op with the format's ``qspec``
-(ops/fused_attention_block.py, ops/fused_mlp.py, the TPU kernels K1 and
-K3 with their snaps, K2 and K4 for their backward).  The simulation
+them there; where the JAX Block fuses, each block half is one op with
+the format's ``qspec`` (ops/fused_attention_block.py, ops/fused_mlp.py,
+the TPU kernels K1 and K3 with their snaps, K2 and K4 for their
+backward), and beyond the gate the Block's discrete sites run the same
+way, with the fp32 ``xla`` attention core (ops/attention.py).  The simulation
 trains (QAT): every site and weight fake-quant is straight-through
 (ops/fake_quant.py), the products outside the blocks take
 ``matmul_high3``'s 3-pass backward, and the fused ops their own.
@@ -138,7 +140,7 @@ MIN_NUM_PATCHES = 16  # reference vit.py:14
 # the port runs without active dropout: the classification decoder in FP32
 # for inference and training, in PyTorchINT8 for calibration and converted
 # inference and in the float formats for inference and QAT training, the
-# detection decoder in FP32
+# detection decoder in FP32 and the float formats
 _NOT_PORTED = "not ported yet; see ROADMAP.md (Queue A)"
 # the weights a converted float model stores in fp16
 _FP16_STORAGE = (QFormat.FP16_16, QFormat.FP16_32)
@@ -209,6 +211,16 @@ def _qdense_float(linear, x, q_format, converted, plain):
     w = quantize_weight(linear.weight, q_format, "linear", converted, plain)
     y = matmul_high3(x, w.float().t()) + linear.bias
     return act_quant(y, q_format, "post_op", plain)
+
+
+def _qlayernorm_float(norm, x, q_format, converted, plain):
+    """QLayerNorm in a stateless float format, fp32 (..., C) in and out: the
+    pre_linear snap, the scale's fake-quant (only when converted), the
+    LayerNorm, the post_op snap."""
+    y = act_quant(x, q_format, "pre_linear", plain)
+    scale = quantize_weight(norm.weight, q_format, "norm", converted, plain)
+    return act_quant(layernorm_rows_plain(y, scale.float(), norm.bias),
+                     q_format, "post_op", plain)
 
 
 def _int8_dense(kern, linear, x, in_site, out_site, in_has):
@@ -376,9 +388,7 @@ class Block(nn.Module):
         if not fuses_at(n, self.heads, self.dim_head):
             raise NotImplementedError(
                 f"{n} tokens in PyTorchINT8 QAT: the one-pass discrete step "
-                "beyond the fused gate is not ported yet (it needs the "
-                "3-pass attention products' backward); see ROADMAP.md A5b "
-                "and A5a")
+                "beyond the fused gate is not ported yet; see ROADMAP.md A5b")
         a, f = self._modules["0"].fn, self._modules["1"].fn
         qkv, out = a.fn.to_qkv, a.fn.to_out[0]
         fc1, fc2 = f.fn.net[0], f.fn.net[3]
@@ -428,16 +438,13 @@ class Block(nn.Module):
         )
 
     def forward_float(self, x, plain=False):
-        """The JAX Block's ``fuse`` branch in a stateless float format,
-        fp32 (B, N, C) in and out: each weight through its fake-quant
-        (``_qw``; LayerNorm scales only when converted), then one op per
-        half with the format's ``qspec``."""
-        n = x.shape[1]
-        if not fuses_at(n, self.heads, self.dim_head):
-            raise NotImplementedError(
-                f"{n} tokens in q_format {self.q_format.name}: the discrete "
-                "float-format Block (beyond the fused gate) is not ported "
-                "yet; see ROADMAP.md A5a")
+        """The JAX Block in a stateless float format, fp32 (B, N, C) in and
+        out.  Where ``fuses_at`` holds, its ``fuse`` branch: each weight
+        through its fake-quant (``_qw``; LayerNorm scales only when
+        converted), then one op per half with the format's ``qspec``;
+        beyond the gate the discrete sites (:meth:`forward_float_discrete`)."""
+        if not fuses_at(x.shape[1], self.heads, self.dim_head):
+            return self.forward_float_discrete(x, plain)
         a, f = self._modules["0"].fn, self._modules["1"].fn
         qkv, out = a.fn.to_qkv, a.fn.to_out[0]
         fc1, fc2 = f.fn.net[0], f.fn.net[3]
@@ -457,6 +464,36 @@ class Block(nn.Module):
         return mlp_op(x, qw(f.norm, "norm"), f.norm.bias,
                       qw(fc1, "linear").t(), fc1.bias,
                       qw(fc2, "linear").t(), fc2.bias, qspec=qspec)
+
+    def forward_float_discrete(self, x, plain=False):
+        """The JAX Block's discrete-site composition in a stateless float
+        format (its ``else`` branches), fp32 (B, N, C) in and out, every
+        site straight-through: QLayerNorm (:func:`_qlayernorm_float`),
+        QDense (:func:`_qdense_float`: 3-pass products with their 3-pass
+        backward) for to_qkv, to_out, fc1 and fc2, the fp32 ``xla``
+        attention core (ops/attention.py), the quant_out stub (the identity
+        in these formats), QGelu (the gelu_in and gelu_out sites around the
+        exact-divide polynomial-erf GELU) and the ResidualAdd sites.  The
+        sites run K11 on the card unless ``plain``; the products, the
+        LayerNorms and the core are PyTorch operations on any device, as
+        XLA runs them in the JAX package."""
+        a, f = self._modules["0"].fn, self._modules["1"].fn
+        attn, net = a.fn, f.fn.net
+        q, conv = self.q_format, self.converted
+        b, n, c = x.shape
+        y = _qlayernorm_float(a.norm, x, q, conv, plain)
+        qkv = _qdense_float(attn.to_qkv, y, q, conv, plain)
+        qh, kh, vh = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
+        o = multi_head_attention(qh, kh, vh, self.scale, impl="xla")
+        o = o.transpose(1, 2).reshape(b, n, c)
+        y = _qdense_float(attn.to_out[0], o, q, conv, plain)
+        x = act_quant(y + x, q, "functional", plain)
+        y = _qlayernorm_float(f.norm, x, q, conv, plain)
+        h = act_quant(_qdense_float(net[0], y, q, conv, plain), q, "gelu_in",
+                      plain)
+        g = act_quant(K.gelu_poly(h), q, "gelu_out", plain)
+        y = _qdense_float(net[3], g, q, conv, plain)
+        return act_quant(y + x, q, "functional", plain)
 
     def forward_discrete(self, x, plain=False):
         """The JAX Block's discrete-site FP32 composition, (B, N, C) in the
@@ -544,11 +581,7 @@ class ClassificationDecoder(nn.Module):
         """QLayerNorm and QDense in a stateless float format: the norm's
         pre_linear snap, its scale's fake-quant (when converted), the
         LayerNorm, its post_op snap, then :func:`_qdense_float`."""
-        y = act_quant(x[:, 0], q_format, "pre_linear", plain)
-        scale = quantize_weight(self.norm.weight, q_format, "norm", converted,
-                                plain)
-        y = act_quant(layernorm_rows_plain(y, scale, self.norm.bias),
-                      q_format, "post_op", plain)
+        y = _qlayernorm_float(self.norm, x[:, 0], q_format, converted, plain)
         return _qdense_float(self.linear, y, q_format, converted, plain)
 
     def forward_converted(self, kern, x, sites, has):
@@ -587,6 +620,18 @@ class DetectionDecoder(nn.Module):
             "pred_logits": _dense(x, self.class_embed, dtype).float(),
             "pred_boxes": torch.sigmoid(
                 _dense(x, self.bbox_embed, dtype).float()),
+        }
+
+    def forward_float(self, x, q_format, converted, plain):
+        """The heads in a stateless float format: ``class_embed`` and
+        ``bbox_embed`` through :func:`_qdense_float`, then the sigmoid of
+        the boxes, fp32."""
+        x = x[:, -self.num_det_tokens:]
+        return {
+            "pred_logits": _qdense_float(self.class_embed, x, q_format,
+                                         converted, plain),
+            "pred_boxes": torch.sigmoid(_qdense_float(
+                self.bbox_embed, x, q_format, converted, plain)),
         }
 
 
@@ -633,10 +678,10 @@ class ViT(nn.Module):
         if decoder not in ("classification", "detection"):
             raise NotImplementedError(f"decoder {decoder!r}: {_NOT_PORTED}")
         q_format = QFormat[getattr(q_format, "name", q_format)]
-        if decoder == "detection" and q_format != QFormat.FP32:
+        if decoder == "detection" and q_format == QFormat.PyTorchINT8:
             raise NotImplementedError(
-                f"detection in q_format {q_format.name} is not ported yet; "
-                "see ROADMAP.md A5a (float formats) and A5b (INT8)")
+                "detection in q_format PyTorchINT8 is not ported yet; see "
+                "ROADMAP.md A5b")
         if converted and q_format == QFormat.FP32:
             raise ValueError("q_format FP32 has nothing to convert")
         if image_size % patch_size:
@@ -690,8 +735,10 @@ class ViT(nn.Module):
                            self.decoder.linear):
                 module.act_out = ActQuant(device)
         if converted and q_format in _FP16_STORAGE:
-            for module in (self.patch_to_embedding, self.decoder.norm,
-                           self.decoder.linear):
+            head = ((self.decoder.class_embed, self.decoder.bbox_embed)
+                    if decoder == "detection"
+                    else (self.decoder.norm, self.decoder.linear))
+            for module in (self.patch_to_embedding, *head):
                 _make_fp16(module)
         if converted and self.int8:
             for linear in (self.patch_to_embedding, self.decoder.linear):
@@ -863,15 +910,19 @@ class ViT(nn.Module):
 
     def embed_float(self, img, plain=False):
         """A float format's tokens entering the first block: the patch
-        embedding's QDense, the cls token and positions through the
-        functional sites."""
+        embedding's QDense, the cls token (and for detection the det tokens
+        after the patches) and positions through the functional sites (the
+        token stubs are identities in these formats)."""
         b, h, w, _ = img.shape
         q = self.q_format
         x = _qdense_float(self.patch_to_embedding,
                           self.patchify(img.float()), q, self.converted,
                           plain)
-        cls = self.cls_token.float().expand(b, 1, self.dim)
-        x = act_quant(torch.cat([cls, x], dim=1), q, "functional", plain)
+        tokens = [self.cls_token.float().expand(b, 1, self.dim), x]
+        if self.decoder_name == "detection":
+            tokens.append(self.det_tokens.float().expand(
+                b, self.num_det_tokens, self.dim))
+        x = act_quant(torch.cat(tokens, dim=1), q, "functional", plain)
         pos = act_quant(self._positions(h, w).float(), q, "functional", plain)
         return act_quant(x + pos, q, "functional", plain)
 

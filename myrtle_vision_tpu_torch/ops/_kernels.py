@@ -45,6 +45,12 @@ snap from csrc/fake_quant.cuh:
 - ``attention_core_f32_bwd``   csrc/attention_core_f32_bwd_wgmma.cu (3-pass
                                wgmma; the score chain of both in
                                csrc/attention_f32_tiles.cuh)
+- ``attention_core_f32_long``  above 256 tokens, the snap mode of the fp32
+                               core: csrc/attention_core_f32_long_wgmma.cu
+- ``attention_core_f32_bwd_long``  above 256 tokens, its backward:
+                               csrc/attention_core_f32_bwd_long_wgmma.cu
+                               (both long routes' shapes in
+                               :func:`f32_long_plan`)
 - ``layernorm_rows_bwd``       csrc/layernorm_rows_bwd.cu, its fp32 snap form
                                (counted as ``layernorm_snap_rows_bwd``)
 
@@ -141,6 +147,7 @@ LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
             "flash_attention_bwd": 0, "fake_quant_rows": 0,
             "layernorm_snap_rows": 0, "gemm_f32x3_epilogue": 0,
             "attention_core_f32_bwd": 0, "layernorm_snap_rows_bwd": 0,
+            "attention_core_f32_long": 0, "attention_core_f32_bwd_long": 0,
             "attention_core_probe": 0, "gemm_bf16_probe": 0,
             "gemm_bf16_gelu_probe": 0, "gemm_layout_probe": 0}
 INT8_EPILOGUES = {"requant": 0, "requant_gelu_quant": 1,
@@ -194,6 +201,14 @@ CORE_LONG_FWD_STAGES = 3
 CORE_LONG_BWD_TILE = 64
 CORE_LONG_BWD_STAGES = 4
 CORE_LONG_BWD_LAUNCHES = 4
+# the float formats' fp32 core above F32_CORE_MAX_N
+# (csrc/attention_core_f32_long_wgmma.cu,
+# csrc/attention_core_f32_bwd_long_wgmma.cu; kLongTile, kLongMaxN in
+# csrc/attention_f32_tiles.cuh): a CTA's own rows and the tile it walks,
+# the longest sequence, the backward's kernels a call
+F32_LONG_TILE = 64
+F32_LONG_MAX_N = 768
+F32_LONG_BWD_LAUNCHES = 3
 
 
 def reset_launches() -> None:
@@ -959,6 +974,29 @@ def core_long_launch(n, d):
     return figures
 
 
+def f32_long_plan(n, d, b=1, heads=1):
+    """How the fp32 core's long route (``attention_core_snap`` above
+    :data:`F32_CORE_MAX_N` or with ``tiled``, ``attention_core_f32_bwd``
+    likewise) covers ``b`` images of ``heads`` heads of ``n`` tokens (1 to
+    :data:`F32_LONG_MAX_N`) at head width ``d`` (32 or 64): {"tiles": the
+    64-row tiles of a (image, head), each a CTA of every kernel but the
+    column sums, "n_pad": n rounded up to :data:`F32_LONG_TILE`,
+    "launches": {"fwd": 1, "bwd": 3}, "scratch": the backward's scratch
+    shapes, "rt" (r rs of every row, (b, heads, n_pad)) and "colpart"
+    (each 64-row tile's column sums, (b, tiles, 3 heads d))}."""
+    if not 1 <= n <= F32_LONG_MAX_N or d not in (32, 64) or b < 1 or \
+            heads < 1:
+        raise ValueError(f"f32_long_plan: n={n}, d={d}, b={b}, "
+                         f"heads={heads}")
+    tiles = math.ceil(n / F32_LONG_TILE)
+    return {
+        "tiles": tiles, "n_pad": tiles * F32_LONG_TILE,
+        "launches": {"fwd": 1, "bwd": F32_LONG_BWD_LAUNCHES},
+        "scratch": {"rt": (b, heads, tiles * F32_LONG_TILE),
+                    "colpart": (b, tiles, 3 * heads * d)},
+    }
+
+
 def gemm_s8_plan(m, n, k):
     """How gemm_s8_epilogue covers an (M, N) output: {"tile": (rows,
     cols), "k_split": K (never split), "steps": K steps of
@@ -1447,21 +1485,39 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
     return out
 
 
-def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False):
+def _long_route(n, qspec, name):
+    """Raise where the fp32 core's long route does not take a call: an
+    INT8 QAT site table, or more than :data:`F32_LONG_MAX_N` tokens."""
+    if isinstance(qspec, Int8Sites):
+        raise NotImplementedError(
+            f"{name}: sequence {n} in PyTorchINT8 QAT exceeds the one-CTA "
+            f"kernel's maximum {F32_CORE_MAX_N}; the int8 sites of the long "
+            "route wait for the rest of INT8 (ROADMAP A5b)")
+    if n > F32_LONG_MAX_N:
+        raise NotImplementedError(
+            f"{name}: sequence {n} exceeds the long route's maximum "
+            f"{F32_LONG_MAX_N}, a 64 x {F32_LONG_MAX_N} fp32 score block in "
+            "one CTA's shared memory")
+
+
+def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
+                             tiled=False):
     """The CUDA version of :func:`attention_core_snap_plain`, the fp32 snap
     mode of ``attention_core_f32``: fp32 (B, N, 3C) -> fp32 (B, N, C), and
     with ``stats`` the rowmax and reciprocal rowsum (B, H, N) fp32; D =
-    C/heads must be 32 or 64 and N at most
-    :func:`attention_core_f32_max_n`; ``qspec`` a float format's or
-    :class:`Int8Sites` (one site)."""
+    C/heads must be 32 or 64; ``qspec`` a float format's or
+    :class:`Int8Sites` (one site).  Up to :func:`attention_core_f32_max_n`
+    one CTA per (image, head) (csrc/attention_core_f32_wgmma.cu); above it,
+    a float format only, the long route to :data:`F32_LONG_MAX_N`
+    (csrc/attention_core_f32_long_wgmma.cu, :func:`f32_long_plan`), counted
+    as ``attention_core_f32_long``; ``tiled`` takes the long route at any N
+    (for holding the two against each other)."""
     _require(qkv, "qkv", torch.float32)
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_f32")
-    if n > attention_core_f32_max_n():
-        raise NotImplementedError(
-            f"attention_core_f32: sequence {n} exceeds the kernel's maximum "
-            f"{attention_core_f32_max_n()}; a float format or INT8 QAT above "
-            "it waits for the f32 core's KV tiles (ROADMAP A5a)")
+    tiled = tiled or n > attention_core_f32_max_n()
+    if tiled:
+        _long_route(n, qspec, "attention_core_f32")
     exp_bits, man_bits, _, site = _policy_args(qspec, 1)
     out = torch.empty((b, n, c), dtype=torch.float32, device=qkv.device)
     m = rs = None
@@ -1469,11 +1525,16 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False):
         m = torch.empty((b, heads, n), dtype=torch.float32,
                         device=qkv.device)
         rs = torch.empty_like(m)
-    _launch("attention_core_f32", _lib().mvt_attention_core_f32_snap, qkv,
-            qkv.data_ptr(), out.data_ptr(),
-            None if m is None else m.data_ptr(),
-            None if rs is None else rs.data_ptr(), b, n, heads, d,
-            float(scale), exp_bits, man_bits, site)
+    stat_ptrs = (None if m is None else m.data_ptr(),
+                 None if rs is None else rs.data_ptr())
+    if tiled:
+        _launch("attention_core_f32_long", _lib().mvt_attention_core_f32_long,
+                qkv, qkv.data_ptr(), out.data_ptr(), *stat_ptrs, b, n, heads,
+                d, float(scale), exp_bits, man_bits)
+    else:
+        _launch("attention_core_f32", _lib().mvt_attention_core_f32_snap, qkv,
+                qkv.data_ptr(), out.data_ptr(), *stat_ptrs, b, n, heads, d,
+                float(scale), exp_bits, man_bits, site)
     return (out, m, rs) if stats else out
 
 
@@ -1513,28 +1574,43 @@ def attention_core_f32_launch(n, d):
     return figures
 
 
-def attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale):
+def attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale,
+                                tiled=False):
     """The CUDA version of :func:`attention_core_f32_bwd_plain`: fp32 qkv
     (B, N, 3C), d_o (B, N, C), m and rs (B, H, N); D = C/heads must be 32
-    or 64 and N at most :func:`attention_core_f32_max_n`."""
+    or 64.  Up to :func:`attention_core_f32_max_n` one CTA of two
+    warpgroups per (image, head) (csrc/attention_core_f32_bwd_wgmma.cu);
+    above it the long route to :data:`F32_LONG_MAX_N`
+    (csrc/attention_core_f32_bwd_long_wgmma.cu: three launches, the
+    scratch of :func:`f32_long_plan`), counted as
+    ``attention_core_f32_bwd_long``; ``tiled`` takes it at any N."""
     _require(qkv, "qkv", torch.float32)
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_f32_bwd")
     lib = _lib()
-    if n > lib.mvt_attention_core_f32_bwd_max_n():
-        raise NotImplementedError(
-            f"attention_core_f32_bwd: sequence {n} exceeds the kernel's "
-            f"maximum {lib.mvt_attention_core_f32_bwd_max_n()}; a float "
-            "format or INT8 QAT above it waits for the f32 core's KV tiles "
-            "(ROADMAP A5a)")
+    tiled = tiled or n > lib.mvt_attention_core_f32_bwd_max_n()
+    if tiled:
+        _long_route(n, None, "attention_core_f32_bwd")
     _require_shape(d_o, "d_o", (b, n, c))
     _require_shape(m, "m", (b, heads, n))
     _require_shape(rs, "rs", (b, heads, n))
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((b, c3), dtype=torch.float32, device=qkv.device)
-    _launch("attention_core_f32_bwd", lib.mvt_attention_core_f32_bwd, qkv,
-            qkv.data_ptr(), d_o.data_ptr(), m.data_ptr(), rs.data_ptr(),
-            dqkv.data_ptr(), dbias.data_ptr(), b, n, heads, d, float(scale))
+    args = (qkv.data_ptr(), d_o.data_ptr(), m.data_ptr(), rs.data_ptr(),
+            dqkv.data_ptr(), dbias.data_ptr())
+    if tiled:
+        shapes = f32_long_plan(n, d, b, heads)["scratch"]
+        rt, colpart = (torch.empty(shapes[k], dtype=torch.float32,
+                                   device=qkv.device)
+                       for k in ("rt", "colpart"))
+        launched = ctypes.c_int(0)
+        _launch("attention_core_f32_bwd_long",
+                lib.mvt_attention_core_f32_bwd_long, qkv, *args,
+                rt.data_ptr(), colpart.data_ptr(), b, n, heads, d,
+                float(scale), ctypes.addressof(launched), launched=launched)
+    else:
+        _launch("attention_core_f32_bwd", lib.mvt_attention_core_f32_bwd,
+                qkv, *args, b, n, heads, d, float(scale))
     return dqkv, dbias
 
 

@@ -21,9 +21,12 @@ pins it around these calls).
 backward: dx = high3(do, w^T) and dw = high3(x^T, do), the incoming
 gradient split hi / lo as well.  Autodiff through the split would drop
 the gradient's low half (the ``lo`` branch's derivative is zero, since
-d/dx [x - bf16(x)] = 0 almost everywhere).  The batched ``bdot_*``
-products are forward only: the float-format attention runs them inside
-the fused op, whose backward is written out (ops/fused_attention_block.py).
+d/dx [x - bf16(x)] = 0 almost everywhere).  The batched attention
+products :func:`bdot_qk_high3` and :func:`bdot_pv_high3` carry the JAX
+custom VJPs' 3-pass backwards (``_qk_bwd``, ``_pv_bwd``) the same way,
+for the float formats' discrete attention core (ops/attention.py
+``impl="xla"``); inside the fused op their backward is written out
+(ops/fused_attention_block.py).
 """
 from __future__ import annotations
 
@@ -93,12 +96,57 @@ def matmul_fp32(x, w):
         return torch.matmul(x.float(), w.float())
 
 
+def _qk(a, b):
+    return torch.matmul(a, b.transpose(-1, -2))
+
+
+def _tr(t):
+    return t.transpose(-1, -2)
+
+
+class _BdotQK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return _high3(q, k, _qk)
+
+    @staticmethod
+    def backward(ctx, ds):
+        q, k = ctx.saved_tensors
+        ds = ds.float()
+        dq = dk = None
+        if ctx.needs_input_grad[0]:
+            dq = _high3(ds, k, torch.matmul).to(q.dtype)
+        if ctx.needs_input_grad[1]:
+            dk = _high3(_tr(ds), q, torch.matmul).to(k.dtype)
+        return dq, dk
+
+
+class _BdotPV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, v):
+        ctx.save_for_backward(p, v)
+        return _high3(p, v, torch.matmul)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, v = ctx.saved_tensors
+        g = g.float()
+        dp = dv = None
+        if ctx.needs_input_grad[0]:
+            dp = _high3(g, v, _qk).to(p.dtype)
+        if ctx.needs_input_grad[1]:
+            dv = _high3(_tr(p), g, torch.matmul).to(v.dtype)
+        return dp, dv
+
+
 def bdot_qk_high3(q, k):
-    """scores[b,h,n,m] = sum_d q[b,h,n,d] k[b,h,m,d] at 3-pass
-    precision."""
-    return _high3(q, k, lambda a, b: torch.matmul(a, b.transpose(-1, -2)))
+    """scores[b,h,n,m] = sum_d q[b,h,n,d] k[b,h,m,d] at 3-pass precision;
+    its backward (``_qk_bwd``): dq = high3(ds, k), dk = high3(ds^T, q)."""
+    return _BdotQK.apply(q, k)
 
 
 def bdot_pv_high3(p, v):
-    """out[b,h,n,d] = sum_m p[b,h,n,m] v[b,h,m,d] at 3-pass precision."""
-    return _high3(p, v, torch.matmul)
+    """out[b,h,n,d] = sum_m p[b,h,n,m] v[b,h,m,d] at 3-pass precision; its
+    backward (``_pv_bwd``): dp = high3(g, v^T), dv = high3(p^T, g)."""
+    return _BdotPV.apply(p, v)

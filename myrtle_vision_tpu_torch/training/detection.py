@@ -4,7 +4,10 @@ and COCO evaluation (port of ``make_loss_fn``, ``make_detect_fn`` and
 device).  The JAX package's split matching (``make_match_fn``,
 ``use_split_matching``) works around its TPU runtime and is not ported:
 here the matcher runs inside the loss, on the training forward's
-outputs, as in the JAX package's default."""
+outputs, as in the JAX package's default.  FP32 and the stateless float
+formats (FP16_16, FP16_32, TF32) share both functions: those formats keep
+no state, so there is no ``quant`` collection to thread through, as in
+the JAX ``make_loss_fn`` for them."""
 from __future__ import annotations
 
 import torch

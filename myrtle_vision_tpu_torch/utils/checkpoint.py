@@ -4,7 +4,8 @@ myrtle_vision_tpu/utils/checkpoint.py).
 A checkpoint is ``torch.save`` of {"model": the reference-named state
 dict, "optimizer": the optimizer's state dict, "quant": {},
 "lr_scheduler": {...}, "iteration": n}, the envelope the upstream
-reference writes (utils/models.py:113-126), written atomically.  The
+reference writes (utils/models.py:113-126), and "q_format", the name of
+the model's format, written atomically.  The
 port's eval CLI reads it as it is (utils/convert.py
 ``load_reference_checkpoint``).  The LR schedule is a pure function of
 (config, epoch), so "lr_scheduler" holds metadata only.
@@ -26,6 +27,7 @@ def _write(filepath, model, optimizer, iteration, extra):
         "quant": {},
         "lr_scheduler": extra or {},
         "iteration": int(iteration),
+        "q_format": model.q_format.name,
     }
     tmp = f"{filepath}.tmp"
     torch.save(payload, tmp)

@@ -137,6 +137,16 @@ def load_reference_checkpoint(path):
             for name, t in obj.items()}
 
 
+def checkpoint_q_format(path):
+    """The ``q_format`` name that a port checkpoint's envelope carries
+    (utils/checkpoint.py), or None for a file without one (a reference
+    ``.pth``)."""
+    require_torch_file(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    fmt = obj.get("q_format")
+    return fmt if isinstance(fmt, str) else None
+
+
 def load_pretrained_backbone(model, source: str):
     """Load a timm ViT backbone into ``model`` (the JAX package's
     ``load_pretrained_backbone``): ``source`` is a timm model name, which

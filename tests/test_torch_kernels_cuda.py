@@ -993,8 +993,8 @@ def test_float_chains_match_plain(dev, c, hid, b, n, qspec):
 
 def test_float_kernels_refuse_what_they_do_not_take(dev):
     qspec = (5, 10, False)
-    n = K.attention_core_f32_max_n() + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A5a"):
+    n = K.F32_LONG_MAX_N + 1
+    with pytest.raises(NotImplementedError, match="long route's maximum"):
         K.attention_core_snap_cuda(torch.zeros(1, n, 3 * 64, device=dev), 1,
                                    0.125, qspec)
     a = torch.zeros(4, 6, device=dev)
@@ -1014,7 +1014,7 @@ def test_float_kernels_refuse_what_they_do_not_take(dev):
                                    qspec)
     with pytest.raises(ValueError, match="transposed `a`"):
         K.gemm_f32x3_epilogue_cuda(a.t(), a, bias[:6], "bias_snap", qspec)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5a"):
+    with pytest.raises(NotImplementedError, match="long route's maximum"):
         K.attention_core_f32_bwd_cuda(
             torch.zeros(1, n, 3 * 64, device=dev), torch.zeros(
                 1, n, 64, device=dev), *[torch.zeros(1, 1, n, device=dev)] * 2,
@@ -2315,3 +2315,109 @@ def test_wgmma_f32_core_recip_probe(dev):
     with pytest.raises(RuntimeError, match="CUDA error"):
         K.attention_core_f32_recip_probe_cuda(qkv[:, :100].contiguous(), 6,
                                               0.125, qspec)
+
+
+# the fp32 core's long route (csrc/attention_core_f32_long_wgmma.cu,
+# csrc/attention_core_f32_bwd_long_wgmma.cu): YOLOS-S's fused canvases
+# (257 just past the one-CTA kernels, 357 at 256 px, 677 at 384 px, 701 at
+# the fused gate), a ragged 300 and the route's top, 768
+F32_LONG_NS = [257, 300, 357, 677, 701, 768]
+
+
+@pytest.mark.parametrize("b", [2, 8])
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("d,heads", [(32, 12), (64, 6)])
+@pytest.mark.parametrize("n", F32_LONG_NS)
+def test_f32_long_core_forward(dev, n, d, heads, stats, b):
+    """The long forward in each float format against its plain version:
+    the snapped context under the float bar, the rowmax and reciprocal
+    rowsum under the one-kernel bar; one launch a call, counted as
+    attention_core_f32_long; a second launch gives the same bits."""
+    scale = d ** -0.5
+    for i, qspec in enumerate(F32_CORE_QSPECS.values()):
+        qkv = f32_core_qkv(b, n, heads, d, n * d + i + b, dev)
+        run = lambda: K.attention_core_snap_cuda(qkv, heads, scale, qspec,
+                                                 stats=stats)
+        before = dict(K.LAUNCHES)
+        got = run()
+        assert K.LAUNCHES["attention_core_f32_long"] == \
+            before["attention_core_f32_long"] + 1
+        assert K.LAUNCHES["attention_core_f32"] == \
+            before["attention_core_f32"]
+        ref = K.attention_core_snap_plain(qkv, heads, scale, qspec,
+                                          stats=stats)
+        if stats:
+            close_float(got[0], ref[0], qspec)
+            close(got[1], ref[1])
+            close(got[2], ref[2])
+        else:
+            close_float(got, ref, qspec)
+        _same_twice(run, got)
+
+
+@pytest.mark.parametrize("b", [2, 8])
+@pytest.mark.parametrize("d,heads", [(32, 12), (64, 6)])
+@pytest.mark.parametrize("n", F32_LONG_NS)
+def test_f32_long_core_backward(dev, n, d, heads, b):
+    """The long backward against its plain version from the plain
+    forward's statistics: dqkv under the chain bar, the per-image column
+    sums under the sum bar; three launches a call, counted as
+    attention_core_f32_bwd_long; a second call gives the same bits."""
+    scale = d ** -0.5
+    qkv, d_o, m, rs = f32_core_bwd_inputs(b, n, heads, d, n * d + b, dev)
+    run = lambda: K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads,
+                                                scale)
+    before = dict(K.LAUNCHES)
+    got = run()
+    assert K.LAUNCHES["attention_core_f32_bwd_long"] == \
+        before["attention_core_f32_bwd_long"] + K.F32_LONG_BWD_LAUNCHES
+    assert K.LAUNCHES["attention_core_f32_bwd"] == \
+        before["attention_core_f32_bwd"]
+    want = K.attention_core_f32_bwd_plain(qkv, d_o, m, rs, heads, scale)
+    close(got[0], want[0], CHAIN_ATOL)
+    close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+    _same_twice(run, got)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [1, 17, 64, 197])
+def test_f32_long_core_forced_agrees_with_one_cta(dev, n, d):
+    """Forced at N <= 256 (``tiled``), the long route against the one-CTA
+    kernels, forward (FP16_32, with statistics) and backward."""
+    heads, scale = 6, d ** -0.5
+    qspec = F32_CORE_QSPECS["FP16_32"]
+    qkv, d_o, _, _ = f32_core_bwd_inputs(4, n, heads, d, n + d, dev)
+    long = K.attention_core_snap_cuda(qkv, heads, scale, qspec, stats=True,
+                                      tiled=True)
+    short = K.attention_core_snap_cuda(qkv, heads, scale, qspec, stats=True)
+    close_float(long[0], short[0], qspec)
+    close(long[1], short[1])
+    close(long[2], short[2])
+    m, rs = short[1], short[2]
+    got = K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale,
+                                        tiled=True)
+    want = K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale)
+    close(got[0], want[0], CHAIN_ATOL)
+    close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+
+
+def test_f32_long_core_refuses_what_it_does_not_take(dev):
+    """Past the route's top, and INT8 QAT's sites above 256 tokens (the
+    rest of INT8, ROADMAP A5b)."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    lib = K._lib()
+    assert lib.mvt_attention_core_f32_long_max_n() == K.F32_LONG_MAX_N
+    assert lib.mvt_attention_core_f32_bwd_long_max_n() == K.F32_LONG_MAX_N
+    n = K.F32_LONG_MAX_N + 1
+    qkv = torch.zeros(1, n, 3 * 64, device=dev)
+    with pytest.raises(NotImplementedError, match="long route's maximum"):
+        K.attention_core_snap_cuda(qkv, 1, 0.125, (5, 10, False))
+    with pytest.raises(NotImplementedError, match="long route's maximum"):
+        K.attention_core_f32_bwd_cuda(
+            qkv, torch.zeros(1, n, 64, device=dev),
+            *[torch.zeros(1, 1, n, device=dev)] * 2, 1, 0.125)
+    site = torch.tensor([0.1, 128.0, 1.0], device=dev)
+    with pytest.raises(NotImplementedError, match="A5b"):
+        K.attention_core_snap_cuda(torch.zeros(1, 300, 3 * 64, device=dev),
+                                   1, 0.125, Int8Sites(site))

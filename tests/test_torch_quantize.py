@@ -274,20 +274,24 @@ def test_loads_refuse_the_other_storage(jax_int8):
 
 @pytest.mark.parametrize("q_format", ["FP16_16", "FP16_32", "TF32"])
 def test_float_formats_raise_with_the_roadmap_item(q_format, monkeypatch):
-    """What the float formats still refuse: detection and a sequence past
-    the fused gate; a forward that records gradients (QAT) now runs
-    (tests/test_torch_float_qat.py holds it against JAX)."""
-    with pytest.raises(NotImplementedError, match="A5a"):
-        ViT(**dict(KW, decoder="detection"), q_format=q_format)
+    """What the quantized formats still refuse: detection in PyTorchINT8
+    (A5b).  The float formats now build a detector, and a sequence past
+    the fused gate runs the discrete float Block, recording gradients or
+    not (tests/test_torch_float_detection.py holds both against JAX)."""
+    with pytest.raises(NotImplementedError, match="A5b"):
+        ViT(**dict(KW, decoder="detection"), q_format="PyTorchINT8")
+    assert ViT(**dict(KW, decoder="detection"), q_format=q_format).q_format \
+        == QFormat[q_format]
     model = ViT(q_format=q_format, **KW)
     img = torch.zeros(1, 80, 80, 3)
-    assert model(img).grad_fn is not None
+    fused = model(img)
+    assert fused.grad_fn is not None
     monkeypatch.setattr("myrtle_vision_tpu_torch.models.vit.fuses_at",
                         lambda n, heads, d: False)
-    with pytest.raises(NotImplementedError, match="A5a"):
-        model(img)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="A5a"):
-        model(img)
+    assert model(img).grad_fn is not None
+    with torch.no_grad():
+        torch.testing.assert_close(model(img), fused.detach(), rtol=0,
+                                   atol=1e-5)
 
 
 # ------------------------------------------------------------------- CLI
