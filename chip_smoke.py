@@ -87,6 +87,21 @@ Phases, each ending in one line of output:
               (the INT8 simulation) and the PTQ CLI (convert, the
               converted K9 / K10 forward): both accuracies and the share
               of agreeing argmaxes
+  6e. int8-long  PyTorchINT8 above 256 tokens: the long fp32 core's two
+              int8 modes (the INT8 QAT site snap with and without the
+              statistics, the converted model's int8 grid) against their
+              plain versions at B=8 N=577 (ViT-S/16 at 384 px), B=2 N=677
+              and 701 (YOLOS-S at 384 px, the fused gate), with each flip
+              share, and forced at B=64 N=197 against the one-CTA kernel;
+              the INT8 QAT attention op forward and backward (K1 / K2
+              int8) and the converted halves (K9 / K10) at B=8 N=577
+  6f. int8-384  ViT-S/16 at 384 px (577 tokens) in PyTorchINT8: the train
+              CLI (the two-pass QAT step, pass 2 through the long core's
+              site mode) for one epoch of a 350-image synthetic set, its
+              launches, the first step against the plain path; its last
+              checkpoint through the PTQ CLI (the converted K9 / K10
+              forward, the core in the long core's int8 mode), launches,
+              stage by stage and end to end against the plain path
   7. detect   the YOLOS-S detection eval CLI (detection/test.py's path;
               detection/train_configs/yolos_small.json, local batch 2) on
               the synthetic DIOR-layout test split (96 images, 160 px)
@@ -113,6 +128,11 @@ Phases, each ending in one line of output:
               288-352 px (425-585 tokens, every step through the long
               core, launches counted), its validation at 800 px, and its
               checkpoint through the detection eval CLI
+  8c. detect-int8  YOLOS-S in PyTorchINT8: the train CLI (the one-pass
+              QAT step, PyTorch operations as in the JAX package, no kernel
+              of the port) for one epoch of 32 synthetic images at 288-352
+              px, its validation at 800 px, its checkpoint (observers and
+              all) through the detection eval CLI; no launches
   9. timing   CUDA-event times at batch 256: each kernel, forward and
               backward (also the profiler's device time, kernel by
               kernel), and each chain against its plain version and,
@@ -131,7 +151,14 @@ Phases, each ending in one line of output:
               1, pass 2 and the backward apart, peak memory, a profile);
               the float long core and its backward at N=677, B=8 and 2,
               beside fp32 SDPA; the YOLOS-S FP16_32 QAT step at 608 and 384
-              px and its 800 px forward at batch 8, with device profiles
+              px and its 800 px forward at batch 8, with device profiles;
+              the long core's int8 modes at B=8 N=577 beside the plain
+              version, the bound and fp32 SDPA then the quantize, the
+              K1 / K2 int8 and K9 / K10 chains there, the 384 px two-pass
+              INT8 QAT step (B=256 or the largest half that fits: peak
+              memory, the passes apart, a profile) and converted forward,
+              and the YOLOS-S INT8 QAT step at 608 and 384 px and its 800
+              px forward at batch 8, each with a device profile
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -351,6 +378,21 @@ QAT_KERNELS = ("attention_core_f32_bwd", "layernorm_snap_rows_bwd")
 # the float formats' fp32 core above 256 tokens, forward and backward, run
 # by YOLOS-S detection in a float format (phase detect-float)
 LONG_FLOAT_KERNELS = ("attention_core_f32_long", "attention_core_f32_bwd_long")
+# the long fp32 core's int8 modes (PyTorchINT8 above 256 tokens, phases
+# int8-long and int8-384): the INT8 QAT site snap (K1 int8's core) and the
+# converted model's int8 grid (K9's core), each a kernels-line entry of its
+# own beside the float mode's
+LONG_INT8_KERNELS = {
+    "attention_core_f32_long[int8 sites]": f"{TPU_ATTN} (int8, above 256 "
+                                           "tokens)",
+    "attention_core_f32_long[int8 out]": f"{TPU_INT8_ATTN} (above 256 "
+                                         "tokens)"}
+# their kernel cases (B, N): ViT-S/16 at 384 px (577 tokens), YOLOS-S at
+# 384 px (677) and the fused gate (701)
+LONG_INT8_CASES = ((8, 577), (2, 677), (2, 701))
+# the batch of the 384 px timings: the two-pass QAT step's first try (it
+# halves until the step fits) and the converted forward
+INT8_384_BATCH = 256
 # each TPU kernel: the chain that replaces it and the kernel cases that
 # chain runs once per call, for its bound and yardstick sums
 _G = "gemm_bf16_epilogue"
@@ -1520,6 +1562,19 @@ def phase_kernels(device):
     return errors
 
 
+def counted(name, n_launch, fn):
+    """``fn()``, checking that it launched ``n_launch`` of kernel ``name``
+    and nothing else."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    before = dict(K.LAUNCHES)
+    out = fn()
+    grew = {k: K.LAUNCHES[k] - v for k, v in before.items()
+            if K.LAUNCHES[k] != v}
+    check(grew == {name: n_launch}, f"{name}: launches {grew}")
+    return out
+
+
 def phase_kernels_long_float(device):
     """The float formats' long core against its plain version at
     :data:`LONG_FLOAT_N` x head widths 64 and 32 x batches 2 and 8: the
@@ -1535,14 +1590,6 @@ def phase_kernels_long_float(device):
     from myrtle_vision_tpu_torch.ops import _kernels as K
 
     errors = dict.fromkeys(LONG_FLOAT_KERNELS, 0.0)
-
-    def counted(name, n_launch, fn):
-        before = dict(K.LAUNCHES)
-        out = fn()
-        grew = {k: K.LAUNCHES[k] - v for k, v in before.items()
-                if K.LAUNCHES[k] != v}
-        check(grew == {name: n_launch}, f"{name}: launches {grew}")
-        return out
 
     for n in LONG_FLOAT_N:
         for d in (64, 32):
@@ -2644,6 +2691,151 @@ def phase_kernels_qat_int8(device):
     return errors
 
 
+def long_int8_site(qkv, heads, scale):
+    """The (scale, zero point, 1) row of an observer that has seen the
+    fp32 context of ``qkv``, as a calibrated quant_out site."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.quantize import affine_uint8_qparams
+
+    ctx = K.attention_context_f32(qkv, heads, scale)
+    s, zp = affine_uint8_qparams(ctx.min(), ctx.max())
+    return torch.stack([s, zp, torch.ones_like(s)])
+
+
+def phase_kernels_long_int8(device):
+    """PyTorchINT8 above 256 tokens: the long fp32 core's two int8 modes
+    against their plain versions at :data:`LONG_INT8_CASES` (6 heads of
+    64) with a calibrated quant_out site, each call's launches counted (1,
+    none of the one-CTA kernel's): the site snap with and without the
+    statistics (K1 int8's core) under the INT8 QAT site bar, the int8 grid
+    (K9's core) under the converted INT8 bar, each with its share of
+    flipped elements; both forced at 197 tokens (``tiled``, B=64) against
+    the one-CTA kernel; then at 577 tokens (B=8) the INT8 QAT attention
+    op forward and backward (K1 / K2 int8) and the converted attention
+    op (K9) against their plain chains, their long core launches counted.
+    Returns the largest max abs difference of each mode."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    errors = dict.fromkeys(LONG_INT8_KERNELS, 0.0)
+    sites_key, out_key = LONG_INT8_KERNELS
+
+    for b, n in LONG_INT8_CASES:
+        rng = np.random.RandomState(n * 100 + b)
+        qkv = seeded(rng, (b, n, 3 * C), 1.0, device)
+        site = long_int8_site(qkv, HEADS, SCALE)
+        tag = f"B={b} N={n}"
+        worst = (0.0, 0.0, 0.0)
+        for stats in (False, True):
+            got = as_tuple(counted(
+                "attention_core_f32_long", 1,
+                lambda: K.attention_core_snap_cuda(
+                    qkv, HEADS, SCALE, Int8Sites(site), stats=stats)))
+            ref = as_tuple(K.attention_core_snap_plain(
+                qkv, HEADS, SCALE, Int8Sites(site), stats=stats))
+            label = f"{sites_key}{'+stats' if stats else ''} {tag}"
+            max_abs, of_bar, share = compare_sites(
+                f"{label} context", got[0], ref[0], site_step(site))
+            for i in range(1, len(got)):
+                m_abs, m_bar = compare(f"{label} output {i}", got[i], ref[i],
+                                       RTOL, KERNEL_ATOL)
+                max_abs, of_bar = max(max_abs, m_abs), max(of_bar, m_bar)
+            worst = max(worst, (of_bar, max_abs, share))
+        errors[sites_key] = max(errors[sites_key], worst[1])
+        got = counted("attention_core_f32_long", 1,
+                      lambda: K.attention_core_f32_cuda(qkv, HEADS, SCALE,
+                                                        site))
+        ref = K.attention_core_f32_plain(qkv, HEADS, SCALE, site)
+        g_abs, g_bar = compare_grid(f"{out_key} {tag}", got, ref, 1.0)
+        flips = (got != ref).float().mean().item()
+        errors[out_key] = max(errors[out_key], g_abs)
+        print(f"kernels: {sites_key} {tag} (with and without statistics) "
+              f"max_abs {worst[1]:.6g}, {worst[0]:.4f} of the bar, "
+              f"{worst[2]:.6f} of the context past the fp32 noise (a flipped "
+              f"rint of site step {site_step(site):.6g}); {out_key} max_abs "
+              f"{g_abs:g} int8 steps, {g_bar:.4f} of the bar, {flips:.6f} of "
+              f"the elements flipped (bar {1 - INT8_SAME:g})")
+        del qkv, got, ref
+
+    # forced at 197 tokens, against the one-CTA kernel
+    rng = np.random.RandomState(64197 + 9)
+    qkv = seeded(rng, (64, N, 3 * C), 1.0, device)
+    site = long_int8_site(qkv, HEADS, SCALE)
+    long = counted("attention_core_f32_long", 1,
+                   lambda: K.attention_core_snap_cuda(
+                       qkv, HEADS, SCALE, Int8Sites(site), stats=True,
+                       tiled=True))
+    short = K.attention_core_snap_cuda(qkv, HEADS, SCALE, Int8Sites(site),
+                                       stats=True)
+    worst = [compare_sites("forced long core site context", long[0],
+                           short[0], site_step(site))[:2]]
+    worst += [compare(f"forced long core site output {i}", long[i], short[i],
+                      RTOL, KERNEL_ATOL) for i in (1, 2)]
+    long = counted("attention_core_f32_long", 1,
+                   lambda: K.attention_core_f32_cuda(qkv, HEADS, SCALE, site,
+                                                     tiled=True))
+    short = K.attention_core_f32_cuda(qkv, HEADS, SCALE, site)
+    worst.append(compare_grid("forced long core int8 grid", long, short,
+                              1.0))
+    print(f"kernels: the long f32 core's int8 modes forced at B=64,N=197 "
+          f"against the one-CTA kernel: max_abs "
+          f"{max(w[0] for w in worst):.6g}, {max(w[1] for w in worst):.4f} "
+          f"of the bar")
+    del qkv, long, short
+
+    # the INT8 QAT attention op (K1 / K2 int8) and the converted attention
+    # op (K9) at ViT-S/16's 384 px
+    b, n = 8, 577
+    x, attn, mlp, sites = qat_int8_block_inputs(b, n, seed=8577, device=device)
+    do = seeded(np.random.RandomState(8578), (b, n, C), 1.0, device)
+    for name, kernel, plain, bars in qat_int8_op_cases(x, attn, mlp, do,
+                                                       sites):
+        if not name.startswith("fused_attention_block_i8"):
+            continue
+        reset_counts()
+        outs = as_tuple(kernel())
+        launches = {k: v for k, v in read_counts()[0].items() if v}
+        long_name = ("attention_core_f32_bwd_long" if "[bwd" in name
+                     else "attention_core_f32_long")
+        want = 3 if "[bwd" in name else 1
+        check(launches.get(long_name) == want
+              and "attention_core_f32" not in launches
+              and "attention_core_f32_bwd" not in launches,
+              f"{name} at N={n}: launches {launches}")
+        refs = as_tuple(plain())
+        worst = (0.0, 0.0)
+        for i, (got, ref, kind) in enumerate(zip(outs, refs, bars)):
+            label = f"int8-long: {name} B={b} N={n} output {i}"
+            if isinstance(kind, tuple):
+                max_abs, of_bar, _ = compare_sites(label, got, ref, kind[0],
+                                                   kind[1], I8_CHAIN_SAME)
+            else:
+                max_abs, of_bar = compare(label, got, ref, *bar(kind, ref))
+            worst = max(worst, (of_bar, max_abs))
+        print(f"kernels: {name} B={b} N={n} (the long core) max_abs "
+              f"{worst[1]:.6g}, {worst[0]:.4f} of the bar; launches "
+              f"{launches}")
+    del x, attn, mlp, sites, do
+    xi, ai, mi, ci = int8_block_inputs(b, n, seed=8579, device=device)
+    for name, kernel, plain, step in int8_op_cases(xi, ai, mi, ci):
+        reset_counts()
+        got = kernel()
+        launches = {k: v for k, v in read_counts()[0].items() if v}
+        if name == "int8_attention_block":
+            check(launches.get("attention_core_f32_long") == 1
+                  and "attention_core_f32" not in launches,
+                  f"{name} at N={n}: launches {launches}")
+        max_abs, of_bar = compare_grid(f"int8-long: {name} B={b} N={n}", got,
+                                       plain(), step, INT8_CHAIN_SAME,
+                                       INT8_CHAIN_STEPS)
+        flips = (got != plain()).float().mean().item()
+        print(f"kernels: {name} B={b} N={n} max_abs {max_abs:.6g}, "
+              f"{of_bar:.4f} of the bar, {flips:.6f} of the elements "
+              f"differ; launches {launches}")
+    del xi, ai, mi, ci
+    return errors
+
+
 def phase_qat_int8(device, data_config, data_cfg):
     """The ViT-S/16 train CLI in PyTorchINT8 (two-pass QAT) through the
     INT8 QAT ops, forward and backward; its last checkpoint through the
@@ -2751,6 +2943,171 @@ def phase_qat_int8(device, data_config, data_cfg):
     return ops
 
 
+def make_dataset_384():
+    """A smaller synthetic RESISC-layout set (10 classes, 50 images each:
+    350 train, 50 val, 100 test) and its data config at 384 px (96 px
+    images resized up), for ViT-S/16 at 384 px: 577 tokens."""
+    data = os.path.join(WORK, "data_384")
+    subprocess.run(
+        [sys.executable, os.path.join(ROOT, "classification",
+                                      "prepare_synthetic.py"),
+         "--out", data, "--per_class", "50", "--seed", "11"],
+        check=True, capture_output=True,
+    )
+    with open(os.path.join(ROOT, "classification", "data_configs",
+                           "data_config_synth.json")) as f:
+        data_config = json.load(f)
+    data_config["dataset_path"] = data
+    data_config["transform_ops_train"]["RandomResizedCrop"] = 384
+    data_config["transform_ops_val"]["Resize"] = 384
+    return data_config, write_json("data_config_384.json", data_config)
+
+
+def int8_384_config(data_cfg, name):
+    """vit_small.json in PyTorchINT8 at image_size 384 (its widths
+    unchanged; the positional grid is interpolated from the config),
+    written as ``name``."""
+    config = vit_small_config()
+    config["vit_config"].update(q_format="PyTorchINT8", image_size=384)
+    config["data_config_path"] = data_cfg
+    return config, write_json(name, config)
+
+
+def phase_int8_384(device):
+    """ViT-S/16 at 384 px (577 tokens) in PyTorchINT8: the train CLI (the
+    two-pass QAT step, pass 2's fused ops through the long core's site
+    mode) for one epoch of the 384 px set, its launches, the first step
+    against the plain path; then its last checkpoint through the PTQ CLI
+    (2 calibration batches, convert, the converted K9 / K10 forward, the
+    core in the long core's int8 mode), its launches, and the converted
+    model stage by stage and end to end against the plain path.  Returns
+    (the train CLI's kernel launches, the PTQ CLI's, the converted
+    checkpoint, the model's constructor kwargs)."""
+    from myrtle_vision_tpu_torch.classification import test_quantize as ptq
+    from myrtle_vision_tpu_torch.classification import train as train_cli
+    from myrtle_vision_tpu_torch.classification.test import evaluate_dataset
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.utils.convert import (
+        load_reference_checkpoint,
+    )
+
+    data_config, data_cfg = make_dataset_384()
+    config, _ = int8_384_config(data_cfg, "vit_small_384_int8.json")
+    tc = config["train_config"]
+    tc.update(output_directory=os.path.join(WORK, "int8_384"),
+              checkpoint_path="", epochs=1, warmup_epochs=0,
+              pretrained_backbone=None, iters_per_checkpoint=1000,
+              iters_per_val=1000)
+    cfg = write_json("vit_small_384_int8_train.json", config)
+    depth = config["vit_config"]["depth"]
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with counting_plain_calls() as plain_calls, \
+            contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "Epoch", "WARNING")):
+            print(f"int8-384: {line}")
+    steps = state.iteration
+    losses = [float(v) for v in
+              re.findall(r"Iteration \d+:\tloss=(\S+)\tacc=", text)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, train_loader, val_loader, (micro, n_accum) = \
+            train_cli.build_train(config, device)
+    per = depth * n_accum * steps  # validation runs no fused op
+    want = {"attention_core_f32_long": per,
+            "attention_core_f32_bwd_long": per * K.F32_LONG_BWD_LAUNCHES,
+            "attention_core_f32": 0, "attention_core_f32_bwd": 0}
+    got = {k: launches[k] for k in want}
+    print(f"int8-384: ViT-S/16 at 384 px ({(384 // 16) ** 2 + 1} tokens) "
+          f"train CLI in PyTorchINT8 on cuda, {steps} steps of {n_accum} x "
+          f"{micro} images and a validation of {len(val_loader)} batches "
+          f"(the simulation's eval forward) in {took:.1f} s: op launches "
+          f"(forward, backward) {ops}, expected ({per}, {per}) of each INT8 "
+          f"QAT op; fp32 core launches {got}, expected {want}; plain-version "
+          f"calls {plain_calls['n']}; kernels {launches}")
+    check(steps >= 2 and len(losses) == steps, f"{steps} steps, {losses}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    for op, count in ops.items():
+        check(count == ((per, per) if op.endswith("_i8") else (0, 0)),
+              f"{op} launches {count}")
+    check(plain_calls["n"] == 0, "the 384 px INT8 QAT run called a plain "
+          "version")
+    check(got == want, "the 384 px INT8 QAT step's long core launches")
+    run_dir = sorted(glob.glob(tc["output_directory"] + "_*"))[-1]
+    ckpts = sorted(os.listdir(run_dir))
+    check(ckpts == ["vit_000000", f"vit_{steps:06}"], f"checkpoints {ckpts}")
+    first_step_check(model, train_loader, os.path.join(run_dir, "vit_000000"),
+                     n_accum, micro, losses[0], tag="int8-384")
+    del model, train_loader, val_loader
+
+    # the last checkpoint through the PTQ CLI: the converted model at 577
+    # tokens, K9 / K10 with the long core's int8 mode
+    saved = os.path.join(WORK, "vit_small_384_int8_converted.pth")
+    tc.update(checkpoint_path=os.path.join(run_dir, ckpts[-1]),
+              drop_last_batch=False)
+    cfg = write_json("vit_small_384_int8_ptq.json", config)
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gts, preds, logits = ptq.main(["-c", cfg, "--device", "cuda",
+                                       "--calib_steps", "2",
+                                       "--save_converted", saved])
+    ptq_launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    batches = math.ceil(len(gts) / micro)
+    expect = dict.fromkeys(ptq_launches, 0)
+    expect.update(layernorm_quant_rows=(2 * depth + 1) * batches,
+                  gemm_s8_epilogue=(4 * depth + 2) * batches,
+                  attention_core_f32_long=depth * batches)
+    print(f"int8-384: the PTQ CLI on {ckpts[-1]} in {took:.1f} s: "
+          f"{len(gts)} test images in {batches} batches, accuracy "
+          f"{float(np.mean(gts == preds)):.4f}; int8_attention_block "
+          f"{ops['int8_attention_block'][0]} launches, kernels "
+          f"{ {k: v for k, v in ptq_launches.items() if v} }")
+    check(ops["int8_attention_block"] == ops["int8_mlp_block"]
+          == (depth * batches, 0), f"converted INT8 launches {ops}")
+    check(ptq_launches == expect, f"kernel launches {ptq_launches}, "
+          f"expected {expect}")
+    check(logits.shape == (len(gts), data_config["number_of_classes"])
+          and bool(torch.isfinite(logits).all()), "converted logits")
+    with open(cfg) as f:
+        config = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, test_loader, _, kwargs = ptq.build_quantize(config, device)
+    model = ViT(**dict(kwargs, converted=True), device=device)
+    model.load_state_dict(load_reference_checkpoint(saved), strict=True)
+    model.eval()
+    with torch.inference_mode():
+        _, plain_preds, plain_logits = evaluate_dataset(
+            lambda images: model(images, plain=True), test_loader)
+    step = float(model.io_sites[3][0])
+    stage_check(model, test_loader, tag="int8-384")
+    # End to end the logits are held to the converted model's bar; the
+    # argmax is printed, not held: this model's weights are random, two
+    # steps from their seed, and its top-1 margins chance-level, so a
+    # flip that the stage bars allow moves an argmax (measured: 2 of 40
+    # images, H100 80GB HBM3, 700 W), where phase 6's model held 95%
+    diff = (logits - plain_logits).abs()
+    limit = INT8_LOGIT_BAR * max(1.0, plain_logits.abs().max().item())
+    agree = float(np.mean(preds == plain_preds))
+    print(f"int8-384: kernel vs plain converted logits max_abs "
+          f"{diff.max().item():.6g} ({diff.max().item() / step:.3g} steps of "
+          f"the head's grid {step:.6g}; bar {limit:.6g}), "
+          f"{(diff == 0).float().mean().item():.4f} of them identical, "
+          f"argmax agreement {agree:.4f} (printed, not held)")
+    check(diff.max().item() <= limit,
+          "converted 384 px kernel-path logits disagree with the plain path")
+    return launches, ptq_launches, saved, kwargs
+
+
 def phase_quantize(device, data_config, data_cfg):
     """The PTQ CLI on vit_small.json in PyTorchINT8 through the INT8
     kernels; returns (kernel launches of its run, the converted
@@ -2834,7 +3191,7 @@ def phase_quantize(device, data_config, data_cfg):
     return launches, saved, kwargs
 
 
-def stage_check(model, loader):
+def stage_check(model, loader, tag="quantize"):
     """The converted model's forward on the first test batch, stage by
     stage, each stage of the kernel path fed the plain path's input."""
     from myrtle_vision_tpu_torch.ops import _kernels as K
@@ -2864,11 +3221,11 @@ def stage_check(model, loader):
             max_abs, of_bar = compare_grid(f"converted {name}", got, ref,
                                            step, same, steps)
             differ = (got != ref).float().mean().item()
-            print(f"quantize: stage {name}: {max_abs / step:.3g} steps of "
+            print(f"{tag}: stage {name}: {max_abs / step:.3g} steps of "
                   f"{step:.6g} at most, {differ:.5f} of the elements differ "
                   f"(bar {1 - same:g}, {steps} steps)")
             worst = max(worst, (of_bar, name))
-    print(f"quantize: the converted forward stage by stage (embedding, "
+    print(f"{tag}: the converted forward stage by stage (embedding, "
           f"{len(model.transformer.layers)} blocks, head), kernel path fed "
           f"the plain path's input: worst {worst[0]:.4f} of the bar, at "
           f"{worst[1]}")
@@ -3529,6 +3886,98 @@ def phase_detect_float(device, data_config, data_cfg):
     return launches
 
 
+def phase_detect_int8(device, data_config, data_cfg):
+    """YOLOS-S in PyTorchINT8 (yolos_small.json with q_format PyTorchINT8,
+    random weights from the seed): the train CLI (the JAX one-pass QAT
+    step: the calibrating forward differentiated, the discrete Block at
+    every canvas, PyTorch operations as XLA runs them in the JAX package,
+    no kernel of the port) for one epoch of 32 synthetic images at
+    :data:`FLOAT_TRAIN_SCALES`, its validation at 800 px (the
+    simulation's eval forward), and its last checkpoint, observers and
+    all, through the detection eval CLI; no kernel launches."""
+    from myrtle_vision_tpu_torch.detection import test as eval_cli
+    from myrtle_vision_tpu_torch.detection import train as train_cli
+    from myrtle_vision_tpu_torch.quantize import is_observer
+
+    train_data = dict(data_config, train_subset=DET_TRAIN_SUBSET)
+    train_data["transform_ops_train"] = {
+        "RandomHorizontalFlip": None,
+        "RandomResize": {"scales": FLOAT_TRAIN_SCALES,
+                         "max_size_ratio": [1333, 800]},
+        "Normalize": data_config["transform_ops_train"]["Normalize"]}
+    train_cfg = write_json("dior_synth_int8_train_data_config.json",
+                           train_data)
+    config = yolos_small_config()
+    config["vit_config"]["q_format"] = "PyTorchINT8"
+    config["data_config_path"] = train_cfg
+    tc = config["train_config"]
+    tc.update(output_directory=os.path.join(WORK, "detect_int8"),
+              checkpoint_path="", epochs=1, warmup_epochs=0,
+              pretrained_backbone=None)
+    cfg = write_json("yolos_small_int8_train.json", config)
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "Epoch")):
+            print(f"detect-int8: {line.strip()}")
+    losses = [[float(v) for v in m] for m in re.findall(
+        r"Iteration \d+:\tloss=(\S+)\tce=(\S+)\tbbox=(\S+)\tgiou=(\S+)",
+        text)]
+    steps = state.iteration
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"detect-int8: YOLOS-S PyTorchINT8 train CLI on cuda, {steps} "
+          f"steps of {DET_TRAIN_SUBSET // steps if steps else 0} images "
+          f"({DET_TRAIN_SUBSET} of the train split at {FLOAT_TRAIN_SCALES} "
+          f"px) and a validation at 800 px in {took:.1f} s; kernels "
+          f"launched { {k: v for k, v in launches.items() if v} } (none "
+          f"expected: the JAX detector runs no Pallas kernel in "
+          f"PyTorchINT8), block-half ops {ops}; peak device memory since "
+          f"the last reset {peak:.2f} GiB")
+    check(steps == len(losses) == DET_TRAIN_SUBSET // 4,
+          f"{steps} steps, {len(losses)} iteration lines")
+    check(all(math.isfinite(v) for row in losses for v in row),
+          f"losses {losses}")
+    check(all(v == 0 for v in launches.values())
+          and all(v == (0, 0) for v in ops.values()),
+          f"INT8 detection training launched {launches}, {ops}")
+    run_dir = sorted(glob.glob(tc["output_directory"] + "_*"))[-1]
+    ckpts = sorted(os.listdir(run_dir))
+    check(ckpts == [f"vit_{steps:06}", "vit_best"], f"checkpoints {ckpts}")
+    ckpt = os.path.join(run_dir, f"vit_{steps:06}")
+    payload = torch.load(ckpt, weights_only=True)
+    observers = {n: float(t) for n, t in payload["model"].items()
+                 if is_observer(n)}
+    check(payload["q_format"] == "PyTorchINT8" and observers
+          and all(math.isfinite(v) for v in observers.values()),
+          "the INT8 checkpoint's format and observers")
+    tc["checkpoint_path"] = ckpt
+    config["data_config_path"] = data_cfg
+    cfg = write_json("yolos_small_int8_eval.json", config)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        evaluator, preds = eval_cli.main(["-c", cfg, "--device", "cuda"])
+    eval_launches, eval_ops = read_counts()
+    stats = np.asarray(evaluator.stats, np.float64)
+    print(f"detect-int8: vit_{steps:06} ({len(observers) // 2} observers) "
+          f"through the detection eval CLI in PyTorchINT8 (the simulation's "
+          f"eval forward): {len(preds)} test images at 800 px in "
+          f"{time.perf_counter() - t0:.1f} s, COCO summary "
+          f"{' '.join(f'{v:.4f}' for v in stats)}; kernels launched "
+          f"{ {k: v for k, v in eval_launches.items() if v} }")
+    check(stats.shape == (12,) and bool(np.isfinite(stats).all()),
+          "COCO summary of the INT8 checkpoint")
+    check(all(v == 0 for v in eval_launches.values())
+          and all(v == (0, 0) for v in eval_ops.values()),
+          f"INT8 detection eval launched {eval_launches}")
+
+
 def paired_ms(kernel, plain, iters=20, warmup=3):
     """plain, kernel, kernel, plain; the mean of each pair."""
     p1, k1, k2, p2 = (cuda_ms(f, iters, warmup)
@@ -3653,7 +4102,7 @@ def time_chain(cases, name, kernel, plain, power, tag):
 
 
 def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
-                 float_kwargs):
+                 float_kwargs, int8_384_ckpt, int8_384_kwargs):
     """Per kernel: {ms, plain_ms, bound_ms, by, library_ms}, each the sum
     over the kernel's launches in one ViT-S/16 block at batch 256: a train
     step (forward with the saved statistics, backward) for the FP32
@@ -3852,6 +4301,7 @@ def phase_timing(device, power, int8_ckpt, int8_kwargs, float_ckpt,
     time_detection(totals, device, power)
     time_detection_train(totals, device, power)
     time_float_detection(totals, device, power)
+    time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs)
     return totals
 
 
@@ -4240,7 +4690,10 @@ def time_yolos_step(model, label, groups, device, power):
         state = TrainState(model, create_optimizer(tc, model))
 
         def plain_loss(mb):
-            losses = criterion(model(mb["image"], plain=True),
+            # the INT8 detector's one-pass step runs no kernel: its plain
+            # path is the same calibrating forward
+            losses = criterion(model(mb["image"], plain=True,
+                                     calibrating=model.int8),
                                {k: mb[k] for k in ("labels", "boxes",
                                                    "valid")},
                                n_classes, weight_dict=weights,
@@ -4375,6 +4828,208 @@ def time_float_detection(totals, device, power):
                        power)
 
 
+def time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs):
+    """PyTorchINT8 above 256 tokens.  The long core's int8 modes per call
+    at ViT-S/16's 384 px shape (B=8, N=577, 6 heads of 64), the site mode
+    with the statistics (as pass 2 runs it) and the int8 grid, beside the
+    plain version, the bound (the 3-pass products' bf16 operations, the
+    bytes each reads once and writes once) and a yardstick (fp32
+    ``F.scaled_dot_product_attention`` followed by the site's quantize,
+    two PyTorch calls; no one call does both); each into the kernels line,
+    once per block.  The K1 / K2 int8 and K9 chains at that shape.  Then
+    the 384 px two-pass QAT step at the largest batch of 256, 128, ... that
+    fits, with its peak memory, the passes apart and a device profile; the
+    converted 384 px forward at B=256 (the PTQ checkpoint of phase
+    int8-384); the YOLOS-S INT8 QAT step at 608 and 384 px and its 800 px
+    forward at batch 8, each with a device profile (idle share)."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+    from myrtle_vision_tpu_torch.training.classification import make_loss_fn
+    from myrtle_vision_tpu_torch.training.optim import (
+        create_optimizer,
+        cross_entropy_loss,
+    )
+    from myrtle_vision_tpu_torch.training.trainer import (
+        TrainState,
+        make_train_step,
+    )
+    from myrtle_vision_tpu_torch.utils.convert import (
+        load_reference_checkpoint,
+    )
+
+    b, n = 8, 577
+    tag = f"B={b} N={n}"
+    rng = np.random.RandomState(8577 + 7)
+    qkv = seeded(rng, (b, n, 3 * C), 1.0, device)
+    site = long_int8_site(qkv, HEADS, SCALE)
+    q, k, v = heads_of(qkv)
+    core = 4 * b * HEADS * n * n * (C // HEADS)  # two N x N x D products
+
+    def sdpa_ctx():
+        return F.scaled_dot_product_attention(q, k, v, scale=SCALE
+                                              ).transpose(1, 2).reshape(
+            b, n, C)
+
+    m_rs = 2 * b * HEADS * n * 4
+    sites_key, out_key = LONG_INT8_KERNELS
+    for key, kernel, plain, out_bytes, yard in (
+            (sites_key,
+             lambda: K.attention_core_snap_cuda(qkv, HEADS, SCALE,
+                                                Int8Sites(site), stats=True),
+             lambda: K.attention_core_snap_plain(qkv, HEADS, SCALE,
+                                                 Int8Sites(site), stats=True),
+             b * n * C * 4 + m_rs,
+             lambda: K.requant(sdpa_ctx(), site)),
+            (out_key,
+             lambda: K.attention_core_f32_cuda(qkv, HEADS, SCALE, site),
+             lambda: K.attention_core_f32_plain(qkv, HEADS, SCALE, site),
+             b * n * C, lambda: K.quantize_i8(sdpa_ctx(), site))):
+        acc = {}
+        c = cost(nbytes(qkv) + out_bytes, 3 * core, "bf16", yard)
+        time_case(acc, f"{key.split('[')[0]}[384 px ViT-S/16, "
+                  f"{key.split('[')[1]}", kernel, plain, 1, c, power, tag)
+        totals[key] = acc["attention_core_f32_long"]
+    # K2 int8's core above 256 tokens: the long backward as the float
+    # formats run it, from the site mode's statistics (outside the kernels
+    # line's sums: that entry is the FP16_32 step's)
+    d_o = seeded(rng, (b, n, C), 1.0, device)
+    _, m, rs = K.attention_core_snap_cuda(qkv, HEADS, SCALE, Int8Sites(site),
+                                          stats=True)
+    dbq = torch.empty(b, 3 * C, device=device)
+    d_oh = heads_of(torch.cat([d_o] * 3, -1))[0]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, scale=SCALE)
+    c = cost(2 * nbytes(qkv) + nbytes(d_o, m, rs, dbq), 3 * core * 5 // 2,
+             "bf16", lambda: torch.autograd.grad(sdpa_out, leaves, d_oh,
+                                                 retain_graph=True))
+    time_case({}, "attention_core_f32_bwd_long[384 px ViT-S/16, int8 QAT]",
+              lambda: K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, HEADS,
+                                                    SCALE),
+              lambda: K.attention_core_f32_bwd_plain(qkv, d_o, m, rs, HEADS,
+                                                     SCALE), 0, c, power, tag)
+    del qkv, q, k, v, d_o, m, rs, dbq, d_oh, leaves, sdpa_out
+
+    x, attn, mlp, sites = qat_int8_block_inputs(b, n, seed=8580,
+                                                device=device)
+    do = seeded(np.random.RandomState(8581), (b, n, C), 1.0, device)
+    for name, kernel, plain, _ in qat_int8_op_cases(x, attn, mlp, do, sites):
+        if name.startswith("fused_attention_block_i8") and \
+                "recomputed" not in name:
+            time_chain({}, f"{name} (384 px)", kernel, plain, power,
+                       tag + " (INT8 QAT step)")
+    del x, attn, mlp, sites, do
+    xi, ai, mi, ci = int8_block_inputs(b, n, seed=8582, device=device)
+    for name, kernel, plain, _ in int8_op_cases(xi, ai, mi, ci):
+        time_chain({}, f"{name} (384 px)", kernel, plain, power,
+                   tag + " (converted forward)")
+    del xi, ai, mi, ci
+
+    # the 384 px two-pass step at the largest batch that fits
+    tc = vit_small_config()["train_config"]
+    model = ViT("classification", 384, 16, 45, 384, 12, 6, 1536,
+                q_format="PyTorchINT8", device=device)
+    state = TrainState(model, create_optimizer(tc, model))
+    gen = torch.Generator(device).manual_seed(384)
+    step = make_train_step(make_loss_fn(model), 1)
+    b = INT8_384_BATCH
+    while True:
+        imgs = torch.randn(b, 384, 384, 3, device=device, generator=gen)
+        batch = {"image": imgs[None],
+                 "label": torch.randint(0, 45, (1, b), device=device,
+                                        generator=gen)}
+        try:
+            peak = kernel_peak(lambda: step(state, batch, tc["lr"]))
+            break
+        except torch.cuda.OutOfMemoryError:
+            del imgs, batch
+            torch.cuda.empty_cache()
+            check(b > 8, "the 384 px INT8 QAT step fits no batch")
+            print(f"timing: the 384 px INT8 QAT step at B={b} does not fit "
+                  "in the card's memory; halving")
+            b //= 2
+
+    def plain_loss(mb):
+        logits = two_pass(model, mb["image"], plain=True)
+        return cross_entropy_loss(logits, mb["label"]), {"metrics": {}}
+
+    plain_step = make_train_step(plain_loss, 1)
+    try:
+        k_ms, p_ms = paired_ms(lambda: step(state, batch, tc["lr"]),
+                               lambda: plain_step(state, batch, tc["lr"]),
+                               iters=2, warmup=1)
+        plain = f"{p_ms:.3f} ms = {b / p_ms * 1e3:.2f} img/s"
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        k_ms = cuda_ms(lambda: step(state, batch, tc["lr"]), 2, 1)
+        plain = "not measured (out of memory at this batch)"
+    splits = []
+    for _ in range(3):  # the first warms up
+        model.zero_grad(set_to_none=True)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with torch.no_grad():
+            model(imgs, calibrating=True)
+        ev[1].record()
+        loss = cross_entropy_loss(model(imgs, int8_fused=True),
+                                  batch["label"][0])
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    p1, p2, bw = (sum(v) / 2 for v in zip(*splits[1:]))
+    print(f"timing: ViT-S/16 at 384 px ({n} tokens) PyTorchINT8 two-pass QAT "
+          f"train step B={b} (calibrating pass, differentiated pass, "
+          f"backward, AdamW): kernel path {k_ms:.3f} ms = "
+          f"{b / k_ms * 1e3:.2f} img/s, plain path {plain}, peak device "
+          f"memory (max_memory_allocated) {peak:.2f} GiB; pass 1 {p1:.3f} ms, pass "
+          f"2 {p2:.3f} ms, backward {bw:.3f} ms (CUDA events, mean of 2) "
+          f"[{power}]")
+    line = device_profile(lambda: step(state, batch, tc["lr"]), {
+        "attention_core_f32_long (site mode)": (
+            "attention_core_f32_long_kernel",),
+        "attention_core_f32_bwd_long": ("f32_long_dq_kernel",
+                                        "f32_long_dkdv_kernel",
+                                        "f32_long_colsum_kernel"),
+        "gemm_f32x3_epilogue": ("gemm_f32x3",),
+        "LayerNorm, forward and backward": ("layernorm_snap_rows",
+                                            "layernorm_rows_bwd"),
+        "colsum_rows": ("colsum",)})
+    print(f"timing: 384 px PyTorchINT8 two-pass QAT step profile (B={b}, one "
+          f"kernel-path step): {line} [{power}]")
+    del state, model, step, plain_step, batch, imgs
+
+    # the converted 384 px model of phase int8-384
+    b = INT8_384_BATCH
+    imgs = torch.randn(b, 384, 384, 3, device=device, generator=gen)
+    conv = ViT(**dict(int8_384_kwargs, converted=True), device=device)
+    conv.load_state_dict(load_reference_checkpoint(int8_384_ckpt),
+                         strict=True)
+    conv.eval()
+    with torch.inference_mode():
+        k_ms, p_ms = paired_ms(lambda: conv(imgs),
+                               lambda: conv(imgs, plain=True), iters=5,
+                               warmup=2)
+        line = device_profile(lambda: conv(imgs), {
+            "attention_core_f32_long (int8 mode)": (
+                "attention_core_f32_long_kernel",),
+            "gemm_s8_epilogue": ("gemm_s8",),
+            "layernorm_quant_rows": ("layernorm_quant_rows",)})
+    print(f"timing: converted INT8 ViT-S/16 forward at 384 px B={b}: kernel "
+          f"path {k_ms:.3f} ms = {b / k_ms * 1e3:.1f} img/s, plain path "
+          f"{p_ms:.3f} ms = {b / p_ms * 1e3:.1f} img/s; profile: {line} "
+          f"[{power}]")
+    del conv, imgs
+
+    model = ViT("detection", 224, 16, 20, 384, 12, 6, 1536,
+                q_format="PyTorchINT8", device=device)
+    time_yolos_step(model, "PyTorchINT8 QAT ", {}, device, power)
+    time_yolos_forward(model, "PyTorchINT8 ", {}, device, power)
+
+
 def port_kernel_names():
     """The names of the port's own CUDA kernels: every ``__global__``
     function under csrc/."""
@@ -4451,6 +5106,9 @@ def main():
     qat_launches = phase_qat(device, data_config, data_cfg)
     i8_errors = phase_kernels_qat_int8(device)
     i8_ops = phase_qat_int8(device, data_config, data_cfg)
+    long_i8_errors = phase_kernels_long_int8(device)
+    i8_384_train, i8_384_ptq, i8_384_ckpt, i8_384_kwargs = \
+        phase_int8_384(device)
     t0 = time.perf_counter()
     det_data = make_detection_dataset()
     print(f"detect: synthetic DIOR-layout set (600 train, 96 val, 96 test "
@@ -4458,9 +5116,11 @@ def main():
     det_launches = phase_detect(device, *det_data)
     det_train_launches = phase_detect_train(device, *det_data)
     float_det_launches = phase_detect_float(device, *det_data)
+    phase_detect_int8(device, *det_data)
     power = power_line()
     totals = phase_timing(device, power, int8_ckpt, int8_kwargs,
-                          float_ckpt, float_kwargs)
+                          float_ckpt, float_kwargs, i8_384_ckpt,
+                          i8_384_kwargs)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -4506,6 +5166,25 @@ def main():
             # route forced at 197 tokens and at YOLOS-S's 677 (B=8 and 2);
             # the float long core's at 677 (B=8 and 2)
             kernels[-1]["cases"] = t["cases"]
+    for (name, replaces), runs in zip(LONG_INT8_KERNELS.items(),
+                                      (i8_384_train, i8_384_ptq)):
+        t = totals[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": KERNELS["attention_core_f32_long"][0],
+            "replaces": replaces,
+            # the long core's launches on the 384 px INT8 paths: the
+            # two-pass train CLI (site mode), the PTQ CLI (int8 mode); its
+            # largest error against the plain version over
+            # LONG_INT8_CASES; per call at ViT-S/16 384 px, B=8 (one a
+            # block), the yardstick fp32 SDPA then the site's quantize
+            "launches": runs["attention_core_f32_long"],
+            "max_abs_err": long_i8_errors[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": max(t["by"], key=t["by"].get),
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+        })
     for name, (source, replaces, tpu) in INT8_QAT_VARIANTS.items():
         t = totals[tpu]
         kernels.append({

@@ -1,20 +1,31 @@
 // attention_core_f32 above 256 tokens on Hopper: the fp32 softmax
-// attention core of the float-format attention block (FP16_16, FP16_32,
-// TF32), ending on the to_out.act_in snap, from 257 to 768 tokens.
+// attention core of the float-format and INT8 QAT attention blocks, ending
+// on the to_out.act_in snap or the quant_out site, and of the converted
+// INT8 attention block, ending on the int8 grid of its quant_out site,
+// from 257 to 768 tokens.
 //
-// The per-head loop of the TPU kernel `_attn_heads_fwd` with qspec set,
+// The per-head loop of the TPU kernels `_attn_heads_fwd` with qspec set,
 // followed by the snap of `_fwd_kernel`
-// (myrtle_vision_tpu/ops/fused_attention_block.py), which the JAX package
-// runs wherever `fuses_at` holds: up to 701 tokens at 6 heads of 64 (the
-// YOLOS-S train step's 256-608 px canvases give 357-677).  Input qkv (B,
-// N, 3C) fp32, feature order [3][h][d], D = 32 or 64; output (B, N, C)
-// fp32, head h at columns h*D...; with statistics also the rowmax m and
-// rs = 1 / sum, (B, H, N) fp32.  The function of the snap mode of
+// (myrtle_vision_tpu/ops/fused_attention_block.py; a float format's, or
+// `_snap_int8` with qspec "int8"), and `_attn_kernel`
+// (myrtle_vision_tpu/ops/fused_int8_block.py), which the JAX package runs
+// wherever `fuses_at` holds: up to 701 tokens at 6 heads of 64 (the
+// YOLOS-S train step's 256-608 px canvases give 357-677, ViT-S/16 at 384
+// px 577).  Input qkv (B, N, 3C) fp32, feature order [3][h][d], D = 32 or
+// 64; output (B, N, C), head h at columns h*D...; with statistics also the
+// rowmax m and rs = 1 / sum, (B, H, N) fp32.  The function of
 // attention_core_f32_wgmma.cu, for each query row:
 //   s   = high3(q, k^T) * scale, the scale after the product
 //   m   = rowmax(s), e = exp(s - m), sum = rowsum(e)
 //   p   = e / sum                    a true fp32 divide over the whole row
-//   out = snap(high3(p, v))
+//   ctx = high3(p, v)
+//   snap modes: out = snap(ctx), fp32: a float format's FloatingPoint
+//               snap, or INT8 QAT's affine site snap with the quant_out
+//               row (`snap_int8`, no change where the site has no
+//               statistics)
+//   int8 mode:  out = clip(rint(ctx / s) + zp, 0, 255) - 128, int8 (the
+//               quant_out grid; without statistics scale 1 and zero point
+//               128, the guard of `_quantize_i8`)
 // with high3 the 3-pass split-bf16 product of attention_f32_tiles.cuh.
 //
 // Design.  The divide needs the sum of the whole row, so a rescaled online
@@ -54,6 +65,8 @@
 // kernel is latency-bound instead: each tile is split by the threads and
 // waited on before its products, one CTA an SM.  A simple kernel first:
 // a ring of pre-split tiles fed by TMA is the next step.
+// The int8 modes change only the epilogue: the same scores, softmax and
+// per-tile P V, then the site's rint and clip on the accumulator.
 #include <cstdint>
 
 #include "attention_f32_tiles.cuh"
@@ -65,6 +78,11 @@ using namespace mvt::f32attn;
 namespace sm = mvt::sm90;
 
 constexpr int kThreads = 128;  // one warpgroup
+
+// kInt8: int8 out on the grid of `site`; kSnapFloat: fp32 out through the
+// float format `qs`; kSnapSite: fp32 out through the INT8 site `site` (the
+// modes of attention_core_f32_wgmma.cu)
+enum Mode { kInt8 = 0, kSnapFloat = 1, kSnapSite = 2 };
 
 template <int D>
 __host__ __device__ constexpr size_t tile_bytes() {
@@ -82,10 +100,11 @@ __host__ __device__ constexpr size_t smem_bytes(int tiles) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_core_f32_long_kernel(const float* __restrict__ qkv,
-                               float* __restrict__ out,
+                               const float* __restrict__ site,
+                               void* __restrict__ out,
                                float* __restrict__ m_out,
                                float* __restrict__ rs_out, int N, int heads,
-                               float scale, mvt::QSpec qs) {
+                               float scale, int mode, mvt::QSpec qs) {
   constexpr int kRow = 2 * D;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -260,6 +279,13 @@ attention_core_f32_long_kernel(const float* __restrict__ qkv,
     for (int i = 0; i < D / 2; ++i) u[i] = __fadd_rn(u[i], acc[i]);
   }
 
+  // the output grid (int8) or site (INT8 QAT) row
+  float s_site = 1.0f, zp_site = 128.0f, has_site = 0.f;
+  if (mode != kSnapFloat && site[2] > 0.5f) {
+    s_site = site[0];
+    zp_site = site[1];
+    has_site = site[2];
+  }
   // u[4 j + e]: row ra (e < 2) or rb, column 8 j + 2 t + (e % 2)
   const size_t oa = (static_cast<size_t>(b) * N + ra) * C + h * D;
   const size_t ob = oa + static_cast<size_t>(8) * C;
@@ -269,9 +295,30 @@ attention_core_f32_long_kernel(const float* __restrict__ qkv,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       if ((half ? rb : ra) >= N) continue;
-      const float2 y = make_float2(mvt::snap(u[4 * j + 2 * half], qs),
-                                   mvt::snap(u[4 * j + 2 * half + 1], qs));
-      *reinterpret_cast<float2*>(out + (half ? ob : oa) + d) = y;
+      const size_t o = (half ? ob : oa) + d;
+      const float x0 = u[4 * j + 2 * half], x1 = u[4 * j + 2 * half + 1];
+      if (mode == kInt8) {
+        const float y0 = fminf(
+            fmaxf(__fadd_rn(rintf(__fdiv_rn(x0, s_site)), zp_site), 0.f),
+            255.f);
+        const float y1 = fminf(
+            fmaxf(__fadd_rn(rintf(__fdiv_rn(x1, s_site)), zp_site), 0.f),
+            255.f);
+        char2 c;
+        c.x = static_cast<signed char>(static_cast<int>(y0) - 128);
+        c.y = static_cast<signed char>(static_cast<int>(y1) - 128);
+        *reinterpret_cast<char2*>(static_cast<signed char*>(out) + o) = c;
+      } else {
+        float2 y;
+        if (mode == kSnapFloat) {
+          y.x = mvt::snap(x0, qs);
+          y.y = mvt::snap(x1, qs);
+        } else {
+          y.x = mvt::int8_site_snap(x0, s_site, zp_site, has_site);
+          y.y = mvt::int8_site_snap(x1, s_site, zp_site, has_site);
+        }
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = y;
+      }
     }
   }
   if (m_out != nullptr && t == 0) {
@@ -288,8 +335,9 @@ attention_core_f32_long_kernel(const float* __restrict__ qkv,
 }
 
 template <int D>
-int launch(const void* qkv, void* out, void* m, void* rs, int B, int N,
-           int heads, float scale, mvt::QSpec qs, cudaStream_t stream) {
+int launch(const void* qkv, const void* site, void* out, void* m, void* rs,
+           int B, int N, int heads, float scale, int mode, mvt::QSpec qs,
+           cudaStream_t stream) {
   const int tiles = (N + kLongTile - 1) / kLongTile;
   const size_t smem = smem_bytes<D>(tiles);
   auto* kernel = attention_core_f32_long_kernel<D>;
@@ -302,9 +350,28 @@ int launch(const void* qkv, void* out, void* m, void* rs, int B, int N,
                              cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<dim3(tiles, B * heads), kThreads, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out),
-      static_cast<float*>(m), static_cast<float*>(rs), N, heads, scale, qs);
+      static_cast<const float*>(qkv), static_cast<const float*>(site), out,
+      static_cast<float*>(m), static_cast<float*>(rs), N, heads, scale, mode,
+      qs);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_d(const void* qkv, const void* site, void* out, void* m,
+             void* rs, int B, int N, int heads, int D, float scale, int mode,
+             mvt::QSpec qs, cudaStream_t stream) {
+  if (B <= 0 || heads <= 0 || N <= 0 || N > kLongMaxN ||
+      static_cast<long long>(B) * heads > 65535 ||
+      (m == nullptr) != (rs == nullptr) ||
+      reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
+      (mode != kSnapFloat && site == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 64)
+    return launch<64>(qkv, site, out, m, rs, B, N, heads, scale, mode, qs,
+                      stream);
+  if (D == 32)
+    return launch<32>(qkv, site, out, m, rs, B, N, heads, scale, mode, qs,
+                      stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -312,23 +379,33 @@ int launch(const void* qkv, void* out, void* m, void* rs, int B, int N,
 MVT_EXPORT int mvt_attention_core_f32_long_max_n() { return kLongMaxN; }
 
 // qkv (B, N, 3C) fp32, 16-byte aligned; out (B, N, C) fp32, the context
-// through the FloatingPoint(exp_bits, man_bits) snap; m and rs (B, H, N)
-// fp32, the rowmax and reciprocal rowsum, or both null; D = C / heads of
-// 32 or 64, 1 <= N <= mvt_attention_core_f32_long_max_n()
+// through the snap policy: site, the (3,) fp32 row (scale, zero point,
+// has_stats) of the INT8 site table on the device, or null for the
+// FloatingPoint(exp_bits, man_bits) snap; m and rs (B, H, N) fp32, the
+// rowmax and reciprocal rowsum, or both null; D = C / heads of 32 or 64,
+// 1 <= N <= mvt_attention_core_f32_long_max_n()
 MVT_EXPORT int mvt_attention_core_f32_long(const void* qkv, void* out,
                                            void* m, void* rs, int B, int N,
                                            int heads, int D, float scale,
                                            int exp_bits, int man_bits,
-                                           void* stream) {
-  if (B <= 0 || heads <= 0 || N <= 0 || N > kLongMaxN ||
-      static_cast<long long>(B) * heads > 65535 ||
-      (m == nullptr) != (rs == nullptr) ||
-      reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
-      !mvt::float_fmt_ok(exp_bits, man_bits))
+                                           const void* site, void* stream) {
+  if (site == nullptr && !mvt::float_fmt_ok(exp_bits, man_bits))
     return static_cast<int>(cudaErrorInvalidValue);
-  const mvt::QSpec qs(exp_bits, man_bits, 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(qkv, out, m, rs, B, N, heads, scale, qs, s);
-  if (D == 32) return launch<32>(qkv, out, m, rs, B, N, heads, scale, qs, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_d(qkv, site, out, m, rs, B, N, heads, D, scale,
+                  site != nullptr ? kSnapSite : kSnapFloat,
+                  site != nullptr ? mvt::QSpec(8, 22, 0)
+                                  : mvt::QSpec(exp_bits, man_bits, 0),
+                  static_cast<cudaStream_t>(stream));
+}
+
+// qkv (B, N, 3C) fp32, 16-byte aligned; site the (scale, zero point,
+// has_stats) fp32 row of the output grid; out (B, N, C) int8 (the
+// converted INT8 block's core, mvt_attention_core_f32 above its limit)
+MVT_EXPORT int mvt_attention_core_f32_long_i8(const void* qkv,
+                                              const void* site, void* out,
+                                              int B, int N, int heads, int D,
+                                              float scale, void* stream) {
+  return launch_d(qkv, site, out, nullptr, nullptr, B, N, heads, D, scale,
+                  kInt8, mvt::QSpec(8, 22, 0),
+                  static_cast<cudaStream_t>(stream));
 }

@@ -8,10 +8,11 @@ Evaluates the checkpoint named in ``train_config.checkpoint_path`` (a
 reference-format ``.pth``, as classification/export_checkpoint.py and
 myrtle_vision_tpu/utils/export.py write it, or a port checkpoint) on the
 test split through ``post_process`` and the COCO evaluator, and prints
-the 12-number summary.  The model is the config's ``q_format``: FP32 or
-a stateless float format (FP16_16, FP16_32, TF32); a port checkpoint
-carries the format it was trained in, and one of another format is
-refused.  The configs are the JAX CLI's, and relative paths
+the 12-number summary.  The model is the config's ``q_format``: FP32, a
+stateless float format (FP16_16, FP16_32, TF32) or PyTorchINT8 (the
+simulation before convert, its observers from the checkpoint and frozen:
+full fp32 products, the exact erf); a port checkpoint carries the format
+it was trained in, and one of another format is refused.  The configs are the JAX CLI's, and relative paths
 resolve against the working directory as there.  ``--device`` defaults
 to ``cuda``; without a CUDA device that raises, it never carries on on
 the CPU.

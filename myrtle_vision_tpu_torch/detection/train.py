@@ -21,7 +21,9 @@ device that raises, it never carries on on the CPU.  Multi-device
 training and TensorBoard scalars are not ported yet (ROADMAP A9).
 ``vit_config.q_format`` FP32 trains with bf16 compute; FP16_16, FP16_32
 and TF32 train the float simulation (QAT: straight-through sites and
-weights, fp32 compute); PyTorchINT8 is refused (ROADMAP A5b).
+weights, fp32 compute); PyTorchINT8 the INT8 simulation in the JAX
+one-pass QAT step (training/detection.py), its checkpoints carrying the
+observers.
 """
 from __future__ import annotations
 
@@ -74,10 +76,6 @@ def build_train(config, device):
     train_config = config["train_config"]
     vit_config = config["vit_config"]
     data_config = parse_config(config["data_config_path"])
-    if vit_config["q_format"] == "PyTorchINT8":
-        raise NotImplementedError(
-            "detection training in q_format PyTorchINT8 is not ported yet; "
-            "see ROADMAP.md A5b")
     seed = train_config["seed"]
     seed_everything(seed)
     num_det_tokens = vit_config.get("num_det_tokens", 100)

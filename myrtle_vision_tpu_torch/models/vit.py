@@ -7,11 +7,12 @@ training and converted inference.
 Port of myrtle_vision_tpu/models/vit.py for the paths this package runs
 so far: without active dropout, ``decoder="classification"`` in
 ``q_format`` FP32 (inference and training), PyTorchINT8 (the calibrating
-forward, the simulation's eval forward, QAT training up to the fused
-Block's length, and the converted model) and the float formats
-(inference and QAT training), and ``decoder="detection"`` (YOLOS: det
-tokens after the patches, the class and box heads on them) in FP32 and
-in the float formats.  Parameters are named as in
+forward, the simulation's eval forward, QAT training, and the converted
+model up to the fused Block's length) and the float formats (inference
+and QAT training), and ``decoder="detection"`` (YOLOS: det tokens after
+the patches, the class and box heads on them) in FP32, in the float
+formats and in PyTorchINT8 before convert (the one-pass QAT step and the
+simulation's eval forward).  Parameters are named as in
 the upstream reference state dict that myrtle_vision_tpu/utils/export.py
 writes
 (``transformer.layers.{i}.0.fn.fn.to_qkv.weight``, ...), so
@@ -53,10 +54,17 @@ differentiable op with the frozen site table
 (ops/fused_attention_block.py ``fused_attention_block_i8``,
 ops/fused_mlp.py ``fused_mlp_block_i8``: the TPU kernels K1-K4 with
 ``qspec="int8"``), the weights through their symmetric int8 fake-quant,
-every site straight-through.  With ``converted=True`` each Linear weight
-is int8 with an fp32 ``weight_scale`` (quantize.convert_params), and the
-forward is the converted model's: the patch embedding and the head as
-int8 products (``gemm_s8_epilogue``, the integer path of QDense), each
+every site straight-through; past the fused gate a block runs the
+calibrating composition with the observers frozen, as the JAX Block's
+discrete branch does there.  ``forward(img, calibrating=True)`` recording
+gradients is the one-pass QAT step, which the detector trains with (JAX
+training/detection.py): the observers fold in each micro-batch as the
+forward runs, every product and the attention core keep their 3-pass
+backward, every site is straight-through.  With ``converted=True`` each
+Linear weight is int8 with an fp32 ``weight_scale``
+(quantize.convert_params), and the forward is the converted model's: the
+patch embedding and the head as int8 products (``gemm_s8_epilogue``, the
+integer path of QDense), each
 block half as one op (ops/fused_int8_block.py, the TPU kernels K9 and
 K10).  The observers of a converted model are frozen: their grids and the
 weights' column sums are computed when its state dict is loaded.
@@ -96,7 +104,10 @@ from torch import nn
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
 from myrtle_vision_tpu_torch.ops._kernels import layernorm_rows_plain
-from myrtle_vision_tpu_torch.ops.attention import multi_head_attention
+from myrtle_vision_tpu_torch.ops.attention import (
+    multi_head_attention,
+    xla_attention,
+)
 from myrtle_vision_tpu_torch.ops.flash_attention import flash_attention
 from myrtle_vision_tpu_torch.ops.fused_attention_block import (
     fused_attention_block,
@@ -112,7 +123,6 @@ from myrtle_vision_tpu_torch.ops.fused_mlp import (
     fused_mlp_block_plain,
 )
 from myrtle_vision_tpu_torch.ops.fused_int8_block import (
-    MAX_N as INT8_MAX_N,
     int8_attention_block,
     int8_attention_block_plain,
     int8_mlp_block,
@@ -140,7 +150,7 @@ MIN_NUM_PATCHES = 16  # reference vit.py:14
 # the port runs without active dropout: the classification decoder in FP32
 # for inference and training, in PyTorchINT8 for calibration and converted
 # inference and in the float formats for inference and QAT training, the
-# detection decoder in FP32 and the float formats
+# detection decoder in FP32, the float formats and PyTorchINT8
 _NOT_PORTED = "not ported yet; see ROADMAP.md (Queue A)"
 # the weights a converted float model stores in fp16
 _FP16_STORAGE = (QFormat.FP16_16, QFormat.FP16_32)
@@ -353,42 +363,52 @@ class Block(nn.Module):
         scale, zp = affine_uint8_qparams(lo, hi)
         return torch.stack([scale, zp, (lo <= hi).float()], -1).view(2, 5, 3)
 
-    def forward_int8(self, x, calibrating=True):
+    def forward_int8(self, x, calibrating=True, update=None):
         """The JAX Block's discrete-site composition for PyTorchINT8
-        before convert, fp32 (B, N, C) in and out.  ``calibrating`` (the
-        JAX ``calibrating=True``): every site folds its input into its
-        observer, then fake-quantizes it; 3-pass products, the polynomial
-        erf.  Else the simulation's eval forward: the observers frozen,
-        full fp32 products (the JAX HIGHEST dot) and the exact erf, as the
-        JAX QDense and QGelu switch them."""
+        before convert, fp32 (B, N, C) in and out, differentiable.
+        ``calibrating`` (the JAX ``calibrating=True``): every site folds its
+        input into its observer, then fake-quantizes it; 3-pass products
+        with their 3-pass backward, the polynomial erf.  Else the
+        simulation's eval forward: the observers frozen, full fp32 products
+        (the JAX HIGHEST dot) and the exact erf, as the JAX QDense and
+        QGelu switch them.  ``update`` False keeps the observers as they are
+        in a calibrating forward (the QAT step's second pass).  The
+        attention core is the fp32 ``xla`` core of ops/attention.py in both
+        (3-pass products, ``jax.nn.softmax``'s backward).  Every site is
+        straight-through."""
+        update = calibrating if update is None else update
         a, f = self._modules["0"], self._modules["1"]
         attn, net = a.fn.fn, f.fn.fn.net
+        b, n, c = x.shape
         y = a.fn.norm.act_out(layernorm_rows_plain(
-            x, a.fn.norm.weight, a.fn.norm.bias), calibrating)
-        ctx = K.attention_context_f32(_qdense(attn.to_qkv, y, calibrating),
-                                      self.heads, self.scale)
-        ctx = attn.quant_out(ctx, calibrating)
-        x = a.res_add(_qdense(attn.to_out[0], ctx, calibrating) + x,
-                      calibrating)
+            x, a.fn.norm.weight, a.fn.norm.bias), update)
+        qkv = _qdense(attn.to_qkv, y, calibrating, update)
+        qh, kh, vh = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
+        ctx = xla_attention(qh, kh, vh, self.scale).transpose(1, 2).reshape(
+            b, n, c)
+        ctx = attn.quant_out(ctx, update)
+        x = a.res_add(_qdense(attn.to_out[0], ctx, calibrating, update) + x,
+                      update)
         y = f.fn.norm.act_out(layernorm_rows_plain(
-            x, f.fn.norm.weight, f.fn.norm.bias), calibrating)
-        h = _qdense(net[0], y, calibrating)
+            x, f.fn.norm.weight, f.fn.norm.bias), update)
+        h = _qdense(net[0], y, calibrating, update)
         g = K.gelu_poly(h) if calibrating else \
             torch.nn.functional.gelu(h)
-        g = net[1].act_out(g, calibrating)
-        return f.res_add(_qdense(net[3], g, calibrating) + x, calibrating)
+        g = net[1].act_out(g, update)
+        return f.res_add(_qdense(net[3], g, calibrating, update) + x, update)
 
     def forward_int8_qat(self, x, plain=False):
         """The JAX Block's ``int8_qat_fuse`` branch, the second pass of
         the two-pass INT8 QAT step, fp32 (B, N, C) in and out: each Linear
         weight through its symmetric int8 fake-quant (straight-through),
         then one op per half with the site table of the observers, which
-        the first pass has updated and this pass leaves as they are."""
-        n = x.shape[1]
-        if not fuses_at(n, self.heads, self.dim_head):
-            raise NotImplementedError(
-                f"{n} tokens in PyTorchINT8 QAT: the one-pass discrete step "
-                "beyond the fused gate is not ported yet; see ROADMAP.md A5b")
+        the first pass has updated and this pass leaves as they are.  Past
+        the fused gate the JAX Block runs its discrete composition there
+        too: :meth:`forward_int8`, calibrating with the observers frozen
+        (their grids are pass 1's, as the JAX pass's idempotent updates
+        leave them)."""
+        if not fuses_at(x.shape[1], self.heads, self.dim_head):
+            return self.forward_int8(x, calibrating=True, update=False)
         a, f = self._modules["0"].fn, self._modules["1"].fn
         qkv, out = a.fn.to_qkv, a.fn.to_out[0]
         fc1, fc2 = f.fn.net[0], f.fn.net[3]
@@ -622,6 +642,17 @@ class DetectionDecoder(nn.Module):
                 _dense(x, self.bbox_embed, dtype).float()),
         }
 
+    def forward_int8(self, x, calibrating=True, update=None):
+        """The PyTorchINT8 simulation's heads: ``class_embed`` and
+        ``bbox_embed`` as QDense sites (:func:`_qdense`), then the sigmoid
+        of the boxes, fp32."""
+        x = x[:, -self.num_det_tokens:]
+        return {
+            "pred_logits": _qdense(self.class_embed, x, calibrating, update),
+            "pred_boxes": torch.sigmoid(
+                _qdense(self.bbox_embed, x, calibrating, update)),
+        }
+
     def forward_float(self, x, q_format, converted, plain):
         """The heads in a stateless float format: ``class_embed`` and
         ``bbox_embed`` through :func:`_qdense_float`, then the sigmoid of
@@ -678,10 +709,11 @@ class ViT(nn.Module):
         if decoder not in ("classification", "detection"):
             raise NotImplementedError(f"decoder {decoder!r}: {_NOT_PORTED}")
         q_format = QFormat[getattr(q_format, "name", q_format)]
-        if decoder == "detection" and q_format == QFormat.PyTorchINT8:
+        if decoder == "detection" and converted and \
+                q_format == QFormat.PyTorchINT8:
             raise NotImplementedError(
-                "detection in q_format PyTorchINT8 is not ported yet; see "
-                "ROADMAP.md A5b")
+                "a converted PyTorchINT8 detector: the JAX package builds "
+                "converted models for classification only (its PTQ CLI)")
         if converted and q_format == QFormat.FP32:
             raise ValueError("q_format FP32 has nothing to convert")
         if image_size % patch_size:
@@ -726,18 +758,19 @@ class ViT(nn.Module):
                                             device)
         else:
             self.decoder = ClassificationDecoder(dim, num_classes, device)
+        head = ((self.decoder.class_embed, self.decoder.bbox_embed)
+                if decoder == "detection"
+                else (self.decoder.norm, self.decoder.linear))
         if self.int8:
             for name in ("quant_img", "quant_cls_token",
                          "quant_pos_embedding", "cls_token_cat",
                          "pos_embedding_cat", "pos_embedding_add"):
                 setattr(self, name, ActQuant(device))
-            for module in (self.patch_to_embedding, self.decoder.norm,
-                           self.decoder.linear):
+            if decoder == "detection":
+                self.quant_det_tokens = ActQuant(device)
+            for module in (self.patch_to_embedding, *head):
                 module.act_out = ActQuant(device)
         if converted and q_format in _FP16_STORAGE:
-            head = ((self.decoder.class_embed, self.decoder.bbox_embed)
-                    if decoder == "detection"
-                    else (self.decoder.norm, self.decoder.linear))
             for module in (self.patch_to_embedding, *head):
                 _make_fp16(module)
         if converted and self.int8:
@@ -853,11 +886,16 @@ class ViT(nn.Module):
         return torch.cat(parts, dim=1)
 
     def _tokens_int8(self, x, h, w, calibrating=False):
-        """cls token, positions and their sites (JAX ViT.__call__)."""
+        """cls token (and for detection the det tokens after the patches),
+        positions and their sites (JAX ViT.__call__)."""
         b = x.shape[0]
         cls = self.quant_cls_token(self.cls_token.expand(b, 1, self.dim),
                                    calibrating)
-        x = self.cls_token_cat(torch.cat([cls, x], dim=1), calibrating)
+        tokens = [cls, x]
+        if self.decoder_name == "detection":
+            tokens.append(self.quant_det_tokens(self.det_tokens.expand(
+                b, self.num_det_tokens, self.dim), calibrating))
+        x = self.cls_token_cat(torch.cat(tokens, dim=1), calibrating)
         pos = self.pos_embedding_cat(self._positions(h, w).float(),
                                      calibrating)
         pos = self.quant_pos_embedding(pos, calibrating)
@@ -949,11 +987,12 @@ class ViT(nn.Module):
         """The converted PyTorchINT8 model: int8 products throughout."""
         b, h, w, _ = img.shape
         n = (h // self.patch_size) * (w // self.patch_size) + 1
-        if n > INT8_MAX_N:
+        block = self.transformer.layers[0]
+        if not fuses_at(n, block.heads, block.dim_head):
             raise NotImplementedError(
-                f"{n} tokens: the converted INT8 blocks take at most "
-                f"{INT8_MAX_N}; longer sequences wait for the discrete "
-                "converted Block (ROADMAP A5b)")
+                f"{n} tokens: past the fused gate the JAX model runs the "
+                "discrete converted Block, which is not ported yet (ROADMAP "
+                "A5b)")
         kern = K.PLAIN if plain else K.for_device(img)
         x = self.embed_converted(img, kern)
         for block, sites in zip(self.transformer.layers, self.block_sites):

@@ -152,7 +152,8 @@ def lib() -> ctypes.CDLL:
             ("mvt_attention_core_f32_launch", [i, i, p]),
             ("mvt_attention_core_f32_bwd_launch", [i, i, p]),
             ("mvt_attention_core_f32_long", [p, p, p, p, i, i, i, i, f, i, i,
-                                             p]),
+                                             p, p]),
+            ("mvt_attention_core_f32_long_i8", [p, p, p, i, i, i, i, f, p]),
             ("mvt_attention_core_f32_long_max_n", []),
             ("mvt_attention_core_f32_bwd_long",
              [p] * 8 + [i, i, i, i, f, p, p]),

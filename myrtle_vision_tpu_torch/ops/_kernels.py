@@ -45,8 +45,9 @@ snap from csrc/fake_quant.cuh:
 - ``attention_core_f32_bwd``   csrc/attention_core_f32_bwd_wgmma.cu (3-pass
                                wgmma; the score chain of both in
                                csrc/attention_f32_tiles.cuh)
-- ``attention_core_f32_long``  above 256 tokens, the snap mode of the fp32
-                               core: csrc/attention_core_f32_long_wgmma.cu
+- ``attention_core_f32_long``  above 256 tokens, the fp32 core's snap
+                               and int8 modes:
+                               csrc/attention_core_f32_long_wgmma.cu
 - ``attention_core_f32_bwd_long``  above 256 tokens, its backward:
                                csrc/attention_core_f32_bwd_long_wgmma.cu
                                (both long routes' shapes in
@@ -201,7 +202,7 @@ CORE_LONG_FWD_STAGES = 3
 CORE_LONG_BWD_TILE = 64
 CORE_LONG_BWD_STAGES = 4
 CORE_LONG_BWD_LAUNCHES = 4
-# the float formats' fp32 core above F32_CORE_MAX_N
+# the fp32 core above F32_CORE_MAX_N (float formats, INT8 QAT, converted INT8)
 # (csrc/attention_core_f32_long_wgmma.cu,
 # csrc/attention_core_f32_bwd_long_wgmma.cu; kLongTile, kLongMaxN in
 # csrc/attention_f32_tiles.cuh): a CTA's own rows and the tile it walks,
@@ -1324,23 +1325,30 @@ def attention_core_f32_max_n() -> int:
     return _lib().mvt_attention_core_f32_max_n()
 
 
-def attention_core_f32_cuda(qkv, heads, scale, site):
+def attention_core_f32_cuda(qkv, heads, scale, site, tiled=False):
     """The CUDA version of :func:`attention_core_f32_plain`: fp32 (B, N,
-    3C) -> int8 (B, N, C); D = C/heads must be 32 or 64 and N at most
-    :func:`attention_core_f32_max_n`."""
+    3C) -> int8 (B, N, C); D = C/heads must be 32 or 64.  Up to
+    :func:`attention_core_f32_max_n` one CTA per (image, head)
+    (csrc/attention_core_f32_wgmma.cu); above it the long route to
+    :data:`F32_LONG_MAX_N` (csrc/attention_core_f32_long_wgmma.cu, its
+    int8 mode), counted as ``attention_core_f32_long``; ``tiled`` takes
+    the long route at any N (for holding the two against each other)."""
     _require(qkv, "qkv", torch.float32)
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_f32")
-    if n > attention_core_f32_max_n():
-        raise ValueError(
-            f"attention_core_f32: sequence {n} exceeds the kernel's maximum "
-            f"{attention_core_f32_max_n()}; converted INT8 above it waits "
-            "for the discrete converted Block (ROADMAP A5b)")
+    tiled = tiled or n > attention_core_f32_max_n()
+    if tiled:
+        _long_route(n, "attention_core_f32")
     _require_site(site, "site")
     out = torch.empty((b, n, c), dtype=torch.int8, device=qkv.device)
-    _launch("attention_core_f32", _lib().mvt_attention_core_f32, qkv,
-            qkv.data_ptr(), site.data_ptr(), out.data_ptr(), b, n, heads, d,
+    args = (qkv.data_ptr(), site.data_ptr(), out.data_ptr(), b, n, heads, d,
             float(scale))
+    if tiled:
+        _launch("attention_core_f32_long",
+                _lib().mvt_attention_core_f32_long_i8, qkv, *args)
+    else:
+        _launch("attention_core_f32", _lib().mvt_attention_core_f32, qkv,
+                *args)
     return out
 
 
@@ -1485,14 +1493,9 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
     return out
 
 
-def _long_route(n, qspec, name):
-    """Raise where the fp32 core's long route does not take a call: an
-    INT8 QAT site table, or more than :data:`F32_LONG_MAX_N` tokens."""
-    if isinstance(qspec, Int8Sites):
-        raise NotImplementedError(
-            f"{name}: sequence {n} in PyTorchINT8 QAT exceeds the one-CTA "
-            f"kernel's maximum {F32_CORE_MAX_N}; the int8 sites of the long "
-            "route wait for the rest of INT8 (ROADMAP A5b)")
+def _long_route(n, name):
+    """Raise where the fp32 core's long route does not take a call: more
+    than :data:`F32_LONG_MAX_N` tokens."""
     if n > F32_LONG_MAX_N:
         raise NotImplementedError(
             f"{name}: sequence {n} exceeds the long route's maximum "
@@ -1507,8 +1510,8 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
     with ``stats`` the rowmax and reciprocal rowsum (B, H, N) fp32; D =
     C/heads must be 32 or 64; ``qspec`` a float format's or
     :class:`Int8Sites` (one site).  Up to :func:`attention_core_f32_max_n`
-    one CTA per (image, head) (csrc/attention_core_f32_wgmma.cu); above it,
-    a float format only, the long route to :data:`F32_LONG_MAX_N`
+    one CTA per (image, head) (csrc/attention_core_f32_wgmma.cu); above it
+    the long route to :data:`F32_LONG_MAX_N`
     (csrc/attention_core_f32_long_wgmma.cu, :func:`f32_long_plan`), counted
     as ``attention_core_f32_long``; ``tiled`` takes the long route at any N
     (for holding the two against each other)."""
@@ -1517,7 +1520,7 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
     c, d = _head_width(c3, heads, "attention_core_f32")
     tiled = tiled or n > attention_core_f32_max_n()
     if tiled:
-        _long_route(n, qspec, "attention_core_f32")
+        _long_route(n, "attention_core_f32")
     exp_bits, man_bits, _, site = _policy_args(qspec, 1)
     out = torch.empty((b, n, c), dtype=torch.float32, device=qkv.device)
     m = rs = None
@@ -1530,7 +1533,7 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
     if tiled:
         _launch("attention_core_f32_long", _lib().mvt_attention_core_f32_long,
                 qkv, qkv.data_ptr(), out.data_ptr(), *stat_ptrs, b, n, heads,
-                d, float(scale), exp_bits, man_bits)
+                d, float(scale), exp_bits, man_bits, site)
     else:
         _launch("attention_core_f32", _lib().mvt_attention_core_f32_snap, qkv,
                 qkv.data_ptr(), out.data_ptr(), *stat_ptrs, b, n, heads, d,
@@ -1590,7 +1593,7 @@ def attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale,
     lib = _lib()
     tiled = tiled or n > lib.mvt_attention_core_f32_bwd_max_n()
     if tiled:
-        _long_route(n, None, "attention_core_f32_bwd")
+        _long_route(n, "attention_core_f32_bwd")
     _require_shape(d_o, "d_o", (b, n, c))
     _require_shape(m, "m", (b, heads, n))
     _require_shape(rs, "rs", (b, heads, n))

@@ -54,8 +54,8 @@ TPU kernel does, every snap the code of K11 (csrc/fake_quant.cuh):
 at any length up to the fused gate on the card: up to 256 tokens the
 fp32 core and its backward hold one (image, head) in a CTA, above that
 they walk 64-row tiles (csrc/attention_core_f32_long_wgmma.cu,
-csrc/attention_core_f32_bwd_long_wgmma.cu; INT8 QAT's sites there raise,
-naming ROADMAP A5b).  When it records, the core also writes its rowmax and
+csrc/attention_core_f32_bwd_long_wgmma.cu), INT8 QAT's sites as well.
+When it records, the core also writes its rowmax and
 reciprocal rowsum, and the forward keeps what the JAX ``_fwd_rule``
 keeps: x, the parameters, the snapped context (the projection's actual
 input), m, rs and, when ``save_acts`` affords them at fp32 itemsize, the

@@ -32,6 +32,14 @@ mlp 0 = ffn_norm.act_out, 1 = fc1.act_out, 2 = gelu.act_out,
 its requant through, and an integer product whose input site has none
 uses scale 1 and zero point 128, as in the JAX kernels.
 
+The ops take any sequence the JAX model fuses (``fuses_at``, up to 701
+tokens at 6 heads of 64): on the card up to 256 tokens the attention core
+holds one (image, head) in a CTA, above that it walks 64-row tiles
+(csrc/attention_core_f32_long_wgmma.cu, its int8 mode); the other kernels
+are length-agnostic.  Past the gate the attention op raises: the JAX model
+runs the discrete converted Block there, which is not ported yet.  The
+MLP op takes any length (the gate is the Block's, which the ViT reads).
+
 A CPU tensor takes the plain chain, a CUDA tensor the kernel chain or an
 error; any other device an error.  Weights keep the JAX layout: (in,
 out) int8, the transposed view of a torch (out, in) tensor read in
@@ -43,11 +51,8 @@ from __future__ import annotations
 import torch
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
+from myrtle_vision_tpu_torch.ops.fused_attention_block import fuses_at
 
-# the longest sequence the ops take, on any device: the attention core
-# kernel's limit (csrc/attention_core_f32_wgmma.cu), which stands where the
-# JAX model's ``fuses_at`` gate stands
-MAX_N = 256
 
 def weight_colsum(w8):
     """fp32 column sums of an (in, out) int8 weight (``_colsum``)."""
@@ -57,10 +62,11 @@ def weight_colsum(w8):
 def _attention(kern, x, ln_scale, ln_bias, wqkv, wqkv_scale, bqkv, wout,
                wout_scale, bout, sites, heads, scale, colsums):
     b, n, c = x.shape
-    if n > MAX_N:
-        raise ValueError(f"int8_attention_block: sequence {n} exceeds "
-                         f"{MAX_N}; longer sequences wait for the discrete "
-                         "converted Block (ROADMAP A5b)")
+    if not fuses_at(n, heads, c // heads):
+        raise ValueError(f"int8_attention_block: sequence {n} is past the "
+                         f"fused gate (fuses_at) at {heads} heads of "
+                         f"{c // heads}; the JAX model runs the discrete "
+                         "converted Block there, which waits (ROADMAP A5b)")
     cs_qkv, cs_out = colsums or (weight_colsum(wqkv), weight_colsum(wout))
     x2 = x.contiguous().view(b * n, c)
     q8 = kern.layernorm_quant_rows(x2, ln_scale, ln_bias, sites[0])

@@ -20,7 +20,9 @@ def make_loss_fn(model):
     each block half one op with their site table (``int8_fused``).  The
     observers after the step are pass 1's: as the JAX step keeps pass 1's
     ``quant``, pass 2 folds nothing.  Beyond the fused Block's length
-    (where the JAX step falls back to one discrete pass) pass 2 raises."""
+    pass 2's blocks run the JAX Block's discrete composition, calibrating
+    with the observers frozen, differentiated (models/vit.py
+    ``Block.forward_int8``), as the JAX pass 2 does there."""
     two_pass = model.int8 and not model.converted
 
     def loss_fn(batch):

@@ -7,7 +7,11 @@ here the matcher runs inside the loss, on the training forward's
 outputs, as in the JAX package's default.  FP32 and the stateless float
 formats (FP16_16, FP16_32, TF32) share both functions: those formats keep
 no state, so there is no ``quant`` collection to thread through, as in
-the JAX ``make_loss_fn`` for them."""
+the JAX ``make_loss_fn`` for them.  A PyTorchINT8 model before convert
+trains as the JAX ``qat_int8`` branch does, in one pass: the calibrating
+forward, differentiated, its observers (the model's buffers, which the
+checkpoints carry) folding in each micro-batch as it runs; its eval
+forward is the simulation's, the observers frozen."""
 from __future__ import annotations
 
 import torch
@@ -20,9 +24,10 @@ def make_loss_fn(model, num_classes, weight_dict, eos_coef):
     """micro-batch {"image", "labels", "boxes", "valid"} on the model's
     device -> (weighted loss, {"metrics": the other losses}), for
     training/trainer.py ``make_train_step``."""
+    qat_int8 = model.int8 and not model.converted
 
     def loss_fn(batch):
-        outputs = model(batch["image"])
+        outputs = model(batch["image"], calibrating=qat_int8)
         targets = {k: batch[k] for k in ("labels", "boxes", "valid")}
         losses = criterion(outputs, targets, num_classes=num_classes,
                            weight_dict=weight_dict, eos_coef=eos_coef)

@@ -16,9 +16,12 @@ JAX ``quant`` path                         port site
 quant_img, quant_cls_token,                the same name on the model
 quant_pos_embedding, cls_token_cat,
 pos_embedding_cat, pos_embedding_add
+(detection also quant_det_tokens)
 patch_to_embedding/act_out                 patch_to_embedding.act_out
 decoder/norm/act_out                       decoder.norm.act_out
 decoder/linear/act_out                     decoder.linear.act_out
+(detection: decoder/class_embed/act_out,   decoder.class_embed.act_out,
+decoder/bbox_embed/act_out)                decoder.bbox_embed.act_out
 transformer/layers_i/attn_norm/act_out     transformer.layers.i.0.fn.norm.act_out
   .../attn/to_qkv/act_out                  transformer.layers.i.0.fn.fn.to_qkv.act_out
   .../attn/quant_out                       transformer.layers.i.0.fn.fn.quant_out
@@ -52,10 +55,10 @@ from myrtle_vision_tpu_torch.utils.pretrained import (
 
 _QUANT_TOP = ["quant_img", "quant_cls_token", "quant_pos_embedding",
               "cls_token_cat", "pos_embedding_cat", "pos_embedding_add"]
-_QUANT_HEAD = [(("patch_to_embedding", "act_out"),
-                "patch_to_embedding.act_out"),
-               (("decoder", "norm", "act_out"), "decoder.norm.act_out"),
-               (("decoder", "linear", "act_out"), "decoder.linear.act_out")]
+_QUANT_EMBED = [(("patch_to_embedding", "act_out"),
+                 "patch_to_embedding.act_out")]
+_QUANT_HEAD = {"classification": ("norm", "linear"),
+               "detection": ("class_embed", "bbox_embed")}
 _QUANT_LAYER = [
     (("attn_norm", "act_out"), "0.fn.norm.act_out"),
     (("attn", "to_qkv", "act_out"), "0.fn.fn.to_qkv.act_out"),
@@ -70,9 +73,14 @@ _QUANT_LAYER = [
 ]
 
 
-def quant_site_names(depth: int):
-    """[(JAX quant path, port site name)] of a classification ViT."""
-    names = [((n,), n) for n in _QUANT_TOP] + list(_QUANT_HEAD)
+def quant_site_names(depth: int, decoder: str = "classification"):
+    """[(JAX quant path, port site name)] of a ViT with ``decoder``
+    ("classification" or "detection")."""
+    top = _QUANT_TOP + (["quant_det_tokens"] if decoder == "detection"
+                        else [])
+    names = [((n,), n) for n in top] + list(_QUANT_EMBED)
+    names += [(("decoder", m, "act_out"), f"decoder.{m}.act_out")
+              for m in _QUANT_HEAD[decoder]]
     for i in range(depth):
         for path, name in _QUANT_LAYER:
             names.append((("transformer", f"layers_{i}") + path,
@@ -103,7 +111,7 @@ def state_dict_from_jax(params_numpy, decoder: str = "classification",
     if quant is not None:
         depth = len([k for k in params_numpy["transformer"]
                      if k.startswith("layers_")])
-        for path, name in quant_site_names(depth):
+        for path, name in quant_site_names(depth, decoder):
             site = export._get(quant, path)
             for key in ("min", "max"):
                 sd[f"{name}.{key}"] = torch.tensor(np.float32(site[key]))

@@ -496,6 +496,9 @@ def test_train_cli_refuses_without_a_card_and_quantized(cli_setup,
         train_cli.main(["-c", configs["port"], "--device", "cuda"])
     with open(configs["port"]) as f:
         config = json.load(f)
+    # PyTorchINT8 trains now (the one-pass QAT step,
+    # tests/test_torch_int8_detection.py): the set-up builds its model
     config["vit_config"]["q_format"] = "PyTorchINT8"
-    with pytest.raises(NotImplementedError, match="A5"):
-        train_cli.build_train(config, torch.device("cpu"))
+    config["train_config"]["checkpoint_path"] = ""
+    model = train_cli.build_train(config, torch.device("cpu"))[0]
+    assert model.int8 and not model.converted

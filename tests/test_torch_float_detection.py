@@ -634,10 +634,36 @@ def test_float_train_cli_checkpoint_evaluates_as_the_jax_cli(
 
 
 def test_int8_detection_still_raises(cli_setup):
-    with pytest.raises(NotImplementedError, match="A5b"):
-        port_vit.ViT(**DET_KW, q_format="PyTorchINT8")
+    """INT8 detection builds and trains now: the train CLI's
+    ``build_train`` takes a PyTorchINT8 config, and one step of the
+    one-pass QAT loss (training/detection.py) on its first batch gives a
+    finite loss, a gradient for every parameter and observers that have
+    folded the batch in (tests/test_torch_int8_detection.py holds the step
+    and the CLIs against JAX).  A converted INT8 detector, which no JAX
+    CLI builds, is still refused."""
+    from myrtle_vision_tpu_torch.models.detector import build_weight_dict
+    from myrtle_vision_tpu_torch.quantize import ActQuant
+    from myrtle_vision_tpu_torch.training.detection import make_loss_fn
+
+    with pytest.raises(NotImplementedError, match="converted PyTorchINT8"):
+        port_vit.ViT(**DET_KW, q_format="PyTorchINT8", converted=True)
     _, config = cli_setup
     config = json.loads(json.dumps(config))
     config["vit_config"]["q_format"] = "PyTorchINT8"
-    with pytest.raises(NotImplementedError, match="A5b"):
-        train_cli.build_train(config, torch.device("cpu"))
+    model, loader, _, _, (micro, n_accum) = train_cli.build_train(
+        config, torch.device("cpu"))
+    assert model.int8 and not model.converted
+    epoch = loader.epoch(0)
+    batch = next(epoch)
+    epoch.close()
+    loss_fn = make_loss_fn(model, 2, build_weight_dict(config[
+        "train_config"]), config["train_config"]["eos_coef"])
+    loss, aux = loss_fn({k: batch[k][:micro] for k in
+                         ("image", "labels", "boxes", "valid")})
+    loss.backward()
+    assert bool(torch.isfinite(loss)) and set(aux["metrics"]) >= {
+        "loss_ce", "loss_bbox", "loss_giou"}
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+    observers = [m for m in model.modules() if isinstance(m, ActQuant)]
+    assert observers and all(bool(o.min <= o.max) for o in observers)

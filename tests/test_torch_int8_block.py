@@ -28,6 +28,7 @@ from myrtle_vision_tpu.quantize import (
 )
 from myrtle_vision_tpu_torch.models.vit import ViT
 from myrtle_vision_tpu_torch.ops import _kernels as K
+from myrtle_vision_tpu_torch.ops.fused_attention_block import fuses_at
 from myrtle_vision_tpu_torch.ops.fused_int8_block import (
     int8_attention_block,
     int8_attention_block_plain,
@@ -174,11 +175,22 @@ def test_mlp_half_matches_jax_kernel(models, layer):
 
 
 def test_ops_refuse_long_sequences_and_other_devices():
-    x = torch.zeros(1, 257, 64)
+    """The attention op takes every length the JAX model fuses (257 and
+    the gate's last) and refuses the first past the gate (``fuses_at``,
+    the discrete converted Block's lengths, ROADMAP A5b); another device
+    has no kernel."""
     w = torch.zeros(64, 192, dtype=torch.int8)
     sites = torch.zeros(5, 3)
     one = torch.ones(())
-    with pytest.raises(ValueError, match="exceeds 256"):
+    top = max(n for n in range(257, 4096) if fuses_at(n, 2, 32))
+    for n in (257, top):
+        x = torch.zeros(1, n, 64)
+        out = int8_attention_block(x, x[0, 0], x[0, 0], w, one,
+                                   w[0].float(), w[:, :64], one, x[0, 0],
+                                   sites, 2, 0.125)
+        assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    x = torch.zeros(1, top + 1, 64)
+    with pytest.raises(ValueError, match="past the fused gate.*A5b"):
         int8_attention_block(x, x[0, 0], x[0, 0], w, one, w[0].float(),
                              w[:, :64], one, x[0, 0], sites, 2, 0.125)
     with pytest.raises(ValueError, match="no kernel for meta"):

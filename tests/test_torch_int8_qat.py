@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import myrtle_vision_tpu.models.vit as jax_vit
 from myrtle_vision_tpu.models.vit import ViT as JaxViT
 from myrtle_vision_tpu.ops import fake_quant as jfq
 from myrtle_vision_tpu.ops import fused_attention_block as jfa
@@ -484,18 +485,62 @@ def test_two_pass_gradients_match_jax(int8_step):
 
 
 def test_qat_past_the_fused_gate_raises(jax_model, monkeypatch):
-    """Beyond the fused Block's length the JAX step runs one discrete pass,
-    whose attention products' backward the port has not yet: pass 2
-    raises, naming the ROADMAP items; pass 1 and the eval forward run."""
-    monkeypatch.setattr(port_vit, "fuses_at", lambda n, h, d: False)
-    model = port_model(jax_model["params"], jax_model["quant"])
-    img = torch.from_numpy(jax_model["images"][0])
+    """Beyond the fused Block's length (``fuses_at`` false in both
+    packages) the JAX two-pass step's second pass runs the Block's
+    discrete composition, differentiated; the port's pass 2 runs the same
+    (``Block.forward_int8``, calibrating with the observers frozen).  One
+    micro-batch: pass 2's logits equal pass 1's; the loss within 1e-6
+    relative of the JAX step's, the observers within 1e-5 of its
+    ``quant``, every gradient within GRAD_BAR of its tensor's largest
+    magnitude (the key third of each qkv bias left out).  The calibrating
+    and the int8_fused pass still refuse to run together."""
+    for mod in (port_vit, jax_vit):
+        monkeypatch.setattr(mod, "fuses_at", lambda n, h, d: False)
+    monkeypatch.setenv("MVT_INT8_QAT_FUSE", "1")
+    m, params, quant = (jax_model[k] for k in ("model", "params", "quant"))
+    images, labels = jax_model["images"][0], jax_model["labels"][0]
+    (loss_j, aux), grads_j = jax.value_and_grad(jax_loss_fn(m), has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        jax.tree_util.tree_map(jnp.asarray, quant),
+        {"image": jnp.asarray(images), "label": jnp.asarray(labels)},
+        jax.random.PRNGKey(0))
+    model = port_model(params, quant)
+    img = torch.from_numpy(images)
+    twin = port_model(params, quant)
     with torch.no_grad():
-        model(img, calibrating=True)
-        model(img)
-    loss_fn = make_loss_fn(model)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        loss_fn({"image": img, "label": torch.zeros(2, dtype=torch.long)})
+        pass1 = twin(img, calibrating=True)
+        pass2 = twin(img, int8_fused=True)
+    torch.testing.assert_close(pass2, pass1, rtol=0, atol=0)
+    loss, _ = make_loss_fn(model)({"image": img,
+                                   "label": torch.from_numpy(labels).long()})
+    loss.backward()
+    loss = float(loss.detach())
+    print(f"past the gate: loss {loss!r} vs JAX {float(loss_j)!r}")
+    assert abs(loss - float(loss_j)) <= 1e-6 * abs(float(loss_j))
+    sd, jq = model.state_dict(), jax.tree_util.tree_map(np.asarray,
+                                                        aux["quant"])
+    for path, name in quant_site_names(KW["depth"]):
+        site = jq
+        for p in path:
+            site = site[p]
+        for key in ("min", "max"):
+            np.testing.assert_allclose(sd[f"{name}.{key}"].numpy(),
+                                       site[key], rtol=1e-5, atol=1e-7,
+                                       err_msg=name)
+    worst, worst_name = 0.0, ""
+    named = dict(model.named_parameters())
+    for name, r in state_dict_from_jax(
+            jax.tree_util.tree_map(np.asarray, grads_j)).items():
+        g = named[name].grad  # None where the loss does not reach
+        d = ((torch.zeros_like(r) if g is None else g) - r).abs()
+        if name.endswith("to_qkv.bias"):
+            d[C:2 * C] = 0
+        share = float(d.max()) / max(float(r.abs().max()), 1e-30)
+        if share > worst:
+            worst, worst_name = share, name
+    print(f"past the gate: largest gradient difference {worst:.3g} of its "
+          f"tensor's scale, in {worst_name}")
+    assert worst <= GRAD_BAR
     with pytest.raises(ValueError, match="int8_fused"):
         model(img, calibrating=True, int8_fused=True)
 

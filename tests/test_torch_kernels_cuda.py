@@ -508,9 +508,11 @@ def test_int8_chains_match_plain(dev, c, hid, b, n):
 
 
 def test_int8_kernels_refuse_what_they_do_not_take(dev):
-    n = K.attention_core_f32_max_n() + 1
+    # above the one-CTA kernel's 256 tokens the converted core takes the
+    # long route (its int8 mode), which refuses past its own top
+    n = K.F32_LONG_MAX_N + 1
     site = torch.tensor([0.1, 128.0, 1.0], device=dev)
-    with pytest.raises(ValueError, match="exceeds"):
+    with pytest.raises(NotImplementedError, match="long route's maximum"):
         K.attention_core_f32_cuda(torch.zeros(1, n, 3 * 64, device=dev), 1,
                                   0.125, site)
     a = torch.zeros(4, 24, device=dev, dtype=torch.int8)
@@ -2402,8 +2404,8 @@ def test_f32_long_core_forced_agrees_with_one_cta(dev, n, d):
 
 
 def test_f32_long_core_refuses_what_it_does_not_take(dev):
-    """Past the route's top, and INT8 QAT's sites above 256 tokens (the
-    rest of INT8, ROADMAP A5b)."""
+    """Past the route's top, in every mode (the float and INT8 QAT snaps,
+    the converted model's int8 grid) and in the backward."""
     from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
 
     lib = K._lib()
@@ -2411,13 +2413,91 @@ def test_f32_long_core_refuses_what_it_does_not_take(dev):
     assert lib.mvt_attention_core_f32_bwd_long_max_n() == K.F32_LONG_MAX_N
     n = K.F32_LONG_MAX_N + 1
     qkv = torch.zeros(1, n, 3 * 64, device=dev)
+    site = torch.tensor([0.1, 128.0, 1.0], device=dev)
     with pytest.raises(NotImplementedError, match="long route's maximum"):
         K.attention_core_snap_cuda(qkv, 1, 0.125, (5, 10, False))
+    with pytest.raises(NotImplementedError, match="long route's maximum"):
+        K.attention_core_snap_cuda(qkv, 1, 0.125, Int8Sites(site))
+    with pytest.raises(NotImplementedError, match="long route's maximum"):
+        K.attention_core_f32_cuda(qkv, 1, 0.125, site)
     with pytest.raises(NotImplementedError, match="long route's maximum"):
         K.attention_core_f32_bwd_cuda(
             qkv, torch.zeros(1, n, 64, device=dev),
             *[torch.zeros(1, 1, n, device=dev)] * 2, 1, 0.125)
-    site = torch.tensor([0.1, 128.0, 1.0], device=dev)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        K.attention_core_snap_cuda(torch.zeros(1, 300, 3 * 64, device=dev),
-                                   1, 0.125, Int8Sites(site))
+
+
+# the long route's int8 modes: the converted model's int8 grid (K9 above
+# 256 tokens) and INT8 QAT's site snap with and without the statistics (K1
+# int8 above 256 tokens), at the long lengths and ViT-S/16's 577 tokens at
+# 384 px; a site with statistics and one without
+F32_LONG_I8_NS = [257, 300, 357, 577, 677, 701, 768]
+F32_LONG_I8_MODES = ["int8", "sites", "sites+stats", "int8 fresh",
+                     "sites fresh"]
+
+
+@pytest.mark.parametrize("b", [2, 8])
+@pytest.mark.parametrize("d,heads", [(32, 12), (64, 6)])
+@pytest.mark.parametrize("n", F32_LONG_I8_NS)
+def test_f32_long_core_int8_modes(dev, n, d, heads, b):
+    """Each int8 mode of the long forward against its plain version: the
+    int8 grid under the INT8 bar, the site's snap under the site bar (no
+    statistics: the context as it is, within the fp32 noise), the
+    statistics under the one-kernel bar; one launch a call, counted as
+    attention_core_f32_long; a second launch gives the same bits."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    scale = d ** -0.5
+    for i, mode in enumerate(F32_LONG_I8_MODES):
+        qkv = f32_core_qkv(b, n, heads, d, n * d + b + 10 * i, dev)
+        site = site_of(K.attention_context_f32(qkv, heads, scale))
+        if mode.endswith("fresh"):
+            site = torch.tensor([1.1920929e-7, 0.0, 0.0], device=dev)
+        stats = mode.endswith("+stats")
+        if mode.startswith("int8"):
+            run = lambda: K.attention_core_f32_cuda(qkv, heads, scale, site)
+            ref = K.attention_core_f32_plain(qkv, heads, scale, site)
+        else:
+            run = lambda: K.attention_core_snap_cuda(
+                qkv, heads, scale, Int8Sites(site), stats=stats)
+            ref = K.attention_core_snap_plain(qkv, heads, scale,
+                                              Int8Sites(site), stats=stats)
+        before = dict(K.LAUNCHES)
+        got = run()
+        assert K.LAUNCHES["attention_core_f32_long"] == \
+            before["attention_core_f32_long"] + 1, mode
+        assert K.LAUNCHES["attention_core_f32"] == \
+            before["attention_core_f32"], mode
+        out, want = (got[0], ref[0]) if stats else (got, ref)
+        if mode.startswith("int8"):
+            close_on_grid(out, want, 1)
+        elif mode.endswith("fresh"):
+            close(out, want, FLOAT_TIGHT * float(want.abs().max()))
+        else:
+            close_sites(out, want, step_of(site))
+        if stats:
+            close(got[1], ref[1])
+            close(got[2], ref[2])
+        _same_twice(run, got)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [1, 17, 64, 197])
+def test_f32_long_core_int8_forced_agrees_with_one_cta(dev, n, d):
+    """Forced at N <= 256 (``tiled``), the long route's int8 modes against
+    the one-CTA kernel's: the int8 grid under the INT8 bar, the site's
+    snap under the site bar, the statistics under the one-kernel bar."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    heads, scale = 6, d ** -0.5
+    qkv = f32_core_qkv(4, n, heads, d, n + d + 3, dev)
+    site = site_of(K.attention_context_f32(qkv, heads, scale))
+    long = K.attention_core_f32_cuda(qkv, heads, scale, site, tiled=True)
+    short = K.attention_core_f32_cuda(qkv, heads, scale, site)
+    close_on_grid(long, short, 1)
+    long = K.attention_core_snap_cuda(qkv, heads, scale, Int8Sites(site),
+                                      stats=True, tiled=True)
+    short = K.attention_core_snap_cuda(qkv, heads, scale, Int8Sites(site),
+                                       stats=True)
+    close_sites(long[0], short[0], step_of(site))
+    close(long[1], short[1])
+    close(long[2], short[2])

@@ -273,21 +273,33 @@ def test_loads_refuse_the_other_storage(jax_int8):
 
 
 @pytest.mark.parametrize("q_format", ["FP16_16", "FP16_32", "TF32"])
-def test_float_formats_raise_with_the_roadmap_item(q_format, monkeypatch):
-    """What the quantized formats still refuse: detection in PyTorchINT8
-    (A5b).  The float formats now build a detector, and a sequence past
-    the fused gate runs the discrete float Block, recording gradients or
-    not (tests/test_torch_float_detection.py holds both against JAX)."""
-    with pytest.raises(NotImplementedError, match="A5b"):
-        ViT(**dict(KW, decoder="detection"), q_format="PyTorchINT8")
+def test_float_formats_raise_with_the_roadmap_item(q_format, monkeypatch,
+                                                   jax_int8):
+    """What the quantized formats still refuse: a converted PyTorchINT8
+    model past the fused gate (the discrete converted Block, A5b), and a
+    converted INT8 detector (no JAX CLI builds one).  A PyTorchINT8
+    detector before convert builds now, and the float formats build a
+    detector; a sequence past the fused gate runs the discrete float
+    Block, recording gradients or not (tests/test_torch_float_detection.py
+    holds both against JAX)."""
+    assert ViT(**dict(KW, decoder="detection"),
+               q_format="PyTorchINT8").int8
+    with pytest.raises(NotImplementedError, match="converted PyTorchINT8"):
+        ViT(**dict(KW, decoder="detection"), q_format="PyTorchINT8",
+            converted=True)
     assert ViT(**dict(KW, decoder="detection"), q_format=q_format).q_format \
         == QFormat[q_format]
     model = ViT(q_format=q_format, **KW)
     img = torch.zeros(1, 80, 80, 3)
     fused = model(img)
     assert fused.grad_fn is not None
+    converted = ViT(q_format="PyTorchINT8", converted=True, **KW)
+    converted.load_state_dict(state_dict_from_jax(
+        jax_int8["converted"], quant=jax_int8["quant"]), strict=True)
     monkeypatch.setattr("myrtle_vision_tpu_torch.models.vit.fuses_at",
                         lambda n, heads, d: False)
+    with pytest.raises(NotImplementedError, match="A5b"), torch.no_grad():
+        converted(img)
     assert model(img).grad_fn is not None
     with torch.no_grad():
         torch.testing.assert_close(model(img), fused.detach(), rtol=0,
