@@ -1583,7 +1583,7 @@ def phase_kernels_long_float(device):
     reciprocal rowsum under the one-kernel bar; the backward
     (attention_core_f32_bwd_long) from the plain forward's statistics,
     dqkv under the chain bar and the per-image column sums under the psum
-    bar; each call's launches counted (1 and 3, none of the one-CTA
+    bar; each call's launches counted (2 and 4, none of the one-CTA
     kernels').  Then, forced at 197 tokens (``tiled``; ViT-S/16, B=64),
     both against the one-CTA kernels.  Inputs: fp32 qkv rows and d_o drawn
     at std 1.  Returns the largest max abs differences by kernel."""
@@ -1604,7 +1604,8 @@ def phase_kernels_long_float(device):
                 for qname, qspec in FLOAT_QSPECS.items():
                     for stats in (False, True):
                         got = as_tuple(counted(
-                            "attention_core_f32_long", 1,
+                            "attention_core_f32_long",
+                            K.F32_LONG_FWD_LAUNCHES,
                             lambda: K.attention_core_snap_cuda(
                                 qkv, heads, sc, qspec, stats=stats)))
                         ref = as_tuple(K.attention_core_snap_plain(
@@ -1652,7 +1653,8 @@ def phase_kernels_long_float(device):
     rng = np.random.RandomState(64197 + 5)
     qkv = seeded(rng, (64, N, 3 * C), 1.0, device)
     d_o = seeded(rng, (64, N, C), 1.0, device)
-    long = counted("attention_core_f32_long", 1,
+    long = counted("attention_core_f32_long",
+                            K.F32_LONG_FWD_LAUNCHES,
                    lambda: K.attention_core_snap_cuda(
                        qkv, HEADS, SCALE, qspec, stats=True, tiled=True))
     short = K.attention_core_snap_cuda(qkv, HEADS, SCALE, qspec, stats=True)
@@ -2728,7 +2730,8 @@ def phase_kernels_long_int8(device):
         worst = (0.0, 0.0, 0.0)
         for stats in (False, True):
             got = as_tuple(counted(
-                "attention_core_f32_long", 1,
+                "attention_core_f32_long",
+                            K.F32_LONG_FWD_LAUNCHES,
                 lambda: K.attention_core_snap_cuda(
                     qkv, HEADS, SCALE, Int8Sites(site), stats=stats)))
             ref = as_tuple(K.attention_core_snap_plain(
@@ -2742,7 +2745,8 @@ def phase_kernels_long_int8(device):
                 max_abs, of_bar = max(max_abs, m_abs), max(of_bar, m_bar)
             worst = max(worst, (of_bar, max_abs, share))
         errors[sites_key] = max(errors[sites_key], worst[1])
-        got = counted("attention_core_f32_long", 1,
+        got = counted("attention_core_f32_long",
+                            K.F32_LONG_FWD_LAUNCHES,
                       lambda: K.attention_core_f32_cuda(qkv, HEADS, SCALE,
                                                         site))
         ref = K.attention_core_f32_plain(qkv, HEADS, SCALE, site)
@@ -2761,7 +2765,8 @@ def phase_kernels_long_int8(device):
     rng = np.random.RandomState(64197 + 9)
     qkv = seeded(rng, (64, N, 3 * C), 1.0, device)
     site = long_int8_site(qkv, HEADS, SCALE)
-    long = counted("attention_core_f32_long", 1,
+    long = counted("attention_core_f32_long",
+                            K.F32_LONG_FWD_LAUNCHES,
                    lambda: K.attention_core_snap_cuda(
                        qkv, HEADS, SCALE, Int8Sites(site), stats=True,
                        tiled=True))
@@ -2771,7 +2776,8 @@ def phase_kernels_long_int8(device):
                            short[0], site_step(site))[:2]]
     worst += [compare(f"forced long core site output {i}", long[i], short[i],
                       RTOL, KERNEL_ATOL) for i in (1, 2)]
-    long = counted("attention_core_f32_long", 1,
+    long = counted("attention_core_f32_long",
+                            K.F32_LONG_FWD_LAUNCHES,
                    lambda: K.attention_core_f32_cuda(qkv, HEADS, SCALE, site,
                                                      tiled=True))
     short = K.attention_core_f32_cuda(qkv, HEADS, SCALE, site)
@@ -2797,7 +2803,8 @@ def phase_kernels_long_int8(device):
         launches = {k: v for k, v in read_counts()[0].items() if v}
         long_name = ("attention_core_f32_bwd_long" if "[bwd" in name
                      else "attention_core_f32_long")
-        want = 3 if "[bwd" in name else 1
+        want = (K.F32_LONG_BWD_LAUNCHES if "[bwd" in name
+                else K.F32_LONG_FWD_LAUNCHES)
         check(launches.get(long_name) == want
               and "attention_core_f32" not in launches
               and "attention_core_f32_bwd" not in launches,
@@ -2822,7 +2829,8 @@ def phase_kernels_long_int8(device):
         got = kernel()
         launches = {k: v for k, v in read_counts()[0].items() if v}
         if name == "int8_attention_block":
-            check(launches.get("attention_core_f32_long") == 1
+            check(launches.get("attention_core_f32_long")
+                  == K.F32_LONG_FWD_LAUNCHES
                   and "attention_core_f32" not in launches,
                   f"{name} at N={n}: launches {launches}")
         max_abs, of_bar = compare_grid(f"int8-long: {name} B={b} N={n}", got,
@@ -3021,7 +3029,7 @@ def phase_int8_384(device):
         model, train_loader, val_loader, (micro, n_accum) = \
             train_cli.build_train(config, device)
     per = depth * n_accum * steps  # validation runs no fused op
-    want = {"attention_core_f32_long": per,
+    want = {"attention_core_f32_long": per * K.F32_LONG_FWD_LAUNCHES,
             "attention_core_f32_bwd_long": per * K.F32_LONG_BWD_LAUNCHES,
             "attention_core_f32": 0, "attention_core_f32_bwd": 0}
     got = {k: launches[k] for k in want}
@@ -3066,7 +3074,8 @@ def phase_int8_384(device):
     expect = dict.fromkeys(ptq_launches, 0)
     expect.update(layernorm_quant_rows=(2 * depth + 1) * batches,
                   gemm_s8_epilogue=(4 * depth + 2) * batches,
-                  attention_core_f32_long=depth * batches)
+                  attention_core_f32_long=depth * batches
+                  * K.F32_LONG_FWD_LAUNCHES)
     print(f"int8-384: the PTQ CLI on {ckpts[-1]} in {took:.1f} s: "
           f"{len(gts)} test images in {batches} batches, accuracy "
           f"{float(np.mean(gts == preds)):.4f}; int8_attention_block "
@@ -3716,15 +3725,15 @@ def phase_detect_train(device, data_config, data_cfg):
 def float_step_launches(n_tok, n_accum, depth):
     """The fp32 attention core's launches of one float-format train step at
     ``n_tok`` tokens: per block and micro-batch, where the Block fuses
-    above 256 tokens, one long forward (with the statistics) and one long
-    backward (three kernels); past the gate none (the discrete Block's
+    above 256 tokens, one long forward (with the statistics; two kernels)
+    and one long backward (four kernels); past the gate none (the discrete Block's
     core is PyTorch operations); never a one-CTA or a flash kernel."""
     from myrtle_vision_tpu_torch.ops import _kernels as K
     from myrtle_vision_tpu_torch.ops.fused_attention_block import fuses_at
 
     fused = fuses_at(n_tok, HEADS, C // HEADS)
     calls = depth * n_accum if fused and n_tok > K.F32_CORE_MAX_N else 0
-    return {"attention_core_f32_long": calls,
+    return {"attention_core_f32_long": calls * K.F32_LONG_FWD_LAUNCHES,
             "attention_core_f32_bwd_long": calls * K.F32_LONG_BWD_LAUNCHES,
             "attention_core_f32": 0, "attention_core_f32_bwd": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd": 0}
@@ -4813,8 +4822,10 @@ def time_float_detection(totals, device, power):
                 q_format="FP16_32", device=device)
     time_yolos_step(model, "FP16_32 QAT ",
                     {"long f32 core forward": (
-                        "attention_core_f32_long_kernel",),
-                     "long f32 core backward": ("f32_long_dq_kernel",
+                        "f32_long_kv_split_kernel",
+                        "attention_core_f32_long_kernel"),
+                     "long f32 core backward": ("f32_long_bwd_split_kernel",
+                                                "f32_long_dq_kernel",
                                                 "f32_long_dkdv_kernel",
                                                 "f32_long_colsum_kernel"),
                      "fake_quant_rows": ("fake_quant_rows",),
@@ -4990,8 +5001,9 @@ def time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs):
           f"[{power}]")
     line = device_profile(lambda: step(state, batch, tc["lr"]), {
         "attention_core_f32_long (site mode)": (
-            "attention_core_f32_long_kernel",),
-        "attention_core_f32_bwd_long": ("f32_long_dq_kernel",
+            "f32_long_kv_split_kernel", "attention_core_f32_long_kernel"),
+        "attention_core_f32_bwd_long": ("f32_long_bwd_split_kernel",
+                                        "f32_long_dq_kernel",
                                         "f32_long_dkdv_kernel",
                                         "f32_long_colsum_kernel"),
         "gemm_f32x3_epilogue": ("gemm_f32x3",),
@@ -5015,7 +5027,8 @@ def time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs):
                                warmup=2)
         line = device_profile(lambda: conv(imgs), {
             "attention_core_f32_long (int8 mode)": (
-                "attention_core_f32_long_kernel",),
+                "f32_long_kv_split_kernel",
+                "attention_core_f32_long_kernel"),
             "gemm_s8_epilogue": ("gemm_s8",),
             "layernorm_quant_rows": ("layernorm_quant_rows",)})
     print(f"timing: converted INT8 ViT-S/16 forward at 384 px B={b}: kernel "
@@ -5150,7 +5163,7 @@ def main():
             # float backward kernels); the flash forward's one launch in a YOLOS-S
             # block at 800 px, B=8; the flash backward's one call (three
             # kernels) in a YOLOS-S block at 608 px, B=8; the float long
-            # core's one call, forward or backward (three kernels), in a
+            # core's one call, forward or backward (two or four kernels), in a
             # YOLOS-S FP16_32 block at 384 px, B=8
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],

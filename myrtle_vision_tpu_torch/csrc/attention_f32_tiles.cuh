@@ -39,9 +39,11 @@
 // lo), rows of one head's D values, 128-byte rows at D = 64 and 64-byte
 // rows at D = 32, swizzled as TMA writes them (the tile 1024-byte
 // aligned), so one descriptor form reads a tile K-major and, with the
-// transpose bit, MN-major.  Threads split the fp32 rows into the tiles
-// 8 values a thread (`split_rows`) and fence the async proxy before a
-// product reads them.
+// transpose bit, MN-major.  In the short kernels threads split the fp32
+// rows into the tiles 8 values a thread (`split_rows`) and fence the async
+// proxy before a product reads them; the long routes split every operand
+// once a call into a scratch that TMA loads tile by tile in this layout
+// (f32_long_wgmma.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -114,6 +116,37 @@ __device__ __forceinline__ void chain3(const Mma& mma) {
   for (int k = 0; k < kSteps; ++k) mma(1, 0, k);
 #pragma unroll
   for (int k = 0; k < kSteps; ++k) mma(0, 0, k);
+}
+
+// Two 3-pass chains into two accumulators, issued step by step in turn
+// (mma0's step, then mma1's), each in its own order: the sums of two
+// chain3 calls, with two products in flight where one chain would wait on
+// its accumulator.
+template <int kSteps, class Mma0, class Mma1>
+__device__ __forceinline__ void chain3_pair(const Mma0& mma0,
+                                            const Mma1& mma1) {
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    mma0(0, 1, k);
+    mma1(0, 1, k);
+  }
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    mma0(1, 0, k);
+    mma1(1, 0, k);
+  }
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    mma0(0, 0, k);
+    mma1(0, 0, k);
+  }
+}
+
+// the first product of a `chain3` (step 0 of its first pass, hi.lo): the
+// one that may ignore the accumulator's old contents (scale_d = 0) and so
+// start a fresh sum without zeroing it, the same sum as 0 + the chain
+__device__ __forceinline__ constexpr bool chain_first(int a, int b, int k) {
+  return a == 0 && b == 1 && k == 0;
 }
 
 // stores a 64-row accumulator tile (times `mul`) into D columns from

@@ -151,12 +151,14 @@ def lib() -> ctypes.CDLL:
              [p, p, p, p, i, i, i, i, f, i, i, p]),
             ("mvt_attention_core_f32_launch", [i, i, p]),
             ("mvt_attention_core_f32_bwd_launch", [i, i, p]),
-            ("mvt_attention_core_f32_long", [p, p, p, p, i, i, i, i, f, i, i,
-                                             p, p]),
-            ("mvt_attention_core_f32_long_i8", [p, p, p, i, i, i, i, f, p]),
+            ("mvt_attention_core_f32_long",
+             [p] * 5 + [i, i, i, i, f, i, i, p, p, p]),
+            ("mvt_attention_core_f32_long_i8",
+             [p] * 4 + [i, i, i, i, f, p, p]),
             ("mvt_attention_core_f32_long_max_n", []),
+            ("mvt_attention_core_f32_long_plan", [i, i, p]),
             ("mvt_attention_core_f32_bwd_long",
-             [p] * 8 + [i, i, i, i, f, p, p]),
+             [p] * 9 + [i, i, i, i, f, p, p]),
             ("mvt_attention_core_f32_bwd_long_max_n", []),
             ("mvt_fake_quant_rows", [p, p, ll, i, i, i, p]),
             ("mvt_layernorm_snap_rows",

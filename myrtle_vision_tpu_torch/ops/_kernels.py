@@ -47,10 +47,13 @@ snap from csrc/fake_quant.cuh:
                                csrc/attention_f32_tiles.cuh)
 - ``attention_core_f32_long``  above 256 tokens, the fp32 core's snap
                                and int8 modes:
-                               csrc/attention_core_f32_long_wgmma.cu
+                               csrc/attention_core_f32_long_wgmma.cu (a
+                               split pass, then a core kernel fed by TMA)
 - ``attention_core_f32_bwd_long``  above 256 tokens, its backward:
                                csrc/attention_core_f32_bwd_long_wgmma.cu
-                               (both long routes' shapes in
+                               (a split pass, dq, dk / dv, column sums;
+                               both long routes' shapes in
+                               csrc/f32_long_wgmma.cuh and
                                :func:`f32_long_plan`)
 - ``layernorm_rows_bwd``       csrc/layernorm_rows_bwd.cu, its fp32 snap form
                                (counted as ``layernorm_snap_rows_bwd``)
@@ -205,11 +208,21 @@ CORE_LONG_BWD_LAUNCHES = 4
 # the fp32 core above F32_CORE_MAX_N (float formats, INT8 QAT, converted INT8)
 # (csrc/attention_core_f32_long_wgmma.cu,
 # csrc/attention_core_f32_bwd_long_wgmma.cu; kLongTile, kLongMaxN in
-# csrc/attention_f32_tiles.cuh): a CTA's own rows and the tile it walks,
-# the longest sequence, the backward's kernels a call
+# csrc/attention_f32_tiles.cuh, the rest in csrc/f32_long_wgmma.cuh): a
+# CTA's own rows and the tile it walks, the longest sequence, the
+# forward's threads (a warpgroup and a producer warp) and its ring's most
+# stages, the backward's threads (a warpgroup) and CTAs an SM, the most
+# dynamic shared memory a CTA may ask for, the kernels a forward and a
+# backward call launch (the split pass included)
 F32_LONG_TILE = 64
 F32_LONG_MAX_N = 768
-F32_LONG_BWD_LAUNCHES = 3
+F32_LONG_FWD_THREADS = 160
+F32_LONG_FWD_MAX_STAGES = 4
+F32_LONG_BWD_THREADS = 128
+F32_LONG_BWD_CTAS_PER_SM = 2
+F32_LONG_SMEM_OPTIN = 232448
+F32_LONG_FWD_LAUNCHES = 2
+F32_LONG_BWD_LAUNCHES = 4
 
 
 def reset_launches() -> None:
@@ -975,27 +988,99 @@ def core_long_launch(n, d):
     return figures
 
 
+@functools.lru_cache(maxsize=256)
 def f32_long_plan(n, d, b=1, heads=1):
-    """How the fp32 core's long route (``attention_core_snap`` above
-    :data:`F32_CORE_MAX_N` or with ``tiled``, ``attention_core_f32_bwd``
-    likewise) covers ``b`` images of ``heads`` heads of ``n`` tokens (1 to
-    :data:`F32_LONG_MAX_N`) at head width ``d`` (32 or 64): {"tiles": the
-    64-row tiles of a (image, head), each a CTA of every kernel but the
-    column sums, "n_pad": n rounded up to :data:`F32_LONG_TILE`,
-    "launches": {"fwd": 1, "bwd": 3}, "scratch": the backward's scratch
-    shapes, "rt" (r rs of every row, (b, heads, n_pad)) and "colpart"
-    (each 64-row tile's column sums, (b, tiles, 3 heads d))}."""
+    """How the fp32 core's long route (``attention_core_snap`` and
+    ``attention_core_f32`` above :data:`F32_CORE_MAX_N` or with ``tiled``,
+    ``attention_core_f32_bwd`` likewise) covers ``b`` images of ``heads``
+    heads of ``n`` tokens (1 to :data:`F32_LONG_MAX_N`) at head width ``d``
+    (32 or 64): {"tiles": the 64-row tiles of a (image, head), each a CTA
+    of the forward's core, dq and dk / dv kernels, "n_pad": n rounded up to
+    :data:`F32_LONG_TILE`, "fwd", "dq", "dkdv": each kernel's figures,
+    "launches": {"fwd": 2, "bwd": 4}, "scratch": {"fwd": ..., "bwd": ...}
+    the shapes the wrappers allocate}.  A kernel's figures: "grid" (its
+    CTAs per (image, head)), "rows" (a CTA's own rows), "tile" (the rows of
+    a tile it walks), "threads", "stages" (its ring's tiles), "smem"
+    (dynamic shared memory bytes) and "ctas_per_sm".  The forward is a
+    split pass, then a core kernel of a warpgroup and a producer warp, one
+    CTA an SM: its 64 x n_pad fp32 score block and a ring of K or V tiles'
+    bf16 hi and lo halves with what the score block leaves of
+    :data:`F32_LONG_SMEM_OPTIN` (4 stages up to n_pad 640, 3 at 704, 2 at
+    768), beside the full and empty barriers of
+    :data:`F32_LONG_FWD_MAX_STAGES` stages.  The backward is a split pass,
+    a dq and a dk / dv kernel of one warpgroup, two CTAs an SM, each
+    holding its own rows' two split operands, a ring of 2 (d 64) or 4 (d
+    32) stages of two more, the barriers and the stages' release counts and
+    a column-sum buffer of 4 warps x 3 sections x d fp32, and the column
+    sums.  Scratch: the
+    forward's "split" (K's and V's hi and lo halves, (4, b, heads, n_pad,
+    d) bf16); the backward's "split" (q's, k's, v's and du's, (8, b,
+    heads, n_pad, d) bf16), "rt" (r rs of every row, (b, heads, n_pad)
+    fp32) and "colpart" (each 64-row tile's column sums, (b, tiles, 3
+    heads d) fp32).  Cached: every long-route call reads it, and the
+    returned dictionary is not to be changed."""
     if not 1 <= n <= F32_LONG_MAX_N or d not in (32, 64) or b < 1 or \
             heads < 1:
         raise ValueError(f"f32_long_plan: n={n}, d={d}, b={b}, "
                          f"heads={heads}")
     tiles = math.ceil(n / F32_LONG_TILE)
+    n_pad = tiles * F32_LONG_TILE
+    pair = 2 * F32_LONG_TILE * 2 * d  # bytes: a tile's hi and lo halves
+    scores = n_pad * F32_LONG_TILE * 4
+    bars = 8 * 2 * F32_LONG_FWD_MAX_STAGES
+    fwd_stages = min(F32_LONG_FWD_MAX_STAGES,
+                     (F32_LONG_SMEM_OPTIN - TILE_ALIGN_BYTES - scores - bars)
+                     // pair)
+    bwd_stages = 2 if d == 64 else 4
+    bwd_smem = (TILE_ALIGN_BYTES + 2 * pair + bwd_stages * 2 * pair
+                + 8 * (1 + 2 * bwd_stages) + 4 * 4 * 3 * d)
+
+    def kernel(threads, stages, smem, ctas):
+        return {"grid": tiles, "rows": F32_LONG_TILE, "tile": F32_LONG_TILE,
+                "threads": threads, "stages": stages, "smem": smem,
+                "ctas_per_sm": ctas}
+
+    bwd = kernel(F32_LONG_BWD_THREADS, bwd_stages, bwd_smem,
+                 F32_LONG_BWD_CTAS_PER_SM)
     return {
-        "tiles": tiles, "n_pad": tiles * F32_LONG_TILE,
-        "launches": {"fwd": 1, "bwd": F32_LONG_BWD_LAUNCHES},
-        "scratch": {"rt": (b, heads, tiles * F32_LONG_TILE),
-                    "colpart": (b, tiles, 3 * heads * d)},
+        "tiles": tiles, "n_pad": n_pad,
+        "fwd": kernel(F32_LONG_FWD_THREADS, fwd_stages,
+                      TILE_ALIGN_BYTES + fwd_stages * pair + scores + bars,
+                      1),
+        "dq": bwd, "dkdv": dict(bwd),
+        "launches": {"fwd": F32_LONG_FWD_LAUNCHES,
+                     "bwd": F32_LONG_BWD_LAUNCHES},
+        "scratch": {
+            "fwd": {"split": (4, b, heads, n_pad, d)},
+            "bwd": {"split": (8, b, heads, n_pad, d),
+                    "rt": (b, heads, n_pad),
+                    "colpart": (b, tiles, 3 * heads * d)}},
     }
+
+
+def f32_long_launch(n, d):
+    """The launch figures that the fp32 core's long route reports for ``n``
+    tokens at head width ``d``, in the form of :func:`f32_long_plan`
+    without "tiles", "n_pad" and "scratch" ("ctas_per_sm" the runtime's
+    occupancy of the compiled kernel)."""
+    from myrtle_vision_tpu_torch.ops import _build
+
+    keys = ("grid", "rows", "tile", "threads", "stages", "smem",
+            "ctas_per_sm")
+    f = (ctypes.c_int * 23)()
+    _build.check(_lib().mvt_attention_core_f32_long_plan(n, d, f),
+                 "f32_long_launch")
+    figures = {key: dict(zip(keys, f[7 * i:7 * i + 7]))
+               for i, key in enumerate(("fwd", "dq", "dkdv"))}
+    figures["launches"] = {"fwd": f[22], "bwd": f[21]}
+    return figures
+
+
+def _f32_long_split(plan, kind, like):
+    """The bf16 split scratch of one long-route call (:func:`f32_long_plan`
+    ``kind`` "fwd" or "bwd") on ``like``'s device."""
+    return torch.empty(plan["scratch"][kind]["split"], dtype=torch.bfloat16,
+                       device=like.device)
 
 
 def gemm_s8_plan(m, n, k):
@@ -1344,8 +1429,12 @@ def attention_core_f32_cuda(qkv, heads, scale, site, tiled=False):
     args = (qkv.data_ptr(), site.data_ptr(), out.data_ptr(), b, n, heads, d,
             float(scale))
     if tiled:
+        split = _f32_long_split(f32_long_plan(n, d, b, heads), "fwd", qkv)
+        launched = ctypes.c_int(0)
         _launch("attention_core_f32_long",
-                _lib().mvt_attention_core_f32_long_i8, qkv, *args)
+                _lib().mvt_attention_core_f32_long_i8, qkv, *args[:3],
+                split.data_ptr(), *args[3:], ctypes.addressof(launched),
+                launched=launched)
     else:
         _launch("attention_core_f32", _lib().mvt_attention_core_f32, qkv,
                 *args)
@@ -1499,8 +1588,9 @@ def _long_route(n, name):
     if n > F32_LONG_MAX_N:
         raise NotImplementedError(
             f"{name}: sequence {n} exceeds the long route's maximum "
-            f"{F32_LONG_MAX_N}, a 64 x {F32_LONG_MAX_N} fp32 score block in "
-            "one CTA's shared memory")
+            f"{F32_LONG_MAX_N}, a 64 x {F32_LONG_MAX_N} fp32 score block "
+            "beside a two-stage ring of split K or V tiles in one CTA's "
+            "shared memory")
 
 
 def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
@@ -1531,9 +1621,13 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
     stat_ptrs = (None if m is None else m.data_ptr(),
                  None if rs is None else rs.data_ptr())
     if tiled:
+        split = _f32_long_split(f32_long_plan(n, d, b, heads), "fwd", qkv)
+        launched = ctypes.c_int(0)
         _launch("attention_core_f32_long", _lib().mvt_attention_core_f32_long,
-                qkv, qkv.data_ptr(), out.data_ptr(), *stat_ptrs, b, n, heads,
-                d, float(scale), exp_bits, man_bits, site)
+                qkv, qkv.data_ptr(), out.data_ptr(), *stat_ptrs,
+                split.data_ptr(), b, n, heads, d, float(scale), exp_bits,
+                man_bits, site, ctypes.addressof(launched),
+                launched=launched)
     else:
         _launch("attention_core_f32", _lib().mvt_attention_core_f32_snap, qkv,
                 qkv.data_ptr(), out.data_ptr(), *stat_ptrs, b, n, heads, d,
@@ -1584,7 +1678,7 @@ def attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale,
     or 64.  Up to :func:`attention_core_f32_max_n` one CTA of two
     warpgroups per (image, head) (csrc/attention_core_f32_bwd_wgmma.cu);
     above it the long route to :data:`F32_LONG_MAX_N`
-    (csrc/attention_core_f32_bwd_long_wgmma.cu: three launches, the
+    (csrc/attention_core_f32_bwd_long_wgmma.cu: four launches, the
     scratch of :func:`f32_long_plan`), counted as
     ``attention_core_f32_bwd_long``; ``tiled`` takes it at any N."""
     _require(qkv, "qkv", torch.float32)
@@ -1602,15 +1696,17 @@ def attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale,
     args = (qkv.data_ptr(), d_o.data_ptr(), m.data_ptr(), rs.data_ptr(),
             dqkv.data_ptr(), dbias.data_ptr())
     if tiled:
-        shapes = f32_long_plan(n, d, b, heads)["scratch"]
-        rt, colpart = (torch.empty(shapes[k], dtype=torch.float32,
-                                   device=qkv.device)
+        plan = f32_long_plan(n, d, b, heads)
+        split = _f32_long_split(plan, "bwd", qkv)
+        rt, colpart = (torch.empty(plan["scratch"]["bwd"][k],
+                                   dtype=torch.float32, device=qkv.device)
                        for k in ("rt", "colpart"))
         launched = ctypes.c_int(0)
         _launch("attention_core_f32_bwd_long",
                 lib.mvt_attention_core_f32_bwd_long, qkv, *args,
-                rt.data_ptr(), colpart.data_ptr(), b, n, heads, d,
-                float(scale), ctypes.addressof(launched), launched=launched)
+                split.data_ptr(), rt.data_ptr(), colpart.data_ptr(), b, n,
+                heads, d, float(scale), ctypes.addressof(launched),
+                launched=launched)
     else:
         _launch("attention_core_f32_bwd", lib.mvt_attention_core_f32_bwd,
                 qkv, *args, b, n, heads, d, float(scale))

@@ -206,17 +206,63 @@ def test_xla_core_matches_jax(seq_valid):
 @pytest.mark.parametrize("n,d", [(257, 64), (677, 64), (701, 32), (768, 64),
                                  (1, 32)])
 def test_f32_long_plan(n, d):
-    """The long route's figures: 64-row tiles, the backward's scratch
-    shapes and launches; outside its lengths and head widths it raises."""
-    plan = K.f32_long_plan(n, d, b=3, heads=384 // d)
+    """The long route's figures: 64-row tiles, two launches a forward and
+    four a backward (the split passes included), the split scratch of K
+    and V (forward) and of q, k, v and du (backward) in bf16 rows of n_pad,
+    the backward's other scratch, each kernel's threads, ring stages and
+    shared memory; outside its lengths and head widths it raises."""
+    heads = 384 // d
+    plan = K.f32_long_plan(n, d, b=3, heads=heads)
     tiles = -(-n // 64)
-    assert plan["tiles"] == tiles and plan["n_pad"] == 64 * tiles
-    assert plan["scratch"] == {"rt": (3, 384 // d, 64 * tiles),
-                               "colpart": (3, tiles, 3 * 384)}
-    assert plan["launches"] == {"fwd": 1, "bwd": K.F32_LONG_BWD_LAUNCHES}
+    n_pad = 64 * tiles
+    assert plan["tiles"] == tiles and plan["n_pad"] == n_pad
+    assert plan["scratch"] == {
+        "fwd": {"split": (4, 3, heads, n_pad, d)},
+        "bwd": {"split": (8, 3, heads, n_pad, d), "rt": (3, heads, n_pad),
+                "colpart": (3, tiles, 3 * 384)}}
+    assert plan["launches"] == {"fwd": 2, "bwd": 4}
+    assert (K.F32_LONG_FWD_LAUNCHES, K.F32_LONG_BWD_LAUNCHES) == (2, 4)
+    pair = 2 * 64 * 2 * d  # a 64-row tile's bf16 hi and lo halves
+    fwd = plan["fwd"]
+    assert fwd["threads"] == 160 and fwd["ctas_per_sm"] == 1
+    assert fwd["smem"] == 1024 + fwd["stages"] * pair + 64 * n_pad * 4 + 64
+    stages = 2 if d == 64 else 4
+    assert plan["dq"] == plan["dkdv"] == {
+        "grid": tiles, "rows": 64, "tile": 64, "threads": 128,
+        "stages": stages, "ctas_per_sm": 2,
+        "smem": 1024 + 2 * pair + stages * 2 * pair + 8 * (1 + 2 * stages)
+        + 4 * 4 * 3 * d}
+    assert fwd["grid"] == tiles and fwd["rows"] == fwd["tile"] == 64
     for bad in ((K.F32_LONG_MAX_N + 1, d), (0, d), (n, 48)):
         with pytest.raises(ValueError):
             K.f32_long_plan(*bad)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_f32_long_plan_fits_shared_memory(d):
+    """At every length from 257 to 768 tokens the forward's score block and
+    a ring of at least two stages fit the 232,448 bytes a CTA may ask for,
+    the ring taking what the score block leaves (at most four stages: at d
+    64 four up to n_pad 640, three at 704, two at 768), and two backward
+    CTAs fit an SM's 233,472 bytes with the 1,024 the card keeps for
+    each."""
+    pair = 2 * 64 * 2 * d
+    seen = set()
+    for n in range(257, K.F32_LONG_MAX_N + 1):
+        plan = K.f32_long_plan(n, d)
+        fwd = plan["fwd"]
+        assert fwd["smem"] <= K.F32_LONG_SMEM_OPTIN == 232448, n
+        assert 2 <= fwd["stages"] <= K.F32_LONG_FWD_MAX_STAGES, n
+        if fwd["stages"] < K.F32_LONG_FWD_MAX_STAGES:
+            assert fwd["smem"] + pair > K.F32_LONG_SMEM_OPTIN, n
+        seen.add((plan["n_pad"], fwd["stages"]))
+        for kernel in ("dq", "dkdv"):
+            assert 2 * (plan[kernel]["smem"] + K.CTA_RESERVED_BYTES) <= \
+                K.SM_SHARED_BYTES, (n, kernel)
+    if d == 64:
+        assert {(640, 4), (704, 3), (768, 2)} <= seen
+    else:
+        assert {s for _, s in seen} == {4}
 
 
 # ------------------------------------------ the fused block above 256 tokens

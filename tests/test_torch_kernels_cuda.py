@@ -2333,8 +2333,9 @@ F32_LONG_NS = [257, 300, 357, 677, 701, 768]
 def test_f32_long_core_forward(dev, n, d, heads, stats, b):
     """The long forward in each float format against its plain version:
     the snapped context under the float bar, the rowmax and reciprocal
-    rowsum under the one-kernel bar; one launch a call, counted as
-    attention_core_f32_long; a second launch gives the same bits."""
+    rowsum under the one-kernel bar; two launches a call (the split pass
+    and the core), counted as attention_core_f32_long; a second call gives
+    the same bits."""
     scale = d ** -0.5
     for i, qspec in enumerate(F32_CORE_QSPECS.values()):
         qkv = f32_core_qkv(b, n, heads, d, n * d + i + b, dev)
@@ -2343,7 +2344,7 @@ def test_f32_long_core_forward(dev, n, d, heads, stats, b):
         before = dict(K.LAUNCHES)
         got = run()
         assert K.LAUNCHES["attention_core_f32_long"] == \
-            before["attention_core_f32_long"] + 1
+            before["attention_core_f32_long"] + K.F32_LONG_FWD_LAUNCHES
         assert K.LAUNCHES["attention_core_f32"] == \
             before["attention_core_f32"]
         ref = K.attention_core_snap_plain(qkv, heads, scale, qspec,
@@ -2363,8 +2364,9 @@ def test_f32_long_core_forward(dev, n, d, heads, stats, b):
 def test_f32_long_core_backward(dev, n, d, heads, b):
     """The long backward against its plain version from the plain
     forward's statistics: dqkv under the chain bar, the per-image column
-    sums under the sum bar; three launches a call, counted as
-    attention_core_f32_bwd_long; a second call gives the same bits."""
+    sums under the sum bar; four launches a call (the split pass, dq,
+    dk / dv, the column sums), counted as attention_core_f32_bwd_long; a
+    second call gives the same bits."""
     scale = d ** -0.5
     qkv, d_o, m, rs = f32_core_bwd_inputs(b, n, heads, d, n * d + b, dev)
     run = lambda: K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads,
@@ -2401,6 +2403,57 @@ def test_f32_long_core_forced_agrees_with_one_cta(dev, n, d):
     want = K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale)
     close(got[0], want[0], CHAIN_ATOL)
     close(got[1], want[1], SUM_ATOL * float(want[1].abs().max()))
+
+
+def test_f32_long_launches_match_the_plan(dev):
+    """The long route's own launch figures against K.f32_long_plan: grid,
+    rows, tile, threads, ring stages, shared memory and launches exactly;
+    CTAs an SM from the runtime's occupancy of the compiled kernels, equal
+    to the plan's where shared memory alone sets it (the forward's score
+    block above 256 tokens leaves room for one, the backward's kernels'
+    for two), else at least the plan's."""
+    for n in F32_LONG_I8_NS + [1, 64, 197, 640, 641, 704, 705]:
+        for d in (32, 64):
+            plan = K.f32_long_plan(n, d)
+            got = K.f32_long_launch(n, d)
+            assert got["launches"] == plan["launches"], (n, d)
+            for key in ("fwd", "dq", "dkdv"):
+                want, have = dict(plan[key]), dict(got[key])
+                ctas = have.pop("ctas_per_sm")
+                fits = K.SM_SHARED_BYTES // (want["smem"] +
+                                             K.CTA_RESERVED_BYTES)
+                assert ctas == want["ctas_per_sm"] if fits == \
+                    want["ctas_per_sm"] else ctas >= want["ctas_per_sm"], \
+                    (n, d, key, ctas)
+                want.pop("ctas_per_sm")
+                assert have == want, (n, d, key)
+
+
+@pytest.mark.parametrize("d,heads", [(32, 12), (64, 6)])
+@pytest.mark.parametrize("b,n", [(8, 577), (8, 677), (2, 677), (3, 768)])
+def test_f32_long_core_same_bits_twice(dev, b, n, d, heads):
+    """Two calls on the same inputs give the same bits: the forward in
+    each mode (a float format's snap with statistics, the INT8 site's
+    snap, the int8 grid) and the backward (no atomics, every sum in a
+    fixed order, the split scratch written anew each call)."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    scale = d ** -0.5
+    qkv, d_o, m, rs = f32_core_bwd_inputs(b, n, heads, d, 7 * n + d, dev)
+    site = site_of(K.attention_context_f32(qkv, heads, scale))
+    runs = [
+        lambda: K.attention_core_snap_cuda(
+            qkv, heads, scale, F32_CORE_QSPECS["FP16_32"], stats=True),
+        lambda: K.attention_core_snap_cuda(qkv, heads, scale,
+                                           Int8Sites(site), stats=True),
+        lambda: K.attention_core_f32_cuda(qkv, heads, scale, site),
+        lambda: K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads,
+                                              scale),
+    ]
+    for run in runs:
+        got = run()
+        torch.cuda.synchronize()
+        _same_twice(run, got)
 
 
 def test_f32_long_core_refuses_what_it_does_not_take(dev):
@@ -2442,8 +2495,9 @@ def test_f32_long_core_int8_modes(dev, n, d, heads, b):
     """Each int8 mode of the long forward against its plain version: the
     int8 grid under the INT8 bar, the site's snap under the site bar (no
     statistics: the context as it is, within the fp32 noise), the
-    statistics under the one-kernel bar; one launch a call, counted as
-    attention_core_f32_long; a second launch gives the same bits."""
+    statistics under the one-kernel bar; two launches a call (the split
+    pass and the core), counted as attention_core_f32_long; a second call
+    gives the same bits."""
     from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
 
     scale = d ** -0.5
@@ -2464,7 +2518,7 @@ def test_f32_long_core_int8_modes(dev, n, d, heads, b):
         before = dict(K.LAUNCHES)
         got = run()
         assert K.LAUNCHES["attention_core_f32_long"] == \
-            before["attention_core_f32_long"] + 1, mode
+            before["attention_core_f32_long"] + K.F32_LONG_FWD_LAUNCHES, mode
         assert K.LAUNCHES["attention_core_f32"] == \
             before["attention_core_f32"], mode
         out, want = (got[0], ref[0]) if stats else (got, ref)

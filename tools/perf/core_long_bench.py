@@ -1,51 +1,58 @@
 #!/usr/bin/env python3
-"""The fused attention core above 256 tokens (the long route of
-``attention_core`` and ``attention_core_bwd``) on one card, for one or
-more checkouts, alternating them, so that a change is held against its
-parent under the same conditions.
+"""The attention cores above 256 tokens on one card, for one or more
+checkouts, alternating them, so that a change is held against its parent
+under the same conditions: the fused bf16 core's long route
+(``attention_core`` and ``attention_core_bwd``) and the fp32 core's long
+route of the float formats, INT8 QAT and converted INT8
+(``attention_core_snap``, ``attention_core_f32`` and
+``attention_core_f32_bwd``).
 
     python3 tools/perf/core_long_bench.py <root> [<root> ...] [--rounds 1]
 
 Each round runs the roots in order and then in reverse (parent, change,
 change, parent for two), each in a fresh process that puts its root
 first on ``sys.path`` and so builds and runs that checkout's kernels.  A
-measurement times, with CUDA events, the forward with statistics and the
-backward at YOLOS-S's 384 px shape (6 heads of 64, N = 677) at batch 8
-and at the train step's micro-batch of 2, on bf16 qkv rows and an fp32
-output-projection gradient drawn from seed 677, beside PyTorch's
-flash-attention forward and backward (SDPA) on the same q, k, v (the
-yardsticks) and each call's bound (``perf/_timing.py``); and the
-profiler's device time kernel by kernel.  Prints one line per
-measurement and, last, each time per root (median over the rounds).
-Needs a CUDA device.
+measurement times, with CUDA events, each case on inputs drawn from a
+seed, beside PyTorch yardsticks on the same inputs and each call's bound
+(``perf/_timing.py``), and the profiler's device time kernel by kernel.
+
+- bf16: the forward with statistics and the backward at YOLOS-S's 384 px
+  shape (6 heads of 64, N = 677) at batch 8 and at the train step's
+  micro-batch of 2, on bf16 qkv rows and an fp32 output-projection
+  gradient; the yardsticks PyTorch's flash-attention forward and backward
+  (SDPA).
+- f32: the FP16_32 forward with statistics (as the QAT forward runs it)
+  and the backward at (8, 677) and (2, 677); at ViT-S/16's 384 px shape
+  (8, 577) the INT8 site mode with statistics (INT8 QAT's pass 2), the
+  int8-output mode (the converted model) and the backward; fp32 qkv rows
+  and output gradient at std 1, a calibrated site; the yardsticks fp32
+  ``F.scaled_dot_product_attention`` forward and backward, followed by
+  the site's snap or quantize for the int8 modes (two calls).  The bf16
+  kernels are a control where only the fp32 core changed.
+
+Each root also saves its outputs of the first round, and the tool prints
+for every later root, case by case, the count of elements whose bits
+differ from the first root's and the largest |difference|.  Prints one
+line per measurement and, last, each time per root (median over the
+rounds).  Needs a CUDA device.
 """
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
 SHAPES = ((8, 677), (2, 677))
+F32_SHAPES = ((8, 677), (2, 677))
+F32_INT8_SHAPE = (8, 577)
 HEADS, D = 6, 64
 
 
-def measure(root):
-    """{case: (ms, device ms, {kernel: device ms})} of the checkout at
-    ``root``."""
-    sys.path.insert(0, root)
-    import torch
-
-    from myrtle_vision_tpu_torch.ops import _kernels as K
-    from myrtle_vision_tpu_torch.perf._timing import (
-        cuda_ms,
-        kernel_device_ms,
-    )
-
-    if not torch.cuda.is_available():
-        raise SystemExit("core_long_bench: no CUDA device")
-    dev = torch.device("cuda", 0)
+def bf16_cases(torch, K, dev):
+    """{case: thunk} of the bf16 long core and its yardsticks."""
     c, scale = HEADS * D, D ** -0.5
-    out = {}
+    cases = {}
     for b, n in SHAPES:
         gen = torch.Generator(dev).manual_seed(n)
         qkv = torch.randn(b, n, 3 * c, device=dev, generator=gen).to(
@@ -59,30 +66,201 @@ def measure(root):
         fwd = torch.ops.aten._scaled_dot_product_flash_attention(
             q, k, v, 0.0, False, False, scale=scale)
         o, lse, cq, ck, mq, mk, ps, po = fwd[:8]
-        cases = {
-            "forward": lambda: K.attention_core_cuda(qkv, HEADS, scale,
-                                                     stats=True),
-            "backward": lambda: K.attention_core_bwd_cuda(qkv, d_o, m, rs,
-                                                          HEADS, scale),
-            "SDPA forward": lambda:
+        tag = f"B={b} N={n}"
+        cases.update({
+            f"forward {tag}": lambda qkv=qkv: K.attention_core_cuda(
+                qkv, HEADS, scale, stats=True),
+            f"backward {tag}": lambda qkv=qkv, d_o=d_o, m=m, rs=rs:
+                K.attention_core_bwd_cuda(qkv, d_o, m, rs, HEADS, scale),
+            f"SDPA forward {tag}": lambda q=q, k=k, v=v:
                 torch.ops.aten._scaled_dot_product_flash_attention(
                     q, k, v, 0.0, False, False, scale=scale),
-            "SDPA backward": lambda:
+            f"SDPA backward {tag}": lambda a=(do, q, k, v, o, lse, cq, ck,
+                                              mq, mk, ps, po):
                 torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                    do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, False, ps, po,
-                    scale=scale),
-        }
-        for name, fn in cases.items():
-            ms = cuda_ms(fn, iters=50, warmup=5)
-            dev_ms, by_kernel, _ = kernel_device_ms(fn)
-            out[f"{name} B={b} N={n}"] = (ms, dev_ms, by_kernel)
+                    *a[:10], 0.0, False, *a[10:], scale=scale),
+        })
+    return cases, set()
+
+
+def f32_cases(torch, K, dev):
+    """({case: thunk}, the cases whose outputs are compared across roots)
+    of the fp32 long core and its yardsticks."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+    from myrtle_vision_tpu_torch.quantize import affine_uint8_qparams
+
+    c, scale = HEADS * D, D ** -0.5
+    fp16_32 = (5, 10, False)
+    cases, kept = {}, set()
+
+    def inputs(b, n):
+        gen = torch.Generator(dev).manual_seed(1000 * b + n)
+        qkv = torch.randn(b, n, 3 * c, device=dev, generator=gen)
+        d_o = torch.randn(b, n, c, device=dev, generator=gen)
+        q, k, v = (t.contiguous() for t in qkv.view(
+            b, n, 3, HEADS, D).permute(2, 0, 3, 1, 4))
+        return qkv, d_o, q, k, v
+
+    def sdpa_bwd(q, k, v, d_oh):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        return lambda: torch.autograd.grad(out, leaves, d_oh,
+                                           retain_graph=True)
+
+    def backward(tag, qkv, d_o, m, rs, q, k, v):
+        d_oh = d_o.view(qkv.shape[0], -1, HEADS, D).transpose(
+            1, 2).contiguous()
+        cases[f"f32 backward {tag}"] = \
+            lambda: K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, HEADS,
+                                                  scale)
+        kept.add(f"f32 backward {tag}")
+        cases[f"fp32 SDPA backward {tag}"] = sdpa_bwd(q, k, v, d_oh)
+
+    for b, n in F32_SHAPES:
+        tag = f"B={b} N={n}"
+        qkv, d_o, q, k, v = inputs(b, n)
+        _, m, rs = K.attention_context_f32(qkv, HEADS, scale, stats=True)
+        cases[f"f32 forward FP16_32+stats {tag}"] = \
+            lambda qkv=qkv: K.attention_core_snap_cuda(
+                qkv, HEADS, scale, fp16_32, stats=True)
+        kept.add(f"f32 forward FP16_32+stats {tag}")
+        cases[f"fp32 SDPA forward {tag}"] = \
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, scale=scale)
+        backward(tag, qkv, d_o, m, rs, q, k, v)
+
+    b, n = F32_INT8_SHAPE
+    tag = f"B={b} N={n}"
+    qkv, d_o, q, k, v = inputs(b, n)
+    ctx = K.attention_context_f32(qkv, HEADS, scale)
+    s, zp = affine_uint8_qparams(ctx.min(), ctx.max())
+    site = torch.stack([s, zp, torch.ones_like(s)])
+
+    def sdpa_ctx():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale
+                                              ).transpose(1, 2).reshape(
+            b, n, c)
+
+    cases.update({
+        f"f32 forward int8 sites+stats {tag}":
+            lambda: K.attention_core_snap_cuda(qkv, HEADS, scale,
+                                               Int8Sites(site), stats=True),
+        f"fp32 SDPA + site snap {tag}": lambda: K.requant(sdpa_ctx(), site),
+        f"f32 forward int8 out {tag}":
+            lambda: K.attention_core_f32_cuda(qkv, HEADS, scale, site),
+        f"fp32 SDPA + quantize {tag}":
+            lambda: K.quantize_i8(sdpa_ctx(), site),
+    })
+    kept.update({f"f32 forward int8 sites+stats {tag}",
+                 f"f32 forward int8 out {tag}"})
+    _, m, rs = K.attention_core_snap_plain(qkv, HEADS, scale,
+                                           Int8Sites(site), stats=True)
+    backward(tag, qkv, d_o, m, rs, q, k, v)
+    return cases, kept
+
+
+def measure(root, save):
+    """{case: (ms, device ms, {kernel: device ms})} of the checkout at
+    ``root``; the outputs of the compared cases into ``save`` (a path, or
+    "" for none)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.perf._timing import (
+        cuda_ms,
+        kernel_device_ms,
+    )
+
+    if not torch.cuda.is_available():
+        raise SystemExit("core_long_bench: no CUDA device")
+    dev = torch.device("cuda", 0)
+    cases, kept = {}, set()
+    for make in (bf16_cases, f32_cases):
+        got, keep = make(torch, K, dev)
+        cases.update(got)
+        kept |= keep
+    out, outputs = {}, {}
+    for name, fn in cases.items():
+        if save and name in kept:
+            res = fn()
+            outputs[name] = [t.detach().cpu() for t in (
+                res if isinstance(res, tuple) else (res,))]
+        ms = cuda_ms(fn, iters=50, warmup=5)
+        dev_ms, by_kernel, _ = kernel_device_ms(fn)
+        out[name] = (ms, dev_ms, by_kernel)
+    if save:
+        torch.save(outputs, save)
     return out
+
+
+def compare(first, other):
+    """Lines of the bitwise comparison of two roots' saved outputs."""
+    import torch
+
+    a, b = torch.load(first), torch.load(other)
+    lines = []
+    for case in sorted(a):
+        for i, (x, y) in enumerate(zip(a[case], b[case])):
+            if x.dtype == torch.float32:
+                differ = int((x.view(torch.int32) != y.view(torch.int32))
+                             .sum())
+                gap = float((x - y).abs().nan_to_num(float("inf")).max())
+            else:
+                differ = int((x != y).sum())
+                gap = float((x.float() - y.float()).abs().max())
+            lines.append(f"{case} output {i}: {differ} of {x.numel()} "
+                         f"elements differ, max |diff| {gap:g}")
+    return lines
+
+
+def bounds():
+    """Print each timed kernel case's bound."""
+    from myrtle_vision_tpu_torch.perf._timing import bound, cost
+
+    c = HEADS * D
+    rows = []
+    for b, n in SHAPES:
+        flops, qkv, bhn = (2 * b * HEADS * n * n * D, 2 * b * n * 3 * c,
+                           4 * b * HEADS * n)
+        # forward: reads qkv, writes the context and both statistics (two
+        # products); backward: reads qkv, d_o and both statistics, writes
+        # dqkv and its column sums (five products)
+        rows += [(f"forward B={b} N={n}",
+                  cost(qkv * 4 // 3 + 2 * bhn, 2 * flops, "bf16")),
+                 (f"backward B={b} N={n}",
+                  cost(2 * qkv + 4 * b * n * c + 2 * bhn + 4 * b * 3 * c,
+                       5 * flops, "bf16"))]
+    for b, n in F32_SHAPES + (F32_INT8_SHAPE,):
+        tag = f"B={b} N={n}"
+        # the 3-pass products' bf16 operations; the fp32 qkv read and the
+        # output written once each
+        flops, qkv, bhn = (2 * b * HEADS * n * n * D, 4 * b * n * 3 * c,
+                           4 * b * HEADS * n)
+        ctx = 4 * b * n * c
+        rows.append((f"f32 backward {tag}",
+                     cost(2 * qkv + ctx + 2 * bhn + 4 * b * 3 * c,
+                          3 * 5 * flops, "bf16")))
+        if (b, n) == F32_INT8_SHAPE:
+            rows += [(f"f32 forward int8 sites+stats {tag}",
+                      cost(qkv + ctx + 2 * bhn, 3 * 2 * flops, "bf16")),
+                     (f"f32 forward int8 out {tag}",
+                      cost(qkv + ctx // 4, 3 * 2 * flops, "bf16"))]
+        else:
+            rows.append((f"f32 forward FP16_32+stats {tag}",
+                         cost(qkv + ctx + 2 * bhn, 3 * 2 * flops, "bf16")))
+    for name, c_ in rows:
+        ms, by = bound(c_)
+        print(f"core_long_bench: {name} bound {ms:.4f} ms ({by}: "
+              f"{c_['bytes']} bytes, {c_['ops']} bf16 ops)")
 
 
 def main():
     args = sys.argv[1:]
     if args and args[0] == "--measure":
-        print(json.dumps(measure(args[1])))
+        print(json.dumps(measure(args[1], args[2])))
         return
     rounds = 1
     if "--rounds" in args:
@@ -93,38 +271,34 @@ def main():
     if not roots:
         raise SystemExit(__doc__)
     sys.path.insert(0, roots[-1])
-    from myrtle_vision_tpu_torch.perf._timing import bound, cost, power_line
+    from myrtle_vision_tpu_torch.perf._timing import power_line
 
     power = power_line()
-    for b, n in SHAPES:
-        c, flops = HEADS * D, 2 * b * HEADS * n * n * D
-        qkv, bhn = 2 * b * n * 3 * c, 4 * b * HEADS * n
-        # forward: reads qkv, writes the context and both statistics (two
-        # products); backward: reads qkv, d_o and both statistics, writes
-        # dqkv and its column sums (five products)
-        for name, c_ in (("forward", cost(qkv * 4 // 3 + 2 * bhn,
-                                          2 * flops, "bf16")),
-                         ("backward", cost(2 * qkv + 4 * b * n * c
-                                           + 2 * bhn + 4 * b * 3 * c,
-                                           5 * flops, "bf16"))):
-            ms, by = bound(c_)
-            print(f"core_long_bench: {name} B={b} N={n} bound {ms:.4f} ms "
-                  f"({by}: {c_['bytes']} bytes, {c_['ops']} bf16 ops)")
+    bounds()
     times = {r: {} for r in roots}
-    for rnd in range(rounds):
-        for root in roots + roots[::-1]:
-            res = json.loads(subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--measure",
-                 root], check=True, capture_output=True,
-                text=True).stdout.splitlines()[-1])
-            for case, (ms, dev_ms, by_kernel) in res.items():
-                times[root].setdefault(case, []).append(ms)
-                kern = "; ".join(f"{k} {v:.4f}"
-                                 for k, v in sorted(by_kernel.items()))
-                dev = ("not measured" if dev_ms is None
-                       else f"{dev_ms:.4f} ms ({kern})")
-                print(f"core_long_bench: round {rnd} {root} {case}: "
-                      f"{ms:.4f} ms, device {dev} [{power}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = {}
+        for rnd in range(rounds):
+            for root in roots + roots[::-1]:
+                save = ""
+                if root not in saved:
+                    save = saved[root] = os.path.join(
+                        tmp, f"{len(saved)}.pt")
+                res = json.loads(subprocess.run(
+                    [sys.executable, os.path.abspath(__file__), "--measure",
+                     root, save], check=True, capture_output=True,
+                    text=True).stdout.splitlines()[-1])
+                for case, (ms, dev_ms, by_kernel) in res.items():
+                    times[root].setdefault(case, []).append(ms)
+                    kern = "; ".join(f"{k} {v:.4f}"
+                                     for k, v in sorted(by_kernel.items()))
+                    dev = ("not measured" if dev_ms is None
+                           else f"{dev_ms:.4f} ms ({kern})")
+                    print(f"core_long_bench: round {rnd} {root} {case}: "
+                          f"{ms:.4f} ms, device {dev} [{power}]")
+        for root in roots[1:]:
+            for line in compare(saved[roots[0]], saved[root]):
+                print(f"core_long_bench: {root} against {roots[0]}: {line}")
     for root in roots:
         for case, ts in times[root].items():
             print(f"core_long_bench: {root} {case}: median "
