@@ -4847,7 +4847,9 @@ def time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs):
     bytes each reads once and writes once) and a yardstick (fp32
     ``F.scaled_dot_product_attention`` followed by the site's quantize,
     two PyTorch calls; no one call does both); each into the kernels line,
-    once per block.  The K1 / K2 int8 and K9 chains at that shape.  Then
+    once per block.  ``layernorm_snap_rows`` at the 384 px step's rows at
+    B=256 (147,712) with a calibrated site, beside ``F.layer_norm``.  The
+    K1 / K2 int8 and K9 chains at (8, 577).  Then
     the 384 px two-pass QAT step at the largest batch of 256, 128, ... that
     fits, with its peak memory, the passes apart and a device profile; the
     converted 384 px forward at B=256 (the PTQ checkpoint of phase
@@ -4858,6 +4860,7 @@ def time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs):
     from myrtle_vision_tpu_torch.models.vit import ViT
     from myrtle_vision_tpu_torch.ops import _kernels as K
     from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+    from myrtle_vision_tpu_torch.quantize import affine_uint8_qparams
     from myrtle_vision_tpu_torch.training.classification import make_loss_fn
     from myrtle_vision_tpu_torch.training.optim import (
         create_optimizer,
@@ -4922,6 +4925,23 @@ def time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs):
               lambda: K.attention_core_f32_bwd_plain(qkv, d_o, m, rs, HEADS,
                                                      SCALE), 0, c, power, tag)
     del qkv, q, k, v, d_o, m, rs, dbq, d_oh, leaves, sdpa_out
+    # K1 / K3 int8's LayerNorm prologue at the 384 px step's rows, B=256
+    # (pass 2 runs it twice a block), a site calibrated on its output;
+    # outside the kernels line's sums (that entry is the 224 px forward's)
+    xl = seeded(rng, (INT8_384_BATCH * n, C), 1.0, device)
+    s_l = seeded(rng, (C,), 0.1, device) + 1
+    b_l = seeded(rng, (C,), 0.1, device)
+    y = F.layer_norm(xl, (C,), s_l, b_l, K.EPS)
+    s, zp = affine_uint8_qparams(y.min(), y.max())
+    ln_site = Int8Sites(torch.stack([s, zp, torch.ones_like(s)]))
+    del y
+    time_case({}, "layernorm_snap_rows[384 px ViT-S/16, int8]",
+              lambda: K.layernorm_snap_rows_cuda(xl, s_l, b_l, ln_site),
+              lambda: K.layernorm_snap_rows_plain(xl, s_l, b_l, ln_site), 0,
+              cost(2 * nbytes(xl) + nbytes(s_l, b_l), 14 * xl.numel(),
+                   "fp32", lambda: F.layer_norm(xl, (C,), s_l, b_l, K.EPS)),
+              power, f"B={INT8_384_BATCH} N={n}")
+    del xl
 
     x, attn, mlp, sites = qat_int8_block_inputs(b, n, seed=8580,
                                                 device=device)

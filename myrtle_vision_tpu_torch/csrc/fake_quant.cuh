@@ -29,6 +29,7 @@ struct FloatFmt {
   int shift;                 // fp32 mantissa bits dropped
   bool sub;                  // a subnormal range below fp32's (exp_bits < 8)
   float sub_limit, sub_step;  // 2^min_exp and its quantum 2^(min_exp - man)
+  float sub_inv;             // 1 / sub_step, exactly (a power of two)
   float max_val;             // (2 - 2^-man) * 2^max_exp
   __host__ __device__ FloatFmt(int exp_bits, int man_bits)
       : shift(23 - man_bits), sub(exp_bits < 8) {
@@ -36,6 +37,7 @@ struct FloatFmt {
     const int min_exp = 2 - (1 << (exp_bits - 1));
     sub_limit = sub ? pow2(min_exp) : 0.f;
     sub_step = sub ? pow2(min_exp - man_bits) : 0.f;
+    sub_inv = sub ? pow2(man_bits - min_exp) : 0.f;
     union {
       unsigned u;
       float f;
@@ -46,20 +48,20 @@ struct FloatFmt {
 };
 
 // `float_quantize`: round the fp32 mantissa to nearest, ties to even, on the
-// bit pattern (`_round_mantissa_rne`; a carry runs into the exponent), the
-// fixed quantum below the format's smallest normal, then saturation to the
+// bit pattern (`_round_mantissa_rne`: half a kept ulp less one, plus the
+// kept mantissa's last bit, added before the dropped bits are cleared, is
+// that rounding in one add; a carry runs into the exponent), the fixed
+// quantum below the format's smallest normal (rint(x / step) * step, the
+// divide by a power of two as its exact multiply, selected rather than
+// branched to, so that a thread's snaps interleave), then saturation to the
 // largest finite value
 __device__ __forceinline__ float float_snap(float x, const FloatFmt& f) {
   const unsigned bits = __float_as_uint(x);
-  const unsigned mask = (1u << f.shift) - 1u;
-  const unsigned halfway = 1u << (f.shift - 1);
-  const unsigned rem = bits & mask;
-  const unsigned base = bits & ~mask;
-  const bool odd = (base >> f.shift) & 1u;
-  const bool up = rem > halfway || (rem == halfway && odd);
-  float y = __uint_as_float(base + (up ? (1u << f.shift) : 0u));
-  if (f.sub && fabsf(x) < f.sub_limit)
-    y = __fmul_rn(rintf(__fdiv_rn(x, f.sub_step)), f.sub_step);
+  const unsigned drop = (1u << f.shift) - 1u;
+  const unsigned lsb = (bits >> f.shift) & 1u;
+  float y = __uint_as_float((bits + (drop >> 1) + lsb) & ~drop);
+  const float t = __fmul_rn(rintf(__fmul_rn(x, f.sub_inv)), f.sub_step);
+  if (f.sub && fabsf(x) < f.sub_limit) y = t;
   if (y != y) return y;
   return fminf(fmaxf(y, -f.max_val), f.max_val);
 }

@@ -163,6 +163,8 @@ def lib() -> ctypes.CDLL:
             ("mvt_fake_quant_rows", [p, p, ll, i, i, i, p]),
             ("mvt_layernorm_snap_rows",
              [p, p, p, p, i, i, f, i, i, i, p, p]),
+            ("mvt_layernorm_snap_rows_max_cols", []),
+            ("mvt_layernorm_snap_rows_plan", [i, i, p]),
             ("mvt_gemm_f32x3", [p] * 7 + [i] * 8 + [p] * 3),
             ("mvt_gemm_f32x3_at", [p, p, p, i, i, i, i, p]),
             ("mvt_gemm_f32x3_tile", [i]),

@@ -141,6 +141,14 @@ COLSUM_ONE_PASS = 64
 COLSUM_COLS = 128
 COLSUM_MIN_CHUNK = 32
 COLSUM_BLOCKS_PER_SM = 4
+# layernorm_snap_rows (csrc/layernorm_snap_rows.cu): its widest row, the
+# multiple of the width (a lane holds every 32nd column), a block's warps
+# (one row each), and the most values a lane of a kernel built for eight
+# blocks an SM holds (above it, four)
+LN_SNAP_MAX_COLS = 768
+LN_SNAP_COLS_STEP = 32
+LN_SNAP_WARPS = 4
+LN_SNAP_FEW_VALUES = 12
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
@@ -1113,6 +1121,39 @@ def colsum_plan(rows, cols, sms):
     return {"chunk": chunk, "chunks": math.ceil(rows / chunk)}
 
 
+def layernorm_snap_plan(rows, cols):
+    """How layernorm_snap_rows covers a (rows, cols) fp32 matrix: {"values":
+    the columns a lane holds (lane l: l, l + 32, ...), "warps": a block's
+    warps, "blocks": the grid, one row a warp, "blocks_per_sm": the blocks
+    an SM the kernel is built for (its registers a thread, 65,536 /
+    (blocks_per_sm * 32 * warps), hold a row's values, scale and bias)}.
+    Raises ``ValueError`` for a width the kernel does not take: none, past
+    :data:`LN_SNAP_MAX_COLS` or not a multiple of
+    :data:`LN_SNAP_COLS_STEP`."""
+    if cols <= 0 or cols > LN_SNAP_MAX_COLS or cols % LN_SNAP_COLS_STEP:
+        raise ValueError(
+            f"layernorm_snap_rows: width {cols} is not a multiple of "
+            f"{LN_SNAP_COLS_STEP} up to the kernel's maximum "
+            f"{LN_SNAP_MAX_COLS}")
+    values = cols // LN_SNAP_COLS_STEP
+    return {"values": values, "warps": LN_SNAP_WARPS,
+            "blocks": math.ceil(rows / LN_SNAP_WARPS),
+            "blocks_per_sm": 8 if values <= LN_SNAP_FEW_VALUES else 4}
+
+
+def layernorm_snap_launch(rows, cols):
+    """The launch that layernorm_snap_rows reports for a (rows, cols) call,
+    in the form of :func:`layernorm_snap_plan`, and "occupancy": the
+    runtime's blocks an SM of its float-format and INT8 kernels."""
+    from myrtle_vision_tpu_torch.ops import _build
+
+    f = (ctypes.c_int * 6)()
+    _build.check(_lib().mvt_layernorm_snap_rows_plan(rows, cols, f),
+                 "layernorm_snap_launch")
+    keys = ("values", "warps", "blocks", "blocks_per_sm")
+    return dict(zip(keys, f[:4]), occupancy={"float": f[4], "int8": f[5]})
+
+
 def tma_operand(t, name):
     """Raise ``ValueError`` unless the row-major 2-D tensor ``t`` (bf16,
     fp32 or int8) can be a TMA tensor map's base: a 16-byte aligned
@@ -1483,16 +1524,19 @@ def fake_quant_rows_cuda(x, mode, a, b):
 
 def layernorm_snap_rows_cuda(x, scale, bias, qspec):
     """The CUDA version of :func:`layernorm_snap_rows_plain`: x fp32
-    (..., C), scale and bias fp32 (C,); ``qspec`` a float format's or
-    :class:`Int8Sites` (one site)."""
+    (..., C), C a multiple of 32 up to 768 (:func:`layernorm_snap_plan`
+    raises ``ValueError`` before any launch otherwise), scale and bias fp32
+    (C,); ``qspec`` a float format's or :class:`Int8Sites` (one site)."""
     cols = x.shape[-1]
+    rows = x.numel() // max(cols, 1)
+    layernorm_snap_plan(rows, cols)
     _require(x, "x", torch.float32)
     for t, name in ((scale, "scale"), (bias, "bias")):
         _require_shape(t, name, (cols,))
     out = torch.empty_like(x)
     _launch("layernorm_snap_rows", _lib().mvt_layernorm_snap_rows, x,
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            x.numel() // cols, cols, EPS, *_policy_args(qspec, 1))
+            rows, cols, EPS, *_policy_args(qspec, 1))
     return out
 
 

@@ -1951,6 +1951,124 @@ def test_layernorm_bwd_is_deterministic_and_refuses_ragged_widths(dev):
                                   (5, 10, False))
 
 
+# layernorm_snap_rows: every width a shipped config or a test takes, rows
+# from one to one past a full wave of its grid on this card, and every
+# snap policy: the float formats, and INT8 QAT's site with and without
+# statistics
+LN_SNAP_COLS = [32, 64, 128, 192, 384, 768]
+LN_SNAP_POLICIES = ["FP16_16", "FP16_32", "TF32", "int8", "int8 fresh"]
+
+
+def ln_snap_lane_order(x, scale, bias, qspec):
+    """layernorm_snap_rows_plain with the kernel's sums: lane l adds the
+    columns l, l + 32, ... in turn, then the lanes meet as
+    ``mvt::warp_sum``'s butterfly does; every step a separate fp32 op."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import (
+        snap,
+        snap_all,
+        snap_int8,
+    )
+
+    rows, cols = x.shape
+    values = cols // 32
+    lanes = torch.arange(32, device=x.device)
+    # a tensor, not a Python number: PyTorch divides by a host scalar as a
+    # multiply by its reciprocal, the kernel by a true divide
+    n = torch.tensor(float(cols), device=x.device)
+
+    def row_sum(t):
+        acc = torch.zeros(rows, 32, device=x.device)
+        for i in range(values):
+            acc = acc + t[:, i]
+        for o in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, lanes ^ o]
+        return acc[:, :1, None]
+
+    xs = snap(x, qspec).view(rows, values, 32)
+    d = xs - row_sum(xs) / n
+    rstd = torch.rsqrt(row_sum(d * d) / n + K.EPS)
+    y = d * rstd * scale.view(values, 32) + bias.view(values, 32)
+    return snap_int8(snap(snap_all(y.view(rows, cols), qspec), qspec),
+                     qspec, 0)
+
+
+@pytest.mark.parametrize("policy", LN_SNAP_POLICIES)
+@pytest.mark.parametrize("cols", LN_SNAP_COLS)
+def test_layernorm_snap_widths(dev, cols, policy):
+    """At 1, 7, 33 rows and one past the rows of a full wave of blocks
+    (the card's SMs times the blocks an SM of ``K.layernorm_snap_plan``,
+    four rows a block): one launch a call, the bits of the kernel's
+    arithmetic in its own order (``ln_snap_lane_order``) and of a second
+    call; the four outputs together against the plain version under the
+    one-kernel bars (a single snap flipped by the sums' order is 1/32 of a
+    one-row output at width 32, past the bars' 0.2% share, so the share
+    is taken over all four)."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    plan = K.layernorm_snap_plan(1, cols)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wave = sms * plan["blocks_per_sm"] * plan["warps"]
+    gen = torch.Generator(dev).manual_seed(cols)
+    scale = 1 + 0.1 * torch.randn(cols, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(cols, device=dev, generator=gen)
+    xs = [3 * torch.randn(rows, cols, device=dev, generator=gen) + 0.5
+          for rows in (1, 7, 33, wave + 1)]
+    if policy.startswith("int8"):
+        y = torch.nn.functional.layer_norm(torch.cat(xs), (cols,), scale,
+                                           bias, K.EPS)
+        site = (site_of(y) if policy == "int8" else
+                torch.tensor([1.1920929e-7, 0.0, 0.0], device=dev))
+        qspec = Int8Sites(site)
+    else:
+        qspec = {"FP16_16": (5, 10, True), "FP16_32": (5, 10, False),
+                 "TF32": (8, 10, False)}[policy]
+    got, ref = [], []
+    for x in xs:
+        before = K.LAUNCHES["layernorm_snap_rows"]
+        out = K.layernorm_snap_rows_cuda(x, scale, bias, qspec)
+        again = K.layernorm_snap_rows_cuda(x, scale, bias, qspec)
+        assert K.LAUNCHES["layernorm_snap_rows"] == before + 2
+        torch.cuda.synchronize()
+        bits = out.view(torch.int32)
+        assert torch.equal(bits, again.view(torch.int32)), x.shape
+        assert torch.equal(bits, ln_snap_lane_order(
+            x, scale, bias, qspec).view(torch.int32)), x.shape
+        got.append(out)
+        ref.append(K.layernorm_snap_rows_plain(x, scale, bias, qspec))
+    if isinstance(qspec, Int8Sites):
+        close_sites(torch.cat(got), torch.cat(ref), step_of(site))
+    else:
+        close_float(torch.cat(got), torch.cat(ref), qspec)
+
+
+@pytest.mark.parametrize("cols", [768 + 32, 100, 16])
+def test_layernorm_snap_refuses_other_widths(dev, cols):
+    """A width past the maximum or not a multiple of 32 is refused before
+    any launch."""
+    x = torch.randn(5, cols, device=dev)
+    before = K.LAUNCHES["layernorm_snap_rows"]
+    with pytest.raises(ValueError, match="multiple of 32"):
+        K.layernorm_snap_rows_cuda(x, torch.ones(cols, device=dev),
+                                   torch.zeros(cols, device=dev),
+                                   (5, 10, False))
+    assert K.LAUNCHES["layernorm_snap_rows"] == before
+
+
+@pytest.mark.parametrize("cols", LN_SNAP_COLS)
+def test_layernorm_snap_launch_matches_the_plan(dev, cols):
+    """The kernel's own figures (values a lane, warps, grid, the blocks an
+    SM it is built for) are the plan's, the runtime fits at least those
+    blocks an SM of both policies' kernels, and the maximum width is the
+    plan's."""
+    assert K._lib().mvt_layernorm_snap_rows_max_cols() == K.LN_SNAP_MAX_COLS
+    for rows in (1, 7, 256 * 197, 256 * 577):
+        got = K.layernorm_snap_launch(rows, cols)
+        occupancy = got.pop("occupancy")
+        plan = K.layernorm_snap_plan(rows, cols)
+        assert got == plan, (rows, cols)
+        assert min(occupancy.values()) >= plan["blocks_per_sm"], occupancy
+
+
 # colsum_rows: rows at and around the one-kernel limit (64) and the
 # 50,432 rows of a ViT-S/16 block at batch 256; widths of dbp/db2 (384),
 # dbqkv (1152) and one that takes the scalar path (100)

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""The attention cores above 256 tokens on one card, for one or more
-checkouts, alternating them, so that a change is held against its parent
-under the same conditions: the fused bf16 core's long route
-(``attention_core`` and ``attention_core_bwd``) and the fp32 core's long
-route of the float formats, INT8 QAT and converted INT8
-(``attention_core_snap``, ``attention_core_f32`` and
-``attention_core_f32_bwd``).
+"""The attention cores above 256 tokens and the float-format and INT8 QAT
+LayerNorm prologue on one card, for one or more checkouts, alternating
+them, so that a change is held against its parent under the same
+conditions: the fused bf16 core's long route (``attention_core`` and
+``attention_core_bwd``), the fp32 core's long route of the float formats,
+INT8 QAT and converted INT8 (``attention_core_snap``,
+``attention_core_f32`` and ``attention_core_f32_bwd``) and
+``layernorm_snap_rows``.
 
     python3 tools/perf/core_long_bench.py <root> [<root> ...] [--rounds 1]
+        [--groups bf16,f32,ln]
 
 Each round runs the roots in order and then in reverse (parent, change,
 change, parent for two), each in a fresh process that puts its root
@@ -29,10 +31,23 @@ seed, beside PyTorch yardsticks on the same inputs and each call's bound
   ``F.scaled_dot_product_attention`` forward and backward, followed by
   the site's snap or quantize for the int8 modes (two calls).  The bf16
   kernels are a control where only the fp32 core changed.
+- ln: ``layernorm_snap_rows`` on fp32 rows of 384 (ViT-S/16's width) at
+  std 1: FP16_32 and INT8 QAT's site policy (a calibrated site) at
+  ViT-S/16's 224 px step at B=256 (50,432 rows) and its 384 px step at
+  B=256 (147,712 rows, 577 tokens), FP16_32 at YOLOS-S's 384 px
+  micro-batch (2 x 677 = 1,354 rows); the yardstick ``F.layer_norm``.
+  Beside it the kernels that run the same float snap
+  (``csrc/fake_quant.cuh``), in FP16_32 at ViT-S/16, B=256: the
+  LayerNorm backward (``layernorm_rows_bwd`` with a qspec, its column
+  sums included), the 3-pass GEMM's fc1 epilogue (bias, snap, GELU,
+  snap) and the fp32 attention core's snap mode with its statistics, and
+  K11 (``fake_quant_rows``, e5m10) on the patch embedding's (256, 196,
+  768) input.
 
-Each root also saves its outputs of the first round, and the tool prints
-for every later root, case by case, the count of elements whose bits
-differ from the first root's and the largest |difference|.  Prints one
+``--groups`` picks the groups (all three by default).  Each root also
+saves its outputs of the first round, and the tool prints for every
+later root, case by case, the count of elements whose bits differ from
+the first root's and the largest |difference|.  Prints one
 line per measurement and, last, each time per root (median over the
 rounds).  Needs a CUDA device.
 """
@@ -43,10 +58,20 @@ import subprocess
 import sys
 import tempfile
 
+GROUPS = ("bf16", "f32", "ln")
 SHAPES = ((8, 677), (2, 677))
 F32_SHAPES = ((8, 677), (2, 677))
 F32_INT8_SHAPE = (8, 577)
 HEADS, D = 6, 64
+# layernorm_snap_rows: (rows, policy) at width 384
+LN_COLS = 384
+LN_CASES = ((256 * 197, "FP16_32"), (256 * 197, "int8"),
+            (256 * 577, "FP16_32"), (256 * 577, "int8"), (2 * 677, "FP16_32"))
+LN_BWD_CASE = f"layernorm_snap_rows_bwd FP16_32 rows={LN_CASES[0][0]}"
+K11_SHAPE = (256, 196, 768)
+K11_CASE = "fake_quant_rows e5m10 (256, 196, 768)"
+FC1_CASE = f"gemm_f32x3_epilogue fc1 FP16_32 rows={LN_CASES[0][0]}"
+CORE_CASE = "attention_core_f32 snap+stats FP16_32 B=256 N=197"
 
 
 def bf16_cases(torch, K, dev):
@@ -161,10 +186,65 @@ def f32_cases(torch, K, dev):
     return cases, kept
 
 
-def measure(root, save):
+def ln_cases(torch, K, dev):
+    """({case: thunk}, the cases whose outputs are compared across roots)
+    of layernorm_snap_rows and its yardstick."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+    from myrtle_vision_tpu_torch.quantize import affine_uint8_qparams
+
+    cases, kept, inputs = {}, set(), {}
+    for rows, policy in LN_CASES:
+        if rows not in inputs:
+            gen = torch.Generator(dev).manual_seed(rows)
+            x = torch.randn(rows, LN_COLS, device=dev, generator=gen)
+            scale = 1 + 0.1 * torch.randn(LN_COLS, device=dev, generator=gen)
+            bias = 0.1 * torch.randn(LN_COLS, device=dev, generator=gen)
+            y = F.layer_norm(x, (LN_COLS,), scale, bias, K.EPS)
+            s, zp = affine_uint8_qparams(y.min(), y.max())
+            site = torch.stack([s, zp, torch.ones_like(s)])
+            inputs[rows] = x, scale, bias, site
+            cases[f"F.layer_norm rows={rows}"] = \
+                lambda x=x, s=scale, b=bias: F.layer_norm(x, (LN_COLS,), s,
+                                                          b, K.EPS)
+        x, scale, bias, site = inputs[rows]
+        q = Int8Sites(site) if policy == "int8" else (5, 10, False)
+        name = f"layernorm_snap_rows {policy} rows={rows}"
+        cases[name] = lambda x=x, s=scale, b=bias, q=q: \
+            K.layernorm_snap_rows_cuda(x, s, b, q)
+        kept.add(name)
+    x, scale, _, _ = inputs[LN_CASES[0][0]]
+    gen = torch.Generator(dev).manual_seed(1)
+    dxn, do = (torch.randn(x.shape, device=dev, generator=gen)
+               for _ in range(2))
+    patches = torch.randn(*K11_SHAPE, device=dev, generator=gen)
+    # fc1's weight as the model holds it: the (in, out) view of a torch
+    # (out, in) tensor
+    w1 = (torch.randn(4 * LN_COLS, LN_COLS, device=dev, generator=gen)
+          * LN_COLS ** -0.5).t()
+    b1 = torch.randn(4 * LN_COLS, device=dev, generator=gen)
+    qkv = torch.randn(256, 197, 3 * LN_COLS, device=dev, generator=gen)
+    fp16_32 = (5, 10, False)
+    cases.update({
+        LN_BWD_CASE: lambda: K.layernorm_rows_bwd_cuda(x, scale, dxn, do,
+                                                       fp16_32),
+        FC1_CASE: lambda: K.gemm_f32x3_epilogue_cuda(
+            x, w1, b1, "bias_snap_gelu_snap", fp16_32),
+        CORE_CASE: lambda: K.attention_core_snap_cuda(
+            qkv, HEADS, D ** -0.5, fp16_32, stats=True),
+        K11_CASE: lambda: K.fake_quant_rows_cuda(patches, "float", 5, 10)})
+    kept.update({LN_BWD_CASE, FC1_CASE, CORE_CASE, K11_CASE})
+    return cases, kept
+
+
+CASE_GROUPS = {"bf16": bf16_cases, "f32": f32_cases, "ln": ln_cases}
+
+
+def measure(root, save, groups):
     """{case: (ms, device ms, {kernel: device ms})} of the checkout at
-    ``root``; the outputs of the compared cases into ``save`` (a path, or
-    "" for none)."""
+    ``root`` for the case groups ``groups``; the outputs of the compared
+    cases into ``save`` (a path, or "" for none)."""
     sys.path.insert(0, root)
     import torch
 
@@ -178,8 +258,8 @@ def measure(root, save):
         raise SystemExit("core_long_bench: no CUDA device")
     dev = torch.device("cuda", 0)
     cases, kept = {}, set()
-    for make in (bf16_cases, f32_cases):
-        got, keep = make(torch, K, dev)
+    for group in groups:
+        got, keep = CASE_GROUPS[group](torch, K, dev)
         cases.update(got)
         kept |= keep
     out, outputs = {}, {}
@@ -216,13 +296,35 @@ def compare(first, other):
     return lines
 
 
-def bounds():
+def bounds(groups):
     """Print each timed kernel case's bound."""
     from myrtle_vision_tpu_torch.perf._timing import bound, cost
 
     c = HEADS * D
     rows = []
-    for b, n in SHAPES:
+    if "ln" in groups:
+        # reads x and both (cols,) parameters once, writes the output; 14
+        # fp32 operations an element outside the snaps
+        rows += [(f"layernorm_snap_rows {policy} rows={r}",
+                  cost(4 * (2 * r * LN_COLS + 2 * LN_COLS),
+                       14 * r * LN_COLS, "fp32"))
+                 for r, policy in LN_CASES]
+        # the backward reads x, dxn and do and writes dx, reads scale and
+        # writes both parameter gradients; K11 reads and writes each value
+        # fc1: three bf16 products of (rows, 384) x (384, 1536), fp32 in
+        # and out; the core: two N x N x 64 products a head, 3-pass
+        r, n = LN_CASES[0][0], 256 * 196 * 768
+        hid, core = 4 * LN_COLS, 4 * 256 * HEADS * 197 * 197 * D
+        rows += [(LN_BWD_CASE, cost(4 * (4 * r * LN_COLS + 3 * LN_COLS),
+                                    16 * r * LN_COLS, "fp32")),
+                 (FC1_CASE, cost(4 * (r * LN_COLS + LN_COLS * hid + hid
+                                      + r * hid),
+                                 3 * 2 * r * LN_COLS * hid, "bf16")),
+                 (CORE_CASE, cost(4 * (r * 3 * LN_COLS + r * LN_COLS
+                                       + 2 * 256 * HEADS * 197),
+                                  3 * core, "bf16")),
+                 (K11_CASE, cost(4 * 2 * n, 10 * n, "fp32"))]
+    for b, n in SHAPES if "bf16" in groups else ():
         flops, qkv, bhn = (2 * b * HEADS * n * n * D, 2 * b * n * 3 * c,
                            4 * b * HEADS * n)
         # forward: reads qkv, writes the context and both statistics (two
@@ -233,7 +335,7 @@ def bounds():
                  (f"backward B={b} N={n}",
                   cost(2 * qkv + 4 * b * n * c + 2 * bhn + 4 * b * 3 * c,
                        5 * flops, "bf16"))]
-    for b, n in F32_SHAPES + (F32_INT8_SHAPE,):
+    for b, n in F32_SHAPES + (F32_INT8_SHAPE,) if "f32" in groups else ():
         tag = f"B={b} N={n}"
         # the 3-pass products' bf16 operations; the fp32 qkv read and the
         # output written once each
@@ -254,19 +356,25 @@ def bounds():
     for name, c_ in rows:
         ms, by = bound(c_)
         print(f"core_long_bench: {name} bound {ms:.4f} ms ({by}: "
-              f"{c_['bytes']} bytes, {c_['ops']} bf16 ops)")
+              f"{c_['bytes']} bytes, {c_['ops']} {c_['peak']} ops)")
 
 
 def main():
     args = sys.argv[1:]
     if args and args[0] == "--measure":
-        print(json.dumps(measure(args[1], args[2])))
+        print(json.dumps(measure(args[1], args[2], args[3].split(","))))
         return
-    rounds = 1
-    if "--rounds" in args:
-        i = args.index("--rounds")
-        rounds = int(args[i + 1])
-        del args[i:i + 2]
+    rounds, groups = 1, ",".join(GROUPS)
+    for flag in ("--rounds", "--groups"):
+        if flag in args:
+            i = args.index(flag)
+            if flag == "--rounds":
+                rounds = int(args[i + 1])
+            else:
+                groups = args[i + 1]
+            del args[i:i + 2]
+    if not set(groups.split(",")) <= set(GROUPS):
+        raise SystemExit(f"core_long_bench: --groups takes {GROUPS}")
     roots = [os.path.abspath(r) for r in args]
     if not roots:
         raise SystemExit(__doc__)
@@ -274,7 +382,7 @@ def main():
     from myrtle_vision_tpu_torch.perf._timing import power_line
 
     power = power_line()
-    bounds()
+    bounds(groups.split(","))
     times = {r: {} for r in roots}
     with tempfile.TemporaryDirectory() as tmp:
         saved = {}
@@ -286,7 +394,7 @@ def main():
                         tmp, f"{len(saved)}.pt")
                 res = json.loads(subprocess.run(
                     [sys.executable, os.path.abspath(__file__), "--measure",
-                     root, save], check=True, capture_output=True,
+                     root, save, groups], check=True, capture_output=True,
                     text=True).stdout.splitlines()[-1])
                 for case, (ms, dev_ms, by_kernel) in res.items():
                     times[root].setdefault(case, []).append(ms)
