@@ -133,6 +133,20 @@ Phases, each ending in one line of output:
               of the port) for one epoch of 32 synthetic images at 288-352
               px, its validation at 800 px, its checkpoint (observers and
               all) through the detection eval CLI; no launches
+  8d. seg     DLRSD segmentation on segmentation/train_configs/
+              seg_small.json at its full width (ViT-S/16 at 224 px, local
+              batch 32, global 64) on prepare_synthetic.py's 5 texture
+              classes resized to 224 px, random weights from the seed: the
+              FP32 train CLI for 3 steps through the fused K1-K4 chains
+              (launches of both ops, forward and backward), the first step
+              kernel vs plain; the last checkpoint through the test CLI
+              (launches exact, PNGs written), its pixel logits kernel vs
+              plain, and exported and imported back by the checkpoint CLIs
+              (the same logits bit for bit); the FP16_32 QAT (the qspec
+              chains, first step kernel vs plain) and PyTorchINT8 one-pass
+              QAT (no kernel) train CLIs for 2 steps each and their
+              checkpoints through the test CLI; a timing line (FP32 step
+              at 2 x 32, eval forward at B=32, FP16_32 step, a profile)
   9. timing   CUDA-event times at batch 256: each kernel, forward and
               backward (also the profiler's device time, kernel by
               kernel), and each chain against its plain version and,
@@ -2227,16 +2241,20 @@ def two_pass(model, images, plain=False):
 
 
 def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
-                     first_loss, tag="train"):
+                     first_loss, tag="train", criterion=None):
     """The train CLI's first step again, from its iteration-0 checkpoint
     (loaded before each path, observers and all) and its first batch
     (``model`` and ``train_loader`` as the CLI's ``build_train`` sets them
     up), on the kernel path and on the plain path; a PyTorchINT8 model
-    takes the two-pass step; ``tag`` leads the printed line."""
+    takes the two-pass step; ``tag`` leads the printed line;
+    ``criterion`` (logits, labels) -> loss is the CLI's loss, by default
+    the classifier's cross entropy."""
     from myrtle_vision_tpu_torch.training.optim import cross_entropy_loss
     from myrtle_vision_tpu_torch.utils.convert import (
         load_reference_checkpoint,
     )
+
+    criterion = criterion or cross_entropy_loss
 
     epoch = train_loader.epoch(0)
     batch = next(epoch)
@@ -2253,7 +2271,7 @@ def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
             images = batch["image"][sl]
             logits = (two_pass(model, images, plain) if int8
                       else model(images, plain=plain))
-            loss = cross_entropy_loss(logits, batch["label"][sl])
+            loss = criterion(logits, batch["label"][sl])
             loss.backward()
             loss_sum += loss.item()
         runs[plain] = (loss_sum / n_accum,
@@ -3987,6 +4005,369 @@ def phase_detect_int8(device, data_config, data_cfg):
           f"INT8 detection eval launched {eval_launches}")
 
 
+# segmentation (phase seg): prepare_synthetic.py's DLRSD layout, 5 texture
+# classes at 80 px, resized to 224 px; 320 images: 224 train (3 steps of
+# 2 x 32, the rest dropped), 32 val (one batch), 64 test (two batches);
+# the FP16_32 and INT8 runs train on the first 128 (2 steps)
+SEG_COUNT = 320
+SEG_SHORT_TRAIN = 128
+# the prediction and label PNGs the test CLI writes in the FP32 run
+SEG_VISUALIZE = 4
+
+
+def make_seg_dataset():
+    """The synthetic DLRSD-layout dataset and its data config at 224 px
+    (Resize of the val and test split, RandomResizedCrop of the train
+    split), and a data config whose train split is the first
+    :data:`SEG_SHORT_TRAIN` train images."""
+    data = os.path.join(WORK, "seg_data")
+    subprocess.run(
+        [sys.executable, os.path.join(ROOT, "segmentation",
+                                      "prepare_synthetic.py"),
+         "--out", data, "--count", str(SEG_COUNT), "--seed", "7"],
+        check=True, capture_output=True,
+    )
+    with open(os.path.join(ROOT, "segmentation", "data_configs",
+                           "data_config_synth.json")) as f:
+        data_config = json.load(f)
+    data_config["dataset_path"] = data
+    data_config["transform_ops_train"]["RandomResizedCrop"] = 224
+    data_config["transform_ops_val"]["Resize"] = 224
+    with open(os.path.join(data, data_config["train_files"])) as f:
+        lines = f.read().split()
+    with open(os.path.join(data, "train_short_imagepaths.txt"), "w") as f:
+        f.write("\n".join(lines[:SEG_SHORT_TRAIN]))
+    short = dict(data_config, train_files="train_short_imagepaths.txt")
+    return (data_config, write_json("seg_data_config.json", data_config),
+            write_json("seg_short_data_config.json", short))
+
+
+def seg_small_config(data_cfg, name, q_format="FP32"):
+    """segmentation/train_configs/seg_small.json at its full width, in
+    ``q_format``, one epoch from the seed (no pretrained backbone) at the
+    config's peak LR, a checkpoint and a validation every 3 steps."""
+    with open(os.path.join(ROOT, "segmentation", "train_configs",
+                           "seg_small.json")) as f:
+        config = json.load(f)
+    config["data_config_path"] = data_cfg
+    config["vit_config"]["q_format"] = q_format
+    config["train_config"].update(
+        output_directory=os.path.join(WORK, name), checkpoint_path="",
+        epochs=1, warmup_epochs=0, pretrained_backbone=None,
+        iters_per_checkpoint=3, iters_per_val=3)
+    return config, write_json(f"{name}.json", config)
+
+
+def run_seg_train(cfg, tag):
+    """The segmentation train CLI on the card, its lines printed after
+    ``tag``: (steps, losses, run directory, kernel launches, op launches,
+    seconds)."""
+    from myrtle_vision_tpu_torch.segmentation import train as train_cli
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "Epoch", "miou", "WARNING")):
+            print(f"{tag}: {line.strip()}")
+    losses = [float(v) for v in
+              re.findall(r"Iteration \d+:\tloss=(\S+)\tacc=", text)]
+    check(state.iteration == len(losses) > 0
+          and all(math.isfinite(v) for v in losses),
+          f"{tag}: {state.iteration} steps, losses {losses}")
+    run_dir = text.split("output directory: ")[1].split("\n")[0]
+    return state.iteration, losses, run_dir, launches, ops, took
+
+
+def run_seg_test(config, ckpt, name, argv=()):
+    """The segmentation test CLI on the card on ``ckpt``: (MIoU, its
+    printed lines, kernel launches, op launches)."""
+    from myrtle_vision_tpu_torch.segmentation import test as test_cli
+
+    config["train_config"]["checkpoint_path"] = ckpt
+    cfg = write_json(f"{name}.json", config)
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        miou = test_cli.main(["-c", cfg, "--device", "cuda", *argv])
+    launches, ops = read_counts()
+    return miou, out.getvalue().splitlines(), launches, ops, cfg
+
+
+def seg_logits(model, loader, plain=False):
+    """The eval forward's pixel logits of each test batch, real images
+    only, kept on the card."""
+    model.eval()
+    out = []
+    with torch.inference_mode():
+        for batch in loader.epoch(0):
+            n = int(batch.pop("_n_valid", len(batch["image"])))
+            out.append(model(batch["image"], plain=plain)[:n].float())
+    return out
+
+
+def phase_seg(device, power):
+    """DLRSD segmentation on seg_small.json at its full width (ViT-S/16:
+    dim 384, depth 12, 6 heads, MLP 1536, 224 px = 197 tokens, local batch
+    32, global 64) through the port's segmentation CLIs: FP32 (bf16
+    compute) trains 3 steps through the fused K1-K4 chains and its last
+    checkpoint goes through the test CLI (launches counted exactly, PNGs
+    written) and, exported and imported back by the checkpoint CLIs, gives
+    the same logits bit for bit; the eval logits and the first step kernel
+    against plain; FP16_32 QAT (the qspec chains) and PyTorchINT8 one-pass
+    QAT (PyTorch operations, no kernel) train 2 steps each and evaluate;
+    then the timing line.  Returns the FP32 run's kernel launches."""
+    from myrtle_vision_tpu_torch.classification import (
+        export_checkpoint,
+        import_checkpoint,
+    )
+    from myrtle_vision_tpu_torch.quantize import is_observer
+    from myrtle_vision_tpu_torch.segmentation import test as test_cli
+    from myrtle_vision_tpu_torch.segmentation import train as train_cli
+    from myrtle_vision_tpu_torch.training.segmentation import (
+        pixel_cross_entropy,
+    )
+
+    t_phase = time.perf_counter()
+    data_config, data_cfg, short_cfg = make_seg_dataset()
+    n_cls = data_config["number_of_classes"]
+    config, cfg = seg_small_config(data_cfg, "seg_fp32")
+    tc, vc = config["train_config"], config["vit_config"]
+    depth = vc["depth"]
+    print(f"seg: segmentation/train_configs/seg_small.json at full width "
+          f"(ViT-S/16: dim {vc['embed_dim']}, depth {depth}, {vc['heads']} "
+          f"heads, MLP {vc['mlp_dim']}, {vc['image_size']} px = 197 tokens, "
+          f"local batch {tc['local_batch_size']}, global "
+          f"{tc['global_batch_size']}); cut: {n_cls} classes for DLRSD's "
+          f"17 (prepare_synthetic.py's textures, {SEG_COUNT} images of 80 "
+          f"px resized to 224), no pretrained backbone, a few steps")
+
+    # FP32 (bf16 compute): the train CLI through the fused chains
+    steps, losses, run_dir, launches, ops, took = run_seg_train(cfg,
+                                                                "seg")
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, train_loader, val_loader, (micro, n_accum) = \
+            train_cli.build_train(config, device)
+    validations = len(range(0, steps, tc["iters_per_val"]))
+    val_batches = len(val_loader)
+    bwd = depth * n_accum * steps
+    fwd = bwd + depth * validations * val_batches
+    print(f"seg: FP32 train CLI on cuda, {steps} steps of {n_accum} x "
+          f"{micro} images and {validations} validation of "
+          f"{val_batches} batch in {took:.1f} s: op launches (forward, "
+          f"backward) {ops}, expected ({fwd}, {bwd}) each; kernels "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(steps == 3, f"seg: {steps} steps, expected 3")
+    for op in ("fused_attention_block", "fused_mlp_block"):
+        check(ops[op] == (fwd, bwd), f"seg: {op} launches {ops[op]}")
+    check(all(v == (0, 0) for k, v in ops.items()
+              if k not in ("fused_attention_block", "fused_mlp_block")),
+          f"seg: op launches {ops}")
+    check(all(launches[k] > 0 for k in FP32_KERNELS),
+          f"seg: a kernel never launched: {launches}")
+    ckpts = sorted(os.listdir(run_dir))
+    check(ckpts == ["vit_000000", f"vit_{steps:06}"], f"seg: {ckpts}")
+    first_step_check(model, train_loader, os.path.join(run_dir, "vit_000000"),
+                     n_accum, micro, losses[0], tag="seg",
+                     criterion=pixel_cross_entropy)
+    del model, train_loader, val_loader
+
+    # the last checkpoint through the test CLI, PNGs written
+    ckpt = os.path.join(run_dir, ckpts[-1])
+    vis = os.path.join(WORK, "seg_vis")
+    miou, lines, launches_eval, ops_eval, eval_cfg = run_seg_test(
+        config, ckpt, "seg_fp32_eval",
+        ["--visualize_dir", vis, "--visualize_n", str(SEG_VISUALIZE)])
+    with open(os.path.join(data_config["dataset_path"],
+                           data_config["test_files"])) as f:
+        test_batches = len(f.read().split()) // micro
+    expect = dict.fromkeys(launches_eval, 0)
+    expect.update(layernorm_rows=2 * depth * test_batches,
+                  gemm_bf16_epilogue=4 * depth * test_batches,
+                  attention_core=depth * test_batches)
+    pngs = sorted(os.listdir(vis))
+    print(f"seg: {ckpts[-1]} through the test CLI: {lines[0]} "
+          f"({' '.join(v.strip() for v in lines[1:])}), {len(pngs)} PNGs; "
+          f"kernels {launches_eval} (expected {2 * depth}, {4 * depth}, "
+          f"{depth} a batch of {test_batches})")
+    check(launches_eval == expect, f"seg: eval launches {launches_eval}")
+    check(ops_eval["fused_attention_block"] == (depth * test_batches, 0),
+          f"seg: eval op launches {ops_eval}")
+    check(pngs == sorted(f"{k}_{i}.png" for k in ("label", "pred")
+                         for i in range(SEG_VISUALIZE)), f"seg: {pngs}")
+    check(miou.total_area_union.sum() > 0
+          and not np.isnan(miou.get_per_class_iou()).all(), "seg: mIoU")
+
+    # the eval logits, kernel path against plain path, on the card
+    with open(eval_cfg) as f:
+        eval_config = json.load(f)
+    model, loader, _ = test_cli.build_eval(eval_config, device)
+    kernel = seg_logits(model, loader)
+    plain = seg_logits(model, loader, plain=True)
+    diff = max((k - p).abs().max().item() for k, p in zip(kernel, plain))
+    top = max(p.abs().max().item() for p in plain)
+    agree = (sum((k.argmax(-1) == p.argmax(-1)).sum().item()
+                 for k, p in zip(kernel, plain))
+             / sum(p[..., 0].numel() for p in plain))
+    limit = LOGIT_BAR * max(1.0, top)
+    print(f"seg: eval pixel logits {tuple(kernel[0].shape)} a batch, kernel "
+          f"vs plain max_abs {diff:.6g} (bar {limit:.6g}), per-pixel argmax "
+          f"agreement {agree:.6f} (bar {ARGMAX_BAR})")
+    check(all(bool(torch.isfinite(k).all()) for k in kernel)
+          and kernel[0].shape[1:] == (224, 224, n_cls), "seg: eval logits")
+    check(diff <= limit and agree >= ARGMAX_BAR,
+          "seg: kernel-path pixel logits disagree with the plain path")
+    del plain, model
+
+    # export, import back, the imported file through the eval forward
+    pth = os.path.join(WORK, "seg_fp32_export.pth")
+    imported = os.path.join(WORK, "seg_fp32_imported")
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_checkpoint.main(["-c", eval_cfg, "--output", pth,
+                                "--wrap_train_ckpt"])
+        import_checkpoint.main(["-c", eval_cfg, "--torch_ckpt", pth,
+                                "--output", imported])
+    exported = torch.load(pth, weights_only=True)["model"]
+    eval_config["train_config"]["checkpoint_path"] = imported
+    model, loader, _ = test_cli.build_eval(eval_config, device)
+    again = seg_logits(model, loader)
+    same = all(torch.equal(a, b) for a, b in zip(kernel, again))
+    print(f"seg: {ckpts[-1]} exported ({len(exported)} reference tensors, "
+          f"{os.path.getsize(pth) / 2 ** 20:.1f} MiB) and imported back by "
+          f"the checkpoint CLIs: eval logits bit for bit {same}")
+    check(same, "seg: the imported checkpoint's logits differ")
+    del kernel, again, model, loader
+
+    # FP16_32 QAT and PyTorchINT8 one-pass QAT, 2 steps each, then eval
+    for q_format in ("FP16_32", "PyTorchINT8"):
+        tag = f"seg-{q_format}"
+        qconfig, qcfg = seg_small_config(short_cfg, f"seg_{q_format}",
+                                         q_format)
+        with counting_plain_calls() as plain_calls:
+            steps, losses, run_dir, launches, ops, took = run_seg_train(
+                qcfg, tag)
+        ckpt = os.path.join(run_dir, f"vit_{steps:06}")
+        payload = torch.load(ckpt, weights_only=True)
+        check(steps == 2 and payload["q_format"] == q_format,
+              f"{tag}: {steps} steps, {payload['q_format']}")
+        # two steps, then one validation (at iteration 0)
+        fwd_expect = (depth * (n_accum * steps + val_batches),
+                      depth * n_accum * steps)
+        miou, lines, launches_eval, ops_eval, _ = run_seg_test(
+            qconfig, ckpt, f"seg_{q_format}_eval")
+        print(f"{tag}: train CLI on cuda, {steps} steps of {n_accum} x "
+              f"{micro} images and a validation in {took:.1f} s: op "
+              f"launches {ops}, plain-version calls {plain_calls['n']}, "
+              f"kernels { {k: v for k, v in launches.items() if v} }; "
+              f"vit_{steps:06} through the test CLI: {lines[0]}, op "
+              f"launches {ops_eval}, kernels "
+              f"{ {k: v for k, v in launches_eval.items() if v} }")
+        check(miou.total_area_union.sum() > 0, f"{tag}: mIoU")
+        if q_format == "FP16_32":
+            for op in ("fused_attention_block", "fused_mlp_block"):
+                check(ops[op] == fwd_expect,
+                      f"{tag}: {op} launches {ops[op]}, expected "
+                      f"{fwd_expect}")
+            check(plain_calls["n"] == 0, f"{tag}: a plain version ran")
+            check(all(launches[k] > 0 for k in FLOAT_KERNELS + QAT_KERNELS
+                      + ("attention_core_f32", "colsum_rows")),
+                  f"{tag}: a kernel never launched: {launches}")
+            check(ops_eval["fused_attention_block"]
+                  == (depth * test_batches, 0)
+                  and launches_eval["fake_quant_rows"] > 0,
+                  f"{tag}: eval launches {ops_eval}, {launches_eval}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                model, train_loader, _, _ = train_cli.build_train(qconfig,
+                                                                  device)
+            first_step_check(model, train_loader,
+                             os.path.join(run_dir, "vit_000000"), n_accum,
+                             micro, losses[0], tag=tag,
+                             criterion=pixel_cross_entropy)
+            del model, train_loader
+        else:
+            # the JAX one-pass step runs the discrete calibrating Block:
+            # no kernel of the port
+            check(all(v == 0 for v in launches.values())
+                  and all(v == 0 for v in launches_eval.values())
+                  and all(v == (0, 0) for v in ops.values())
+                  and all(v == (0, 0) for v in ops_eval.values()),
+                  f"{tag}: launched {launches}, {ops}, {launches_eval}")
+            observers = [float(t) for n, t in payload["model"].items()
+                         if is_observer(n)]
+            check(observers and all(math.isfinite(v) for v in observers),
+                  f"{tag}: the checkpoint's observers")
+    time_seg(device, power, data_config)
+    print(f"seg: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def time_seg(device, power, data_config):
+    """CUDA-event times of seg_small's FP32 train step (2 micro-batches of
+    32, forward, backward, AdamW), its eval forward at B=32 and the
+    FP16_32 QAT step, random weights and images, with device profiles
+    (idle share) of the FP32 step and forward."""
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.training.classification import (
+        make_predict_fn,
+    )
+    from myrtle_vision_tpu_torch.training.optim import create_optimizer
+    from myrtle_vision_tpu_torch.training.segmentation import make_loss_fn
+    from myrtle_vision_tpu_torch.training.trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    with open(os.path.join(ROOT, "segmentation", "train_configs",
+                           "seg_small.json")) as f:
+        tc = json.load(f)["train_config"]
+    n_cls = data_config["number_of_classes"]
+    g = torch.Generator(device=device).manual_seed(0)
+    batch = {"image": torch.randn(2, 32, 224, 224, 3, device=device,
+                                  generator=g),
+             "label": torch.randint(0, n_cls, (2, 32, 224, 224),
+                                    device=device, generator=g,
+                                    dtype=torch.int32)}
+    ms = {}
+    for q_format in ("FP32", "FP16_32"):
+        model = ViT("segmentation", 224, 16, n_cls, 384, 12, 6, 1536,
+                    q_format=q_format, device=device)
+        state = TrainState(model, create_optimizer(tc, model))
+        step = make_train_step(make_loss_fn(model), 2)
+        ms[q_format] = cuda_ms(lambda: step(state, batch, tc["lr"]),
+                               iters=5, warmup=2)
+        if q_format == "FP32":
+            profile = device_profile(lambda: step(state, batch, tc["lr"]), {
+                "gemm_bf16_epilogue": ("gemm_wgmma",),
+                "attention_core": ("attention_core_kernel",),
+                "attention_core_bwd": ("attention_core_bwd",),
+                "LayerNorm, forward and backward": ("layernorm_rows",),
+                "colsum_rows": ("colsum",)})
+            predict = make_predict_fn(model)
+            ms["forward"] = cuda_ms(lambda: predict(batch["image"][0]),
+                                    iters=10, warmup=2)
+            forward_profile = device_profile(
+                lambda: predict(batch["image"][0]), {
+                    "gemm_bf16_epilogue": ("gemm_wgmma",),
+                    "attention_core": ("attention_core_kernel",),
+                    "LayerNorm": ("layernorm_rows",)})
+        del model, state, step
+    print(f"timing: seg ViT-S/16 segmentation (seg_small.json, 224 px, "
+          f"{n_cls} classes): FP32 train step 2 x 32 (forward, backward, "
+          f"AdamW) {ms['FP32']:.3f} ms = {64 / ms['FP32'] * 1e3:.1f} img/s, "
+          f"eval forward B=32 {ms['forward']:.3f} ms = "
+          f"{32 / ms['forward'] * 1e3:.1f} img/s, FP16_32 QAT train step 2 "
+          f"x 32 {ms['FP16_32']:.3f} ms = {64 / ms['FP16_32'] * 1e3:.1f} "
+          f"img/s [{power}]")
+    print(f"timing: seg FP32 train step profile (2 x 32, one step): "
+          f"{profile} [{power}]")
+    print(f"timing: seg FP32 eval forward profile (B=32, one forward): "
+          f"{forward_profile} [{power}]")
+
+
 def paired_ms(kernel, plain, iters=20, warmup=3):
     """plain, kernel, kernel, plain; the mean of each pair."""
     p1, k1, k2, p2 = (cuda_ms(f, iters, warmup)
@@ -5151,6 +5532,7 @@ def main():
     float_det_launches = phase_detect_float(device, *det_data)
     phase_detect_int8(device, *det_data)
     power = power_line()
+    phase_seg(device, power)
     totals = phase_timing(device, power, int8_ckpt, int8_kwargs,
                           float_ckpt, float_kwargs, i8_384_ckpt,
                           i8_384_kwargs)

@@ -1,4 +1,5 @@
-"""Vision Transformer for classification and detection, in PyTorch:
+"""Vision Transformer for classification, segmentation and detection, in
+PyTorch:
 eval and training forward in FP32, the PyTorchINT8 format's calibration,
 simulation, two-pass QAT training and converted inference, and the
 stateless float formats' (FP16_16, FP16_32, TF32) simulation, QAT
@@ -9,9 +10,11 @@ so far: without active dropout, ``decoder="classification"`` in
 ``q_format`` FP32 (inference and training), PyTorchINT8 (the calibrating
 forward, the simulation's eval forward, QAT training, and the converted
 model up to the fused Block's length) and the float formats (inference
-and QAT training), and ``decoder="detection"`` (YOLOS: det tokens after
-the patches, the class and box heads on them) in FP32, in the float
-formats and in PyTorchINT8 before convert (the one-pass QAT step and the
+and QAT training), ``decoder="segmentation"`` (the Segmenter linear head
+on every patch token, its logits upsampled bilinearly to NHWC pixel
+logits) and ``decoder="detection"`` (YOLOS: det tokens after the
+patches, the class and box heads on them) in FP32, in the float formats
+and in PyTorchINT8 before convert (the one-pass QAT step and the
 simulation's eval forward).  Parameters are named as in
 the upstream reference state dict that myrtle_vision_tpu/utils/export.py
 writes
@@ -133,7 +136,10 @@ from myrtle_vision_tpu_torch.ops.high_precision import (
     matmul_fp32,
     matmul_high3,
 )
-from myrtle_vision_tpu_torch.ops.interpolate import resize_bicubic
+from myrtle_vision_tpu_torch.ops.interpolate import (
+    resize_bicubic,
+    resize_bilinear,
+)
 from myrtle_vision_tpu_torch.quantize import (
     QSPECS,
     ActQuant,
@@ -150,7 +156,8 @@ MIN_NUM_PATCHES = 16  # reference vit.py:14
 # the port runs without active dropout: the classification decoder in FP32
 # for inference and training, in PyTorchINT8 for calibration and converted
 # inference and in the float formats for inference and QAT training, the
-# detection decoder in FP32, the float formats and PyTorchINT8
+# segmentation and detection decoders in FP32, the float formats and
+# PyTorchINT8 before convert
 _NOT_PORTED = "not ported yet; see ROADMAP.md (Queue A)"
 # the weights a converted float model stores in fp16
 _FP16_STORAGE = (QFormat.FP16_16, QFormat.FP16_32)
@@ -621,6 +628,51 @@ class ClassificationDecoder(nn.Module):
                             sites[1])
 
 
+class SegmentationDecoder(ClassificationDecoder):
+    """The "Segmenter" linear decoder (reference vit.py:344-374): the cls
+    token dropped, LayerNorm and Linear(num_classes) over every patch
+    token, the (B, grid, grid, num_classes) patch logits cast to fp32 and
+    upsampled bilinearly to the image (ops/interpolate.py
+    ``resize_bilinear``, torch's ``align_corners=False``).  The output is
+    NHWC (B, H, W, num_classes), as the JAX package returns it; the
+    reference returns NCHW.  The head rounds as the JAX head does: in
+    FP32 its QDense runs in the compute dtype and only its output is cast
+    to fp32, before the resize.  Its quant sites see every patch token's
+    row: an INT8 observer takes the min and max over all of them, a float
+    snap applies per element."""
+
+    def __init__(self, dim, num_classes, image_size, patch_size,
+                 device=None):
+        super().__init__(dim, num_classes, device)
+        self.grid = image_size // patch_size
+        self.image_size = image_size
+
+    def _upsample(self, y):
+        b, _, c = y.shape
+        y = y.reshape(b, self.grid, self.grid, c).float()
+        return resize_bilinear(y, self.image_size, self.image_size)
+
+    def forward(self, x):
+        dtype = x.dtype
+        y = layernorm_rows_plain(x[:, 1:], self.norm.weight, self.norm.bias)
+        return self._upsample(_dense(y, self.linear, dtype))
+
+    def forward_int8(self, x, calibrating=True, update=None):
+        """The PyTorchINT8 simulation's head (see :func:`_qdense`)."""
+        update = calibrating if update is None else update
+        y = layernorm_rows_plain(x[:, 1:], self.norm.weight, self.norm.bias)
+        return self._upsample(_qdense(self.linear,
+                                      self.norm.act_out(y, update),
+                                      calibrating, update))
+
+    def forward_float(self, x, q_format, converted, plain):
+        """QLayerNorm and QDense in a stateless float format over the
+        patch tokens, then the upsample."""
+        y = _qlayernorm_float(self.norm, x[:, 1:], q_format, converted, plain)
+        return self._upsample(_qdense_float(self.linear, y, q_format,
+                                            converted, plain))
+
+
 class DetectionDecoder(nn.Module):
     """YOLOS head on the last ``num_det_tokens`` tokens: Linear class
     logits (``num_classes`` + 1, the last the no-object class) and
@@ -679,13 +731,15 @@ def interpolate_pos_embedding(pos_embedding, grid_h, grid_w):
 
 
 class ViT(nn.Module):
-    """The ViT backbone with the classification or detection decoder
-    (reference vit.py:164-323).
+    """The ViT backbone with the classification, segmentation or detection
+    decoder (reference vit.py:164-323).
 
     ``forward(img, plain=False, calibrating=False, int8_fused=False)``:
-    img (B, H, W, C) float NHWC -> fp32 logits (B, num_classes), or for
-    detection the {"pred_logits" (B, num_det_tokens, num_classes + 1),
-    "pred_boxes" (B, num_det_tokens, 4)} dict of fp32 tensors;
+    img (B, H, W, C) float NHWC -> fp32 logits (B, num_classes), for
+    segmentation fp32 pixel logits (B, image_size, image_size,
+    num_classes), or for detection the {"pred_logits" (B,
+    num_det_tokens, num_classes + 1), "pred_boxes" (B, num_det_tokens,
+    4)} dict of fp32 tensors;
     differentiable in FP32, on the card at any length (the fused ops'
     backward walks KV tiles above 256 tokens, the discrete path has the
     flash backward); ``plain`` selects the plain PyTorch versions in
@@ -706,13 +760,18 @@ class ViT(nn.Module):
                  q_format="FP32", converted=False,
                  compute_dtype=torch.bfloat16, device=None, generator=None):
         super().__init__()
-        if decoder not in ("classification", "detection"):
-            raise NotImplementedError(f"decoder {decoder!r}: {_NOT_PORTED}")
+        if decoder not in ("classification", "segmentation", "detection"):
+            raise ValueError("decoder must be either classification, "
+                             f"segmentation, or detection, not {decoder!r}")
         q_format = QFormat[getattr(q_format, "name", q_format)]
         if decoder == "detection" and converted and \
                 q_format == QFormat.PyTorchINT8:
             raise NotImplementedError(
                 "a converted PyTorchINT8 detector: the JAX package builds "
+                "converted models for classification only (its PTQ CLI)")
+        if decoder == "segmentation" and converted:
+            raise NotImplementedError(
+                "a converted segmentation model: the JAX package builds "
                 "converted models for classification only (its PTQ CLI)")
         if converted and q_format == QFormat.FP32:
             raise ValueError("q_format FP32 has nothing to convert")
@@ -756,6 +815,9 @@ class ViT(nn.Module):
         if decoder == "detection":
             self.decoder = DetectionDecoder(dim, num_classes, num_det_tokens,
                                             device)
+        elif decoder == "segmentation":
+            self.decoder = SegmentationDecoder(dim, num_classes, image_size,
+                                               patch_size, device)
         else:
             self.decoder = ClassificationDecoder(dim, num_classes, device)
         head = ((self.decoder.class_embed, self.decoder.bbox_embed)

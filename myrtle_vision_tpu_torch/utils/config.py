@@ -1,8 +1,8 @@
-"""Config parsing, seeding, batch-size arithmetic and the RESISC split
-files: the helpers of myrtle_vision_tpu/utils/config.py that the port's
-CLIs and dataset call, copied (the port imports nothing of the JAX
-package).  The JSON config schema is the reference's, so the configs run
-unchanged.
+"""Config parsing, seeding, batch-size arithmetic and the RESISC and
+DLRSD split files: the helpers of myrtle_vision_tpu/utils/config.py
+that the port's CLIs and datasets call, copied (the port imports nothing
+of the JAX package).  The JSON config schema is the reference's, so the
+configs run unchanged.
 """
 from __future__ import annotations
 
@@ -74,6 +74,18 @@ def load_imagepaths_and_labels(dataset_path, imagepaths):
     imagepaths_filepath = os.path.join(dataset_path, imagepaths)
     with open(imagepaths_filepath, encoding="utf-8") as paths_file:
         return [[line.strip(), line.split("/")[1]] for line in paths_file]
+
+
+def load_imagepaths_and_segmaps(dataset_path, imagepaths):
+    """List of [image path, segmap path] pairs from a CSV split file
+    (reference: utils/utils.py:11-30)."""
+    imagepaths_filepath = os.path.join(dataset_path, imagepaths)
+    pairs = []
+    with open(imagepaths_filepath, encoding="utf-8") as paths_file:
+        for line in paths_file:
+            parts = line.split(",")
+            pairs.append([parts[0], parts[1].strip("\n")])
+    return pairs
 
 
 def load_label_map(dataset_path, label_map_path):

@@ -20,6 +20,7 @@ pos_embedding_cat, pos_embedding_add
 patch_to_embedding/act_out                 patch_to_embedding.act_out
 decoder/norm/act_out                       decoder.norm.act_out
 decoder/linear/act_out                     decoder.linear.act_out
+(classification and segmentation)
 (detection: decoder/class_embed/act_out,   decoder.class_embed.act_out,
 decoder/bbox_embed/act_out)                decoder.bbox_embed.act_out
 transformer/layers_i/attn_norm/act_out     transformer.layers.i.0.fn.norm.act_out
@@ -58,6 +59,7 @@ _QUANT_TOP = ["quant_img", "quant_cls_token", "quant_pos_embedding",
 _QUANT_EMBED = [(("patch_to_embedding", "act_out"),
                  "patch_to_embedding.act_out")]
 _QUANT_HEAD = {"classification": ("norm", "linear"),
+               "segmentation": ("norm", "linear"),
                "detection": ("class_embed", "bbox_embed")}
 _QUANT_LAYER = [
     (("attn_norm", "act_out"), "0.fn.norm.act_out"),
@@ -75,7 +77,7 @@ _QUANT_LAYER = [
 
 def quant_site_names(depth: int, decoder: str = "classification"):
     """[(JAX quant path, port site name)] of a ViT with ``decoder``
-    ("classification" or "detection")."""
+    ("classification", "segmentation" or "detection")."""
     top = _QUANT_TOP + (["quant_det_tokens"] if decoder == "detection"
                         else [])
     names = [((n,), n) for n in top] + list(_QUANT_EMBED)
@@ -91,8 +93,9 @@ def quant_site_names(depth: int, decoder: str = "classification"):
 def state_dict_from_jax(params_numpy, decoder: str = "classification",
                         quant=None):
     """JAX ViT param tree (numpy arrays) of a ``decoder``
-    ("classification" or "detection"), before or after ``convert_params``,
-    and optionally its ``quant`` collection -> {port name: tensor}: fp32
+    ("classification", "segmentation" or "detection"), before or after
+    ``convert_params``, and optionally its ``quant`` collection -> {port
+    name: tensor}: fp32
     parameters with torch (out, in) Linear weights; int8 weights with
     their ``weight_scale``; fp16 weights as fp16; ``<site>.min`` and
     ``<site>.max`` of every observer."""

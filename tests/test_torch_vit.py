@@ -10,7 +10,11 @@ import torch
 
 from myrtle_vision_tpu.models.vit import ViT as JaxViT
 from myrtle_vision_tpu.ops.interpolate import resize_bicubic as jax_resize
-from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
+from myrtle_vision_tpu_torch.models.vit import (
+    SegmentationDecoder,
+    ViT,
+    vit_kwargs_from_config,
+)
 from myrtle_vision_tpu_torch.ops.interpolate import resize_bicubic
 from myrtle_vision_tpu_torch.utils.convert import state_dict_from_jax
 
@@ -98,8 +102,16 @@ def test_kwargs_from_config_and_unported_options():
     config["vit_config"]["compute_dtype"] = "float32"
     kw = vit_kwargs_from_config(config, {"number_of_classes": 45})
     assert kw["compute_dtype"] is torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ViT(**{**KW, "decoder": "segmentation"})
+    # segmentation builds before convert; a converted segmentation model,
+    # which no CLI of the JAX package builds, is refused, and so is a
+    # decoder the JAX package does not know
+    assert isinstance(ViT(**{**KW, "decoder": "segmentation"}).decoder,
+                      SegmentationDecoder)
+    with pytest.raises(NotImplementedError, match="converted segmentation"):
+        ViT(**{**KW, "decoder": "segmentation", "q_format": "FP16_32"},
+            converted=True)
+    with pytest.raises(ValueError, match="decoder must be"):
+        ViT(**{**KW, "decoder": "captioning"})
     # PyTorchINT8 detection builds before convert; a converted INT8
     # detector, which no CLI of the JAX package builds, is refused
     assert ViT(**{**KW, "decoder": "detection", "q_format": "PyTorchINT8"}
