@@ -147,6 +147,21 @@ Phases, each ending in one line of output:
               QAT (no kernel) train CLIs for 2 steps each and their
               checkpoints through the test CLI; a timing line (FP32 step
               at 2 x 32, eval forward at B=32, FP16_32 step, a profile)
+  8e. distill  DeiT distillation with a CNN teacher on classification/
+              train_configs/deit_small.json at its full width (the ViT-S/16
+              student, 224 px: 197 tokens and the distillation token, local
+              batch 32, global 64): finetune_cnn writes a ResNet-50 teacher
+              (He-init, one epoch of the synthetic train split at 224 px,
+              batch 32) and test_cnn evaluates it; the teacher on the card
+              against the same teacher on the CPU (fp32, TF32 off); the
+              train CLI distils for 3 steps of 2 x 32 through the fused
+              K1-K4 chains (launches of both ops, forward and backward, and
+              the token count of every call: 198, or 197 for the plain
+              student's validation accuracy), the first step kernel vs
+              plain; the eval CLI on the last checkpoint's student, the
+              export CLI's student file through the eval CLI again (the same
+              logits bit for bit); a timing line (the distilled step at 2 x
+              32, the teacher's share of it, a profile with the idle share)
   9. timing   CUDA-event times at batch 256: each kernel, forward and
               backward (also the profiler's device time, kernel by
               kernel), and each chain against its plain version and,
@@ -2241,14 +2256,16 @@ def two_pass(model, images, plain=False):
 
 
 def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
-                     first_loss, tag="train", criterion=None):
+                     first_loss, tag="train", criterion=None, teacher=None):
     """The train CLI's first step again, from its iteration-0 checkpoint
     (loaded before each path, observers and all) and its first batch
     (``model`` and ``train_loader`` as the CLI's ``build_train`` sets them
     up), on the kernel path and on the plain path; a PyTorchINT8 model
     takes the two-pass step; ``tag`` leads the printed line;
     ``criterion`` (logits, labels) -> loss is the CLI's loss, by default
-    the classifier's cross entropy."""
+    the classifier's cross entropy; with ``teacher`` the model is a
+    DistillWrapper and the loss its distillation loss against the
+    teacher's logits."""
     from myrtle_vision_tpu_torch.training.optim import cross_entropy_loss
     from myrtle_vision_tpu_torch.utils.convert import (
         load_reference_checkpoint,
@@ -2259,19 +2276,25 @@ def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
     epoch = train_loader.epoch(0)
     batch = next(epoch)
     epoch.close()
-    int8 = model.int8 and not model.converted
+    int8 = teacher is None and model.int8 and not model.converted
+    init = (load_reference_checkpoint(init_ckpt) if teacher is None
+            else torch.load(init_ckpt, weights_only=True)["model"])
     runs = {}
     for plain in (False, True):
-        model.load_state_dict(load_reference_checkpoint(init_ckpt),
-                              strict=True)
+        model.load_state_dict(init, strict=True)
         model.zero_grad(set_to_none=True)
         loss_sum = 0.0
         for i in range(n_accum):
             sl = slice(i * micro, (i + 1) * micro)
             images = batch["image"][sl]
-            logits = (two_pass(model, images, plain) if int8
-                      else model(images, plain=plain))
-            loss = criterion(logits, batch["label"][sl])
+            labels = batch["label"][sl]
+            if teacher is not None:
+                loss = model(images, labels.long(), teacher(images),
+                             plain=plain)[0]
+            else:
+                logits = (two_pass(model, images, plain) if int8
+                          else model(images, plain=plain))
+                loss = criterion(logits, labels)
             loss.backward()
             loss_sum += loss.item()
         runs[plain] = (loss_sum / n_accum,
@@ -4368,6 +4391,289 @@ def time_seg(device, power, data_config):
           f"{forward_profile} [{power}]")
 
 
+# the student's train split in the distill phase: 3 steps of 2 x 32
+DISTILL_TRAIN = 192
+# the teacher on the card against the same teacher on the CPU, fp32
+# without TF32 on both: 1e-4 of the largest logit (TF32 would be ~1e-3)
+TEACHER_BAR = 1e-4
+
+
+def deit_small_config(data_cfg, teacher_pth):
+    """classification/train_configs/deit_small.json at its full width
+    (dim 384, depth 12, 6 heads, MLP 1536, 224 px: 197 tokens and the
+    distillation token; local batch 32, global 64), the distiller's
+    teacher ``teacher_pth``, one epoch from the seed (no pretrained
+    backbone) at the config's peak LR, a checkpoint and a validation every
+    3 steps."""
+    with open(os.path.join(ROOT, "classification", "train_configs",
+                           "deit_small.json")) as f:
+        config = json.load(f)
+    config["data_config_path"] = data_cfg
+    config["distiller_config"]["teacher_weights_path"] = teacher_pth
+    config["train_config"].update(
+        output_directory=os.path.join(WORK, "distill"), checkpoint_path="",
+        epochs=1, warmup_epochs=0, pretrained_backbone=None,
+        iters_per_checkpoint=3, iters_per_val=3)
+    return config
+
+
+@contextlib.contextmanager
+def recording_tokens():
+    """Records, in the yielded list, the token count of every call of the
+    fused attention op that the ViT's blocks make while it is open."""
+    from myrtle_vision_tpu_torch.models import vit
+
+    seen = []
+    op = vit.fused_attention_block
+
+    def record(x, *args):
+        seen.append(x.shape[1])
+        return op(x, *args)
+
+    vit.fused_attention_block = record
+    try:
+        yield seen
+    finally:
+        vit.fused_attention_block = op
+
+
+def phase_distill(device, power, data_config, data_cfg):
+    """DeiT distillation with a CNN teacher on deit_small.json at its full
+    width, through the port's CLIs on the card: finetune_cnn writes a
+    ResNet-50 teacher (He-init, one epoch of the synthetic train split at
+    224 px, batch 32); test_cnn evaluates it, and the teacher on the card
+    is held against the same teacher on the CPU; the train CLI distils the
+    ViT-S/16 student for 3 steps of 2 x 32 through the fused K1-K4 chains
+    at 198 tokens (launches counted, the token count of every call
+    recorded), the first step kernel vs plain; the eval CLI reads the last
+    checkpoint's student, the export CLI writes it, and the eval CLI gives
+    the same logits from the exported file; then the timing line."""
+    from myrtle_vision_tpu_torch.classification import (
+        export_checkpoint,
+        finetune_cnn,
+        test_cnn,
+    )
+    from myrtle_vision_tpu_torch.classification import test as eval_cli
+    from myrtle_vision_tpu_torch.classification import train as train_cli
+    from myrtle_vision_tpu_torch.models.resnet import make_teacher_fn
+
+    t_phase = time.perf_counter()
+    data = data_config["dataset_path"]
+    with open(os.path.join(data, data_config["train_files"])) as f:
+        lines = f.read().split()
+    teacher_pth = os.path.join(WORK, "resnet50_synth_teacher.pth")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        sd, history = finetune_cnn.main([
+            "--model", "resnet50", "--data_config", data_cfg, "--epochs",
+            "1", "--batch_size", "32", "--lr", "1e-3", "--output",
+            teacher_pth, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    bns = [k for k in sd if k.endswith("running_mean")]
+    print(f"distill: finetune_cnn ResNet-50 on cuda (He-init, one epoch of "
+          f"{len(lines)} images at 224 px, batch "
+          f"32) in {took:.1f} s: {out.getvalue().splitlines()[0]}; "
+          f"{len(sd)} tensors, {len(bns)} batch norms each with "
+          f"num_batches_tracked, {os.path.getsize(teacher_pth) / 2 ** 20:.1f}"
+          f" MiB")
+    check(math.isfinite(history[0][0]), f"distill: finetune loss {history}")
+    check(all(k[: -len("running_mean")] + "num_batches_tracked" in sd
+              for k in bns) and len(bns) == 53, "distill: the teacher's BNs")
+    check(all(v == 0 for v in launches.values())
+          and all(v == (0, 0) for v in ops.values()),
+          f"distill: finetune launched a port kernel: {launches}")
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        gts, preds, logits = test_cnn.main([
+            "--model", "resnet50", "--cnn_weights", teacher_pth,
+            "--data_config", data_cfg, "--device", "cuda"])
+    check(logits.shape == (len(gts), data_config["number_of_classes"])
+          and bool(torch.isfinite(logits).all()), "distill: test_cnn")
+    images = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, (32, 224, 224, 3)).astype(np.float32))
+    card = make_teacher_fn(teacher_pth, device=device)(images.to(device))
+    ref = make_teacher_fn(teacher_pth)(images)
+    rel = ((card.cpu() - ref).abs().max() / ref.abs().max()).item()
+    print(f"distill: test_cnn on cuda: {len(gts)} test images, accuracy "
+          f"{float(np.mean(gts == preds)):.4f}; the teacher on the card vs "
+          f"on the CPU (fp32, TF32 off), 32 images at 224 px: max abs "
+          f"{(card.cpu() - ref).abs().max().item():.4g}, {rel:.4g} of the "
+          f"largest logit (bar {TEACHER_BAR:g})")
+    check(rel <= TEACHER_BAR, "distill: the teacher on the card disagrees "
+          "with the CPU")
+
+    # the student: deit_small.json at full width, 3 steps of 2 x 32
+    with open(os.path.join(data, "train_distill_imagepaths.txt"), "w") as f:
+        f.write("\n".join(lines[:DISTILL_TRAIN]))
+    short_cfg = write_json("distill_data_config.json", dict(
+        data_config, train_files="train_distill_imagepaths.txt"))
+    config = deit_small_config(short_cfg, teacher_pth)
+    cfg = write_json("deit_small_distill.json", config)
+    tc, vc = config["train_config"], config["vit_config"]
+    dc = config["distiller_config"]
+    depth = vc["depth"]
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with recording_tokens() as tokens, contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "Epoch", "WARNING")):
+            print(f"distill: {line.strip()}")
+    steps = state.iteration
+    losses = [float(v) for v in
+              re.findall(r"Iteration \d+:\tloss=(\S+)\tacc=", text)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, train_loader, val_loader, (micro, n_accum) = \
+            train_cli.build_train(config, device)
+    val_batches = len(val_loader)
+    validations = len(range(0, steps, tc["iters_per_val"]))
+    bwd = depth * n_accum * steps
+    # a validation batch runs the student twice: the plain ViT for the
+    # accuracy (197 tokens), the wrapper for the distillation loss (198)
+    fwd = bwd + 2 * depth * validations * val_batches
+    n198 = bwd + depth * validations * val_batches
+    counted = {n: tokens.count(n) for n in sorted(set(tokens))}
+    print(f"distill: deit_small.json at full width (dim {vc['embed_dim']}, "
+          f"depth {depth}, {vc['heads']} heads, MLP {vc['mlp_dim']}, "
+          f"{vc['image_size']} px: 197 tokens + the distillation token, "
+          f"local batch {tc['local_batch_size']}, global "
+          f"{tc['global_batch_size']}, T {dc['temperature']}, alpha "
+          f"{dc['alpha']}); cut: 10 synthetic "
+          f"classes for RESISC45's 45, {DISTILL_TRAIN} train images, no "
+          f"pretrained backbone, a teacher of one epoch")
+    print(f"distill: train CLI on cuda, {steps} steps of {n_accum} x {micro} "
+          f"images and {validations} validation of {val_batches} batch in "
+          f"{took:.1f} s: op launches (forward, backward) {ops}, expected "
+          f"({fwd}, {bwd}) each; attention calls by token count {counted}, "
+          f"expected {{197: {fwd - n198}, 198: {n198}}}; kernels "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(steps == DISTILL_TRAIN // tc["global_batch_size"] == 3
+          and len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"distill: {steps} steps, losses {losses}")
+    for op in ("fused_attention_block", "fused_mlp_block"):
+        check(ops[op] == (fwd, bwd), f"distill: {op} launches {ops[op]}")
+    check(all(v == (0, 0) for k, v in ops.items()
+              if k not in ("fused_attention_block", "fused_mlp_block")),
+          f"distill: op launches {ops}")
+    check(counted == {197: fwd - n198, 198: n198},
+          f"distill: token counts {counted}")
+    check(all(launches[k] > 0 for k in FP32_KERNELS),
+          f"distill: a kernel never launched: {launches}")
+    run_dir = text.split("output directory: ")[1].split("\n")[0]
+    ckpts = sorted(os.listdir(run_dir))
+    check(ckpts == ["vit_000000", f"vit_{steps:06}"], f"distill: {ckpts}")
+    first_step_check(model, train_loader, os.path.join(run_dir, "vit_000000"),
+                     n_accum, micro, losses[0], tag="distill",
+                     teacher=train_cli.build_teacher(config, device))
+    del model, train_loader, val_loader
+
+    # the last checkpoint's student through the eval CLI; exported, and
+    # the exported file through the eval CLI again
+    ckpt = os.path.join(run_dir, ckpts[-1])
+    wrapper_tensors = len(torch.load(ckpt, weights_only=True)["model"])
+    config["train_config"]["checkpoint_path"] = ckpt
+    eval_cfg = write_json("deit_small_eval.json", config)
+    with open(os.path.join(data, data_config["test_files"])) as f:
+        test_batches = len(f.read().split()) // micro
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gts, preds, logits = eval_cli.main(["-c", eval_cfg, "--device",
+                                            "cuda"])
+    _, ops_eval = read_counts()
+    pth = os.path.join(WORK, "deit_small_student.pth")
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_checkpoint.main(["-c", eval_cfg, "--output", pth])
+    exported = torch.load(pth, weights_only=True)
+    config["train_config"]["checkpoint_path"] = pth
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, again = eval_cli.main(["-c", write_json(
+            "deit_small_exported_eval.json", config), "--device", "cuda"])
+    same = torch.equal(logits, again)
+    print(f"distill: {ckpts[-1]} (the DistillWrapper's {wrapper_tensors} "
+          f"tensors) through the eval CLI: {len(gts)} test images, "
+          f"accuracy {float(np.mean(gts == preds)):.4f}, op launches "
+          f"{ops_eval}; exported ({len(exported)} student tensors, "
+          f"{os.path.getsize(pth) / 2 ** 20:.1f} MiB): eval logits bit for "
+          f"bit {same}")
+    check(logits.shape == (test_batches * micro,
+                           data_config["number_of_classes"])
+          and bool(torch.isfinite(logits).all()), "distill: eval")
+    check(ops_eval["fused_attention_block"] == (depth * test_batches, 0),
+          f"distill: eval launches {ops_eval}")
+    check(not any(k.startswith(("student.", "distill"))
+                  for k in exported), "distill: the export holds more than "
+          "the student")
+    check(same, "distill: the exported student's logits differ")
+    time_distill(device, power, config, data_config)
+    print(f"distill: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def time_distill(device, power, config, data_config, rounds=3):
+    """CUDA-event times of deit_small's distilled FP32 train step (2
+    micro-batches of 32: the teacher's forward, the student's forward and
+    backward, AdamW), random weights and images, the student, its wrapper
+    and the ResNet-50 teacher built from ``config`` as the train CLI
+    builds them; the step and the teacher alone on the same two
+    micro-batches in ``rounds`` alternating rounds (each round's figures
+    and their medians), and a device profile of one step (idle share)."""
+    from myrtle_vision_tpu_torch.classification import train as train_cli
+    from myrtle_vision_tpu_torch.training.classification import make_loss_fn
+    from myrtle_vision_tpu_torch.training.optim import create_optimizer
+    from myrtle_vision_tpu_torch.training.trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    tc = config["train_config"]
+    n_cls = data_config["number_of_classes"]
+    g = torch.Generator(device=device).manual_seed(0)
+    batch = {"image": torch.randn(2, 32, 224, 224, 3, device=device,
+                                  generator=g),
+             "label": torch.randint(0, n_cls, (2, 32), device=device,
+                                    generator=g, dtype=torch.int32)}
+    vit, model = train_cli.build_models(config, data_config, device,
+                                        torch.Generator().manual_seed(0))
+    teacher = train_cli.build_teacher(config, device)
+    state = TrainState(model, create_optimizer(tc, model))
+    step = make_train_step(make_loss_fn(vit, model, teacher), 2)
+    step_ms, teacher_ms = [], []
+    for _ in range(rounds):
+        step_ms.append(cuda_ms(lambda: step(state, batch, tc["lr"]),
+                               iters=5, warmup=2))
+        teacher_ms.append(cuda_ms(lambda: [teacher(batch["image"][i])
+                                           for i in range(2)],
+                                  iters=5, warmup=2))
+    step_med = float(np.median(step_ms))
+    teacher_med = float(np.median(teacher_ms))
+    profile = device_profile(lambda: step(state, batch, tc["lr"]), {
+        "gemm_bf16_epilogue": ("gemm_wgmma",),
+        "attention_core": ("attention_core_kernel",),
+        "attention_core_bwd": ("attention_core_bwd",),
+        "LayerNorm, forward and backward": ("layernorm_rows",),
+        "colsum_rows": ("colsum",),
+        "teacher convolutions (cuDNN)": ("fprop", "conv", "cudnn",
+                                         "winograd", "implicit_gemm")})
+    rounds_text = ", ".join(f"{a:.3f} / {b:.3f}"
+                            for a, b in zip(step_ms, teacher_ms))
+    print(f"timing: distill deit_small.json (ViT-S/16 student, 198 tokens, "
+          f"ResNet-50 teacher, fp32 convolutions, {n_cls} classes): FP32 "
+          f"distilled train step 2 x 32 (the teacher's forward, the "
+          f"student's forward and backward, AdamW) median of {rounds} "
+          f"rounds {step_med:.3f} ms = {64 / step_med * 1e3:.1f} img/s; the "
+          f"teacher alone on the same 2 x 32 images {teacher_med:.3f} ms = "
+          f"{teacher_med / step_med:.4f} of the step; rounds (step / "
+          f"teacher ms) {rounds_text} [{power}]")
+    print(f"timing: distill step profile (2 x 32, one step): {profile} "
+          f"[{power}]")
+
+
 def paired_ms(kernel, plain, iters=20, warmup=3):
     """plain, kernel, kernel, plain; the mean of each pair."""
     p1, k1, k2, p2 = (cuda_ms(f, iters, warmup)
@@ -5533,6 +5839,7 @@ def main():
     phase_detect_int8(device, *det_data)
     power = power_line()
     phase_seg(device, power)
+    phase_distill(device, power, data_config, data_cfg)
     totals = phase_timing(device, power, int8_ckpt, int8_kwargs,
                           float_ckpt, float_kwargs, i8_384_ckpt,
                           i8_384_kwargs)

@@ -18,8 +18,12 @@ observers are not exported, as the JAX CLI leaves its ``quant``
 collection out.  ``--wrap_train_ckpt`` writes the reference's
 {"model", "iteration"} training-checkpoint envelope, which the
 reference's train and eval CLIs read through their ``checkpoint_path``.
-Distillation checkpoints are not ported yet (ROADMAP A8).  ``--device``
-defaults to ``cuda``; without a CUDA device that raises.
+A distillation config (``distiller_config``) exports the student's
+state dict alone, as the JAX CLI does (the reference's distill runs save
+the student): utils/convert.py ``load_reference_checkpoint`` reads the
+student of the trainer's DistillWrapper checkpoint; a distiller in a
+quantized format is not ported yet (ROADMAP A8b).  ``--device`` defaults
+to ``cuda``; without a CUDA device that raises.
 """
 from __future__ import annotations
 
@@ -44,15 +48,16 @@ from myrtle_vision_tpu_torch.utils.export import (
 def export(config, output, wrap_train_ckpt=False, device="cpu"):
     """Write ``output``."""
     train_config = config["train_config"]
-    if "distiller_config" in config:
-        raise NotImplementedError(
-            "distillation checkpoints (distiller_config) are not ported "
-            "yet; see ROADMAP.md A8")
     path = train_config["checkpoint_path"]
     if not path:
         raise ValueError("Must provide a checkpoint path in the config file")
     data_config = parse_config(config["data_config_path"])
     model = ViT(**vit_kwargs_from_config(config, data_config), device=device)
+    if "distiller_config" in config and model.q_format.name != "FP32":
+        raise NotImplementedError(
+            f"distillation checkpoints in q_format {model.q_format.name}: "
+            "the float formats and PyTorchINT8 under a distiller are not "
+            "ported yet; see ROADMAP.md A8b")
     fmt = checkpoint_q_format(path)
     if fmt is not None and fmt != model.q_format.name:
         raise ValueError(f"{path} holds a q_format {fmt} model; the config "

@@ -25,10 +25,18 @@ into the observers, a second pass with the observers frozen is
 differentiated through the INT8 block-half ops); validation runs the
 simulation's eval forward, and the checkpoints carry the observers, so
 that the eval CLI evaluates them and the PTQ CLI calibrates on, converts
-and runs the converted INT8 model.  ``--device`` defaults to ``cuda``;
-without a CUDA device that raises, it never carries on on the CPU.
-Multi-device training and distillation are not ported yet (ROADMAP A9,
-A8).
+and runs the converted INT8 model.  A ``distiller_config`` (the DeiT
+configs, FP32) trains the student ViT inside models/distill.py's
+``DistillWrapper`` (the distillation token and head) against the frozen
+CNN teacher of ``teacher_weights_path`` (a ResNet-50 ``.pth`` that
+``finetune_cnn`` writes), run without gradient once per micro-batch; the
+pretrained backbone, if any, goes into the student; validation gives the
+distillation loss and the plain student's accuracy; the checkpoints hold
+the wrapper's state dict, whose student the eval, PTQ and export CLIs
+read.  A distiller in a quantized format is not ported yet (ROADMAP
+A8b).  ``--device`` defaults to ``cuda``; without a CUDA device that
+raises, it never carries on on the CPU.  Multi-device training is not
+ported yet (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ import torch
 from myrtle_vision_tpu_torch.classification.test import resolve_device
 from myrtle_vision_tpu_torch.data.loader import DataLoader
 from myrtle_vision_tpu_torch.datasets.resisc45 import Resisc45
+from myrtle_vision_tpu_torch.models.distill import DistillWrapper
+from myrtle_vision_tpu_torch.models.resnet import make_teacher_fn
 from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
 from myrtle_vision_tpu_torch.training.classification import (
     make_loss_fn,
@@ -69,17 +79,46 @@ from myrtle_vision_tpu_torch.utils.config import (
 from myrtle_vision_tpu_torch.utils.convert import load_pretrained_backbone
 
 
-def validation(predict_fn, val_loader):
+def validation(predict_fn, val_loader, distill_eval=None):
     """Mean validation loss and accuracy over the batches (reference
-    train.py:29-52)."""
+    train.py:29-52); under a distiller the loss is
+    ``distill_eval(images, labels)``'s (reference train.py:41-44)."""
     total_loss, total_acc, n = 0.0, 0.0, 0
     for batch in val_loader.epoch(0):
         logits = predict_fn(batch["image"])
         labels = batch["label"].long()
-        total_loss += float(cross_entropy_loss(logits, labels))
+        loss = (cross_entropy_loss(logits, labels) if distill_eval is None
+                else distill_eval(batch["image"], labels))
+        total_loss += float(loss)
         total_acc += float((logits.argmax(-1) == labels).float().mean())
         n += 1
     return total_loss / max(n, 1), total_acc / max(n, 1)
+
+
+def build_models(config, data_config, device, generator):
+    """(ViT, DistillWrapper around it or None) from the config (JAX
+    build_models, reference utils/models.py:25-60), the parameters drawn
+    from ``generator``; the teacher comes from :func:`build_teacher`."""
+    vit = ViT(**vit_kwargs_from_config(config, data_config), device=device,
+              generator=generator)
+    if "distiller_config" not in config:
+        return vit, None
+    if vit.q_format.name != "FP32":
+        raise NotImplementedError(
+            f"distillation in q_format {vit.q_format.name}: the float "
+            "formats and PyTorchINT8 under a distiller are not ported yet; "
+            "see ROADMAP.md A8b")
+    dc = config["distiller_config"]
+    return vit, DistillWrapper(vit, temperature=dc["temperature"],
+                               alpha=dc["alpha"], generator=generator)
+
+
+def build_teacher(config, device):
+    """The frozen ResNet-50 teacher of ``distiller_config``'s
+    ``teacher_weights_path`` on ``device`` (models/resnet.py
+    ``make_teacher_fn``)."""
+    return make_teacher_fn(config["distiller_config"]["teacher_weights_path"],
+                           device=device)
 
 
 def build_train(config, device):
@@ -88,13 +127,11 @@ def build_train(config, device):
     (it also fixes the order the train split is read in), the train
     loader shuffled and yielding one optimizer step's images per batch,
     the model initialised from the seed and, when the config names one,
-    the pretrained backbone loaded."""
+    the pretrained backbone loaded.  The model is the module the step
+    trains: the ViT, or under a distiller the DistillWrapper whose
+    ``student`` is the ViT."""
     train_config = config["train_config"]
     data_config = parse_config(config["data_config_path"])
-    if "distiller_config" in config:
-        raise NotImplementedError(
-            "distillation (distiller_config) is not ported yet; see "
-            "ROADMAP.md A8")
     seed = train_config["seed"]
     seed_everything(seed)
 
@@ -123,17 +160,19 @@ def build_train(config, device):
                             seed=seed,
                             drop_last=train_config["drop_last_batch"])
 
-    model = ViT(**vit_kwargs_from_config(config, data_config), device=device,
-                generator=torch.Generator().manual_seed(seed))
-    # Pretrained timm backbone import (reference train.py:137-148)
+    vit, distiller = build_models(config, data_config, device,
+                                  torch.Generator().manual_seed(seed))
+    # Pretrained timm backbone import into the student (reference
+    # train.py:137-148)
     pretrained = train_config.get("pretrained_backbone")
     if pretrained is not None:
         try:
-            load_pretrained_backbone(model, pretrained)
+            load_pretrained_backbone(vit, pretrained)
             print(f"loaded pretrained backbone: {pretrained}")
         except RuntimeError as e:
             print(f"WARNING: pretrained backbone unavailable ({e}); "
                   "training from scratch")
+    model = vit if distiller is None else distiller
     return model, train_loader, val_loader, (batch_size, n_batch_accum)
 
 
@@ -153,9 +192,23 @@ def train(config, device):
 
     state, iteration = prepare_model_and_load_ckpt(
         train_config, TrainState(model, create_optimizer(train_config, model)))
-    train_step = make_train_step(make_loss_fn(model), n_batch_accum,
+    distiller = model if isinstance(model, DistillWrapper) else None
+    distill_eval = None
+    if distiller is not None:
+        vit, teacher_fn = distiller.student, build_teacher(config, device)
+
+        def distill_eval(images, labels):
+            """The validation loss through the distiller (reference
+            train.py:41-44)."""
+            distiller.eval()
+            with torch.inference_mode():
+                return distiller(images, labels, teacher_fn(images))[0]
+    else:
+        vit, teacher_fn = model, None
+    train_step = make_train_step(make_loss_fn(vit, distiller, teacher_fn),
+                                 n_batch_accum,
                                  clip_grad=train_config.get("clip_grad"))
-    predict_fn = make_predict_fn(model)
+    predict_fn = make_predict_fn(vit)
 
     def micro_batches(batch):
         return {k: v.view(n_batch_accum, batch_size, *v.shape[1:])
@@ -176,8 +229,8 @@ def train(config, device):
                 save_checkpoint(state,
                                 f"{output_directory}/vit_{iteration:06}")
             if iteration % iters_per_val == 0:
-                last_val_loss, last_val_acc = validation(predict_fn,
-                                                         val_loader)
+                last_val_loss, last_val_acc = validation(
+                    predict_fn, val_loader, distill_eval)
             metrics = train_step(state, micro_batches(batch), lr)
             iteration = state.iteration
             loss = float(metrics["loss"])

@@ -94,6 +94,13 @@ have no observers to update.  With
 cast to fp32 on use, and snapped again as the JAX model snaps them
 (idempotent).
 
+In FP32, ``forward(img, distill_token=t)`` is the DeiT student
+(models/distill.py): ``t``, (1, 1, dim), goes after every other token
+once the positions are added, so it carries none, the blocks run on the
+longer sequence (198 tokens at 224 px), and the forward returns the
+logits and the token's fp32 embedding after the last block, as the JAX
+ViT does; the quantized formats refuse a token (ROADMAP A8b).
+
 Images are NHWC, as in the JAX package.  ``forward(img, plain=True)``
 runs the plain PyTorch versions on any device, as the reference the
 kernels are checked against.  The patch embedding, the tokens and the
@@ -786,6 +793,7 @@ class ViT(nn.Module):
                 "decreasing your patch size"
             )
         self.decoder_name = decoder
+        self.num_classes = num_classes
         self.num_det_tokens = num_det_tokens
         self.image_size = image_size
         self.patch_size = patch_size
@@ -964,9 +972,17 @@ class ViT(nn.Module):
         return self.pos_embedding_add(x + pos, calibrating)
 
     def forward(self, img, plain: bool = False, calibrating: bool = False,
-                int8_fused: bool = False):
+                int8_fused: bool = False, distill_token=None):
+        """Logits (fp32; a dict for detection); with ``distill_token``
+        (the DeiT student, FP32 only) (logits, the distillation token's
+        fp32 embedding after the last block)."""
         if self.training and (self.dropout or self.emb_dropout):
             raise NotImplementedError(f"active dropout: {_NOT_PORTED}")
+        if distill_token is not None and self.q_format != QFormat.FP32:
+            raise NotImplementedError(
+                f"a distillation token in q_format {self.q_format.name}: "
+                "distillation is ported in FP32 only; the float formats and "
+                "PyTorchINT8 under a distiller are ROADMAP.md A8b")
         if int8_fused and (not self.int8 or self.converted or calibrating):
             raise ValueError(
                 "int8_fused is the second pass of the PyTorchINT8 QAT step: "
@@ -992,10 +1008,20 @@ class ViT(nn.Module):
                 b, self.num_det_tokens, self.dim))
         x = torch.cat(tokens, dim=1)
         x = x + self._positions(h, w).to(dtype)
+        if distill_token is not None:
+            # DeiT: the token after every other one, without a position
+            # (reference distill.py:65-69)
+            x = torch.cat([x, distill_token.to(dtype).expand(b, 1, self.dim)],
+                          dim=1)
         for block in self.transformer.layers:
             x = block(x, plain)
+        if distill_token is not None:
+            x, distill_out = x[:, :-1], x[:, -1]
         out = self.decoder(x)
-        return out if isinstance(out, dict) else out.float()
+        out = out if isinstance(out, dict) else out.float()
+        if distill_token is not None:
+            return out, distill_out.float()
+        return out
 
     def _forward_float(self, img, plain):
         """A stateless float format, simulation or converted: the JAX

@@ -5,7 +5,10 @@ A checkpoint is ``torch.save`` of {"model": the reference-named state
 dict, "optimizer": the optimizer's state dict, "quant": {},
 "lr_scheduler": {...}, "iteration": n}, the envelope the upstream
 reference writes (utils/models.py:113-126), and "q_format", the name of
-the model's format, written atomically.  The
+the model's format, written atomically.  Under a distiller the model is
+the DistillWrapper (models/distill.py), its student's names under
+``student.``, which utils/convert.py ``load_reference_checkpoint`` reads
+back for a plain ViT.  The
 port's eval CLI reads it as it is (utils/convert.py
 ``load_reference_checkpoint``).  The LR schedule is a pure function of
 (config, epoch), so "lr_scheduler" holds metadata only.

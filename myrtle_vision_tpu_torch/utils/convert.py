@@ -98,7 +98,27 @@ def state_dict_from_jax(params_numpy, decoder: str = "classification",
     name: tensor}: fp32
     parameters with torch (out, in) Linear weights; int8 weights with
     their ``weight_scale``; fp16 weights as fp16; ``<site>.min`` and
-    ``<site>.max`` of every observer."""
+    ``<site>.max`` of every observer.
+
+    A JAX ``DistillWrapper`` tree ({student, distillation_token,
+    distill_mlp_norm, distill_mlp_linear}) gives the port wrapper's state
+    dict (models/distill.py): the student's names under ``student.``, the
+    token, the head's LayerNorm and Linear.  The teacher is a torchvision
+    state dict in both packages and is read as it is."""
+    if "student" in params_numpy:
+        sd = {f"student.{name}": t for name, t in state_dict_from_jax(
+            params_numpy["student"], decoder, quant).items()}
+        norm = params_numpy["distill_mlp_norm"]
+        linear = params_numpy["distill_mlp_linear"]
+        for name, arr in (
+                ("distillation_token", params_numpy["distillation_token"]),
+                ("distill_mlp_norm.weight", norm["scale"]),
+                ("distill_mlp_norm.bias", norm["bias"]),
+                ("distill_mlp_linear.weight", np.asarray(linear["kernel"]).T),
+                ("distill_mlp_linear.bias", linear["bias"])):
+            sd[name] = torch.from_numpy(
+                np.ascontiguousarray(arr, dtype=np.float32))
+        return sd
     sd = {}
     for path, name, is_kernel in export._rules(params_numpy, decoder):
         arr = np.asarray(export._get(params_numpy, path))
@@ -133,19 +153,31 @@ def require_torch_file(path):
         )
 
 
+def student_state_dict(sd):
+    """The student's state dict of a distillation wrapper's (its entries
+    under ``student.``), or ``sd`` as it is when it holds no wrapper."""
+    if not any(name.startswith("student.") for name in sd):
+        return sd
+    return {name[len("student."):]: t for name, t in sd.items()
+            if name.startswith("student.")}
+
+
 def load_reference_checkpoint(path):
     """Read the ``.pth`` that classification/export_checkpoint.py writes:
     a plain state dict or the reference's ``{"model": state_dict,
     "iteration": n, ...}`` envelope, which the port's trainer and its
     converted checkpoints write (utils/checkpoint.py).  The converted
-    storage comes back as it is (int8, fp16), other tensors fp32.  A flax
-    msgpack training checkpoint is refused: export it first."""
+    storage comes back as it is (int8, fp16), other tensors fp32.  A
+    distillation training checkpoint gives its student's state dict, as
+    the JAX package's ``load_checkpoint`` reads a DistillWrapper tree into
+    a plain ViT (the reference's distill runs save the student alone).  A
+    flax msgpack training checkpoint is refused: export it first."""
     require_torch_file(path)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj.get("model"), dict):
         obj = obj["model"]
     return {name: t if t.dtype in (torch.int8, torch.float16) else t.float()
-            for name, t in obj.items()}
+            for name, t in student_state_dict(obj).items()}
 
 
 def checkpoint_q_format(path):

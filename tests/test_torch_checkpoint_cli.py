@@ -247,13 +247,15 @@ def test_import_gives_the_jax_import_logits(decoder, q_format, layout,
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """Export of a distillation config names ROADMAP A8; an import that
-    finds under half of the parameters raises; without a card both CLIs
-    raise."""
-    config, cfg = write_config(tmp_path, "segmentation", "FP32")
+    """Export of a distillation config in a quantized format names
+    ROADMAP A8b; an import that finds under half of the parameters
+    raises; without a card both CLIs raise."""
+    config, _ = write_config(tmp_path, "classification", "FP16_32",
+                             str(tmp_path / "deit_ckpt"))
     config["distiller_config"] = {"temperature": 1.0, "alpha": 0.5}
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A8b"):
         export_checkpoint.export(config, str(tmp_path / "x.pth"))
+    config, cfg = write_config(tmp_path, "segmentation", "FP32")
     torch.save({"linear.weight": torch.zeros(5, 64)},
                str(tmp_path / "odd.pth"))
     with pytest.raises(ValueError, match="unrecognized checkpoint layout"):

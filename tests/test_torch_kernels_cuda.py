@@ -92,12 +92,14 @@ def block(c, hid, b, n, seed, dev):
 
 
 # (C, heads, hidden, B, N): head widths 32 and 64, sequences shorter than
-# a head (N < D), ragged against the 16-row tiles, ViT-S/16, and the
-# widths of ViT-Ti/16 and ViT-B/16 (classification/train_configs/
+# a head (N < D), ragged against the 16-row tiles, ViT-S/16, the DeiT-S
+# student (the distillation token makes 198 tokens), and the widths of
+# ViT-Ti/16 and ViT-B/16 (classification/train_configs/
 # vit_{tiny,base}.json)
 SHAPES = [(64, 2, 128, 3, 17), (64, 2, 128, 3, 50), (128, 2, 256, 3, 17),
           (128, 2, 256, 2, 37), (384, 6, 1536, 4, 197),
-          (192, 3, 768, 2, 197), (768, 12, 3072, 2, 197)]
+          (384, 6, 1536, 4, 198), (192, 3, 768, 2, 197),
+          (768, 12, 3072, 2, 197)]
 
 
 @pytest.mark.parametrize("c,heads,hid,b,n", SHAPES)
@@ -2673,3 +2675,86 @@ def test_f32_long_core_int8_forced_agrees_with_one_cta(dev, n, d):
     close_sites(long[0], short[0], step_of(site))
     close(long[1], short[1])
     close(long[2], short[2])
+
+
+# ------------------------------------------------ distillation (DeiT)
+# The teacher's convolutions run in fp32 without TF32 on the card, so its
+# logits are the CPU's up to fp32 roundoff (cuDNN's and the CPU's sums
+# ordered differently): 1e-4 of the largest logit; TF32 would be ~1e-3.
+TEACHER_BAR = 1e-4
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnet50", "mnasnet1_0",
+                                  "mobilenet_v2", "shufflenet_v2_x1_0",
+                                  "squeezenet1_0", "squeezenet1_1"])
+def test_cnn_on_the_card_matches_the_cpu(dev, arch, tmp_path):
+    from myrtle_vision_tpu_torch.models.cnn import (
+        apply_any_torch_sd,
+        random_any_state_dict,
+    )
+    from myrtle_vision_tpu_torch.models.resnet import make_teacher_fn
+
+    sd = {k: torch.as_tensor(v) for k, v in
+          random_any_state_dict(arch, 45, seed=1).items()}
+    img = torch.from_numpy(np.random.RandomState(2).uniform(
+        -1, 1, (4, 224, 224, 3)).astype(np.float32))
+    params = {k: v.float() for k, v in sd.items()
+              if not k.endswith("num_batches_tracked")}
+    ref = apply_any_torch_sd(params, img, arch)
+    got = apply_any_torch_sd({k: v.to(dev) for k, v in params.items()},
+                             img.to(dev), arch)
+    bar = TEACHER_BAR * float(ref.abs().max())
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=bar)
+    if arch.startswith("resnet"):
+        path = str(tmp_path / "teacher.pth")
+        torch.save(sd, path)
+        teacher = make_teacher_fn(path, arch, device=dev)
+        torch.testing.assert_close(teacher(img.to(dev)).cpu(), ref, rtol=0,
+                                   atol=bar)
+
+
+def test_distilled_student_trains_through_the_kernels(dev, tmp_path):
+    """The DeiT wrapper's loss and gradients through the fused chains
+    (N = 37 + the distillation token) against the plain path, the
+    launches one op per block, forward and backward."""
+    from myrtle_vision_tpu_torch.models.distill import DistillWrapper
+    from myrtle_vision_tpu_torch.models.resnet import (
+        make_teacher_fn,
+        random_state_dict,
+    )
+
+    path = str(tmp_path / "teacher.pth")
+    torch.save({k: torch.as_tensor(v) for k, v in
+                random_state_dict("resnet50", 7).items()}, path)
+    teacher = make_teacher_fn(path, device=dev)
+    kw = dict(decoder="classification", image_size=96, patch_size=16,
+              num_classes=7, dim=128, depth=3, heads=2, mlp_dim=256)
+    model = DistillWrapper(ViT(**kw, device=dev), temperature=3.0)
+    img = torch.from_numpy(
+        np.random.RandomState(4).uniform(-1, 1, (4, 96, 96, 3)).astype(
+            np.float32)).to(dev)
+    labels = torch.tensor([0, 3, 6, 2], device=dev)
+    runs = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        before = (fused_attention_block.launches, fused_mlp_block.launches,
+                  fused_attention_block.bwd_launches,
+                  fused_mlp_block.bwd_launches)
+        loss, _ = model(img, labels, teacher(img), plain=plain)
+        loss.backward()
+        after = (fused_attention_block.launches, fused_mlp_block.launches,
+                 fused_attention_block.bwd_launches,
+                 fused_mlp_block.bwd_launches)
+        assert tuple(a - b for a, b in zip(after, before)) == \
+            ((0,) * 4 if plain else (3,) * 4)
+        runs.append((loss.item(), {n: p.grad.clone() for n, p in
+                                   model.named_parameters()
+                                   if p.grad is not None}))
+    (k_loss, k_grads), (p_loss, p_grads) = runs
+    assert abs(k_loss - p_loss) <= 2.0 ** -6 * max(1.0, abs(p_loss))
+    for name, ref in p_grads.items():
+        got = k_grads[name]
+        assert torch.isfinite(got).all(), name
+        torch.testing.assert_close(
+            got, ref, rtol=2.0 ** -4,
+            atol=2.0 ** -4 * max(float(ref.abs().max()), 1e-3), msg=name)

@@ -464,9 +464,10 @@ def test_build_train_repeats_the_cli_first_step(synth, capsys):
 
 def test_unported_options_raise(synth):
     cfg, config = _write_config(synth, "distill")
+    config["vit_config"]["q_format"] = "FP16_32"
     config["distiller_config"] = {"temperature": 1.0, "alpha": 0.5,
                                   "teacher_weights_path": "x.pth"}
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A8b"):
         train_cli.train(config, torch.device("cpu"))
     model = ViT(**{**KW, "dropout": 0.1}).train()
     with pytest.raises(NotImplementedError, match="dropout"):
