@@ -38,6 +38,15 @@ Phases, each ending in one line of output:
               = 257, 357, 677, 701, head widths 64 and 32, B = 2 and 8, in
               each format with and without the statistics, and forced at
               B=64, N=197 against the one-CTA kernels
+  3a. kernels-f32  float32 compute (compute_dtype float32): the fp32 flash
+              forward (K5 / K6 on fp32 operands, csrc/flash_attention_f32_
+              fwd.cu) and backward (K7 / K8, csrc/flash_attention_f32_
+              bwd.cu) against their plain versions at YOLOS-S's 800 px
+              (8, 6, 2601, 64) and 608 px (2, 6, 1545, 64) shapes, ViT-S/16's
+              (64, 6, 197, 64) and a ragged masked case, one and three
+              launches a call; the fp32 K1-K4 route (the qspec chains with a
+              site table that snaps nothing) forward and backward against
+              the plain chains' true fp32 at B=64, N=197 and B=4, N=677
   3b. probes the probes of the port's kernels, K12-K14
               (myrtle_vision_tpu_torch/perf/): every K12 attention-core
               mode and K13 GELU mode in its block chain, and every K14
@@ -162,6 +171,23 @@ Phases, each ending in one line of output:
               export CLI's student file through the eval CLI again (the same
               logits bit for bit); a timing line (the distilled step at 2 x
               32, the teacher's share of it, a profile with the idle share)
+  8f. fp32    float32 compute through the CLIs at full width: the ViT-S/16
+              train CLI (vit_small.json, compute_dtype float32) for 3 steps
+              of 2 x 32 through the fused fp32 route, the first step kernel
+              vs plain, the eval CLI on its checkpoint; the same train CLI
+              under MVT_NO_FUSE=1 (the discrete Blocks, the fp32 flash K5 /
+              K8, launches counted), its first step kernel vs plain;
+              YOLOS-S (yolos_small.json, float32 compute): the 800 px
+              forward (K6 on fp32) and the first 2 x 2 step at 608 px (K6 /
+              K7) and 384 px (the long fp32 core), kernel vs plain
+  8g. remainder  the port's visualize_attention CLI on phase fp32's and
+              phase main's ViT-S/16 checkpoints (a PNG per head and the
+              mean, each layer's probabilities, no kernel launched); the
+              ViT-S/16 train CLI with dropout and emb_dropout 0.1 for 4
+              steps (the Blocks discrete: bf16 flash launches counted) with
+              MVT_PROFILE_DIR set (a Chrome trace of steps 3-5 holding the
+              card's kernels); the scalars the detection and segmentation
+              train CLIs logged (runs/scalars.jsonl)
   9. timing   CUDA-event times at batch 256: each kernel, forward and
               backward (also the profiler's device time, kernel by
               kernel), and each chain against its plain version and,
@@ -187,7 +213,13 @@ Phases, each ending in one line of output:
               INT8 QAT step (B=256 or the largest half that fits: peak
               memory, the passes apart, a profile) and converted forward,
               and the YOLOS-S INT8 QAT step at 608 and 384 px and its 800
-              px forward at batch 8, each with a device profile
+              px forward at batch 8, each with a device profile; the fp32
+              flash kernels at K5-K8's shapes beside fp32 SDPA and its
+              backward, the fp32 K1-K4 route per ViT-S/16 block at B=256
+              beside F.layer_norm, cuBLAS fp32 products and fp32 SDPA, the
+              ViT-S/16 float32 step at B=256 (fused and under
+              MVT_NO_FUSE=1), the YOLOS-S float32 800 px forward and its
+              608 / 384 px steps, with device profiles
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -5750,6 +5782,728 @@ def time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs):
     time_yolos_forward(model, "PyTorchINT8 ", {}, device, power)
 
 
+# ------------------------------------------------------------ fp32 compute
+#
+# compute_dtype float32 (phases kernels-f32, fp32 and remainder).  The fp32
+# flash kernels take true fp32 products (SIMT FFMA), as their plain
+# versions do, so the two differ by the order of fp32 operations alone:
+# bar per element 2^-14 of |plain| plus 2^-14 of the largest |plain| (the
+# output and the LSE), 2^-12 of the largest for dq, dk and dv.  The fp32
+# K1-K4 route runs the qspec chains' kernels snapping nothing, whose 3-pass
+# bf16 products lose about 2^-16 of each product against the plain chains'
+# true fp32: 2^-10 of |plain| plus 2^-10 of the largest for the outputs and
+# dx, 2^-8 of the largest for the parameter gradients (sums over the B N
+# rows).  tests/test_torch_kernels_cuda.py holds the same bars.
+F32_FLASH_RTOL = 2.0 ** -14
+F32_FLASH_ATOL = 2.0 ** -14
+F32_FLASH_GRAD_ATOL = 2.0 ** -12
+F32_CHAIN_RTOL = 2.0 ** -10
+F32_CHAIN_ATOL = 2.0 ** -10
+F32_CHAIN_SUM_ATOL = 2.0 ** -8
+# fp32 flash cases (B, H, N, D, n_valid, tag): YOLOS-S's 800 px eval (K6),
+# ViT-S/16 under MVT_NO_FUSE=1 (K5), a ragged case with masked keys; the
+# backward at YOLOS-S's 608 px step (K7) and ViT-S/16 (K8)
+F32_FLASH_CASES = [(8, 6, 2601, 64, None, "K6 regime, 800 px"),
+                   (64, 6, 197, 64, None, "K5 regime, ViT-S/16"),
+                   (3, 2, 50, 32, 40, "ragged, n_valid 40")]
+F32_FLASH_BWD_CASES = [(2, 6, 1545, 64, None, "K7 regime, 608 px"),
+                       (64, 6, 197, 64, None, "K8 regime, ViT-S/16"),
+                       (3, 2, 50, 32, 40, "ragged, n_valid 40")]
+# the fp32 K1-K4 route's cases (B, N, tag): ViT-S/16, and YOLOS-S at 384
+# px, the long fp32 core
+F32_CHAIN_CASES = ((64, N, "ViT-S/16"), (4, 677, "YOLOS-S 384 px"))
+F32_KERNELS = {
+    "flash_attention_f32_fwd": (CSRC + "flash_attention_f32_fwd.cu",
+                                f"{TPU_FLASH} (fp32)"),
+    "flash_attention_f32_bwd": (CSRC + "flash_attention_f32_bwd.cu",
+                                f"{TPU_FLASH_BWD} (fp32)"),
+}
+# the fp32 K1-K4 route in the kernels line: (its sources, the TPU kernel
+# it replaces, its TPU chain's name)
+F32_ROUTE = {
+    "fused_attention_block[fp32]": (
+        f"{_Q_SRC}; {CSRC}attention_core_f32_long_wgmma.cu",
+        f"{TPU_ATTN} (fp32)", "K1 fp32"),
+    "fused_attention_block[fp32,bwd]": (
+        f"{_Q_BWD_SRC}; {CSRC}attention_core_f32_bwd_long_wgmma.cu",
+        f"{TPU_ATTN_BWD} (fp32)", "K2 fp32"),
+    "fused_mlp_block[fp32]": (
+        f"{CSRC}layernorm_snap_rows.cu; {CSRC}gemm_f32x3_wgmma.cu",
+        f"{TPU_MLP} (fp32)", "K3 fp32"),
+    "fused_mlp_block[fp32,bwd]": (
+        _Q_BWD_SRC.replace(f"{CSRC}attention_core_f32_bwd_wgmma.cu; ", ""),
+        f"{TPU_MLP_BWD} (fp32)", "K4 fp32"),
+}
+# the fp32 chain's kernels, and the bf16 chain's, which an fp32 step must
+# not launch
+F32_CHAIN_KERNELS = ("layernorm_snap_rows", "gemm_f32x3_epilogue",
+                     "layernorm_snap_rows_bwd", "colsum_rows")
+BF16_CHAIN_KERNELS = ("layernorm_rows", "gemm_bf16_epilogue",
+                      "attention_core", "attention_core_bwd",
+                      "layernorm_rows_bwd")
+# the classifier's train CLI runs of these phases: images of the train
+# split (the epoch's depth cut; widths as the config): 3 steps of 64 in
+# fp32, 4 with dropout (the profiler's window starts at step 3)
+F32_TRAIN_IMAGES = 192
+DROPOUT_TRAIN_IMAGES = 256
+DROPOUT = 0.1
+
+
+def f32_close(label, got, ref, rtol, atol_share):
+    """:func:`compare` of fp32 against fp32, the atol a share of the
+    largest |ref| (at least 1)."""
+    return compare(label, got, ref, rtol,
+                   atol_share * max(1.0, ref.abs().max().item()))
+
+
+def f32_views(b, n, h, d, seed, device):
+    """fp32 q, k, v: (B, H, N, D) views of fused (B, N, 3 H D) qkv rows,
+    std 1, from a numpy seed, as the discrete Block hands them over."""
+    rng = np.random.RandomState(seed)
+    rows = seeded(rng, (b, n, 3 * h * d), 1.0, device)
+    return list(rows.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
+
+
+def leaf_grads(fn, x, params, extra, do):
+    """Every input's gradient of ``fn(x, *params, *extra)`` under the
+    output gradient ``do``."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *params)]
+    fn(*leaves, *extra).backward(do)
+    torch.cuda.synchronize()
+    return [t.grad for t in leaves]
+
+
+def phase_kernels_f32(device):
+    """The fp32 flash kernels (K5 / K6 forward, K7 / K8 backward) against
+    their plain versions at :data:`F32_FLASH_CASES` and
+    :data:`F32_FLASH_BWD_CASES`, one and three launches a call, and the
+    fp32 K1-K4 route (the qspec chains with no snap) against the plain
+    chains' true fp32 at :data:`F32_CHAIN_CASES`, forward and backward;
+    returns the largest max abs of each kernels-line entry."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
+    from myrtle_vision_tpu_torch.ops import fused_mlp as fm
+    from myrtle_vision_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+
+    errors = dict.fromkeys(list(F32_KERNELS) + list(F32_ROUTE), 0.0)
+    for b, h, n, d, n_valid, tag in F32_FLASH_CASES:
+        q, k, v = f32_views(b, n, h, d, 22000 + n, device)
+        reset_counts()
+        got = K.flash_attention_f32_fwd_cuda(q, k, v, d ** -0.5, n_valid,
+                                             lse=True)
+        launched = read_counts()[0]["flash_attention_f32_fwd"]
+        ref = flash_attention_plain(q, k, v, d ** -0.5, n_valid, lse=True)
+        res = [f32_close(f"flash_attention_f32_fwd {tag} {part}", g, r,
+                         F32_FLASH_RTOL, F32_FLASH_ATOL)
+               for g, r, part in zip(got, ref, ("output", "LSE"))]
+        check(launched == 1, f"flash_attention_f32_fwd: {launched} launches")
+        errors["flash_attention_f32_fwd"] = max(
+            errors["flash_attention_f32_fwd"], *(m for m, _ in res))
+        print(f"kernels: flash_attention_f32_fwd B={b} H={h} N={n} D={d} "
+              f"n_valid={n_valid or n} ({tag}) max_abs "
+              f"{max(m for m, _ in res):.6g}, {max(s for _, s in res):.4f} "
+              f"of the fp32 flash bar (output, LSE)")
+        del q, k, v, got, ref
+    for b, h, n, d, n_valid, tag in F32_FLASH_BWD_CASES:
+        q, k, v = f32_views(b, n, h, d, 23000 + n, device)
+        do = seeded(np.random.RandomState(n), (b, h, n, d), 1.0, device)
+        sc = d ** -0.5
+        o, lse = K.flash_attention_f32_fwd_cuda(q, k, v, sc, n_valid,
+                                                lse=True)
+        reset_counts()
+        got = K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse, sc,
+                                             n_valid)
+        launched = read_counts()[0]["flash_attention_f32_bwd"]
+        ref = flash_attention_bwd_plain(q, k, v, o, do, lse, sc, n_valid)
+        res = [f32_close(f"flash_attention_f32_bwd {tag} {part}", g, r,
+                         F32_FLASH_RTOL, F32_FLASH_GRAD_ATOL)
+               for g, r, part in zip(got, ref, ("dq", "dk", "dv"))]
+        check(launched == 3, f"flash_attention_f32_bwd: {launched} launches")
+        errors["flash_attention_f32_bwd"] = max(
+            errors["flash_attention_f32_bwd"], *(m for m, _ in res))
+        print(f"kernels: flash_attention_f32_bwd B={b} H={h} N={n} D={d} "
+              f"n_valid={n_valid or n} ({tag}), both from the kernel "
+              f"forward's o and LSE: max_abs {max(m for m, _ in res):.6g}, "
+              f"{max(s for _, s in res):.4f} of the fp32 flash bar (dq, dk, "
+              "dv)")
+        del q, k, v, do, o, lse, got, ref
+    for b, n, tag in F32_CHAIN_CASES:
+        x, attn, mlp, do = block_inputs(b, n, 24000 + n, device)
+        x, do = x.float(), do.float()
+        for op, plain, params, extra, name in (
+                (fa.fused_attention_block, fa.fused_attention_block_plain,
+                 attn, (HEADS, SCALE), "fused_attention_block[fp32]"),
+                (fm.fused_mlp_block, fm.fused_mlp_block_plain, mlp, (),
+                 "fused_mlp_block[fp32]")):
+            reset_counts()
+            got = op(x, *params, *extra)
+            grads = leaf_grads(op, x, params, extra, do)
+            launched = {k: v for k, v in read_counts()[0].items() if v}
+            check(not any(k in launched for k in BF16_CHAIN_KERNELS)
+                  and all(launched.get(k, 0) > 0 for k in F32_CHAIN_KERNELS),
+                  f"{name} {tag}: launches {launched}")
+            fwd = f32_close(f"{name} {tag}", got,
+                            plain(x, *params, *extra), F32_CHAIN_RTOL,
+                            F32_CHAIN_ATOL)
+            ref = leaf_grads(plain, x, params, extra, do)
+            bwd = [f32_close(f"{name} {tag} d{i}", g, r, F32_CHAIN_RTOL,
+                             F32_CHAIN_ATOL if i == 0 else F32_CHAIN_SUM_ATOL)
+                   for i, (g, r) in enumerate(zip(grads, ref))]
+            bname = name.replace("]", ",bwd]")
+            errors[name] = max(errors[name], fwd[0])
+            errors[bname] = max(errors[bname], *(m for m, _ in bwd))
+            print(f"kernels: {name} B={b} N={n} ({tag}) forward max_abs "
+                  f"{fwd[0]:.6g} ({fwd[1]:.4f} of the fp32 chain bar), "
+                  f"backward max_abs {max(m for m, _ in bwd):.6g} "
+                  f"({max(s for _, s in bwd):.4f} of its bars: dx, then the "
+                  f"parameters); launches of a forward and a backward "
+                  f"{launched}")
+        del x, attn, mlp, do
+    return errors
+
+
+def f32_config(config):
+    """A config with float32 compute (``vit_config.compute_dtype``)."""
+    config["vit_config"]["compute_dtype"] = "float32"
+    return config
+
+
+def subset_data_config(data_config, images, name):
+    """The data config with its train split cut to the first ``images``
+    images (the epoch's depth; every width stays), written beside it."""
+    root = data_config["dataset_path"]
+    with open(os.path.join(root, data_config["train_files"])) as f:
+        lines = f.read().split()
+    split = f"{name}_train_imagepaths.txt"
+    with open(os.path.join(root, split), "w") as f:
+        f.write("\n".join(lines[:images]) + "\n")
+    return write_json(f"{name}_data_config.json",
+                      dict(data_config, train_files=split))
+
+
+def run_train_cli(config, name, tag):
+    """The classification train CLI on ``config``; returns (state, its
+    printed losses, kernel launches, op launches, seconds, run dir)."""
+    from myrtle_vision_tpu_torch.classification import train as train_cli
+
+    cfg = write_json(f"{name}.json", config)
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "WARNING", "[profiler]")):
+            print(f"{tag}: {line}")
+    losses = [float(v) for v in
+              re.findall(r"Iteration \d+:\tloss=(\S+)\tacc=", text)]
+    check(len(losses) == state.iteration >= 2
+          and all(math.isfinite(v) for v in losses),
+          f"{tag}: {state.iteration} steps, losses {losses}")
+    run_dir = sorted(glob.glob(
+        config["train_config"]["output_directory"] + "_*"))[-1]
+    return state, losses, launches, ops, took, run_dir
+
+
+def f32_step_launches(n_tok, n_accum, depth):
+    """The attention kernels' launches of one fp32 YOLOS-S train step at
+    ``n_tok`` tokens: per block and micro-batch, fused, the fp32 core (two
+    kernels above 256 tokens) and its backward (four there); past the gate
+    one fp32 flash forward and one backward (three kernels)."""
+    from myrtle_vision_tpu_torch.ops.fused_attention_block import fuses_at
+
+    blocks = depth * n_accum
+    want = dict.fromkeys(("attention_core_f32", "attention_core_f32_bwd",
+                          "attention_core_f32_long",
+                          "attention_core_f32_bwd_long",
+                          "flash_attention_f32_fwd",
+                          "flash_attention_f32_bwd"), 0)
+    if not fuses_at(n_tok, HEADS, C // HEADS):
+        want.update(flash_attention_f32_fwd=blocks,
+                    flash_attention_f32_bwd=3 * blocks)
+    elif n_tok > 256:
+        want.update(attention_core_f32_long=2 * blocks,
+                    attention_core_f32_bwd_long=4 * blocks)
+    else:
+        want.update(attention_core_f32=blocks,
+                    attention_core_f32_bwd=blocks)
+    return want
+
+
+def phase_fp32(device, data_config, det_data):
+    """compute_dtype float32 on the card, every width as configured:
+    (a) ViT-S/16 (vit_small.json with float32 compute): the train CLI for
+    3 steps of 2 x 32 through the fused fp32 K1-K4 route (launches of
+    both ops, forward and backward; no bf16 chain kernel), the first step
+    kernel vs plain, the last checkpoint through the eval CLI; (b) the
+    same under MVT_NO_FUSE=1: the discrete Blocks, the fp32 flash K5 / K8
+    (launches counted), the first step kernel vs plain; (c) YOLOS-S
+    (yolos_small.json with float32 compute, random weights): the 800 px
+    forward at B=2 (2601 tokens: K6 on fp32) kernel vs plain, and the first
+    train step (2 x 2) at 608 px (1545 tokens: K6 and K7 on fp32) and 384
+    px (677 tokens: the fused route through the long fp32 core) kernel vs
+    plain.  Returns ({kernels-line name: launches}, the fp32 checkpoint
+    and its config)."""
+    from myrtle_vision_tpu_torch.classification import test as eval_cli
+    from myrtle_vision_tpu_torch.classification import train as train_cli
+    from myrtle_vision_tpu_torch.models.detector import build_weight_dict
+    from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
+
+    t_phase = time.perf_counter()
+    config = f32_config(vit_small_config())
+    depth = config["vit_config"]["depth"]
+    tc = config["train_config"]
+    tc.update(checkpoint_path="", epochs=1, warmup_epochs=0,
+              pretrained_backbone=None, iters_per_checkpoint=100,
+              iters_per_val=100)
+    config["data_config_path"] = subset_data_config(
+        data_config, F32_TRAIN_IMAGES, "fp32")
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, train_loader, val_loader, (micro, n_accum) = \
+            train_cli.build_train(config, device)
+    val_batches = len(val_loader)
+    runs = {}
+
+    # (a) the fused route
+    tc["output_directory"] = os.path.join(WORK, "fp32_train")
+    state, losses, launches, ops, took, run_dir = run_train_cli(
+        config, "vit_small_fp32_train", "fp32")
+    steps = state.iteration
+    bwd = depth * n_accum * steps
+    fwd = bwd + depth * val_batches
+    print(f"fp32: ViT-S/16 train CLI with float32 compute, {steps} steps of "
+          f"{n_accum} x {micro} and a validation of {val_batches} batches in "
+          f"{took:.1f} s: op launches {ops}, expected ({fwd}, {bwd}) each; "
+          f"kernels {launches}")
+    for op in ("fused_attention_block", "fused_mlp_block"):
+        check(ops[op] == (fwd, bwd), f"fp32: {op} launches {ops[op]}")
+    check(not any(launches[k] for k in BF16_CHAIN_KERNELS)
+          and all(launches[k] > 0 for k in F32_CHAIN_KERNELS
+                  + ("attention_core_f32", "attention_core_f32_bwd")),
+          f"fp32: kernels {launches}")
+    runs.update({"fused_attention_block[fp32]": ops["fused_attention_block"][0],
+                 "fused_attention_block[fp32,bwd]":
+                     ops["fused_attention_block"][1],
+                 "fused_mlp_block[fp32]": ops["fused_mlp_block"][0],
+                 "fused_mlp_block[fp32,bwd]": ops["fused_mlp_block"][1]})
+    first_step_check(model, train_loader, os.path.join(run_dir, "vit_000000"),
+                     n_accum, micro, losses[0], tag="fp32")
+    ckpt = os.path.join(run_dir, f"vit_{steps:06}")
+    eval_config = json.loads(json.dumps(config))
+    eval_config["train_config"]["checkpoint_path"] = ckpt
+    cfg = write_json("vit_small_fp32_eval.json", eval_config)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gts, preds, logits = eval_cli.main(["-c", cfg, "--device", "cuda"])
+    launches_eval, ops_eval = read_counts()
+    batches = math.ceil(len(gts) / tc["local_batch_size"])
+    print(f"fp32: {os.path.basename(ckpt)} through the eval CLI: {len(gts)} "
+          f"test images, accuracy {float(np.mean(gts == preds)):.4f}, op "
+          f"launches {ops_eval}")
+    check(bool(torch.isfinite(logits).all())
+          and ops_eval["fused_attention_block"] == (depth * batches, 0)
+          and not any(launches_eval[k] for k in BF16_CHAIN_KERNELS),
+          f"fp32: eval launches {ops_eval}, {launches_eval}")
+
+    # (b) MVT_NO_FUSE=1: the discrete Blocks, the fp32 flash kernels
+    tc["output_directory"] = os.path.join(WORK, "fp32_nofuse_train")
+    os.environ["MVT_NO_FUSE"] = "1"
+    try:
+        state, losses, launches, ops, took, run_dir = run_train_cli(
+            config, "vit_small_fp32_nofuse_train", "fp32-nofuse")
+        steps = state.iteration
+        want = {"flash_attention_f32_fwd":
+                depth * (n_accum * steps + val_batches),
+                "flash_attention_f32_bwd": 3 * depth * n_accum * steps}
+        got = {k: launches[k] for k in want}
+        print(f"fp32-nofuse: ViT-S/16 train CLI under MVT_NO_FUSE=1, {steps} "
+              f"steps in {took:.1f} s: fp32 flash launches {got}, expected "
+              f"{want}; op launches {ops}; kernels "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        check(got == want and not any(v != (0, 0) for v in ops.values())
+              and not any(launches[k] for k in
+                          BF16_CHAIN_KERNELS + F32_CHAIN_KERNELS),
+              "fp32-nofuse: launches")
+        for name in want:
+            runs[name] = launches[name]
+        first_step_check(model, train_loader,
+                         os.path.join(run_dir, "vit_000000"), n_accum, micro,
+                         losses[0], tag="fp32-nofuse")
+    finally:
+        del os.environ["MVT_NO_FUSE"]
+    del model, train_loader, val_loader
+
+    # (c) YOLOS-S in fp32: the 800 px forward, the 608 / 384 px steps
+    det_config, _ = det_data
+    ycfg = f32_config(yolos_small_config())
+    ytc = ycfg["train_config"]
+    ydepth = ycfg["vit_config"]["depth"]
+    yolos = ViT(**vit_kwargs_from_config(ycfg, det_config), device=device,
+                generator=torch.Generator().manual_seed(22))
+    batch = forced_batch(det_config, 800, yolos.num_det_tokens, count=2)
+    imgs = torch.from_numpy(batch["image"]).to(device)
+    n_tok = tokens_of(*imgs.shape[1:3])
+    yolos.eval()
+    reset_counts()
+    with torch.inference_mode():
+        out = yolos(imgs)
+        launched = read_counts()[0]["flash_attention_f32_fwd"]
+        ref = yolos(imgs, plain=True)
+    res = {k: f32_close(f"fp32: YOLOS-S 800 px {k}", out[k], ref[k],
+                        F32_CHAIN_RTOL, F32_CHAIN_ATOL)
+           for k in ("pred_logits", "pred_boxes")}
+    print(f"fp32: YOLOS-S forward at 800 px ({n_tok} tokens, B=2), kernel vs "
+          f"plain: " + ", ".join(f"{k} max_abs {m:.6g} ({s:.4f} of the fp32 "
+                                 "chain bar)" for k, (m, s) in res.items())
+          + f"; flash_attention_f32_fwd {launched} launches")
+    check(n_tok == 2601 and launched == ydepth,
+          f"fp32: the 800 px forward launched {launched}")
+    runs["flash_attention_f32_fwd"] += launched
+    yolos.train()
+    steps = forced_step_check(
+        yolos, det_config, det_config["number_of_classes"],
+        build_weight_dict(ytc), ytc["eos_coef"], 2, 2, device,
+        canvases=((608, "discrete, fp32 flash K6 / K7"),
+                  (384, "fused, the long fp32 core")),
+        expect=f32_step_launches, phase="fp32")
+    for name in ("flash_attention_f32_fwd", "flash_attention_f32_bwd"):
+        runs[name] += sum(s[name] for s in steps.values())
+    check(steps[608]["flash_attention_f32_bwd"] > 0
+          and steps[384]["attention_core_f32_bwd_long"] > 0
+          and all(steps[384][k] > 0 for k in F32_CHAIN_KERNELS)
+          and not any(steps[384][k] for k in BF16_CHAIN_KERNELS),
+          "fp32: the YOLOS-S steps missed a route")
+    print(f"fp32: phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"launches of the fp32 paths {runs}")
+    return runs, ckpt, eval_config
+
+
+def scalar_lines(offset):
+    """The ``runs/scalars.jsonl`` lines the train CLIs appended past
+    ``offset`` (their ScalarLogger's file without TensorBoard), or None
+    where TensorBoard wrote event files instead."""
+    path = os.path.join("runs", "scalars.jsonl")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return [json.loads(line) for line in f.readlines()[offset:]]
+
+
+def phase_remainder(device, data_config, data_cfg, f32_ckpt, f32_config_,
+                    scalar_offset):
+    """(d) attention capture: the port's visualize_attention CLI on one
+    test image from phase fp32's ViT-S/16 checkpoint (float32 compute) and
+    from phase main's (bf16 compute): a PNG per head and the mean, each
+    layer's probabilities (B, 6, 197, 197) in depth order with rows
+    summing to 1, no kernel launched (every Block discrete, the xla core);
+    (e) active dropout: the ViT-S/16 train CLI (bf16 compute) with dropout
+    and emb_dropout 0.1 for 4 steps of 2 x 32: the Blocks discrete through
+    the bf16 flash kernels (launches counted), no fused op in the steps,
+    finite losses; (f) that run with MVT_PROFILE_DIR set leaves a Chrome
+    trace with the card's kernels in it, and the detection and segmentation
+    train CLIs of the earlier phases have logged their scalars."""
+    from myrtle_vision_tpu_torch.classification import (
+        visualize_attention as vis_cli,
+    )
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(data_config["dataset_path"],
+                           data_config["test_files"])) as f:
+        image = os.path.join(data_config["dataset_path"], f.read().split()[0])
+    bf16_config = vit_small_config()
+    bf16_config["data_config_path"] = data_cfg
+    bf16_config["train_config"]["checkpoint_path"] = os.path.join(
+        WORK, "vit_small_seed0.pth")
+    for name, config in (("float32", f32_config_), ("bfloat16", bf16_config)):
+        cfg = write_json(f"visualize_{name}.json", config)
+        out_dir = os.path.join(WORK, f"attention_{name}")
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cls_attn = vis_cli.main(["-c", cfg, "--image", image,
+                                     "--output_dir", out_dir, "--device",
+                                     "cuda"])
+        launches, ops = read_counts()
+        _, maps = vis_cli.attention_maps(config, image, device)
+        pngs = sorted(os.listdir(out_dir))
+        sums = np.concatenate([m.sum(-1).ravel() for m in maps])
+        print(f"remainder: visualize_attention CLI ({name} compute) in "
+              f"{time.perf_counter() - t0:.1f} s: {pngs}; {len(maps)} layers "
+              f"of {maps[0].shape} probabilities, row sums within "
+              f"{np.abs(sums - 1).max():.3g} of 1; CLS attention over the "
+              f"patches {cls_attn.shape}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        check(pngs == [f"layer-1_head{h}.png" for h in range(HEADS)]
+              + ["layer-1_mean.png"], f"remainder: PNGs {pngs}")
+        check(len(maps) == config["vit_config"]["depth"]
+              and maps[0].shape == (HEADS, N, N)
+              and np.abs(sums - 1).max() <= 1e-4
+              and all(np.isfinite(m).all() for m in maps),
+              "remainder: captured probabilities")
+        check(not any(launches.values())
+              and all(v == (0, 0) for v in ops.values()),
+              f"remainder: the capture launched {launches}")
+
+    # (e) active dropout, (f) the profiler over its steps 3-5
+    config = vit_small_config()
+    config["vit_config"].update(dropout=DROPOUT, emb_dropout=DROPOUT)
+    depth = config["vit_config"]["depth"]
+    tc = config["train_config"]
+    tc.update(output_directory=os.path.join(WORK, "dropout_train"),
+              checkpoint_path="", epochs=1, warmup_epochs=0,
+              pretrained_backbone=None, iters_per_checkpoint=100,
+              iters_per_val=100)
+    config["data_config_path"] = subset_data_config(
+        data_config, DROPOUT_TRAIN_IMAGES, "dropout")
+    trace_dir = os.path.join(WORK, "profile")
+    os.environ["MVT_PROFILE_DIR"] = trace_dir
+    try:
+        state, losses, launches, ops, took, _ = run_train_cli(
+            config, "vit_small_dropout_train", "remainder")
+    finally:
+        del os.environ["MVT_PROFILE_DIR"]
+    steps = state.iteration
+    n_accum = tc["global_batch_size"] // tc["local_batch_size"]
+    blocks = depth * n_accum * steps
+    with open(os.path.join(data_config["dataset_path"],
+                           data_config["valid_files"])) as f:
+        val_images = len(f.read().split())
+    val_batches = val_images // tc["local_batch_size"]  # drop_last_batch
+    want = {"flash_attention_fwd": blocks, "flash_attention_bwd": 3 * blocks}
+    got = {k: launches[k] for k in want}
+    print(f"remainder: ViT-S/16 train CLI with dropout and emb_dropout "
+          f"{DROPOUT}, {steps} steps in {took:.1f} s: bf16 flash launches "
+          f"{got}, expected {want} (the discrete Blocks); op launches {ops} "
+          f"(the validation's, eval without dropout: fused)")
+    check(steps == DROPOUT_TRAIN_IMAGES // tc["global_batch_size"]
+          and got == want
+          and ops["fused_attention_block"] == (depth * val_batches, 0),
+          "remainder: dropout launches")
+    traces = sorted(os.listdir(trace_dir))
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"remainder: MVT_PROFILE_DIR trace {traces} of steps 3-5: "
+          f"{len(events)} events, {kernels} of them the card's kernels")
+    check(traces == ["trace_steps_3_5.json"] and kernels > 0,
+          "remainder: the profiler's trace")
+
+    lines = scalar_lines(scalar_offset)
+    if lines is None:
+        events = glob.glob(os.path.join("runs", "events.out.tfevents.*"))
+        print(f"remainder: TensorBoard is installed: {len(events)} event "
+              "files under runs/")
+        check(len(events) > 0, "remainder: no scalars logged")
+    else:
+        tags = {}
+        for row in lines:
+            if "tag" in row:
+                tags.setdefault(row["tag"], []).append(row["value"])
+        print(f"remainder: scalars.jsonl of the detection and segmentation "
+              f"train CLIs: {len(lines)} lines, "
+              + ", ".join(f"{t} x{len(v)}" for t, v in sorted(tags.items())))
+        check(all(t in tags for t in ("lr", "val_AP", "accuracy", "loss",
+                                      "miou"))
+              and all(math.isfinite(v) for vs in tags.values() for v in vs),
+              f"remainder: scalars {sorted(tags)}")
+    print(f"remainder: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def f32_chain_cost(name, b, n, leaves, library):
+    """The bound of one fp32 block-half chain call at (B, N) ViT-S/16
+    widths, worked out as the float formats' rows are: its products at
+    three bf16 passes on the tensor cores (the card's fastest way to fp32
+    products), its inputs read and outputs written once."""
+    m, d = b * n, C // HEADS
+    att = 4 * b * HEADS * n * n * d  # S = q k^T and P V
+    flops = {"K1 fp32": 2 * m * C * 4 * C + att,
+             "K2 fp32": 2 * m * C * 8 * C + 2.5 * att,
+             "K3 fp32": 4 * m * C * HID,
+             "K4 fp32": 10 * m * C * HID}[name]
+    return cost(nbytes(*leaves), 3 * flops, "bf16", library)
+
+
+def time_f32(device, power):
+    """Per call at the fp32 paths' shapes: the fp32 flash forward at K6's
+    (8, 6, 2601, 64) and K5's (256, 6, 197, 64), the backward at K7's
+    (8, 6, 1545, 64) and K8's (256, 6, 197, 64), each beside its plain
+    version, its bound and fp32 SDPA (its backward by autograd); the fp32
+    K1-K4 route per ViT-S/16 block at B=256 beside the plain chains and
+    F.layer_norm, cuBLAS fp32 products and fp32 SDPA; then the ViT-S/16
+    fp32 step at B=256, fused and under MVT_NO_FUSE=1, the YOLOS-S fp32
+    800 px forward (B=8) and its train step at 608 and 384 px, with device
+    profiles.  Returns the kernels line's totals."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
+    from myrtle_vision_tpu_torch.ops import fused_mlp as fm
+    from myrtle_vision_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+    from myrtle_vision_tpu_torch.training.classification import make_loss_fn
+    from myrtle_vision_tpu_torch.training.optim import create_optimizer
+    from myrtle_vision_tpu_torch.training.trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    totals = {}
+    for b, h, n, d, tag in ((8, 6, 2601, 64, "K6 regime, 800 px"),
+                            (256, 6, N, 64, "K5 regime, ViT-S/16")):
+        q, k, v = f32_views(b, n, h, d, 25000 + n, device)
+        sc = d ** -0.5
+        c = cost(nbytes(q, k, v, q), 3 * 4 * b * h * n * n * d, "bf16",
+                 lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
+        time_case(totals, f"flash_attention_f32_fwd[{tag}]",
+                  lambda: K.flash_attention_f32_fwd_cuda(q, k, v, sc),
+                  lambda: flash_attention_plain(q, k, v, sc),
+                  1 if tag.startswith("K6") else 0, c, power,
+                  f"B={b} H={h} N={n} D={d}")
+        print(f"timing: flash_attention_f32_fwd[{tag}] fp32 SIMT floor "
+              f"{4 * b * h * n * n * d / 67e12 * 1e3:.4f} ms (its products "
+              f"at 67 TFLOP/s) [{power}]")
+        del q, k, v
+    for b, h, n, d, tag in ((8, 6, 1545, 64, "K7 regime, 608 px"),
+                            (256, 6, N, 64, "K8 regime, ViT-S/16")):
+        q, k, v = f32_views(b, n, h, d, 26000 + n, device)
+        do = seeded(np.random.RandomState(n), (b, h, n, d), 1.0, device)
+        sc = d ** -0.5
+        o, lse = K.flash_attention_f32_fwd_cuda(q, k, v, sc, lse=True)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref_out = F.scaled_dot_product_attention(*leaves, scale=sc)
+        c = cost(nbytes(q, k, v, o, do) * 8 // 5 + nbytes(lse),
+                 3 * 10 * b * h * n * n * d, "bf16",
+                 lambda: torch.autograd.grad(ref_out, leaves, do,
+                                             retain_graph=True))
+        time_case(totals, f"flash_attention_f32_bwd[{tag}]",
+                  lambda: K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse,
+                                                         sc),
+                  lambda: flash_attention_bwd_plain(q, k, v, o, do, lse, sc),
+                  1 if tag.startswith("K7") else 0, c, power,
+                  f"B={b} H={h} N={n} D={d}")
+        del q, k, v, do, o, lse, leaves, ref_out
+
+    # the fp32 K1-K4 route, per ViT-S/16 block at B=256
+    b = 256
+    x, attn, mlp, do = block_inputs(b, N, 27000, device, C, HID)
+    x, do = x.float(), do.float()
+
+    def ref_attn(x, s, bi, wqkv, bqkv, wp, bp):
+        xn = F.layer_norm(x, (C,), s, bi)
+        qkv = (xn @ wqkv + bqkv).view(b, N, 3, HEADS, -1)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=SCALE)
+        return x + o.transpose(1, 2).reshape(b, N, C) @ wp + bp
+
+    def ref_mlp(x, s, bi, w1, b1, w2, b2):
+        xn = F.layer_norm(x, (C,), s, bi)
+        return x + F.gelu(xn @ w1 + b1) @ w2 + b2
+
+    for op, plain, ref, params, extra, tpu in (
+            (fa.fused_attention_block, fa.fused_attention_block_plain,
+             ref_attn, attn, (HEADS, SCALE), "K1 fp32"),
+            (fm.fused_mlp_block, fm.fused_mlp_block_plain, ref_mlp, mlp, (),
+             "K3 fp32")):
+        name = [k for k, v in F32_ROUTE.items() if v[2] == tpu][0]
+        with torch.no_grad():
+            out = op(x, *params, *extra)
+        totals[tpu] = route_case(
+            name, lambda: op(x, *params, *extra),
+            lambda: plain(x, *params, *extra),
+            f32_chain_cost(tpu, b, N, (x, *params, out),
+                           lambda: ref(x, *params)), power)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, *params)]
+        plain_leaves = [t.detach().clone().requires_grad_()
+                        for t in (x, *params)]
+        ref_leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, *params)]
+        k_out = op(*leaves, *extra)
+        p_out = plain(*plain_leaves, *extra)
+        r_out = ref(*ref_leaves)
+        bwd_tpu = "K2 fp32" if tpu == "K1 fp32" else "K4 fp32"
+        totals[bwd_tpu] = route_case(
+            name.replace("]", ",bwd]"),
+            lambda: torch.autograd.grad(k_out, leaves, do, retain_graph=True),
+            lambda: torch.autograd.grad(p_out, plain_leaves, do,
+                                        retain_graph=True),
+            f32_chain_cost(bwd_tpu, b, N, (x, do, x, *params, *params),
+                           lambda: torch.autograd.grad(
+                               r_out, ref_leaves, do, retain_graph=True)),
+            power)
+        del leaves, plain_leaves, ref_leaves, k_out, p_out, r_out
+    del x, attn, mlp, do
+
+    # the paths: ViT-S/16 fp32 step at B=256, fused and MVT_NO_FUSE=1
+    groups = {"flash fp32": ("flash_f32_",),
+              "fp32 chain": ("gemm_f32x3", "layernorm_snap",
+                             "attention_core_f32", "f32_long")}
+    config = f32_config(vit_small_config())
+    vc = config["vit_config"]
+    model = ViT("classification", vc["image_size"], vc["patch_size"], 45,
+                vc["embed_dim"], vc["depth"], vc["heads"], vc["mlp_dim"],
+                dim_head=vc["embed_dim"] // vc["heads"],
+                compute_dtype=torch.float32, device=device)
+    state = TrainState(model, create_optimizer(config["train_config"], model))
+    gen = torch.Generator(device).manual_seed(2)
+    batch = {"image": torch.randn(1, b, 224, 224, 3, device=device,
+                                  generator=gen),
+             "label": torch.randint(0, 45, (1, b), device=device,
+                                    generator=gen)}
+    step = make_train_step(make_loss_fn(model), 1)
+    for mode in ("fused", "MVT_NO_FUSE=1"):
+        if mode != "fused":
+            os.environ["MVT_NO_FUSE"] = "1"
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: step(state, batch, 1e-4), iters=5, warmup=2)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            line = device_profile(lambda: step(state, batch, 1e-4), groups)
+        finally:
+            os.environ.pop("MVT_NO_FUSE", None)
+        print(f"timing: ViT-S/16 float32-compute train step ({mode}) at "
+              f"B={b}: {ms:.3f} ms = {b / ms * 1e3:.1f} img/s, peak "
+              f"{peak:.2f} GiB; profile: {line} [{power}]")
+    del model, state, batch, step
+
+    yolos = ViT("detection", 224, 16, 20, 384, 12, 6, 1536,
+                compute_dtype=torch.float32, device=device)
+    time_yolos_forward(yolos, "float32-compute ", groups, device, power)
+    time_yolos_step(yolos, "float32-compute ", groups, device, power)
+    return totals
+
+
+def route_case(name, kernel, plain, c, power):
+    """One fp32 route chain per ViT-S/16 block at B=256: paired kernel and
+    plain ms, the profiler's device time, the yardstick's ms, the bound;
+    {ms, plain_ms, bound_ms, bound_by, library_ms, device_ms}."""
+    k_ms, p_ms = paired_ms(kernel, plain, iters=10)
+    lib_ms = cuda_ms(c["library"], iters=10)
+    b_ms, by = bound(c)
+    dev_ms, _, miss = kernel_device_ms(kernel, iters=10)
+    reset_counts()
+    kernel()
+    launches = {k: v for k, v in read_counts()[0].items() if v}
+    device = (f"device not measured ({miss})" if dev_ms is None
+              else f"device {dev_ms:.4f} ms")
+    print(f"timing: {name} per ViT-S/16 block at B=256 kernel chain "
+          f"{k_ms:.4f} ms ({device}) plain {p_ms:.4f} ms, yardstick "
+          f"(F.layer_norm, cuBLAS fp32 products, fp32 SDPA or F.gelu) "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}: {c['bytes']} bytes, "
+          f"{c['ops']:.4g} bf16 ops as three passes); launches {launches} "
+          f"[{power}]")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms, "device_ms": dev_ms}
+
+
 def port_kernel_names():
     """The names of the port's own CUDA kernels: every ``__global__``
     function under csrc/."""
@@ -5812,9 +6566,12 @@ def main():
     require_cuda()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # the train CLIs' scalars logged before this run
+    scalar_offset = len(scalar_lines(0) or [])
     phase_device()
     phase_build()
     errors = phase_kernels(device)
+    f32_errors = phase_kernels_f32(device)
     probe_entries = phase_probes(device, power_line())
     data_config, data_cfg = make_dataset()
     phase_main(device, data_config, data_cfg)
@@ -5837,12 +6594,17 @@ def main():
     det_train_launches = phase_detect_train(device, *det_data)
     float_det_launches = phase_detect_float(device, *det_data)
     phase_detect_int8(device, *det_data)
+    f32_runs, f32_ckpt, f32_config_ = phase_fp32(device, data_config,
+                                                 det_data)
     power = power_line()
     phase_seg(device, power)
     phase_distill(device, power, data_config, data_cfg)
+    phase_remainder(device, data_config, data_cfg, f32_ckpt, f32_config_,
+                    scalar_offset)
     totals = phase_timing(device, power, int8_ckpt, int8_kwargs,
                           float_ckpt, float_kwargs, i8_384_ckpt,
                           i8_384_kwargs)
+    f32_totals = time_f32(device, power)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -5918,6 +6680,38 @@ def main():
             # kernels' bounds and yardsticks
             "launches": i8_ops[name.split("[")[0]][int("[bwd]" in name)],
             "max_abs_err": i8_errors[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+        })
+    for name, (source, replaces) in F32_KERNELS.items():
+        t = f32_totals[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            # launches on the fp32 paths' runs (the MVT_NO_FUSE=1 train
+            # CLI, YOLOS-S's 800 px forward and its 608 / 384 px steps);
+            # the largest error against the plain version over the fp32
+            # flash cases; per call at YOLOS-S's 800 px (K6, B=8) or 608 px
+            # (K7, B=8) shape, the K5 / K8 ViT-S/16 cases in "cases"
+            "launches": f32_runs[name],
+            "max_abs_err": f32_errors[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": max(t["by"], key=t["by"].get),
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "cases": t["cases"],
+        })
+    for name, (source, replaces, tpu) in F32_ROUTE.items():
+        t = f32_totals[tpu]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            # the fp32 ViT-S/16 train CLI's launches of the op, forward or
+            # backward; the largest error against the plain chain's true
+            # fp32; per ViT-S/16 block at B=256
+            "launches": f32_runs[name],
+            "max_abs_err": f32_errors[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],

@@ -36,7 +36,10 @@ the wrapper's state dict, whose student the eval, PTQ and export CLIs
 read.  A distiller in a quantized format is not ported yet (ROADMAP
 A8b).  ``--device`` defaults to ``cuda``; without a CUDA device that
 raises, it never carries on on the CPU.  Multi-device training is not
-ported yet (ROADMAP A9).
+ported yet (ROADMAP A9).  With ``MVT_PROFILE_DIR`` set, steps 3-5 are
+traced into that directory (utils/profiling.py).  A positive ``dropout``
+or ``emb_dropout`` trains with the dropout sites active, their masks from
+a generator seeded from ``train_config.seed`` (training/trainer.py).
 """
 from __future__ import annotations
 
@@ -65,6 +68,7 @@ from myrtle_vision_tpu_torch.training.optim import (
 )
 from myrtle_vision_tpu_torch.training.trainer import (
     TrainState,
+    dropout_generator,
     make_train_step,
 )
 from myrtle_vision_tpu_torch.utils.checkpoint import (
@@ -77,6 +81,7 @@ from myrtle_vision_tpu_torch.utils.config import (
     seed_everything,
 )
 from myrtle_vision_tpu_torch.utils.convert import load_pretrained_backbone
+from myrtle_vision_tpu_torch.utils.profiling import StepProfiler
 
 
 def validation(predict_fn, val_loader, distill_eval=None):
@@ -191,7 +196,9 @@ def train(config, device):
           f"n_accum={n_batch_accum}")
 
     state, iteration = prepare_model_and_load_ckpt(
-        train_config, TrainState(model, create_optimizer(train_config, model)))
+        train_config, TrainState(model, create_optimizer(train_config, model),
+                                 dropout=dropout_generator(
+                                     model, train_config["seed"])))
     distiller = model if isinstance(model, DistillWrapper) else None
     distill_eval = None
     if distiller is not None:
@@ -219,6 +226,7 @@ def train(config, device):
                               / len(train_loader.dataset)))
     last_val_loss, last_val_acc = 0.0, 0.0
     steps_per_epoch = len(train_loader)
+    profiler = StepProfiler()
 
     for epoch in range(epoch_offset, epochs):
         lr = lr_at_epoch(train_config, epoch)
@@ -233,6 +241,7 @@ def train(config, device):
                     predict_fn, val_loader, distill_eval)
             metrics = train_step(state, micro_batches(batch), lr)
             iteration = state.iteration
+            profiler.step(iteration)
             loss = float(metrics["loss"])
             acc = float(metrics["acc"])
             epoch_loss += loss / steps_per_epoch
@@ -248,6 +257,7 @@ def train(config, device):
             f"time: {time.time() - t_epoch:.1f}s\n"
         )
 
+    profiler.close()
     # final checkpoint
     save_checkpoint(state, f"{output_directory}/vit_{iteration:06}")
     return state

@@ -18,7 +18,12 @@ Checkpoints are ``torch.save`` files (utils/checkpoint.py) that the
 port's detection eval CLI reads as they are; ``checkpoint_path``
 resumes from one.  ``--device`` defaults to ``cuda``; without a CUDA
 device that raises, it never carries on on the CPU.  Multi-device
-training and TensorBoard scalars are not ported yet (ROADMAP A9).
+training is not ported yet (ROADMAP A9).  As the JAX CLI, the config's
+hyperparameters, each epoch's LR and validation AP go to ``runs/``
+(TensorBoard where the package is installed, else ``runs/scalars.jsonl``;
+utils/logging.py), and with ``MVT_PROFILE_DIR`` set steps 3-5 are traced
+(utils/profiling.py).  A positive ``dropout`` or ``emb_dropout`` trains
+with the dropout sites active (training/trainer.py).
 ``vit_config.q_format`` FP32 trains with bf16 compute; FP16_16, FP16_32
 and TF32 train the float simulation (QAT: straight-through sites and
 weights, fp32 compute); PyTorchINT8 the INT8 simulation in the JAX
@@ -48,6 +53,7 @@ from myrtle_vision_tpu_torch.training.detection import (
 from myrtle_vision_tpu_torch.training.optim import create_optimizer, lr_at_epoch
 from myrtle_vision_tpu_torch.training.trainer import (
     TrainState,
+    dropout_generator,
     make_train_step,
 )
 from myrtle_vision_tpu_torch.transforms import detection as T
@@ -61,6 +67,8 @@ from myrtle_vision_tpu_torch.utils.config import (
     seed_everything,
 )
 from myrtle_vision_tpu_torch.utils.convert import load_pretrained_backbone
+from myrtle_vision_tpu_torch.utils.logging import ScalarLogger
+from myrtle_vision_tpu_torch.utils.profiling import StepProfiler
 
 # the fields of a collated batch that the loss reads
 STEP_KEYS = ("image", "labels", "boxes", "valid")
@@ -138,18 +146,24 @@ def train(config, device):
 
     model, train_loader, val_loader, valset, (batch_size, n_batch_accum) = \
         build_train(config, device)
+    writer = ScalarLogger("runs/")
     os.makedirs(output_directory, exist_ok=True)
     print("output directory:", output_directory)
     print(f"device: {device}, local_batch={batch_size}, "
           f"n_accum={n_batch_accum}")
 
     state, iteration = prepare_model_and_load_ckpt(
-        train_config, TrainState(model, create_optimizer(train_config, model)))
+        train_config, TrainState(model, create_optimizer(train_config, model),
+                                 dropout=dropout_generator(
+                                     model, train_config["seed"])))
     train_step = make_train_step(
         make_loss_fn(model, n_classes, build_weight_dict(train_config),
                      train_config["eos_coef"]),
         n_batch_accum, clip_grad=train_config.get("clip_grad"))
     detect_fn = make_detect_fn(model)
+    writer.add_hparams({**train_config, **config["vit_config"]},
+                       {"metric/placeholder": 0.0})
+    profiler = StepProfiler()
 
     best_ap = -1.0
     # epoch offset on resume (the JAX CLI's formula, one device)
@@ -157,6 +171,7 @@ def train(config, device):
                               / max(len(train_loader.dataset), 1)))
     for epoch in range(epoch_offset, epochs):
         lr = lr_at_epoch(train_config, epoch)
+        writer.add_scalar("lr", lr, epoch)
         epoch_loss = 0.0
         steps = max(len(train_loader), 1)
         t_epoch = time.time()
@@ -164,6 +179,7 @@ def train(config, device):
             metrics = train_step(
                 state, micro_batches(batch, n_batch_accum, batch_size), lr)
             iteration = state.iteration
+            profiler.step(iteration)
             loss = float(metrics["loss"])
             epoch_loss += loss / steps
             print(f"Iteration {iteration}:\tloss={loss:.4f}\t"
@@ -173,6 +189,7 @@ def train(config, device):
 
         evaluator = evaluate_coco(detect_fn, val_loader, valset.coco, epoch)
         ap = float(evaluator.stats[0])
+        writer.add_scalar("val_AP", ap, epoch)
         print(f"Epoch : {epoch + 1} - loss : {epoch_loss:.4f} - "
               f"val AP: {ap:.4f} - time: {time.time() - t_epoch:.1f}s\n")
         if ap >= best_ap:
@@ -180,7 +197,9 @@ def train(config, device):
             save_checkpoint(state, f"{output_directory}/vit_best",
                             extra={"ap": ap})
 
+    profiler.close()
     save_checkpoint(state, f"{output_directory}/vit_{iteration:06}")
+    writer.flush()
     return state
 
 

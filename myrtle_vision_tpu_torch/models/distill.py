@@ -87,9 +87,11 @@ class DistillWrapper(nn.Module):
         self.distill_mlp_linear.bias.zero_()
         self.distill_mlp_norm.reset_parameters()
 
-    def forward(self, img, labels, teacher_logits, plain: bool = False):
+    def forward(self, img, labels, teacher_logits, plain: bool = False,
+                dropout_rng=None):
         student_logits, tokens = self.student(
-            img, plain=plain, distill_token=self.distillation_token)
+            img, plain=plain, distill_token=self.distillation_token,
+            dropout_rng=dropout_rng)
         x = self.distill_mlp_norm(tokens)
         distill_logits = self.distill_mlp_linear(x)
         loss = distillation_loss(student_logits, distill_logits,

@@ -6,7 +6,7 @@ stateless float formats' (FP16_16, FP16_32, TF32) simulation, QAT
 training and converted inference.
 
 Port of myrtle_vision_tpu/models/vit.py for the paths this package runs
-so far: without active dropout, ``decoder="classification"`` in
+so far: ``decoder="classification"`` in
 ``q_format`` FP32 (inference and training), PyTorchINT8 (the calibrating
 forward, the simulation's eval forward, QAT training, and the converted
 model up to the fused Block's length) and the float formats (inference
@@ -21,17 +21,40 @@ writes
 (``transformer.layers.{i}.0.fn.fn.to_qkv.weight``, ...), so
 ``load_state_dict(sd, strict=True)`` takes such a dict as it is.
 
-FP32: activations run in ``compute_dtype`` (bf16 by default) with fp32
-LayerNorm statistics, softmax and accumulation, rounding at the points
-the JAX model rounds.  Where the JAX Block fuses (``fuses_at`` of
-ops/fused_attention_block.py), each block half runs as one differentiable
-op (ops/fused_attention_block.py, ops/fused_mlp.py), which dispatches on
-the activation's device: the plain PyTorch chain on the CPU, the CUDA
-kernel chain on a GPU, forward and backward.  Longer sequences (detection
-at 800 px: 2601 tokens) take the JAX Block's discrete-site composition:
-LayerNorm, the projections and the exact-erf GELU as plain products, as
-XLA runs them there, and the attention core through
-``multi_head_attention`` (ops/attention.py), i.e. the flash kernel.
+FP32: activations run in ``compute_dtype`` (bf16 by default, or
+float32) with fp32 LayerNorm statistics, softmax and accumulation,
+rounding at the points the JAX model rounds.  Where the JAX Block fuses
+(``fuses_at`` of ops/fused_attention_block.py), each block half runs as
+one differentiable op (ops/fused_attention_block.py, ops/fused_mlp.py),
+which dispatches on the activation's device: the plain PyTorch chain on
+the CPU, the CUDA kernel chain on a GPU (the bf16 chain, or on float32
+activations the fp32 chain that snaps nothing), forward and backward.
+Longer sequences (detection at 800 px: 2601 tokens), ``MVT_NO_FUSE=1``
+(read at each call, as the JAX Block reads it while tracing), attention
+capture and active dropout take the JAX Block's discrete-site
+composition: LayerNorm, the projections and the exact-erf GELU as plain
+products, as XLA runs them there, and the attention core through
+``multi_head_attention`` (ops/attention.py), i.e. the flash kernel of
+the compute dtype (or, capturing, the ``xla`` core).  The port reads no
+``JAX_DEFAULT_MATMUL_PRECISION``: an fp32 product outside the kernels is
+a full fp32 ``torch.matmul`` (TF32 off, PyTorch's default), so float32
+compute under ``MVT_NO_FUSE=1`` is the JAX package's true-fp32 recipe.
+
+Dropout (``forward(img, dropout_rng=g)``, ``g`` a ``torch.Generator`` on
+the model's device; the JAX ``deterministic=False`` with its "dropout"
+rng) acts at the JAX model's four sites, in its order: the tokens after
+the positions (``emb_dropout``), and in each block the attention after
+its output projection, the MLP after the GELU and after fc2
+(``dropout``).  Each keeps an element with probability 1 - rate and
+scales it by 1 / (1 - rate) in the activation's dtype, as flax's
+``nn.Dropout`` does; the masks come from ``g`` only.  Without ``g`` (the
+JAX ``deterministic=True``) no site acts.  An active ``dropout`` keeps
+every Block discrete, as the JAX gate does.
+
+Attention capture (``forward(img, capture_attention=True)``, the JAX
+``capture_attention`` with its sown ``attn_probs``) returns the output
+and a list of each layer's fp32 (B, H, N, N) softmax probabilities in
+depth order, every Block discrete with the ``xla`` core.
 
 PyTorchINT8 (compute in fp32, as in the JAX package): every observer
 site of the JAX model is an :class:`ActQuant` (``min`` and ``max``
@@ -109,15 +132,14 @@ packages, and take their gradients from autograd.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
 from myrtle_vision_tpu_torch.ops._kernels import layernorm_rows_plain
-from myrtle_vision_tpu_torch.ops.attention import (
-    multi_head_attention,
-    xla_attention,
-)
+from myrtle_vision_tpu_torch.ops.attention import multi_head_attention
 from myrtle_vision_tpu_torch.ops.flash_attention import flash_attention
 from myrtle_vision_tpu_torch.ops.fused_attention_block import (
     fused_attention_block,
@@ -160,14 +182,47 @@ from myrtle_vision_tpu_torch.quantize import (
 )
 
 MIN_NUM_PATCHES = 16  # reference vit.py:14
-# the port runs without active dropout: the classification decoder in FP32
-# for inference and training, in PyTorchINT8 for calibration and converted
-# inference and in the float formats for inference and QAT training, the
-# segmentation and detection decoders in FP32, the float formats and
-# PyTorchINT8 before convert
-_NOT_PORTED = "not ported yet; see ROADMAP.md (Queue A)"
 # the weights a converted float model stores in fp16
 _FP16_STORAGE = (QFormat.FP16_16, QFormat.FP16_32)
+
+
+def no_fuse() -> bool:
+    """``MVT_NO_FUSE=1``: every Block takes its discrete-site composition
+    (the JAX Block reads the variable when it traces, the port at each
+    call)."""
+    return os.environ.get("MVT_NO_FUSE") == "1"
+
+
+def dropout_mask(shape, rate, generator, device):
+    """flax ``nn.Dropout``'s keep mask: each element kept with probability
+    1 - ``rate``, from ``generator`` (on ``device``), never from the global
+    RNG."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u < 1.0 - rate
+
+
+def dropout(x, rate, generator):
+    """A dropout site: with ``generator`` and ``rate`` > 0, the kept
+    elements of :func:`dropout_mask` scaled by 1 / (1 - rate) in x's
+    dtype and the others 0; else x as it is."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = dropout_mask(x.shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _attention(q, k, v, scale, probs, impl="auto", plain=False):
+    """The discrete Block's core: with ``probs`` (a list, attention
+    capture) the ``xla`` core, its probabilities appended; else
+    ``multi_head_attention`` with ``impl`` (``plain`` FP32: the flash
+    kernel's plain version)."""
+    if probs is not None:
+        out, p = multi_head_attention(q, k, v, scale, return_probs=True)
+        probs.append(p)
+        return out
+    if plain and impl == "auto":
+        return flash_attention(q, k, v, scale, plain=True)
+    return multi_head_attention(q, k, v, scale, impl=impl)
 
 
 def _linear(in_features, out_features, device):
@@ -313,11 +368,13 @@ class Block(nn.Module):
     """Pre-norm transformer block (myrtle_vision_tpu/models/vit.py Block).
     Children ``0`` and ``1`` carry the reference's parameter names.
     FP32: one fused op per half (the JAX Block's ``fuse`` branch) where
-    ``fuses_at`` holds, else the discrete-site composition
-    (:meth:`forward_discrete`; active dropout, the JAX gate's other
-    condition, is refused by the ViT); ``depth``, the model's layer
-    count, sizes the attention op's qkv-saving budget as ``model_depth``
-    does in the JAX Block.
+    ``fuses_at`` holds and no capture, active dropout or ``MVT_NO_FUSE=1``
+    stops it, else the discrete-site composition
+    (:meth:`forward_discrete`); ``depth``, the model's layer count, sizes
+    the attention op's qkv-saving budget as ``model_depth`` does in the
+    JAX Block.  Each forward takes ``dropout_rng`` (the model's dropout
+    generator, or None) and ``probs`` (a list that attention capture
+    fills, or None).
     PyTorchINT8: the observer sites (see the module docstring), the
     discrete-site forward, calibrating or the simulation's eval
     (:meth:`forward_int8`), the two-pass QAT step's second pass, one op
@@ -334,6 +391,7 @@ class Block(nn.Module):
         self.dim_head = dim_head
         self.scale = dim_head ** -0.5
         self.depth = depth
+        self.dropout = dropout
         self.q_format = q_format
         self.converted = converted
         self.add_module("0", Residual(PreNorm(
@@ -377,7 +435,15 @@ class Block(nn.Module):
         scale, zp = affine_uint8_qparams(lo, hi)
         return torch.stack([scale, zp, (lo <= hi).float()], -1).view(2, 5, 3)
 
-    def forward_int8(self, x, calibrating=True, update=None):
+    def fuses(self, x, dropout_rng=None, probs=None):
+        """The JAX Block's gate: ``fuses_at`` the sequence, no attention
+        capture, no active dropout, no ``MVT_NO_FUSE=1``."""
+        return (probs is None and not no_fuse()
+                and (self.dropout == 0.0 or dropout_rng is None)
+                and fuses_at(x.shape[1], self.heads, self.dim_head))
+
+    def forward_int8(self, x, calibrating=True, update=None,
+                     dropout_rng=None, probs=None):
         """The JAX Block's discrete-site composition for PyTorchINT8
         before convert, fp32 (B, N, C) in and out, differentiable.
         ``calibrating`` (the JAX ``calibrating=True``): every site folds its
@@ -398,18 +464,20 @@ class Block(nn.Module):
             x, a.fn.norm.weight, a.fn.norm.bias), update)
         qkv = _qdense(attn.to_qkv, y, calibrating, update)
         qh, kh, vh = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
-        ctx = xla_attention(qh, kh, vh, self.scale).transpose(1, 2).reshape(
-            b, n, c)
-        ctx = attn.quant_out(ctx, update)
-        x = a.res_add(_qdense(attn.to_out[0], ctx, calibrating, update) + x,
-                      update)
+        ctx = _attention(qh, kh, vh, self.scale, probs, impl="xla")
+        ctx = attn.quant_out(ctx.transpose(1, 2).reshape(b, n, c), update)
+        y = dropout(_qdense(attn.to_out[0], ctx, calibrating, update),
+                    self.dropout, dropout_rng)
+        x = a.res_add(y + x, update)
         y = f.fn.norm.act_out(layernorm_rows_plain(
             x, f.fn.norm.weight, f.fn.norm.bias), update)
         h = _qdense(net[0], y, calibrating, update)
         g = K.gelu_poly(h) if calibrating else \
             torch.nn.functional.gelu(h)
-        g = net[1].act_out(g, update)
-        return f.res_add(_qdense(net[3], g, calibrating, update) + x, update)
+        g = dropout(net[1].act_out(g, update), self.dropout, dropout_rng)
+        y = dropout(_qdense(net[3], g, calibrating, update), self.dropout,
+                    dropout_rng)
+        return f.res_add(y + x, update)
 
     def forward_int8_qat(self, x, plain=False):
         """The JAX Block's ``int8_qat_fuse`` branch, the second pass of
@@ -421,7 +489,7 @@ class Block(nn.Module):
         too: :meth:`forward_int8`, calibrating with the observers frozen
         (their grids are pass 1's, as the JAX pass's idempotent updates
         leave them)."""
-        if not fuses_at(x.shape[1], self.heads, self.dim_head):
+        if not self.fuses(x):
             return self.forward_int8(x, calibrating=True, update=False)
         a, f = self._modules["0"].fn, self._modules["1"].fn
         qkv, out = a.fn.to_qkv, a.fn.to_out[0]
@@ -471,14 +539,14 @@ class Block(nn.Module):
             colsums=(fc1.weight_colsum, fc2.weight_colsum),
         )
 
-    def forward_float(self, x, plain=False):
+    def forward_float(self, x, plain=False, dropout_rng=None, probs=None):
         """The JAX Block in a stateless float format, fp32 (B, N, C) in and
-        out.  Where ``fuses_at`` holds, its ``fuse`` branch: each weight
+        out.  Where :meth:`fuses` holds, its ``fuse`` branch: each weight
         through its fake-quant (``_qw``; LayerNorm scales only when
         converted), then one op per half with the format's ``qspec``;
         beyond the gate the discrete sites (:meth:`forward_float_discrete`)."""
-        if not fuses_at(x.shape[1], self.heads, self.dim_head):
-            return self.forward_float_discrete(x, plain)
+        if not self.fuses(x, dropout_rng, probs):
+            return self.forward_float_discrete(x, plain, dropout_rng, probs)
         a, f = self._modules["0"].fn, self._modules["1"].fn
         qkv, out = a.fn.to_qkv, a.fn.to_out[0]
         fc1, fc2 = f.fn.net[0], f.fn.net[3]
@@ -499,7 +567,8 @@ class Block(nn.Module):
                       qw(fc1, "linear").t(), fc1.bias,
                       qw(fc2, "linear").t(), fc2.bias, qspec=qspec)
 
-    def forward_float_discrete(self, x, plain=False):
+    def forward_float_discrete(self, x, plain=False, dropout_rng=None,
+                               probs=None):
         """The JAX Block's discrete-site composition in a stateless float
         format (its ``else`` branches), fp32 (B, N, C) in and out, every
         site straight-through: QLayerNorm (:func:`_qlayernorm_float`),
@@ -518,23 +587,27 @@ class Block(nn.Module):
         y = _qlayernorm_float(a.norm, x, q, conv, plain)
         qkv = _qdense_float(attn.to_qkv, y, q, conv, plain)
         qh, kh, vh = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
-        o = multi_head_attention(qh, kh, vh, self.scale, impl="xla")
+        o = _attention(qh, kh, vh, self.scale, probs, impl="xla")
         o = o.transpose(1, 2).reshape(b, n, c)
-        y = _qdense_float(attn.to_out[0], o, q, conv, plain)
+        y = dropout(_qdense_float(attn.to_out[0], o, q, conv, plain),
+                    self.dropout, dropout_rng)
         x = act_quant(y + x, q, "functional", plain)
         y = _qlayernorm_float(f.norm, x, q, conv, plain)
         h = act_quant(_qdense_float(net[0], y, q, conv, plain), q, "gelu_in",
                       plain)
-        g = act_quant(K.gelu_poly(h), q, "gelu_out", plain)
-        y = _qdense_float(net[3], g, q, conv, plain)
+        g = dropout(act_quant(K.gelu_poly(h), q, "gelu_out", plain),
+                    self.dropout, dropout_rng)
+        y = dropout(_qdense_float(net[3], g, q, conv, plain), self.dropout,
+                    dropout_rng)
         return act_quant(y + x, q, "functional", plain)
 
-    def forward_discrete(self, x, plain=False):
+    def forward_discrete(self, x, plain=False, dropout_rng=None, probs=None):
         """The JAX Block's discrete-site FP32 composition, (B, N, C) in the
         compute dtype in and out: QLayerNorm (fp32 statistics and
         parameters, rounded once), QDense (``_dense``), the attention core
-        (``multi_head_attention``; ``plain`` takes its plain version), the
-        exact-erf GELU in fp32, the residual adds in the compute dtype."""
+        (``multi_head_attention``; ``plain`` takes its plain version;
+        capturing, the ``xla`` core), the exact-erf GELU in fp32, the
+        dropout sites, the residual adds in the compute dtype."""
         a, f = self._modules["0"].fn, self._modules["1"].fn
         attn, net = a.fn, f.fn.net
         dt = x.dtype
@@ -542,19 +615,18 @@ class Block(nn.Module):
         y = layernorm_rows_plain(x, a.norm.weight, a.norm.bias)
         qkv = _dense(y, attn.to_qkv, dt)
         q, k, v = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
-        if plain:
-            o = flash_attention(q, k, v, self.scale, plain=True)
-        else:
-            o = multi_head_attention(q, k, v, self.scale)
+        o = _attention(q, k, v, self.scale, probs, plain=plain)
         o = o.transpose(1, 2).reshape(b, n, c).to(dt)
-        x = _dense(o, attn.to_out[0], dt) + x
+        rate = self.dropout
+        x = dropout(_dense(o, attn.to_out[0], dt), rate, dropout_rng) + x
         y = layernorm_rows_plain(x, f.norm.weight, f.norm.bias)
         h = torch.nn.functional.gelu(_dense(y, net[0], dt).float()).to(dt)
-        return _dense(h, net[3], dt) + x
+        h = dropout(h, rate, dropout_rng)
+        return dropout(_dense(h, net[3], dt), rate, dropout_rng) + x
 
-    def forward(self, x, plain: bool = False):
-        if not fuses_at(x.shape[1], self.heads, self.dim_head):
-            return self.forward_discrete(x, plain)
+    def forward(self, x, plain: bool = False, dropout_rng=None, probs=None):
+        if not self.fuses(x, dropout_rng, probs):
+            return self.forward_discrete(x, plain, dropout_rng, probs)
         attn = self._modules["0"].fn
         ffn = self._modules["1"].fn
         attn_op = fused_attention_block_plain if plain else \
@@ -972,12 +1044,21 @@ class ViT(nn.Module):
         return self.pos_embedding_add(x + pos, calibrating)
 
     def forward(self, img, plain: bool = False, calibrating: bool = False,
-                int8_fused: bool = False, distill_token=None):
+                int8_fused: bool = False, distill_token=None,
+                capture_attention: bool = False, dropout_rng=None):
         """Logits (fp32; a dict for detection); with ``distill_token``
         (the DeiT student, FP32 only) (logits, the distillation token's
-        fp32 embedding after the last block)."""
-        if self.training and (self.dropout or self.emb_dropout):
-            raise NotImplementedError(f"active dropout: {_NOT_PORTED}")
+        fp32 embedding after the last block); with ``capture_attention``
+        (that output, each layer's fp32 (B, H, N, N) attention
+        probabilities in depth order).  ``dropout_rng``: the dropout
+        sites' ``torch.Generator`` (the module docstring), None for none."""
+        probs = [] if capture_attention else None
+        out = self._forward(img, plain, calibrating, int8_fused,
+                            distill_token, dropout_rng, probs)
+        return (out, probs) if capture_attention else out
+
+    def _forward(self, img, plain, calibrating, int8_fused, distill_token,
+                 dropout_rng, probs):
         if distill_token is not None and self.q_format != QFormat.FP32:
             raise NotImplementedError(
                 f"a distillation token in q_format {self.q_format.name}: "
@@ -989,15 +1070,21 @@ class ViT(nn.Module):
                 "a model before convert, its observers updated by a "
                 "calibrating forward first and frozen in this one")
         if self.float_format:
-            return self._forward_float(img, plain)
+            return self._forward_float(img, plain, dropout_rng, probs)
         if self.converted:
             if calibrating:
                 raise ValueError("a converted model's observers are frozen; "
                                  "calibrate before convert")
+            if probs is not None or no_fuse():
+                raise NotImplementedError(
+                    "attention capture or MVT_NO_FUSE=1 in a converted "
+                    "PyTorchINT8 model: the JAX model runs the discrete "
+                    "converted Block there, which is not ported yet (ROADMAP "
+                    "A5b)")
             return self._forward_converted(img, plain)
         if self.int8:
             return self._forward_int8(img, calibrating or int8_fused,
-                                      int8_fused, plain)
+                                      int8_fused, plain, dropout_rng, probs)
         b, h, w, _ = img.shape
         dtype = self.compute_dtype
         x = _dense(self.patchify(img.to(dtype)), self.patch_to_embedding,
@@ -1013,8 +1100,9 @@ class ViT(nn.Module):
             # (reference distill.py:65-69)
             x = torch.cat([x, distill_token.to(dtype).expand(b, 1, self.dim)],
                           dim=1)
+        x = dropout(x, self.emb_dropout, dropout_rng)
         for block in self.transformer.layers:
-            x = block(x, plain)
+            x = block(x, plain, dropout_rng, probs)
         if distill_token is not None:
             x, distill_out = x[:, :-1], x[:, -1]
         out = self.decoder(x)
@@ -1023,14 +1111,15 @@ class ViT(nn.Module):
             return out, distill_out.float()
         return out
 
-    def _forward_float(self, img, plain):
+    def _forward_float(self, img, plain, dropout_rng=None, probs=None):
         """A stateless float format, simulation or converted: the JAX
         ViT's discrete sites around the blocks (the stubs are identities
         in these formats), each block half one op with the format's
         ``qspec``."""
-        x = self.embed_float(img, plain)
+        x = dropout(self.embed_float(img, plain), self.emb_dropout,
+                    dropout_rng)
         for block in self.transformer.layers:
-            x = block.forward_float(x, plain)
+            x = block.forward_float(x, plain, dropout_rng, probs)
         return self.decoder.forward_float(x, self.q_format, self.converted,
                                           plain)
 
@@ -1052,7 +1141,8 @@ class ViT(nn.Module):
         pos = act_quant(self._positions(h, w).float(), q, "functional", plain)
         return act_quant(x + pos, q, "functional", plain)
 
-    def _forward_int8(self, img, calibrating, fused=False, plain=False):
+    def _forward_int8(self, img, calibrating, fused=False, plain=False,
+                      dropout_rng=None, probs=None):
         """PyTorchINT8 before convert, the JAX ViT's discrete sites.
         ``calibrating``: every observer updated, 3-pass products, the
         polynomial erf; else the simulation's eval forward (observers
@@ -1066,9 +1156,11 @@ class ViT(nn.Module):
         x = self._tokens_int8(
             _qdense(self.patch_to_embedding, x, calibrating, update), h, w,
             update)
+        x = dropout(x, self.emb_dropout, dropout_rng)
         for block in self.transformer.layers:
             x = (block.forward_int8_qat(x, plain) if fused
-                 else block.forward_int8(x, calibrating))
+                 else block.forward_int8(x, calibrating, None, dropout_rng,
+                                         probs))
         return self.decoder.forward_int8(x, calibrating, update)
 
     def _forward_converted(self, img, plain):

@@ -32,6 +32,13 @@ backward (ops/flash_attention.py holds their plain versions):
 - ``flash_attention_bwd``  csrc/flash_attention_bwd_wgmma.cu (wgmma, TMA;
                            what both share in csrc/flash_wgmma.cuh)
 
+and their forms on fp32 operands (``compute_dtype`` float32), true fp32
+products on the CUDA cores:
+
+- ``flash_attention_f32_fwd``  csrc/flash_attention_f32_fwd.cu
+- ``flash_attention_f32_bwd``  csrc/flash_attention_f32_bwd.cu (what both
+                               share in csrc/flash_f32_tiles.cuh)
+
 and those of the stateless float formats (FP16_16, FP16_32, TF32): the
 qtorch fake-quant K11 and the block halves with ``qspec = (exp_bits,
 man_bits, all_sites)``, forward and backward, fp32 activations, every
@@ -160,6 +167,7 @@ LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
             "layernorm_snap_rows": 0, "gemm_f32x3_epilogue": 0,
             "attention_core_f32_bwd": 0, "layernorm_snap_rows_bwd": 0,
             "attention_core_f32_long": 0, "attention_core_f32_bwd_long": 0,
+            "flash_attention_f32_fwd": 0, "flash_attention_f32_bwd": 0,
             "attention_core_probe": 0, "gemm_bf16_probe": 0,
             "gemm_bf16_gelu_probe": 0, "gemm_layout_probe": 0}
 INT8_EPILOGUES = {"requant": 0, "requant_gelu_quant": 1,
@@ -1757,16 +1765,41 @@ def attention_core_f32_bwd_cuda(qkv, d_o, m, rs, heads, scale,
     return dqkv, dbias
 
 
-def _require_rows(t, name):
-    """A bf16 CUDA tensor whose last dimension is contiguous and whose
-    other strides keep every row 16-byte aligned."""
-    if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: expected a bf16 CUDA tensor, got "
+def _require_rows(t, name, dtype=torch.bfloat16):
+    """A CUDA tensor of ``dtype`` (bf16 or fp32) whose last dimension is
+    contiguous and whose other strides keep every row 16-byte aligned."""
+    if t.device.type != "cuda" or t.dtype != dtype:
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        raise TypeError(f"{name}: expected a {kind} CUDA tensor, got "
                         f"{t.dtype} on {t.device}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or \
+    per_16 = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % per_16 for s in t.stride()[:-1]) or \
             t.data_ptr() % 16:
         raise ValueError(f"{name}: expected rows contiguous and 16-byte "
                          f"aligned, got strides {t.stride()}")
+
+
+def _flash_args(name, dtype, q, k, v, n_valid, more=()):
+    """The checks of the flash wrappers -> (B, H, N, D, n_valid): q, k, v
+    (and ``more``, (tensor, name) pairs of the same shape) (B, H, N, D)
+    CUDA views of ``dtype`` with rows contiguous and 16-byte aligned, q,
+    k and v sharing strides, D 32 or 64, 1 <= n_valid <= N."""
+    if q.dim() != 4 or any(t.shape != q.shape for t in (k, v, *(
+            t for t, _ in more))):
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    for t, label in ((q, "q"), (k, "k"), (v, "v"), *more):
+        _require_rows(t, label, dtype)
+    if not q.stride() == k.stride() == v.stride():
+        raise ValueError(f"{name}: q, k and v must share strides")
+    b, h, n, d = q.shape
+    if d not in (32, 64):
+        raise ValueError(f"{name}: head width {d}; the kernel takes 32 and "
+                         "64")
+    n_valid = n if n_valid is None else int(n_valid)
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"{name}: n_valid {n_valid} of {n}")
+    return b, h, n, d, n_valid
 
 
 def flash_attention_fwd_cuda(q, k, v, scale, n_valid=None, lse=False):
@@ -1777,20 +1810,8 @@ def flash_attention_fwd_cuda(q, k, v, scale, n_valid=None, lse=False):
     with the last dimension contiguous, e.g. the (B, H, N, D) views of
     the fused (B, N, 3C) qkv rows, read in place by TMA; D must be 32 or
     64 (csrc/flash_attention_fwd_wgmma.cu, :func:`flash_plan`)."""
-    if not q.shape == k.shape == v.shape or q.dim() != 4:
-        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _require_rows(t, name)
-    if not q.stride() == k.stride() == v.stride():
-        raise ValueError("flash_attention: q, k and v must share strides")
-    b, h, n, d = q.shape
-    if d not in (32, 64):
-        raise ValueError(f"flash_attention: head width {d}; the kernel "
-                         "takes 32 and 64")
-    n_valid = n if n_valid is None else int(n_valid)
-    if not 1 <= n_valid <= n:
-        raise ValueError(f"flash_attention: n_valid {n_valid} of {n}")
+    b, h, n, d, n_valid = _flash_args("flash_attention", torch.bfloat16, q,
+                                      k, v, n_valid)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse_t = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
              if lse else None)
@@ -1811,21 +1832,9 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, scale, n_valid=None):
     (each with rows contiguous and 16-byte aligned, strides of their own)
     and its fp32 (B, H, N) LSE -> bf16 (dq, dk, dv), (B, H, N, D) views of
     (B, N, H, D) storage."""
-    if not q.shape == k.shape == v.shape == o.shape == do.shape or \
-            q.dim() != 4:
-        raise ValueError(f"flash_attention_bwd: shapes {tuple(q.shape)}, "
-                         f"{tuple(o.shape)}, {tuple(do.shape)}")
-    for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")):
-        _require_rows(t, name)
-    if not q.stride() == k.stride() == v.stride():
-        raise ValueError("flash_attention_bwd: q, k and v must share strides")
-    b, h, n, d = q.shape
-    if d not in (32, 64):
-        raise ValueError(f"flash_attention_bwd: head width {d}; the kernel "
-                         "takes 32 and 64")
-    n_valid = n if n_valid is None else int(n_valid)
-    if not 1 <= n_valid <= n:
-        raise ValueError(f"flash_attention_bwd: n_valid {n_valid} of {n}")
+    b, h, n, d, n_valid = _flash_args(
+        "flash_attention_bwd", torch.bfloat16, q, k, v, n_valid,
+        more=((o, "o"), (do, "do")))
     _require_shape(lse, "lse", (b, h, n))
     # the pre-pass's rows: LSE log2(e) and dsum, n padded to the tile
     n_pad = math.ceil(n / FLASH_BWD_TILE) * FLASH_BWD_TILE
@@ -1841,6 +1850,51 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, scale, n_valid=None):
             *o.stride()[:3], *do.stride()[:3], n * h * d, d, h * d, b, h, n,
             d, n_valid, float(scale), ctypes.addressof(launched),
             launched=launched)
+    return tuple(g.permute(0, 2, 1, 3) for g in grads)
+
+
+def flash_attention_f32_fwd_cuda(q, k, v, scale, n_valid=None, lse=False):
+    """:func:`flash_attention_fwd_cuda` on fp32 operands
+    (csrc/flash_attention_f32_fwd.cu: true fp32 products, SIMT FFMA; K5
+    and K6 on fp32): fp32 (B, H, N, D) q, k, v sharing strides, rows
+    contiguous and 16-byte aligned, D 32 or 64 -> fp32 (B, H, N, D), a
+    view of (B, N, H, D) storage, and with ``lse`` the fp32 (B, H, N)
+    log-sum-exp; one launch."""
+    b, h, n, d, n_valid = _flash_args("flash_attention_f32", torch.float32,
+                                      q, k, v, n_valid)
+    out = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
+    lse_t = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+             if lse else None)
+    _launch("flash_attention_f32_fwd", _lib().mvt_flash_attention_f32_fwd, q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse_t is None else lse_t.data_ptr(), *q.stride()[:3], b,
+            h, n, d, n_valid, float(scale))
+    out = out.permute(0, 2, 1, 3)
+    return (out, lse_t) if lse else out
+
+
+def flash_attention_f32_bwd_cuda(q, k, v, o, do, lse, scale, n_valid=None):
+    """The backward of :func:`flash_attention_f32_fwd_cuda`
+    (csrc/flash_attention_f32_bwd.cu, three launches: the dsum pre-pass,
+    dk / dv, dq; K7 and K8 on fp32): fp32 (B, H, N, D) q, k, v with the
+    forward's strides, its output o, the output gradient do (rows
+    contiguous and 16-byte aligned, strides of their own) and its fp32
+    (B, H, N) LSE -> fp32 (dq, dk, dv), (B, H, N, D) views of (B, N, H,
+    D) storage."""
+    b, h, n, d, n_valid = _flash_args(
+        "flash_attention_f32_bwd", torch.float32, q, k, v, n_valid,
+        more=((o, "o"), (do, "do")))
+    _require_shape(lse, "lse", (b, h, n))
+    dsum = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    grads = [torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
+             for _ in range(3)]
+    launched = ctypes.c_int(0)
+    _launch("flash_attention_f32_bwd", _lib().mvt_flash_attention_f32_bwd, q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            *(g.data_ptr() for g in grads), *q.stride()[:3],
+            *o.stride()[:3], *do.stride()[:3], b, h, n, d, n_valid,
+            float(scale), ctypes.addressof(launched), launched=launched)
     return tuple(g.permute(0, 2, 1, 3) for g in grads)
 
 

@@ -33,6 +33,13 @@ differ from the plain version's, which moves an output element by about
 keys): inside the one-kernel bar |kernel - plain| <= 2^-6 |plain| + 2^-7
 that chip_smoke.py holds it to.
 
+On fp32 operands (``compute_dtype`` float32) the JAX kernels' dots take
+``_kernel_precision`` None, true fp32 products, and so do the plain
+version (no rounding to a narrower type) and the fp32 CUDA kernels
+(csrc/flash_attention_f32_fwd.cu, csrc/flash_attention_f32_bwd.cu: 64-row
+tiles, SIMT FFMA), which differ from the plain version by the order of
+fp32 operations only.
+
 The backward is the JAX rule ``_fa_bwd`` on both devices: one autograd
 node saves q, k, v, the output and the LSE, and its backward computes,
 with ``do`` rounded to the operands' dtype and fp32 accumulation,
@@ -170,14 +177,26 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, scale, n_valid=None):
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def cuda_kernels(dtype):
+    """(forward, backward) launchers of the CUDA kernels for operands of
+    ``dtype``: bf16 csrc/flash_attention_{fwd,bwd}_wgmma.cu, fp32
+    csrc/flash_attention_f32_{fwd,bwd}.cu; any other dtype raises."""
+    if dtype == torch.bfloat16:
+        return K.flash_attention_fwd_cuda, K.flash_attention_bwd_cuda
+    if dtype == torch.float32:
+        return K.flash_attention_f32_fwd_cuda, K.flash_attention_f32_bwd_cuda
+    raise TypeError(f"flash_attention: no kernel for {dtype} operands; the "
+                    "kernels take bf16 and fp32")
+
+
 class _FlashAttention(torch.autograd.Function):
     """Flash attention as an autograd node, on either side: the plain
-    versions, or the CUDA kernels.  It saves q, k, v, the output and the
-    LSE, as ``_fa_fwd`` saves its residuals."""
+    versions, or the CUDA kernels of the operands' dtype.  It saves q, k,
+    v, the output and the LSE, as ``_fa_fwd`` saves its residuals."""
 
     @staticmethod
     def forward(ctx, plain, q, k, v, scale, n_valid):
-        fwd = flash_attention_plain if plain else K.flash_attention_fwd_cuda
+        fwd = flash_attention_plain if plain else cuda_kernels(q.dtype)[0]
         o, lse = fwd(q, k, v, scale, n_valid, lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.plain, ctx.scale, ctx.n_valid = plain, scale, n_valid
@@ -187,18 +206,24 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         bwd = flash_attention_bwd_plain if ctx.plain else \
-            K.flash_attention_bwd_cuda
-        # do in the operands' dtype, as the JAX rule casts it
-        return (None, *bwd(q, k, v, o, do.to(q.dtype), lse, ctx.scale,
-                           ctx.n_valid), None, None)
+            cuda_kernels(q.dtype)[1]
+        # do in the operands' dtype, as the JAX rule casts it, its rows
+        # contiguous for the kernels (autograd may hand over an expanded
+        # gradient, e.g. of a sum)
+        do = do.to(q.dtype)
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        return (None, *bwd(q, k, v, o, do, lse, ctx.scale, ctx.n_valid),
+                None, None)
 
 
 def flash_attention(q, k, v, scale, n_valid=None, plain=False):
     """Softmax attention, (B, H, N, D) -> (B, H, N, D), the argument order
     of the JAX function, differentiable.  A CPU tensor takes the plain
-    versions; a CUDA tensor the kernels (bf16, D 32 or 64), or an error;
-    any other device an error.  ``plain`` takes the plain versions on any
-    device (the reference the kernels are held against)."""
+    versions; a CUDA tensor the kernels of its dtype (bf16 or fp32, D 32
+    or 64), or an error; any other device an error.  ``plain`` takes the
+    plain versions on any device (the reference the kernels are held
+    against)."""
     if q.device.type == "cpu":
         plain = True
     elif q.device.type != "cuda":
@@ -207,4 +232,4 @@ def flash_attention(q, k, v, scale, n_valid=None, plain=False):
         return _FlashAttention.apply(plain, q, k, v, scale, n_valid)
     if plain:
         return flash_attention_plain(q, k, v, scale, n_valid)
-    return K.flash_attention_fwd_cuda(q, k, v, scale, n_valid)
+    return cuda_kernels(q.dtype)[0](q, k, v, scale, n_valid)

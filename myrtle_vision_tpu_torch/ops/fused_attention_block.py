@@ -33,6 +33,18 @@ Each direction rounds where the TPU kernel rounds, so the plain PyTorch
 chain (CPU tensors) and the kernel chain (CUDA tensors) differ only in
 the order of fp32 sums.
 
+On fp32 activations (``compute_dtype`` float32, ``qspec`` None) the TPU
+kernel takes ``_dot`` with true fp32 products (interpret mode on the
+CPU, where the plain chain above reproduces it).  On the card that form
+runs the ``qspec`` chain below with a site table whose rows have no
+statistics (:func:`no_snap_sites`), so that no kernel snaps: its
+LayerNorm, 3-pass GEMMs, fp32 attention core and their backwards.  The
+3-pass bf16 split loses about 2^-16 of each product, where the plain
+chain's fp32 products lose about 2^-24 (chip_smoke.py holds the two
+against each other with a stated bar); the core puts the scale after the
+scores' sum and divides by the rowsum, where the plain chain scales q
+first and multiplies by the reciprocal, which differ by fp32 roundings.
+
 The chain takes any sequence length on the card, forward and backward:
 up to 256 tokens the attention core and its backward hold one image's
 keys in shared memory, above that they walk them in tiles fed by TMA
@@ -91,6 +103,8 @@ casts them.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from myrtle_vision_tpu_torch.ops import _kernels as K
@@ -114,15 +128,36 @@ def fuses_at(n: int, heads: int, d: int) -> bool:
     return _per_image_stack_bytes(n, heads, d) <= 40 * 1024 * 1024
 
 
+@functools.lru_cache(maxsize=None)
+def no_snap_sites(device):
+    """A (5, 3) site table on ``device`` whose rows have no statistics:
+    under it every snap of the qspec / INT8 chains is the identity, so
+    those chains compute the unquantized block half on fp32 activations
+    (the module docstring)."""
+    table = torch.zeros((5, 3), device=device)
+    table[:, 0] = 1.0
+    return table
+
+
+def _kernel_chain_f32(kern, x):
+    """Whether a call runs the fp32 kernel chain: fp32 activations on the
+    card, where the bf16 chain's kernels do not apply; any dtype but bf16
+    and fp32 raises there."""
+    if kern is not K.CUDA or x.dtype == torch.bfloat16:
+        return False
+    if x.dtype != torch.float32:
+        raise TypeError(f"the block-half chains on CUDA take bf16 or fp32 "
+                        f"activations, got {x.dtype}")
+    return True
+
+
 def _forward(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
              record):
     """The chain; with ``record`` also (ctx, m, rs, qkv) for the
     backward."""
-    if kern is K.CUDA and x.dtype != torch.bfloat16:
-        raise TypeError(
-            f"fused_attention_block on CUDA takes bf16 activations, got "
-            f"{x.dtype} (compute_dtype float32 has no kernel yet)"
-        )
+    if _kernel_chain_f32(kern, x):
+        return _forward_q(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp,
+                          heads, scale, no_snap_sites(x.device), record)
     dt = x.dtype
     b, n, c = x.shape
     cl = wp.shape[0]
@@ -180,6 +215,10 @@ def _backward(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
               qkv, heads, scale):
     """``_bwd_one_image`` over the batch -> (dx, dscale, dbias, dwqkv,
     dbqkv, dwp, dbp), weight gradients in the (in, out) shape."""
+    if _kernel_chain_f32(kern, x):
+        return _backward_q(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp,
+                           ctx, m, rs, qkv, heads, scale,
+                           no_snap_sites(x.device))
     dt = x.dtype
     b, n, c = x.shape
     cl = wp.shape[0]

@@ -58,6 +58,11 @@ says how): the LayerNorm's output (row 0), fc1 after its bias (1), the
 GELU's output (2; the backward's fc1 recompute snaps it again, and dW2
 contracts against it), fc2 after its bias (3) and the residual sum (4).
 
+On fp32 activations (``compute_dtype`` float32, ``qspec`` None) the card
+runs the ``qspec`` chain with a site table that snaps nothing
+(ops/fused_attention_block.py ``no_snap_sites``): 3-pass products against
+the plain chain's true fp32 ones.
+
 Weights keep the JAX layout: w1 (C, H), w2 (H, C), i.e. (in, out);
 gradients come back in each input's dtype and layout.
 """
@@ -68,17 +73,17 @@ import torch
 from myrtle_vision_tpu_torch.ops import _kernels as K
 from myrtle_vision_tpu_torch.ops.fake_quant import kernel_sites
 from myrtle_vision_tpu_torch.ops.fused_attention_block import (
+    _kernel_chain_f32,
     _site_table,
+    no_snap_sites,
     records,
 )
 
 
 def _forward(kern, x, scale, bias, w1, b1, w2, b2):
-    if kern is K.CUDA and x.dtype != torch.bfloat16:
-        raise TypeError(
-            f"fused_mlp_block on CUDA takes bf16 activations, got {x.dtype} "
-            "(compute_dtype float32 has no kernel yet)"
-        )
+    if _kernel_chain_f32(kern, x):
+        return _forward_q(kern, x, scale, bias, w1, b1, w2, b2,
+                          no_snap_sites(x.device))
     dt = x.dtype
     c = x.shape[-1]
     x2 = x.contiguous().view(-1, c)
@@ -113,6 +118,9 @@ def _forward_q(kern, x, scale, bias, w1, b1, w2, b2, qspec):
 def _backward(kern, do, x, scale, bias, w1, b1, w2):
     """``_bwd_one_image`` over the batch -> (dx, dscale, dbias, dw1, db1,
     dw2, db2), weight gradients in the (in, out) shape."""
+    if _kernel_chain_f32(kern, x):
+        return _backward_q(kern, do, x, scale, bias, w1, b1, w2,
+                           no_snap_sites(x.device))
     dt = x.dtype
     c = x.shape[-1]
     x2 = x.contiguous().view(-1, c)

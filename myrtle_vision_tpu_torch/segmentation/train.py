@@ -26,8 +26,12 @@ simulation in the JAX package's one-pass QAT step
 ``.pth``, or a timm model name with timm installed); otherwise the CLI
 warns and trains from scratch.  ``--device`` defaults to ``cuda``;
 without a CUDA device that raises, it never carries on on the CPU.
-Multi-device training and TensorBoard scalars are not ported yet
-(ROADMAP A9, A10).
+Multi-device training is not ported yet (ROADMAP A9).  As the JAX CLI,
+each validation's accuracy, loss and mIoU go to ``runs/`` (TensorBoard
+where the package is installed, else ``runs/scalars.jsonl``;
+utils/logging.py), and with ``MVT_PROFILE_DIR`` set steps 3-5 are traced
+(utils/profiling.py).  A positive ``dropout`` or ``emb_dropout`` trains
+with the dropout sites active (training/trainer.py).
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from myrtle_vision_tpu_torch.training.segmentation import (
 )
 from myrtle_vision_tpu_torch.training.trainer import (
     TrainState,
+    dropout_generator,
     make_train_step,
 )
 from myrtle_vision_tpu_torch.utils.checkpoint import (
@@ -66,7 +71,9 @@ from myrtle_vision_tpu_torch.utils.config import (
     seed_everything,
 )
 from myrtle_vision_tpu_torch.utils.convert import load_pretrained_backbone
+from myrtle_vision_tpu_torch.utils.logging import ScalarLogger
 from myrtle_vision_tpu_torch.utils.metrics import MIoU
+from myrtle_vision_tpu_torch.utils.profiling import StepProfiler
 
 
 def validation(predict_fn, val_loader, n_classes):
@@ -147,13 +154,16 @@ def train(config, device):
 
     model, train_loader, val_loader, (batch_size, n_batch_accum) = \
         build_train(config, device)
+    writer = ScalarLogger("runs/")
     os.makedirs(output_directory, exist_ok=True)
     print("output directory:", output_directory)
     print(f"device: {device}, local_batch={batch_size}, "
           f"n_accum={n_batch_accum}")
 
     state, iteration = prepare_model_and_load_ckpt(
-        train_config, TrainState(model, create_optimizer(train_config, model)))
+        train_config, TrainState(model, create_optimizer(train_config, model),
+                                 dropout=dropout_generator(
+                                     model, train_config["seed"])))
     train_step = make_train_step(make_loss_fn(model), n_batch_accum,
                                  clip_grad=train_config.get("clip_grad"))
     predict_fn = make_predict_fn(model)
@@ -167,6 +177,7 @@ def train(config, device):
                               / len(train_loader.dataset)))
     last_val_loss, last_val_acc = 0.0, 0.0
     steps_per_epoch = len(train_loader)
+    profiler = StepProfiler()
 
     for epoch in range(epoch_offset, epochs):
         lr = lr_at_epoch(train_config, epoch)
@@ -177,10 +188,14 @@ def train(config, device):
                 save_checkpoint(state,
                                 f"{output_directory}/vit_{iteration:06}")
             if iteration % iters_per_val == 0:
-                last_val_loss, last_val_acc, _ = validation(
+                last_val_loss, last_val_acc, miou_value = validation(
                     predict_fn, val_loader, n_classes)
+                writer.add_scalar("accuracy", last_val_acc, iteration)
+                writer.add_scalar("loss", last_val_loss, iteration)
+                writer.add_scalar("miou", miou_value, iteration)
             metrics = train_step(state, micro_batches(batch), lr)
             iteration = state.iteration
+            profiler.step(iteration)
             loss = float(metrics["loss"])
             acc = float(metrics["acc"])
             epoch_loss += loss / steps_per_epoch
@@ -196,7 +211,9 @@ def train(config, device):
             f"time: {time.time() - t_epoch:.1f}s\n"
         )
 
+    profiler.close()
     save_checkpoint(state, f"{output_directory}/vit_{iteration:06}")
+    writer.flush()
     return state
 
 

@@ -31,18 +31,31 @@ def make_loss_fn(model, distiller=None, teacher_fn=None):
     ``quant``, pass 2 folds nothing.  Beyond the fused Block's length
     pass 2's blocks run the JAX Block's discrete composition, calibrating
     with the observers frozen, differentiated (models/vit.py
-    ``Block.forward_int8``), as the JAX pass 2 does there."""
+    ``Block.forward_int8``), as the JAX pass 2 does there.
+
+    ``loss_fn(batch, dropout_rng=None)``: the dropout sites' generator
+    (training/trainer.py), the JAX step's "dropout" rng.  Both INT8 passes
+    see the same masks (the generator's state is restored between them,
+    as the JAX passes share one key); with a positive ``dropout`` a
+    PyTorchINT8 model trains in one pass, its calibrating forward
+    differentiated, as the JAX step does then."""
     if distiller is not None:
         return _distill_loss_fn(distiller, teacher_fn)
-    two_pass = model.int8 and not model.converted
+    two_pass = model.int8 and not model.converted and model.dropout == 0.0
 
-    def loss_fn(batch):
+    def loss_fn(batch, dropout_rng=None):
+        img = batch["image"]
         if two_pass:
+            rng_state = None if dropout_rng is None else \
+                dropout_rng.get_state()
             with torch.no_grad():
-                model(batch["image"], calibrating=True)
-            logits = model(batch["image"], int8_fused=True)
+                model(img, calibrating=True, dropout_rng=dropout_rng)
+            if rng_state is not None:
+                dropout_rng.set_state(rng_state)
+            logits = model(img, int8_fused=True, dropout_rng=dropout_rng)
         else:
-            logits = model(batch["image"])
+            logits = model(img, calibrating=model.int8 and
+                           not model.converted, dropout_rng=dropout_rng)
         labels = batch["label"].long()
         loss = cross_entropy_loss(logits, labels)
         acc = (logits.argmax(-1) == labels).float().mean()
@@ -52,10 +65,11 @@ def make_loss_fn(model, distiller=None, teacher_fn=None):
 
 
 def _distill_loss_fn(distiller, teacher_fn):
-    def loss_fn(batch):
+    def loss_fn(batch, dropout_rng=None):
         teacher_logits = teacher_fn(batch["image"])
         labels = batch["label"].long()
-        loss, logits = distiller(batch["image"], labels, teacher_logits)
+        loss, logits = distiller(batch["image"], labels, teacher_logits,
+                                 dropout_rng=dropout_rng)
         acc = (logits.argmax(-1) == labels).float().mean()
         return loss, {"metrics": {"acc": acc}}
 

@@ -26,8 +26,9 @@ def make_loss_fn(model, num_classes, weight_dict, eos_coef):
     training/trainer.py ``make_train_step``."""
     qat_int8 = model.int8 and not model.converted
 
-    def loss_fn(batch):
-        outputs = model(batch["image"], calibrating=qat_int8)
+    def loss_fn(batch, dropout_rng=None):
+        outputs = model(batch["image"], calibrating=qat_int8,
+                        dropout_rng=dropout_rng)
         targets = {k: batch[k] for k in ("labels", "boxes", "valid")}
         losses = criterion(outputs, targets, num_classes=num_classes,
                            weight_dict=weight_dict, eos_coef=eos_coef)

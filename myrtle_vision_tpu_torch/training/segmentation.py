@@ -35,8 +35,9 @@ def make_loss_fn(model):
     is the label (a -1 pixel never is)."""
     qat_int8 = model.int8 and not model.converted
 
-    def loss_fn(batch):
-        logits = model(batch["image"], calibrating=qat_int8)
+    def loss_fn(batch, dropout_rng=None):
+        logits = model(batch["image"], calibrating=qat_int8,
+                       dropout_rng=dropout_rng)
         labels = batch["label"].long()
         loss = pixel_cross_entropy(logits, labels)
         acc = (logits.argmax(-1) == labels).float().mean()

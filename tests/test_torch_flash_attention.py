@@ -127,8 +127,14 @@ def test_entry_points_refuse_what_is_not_ported():
     with pytest.raises(ValueError, match="no kernel for meta"):
         port_fa.flash_attention(q, q, q, SCALE)
     x = torch.zeros(1, 2, 8, 32)
-    with pytest.raises(NotImplementedError, match="A10"):
-        y = x.to(torch.bfloat16)  # the xla core takes the float formats' fp32
-        multi_head_attention(y, y, y, SCALE, impl="xla")
-    with pytest.raises(NotImplementedError, match="A10"):
-        multi_head_attention(x, x, x, SCALE, return_probs=True)
+    # the xla core takes bf16 as well as fp32, and attention capture
+    # forces it, as the JAX function does
+    y = x.to(torch.bfloat16)
+    assert multi_head_attention(y, y, y, SCALE, impl="xla").dtype == \
+        torch.bfloat16
+    out, probs = multi_head_attention(x, x, x, SCALE, return_probs=True)
+    assert out.shape == x.shape and probs.shape == (1, 2, 8, 8)
+    with pytest.raises(ValueError, match="require impl='xla'"):
+        multi_head_attention(x, x, x, SCALE, impl="flash", return_probs=True)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        multi_head_attention(x, x, x, SCALE, impl="einsum")

@@ -180,8 +180,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         K.gemm_bf16_epilogue_cuda(w[:4, :8].contiguous(), w[:8, ::2],
                                   torch.zeros(16, device=dev), "bias")
     x, attn, _ = block(64, 128, 1, 17, 0, dev)
-    with pytest.raises(TypeError, match="bf16"):
-        fused_attention_block(x.float(), *attn, 2, 0.125)
+    # fp32 activations take the fp32 chain since compute_dtype float32
+    # was ported; fp16 has no chain
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        fused_attention_block(x.half(), *attn, 2, 0.125)
 
 
 def test_model_runs_through_the_kernels(dev):
@@ -2758,3 +2760,140 @@ def test_distilled_student_trains_through_the_kernels(dev, tmp_path):
         torch.testing.assert_close(
             got, ref, rtol=2.0 ** -4,
             atol=2.0 ** -4 * max(float(ref.abs().max()), 1e-3), msg=name)
+
+
+# compute_dtype float32.  The fp32 flash kernels take true fp32 products
+# (SIMT FFMA), as the plain version does, so the two differ by the order
+# of fp32 operations alone: about 2^-23 of a sum's terms.  Bar per element
+# 2^-14 of |plain| plus 2^-14 of the largest |plain| (outputs and the
+# LSE); 2^-12 of the largest for dq, dk and dv, sums over up to 2601 rows.
+F32_FLASH_RTOL = 2.0 ** -14
+F32_FLASH_ATOL = 2.0 ** -14
+F32_FLASH_GRAD_ATOL = 2.0 ** -12
+# The fp32 block-half chains (the qspec chains snapping nothing) take
+# 3-pass bf16 products, about 2^-16 of each product off, against the plain
+# chain's true fp32: bar 2^-10 of |plain| plus 2^-10 of the largest
+# |plain| for the outputs and dx, 2^-8 of the largest for the parameter
+# gradients, sums over the B N rows.
+F32_CHAIN_RTOL = 2.0 ** -10
+F32_CHAIN_ATOL = 2.0 ** -10
+F32_CHAIN_SUM_ATOL = 2.0 ** -8
+F32_FLASH_N = [1, 17, 197, 1536, 1545, 2601]
+
+
+def close_f32(got, ref, rtol, atol_share):
+    """fp32 against fp32: |got - ref| <= rtol |ref| + atol_share times the
+    largest |ref| (at least 1)."""
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert got.dtype == ref.dtype == torch.float32
+    atol = atol_share * max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+
+
+def f32_qkv_views(b, n, h, d, seed, dev):
+    """q, k, v: views of fused fp32 qkv rows, std 1, from a seed, as the
+    discrete Block hands them over."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    rows = torch.randn(b, n, 3 * h * d, device=dev, generator=gen)
+    return rows.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", F32_FLASH_N)
+def test_f32_flash_forward_matches_plain(dev, n, d, masked):
+    """K5 / K6 on fp32: output and LSE against the plain version in its
+    regime (unblocked up to n_pad 1536, blocked above); one launch."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q, k, v = f32_qkv_views(2, n, 2, d, n * d + 5, dev)
+    n_valid = edge_n_valid(n, masked)
+    before = K.LAUNCHES["flash_attention_f32_fwd"]
+    got = K.flash_attention_f32_fwd_cuda(q, k, v, d ** -0.5, n_valid,
+                                         lse=True)
+    assert K.LAUNCHES["flash_attention_f32_fwd"] == before + 1
+    ref = flash_attention_plain(q, k, v, d ** -0.5, n_valid, lse=True)
+    close_f32(got[0], ref[0], F32_FLASH_RTOL, F32_FLASH_ATOL)
+    close_f32(got[1], ref[1], F32_FLASH_RTOL, F32_FLASH_ATOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", F32_FLASH_N)
+def test_f32_flash_backward_matches_plain(dev, n, d, masked):
+    """K7 / K8 on fp32: dq, dk, dv against the plain backward in its
+    regime, both from the kernel forward's o (its (B, N, H, D)-storage
+    view) and LSE, do contiguous; zero rows past n_valid; three launches
+    a call."""
+    q, k, v = f32_qkv_views(2, n, 2, d, n * d + 6, dev)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        dev).manual_seed(n + 7))
+    n_valid, sc = edge_n_valid(n, masked), d ** -0.5
+    o, lse = K.flash_attention_f32_fwd_cuda(q, k, v, sc, n_valid, lse=True)
+    before = K.LAUNCHES["flash_attention_f32_bwd"]
+    got = K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse, sc, n_valid)
+    assert K.LAUNCHES["flash_attention_f32_bwd"] == before + 3
+    ref = flash_attention_bwd_plain(q, k, v, o, do, lse, sc, n_valid)
+    for g, r in zip(got, ref):
+        close_f32(g, r, F32_FLASH_RTOL, F32_FLASH_GRAD_ATOL)
+    if n_valid is not None:
+        for g in got:
+            assert not g[:, :, n_valid:].any()
+
+
+def test_f32_flash_dispatch_and_refusals(dev):
+    """flash_attention takes the kernels of the operands' dtype, forward
+    and backward; the fp32 wrappers refuse what they do not take."""
+    q, k, v = f32_qkv_views(1, 40, 2, 64, 3, dev)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    before = (K.LAUNCHES["flash_attention_f32_fwd"],
+              K.LAUNCHES["flash_attention_f32_bwd"],
+              K.LAUNCHES["flash_attention_fwd"])
+    flash_attention(q, k, v, 0.125).sum().backward()
+    assert (K.LAUNCHES["flash_attention_f32_fwd"],
+            K.LAUNCHES["flash_attention_f32_bwd"],
+            K.LAUNCHES["flash_attention_fwd"]) == (
+        before[0] + 1, before[1] + 3, before[2])
+    with pytest.raises(TypeError, match="no kernel for torch.float16"):
+        flash_attention(*(t.detach().half() for t in (q, k, v)), 0.125)
+    x = torch.zeros(1, 2, 40, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="fp32"):
+        K.flash_attention_f32_fwd_cuda(x, x, x, 0.125)
+    x = torch.zeros(1, 2, 40, 48, device=dev)
+    with pytest.raises(ValueError, match="head width 48"):
+        K.flash_attention_f32_fwd_cuda(x, x, x, 0.125)
+    x = torch.zeros(1, 2, 40, 64, device=dev)
+    with pytest.raises(ValueError, match="n_valid 41"):
+        K.flash_attention_f32_bwd_cuda(x, x, x, x, x, torch.zeros(
+            1, 2, 40, device=dev), 0.125, n_valid=41)
+
+
+def f32_block(c, hid, b, n, seed, dev):
+    """:func:`block` with fp32 activations."""
+    x, attn, mlp = block(c, hid, b, n, seed, dev)
+    return x.float(), attn, mlp
+
+
+@pytest.mark.parametrize("n", [197, 677])
+def test_f32_block_chains_match_plain(dev, n):
+    """The fp32 K1-K4 route (the qspec chains with no site snapping)
+    against the plain chains' true fp32, forward and backward, at ViT-S/16
+    (197 tokens) and YOLOS-S at 384 px (677: the long fp32 core)."""
+    x, attn, mlp = f32_block(384, 1536, 2, n, n + 11, dev)
+    scale = 64 ** -0.5
+    for op, plain, params, extra in (
+            (fused_attention_block, fused_attention_block_plain, attn,
+             (6, scale)),
+            (fused_mlp_block, fused_mlp_block_plain, mlp, ())):
+        before = (op.launches, op.bwd_launches)
+        close_f32(op(x, *params, *extra), plain(x, *params, *extra),
+                  F32_CHAIN_RTOL, F32_CHAIN_ATOL)
+        do = torch.randn(x.shape, device=dev, generator=torch.Generator(
+            dev).manual_seed(n))
+        got = grads_of(op, x, params, extra, do)
+        ref = grads_of(plain, x, params, extra, do)
+        assert (op.launches, op.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+        close_f32(got[0], ref[0], F32_CHAIN_RTOL, F32_CHAIN_ATOL)
+        for g, r in zip(got[1:], ref[1:]):
+            close_f32(g, r, F32_CHAIN_RTOL, F32_CHAIN_SUM_ATOL)
