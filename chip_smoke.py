@@ -39,12 +39,13 @@ Phases, each ending in one line of output:
               each format with and without the statistics, and forced at
               B=64, N=197 against the one-CTA kernels
   3a. kernels-f32  float32 compute (compute_dtype float32): the fp32 flash
-              forward (K5 / K6 on fp32 operands, csrc/flash_attention_f32_
-              fwd.cu) and backward (K7 / K8, csrc/flash_attention_f32_
-              bwd.cu) against their plain versions at YOLOS-S's 800 px
-              (8, 6, 2601, 64) and 608 px (2, 6, 1545, 64) shapes, ViT-S/16's
-              (64, 6, 197, 64) and a ragged masked case, one and three
-              launches a call; the fp32 K1-K4 route (the qspec chains with a
+              forward (K5 / K6 on fp32 operands, 3xTF32 on wgmma, csrc/
+              flash_attention_f32_fwd_wgmma.cu) and backward (K7 / K8,
+              csrc/flash_attention_f32_bwd_wgmma.cu) against their plain
+              versions' true fp32 at YOLOS-S's 800 px (8, 6, 2601, 64) and
+              608 px (2, 6, 1545, 64) shapes, ViT-S/16's (64, 6, 197, 64)
+              and a ragged masked case, two and four launches a call; the
+              fp32 K1-K4 route (the qspec chains with a
               site table that snaps nothing) forward and backward against
               the plain chains' true fp32 at B=64, N=197 and B=4, N=677
   3b. probes the probes of the port's kernels, K12-K14
@@ -5785,10 +5786,11 @@ def time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs):
 # ------------------------------------------------------------ fp32 compute
 #
 # compute_dtype float32 (phases kernels-f32, fp32 and remainder).  The fp32
-# flash kernels take true fp32 products (SIMT FFMA), as their plain
-# versions do, so the two differ by the order of fp32 operations alone:
-# bar per element 2^-14 of |plain| plus 2^-14 of the largest |plain| (the
-# output and the LSE), 2^-12 of the largest for dq, dk and dv.  The fp32
+# flash kernels run every product as 3xTF32 on the tensor cores (each
+# operand split into tf32 hi and lo, three passes: about 2^-22 of each
+# product off true fp32), their plain versions true fp32: bar per element
+# 2^-14 of |plain| plus 2^-14 of the largest |plain| (the output and the
+# LSE), 2^-12 of the largest for dq, dk and dv.  The fp32
 # K1-K4 route runs the qspec chains' kernels snapping nothing, whose 3-pass
 # bf16 products lose about 2^-16 of each product against the plain chains'
 # true fp32: 2^-10 of |plain| plus 2^-10 of the largest for the outputs and
@@ -5813,10 +5815,12 @@ F32_FLASH_BWD_CASES = [(2, 6, 1545, 64, None, "K7 regime, 608 px"),
 # px, the long fp32 core
 F32_CHAIN_CASES = ((64, N, "ViT-S/16"), (4, 677, "YOLOS-S 384 px"))
 F32_KERNELS = {
-    "flash_attention_f32_fwd": (CSRC + "flash_attention_f32_fwd.cu",
-                                f"{TPU_FLASH} (fp32)"),
-    "flash_attention_f32_bwd": (CSRC + "flash_attention_f32_bwd.cu",
-                                f"{TPU_FLASH_BWD} (fp32)"),
+    "flash_attention_f32_fwd": (
+        f"{CSRC}flash_attention_f32_fwd_wgmma.cu; {CSRC}flash_tf32.cuh",
+        f"{TPU_FLASH} (fp32)"),
+    "flash_attention_f32_bwd": (
+        f"{CSRC}flash_attention_f32_bwd_wgmma.cu; {CSRC}flash_tf32.cuh",
+        f"{TPU_FLASH_BWD} (fp32)"),
 }
 # the fp32 K1-K4 route in the kernels line: (its sources, the TPU kernel
 # it replaces, its TPU chain's name)
@@ -5876,7 +5880,7 @@ def leaf_grads(fn, x, params, extra, do):
 def phase_kernels_f32(device):
     """The fp32 flash kernels (K5 / K6 forward, K7 / K8 backward) against
     their plain versions at :data:`F32_FLASH_CASES` and
-    :data:`F32_FLASH_BWD_CASES`, one and three launches a call, and the
+    :data:`F32_FLASH_BWD_CASES`, two and four launches a call, and the
     fp32 K1-K4 route (the qspec chains with no snap) against the plain
     chains' true fp32 at :data:`F32_CHAIN_CASES`, forward and backward;
     returns the largest max abs of each kernels-line entry."""
@@ -5899,7 +5903,8 @@ def phase_kernels_f32(device):
         res = [f32_close(f"flash_attention_f32_fwd {tag} {part}", g, r,
                          F32_FLASH_RTOL, F32_FLASH_ATOL)
                for g, r, part in zip(got, ref, ("output", "LSE"))]
-        check(launched == 1, f"flash_attention_f32_fwd: {launched} launches")
+        check(launched == K.F32_FLASH_FWD_LAUNCHES,
+              f"flash_attention_f32_fwd: {launched} launches")
         errors["flash_attention_f32_fwd"] = max(
             errors["flash_attention_f32_fwd"], *(m for m, _ in res))
         print(f"kernels: flash_attention_f32_fwd B={b} H={h} N={n} D={d} "
@@ -5921,7 +5926,8 @@ def phase_kernels_f32(device):
         res = [f32_close(f"flash_attention_f32_bwd {tag} {part}", g, r,
                          F32_FLASH_RTOL, F32_FLASH_GRAD_ATOL)
                for g, r, part in zip(got, ref, ("dq", "dk", "dv"))]
-        check(launched == 3, f"flash_attention_f32_bwd: {launched} launches")
+        check(launched == K.F32_FLASH_BWD_LAUNCHES,
+              f"flash_attention_f32_bwd: {launched} launches")
         errors["flash_attention_f32_bwd"] = max(
             errors["flash_attention_f32_bwd"], *(m for m, _ in res))
         print(f"kernels: flash_attention_f32_bwd B={b} H={h} N={n} D={d} "
@@ -6015,7 +6021,8 @@ def f32_step_launches(n_tok, n_accum, depth):
     """The attention kernels' launches of one fp32 YOLOS-S train step at
     ``n_tok`` tokens: per block and micro-batch, fused, the fp32 core (two
     kernels above 256 tokens) and its backward (four there); past the gate
-    one fp32 flash forward and one backward (three kernels)."""
+    one fp32 flash forward (two kernels) and one backward (four)."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
     from myrtle_vision_tpu_torch.ops.fused_attention_block import fuses_at
 
     blocks = depth * n_accum
@@ -6025,8 +6032,9 @@ def f32_step_launches(n_tok, n_accum, depth):
                           "flash_attention_f32_fwd",
                           "flash_attention_f32_bwd"), 0)
     if not fuses_at(n_tok, HEADS, C // HEADS):
-        want.update(flash_attention_f32_fwd=blocks,
-                    flash_attention_f32_bwd=3 * blocks)
+        want.update(
+            flash_attention_f32_fwd=K.F32_FLASH_FWD_LAUNCHES * blocks,
+            flash_attention_f32_bwd=K.F32_FLASH_BWD_LAUNCHES * blocks)
     elif n_tok > 256:
         want.update(attention_core_f32_long=2 * blocks,
                     attention_core_f32_bwd_long=4 * blocks)
@@ -6054,6 +6062,7 @@ def phase_fp32(device, data_config, det_data):
     from myrtle_vision_tpu_torch.classification import train as train_cli
     from myrtle_vision_tpu_torch.models.detector import build_weight_dict
     from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
+    from myrtle_vision_tpu_torch.ops import _kernels as K
 
     t_phase = time.perf_counter()
     config = f32_config(vit_small_config())
@@ -6118,9 +6127,10 @@ def phase_fp32(device, data_config, det_data):
         state, losses, launches, ops, took, run_dir = run_train_cli(
             config, "vit_small_fp32_nofuse_train", "fp32-nofuse")
         steps = state.iteration
-        want = {"flash_attention_f32_fwd":
-                depth * (n_accum * steps + val_batches),
-                "flash_attention_f32_bwd": 3 * depth * n_accum * steps}
+        want = {"flash_attention_f32_fwd": K.F32_FLASH_FWD_LAUNCHES * depth
+                * (n_accum * steps + val_batches),
+                "flash_attention_f32_bwd":
+                K.F32_FLASH_BWD_LAUNCHES * depth * n_accum * steps}
         got = {k: launches[k] for k in want}
         print(f"fp32-nofuse: ViT-S/16 train CLI under MVT_NO_FUSE=1, {steps} "
               f"steps in {took:.1f} s: fp32 flash launches {got}, expected "
@@ -6162,7 +6172,7 @@ def phase_fp32(device, data_config, det_data):
           f"plain: " + ", ".join(f"{k} max_abs {m:.6g} ({s:.4f} of the fp32 "
                                  "chain bar)" for k, (m, s) in res.items())
           + f"; flash_attention_f32_fwd {launched} launches")
-    check(n_tok == 2601 and launched == ydepth,
+    check(n_tok == 2601 and launched == K.F32_FLASH_FWD_LAUNCHES * ydepth,
           f"fp32: the 800 px forward launched {launched}")
     runs["flash_attention_f32_fwd"] += launched
     yolos.train()
@@ -6329,11 +6339,42 @@ def f32_chain_cost(name, b, n, leaves, library):
     return cost(nbytes(*leaves), 3 * flops, "bf16", library)
 
 
+def f32_flash_share(name, c, timed, split_bytes, library, power):
+    """One line for an fp32 flash case (``c``: its cost, ``timed``:
+    time_case's result): the kernel's and its device time as shares of the
+    bound (three bf16 passes of its products at 989 TFLOP/s, as for the
+    fp32 chains: what the card needs for products this close to fp32), of
+    the 3xTF32 bound (three TF32 passes at 495 TFLOP/s: this design's own
+    products), the split pass's bytes (``split_bytes``, read once and
+    written once) at the memory rate, and the yardstick's time from the
+    same run."""
+    b_ms, lib_ms, _, k_ms, dev_ms = timed
+    t_ms = bound(dict(c, peak="tf32"))[0]
+    s_ms = bound(cost(split_bytes, 0, "bf16"))[0]
+    dev = ("device not measured" if dev_ms is None
+           else f"device {dev_ms:.4f} ms, {b_ms / dev_ms:.3f} of the bound")
+    print(f"timing: {name} bound {b_ms:.4f} ms (three bf16 passes at 989 "
+          f"TFLOP/s): kernel {k_ms:.4f} ms, {b_ms / k_ms:.3f} of the bound; "
+          f"{dev}; 3xTF32 bound {t_ms:.4f} ms (three TF32 passes at 495 "
+          f"TFLOP/s), kernel {t_ms / k_ms:.3f} of it; split pass's bytes "
+          f"{split_bytes} at 3.35 TB/s {s_ms:.4f} ms; {library} "
+          f"{lib_ms:.4f} ms, kernel / {library} {k_ms / lib_ms:.3f} [{power}]")
+
+
+def f32_split_bytes(b, h, n, d, reads, arrays):
+    """The bytes of the fp32 flash split pass: ``reads`` fp32 (B, H, N, D)
+    operands read once, ``arrays`` layouts written, a hi and a lo half of
+    (B H, N rounded up to 8, D) each."""
+    return 4 * b * h * d * (reads * n + 2 * arrays * (-(-n // 8) * 8))
+
+
 def time_f32(device, power):
     """Per call at the fp32 paths' shapes: the fp32 flash forward at K6's
     (8, 6, 2601, 64) and K5's (256, 6, 197, 64), the backward at K7's
     (8, 6, 1545, 64) and K8's (256, 6, 197, 64), each beside its plain
-    version, its bound and fp32 SDPA (its backward by autograd); the fp32
+    version, its bound (three bf16 passes of its products at 989 TFLOP/s),
+    its share of that bound and of the 3xTF32 bound, the split pass's bytes
+    and fp32 SDPA (its backward by autograd); the fp32
     K1-K4 route per ViT-S/16 block at B=256 beside the plain chains and
     F.layer_norm, cuBLAS fp32 products and fp32 SDPA; then the ViT-S/16
     fp32 step at B=256, fused and under MVT_NO_FUSE=1, the YOLOS-S fp32
@@ -6363,14 +6404,13 @@ def time_f32(device, power):
         sc = d ** -0.5
         c = cost(nbytes(q, k, v, q), 3 * 4 * b * h * n * n * d, "bf16",
                  lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
-        time_case(totals, f"flash_attention_f32_fwd[{tag}]",
-                  lambda: K.flash_attention_f32_fwd_cuda(q, k, v, sc),
-                  lambda: flash_attention_plain(q, k, v, sc),
-                  1 if tag.startswith("K6") else 0, c, power,
-                  f"B={b} H={h} N={n} D={d}")
-        print(f"timing: flash_attention_f32_fwd[{tag}] fp32 SIMT floor "
-              f"{4 * b * h * n * n * d / 67e12 * 1e3:.4f} ms (its products "
-              f"at 67 TFLOP/s) [{power}]")
+        f32_flash_share(f"flash_attention_f32_fwd[{tag}]", c, time_case(
+            totals, f"flash_attention_f32_fwd[{tag}]",
+            lambda: K.flash_attention_f32_fwd_cuda(q, k, v, sc),
+            lambda: flash_attention_plain(q, k, v, sc),
+            1 if tag.startswith("K6") else 0, c, power,
+            f"B={b} H={h} N={n} D={d}"), f32_split_bytes(b, h, n, d, 2, 2),
+            "fp32 SDPA", power)
         del q, k, v
     for b, h, n, d, tag in ((8, 6, 1545, 64, "K7 regime, 608 px"),
                             (256, 6, N, 64, "K8 regime, ViT-S/16")):
@@ -6384,12 +6424,13 @@ def time_f32(device, power):
                  3 * 10 * b * h * n * n * d, "bf16",
                  lambda: torch.autograd.grad(ref_out, leaves, do,
                                              retain_graph=True))
-        time_case(totals, f"flash_attention_f32_bwd[{tag}]",
-                  lambda: K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse,
-                                                         sc),
-                  lambda: flash_attention_bwd_plain(q, k, v, o, do, lse, sc),
-                  1 if tag.startswith("K7") else 0, c, power,
-                  f"B={b} H={h} N={n} D={d}")
+        f32_flash_share(f"flash_attention_f32_bwd[{tag}]", c, time_case(
+            totals, f"flash_attention_f32_bwd[{tag}]",
+            lambda: K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse, sc),
+            lambda: flash_attention_bwd_plain(q, k, v, o, do, lse, sc),
+            1 if tag.startswith("K7") else 0, c, power,
+            f"B={b} H={h} N={n} D={d}"), f32_split_bytes(b, h, n, d, 4, 7),
+            "fp32 SDPA's backward", power)
         del q, k, v, do, o, lse, leaves, ref_out
 
     # the fp32 K1-K4 route, per ViT-S/16 block at B=256

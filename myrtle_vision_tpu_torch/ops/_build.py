@@ -176,9 +176,9 @@ def lib() -> ctypes.CDLL:
              [p] * 10 + [ll, i, i] * 4 + [i] * 5 + [f, p, p]),
             ("mvt_flash_attention_fwd_plan", [i, i, p]),
             ("mvt_flash_attention_f32_fwd",
-             [p] * 5 + [ll, i, i] + [i] * 5 + [f, p]),
+             [p] * 6 + [ll, i, i] + [i] * 5 + [f, p, p]),
             ("mvt_flash_attention_f32_bwd",
-             [p] * 10 + [ll, i, i] * 3 + [i] * 5 + [f, p, p]),
+             [p] * 11 + [ll, i, i] * 3 + [i] * 5 + [f, p, p]),
             ("mvt_flash_attention_bwd_plan", [i, i, p]),
             ("mvt_attention_core_probe", [p, p, p, p, i, i, i, i, f, i, p]),
             ("mvt_gemm_bf16_probe", [p] * 5 + [i] * 6 + [p]),

@@ -32,12 +32,14 @@ backward (ops/flash_attention.py holds their plain versions):
 - ``flash_attention_bwd``  csrc/flash_attention_bwd_wgmma.cu (wgmma, TMA;
                            what both share in csrc/flash_wgmma.cuh)
 
-and their forms on fp32 operands (``compute_dtype`` float32), true fp32
-products on the CUDA cores:
+and their forms on fp32 operands (``compute_dtype`` float32), every
+product 3xTF32 on the tensor cores:
 
-- ``flash_attention_f32_fwd``  csrc/flash_attention_f32_fwd.cu
-- ``flash_attention_f32_bwd``  csrc/flash_attention_f32_bwd.cu (what both
-                               share in csrc/flash_f32_tiles.cuh)
+- ``flash_attention_f32_fwd``  csrc/flash_attention_f32_fwd_wgmma.cu (a
+                               split pass, then wgmma fed by TMA)
+- ``flash_attention_f32_bwd``  csrc/flash_attention_f32_bwd_wgmma.cu (dsum,
+                               the split pass, dk / dv, dq; what both
+                               share in csrc/flash_tf32.cuh)
 
 and those of the stateless float formats (FP16_16, FP16_32, TF32): the
 qtorch fake-quant K11 and the block halves with ``qspec = (exp_bits,
@@ -239,6 +241,11 @@ F32_LONG_BWD_CTAS_PER_SM = 2
 F32_LONG_SMEM_OPTIN = 232448
 F32_LONG_FWD_LAUNCHES = 2
 F32_LONG_BWD_LAUNCHES = 4
+# the fp32 flash kernels' launches a call (csrc/flash_attention_f32_{fwd,
+# bwd}_wgmma.cu): the split pass and the core; the dsum pre-pass, the split
+# pass, dk / dv and dq
+F32_FLASH_FWD_LAUNCHES = 2
+F32_FLASH_BWD_LAUNCHES = 4
 
 
 def reset_launches() -> None:
@@ -1853,48 +1860,65 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, scale, n_valid=None):
     return tuple(g.permute(0, 2, 1, 3) for g in grads)
 
 
+def _flash_f32_scratch(b, h, n, d, arrays, device):
+    """The split pass's scratch of the fp32 flash kernels: ``arrays``
+    operand layouts (the forward 2, the backward 7), each a hi and a lo
+    half of (B H, n_split(N), D) fp32 values (csrc/flash_tf32.cuh): the
+    forward's K as it lies, then V transposed; the backward's K, V, q and
+    do as they lie, then K, q and do transposed (the layouts of
+    ``ops.flash_attention.flash_f32_split_plain``)."""
+    ns = -(-n // 8) * 8
+    return torch.empty(2 * arrays * b * h * ns * d, dtype=torch.float32,
+                       device=device)
+
+
 def flash_attention_f32_fwd_cuda(q, k, v, scale, n_valid=None, lse=False):
     """:func:`flash_attention_fwd_cuda` on fp32 operands
-    (csrc/flash_attention_f32_fwd.cu: true fp32 products, SIMT FFMA; K5
-    and K6 on fp32): fp32 (B, H, N, D) q, k, v sharing strides, rows
-    contiguous and 16-byte aligned, D 32 or 64 -> fp32 (B, H, N, D), a
-    view of (B, N, H, D) storage, and with ``lse`` the fp32 (B, H, N)
-    log-sum-exp; one launch."""
+    (csrc/flash_attention_f32_fwd_wgmma.cu, K5 and K6 on fp32: every
+    product 3xTF32 on wgmma; two launches, the split pass and the core):
+    fp32 (B, H, N, D) q, k, v sharing strides, rows contiguous and 16-byte
+    aligned, D 32 or 64 -> fp32 (B, H, N, D), a view of (B, N, H, D)
+    storage, and with ``lse`` the fp32 (B, H, N) log-sum-exp."""
     b, h, n, d, n_valid = _flash_args("flash_attention_f32", torch.float32,
                                       q, k, v, n_valid)
     out = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
     lse_t = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
              if lse else None)
+    scratch = _flash_f32_scratch(b, h, n, d, 2, q.device)
+    launched = ctypes.c_int(0)
     _launch("flash_attention_f32_fwd", _lib().mvt_flash_attention_f32_fwd, q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse_t is None else lse_t.data_ptr(), *q.stride()[:3], b,
-            h, n, d, n_valid, float(scale))
+            None if lse_t is None else lse_t.data_ptr(), scratch.data_ptr(),
+            *q.stride()[:3], b, h, n, d, n_valid, float(scale),
+            ctypes.addressof(launched), launched=launched)
     out = out.permute(0, 2, 1, 3)
     return (out, lse_t) if lse else out
 
 
 def flash_attention_f32_bwd_cuda(q, k, v, o, do, lse, scale, n_valid=None):
     """The backward of :func:`flash_attention_f32_fwd_cuda`
-    (csrc/flash_attention_f32_bwd.cu, three launches: the dsum pre-pass,
-    dk / dv, dq; K7 and K8 on fp32): fp32 (B, H, N, D) q, k, v with the
-    forward's strides, its output o, the output gradient do (rows
-    contiguous and 16-byte aligned, strides of their own) and its fp32
-    (B, H, N) LSE -> fp32 (dq, dk, dv), (B, H, N, D) views of (B, N, H,
-    D) storage."""
+    (csrc/flash_attention_f32_bwd_wgmma.cu, K7 and K8 on fp32; four
+    launches: the dsum pre-pass, the split pass, dk / dv, dq): fp32 (B, H,
+    N, D) q, k, v with the forward's strides, its output o, the output
+    gradient do (rows contiguous and 16-byte aligned, strides of their own)
+    and its fp32 (B, H, N) LSE -> fp32 (dq, dk, dv), (B, H, N, D) views of
+    (B, N, H, D) storage."""
     b, h, n, d, n_valid = _flash_args(
         "flash_attention_f32_bwd", torch.float32, q, k, v, n_valid,
         more=((o, "o"), (do, "do")))
     _require_shape(lse, "lse", (b, h, n))
     dsum = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    scratch = _flash_f32_scratch(b, h, n, d, 7, q.device)
     grads = [torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
              for _ in range(3)]
     launched = ctypes.c_int(0)
     _launch("flash_attention_f32_bwd", _lib().mvt_flash_attention_f32_bwd, q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-            *(g.data_ptr() for g in grads), *q.stride()[:3],
-            *o.stride()[:3], *do.stride()[:3], b, h, n, d, n_valid,
-            float(scale), ctypes.addressof(launched), launched=launched)
+            scratch.data_ptr(), *(g.data_ptr() for g in grads),
+            *q.stride()[:3], *o.stride()[:3], *do.stride()[:3], b, h, n, d,
+            n_valid, float(scale), ctypes.addressof(launched),
+            launched=launched)
     return tuple(g.permute(0, 2, 1, 3) for g in grads)
 
 

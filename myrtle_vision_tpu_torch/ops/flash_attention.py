@@ -34,11 +34,13 @@ keys): inside the one-kernel bar |kernel - plain| <= 2^-6 |plain| + 2^-7
 that chip_smoke.py holds it to.
 
 On fp32 operands (``compute_dtype`` float32) the JAX kernels' dots take
-``_kernel_precision`` None, true fp32 products, and so do the plain
-version (no rounding to a narrower type) and the fp32 CUDA kernels
-(csrc/flash_attention_f32_fwd.cu, csrc/flash_attention_f32_bwd.cu: 64-row
-tiles, SIMT FFMA), which differ from the plain version by the order of
-fp32 operations only.
+``_kernel_precision`` None, true fp32 products, and so does the plain
+version (no rounding to a narrower type).  The fp32 CUDA kernels
+(csrc/flash_attention_f32_{fwd,bwd}_wgmma.cu) run every product as
+3xTF32 on the tensor cores: each operand split by :func:`split_tf32`,
+then ah.bl + al.bh + ah.bh (:func:`matmul_3xtf32`), about 2^-22 of each
+product off true fp32; a split pass writes the halves in the layouts of
+:func:`flash_f32_split_plain`.
 
 The backward is the JAX rule ``_fa_bwd`` on both devices: one autograd
 node saves q, k, v, the output and the LSE, and its backward computes,
@@ -117,6 +119,45 @@ def _blocked(q, k, v, scale, n_valid):
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
+def split_tf32(x):
+    """(hi, lo) of fp32 ``x`` as the fp32 kernels' split pass forms them
+    (cvt.rna.tf32.f32): hi = x rounded to tf32 (10 mantissa bits) to
+    nearest, ties away from zero, lo = x - hi rounded so; on the int32
+    view, add 0x1000, then keep the bits of 0xFFFFE000."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def matmul_3xtf32(a, b):
+    """a @ b as the fp32 kernels compute it, for tests: each operand split
+    by :func:`split_tf32`, the three passes ah.bl, al.bh, ah.bh added in
+    that order (products of tf32 values are exact in fp32)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (torch.matmul(ah, bl) + torch.matmul(al, bh)) + torch.matmul(ah, bh)
+
+
+def flash_f32_split_plain(x, transposed=False):
+    """The split pass's layout of an fp32 (B, H, N, D) operand: (2, B H,
+    ns, D) natural or, with ``transposed``, (2, B H, D, ns), the hi then
+    the lo half, ns = N rounded up to 8, zeros past N, the contracted index
+    (D, or the tokens when transposed) permuted within each group of 8 so
+    that position p holds index 2 (p % 4) + p // 4 (csrc/flash_tf32.cuh)."""
+    b, h, n, d = x.shape
+    ns = _ceil_to(n, 8)
+    x = torch.nn.functional.pad(x.reshape(b * h, n, d).float(),
+                                (0, 0, 0, ns - n))
+    if transposed:
+        x = x.transpose(1, 2)
+    p = torch.arange(x.shape[-1], device=x.device)
+    x = x[..., (p // 8) * 8 + 2 * (p % 4) + (p % 8) // 4]
+    return torch.stack(split_tf32(x))
+
+
 def flash_attention_plain(q, k, v, scale, n_valid=None, lse=False):
     """The plain PyTorch version, on any device: (B, H, N, D) q, k, v in
     bf16 or fp32 -> o in their dtype, and with ``lse`` the fp32 (B, H, N)
@@ -180,7 +221,7 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, scale, n_valid=None):
 def cuda_kernels(dtype):
     """(forward, backward) launchers of the CUDA kernels for operands of
     ``dtype``: bf16 csrc/flash_attention_{fwd,bwd}_wgmma.cu, fp32
-    csrc/flash_attention_f32_{fwd,bwd}.cu; any other dtype raises."""
+    csrc/flash_attention_f32_{fwd,bwd}_wgmma.cu; any other dtype raises."""
     if dtype == torch.bfloat16:
         return K.flash_attention_fwd_cuda, K.flash_attention_bwd_cuda
     if dtype == torch.float32:

@@ -18,7 +18,7 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "tf32": 495e12}
 # exponentials per second on the SFUs (MUFU.EX2): 16 a clock on each of
 # the 132 SMs at the 1,980 MHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9

@@ -18,6 +18,7 @@ from myrtle_vision_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd_plain,
     flash_attention_plain,
+    flash_f32_split_plain,
 )
 from myrtle_vision_tpu_torch.ops.fused_mlp import (
     fused_mlp_block,
@@ -2762,11 +2763,13 @@ def test_distilled_student_trains_through_the_kernels(dev, tmp_path):
             atol=2.0 ** -4 * max(float(ref.abs().max()), 1e-3), msg=name)
 
 
-# compute_dtype float32.  The fp32 flash kernels take true fp32 products
-# (SIMT FFMA), as the plain version does, so the two differ by the order
-# of fp32 operations alone: about 2^-23 of a sum's terms.  Bar per element
-# 2^-14 of |plain| plus 2^-14 of the largest |plain| (outputs and the
-# LSE); 2^-12 of the largest for dq, dk and dv, sums over up to 2601 rows.
+# compute_dtype float32.  The fp32 flash kernels run every product as
+# 3xTF32 on the tensor cores (csrc/flash_tf32.cuh: about 2^-22 of each
+# product off true fp32), against the plain version's true fp32.  Bar per
+# element 2^-14 of |plain| plus 2^-14 of the largest |plain| (outputs and
+# the LSE); 2^-12 of the largest for dq, dk and dv, sums over up to 2601
+# rows (tests/test_torch_flash_f32_split.py holds the same arithmetic to
+# the same bars against JAX on the CPU).
 F32_FLASH_RTOL = 2.0 ** -14
 F32_FLASH_ATOL = 2.0 ** -14
 F32_FLASH_GRAD_ATOL = 2.0 ** -12
@@ -2778,7 +2781,7 @@ F32_FLASH_GRAD_ATOL = 2.0 ** -12
 F32_CHAIN_RTOL = 2.0 ** -10
 F32_CHAIN_ATOL = 2.0 ** -10
 F32_CHAIN_SUM_ATOL = 2.0 ** -8
-F32_FLASH_N = [1, 17, 197, 1536, 1545, 2601]
+F32_FLASH_N = [1, 17, 50, 197, 1536, 1545, 2601]
 
 
 def close_f32(got, ref, rtol, atol_share):
@@ -2804,14 +2807,15 @@ def f32_qkv_views(b, n, h, d, seed, dev):
 @pytest.mark.parametrize("n", F32_FLASH_N)
 def test_f32_flash_forward_matches_plain(dev, n, d, masked):
     """K5 / K6 on fp32: output and LSE against the plain version in its
-    regime (unblocked up to n_pad 1536, blocked above); one launch."""
+    regime (unblocked up to n_pad 1536, blocked above); two launches."""
     assert not torch.backends.cuda.matmul.allow_tf32
     q, k, v = f32_qkv_views(2, n, 2, d, n * d + 5, dev)
     n_valid = edge_n_valid(n, masked)
     before = K.LAUNCHES["flash_attention_f32_fwd"]
     got = K.flash_attention_f32_fwd_cuda(q, k, v, d ** -0.5, n_valid,
                                          lse=True)
-    assert K.LAUNCHES["flash_attention_f32_fwd"] == before + 1
+    assert K.LAUNCHES["flash_attention_f32_fwd"] == \
+        before + K.F32_FLASH_FWD_LAUNCHES
     ref = flash_attention_plain(q, k, v, d ** -0.5, n_valid, lse=True)
     close_f32(got[0], ref[0], F32_FLASH_RTOL, F32_FLASH_ATOL)
     close_f32(got[1], ref[1], F32_FLASH_RTOL, F32_FLASH_ATOL)
@@ -2823,7 +2827,7 @@ def test_f32_flash_forward_matches_plain(dev, n, d, masked):
 def test_f32_flash_backward_matches_plain(dev, n, d, masked):
     """K7 / K8 on fp32: dq, dk, dv against the plain backward in its
     regime, both from the kernel forward's o (its (B, N, H, D)-storage
-    view) and LSE, do contiguous; zero rows past n_valid; three launches
+    view) and LSE, do contiguous; zero rows past n_valid; four launches
     a call."""
     q, k, v = f32_qkv_views(2, n, 2, d, n * d + 6, dev)
     do = torch.randn(q.shape, device=dev, generator=torch.Generator(
@@ -2832,13 +2836,108 @@ def test_f32_flash_backward_matches_plain(dev, n, d, masked):
     o, lse = K.flash_attention_f32_fwd_cuda(q, k, v, sc, n_valid, lse=True)
     before = K.LAUNCHES["flash_attention_f32_bwd"]
     got = K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse, sc, n_valid)
-    assert K.LAUNCHES["flash_attention_f32_bwd"] == before + 3
+    assert K.LAUNCHES["flash_attention_f32_bwd"] == \
+        before + K.F32_FLASH_BWD_LAUNCHES
     ref = flash_attention_bwd_plain(q, k, v, o, do, lse, sc, n_valid)
     for g, r in zip(got, ref):
         close_f32(g, r, F32_FLASH_RTOL, F32_FLASH_GRAD_ATOL)
     if n_valid is not None:
         for g in got:
             assert not g[:, :, n_valid:].any()
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [50, 197])
+def test_f32_flash_split_pass_is_split_tf32(dev, n, d, monkeypatch):
+    """The split pass's halves, bit for bit, are ``split_tf32`` of the
+    operands in :func:`flash_f32_split_plain`'s layouts: the forward's K
+    as it lies and V transposed; the backward's K, V, q and do as they lie,
+    then K, q and do transposed."""
+    q, k, v = f32_qkv_views(2, n, 2, d, n + d, dev)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        dev).manual_seed(n))
+    split, scratch = [], K._flash_f32_scratch
+
+    def kept(*args):
+        split.append(scratch(*args))
+        return split[-1]
+
+    monkeypatch.setattr(K, "_flash_f32_scratch", kept)
+    o, lse = K.flash_attention_f32_fwd_cuda(q, k, v, d ** -0.5, lse=True)
+    K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse, d ** -0.5)
+    torch.cuda.synchronize()
+    fwd = torch.cat([flash_f32_split_plain(k).flatten(),
+                     flash_f32_split_plain(v, True).flatten()])
+    bwd = torch.cat([*(flash_f32_split_plain(t).flatten()
+                       for t in (k, v, q, do)),
+                     *(flash_f32_split_plain(t, True).flatten()
+                       for t in (k, q, do))])
+    for got, want in zip(split, (fwd, bwd)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_f32_flash_same_bits_twice(dev):
+    """No atomics: a second call gives the same bits, forward and
+    backward."""
+    q, k, v = f32_qkv_views(2, 1545, 2, 64, 11, dev)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        dev).manual_seed(12))
+    sc, n_valid = 0.125, 1400
+    o, lse = K.flash_attention_f32_fwd_cuda(q, k, v, sc, n_valid, lse=True)
+    _same_twice(lambda: K.flash_attention_f32_fwd_cuda(q, k, v, sc, n_valid,
+                                                       lse=True), (o, lse))
+    grads = K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse, sc, n_valid)
+    _same_twice(lambda: K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse,
+                                                       sc, n_valid), grads)
+
+
+@pytest.mark.parametrize("n,n_valid", [(300, 70), (300, 100), (130, 64),
+                                       (2601, 900)])
+def test_f32_flash_masked_tiles(dev, n, n_valid):
+    """n_valid inside a 64-token tile and whole tiles past it (never
+    visited): output, LSE and gradients against the plain versions, zero
+    gradient rows past n_valid."""
+    q, k, v = f32_qkv_views(2, n, 2, 64, n + n_valid, dev)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        dev).manual_seed(n_valid))
+    sc = 0.125
+    o, lse = K.flash_attention_f32_fwd_cuda(q, k, v, sc, n_valid, lse=True)
+    ref = flash_attention_plain(q, k, v, sc, n_valid, lse=True)
+    for g, r in zip((o, lse), ref):
+        close_f32(g, r, F32_FLASH_RTOL, F32_FLASH_ATOL)
+    grads = K.flash_attention_f32_bwd_cuda(q, k, v, o, do, lse, sc, n_valid)
+    refs = flash_attention_bwd_plain(q, k, v, o, do, lse, sc, n_valid)
+    for g, r in zip(grads, refs):
+        close_f32(g, r, F32_FLASH_RTOL, F32_FLASH_GRAD_ATOL)
+        assert not g[:, :, n_valid:].any()
+
+
+def test_f32_flash_contiguous_operands_match_views(dev):
+    """q, k, v as (B, H, N, D) views of the fused qkv rows and as
+    contiguous copies give the same bits."""
+    q, k, v = f32_qkv_views(2, 197, 6, 64, 13, dev)
+    sc = 0.125
+    views = K.flash_attention_f32_fwd_cuda(q, k, v, sc, lse=True)
+    copies = K.flash_attention_f32_fwd_cuda(
+        *(t.contiguous() for t in (q, k, v)), sc, lse=True)
+    torch.cuda.synchronize()
+    for a, b in zip(views, copies):
+        assert torch.equal(a, b)
+
+
+def test_f32_flash_expanded_output_gradient(dev):
+    """The gradient of a sum reaches the backward as a stride-0 expanded
+    tensor: q, k, v gradients through flash_attention against the plain
+    versions' autograd."""
+    q, k, v = f32_qkv_views(2, 300, 2, 32, 14, dev)
+    runs = []
+    for plain in (False, True):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        flash_attention(*leaves, 32 ** -0.5, 250, plain=plain).sum() \
+            .backward()
+        runs.append([t.grad for t in leaves])
+    for g, r in zip(*runs):
+        close_f32(g, r, F32_FLASH_RTOL, F32_FLASH_GRAD_ATOL)
 
 
 def test_f32_flash_dispatch_and_refusals(dev):
@@ -2853,7 +2952,8 @@ def test_f32_flash_dispatch_and_refusals(dev):
     assert (K.LAUNCHES["flash_attention_f32_fwd"],
             K.LAUNCHES["flash_attention_f32_bwd"],
             K.LAUNCHES["flash_attention_fwd"]) == (
-        before[0] + 1, before[1] + 3, before[2])
+        before[0] + K.F32_FLASH_FWD_LAUNCHES,
+        before[1] + K.F32_FLASH_BWD_LAUNCHES, before[2])
     with pytest.raises(TypeError, match="no kernel for torch.float16"):
         flash_attention(*(t.detach().half() for t in (q, k, v)), 0.125)
     x = torch.zeros(1, 2, 40, 64, device=dev, dtype=torch.bfloat16)
