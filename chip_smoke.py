@@ -221,11 +221,25 @@ Phases, each ending in one line of output:
               ViT-S/16 float32 step at B=256 (fused and under
               MVT_NO_FUSE=1), the YOLOS-S float32 800 px forward and its
               608 / 384 px steps, with device profiles
+  multigpu    multi-GPU training on the one card: the res_scale forms of
+              the kernels (head-sharded tensor parallelism's K1-K4) and
+              both block-half chains with them against their plain
+              versions at n_tp = 2's local widths; the data-parallel
+              step over an NCCL group of one against the step without a
+              group; two ranks of the classification train CLI over gloo
+              (data 2; tensor parallel 2 in bf16 and fp32 compute) and of
+              the detection train CLI (YOLOS-S at 384 px, data 2), each
+              rank a process launched as a user launches one, against one
+              process: first-step losses and gradients, res_scale
+              launches; the steps' times (two ranks share one card: not a
+              scaling figure).  A rank runs this script with
+              ``--counted <counts.json> <grads.pt> <CLI module> <args>``.
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
 """
 import contextlib
+import functools
 import glob
 import io
 import json
@@ -6603,6 +6617,604 @@ def device_profile(run, named):
             f"idle share {1 - busy / window:.4f}; {len(spans)} kernels")
 
 
+# ---------------------------------------------------------------- multigpu
+# Multi-GPU training on the one card: the res_scale forms of K1-K4 (the
+# kernels of head-sharded tensor parallelism) against their plain
+# versions at ViT-S/16's local widths at n_tp = 2, the data-parallel step
+# over a real NCCL group of one against the step without a group, and
+# two ranks of the train CLIs over gloo (NCCL refuses two ranks on one
+# GPU), each launched as a user launches a rank, against one process.
+MG_C, MG_CL, MG_HID, MG_HEADS = 384, 192, 768, 3
+MG_RES_SCALE = 0.5
+MG_TRAIN_IMAGES = 128   # two steps of 64 images
+MG_NCCL_STEPS = 3
+MG_DET_SUBSET, MG_DET_VALID, MG_DET_PX = 8, 4, 384
+MG_TIMEOUT_S = 300
+MG_SHARED = "two ranks share one card: not a scaling figure"
+TPU_K1_RES = "myrtle_vision_tpu/ops/fused_attention_block.py:231"
+TPU_K3_RES = "myrtle_vision_tpu/ops/fused_mlp.py:188"
+TPU_K2_RES = "myrtle_vision_tpu/ops/fused_attention_block.py:525"
+TPU_K4_RES = "myrtle_vision_tpu/ops/fused_mlp.py:307"
+RES_SCALE_KERNELS = {
+    "gemm_bf16_epilogue[res_scale]": (
+        "gemm_bf16_epilogue", CSRC + "gemm_bf16_wgmma.cu",
+        f"{TPU_K1_RES}; {TPU_K3_RES}"),
+    "gemm_f32x3_epilogue[res_scale]": (
+        "gemm_f32x3_epilogue", CSRC + "gemm_f32x3_wgmma.cu",
+        f"{TPU_K1_RES}; {TPU_K3_RES} (fp32 activations)"),
+    "layernorm_rows_bwd[res_scale]": (
+        "layernorm_rows_bwd", CSRC + "layernorm_rows_bwd.cu",
+        f"{TPU_K2_RES}; {TPU_K4_RES}"),
+    "layernorm_snap_rows_bwd[res_scale]": (
+        "layernorm_snap_rows_bwd", CSRC + "layernorm_rows_bwd.cu",
+        f"{TPU_K2_RES}; {TPU_K4_RES} (fp32 activations)"),
+}
+
+
+def mg_local_block(b, n, seed, device, dtype):
+    """x (B, N, C) and one model rank's local weights at n_tp = 2, each
+    the (in, out) view of a row-major torch weight as the Block's tensor
+    parallel branch hands them over: the attention half's (C, 3 cl) and
+    (cl, C), the MLP half's (C, H/2) and (H/2, C); the output biases as
+    the Block scales them."""
+    rng = np.random.RandomState(seed)
+    c, cl, hid = MG_C, MG_CL, MG_HID
+    x = seeded(rng, (b, n, c), 1.0, device, dtype)
+
+    def ln():
+        return [1 + seeded(rng, (c,), 0.1, device),
+                seeded(rng, (c,), 0.1, device)]
+
+    attn = ln() + [seeded(rng, (3 * cl, c), c ** -0.5, device).t(),
+                   seeded(rng, (3 * cl,), 1.0, device),
+                   seeded(rng, (c, cl), cl ** -0.5, device).t(),
+                   seeded(rng, (c,), 1.0, device) * MG_RES_SCALE]
+    mlp = ln() + [seeded(rng, (hid, c), c ** -0.5, device).t(),
+                  seeded(rng, (hid,), 1.0, device),
+                  seeded(rng, (c, hid), hid ** -0.5, device).t(),
+                  seeded(rng, (c,), 1.0, device) * MG_RES_SCALE]
+    return x, attn, mlp
+
+
+def mg_kernel_cases(device):
+    """The res_scale forms at B=64, N=197 on the operands the chains hand
+    them: (name, kernel, plain, bar kinds, launches per block, cost)."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.fake_quant import kernel_sites
+    from myrtle_vision_tpu_torch.ops.fused_attention_block import (
+        no_snap_sites,
+    )
+    from myrtle_vision_tpu_torch.ops.high_precision import split_bf16
+
+    rng = np.random.RandomState(41)
+    b, n, c = 64, N, MG_C
+    rows, s = b * n, MG_RES_SCALE
+    bf = torch.bfloat16
+    cases = []
+    for label, k in (("out proj", MG_CL), ("fc2", MG_HID)):
+        a = seeded(rng, (rows, k), 1.0, device, bf)
+        w = seeded(rng, (c, k), k ** -0.5, device, bf).t()
+        bias = seeded(rng, (c,), 1.0, device)
+        res = seeded(rng, (rows, c), 1.0, device, bf)
+        cases.append((
+            f"gemm_bf16_epilogue[res_scale] {label}",
+            functools.partial(K.gemm_bf16_epilogue_cuda, a, w, bias,
+                              "bias_residual", res, res_scale=s),
+            functools.partial(K.gemm_bf16_epilogue_plain, a, w, bias,
+                              "bias_residual", res, res_scale=s),
+            ("kernel",), 1,
+            cost(nbytes(a, w, bias, res) + 2 * rows * c, 2 * rows * c * k,
+                 "bf16", functools.partial(torch.addmm, res, a, w, beta=s))))
+        a32, w32 = a.float(), seeded(rng, (c, k), k ** -0.5, device).t()
+        r32 = res.float()
+        sites = kernel_sites(no_snap_sites(device), 3, 4)
+        ah, al = (t.to(bf) for t in split_bf16(a32))
+        wh, wl = (t.to(bf) for t in split_bf16(w32))
+        cases.append((
+            f"gemm_f32x3_epilogue[res_scale] {label}",
+            functools.partial(K.gemm_f32x3_epilogue_cuda, a32, w32, bias,
+                              "bias_snap_residual_snap", sites, r32,
+                              res_scale=s),
+            functools.partial(K.gemm_f32x3_epilogue_plain, a32, w32, bias,
+                              "bias_snap_residual_snap", sites, r32,
+                              res_scale=s),
+            ("f32",), 1,
+            cost(nbytes(a32, w32, bias, r32) + 4 * rows * c,
+                 3 * 2 * rows * c * k, "bf16",
+                 lambda ah=ah, wh=wh, wl=wl, al=al: (
+                     torch.matmul(ah, wh), torch.matmul(ah, wl),
+                     torch.matmul(al, wh)))))
+    x2 = seeded(rng, (rows, c), 1.0, device, bf)
+    sc = 1 + seeded(rng, (c,), 0.1, device, bf)
+    dxn = seeded(rng, (rows, c), 1.0, device)
+    do2 = seeded(rng, (rows, c), 1.0, device, bf)
+    mean = x2.float().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(x2.float().var(-1, unbiased=False, keepdim=True)
+                       + K.EPS)
+    yard = functools.partial(
+        torch.ops.aten.native_layer_norm_backward, dxn.to(bf), x2, [c],
+        mean, rstd, sc, torch.zeros_like(sc), [True, True, True])
+    cases.append((
+        "layernorm_rows_bwd[res_scale]",
+        functools.partial(K.layernorm_rows_bwd_cuda, x2, sc, dxn, do2,
+                          res_scale=s),
+        functools.partial(K.layernorm_rows_bwd_plain, x2, sc, dxn, do2,
+                          res_scale=s),
+        ("kernel", "sum", "sum"), 2,
+        cost(nbytes(x2, sc, dxn, do2, x2) + 8 * c, 12 * x2.numel(), "fp32",
+             yard)))
+    snap = kernel_sites(no_snap_sites(device))
+    x32, s32, do32 = x2.float(), sc.float(), do2.float()
+    cases.append((
+        "layernorm_snap_rows_bwd[res_scale]",
+        functools.partial(K.layernorm_rows_bwd_cuda, x32, s32, dxn, do32,
+                          snap, res_scale=s),
+        functools.partial(K.layernorm_rows_bwd_plain, x32, s32, dxn, do32,
+                          snap, res_scale=s),
+        ("f32", "f32sum", "f32sum"), 2,
+        cost(nbytes(x32, s32, dxn, do32, x32) + 8 * c, 12 * x32.numel(),
+             "fp32", yard)))
+    return cases
+
+
+def mg_compare(label, got, ref, kind):
+    if kind == "f32":
+        return f32_close(label, got, ref, F32_CHAIN_RTOL, F32_CHAIN_ATOL)
+    if kind == "f32sum":
+        return f32_close(label, got, ref, F32_CHAIN_RTOL,
+                         F32_CHAIN_SUM_ATOL)
+    return compare(label, got, ref, *bar(kind, ref))
+
+
+def phase_multigpu_kernels(device, power):
+    """The res_scale kernels against their plain versions, then both
+    block halves' chains (bf16 and fp32 compute, forward and backward)
+    at the local widths; the kernels timed at B=64.  Returns ({kernel
+    name: largest error}, {kernel name: timing totals per block})."""
+    from myrtle_vision_tpu_torch.ops.fused_attention_block import (
+        fused_attention_block,
+        fused_attention_block_plain,
+    )
+    from myrtle_vision_tpu_torch.ops.fused_mlp import (
+        fused_mlp_block,
+        fused_mlp_block_plain,
+    )
+
+    errors = dict.fromkeys(RES_SCALE_KERNELS, 0.0)
+    totals = {}
+    for name, kernel, plain, kinds, count, c in mg_kernel_cases(device):
+        key = name.split(" ")[0]
+        for i, (got, ref, kind) in enumerate(zip(
+                as_tuple(kernel()), as_tuple(plain()), kinds)):
+            max_abs, of_bar = mg_compare(f"{name}[{i}]", got, ref, kind)
+            errors[key] = max(errors[key], max_abs)
+            print(f"kernels: {name} output {i} res_scale {MG_RES_SCALE} "
+                  f"B=64 N={N}: max_abs {max_abs:.6g}, {of_bar:.3g} of "
+                  f"its bar")
+        time_case(totals, name, kernel, plain, count, c, power,
+                  f"B=64,N={N},C={MG_C},local")
+    scale = (MG_CL // MG_HEADS) ** -0.5
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        x, attn, mlp = mg_local_block(64, N, 5, device, dtype)
+        do = seeded(np.random.RandomState(6), x.shape, 1.0, device, dtype)
+        for op, plain, params, extra in (
+                (fused_attention_block, fused_attention_block_plain, attn,
+                 (MG_HEADS, scale, None, None, MG_RES_SCALE)),
+                (fused_mlp_block, fused_mlp_block_plain, mlp,
+                 (None, MG_RES_SCALE))):
+            label = f"{op.__name__}[res_scale,{tag}]"
+            got, ref = op(x, *params, *extra), plain(x, *params, *extra)
+            fwd = (mg_compare(label, got, ref, "f32") if tag == "fp32"
+                   else compare(label, got, ref, *bar("chain", ref)))
+            g_got = leaf_grads(op, x, params, extra, do)
+            g_ref = leaf_grads(plain, x, params, extra, do)
+            worst = 0.0
+            for i, (g, r) in enumerate(zip(g_got, g_ref)):
+                kind = (("f32" if i == 0 else "f32sum") if tag == "fp32"
+                        else ("chain" if i == 0 else "sum"))
+                worst = max(worst, mg_compare(f"{label}[bwd {i}]", g, r,
+                                              kind)[1])
+            print(f"kernels: {label} B=64 N={N} local heads "
+                  f"{MG_HEADS} x 64, hidden {MG_HID}: "
+                  f"forward max_abs {fwd[0]:.6g} ({fwd[1]:.3g} of its bar), "
+                  f"backward worst {worst:.3g} of its bar")
+    return errors, totals
+
+
+def mg_first_step_hook(cli, grads_path, times):
+    """Wrap ``cli.create_optimizer`` so that the optimizer's first step
+    writes the gradients it applies to ``grads_path`` (fp32, on the
+    host, by parameter name) and every step appends its host time (after
+    a synchronize) to ``times``; what the CLI computes is unchanged."""
+    real = cli.create_optimizer
+
+    def create(train_config, model):
+        optimizer = real(train_config, model)
+        names = {id(p): n for n, p in model.named_parameters()}
+        step = optimizer.step
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            times.append(time.perf_counter())
+            if len(times) == 1 and grads_path:
+                torch.save({names[id(p)]: p.grad.detach().float().cpu()
+                            for g in optimizer.param_groups
+                            for p in g["params"] if p.grad is not None},
+                           grads_path)
+            return step(*args, **kwargs)
+
+        optimizer.step = wrapped
+        return optimizer
+
+    cli.create_optimizer = create
+    return real
+
+
+def counted_cli(module, argv, out_json=None, grads_path=None):
+    """Run ``module``'s ``main(argv)`` (a train CLI) with the launch
+    counts reset before and read after, the first step's gradients
+    written to ``grads_path``; returns (its stdout, the counts: kernel
+    launches, res_scale launches, op launches, the optimizer steps' host
+    times), also written to ``out_json``."""
+    import importlib
+
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    cli = importlib.import_module(module)
+    times = []
+    real = mg_first_step_hook(cli, grads_path, times)
+    out = io.StringIO()
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        launches, ops = read_counts()
+    finally:
+        cli.create_optimizer = real
+    counts = {"launches": launches, "res_scale": dict(K.RES_SCALE_LAUNCHES),
+              "ops": ops, "times": times}
+    if out_json:
+        with open(out_json, "w") as f:
+            json.dump(counts, f)
+    return out.getvalue(), counts
+
+
+def mg_launch(tag, module, cfg):
+    """Two ranks of ``module`` (a train CLI) on the card over gloo, each
+    a process launched as a user launches one rank (MVT_COORDINATOR,
+    MVT_NUM_PROCESSES, MVT_PROCESS_ID), through this script's
+    ``--counted`` mode; each waited for with a timeout, every one killed
+    past it.  Returns [(stdout, counts)] by rank and the seconds."""
+    from myrtle_vision_tpu_torch.parallel.launch import free_port
+
+    port = free_port()
+    procs, paths = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        paths.append(os.path.join(WORK, f"mg_{tag}_rank{rank}"))
+        env = dict(os.environ, MVT_COORDINATOR=f"localhost:{port}",
+                   MVT_NUM_PROCESSES="2", MVT_PROCESS_ID=str(rank),
+                   MVT_DIST_TIMEOUT="120")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--counted",
+             paths[-1] + ".json", paths[-1] + "_grads.pt", module, "-c",
+             cfg, "--device", "cuda"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=MG_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    took = time.perf_counter() - t0
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0,
+              f"multigpu {tag}: rank {rank} exited {proc.returncode}:\n"
+              f"{out[-4000:]}")
+    runs = []
+    for path, out in zip(paths, outs):
+        with open(path + ".json") as f:
+            runs.append((out, json.load(f)))
+    return runs, took
+
+
+def mg_losses(text, detection=False):
+    if detection:
+        return [[float(v) for v in m] for m in re.findall(
+            r"Iteration \d+:\tloss=(\S+)\tce=(\S+)\tbbox=(\S+)\tgiou=(\S+)",
+            text)]
+    return [float(v) for v in
+            re.findall(r"Iteration \d+:\tloss=(\S+)\tacc=", text)]
+
+
+def mg_grad_error(got_path, ref_path):
+    """(largest relative gradient error over the tensors, its name)."""
+    got = torch.load(got_path, weights_only=True)
+    ref = torch.load(ref_path, weights_only=True)
+    check(set(got) == set(ref), "multigpu: gradient names differ")
+    worst, name = 0.0, ""
+    for n, r in ref.items():
+        check(bool(torch.isfinite(got[n]).all()), f"non-finite grad {n}")
+        rel = ((got[n] - r).norm() / r.norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, name = rel, n
+    return worst, name
+
+
+def mg_step_ms(times):
+    """Host ms between optimizer steps after the first (a synchronize
+    before each)."""
+    d = np.diff(times[1:]) if len(times) > 2 else np.diff(times)
+    return float(np.mean(d)) * 1e3 if len(d) else float("nan")
+
+
+def mg_classification(tag, config, ref_config, power, expect_res=None):
+    """Two ranks of the classification train CLI on ``config`` against
+    one process on ``ref_config`` (the same steps at equal n_accum): the
+    first step's loss (LOSS_BAR) and gradients (GRAD_BAR), the later
+    steps' spread; ``expect_res``, the res_scale launches rank 0 must
+    count.  Returns rank 0's counts."""
+    ref_cfg = write_json(f"mg_{tag}_one.json", ref_config)
+    ref_grads = os.path.join(WORK, f"mg_{tag}_one_grads.pt")
+    text, ref_counts = counted_cli(
+        "myrtle_vision_tpu_torch.classification.train",
+        ["-c", ref_cfg, "--device", "cuda"], grads_path=ref_grads)
+    ref = mg_losses(text)
+    cfg = write_json(f"mg_{tag}.json", config)
+    torch.cuda.empty_cache()
+    runs, took = mg_launch(tag, "myrtle_vision_tpu_torch.classification.train",
+                           cfg)
+    (out0, counts0), (out1, counts1) = runs
+    got = mg_losses(out0)
+    check(len(got) == len(ref) >= 1 and not mg_losses(out1),
+          f"multigpu {tag}: iteration lines {got} (rank 1: "
+          f"{mg_losses(out1)}), one process {ref}")
+    layout = re.search(r"ranks: .*", out0).group(0)
+    worst, name = mg_grad_error(
+        os.path.join(WORK, f"mg_{tag}_rank0_grads.pt"), ref_grads)
+    diff = abs(got[0] - ref[0])
+    spread = max(abs(a - b) for a, b in zip(got, ref))
+    print(f"multigpu: {tag}: {layout}; losses {got} against one process "
+          f"{ref}: first step |d| {diff:.3g} (bar "
+          f"{LOSS_BAR * max(1.0, abs(ref[0])):.3g}), largest relative "
+          f"first-step gradient error {worst:.4g} in {name} (bar "
+          f"{GRAD_BAR:g}), later steps' spread {spread:.3g}; {took:.1f} s "
+          f"for both ranks")
+    print(f"multigpu: {tag}: rank 0 res_scale launches "
+          f"{counts0['res_scale']}, block-half ops {counts0['ops']}")
+    print(f"timing: multigpu {tag} step {mg_step_ms(counts0['times']):.3f} "
+          f"ms a rank (host clock between optimizer steps), one process "
+          f"{mg_step_ms(ref_counts['times']):.3f} ms; {MG_SHARED} "
+          f"[{power}]")
+    check(diff <= LOSS_BAR * max(1.0, abs(ref[0])),
+          f"multigpu {tag}: first-step loss")
+    check(worst <= GRAD_BAR, f"multigpu {tag}: first-step gradients")
+    if expect_res is not None:
+        check(counts0["res_scale"] == counts1["res_scale"] == expect_res,
+              f"multigpu {tag}: res_scale launches {counts0['res_scale']} "
+              f"/ {counts1['res_scale']}, expected {expect_res}")
+    return counts0
+
+
+def mg_nccl(device, power, config):
+    """The trainer's data-parallel step over a real NCCL group of one
+    (DistributedDataParallel over it) against the step without a group:
+    MG_NCCL_STEPS steps of 64 images from one initial state on the same
+    batches; the largest difference in loss and parameters (zero is
+    expected), then both steps timed."""
+    import torch.distributed as dist
+
+    from myrtle_vision_tpu_torch.classification import train as train_cli
+    from myrtle_vision_tpu_torch.parallel.launch import free_port
+    from myrtle_vision_tpu_torch.parallel.mesh import Mesh
+    from myrtle_vision_tpu_torch.training.classification import make_loss_fn
+    from myrtle_vision_tpu_torch.training.optim import create_optimizer
+    from myrtle_vision_tpu_torch.training.trainer import (
+        TrainState,
+        data_parallel,
+        make_train_step,
+    )
+
+    tc = config["train_config"]
+
+    def setup():
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, loader, _, (micro, n_accum) = train_cli.build_train(
+                config, device)
+        batches = []
+        for batch in loader.epoch(0):
+            batches.append({k: v.view(n_accum, micro, *v.shape[1:])
+                            for k, v in batch.items()})
+            if len(batches) == MG_NCCL_STEPS:
+                break
+        return model, batches, n_accum
+
+    def run(mesh):
+        model, batches, n_accum = setup()
+        module = data_parallel(model, mesh)
+        state = TrainState(model, create_optimizer(tc, model))
+        step = make_train_step(make_loss_fn(module), n_accum, mesh=mesh,
+                               module=module)
+        losses = [float(step(state, b, tc["lr"])["loss"]) for b in batches]
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ms = cuda_ms(lambda: step(state, batches[0], tc["lr"]), iters=5,
+                     warmup=2)
+        return losses, params, ms, type(module).__name__
+
+    plain_losses, plain_params, plain_ms, _ = run(None)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = Mesh(data_group=dist.group.WORLD)
+        losses, params, ms, wrapper = run(mesh)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    d_loss = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    d_param, worst = max(((params[n] - p).abs().max().item(), n)
+                         for n, p in plain_params.items())
+    print(f"multigpu: nccl, one rank: {wrapper} over a {backend} group of "
+          f"1, {MG_NCCL_STEPS} steps of 64 images (vit_small.json, full "
+          f"width): losses {losses} against {plain_losses} without a "
+          f"group; largest difference: loss {d_loss:.6g}, parameters "
+          f"{d_param:.6g} in {worst} (zero expected)")
+    print(f"timing: multigpu one-rank DDP step {ms:.3f} ms, undistributed "
+          f"{plain_ms:.3f} ms, difference {ms - plain_ms:+.3f} ms (CUDA "
+          f"events, 64 images a step) [{power}]")
+    check(backend == "nccl" and wrapper == "DataParallel",
+          f"nccl run: {backend}, {wrapper}")
+    check(d_loss <= LOSS_BAR * max(1.0, abs(plain_losses[0])),
+          "nccl one-rank step: loss")
+    check(d_param <= 2.0 ** -10, "nccl one-rank step: parameters")
+
+
+def mg_detection(power, det_data_config):
+    """Two data ranks of the YOLOS-S detection train CLI at 384 px, 2
+    steps of 2 images a rank, against one process at 4 images a step (the
+    same n_accum): the box losses, which num_boxes normalises, of the
+    first step at LOSS_BAR, with the ranks' unequal box counts printed;
+    the later step's spread."""
+    from myrtle_vision_tpu_torch.data.loader import DataLoader
+    from myrtle_vision_tpu_torch.detection import train as det_cli
+
+    data = dict(det_data_config, train_subset=MG_DET_SUBSET,
+                valid_subset=MG_DET_VALID)
+    data["transform_ops_train"] = {
+        "RandomResize": {"scales": [MG_DET_PX],
+                         "max_size_ratio": [1333, 800]},
+        "Normalize": det_data_config["transform_ops_train"]["Normalize"]}
+    data_cfg = write_json("mg_det_data_config.json", data)
+    config = yolos_small_config()
+    tc = config["train_config"]
+    tc.update(output_directory=os.path.join(WORK, "mg_det"),
+              checkpoint_path="", epochs=1, warmup_epochs=0,
+              pretrained_backbone=None, local_batch_size=2,
+              global_batch_size=4)
+    config["data_config_path"] = data_cfg
+    config["dist_config"] = {"dist_backend": "gloo"}
+    ref_config = json.loads(json.dumps(config))
+    ref_config["train_config"].update(
+        local_batch_size=4, output_directory=os.path.join(WORK, "mg_det1"))
+    # each rank's valid boxes in the first step, as its loader takes them
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, loader, _, _, _ = det_cli.build_train(config,
+                                                 torch.device("cpu"))
+    boxes = []
+    for rank in range(2):
+        shard = DataLoader(loader.dataset, batch_size=4, device="cpu",
+                           shuffle=True, seed=tc["seed"],
+                           collate_fn=loader.collate_fn,
+                           process_shard=(rank, 2))
+        batch = next(iter(shard.epoch(0)))
+        boxes.append(int(batch["valid"].sum()))
+    ref_cfg = write_json("mg_det_one.json", ref_config)
+    text, ref_counts = counted_cli("myrtle_vision_tpu_torch.detection.train",
+                                   ["-c", ref_cfg, "--device", "cuda"])
+    ref = mg_losses(text, detection=True)
+    cfg = write_json("mg_det.json", config)
+    torch.cuda.empty_cache()
+    runs, took = mg_launch("det", "myrtle_vision_tpu_torch.detection.train",
+                           cfg)
+    got = mg_losses(runs[0][0], detection=True)
+    check(len(got) == len(ref) == 2, f"multigpu det: {got} / {ref}")
+    d_box = max(abs(got[0][i] - ref[0][i]) for i in (2, 3))
+    spread = max(abs(a - b) for g, r in zip(got, ref) for a, b in zip(g, r))
+    print(f"multigpu: det: YOLOS-S at {MG_DET_PX} px, data 2 x model 1, 2 "
+          f"steps of 2 images a rank; first-step valid boxes by rank "
+          f"{boxes} (averaged: {sum(boxes) / 2}); (loss, ce, bbox, giou) "
+          f"{got} against one process at 4 images {ref}: first-step box "
+          f"losses |d| {d_box:.3g} (bar {LOSS_BAR:g} of the larger), the "
+          f"ce of a rank's own weighted mean against the whole batch's and "
+          f"the later step apart by at most {spread:.3g}; {took:.1f} s")
+    print(f"timing: multigpu det step {mg_step_ms(runs[0][1]['times']):.3f} "
+          f"ms a rank, one process {mg_step_ms(ref_counts['times']):.3f} ms; "
+          f"{MG_SHARED} [{power}]")
+    check(boxes[0] != boxes[1], f"multigpu det: equal box counts {boxes}")
+    for i in (2, 3):
+        check(abs(got[0][i] - ref[0][i])
+              <= LOSS_BAR * max(1.0, abs(ref[0][i])),
+              f"multigpu det: first-step {('bbox', 'giou')[i - 2]} loss")
+
+
+def phase_multigpu(device, power, data_config, det_data_config):
+    """Multi-GPU training on the one card (see the comment above
+    MG_C).  Returns the res_scale kernels' entries of the kernels
+    line."""
+    t0 = time.perf_counter()
+    errors, totals = phase_multigpu_kernels(device, power)
+    config = vit_small_config()
+    tc = config["train_config"]
+    tc.update(checkpoint_path="", epochs=1, warmup_epochs=0,
+              pretrained_backbone=None, iters_per_checkpoint=1000,
+              iters_per_val=1000, local_batch_size=32, global_batch_size=64)
+    config["data_config_path"] = subset_data_config(
+        data_config, MG_TRAIN_IMAGES, "mg")
+    config["dist_config"] = {"dist_backend": "gloo"}
+    nccl_config = json.loads(json.dumps(config))
+    nccl_config["data_config_path"] = subset_data_config(
+        data_config, 64 * MG_NCCL_STEPS, "mg_nccl")
+    mg_nccl(device, power, nccl_config)
+
+    def variant(name, **changes):
+        c = json.loads(json.dumps(config))
+        c["train_config"]["output_directory"] = os.path.join(WORK,
+                                                             f"mg_{name}")
+        for key, value in changes.items():
+            section, field = key.split("__")
+            c[section][field] = value
+        return c
+
+    depth = config["vit_config"]["depth"]
+    steps = MG_TRAIN_IMAGES // 64
+    # data 2 x model 1 at 32 images a rank, one micro-batch; one process
+    # at 64, one micro-batch
+    mg_classification("dp", variant("dp"),
+                      variant("dp1", train_config__local_batch_size=64),
+                      power)
+    # data 1 x model 2 (2 x 32 a step on both); one process the same
+    per_step = 2 * depth * 2  # two halves, two micro-batches
+    res = {"gemm_bf16_epilogue": steps * per_step, "gemm_f32x3_epilogue": 0,
+           "layernorm_rows_bwd": steps * per_step,
+           "layernorm_snap_rows_bwd": 0}
+    tp = mg_classification(
+        "tp", variant("tp", dist_config__tensor_parallel=2), variant("tp1"),
+        power, expect_res=res)
+    res32 = {"gemm_bf16_epilogue": 0, "gemm_f32x3_epilogue": steps * per_step,
+             "layernorm_rows_bwd": 0,
+             "layernorm_snap_rows_bwd": steps * per_step}
+    tp32 = mg_classification(
+        "tp-fp32", variant("tp32", dist_config__tensor_parallel=2,
+                           vit_config__compute_dtype="float32"),
+        variant("tp32one", vit_config__compute_dtype="float32"), power,
+        expect_res=res32)
+    mg_detection(power, det_data_config)
+    print(f"multigpu: phase took {time.perf_counter() - t0:.1f} s")
+    entries = []
+    for name, (counter, source, replaces) in RES_SCALE_KERNELS.items():
+        t = totals[counter]
+        launched = (tp32 if "f32" in name or "snap" in name
+                    else tp)["res_scale"][counter]
+        check(launched > 0, f"{name} never launched on its path")
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            # rank 0's launches in the two-rank tensor-parallel train CLI
+            # (bf16 or fp32 compute); the largest error against the plain
+            # version; per ViT-S/16 block at the local widths of n_tp = 2,
+            # B=64 (one model rank's share)
+            "launches": launched, "max_abs_err": errors[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": max(t["by"], key=t["by"].get),
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+        })
+    return entries
+
+
 def main():
     require_cuda()
     device = torch.device("cuda", 0)
@@ -6646,6 +7258,7 @@ def main():
                           float_ckpt, float_kwargs, i8_384_ckpt,
                           i8_384_kwargs)
     f32_totals = time_f32(device, power)
+    mg_entries = phase_multigpu(device, power, data_config, det_data[0])
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -6760,7 +7373,7 @@ def main():
     for entry in probe_entries:
         # the profiler's device time of the headline variant, B=512
         entry["device_ms"] = totals["probes"][entry["name"]]
-    kernels += probe_entries
+    kernels += probe_entries + mg_entries
     print(f"elapsed: {time.perf_counter() - START:.1f} s since the script "
           "started")
     print(json.dumps({"kernels": kernels}))
@@ -6771,4 +7384,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--counted"]:
+        # one rank of the multigpu phase: python chip_smoke.py --counted
+        # <counts.json> <grads.pt> <train CLI module> <its arguments>
+        print(counted_cli(sys.argv[4], sys.argv[5:], sys.argv[2],
+                          sys.argv[3])[0])
+    else:
+        main()

@@ -1,5 +1,5 @@
 """RESISC45 classification trainer (PyTorch port of
-classification/train.py) on one device.
+classification/train.py), on one device or over several GPUs.
 
     python -m myrtle_vision_tpu_torch.classification.train \\
         -c <config.json> [--device cuda|cpu]
@@ -35,8 +35,21 @@ distillation loss and the plain student's accuracy; the checkpoints hold
 the wrapper's state dict, whose student the eval, PTQ and export CLIs
 read.  A distiller in a quantized format is not ported yet (ROADMAP
 A8b).  ``--device`` defaults to ``cuda``; without a CUDA device that
-raises, it never carries on on the CPU.  Multi-device training is not
-ported yet (ROADMAP A9).  With ``MVT_PROFILE_DIR`` set, steps 3-5 are
+raises, it never carries on on the CPU.
+
+Several GPUs (parallel/launch.py): with ``train_config.distributed``
+(default true) and more than one visible CUDA device, one process per
+device, or one rank a process launched by the caller
+(MVT_COORDINATOR, MVT_NUM_PROCESSES, MVT_PROCESS_ID; ``--device cpu``
+then trains over gloo).  ``dist_config`` names the backend, the URL and
+``tensor_parallel``; ranks lie (data, model), data-major.  The step's
+batch splits over the data ranks (``get_batch_sizes`` over n_data, each
+rank loading its block of the same permutation), gradients average over
+them (training/trainer.py); ``tensor_parallel`` > 1 runs the fused blocks
+head-sharded (parallel/tp.py) where ``fused_gate`` holds and raises
+elsewhere (ROADMAP A9b).  Rank 0 alone creates the output directory,
+writes checkpoints, validates and prints the iteration lines.  With one
+rank nothing of this runs.  With ``MVT_PROFILE_DIR`` set, steps 3-5 are
 traced into that directory (utils/profiling.py).  A positive ``dropout``
 or ``emb_dropout`` trains with the dropout sites active, their masks from
 a generator seeded from ``train_config.seed`` (training/trainer.py).
@@ -57,6 +70,9 @@ from myrtle_vision_tpu_torch.datasets.resisc45 import Resisc45
 from myrtle_vision_tpu_torch.models.distill import DistillWrapper
 from myrtle_vision_tpu_torch.models.resnet import make_teacher_fn
 from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
+from myrtle_vision_tpu_torch.parallel import launch
+from myrtle_vision_tpu_torch.parallel.mesh import Mesh, train_loader_kwargs
+from myrtle_vision_tpu_torch.parallel.tp import setup_tensor_parallel
 from myrtle_vision_tpu_torch.training.classification import (
     make_loss_fn,
     make_predict_fn,
@@ -68,6 +84,7 @@ from myrtle_vision_tpu_torch.training.optim import (
 )
 from myrtle_vision_tpu_torch.training.trainer import (
     TrainState,
+    data_parallel,
     dropout_generator,
     make_train_step,
 )
@@ -126,22 +143,24 @@ def build_teacher(config, device):
                            device=device)
 
 
-def build_train(config, device):
+def build_train(config, device, mesh=None):
     """(model, train loader, validation loader, (micro-batch size,
     micro-batches per step)) as the CLI trains them: the seed set first
     (it also fixes the order the train split is read in), the train
-    loader shuffled and yielding one optimizer step's images per batch,
-    the model initialised from the seed and, when the config names one,
-    the pretrained backbone loaded.  The model is the module the step
+    loader shuffled and yielding one optimizer step's images per batch
+    (this data rank's share of them on a ``mesh`` of several), the model
+    initialised from the seed and, when the config names one, the
+    pretrained backbone loaded.  The model is the module the step
     trains: the ViT, or under a distiller the DistillWrapper whose
     ``student`` is the ViT."""
+    mesh = mesh or Mesh()
     train_config = config["train_config"]
     data_config = parse_config(config["data_config_path"])
     seed = train_config["seed"]
     seed_everything(seed)
 
     batch_size, n_batch_accum = get_batch_sizes(
-        train_config["local_batch_size"], 1,
+        train_config["local_batch_size"], mesh.n_data,
         train_config["global_batch_size"], verbose=True,
     )
     trainset = Resisc45(
@@ -158,9 +177,10 @@ def build_train(config, device):
         label_map_path=data_config["label_map"],
         transform_config=data_config["transform_ops_val"],
     )
-    train_loader = DataLoader(trainset, batch_size=batch_size * n_batch_accum,
-                              device=device, shuffle=True, seed=seed,
-                              drop_last=train_config["drop_last_batch"])
+    train_loader = DataLoader(trainset, device=device, shuffle=True,
+                              seed=seed, **train_loader_kwargs(
+                                  train_config, mesh, batch_size,
+                                  n_batch_accum))
     val_loader = DataLoader(valset, batch_size=batch_size, device=device,
                             seed=seed,
                             drop_last=train_config["drop_last_batch"])
@@ -181,7 +201,11 @@ def build_train(config, device):
     return model, train_loader, val_loader, (batch_size, n_batch_accum)
 
 
-def train(config, device):
+def train(config, device, mesh=None):
+    """Train on ``device`` as one rank of ``mesh`` (parallel/mesh.py; one
+    rank alone when None); the final TrainState."""
+    mesh = mesh or Mesh()
+    main = mesh.rank == 0
     train_config = config["train_config"]
     epochs = train_config["epochs"]
     output_directory = train_config["output_directory"]
@@ -189,17 +213,25 @@ def train(config, device):
     iters_per_val = train_config["iters_per_val"]
 
     model, train_loader, val_loader, (batch_size, n_batch_accum) = \
-        build_train(config, device)
-    os.makedirs(output_directory, exist_ok=True)
+        build_train(config, device, mesh)
+    if main:
+        os.makedirs(output_directory, exist_ok=True)
     print("output directory:", output_directory)
     print(f"device: {device}, local_batch={batch_size}, "
           f"n_accum={n_batch_accum}")
+    if mesh.distributed:
+        print(f"ranks: {mesh.world} (data={mesh.n_data}, "
+              f"model={mesh.tensor_parallel}), rank {mesh.rank}")
 
     state, iteration = prepare_model_and_load_ckpt(
         train_config, TrainState(model, create_optimizer(train_config, model),
                                  dropout=dropout_generator(
-                                     model, train_config["seed"])))
+                                     model, train_config["seed"],
+                                     mesh.data_index)))
     distiller = model if isinstance(model, DistillWrapper) else None
+    setup_tensor_parallel(getattr(model, "student", model), mesh,
+                          extra_ok=distiller is None)
+    module = data_parallel(model, mesh)
     distill_eval = None
     if distiller is not None:
         vit, teacher_fn = distiller.student, build_teacher(config, device)
@@ -212,9 +244,11 @@ def train(config, device):
                 return distiller(images, labels, teacher_fn(images))[0]
     else:
         vit, teacher_fn = model, None
-    train_step = make_train_step(make_loss_fn(vit, distiller, teacher_fn),
-                                 n_batch_accum,
-                                 clip_grad=train_config.get("clip_grad"))
+    loss_fn = (make_loss_fn(module) if distiller is None
+               else make_loss_fn(vit, module, teacher_fn))
+    train_step = make_train_step(loss_fn, n_batch_accum,
+                                 clip_grad=train_config.get("clip_grad"),
+                                 mesh=mesh, module=module)
     predict_fn = make_predict_fn(vit)
 
     def micro_batches(batch):
@@ -222,21 +256,25 @@ def train(config, device):
                 for k, v in batch.items()}
 
     # epoch offset on resume (reference formula, train.py:181-183)
-    epoch_offset = max(0, int(batch_size * iteration
+    epoch_offset = max(0, int(batch_size * mesh.n_data * iteration
                               / len(train_loader.dataset)))
     last_val_loss, last_val_acc = 0.0, 0.0
     steps_per_epoch = len(train_loader)
     profiler = StepProfiler()
+    if not main:
+        profiler.trace_dir = None
 
     for epoch in range(epoch_offset, epochs):
         lr = lr_at_epoch(train_config, epoch)
         epoch_loss, epoch_acc = 0.0, 0.0
         t_epoch = time.time()
         for batch in train_loader.epoch(epoch):
-            if iteration % iters_per_checkpoint == 0:
+            # checkpoints and validation: rank 0's work (reference
+            # train.py:203-237)
+            if iteration % iters_per_checkpoint == 0 and main:
                 save_checkpoint(state,
                                 f"{output_directory}/vit_{iteration:06}")
-            if iteration % iters_per_val == 0:
+            if iteration % iters_per_val == 0 and main:
                 last_val_loss, last_val_acc = validation(
                     predict_fn, val_loader, distill_eval)
             metrics = train_step(state, micro_batches(batch), lr)
@@ -246,9 +284,12 @@ def train(config, device):
             acc = float(metrics["acc"])
             epoch_loss += loss / steps_per_epoch
             epoch_acc += acc / steps_per_epoch
-            print(f"Iteration {iteration}:\tloss={loss:.4f}\t"
-                  f"acc={acc:.4f}")
+            if main:
+                print(f"Iteration {iteration}:\tloss={loss:.4f}\t"
+                      f"acc={acc:.4f}")
 
+        if not main:
+            continue
         print(
             f"Epoch : {epoch + 1} - loss : {epoch_loss:.4f} - "
             f"acc: {epoch_acc:.4f} - "
@@ -259,7 +300,8 @@ def train(config, device):
 
     profiler.close()
     # final checkpoint
-    save_checkpoint(state, f"{output_directory}/vit_{iteration:06}")
+    if main:
+        save_checkpoint(state, f"{output_directory}/vit_{iteration:06}")
     return state
 
 
@@ -278,7 +320,7 @@ def main(argv=None):
     config["train_config"]["output_directory"] += datetime.now().strftime(
         "_%m_%d_%Y_%H_%M_%S"
     )
-    return train(config, device)
+    return launch.run(train, config, device)
 
 
 if __name__ == "__main__":

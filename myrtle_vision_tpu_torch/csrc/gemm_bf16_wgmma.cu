@@ -10,7 +10,10 @@
 //   0  + bias, bf16 out                       (QKV projection)
 //   1  + bias, GELU, bf16 out                 (fc1; the Abramowitz & Stegun
 //      7.1.26 erf with an exact divide, `_gelu_f32` in interpret mode)
-//   2  + bias + residual, bf16 out            (output projection and fc2)
+//   2  residual * res_scale + (acc + bias), bf16 out   (output projection
+//      and fc2; res_scale 1/n_tp under head-sharded tensor parallelism,
+//      the TPU kernels' `x * res_scale + y`, else 1, where the product is
+//      exact and the sum is the one it was)
 //   3  fp32 out, no bias                      (d_o, dxn and the weight
 //      gradients; with split K, one partial product per K chunk)
 //   4  + bias, bf16 GELU out and the fp32 GELU derivative into `aux`
@@ -60,6 +63,7 @@
 #include "sm90.cuh"
 
 #include <chrono>
+#include <cmath>
 
 namespace {
 
@@ -128,7 +132,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                   const float* __restrict__ bias,
                   const bf16* __restrict__ residual, void* __restrict__ out,
                   float* __restrict__ aux, float* __restrict__ colpart, int M,
-                  int N, int K, int k_split) {
+                  int N, int K, int k_split, float res_scale) {
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   unsigned char* smem =
@@ -298,8 +302,10 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         } else if constexpr (kEpi == kBiasResidual) {
           const float2 r = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(residual + o));
-          v0 = r.x + v0;
-          v1 = r.y + v1;
+          // __fmul_rn: no contraction into an fma, so the residual is
+          // scaled exactly as the plain version scales it
+          v0 = __fmul_rn(r.x, res_scale) + v0;
+          v1 = __fmul_rn(r.y, res_scale) + v1;
         } else if constexpr (kEpi == kBiasGeluGrad) {
           float gp[2], v[2] = {v0, v1};
 #pragma unroll
@@ -382,7 +388,8 @@ int sm_count() {
 template <bool kAMn, bool kBMn, int kEpi>
 int launch(cudaStream_t stream, const void* a, const void* b,
            const void* bias, const void* residual, void* out, void* aux,
-           void* colpart, int M, int N, int K, int k_split) {
+           void* colpart, int M, int N, int K, int k_split,
+           float res_scale = 1.f) {
   CUtensorMap ma, mb;
   int err = encode_maps(&ma, &mb, a, b, M, N, K, kAMn, kBMn);
   if (err != 0) return err;
@@ -399,14 +406,15 @@ int launch(cudaStream_t stream, const void* a, const void* b,
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       ma, mb, static_cast<const float*>(bias),
       static_cast<const bf16*>(residual), out, static_cast<float*>(aux),
-      static_cast<float*>(colpart), M, N, K, k_split);
+      static_cast<float*>(colpart), M, N, K, k_split, res_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kBMn>
 int launch_epi(int epilogue, cudaStream_t s, const void* a,
                const void* b, const void* bias, const void* residual,
-               void* out, void* aux, void* colpart, int M, int N, int K) {
+               void* out, void* aux, void* colpart, int M, int N, int K,
+               float res_scale) {
   switch (epilogue) {
     case kBias:
       return launch<false, kBMn, kBias>(s, a, b, bias, residual, out,
@@ -416,7 +424,7 @@ int launch_epi(int epilogue, cudaStream_t s, const void* a,
                                             out, aux, colpart, M, N, K, K);
     case kBiasResidual:
       return launch<false, kBMn, kBiasResidual>(
-          s, a, b, bias, residual, out, aux, colpart, M, N, K, K);
+          s, a, b, bias, residual, out, aux, colpart, M, N, K, K, res_scale);
     case kF32:
       return launch<false, kBMn, kF32>(s, a, b, bias, residual, out,
                                        aux, colpart, M, N, K, K);
@@ -443,11 +451,13 @@ MVT_EXPORT int mvt_gemm_bf16_tile(int which) {
 // Row-major A.  `out` is bf16 except for epilogue 3 (fp32); `aux` is the
 // fp32 (M, N) GELU derivative (written by 4, read by 5); `colpart` the
 // fp32 (ceil(M / 128), N) column sums of epilogue 5.  A and B 16-byte
-// aligned, K and N multiples of 8 (TMA's 16-byte strides).
+// aligned, K and N multiples of 8 (TMA's 16-byte strides).  res_scale
+// scales the residual of epilogue 2 (finite; the others ignore it).
 MVT_EXPORT int mvt_gemm_bf16(const void* a, const void* b, const void* bias,
                              const void* residual, void* out, void* aux,
                              void* colpart, int M, int N, int K,
-                             int b_col_major, int epilogue, void* stream) {
+                             int b_col_major, int epilogue, float res_scale,
+                             void* stream) {
   const bool needs_bias = epilogue != kF32 && epilogue != kMulAuxColsum;
   if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 ||
       !aligned16(a) || !aligned16(b) || epilogue < kBias ||
@@ -455,15 +465,16 @@ MVT_EXPORT int mvt_gemm_bf16(const void* a, const void* b, const void* bias,
       (epilogue == kBiasResidual && residual == nullptr) ||
       ((epilogue == kBiasGeluGrad || epilogue == kMulAuxColsum) &&
        aux == nullptr) ||
-      (epilogue == kMulAuxColsum && colpart == nullptr))
+      (epilogue == kMulAuxColsum && colpart == nullptr) ||
+      !std::isfinite(res_scale))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // a column-major B is the (N, K) weight: K-major for wgmma
   if (b_col_major)
     return launch_epi<false>(epilogue, s, a, b, bias, residual, out, aux,
-                             colpart, M, N, K);
+                             colpart, M, N, K, res_scale);
   return launch_epi<true>(epilogue, s, a, b, bias, residual, out, aux,
-                          colpart, M, N, K);
+                          colpart, M, N, K, res_scale);
 }
 
 // Weight gradient: out = A^T-stored x B, i.e. A stored (K, M) row-major and

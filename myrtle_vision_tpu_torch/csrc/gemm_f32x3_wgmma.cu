@@ -24,8 +24,11 @@
 //   1  h = site0(snap_all(P + bias)), site1(snap(snap_all(GELU(h))))
 //      (fc1: fc1 act_out, GELU act_out, fc2 act_in; the polynomial erf,
 //      exact divide)
-//   2  site1(snap_all(residual + site0(snap_all(P + bias))))  (output
-//      projection and fc2: act_out, then the residual add's functional site)
+//   2  site1(snap_all(residual * res_scale + site0(snap_all(P + bias))))
+//      (output projection and fc2: act_out, then the residual add's
+//      functional site; res_scale 1/n_tp under head-sharded tensor
+//      parallelism, the TPU kernels' `x * res_scale + y`, else 1, whose
+//      product is exact)
 //   3  P, no bias, no snap                 (d_o, dxn, dg and the weight
 //      gradients; with split K, one partial product per K chunk)
 //   4  h = site0(snap_all(P + bias)): site1(snap(snap_all(GELU(h)))) out and
@@ -90,6 +93,8 @@
 // GELU tiles), so one CTA an SM.
 #include "fake_quant.cuh"
 #include "sm90.cuh"
+
+#include <cmath>
 
 namespace {
 
@@ -280,7 +285,7 @@ gemm_f32x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                         const float* __restrict__ residual,
                         float* __restrict__ out, float* __restrict__ aux,
                         float* __restrict__ colpart, int M, int N, int K,
-                        int k_split, Snaps policy) {
+                        int k_split, Snaps policy, float res_scale) {
   using C = CfgOf<kEpi>;
   constexpr int BM = C::BM, BN = C::BN;
   constexpr int kConsumers = C::kConsumers, kTileA = C::kTileA;
@@ -492,7 +497,9 @@ gemm_f32x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                                     q),
                           q, 1);
           } else if (kEpi == kBiasSnapResidualSnap) {
-            u = mvt::site(mvt::snap_all(__fadd_rn(x[e], u), q), q, 1);
+            u = mvt::site(
+                mvt::snap_all(__fadd_rn(__fmul_rn(x[e], res_scale), u), q), q,
+                1);
           }
           v[e] = u;
         }
@@ -579,7 +586,8 @@ int sm_count() {
 template <bool kAMn, bool kBMn, int kEpi, class Snaps = mvt::QSpec>
 int launch(cudaStream_t stream, const void* a, const void* b,
            const void* bias, const void* residual, void* out, void* aux,
-           void* colpart, int M, int N, int K, int k_split, Snaps q) {
+           void* colpart, int M, int N, int K, int k_split, Snaps q,
+           float res_scale = 1.f) {
   using C = CfgOf<kEpi>;
   constexpr int BM = C::BM, BN = C::BN;
   CUtensorMap ma, mb;
@@ -599,7 +607,7 @@ int launch(cudaStream_t stream, const void* a, const void* b,
       ma, mb, static_cast<const float*>(bias),
       static_cast<const float*>(residual), static_cast<float*>(out),
       static_cast<float*>(aux), static_cast<float*>(colpart), M, N, K,
-      k_split, q);
+      k_split, q, res_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -608,7 +616,8 @@ int launch(cudaStream_t stream, const void* a, const void* b,
 template <class Snaps>
 int launch_snapping(cudaStream_t s, int epilogue, const void* a,
                     const void* b, const void* bias, const void* residual,
-                    void* out, void* aux, int M, int N, int K, Snaps q) {
+                    void* out, void* aux, int M, int N, int K, Snaps q,
+                    float res_scale) {
   switch (epilogue) {
     case kBiasSnap:
       return launch<false, false, kBiasSnap>(s, a, b, bias, residual, out,
@@ -618,7 +627,8 @@ int launch_snapping(cudaStream_t s, int epilogue, const void* a,
           s, a, b, bias, residual, out, aux, nullptr, M, N, K, K, q);
     case kBiasSnapResidualSnap:
       return launch<false, false, kBiasSnapResidualSnap>(
-          s, a, b, bias, residual, out, aux, nullptr, M, N, K, K, q);
+          s, a, b, bias, residual, out, aux, nullptr, M, N, K, K, q,
+          res_scale);
     default:
       return launch<false, false, kBiasSnapGeluSnapGrad>(
           s, a, b, bias, residual, out, aux, nullptr, M, N, K, K, q);
@@ -650,13 +660,15 @@ MVT_EXPORT int mvt_gemm_f32x3_tile(int which) {
 // rows (scale, zero point, has_stats) of the INT8 site table on the device,
 // or site0 null for the float format qspec (exp_bits, man_bits,
 // all_sites).  K % 4 == 0, and N % 4 == 0 for a row-major b (TMA's 16-byte
-// row strides).
+// row strides).  res_scale scales the residual of epilogue 2 (finite; the
+// others ignore it).
 MVT_EXPORT int mvt_gemm_f32x3(const void* a, const void* b, const void* bias,
                               const void* residual, void* out, void* aux,
                               void* colpart, int M, int N, int K,
                               int b_row_major, int epilogue, int exp_bits,
                               int man_bits, int all_sites, const void* site0,
-                              const void* site1, void* stream) {
+                              const void* site1, float res_scale,
+                              void* stream) {
   const bool row_b = epilogue == kF32 || epilogue == kMulAux;
   const bool int8 = site0 != nullptr;
   if (M <= 0 || N <= 0 || K <= 0 || K % 4 != 0 || epilogue < kBiasSnap ||
@@ -668,7 +680,8 @@ MVT_EXPORT int mvt_gemm_f32x3(const void* a, const void* b, const void* bias,
        aux == nullptr) ||
       (epilogue == kMulAux && colpart == nullptr) ||
       (int8 && (row_b || (epilogue != kBiasSnap && site1 == nullptr))) ||
-      (!int8 && !row_b && !mvt::float_fmt_ok(exp_bits, man_bits)))
+      (!int8 && !row_b && !mvt::float_fmt_ok(exp_bits, man_bits)) ||
+      !std::isfinite(res_scale))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const mvt::QSpec none(8, 10, 0);  // the unsnapped epilogues read no snap
@@ -682,9 +695,11 @@ MVT_EXPORT int mvt_gemm_f32x3(const void* a, const void* b, const void* bias,
     return launch_snapping(
         s, epilogue, a, b, bias, residual, out, aux, M, N, K,
         mvt::Int8Sites{static_cast<const float*>(site0),
-                       static_cast<const float*>(site1)});
+                       static_cast<const float*>(site1)},
+        res_scale);
   return launch_snapping(s, epilogue, a, b, bias, residual, out, aux, M, N,
-                         K, mvt::QSpec(exp_bits, man_bits, all_sites));
+                         K, mvt::QSpec(exp_bits, man_bits, all_sites),
+                         res_scale);
 }
 
 // Weight gradient: out = A^T-stored x B, i.e. A stored (K, M) row-major and

@@ -9,7 +9,10 @@
 // upstream gradient do (bf16):
 //   mu, rstd, xhat recomputed in fp32 as the forward does
 //   dxhat = dxn * scale
-//   dx    = bf16(do + rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat*xhat)))
+//   dx    = bf16(do * res_scale
+//                + rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat*xhat)))
+// (res_scale 1/n_tp under head-sharded tensor parallelism, the TPU
+// kernels' `do * res_scale + dx_ln`, else 1, whose product is exact)
 // and per block the column partial sums of dxn * xhat (dscale) and dxn
 // (dbias) over its rows, (blocks, 2, cols) fp32, which colsum_rows adds.
 // Memory bound: about 12 bytes moved per element.  Its float-format form,
@@ -42,6 +45,7 @@
 // at ViT-S/16 (50,432 x 384 bf16, the bias gradients dbp and db2) 39 MB,
 // 0.0116 ms at 3.35 TB/s.  The design before ran one thread per column with 2-byte loads,
 // and its pass 2 had 2 blocks in which each thread added 788 partials.
+#include <cmath>
 #include <cstdint>
 
 #include "fake_quant.cuh"
@@ -113,7 +117,7 @@ layernorm_rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                           const float* __restrict__ dxn,
                           const T* __restrict__ d_out, T* __restrict__ dx,
                           float* __restrict__ part, int rows, int cols,
-                          float eps, mvt::QSpec q) {
+                          float eps, mvt::QSpec q, float res_scale) {
   extern __shared__ float wsum[];  // kWarps x 2 x cols
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -182,8 +186,12 @@ layernorm_rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
       if (!ok[i]) continue;
       float o[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[e] = dv[i][e] + rstd * (gv[i][e] - m1 - xv[i][e] * m2);
+      for (int e = 0; e < 4; ++e) {
+        // __fmul_rn: the scaled gradient is rounded on its own, as the
+        // plain version rounds it, and then enters the sum as do did
+        const float dr = __fmul_rn(dv[i][e], res_scale);
+        o[e] = dr + rstd * (gv[i][e] - m1 - xv[i][e] * m2);
+      }
       store4(dx + off + 4 * (lane + 32 * i),
              make_float4(o[0], o[1], o[2], o[3]));
     }
@@ -340,7 +348,8 @@ namespace {
 template <typename T, bool kSnap, int kChunks>
 int launch_chunks(const void* x, const void* scale, const void* dxn,
                   const void* d_out, void* dx, void* part, int rows, int cols,
-                  int blocks, float eps, mvt::QSpec q, cudaStream_t stream) {
+                  int blocks, float eps, mvt::QSpec q, float res_scale,
+                  cudaStream_t stream) {
   const size_t smem = sizeof(float) * kWarps * 2 * cols;
   cudaError_t err = cudaFuncSetAttribute(
       layernorm_rows_bwd_kernel<T, kSnap, kChunks>,
@@ -350,7 +359,8 @@ int launch_chunks(const void* x, const void* scale, const void* dxn,
                                                  stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(scale),
       static_cast<const float*>(dxn), static_cast<const T*>(d_out),
-      static_cast<T*>(dx), static_cast<float*>(part), rows, cols, eps, q);
+      static_cast<T*>(dx), static_cast<float*>(part), rows, cols, eps, q,
+      res_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -358,16 +368,18 @@ int launch_chunks(const void* x, const void* scale, const void* dxn,
 template <typename T, bool kSnap>
 int launch_ln_bwd(const void* x, const void* scale, const void* dxn,
                   const void* d_out, void* dx, void* part, int rows, int cols,
-                  int blocks, float eps, mvt::QSpec q, void* stream) {
+                  int blocks, float eps, mvt::QSpec q, float res_scale,
+                  void* stream) {
   if (rows <= 0 || cols <= 0 || cols > kMaxCols || cols % 4 != 0 ||
-      blocks <= 0)
+      blocks <= 0 || !std::isfinite(res_scale))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((cols + 127) / 128) {
 #define MVT_LN_BWD(k)                                                    \
   case k:                                                                \
     return launch_chunks<T, kSnap, k>(x, scale, dxn, d_out, dx, part,   \
-                                      rows, cols, blocks, eps, q, s);
+                                      rows, cols, blocks, eps, q,       \
+                                      res_scale, s);
     MVT_LN_BWD(1)
     MVT_LN_BWD(2)
     MVT_LN_BWD(3)
@@ -382,15 +394,16 @@ int launch_ln_bwd(const void* x, const void* scale, const void* dxn,
 
 }  // namespace
 
-// part: (blocks, 2, cols) fp32, blocks as the caller chose them
+// part: (blocks, 2, cols) fp32, blocks as the caller chose them;
+// res_scale (finite) scales d_out in dx
 MVT_EXPORT int mvt_layernorm_rows_bwd(const void* x, const void* scale,
                                       const void* dxn, const void* d_out,
                                       void* dx, void* part, int rows,
                                       int cols, int blocks, float eps,
-                                      void* stream) {
+                                      float res_scale, void* stream) {
   return launch_ln_bwd<bf16, false>(x, scale, dxn, d_out, dx, part, rows,
                                     cols, blocks, eps, mvt::QSpec(8, 10, 0),
-                                    stream);
+                                    res_scale, stream);
 }
 
 // the float-format form: x, dxn, d_out, dx fp32 (rows, cols); scale fp32
@@ -402,17 +415,17 @@ MVT_EXPORT int mvt_layernorm_snap_rows_bwd(const void* x, const void* scale,
                                            int cols, int blocks, float eps,
                                            int exp_bits, int man_bits,
                                            int all_sites, int int8,
-                                           void* stream) {
+                                           float res_scale, void* stream) {
   if (int8)
     return launch_ln_bwd<float, false>(x, scale, dxn, d_out, dx, part, rows,
                                        cols, blocks, eps, mvt::QSpec(8, 10, 0),
-                                       stream);
+                                       res_scale, stream);
   if (!mvt::float_fmt_ok(exp_bits, man_bits))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_ln_bwd<float, true>(x, scale, dxn, d_out, dx, part, rows,
                                     cols, blocks, eps,
                                     mvt::QSpec(exp_bits, man_bits, all_sites),
-                                    stream);
+                                    res_scale, stream);
 }
 
 // out (cols,) fp32 = column sums of in (rows, cols), bf16 (in_bf16 = 1) or

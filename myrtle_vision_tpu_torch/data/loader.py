@@ -1,8 +1,8 @@
-"""Host input pipeline for one device: threaded decode/augment, batches in
-pinned host memory, copied to the device without blocking.
+"""Host input pipeline of one process: threaded decode/augment, batches
+in pinned host memory, copied to the device without blocking.
 
 Port of ``DataLoader.epoch`` of myrtle_vision_tpu/data/loader.py (whose
-module imports jax) for one process: the same item order (a permutation
+module imports jax): the same item order (a permutation
 seeded by ``seed + epoch`` under ``shuffle``, file order otherwise), the
 same per-item generators, seeded by ``(seed * 100003 + epoch)`` and the
 item index, and the same ``drop_last`` / ``pad_last`` semantics
@@ -12,7 +12,15 @@ batch with ``"_n_valid"``), so that both loaders yield the same pixels.
 the JAX loader's does (default: stack each key of dict items); every
 array then goes to the device as it is, integer and bool fields
 included.
-Multi-host sharding (``process_shard``) waits for ROADMAP A9.
+
+``process_shard=(index, count)`` makes the loader one rank's share of a
+multi-process run, as the JAX loader's: every rank takes the same
+permutation and keeps, of each batch of ``batch_size`` indices laid out
+as (``accum_steps``, batch_size / accum_steps), its own contiguous block
+of columns [index l, (index + 1) l) of every row, l = the micro-batch /
+count (the reference's DistributedSampler, classification/train.py:116);
+it needs ``drop_last`` with more than one process and refuses
+``pad_last``, with the JAX loader's errors.
 """
 from __future__ import annotations
 
@@ -32,7 +40,29 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, device,
                  shuffle: bool = False, seed: int = 0,
                  drop_last: bool = True, pad_last: bool = False,
-                 collate_fn=None):
+                 collate_fn=None, process_shard=None, accum_steps: int = 1):
+        if process_shard is not None:
+            pid, pcount = process_shard
+            if pcount > 1 and not drop_last:
+                raise ValueError(
+                    "process_shard requires drop_last=True (a ragged "
+                    "final batch cannot be evenly sharded over processes)"
+                )
+            if pad_last:
+                raise ValueError(
+                    "pad_last is incompatible with process_shard; "
+                    "shard-evaluate with drop_last or evaluate on one "
+                    "process"
+                )
+            micro = batch_size // accum_steps
+            if batch_size % accum_steps or micro % pcount:
+                raise ValueError(
+                    f"batch_size {batch_size} must split into "
+                    f"accum_steps={accum_steps} x process-divisible "
+                    f"micro-batches (processes={pcount})"
+                )
+        self.process_shard = process_shard
+        self.accum_steps = accum_steps
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -84,6 +114,12 @@ class DataLoader:
                     idxs = np.concatenate(
                         [idxs, np.repeat(idxs[-1], self.batch_size - n_valid)]
                     )
+                if self.process_shard is not None:
+                    pid, pcount = self.process_shard
+                    local = len(idxs) // self.accum_steps // pcount
+                    idxs = idxs.reshape(self.accum_steps, -1)[
+                        :, pid * local:(pid + 1) * local].reshape(-1)
+                    n_valid = len(idxs)
                 pending.append((n_valid, [pool.submit(fetch, i)
                                           for i in idxs]))
 

@@ -1,5 +1,5 @@
 """DIOR object detection trainer: YOLOS-style ViT + DETR loss (PyTorch
-port of detection/train.py) on one device.
+port of detection/train.py), on one device or over several GPUs.
 
     python -m myrtle_vision_tpu_torch.detection.train \\
         -c <config.json> [--device cuda|cpu]
@@ -17,8 +17,11 @@ gradients sum; the Hungarian matcher runs inside each micro-batch's loss.
 Checkpoints are ``torch.save`` files (utils/checkpoint.py) that the
 port's detection eval CLI reads as they are; ``checkpoint_path``
 resumes from one.  ``--device`` defaults to ``cuda``; without a CUDA
-device that raises, it never carries on on the CPU.  Multi-device
-training is not ported yet (ROADMAP A9).  As the JAX CLI, the config's
+device that raises, it never carries on on the CPU.  Several GPUs as in
+classification/train.py (parallel/launch.py): each data rank collates its
+block of the step's images on its own canvas, and ``num_boxes`` averages
+over the data ranks (models/detector.py); rank 0 alone validates, writes
+the checkpoints and the scalars.  As the JAX CLI, the config's
 hyperparameters, each epoch's LR and validation AP go to ``runs/``
 (TensorBoard where the package is installed, else ``runs/scalars.jsonl``;
 utils/logging.py), and with ``MVT_PROFILE_DIR`` set steps 3-5 are traced
@@ -45,6 +48,9 @@ from myrtle_vision_tpu_torch.data.loader import DataLoader
 from myrtle_vision_tpu_torch.datasets.coco import CocoDetection
 from myrtle_vision_tpu_torch.models.detector import build_weight_dict
 from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
+from myrtle_vision_tpu_torch.parallel import launch
+from myrtle_vision_tpu_torch.parallel.mesh import Mesh, train_loader_kwargs
+from myrtle_vision_tpu_torch.parallel.tp import setup_tensor_parallel
 from myrtle_vision_tpu_torch.training.detection import (
     evaluate_coco,
     make_detect_fn,
@@ -53,6 +59,7 @@ from myrtle_vision_tpu_torch.training.detection import (
 from myrtle_vision_tpu_torch.training.optim import create_optimizer, lr_at_epoch
 from myrtle_vision_tpu_torch.training.trainer import (
     TrainState,
+    data_parallel,
     dropout_generator,
     make_train_step,
 )
@@ -74,13 +81,15 @@ from myrtle_vision_tpu_torch.utils.profiling import StepProfiler
 STEP_KEYS = ("image", "labels", "boxes", "valid")
 
 
-def build_train(config, device):
+def build_train(config, device, mesh=None):
     """(model, train loader, validation loader, validation set, (micro-batch
     size, micro-batches per step)) as the CLI trains them: the seed set
     first (it also fixes the order the train split is read in), the train
     loader shuffled and yielding one optimizer step's images per batch on
-    one canvas, the model initialised from the seed and, when the config
-    names one, the pretrained backbone loaded."""
+    one canvas (this data rank's share on a ``mesh`` of several), the
+    model initialised from the seed and, when the config names one, the
+    pretrained backbone loaded."""
+    mesh = mesh or Mesh()
     train_config = config["train_config"]
     vit_config = config["vit_config"]
     data_config = parse_config(config["data_config_path"])
@@ -89,7 +98,7 @@ def build_train(config, device):
     num_det_tokens = vit_config.get("num_det_tokens", 100)
 
     batch_size, n_batch_accum = get_batch_sizes(
-        train_config["local_batch_size"], 1,
+        train_config["local_batch_size"], mesh.n_data,
         train_config["global_batch_size"], verbose=True,
     )
     dataset_path = data_config["dataset_path"]
@@ -110,10 +119,11 @@ def build_train(config, device):
                      "transform_ops_train", "train_subset")
     valset = split("valid_images", "valid_annotations", "transform_ops_val",
                    "valid_subset")
-    train_loader = DataLoader(trainset, batch_size=batch_size * n_batch_accum,
-                              device=device, shuffle=True, seed=seed,
-                              drop_last=train_config["drop_last_batch"],
-                              collate_fn=collate)
+    train_loader = DataLoader(trainset, device=device, shuffle=True,
+                              seed=seed, collate_fn=collate,
+                              **train_loader_kwargs(train_config, mesh,
+                                                    batch_size,
+                                                    n_batch_accum))
     val_loader = DataLoader(valset, batch_size=batch_size, device=device,
                             drop_last=False, collate_fn=collate)
 
@@ -138,36 +148,50 @@ def micro_batches(batch, n_accum, micro):
             for k in STEP_KEYS}
 
 
-def train(config, device):
+def train(config, device, mesh=None):
+    """Train on ``device`` as one rank of ``mesh`` (parallel/mesh.py; one
+    rank alone when None); the final TrainState."""
+    mesh = mesh or Mesh()
+    main = mesh.rank == 0
     train_config = config["train_config"]
     epochs = train_config["epochs"]
     output_directory = train_config["output_directory"]
     n_classes = parse_config(config["data_config_path"])["number_of_classes"]
 
     model, train_loader, val_loader, valset, (batch_size, n_batch_accum) = \
-        build_train(config, device)
-    writer = ScalarLogger("runs/")
-    os.makedirs(output_directory, exist_ok=True)
+        build_train(config, device, mesh)
+    writer = ScalarLogger("runs/", enabled=main)
+    if main:
+        os.makedirs(output_directory, exist_ok=True)
     print("output directory:", output_directory)
     print(f"device: {device}, local_batch={batch_size}, "
           f"n_accum={n_batch_accum}")
+    if mesh.distributed:
+        print(f"ranks: {mesh.world} (data={mesh.n_data}, "
+              f"model={mesh.tensor_parallel}), rank {mesh.rank}")
 
     state, iteration = prepare_model_and_load_ckpt(
         train_config, TrainState(model, create_optimizer(train_config, model),
                                  dropout=dropout_generator(
-                                     model, train_config["seed"])))
+                                     model, train_config["seed"],
+                                     mesh.data_index)))
+    setup_tensor_parallel(model, mesh)
+    module = data_parallel(model, mesh)
     train_step = make_train_step(
-        make_loss_fn(model, n_classes, build_weight_dict(train_config),
-                     train_config["eos_coef"]),
-        n_batch_accum, clip_grad=train_config.get("clip_grad"))
+        make_loss_fn(module, n_classes, build_weight_dict(train_config),
+                     train_config["eos_coef"], group=mesh.data_group),
+        n_batch_accum, clip_grad=train_config.get("clip_grad"), mesh=mesh,
+        module=module)
     detect_fn = make_detect_fn(model)
     writer.add_hparams({**train_config, **config["vit_config"]},
                        {"metric/placeholder": 0.0})
     profiler = StepProfiler()
+    if not main:
+        profiler.trace_dir = None
 
     best_ap = -1.0
-    # epoch offset on resume (the JAX CLI's formula, one device)
-    epoch_offset = max(0, int(batch_size * iteration
+    # epoch offset on resume (the JAX CLI's formula)
+    epoch_offset = max(0, int(batch_size * mesh.n_data * iteration
                               / max(len(train_loader.dataset), 1)))
     for epoch in range(epoch_offset, epochs):
         lr = lr_at_epoch(train_config, epoch)
@@ -182,11 +206,16 @@ def train(config, device):
             profiler.step(iteration)
             loss = float(metrics["loss"])
             epoch_loss += loss / steps
-            print(f"Iteration {iteration}:\tloss={loss:.4f}\t"
-                  f"ce={float(metrics['loss_ce']):.4f}\t"
-                  f"bbox={float(metrics['loss_bbox']):.4f}\t"
-                  f"giou={float(metrics['loss_giou']):.4f}")
+            if main:
+                print(f"Iteration {iteration}:\tloss={loss:.4f}\t"
+                      f"ce={float(metrics['loss_ce']):.4f}\t"
+                      f"bbox={float(metrics['loss_bbox']):.4f}\t"
+                      f"giou={float(metrics['loss_giou']):.4f}")
 
+        # COCO validation and the best checkpoint: rank 0's work
+        # (reference train.py:289-319)
+        if not main:
+            continue
         evaluator = evaluate_coco(detect_fn, val_loader, valset.coco, epoch)
         ap = float(evaluator.stats[0])
         writer.add_scalar("val_AP", ap, epoch)
@@ -198,7 +227,8 @@ def train(config, device):
                             extra={"ap": ap})
 
     profiler.close()
-    save_checkpoint(state, f"{output_directory}/vit_{iteration:06}")
+    if main:
+        save_checkpoint(state, f"{output_directory}/vit_{iteration:06}")
     writer.flush()
     return state
 
@@ -218,7 +248,7 @@ def main(argv=None):
     config["train_config"]["output_directory"] += datetime.now().strftime(
         "_%m_%d_%Y_%H_%M_%S"
     )
-    return train(config, device)
+    return launch.run(train, config, device)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,13 @@
 """Detection loss (DETR-derived set criterion) and COCO post-processing
-(port of myrtle_vision_tpu/models/detector.py for one device).
+(port of myrtle_vision_tpu/models/detector.py).
 
 - Targets are padded to a static ``max_boxes`` per image with a validity
   mask, as the JAX package pads them; matched pairs come from the
   Hungarian matcher as a query index per target slot (models/matcher.py).
-- ``num_boxes``: the number of valid targets in the batch, clamped to 1
-  (reference detector.py:133-138 on one process).  The cross-process
-  average of the JAX package's ``axis_name`` branch waits for multi-device
-  training (ROADMAP A9).
+- ``num_boxes``: the number of valid targets in the batch; with a data
+  ``group`` (multi-GPU training) summed over it and divided by its size,
+  the JAX package's ``axis_name`` branch; then clamped to 1 (reference
+  detector.py:133-138).
 - Losses (reference detector.py:41-98): weighted CE with ``eos_coef``
   down-weighting the no-object class, class and cardinality errors
   (logging only, no gradient), L1 + GIoU box losses normalized by
@@ -26,7 +26,8 @@ from myrtle_vision_tpu_torch.ops.boxes import (
 
 def criterion(outputs, targets, num_classes: int, weight_dict=None,
               eos_coef: float = 0.1, cost_class: float = 1.0,
-              cost_bbox: float = 5.0, cost_giou: float = 2.0, src_idx=None):
+              cost_bbox: float = 5.0, cost_giou: float = 2.0, src_idx=None,
+              group=None):
     """Compute the DETR loss dict.
 
     Args:
@@ -37,6 +38,8 @@ def criterion(outputs, targets, num_classes: int, weight_dict=None,
       weight_dict: loss-name -> weight for the "loss" total
         (reference detection/train.py:199-215 builds it from train_config).
       src_idx: (B, M) matched queries; matched here when None.
+      group: the data group of a multi-GPU run, over which ``num_boxes``
+        averages, or None.
 
     Returns a dict of 0-dim fp32 tensors: loss_ce / class_error /
     cardinality_error / loss_bbox / loss_giou and the weighted total
@@ -54,7 +57,14 @@ def criterion(outputs, targets, num_classes: int, weight_dict=None,
                                   valid, cost_class=cost_class,
                                   cost_bbox=cost_bbox, cost_giou=cost_giou)
     src_idx = src_idx.long()
-    num_boxes = valid.float().sum().clamp(min=1.0)
+    num_boxes = valid.float().sum()
+    if group is not None:
+        import torch.distributed as dist
+
+        num_boxes = num_boxes.clone()
+        dist.all_reduce(num_boxes, group=group)
+        num_boxes = num_boxes / dist.get_world_size(group)
+    num_boxes = num_boxes.clamp(min=1.0)
 
     # ---- loss_labels (detector.py:41-60) ----
     # matched target classes scattered into a (B, Q) map of no-object;

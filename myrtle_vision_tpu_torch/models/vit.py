@@ -124,6 +124,14 @@ longer sequence (198 tokens at 224 px), and the forward returns the
 logits and the token's fp32 embedding after the last block, as the JAX
 ViT does; the quantized formats refuse a token (ROADMAP A8b).
 
+Head-sharded tensor parallelism (parallel/tp.py, the JAX Block's
+``tp_axis`` branch): a Block given its place in a model group
+(``Block.tp``, set by ``parallel.tp.enable``) runs each half in training
+on its local heads and hidden columns with ``res_scale`` 1/n_tp, the
+partial outputs summed over the group; evaluation (``model.eval()``)
+runs the whole Block on every rank, as the JAX CLIs evaluate the model
+without ``tp_axis``.
+
 Images are NHWC, as in the JAX package.  ``forward(img, plain=True)``
 runs the plain PyTorch versions on any device, as the reference the
 kernels are checked against.  The patch embedding, the tokens and the
@@ -165,6 +173,7 @@ from myrtle_vision_tpu_torch.ops.high_precision import (
     matmul_fp32,
     matmul_high3,
 )
+from myrtle_vision_tpu_torch.parallel import tp as tp_lib
 from myrtle_vision_tpu_torch.ops.interpolate import (
     resize_bicubic,
     resize_bilinear,
@@ -375,6 +384,9 @@ class Block(nn.Module):
     JAX Block.  Each forward takes ``dropout_rng`` (the model's dropout
     generator, or None) and ``probs`` (a list that attention capture
     fills, or None).
+    With ``tp`` set (parallel/tp.py ``TensorParallel``), in training:
+    each half on this rank's heads and hidden columns
+    (:meth:`forward_tp`).
     PyTorchINT8: the observer sites (see the module docstring), the
     discrete-site forward, calibrating or the simulation's eval
     (:meth:`forward_int8`), the two-pass QAT step's second pass, one op
@@ -394,6 +406,7 @@ class Block(nn.Module):
         self.dropout = dropout
         self.q_format = q_format
         self.converted = converted
+        self.tp = None  # this rank's model group under tensor parallelism
         self.add_module("0", Residual(PreNorm(
             dim, Attention(dim, heads, dim_head, dropout, device), device)))
         self.add_module("1", Residual(PreNorm(
@@ -624,7 +637,62 @@ class Block(nn.Module):
         h = dropout(h, rate, dropout_rng)
         return dropout(_dense(h, net[3], dt), rate, dropout_rng) + x
 
+    def forward_tp(self, x, plain=False, dropout_rng=None, probs=None):
+        """The JAX Block's ``tp_fuse`` branch: each half on this rank's
+        1/n_tp of the heads (the [q|k|v] rows of ``to_qkv`` and the
+        matching columns of ``to_out``) and of the hidden columns (rows
+        of fc1, columns of fc2), the output bias and the residual scaled
+        by 1/n_tp (``res_scale``), the block input through
+        ``replicated_in`` and the partial output through ``partial_out``.
+        The parameters stay whole; their gradients here are this rank's
+        part, which the trainer sums over the group.  Where the fused
+        gate does not hold, tensor parallelism is not ported and this
+        raises (ROADMAP A9b)."""
+        if not self.fuses(x, dropout_rng, probs):
+            raise NotImplementedError(
+                "tensor parallelism where the Block does not fuse (the "
+                "JAX package's GSPMD form: past fuses_at, MVT_NO_FUSE=1, "
+                "active dropout, attention capture) is not ported yet; see "
+                "ROADMAP.md A9b")
+        attn = self._modules["0"].fn
+        ffn = self._modules["1"].fn
+        attn_op = fused_attention_block_plain if plain else \
+            fused_attention_block
+        mlp_op = fused_mlp_block_plain if plain else fused_mlp_block
+        group, idx, n = self.tp.group, self.tp.index, self.tp.size
+        inv = 1.0 / n
+        dt = x.dtype
+
+        def cols(w, sections=1):
+            # the local output features of a torch (out, in) weight, as
+            # the (in, out) view of a row-major tensor, which the kernels
+            # read in place
+            return tp_lib.shard_cols(w.to(dt), idx, n,
+                                     sections).contiguous().t()
+
+        def rows(w):
+            # the local input features, likewise
+            return tp_lib.shard_rows(w.to(dt), idx, n).contiguous().t()
+
+        qkv, out = attn.fn.to_qkv, attn.fn.to_out[0]
+        part = attn_op(
+            tp_lib.replicated_in(x, group), attn.norm.weight.to(dt),
+            attn.norm.bias, cols(qkv.weight, 3),
+            tp_lib.shard_cols(qkv.bias, idx, n, 3), rows(out.weight),
+            out.bias * inv, self.heads // n, self.scale, self.depth,
+            res_scale=inv)
+        x = tp_lib.partial_out(part, group)
+        fc1, fc2 = ffn.fn.net[0], ffn.fn.net[3]
+        part = mlp_op(
+            tp_lib.replicated_in(x, group), ffn.norm.weight.to(dt),
+            ffn.norm.bias, cols(fc1.weight), tp_lib.shard_cols(
+                fc1.bias, idx, n), rows(fc2.weight), fc2.bias * inv,
+            res_scale=inv)
+        return tp_lib.partial_out(part, group)
+
     def forward(self, x, plain: bool = False, dropout_rng=None, probs=None):
+        if self.tp is not None and self.training:
+            return self.forward_tp(x, plain, dropout_rng, probs)
         if not self.fuses(x, dropout_rng, probs):
             return self.forward_discrete(x, plain, dropout_rng, probs)
         attn = self._modules["0"].fn

@@ -124,7 +124,7 @@ def lib() -> ctypes.CDLL:
         ll = ctypes.c_longlong
         for name, args in (
             ("mvt_layernorm_rows", [p, p, p, p, i, i, f, p]),
-            ("mvt_gemm_bf16", [p, p, p, p, p, p, p, i, i, i, i, i, p]),
+            ("mvt_gemm_bf16", [p, p, p, p, p, p, p, i, i, i, i, i, f, p]),
             ("mvt_gemm_bf16_at", [p, p, p, i, i, i, i, p]),
             ("mvt_gemm_bf16_tile", [i]),
             ("mvt_gemm_bf16_encode_ns", [p, p, i, i, i, i]),
@@ -135,7 +135,7 @@ def lib() -> ctypes.CDLL:
             ("mvt_attention_core_bwd", [p] * 9 + [i, i, i, i, f, p, p]),
             ("mvt_attention_core_bwd_tiled",
              [p] * 9 + [i, i, i, i, f, p, p]),
-            ("mvt_layernorm_rows_bwd", [p, p, p, p, p, p, i, i, i, f, p]),
+            ("mvt_layernorm_rows_bwd", [p, p, p, p, p, p, i, i, i, f, f, p]),
             ("mvt_layernorm_rows_bwd_max_cols", []),
             ("mvt_colsum_rows", [p, i, p, p, i, i, i, p, p]),
             ("mvt_layernorm_quant_rows", [p, p, p, p, p, i, i, f, p]),
@@ -165,11 +165,11 @@ def lib() -> ctypes.CDLL:
              [p, p, p, p, i, i, f, i, i, i, p, p]),
             ("mvt_layernorm_snap_rows_max_cols", []),
             ("mvt_layernorm_snap_rows_plan", [i, i, p]),
-            ("mvt_gemm_f32x3", [p] * 7 + [i] * 8 + [p] * 3),
+            ("mvt_gemm_f32x3", [p] * 7 + [i] * 8 + [p, p, f, p]),
             ("mvt_gemm_f32x3_at", [p, p, p, i, i, i, i, p]),
             ("mvt_gemm_f32x3_tile", [i]),
             ("mvt_layernorm_snap_rows_bwd",
-             [p] * 6 + [i, i, i, f, i, i, i, i, p]),
+             [p] * 6 + [i, i, i, f, i, i, i, i, f, p]),
             ("mvt_flash_attention_fwd",
              [p] * 5 + [ll, i, i, ll, i, i, i, i, i, i, i, f, p]),
             ("mvt_flash_attention_bwd",

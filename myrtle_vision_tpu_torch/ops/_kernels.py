@@ -172,6 +172,11 @@ LAUNCHES = {"layernorm_rows": 0, "gemm_bf16_epilogue": 0,
             "flash_attention_f32_fwd": 0, "flash_attention_f32_bwd": 0,
             "attention_core_probe": 0, "gemm_bf16_probe": 0,
             "gemm_bf16_gelu_probe": 0, "gemm_layout_probe": 0}
+# of those, the launches with a residual scale other than 1 (head-sharded
+# tensor parallelism, ``res_scale`` 1/n_tp; K1-K4's ``x * res_scale + y``
+# and ``do * res_scale + dx_ln``)
+RES_SCALE_LAUNCHES = {"gemm_bf16_epilogue": 0, "gemm_f32x3_epilogue": 0,
+                      "layernorm_rows_bwd": 0, "layernorm_snap_rows_bwd": 0}
 INT8_EPILOGUES = {"requant": 0, "requant_gelu_quant": 1,
                   "requant_residual_requant": 2}
 FAKE_QUANT_MODES = {"float": 0, "fixed": 1}
@@ -249,8 +254,22 @@ F32_FLASH_BWD_LAUNCHES = 4
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, RES_SCALE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def residual_scale(res_scale) -> float:
+    """``res_scale`` as a float: a real number (not a bool) and finite,
+    else ``TypeError`` / ``ValueError``; the kernels and their plain
+    versions check it alike, so no wrong scale reaches either."""
+    if isinstance(res_scale, bool) or not isinstance(res_scale,
+                                                     (int, float)):
+        raise TypeError(f"res_scale must be a real number, got "
+                        f"{type(res_scale).__name__}")
+    if not math.isfinite(res_scale):
+        raise ValueError(f"res_scale must be finite, got {res_scale}")
+    return float(res_scale)
 
 
 # ------------------------------------------------------------------ plain
@@ -310,19 +329,21 @@ def gelu_and_grad_poly(h):
 
 
 def gemm_bf16_epilogue_plain(a, b, bias, epilogue, residual=None, aux=None,
-                             gelu="base"):
+                             gelu="base", res_scale=1.0):
     """epilogue(a @ b + bias): a (..., K), b (K, N), products of the
     rounded operands summed in fp32; b may also be head-major (3, H, K,
     D), column (t, h, d) of the (K, 3HD) operand at [t, h, :, d] (the K12
     probe's ``pvrow`` weight).
     "bias", "bias_gelu", "bias_residual": rounded to a.dtype; "bias_gelu"
-    with ``gelu`` one of :data:`GELU_MODES` (:func:`gelu_poly`).
+    with ``gelu`` one of :data:`GELU_MODES` (:func:`gelu_poly`);
+    "bias_residual" adds ``residual * res_scale`` (fp32, rounded once).
     "store": a @ b rounded to a.dtype, no bias.
     "f32": fp32 a @ b, no bias.
     "bias_gelu_grad": (GELU rounded to a.dtype, fp32 GELU'), both of
     a @ b + bias.
     "mul_aux": (a @ b * aux rounded to a.dtype, fp32 column sums of
     a @ b * aux), no bias."""
+    res_scale = residual_scale(res_scale)
     if b.dim() == 4:
         b = b.permute(2, 0, 1, 3).reshape(b.shape[2], -1)
     v = torch.matmul(a.float(), b.float())
@@ -337,7 +358,7 @@ def gemm_bf16_epilogue_plain(a, b, bias, epilogue, residual=None, aux=None,
     if epilogue == "bias_gelu":
         v = gelu_poly(v, gelu)
     elif epilogue == "bias_residual":
-        v = residual.float() + v
+        v = residual.float() * res_scale + v
     elif epilogue == "bias_gelu_grad":
         g, gp = gelu_and_grad_poly(v)
         return g.to(a.dtype), gp
@@ -485,14 +506,15 @@ def attention_core_bwd_plain(qkv, d_o, m, rs, heads, scale):
     return dqkv.to(dt), dqkv.sum(1)
 
 
-def layernorm_rows_bwd_plain(x, scale, dxn, do, qspec=None):
+def layernorm_rows_bwd_plain(x, scale, dxn, do, qspec=None, res_scale=1.0):
     """LayerNorm backward with the residual gradient (``_bwd_one_image``):
     x, do (rows, C) in the activation dtype, scale (C,), dxn (rows, C)
     fp32 -> (dx rounded to x.dtype, dscale, dbias), the last two fp32
     column sums of dxn * xhat and dxn.  With a float format's ``qspec``
     (fp32 throughout) xhat is recomputed from snap(x), the norm's act_in
     site, whose gradient is straight-through; with :class:`Int8Sites`
-    (fp32) from x."""
+    (fp32) from x.  dx = do * res_scale + the LayerNorm's part."""
+    res_scale = residual_scale(res_scale)
     xf = snap(x, qspec).float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
@@ -501,7 +523,7 @@ def layernorm_rows_bwd_plain(x, scale, dxn, do, qspec=None):
     dxhat = dxn * scale.float()
     m1 = dxhat.mean(-1, keepdim=True)
     m2 = (dxhat * xhat).mean(-1, keepdim=True)
-    dx = do.float() + rstd * (dxhat - m1 - xhat * m2)
+    dx = do.float() * res_scale + rstd * (dxhat - m1 - xhat * m2)
     return dx.to(x.dtype), (dxn * xhat).sum(0), dxn.sum(0)
 
 
@@ -611,7 +633,7 @@ def layernorm_snap_rows_plain(x, scale, bias, qspec):
 
 
 def gemm_f32x3_epilogue_plain(a, w, bias, epilogue, qspec, residual=None,
-                              aux=None):
+                              aux=None, res_scale=1.0):
     """fp32 a (M, K) @ w (K, N) at 3-pass precision (``dot_high3``: both
     operands split, the incoming gradient too), then
     "f32":                      the product, no bias, no snap;
@@ -623,7 +645,8 @@ def gemm_f32x3_epilogue_plain(a, w, bias, epilogue, qspec, residual=None,
                                 polynomial erf with an exact divide;
     "bias_snap_gelu_snap_grad": (that, fp32 GELU'(h)) from one erf (the
                                 backward's fc1 recompute);
-    "bias_snap_residual_snap":  site1(snap_all(residual + h))."""
+    "bias_snap_residual_snap":  site1(snap_all(residual * res_scale + h))."""
+    res_scale = residual_scale(res_scale)
     p = matmul_high3(a, w)
     if epilogue == "f32":
         return p
@@ -639,7 +662,7 @@ def gemm_f32x3_epilogue_plain(a, w, bias, epilogue, qspec, residual=None,
         g, gp = gelu_and_grad_poly(v)
         return snap_int8(snap(snap_all(g, qspec), qspec), qspec, 1), gp
     if epilogue == "bias_snap_residual_snap":
-        return snap_int8(snap_all(residual + v, qspec), qspec, 1)
+        return snap_int8(snap_all(residual * res_scale + v, qspec), qspec, 1)
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
@@ -1187,7 +1210,8 @@ def tma_operand(t, name):
                          "cannot load")
 
 
-def gemm_bf16_epilogue_cuda(a, b, bias, epilogue, residual=None, aux=None):
+def gemm_bf16_epilogue_cuda(a, b, bias, epilogue, residual=None, aux=None,
+                            res_scale=1.0):
     """The CUDA version of :func:`gemm_bf16_epilogue_plain` for a bf16
     (M, K) and b bf16 (K, N), each read in place by TMA when it is
     row-major or the transpose of a row-major tensor, with 16-byte
@@ -1195,6 +1219,7 @@ def gemm_bf16_epilogue_cuda(a, b, bias, epilogue, residual=None, aux=None):
     ``ValueError``).  A transposed ``a`` takes the weight-gradient form:
     fp32 out ("f32" only), any K, K split across CTAs (:func:`gemm_plan`)
     and the partial products summed in order by ``colsum_rows``."""
+    res_scale = residual_scale(res_scale)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape
@@ -1247,7 +1272,10 @@ def gemm_bf16_epilogue_cuda(a, b, bias, epilogue, residual=None, aux=None):
     _launch("gemm_bf16_epilogue", lib.mvt_gemm_bf16, a,
             a.data_ptr(), b.data_ptr(),
             None if bias is None else bias.data_ptr(), res_ptr,
-            out.data_ptr(), aux_ptr, col_ptr, m, n, k, b_col_major, code)
+            out.data_ptr(), aux_ptr, col_ptr, m, n, k, b_col_major, code,
+            res_scale)
+    if epilogue == "bias_residual" and res_scale != 1.0:
+        RES_SCALE_LAUNCHES["gemm_bf16_epilogue"] += 1
     if epilogue == "bias_gelu_grad":
         return out, aux
     if epilogue == "mul_aux":
@@ -1334,11 +1362,12 @@ def attention_core_bwd_cuda(qkv, d_o, m, rs, heads, scale, tiled=False):
     return dqkv, dbias
 
 
-def layernorm_rows_bwd_cuda(x, scale, dxn, do, qspec=None):
+def layernorm_rows_bwd_cuda(x, scale, dxn, do, qspec=None, res_scale=1.0):
     """The CUDA version of :func:`layernorm_rows_bwd_plain`: x, do bf16
     (rows, C), C a multiple of 4 up to 768, scale bf16 (C,), dxn fp32
     (rows, C); with ``qspec`` (a float format's, or :class:`Int8Sites`)
     x, do and scale fp32, its snap form (``layernorm_snap_rows_bwd``)."""
+    res_scale = residual_scale(res_scale)
     dt = torch.bfloat16 if qspec is None else torch.float32
     _require(x, "x", dt)
     rows, cols = x.shape
@@ -1356,12 +1385,16 @@ def layernorm_rows_bwd_cuda(x, scale, dxn, do, qspec=None):
     args = (x.data_ptr(), scale.data_ptr(), dxn.data_ptr(), do.data_ptr(),
             dx.data_ptr(), part.data_ptr(), rows, cols, blocks, EPS)
     if qspec is None:
-        _launch("layernorm_rows_bwd", lib.mvt_layernorm_rows_bwd, x, *args)
+        name = "layernorm_rows_bwd"
+        _launch(name, lib.mvt_layernorm_rows_bwd, x, *args, res_scale)
     else:
+        name = "layernorm_snap_rows_bwd"
         int8 = isinstance(qspec, Int8Sites)
-        _launch("layernorm_snap_rows_bwd", lib.mvt_layernorm_snap_rows_bwd,
+        _launch(name, lib.mvt_layernorm_snap_rows_bwd,
                 x, *args, *(_NO_SNAP if int8 else _qspec_args(qspec)),
-                int(int8))
+                int(int8), res_scale)
+    if res_scale != 1.0:
+        RES_SCALE_LAUNCHES[name] += 1
     sums = colsum_rows_cuda(part)
     return dx, sums[:cols], sums[cols:]
 
@@ -1556,7 +1589,7 @@ def layernorm_snap_rows_cuda(x, scale, bias, qspec):
 
 
 def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
-                             aux=None):
+                             aux=None, res_scale=1.0):
     """The CUDA version of :func:`gemm_f32x3_epilogue_plain`, each operand
     read in place by TMA (16-byte aligned bases, :func:`tma_operand`;
     anything else raises ``ValueError``).  The forward epilogues take a
@@ -1569,7 +1602,9 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
     (:func:`gemm_f32x3_plan`) and the partial products summed in order
     by ``colsum_rows``; M and N multiples of 4.  ``qspec``: a float format's,
     or :class:`Int8Sites` (one site for "bias_snap", two for the other
-    snapping epilogues); "f32" and "mul_aux" read none."""
+    snapping epilogues); "f32" and "mul_aux" read none.  ``res_scale``
+    scales the residual of "bias_snap_residual_snap"."""
+    res_scale = residual_scale(res_scale)
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"gemm_f32x3: shapes {tuple(a.shape)} @ "
                          f"{tuple(w.shape)}")
@@ -1633,7 +1668,10 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
             a.data_ptr(), w.data_ptr(), None if row_b else bias.data_ptr(),
             res_ptr, out.data_ptr(), aux_ptr, col_ptr, m, n, k, int(row_b),
             code, *((*_NO_SNAP, None, None) if row_b else _policy_args(
-                qspec, 1 if epilogue == "bias_snap" else 2, slots=2)))
+                qspec, 1 if epilogue == "bias_snap" else 2, slots=2)),
+            res_scale)
+    if epilogue == "bias_snap_residual_snap" and res_scale != 1.0:
+        RES_SCALE_LAUNCHES["gemm_f32x3_epilogue"] += 1
     if epilogue == "bias_snap_gelu_snap_grad":
         return out, aux
     if epilogue == "mul_aux":

@@ -1,8 +1,8 @@
-"""Fused transformer attention block: x + proj(MHA(qkv(LN(x)))), forward
-and backward.
+"""Fused transformer attention block: x * res_scale + proj(MHA(qkv(LN(x)))),
+forward and backward.
 
-Replaces the TPU kernels of myrtle_vision_tpu/ops/fused_attention_block.py
-with ``res_scale`` 1: in the plain FP32 form (no quantization snaps) the
+Replaces the TPU kernels of myrtle_vision_tpu/ops/fused_attention_block.py:
+in the plain FP32 form (no quantization snaps) the
 forward ``_fwd_kernel`` (launched by ``_attn_forward``) and the backward
 ``_bwd_kernel`` / ``_bwd_one_image`` (launched by ``_bwd_rule``); with a
 stateless float format's ``qspec = (exp_bits, man_bits, all_sites)``
@@ -95,6 +95,17 @@ the projection after its bias (3) and the residual sum (4).  The table
 is read on the device, so no step waits on the host.  Its gradient is
 None, as the JAX rule gives it zeros.
 
+``res_scale`` (1 unless head-sharded tensor parallelism runs the op on
+its local heads: then 1/n_tp, with the local wqkv (C, 3 cl), bqkv (3 cl,)
+and wp (cl, C), cl = C / n_tp, and bp pre-scaled by 1/n_tp, so that the
+sum of the partial outputs over the model group is x + proj + bias,
+parallel/tp.py) scales the residual in the output projection's epilogue,
+``x * res_scale + y``, and the upstream gradient in the LayerNorm
+backward's, ``dx = do * res_scale + dx_ln``, as the TPU kernels do; the
+bf16 chain's ``gemm_bf16_epilogue`` and ``layernorm_rows_bwd``, the fp32
+chain's ``gemm_f32x3_epilogue`` and the snap form of ``layernorm_rows_bwd``
+take it.  The local width cl comes from wp, not from x.
+
 Weights keep the JAX layout: wqkv (C, 3C) with feature order [3][h][d],
 wp (C, C), i.e. (in, out).  A transposed view of a torch (out, in)
 weight is read in place, and its gradient is returned as the same kind
@@ -152,12 +163,13 @@ def _kernel_chain_f32(kern, x):
 
 
 def _forward(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
-             record):
+             record, res_scale=1.0):
     """The chain; with ``record`` also (ctx, m, rs, qkv) for the
     backward."""
     if _kernel_chain_f32(kern, x):
         return _forward_q(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp,
-                          heads, scale, no_snap_sites(x.device), record)
+                          heads, scale, no_snap_sites(x.device), record,
+                          res_scale)
     dt = x.dtype
     b, n, c = x.shape
     cl = wp.shape[0]
@@ -172,14 +184,14 @@ def _forward(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
         ctx = kern.attention_core(qkv3, heads, scale)
     out = kern.gemm(ctx.view(b * n, cl), wp.to(dt),
                     bp.to(dt).float().contiguous(), "bias_residual",
-                    residual=x2).view(b, n, c)
+                    residual=x2, res_scale=res_scale).view(b, n, c)
     if record:
         return out, (ctx, m, rs, qkv3)
     return out
 
 
 def _forward_q(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
-               qspec, record=False):
+               qspec, record=False, res_scale=1.0):
     """The float-format chain (``_fwd_kernel`` with ``qspec``), or INT8
     QAT's (``qspec`` the (5, 3) site table): fp32 activations, parameters
     and weights, the weights' snaps already applied by the caller; with
@@ -204,21 +216,21 @@ def _forward_q(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
         ctx = kern.attention_core_snap(qkv, heads, scale, q_ctx)
     out = kern.gemm_f32x3(ctx.view(b * n, cl), wp.float(),
                           bp.float().contiguous(), "bias_snap_residual_snap",
-                          kernel_sites(qspec, 3, 4), residual=x2
-                          ).view(b, n, c)
+                          kernel_sites(qspec, 3, 4), residual=x2,
+                          res_scale=res_scale).view(b, n, c)
     if record:
         return out, (ctx, m, rs, qkv)
     return out
 
 
 def _backward(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
-              qkv, heads, scale):
+              qkv, heads, scale, res_scale=1.0):
     """``_bwd_one_image`` over the batch -> (dx, dscale, dbias, dwqkv,
     dbqkv, dwp, dbp), weight gradients in the (in, out) shape."""
     if _kernel_chain_f32(kern, x):
         return _backward_q(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp,
                            ctx, m, rs, qkv, heads, scale,
-                           no_snap_sites(x.device))
+                           no_snap_sites(x.device), res_scale)
     dt = x.dtype
     b, n, c = x.shape
     cl = wp.shape[0]
@@ -240,12 +252,13 @@ def _backward(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
     dbp = kern.colsum_rows(do2)
     dwqkv = kern.gemm(dqkv.t(), xn, None, "f32").t()
     dxn = kern.gemm(dqkv, wqkv.t(), None, "f32")
-    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s_dt, dxn, do2)
+    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s_dt, dxn, do2,
+                                                res_scale=res_scale)
     return dx.view(b, n, c), dscale, dbias, dwqkv, dbq, dwp, dbp
 
 
 def _backward_q(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
-                qkv, heads, scale, qspec):
+                qkv, heads, scale, qspec, res_scale=1.0):
     """``_bwd_one_image`` with ``qspec`` (a float format's, or INT8's
     site table) over the batch, fp32 -> (dx, dscale, dbias, dwqkv, dbqkv,
     dwp, dbp), weight gradients in the (in, out) shape."""
@@ -273,7 +286,8 @@ def _backward_q(kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, ctx, m, rs,
     dbp = kern.colsum_rows(do2)
     dwqkv = kern.gemm_f32x3(dqkv.t(), xn, None, "f32", qspec).t()
     dxn = kern.gemm_f32x3(dqkv, wqkv.t(), None, "f32", qspec)
-    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s32, dxn, do2, qspec)
+    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s32, dxn, do2, qspec,
+                                                res_scale=res_scale)
     return dx.view(b, n, c), dscale, dbias, dwqkv, dbq, dwp, dbp
 
 
@@ -284,20 +298,21 @@ class _FusedAttentionBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
-                scale, depth, qspec):
+                scale, depth, qspec, res_scale):
         b, n, _ = x.shape
         cl = wp.shape[0]
         inputs = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
         if qspec is None:
             out, (attn, m, rs, qkv) = _forward(kern, *inputs, heads, scale,
-                                               record=True)
+                                               True, res_scale)
         else:
             out, (attn, m, rs, qkv) = _forward_q(kern, *inputs, heads, scale,
-                                                 qspec, record=True)
+                                                 qspec, True, res_scale)
         if not save_acts(b * n * 3 * cl * qkv.element_size(), depth):
             qkv = None
         ctx.save_for_backward(*inputs, attn, m, rs, qkv)
         ctx.kern, ctx.heads, ctx.scale, ctx.qspec = kern, heads, scale, qspec
+        ctx.res_scale = res_scale
         return out
 
     @staticmethod
@@ -307,9 +322,9 @@ class _FusedAttentionBlock(torch.autograd.Function):
         args = (ctx.kern, do, x, scale_ln, bias_ln, wqkv, bqkv, wp, attn, m,
                 rs, qkv, ctx.heads, ctx.scale)
         if ctx.qspec is None:
-            grads = _backward(*args)
+            grads = _backward(*args, ctx.res_scale)
         else:
-            grads = _backward_q(*args, ctx.qspec)
+            grads = _backward_q(*args, ctx.qspec, ctx.res_scale)
         if ctx.kern is K.CUDA:
             op = (fused_attention_block_i8
                   if isinstance(ctx.qspec, torch.Tensor)
@@ -317,7 +332,7 @@ class _FusedAttentionBlock(torch.autograd.Function):
             op.bwd_launches += 1
         inputs = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
         return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def records(tensors) -> bool:
@@ -326,40 +341,45 @@ def records(tensors) -> bool:
 
 
 def _apply(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads, scale,
-           depth, qspec):
+           depth, qspec, res_scale=1.0):
+    res_scale = K.residual_scale(res_scale)
     tensors = (x, scale_ln, bias_ln, wqkv, bqkv, wp, bp)
     if records(tensors):
         return _FusedAttentionBlock.apply(kern, *tensors, heads, scale,
-                                          depth, qspec)
+                                          depth, qspec, res_scale)
     if qspec is not None:
-        return _forward_q(kern, *tensors, heads, scale, qspec)
-    return _forward(kern, *tensors, heads, scale, record=False)
+        return _forward_q(kern, *tensors, heads, scale, qspec, False,
+                          res_scale)
+    return _forward(kern, *tensors, heads, scale, False, res_scale)
 
 
 def fused_attention_block_plain(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp,
-                                heads, scale, depth=None, qspec=None):
+                                heads, scale, depth=None, qspec=None,
+                                res_scale=1.0):
     """The plain PyTorch chain on any device, forward and backward: the
     reference the kernels are held against.  It rounds where the kernels
     round: LN scale/bias, weights and bp in x.dtype, bqkv in fp32; with
     ``qspec`` everything fp32, snapped where the kernels snap."""
     return _apply(K.PLAIN, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
-                  scale, depth, qspec)
+                  scale, depth, qspec, res_scale)
 
 
 def fused_attention_block(x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
-                          scale, depth=None, qspec=None):
-    """x + proj(MHA(qkv(LN(x)))) over (B, N, C), the argument order of
-    the JAX function, differentiable.  A CPU tensor takes the plain
+                          scale, depth=None, qspec=None, res_scale=1.0):
+    """x * res_scale + proj(MHA(qkv(LN(x)))) over (B, N, C), the argument
+    order of the JAX function, differentiable.  A CPU tensor takes the plain
     chain; a CUDA tensor the kernel chain, forward and backward, or an
     error; any other device an error.  ``depth``, the model's layer
     count, sizes the qkv-saving budget as in the JAX package.  ``qspec``
     (exp_bits, man_bits, all_sites) selects a float format's chains,
     forward and backward; it takes fp32 activations and weights already
     fake-quantized (the caller's straight-through estimator carries
-    their gradient)."""
+    their gradient).  ``res_scale`` (a finite real number; 1/n_tp with
+    the local heads' weights under head-sharded tensor parallelism, see
+    the module docstring) scales the residual."""
     kern = K.for_device(x)
     out = _apply(kern, x, scale_ln, bias_ln, wqkv, bqkv, wp, bp, heads,
-                 scale, depth, qspec)
+                 scale, depth, qspec, res_scale)
     if kern is K.CUDA:
         fused_attention_block.launches += 1
     return out

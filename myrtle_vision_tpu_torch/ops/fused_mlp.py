@@ -1,5 +1,5 @@
-"""Fused transformer MLP block: x + fc2(GELU(fc1(LN(x)))), forward and
-backward.
+"""Fused transformer MLP block: x * res_scale + fc2(GELU(fc1(LN(x)))),
+forward and backward.
 
 Replaces the TPU kernels of myrtle_vision_tpu/ops/fused_mlp.py: in their
 plain FP32 form the forward ``_fwd_kernel`` (launched by
@@ -63,6 +63,12 @@ runs the ``qspec`` chain with a site table that snaps nothing
 (ops/fused_attention_block.py ``no_snap_sites``): 3-pass products against
 the plain chain's true fp32 ones.
 
+``res_scale`` (1 unless hidden-sharded tensor parallelism runs the op on
+its local hidden columns: then 1/n_tp, with w1 (C, H/n_tp), b1 (H/n_tp,),
+w2 (H/n_tp, C) and b2 pre-scaled by 1/n_tp, parallel/tp.py) scales the
+residual in fc2's epilogue and the upstream gradient in the LayerNorm
+backward, as in ops/fused_attention_block.py.
+
 Weights keep the JAX layout: w1 (C, H), w2 (H, C), i.e. (in, out);
 gradients come back in each input's dtype and layout.
 """
@@ -80,10 +86,10 @@ from myrtle_vision_tpu_torch.ops.fused_attention_block import (
 )
 
 
-def _forward(kern, x, scale, bias, w1, b1, w2, b2):
+def _forward(kern, x, scale, bias, w1, b1, w2, b2, res_scale=1.0):
     if _kernel_chain_f32(kern, x):
         return _forward_q(kern, x, scale, bias, w1, b1, w2, b2,
-                          no_snap_sites(x.device))
+                          no_snap_sites(x.device), res_scale)
     dt = x.dtype
     c = x.shape[-1]
     x2 = x.contiguous().view(-1, c)
@@ -91,11 +97,11 @@ def _forward(kern, x, scale, bias, w1, b1, w2, b2):
                              bias.to(dt).contiguous())
     g = kern.gemm(xn, w1.to(dt), b1.to(dt).float().contiguous(), "bias_gelu")
     out = kern.gemm(g, w2.to(dt), b2.to(dt).float().contiguous(),
-                    "bias_residual", residual=x2)
+                    "bias_residual", residual=x2, res_scale=res_scale)
     return out.view(x.shape)
 
 
-def _forward_q(kern, x, scale, bias, w1, b1, w2, b2, qspec):
+def _forward_q(kern, x, scale, bias, w1, b1, w2, b2, qspec, res_scale=1.0):
     """The float-format chain (``_fwd_kernel`` with ``qspec``), or INT8
     QAT's (``qspec`` the (5, 3) site table): fp32 activations, parameters
     and weights, the weights' snaps already applied by the caller."""
@@ -111,16 +117,16 @@ def _forward_q(kern, x, scale, bias, w1, b1, w2, b2, qspec):
                         "bias_snap_gelu_snap", kernel_sites(qspec, 1, 2))
     out = kern.gemm_f32x3(g, w2.float(), b2.float().contiguous(),
                           "bias_snap_residual_snap", kernel_sites(qspec, 3, 4),
-                          residual=x2)
+                          residual=x2, res_scale=res_scale)
     return out.view(x.shape)
 
 
-def _backward(kern, do, x, scale, bias, w1, b1, w2):
+def _backward(kern, do, x, scale, bias, w1, b1, w2, res_scale=1.0):
     """``_bwd_one_image`` over the batch -> (dx, dscale, dbias, dw1, db1,
     dw2, db2), weight gradients in the (in, out) shape."""
     if _kernel_chain_f32(kern, x):
         return _backward_q(kern, do, x, scale, bias, w1, b1, w2,
-                           no_snap_sites(x.device))
+                           no_snap_sites(x.device), res_scale)
     dt = x.dtype
     c = x.shape[-1]
     x2 = x.contiguous().view(-1, c)
@@ -136,11 +142,12 @@ def _backward(kern, do, x, scale, bias, w1, b1, w2):
     dh, db1 = kern.gemm(do2, w2.t(), None, "mul_aux", aux=gp)
     dw1 = kern.gemm(dh.t(), xn, None, "f32").t()
     dxn = kern.gemm(dh, w1.t(), None, "f32")
-    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s_dt, dxn, do2)
+    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s_dt, dxn, do2,
+                                                res_scale=res_scale)
     return dx.view(x.shape), dscale, dbias, dw1, db1, dw2, db2
 
 
-def _backward_q(kern, do, x, scale, bias, w1, b1, w2, qspec):
+def _backward_q(kern, do, x, scale, bias, w1, b1, w2, qspec, res_scale=1.0):
     """``_bwd_one_image`` with ``qspec`` (a float format's, or INT8's
     site table) over the batch, fp32 -> (dx, dscale, dbias, dw1, db1, dw2,
     db2), weight gradients in the (in, out) shape."""
@@ -161,7 +168,8 @@ def _backward_q(kern, do, x, scale, bias, w1, b1, w2, qspec):
     dh, db1 = kern.gemm_f32x3(do2, w2.t(), None, "mul_aux", qspec, aux=gp)
     dw1 = kern.gemm_f32x3(dh.t(), xn, None, "f32", qspec).t()
     dxn = kern.gemm_f32x3(dh, w1.t(), None, "f32", qspec)
-    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s32, dxn, do2, qspec)
+    dx, dscale, dbias = kern.layernorm_rows_bwd(x2, s32, dxn, do2, qspec,
+                                                res_scale=res_scale)
     return dx.view(x.shape), dscale, dbias, dw1, db1, dw2, db2
 
 
@@ -171,53 +179,61 @@ class _FusedMlpBlock(torch.autograd.Function):
     ``_fwd_rule`` / ``_bwd_rule`` pair, and their ``_i8`` forms)."""
 
     @staticmethod
-    def forward(ctx, kern, x, scale, bias, w1, b1, w2, b2, qspec):
+    def forward(ctx, kern, x, scale, bias, w1, b1, w2, b2, qspec, res_scale):
         ctx.save_for_backward(x, scale, bias, w1, b1, w2, b2)
-        ctx.kern, ctx.qspec = kern, qspec
+        ctx.kern, ctx.qspec, ctx.res_scale = kern, qspec, res_scale
         if qspec is None:
-            return _forward(kern, x, scale, bias, w1, b1, w2, b2)
-        return _forward_q(kern, x, scale, bias, w1, b1, w2, b2, qspec)
+            return _forward(kern, x, scale, bias, w1, b1, w2, b2, res_scale)
+        return _forward_q(kern, x, scale, bias, w1, b1, w2, b2, qspec,
+                          res_scale)
 
     @staticmethod
     def backward(ctx, do):
         inputs = ctx.saved_tensors
         if ctx.qspec is None:
-            grads = _backward(ctx.kern, do, *inputs[:-1])
+            grads = _backward(ctx.kern, do, *inputs[:-1], ctx.res_scale)
         else:
-            grads = _backward_q(ctx.kern, do, *inputs[:-1], ctx.qspec)
+            grads = _backward_q(ctx.kern, do, *inputs[:-1], ctx.qspec,
+                                ctx.res_scale)
         if ctx.kern is K.CUDA:
             op = (fused_mlp_block_i8 if isinstance(ctx.qspec, torch.Tensor)
                   else fused_mlp_block)
             op.bwd_launches += 1
-        return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)), None)
+        return (None, *(g.to(t.dtype) for g, t in zip(grads, inputs)), None,
+                None)
 
 
-def _apply(kern, tensors, qspec):
+def _apply(kern, tensors, qspec, res_scale=1.0):
+    res_scale = K.residual_scale(res_scale)
     if records(tensors):
-        return _FusedMlpBlock.apply(kern, *tensors, qspec)
+        return _FusedMlpBlock.apply(kern, *tensors, qspec, res_scale)
     if qspec is not None:
-        return _forward_q(kern, *tensors, qspec)
-    return _forward(kern, *tensors)
+        return _forward_q(kern, *tensors, qspec, res_scale)
+    return _forward(kern, *tensors, res_scale)
 
 
-def fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, qspec=None):
+def fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, qspec=None,
+                          res_scale=1.0):
     """The plain PyTorch chain on any device, forward and backward: LN
     scale/bias, weights and both biases rounded to x.dtype, as the TPU
     kernel's caller does; with ``qspec`` everything fp32, snapped where
     the kernels snap."""
-    return _apply(K.PLAIN, (x, scale, bias, w1, b1, w2, b2), qspec)
+    return _apply(K.PLAIN, (x, scale, bias, w1, b1, w2, b2), qspec, res_scale)
 
 
-def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, qspec=None):
-    """x + fc2(GELU(fc1(LN(x)))) over (..., C) with weights (C, H),
-    (H, C), differentiable.  A CPU tensor takes the plain chain; a CUDA
+def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, qspec=None,
+                    res_scale=1.0):
+    """x * res_scale + fc2(GELU(fc1(LN(x)))) over (..., C) with weights
+    (C, H), (H, C), differentiable.  A CPU tensor takes the plain chain; a CUDA
     tensor the kernel chain, forward and backward, or an error; any
     other device an error.  ``qspec`` (exp_bits, man_bits, all_sites)
     selects a float format's chains, forward and backward; it takes fp32
     activations and weights already fake-quantized (the caller's
-    straight-through estimator carries their gradient)."""
+    straight-through estimator carries their gradient).  ``res_scale``
+    (a finite real number; 1/n_tp with the local hidden columns under
+    tensor parallelism) scales the residual."""
     kern = K.for_device(x)
-    out = _apply(kern, (x, scale, bias, w1, b1, w2, b2), qspec)
+    out = _apply(kern, (x, scale, bias, w1, b1, w2, b2), qspec, res_scale)
     if kern is K.CUDA:
         fused_mlp_block.launches += 1
     return out

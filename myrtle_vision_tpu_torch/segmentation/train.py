@@ -1,5 +1,5 @@
 """DLRSD semantic segmentation trainer (PyTorch port of
-segmentation/train.py) on one device.
+segmentation/train.py), on one device or over several GPUs.
 
     python -m myrtle_vision_tpu_torch.segmentation.train \\
         -c <config.json> [--device cuda|cpu]
@@ -26,7 +26,9 @@ simulation in the JAX package's one-pass QAT step
 ``.pth``, or a timm model name with timm installed); otherwise the CLI
 warns and trains from scratch.  ``--device`` defaults to ``cuda``;
 without a CUDA device that raises, it never carries on on the CPU.
-Multi-device training is not ported yet (ROADMAP A9).  As the JAX CLI,
+Several GPUs as in classification/train.py (parallel/launch.py); rank 0
+alone validates and writes the checkpoints and the scalars.  As the JAX
+CLI,
 each validation's accuracy, loss and mIoU go to ``runs/`` (TensorBoard
 where the package is installed, else ``runs/scalars.jsonl``;
 utils/logging.py), and with ``MVT_PROFILE_DIR`` set steps 3-5 are traced
@@ -47,6 +49,9 @@ from myrtle_vision_tpu_torch.classification.test import resolve_device
 from myrtle_vision_tpu_torch.data.loader import DataLoader
 from myrtle_vision_tpu_torch.datasets.dlrsd import Dlrsd
 from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
+from myrtle_vision_tpu_torch.parallel import launch
+from myrtle_vision_tpu_torch.parallel.mesh import Mesh, train_loader_kwargs
+from myrtle_vision_tpu_torch.parallel.tp import setup_tensor_parallel
 from myrtle_vision_tpu_torch.training.classification import make_predict_fn
 from myrtle_vision_tpu_torch.training.optim import (
     create_optimizer,
@@ -58,6 +63,7 @@ from myrtle_vision_tpu_torch.training.segmentation import (
 )
 from myrtle_vision_tpu_torch.training.trainer import (
     TrainState,
+    data_parallel,
     dropout_generator,
     make_train_step,
 )
@@ -96,20 +102,22 @@ def validation(predict_fn, val_loader, n_classes):
     return total_loss / max(n, 1), total_acc / max(n, 1), miou_value
 
 
-def build_train(config, device):
+def build_train(config, device, mesh=None):
     """(model, train loader, validation loader, (micro-batch size,
     micro-batches per step)) as the CLI trains them: the seed set first
     (it also fixes the order the train split is read in), the train
-    loader shuffled and yielding one optimizer step's images per batch,
-    the model initialised from the seed and, when the config names one
-    that is available, the pretrained backbone loaded."""
+    loader shuffled and yielding one optimizer step's images per batch
+    (this data rank's share on a ``mesh`` of several), the model
+    initialised from the seed and, when the config names one that is
+    available, the pretrained backbone loaded."""
+    mesh = mesh or Mesh()
     train_config = config["train_config"]
     data_config = parse_config(config["data_config_path"])
     seed = train_config["seed"]
     seed_everything(seed)
 
     batch_size, n_batch_accum = get_batch_sizes(
-        train_config["local_batch_size"], 1,
+        train_config["local_batch_size"], mesh.n_data,
         train_config["global_batch_size"], verbose=True,
     )
 
@@ -124,9 +132,10 @@ def build_train(config, device):
 
     trainset = split("train", "train_files", "transform_ops_train")
     valset = split("eval", "valid_files", "transform_ops_val")
-    train_loader = DataLoader(trainset, batch_size=batch_size * n_batch_accum,
-                              device=device, shuffle=True, seed=seed,
-                              drop_last=train_config["drop_last_batch"])
+    train_loader = DataLoader(trainset, device=device, shuffle=True,
+                              seed=seed, **train_loader_kwargs(
+                                  train_config, mesh, batch_size,
+                                  n_batch_accum))
     # the local batch, as the reference's validation loader
     val_loader = DataLoader(valset, batch_size=batch_size, device=device,
                             drop_last=train_config["drop_last_batch"])
@@ -144,7 +153,11 @@ def build_train(config, device):
     return model, train_loader, val_loader, (batch_size, n_batch_accum)
 
 
-def train(config, device):
+def train(config, device, mesh=None):
+    """Train on ``device`` as one rank of ``mesh`` (parallel/mesh.py; one
+    rank alone when None); the final TrainState."""
+    mesh = mesh or Mesh()
+    main = mesh.rank == 0
     train_config = config["train_config"]
     epochs = train_config["epochs"]
     output_directory = train_config["output_directory"]
@@ -153,41 +166,51 @@ def train(config, device):
     n_classes = parse_config(config["data_config_path"])["number_of_classes"]
 
     model, train_loader, val_loader, (batch_size, n_batch_accum) = \
-        build_train(config, device)
-    writer = ScalarLogger("runs/")
-    os.makedirs(output_directory, exist_ok=True)
+        build_train(config, device, mesh)
+    writer = ScalarLogger("runs/", enabled=main)
+    if main:
+        os.makedirs(output_directory, exist_ok=True)
     print("output directory:", output_directory)
     print(f"device: {device}, local_batch={batch_size}, "
           f"n_accum={n_batch_accum}")
+    if mesh.distributed:
+        print(f"ranks: {mesh.world} (data={mesh.n_data}, "
+              f"model={mesh.tensor_parallel}), rank {mesh.rank}")
 
     state, iteration = prepare_model_and_load_ckpt(
         train_config, TrainState(model, create_optimizer(train_config, model),
                                  dropout=dropout_generator(
-                                     model, train_config["seed"])))
-    train_step = make_train_step(make_loss_fn(model), n_batch_accum,
-                                 clip_grad=train_config.get("clip_grad"))
+                                     model, train_config["seed"],
+                                     mesh.data_index)))
+    setup_tensor_parallel(model, mesh)
+    module = data_parallel(model, mesh)
+    train_step = make_train_step(make_loss_fn(module), n_batch_accum,
+                                 clip_grad=train_config.get("clip_grad"),
+                                 mesh=mesh, module=module)
     predict_fn = make_predict_fn(model)
 
     def micro_batches(batch):
         return {k: v.view(n_batch_accum, batch_size, *v.shape[1:])
                 for k, v in batch.items()}
 
-    # epoch offset on resume (the JAX CLI's formula, one device)
-    epoch_offset = max(0, int(batch_size * iteration
+    # epoch offset on resume (the JAX CLI's formula)
+    epoch_offset = max(0, int(batch_size * mesh.n_data * iteration
                               / len(train_loader.dataset)))
     last_val_loss, last_val_acc = 0.0, 0.0
     steps_per_epoch = len(train_loader)
     profiler = StepProfiler()
+    if not main:
+        profiler.trace_dir = None
 
     for epoch in range(epoch_offset, epochs):
         lr = lr_at_epoch(train_config, epoch)
         epoch_loss, epoch_acc = 0.0, 0.0
         t_epoch = time.time()
         for batch in train_loader.epoch(epoch):
-            if iteration % iters_per_checkpoint == 0:
+            if iteration % iters_per_checkpoint == 0 and main:
                 save_checkpoint(state,
                                 f"{output_directory}/vit_{iteration:06}")
-            if iteration % iters_per_val == 0:
+            if iteration % iters_per_val == 0 and main:
                 last_val_loss, last_val_acc, miou_value = validation(
                     predict_fn, val_loader, n_classes)
                 writer.add_scalar("accuracy", last_val_acc, iteration)
@@ -200,9 +223,12 @@ def train(config, device):
             acc = float(metrics["acc"])
             epoch_loss += loss / steps_per_epoch
             epoch_acc += acc / steps_per_epoch
-            print(f"Iteration {iteration}:\tloss={loss:.4f}\t"
-                  f"acc={acc:.4f}")
+            if main:
+                print(f"Iteration {iteration}:\tloss={loss:.4f}\t"
+                      f"acc={acc:.4f}")
 
+        if not main:
+            continue
         print(
             f"Epoch : {epoch + 1} - loss : {epoch_loss:.4f} - "
             f"acc: {epoch_acc:.4f} - "
@@ -212,7 +238,8 @@ def train(config, device):
         )
 
     profiler.close()
-    save_checkpoint(state, f"{output_directory}/vit_{iteration:06}")
+    if main:
+        save_checkpoint(state, f"{output_directory}/vit_{iteration:06}")
     writer.flush()
     return state
 
@@ -232,7 +259,7 @@ def main(argv=None):
     config["train_config"]["output_directory"] += datetime.now().strftime(
         "_%m_%d_%Y_%H_%M_%S"
     )
-    return train(config, device)
+    return launch.run(train, config, device)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,6 @@
 """Detection task: the DETR loss for the trainer core, the eval forward
 and COCO evaluation (port of ``make_loss_fn``, ``make_detect_fn`` and
-``evaluate_coco`` of myrtle_vision_tpu/training/detection.py for one
-device).  The JAX package's split matching (``make_match_fn``,
+``evaluate_coco`` of myrtle_vision_tpu/training/detection.py).  The JAX package's split matching (``make_match_fn``,
 ``use_split_matching``) works around its TPU runtime and is not ported:
 here the matcher runs inside the loss, on the training forward's
 outputs, as in the JAX package's default.  FP32 and the stateless float
@@ -20,10 +19,12 @@ from myrtle_vision_tpu_torch.eval.coco_eval import CocoEvaluator
 from myrtle_vision_tpu_torch.models.detector import criterion, post_process
 
 
-def make_loss_fn(model, num_classes, weight_dict, eos_coef):
+def make_loss_fn(model, num_classes, weight_dict, eos_coef, group=None):
     """micro-batch {"image", "labels", "boxes", "valid"} on the model's
     device -> (weighted loss, {"metrics": the other losses}), for
-    training/trainer.py ``make_train_step``."""
+    training/trainer.py ``make_train_step``; ``group``, the data group of
+    a multi-GPU run, averages ``num_boxes`` over the ranks (the JAX
+    ``axis_name``)."""
     qat_int8 = model.int8 and not model.converted
 
     def loss_fn(batch, dropout_rng=None):
@@ -31,7 +32,8 @@ def make_loss_fn(model, num_classes, weight_dict, eos_coef):
                         dropout_rng=dropout_rng)
         targets = {k: batch[k] for k in ("labels", "boxes", "valid")}
         losses = criterion(outputs, targets, num_classes=num_classes,
-                           weight_dict=weight_dict, eos_coef=eos_coef)
+                           weight_dict=weight_dict, eos_coef=eos_coef,
+                           group=group)
         loss = losses.pop("loss")
         return loss, {"metrics": losses}
 

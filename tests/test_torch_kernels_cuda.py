@@ -2997,3 +2997,143 @@ def test_f32_block_chains_match_plain(dev, n):
         close_f32(got[0], ref[0], F32_CHAIN_RTOL, F32_CHAIN_ATOL)
         for g, r in zip(got[1:], ref[1:]):
             close_f32(g, r, F32_CHAIN_RTOL, F32_CHAIN_SUM_ATOL)
+
+
+# ------------------------------------------------- res_scale (B10)
+# Head-sharded tensor parallelism runs K1-K4 with ``res_scale`` 1/n_tp:
+# gemm_bf16_epilogue's and gemm_f32x3_epilogue's residual epilogues
+# (residual * res_scale + (acc + bias)) and layernorm_rows_bwd in both
+# forms (dx = do * res_scale + the LayerNorm's part).  Shapes: ViT-S/16's
+# local widths at n_tp = 2 (C 384, 3 heads of 64, qkv 576, hidden 768).
+RES_SCALES = [0.5, 0.25]
+
+
+def local_block(b, n, seed, dev, dtype=torch.bfloat16, c=384, cl=192,
+                hid=768):
+    """x (B, N, C) and the local weights of one model rank: the attention
+    half's (C, 3 cl) and (cl, C), the MLP half's (C, hid) and (hid, C),
+    each the (in, out) view of a row-major torch weight, as the Block's
+    tensor-parallel branch hands them over."""
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, std=1.0, dt=torch.float32):
+        return torch.from_numpy(
+            (rng.randn(*shape) * std).astype(np.float32)).to(dev, dt)
+
+    x = t(b, n, c, dt=dtype)
+    attn = [1 + t(c, std=0.1), t(c, std=0.1),
+            t(3 * cl, c, std=c ** -0.5).t(), t(3 * cl),
+            t(c, cl, std=cl ** -0.5).contiguous().t(), t(c) * 0.5]
+    mlp = [1 + t(c, std=0.1), t(c, std=0.1), t(hid, c, std=c ** -0.5).t(),
+           t(hid), t(c, hid, std=hid ** -0.5).contiguous().t(), t(c) * 0.5]
+    return x, attn, mlp
+
+
+@pytest.mark.parametrize("res_scale", RES_SCALES)
+def test_res_scale_kernels_match_plain(dev, res_scale):
+    """The three kernels in their res_scale form against their plain
+    versions, each launch counted in RES_SCALE_LAUNCHES; with res_scale 1
+    the same bits as a call without it, and no count."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import kernel_sites
+    from myrtle_vision_tpu_torch.ops.fused_attention_block import (
+        no_snap_sites,
+    )
+
+    rng = np.random.RandomState(11)
+    m, k, n = 4 * 197, 192, 384
+
+    def t(*shape, dt=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dt)
+
+    a, w = t(m, k, dt=torch.bfloat16), t(n, k, dt=torch.bfloat16).t()
+    bias, res = t(n), t(m, n, dt=torch.bfloat16)
+    K.reset_launches()
+    got = K.gemm_bf16_epilogue_cuda(a, w, bias, "bias_residual", res,
+                                    res_scale=res_scale)
+    close(got, K.gemm_bf16_epilogue_plain(a, w, bias, "bias_residual", res,
+                                          res_scale=res_scale))
+    one = K.gemm_bf16_epilogue_cuda(a, w, bias, "bias_residual", res,
+                                    res_scale=1.0)
+    assert torch.equal(one, K.gemm_bf16_epilogue_cuda(
+        a, w, bias, "bias_residual", res))
+    sites = kernel_sites(no_snap_sites(dev), 3, 4)
+    a32, w32, r32 = a.float(), t(n, k).t(), res.float()
+    got = K.gemm_f32x3_epilogue_cuda(a32, w32, bias, "bias_snap_residual_snap",
+                                     sites, r32, res_scale=res_scale)
+    ref = K.gemm_f32x3_epilogue_plain(a32, w32, bias,
+                                      "bias_snap_residual_snap", sites, r32,
+                                      res_scale=res_scale)
+    close_f32(got, ref, F32_CHAIN_RTOL, F32_CHAIN_ATOL)
+    x, do, dxn, sc = (t(m, n, dt=torch.bfloat16), t(m, n, dt=torch.bfloat16),
+                      t(m, n), 1 + 0.1 * t(n, dt=torch.bfloat16))
+    got = K.layernorm_rows_bwd_cuda(x, sc, dxn, do, res_scale=res_scale)
+    ref = K.layernorm_rows_bwd_plain(x, sc, dxn, do, res_scale=res_scale)
+    close(got[0], ref[0], CHAIN_ATOL)
+    for g, r in zip(got[1:], ref[1:]):
+        close(g, r, SUM_ATOL * max(1.0, float(r.abs().max())))
+    snap = kernel_sites(no_snap_sites(dev))
+    got = K.layernorm_rows_bwd_cuda(x.float(), sc.float(), dxn, do.float(),
+                                    snap, res_scale=res_scale)
+    ref = K.layernorm_rows_bwd_plain(x.float(), sc.float(), dxn, do.float(),
+                                     snap, res_scale=res_scale)
+    for g, r in zip(got, ref):
+        close_f32(g, r, F32_CHAIN_RTOL, F32_CHAIN_SUM_ATOL)
+    assert K.RES_SCALE_LAUNCHES == {
+        "gemm_bf16_epilogue": 1, "gemm_f32x3_epilogue": 1,
+        "layernorm_rows_bwd": 1, "layernorm_snap_rows_bwd": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("res_scale", RES_SCALES)
+def test_res_scale_chains_match_plain(dev, res_scale, dtype):
+    """Both block halves on one model rank's local heads and hidden
+    columns, forward and backward, in the bf16 chain and the fp32 one
+    (compute_dtype float32), against their plain chains: the bf16 chain
+    and sum bars, or the fp32 chain's."""
+    x, attn, mlp = local_block(4, 197, 7, dev, dtype)
+    do = torch.randn(x.shape, device=dev, generator=torch.Generator(
+        dev).manual_seed(3)).to(dtype)
+    scale = 64 ** -0.5
+    K.reset_launches()
+    for op, plain, params, extra, names in (
+            (fused_attention_block, fused_attention_block_plain, attn,
+             (3, scale, None, None, res_scale),
+             ["x", "scale", "bias", "wqkv", "bqkv", "wp", "bp"]),
+            (fused_mlp_block, fused_mlp_block_plain, mlp,
+             (None, res_scale), ["x", "scale", "bias", "w1", "b1", "w2",
+                                 "b2"])):
+        out = op(x, *params, *extra)
+        ref = plain(x, *params, *extra)
+        got_g = grads_of(op, x, params, extra, do)
+        ref_g = grads_of(plain, x, params, extra, do)
+        if dtype == torch.bfloat16:
+            close(out, ref, CHAIN_ATOL)
+            close_grads(got_g, ref_g, names)
+        else:
+            close_f32(out, ref, F32_CHAIN_RTOL, F32_CHAIN_ATOL)
+            for g, r, name in zip(got_g, ref_g, names):
+                close_f32(g, r, F32_CHAIN_RTOL, F32_CHAIN_ATOL if name == "x"
+                          else F32_CHAIN_SUM_ATOL)
+    counted = K.RES_SCALE_LAUNCHES
+    if dtype == torch.bfloat16:
+        assert counted["gemm_bf16_epilogue"] == 4  # 2 halves x (out, grads)
+        assert counted["layernorm_rows_bwd"] == 2
+    else:
+        assert counted["gemm_f32x3_epilogue"] == 4
+        assert counted["layernorm_snap_rows_bwd"] == 2
+
+
+def test_res_scale_refusals(dev):
+    """A res_scale that is not a real number, or not finite, raises in the
+    kernel wrappers and the plain versions alike."""
+    x, attn, _ = local_block(1, 17, 1, dev)
+    for bad, err in (("0.5", TypeError), (True, TypeError),
+                     (torch.tensor(0.5), TypeError),
+                     (float("nan"), ValueError), (float("inf"), ValueError)):
+        for op in (fused_attention_block, fused_attention_block_plain):
+            with pytest.raises(err):
+                op(x, *attn, 3, 0.125, res_scale=bad)
+        with pytest.raises(err):
+            K.layernorm_rows_bwd_cuda(x[0], attn[0].to(x.dtype),
+                                      x[0].float(), x[0], res_scale=bad)

@@ -64,12 +64,14 @@ def tools():
     return mods
 
 
-def close_bf16(out, ref):
+def close_bf16(out, ref, extra=0.0):
     """The bf16 bar: |d| <= 2^-7 |ref| + 2^-8 per element (one bf16 step
-    of a value, where the two frameworks sum in another order)."""
+    of a value, where the two frameworks sum in another order), plus
+    ``extra``: what a flip upstream moves the element by."""
     out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
     assert out.shape == ref.shape
-    excess = np.abs(out - ref) / (2.0 ** -7 * np.abs(ref) + 2.0 ** -8)
+    excess = np.abs(out - ref) / (2.0 ** -7 * np.abs(ref) + 2.0 ** -8
+                                  + extra)
     assert excess.max() <= 1.0, (np.abs(out - ref).max(), excess.max())
 
 
@@ -142,6 +144,67 @@ def jax_k12(tool, name, a):
     return tool._call(kernel, x, s, b, extras, 1)
 
 
+def none_context_flips(tool, a, n, ref):
+    """Mode ``none`` divides each head's bf16(e) v, e = 0.01 s, by the
+    signed fp32 sum of e, which can nearly cancel (condition sum|e| /
+    |sum e| up to ~2.7e3 at N=50), so the two frameworks' orders of that
+    sum can put a head's context on either side of a bf16 boundary: a
+    flip at the context's snap (ROADMAP C6).  The JAX body's context is
+    recomputed with its own operations, and its output must equal the
+    Pallas kernel's bit for bit; each element where the port's context
+    differs from it must be one bf16 step apart, and that step, carried
+    through |wp|, is the extra allowance of its output row, 0 in every
+    row without a flip.  Returns (allowance (B, n, C), flips)."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    bf = jnp.bfloat16
+    wqkv, bqkv = jnp.asarray(a["wqkv"]).astype(bf), jnp.asarray(a["bqkv"])
+    wp, bp = jnp.asarray(a["wp"]).astype(bf), jnp.asarray(a["bp"]).astype(bf)
+    dims = (((1,), (0,)), ((), ()))
+
+    @jax.jit
+    def body(x):  # _kernel_rowmajor(defer=True, softmax="none"), one image
+        xn = tool._ln_f32(x, jnp.ones((C,), jnp.float32),
+                          jnp.zeros((C,), jnp.float32)).astype(bf)
+        qkv = (jax.lax.dot_general(xn, wqkv, dims,
+                                   preferred_element_type=jnp.float32)
+               + bqkv).astype(bf)
+        outs = []
+        for h in range(H):
+            qh = (qkv[:, h * D:(h + 1) * D].astype(jnp.float32)
+                  * SCALE).astype(bf)
+            kh = qkv[:, C + h * D:C + (h + 1) * D]
+            vh = qkv[:, 2 * C + h * D:2 * C + (h + 1) * D]
+            e = jax.lax.dot_general(qh, kh, (((1,), (1,)), ((), ())),
+                                    preferred_element_type=jnp.float32) * 0.01
+            outs.append((jax.lax.dot_general(
+                e.astype(bf), vh, dims, preferred_element_type=jnp.float32)
+                / jnp.sum(e, axis=-1, keepdims=True)).astype(bf))
+        o = jnp.concatenate(outs, axis=-1)
+        y = jax.lax.dot_general(o, wp, dims,
+                                preferred_element_type=jnp.float32)
+        return (x.astype(jnp.float32) + y + bp.astype(jnp.float32)
+                ).astype(bf), o
+
+    ys, os_ = zip(*(body(jnp.asarray(a["x"][i]).astype(bf))
+                    for i in range(B)))
+    np.testing.assert_array_equal(
+        np.stack([np.asarray(y.astype(jnp.float32)) for y in ys]), ref)
+    ctx_jax = np.stack([np.asarray(o.astype(jnp.float32)) for o in os_])
+    t = port_inputs(a)
+    xn = K.PLAIN.layernorm_rows(t["x"].view(-1, C), t["ln_s"], t["ln_b"])
+    qkv = K.PLAIN.gemm_probe(xn, t["wqkv"].to(torch.bfloat16),
+                             t["bqkv"].float(), "bias")
+    ctx = K.attention_core_probe_plain(qkv.view(B, n, 3 * C), H, SCALE,
+                                       "none").float().numpy()
+    diff = np.abs(ctx - ctx_jax)
+    top = np.maximum(np.abs(ctx), np.abs(ctx_jax))
+    step = np.exp2(np.floor(np.log2(np.maximum(top, 2.0 ** -126))) - 7)
+    assert (diff <= step).all(), (diff / step).max()
+    wp_abs = np.abs(np.asarray(wp.astype(jnp.float32)))
+    return diff @ wp_abs, int((diff > 0).sum())
+
+
 @pytest.mark.parametrize("n", [20, 50])
 @pytest.mark.parametrize("name", ["base", "pvrow", "rowmajor", "defer",
                                   "pipe", "dotonly", "none", "nomax",
@@ -157,7 +220,12 @@ def test_k12_variant_matches_the_tpu_probe(tools, monkeypatch, name, n):
     ref = np.asarray(jax_k12(tool, name, a).astype(jnp.float32))
     out = attn_microbench.variants(port_inputs(a), H, plain=True)[name]()
     assert out.dtype == torch.bfloat16 and out.shape == (B, n, C)
-    close_bf16(out.float().numpy(), ref)
+    extra = 0.0
+    if name == "none":
+        extra, flips = none_context_flips(tool, a, n, ref)
+        print(f"none at N={n}: {flips} context elements one bf16 step "
+              "apart")
+    close_bf16(out.float().numpy(), ref, extra)
 
 
 def test_k12_weights_carried_across():
