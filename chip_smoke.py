@@ -37,7 +37,11 @@ Phases, each ending in one line of output:
               (attention_core_f32_long, attention_core_f32_bwd_long) at N
               = 257, 357, 677, 701, head widths 64 and 32, B = 2 and 8, in
               each format with and without the statistics, and forced at
-              B=64, N=197 against the one-CTA kernels
+              B=64, N=197 against the one-CTA kernels; past 768 tokens
+              (the forward's three-sweep design) at N = 769, 1001, 1017 (3
+              heads of 64), 1806 (one head of 64) and 1837 (one of 32), B =
+              2 and 8, and the three-sweep design forced at N = 257-768
+              against the score-block design
   3a. kernels-f32  float32 compute (compute_dtype float32): the fp32 flash
               forward (K5 / K6 on fp32 operands, 3xTF32 on wgmma, csrc/
               flash_attention_f32_fwd_wgmma.cu) and backward (K7 / K8,
@@ -47,7 +51,9 @@ Phases, each ending in one line of output:
               and a ragged masked case, two and four launches a call; the
               fp32 K1-K4 route (the qspec chains with a
               site table that snaps nothing) forward and backward against
-              the plain chains' true fp32 at B=64, N=197 and B=4, N=677
+              the plain chains' true fp32 at B=64, N=197, B=4, N=677 and
+              YOLOS-Ti's B=2, N=1001 (dim 192, 3 heads: the three-sweep
+              long core)
   3b. probes the probes of the port's kernels, K12-K14
               (myrtle_vision_tpu_torch/perf/): every K12 attention-core
               mode and K13 GELU mode in its block chain, and every K14
@@ -101,7 +107,8 @@ Phases, each ending in one line of output:
               int8 modes (the INT8 QAT site snap with and without the
               statistics, the converted model's int8 grid) against their
               plain versions at B=8 N=577 (ViT-S/16 at 384 px), B=2 N=677
-              and 701 (YOLOS-S at 384 px, the fused gate), with each flip
+              and 701 (YOLOS-S at 384 px, the fused gate), and past 768
+              tokens at the three-sweep cases of phase 3, with each flip
               share, and forced at B=64 N=197 against the one-CTA kernel;
               the INT8 QAT attention op forward and backward (K1 / K2
               int8) and the converted halves (K9 / K10) at B=8 N=577
@@ -143,6 +150,16 @@ Phases, each ending in one line of output:
               of the port) for one epoch of 32 synthetic images at 288-352
               px, its validation at 800 px, its checkpoint (observers and
               all) through the detection eval CLI; no launches
+  8c2. detect-tiny  the long fp32 core past 768 tokens on the main paths:
+              YOLOS-Ti (detection/train_configs/yolos_tiny.json: dim 192,
+              3 heads of 64, MLP 768, 100 detection tokens) in FP16_32, the
+              first QAT step at 480 and 464 px (1001 and 942 tokens) and
+              in float32 compute at 480 px, kernel vs plain; the train CLI
+              for 2 steps of 2 x 2 at 480 px and, resumed, 1 at 464 px,
+              each validating at its canvas: the long core's launches, no
+              plain call; then vit_tiny.json's widths at 480 px (901
+              tokens) in PyTorchINT8 through the train CLI (the two-pass
+              step) and the PTQ CLI (the converted forward), as int8-384
   8d. seg     DLRSD segmentation on segmentation/train_configs/
               seg_small.json at its full width (ViT-S/16 at 224 px, local
               batch 32, global 64) on prepare_synthetic.py's 5 texture
@@ -206,8 +223,10 @@ Phases, each ending in one line of output:
               chains per block and the two-pass PyTorchINT8 QAT step (pass
               1, pass 2 and the backward apart, peak memory, a profile);
               the float long core and its backward at N=677, B=8 and 2,
-              beside fp32 SDPA; the YOLOS-S FP16_32 QAT step at 608 and 384
-              px and its 800 px forward at batch 8, with device profiles;
+              beside fp32 SDPA; past 768 tokens at (2, 3, 1001, 64), (8, 3,
+              1001, 64) and (2, 1, 1837, 32); the YOLOS-Ti FP16_32 QAT step
+              at 480 and 464 px and the YOLOS-S one at 608 and 384 px and
+              its 800 px forward at batch 8, with device profiles;
               the long core's int8 modes at B=8 N=577 beside the plain
               version, the bound and fp32 SDPA then the quantize, the
               K1 / K2 int8 and K9 / K10 chains there, the 384 px two-pass
@@ -454,6 +473,15 @@ QAT_KERNELS = ("attention_core_f32_bwd", "layernorm_snap_rows_bwd")
 # the float formats' fp32 core above 256 tokens, forward and backward, run
 # by YOLOS-S detection in a float format (phase detect-float)
 LONG_FLOAT_KERNELS = ("attention_core_f32_long", "attention_core_f32_bwd_long")
+# the same two past 768 tokens (the forward's three-sweep design and the
+# backward past the score block's old top), each a kernels-line entry of
+# its own with the launches of phase detect-tiny's train CLI and the
+# (2, 3, 1001, 64) timing: (entry, counter, timed case)
+SWEEP_KERNELS = (
+    ("attention_core_f32_long[three-sweep]", "attention_core_f32_long",
+     "attention_core_f32_long[three-sweep, B=2 H=3 N=1001 D=64]"),
+    ("attention_core_f32_bwd_long[past 768]", "attention_core_f32_bwd_long",
+     "attention_core_f32_bwd_long[past 768, B=2 H=3 N=1001 D=64]"))
 # the long fp32 core's int8 modes (PyTorchINT8 above 256 tokens, phases
 # int8-long and int8-384): the INT8 QAT site snap (K1 int8's core) and the
 # converted model's int8 grid (K9's core), each a kernels-line entry of its
@@ -572,6 +600,14 @@ LONG_KERNELS = ("attention_core", "attention_core_bwd")
 # gate), at head widths 64 (6 heads) and 32 (12 heads, the same C), at the
 # train step's micro-batch of 2 and at batch 8
 LONG_FLOAT_N = (257, 357, 677, 701)
+# the long fp32 core past its score-block design (768 tokens), (N, D,
+# heads): yolos_tiny.json's fused canvases at 3 heads of 64 (769 just past
+# it, 1001 at 480 px, 1017 at the fused gate) and the gate's longest at
+# one head of 64 (1806) and of 32 (1837, the route's top); and where the
+# three-sweep design is forced against the score-block design
+SWEEP_CASES = ((769, 64, 3), (1001, 64, 3), (1017, 64, 3), (1806, 64, 1),
+               (1837, 32, 1))
+SWEEP_FORCED_N = (257, 677, 701, 768)
 # YOLOS-S in FP16_32 (phase detect-float): the first QAT step's canvases
 # (384 px: 677 tokens, the long kernels; 608 px: 1545 tokens, the discrete
 # float Block), and the train CLI's scales (288-352 px: 425-585 tokens, all
@@ -1651,78 +1687,158 @@ def counted(name, n_launch, fn):
     return out
 
 
-def phase_kernels_long_float(device):
-    """The float formats' long core against its plain version at
-    :data:`LONG_FLOAT_N` x head widths 64 and 32 x batches 2 and 8: the
-    forward (attention_core_f32_long) in each format, with and without the
-    statistics, the context under the float bar and the rowmax and
-    reciprocal rowsum under the one-kernel bar; the backward
-    (attention_core_f32_bwd_long) from the plain forward's statistics,
+def long_float_case(n, d, heads, b, device, errors):
+    """The float formats' long core at B=b, N=n, ``heads`` heads of d:
+    the forward in each format, with and without the statistics, the
+    context under the float bar and the rowmax and reciprocal rowsum under
+    the one-kernel bar; the backward from the plain forward's statistics,
     dqkv under the chain bar and the per-image column sums under the psum
-    bar; each call's launches counted (2 and 4, none of the one-CTA
-    kernels').  Then, forced at 197 tokens (``tiled``; ViT-S/16, B=64),
-    both against the one-CTA kernels.  Inputs: fp32 qkv rows and d_o drawn
-    at std 1.  Returns the largest max abs differences by kernel."""
+    bar; each call's launches counted; the largest max abs differences
+    into ``errors``."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    c, sc = heads * d, d ** -0.5
+    rng = np.random.RandomState(n * 1000 + d * 10 + b)
+    qkv = seeded(rng, (b, n, 3 * c), 1.0, device)
+    d_o = seeded(rng, (b, n, c), 1.0, device)
+    design = "three-sweep" if K.f32_long_plan(n, d)["sweep"] else \
+        "score-block"
+    tag = f"B={b} N={n} D={d} H={heads}"
+    fwd = (0.0, 0.0, 0.0)
+    for qname, qspec in FLOAT_QSPECS.items():
+        for stats in (False, True):
+            got = as_tuple(counted(
+                "attention_core_f32_long", K.F32_LONG_FWD_LAUNCHES,
+                lambda: K.attention_core_snap_cuda(qkv, heads, sc, qspec,
+                                                   stats=stats)))
+            ref = as_tuple(K.attention_core_snap_plain(qkv, heads, sc, qspec,
+                                                       stats=stats))
+            label = (f"attention_core_f32_long {qname}"
+                     f"{'+stats' if stats else ''} {tag}")
+            max_abs, of_bar, share = compare_float(f"{label} context",
+                                                   got[0], ref[0], qspec)
+            for i in range(1, len(got)):
+                m_abs, m_bar = compare(f"{label} output {i}", got[i], ref[i],
+                                       RTOL, KERNEL_ATOL)
+                max_abs, of_bar = max(max_abs, m_abs), max(of_bar, m_bar)
+            fwd = max(fwd, (of_bar, max_abs, share))
+    errors["attention_core_f32_long"] = max(
+        errors["attention_core_f32_long"], fwd[1])
+    _, m, rs = K.attention_context_f32(qkv, heads, sc, stats=True)
+    got = counted("attention_core_f32_bwd_long", K.F32_LONG_BWD_LAUNCHES,
+                  lambda: K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs,
+                                                        heads, sc))
+    ref = K.attention_core_f32_bwd_plain(qkv, d_o, m, rs, heads, sc)
+    bwd = (0.0, 0.0)
+    for i, (g, r, kind) in enumerate(zip(got, ref, ("chain", "psum"))):
+        max_abs, of_bar = compare(
+            f"attention_core_f32_bwd_long {tag} output {i}", g, r,
+            *bar(kind, r))
+        bwd = max(bwd, (of_bar, max_abs))
+    errors["attention_core_f32_bwd_long"] = max(
+        errors["attention_core_f32_bwd_long"], bwd[1])
+    if n > K.F32_LONG_BLOCK_MAX_N:
+        for (name, _, _), err in zip(SWEEP_KERNELS, (fwd[1], bwd[1])):
+            errors[name] = max(errors.get(name, 0.0), err)
+    print(f"kernels: attention_core_f32_long {tag} ({design}; FP16_16, "
+          f"FP16_32, TF32; with and without statistics) max_abs "
+          f"{fwd[1]:.6g}, {fwd[0]:.4f} of the bar, at most {fwd[2]:.5f} of a "
+          f"context past the fp32 noise; attention_core_f32_bwd_long max_abs "
+          f"{bwd[1]:.6g}, {bwd[0]:.4f} of the bar (kinds chain/psum)")
+
+
+def sweep_vs_block(device):
+    """The forward's three-sweep design forced at :data:`SWEEP_FORCED_N`
+    (B=2, 6 heads of 64 and 12 of 32), where the score-block design runs,
+    in every mode (a float format's snap with the statistics, INT8 QAT's
+    site snap with the statistics, the converted model's int8 grid): both
+    designs against the plain version at their bars, the share of
+    elements where the two designs differ, and whether the three-sweep
+    design's row max (its scores the plain version's in-order sums) is the
+    plain version's bit for bit."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    qspec = FLOAT_QSPECS["FP16_32"]
+    lines = []
+    for n in SWEEP_FORCED_N:
+        for d in (64, 32):
+            heads, sc = C // d, d ** -0.5
+            qkv = seeded(np.random.RandomState(5 * n + d), (2, n, 3 * C),
+                         1.0, device)
+            site = long_int8_site(qkv, heads, sc)
+            refs = {
+                "FP16_32+stats": as_tuple(K.attention_core_snap_plain(
+                    qkv, heads, sc, qspec, stats=True)),
+                "int8 sites+stats": as_tuple(K.attention_core_snap_plain(
+                    qkv, heads, sc, Int8Sites(site), stats=True)),
+                "int8 out": as_tuple(K.attention_core_f32_plain(
+                    qkv, heads, sc, site))}
+            outs = {}
+            for sweep in (False, True):
+                for mode, run in (
+                        ("FP16_32+stats", lambda: K.attention_core_snap_cuda(
+                            qkv, heads, sc, qspec, stats=True, sweep=sweep)),
+                        ("int8 sites+stats", lambda: K.attention_core_snap_cuda(
+                            qkv, heads, sc, Int8Sites(site), stats=True,
+                            sweep=sweep)),
+                        ("int8 out", lambda: K.attention_core_f32_cuda(
+                            qkv, heads, sc, site, sweep=sweep))):
+                    got = as_tuple(counted("attention_core_f32_long",
+                                           K.F32_LONG_FWD_LAUNCHES, run))
+                    ref = refs[mode]
+                    label = (f"attention_core_f32_long "
+                             f"{'three-sweep' if sweep else 'score-block'} "
+                             f"{mode} N={n} D={d}")
+                    if mode == "FP16_32+stats":
+                        compare_float(f"{label} context", got[0], ref[0],
+                                      qspec)
+                    elif mode == "int8 sites+stats":
+                        compare_sites(f"{label} context", got[0], ref[0],
+                                      site_step(site))
+                    else:
+                        compare_grid(label, got[0], ref[0], 1.0)
+                    for i in range(1, len(got)):
+                        compare(f"{label} output {i}", got[i], ref[i], RTOL,
+                                KERNEL_ATOL)
+                    outs[(sweep, mode)] = got
+            differ = [(outs[(False, m)][0] != outs[(True, m)][0]).float()
+                      .mean().item() for m in refs]
+            same_max = torch.equal(outs[(True, "FP16_32+stats")][1],
+                                   refs["FP16_32+stats"][1])
+            lines.append(f"N={n} D={d}: {', '.join(f'{x:.5f}' for x in differ)}"
+                         f", row max {'=' if same_max else '!='} plain")
+            del qkv
+    print(f"kernels: attention_core_f32_long's three-sweep design forced at "
+          f"B=2 where the score-block design runs, both within their bars of "
+          f"the plain version in every mode; the share of elements where "
+          f"the designs differ (FP16_32 context, INT8 site context, int8 "
+          f"grid) and the three-sweep row max against the plain version's: "
+          f"{'; '.join(lines)}")
+
+
+def phase_kernels_long_float(device):
+    """The float formats' long core against its plain version
+    (:func:`long_float_case`) at :data:`LONG_FLOAT_N` x head widths 64 and
+    32 (6 and 12 heads) x batches 2 and 8, and past the score-block design
+    at :data:`SWEEP_CASES` x batches 2 and 8 (the forward's three-sweep
+    design); each call's launches counted (2 and 4, none of the one-CTA
+    kernels').  Then the three-sweep design forced where the score-block
+    design runs (:func:`sweep_vs_block`), and, forced at
+    197 tokens (``tiled``; ViT-S/16, B=64), the long route against the
+    one-CTA kernels.  Inputs: fp32 qkv rows and d_o drawn at std 1.
+    Returns the largest max abs differences by kernel."""
     from myrtle_vision_tpu_torch.ops import _kernels as K
 
     errors = dict.fromkeys(LONG_FLOAT_KERNELS, 0.0)
-
     for n in LONG_FLOAT_N:
         for d in (64, 32):
-            heads = C // d
-            sc = d ** -0.5
             for b in (2, 8):
-                rng = np.random.RandomState(n * 1000 + d * 10 + b)
-                qkv = seeded(rng, (b, n, 3 * C), 1.0, device)
-                d_o = seeded(rng, (b, n, C), 1.0, device)
-                tag = f"B={b} N={n} D={d}"
-                fwd = (0.0, 0.0, 0.0)
-                for qname, qspec in FLOAT_QSPECS.items():
-                    for stats in (False, True):
-                        got = as_tuple(counted(
-                            "attention_core_f32_long",
-                            K.F32_LONG_FWD_LAUNCHES,
-                            lambda: K.attention_core_snap_cuda(
-                                qkv, heads, sc, qspec, stats=stats)))
-                        ref = as_tuple(K.attention_core_snap_plain(
-                            qkv, heads, sc, qspec, stats=stats))
-                        label = (f"attention_core_f32_long {qname}"
-                                 f"{'+stats' if stats else ''} {tag}")
-                        max_abs, of_bar, share = compare_float(
-                            f"{label} context", got[0], ref[0], qspec)
-                        for i in range(1, len(got)):
-                            m_abs, m_bar = compare(f"{label} output {i}",
-                                                   got[i], ref[i], RTOL,
-                                                   KERNEL_ATOL)
-                            max_abs, of_bar = max(max_abs, m_abs), max(
-                                of_bar, m_bar)
-                        fwd = max(fwd, (of_bar, max_abs, share))
-                errors["attention_core_f32_long"] = max(
-                    errors["attention_core_f32_long"], fwd[1])
-                _, m, rs = K.attention_context_f32(qkv, heads, sc,
-                                                   stats=True)
-                got = counted("attention_core_f32_bwd_long",
-                              K.F32_LONG_BWD_LAUNCHES,
-                              lambda: K.attention_core_f32_bwd_cuda(
-                                  qkv, d_o, m, rs, heads, sc))
-                ref = K.attention_core_f32_bwd_plain(qkv, d_o, m, rs, heads,
-                                                     sc)
-                bwd = (0.0, 0.0)
-                for i, (g, r, kind) in enumerate(zip(got, ref,
-                                                     ("chain", "psum"))):
-                    max_abs, of_bar = compare(
-                        f"attention_core_f32_bwd_long {tag} output {i}", g,
-                        r, *bar(kind, r))
-                    bwd = max(bwd, (of_bar, max_abs))
-                errors["attention_core_f32_bwd_long"] = max(
-                    errors["attention_core_f32_bwd_long"], bwd[1])
-                print(f"kernels: attention_core_f32_long {tag} (FP16_16, "
-                      f"FP16_32, TF32; with and without statistics) max_abs "
-                      f"{fwd[1]:.6g}, {fwd[0]:.4f} of the bar, at most "
-                      f"{fwd[2]:.5f} of a context past the fp32 noise; "
-                      f"attention_core_f32_bwd_long max_abs {bwd[1]:.6g}, "
-                      f"{bwd[0]:.4f} of the bar (kinds chain/psum)")
-                del qkv, d_o, m, rs, got, ref
+                long_float_case(n, d, C // d, b, device, errors)
+    for n, d, heads in SWEEP_CASES:
+        for b in (2, 8):
+            long_float_case(n, d, heads, b, device, errors)
+    sweep_vs_block(device)
 
     # forced at 197 tokens, against the one-CTA kernels
     qspec = FLOAT_QSPECS["FP16_32"]
@@ -2792,14 +2908,67 @@ def long_int8_site(qkv, heads, scale):
     return torch.stack([s, zp, torch.ones_like(s)])
 
 
+def long_int8_case(b, n, d, heads, device, errors):
+    """The long fp32 core's two int8 modes at B=b, N=n, ``heads`` heads of
+    d against their plain versions with a calibrated quant_out site, each
+    call's launches counted: the site snap with and without the
+    statistics under the INT8 QAT site bar, the int8 grid under the
+    converted INT8 bar, each with its share of flipped elements; the
+    largest max abs difference of each mode into ``errors``."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    sites_key, out_key = LONG_INT8_KERNELS
+    sc = d ** -0.5
+    rng = np.random.RandomState(n * 100 + b)
+    qkv = seeded(rng, (b, n, 3 * heads * d), 1.0, device)
+    site = long_int8_site(qkv, heads, sc)
+    design = "three-sweep" if K.f32_long_plan(n, d)["sweep"] else \
+        "score-block"
+    tag = f"B={b} N={n} D={d} H={heads}"
+    worst = (0.0, 0.0, 0.0)
+    for stats in (False, True):
+        got = as_tuple(counted(
+            "attention_core_f32_long", K.F32_LONG_FWD_LAUNCHES,
+            lambda: K.attention_core_snap_cuda(qkv, heads, sc,
+                                               Int8Sites(site),
+                                               stats=stats)))
+        ref = as_tuple(K.attention_core_snap_plain(qkv, heads, sc,
+                                                   Int8Sites(site),
+                                                   stats=stats))
+        label = f"{sites_key}{'+stats' if stats else ''} {tag}"
+        max_abs, of_bar, share = compare_sites(f"{label} context", got[0],
+                                               ref[0], site_step(site))
+        for i in range(1, len(got)):
+            m_abs, m_bar = compare(f"{label} output {i}", got[i], ref[i],
+                                   RTOL, KERNEL_ATOL)
+            max_abs, of_bar = max(max_abs, m_abs), max(of_bar, m_bar)
+        worst = max(worst, (of_bar, max_abs, share))
+    errors[sites_key] = max(errors[sites_key], worst[1])
+    got = counted("attention_core_f32_long", K.F32_LONG_FWD_LAUNCHES,
+                  lambda: K.attention_core_f32_cuda(qkv, heads, sc, site))
+    ref = K.attention_core_f32_plain(qkv, heads, sc, site)
+    g_abs, g_bar = compare_grid(f"{out_key} {tag}", got, ref, 1.0)
+    flips = (got != ref).float().mean().item()
+    errors[out_key] = max(errors[out_key], g_abs)
+    print(f"kernels: {sites_key} {tag} ({design}; with and without "
+          f"statistics) max_abs {worst[1]:.6g}, {worst[0]:.4f} of the bar, "
+          f"{worst[2]:.6f} of the context past the fp32 noise (a flipped "
+          f"rint of site step {site_step(site):.6g}); {out_key} max_abs "
+          f"{g_abs:g} int8 steps, {g_bar:.4f} of the bar, {flips:.6f} of "
+          f"the elements flipped (bar {1 - INT8_SAME:g})")
+
+
 def phase_kernels_long_int8(device):
     """PyTorchINT8 above 256 tokens: the long fp32 core's two int8 modes
-    against their plain versions at :data:`LONG_INT8_CASES` (6 heads of
-    64) with a calibrated quant_out site, each call's launches counted (1,
-    none of the one-CTA kernel's): the site snap with and without the
-    statistics (K1 int8's core) under the INT8 QAT site bar, the int8 grid
-    (K9's core) under the converted INT8 bar, each with its share of
-    flipped elements; both forced at 197 tokens (``tiled``, B=64) against
+    against their plain versions (:func:`long_int8_case`) at
+    :data:`LONG_INT8_CASES` (6 heads of 64) and past the score-block design
+    at :data:`SWEEP_CASES` x batches 2 and 8 with a calibrated quant_out
+    site, each call's launches counted (2, none of the one-CTA kernel's):
+    the site snap with and without the statistics (K1 int8's core) under
+    the INT8 QAT site bar, the int8 grid (K9's core) under the converted
+    INT8 bar, each with its share of flipped elements; both forced at 197
+    tokens (``tiled``, B=64) against
     the one-CTA kernel; then at 577 tokens (B=8) the INT8 QAT attention
     op forward and backward (K1 / K2 int8) and the converted attention
     op (K9) against their plain chains, their long core launches counted.
@@ -2808,46 +2977,11 @@ def phase_kernels_long_int8(device):
     from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
 
     errors = dict.fromkeys(LONG_INT8_KERNELS, 0.0)
-    sites_key, out_key = LONG_INT8_KERNELS
-
     for b, n in LONG_INT8_CASES:
-        rng = np.random.RandomState(n * 100 + b)
-        qkv = seeded(rng, (b, n, 3 * C), 1.0, device)
-        site = long_int8_site(qkv, HEADS, SCALE)
-        tag = f"B={b} N={n}"
-        worst = (0.0, 0.0, 0.0)
-        for stats in (False, True):
-            got = as_tuple(counted(
-                "attention_core_f32_long",
-                            K.F32_LONG_FWD_LAUNCHES,
-                lambda: K.attention_core_snap_cuda(
-                    qkv, HEADS, SCALE, Int8Sites(site), stats=stats)))
-            ref = as_tuple(K.attention_core_snap_plain(
-                qkv, HEADS, SCALE, Int8Sites(site), stats=stats))
-            label = f"{sites_key}{'+stats' if stats else ''} {tag}"
-            max_abs, of_bar, share = compare_sites(
-                f"{label} context", got[0], ref[0], site_step(site))
-            for i in range(1, len(got)):
-                m_abs, m_bar = compare(f"{label} output {i}", got[i], ref[i],
-                                       RTOL, KERNEL_ATOL)
-                max_abs, of_bar = max(max_abs, m_abs), max(of_bar, m_bar)
-            worst = max(worst, (of_bar, max_abs, share))
-        errors[sites_key] = max(errors[sites_key], worst[1])
-        got = counted("attention_core_f32_long",
-                            K.F32_LONG_FWD_LAUNCHES,
-                      lambda: K.attention_core_f32_cuda(qkv, HEADS, SCALE,
-                                                        site))
-        ref = K.attention_core_f32_plain(qkv, HEADS, SCALE, site)
-        g_abs, g_bar = compare_grid(f"{out_key} {tag}", got, ref, 1.0)
-        flips = (got != ref).float().mean().item()
-        errors[out_key] = max(errors[out_key], g_abs)
-        print(f"kernels: {sites_key} {tag} (with and without statistics) "
-              f"max_abs {worst[1]:.6g}, {worst[0]:.4f} of the bar, "
-              f"{worst[2]:.6f} of the context past the fp32 noise (a flipped "
-              f"rint of site step {site_step(site):.6g}); {out_key} max_abs "
-              f"{g_abs:g} int8 steps, {g_bar:.4f} of the bar, {flips:.6f} of "
-              f"the elements flipped (bar {1 - INT8_SAME:g})")
-        del qkv, got, ref
+        long_int8_case(b, n, C // HEADS, HEADS, device, errors)
+    for n, d, heads in SWEEP_CASES:
+        for b in (2, 8):
+            long_int8_case(b, n, d, heads, device, errors)
 
     # forced at 197 tokens, against the one-CTA kernel
     rng = np.random.RandomState(64197 + 9)
@@ -3079,6 +3213,23 @@ def phase_int8_384(device):
     model stage by stage and end to end against the plain path.  Returns
     (the train CLI's kernel launches, the PTQ CLI's, the converted
     checkpoint, the model's constructor kwargs)."""
+    data_config, data_cfg = make_dataset_384()
+    config, _ = int8_384_config(data_cfg, "vit_small_384_int8.json")
+    return int8_train_and_ptq(device, data_config, config, "int8_384",
+                              "int8-384", "ViT-S/16 at 384 px")
+
+
+def int8_train_and_ptq(device, data_config, config, name, tag, label):
+    """A PyTorchINT8 classifier ``config`` past 256 tokens through the
+    train CLI for one epoch (the two-pass QAT step, pass 2's fused ops
+    through the long core's site mode), its launches, no plain call, the
+    first step against the plain path; then its last checkpoint through
+    the PTQ CLI (2 calibration batches, convert, the converted K9 / K10
+    forward, the core in the long core's int8 mode), its launches, and
+    the converted model stage by stage and end to end against the plain
+    path.  ``name`` names its files, ``tag`` leads its lines, ``label``
+    names the model.  Returns (the train CLI's kernel launches, the PTQ
+    CLI's, the converted checkpoint, the model's constructor kwargs)."""
     from myrtle_vision_tpu_torch.classification import test_quantize as ptq
     from myrtle_vision_tpu_torch.classification import train as train_cli
     from myrtle_vision_tpu_torch.classification.test import evaluate_dataset
@@ -3088,15 +3239,14 @@ def phase_int8_384(device):
         load_reference_checkpoint,
     )
 
-    data_config, data_cfg = make_dataset_384()
-    config, _ = int8_384_config(data_cfg, "vit_small_384_int8.json")
     tc = config["train_config"]
-    tc.update(output_directory=os.path.join(WORK, "int8_384"),
+    tc.update(output_directory=os.path.join(WORK, f"{name}_out"),
               checkpoint_path="", epochs=1, warmup_epochs=0,
               pretrained_backbone=None, iters_per_checkpoint=1000,
               iters_per_val=1000)
-    cfg = write_json("vit_small_384_int8_train.json", config)
+    cfg = write_json(f"{name}_train.json", config)
     depth = config["vit_config"]["depth"]
+    size = config["vit_config"]["image_size"]
 
     reset_counts()
     out = io.StringIO()
@@ -3109,7 +3259,7 @@ def phase_int8_384(device):
     text = out.getvalue()
     for line in text.splitlines():
         if line.startswith(("Iteration", "Epoch", "WARNING")):
-            print(f"int8-384: {line}")
+            print(f"{tag}: {line}")
     steps = state.iteration
     losses = [float(v) for v in
               re.findall(r"Iteration \d+:\tloss=(\S+)\tacc=", text)]
@@ -3121,7 +3271,7 @@ def phase_int8_384(device):
             "attention_core_f32_bwd_long": per * K.F32_LONG_BWD_LAUNCHES,
             "attention_core_f32": 0, "attention_core_f32_bwd": 0}
     got = {k: launches[k] for k in want}
-    print(f"int8-384: ViT-S/16 at 384 px ({(384 // 16) ** 2 + 1} tokens) "
+    print(f"{tag}: {label} ({(size // 16) ** 2 + 1} tokens) "
           f"train CLI in PyTorchINT8 on cuda, {steps} steps of {n_accum} x "
           f"{micro} images and a validation of {len(val_loader)} batches "
           f"(the simulation's eval forward) in {took:.1f} s: op launches "
@@ -3133,22 +3283,22 @@ def phase_int8_384(device):
     for op, count in ops.items():
         check(count == ((per, per) if op.endswith("_i8") else (0, 0)),
               f"{op} launches {count}")
-    check(plain_calls["n"] == 0, "the 384 px INT8 QAT run called a plain "
-          "version")
-    check(got == want, "the 384 px INT8 QAT step's long core launches")
+    check(plain_calls["n"] == 0, f"the {size} px INT8 QAT run called a "
+          "plain version")
+    check(got == want, f"the {size} px INT8 QAT step's long core launches")
     run_dir = sorted(glob.glob(tc["output_directory"] + "_*"))[-1]
     ckpts = sorted(os.listdir(run_dir))
     check(ckpts == ["vit_000000", f"vit_{steps:06}"], f"checkpoints {ckpts}")
     first_step_check(model, train_loader, os.path.join(run_dir, "vit_000000"),
-                     n_accum, micro, losses[0], tag="int8-384")
+                     n_accum, micro, losses[0], tag=tag)
     del model, train_loader, val_loader
 
     # the last checkpoint through the PTQ CLI: the converted model at 577
     # tokens, K9 / K10 with the long core's int8 mode
-    saved = os.path.join(WORK, "vit_small_384_int8_converted.pth")
+    saved = os.path.join(WORK, f"{name}_converted.pth")
     tc.update(checkpoint_path=os.path.join(run_dir, ckpts[-1]),
               drop_last_batch=False)
-    cfg = write_json("vit_small_384_int8_ptq.json", config)
+    cfg = write_json(f"{name}_ptq.json", config)
     reset_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -3164,7 +3314,7 @@ def phase_int8_384(device):
                   gemm_s8_epilogue=(4 * depth + 2) * batches,
                   attention_core_f32_long=depth * batches
                   * K.F32_LONG_FWD_LAUNCHES)
-    print(f"int8-384: the PTQ CLI on {ckpts[-1]} in {took:.1f} s: "
+    print(f"{tag}: the PTQ CLI on {ckpts[-1]} in {took:.1f} s: "
           f"{len(gts)} test images in {batches} batches, accuracy "
           f"{float(np.mean(gts == preds)):.4f}; int8_attention_block "
           f"{ops['int8_attention_block'][0]} launches, kernels "
@@ -3186,7 +3336,7 @@ def phase_int8_384(device):
         _, plain_preds, plain_logits = evaluate_dataset(
             lambda images: model(images, plain=True), test_loader)
     step = float(model.io_sites[3][0])
-    stage_check(model, test_loader, tag="int8-384")
+    stage_check(model, test_loader, tag=tag)
     # End to end the logits are held to the converted model's bar; the
     # argmax is printed, not held: this model's weights are random, two
     # steps from their seed, and its top-1 margins chance-level, so a
@@ -3195,13 +3345,14 @@ def phase_int8_384(device):
     diff = (logits - plain_logits).abs()
     limit = INT8_LOGIT_BAR * max(1.0, plain_logits.abs().max().item())
     agree = float(np.mean(preds == plain_preds))
-    print(f"int8-384: kernel vs plain converted logits max_abs "
+    print(f"{tag}: kernel vs plain converted logits max_abs "
           f"{diff.max().item():.6g} ({diff.max().item() / step:.3g} steps of "
           f"the head's grid {step:.6g}; bar {limit:.6g}), "
           f"{(diff == 0).float().mean().item():.4f} of them identical, "
           f"argmax agreement {agree:.4f} (printed, not held)")
     check(diff.max().item() <= limit,
-          "converted 384 px kernel-path logits disagree with the plain path")
+          f"converted {size} px kernel-path logits disagree with the plain "
+          "path")
     return launches, ptq_launches, saved, kwargs
 
 
@@ -3810,21 +3961,24 @@ def phase_detect_train(device, data_config, data_cfg):
     return launches
 
 
-def float_step_launches(n_tok, n_accum, depth):
-    """The fp32 attention core's launches of one float-format train step at
-    ``n_tok`` tokens: per block and micro-batch, where the Block fuses
-    above 256 tokens, one long forward (with the statistics; two kernels)
-    and one long backward (four kernels); past the gate none (the discrete Block's
-    core is PyTorch operations); never a one-CTA or a flash kernel."""
+def float_step_launches(n_tok, n_accum, depth, heads=HEADS, d=C // HEADS):
+    """The fp32 attention core's launches of one float-format (or float32
+    compute) train step at ``n_tok`` tokens, ``heads`` heads of d: per
+    block and micro-batch, where the Block fuses above 256 tokens, one
+    long forward (with the statistics; two kernels) and one long backward
+    (four kernels); past the gate none (the discrete Block's core is
+    PyTorch operations, or the fp32 flash kernels in float32 compute,
+    which these steps never reach); never a one-CTA or a flash kernel."""
     from myrtle_vision_tpu_torch.ops import _kernels as K
     from myrtle_vision_tpu_torch.ops.fused_attention_block import fuses_at
 
-    fused = fuses_at(n_tok, HEADS, C // HEADS)
+    fused = fuses_at(n_tok, heads, d)
     calls = depth * n_accum if fused and n_tok > K.F32_CORE_MAX_N else 0
     return {"attention_core_f32_long": calls * K.F32_LONG_FWD_LAUNCHES,
             "attention_core_f32_bwd_long": calls * K.F32_LONG_BWD_LAUNCHES,
             "attention_core_f32": 0, "attention_core_f32_bwd": 0,
-            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "flash_attention_f32_fwd": 0, "flash_attention_f32_bwd": 0}
 
 
 def float_detection_config(data_cfg, name):
@@ -3981,6 +4135,186 @@ def phase_detect_float(device, data_config, data_cfg):
     print(f"detect-float: the 384 px QAT step's launches "
           f"{ {k: v for k, v in step_launches[384].items() if v} }")
     return launches
+
+
+# YOLOS-Ti (detection/train_configs/yolos_tiny.json: dim 192, 3 heads of
+# 64, MLP 768, 100 detection tokens), which the fused gate fuses up to
+# 1017 tokens: the train CLI's canvases past the long fp32 core's score
+# block, (px, train images): 2 steps of 2 x 2 at 480 px (1001 tokens), then
+# 1 at 464 px (942), resumed from the first run's checkpoint, each run
+# validating TINY_VALID images at its own canvas; and vit_tiny.json's
+# widths at image_size 480 (901 tokens) in PyTorchINT8
+TINY_RUNS = ((480, 8), (464, 4))
+TINY_VALID = 4
+TINY_INT8_SIZE = 480
+# YOLOS-Ti's step launches (3 heads of 64)
+tiny_step_launches = functools.partial(float_step_launches, heads=3, d=64)
+
+
+def yolos_tiny_config(data_cfg, q_format="FP16_32", compute_dtype=None):
+    """yolos_tiny.json in ``q_format`` (no pretrained backbone), reading
+    ``data_cfg``; float32 compute where ``compute_dtype`` says so."""
+    with open(os.path.join(ROOT, "detection", "train_configs",
+                           "yolos_tiny.json")) as f:
+        config = json.load(f)
+    config["vit_config"]["q_format"] = q_format
+    if compute_dtype is not None:
+        config["vit_config"]["compute_dtype"] = compute_dtype
+    config["data_config_path"] = data_cfg
+    config["train_config"]["pretrained_backbone"] = None
+    return config
+
+
+def make_dataset_480():
+    """A small synthetic RESISC-layout set (10 classes, 40 images each:
+    280 train, 40 val, 80 test) and its data config at 480 px (96 px
+    images resized up)."""
+    data = os.path.join(WORK, "data_480")
+    subprocess.run(
+        [sys.executable, os.path.join(ROOT, "classification",
+                                      "prepare_synthetic.py"),
+         "--out", data, "--per_class", "40", "--seed", "13"],
+        check=True, capture_output=True,
+    )
+    with open(os.path.join(ROOT, "classification", "data_configs",
+                           "data_config_synth.json")) as f:
+        data_config = json.load(f)
+    data_config["dataset_path"] = data
+    data_config["transform_ops_train"]["RandomResizedCrop"] = TINY_INT8_SIZE
+    data_config["transform_ops_val"]["Resize"] = TINY_INT8_SIZE
+    return data_config, write_json("data_config_480.json", data_config)
+
+
+def phase_detect_tiny(device, data_config, data_cfg):
+    """The fused block's long fp32 core past its score block (the forward's
+    three-sweep design) on the main paths, at yolos_tiny.json's and
+    vit_tiny.json's widths.  YOLOS-Ti in FP16_32 (random weights from a
+    seed): the first QAT step at 480 and 464 px (1001 and 942 tokens)
+    kernel path against plain path, launches counted; the same at 480 px
+    in float32 compute (the fused fp32 route, no snap); the train CLI for
+    2 steps at 480 px and, resumed from its checkpoint, 1 at 464 px, each
+    validating at its canvas (the eval forward fused too): the long core's
+    launches against the canvases, no plain call, finite losses.  Then
+    vit_tiny.json's widths at 480 px (901 tokens) in PyTorchINT8 through
+    the train CLI (the two-pass QAT step) and the PTQ CLI (the converted
+    forward), as :func:`int8_train_and_ptq` holds them.  Returns the
+    FP16_32 train CLI runs' kernel launches, summed."""
+    from myrtle_vision_tpu_torch.detection import train as train_cli
+    from myrtle_vision_tpu_torch.models.detector import build_weight_dict
+    from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    t0 = time.perf_counter()
+    n_classes = data_config["number_of_classes"]
+    for q_format, dtype, canvases in (
+            ("FP16_32", None, ((480, "fused, the three-sweep long core"),
+                               (464, "fused, the three-sweep long core"))),
+            ("FP32", "float32", ((480, "fused fp32 route, the three-sweep "
+                                       "long core without a snap"),))):
+        config = yolos_tiny_config(data_cfg, q_format, dtype)
+        tc = config["train_config"]
+        model = ViT(**vit_kwargs_from_config(config, data_config),
+                    device=device)
+        model.load_state_dict(smoke_state_dict(model, seed=7))
+        model.train()
+        forced_step_check(
+            model, data_config, n_classes, build_weight_dict(tc),
+            tc["eos_coef"], 2, 2, device, canvases=canvases,
+            expect=tiny_step_launches,
+            require=("fake_quant_rows",) if dtype is None else (),
+            phase=f"detect-tiny {q_format if dtype is None else dtype}")
+        del model
+
+    # the train CLI: 2 steps at 480 px, then 1 at 464 px from its checkpoint
+    norm = data_config["transform_ops_train"]["Normalize"]
+    total = {}
+    ckpt = ""
+    for run, (size, images) in enumerate(TINY_RUNS):
+        resize = {"scales": [size], "max_size_ratio": [1333, 800]}
+        run_data = dict(data_config, train_subset=images,
+                        valid_subset=TINY_VALID)
+        run_data["transform_ops_train"] = {"RandomHorizontalFlip": None,
+                                           "RandomResize": resize,
+                                           "Normalize": norm}
+        run_data["transform_ops_val"] = {"RandomResize": resize,
+                                         "Normalize": norm}
+        run_cfg = write_json(f"dior_synth_tiny_{size}.json", run_data)
+        config = yolos_tiny_config(run_cfg)
+        tc = config["train_config"]
+        tc.update(output_directory=os.path.join(WORK, f"detect_tiny_{size}"),
+                  checkpoint_path=ckpt, epochs=run + 1, warmup_epochs=0)
+        cfg = write_json(f"yolos_tiny_fp16_32_{size}.json", config)
+        depth = config["vit_config"]["depth"]
+        reset_counts()
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with counting_plain_calls() as plain_calls, \
+                contextlib.redirect_stdout(out):
+            state = train_cli.main(["-c", cfg, "--device", "cuda"])
+        launches, ops = read_counts()
+        took = time.perf_counter() - t1
+        text = out.getvalue()
+        losses = [[float(v) for v in m] for m in re.findall(
+            r"Iteration \d+:\tloss=(\S+)\tce=(\S+)\tbbox=(\S+)\tgiou=(\S+)",
+            text)]
+        for line in text.splitlines():
+            if line.startswith(("Iteration", "Epoch")):
+                print(f"detect-tiny: {line.strip()}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, train_loader, val_loader, _, (micro, n_accum) = \
+                train_cli.build_train(config, device)
+        canvases = [tokens_of(*b["image"].shape[1:3])
+                    for b in train_loader.epoch(run)]
+        want = dict.fromkeys(tiny_step_launches(canvases[0], n_accum, depth),
+                             0)
+        for n in canvases:
+            for k, v in tiny_step_launches(n, n_accum, depth).items():
+                want[k] += v
+        # the validation's eval forward: one long forward a block and batch
+        want["attention_core_f32_long"] += (depth * len(val_loader)
+                                            * K.F32_LONG_FWD_LAUNCHES)
+        got = {k: launches[k] for k in want}
+        steps = len(canvases)
+        print(f"detect-tiny: YOLOS-Ti FP16_32 train CLI on cuda, run "
+              f"{run + 1}: {steps} steps of {n_accum} x {micro} images at "
+              f"{size} px (tokens {canvases}) from "
+              f"{'scratch' if not ckpt else os.path.basename(ckpt)}, then "
+              f"a validation of {len(val_loader)} batches at {size} px, in "
+              f"{took:.1f} s; launches {got}, expected {want}; plain-version "
+              f"calls {plain_calls['n']}; all kernels "
+              f"{ {k: v for k, v in launches.items() if v} }; block-half ops "
+              f"{ops}")
+        check(len(losses) == steps == images // (n_accum * micro)
+              and state.iteration == sum(i for _, i in TINY_RUNS[:run + 1])
+              // (n_accum * micro), f"{steps} steps, {losses}, iteration "
+              f"{state.iteration}")
+        check(all(math.isfinite(v) for row in losses for v in row),
+              f"losses {losses}")
+        check(all(n == tokens_of(size, size) for n in canvases)
+              and tokens_of(size, size) > 768, f"canvases {canvases}")
+        check(got == want, "YOLOS-Ti FP16_32 training launches")
+        check(plain_calls["n"] == 0, "the YOLOS-Ti FP16_32 run called a "
+              "plain version")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        run_dir = sorted(glob.glob(tc["output_directory"] + "_*"))[-1]
+        ckpt = os.path.join(run_dir, f"vit_{state.iteration:06}")
+        check(os.path.exists(ckpt), f"no checkpoint {ckpt}")
+        del train_loader, val_loader
+
+    # vit_tiny.json's widths at 480 px in PyTorchINT8: the train and PTQ
+    # CLIs
+    i8_data, i8_cfg = make_dataset_480()
+    with open(os.path.join(ROOT, "classification", "train_configs",
+                           "vit_tiny.json")) as f:
+        config = json.load(f)
+    config["vit_config"].update(q_format="PyTorchINT8",
+                                image_size=TINY_INT8_SIZE)
+    config["data_config_path"] = i8_cfg
+    int8_train_and_ptq(device, i8_data, config, "int8_tiny_480",
+                       "detect-tiny int8", "vit_tiny.json's widths at 480 px")
+    print(f"detect-tiny: phase took {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def phase_detect_int8(device, data_config, data_cfg):
@@ -5396,12 +5730,13 @@ def time_detection_train(totals, device, power):
                      "optimizer": ("multi_tensor",)}, device, power)
 
 
-def time_yolos_step(model, label, groups, device, power):
-    """The YOLOS-S train step of ``model`` (the config's 2 micro-batches
-    of 2 images: forward, backward with the host matcher, AdamW) at 608
-    and 384 px, kernel path against plain path, and a device profile of
+def time_yolos_step(model, label, groups, device, power, sizes=(608, 384),
+                    name="YOLOS-S"):
+    """The YOLOS train step of ``model`` (the config's 2 micro-batches of 2
+    images: forward, backward with the host matcher, AdamW) at each of
+    ``sizes`` px, kernel path against plain path, and a device profile of
     one kernel-path step by the kernel ``groups``; ``label`` names the
-    format in the lines."""
+    format and ``name`` the model in the lines."""
     from myrtle_vision_tpu_torch.models.detector import (
         build_weight_dict,
         criterion,
@@ -5416,7 +5751,7 @@ def time_yolos_step(model, label, groups, device, power):
     tc = yolos_small_config()["train_config"]
     n_classes = model.decoder.class_embed.out_features - 1
     weights = build_weight_dict(tc)
-    for size in (608, 384):
+    for size in sizes:
         rng = np.random.RandomState(size)
         valid = np.zeros((2, 2, 100), bool)
         for i, j in np.ndindex(2, 2):
@@ -5450,14 +5785,14 @@ def time_yolos_step(model, label, groups, device, power):
                                lambda: steps[1](state, batch, tc["lr"]),
                                iters=5, warmup=2)
         n_tok = tokens_of(size, size)
-        print(f"timing: YOLOS-S {label}train step at {size} px ({n_tok} "
+        print(f"timing: {name} {label}train step at {size} px ({n_tok} "
               f"tokens, 2 x 2 images: forward, backward with the host "
               f"matcher, AdamW): kernel path {k_ms:.3f} ms = "
               f"{4 / k_ms * 1e3:.2f} img/s, plain path {p_ms:.3f} ms = "
               f"{4 / p_ms * 1e3:.2f} img/s [{power}]")
         line = device_profile(lambda: steps[0](state, batch, tc["lr"]),
                               groups)
-        print(f"timing: YOLOS-S {label}train step profile at {size} px (one "
+        print(f"timing: {name} {label}train step profile at {size} px (one "
               f"kernel-path step): {line} [{power}]")
         del state, steps, batch
 
@@ -5552,6 +5887,23 @@ def time_float_detection(totals, device, power):
                   count, c, power, tag)
         del qkv, d_o, m, rs, q, k, v, dbq, d_oh, sdpa
 
+    time_sweep(totals, device, power)
+    groups = {"long f32 core forward": ("f32_long_kv_split_kernel",
+                                        "attention_core_f32_long_kernel",
+                                        "attention_core_f32_sweep_kernel"),
+              "long f32 core backward": ("f32_long_bwd_split_kernel",
+                                         "f32_long_dq_kernel",
+                                         "f32_long_dkdv_kernel",
+                                         "f32_long_colsum_kernel"),
+              "fake_quant_rows": ("fake_quant_rows",),
+              "fused block kernels": ("layernorm_snap_rows", "gemm_f32x3",
+                                      "layernorm_rows_bwd", "colsum_kernel"),
+              "optimizer": ("multi_tensor",)}
+    model = ViT("detection", 224, 16, 20, 192, 12, 3, 768,
+                q_format="FP16_32", device=device)
+    time_yolos_step(model, "FP16_32 QAT ", groups, device, power,
+                    sizes=[s for s, _ in TINY_RUNS], name="YOLOS-Ti")
+    del model
     model = ViT("detection", 224, 16, 20, 384, 12, 6, 1536,
                 q_format="FP16_32", device=device)
     time_yolos_step(model, "FP16_32 QAT ",
@@ -5571,6 +5923,69 @@ def time_float_detection(totals, device, power):
     time_yolos_forward(model, "FP16_32 ",
                        {"fake_quant_rows": ("fake_quant_rows",)}, device,
                        power)
+
+
+# the long fp32 core's timed shapes past its score block (B, heads, N, D):
+# YOLOS-Ti's 480 px micro-batch and batch 8, and the gate's longest at one
+# head of 32
+SWEEP_TIMED = ((2, 3, 1001, 64), (8, 3, 1001, 64), (2, 1, 1837, 32))
+
+
+def time_sweep(totals, device, power):
+    """The long fp32 core past its score block (the forward's three-sweep
+    design) per call at :data:`SWEEP_TIMED`, FP16_32 with the statistics
+    and its backward, beside the plain version, the bound (the algorithm's
+    products once: S and P V, and the backward's five, at three bf16
+    passes and 989 TFLOP/s, or the bytes each reads once and writes once;
+    the forward's two extra S sweeps are not in it) and fp32
+    ``F.scaled_dot_product_attention`` forward and backward; each goes
+    into the kernels line's cases (outside the ViT-S/16 block: count 0)."""
+    import torch.nn.functional as F
+
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    qspec = FLOAT_QSPECS["FP16_32"]
+    for b, h, n, d in SWEEP_TIMED:
+        c, sc = h * d, d ** -0.5
+        rng = np.random.RandomState(9000 + n + b)
+        qkv = seeded(rng, (b, n, 3 * c), 1.0, device)
+        d_o = seeded(rng, (b, n, c), 1.0, device)
+        _, m, rs = K.attention_context_f32(qkv, h, sc, stats=True)
+        q, k, v = heads_of(qkv, h)
+        dbq = torch.empty(b, 3 * c, device=device)
+        d_oh = heads_of(torch.cat([d_o] * 3, -1), h)[0]
+        core = 4 * b * h * n * n * d  # two N x N x D products
+        tag = f"B={b} H={h} N={n} D={d}"
+        sdpa = []
+
+        def sdpa_bwd():
+            if not sdpa:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                sdpa.append((F.scaled_dot_product_attention(
+                    *leaves, scale=sc), leaves))
+            out, leaves = sdpa[0]
+            return torch.autograd.grad(out, leaves, d_oh, retain_graph=True)
+
+        cf = cost(nbytes(qkv) * 4 // 3 + nbytes(m, rs), 3 * core, "bf16",
+                  lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
+        time_case(totals, f"attention_core_f32_long[three-sweep, {tag}]",
+                  lambda: K.attention_core_snap_cuda(qkv, h, sc, qspec,
+                                                     stats=True),
+                  lambda: K.attention_core_snap_plain(qkv, h, sc, qspec,
+                                                      stats=True),
+                  0, cf, power, tag)
+        cb = cost(2 * nbytes(qkv) + nbytes(d_o, m, rs, dbq),
+                  3 * core * 5 // 2, "bf16", sdpa_bwd)
+        time_case(totals, f"attention_core_f32_bwd_long[past 768, {tag}]",
+                  lambda: K.attention_core_f32_bwd_cuda(qkv, d_o, m, rs, h,
+                                                        sc),
+                  lambda: K.attention_core_f32_bwd_plain(qkv, d_o, m, rs, h,
+                                                         sc),
+                  0, cb, power, tag)
+        print(f"timing: the long f32 core at {tag}: "
+              f"{K.F32_LONG_FWD_LAUNCHES} launches a forward call, "
+              f"{K.F32_LONG_BWD_LAUNCHES} a backward call [{power}]")
+        del qkv, d_o, m, rs, q, k, v, dbq, d_oh, sdpa
 
 
 def time_int8_long(totals, device, power, int8_384_ckpt, int8_384_kwargs):
@@ -5827,7 +6242,9 @@ F32_FLASH_BWD_CASES = [(2, 6, 1545, 64, None, "K7 regime, 608 px"),
                        (3, 2, 50, 32, 40, "ragged, n_valid 40")]
 # the fp32 K1-K4 route's cases (B, N, tag): ViT-S/16, and YOLOS-S at 384
 # px, the long fp32 core
-F32_CHAIN_CASES = ((64, N, "ViT-S/16"), (4, 677, "YOLOS-S 384 px"))
+F32_CHAIN_CASES = ((64, N, "ViT-S/16", C, HEADS, HID),
+                   (4, 677, "YOLOS-S 384 px", C, HEADS, HID),
+                   (2, 1001, "YOLOS-Ti 480 px", 192, 3, 768))
 F32_KERNELS = {
     "flash_attention_f32_fwd": (
         f"{CSRC}flash_attention_f32_fwd_wgmma.cu; {CSRC}flash_tf32.cuh",
@@ -5950,12 +6367,13 @@ def phase_kernels_f32(device):
               f"{max(s for _, s in res):.4f} of the fp32 flash bar (dq, dk, "
               "dv)")
         del q, k, v, do, o, lse, got, ref
-    for b, n, tag in F32_CHAIN_CASES:
-        x, attn, mlp, do = block_inputs(b, n, 24000 + n, device)
+    for b, n, tag, c, heads, hid in F32_CHAIN_CASES:
+        x, attn, mlp, do = block_inputs(b, n, 24000 + n, device, c, hid)
         x, do = x.float(), do.float()
         for op, plain, params, extra, name in (
                 (fa.fused_attention_block, fa.fused_attention_block_plain,
-                 attn, (HEADS, SCALE), "fused_attention_block[fp32]"),
+                 attn, (heads, (c // heads) ** -0.5),
+                 "fused_attention_block[fp32]"),
                 (fm.fused_mlp_block, fm.fused_mlp_block_plain, mlp, (),
                  "fused_mlp_block[fp32]")):
             reset_counts()
@@ -7247,6 +7665,7 @@ def main():
     det_train_launches = phase_detect_train(device, *det_data)
     float_det_launches = phase_detect_float(device, *det_data)
     phase_detect_int8(device, *det_data)
+    tiny_launches = phase_detect_tiny(device, *det_data)
     f32_runs, f32_ckpt, f32_config_ = phase_fp32(device, data_config,
                                                  det_data)
     power = power_line()
@@ -7322,6 +7741,23 @@ def main():
             "bound_ms": t["bound_ms"],
             "bound_by": max(t["by"], key=t["by"].get),
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+        })
+    for name, base, case in SWEEP_KERNELS:
+        t = totals[base]["cases"][case]
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNELS[base][0],
+            "replaces": f"{KERNELS[base][1]} (above 768 tokens)",
+            # the launches of phase detect-tiny's YOLOS-Ti FP16_32 train
+            # CLI runs (480 and 464 px); the largest error against the
+            # plain version over SWEEP_CASES; per call at YOLOS-Ti's 480
+            # px micro-batch, every timed shape in "cases"
+            "launches": tiny_launches[base],
+            "max_abs_err": errors[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "cases": {k: v for k, v in totals[base]["cases"].items()
+                      if k.startswith(name[:-1])},
         })
     for name, (source, replaces, tpu) in INT8_QAT_VARIANTS.items():
         t = totals[tpu]

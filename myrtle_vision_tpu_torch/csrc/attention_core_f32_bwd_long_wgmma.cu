@@ -1,10 +1,13 @@
 // attention_core_f32_bwd above 256 tokens on Hopper: the per-head part of
-// the TPU attention block's backward in a stateless float format or INT8
-// QAT, fp32 throughout, from 257 to 768 tokens.
+// the TPU attention block's backward in a stateless float format, INT8 QAT
+// or float32 compute, fp32 throughout, from 257 to 1837 tokens.
 //
 // Replaces the loop over heads of `_bwd_one_image` with qspec set
 // (myrtle_vision_tpu/ops/fused_attention_block.py) wherever the JAX
-// package fuses, up to 701 tokens at 6 heads of 64.  Inputs: qkv (B, N,
+// package fuses, up to 701 tokens at 6 heads of 64, 1017 at 3 heads of
+// 64, 1837 at one head of 32.  No shared buffer grows with N: every
+// kernel walks 64-row tiles through its ring, and the scratch (the split
+// operands, rt, colpart) and the tensor map are sized from N_pad.  Inputs: qkv (B, N,
 // 3C) fp32 in feature order [3][h][d] (the forward's snapped rows), d_o =
 // do @ Wp^T (B, N, C) fp32, and the forward's rowmax m and reciprocal
 // rowsum rs (B, H, N) fp32 (attention_core_f32_long_wgmma.cu with

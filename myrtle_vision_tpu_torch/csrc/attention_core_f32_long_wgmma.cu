@@ -1,8 +1,10 @@
 // attention_core_f32 above 256 tokens on Hopper: the fp32 softmax
-// attention core of the float-format and INT8 QAT attention blocks, ending
-// on the to_out.act_in snap or the quant_out site, and of the converted
-// INT8 attention block, ending on the int8 grid of its quant_out site,
-// from 257 to 768 tokens.
+// attention core of the float-format and INT8 QAT attention blocks (and of
+// float32 compute, whose site table snaps nothing), ending on the
+// to_out.act_in snap or the quant_out site, and of the converted INT8
+// attention block, ending on the int8 grid of its quant_out site, from 257
+// to 1837 tokens: the score-block design up to 768, the three-sweep design
+// above it.
 //
 // The per-head loop of the TPU kernels `_attn_heads_fwd` with qspec set,
 // followed by the snap of `_fwd_kernel`
@@ -11,7 +13,9 @@
 // (myrtle_vision_tpu/ops/fused_int8_block.py), which the JAX package runs
 // wherever `fuses_at` holds: up to 701 tokens at 6 heads of 64 (the
 // YOLOS-S train step's 256-608 px canvases give 357-677, ViT-S/16 at 384
-// px 577).  Input qkv (B, N, 3C) fp32, feature order [3][h][d], D = 32 or
+// px 577), 1017 at 3 heads of 64 (YOLOS-Ti's 416-480 px canvases give
+// 777-1001, ViT-Ti/16 at 448-496 px 785-962), 1837 at one head of 32.
+// Input qkv (B, N, 3C) fp32, feature order [3][h][d], D = 32 or
 // 64; output (B, N, C), head h at columns h*D...; with statistics also the
 // rowmax m and rs = 1 / sum, (B, H, N) fp32.  The function of
 // attention_core_f32_wgmma.cu, for each query row:
@@ -59,7 +63,8 @@
 // (attention_f32_tiles.cuh).  Three sweeps that recompute the scores would
 // keep no score block, but cost two more S products.
 //
-// The design (f32_long_wgmma.cuh), two launches a call.  A split pass
+// The score-block design (f32_long_wgmma.cuh), two launches a call, up to
+// kBlockMaxN = 768 tokens.  A split pass
 // writes K's and V's bf16 halves once into a scratch of (4, B, H, N_pad,
 // D) bf16, rows past N zero; the first design split each tile in every
 // query tile's CTA, 11 times a row at N = 677, waiting on its threads
@@ -97,6 +102,16 @@
 // RowDivisor).  ptxas -v: 222 registers a thread at D = 64 (194 at 32),
 // no spills; 230,464 bytes of dynamic shared memory at D = 64 and N_pad
 // 640-768 (4, 3, 2 stages).
+//
+// The three-sweep design (attention_core_f32_sweep_kernel below), the same
+// two launches, above 768 tokens: the same CTA without the score block,
+// which walks the K tiles three times (the row max; the exponentials and
+// rowsum; the exponentials again, the divide and P V), so its shared
+// memory is a ring of four stages and the CTA's q rows whatever N.  Its
+// scores are not a tensor-core chain but the plain version's in-order
+// fp32 sums on the FMA units (see there: at one head past 1000 tokens the
+// chain's truncation alone put the snapped context over the float
+// formats' bar), computed three times; P V stays on wgmma.
 #include <cstdint>
 
 #include "f32_long_wgmma.cuh"
@@ -137,6 +152,80 @@ struct Args {
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   __syncwarp();
   if (lane == 0) sm::mbar_arrive(bar);
+}
+
+// the two bf16 values at byte offset `off` (4-byte aligned) of a tile
+// swizzled as TMA writes it, as fp32
+template <int kRow>
+__device__ __forceinline__ float2 bf16x2_at(const unsigned char* tile,
+                                            uint32_t off) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(
+      tile + sm::swizzle_chunk<kRow>(off));
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+
+// The context rows ra and rb of the CTA's 64 (those below N) through the
+// mode's epilogue into out, and with statistics the rowmax and reciprocal
+// rowsum: u[4 j + e] is row ra (e < 2) or rb, column 8 j + 2 t + (e % 2)
+template <int D>
+__device__ __forceinline__ void store_context(
+    const Args& a, const mvt::QSpec& qs, const float (&u)[D / 2], int b,
+    int h, int bh, int ra, int rb, int t, float mx0, float mx1, float sum0,
+    float sum1) {
+  const int N = a.n, C = a.heads * D;
+  // the output grid (int8) or site (INT8 QAT) row
+  float s_site = 1.0f, zp_site = 128.0f, has_site = 0.f;
+  if (a.mode != kSnapFloat && a.site[2] > 0.5f) {
+    s_site = a.site[0];
+    zp_site = a.site[1];
+    has_site = a.site[2];
+  }
+  const size_t oa = (static_cast<size_t>(b) * N + ra) * C + h * D;
+  const size_t ob = oa + static_cast<size_t>(8) * C;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int d = 8 * j + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if ((half ? rb : ra) >= N) continue;
+      const size_t o = (half ? ob : oa) + d;
+      const float x0 = u[4 * j + 2 * half], x1 = u[4 * j + 2 * half + 1];
+      if (a.mode == kInt8) {
+        const float y0 = fminf(
+            fmaxf(__fadd_rn(rintf(__fdiv_rn(x0, s_site)), zp_site), 0.f),
+            255.f);
+        const float y1 = fminf(
+            fmaxf(__fadd_rn(rintf(__fdiv_rn(x1, s_site)), zp_site), 0.f),
+            255.f);
+        char2 c;
+        c.x = static_cast<signed char>(static_cast<int>(y0) - 128);
+        c.y = static_cast<signed char>(static_cast<int>(y1) - 128);
+        *reinterpret_cast<char2*>(static_cast<signed char*>(a.out) + o) = c;
+      } else {
+        float2 y;
+        if (a.mode == kSnapFloat) {
+          y.x = mvt::snap(x0, qs);
+          y.y = mvt::snap(x1, qs);
+        } else {
+          y.x = mvt::int8_site_snap(x0, s_site, zp_site, has_site);
+          y.y = mvt::int8_site_snap(x1, s_site, zp_site, has_site);
+        }
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) = y;
+      }
+    }
+  }
+  if (a.m_out != nullptr && t == 0) {
+    const size_t o = static_cast<size_t>(bh) * N;
+    if (ra < N) {
+      a.m_out[o + ra] = mx0;
+      a.rs_out[o + ra] = __fdiv_rn(1.0f, sum0);
+    }
+    if (rb < N) {
+      a.m_out[o + rb] = mx1;
+      a.rs_out[o + rb] = __fdiv_rn(1.0f, sum1);
+    }
+  }
 }
 
 template <int D>
@@ -426,79 +515,310 @@ attention_core_f32_long_kernel(const __grid_constant__ CUtensorMap map,
     }
   }
 
-  // the output grid (int8) or site (INT8 QAT) row
-  float s_site = 1.0f, zp_site = 128.0f, has_site = 0.f;
-  if (a.mode != kSnapFloat && a.site[2] > 0.5f) {
-    s_site = a.site[0];
-    zp_site = a.site[1];
-    has_site = a.site[2];
+  store_context<D>(a, qs, u, b, h, bh, ra, rb, t, mx0, mx1, sum0, sum1);
+}
+
+// The three-sweep design: the same function without the score block.  The
+// CTA (a consumer warpgroup that owns 64 queries of one (image, head) and a
+// producer warp) walks the K tiles three times and the V tiles once, each
+// tile's hi and lo halves loaded by TMA from the split scratch through a
+// ring of kFwdMaxStages stages, in the order K 0 .. K T-1, K 0 .. K T-1, K 0,
+// V 0, K 1, V 1, ..., K T-1, V T-1:
+//   sweep 1  S -> the row max;
+//   sweep 2  S again -> e = exp(s - m) and the rowsum, four compensated
+//            partial sums a row;
+//   sweep 3  S again -> e -> p = e / sum (the true divide) split in
+//            registers, the tile's chain3 of P V into a fresh accumulator,
+//            added to the context rounded once; tile kt + 1's S runs on the
+//            FMA units while tile kt's P V chain runs on the tensor cores.
+// S here is not the tensor cores' chain: each of its passes is the sum
+// over d in order, one fp32 FMA a term (each product of two bf16 halves is
+// exact), then (hi.hi + hi.lo) + lo.hi and the scale: the plain version's
+// arithmetic, whose cuBLAS products on the card sum each pass in exactly
+// that order (measured bit for bit at 197-1837 tokens, D 32 and 64).  The
+// tensor cores truncate as they accumulate: their S sits about half an ulp
+// below the plain version's at the row max, and every score's ulp of error
+// moves p; past 1000 tokens at one head that alone put 0.20-0.21% of a
+// snapped context a format step from the plain version's, over the float
+// formats' 0.2% bar.  With the same S, m and e are the plain version's bit
+// for bit, and only the rowsum (compensated, to a few tenths of an ulp of
+// the plain version's) and P V part from it.  The S of the three sweeps
+// costs 3 x 3 x D FMAs a score on the FMA units, with q's halves in shared
+// memory beside the ring.  Its outputs are therefore not the score-block
+// design's bits (tests/test_torch_kernels_cuda.py measures the two against
+// each other and against the plain version at N <= 768).
+template <int D>
+__global__ void __launch_bounds__(fl::kFwdThreads, 1)
+attention_core_f32_sweep_kernel(const __grid_constant__ CUtensorMap map,
+                                const Args a, const mvt::QSpec qs) {
+  using T = fl::Tiles<D>;
+  constexpr int kRow = T::kRow;
+  constexpr int S = fl::kFwdMaxStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm::smem_u32(smem_raw) & 1023)) & 1023);
+  const int N = a.n, heads = a.heads;
+  const int tiles = (N + kLongTile - 1) / kLongTile, np = tiles * kLongTile;
+  unsigned char* ring = smem;
+  unsigned char* qtile = smem + S * T::kPair;  // q's hi, then lo half
+  uint64_t* full = reinterpret_cast<uint64_t*>(qtile + T::kPair);
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q0 = kLongTile * blockIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm::mbar_init(&full[s], 1);
+      sm::mbar_init(&empty[s], fl::kFwdConsumerWarps);
+    }
+    sm::fence_barrier_init();
   }
-  // u[4 j + e]: row ra (e < 2) or rb, column 8 j + 2 t + (e % 2)
-  const size_t oa = (static_cast<size_t>(b) * N + ra) * C + h * D;
-  const size_t ob = oa + static_cast<size_t>(8) * C;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int d = 8 * j + 2 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if ((half ? rb : ra) >= N) continue;
-      const size_t o = (half ? ob : oa) + d;
-      const float x0 = u[4 * j + 2 * half], x1 = u[4 * j + 2 * half + 1];
-      if (a.mode == kInt8) {
-        const float y0 = fminf(
-            fmaxf(__fadd_rn(rintf(__fdiv_rn(x0, s_site)), zp_site), 0.f),
-            255.f);
-        const float y1 = fminf(
-            fmaxf(__fadd_rn(rintf(__fdiv_rn(x1, s_site)), zp_site), 0.f),
-            255.f);
-        char2 c;
-        c.x = static_cast<signed char>(static_cast<int>(y0) - 128);
-        c.y = static_cast<signed char>(static_cast<int>(y1) - 128);
-        *reinterpret_cast<char2*>(static_cast<signed char*>(a.out) + o) = c;
-      } else {
-        float2 y;
-        if (a.mode == kSnapFloat) {
-          y.x = mvt::snap(x0, qs);
-          y.y = mvt::snap(x1, qs);
-        } else {
-          y.x = mvt::int8_site_snap(x0, s_site, zp_site, has_site);
-          y.y = mvt::int8_site_snap(x1, s_site, zp_site, has_site);
+  // the CTA's 64 query rows, split into swizzled hi and lo tiles (rows past
+  // N zero)
+  split_rows<D>(qtile, qtile + T::kSub,
+                a.qkv + static_cast<size_t>(b) * N * 3 * heads * D + h * D,
+                static_cast<size_t>(3) * heads * D, q0, kLongTile, N,
+                nullptr, tid, fl::kFwdThreads);
+  __syncthreads();
+
+  if (warp == fl::kFwdConsumerWarps) {
+    // the producer warp: the 4 T tiles in the order above, each into the
+    // next stage once the warpgroup has released it
+    if (lane == 0) {
+      for (int it = 0; it < 4 * tiles; ++it) {
+        const int s = it % S, use = it / S;
+        int array = 0, tile = it < tiles ? it : it - tiles;
+        if (it >= 2 * tiles) {
+          tile = (it - 2 * tiles) >> 1;
+          array = ((it - 2 * tiles) & 1) ? 2 : 0;
         }
-        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) = y;
+        if (use > 0) sm::mbar_wait(&empty[s], (use - 1) & 1);
+        sm::mbar_expect_tx(&full[s], T::kPair);
+        fl::load_pair<D>(ring + s * T::kPair, &map, &full[s], array, bh,
+                         gridDim.y, np, kLongTile * tile);
       }
     }
+    return;
   }
-  if (a.m_out != nullptr && t == 0) {
-    const size_t o = static_cast<size_t>(bh) * N;
-    if (ra < N) {
-      a.m_out[o + ra] = mx0;
-      a.rs_out[o + ra] = __fdiv_rn(1.0f, sum0);
+
+  const int ra = q0 + 16 * warp + g, rb = ra + 8;
+  // the raw scores of the K tile in `tile` (hi, then lo half) for rows ra
+  // and rb, s[4 j + e]: row ra (e < 2) or rb, the tile's key 8 j + 2 t + (e
+  // % 2) (the wgmma accumulator's layout, which P V's A fragments take):
+  // each pass summed over d in order, two d a load of each bf16 pair
+  auto scores = [&](const unsigned char* tile, float (&s)[32]) {
+    float hh[32], hl[32], lh[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hh[i] = hl[i] = lh[i] = 0.f;
+    const uint32_t oa = (16 * warp + g) * kRow, ob = oa + 8 * kRow;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 2) {
+      const float2 qha = bf16x2_at<kRow>(qtile, oa + 2 * d);
+      const float2 qla = bf16x2_at<kRow>(qtile + T::kSub, oa + 2 * d);
+      const float2 qhb = bf16x2_at<kRow>(qtile, ob + 2 * d);
+      const float2 qlb = bf16x2_at<kRow>(qtile + T::kSub, ob + 2 * d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const uint32_t ok = (8 * j + 2 * t + e1) * kRow + 2 * d;
+          const float2 kh = bf16x2_at<kRow>(tile, ok);
+          const float2 kl = bf16x2_at<kRow>(tile + T::kSub, ok);
+          const int ia = 4 * j + e1, ib = ia + 2;
+          hh[ia] = __fmaf_rn(qha.y, kh.y, __fmaf_rn(qha.x, kh.x, hh[ia]));
+          hl[ia] = __fmaf_rn(qha.y, kl.y, __fmaf_rn(qha.x, kl.x, hl[ia]));
+          lh[ia] = __fmaf_rn(qla.y, kh.y, __fmaf_rn(qla.x, kh.x, lh[ia]));
+          hh[ib] = __fmaf_rn(qhb.y, kh.y, __fmaf_rn(qhb.x, kh.x, hh[ib]));
+          hl[ib] = __fmaf_rn(qhb.y, kl.y, __fmaf_rn(qhb.x, kl.x, hl[ib]));
+          lh[ib] = __fmaf_rn(qlb.y, kh.y, __fmaf_rn(qlb.x, kh.x, lh[ib]));
+        }
     }
-    if (rb < N) {
-      a.m_out[o + rb] = mx1;
-      a.rs_out[o + rb] = __fdiv_rn(1.0f, sum1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = __fadd_rn(__fadd_rn(hh[i], hl[i]), lh[i]);
+  };
+  // tile kt's score s[i] scaled, or -inf past N
+  auto masked = [&](const float (&s)[32], int kt, int i) {
+    const int key = kLongTile * kt + 8 * (i >> 2) + 2 * t + (i & 1);
+    return key < N ? scaled(s[i], a.scale) : mvt::neg_inf();
+  };
+  // the K tiles at ring tiles base .. base + tiles - 1, visit(s, kt) on each
+  // tile's scores in key order
+  auto walk = [&](int base, const auto& visit) {
+    for (int kt = 0; kt < tiles; ++kt) {
+      const int k = base + kt;
+      sm::mbar_wait(&full[k % S], (k / S) & 1);
+      float s[32];
+      scores(ring + (k % S) * T::kPair, s);
+      release(&empty[k % S], lane);
+      visit(s, kt);
+    }
+  };
+
+  float mx0 = mvt::neg_inf(), mx1 = mvt::neg_inf();
+  walk(0, [&](const float (&s)[32], int kt) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(fmaxf(mx0, masked(s, kt, 4 * j)), masked(s, kt, 4 * j + 1));
+      mx1 = fmaxf(fmaxf(mx1, masked(s, kt, 4 * j + 2)),
+                  masked(s, kt, 4 * j + 3));
+    }
+  });
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+
+  // four partial sums a row (by the parity of the 8-key block and the pair
+  // element), each compensated (Kahan: c carries what the last add lost)
+  float part[2][4], comp[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[r][c] = comp[r][c] = 0.f;
+  auto kahan = [](float& sum, float& c, float x) {
+    const float y = __fsub_rn(x, c);
+    const float t2 = __fadd_rn(sum, y);
+    c = __fsub_rn(__fsub_rn(t2, sum), y);
+    sum = t2;
+  };
+  walk(tiles, [&](const float (&s)[32], int kt) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 2 * (j & 1);
+      kahan(part[0][c], comp[0][c], exp_shift(masked(s, kt, 4 * j), mx0));
+      kahan(part[0][c + 1], comp[0][c + 1],
+            exp_shift(masked(s, kt, 4 * j + 1), mx0));
+      kahan(part[1][c], comp[1][c],
+            exp_shift(masked(s, kt, 4 * j + 2), mx1));
+      kahan(part[1][c + 1], comp[1][c + 1],
+            exp_shift(masked(s, kt, 4 * j + 3), mx1));
+    }
+  });
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    sum0 = __fadd_rn(sum0, __fsub_rn(part[0][c], comp[0][c]));
+    sum1 = __fadd_rn(sum1, __fsub_rn(part[1][c], comp[1][c]));
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    sum0 = __fadd_rn(sum0, __shfl_xor_sync(0xffffffffu, sum0, o));
+    sum1 = __fadd_rn(sum1, __shfl_xor_sync(0xffffffffu, sum1, o));
+  }
+
+  // ---- sweep 3: K tile kt at ring tile 2 T + 2 kt, V tile kt at 2 T + 2
+  // kt + 1 ----
+  const fl::RowDivisor div0(sum0), div1(sum1);
+  auto e_of = [&](const float (&s)[32], int kt, int i) {
+    return exp_shift(masked(s, kt, i), (i & 2) ? mx1 : mx0);
+  };
+  // tile kt's A fragments of p = e / sum from its scores s, split
+  auto form = [&](const float (&s)[32], int kt, uint32_t (&ph)[4][4],
+                  uint32_t (&pl)[4][4]) {
+    float p[32];
+    bool slow = false;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      p[i] = ((i & 2) ? div1 : div0).div(e_of(s, kt, i), slow);
+    if (slow) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        p[i] = __fdiv_rn(e_of(s, kt, i), (i & 2) ? sum1 : sum0);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const int i = 8 * ks + 2 * w;
+        sm::split_bf16x2(p[i], p[i + 1], ph[ks][w], pl[ks][w]);
+      }
+  };
+  auto scores_at = [&](int k, float (&s)[32]) {
+    sm::mbar_wait(&full[k % S], (k / S) & 1);
+    scores(ring + (k % S) * T::kPair, s);
+    release(&empty[k % S], lane);
+  };
+  float u[D / 2], acc[D / 2], sc[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) u[i] = 0.f;
+  scores_at(2 * tiles, sc);
+  {
+    uint32_t ph[4][4], pl[4][4];
+    for (int kt = 0; kt < tiles; ++kt) {
+      form(sc, kt, ph, pl);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        sm::fence_regs(ph[ks]);
+        sm::fence_regs(pl[ks]);
+      }
+      // tile kt's P V on the tensor cores, V read MN-major (the transpose
+      // bit), 16 keys a step, into a fresh accumulator
+      const int iv = 2 * tiles + 2 * kt + 1, st = iv % S;
+      sm::mbar_wait(&full[st], (iv / S) & 1);
+      const unsigned char* th = ring + st * T::kPair;
+      const uint64_t dth = sm::rows_desc<D>(th, 0);
+      const uint64_t dtl = sm::rows_desc<D>(th + T::kSub, 0);
+      sm::wgmma_fence();
+      chain3<4>([&](int x, int bl, int ks) {
+        sm::WgmmaRS<D>::template mma<1>(
+            acc, x ? pl[ks] : ph[ks],
+            sm::desc_add(bl ? dtl : dth, ks * 16 * kRow),
+            chain_first(x, bl, ks) ? 0 : 1);
+      });
+      sm::wgmma_commit();
+      // tile kt + 1's S while it runs
+      if (kt + 1 < tiles) scores_at(2 * tiles + 2 * kt + 2, sc);
+      sm::wgmma_wait<0>();
+      sm::fence_regs(acc);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        sm::fence_regs(ph[ks]);
+        sm::fence_regs(pl[ks]);
+      }
+      release(&empty[st], lane);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) u[i] = __fadd_rn(u[i], acc[i]);
     }
   }
+  store_context<D>(a, qs, u, b, h, bh, ra, rb, t, mx0, mx1, sum0, sum1);
 }
 
 template <int D>
-const void* kernel_of() {
-  return reinterpret_cast<const void*>(attention_core_f32_long_kernel<D>);
+const void* kernel_of(bool sweep) {
+  return sweep ? reinterpret_cast<const void*>(
+                     attention_core_f32_sweep_kernel<D>)
+               : reinterpret_cast<const void*>(
+                     attention_core_f32_long_kernel<D>);
 }
 
 template <int D>
-int set_smem() {
-  static unsigned done = 0;
-  return fl::allow_smem_once(kernel_of<D>(), &done);
+int set_smem(bool sweep) {
+  static unsigned done[2] = {0, 0};
+  return fl::allow_smem_once(kernel_of<D>(sweep), &done[sweep ? 1 : 0]);
+}
+
+// the core kernel's ring stages and dynamic shared memory at N tokens
+template <int D>
+int stages_of(int N, bool sweep) {
+  return sweep ? fl::kFwdMaxStages : fl::fwd_stages<D>(N);
+}
+template <int D>
+int smem_of(int N, bool sweep) {
+  return sweep ? fl::sweep_smem<D>() : fl::fwd_smem<D>(N);
 }
 
 template <int D>
 int launch(const void* qkv, const void* site, void* out, void* m, void* rs,
            void* split, int B, int N, int heads, float scale, int mode,
-           mvt::QSpec qs, int* launched, cudaStream_t stream) {
+           mvt::QSpec qs, bool sweep, int* launched, cudaStream_t stream) {
   CUtensorMap map;
   int err = fl::encode_split<D>(&map, split, 4, B, heads, N);
-  if (err == 0) err = set_smem<D>();
+  if (err == 0) err = set_smem<D>(sweep);
   if (err != 0) return err;
   f32_long_kv_split_kernel<D>
       <<<fl::split_blocks(B, N, heads, D, 2), 256, 0, stream>>>(
@@ -515,22 +835,26 @@ int launch(const void* qkv, const void* site, void* out, void* m, void* rs,
   a.rs_out = static_cast<float*>(rs);
   a.n = N;
   a.heads = heads;
-  a.stages = fl::fwd_stages<D>(N);
+  a.stages = stages_of<D>(N, sweep);
   a.mode = mode;
   a.scale = scale;
-  const int tiles = (N + kLongTile - 1) / kLongTile;
-  attention_core_f32_long_kernel<D>
-      <<<dim3(tiles, B * heads), fl::kFwdThreads, fl::fwd_smem<D>(N),
-         stream>>>(map, a, qs);
+  const dim3 grid((N + kLongTile - 1) / kLongTile, B * heads);
+  if (sweep)
+    attention_core_f32_sweep_kernel<D>
+        <<<grid, fl::kFwdThreads, fl::sweep_smem<D>(), stream>>>(map, a, qs);
+  else
+    attention_core_f32_long_kernel<D>
+        <<<grid, fl::kFwdThreads, fl::fwd_smem<D>(N), stream>>>(map, a, qs);
   e = cudaGetLastError();
   if (e == cudaSuccess) *launched = 2;
   return static_cast<int>(e);
 }
 
+// the three-sweep design above kBlockMaxN, or at any N where forced
 int launch_d(const void* qkv, const void* site, void* out, void* m,
              void* rs, void* split, int B, int N, int heads, int D,
-             float scale, int mode, mvt::QSpec qs, int* launched,
-             cudaStream_t stream) {
+             float scale, int mode, mvt::QSpec qs, int force_sweep,
+             int* launched, cudaStream_t stream) {
   *launched = 0;
   if (B <= 0 || heads <= 0 || N <= 0 || N > kLongMaxN ||
       static_cast<long long>(B) * heads > 65535 ||
@@ -539,18 +863,38 @@ int launch_d(const void* qkv, const void* site, void* out, void* m,
       reinterpret_cast<uintptr_t>(split) % 16 != 0 ||
       (mode != kSnapFloat && site == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool sweep = force_sweep != 0 || N > kBlockMaxN;
   if (D == 64)
     return launch<64>(qkv, site, out, m, rs, split, B, N, heads, scale, mode,
-                      qs, launched, stream);
+                      qs, sweep, launched, stream);
   if (D == 32)
     return launch<32>(qkv, site, out, m, rs, split, B, N, heads, scale, mode,
-                      qs, launched, stream);
+                      qs, sweep, launched, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int fwd_figures(int N, bool sweep, int* f) {
+  int err = set_smem<D>(sweep);
+  int ctas = 0;
+  if (err == 0)
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, kernel_of<D>(sweep), fl::kFwdThreads, smem_of<D>(N, sweep)));
+  if (err != 0) return err;
+  const int v[7] = {(N + kLongTile - 1) / kLongTile, kLongTile, kLongTile,
+                    fl::kFwdThreads, stages_of<D>(N, sweep),
+                    smem_of<D>(N, sweep), ctas};
+  for (int i = 0; i < 7; ++i) f[i] = v[i];
+  return 0;
 }
 
 }  // namespace
 
 MVT_EXPORT int mvt_attention_core_f32_long_max_n() { return kLongMaxN; }
+
+// the longest sequence of the forward's score-block design; above it, the
+// three-sweep design
+MVT_EXPORT int mvt_attention_core_f32_long_block_max_n() { return kBlockMaxN; }
 
 // qkv (B, N, 3C) fp32, 16-byte aligned; out (B, N, C) fp32, the context
 // through the snap policy: site, the (3,) fp32 row (scale, zero point,
@@ -558,14 +902,17 @@ MVT_EXPORT int mvt_attention_core_f32_long_max_n() { return kLongMaxN; }
 // FloatingPoint(exp_bits, man_bits) snap; m and rs (B, H, N) fp32, the
 // rowmax and reciprocal rowsum, or both null; split the scratch (4, B, H,
 // N_pad, D) bf16 of K's and V's halves, 16-byte aligned; D = C / heads of
-// 32 or 64, 1 <= N <= mvt_attention_core_f32_long_max_n().  *launched: the
-// kernels launched (2 on success).
+// 32 or 64, 1 <= N <= mvt_attention_core_f32_long_max_n(); sweep nonzero
+// takes the three-sweep design at any N (above
+// mvt_attention_core_f32_long_block_max_n() it always does).  *launched:
+// the kernels launched (2 on success).
 MVT_EXPORT int mvt_attention_core_f32_long(const void* qkv, void* out,
                                            void* m, void* rs, void* split,
                                            int B, int N, int heads, int D,
                                            float scale, int exp_bits,
                                            int man_bits, const void* site,
-                                           int* launched, void* stream) {
+                                           int sweep, int* launched,
+                                           void* stream) {
   *launched = 0;
   if (site == nullptr && !mvt::float_fmt_ok(exp_bits, man_bits))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -573,20 +920,21 @@ MVT_EXPORT int mvt_attention_core_f32_long(const void* qkv, void* out,
                   site != nullptr ? kSnapSite : kSnapFloat,
                   site != nullptr ? mvt::QSpec(8, 22, 0)
                                   : mvt::QSpec(exp_bits, man_bits, 0),
-                  launched, static_cast<cudaStream_t>(stream));
+                  sweep, launched, static_cast<cudaStream_t>(stream));
 }
 
 // qkv (B, N, 3C) fp32, 16-byte aligned; site the (scale, zero point,
 // has_stats) fp32 row of the output grid; out (B, N, C) int8 (the
 // converted INT8 block's core, mvt_attention_core_f32 above its limit);
-// split and *launched as for mvt_attention_core_f32_long
+// split, sweep and *launched as for mvt_attention_core_f32_long
 MVT_EXPORT int mvt_attention_core_f32_long_i8(const void* qkv,
                                               const void* site, void* out,
                                               void* split, int B, int N,
                                               int heads, int D, float scale,
-                                              int* launched, void* stream) {
+                                              int sweep, int* launched,
+                                              void* stream) {
   return launch_d(qkv, site, out, nullptr, nullptr, split, B, N, heads, D,
-                  scale, kInt8, mvt::QSpec(8, 22, 0), launched,
+                  scale, kInt8, mvt::QSpec(8, 22, 0), sweep, launched,
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -594,26 +942,21 @@ MVT_EXPORT int mvt_attention_core_f32_long_i8(const void* qkv,
 int f32_long_bwd_figures(int N, int D, int* f);
 
 // The launch figures of N tokens at head width D into f[0..22]: for the
-// forward's core kernel, the dq and the dk / dv kernel in turn, seven
-// each: CTAs per (image, head), the CTA's own rows, the walked tile's
-// rows, threads, ring stages, dynamic shared memory bytes and the CTAs an
-// SM that the runtime fits; then the kernels a backward call launches and
-// a forward call launches.  Returns a cudaError_t value.
-MVT_EXPORT int mvt_attention_core_f32_long_plan(int N, int D, int* f) {
+// forward's core kernel (the three-sweep design where sweep is nonzero or
+// N > mvt_attention_core_f32_long_block_max_n()), the dq and the dk / dv
+// kernel in turn, seven each: CTAs per (image, head), the CTA's own rows,
+// the walked tile's rows, threads, ring stages, dynamic shared memory
+// bytes and the CTAs an SM that the runtime fits; then the kernels a
+// backward call launches and a forward call launches.  Returns a
+// cudaError_t value.
+MVT_EXPORT int mvt_attention_core_f32_long_plan(int N, int D, int sweep,
+                                                int* f) {
   if (N <= 0 || N > kLongMaxN || (D != 64 && D != 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = D == 64 ? fl::fwd_smem<64>(N) : fl::fwd_smem<32>(N);
-  const int stages = D == 64 ? fl::fwd_stages<64>(N) : fl::fwd_stages<32>(N);
-  int err = D == 64 ? set_smem<64>() : set_smem<32>();
-  int ctas = 0;
-  if (err == 0)
-    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, D == 64 ? kernel_of<64>() : kernel_of<32>(), fl::kFwdThreads,
-        smem));
+  const bool sw = sweep != 0 || N > kBlockMaxN;
+  const int err = D == 64 ? fwd_figures<64>(N, sw, f)
+                          : fwd_figures<32>(N, sw, f);
   if (err != 0) return err;
-  const int v[7] = {(N + kLongTile - 1) / kLongTile, kLongTile, kLongTile,
-                    fl::kFwdThreads, stages, smem, ctas};
-  for (int i = 0; i < 7; ++i) f[i] = v[i];
   f[22] = 2;
   return f32_long_bwd_figures(N, D, f + 7);
 }

@@ -60,10 +60,16 @@ constexpr size_t kSmemPerSm = 233472;
 constexpr size_t kSmemPerCta = 1024;
 // the long route above kMaxN (attention_core_f32_long_wgmma.cu,
 // attention_core_f32_bwd_long_wgmma.cu): a CTA's own 64 rows, the 64-row
-// tiles it walks, and the longest sequence, whose 64 x 768 fp32 score block
-// is what the forward's shared memory holds
+// tiles it walks, the longest sequence, and the longest that the forward's
+// score-block design takes (its 64 x 768 fp32 score block is what its
+// shared memory holds; above it the forward's three-sweep design, which
+// keeps no score block).  kLongMaxN is the longest sequence that the JAX
+// package's fused gate `fuses_at` (myrtle_vision_tpu/ops/
+// fused_attention_block.py) lets through at a head width of 32 or 64: one
+// head of 32 at 1837 tokens (one head of 64: 1806)
 constexpr int kLongTile = 64;
-constexpr int kLongMaxN = 768;
+constexpr int kLongMaxN = 1837;
+constexpr int kBlockMaxN = 768;
 
 // Rows r0 .. r0 + rows - 1 of an fp32 (., D) operand (`src` its row 0,
 // rows `ld` floats apart; rows at or past n read as zero; each row times

@@ -152,11 +152,12 @@ def lib() -> ctypes.CDLL:
             ("mvt_attention_core_f32_launch", [i, i, p]),
             ("mvt_attention_core_f32_bwd_launch", [i, i, p]),
             ("mvt_attention_core_f32_long",
-             [p] * 5 + [i, i, i, i, f, i, i, p, p, p]),
+             [p] * 5 + [i, i, i, i, f, i, i, p, i, p, p]),
             ("mvt_attention_core_f32_long_i8",
-             [p] * 4 + [i, i, i, i, f, p, p]),
+             [p] * 4 + [i, i, i, i, f, i, p, p]),
             ("mvt_attention_core_f32_long_max_n", []),
-            ("mvt_attention_core_f32_long_plan", [i, i, p]),
+            ("mvt_attention_core_f32_long_block_max_n", []),
+            ("mvt_attention_core_f32_long_plan", [i, i, i, p]),
             ("mvt_attention_core_f32_bwd_long",
              [p] * 9 + [i, i, i, i, f, p, p]),
             ("mvt_attention_core_f32_bwd_long_max_n", []),

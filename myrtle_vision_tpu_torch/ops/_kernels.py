@@ -230,15 +230,19 @@ CORE_LONG_BWD_STAGES = 4
 CORE_LONG_BWD_LAUNCHES = 4
 # the fp32 core above F32_CORE_MAX_N (float formats, INT8 QAT, converted INT8)
 # (csrc/attention_core_f32_long_wgmma.cu,
-# csrc/attention_core_f32_bwd_long_wgmma.cu; kLongTile, kLongMaxN in
-# csrc/attention_f32_tiles.cuh, the rest in csrc/f32_long_wgmma.cuh): a
-# CTA's own rows and the tile it walks, the longest sequence, the
-# forward's threads (a warpgroup and a producer warp) and its ring's most
-# stages, the backward's threads (a warpgroup) and CTAs an SM, the most
-# dynamic shared memory a CTA may ask for, the kernels a forward and a
-# backward call launch (the split pass included)
+# csrc/attention_core_f32_bwd_long_wgmma.cu; kLongTile, kLongMaxN,
+# kBlockMaxN in csrc/attention_f32_tiles.cuh, the rest in
+# csrc/f32_long_wgmma.cuh): a CTA's own rows and the tile it walks, the
+# longest sequence (the longest that the fused gate ``fuses_at`` lets
+# through at a head width of 32 or 64: one head of 32), the longest that
+# the forward's score-block design takes (above it the three-sweep
+# design), the forward's threads (a warpgroup and a producer warp) and its
+# ring's most stages, the backward's threads (a warpgroup) and CTAs an SM,
+# the most dynamic shared memory a CTA may ask for, the kernels a forward
+# and a backward call launch (the split pass included)
 F32_LONG_TILE = 64
-F32_LONG_MAX_N = 768
+F32_LONG_MAX_N = 1837
+F32_LONG_BLOCK_MAX_N = 768
 F32_LONG_FWD_THREADS = 160
 F32_LONG_FWD_MAX_STAGES = 4
 F32_LONG_BWD_THREADS = 128
@@ -1035,30 +1039,34 @@ def core_long_launch(n, d):
 
 
 @functools.lru_cache(maxsize=256)
-def f32_long_plan(n, d, b=1, heads=1):
+def f32_long_plan(n, d, b=1, heads=1, sweep=False):
     """How the fp32 core's long route (``attention_core_snap`` and
     ``attention_core_f32`` above :data:`F32_CORE_MAX_N` or with ``tiled``,
     ``attention_core_f32_bwd`` likewise) covers ``b`` images of ``heads``
     heads of ``n`` tokens (1 to :data:`F32_LONG_MAX_N`) at head width ``d``
     (32 or 64): {"tiles": the 64-row tiles of a (image, head), each a CTA
     of the forward's core, dq and dk / dv kernels, "n_pad": n rounded up to
-    :data:`F32_LONG_TILE`, "fwd", "dq", "dkdv": each kernel's figures,
+    :data:`F32_LONG_TILE`, "sweep": whether the forward takes the
+    three-sweep design, "fwd", "dq", "dkdv": each kernel's figures,
     "launches": {"fwd": 2, "bwd": 4}, "scratch": {"fwd": ..., "bwd": ...}
     the shapes the wrappers allocate}.  A kernel's figures: "grid" (its
     CTAs per (image, head)), "rows" (a CTA's own rows), "tile" (the rows of
     a tile it walks), "threads", "stages" (its ring's tiles), "smem"
     (dynamic shared memory bytes) and "ctas_per_sm".  The forward is a
     split pass, then a core kernel of a warpgroup and a producer warp, one
-    CTA an SM: its 64 x n_pad fp32 score block and a ring of K or V tiles'
-    bf16 hi and lo halves with what the score block leaves of
-    :data:`F32_LONG_SMEM_OPTIN` (4 stages up to n_pad 640, 3 at 704, 2 at
-    768), beside the full and empty barriers of
-    :data:`F32_LONG_FWD_MAX_STAGES` stages.  The backward is a split pass,
-    a dq and a dk / dv kernel of one warpgroup, two CTAs an SM, each
-    holding its own rows' two split operands, a ring of 2 (d 64) or 4 (d
-    32) stages of two more, the barriers and the stages' release counts and
-    a column-sum buffer of 4 warps x 3 sections x d fp32, and the column
-    sums.  Scratch: the
+    CTA an SM.  Up to :data:`F32_LONG_BLOCK_MAX_N` tokens, unless ``sweep``
+    forces the other, the score-block design: its 64 x n_pad fp32 score
+    block and a ring of K or V tiles' bf16 hi and lo halves with what the
+    score block leaves of :data:`F32_LONG_SMEM_OPTIN` (4 stages up to n_pad
+    640, 3 at 704, 2 at 768), beside the full and empty barriers of
+    :data:`F32_LONG_FWD_MAX_STAGES` stages.  Above it the three-sweep
+    design, which walks the K tiles three times and keeps no score block:
+    a ring of :data:`F32_LONG_FWD_MAX_STAGES` stages, the CTA's q rows'
+    halves and the barriers, whatever n.  The backward is a split pass, a dq and a dk / dv kernel
+    of one warpgroup, two CTAs an SM, each holding its own rows' two split
+    operands, a ring of 2 (d 64) or 4 (d 32) stages of two more, the
+    barriers and the stages' release counts and a column-sum buffer of 4
+    warps x 3 sections x d fp32, and the column sums.  Scratch: the
     forward's "split" (K's and V's hi and lo halves, (4, b, heads, n_pad,
     d) bf16); the backward's "split" (q's, k's, v's and du's, (8, b,
     heads, n_pad, d) bf16), "rt" (r rs of every row, (b, heads, n_pad)
@@ -1072,8 +1080,9 @@ def f32_long_plan(n, d, b=1, heads=1):
     tiles = math.ceil(n / F32_LONG_TILE)
     n_pad = tiles * F32_LONG_TILE
     pair = 2 * F32_LONG_TILE * 2 * d  # bytes: a tile's hi and lo halves
-    scores = n_pad * F32_LONG_TILE * 4
     bars = 8 * 2 * F32_LONG_FWD_MAX_STAGES
+    sweep = bool(sweep) or n > F32_LONG_BLOCK_MAX_N
+    scores = 0 if sweep else n_pad * F32_LONG_TILE * 4
     fwd_stages = min(F32_LONG_FWD_MAX_STAGES,
                      (F32_LONG_SMEM_OPTIN - TILE_ALIGN_BYTES - scores - bars)
                      // pair)
@@ -1088,11 +1097,12 @@ def f32_long_plan(n, d, b=1, heads=1):
 
     bwd = kernel(F32_LONG_BWD_THREADS, bwd_stages, bwd_smem,
                  F32_LONG_BWD_CTAS_PER_SM)
+    own = pair if sweep else 0  # the three-sweep design's q rows
     return {
-        "tiles": tiles, "n_pad": n_pad,
+        "tiles": tiles, "n_pad": n_pad, "sweep": sweep,
         "fwd": kernel(F32_LONG_FWD_THREADS, fwd_stages,
-                      TILE_ALIGN_BYTES + fwd_stages * pair + scores + bars,
-                      1),
+                      TILE_ALIGN_BYTES + fwd_stages * pair + own + scores
+                      + bars, 1),
         "dq": bwd, "dkdv": dict(bwd),
         "launches": {"fwd": F32_LONG_FWD_LAUNCHES,
                      "bwd": F32_LONG_BWD_LAUNCHES},
@@ -1104,17 +1114,18 @@ def f32_long_plan(n, d, b=1, heads=1):
     }
 
 
-def f32_long_launch(n, d):
+def f32_long_launch(n, d, sweep=False):
     """The launch figures that the fp32 core's long route reports for ``n``
-    tokens at head width ``d``, in the form of :func:`f32_long_plan`
-    without "tiles", "n_pad" and "scratch" ("ctas_per_sm" the runtime's
-    occupancy of the compiled kernel)."""
+    tokens at head width ``d`` (the forward's three-sweep design where
+    ``sweep`` or above :data:`F32_LONG_BLOCK_MAX_N`), in the form of
+    :func:`f32_long_plan` without "tiles", "n_pad", "sweep" and "scratch"
+    ("ctas_per_sm" the runtime's occupancy of the compiled kernel)."""
     from myrtle_vision_tpu_torch.ops import _build
 
     keys = ("grid", "rows", "tile", "threads", "stages", "smem",
             "ctas_per_sm")
     f = (ctypes.c_int * 23)()
-    _build.check(_lib().mvt_attention_core_f32_long_plan(n, d, f),
+    _build.check(_lib().mvt_attention_core_f32_long_plan(n, d, int(sweep), f),
                  "f32_long_launch")
     figures = {key: dict(zip(keys, f[7 * i:7 * i + 7]))
                for i, key in enumerate(("fwd", "dq", "dkdv"))}
@@ -1499,18 +1510,21 @@ def attention_core_f32_max_n() -> int:
     return _lib().mvt_attention_core_f32_max_n()
 
 
-def attention_core_f32_cuda(qkv, heads, scale, site, tiled=False):
+def attention_core_f32_cuda(qkv, heads, scale, site, tiled=False,
+                            sweep=False):
     """The CUDA version of :func:`attention_core_f32_plain`: fp32 (B, N,
     3C) -> int8 (B, N, C); D = C/heads must be 32 or 64.  Up to
     :func:`attention_core_f32_max_n` one CTA per (image, head)
     (csrc/attention_core_f32_wgmma.cu); above it the long route to
     :data:`F32_LONG_MAX_N` (csrc/attention_core_f32_long_wgmma.cu, its
-    int8 mode), counted as ``attention_core_f32_long``; ``tiled`` takes
-    the long route at any N (for holding the two against each other)."""
+    int8 mode; the three-sweep design above
+    :data:`F32_LONG_BLOCK_MAX_N`), counted as ``attention_core_f32_long``;
+    ``tiled`` takes the long route at any N, ``sweep`` its three-sweep
+    design at any N (for holding each against the other)."""
     _require(qkv, "qkv", torch.float32)
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_f32")
-    tiled = tiled or n > attention_core_f32_max_n()
+    tiled = tiled or sweep or n > attention_core_f32_max_n()
     if tiled:
         _long_route(n, "attention_core_f32")
     _require_site(site, "site")
@@ -1522,8 +1536,8 @@ def attention_core_f32_cuda(qkv, heads, scale, site, tiled=False):
         launched = ctypes.c_int(0)
         _launch("attention_core_f32_long",
                 _lib().mvt_attention_core_f32_long_i8, qkv, *args[:3],
-                split.data_ptr(), *args[3:], ctypes.addressof(launched),
-                launched=launched)
+                split.data_ptr(), *args[3:], int(sweep),
+                ctypes.addressof(launched), launched=launched)
     else:
         _launch("attention_core_f32", _lib().mvt_attention_core_f32, qkv,
                 *args)
@@ -1681,17 +1695,17 @@ def gemm_f32x3_epilogue_cuda(a, w, bias, epilogue, qspec, residual=None,
 
 def _long_route(n, name):
     """Raise where the fp32 core's long route does not take a call: more
-    than :data:`F32_LONG_MAX_N` tokens."""
+    than :data:`F32_LONG_MAX_N` tokens, which the fused gate never sends
+    to it."""
     if n > F32_LONG_MAX_N:
         raise NotImplementedError(
-            f"{name}: sequence {n} exceeds the long route's maximum "
-            f"{F32_LONG_MAX_N}, a 64 x {F32_LONG_MAX_N} fp32 score block "
-            "beside a two-stage ring of split K or V tiles in one CTA's "
-            "shared memory")
+            f"{name}: sequence {n} exceeds {F32_LONG_MAX_N}, the longest "
+            "that the fused gate (fuses_at) lets through at a head width of "
+            "32 or 64; the Block takes its discrete path there")
 
 
 def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
-                             tiled=False):
+                             tiled=False, sweep=False):
     """The CUDA version of :func:`attention_core_snap_plain`, the fp32 snap
     mode of ``attention_core_f32``: fp32 (B, N, 3C) -> fp32 (B, N, C), and
     with ``stats`` the rowmax and reciprocal rowsum (B, H, N) fp32; D =
@@ -1699,13 +1713,15 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
     :class:`Int8Sites` (one site).  Up to :func:`attention_core_f32_max_n`
     one CTA per (image, head) (csrc/attention_core_f32_wgmma.cu); above it
     the long route to :data:`F32_LONG_MAX_N`
-    (csrc/attention_core_f32_long_wgmma.cu, :func:`f32_long_plan`), counted
-    as ``attention_core_f32_long``; ``tiled`` takes the long route at any N
-    (for holding the two against each other)."""
+    (csrc/attention_core_f32_long_wgmma.cu, :func:`f32_long_plan`; the
+    three-sweep design above :data:`F32_LONG_BLOCK_MAX_N`), counted as
+    ``attention_core_f32_long``; ``tiled`` takes the long route at any N,
+    ``sweep`` its three-sweep design at any N (for holding each against
+    the other)."""
     _require(qkv, "qkv", torch.float32)
     b, n, c3 = qkv.shape
     c, d = _head_width(c3, heads, "attention_core_f32")
-    tiled = tiled or n > attention_core_f32_max_n()
+    tiled = tiled or sweep or n > attention_core_f32_max_n()
     if tiled:
         _long_route(n, "attention_core_f32")
     exp_bits, man_bits, _, site = _policy_args(qspec, 1)
@@ -1723,7 +1739,7 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
         _launch("attention_core_f32_long", _lib().mvt_attention_core_f32_long,
                 qkv, qkv.data_ptr(), out.data_ptr(), *stat_ptrs,
                 split.data_ptr(), b, n, heads, d, float(scale), exp_bits,
-                man_bits, site, ctypes.addressof(launched),
+                man_bits, site, int(sweep), ctypes.addressof(launched),
                 launched=launched)
     else:
         _launch("attention_core_f32", _lib().mvt_attention_core_f32_snap, qkv,

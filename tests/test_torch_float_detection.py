@@ -483,16 +483,23 @@ def test_detection_vit_qat_step_matches_jax(case, canvas, monkeypatch):
     size = CANVASES[canvas]
     n = (size // 16) ** 2 + 11
     assert port_vit.fuses_at(n, HEADS, D) == (canvas == "fused_267")
+    check_qat_step(case, DET_KW, size, canvas, monkeypatch)
+
+
+def check_qat_step(case, kw, size, canvas, monkeypatch):
+    """The check of :func:`test_detection_vit_qat_step_matches_jax` for
+    the detection ViT of ``kw`` on two images of ``size`` px."""
     q_format = "FP16_32" if case == "identity snaps" else case
     if case == "identity snaps":
         identity_snaps(monkeypatch)
     qspec = QSPECS[QFormat[q_format]]
     grad_bar = STEP_GRAD_BAR[case]
-    jmodel, params = jax_params(DET_KW, q_format, 160, 21)
-    model = port_model(DET_KW, q_format, params)
+    c = kw["dim"]
+    jmodel, params = jax_params(kw, q_format, 160, 21)
+    model = port_model(kw, q_format, params)
     rng = np.random.RandomState(size)
     img = rng.uniform(-1, 1, (2, size, size, 3)).astype(np.float32)
-    tgt = targets(rng, (2,), DET_KW["num_det_tokens"])
+    tgt = targets(rng, (2,), kw["num_det_tokens"])
 
     out_j, vjp = jax.vjp(
         lambda p: jmodel.apply({"params": p}, jnp.asarray(img)), params)
@@ -535,7 +542,7 @@ def test_detection_vit_qat_step_matches_jax(case, canvas, monkeypatch):
     for name, r in ref.items():
         d = (named[name].grad - r).abs()
         if name.endswith("to_qkv.bias"):
-            d[C:2 * C] = 0  # the key third (see grads_close)
+            d[c:2 * c] = 0  # the key third (see grads_close)
         share = float(d.max()) / max(float(r.abs().max()), 1e-30)
         if share > worst:
             worst, worst_name = share, name

@@ -84,20 +84,22 @@ def test_the_lengths_fuse():
         assert 256 < n and fuses_at(n, HEADS, D)
 
 
-def calibrated_block(n, seed):
-    """fp32 x (B, n, C), a port Block calibrated on x (its discrete
-    calibrating forward) with weights from the seed, its (2, 5, 3) site
-    table, and an upstream gradient."""
+def calibrated_block(n, seed, c=C, heads=HEADS, hid=HID, b=B):
+    """fp32 x (b, n, c), a port Block of ``heads`` heads and an MLP of
+    ``hid`` calibrated on x (its discrete calibrating forward) with
+    weights from the seed, its (2, 5, 3) site table, and an upstream
+    gradient."""
     rng = np.random.RandomState(seed)
     f = np.float32
-    x = rng.randn(B, n, C).astype(f)
-    block = Block(C, HEADS, D, HID, 0.0, 1, q_format=QFormat.PyTorchINT8)
+    x = rng.randn(b, n, c).astype(f)
+    block = Block(c, heads, c // heads, hid, 0.0, 1,
+                  q_format=QFormat.PyTorchINT8)
     sd = {}
     for name, t in block.state_dict().items():
         if is_observer(name):
             sd[name] = t
         elif name.endswith("norm.weight"):
-            sd[name] = torch.from_numpy((1 + 0.1 * rng.randn(C)).astype(f))
+            sd[name] = torch.from_numpy((1 + 0.1 * rng.randn(c)).astype(f))
         elif t.dim() == 2:
             sd[name] = torch.from_numpy(
                 (rng.randn(*t.shape) * t.shape[1] ** -0.5).astype(f))
@@ -106,7 +108,7 @@ def calibrated_block(n, seed):
     block.load_state_dict(sd)
     with torch.no_grad():
         block.forward_int8(torch.from_numpy(x))
-    return x, block, block.site_table(), rng.randn(B, n, C).astype(f)
+    return x, block, block.site_table(), rng.randn(b, n, c).astype(f)
 
 
 def qat_attention_args(x, block):
@@ -134,17 +136,24 @@ def test_int8_qat_attention_above_256_matches_jax(n):
     mode) on a calibrated site table.  dWp is held after taking out what
     the context elements that flipped a step of site 2 (at most 0.1% of
     them, the forward bar) move it by."""
-    x, block, table, g = calibrated_block(n, seed=n)
+    check_int8_qat_attention(n, n)
+
+
+def check_int8_qat_attention(n, seed, c=C, heads=HEADS, hid=HID, b=B):
+    """The check of :func:`test_int8_qat_attention_above_256_matches_jax`
+    at n tokens of ``b`` images, ``heads`` heads of c / heads."""
+    x, block, table, g = calibrated_block(n, seed, c, heads, hid, b)
+    scale = (c // heads) ** -0.5
     args = qat_attention_args(x, block)
     qs = table[0].numpy()
     out_j, vjp = jax.vjp(
-        lambda *a: jfa.fused_attention_block_i8(*a, jnp.asarray(qs), HEADS,
-                                                SCALE),
+        lambda *a: jfa.fused_attention_block_i8(*a, jnp.asarray(qs), heads,
+                                                scale),
         *(jnp.asarray(a) for a in args))
     refs = vjp(jnp.asarray(g))
     leaves = [torch.from_numpy(a).requires_grad_() for a in args]
-    out = fused_attention_block_i8(*leaves, torch.from_numpy(qs), HEADS,
-                                   SCALE)
+    out = fused_attention_block_i8(*leaves, torch.from_numpy(qs), heads,
+                                   scale)
     grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
     d = np.abs(out.detach().numpy() - np.asarray(out_j))
     step = qs[4, 0] if qs[4, 2] else 0.0
@@ -160,11 +169,11 @@ def test_int8_qat_attention_above_256_matches_jax(n):
     # by that step times a row of the upstream gradient, and nothing else
     # (dx and dWqkv do not read the snapped context)
     ctx_j = np.asarray(jfa._fwd_rule_i8(
-        *(jnp.asarray(a) for a in args), jnp.asarray(qs), HEADS, SCALE,
-        None)[1][6]).reshape(-1, C)
+        *(jnp.asarray(a) for a in args), jnp.asarray(qs), heads, scale,
+        None)[1][6]).reshape(-1, c)
     ctx = pfa._forward_q(K.PLAIN, *(torch.from_numpy(a) for a in args),
-                         HEADS, SCALE, torch.from_numpy(qs),
-                         record=True)[1][0].numpy().reshape(-1, C)
+                         heads, scale, torch.from_numpy(qs),
+                         record=True)[1][0].numpy().reshape(-1, c)
     dctx = ctx - ctx_j
     flips = np.abs(dctx) > FWD_ATOL
     print(f"N={n}: {int(flips.sum())} of {dctx.size} context elements a "
@@ -174,22 +183,22 @@ def test_int8_qat_attention_above_256_matches_jax(n):
     for gr, r, name in zip(grads, refs, NAMES):
         gr, r = gr.numpy(), np.asarray(r)
         if name == "wp":
-            gr = gr - dctx.T @ g.reshape(-1, C)
+            gr = gr - dctx.T @ g.reshape(-1, c)
         diff = np.abs(gr - r)
         if name == "bqkv":
             # the key third: softmax ignores a per-row shift, so its
             # gradient is zero up to roundoff on both sides (ROADMAP C6)
-            diff[C:2 * C], r = 0, np.concatenate([r[:C], r[2 * C:]])
+            diff[c:2 * c], r = 0, np.concatenate([r[:c], r[2 * c:]])
         share = diff.max() / np.abs(r).max()
         print(f"N={n} d{name}: {share:.3g} of the leaf's scale")
         assert share <= GRAD_BAR, name
 
 
-def converted_halves(n, seed):
+def converted_halves(n, seed, c=C, heads=HEADS, hid=HID, b=B):
     """A calibrated Block's converted weights (int8, per-tensor scales)
     and site table, and the block input x: the arguments of both
     converted halves in the port's and the JAX layout."""
-    x, block, table, _ = calibrated_block(n, seed)
+    x, block, table, _ = calibrated_block(n, seed, c, heads, hid, b)
     sd = convert_params(block.state_dict(), QFormat.PyTorchINT8)
     a, f = "0.fn.", "1.fn."
 
@@ -227,14 +236,21 @@ def test_converted_halves_above_256_match_jax(n, half):
     """``int8_attention_block`` / ``int8_mlp_block`` (the CPU's plain
     chain, the card's kernels with the long core's int8 mode) against the
     JAX K9 / K10 on the same int8 weights and sites."""
-    attn, mlp = converted_halves(n, seed=n + 1)
+    check_converted_half(n, n + 1, half)
+
+
+def check_converted_half(n, seed, half, c=C, heads=HEADS, hid=HID, b=B):
+    """The check of :func:`test_converted_halves_above_256_match_jax` at n
+    tokens of ``b`` images, ``heads`` heads of c / heads."""
+    attn, mlp = converted_halves(n, seed, c, heads, hid, b)
+    scale = (c // heads) ** -0.5
     port, jargs, jsites, colsums = attn if half == "attention" else mlp
     with torch.no_grad():
         if half == "attention":
             ref = jax_int8.int8_attention_block(*jargs, sites=jsites,
-                                                heads=HEADS, scale=SCALE)
-            got = int8_attention_block(*port, HEADS, SCALE, colsums=colsums)
-            plain = int8_attention_block_plain(*port, HEADS, SCALE)
+                                                heads=heads, scale=scale)
+            got = int8_attention_block(*port, heads, scale, colsums=colsums)
+            plain = int8_attention_block_plain(*port, heads, scale)
         else:
             ref = jax_int8.int8_mlp_block(*jargs, sites=jsites)
             got = int8_mlp_block(*port, colsums=colsums)

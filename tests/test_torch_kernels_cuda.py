@@ -514,10 +514,11 @@ def test_int8_chains_match_plain(dev, c, hid, b, n):
 
 def test_int8_kernels_refuse_what_they_do_not_take(dev):
     # above the one-CTA kernel's 256 tokens the converted core takes the
-    # long route (its int8 mode), which refuses past its own top
+    # long route (its int8 mode), which refuses past the longest sequence
+    # the fused gate lets through
     n = K.F32_LONG_MAX_N + 1
     site = torch.tensor([0.1, 128.0, 1.0], device=dev)
-    with pytest.raises(NotImplementedError, match="long route's maximum"):
+    with pytest.raises(NotImplementedError, match="fused gate"):
         K.attention_core_f32_cuda(torch.zeros(1, n, 3 * 64, device=dev), 1,
                                   0.125, site)
     a = torch.zeros(4, 24, device=dev, dtype=torch.int8)
@@ -1001,7 +1002,7 @@ def test_float_chains_match_plain(dev, c, hid, b, n, qspec):
 def test_float_kernels_refuse_what_they_do_not_take(dev):
     qspec = (5, 10, False)
     n = K.F32_LONG_MAX_N + 1
-    with pytest.raises(NotImplementedError, match="long route's maximum"):
+    with pytest.raises(NotImplementedError, match="fused gate"):
         K.attention_core_snap_cuda(torch.zeros(1, n, 3 * 64, device=dev), 1,
                                    0.125, qspec)
     a = torch.zeros(4, 6, device=dev)
@@ -1021,7 +1022,7 @@ def test_float_kernels_refuse_what_they_do_not_take(dev):
                                    qspec)
     with pytest.raises(ValueError, match="transposed `a`"):
         K.gemm_f32x3_epilogue_cuda(a.t(), a, bias[:6], "bias_snap", qspec)
-    with pytest.raises(NotImplementedError, match="long route's maximum"):
+    with pytest.raises(NotImplementedError, match="fused gate"):
         K.attention_core_f32_bwd_cuda(
             torch.zeros(1, n, 3 * 64, device=dev), torch.zeros(
                 1, n, 64, device=dev), *[torch.zeros(1, 1, n, device=dev)] * 2,
@@ -2445,14 +2446,21 @@ def test_wgmma_f32_core_recip_probe(dev):
 # the fp32 core's long route (csrc/attention_core_f32_long_wgmma.cu,
 # csrc/attention_core_f32_bwd_long_wgmma.cu): YOLOS-S's fused canvases
 # (257 just past the one-CTA kernels, 357 at 256 px, 677 at 384 px, 701 at
-# the fused gate), a ragged 300 and the route's top, 768
+# the fused gate), a ragged 300 and the score-block design's top, 768, at
+# 12 heads of 32 and 6 of 64; past it (the forward's three-sweep design)
+# yolos_tiny.json's fused canvases at 3 heads of 64 (769, 1001 at 480 px,
+# 1017 at the fused gate), 3 heads of 32 at 1001, and the gate's longest
+# at one head of 64 (1806) and of 32 (1837, the route's top)
 F32_LONG_NS = [257, 300, 357, 677, 701, 768]
+F32_SWEEP_CASES = [(769, 64, 3), (1001, 64, 3), (1017, 64, 3),
+                   (1001, 32, 3), (1806, 64, 1), (1837, 32, 1)]
+F32_LONG_CASES = [(n, d, heads) for n in F32_LONG_NS
+                  for d, heads in ((32, 12), (64, 6))] + F32_SWEEP_CASES
 
 
 @pytest.mark.parametrize("b", [2, 8])
 @pytest.mark.parametrize("stats", [False, True])
-@pytest.mark.parametrize("d,heads", [(32, 12), (64, 6)])
-@pytest.mark.parametrize("n", F32_LONG_NS)
+@pytest.mark.parametrize("n,d,heads", F32_LONG_CASES)
 def test_f32_long_core_forward(dev, n, d, heads, stats, b):
     """The long forward in each float format against its plain version:
     the snapped context under the float bar, the rowmax and reciprocal
@@ -2482,8 +2490,7 @@ def test_f32_long_core_forward(dev, n, d, heads, stats, b):
 
 
 @pytest.mark.parametrize("b", [2, 8])
-@pytest.mark.parametrize("d,heads", [(32, 12), (64, 6)])
-@pytest.mark.parametrize("n", F32_LONG_NS)
+@pytest.mark.parametrize("n,d,heads", F32_LONG_CASES)
 def test_f32_long_core_backward(dev, n, d, heads, b):
     """The long backward against its plain version from the plain
     forward's statistics: dqkv under the chain bar, the per-image column
@@ -2535,10 +2542,14 @@ def test_f32_long_launches_match_the_plan(dev):
     to the plan's where shared memory alone sets it (the forward's score
     block above 256 tokens leaves room for one, the backward's kernels'
     for two), else at least the plan's."""
-    for n in F32_LONG_I8_NS + [1, 64, 197, 640, 641, 704, 705]:
+    cases = [(n, False) for n in F32_LONG_I8_NS + [1, 64, 197, 640, 641,
+                                                   704, 705]]
+    cases += [(n, False) for n, _, _ in F32_SWEEP_CASES]
+    cases += [(n, True) for n in F32_SWEEP_FORCED_NS]
+    for n, sweep in cases:
         for d in (32, 64):
-            plan = K.f32_long_plan(n, d)
-            got = K.f32_long_launch(n, d)
+            plan = K.f32_long_plan(n, d, sweep=sweep)
+            got = K.f32_long_launch(n, d, sweep=sweep)
             assert got["launches"] == plan["launches"], (n, d)
             for key in ("fwd", "dq", "dkdv"):
                 want, have = dict(plan[key]), dict(got[key])
@@ -2580,23 +2591,29 @@ def test_f32_long_core_same_bits_twice(dev, b, n, d, heads):
 
 
 def test_f32_long_core_refuses_what_it_does_not_take(dev):
-    """Past the route's top, in every mode (the float and INT8 QAT snaps,
-    the converted model's int8 grid) and in the backward."""
+    """Past the route's top, the longest sequence that the fused gate lets
+    through at a head width of 32 or 64 (1837, one head of 32), in every
+    mode (the float and INT8 QAT snaps, the converted model's int8 grid),
+    forced into the three-sweep design, and in the backward; the C entry
+    points report that top and the score-block design's, 768."""
     from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
 
     lib = K._lib()
     assert lib.mvt_attention_core_f32_long_max_n() == K.F32_LONG_MAX_N
     assert lib.mvt_attention_core_f32_bwd_long_max_n() == K.F32_LONG_MAX_N
+    assert lib.mvt_attention_core_f32_long_block_max_n() == \
+        K.F32_LONG_BLOCK_MAX_N
     n = K.F32_LONG_MAX_N + 1
     qkv = torch.zeros(1, n, 3 * 64, device=dev)
     site = torch.tensor([0.1, 128.0, 1.0], device=dev)
-    with pytest.raises(NotImplementedError, match="long route's maximum"):
+    with pytest.raises(NotImplementedError, match="fused gate"):
         K.attention_core_snap_cuda(qkv, 1, 0.125, (5, 10, False))
-    with pytest.raises(NotImplementedError, match="long route's maximum"):
-        K.attention_core_snap_cuda(qkv, 1, 0.125, Int8Sites(site))
-    with pytest.raises(NotImplementedError, match="long route's maximum"):
+    with pytest.raises(NotImplementedError, match="fused gate"):
+        K.attention_core_snap_cuda(qkv, 1, 0.125, Int8Sites(site),
+                                   sweep=True)
+    with pytest.raises(NotImplementedError, match="fused gate"):
         K.attention_core_f32_cuda(qkv, 1, 0.125, site)
-    with pytest.raises(NotImplementedError, match="long route's maximum"):
+    with pytest.raises(NotImplementedError, match="fused gate"):
         K.attention_core_f32_bwd_cuda(
             qkv, torch.zeros(1, n, 64, device=dev),
             *[torch.zeros(1, 1, n, device=dev)] * 2, 1, 0.125)
@@ -2607,13 +2624,14 @@ def test_f32_long_core_refuses_what_it_does_not_take(dev):
 # int8 above 256 tokens), at the long lengths and ViT-S/16's 577 tokens at
 # 384 px; a site with statistics and one without
 F32_LONG_I8_NS = [257, 300, 357, 577, 677, 701, 768]
+F32_LONG_I8_CASES = [(n, d, heads) for n in F32_LONG_I8_NS
+                     for d, heads in ((32, 12), (64, 6))] + F32_SWEEP_CASES
 F32_LONG_I8_MODES = ["int8", "sites", "sites+stats", "int8 fresh",
                      "sites fresh"]
 
 
 @pytest.mark.parametrize("b", [2, 8])
-@pytest.mark.parametrize("d,heads", [(32, 12), (64, 6)])
-@pytest.mark.parametrize("n", F32_LONG_I8_NS)
+@pytest.mark.parametrize("n,d,heads", F32_LONG_I8_CASES)
 def test_f32_long_core_int8_modes(dev, n, d, heads, b):
     """Each int8 mode of the long forward against its plain version: the
     int8 grid under the INT8 bar, the site's snap under the site bar (no
@@ -2678,6 +2696,58 @@ def test_f32_long_core_int8_forced_agrees_with_one_cta(dev, n, d):
     close_sites(long[0], short[0], step_of(site))
     close(long[1], short[1])
     close(long[2], short[2])
+
+
+# the three-sweep design forced where the score-block design runs
+F32_SWEEP_FORCED_NS = [257, 300, 677, 701, 768]
+
+
+@pytest.mark.parametrize("d,heads", [(32, 12), (64, 6)])
+@pytest.mark.parametrize("n", F32_SWEEP_FORCED_NS)
+def test_f32_sweep_core_forced_against_the_block_design(dev, n, d, heads):
+    """Forced at N <= 768, the three-sweep design and the score-block
+    design, each against the plain version in every mode (a float format's
+    snap with the statistics, INT8 QAT's site snap with the statistics, the
+    int8 grid) at its bar; the three-sweep design's scores are the plain
+    version's in-order sums, so its row max is the plain version's bit for
+    bit; the share of elements where the two designs differ is printed.
+    Two launches a call either way."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    scale = d ** -0.5
+    qkv = f32_core_qkv(2, n, heads, d, 3 * n + d, dev)
+    site = site_of(K.attention_context_f32(qkv, heads, scale))
+    qspec = F32_CORE_QSPECS["FP16_32"]
+    ref = K.attention_core_snap_plain(qkv, heads, scale, qspec, stats=True)
+    ref_site = K.attention_core_snap_plain(qkv, heads, scale, Int8Sites(site),
+                                           stats=True)
+    ref_grid = K.attention_core_f32_plain(qkv, heads, scale, site)
+    differ = []
+    for sweep in (False, True):
+        before = K.LAUNCHES["attention_core_f32_long"]
+        got = K.attention_core_snap_cuda(qkv, heads, scale, qspec, stats=True,
+                                         sweep=sweep)
+        got_site = K.attention_core_snap_cuda(qkv, heads, scale,
+                                              Int8Sites(site), stats=True,
+                                              sweep=sweep)
+        got_grid = K.attention_core_f32_cuda(qkv, heads, scale, site,
+                                             sweep=sweep)
+        assert K.LAUNCHES["attention_core_f32_long"] == \
+            before + 3 * K.F32_LONG_FWD_LAUNCHES
+        close_float(got[0], ref[0], qspec)
+        close_sites(got_site[0], ref_site[0], step_of(site))
+        close_on_grid(got_grid, ref_grid, 1)
+        for x, y in ((got, ref), (got_site, ref_site)):
+            close(x[1], y[1])
+            close(x[2], y[2])
+        differ.append((got, got_site, got_grid))
+    assert torch.equal(differ[1][0][1], ref[1])
+    shares = [float((x != y).double().mean())
+              for x, y in ((differ[0][0][0], differ[1][0][0]),
+                           (differ[0][1][0], differ[1][1][0]),
+                           (differ[0][2], differ[1][2]))]
+    print(f"N={n} D={d}: the designs differ in {shares} of the elements "
+          "(FP16_32 context, INT8 site context, int8 grid)")
 
 
 # ------------------------------------------------ distillation (DeiT)
