@@ -38,9 +38,9 @@ Phases, each ending in one line of output:
               = 257, 357, 677, 701, head widths 64 and 32, B = 2 and 8, in
               each format with and without the statistics, and forced at
               B=64, N=197 against the one-CTA kernels; past 768 tokens
-              (the forward's three-sweep design) at N = 769, 1001, 1017 (3
+              (the forward's cluster design) at N = 769, 1001, 1017 (3
               heads of 64), 1806 (one head of 64) and 1837 (one of 32), B =
-              2 and 8, and the three-sweep design forced at N = 257-768
+              2 and 8, and the cluster design forced at N = 257-768
               against the score-block design
   3a. kernels-f32  float32 compute (compute_dtype float32): the fp32 flash
               forward (K5 / K6 on fp32 operands, 3xTF32 on wgmma, csrc/
@@ -52,7 +52,7 @@ Phases, each ending in one line of output:
               fp32 K1-K4 route (the qspec chains with a
               site table that snaps nothing) forward and backward against
               the plain chains' true fp32 at B=64, N=197, B=4, N=677 and
-              YOLOS-Ti's B=2, N=1001 (dim 192, 3 heads: the three-sweep
+              YOLOS-Ti's B=2, N=1001 (dim 192, 3 heads: the cluster
               long core)
   3b. probes the probes of the port's kernels, K12-K14
               (myrtle_vision_tpu_torch/perf/): every K12 attention-core
@@ -108,7 +108,7 @@ Phases, each ending in one line of output:
               statistics, the converted model's int8 grid) against their
               plain versions at B=8 N=577 (ViT-S/16 at 384 px), B=2 N=677
               and 701 (YOLOS-S at 384 px, the fused gate), and past 768
-              tokens at the three-sweep cases of phase 3, with each flip
+              tokens at the cluster cases of phase 3, with each flip
               share, and forced at B=64 N=197 against the one-CTA kernel;
               the INT8 QAT attention op forward and backward (K1 / K2
               int8) and the converted halves (K9 / K10) at B=8 N=577
@@ -473,13 +473,13 @@ QAT_KERNELS = ("attention_core_f32_bwd", "layernorm_snap_rows_bwd")
 # the float formats' fp32 core above 256 tokens, forward and backward, run
 # by YOLOS-S detection in a float format (phase detect-float)
 LONG_FLOAT_KERNELS = ("attention_core_f32_long", "attention_core_f32_bwd_long")
-# the same two past 768 tokens (the forward's three-sweep design and the
+# the same two past 768 tokens (the forward's cluster design and the
 # backward past the score block's old top), each a kernels-line entry of
 # its own with the launches of phase detect-tiny's train CLI and the
 # (2, 3, 1001, 64) timing: (entry, counter, timed case)
 SWEEP_KERNELS = (
-    ("attention_core_f32_long[three-sweep]", "attention_core_f32_long",
-     "attention_core_f32_long[three-sweep, B=2 H=3 N=1001 D=64]"),
+    ("attention_core_f32_long[cluster]", "attention_core_f32_long",
+     "attention_core_f32_long[cluster, B=2 H=3 N=1001 D=64]"),
     ("attention_core_f32_bwd_long[past 768]", "attention_core_f32_bwd_long",
      "attention_core_f32_bwd_long[past 768, B=2 H=3 N=1001 D=64]"))
 # the long fp32 core's int8 modes (PyTorchINT8 above 256 tokens, phases
@@ -604,7 +604,7 @@ LONG_FLOAT_N = (257, 357, 677, 701)
 # heads): yolos_tiny.json's fused canvases at 3 heads of 64 (769 just past
 # it, 1001 at 480 px, 1017 at the fused gate) and the gate's longest at
 # one head of 64 (1806) and of 32 (1837, the route's top); and where the
-# three-sweep design is forced against the score-block design
+# cluster design is forced against the score-block design
 SWEEP_CASES = ((769, 64, 3), (1001, 64, 3), (1017, 64, 3), (1806, 64, 1),
                (1837, 32, 1))
 SWEEP_FORCED_N = (257, 677, 701, 768)
@@ -1701,8 +1701,9 @@ def long_float_case(n, d, heads, b, device, errors):
     rng = np.random.RandomState(n * 1000 + d * 10 + b)
     qkv = seeded(rng, (b, n, 3 * c), 1.0, device)
     d_o = seeded(rng, (b, n, c), 1.0, device)
-    design = "three-sweep" if K.f32_long_plan(n, d)["sweep"] else \
-        "score-block"
+    plan = K.f32_long_plan(n, d, b, heads)
+    design = (f"cluster design, {plan['fwd']['cluster']} CTAs a cluster"
+              if plan["sweep"] else "score-block")
     tag = f"B={b} N={n} D={d} H={heads}"
     fwd = (0.0, 0.0, 0.0)
     for qname, qspec in FLOAT_QSPECS.items():
@@ -1748,12 +1749,12 @@ def long_float_case(n, d, heads, b, device, errors):
 
 
 def sweep_vs_block(device):
-    """The forward's three-sweep design forced at :data:`SWEEP_FORCED_N`
+    """The forward's cluster design forced at :data:`SWEEP_FORCED_N`
     (B=2, 6 heads of 64 and 12 of 32), where the score-block design runs,
     in every mode (a float format's snap with the statistics, INT8 QAT's
     site snap with the statistics, the converted model's int8 grid): both
     designs against the plain version at their bars, the share of
-    elements where the two designs differ, and whether the three-sweep
+    elements where the two designs differ, and whether the cluster
     design's row max (its scores the plain version's in-order sums) is the
     plain version's bit for bit."""
     from myrtle_vision_tpu_torch.ops import _kernels as K
@@ -1788,7 +1789,7 @@ def sweep_vs_block(device):
                                            K.F32_LONG_FWD_LAUNCHES, run))
                     ref = refs[mode]
                     label = (f"attention_core_f32_long "
-                             f"{'three-sweep' if sweep else 'score-block'} "
+                             f"{'cluster' if sweep else 'score-block'} "
                              f"{mode} N={n} D={d}")
                     if mode == "FP16_32+stats":
                         compare_float(f"{label} context", got[0], ref[0],
@@ -1809,11 +1810,11 @@ def sweep_vs_block(device):
             lines.append(f"N={n} D={d}: {', '.join(f'{x:.5f}' for x in differ)}"
                          f", row max {'=' if same_max else '!='} plain")
             del qkv
-    print(f"kernels: attention_core_f32_long's three-sweep design forced at "
+    print(f"kernels: attention_core_f32_long's cluster design forced at "
           f"B=2 where the score-block design runs, both within their bars of "
           f"the plain version in every mode; the share of elements where "
           f"the designs differ (FP16_32 context, INT8 site context, int8 "
-          f"grid) and the three-sweep row max against the plain version's: "
+          f"grid) and the cluster row max against the plain version's: "
           f"{'; '.join(lines)}")
 
 
@@ -1821,9 +1822,9 @@ def phase_kernels_long_float(device):
     """The float formats' long core against its plain version
     (:func:`long_float_case`) at :data:`LONG_FLOAT_N` x head widths 64 and
     32 (6 and 12 heads) x batches 2 and 8, and past the score-block design
-    at :data:`SWEEP_CASES` x batches 2 and 8 (the forward's three-sweep
+    at :data:`SWEEP_CASES` x batches 2 and 8 (the forward's cluster
     design); each call's launches counted (2 and 4, none of the one-CTA
-    kernels').  Then the three-sweep design forced where the score-block
+    kernels').  Then the cluster design forced where the score-block
     design runs (:func:`sweep_vs_block`), and, forced at
     197 tokens (``tiled``; ViT-S/16, B=64), the long route against the
     one-CTA kernels.  Inputs: fp32 qkv rows and d_o drawn at std 1.
@@ -2923,8 +2924,9 @@ def long_int8_case(b, n, d, heads, device, errors):
     rng = np.random.RandomState(n * 100 + b)
     qkv = seeded(rng, (b, n, 3 * heads * d), 1.0, device)
     site = long_int8_site(qkv, heads, sc)
-    design = "three-sweep" if K.f32_long_plan(n, d)["sweep"] else \
-        "score-block"
+    plan = K.f32_long_plan(n, d, b, heads)
+    design = (f"cluster design, {plan['fwd']['cluster']} CTAs a cluster"
+              if plan["sweep"] else "score-block")
     tag = f"B={b} N={n} D={d} H={heads}"
     worst = (0.0, 0.0, 0.0)
     for stats in (False, True):
@@ -4187,7 +4189,7 @@ def make_dataset_480():
 
 def phase_detect_tiny(device, data_config, data_cfg):
     """The fused block's long fp32 core past its score block (the forward's
-    three-sweep design) on the main paths, at yolos_tiny.json's and
+    cluster design) on the main paths, at yolos_tiny.json's and
     vit_tiny.json's widths.  YOLOS-Ti in FP16_32 (random weights from a
     seed): the first QAT step at 480 and 464 px (1001 and 942 tokens)
     kernel path against plain path, launches counted; the same at 480 px
@@ -4207,9 +4209,9 @@ def phase_detect_tiny(device, data_config, data_cfg):
     t0 = time.perf_counter()
     n_classes = data_config["number_of_classes"]
     for q_format, dtype, canvases in (
-            ("FP16_32", None, ((480, "fused, the three-sweep long core"),
-                               (464, "fused, the three-sweep long core"))),
-            ("FP32", "float32", ((480, "fused fp32 route, the three-sweep "
+            ("FP16_32", None, ((480, "fused, the cluster long core"),
+                               (464, "fused, the cluster long core"))),
+            ("FP32", "float32", ((480, "fused fp32 route, the cluster "
                                        "long core without a snap"),))):
         config = yolos_tiny_config(data_cfg, q_format, dtype)
         tc = config["train_config"]
@@ -5890,7 +5892,7 @@ def time_float_detection(totals, device, power):
     time_sweep(totals, device, power)
     groups = {"long f32 core forward": ("f32_long_kv_split_kernel",
                                         "attention_core_f32_long_kernel",
-                                        "attention_core_f32_sweep_kernel"),
+                                        "attention_core_f32_cluster_kernel"),
               "long f32 core backward": ("f32_long_bwd_split_kernel",
                                          "f32_long_dq_kernel",
                                          "f32_long_dkdv_kernel",
@@ -5932,14 +5934,18 @@ SWEEP_TIMED = ((2, 3, 1001, 64), (8, 3, 1001, 64), (2, 1, 1837, 32))
 
 
 def time_sweep(totals, device, power):
-    """The long fp32 core past its score block (the forward's three-sweep
+    """The long fp32 core past its score block (the forward's cluster
     design) per call at :data:`SWEEP_TIMED`, FP16_32 with the statistics
     and its backward, beside the plain version, the bound (the algorithm's
     products once: S and P V, and the backward's five, at three bf16
-    passes and 989 TFLOP/s, or the bytes each reads once and writes once;
-    the forward's two extra S sweeps are not in it) and fp32
-    ``F.scaled_dot_product_attention`` forward and backward; each goes
-    into the kernels line's cases (outside the ViT-S/16 block: count 0)."""
+    passes and 989 TFLOP/s, or the bytes each reads once and writes once)
+    and fp32 ``F.scaled_dot_product_attention`` forward and backward; each
+    goes into the kernels line's cases (outside the ViT-S/16 block: count
+    0).  Beside the forward, labelled, a second bound: S once on the FMA
+    units, the design's own scores (3 D fp32 FMAs a score, every query
+    against the keys padded to the tile, at 67 TFLOP/s), with the
+    kernel's and its device time's share of each bound and the cluster the
+    plan takes."""
     import torch.nn.functional as F
 
     from myrtle_vision_tpu_torch.ops import _kernels as K
@@ -5968,12 +5974,25 @@ def time_sweep(totals, device, power):
 
         cf = cost(nbytes(qkv) * 4 // 3 + nbytes(m, rs), 3 * core, "bf16",
                   lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
-        time_case(totals, f"attention_core_f32_long[three-sweep, {tag}]",
-                  lambda: K.attention_core_snap_cuda(qkv, h, sc, qspec,
-                                                     stats=True),
-                  lambda: K.attention_core_snap_plain(qkv, h, sc, qspec,
-                                                      stats=True),
-                  0, cf, power, tag)
+        b_ms, _, _, k_ms, dev_ms = time_case(
+            totals, f"attention_core_f32_long[cluster, {tag}]",
+            lambda: K.attention_core_snap_cuda(qkv, h, sc, qspec, stats=True),
+            lambda: K.attention_core_snap_plain(qkv, h, sc, qspec,
+                                                stats=True),
+            0, cf, power, tag)
+        plan = K.f32_long_plan(n, d, b, h)
+        fma = 3 * d * plan["n_pad"] * n * b * h  # S once, the keys padded
+        f_ms = bound(cost(0, 2 * fma, "fp32"))[0]
+        dev = ("device not measured" if dev_ms is None else
+               f"device {dev_ms:.4f} ms, {b_ms / dev_ms:.4f} / "
+               f"{f_ms / dev_ms:.4f} of them")
+        print(f"timing: attention_core_f32_long[cluster, {tag}] bound "
+              f"{b_ms:.4f} ms (S and P V once, three bf16 passes at 989 "
+              f"TFLOP/s); S-once FMA bound {f_ms:.4f} ms ({fma} fp32 FMAs "
+              f"at 67 TFLOP/s); kernel {k_ms:.4f} ms, {b_ms / k_ms:.4f} / "
+              f"{f_ms / k_ms:.4f} of them; {dev}; a cluster of "
+              f"{plan['fwd']['cluster']} CTAs, {plan['fwd']['stages']} key "
+              f"tiles each, {plan['fwd']['grid'] * b * h} CTAs [{power}]")
         cb = cost(2 * nbytes(qkv) + nbytes(d_o, m, rs, dbq),
                   3 * core * 5 // 2, "bf16", sdpa_bwd)
         time_case(totals, f"attention_core_f32_bwd_long[past 768, {tag}]",

@@ -3,7 +3,7 @@
 // float32 compute, whose site table snaps nothing), ending on the
 // to_out.act_in snap or the quant_out site, and of the converted INT8
 // attention block, ending on the int8 grid of its quant_out site, from 257
-// to 1837 tokens: the score-block design up to 768, the three-sweep design
+// to 1837 tokens: the score-block design up to 768, the cluster design
 // above it.
 //
 // The per-head loop of the TPU kernels `_attn_heads_fwd` with qspec set,
@@ -60,8 +60,7 @@
 // formats' bar allows; per-tile chains added in fp32 part about as often
 // as the plain version itself parts from the same operations summed in
 // fp64.  The recomputed S of the backward keeps the short core's chain
-// (attention_f32_tiles.cuh).  Three sweeps that recompute the scores would
-// keep no score block, but cost two more S products.
+// (attention_f32_tiles.cuh).
 //
 // The score-block design (f32_long_wgmma.cuh), two launches a call, up to
 // kBlockMaxN = 768 tokens.  A split pass
@@ -103,15 +102,26 @@
 // no spills; 230,464 bytes of dynamic shared memory at D = 64 and N_pad
 // 640-768 (4, 3, 2 stages).
 //
-// The three-sweep design (attention_core_f32_sweep_kernel below), the same
-// two launches, above 768 tokens: the same CTA without the score block,
-// which walks the K tiles three times (the row max; the exponentials and
-// rowsum; the exponentials again, the divide and P V), so its shared
-// memory is a ring of four stages and the CTA's q rows whatever N.  Its
-// scores are not a tensor-core chain but the plain version's in-order
-// fp32 sums on the FMA units (see there: at one head past 1000 tokens the
-// chain's truncation alone put the snapped context over the float
-// formats' bar), computed three times; P V stays on wgmma.
+// The cluster design (attention_core_f32_cluster_kernel below), the same
+// two launches, above 768 tokens: a cluster of up to 8 CTAs shares 64
+// queries and splits the keys, each CTA holding its keys' slice of the
+// score block, so every score is computed once.  Its scores are not a
+// tensor-core chain but the plain version's in-order fp32 sums on the FMA
+// units (see there); P V stays on wgmma.  What bounds it: at (2, 3, 1001,
+// 64) S once is 1.18e9 fp32 FMAs (keys padded to the tile; 0.035 ms at
+// 67 TFLOP/s), the bf16 tensor-core work of S and P V 0.0047 ms.  On one
+// H100 80GB HBM3 at 700 W the core takes about 0.14 ms there (0.48 for a
+// design that computed S three times): 384 CTAs of 4-CTA clusters, 120 at
+// once (the runtime fits 30 such clusters), so 4 waves of about 34 us.  A
+// CTA's phases run in series (cycles, tools/perf/cluster_stamps.py):
+// S 38K at about 64% of an SM's FMA rate, the K tiles' conversion 4.6K,
+// the q rows 2.7K, the exponentials and rowsum 5.3K, P V 5.1K, the three
+// cluster barriers with their exchanges 1.6-4.3K each, the epilogue 1.4K.
+// The S loop alone runs at 68% of the FMA rate, 78% with half its shared
+// memory loads, 55% with a 4 x 4 register tile and 58% with q in
+// registers and K broadcast (tools/perf/s_loop_bench.py).
+// ptxas -v: 254 registers a thread, no spills; 231,488 bytes of dynamic
+// shared memory at D = 64 and 4 key tiles a CTA.
 #include <cstdint>
 
 #include "f32_long_wgmma.cuh"
@@ -145,6 +155,7 @@ struct Args {
   float* m_out;
   float* rs_out;
   int n, heads, stages, mode;
+  int cluster;  // the cluster design's CTAs a cluster (1 for the score block)
   float scale;
 };
 
@@ -165,6 +176,33 @@ __device__ __forceinline__ float2 bf16x2_at(const unsigned char* tile,
                      __uint_as_float(w & 0xffff0000u));
 }
 
+// the output grid's (int8) or the INT8 QAT site's row: scale 1 and zero
+// point 128 where the site has no statistics (the guard of `_quantize_i8`)
+struct Site {
+  float s = 1.0f, zp = 128.0f, has = 0.f;
+  __device__ __forceinline__ explicit Site(const Args& a) {
+    if (a.mode != kSnapFloat && a.site[2] > 0.5f) {
+      s = a.site[0];
+      zp = a.site[1];
+      has = a.site[2];
+    }
+  }
+};
+
+// a context value on the int8 grid: clip(rint(x / s) + zp, 0, 255) - 128
+__device__ __forceinline__ signed char grid_int8(float x, const Site& st) {
+  const float y =
+      fminf(fmaxf(__fadd_rn(rintf(__fdiv_rn(x, st.s)), st.zp), 0.f), 255.f);
+  return static_cast<signed char>(static_cast<int>(y) - 128);
+}
+
+// a context value through the snap modes' epilogue
+__device__ __forceinline__ float snapped(const Args& a, const mvt::QSpec& qs,
+                                         float x, const Site& st) {
+  return a.mode == kSnapFloat ? mvt::snap(x, qs)
+                              : mvt::int8_site_snap(x, st.s, st.zp, st.has);
+}
+
 // The context rows ra and rb of the CTA's 64 (those below N) through the
 // mode's epilogue into out, and with statistics the rowmax and reciprocal
 // rowsum: u[4 j + e] is row ra (e < 2) or rb, column 8 j + 2 t + (e % 2)
@@ -174,13 +212,7 @@ __device__ __forceinline__ void store_context(
     int h, int bh, int ra, int rb, int t, float mx0, float mx1, float sum0,
     float sum1) {
   const int N = a.n, C = a.heads * D;
-  // the output grid (int8) or site (INT8 QAT) row
-  float s_site = 1.0f, zp_site = 128.0f, has_site = 0.f;
-  if (a.mode != kSnapFloat && a.site[2] > 0.5f) {
-    s_site = a.site[0];
-    zp_site = a.site[1];
-    has_site = a.site[2];
-  }
+  const Site st(a);
   const size_t oa = (static_cast<size_t>(b) * N + ra) * C + h * D;
   const size_t ob = oa + static_cast<size_t>(8) * C;
 #pragma unroll
@@ -192,26 +224,13 @@ __device__ __forceinline__ void store_context(
       const size_t o = (half ? ob : oa) + d;
       const float x0 = u[4 * j + 2 * half], x1 = u[4 * j + 2 * half + 1];
       if (a.mode == kInt8) {
-        const float y0 = fminf(
-            fmaxf(__fadd_rn(rintf(__fdiv_rn(x0, s_site)), zp_site), 0.f),
-            255.f);
-        const float y1 = fminf(
-            fmaxf(__fadd_rn(rintf(__fdiv_rn(x1, s_site)), zp_site), 0.f),
-            255.f);
         char2 c;
-        c.x = static_cast<signed char>(static_cast<int>(y0) - 128);
-        c.y = static_cast<signed char>(static_cast<int>(y1) - 128);
+        c.x = grid_int8(x0, st);
+        c.y = grid_int8(x1, st);
         *reinterpret_cast<char2*>(static_cast<signed char*>(a.out) + o) = c;
       } else {
-        float2 y;
-        if (a.mode == kSnapFloat) {
-          y.x = mvt::snap(x0, qs);
-          y.y = mvt::snap(x1, qs);
-        } else {
-          y.x = mvt::int8_site_snap(x0, s_site, zp_site, has_site);
-          y.y = mvt::int8_site_snap(x1, s_site, zp_site, has_site);
-        }
-        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) = y;
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) =
+            make_float2(snapped(a, qs, x0, st), snapped(a, qs, x1, st));
       }
     }
   }
@@ -518,280 +537,525 @@ attention_core_f32_long_kernel(const __grid_constant__ CUtensorMap map,
   store_context<D>(a, qs, u, b, h, bh, ra, rb, t, mx0, mx1, sum0, sum1);
 }
 
-// The three-sweep design: the same function without the score block.  The
-// CTA (a consumer warpgroup that owns 64 queries of one (image, head) and a
-// producer warp) walks the K tiles three times and the V tiles once, each
-// tile's hi and lo halves loaded by TMA from the split scratch through a
-// ring of kFwdMaxStages stages, in the order K 0 .. K T-1, K 0 .. K T-1, K 0,
-// V 0, K 1, V 1, ..., K T-1, V T-1:
-//   sweep 1  S -> the row max;
-//   sweep 2  S again -> e = exp(s - m) and the rowsum, four compensated
-//            partial sums a row;
-//   sweep 3  S again -> e -> p = e / sum (the true divide) split in
-//            registers, the tile's chain3 of P V into a fresh accumulator,
-//            added to the context rounded once; tile kt + 1's S runs on the
-//            FMA units while tile kt's P V chain runs on the tensor cores.
-// S here is not the tensor cores' chain: each of its passes is the sum
-// over d in order, one fp32 FMA a term (each product of two bf16 halves is
-// exact), then (hi.hi + hi.lo) + lo.hi and the scale: the plain version's
-// arithmetic, whose cuBLAS products on the card sum each pass in exactly
-// that order (measured bit for bit at 197-1837 tokens, D 32 and 64).  The
-// tensor cores truncate as they accumulate: their S sits about half an ulp
-// below the plain version's at the row max, and every score's ulp of error
-// moves p; past 1000 tokens at one head that alone put 0.20-0.21% of a
-// snapped context a format step from the plain version's, over the float
-// formats' 0.2% bar.  With the same S, m and e are the plain version's bit
-// for bit, and only the rowsum (compensated, to a few tenths of an ulp of
-// the plain version's) and P V part from it.  The S of the three sweeps
-// costs 3 x 3 x D FMAs a score on the FMA units, with q's halves in shared
-// memory beside the ring.  Its outputs are therefore not the score-block
-// design's bits (tests/test_torch_kernels_cuda.py measures the two against
-// each other and against the plain version at N <= 768).
+// ---- the cluster design: its cluster and distributed shared memory ----
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// every thread of every CTA of the cluster arrives and waits; the shared
+// memory that each wrote before is then visible to the others' loads
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// the address of `p`, in this CTA's shared memory, in CTA `rank`'s
+__device__ __forceinline__ uint32_t at_rank(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(sm::smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_cluster2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_cluster2(uint32_t a, float x, float y) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(a),
+               "f"(x), "f"(y)
+               : "memory");
+}
+
+// the bf16 values of a packed pair as fp32: the low half, the high half
+__device__ __forceinline__ float bf16_low(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_high(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// component e (0-3, a constant once unrolled) of a float4
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// A compensated sum as a pair (hi, lo), hi + lo the sum to about twice
+// fp32's precision: hi the running fp32 sum, lo the exact errors of its
+// adds (TwoSum) summed.  pair_add(a, b) and pair_add(b, a) give the same
+// bits (TwoSum's error is exact), so the lanes of a butterfly agree.
+__device__ __forceinline__ void pair_add(float& hi, float& lo, float h2,
+                                         float l2) {
+  const float t = __fadd_rn(hi, h2);
+  const float bp = __fsub_rn(t, hi);
+  const float err =
+      __fadd_rn(__fsub_rn(hi, __fsub_rn(t, bp)), __fsub_rn(h2, bp));
+  hi = t;
+  lo = __fadd_rn(__fadd_rn(lo, l2), err);
+}
+
+// The cluster design (above kBlockMaxN, or forced): the same function,
+// each score computed once.  A cluster of CL CTAs (fl::sweep_cluster: 1, 2,
+// 4 or 8 by the key tiles, the (image, head) pairs and the SMs) shares 64
+// queries of one (image, head); CTA `rank` holds the keys of RT = ceil(tiles
+// / CL) consecutive 64-key tiles from tile rank RT (the last ranks fewer,
+// or none), eight warps, two an SMSP.  Thread 0 issues every K tile's
+// load at once, each into a ring stage of its own, then each V tile into
+// the same stage once its K tile is read.
+//   S        two K tiles at a time: their bf16 halves converted once to
+//            fp32 rows in shared memory (no FMA waits on a conversion),
+//            then warps 0-3 the first tile, 4-7 the second, a thread 4 rows
+//            x 8 keys, three passes of 32 accumulators: the plain version's
+//            in-order fp32 sums over d, one FMA a term (each product of two
+//            bf16 halves is exact), q and K read four d at a time (16-byte
+//            loads, the 8 rows or 4 keys of a load at distinct bank quads),
+//            then (hi.hi + hi.lo) + lo.hi and the scale, keys past N -inf,
+//            stored in the CTA's 64 x 64 RT fp32 score block; the thread's
+//            row maxima on the way;
+//   max      the CTA's row maxima, then the cluster's, read through
+//            distributed shared memory (the max is exact in any order);
+//   sum      e = exp(s - m) in place, with the row's final m; each lane a
+//            compensated (hi, lo) pair over its keys for 8 rows at once,
+//            the lanes' pairs and then the ranks' in rank order, exactly,
+//            so that every rank holds the same sum = hi + lo, within about
+//            half an ulp of the exact sum of the e (a rescaled online sum
+//            would move every p);
+//   P V      warpgroup w of each CTA the first or second half of its
+//            tiles: the tile's A fragments of p = e / sum (the true divide,
+//            RowDivisor) split in registers, its chain3 into a fresh
+//            accumulator added to the warpgroup's context rounded once, the
+//            next tile's fragments formed while the chain runs;
+//   context  each warpgroup's partial context, (64, D) fp32, pushed to the
+//            rank that owns its rows (rank r the rows r 64 / CL ...), which
+//            adds the 2 CL partials in (rank, warpgroup) order and runs the
+//            mode's epilogue.
+// Three cluster barriers: after the CTAs' maxima, their rowsums, and the
+// pushed partials; after the last no CTA reads another's shared memory.
+// No atomics: two calls give the same bits.  S, m and e are the plain
+// version's bit for bit; the rowsum and P V part from it by fp32 roundoff
+// (tests/test_torch_f32_sweep_order.py emulates this order on the CPU).
+// The tensor cores truncate as they accumulate, so S does not run on
+// them: at one head past 1000 tokens their scores alone put 0.20-0.21% of
+// a snapped context a format step from the plain version's, over the float
+// formats' 0.2% bar.
 template <int D>
-__global__ void __launch_bounds__(fl::kFwdThreads, 1)
-attention_core_f32_sweep_kernel(const __grid_constant__ CUtensorMap map,
-                                const Args a, const mvt::QSpec qs) {
+__global__ void __launch_bounds__(fl::kSweepThreads, 1)
+attention_core_f32_cluster_kernel(const __grid_constant__ CUtensorMap map,
+                                  const Args a, const mvt::QSpec qs) {
   using T = fl::Tiles<D>;
   constexpr int kRow = T::kRow;
-  constexpr int S = fl::kFwdMaxStages;
+  constexpr int kThreads = fl::kSweepThreads;
+  constexpr int kChunks = D / 4;  // 16-byte chunks of a fp32 row
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (sm::smem_u32(smem_raw) & 1023)) & 1023);
-  const int N = a.n, heads = a.heads;
+  const int N = a.n, heads = a.heads, RT = a.stages, CL = a.cluster;
   const int tiles = (N + kLongTile - 1) / kLongTile, np = tiles * kLongTile;
+  const int SLD = fl::sweep_score_ld(RT);
   unsigned char* ring = smem;
-  unsigned char* qtile = smem + S * T::kPair;  // q's hi, then lo half
-  uint64_t* full = reinterpret_cast<uint64_t*>(qtile + T::kPair);
-  uint64_t* empty = full + S;
+  float* q32 = reinterpret_cast<float*>(smem + RT * T::kPair);  // (2, 64, D)
+  float* k32 = q32 + 2 * kLongTile * D;  // (2, 128, D)
+  float* sc = k32 + 2 * 2 * kLongTile * D;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sc + kLongTile * SLD);
+  // once S is done: the row statistics in the K rows' room, the pushed
+  // partial contexts (2 CL, 64 / CL, D), slot 2 rank + warpgroup, in q's
+  float* wmax = k32;  // (8 warps, 32 rows)
+  float* xmax = wmax + fl::kSweepWarps * 32;
+  float2* xsum = reinterpret_cast<float2*>(xmax + kLongTile);
+  float* mfin = reinterpret_cast<float*>(xsum + kLongTile);
+  float* sfin = mfin + kLongTile;
+  float* part = q32;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int q0 = kLongTile * blockIdx.x;
+  const int rank = cluster_rank();
+  const int q0 = kLongTile * (blockIdx.x / CL);
+  const int first = rank * RT;  // the rank's first key tile
+  const int own = max(0, min(RT, tiles - first));
 
   if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      sm::mbar_init(&full[s], 1);
-      sm::mbar_init(&empty[s], fl::kFwdConsumerWarps);
-    }
+    for (int i = 0; i < own; ++i) sm::mbar_init(&full[i], 1);
     sm::fence_barrier_init();
+    for (int i = 0; i < own; ++i) {
+      sm::mbar_expect_tx(&full[i], T::kPair);
+      fl::load_pair<D>(ring + i * T::kPair, &map, &full[i], 0, bh, gridDim.y,
+                       np, kLongTile * (first + i));
+    }
   }
-  // the CTA's 64 query rows, split into swizzled hi and lo tiles (rows past
-  // N zero)
-  split_rows<D>(qtile, qtile + T::kSub,
-                a.qkv + static_cast<size_t>(b) * N * 3 * heads * D + h * D,
-                static_cast<size_t>(3) * heads * D, q0, kLongTile, N,
-                nullptr, tid, fl::kFwdThreads);
+  // the 64 query rows' hi and lo halves as fp32 rows (rows past N zero)
+  {
+    const size_t ld = static_cast<size_t>(3) * heads * D;
+    const float* base = a.qkv + static_cast<size_t>(b) * N * ld + h * D;
+#pragma unroll
+    for (int k = 0; k < kLongTile * kChunks / kThreads; ++k) {
+      const int it = tid + k * kThreads;
+      const int r = it / kChunks, j = it % kChunks;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < N)
+        x = *reinterpret_cast<const float4*>(base + (q0 + r) * ld + 4 * j);
+      uint32_t h0, l0, h1, l1;
+      sm::split_bf16x2(x.x, x.y, h0, l0);
+      sm::split_bf16x2(x.z, x.w, h1, l1);
+      float* dst = q32 + r * D + 4 * (j ^ (r & 7));
+      *reinterpret_cast<float4*>(dst) = make_float4(
+          bf16_low(h0), bf16_high(h0), bf16_low(h1), bf16_high(h1));
+      *reinterpret_cast<float4*>(dst + kLongTile * D) = make_float4(
+          bf16_low(l0), bf16_high(l0), bf16_low(l1), bf16_high(l1));
+    }
+  }
   __syncthreads();
 
-  if (warp == fl::kFwdConsumerWarps) {
-    // the producer warp: the 4 T tiles in the order above, each into the
-    // next stage once the warpgroup has released it
-    if (lane == 0) {
-      for (int it = 0; it < 4 * tiles; ++it) {
-        const int s = it % S, use = it / S;
-        int array = 0, tile = it < tiles ? it : it - tiles;
-        if (it >= 2 * tiles) {
-          tile = (it - 2 * tiles) >> 1;
-          array = ((it - 2 * tiles) & 1) ? 2 : 0;
+  // ---- S, two tiles a step: warp w the step's tile w / 4, its rows 32
+  // ((w / 2) % 2) + g + 8 x and keys 32 (w % 2) + c + 4 y (x < 4, y < 8) ----
+  const int g = lane >> 2, c = lane & 3;
+  const int sub = warp >> 2;
+  const int r0 = 32 * ((warp >> 1) & 1) + g, k0 = 32 * (warp & 1) + c;
+  float mx[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) mx[x] = mvt::neg_inf();
+  for (int i = 0; i < own; i += 2) {
+    const int pair = min(2, own - i);
+    for (int p = 0; p < pair; ++p) sm::mbar_wait(&full[i + p], 0);
+    {
+      // every chunk read first, then every chunk written
+      constexpr int kHalf = kLongTile * (D / 8);  // 16-byte chunks a half
+      constexpr int kEach = 2 * 2 * kHalf / kThreads;
+      uint4 w[kEach];
+#pragma unroll
+      for (int k = 0; k < kEach; ++k) {
+        const int it = tid + k * kThreads;
+        const int p = it / (2 * kHalf), half = (it / kHalf) & 1;
+        const int r = (it % kHalf) / (D / 8), c8 = it % (D / 8);
+        if (p < pair)
+          w[k] = *reinterpret_cast<const uint4*>(
+              ring + (i + p) * T::kPair + half * T::kSub +
+              sm::swizzle_chunk<kRow>(r * kRow + 16 * c8));
+      }
+#pragma unroll
+      for (int k = 0; k < kEach; ++k) {
+        const int it = tid + k * kThreads;
+        const int p = it / (2 * kHalf), half = (it / kHalf) & 1;
+        const int r = (it % kHalf) / (D / 8), c8 = it % (D / 8);
+        const int key = kLongTile * p + r;
+        float* dst = k32 + (half * 2 * kLongTile + key) * D;
+        if (p < pair) {
+          *reinterpret_cast<float4*>(dst + 4 * ((2 * c8) ^ (key & 7))) =
+              make_float4(bf16_low(w[k].x), bf16_high(w[k].x),
+                          bf16_low(w[k].y), bf16_high(w[k].y));
+          *reinterpret_cast<float4*>(dst + 4 * ((2 * c8 + 1) ^ (key & 7))) =
+              make_float4(bf16_low(w[k].z), bf16_high(w[k].z),
+                          bf16_low(w[k].w), bf16_high(w[k].w));
         }
-        if (use > 0) sm::mbar_wait(&empty[s], (use - 1) & 1);
-        sm::mbar_expect_tx(&full[s], T::kPair);
-        fl::load_pair<D>(ring + s * T::kPair, &map, &full[s], array, bh,
-                         gridDim.y, np, kLongTile * tile);
       }
     }
-    return;
-  }
-
-  const int ra = q0 + 16 * warp + g, rb = ra + 8;
-  // the raw scores of the K tile in `tile` (hi, then lo half) for rows ra
-  // and rb, s[4 j + e]: row ra (e < 2) or rb, the tile's key 8 j + 2 t + (e
-  // % 2) (the wgmma accumulator's layout, which P V's A fragments take):
-  // each pass summed over d in order, two d a load of each bf16 pair
-  auto scores = [&](const unsigned char* tile, float (&s)[32]) {
-    float hh[32], hl[32], lh[32];
+    __syncthreads();
+    if (tid == 0) {
+      // the stages are read: the V tiles land there while S runs
+      sm::fence_proxy_async();
+      for (int p = 0; p < pair; ++p) {
+        sm::mbar_expect_tx(&full[i + p], T::kPair);
+        fl::load_pair<D>(ring + (i + p) * T::kPair, &map, &full[i + p], 2,
+                         bh, gridDim.y, np, kLongTile * (first + i + p));
+      }
+    }
+    if (sub < pair) {
+      float hh[4][8], hl[4][8], lh[4][8];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) hh[i] = hl[i] = lh[i] = 0.f;
-    const uint32_t oa = (16 * warp + g) * kRow, ob = oa + 8 * kRow;
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 8; ++y) hh[x][y] = hl[x][y] = lh[x][y] = 0.f;
+      const float* qa = q32 + r0 * D;
+      const float* ka = k32 + (kLongTile * sub + k0) * D;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 2) {
-      const float2 qha = bf16x2_at<kRow>(qtile, oa + 2 * d);
-      const float2 qla = bf16x2_at<kRow>(qtile + T::kSub, oa + 2 * d);
-      const float2 qhb = bf16x2_at<kRow>(qtile, ob + 2 * d);
-      const float2 qlb = bf16x2_at<kRow>(qtile + T::kSub, ob + 2 * d);
+      for (int j = 0; j < kChunks; ++j) {
+        // row r0 + 8 x has r0 % 8 = g; key k0 + 4 y has (c + 4 y) % 8
+        float4 qh[4], ql[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int x = 0; x < 4; ++x) {
+          const float* row = qa + 8 * x * D + 4 * (j ^ g);
+          qh[x] = *reinterpret_cast<const float4*>(row);
+          ql[x] = *reinterpret_cast<const float4*>(row + kLongTile * D);
+        }
 #pragma unroll
-        for (int e1 = 0; e1 < 2; ++e1) {
-          const uint32_t ok = (8 * j + 2 * t + e1) * kRow + 2 * d;
-          const float2 kh = bf16x2_at<kRow>(tile, ok);
-          const float2 kl = bf16x2_at<kRow>(tile + T::kSub, ok);
-          const int ia = 4 * j + e1, ib = ia + 2;
-          hh[ia] = __fmaf_rn(qha.y, kh.y, __fmaf_rn(qha.x, kh.x, hh[ia]));
-          hl[ia] = __fmaf_rn(qha.y, kl.y, __fmaf_rn(qha.x, kl.x, hl[ia]));
-          lh[ia] = __fmaf_rn(qla.y, kh.y, __fmaf_rn(qla.x, kh.x, lh[ia]));
-          hh[ib] = __fmaf_rn(qhb.y, kh.y, __fmaf_rn(qhb.x, kh.x, hh[ib]));
-          hl[ib] = __fmaf_rn(qhb.y, kl.y, __fmaf_rn(qhb.x, kl.x, hl[ib]));
-          lh[ib] = __fmaf_rn(qlb.y, kh.y, __fmaf_rn(qlb.x, kh.x, lh[ib]));
+        for (int y = 0; y < 8; ++y) {
+          const float* key = ka + 4 * y * D + 4 * (j ^ ((c + 4 * y) & 7));
+          const float4 kh = *reinterpret_cast<const float4*>(key);
+          const float4 kl =
+              *reinterpret_cast<const float4*>(key + 2 * kLongTile * D);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              const float a_h = lane_of(qh[x], e), a_l = lane_of(ql[x], e);
+              const float b_h = lane_of(kh, e), b_l = lane_of(kl, e);
+              hh[x][y] = __fmaf_rn(a_h, b_h, hh[x][y]);
+              hl[x][y] = __fmaf_rn(a_h, b_l, hl[x][y]);
+              lh[x][y] = __fmaf_rn(a_l, b_h, lh[x][y]);
+            }
+        }
+      }
+      const int t0 = i + sub;  // the CTA's tile
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 8; ++y) {
+          const int key = k0 + 4 * y;
+          const float s =
+              kLongTile * (first + t0) + key < N
+                  ? scaled(__fadd_rn(__fadd_rn(hh[x][y], hl[x][y]), lh[x][y]),
+                           a.scale)
+                  : mvt::neg_inf();
+          sc[(r0 + 8 * x) * SLD + kLongTile * t0 + key] = s;
+          mx[x] = fmaxf(mx[x], s);
         }
     }
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      s[i] = __fadd_rn(__fadd_rn(hh[i], hl[i]), lh[i]);
-  };
-  // tile kt's score s[i] scaled, or -inf past N
-  auto masked = [&](const float (&s)[32], int kt, int i) {
-    const int key = kLongTile * kt + 8 * (i >> 2) + 2 * t + (i & 1);
-    return key < N ? scaled(s[i], a.scale) : mvt::neg_inf();
-  };
-  // the K tiles at ring tiles base .. base + tiles - 1, visit(s, kt) on each
-  // tile's scores in key order
-  auto walk = [&](int base, const auto& visit) {
-    for (int kt = 0; kt < tiles; ++kt) {
-      const int k = base + kt;
-      sm::mbar_wait(&full[k % S], (k / S) & 1);
-      float s[32];
-      scores(ring + (k % S) * T::kPair, s);
-      release(&empty[k % S], lane);
-      visit(s, kt);
-    }
-  };
-
-  float mx0 = mvt::neg_inf(), mx1 = mvt::neg_inf();
-  walk(0, [&](const float (&s)[32], int kt) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx0 = fmaxf(fmaxf(mx0, masked(s, kt, 4 * j)), masked(s, kt, 4 * j + 1));
-      mx1 = fmaxf(fmaxf(mx1, masked(s, kt, 4 * j + 2)),
-                  masked(s, kt, 4 * j + 3));
-    }
-  });
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    __syncthreads();  // the scores stored, the K rows free again
   }
 
-  // four partial sums a row (by the parity of the 8-key block and the pair
-  // element), each compensated (Kahan: c carries what the last add lost)
-  float part[2][4], comp[2][4];
+  // ---- the row max: the CTA's (the warps' maxima, 4 warps a row), then
+  // the cluster's, read from every rank ----
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) part[r][c] = comp[r][c] = 0.f;
-  auto kahan = [](float& sum, float& c, float x) {
-    const float y = __fsub_rn(x, c);
-    const float t2 = __fadd_rn(sum, y);
-    c = __fsub_rn(__fsub_rn(t2, sum), y);
-    sum = t2;
-  };
-  walk(tiles, [&](const float (&s)[32], int kt) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 2 * (j & 1);
-      kahan(part[0][c], comp[0][c], exp_shift(masked(s, kt, 4 * j), mx0));
-      kahan(part[0][c + 1], comp[0][c + 1],
-            exp_shift(masked(s, kt, 4 * j + 1), mx0));
-      kahan(part[1][c], comp[1][c],
-            exp_shift(masked(s, kt, 4 * j + 2), mx1));
-      kahan(part[1][c + 1], comp[1][c + 1],
-            exp_shift(masked(s, kt, 4 * j + 3), mx1));
-    }
-  });
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    sum0 = __fadd_rn(sum0, __fsub_rn(part[0][c], comp[0][c]));
-    sum1 = __fadd_rn(sum1, __fsub_rn(part[1][c], comp[1][c]));
+  for (int x = 0; x < 4; ++x) {
+    mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+    mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+    if (c == 0) wmax[warp * 32 + g + 8 * x] = mx[x];
   }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    sum0 = __fadd_rn(sum0, __shfl_xor_sync(0xffffffffu, sum0, o));
-    sum1 = __fadd_rn(sum1, __shfl_xor_sync(0xffffffffu, sum1, o));
+  __syncthreads();
+  if (tid < kLongTile) {
+    float m = mvt::neg_inf();
+    for (int w = 0; w < fl::kSweepWarps; ++w)
+      if (((w >> 1) & 1) == (tid >> 5)) m = fmaxf(m, wmax[w * 32 + (tid & 31)]);
+    xmax[tid] = m;
   }
+  cluster_sync();
+  if (tid < kLongTile) {
+    // every rank's value read first, then reduced
+    float v[fl::kSweepMaxCluster];
+#pragma unroll
+    for (int q = 0; q < fl::kSweepMaxCluster; ++q)
+      if (q < CL) v[q] = ld_cluster(at_rank(xmax + tid, q));
+    float m = mvt::neg_inf();
+#pragma unroll
+    for (int q = 0; q < fl::kSweepMaxCluster; ++q)
+      if (q < CL) m = fmaxf(m, v[q]);
+    mfin[tid] = m;
+  }
+  __syncthreads();
 
-  // ---- sweep 3: K tile kt at ring tile 2 T + 2 kt, V tile kt at 2 T + 2
-  // kt + 1 ----
+  // ---- e = exp(s - m) in place and the rowsum: warp w's rows 8 w .. 8 w
+  // + 7 at once, a compensated pair a lane and row, the lanes' pairs, then
+  // the ranks' in rank order ----
+  {
+    const int keys = kLongTile * own;
+    float m[8], hi[8], lo[8];
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) {
+      m[rr] = mfin[8 * warp + rr];
+      hi[rr] = lo[rr] = 0.f;
+    }
+    float* cell = sc + 8 * warp * SLD + lane;
+    for (int k = lane; k < keys; k += 32, cell += 32) {
+      // the 8 rows' scores read first, then exponentiated and written back
+      float e[8];
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) e[rr] = cell[rr * SLD];
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) {
+        e[rr] = exp_shift(e[rr], m[rr]);
+        cell[rr * SLD] = e[rr];
+        pair_add(hi[rr], lo[rr], e[rr], 0.f);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float oh = __shfl_xor_sync(0xffffffffu, hi[rr], o);
+        const float ol = __shfl_xor_sync(0xffffffffu, lo[rr], o);
+        pair_add(hi[rr], lo[rr], oh, ol);
+      }
+      if (lane == 0) xsum[8 * warp + rr] = make_float2(hi[rr], lo[rr]);
+    }
+  }
+  cluster_sync();
+  if (tid < kLongTile) {
+    float2 v[fl::kSweepMaxCluster];
+#pragma unroll
+    for (int q = 0; q < fl::kSweepMaxCluster; ++q)
+      if (q < CL) v[q] = ld_cluster2(at_rank(xsum + tid, q));
+    float hi = 0.f, lo = 0.f;
+#pragma unroll
+    for (int q = 0; q < fl::kSweepMaxCluster; ++q)
+      if (q < CL) pair_add(hi, lo, v[q].x, v[q].y);
+    sfin[tid] = __fadd_rn(hi, lo);
+  }
+  __syncthreads();
+
+  // ---- P V: warpgroup wg the tiles [lo_t, hi_t) of the CTA's; a tile's A
+  // fragments (step ks holds its keys 16 ks + 8 (w / 2) + 2 t + {0, 1}, word
+  // w rows ra (w even) or rb) of p = e / sum, split; V read MN-major (the
+  // transpose bit), 16 keys a step, into a fresh accumulator ----
+  const int wg = warp >> 2, t = lane & 3;
+  const int ra = 16 * (warp & 3) + g, rb = ra + 8;
+  const float sum0 = sfin[ra], sum1 = sfin[rb];
   const fl::RowDivisor div0(sum0), div1(sum1);
-  auto e_of = [&](const float (&s)[32], int kt, int i) {
-    return exp_shift(masked(s, kt, i), (i & 2) ? mx1 : mx0);
-  };
-  // tile kt's A fragments of p = e / sum from its scores s, split
-  auto form = [&](const float (&s)[32], int kt, uint32_t (&ph)[4][4],
-                  uint32_t (&pl)[4][4]) {
+  const int mid = (own + 1) / 2;
+  const int lo_t = wg ? mid : 0, hi_t = wg ? own : mid;
+  auto form = [&](uint32_t (&ph)[4][4], uint32_t (&pl)[4][4], int i) {
     float p[32];
     bool slow = false;
+    const float* ea = sc + ra * SLD + kLongTile * i + 2 * t;
+    const float* eb = sc + rb * SLD + kLongTile * i + 2 * t;
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      p[i] = ((i & 2) ? div1 : div0).div(e_of(s, kt, i), slow);
+    for (int j = 0; j < 8; ++j) {
+      const float2 xa = *reinterpret_cast<const float2*>(ea + 8 * j);
+      const float2 xb = *reinterpret_cast<const float2*>(eb + 8 * j);
+      p[4 * j] = div0.div(xa.x, slow);
+      p[4 * j + 1] = div0.div(xa.y, slow);
+      p[4 * j + 2] = div1.div(xb.x, slow);
+      p[4 * j + 3] = div1.div(xb.y, slow);
+    }
     if (slow) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
-        p[i] = __fdiv_rn(e_of(s, kt, i), (i & 2) ? sum1 : sum0);
+      for (int j = 0; j < 8; ++j) {
+        const float2 xa = *reinterpret_cast<const float2*>(ea + 8 * j);
+        const float2 xb = *reinterpret_cast<const float2*>(eb + 8 * j);
+        p[4 * j] = __fdiv_rn(xa.x, sum0);
+        p[4 * j + 1] = __fdiv_rn(xa.y, sum0);
+        p[4 * j + 2] = __fdiv_rn(xb.x, sum1);
+        p[4 * j + 3] = __fdiv_rn(xb.y, sum1);
+      }
     }
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
-        const int i = 8 * ks + 2 * w;
-        sm::split_bf16x2(p[i], p[i + 1], ph[ks][w], pl[ks][w]);
+        const int k = 8 * ks + 2 * w;
+        sm::split_bf16x2(p[k], p[k + 1], ph[ks][w], pl[ks][w]);
       }
   };
-  auto scores_at = [&](int k, float (&s)[32]) {
-    sm::mbar_wait(&full[k % S], (k / S) & 1);
-    scores(ring + (k % S) * T::kPair, s);
-    release(&empty[k % S], lane);
-  };
-  float u[D / 2], acc[D / 2], sc[32];
+  float u[D / 2], acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) u[i] = 0.f;
-  scores_at(2 * tiles, sc);
+  for (int k = 0; k < D / 2; ++k) u[k] = 0.f;
   {
-    uint32_t ph[4][4], pl[4][4];
-    for (int kt = 0; kt < tiles; ++kt) {
-      form(sc, kt, ph, pl);
+    uint32_t fah[4][4], fal[4][4], fbh[4][4], fbl[4][4];
+    if (lo_t < hi_t) form(fah, fal, lo_t);
+    for (int i = lo_t; i < hi_t; ++i) {
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        sm::fence_regs(ph[ks]);
-        sm::fence_regs(pl[ks]);
+        sm::fence_regs(fah[ks]);
+        sm::fence_regs(fal[ks]);
       }
-      // tile kt's P V on the tensor cores, V read MN-major (the transpose
-      // bit), 16 keys a step, into a fresh accumulator
-      const int iv = 2 * tiles + 2 * kt + 1, st = iv % S;
-      sm::mbar_wait(&full[st], (iv / S) & 1);
-      const unsigned char* th = ring + st * T::kPair;
-      const uint64_t dth = sm::rows_desc<D>(th, 0);
-      const uint64_t dtl = sm::rows_desc<D>(th + T::kSub, 0);
+      sm::mbar_wait(&full[i], 1);
+      const unsigned char* tv = ring + i * T::kPair;
+      const uint64_t dth = sm::rows_desc<D>(tv, 0);
+      const uint64_t dtl = sm::rows_desc<D>(tv + T::kSub, 0);
       sm::wgmma_fence();
       chain3<4>([&](int x, int bl, int ks) {
         sm::WgmmaRS<D>::template mma<1>(
-            acc, x ? pl[ks] : ph[ks],
+            acc, x ? fal[ks] : fah[ks],
             sm::desc_add(bl ? dtl : dth, ks * 16 * kRow),
             chain_first(x, bl, ks) ? 0 : 1);
       });
       sm::wgmma_commit();
-      // tile kt + 1's S while it runs
-      if (kt + 1 < tiles) scores_at(2 * tiles + 2 * kt + 2, sc);
+      // the next tile's fragments while the chain runs
+      if (i + 1 < hi_t) form(fbh, fbl, i + 1);
       sm::wgmma_wait<0>();
       sm::fence_regs(acc);
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        sm::fence_regs(ph[ks]);
-        sm::fence_regs(pl[ks]);
+        sm::fence_regs(fah[ks]);
+        sm::fence_regs(fal[ks]);
       }
-      release(&empty[st], lane);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) u[i] = __fadd_rn(u[i], acc[i]);
+      for (int k = 0; k < D / 2; ++k) u[k] = __fadd_rn(u[k], acc[k]);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          fah[ks][w] = fbh[ks][w];
+          fal[ks][w] = fbl[ks][w];
+        }
     }
   }
-  store_context<D>(a, qs, u, b, h, bh, ra, rb, t, mx0, mx1, sum0, sum1);
+
+  // ---- the partial context to the ranks that own its rows, u[4 j + e]
+  // row ra (e < 2) or rb, column 8 j + 2 t + (e % 2) ----
+  const int rows = kLongTile / CL;  // a rank's rows
+  {
+    const int slot = 2 * rank + wg;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? rb : ra;
+      const int owner = row / rows;
+      float* dst = part + (slot * rows + row % rows) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        st_cluster2(at_rank(dst + 8 * j, owner), u[4 * j + 2 * half],
+                    u[4 * j + 2 * half + 1]);
+    }
+  }
+  cluster_sync();
+
+  // ---- this rank's rows: the 2 CL partials in (rank, warpgroup) order,
+  // four columns a step, then the epilogue ----
+  {
+    const int C = heads * D;
+    const Site st(a);
+    for (int it = tid; it < rows * (D / 4); it += kThreads) {
+      const int r = it / (D / 4), col = 4 * (it % (D / 4));
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int slot = 0; slot < 2 * CL; ++slot) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(part + (slot * rows + r) * D + col);
+        v = make_float4(__fadd_rn(v.x, x.x), __fadd_rn(v.y, x.y),
+                        __fadd_rn(v.z, x.z), __fadd_rn(v.w, x.w));
+      }
+      const int lr = rank * rows + r, row = q0 + lr;
+      if (row >= N) continue;
+      const size_t o = (static_cast<size_t>(b) * N + row) * C + h * D + col;
+      if (a.mode == kInt8) {
+        *reinterpret_cast<char4*>(static_cast<signed char*>(a.out) + o) =
+            make_char4(grid_int8(v.x, st), grid_int8(v.y, st),
+                       grid_int8(v.z, st), grid_int8(v.w, st));
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o) =
+            make_float4(snapped(a, qs, v.x, st), snapped(a, qs, v.y, st),
+                        snapped(a, qs, v.z, st), snapped(a, qs, v.w, st));
+      }
+      if (a.m_out != nullptr && col == 0) {
+        const size_t so = static_cast<size_t>(bh) * N + row;
+        a.m_out[so] = mfin[lr];
+        a.rs_out[so] = __fdiv_rn(1.0f, sfin[lr]);
+      }
+    }
+  }
 }
 
 template <int D>
 const void* kernel_of(bool sweep) {
   return sweep ? reinterpret_cast<const void*>(
-                     attention_core_f32_sweep_kernel<D>)
+                     attention_core_f32_cluster_kernel<D>)
                : reinterpret_cast<const void*>(
                      attention_core_f32_long_kernel<D>);
 }
@@ -802,14 +1066,54 @@ int set_smem(bool sweep) {
   return fl::allow_smem_once(kernel_of<D>(sweep), &done[sweep ? 1 : 0]);
 }
 
-// the core kernel's ring stages and dynamic shared memory at N tokens
-template <int D>
-int stages_of(int N, bool sweep) {
-  return sweep ? fl::kFwdMaxStages : fl::fwd_stages<D>(N);
+// the SMs of the current device, read once a device; 0 on an error
+inline int device_sms() {
+  static int sms[32] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int& n = sms[dev & 31];
+  if (n == 0 &&
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    n = 0;
+  return n;
 }
+
+// How the core kernel covers N tokens of bh (image, head) pairs: its
+// cluster, ring stages (the cluster design's key tiles a CTA), CTAs per
+// (image, head), threads and dynamic shared memory
+struct Shape {
+  int cluster, stages, grid, threads, smem;
+};
+
 template <int D>
-int smem_of(int N, bool sweep) {
-  return sweep ? fl::sweep_smem<D>() : fl::fwd_smem<D>(N);
+Shape shape_of(int N, int bh, bool sweep) {
+  const int tiles = (N + kLongTile - 1) / kLongTile;
+  if (!sweep)
+    return {1, fl::fwd_stages<D>(N), tiles, fl::kFwdThreads,
+            fl::fwd_smem<D>(N)};
+  const int cl =
+      fl::sweep_cluster(tiles, bh, device_sms(), fl::sweep_max_tiles<D>());
+  const int rt = (tiles + cl - 1) / cl;
+  return {cl, rt, tiles * cl, fl::kSweepThreads, fl::sweep_smem<D>(rt)};
+}
+
+// the core kernel's launch configuration (its cluster attribute in `attr`)
+inline cudaLaunchConfig_t config_of(const Shape& sh, int bh,
+                                    cudaLaunchAttribute* attr,
+                                    cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sh.grid, bh);
+  cfg.blockDim = dim3(sh.threads);
+  cfg.dynamicSmemBytes = sh.smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = sh.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int D>
@@ -820,6 +1124,8 @@ int launch(const void* qkv, const void* site, void* out, void* m, void* rs,
   int err = fl::encode_split<D>(&map, split, 4, B, heads, N);
   if (err == 0) err = set_smem<D>(sweep);
   if (err != 0) return err;
+  const Shape sh = shape_of<D>(N, B * heads, sweep);
+  if (sh.cluster == 0) return static_cast<int>(cudaErrorInvalidValue);
   f32_long_kv_split_kernel<D>
       <<<fl::split_blocks(B, N, heads, D, 2), 256, 0, stream>>>(
           static_cast<const float*>(qkv), static_cast<uint4*>(split), B, N,
@@ -835,22 +1141,26 @@ int launch(const void* qkv, const void* site, void* out, void* m, void* rs,
   a.rs_out = static_cast<float*>(rs);
   a.n = N;
   a.heads = heads;
-  a.stages = stages_of<D>(N, sweep);
+  a.stages = sh.stages;
   a.mode = mode;
+  a.cluster = sh.cluster;
   a.scale = scale;
-  const dim3 grid((N + kLongTile - 1) / kLongTile, B * heads);
-  if (sweep)
-    attention_core_f32_sweep_kernel<D>
-        <<<grid, fl::kFwdThreads, fl::sweep_smem<D>(), stream>>>(map, a, qs);
-  else
+  if (sweep) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config_of(sh, B * heads, &attr, stream);
+    void* args[3] = {&map, &a, &qs};
+    e = cudaLaunchKernelExC(&cfg, kernel_of<D>(true), args);
+  } else {
     attention_core_f32_long_kernel<D>
-        <<<grid, fl::kFwdThreads, fl::fwd_smem<D>(N), stream>>>(map, a, qs);
-  e = cudaGetLastError();
+        <<<dim3(sh.grid, B * heads), sh.threads, sh.smem, stream>>>(map, a,
+                                                                    qs);
+    e = cudaGetLastError();
+  }
   if (e == cudaSuccess) *launched = 2;
   return static_cast<int>(e);
 }
 
-// the three-sweep design above kBlockMaxN, or at any N where forced
+// the cluster design above kBlockMaxN, or at any N where forced
 int launch_d(const void* qkv, const void* site, void* out, void* m,
              void* rs, void* split, int B, int N, int heads, int D,
              float scale, int mode, mvt::QSpec qs, int force_sweep,
@@ -874,17 +1184,26 @@ int launch_d(const void* qkv, const void* site, void* out, void* m,
 }
 
 template <int D>
-int fwd_figures(int N, bool sweep, int* f) {
+int fwd_figures(int N, int bh, bool sweep, int* f) {
   int err = set_smem<D>(sweep);
-  int ctas = 0;
-  if (err == 0)
-    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, kernel_of<D>(sweep), fl::kFwdThreads, smem_of<D>(N, sweep)));
   if (err != 0) return err;
-  const int v[7] = {(N + kLongTile - 1) / kLongTile, kLongTile, kLongTile,
-                    fl::kFwdThreads, stages_of<D>(N, sweep),
-                    smem_of<D>(N, sweep), ctas};
+  const Shape sh = shape_of<D>(N, bh, sweep);
+  if (sh.cluster == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int ctas = 0, clusters = 0;
+  err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, kernel_of<D>(sweep), sh.threads, sh.smem));
+  if (err == 0 && sweep) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config_of(sh, bh, &attr, nullptr);
+    err = static_cast<int>(
+        cudaOccupancyMaxActiveClusters(&clusters, kernel_of<D>(true), &cfg));
+  }
+  if (err != 0) return err;
+  const int v[7] = {sh.grid,   kLongTile, kLongTile, sh.threads,
+                    sh.stages, sh.smem,   ctas};
   for (int i = 0; i < 7; ++i) f[i] = v[i];
+  f[23] = sh.cluster;
+  f[24] = clusters;
   return 0;
 }
 
@@ -893,7 +1212,7 @@ int fwd_figures(int N, bool sweep, int* f) {
 MVT_EXPORT int mvt_attention_core_f32_long_max_n() { return kLongMaxN; }
 
 // the longest sequence of the forward's score-block design; above it, the
-// three-sweep design
+// cluster design
 MVT_EXPORT int mvt_attention_core_f32_long_block_max_n() { return kBlockMaxN; }
 
 // qkv (B, N, 3C) fp32, 16-byte aligned; out (B, N, C) fp32, the context
@@ -903,7 +1222,7 @@ MVT_EXPORT int mvt_attention_core_f32_long_block_max_n() { return kBlockMaxN; }
 // rowmax and reciprocal rowsum, or both null; split the scratch (4, B, H,
 // N_pad, D) bf16 of K's and V's halves, 16-byte aligned; D = C / heads of
 // 32 or 64, 1 <= N <= mvt_attention_core_f32_long_max_n(); sweep nonzero
-// takes the three-sweep design at any N (above
+// takes the cluster design at any N (above
 // mvt_attention_core_f32_long_block_max_n() it always does).  *launched:
 // the kernels launched (2 on success).
 MVT_EXPORT int mvt_attention_core_f32_long(const void* qkv, void* out,
@@ -941,21 +1260,23 @@ MVT_EXPORT int mvt_attention_core_f32_long_i8(const void* qkv,
 // the backward's figures into f[0..14] (attention_core_f32_bwd_long_wgmma.cu)
 int f32_long_bwd_figures(int N, int D, int* f);
 
-// The launch figures of N tokens at head width D into f[0..22]: for the
-// forward's core kernel (the three-sweep design where sweep is nonzero or
-// N > mvt_attention_core_f32_long_block_max_n()), the dq and the dk / dv
-// kernel in turn, seven each: CTAs per (image, head), the CTA's own rows,
-// the walked tile's rows, threads, ring stages, dynamic shared memory
-// bytes and the CTAs an SM that the runtime fits; then the kernels a
-// backward call launches and a forward call launches.  Returns a
-// cudaError_t value.
+// The launch figures of N tokens of bh (image, head) pairs at head width
+// D into f[0..24]: for the forward's core kernel (the cluster design where
+// sweep is nonzero or N > mvt_attention_core_f32_long_block_max_n()), the
+// dq and the dk / dv kernel in turn, seven each: CTAs per (image, head),
+// the CTA's own rows, the walked tile's rows, threads, ring stages,
+// dynamic shared memory bytes and the CTAs an SM that the runtime fits;
+// then the kernels a backward call launches and a forward call launches;
+// then the forward's cluster size (1 for the score-block design) and the
+// clusters of that size that the runtime fits on the device at once (0
+// for the score-block design).  Returns a cudaError_t value.
 MVT_EXPORT int mvt_attention_core_f32_long_plan(int N, int D, int sweep,
-                                                int* f) {
-  if (N <= 0 || N > kLongMaxN || (D != 64 && D != 32))
+                                                int bh, int* f) {
+  if (N <= 0 || N > kLongMaxN || (D != 64 && D != 32) || bh <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool sw = sweep != 0 || N > kBlockMaxN;
-  const int err = D == 64 ? fwd_figures<64>(N, sw, f)
-                          : fwd_figures<32>(N, sw, f);
+  const int err = D == 64 ? fwd_figures<64>(N, bh, sw, f)
+                          : fwd_figures<32>(N, bh, sw, f);
   if (err != 0) return err;
   f[22] = 2;
   return f32_long_bwd_figures(N, D, f + 7);

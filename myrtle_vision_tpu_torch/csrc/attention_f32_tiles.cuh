@@ -62,8 +62,8 @@ constexpr size_t kSmemPerCta = 1024;
 // attention_core_f32_bwd_long_wgmma.cu): a CTA's own 64 rows, the 64-row
 // tiles it walks, the longest sequence, and the longest that the forward's
 // score-block design takes (its 64 x 768 fp32 score block is what its
-// shared memory holds; above it the forward's three-sweep design, which
-// keeps no score block).  kLongMaxN is the longest sequence that the JAX
+// shared memory holds; above it the forward's cluster design, whose CTAs
+// split the score block by keys).  kLongMaxN is the longest sequence that the JAX
 // package's fused gate `fuses_at` (myrtle_vision_tpu/ops/
 // fused_attention_block.py) lets through at a head width of 32 or 64: one
 // head of 32 at 1837 tokens (one head of 64: 1806)

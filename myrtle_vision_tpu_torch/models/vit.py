@@ -202,6 +202,12 @@ def no_fuse() -> bool:
     return os.environ.get("MVT_NO_FUSE") == "1"
 
 
+def no_int8_fuse() -> bool:
+    """``MVT_INT8_FUSE=0``: the converted PyTorchINT8 Block takes its
+    discrete form (the JAX Block's ``int8_fuse`` gate)."""
+    return os.environ.get("MVT_INT8_FUSE") == "0"
+
+
 def dropout_mask(shape, rate, generator, device):
     """flax ``nn.Dropout``'s keep mask: each element kept with probability
     1 - ``rate``, from ``generator`` (on ``device``), never from the global
@@ -1143,12 +1149,12 @@ class ViT(nn.Module):
             if calibrating:
                 raise ValueError("a converted model's observers are frozen; "
                                  "calibrate before convert")
-            if probs is not None or no_fuse():
+            if probs is not None or no_fuse() or no_int8_fuse():
                 raise NotImplementedError(
-                    "attention capture or MVT_NO_FUSE=1 in a converted "
-                    "PyTorchINT8 model: the JAX model runs the discrete "
-                    "converted Block there, which is not ported yet (ROADMAP "
-                    "A5b)")
+                    "attention capture, MVT_NO_FUSE=1 or MVT_INT8_FUSE=0 in "
+                    "a converted PyTorchINT8 model: the JAX model runs the "
+                    "discrete converted Block there, which is not ported yet "
+                    "(ROADMAP A5b)")
             return self._forward_converted(img, plain)
         if self.int8:
             return self._forward_int8(img, calibrating or int8_fused,

@@ -157,7 +157,7 @@ def lib() -> ctypes.CDLL:
              [p] * 4 + [i, i, i, i, f, i, p, p]),
             ("mvt_attention_core_f32_long_max_n", []),
             ("mvt_attention_core_f32_long_block_max_n", []),
-            ("mvt_attention_core_f32_long_plan", [i, i, i, p]),
+            ("mvt_attention_core_f32_long_plan", [i, i, i, i, p]),
             ("mvt_attention_core_f32_bwd_long",
              [p] * 9 + [i, i, i, i, f, p, p]),
             ("mvt_attention_core_f32_bwd_long_max_n", []),

@@ -235,16 +235,23 @@ CORE_LONG_BWD_LAUNCHES = 4
 # csrc/f32_long_wgmma.cuh): a CTA's own rows and the tile it walks, the
 # longest sequence (the longest that the fused gate ``fuses_at`` lets
 # through at a head width of 32 or 64: one head of 32), the longest that
-# the forward's score-block design takes (above it the three-sweep
-# design), the forward's threads (a warpgroup and a producer warp) and its
-# ring's most stages, the backward's threads (a warpgroup) and CTAs an SM,
-# the most dynamic shared memory a CTA may ask for, the kernels a forward
-# and a backward call launch (the split pass included)
+# the forward's score-block design takes (above it the cluster design),
+# the score-block design's threads (a warpgroup and a producer warp) and
+# its ring's most stages, the cluster design's threads (eight warps), most
+# CTAs a cluster and most key tiles a CTA, the SMs its cluster size is
+# weighed for by default (an H100 SXM's), the backward's threads (a
+# warpgroup) and CTAs an SM, the most dynamic shared memory a CTA may ask
+# for, the kernels a forward and a backward call launch (the split pass
+# included)
 F32_LONG_TILE = 64
 F32_LONG_MAX_N = 1837
 F32_LONG_BLOCK_MAX_N = 768
 F32_LONG_FWD_THREADS = 160
 F32_LONG_FWD_MAX_STAGES = 4
+F32_SWEEP_THREADS = 256
+F32_SWEEP_MAX_CLUSTER = 8
+F32_SWEEP_MAX_TILES = 8
+F32_LONG_SMS = 132
 F32_LONG_BWD_THREADS = 128
 F32_LONG_BWD_CTAS_PER_SM = 2
 F32_LONG_SMEM_OPTIN = 232448
@@ -1038,41 +1045,87 @@ def core_long_launch(n, d):
     return figures
 
 
+def f32_sweep_smem(d, rank_tiles):
+    """The cluster design's dynamic shared memory at head width ``d`` and
+    ``rank_tiles`` key tiles a CTA (csrc/f32_long_wgmma.cuh
+    ``sweep_smem``): the alignment slack, a ring stage a key tile (its K
+    and then its V tile's bf16 hi and lo halves), q's and two landed K
+    tiles' halves as fp32 rows, the 64 x (64 rank_tiles + 4) fp32 scores
+    and the full barriers of :data:`F32_SWEEP_MAX_TILES` stages."""
+    pair = 2 * F32_LONG_TILE * 2 * d
+    return (TILE_ALIGN_BYTES + rank_tiles * pair + 2 * F32_LONG_TILE * d * 4
+            + 4 * F32_LONG_TILE * d * 4
+            + F32_LONG_TILE * (F32_LONG_TILE * rank_tiles + 4) * 4
+            + 8 * F32_SWEEP_MAX_TILES)
+
+
+def f32_sweep_max_tiles(d):
+    """The most key tiles a cluster design CTA holds at head width ``d``
+    (4 at 64, 7 at 32)."""
+    t = 1
+    while t < F32_SWEEP_MAX_TILES and \
+            f32_sweep_smem(d, t + 1) <= F32_LONG_SMEM_OPTIN:
+        t += 1
+    return t
+
+
+def f32_sweep_cluster(tiles, bh, sms, max_tiles):
+    """The cluster design's CTAs a cluster for ``tiles`` 64-key tiles,
+    ``bh`` (image, head) pairs and ``sms`` SMs (csrc/f32_long_wgmma.cuh
+    ``sweep_cluster``): of the powers of two up to
+    :data:`F32_SWEEP_MAX_CLUSTER` whose key tiles a CTA, ceil(tiles /
+    cluster), fit ``max_tiles``, the one with the least estimated time,
+    waves x (key tiles a CTA + 1), a wave as many CTAs as the SMs hold in
+    whole clusters at one CTA an SM; the smaller on a tie."""
+    best, best_cost, c = 0, 0, 1
+    while c <= F32_SWEEP_MAX_CLUSTER:
+        rank_tiles = -(-tiles // c)
+        if rank_tiles <= max_tiles:
+            slots = sms // c * c
+            cost = -(-bh * tiles * c // slots) * (rank_tiles + 1)
+            if best == 0 or cost < best_cost:
+                best, best_cost = c, cost
+        c *= 2
+    return best
+
+
 @functools.lru_cache(maxsize=256)
-def f32_long_plan(n, d, b=1, heads=1, sweep=False):
+def f32_long_plan(n, d, b=1, heads=1, sweep=False, sms=F32_LONG_SMS):
     """How the fp32 core's long route (``attention_core_snap`` and
     ``attention_core_f32`` above :data:`F32_CORE_MAX_N` or with ``tiled``,
     ``attention_core_f32_bwd`` likewise) covers ``b`` images of ``heads``
     heads of ``n`` tokens (1 to :data:`F32_LONG_MAX_N`) at head width ``d``
-    (32 or 64): {"tiles": the 64-row tiles of a (image, head), each a CTA
-    of the forward's core, dq and dk / dv kernels, "n_pad": n rounded up to
-    :data:`F32_LONG_TILE`, "sweep": whether the forward takes the
-    three-sweep design, "fwd", "dq", "dkdv": each kernel's figures,
-    "launches": {"fwd": 2, "bwd": 4}, "scratch": {"fwd": ..., "bwd": ...}
-    the shapes the wrappers allocate}.  A kernel's figures: "grid" (its
-    CTAs per (image, head)), "rows" (a CTA's own rows), "tile" (the rows of
-    a tile it walks), "threads", "stages" (its ring's tiles), "smem"
-    (dynamic shared memory bytes) and "ctas_per_sm".  The forward is a
-    split pass, then a core kernel of a warpgroup and a producer warp, one
-    CTA an SM.  Up to :data:`F32_LONG_BLOCK_MAX_N` tokens, unless ``sweep``
-    forces the other, the score-block design: its 64 x n_pad fp32 score
-    block and a ring of K or V tiles' bf16 hi and lo halves with what the
-    score block leaves of :data:`F32_LONG_SMEM_OPTIN` (4 stages up to n_pad
-    640, 3 at 704, 2 at 768), beside the full and empty barriers of
-    :data:`F32_LONG_FWD_MAX_STAGES` stages.  Above it the three-sweep
-    design, which walks the K tiles three times and keeps no score block:
-    a ring of :data:`F32_LONG_FWD_MAX_STAGES` stages, the CTA's q rows'
-    halves and the barriers, whatever n.  The backward is a split pass, a dq and a dk / dv kernel
-    of one warpgroup, two CTAs an SM, each holding its own rows' two split
-    operands, a ring of 2 (d 64) or 4 (d 32) stages of two more, the
-    barriers and the stages' release counts and a column-sum buffer of 4
-    warps x 3 sections x d fp32, and the column sums.  Scratch: the
-    forward's "split" (K's and V's hi and lo halves, (4, b, heads, n_pad,
-    d) bf16); the backward's "split" (q's, k's, v's and du's, (8, b,
-    heads, n_pad, d) bf16), "rt" (r rs of every row, (b, heads, n_pad)
-    fp32) and "colpart" (each 64-row tile's column sums, (b, tiles, 3
-    heads d) fp32).  Cached: every long-route call reads it, and the
-    returned dictionary is not to be changed."""
+    (32 or 64) on ``sms`` SMs: {"tiles": the 64-row tiles of a (image,
+    head), "n_pad": n rounded up to :data:`F32_LONG_TILE`, "sweep": whether
+    the forward takes the cluster design, "fwd", "dq", "dkdv": each
+    kernel's figures, "launches": {"fwd": 2, "bwd": 4}, "scratch": {"fwd":
+    ..., "bwd": ...} the shapes the wrappers allocate}.  A kernel's
+    figures: "grid" (its CTAs per (image, head)), "rows" (a CTA's own
+    rows), "tile" (the rows of a tile it walks), "threads", "stages" (its
+    ring's tiles), "smem" (dynamic shared memory bytes), "ctas_per_sm" and,
+    for the forward, "cluster" (its CTAs a cluster).  The forward is a
+    split pass, then a core kernel, one CTA an SM.  Up to
+    :data:`F32_LONG_BLOCK_MAX_N` tokens, unless ``sweep`` forces the other,
+    the score-block design: a CTA a tile of 64 queries, a warpgroup and a
+    producer warp, its 64 x n_pad fp32 score block and a ring of K or V
+    tiles' bf16 hi and lo halves with what the score block leaves of
+    :data:`F32_LONG_SMEM_OPTIN` (4 stages up to n_pad 640, 3 at 704, 2 at
+    768), beside the full and empty barriers of
+    :data:`F32_LONG_FWD_MAX_STAGES` stages.  Above it the cluster design:
+    a cluster of :func:`f32_sweep_cluster` CTAs a tile of 64 queries, each
+    CTA :data:`F32_SWEEP_THREADS` threads holding the scores of ceil(tiles
+    / cluster) key tiles, a ring stage each (:func:`f32_sweep_smem`).  The
+    backward is a split pass, a dq and a dk / dv kernel of one warpgroup,
+    two CTAs an SM, each holding its own rows' two split operands, a ring
+    of 2 (d 64) or 4 (d 32) stages of two more, the barriers and the
+    stages' release counts and a column-sum buffer of 4 warps x 3 sections
+    x d fp32, and the column sums.  Scratch: the forward's "split" (K's
+    and V's hi and lo halves, (4, b, heads, n_pad, d) bf16); the
+    backward's "split" (q's, k's, v's and du's, (8, b, heads, n_pad, d)
+    bf16), "rt" (r rs of every row, (b, heads, n_pad) fp32) and "colpart"
+    (each 64-row tile's column sums, (b, tiles, 3 heads d) fp32).  Cached:
+    every long-route call reads it, and the returned dictionary is not to
+    be changed."""
     if not 1 <= n <= F32_LONG_MAX_N or d not in (32, 64) or b < 1 or \
             heads < 1:
         raise ValueError(f"f32_long_plan: n={n}, d={d}, b={b}, "
@@ -1082,27 +1135,33 @@ def f32_long_plan(n, d, b=1, heads=1, sweep=False):
     pair = 2 * F32_LONG_TILE * 2 * d  # bytes: a tile's hi and lo halves
     bars = 8 * 2 * F32_LONG_FWD_MAX_STAGES
     sweep = bool(sweep) or n > F32_LONG_BLOCK_MAX_N
-    scores = 0 if sweep else n_pad * F32_LONG_TILE * 4
-    fwd_stages = min(F32_LONG_FWD_MAX_STAGES,
-                     (F32_LONG_SMEM_OPTIN - TILE_ALIGN_BYTES - scores - bars)
-                     // pair)
     bwd_stages = 2 if d == 64 else 4
     bwd_smem = (TILE_ALIGN_BYTES + 2 * pair + bwd_stages * 2 * pair
                 + 8 * (1 + 2 * bwd_stages) + 4 * 4 * 3 * d)
 
-    def kernel(threads, stages, smem, ctas):
-        return {"grid": tiles, "rows": F32_LONG_TILE, "tile": F32_LONG_TILE,
+    def kernel(threads, stages, smem, ctas, grid=tiles):
+        return {"grid": grid, "rows": F32_LONG_TILE, "tile": F32_LONG_TILE,
                 "threads": threads, "stages": stages, "smem": smem,
                 "ctas_per_sm": ctas}
 
     bwd = kernel(F32_LONG_BWD_THREADS, bwd_stages, bwd_smem,
                  F32_LONG_BWD_CTAS_PER_SM)
-    own = pair if sweep else 0  # the three-sweep design's q rows
+    if sweep:
+        cluster = f32_sweep_cluster(tiles, b * heads, sms,
+                                    f32_sweep_max_tiles(d))
+        rank_tiles = -(-tiles // cluster)
+        fwd = kernel(F32_SWEEP_THREADS, rank_tiles,
+                     f32_sweep_smem(d, rank_tiles), 1, tiles * cluster)
+    else:
+        cluster, scores = 1, n_pad * F32_LONG_TILE * 4
+        stages = min(F32_LONG_FWD_MAX_STAGES,
+                     (F32_LONG_SMEM_OPTIN - TILE_ALIGN_BYTES - scores - bars)
+                     // pair)
+        fwd = kernel(F32_LONG_FWD_THREADS, stages,
+                     TILE_ALIGN_BYTES + stages * pair + scores + bars, 1)
     return {
         "tiles": tiles, "n_pad": n_pad, "sweep": sweep,
-        "fwd": kernel(F32_LONG_FWD_THREADS, fwd_stages,
-                      TILE_ALIGN_BYTES + fwd_stages * pair + own + scores
-                      + bars, 1),
+        "fwd": dict(fwd, cluster=cluster),
         "dq": bwd, "dkdv": dict(bwd),
         "launches": {"fwd": F32_LONG_FWD_LAUNCHES,
                      "bwd": F32_LONG_BWD_LAUNCHES},
@@ -1114,22 +1173,29 @@ def f32_long_plan(n, d, b=1, heads=1, sweep=False):
     }
 
 
-def f32_long_launch(n, d, sweep=False):
+def f32_long_launch(n, d, sweep=False, bh=1):
     """The launch figures that the fp32 core's long route reports for ``n``
-    tokens at head width ``d`` (the forward's three-sweep design where
-    ``sweep`` or above :data:`F32_LONG_BLOCK_MAX_N`), in the form of
-    :func:`f32_long_plan` without "tiles", "n_pad", "sweep" and "scratch"
-    ("ctas_per_sm" the runtime's occupancy of the compiled kernel)."""
+    tokens of ``bh`` (image, head) pairs at head width ``d`` (the
+    forward's cluster design where ``sweep`` or above
+    :data:`F32_LONG_BLOCK_MAX_N`), in the form of :func:`f32_long_plan`
+    without "tiles", "n_pad", "sweep" and "scratch" ("ctas_per_sm" the
+    runtime's occupancy of the compiled kernel, the forward's cluster size
+    weighed for the device's SMs), and "clusters": the forward's clusters
+    that the runtime fits on the device at once (0 for the score-block
+    design)."""
     from myrtle_vision_tpu_torch.ops import _build
 
     keys = ("grid", "rows", "tile", "threads", "stages", "smem",
             "ctas_per_sm")
-    f = (ctypes.c_int * 23)()
-    _build.check(_lib().mvt_attention_core_f32_long_plan(n, d, int(sweep), f),
+    f = (ctypes.c_int * 25)()
+    _build.check(_lib().mvt_attention_core_f32_long_plan(n, d, int(sweep),
+                                                         bh, f),
                  "f32_long_launch")
     figures = {key: dict(zip(keys, f[7 * i:7 * i + 7]))
                for i, key in enumerate(("fwd", "dq", "dkdv"))}
+    figures["fwd"]["cluster"] = f[23]
     figures["launches"] = {"fwd": f[22], "bwd": f[21]}
+    figures["clusters"] = f[24]
     return figures
 
 
@@ -1517,9 +1583,9 @@ def attention_core_f32_cuda(qkv, heads, scale, site, tiled=False,
     :func:`attention_core_f32_max_n` one CTA per (image, head)
     (csrc/attention_core_f32_wgmma.cu); above it the long route to
     :data:`F32_LONG_MAX_N` (csrc/attention_core_f32_long_wgmma.cu, its
-    int8 mode; the three-sweep design above
+    int8 mode; the cluster design above
     :data:`F32_LONG_BLOCK_MAX_N`), counted as ``attention_core_f32_long``;
-    ``tiled`` takes the long route at any N, ``sweep`` its three-sweep
+    ``tiled`` takes the long route at any N, ``sweep`` its cluster
     design at any N (for holding each against the other)."""
     _require(qkv, "qkv", torch.float32)
     b, n, c3 = qkv.shape
@@ -1714,9 +1780,9 @@ def attention_core_snap_cuda(qkv, heads, scale, qspec, stats=False,
     one CTA per (image, head) (csrc/attention_core_f32_wgmma.cu); above it
     the long route to :data:`F32_LONG_MAX_N`
     (csrc/attention_core_f32_long_wgmma.cu, :func:`f32_long_plan`; the
-    three-sweep design above :data:`F32_LONG_BLOCK_MAX_N`), counted as
+    cluster design above :data:`F32_LONG_BLOCK_MAX_N`), counted as
     ``attention_core_f32_long``; ``tiled`` takes the long route at any N,
-    ``sweep`` its three-sweep design at any N (for holding each against
+    ``sweep`` its cluster design at any N (for holding each against
     the other)."""
     _require(qkv, "qkv", torch.float32)
     b, n, c3 = qkv.shape

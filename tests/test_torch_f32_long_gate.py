@@ -2,7 +2,7 @@
 the JAX package on the CPU, at the widths of yolos_tiny.json and
 vit_tiny.json (dim 192, 3 heads of 64, MLP 768), where the JAX gate
 ``fuses_at`` fuses up to 1017 tokens and the card takes the long core's
-three-sweep design (csrc/attention_core_f32_long_wgmma.cu) above 768:
+cluster design (csrc/attention_core_f32_long_wgmma.cu) above 768:
 
 - the long route's limit against the gate: every length ``fuses_at`` lets
   through at a head width of 32 or 64 is one the route takes;
@@ -63,8 +63,9 @@ def longest_fused(heads, d, gate):
 def test_long_route_takes_every_length_the_gate_fuses():
     """The route's limit is the longest sequence the JAX gate fuses at one
     head of 32 (one head of 64 fuses up to 1806); at 1 to 12 heads of 32
-    or 64 the longest fused length is within it, takes the three-sweep
-    design above 768 tokens, and is not refused; one more than the limit
+    or 64 the longest fused length is within it, takes the cluster
+    design above 768 tokens (its clusters hold every key tile), and is not
+    refused; one more than the limit
     is refused, naming the gate."""
     assert longest_fused(1, 32, jfa.fuses_at) == K.F32_LONG_MAX_N == 1837
     assert longest_fused(1, 64, jfa.fuses_at) == 1806
@@ -79,10 +80,12 @@ def test_long_route_takes_every_length_the_gate_fuses():
             assert plan["sweep"] == (n > K.F32_LONG_BLOCK_MAX_N)
     for n in (769, 1001, 1806, K.F32_LONG_MAX_N):
         for d in (32, 64):
-            fwd = K.f32_long_plan(n, d)["fwd"]
-            pair = 2 * 64 * 2 * d
-            assert fwd["stages"] == K.F32_LONG_FWD_MAX_STAGES
-            assert fwd["smem"] == 1024 + 5 * pair + 64
+            plan = K.f32_long_plan(n, d)
+            fwd = plan["fwd"]
+            assert fwd["cluster"] * fwd["stages"] >= plan["tiles"]
+            assert fwd["stages"] <= K.f32_sweep_max_tiles(d)
+            assert fwd["smem"] == K.f32_sweep_smem(d, fwd["stages"]) <= \
+                K.F32_LONG_SMEM_OPTIN
     with pytest.raises(NotImplementedError, match="fused gate"):
         K._long_route(K.F32_LONG_MAX_N + 1, "attention_core_f32")
     with pytest.raises(ValueError):

@@ -243,22 +243,31 @@ def test_f32_long_plan_fits_shared_memory(d):
     """At every length from 257 to 768 tokens the forward's score block and
     a ring of at least two stages fit the 232,448 bytes a CTA may ask for,
     the ring taking what the score block leaves (at most four stages: at d
-    64 four up to n_pad 640, three at 704, two at 768), and two backward
-    CTAs fit an SM's 233,472 bytes with the 1,024 the card keeps for
-    each."""
+    64 four up to n_pad 640, three at 704, two at 768); above it the
+    cluster design's CTAs, a cluster of 1, 2, 4 or 8 holding every key
+    tile, fit it too; at every length two backward CTAs fit an SM's
+    233,472 bytes with the 1,024 the card keeps for each."""
     pair = 2 * 64 * 2 * d
     seen = set()
     for n in range(257, K.F32_LONG_MAX_N + 1):
         plan = K.f32_long_plan(n, d)
         fwd = plan["fwd"]
         assert fwd["smem"] <= K.F32_LONG_SMEM_OPTIN == 232448, n
+        for kernel in ("dq", "dkdv"):
+            assert 2 * (plan[kernel]["smem"] + K.CTA_RESERVED_BYTES) <= \
+                K.SM_SHARED_BYTES, (n, kernel)
+        if plan["sweep"]:
+            # the cluster design: a stage for each of a CTA's key tiles,
+            # the cluster's CTAs holding every tile
+            assert fwd["cluster"] in (1, 2, 4, 8), n
+            assert fwd["cluster"] * fwd["stages"] >= plan["tiles"], n
+            assert fwd["stages"] <= K.f32_sweep_max_tiles(d), n
+            assert fwd["grid"] == plan["tiles"] * fwd["cluster"], n
+            continue
         assert 2 <= fwd["stages"] <= K.F32_LONG_FWD_MAX_STAGES, n
         if fwd["stages"] < K.F32_LONG_FWD_MAX_STAGES:
             assert fwd["smem"] + pair > K.F32_LONG_SMEM_OPTIN, n
         seen.add((plan["n_pad"], fwd["stages"]))
-        for kernel in ("dq", "dkdv"):
-            assert 2 * (plan[kernel]["smem"] + K.CTA_RESERVED_BYTES) <= \
-                K.SM_SHARED_BYTES, (n, kernel)
     if d == 64:
         assert {(640, 4), (704, 3), (768, 2)} <= seen
     else:

@@ -2750,6 +2750,82 @@ def test_f32_sweep_core_forced_against_the_block_design(dev, n, d, heads):
           "(FP16_32 context, INT8 site context, int8 grid)")
 
 
+# The cluster design past 768 tokens (attention_core_f32_cluster_kernel):
+# (B, N, D, heads) at just past the score block's top (13 key tiles: a
+# cluster of 4 at 3 heads, the last rank one tile; a cluster of 8 at one
+# (image, head), the last rank none), YOLOS-Ti's 480 px canvas, and the
+# route's top at one head of 32 and of 64 (29 tiles, no multiple of the
+# cluster); each at the plan's cluster for its (image, head) pairs
+F32_CLUSTER_CASES = [(2, 769, 64, 3), (1, 769, 64, 1), (2, 1001, 64, 3),
+                     (2, 1837, 32, 1), (1, 1837, 32, 1), (2, 1806, 64, 1),
+                     (8, 1001, 32, 3)]
+
+
+@pytest.mark.parametrize("b,n,d,heads", F32_CLUSTER_CASES)
+def test_f32_cluster_core_modes_and_bits(dev, b, n, d, heads):
+    """Each mode of the cluster design (a float format's snap with the
+    statistics, INT8 QAT's site snap with the statistics, the int8 grid)
+    against the plain version at its bar, the row max the plain version's
+    bit for bit (its scores are the plain version's in-order sums), and
+    every output again, bit for bit, from a second call (no atomics: the
+    ranks' rowsums and partial contexts add in rank order)."""
+    from myrtle_vision_tpu_torch.ops.fake_quant import Int8Sites
+
+    scale = d ** -0.5
+    qkv = f32_core_qkv(b, n, heads, d, 5 * n + d + b, dev)
+    site = site_of(K.attention_context_f32(qkv, heads, scale))
+    qspec = F32_CORE_QSPECS["FP16_32"]
+    runs = {
+        "float": lambda: K.attention_core_snap_cuda(qkv, heads, scale, qspec,
+                                                    stats=True),
+        "site": lambda: K.attention_core_snap_cuda(
+            qkv, heads, scale, Int8Sites(site), stats=True),
+        "grid": lambda: K.attention_core_f32_cuda(qkv, heads, scale, site)}
+    refs = {
+        "float": K.attention_core_snap_plain(qkv, heads, scale, qspec,
+                                             stats=True),
+        "site": K.attention_core_snap_plain(qkv, heads, scale,
+                                            Int8Sites(site), stats=True),
+        "grid": K.attention_core_f32_plain(qkv, heads, scale, site)}
+    for mode, run in runs.items():
+        before = K.LAUNCHES["attention_core_f32_long"]
+        got = run()
+        assert K.LAUNCHES["attention_core_f32_long"] == \
+            before + K.F32_LONG_FWD_LAUNCHES, mode
+        ref = refs[mode]
+        if mode == "grid":
+            close_on_grid(got, ref, 1)
+        else:
+            if mode == "float":
+                close_float(got[0], ref[0], qspec)
+            else:
+                close_sites(got[0], ref[0], step_of(site))
+            assert torch.equal(got[1], ref[1]), mode
+            close(got[2], ref[2])
+        _same_twice(run, got)
+
+
+def test_f32_cluster_launches_match_the_plan(dev):
+    """The cluster design's own figures for the (image, head) pairs of the
+    main path's shapes (cluster size, CTAs per (image, head), key tiles a
+    CTA, shared memory, threads, CTAs an SM) against K.f32_long_plan with
+    the device's SM count, and at least one cluster of that size fitting
+    the device at once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(n, d, b * heads) for b, n, d, heads in F32_CLUSTER_CASES]
+    cases += [(n, d, bh) for n in (257, 300, 677, 768, 769, 1001, 1837)
+              for d in (32, 64) for bh in (1, 6, 24, 64)]
+    for n, d, bh in cases:
+        plan = K.f32_long_plan(n, d, b=bh, sweep=True, sms=sms)
+        got = K.f32_long_launch(n, d, sweep=True, bh=bh)
+        assert got["fwd"] == plan["fwd"], (n, d, bh)
+        assert got["clusters"] >= 1, (n, d, bh)
+        fwd = plan["fwd"]
+        assert fwd["cluster"] * fwd["stages"] >= plan["tiles"], (n, d, bh)
+        assert fwd["ctas_per_sm"] == 1 and \
+            fwd["smem"] <= K.F32_LONG_SMEM_OPTIN, (n, d, bh)
+
+
 # ------------------------------------------------ distillation (DeiT)
 # The teacher's convolutions run in fp32 without TF32 on the card, so its
 # logits are the CPU's up to fp32 roundoff (cuDNN's and the CPU's sums

@@ -474,3 +474,19 @@ def test_unported_options_raise(synth):
     model = ViT(**{**KW, "q_format": "PyTorchINT8"}, converted=True)
     with pytest.raises(NotImplementedError, match="A5b"):
         model(torch.zeros(1, 80, 80, 3), capture_attention=True)
+
+
+@pytest.mark.parametrize("env", [("MVT_INT8_FUSE", "0"),
+                                 ("MVT_NO_FUSE", "1")])
+def test_converted_int8_refuses_the_discrete_block(monkeypatch, env):
+    """Under ``MVT_INT8_FUSE=0`` (as under ``MVT_NO_FUSE=1``) the JAX
+    converted Block runs its discrete form, which the port does not have
+    yet: a converted PyTorchINT8 model raises naming A5b rather than run
+    the fused kernels; with the variable unset it runs them."""
+    model = ViT(**{**KW, "q_format": "PyTorchINT8"}, converted=True)
+    img = torch.zeros(1, 80, 80, 3)
+    monkeypatch.setenv(*env)
+    with pytest.raises(NotImplementedError, match="A5b"):
+        model(img)
+    monkeypatch.delenv(env[0])
+    assert bool(torch.isfinite(model(img)).all())

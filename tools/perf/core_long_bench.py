@@ -9,7 +9,7 @@ INT8 QAT and converted INT8 (``attention_core_snap``,
 ``layernorm_snap_rows``.
 
     python3 tools/perf/core_long_bench.py <root> [<root> ...] [--rounds 1]
-        [--groups bf16,f32,ln]
+        [--groups bf16,f32,ln,sweep]
 
 Each round runs the roots in order and then in reverse (parent, change,
 change, parent for two), each in a fresh process that puts its root
@@ -44,7 +44,14 @@ seed, beside PyTorch yardsticks on the same inputs and each call's bound
   K11 (``fake_quant_rows``, e5m10) on the patch embedding's (256, 196,
   768) input.
 
-``--groups`` picks the groups (all three by default).  Each root also
+- sweep: the fp32 core's forward past its score block (past 768 tokens,
+  the cluster design), FP16_32 with
+  statistics, at chip_smoke.py's ``SWEEP_TIMED`` shapes: YOLOS-Ti's 480
+  px micro-batch (2, 3 heads of 64, N = 1001), batch 8, and the fused
+  gate's longest (2, one head of 32, N = 1837); fp32 qkv rows at std 1;
+  the yardstick fp32 ``F.scaled_dot_product_attention``.
+
+``--groups`` picks the groups (all four by default).  Each root also
 saves its outputs of the first round, and the tool prints for every
 later root, case by case, the count of elements whose bits differ from
 the first root's and the largest |difference|.  Prints one
@@ -58,7 +65,7 @@ import subprocess
 import sys
 import tempfile
 
-GROUPS = ("bf16", "f32", "ln")
+GROUPS = ("bf16", "f32", "ln", "sweep")
 SHAPES = ((8, 677), (2, 677))
 F32_SHAPES = ((8, 677), (2, 677))
 F32_INT8_SHAPE = (8, 577)
@@ -68,6 +75,8 @@ LN_COLS = 384
 LN_CASES = ((256 * 197, "FP16_32"), (256 * 197, "int8"),
             (256 * 577, "FP16_32"), (256 * 577, "int8"), (2 * 677, "FP16_32"))
 LN_BWD_CASE = f"layernorm_snap_rows_bwd FP16_32 rows={LN_CASES[0][0]}"
+# the sweep group's (B, heads, N, D)
+SWEEP_SHAPES = ((2, 3, 1001, 64), (8, 3, 1001, 64), (2, 1, 1837, 32))
 K11_SHAPE = (256, 196, 768)
 K11_CASE = "fake_quant_rows e5m10 (256, 196, 768)"
 FC1_CASE = f"gemm_f32x3_epilogue fc1 FP16_32 rows={LN_CASES[0][0]}"
@@ -238,7 +247,30 @@ def ln_cases(torch, K, dev):
     return cases, kept
 
 
-CASE_GROUPS = {"bf16": bf16_cases, "f32": f32_cases, "ln": ln_cases}
+def sweep_cases(torch, K, dev):
+    """({case: thunk}, the cases whose outputs are compared across roots)
+    of the fp32 core's forward past 768 tokens and its yardstick."""
+    import torch.nn.functional as F
+
+    cases, kept = {}, set()
+    for b, h, n, d in SWEEP_SHAPES:
+        gen = torch.Generator(dev).manual_seed(1000 * b + n)
+        qkv = torch.randn(b, n, 3 * h * d, device=dev, generator=gen)
+        q, k, v = (t.contiguous() for t in qkv.view(
+            b, n, 3, h, d).permute(2, 0, 3, 1, 4))
+        tag = f"B={b} H={h} N={n} D={d}"
+        name = f"f32 forward past 768 FP16_32+stats {tag}"
+        cases[name] = lambda qkv=qkv, h=h, d=d: K.attention_core_snap_cuda(
+            qkv, h, d ** -0.5, (5, 10, False), stats=True)
+        kept.add(name)
+        cases[f"fp32 SDPA forward {tag}"] = \
+            lambda q=q, k=k, v=v, d=d: F.scaled_dot_product_attention(
+                q, k, v, scale=d ** -0.5)
+    return cases, kept
+
+
+CASE_GROUPS = {"bf16": bf16_cases, "f32": f32_cases, "ln": ln_cases,
+               "sweep": sweep_cases}
 
 
 def measure(root, save, groups):
@@ -353,6 +385,18 @@ def bounds(groups):
         else:
             rows.append((f"f32 forward FP16_32+stats {tag}",
                          cost(qkv + ctx + 2 * bhn, 3 * 2 * flops, "bf16")))
+    for b, h, n, d in SWEEP_SHAPES if "sweep" in groups else ():
+        # S and P V once at three bf16 passes; the fp32 qkv read and the
+        # context and both statistics written once; beside it S once on
+        # the FMA units (3 d fp32 FMAs a score, the keys padded to 64)
+        tag = f"B={b} H={h} N={n} D={d}"
+        flops = 2 * b * h * n * n * d
+        moved = 4 * b * n * 4 * h * d + 8 * b * h * n
+        fma = 3 * d * (-(-n // 64) * 64) * n * b * h
+        rows += [(f"f32 forward past 768 FP16_32+stats {tag}",
+                  cost(moved, 3 * 2 * flops, "bf16")),
+                 (f"f32 forward past 768 FP16_32+stats {tag}, S once on "
+                  "the FMA units", cost(0, 2 * fma, "fp32"))]
     for name, c_ in rows:
         ms, by = bound(c_)
         print(f"core_long_bench: {name} bound {ms:.4f} ms ({by}: "
