@@ -2429,7 +2429,8 @@ def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
     ``criterion`` (logits, labels) -> loss is the CLI's loss, by default
     the classifier's cross entropy; with ``teacher`` the model is a
     DistillWrapper and the loss its distillation loss against the
-    teacher's logits."""
+    teacher's logits (a PyTorchINT8 student's one-pass step: its
+    calibrating forward, differentiated)."""
     from myrtle_vision_tpu_torch.training.optim import cross_entropy_loss
     from myrtle_vision_tpu_torch.utils.convert import (
         load_reference_checkpoint,
@@ -2454,7 +2455,7 @@ def first_step_check(model, train_loader, init_ckpt, n_accum, micro,
             labels = batch["label"][sl]
             if teacher is not None:
                 loss = model(images, labels.long(), teacher(images),
-                             plain=plain)[0]
+                             plain=plain, calibrating=model.student.int8)[0]
             else:
                 logits = (two_pass(model, images, plain) if int8
                           else model(images, plain=plain))
@@ -3356,6 +3357,262 @@ def int8_train_and_ptq(device, data_config, config, name, tag, label):
           f"converted {size} px kernel-path logits disagree with the plain "
           "path")
     return launches, ptq_launches, saved, kwargs
+
+
+# the converted model past the fused gate (phase ptq-gate): ViT-S/16 at
+# 448 px, 785 tokens, past the 701 that fuses_at lets through at 6 heads
+# of 64, and the batch of its timing line
+GATE_SIZE = 448
+GATE_BATCH = 32
+
+
+def phase_ptq_gate(device, power, int8_ckpt):
+    """The converted INT8 model past the fused gate, where the JAX model
+    runs its discrete converted Block: the PTQ CLI on vit_small.json in
+    PyTorchINT8 at 448 px (785 tokens), phase 4's weights, on the 384 px
+    set's images resized to 448 px: 2 calibration batches, convert, the
+    test split through the discrete Block (each projection through
+    ``gemm_s8_epilogue``, each LayerNorm with statistics through
+    ``layernorm_quant_rows``, the fp32 ``xla`` core and the requants as
+    PyTorch operations); its launches, no fused op and no plain call; the
+    converted forward stage by stage against the plain path (the kernel
+    and chain bars), the CLI's logits against the plain path's (the
+    converted model's end-to-end bar); both kernels at the path's
+    shapes against their plain versions, timed; a timing line of the
+    discrete forward at 448 px beside the fused one at 384 px; then the
+    converted 224 px model of phase quantize fused and under
+    ``MVT_INT8_FUSE=0``.  Returns (the PTQ CLI's kernel launches, {kernel:
+    largest error against its plain version}, the kernels' timings per
+    block at B=32)."""
+    from myrtle_vision_tpu_torch.classification import test_quantize as cli
+    from myrtle_vision_tpu_torch.classification.test import evaluate_dataset
+    from myrtle_vision_tpu_torch.models.vit import ViT
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops.attention import multi_head_attention
+    from myrtle_vision_tpu_torch.ops.fused_attention_block import fuses_at
+    from myrtle_vision_tpu_torch.utils.convert import (
+        load_reference_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    tag = "ptq-gate"
+    with open(os.path.join(WORK, "data_config_384.json")) as f:
+        data_config = json.load(f)
+    data_config["transform_ops_val"]["Resize"] = GATE_SIZE
+    config = vit_small_config()
+    vc, tc = config["vit_config"], config["train_config"]
+    vc.update(q_format="PyTorchINT8", image_size=GATE_SIZE)
+    config["data_config_path"] = write_json("data_config_448.json",
+                                            data_config)
+    tc.update(checkpoint_path=os.path.join(WORK, "vit_small_seed0.pth"),
+              drop_last_batch=False)
+    cfg = write_json("vit_small_int8_448.json", config)
+    depth, heads, c = vc["depth"], vc["heads"], vc["embed_dim"]
+    n = (GATE_SIZE // vc["patch_size"]) ** 2 + 1
+    top = max(m for m in range(1, n) if fuses_at(m, heads, c // heads))
+    check(not fuses_at(n, heads, c // heads), f"{tag}: {n} tokens fuse")
+
+    saved = os.path.join(WORK, "vit_small_int8_448_converted.pth")
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with counting_plain_calls() as plain_calls, \
+            contextlib.redirect_stdout(out):
+        gts, preds, logits = cli.main(["-c", cfg, "--device", "cuda",
+                                       "--calib_steps", "2",
+                                       "--save_converted", saved])
+    launches, ops = read_counts()
+    took = time.perf_counter() - t0
+    micro = tc["local_batch_size"]
+    batches = math.ceil(len(gts) / micro)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(layernorm_quant_rows=(2 * depth + 1) * batches,
+                  gemm_s8_epilogue=(4 * depth + 2) * batches)
+    print(f"{tag}: ViT-S/16 PTQ CLI (PyTorchINT8) at {GATE_SIZE} px, {n} "
+          f"tokens past the fused gate's {top} at {heads} heads of "
+          f"{c // heads}, on cuda in {took:.1f} s: {len(gts)} test images "
+          f"in {batches} batches, accuracy {float(np.mean(gts == preds)):.4f};"
+          f" op launches {ops}; plain-version calls {plain_calls['n']}; "
+          f"kernels { {k: v for k, v in launches.items() if v} }, expected "
+          f"{ {k: v for k, v in expect.items() if v} }")
+    check(all(v == (0, 0) for v in ops.values()), f"{tag}: a fused op ran")
+    check(launches == expect, f"{tag}: kernel launches {launches}")
+    check(plain_calls["n"] == 0, f"{tag}: a plain version ran")
+    check(logits.shape == (len(gts), data_config["number_of_classes"])
+          and bool(torch.isfinite(logits).all()), f"{tag}: logits")
+
+    with open(cfg) as f:
+        config = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, test_loader, _, kwargs = cli.build_quantize(config, device)
+    model = ViT(**dict(kwargs, converted=True), device=device)
+    model.load_state_dict(load_reference_checkpoint(saved), strict=True)
+    model.eval()
+    epoch = test_loader.epoch(0)
+    img = next(epoch)["image"]
+    epoch.close()
+    # stage by stage under the kernel and chain bars; end to end, flips
+    # compound over 12 blocks, so the CLI's logits are held to the
+    # converted model's end-to-end bar against the plain path's, as in
+    # phase quantize
+    stage_check(model, test_loader, tag=tag)
+    with torch.inference_mode():
+        _, plain_preds, plain_logits = evaluate_dataset(
+            lambda images: model(images, plain=True), test_loader)
+    step = float(model.io_sites[3][0])
+    diff = (logits - plain_logits).abs()
+    limit = INT8_LOGIT_BAR * max(1.0, plain_logits.abs().max().item())
+    agree = float(np.mean(preds == plain_preds))
+    first = diff[:img.shape[0]]
+    print(f"{tag}: kernel vs plain converted logits max_abs "
+          f"{diff.max().item():.6g} ({diff.max().item() / step:.3g} steps of "
+          f"the head's grid {step:.6g}; bar {limit:.6g}), "
+          f"{(diff == 0).float().mean().item():.4f} of them identical "
+          f"(the first batch: {(first == 0).float().mean().item():.4f}, "
+          f"{first.max().item() / step:.3g} steps), argmax agreement "
+          f"{agree:.4f} (bar {INT8_ARGMAX_BAR})")
+    check(diff.max().item() <= limit and agree >= INT8_ARGMAX_BAR,
+          f"{tag}: converted kernel-path logits disagree with the plain path")
+
+    # both kernels at the path's shapes: block 0 of the first test batch,
+    # each input from the plain path's own chain
+    block = model.transformer.layers[0]
+    sa, sm = model.block_sites[0]
+    a, f = block._modules["0"].fn, block._modules["1"].fn
+    qkv, o, fc1, fc2 = block._linears()
+    with torch.inference_mode():
+        x = model.embed_converted(img, K.PLAIN).reshape(-1, c)
+        q8 = K.layernorm_quant_rows_plain(x, a.norm.weight, a.norm.bias,
+                                          sa[0])
+        y = K.gemm_s8_epilogue_plain(q8, qkv.weight.t(), qkv.weight_colsum,
+                                     qkv.weight_scale, sa[0], qkv.bias,
+                                     "requant", sa[1])
+        qh, kh, vh = y.view(img.shape[0], n, 3, heads, -1).permute(
+            2, 0, 3, 1, 4)
+        ctx = multi_head_attention(qh, kh, vh, block.scale, impl="xla")
+        c8 = K.quantize_i8(K.requant(ctx.transpose(1, 2).reshape(-1, c),
+                                     sa[2]), sa[2])
+        y = K.gemm_s8_epilogue_plain(c8, o.weight.t(), o.weight_colsum,
+                                     o.weight_scale, sa[2], o.bias,
+                                     "requant", sa[3])
+        x1 = K.requant(y + x, sa[4])
+        h8 = K.layernorm_quant_rows_plain(x1, f.norm.weight, f.norm.bias,
+                                          sm[0])
+        h = K.gemm_s8_epilogue_plain(h8, fc1.weight.t(), fc1.weight_colsum,
+                                     fc1.weight_scale, sm[0], fc1.bias,
+                                     "requant", sm[1])
+        g8 = K.quantize_i8(K.requant(torch.nn.functional.gelu(h), sm[2]),
+                           sm[2])
+    totals, errors = {}, {}
+    shape = f"B={img.shape[0]} N={n} (discrete converted Block)"
+
+    def ln_case(xin, norm, site):
+        return (lambda: K.layernorm_quant_rows_cuda(xin, norm.weight,
+                                                    norm.bias, site),
+                lambda: K.layernorm_quant_rows_plain(xin, norm.weight,
+                                                     norm.bias, site),
+                1.0, cost(nbytes(xin) * 5 // 4 + nbytes(norm.weight,
+                                                        norm.bias),
+                          10 * xin.numel(), "fp32"))
+
+    def mm_case(ain, lin, a_site, site):
+        args = (ain, lin.weight.t(), lin.weight_colsum, lin.weight_scale,
+                a_site, lin.bias, "requant", site)
+        w = lin.weight.t()
+        m, kk, nn = ain.shape[0], ain.shape[1], w.shape[1]
+        return (lambda: K.gemm_s8_epilogue_cuda(*args),
+                lambda: K.gemm_s8_epilogue_plain(*args), float(site[0]),
+                cost(nbytes(ain, w, lin.weight_colsum, lin.bias) + 4 * m * nn,
+                     2 * m * nn * kk, "int8",
+                     lambda: torch._int_mm(ain, w)))
+
+    cases = [("layernorm_quant_rows[attn_norm]", ln_case(x, a.norm, sa[0])),
+             ("layernorm_quant_rows[ffn_norm]", ln_case(x1, f.norm, sm[0])),
+             ("gemm_s8_epilogue[qkv,requant]", mm_case(q8, qkv, sa[0], sa[1])),
+             ("gemm_s8_epilogue[out,requant]", mm_case(c8, o, sa[2], sa[3])),
+             ("gemm_s8_epilogue[fc1,requant]",
+              mm_case(h8, fc1, sm[0], sm[1])),
+             ("gemm_s8_epilogue[fc2,requant]",
+              mm_case(g8, fc2, sm[2], sm[3]))]
+    with torch.inference_mode():
+        for name, (kernel, plain, grid, c_) in cases:
+            max_abs, of_bar = compare_grid(f"{tag}: {name}", kernel(),
+                                           plain(), grid)
+            key = name.split("[")[0]
+            errors[key] = max(errors.get(key, 0.0), max_abs)
+            print(f"{tag}: {name} {shape} kernel vs plain: max_abs "
+                  f"{max_abs:.6g}, {of_bar:.4f} of the INT8 bar")
+            time_case(totals, name, kernel, plain, 1, c_, power, shape)
+
+    # the discrete forward at 448 px beside the fused one at 384 px, the
+    # same converted weights (the positions interpolated)
+    gen = torch.Generator(device).manual_seed(448)
+    fused = ViT(**dict(kwargs, image_size=384, converted=True),
+                device=device)
+    fused.load_state_dict(load_reference_checkpoint(saved), strict=True)
+    fused.eval()
+    groups = {"gemm_s8_epilogue": ("gemm_s8",),
+              "layernorm_quant_rows": ("layernorm_quant_rows",),
+              "attention_core_f32_long (int8 mode)": (
+                  "f32_long_kv_split_kernel",
+                  "attention_core_f32_long_kernel")}
+    lines = []
+    for net, size in ((model, GATE_SIZE), (fused, 384)):
+        imgs = torch.randn(GATE_BATCH, size, size, 3, device=device,
+                           generator=gen)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: net(imgs), iters=5, warmup=2)
+            torch.cuda.reset_peak_memory_stats(device)
+            net(imgs)
+            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+            profile = device_profile(lambda: net(imgs), groups)
+        tokens = (size // 16) ** 2 + 1
+        lines.append(f"{'discrete' if size == GATE_SIZE else 'fused'} Block "
+                     f"at {size} px ({tokens} tokens) {ms:.3f} ms = "
+                     f"{GATE_BATCH / ms * 1e3:.1f} img/s, peak "
+                     f"{peak:.2f} GiB; {profile}")
+        del imgs
+    print(f"timing: converted INT8 ViT-S/16 forward B={GATE_BATCH} (CUDA "
+          f"events, 5 calls): " + " | ".join(lines) + f" [{power}]")
+    del fused, model
+
+    # the converted 224 px model of phase quantize, fused and discrete
+    with open(os.path.join(WORK, "vit_small_int8.json")) as f:
+        config224 = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, loader224, _, kw224 = cli.build_quantize(config224, device)
+    conv = ViT(**dict(kw224, converted=True), device=device)
+    conv.load_state_dict(load_reference_checkpoint(int8_ckpt), strict=True)
+    conv.eval()
+    runs = {}
+    for mode in ("fused", "discrete"):
+        if mode == "discrete":
+            os.environ["MVT_INT8_FUSE"] = "0"
+        reset_counts()
+        try:
+            with torch.inference_mode():
+                runs[mode] = torch.cat([conv(batch["image"])
+                                        for batch in loader224.epoch(0)])
+        finally:
+            os.environ.pop("MVT_INT8_FUSE", None)
+        runs[mode + " ops"] = read_counts()[1]["int8_attention_block"][0]
+    diff = (runs["fused"] - runs["discrete"]).abs()
+    agree = (runs["fused"].argmax(-1) == runs["discrete"].argmax(-1)
+             ).float().mean().item()
+    print(f"{tag}: the converted 224 px model ({len(loader224.dataset)} "
+          f"test images, the last batch padded) fused ({runs['fused ops']} int8_attention_block "
+          f"launches) against MVT_INT8_FUSE=0 ({runs['discrete ops']}): "
+          f"logits max |d| {diff.max().item():.6g} of a largest "
+          f"{runs['fused'].abs().max().item():.4g}, "
+          f"{(diff > 0).float().mean().item():.4f} of them differ (flips: "
+          f"the kernels' polynomial erf and fused core against the exact "
+          f"erf and the xla core), argmax agreement {agree:.4f} (printed, "
+          f"not held)")
+    check(runs["discrete ops"] == 0 and runs["fused ops"] > 0
+          and bool(torch.isfinite(runs["discrete"]).all()),
+          f"{tag}: MVT_INT8_FUSE=0 did not run the discrete Block")
+    print(f"{tag}: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches, errors, totals
 
 
 def phase_quantize(device, data_config, data_cfg):
@@ -4776,6 +5033,9 @@ def time_seg(device, power, data_config):
 
 # the student's train split in the distill phase: 3 steps of 2 x 32
 DISTILL_TRAIN = 192
+# the quantized students of phase distill (2 steps of 2 x 32 each)
+DISTILL_FORMATS = ("FP16_32", "PyTorchINT8")
+DISTILL_FORMAT_TRAIN = 128
 # the teacher on the card against the same teacher on the CPU, fp32
 # without TF32 on both: 1e-4 of the largest logit (TF32 would be ~1e-3)
 TEACHER_BAR = 1e-4
@@ -4809,9 +5069,9 @@ def recording_tokens():
     seen = []
     op = vit.fused_attention_block
 
-    def record(x, *args):
+    def record(x, *args, **kwargs):
         seen.append(x.shape[1])
-        return op(x, *args)
+        return op(x, *args, **kwargs)
 
     vit.fused_attention_block = record
     try:
@@ -4994,8 +5254,138 @@ def phase_distill(device, power, data_config, data_cfg):
                   for k in exported), "distill: the export holds more than "
           "the student")
     check(same, "distill: the exported student's logits differ")
+    for q_format in DISTILL_FORMATS:
+        distill_student(device, data_config, lines, teacher_pth, q_format)
     time_distill(device, power, config, data_config)
     print(f"distill: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def distill_student(device, data_config, lines, teacher_pth, q_format):
+    """deit_small.json's student in a quantized ``q_format`` through the
+    port's CLIs on the card: the train CLI distils it for 2 steps of 2 x
+    32 from the seed (FP16_32: its QAT simulation, the fused K1-K4
+    ``qspec`` chains at 198 tokens forward and backward and K11 at the
+    sites outside them, launches and token counts; PyTorchINT8: the
+    one-pass step, the calibrating forward differentiated, PyTorch
+    operations as in the JAX package, no kernel of the port), no plain
+    call; the first step kernel vs plain (the FP32 bars, as phases qat
+    and qat-int8 hold their first steps); the eval CLI reads the last
+    checkpoint's student (the INT8 simulation's eval forward), and the
+    export CLI writes its parameters under the reference names (FP16_32:
+    the QAT-prepared ``.1`` names), bit for bit, no observer."""
+    from myrtle_vision_tpu_torch.classification import (
+        export_checkpoint,
+    )
+    from myrtle_vision_tpu_torch.classification import test as eval_cli
+    from myrtle_vision_tpu_torch.classification import train as train_cli
+    from myrtle_vision_tpu_torch.utils.convert import (
+        load_reference_checkpoint,
+    )
+    from myrtle_vision_tpu_torch.utils.export import export_state_dict
+
+    tag = f"distill-{q_format}"
+    int8 = q_format == "PyTorchINT8"
+    t0 = time.perf_counter()
+    data = data_config["dataset_path"]
+    name = f"train_distill_{q_format}_imagepaths.txt"
+    with open(os.path.join(data, name), "w") as f:
+        f.write("\n".join(lines[:DISTILL_FORMAT_TRAIN]))
+    config = deit_small_config(write_json(
+        f"distill_{q_format}_data_config.json",
+        dict(data_config, train_files=name)), teacher_pth)
+    config["vit_config"]["q_format"] = q_format
+    tc = config["train_config"]
+    tc["output_directory"] = os.path.join(WORK, f"distill_{q_format}")
+    cfg = write_json(f"deit_small_{q_format}.json", config)
+    depth = config["vit_config"]["depth"]
+    reset_counts()
+    out = io.StringIO()
+    with counting_plain_calls() as plain_calls, recording_tokens() as \
+            tokens, contextlib.redirect_stdout(out):
+        state = train_cli.main(["-c", cfg, "--device", "cuda"])
+    launches, ops = read_counts()
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("Iteration", "Epoch", "WARNING")):
+            print(f"{tag}: {line.strip()}")
+    steps = state.iteration
+    losses = [float(v) for v in
+              re.findall(r"Iteration \d+:\tloss=(\S+)\tacc=", text)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, train_loader, val_loader, (micro, n_accum) = \
+            train_cli.build_train(config, device)
+    validations = len(range(0, steps, tc["iters_per_val"]))
+    val_batches = len(val_loader)
+    bwd = 0 if int8 else depth * n_accum * steps
+    fwd = 0 if int8 else bwd + 2 * depth * validations * val_batches
+    n198 = 0 if int8 else bwd + depth * validations * val_batches
+    counted = {n: tokens.count(n) for n in sorted(set(tokens))}
+    want = {} if int8 else {197: fwd - n198, 198: n198}
+    kernels = (FLOAT_KERNELS + ("attention_core_f32",) + QAT_KERNELS
+               + ("colsum_rows",))
+    print(f"{tag}: deit_small.json's student in {q_format} at full width, "
+          f"train CLI on cuda, {steps} steps of {n_accum} x {micro} images "
+          f"and {validations} validation of {val_batches} batches in "
+          f"{time.perf_counter() - t0:.1f} s: op launches (forward, "
+          f"backward) {ops}, expected ({fwd}, {bwd}) of the two fused ops; "
+          f"attention calls by token count {counted}, expected {want}; "
+          f"plain-version calls {plain_calls['n']}; kernels "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(steps == DISTILL_FORMAT_TRAIN // tc["global_batch_size"] == 2
+          and len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"{tag}: {steps} steps, losses {losses}")
+    for op, count in ops.items():
+        check(count == ((fwd, bwd) if op in ("fused_attention_block",
+                                             "fused_mlp_block") else (0, 0)),
+              f"{tag}: {op} launches {count}")
+    check(counted == want, f"{tag}: token counts {counted}")
+    check(plain_calls["n"] == 0, f"{tag}: a plain version ran")
+    check(all(v == 0 for v in launches.values()) if int8
+          else all(launches[k] > 0 for k in kernels),
+          f"{tag}: kernel launches {launches}")
+    run_dir = text.split("output directory: ")[1].split("\n")[0]
+    ckpts = sorted(os.listdir(run_dir))
+    check(ckpts == ["vit_000000", f"vit_{steps:06}"], f"{tag}: {ckpts}")
+    payload = torch.load(os.path.join(run_dir, ckpts[-1]), weights_only=True)
+    observers = [k for k in payload["model"] if k.endswith((".min", ".max"))]
+    sites = [k for k in observers if k.startswith((
+        "student.quant_distill_token.", "student.distill_token_cat."))]
+    check(len(sites) == (4 if int8 else 0)
+          and (len(observers) == 2 * (6 + 3 + 10 * depth) + 4 if int8
+               else not observers), f"{tag}: observers {len(observers)}")
+    first_step_check(model, train_loader, os.path.join(run_dir, "vit_000000"),
+                     n_accum, micro, losses[0], tag=tag,
+                     teacher=train_cli.build_teacher(config, device))
+    del model, train_loader, val_loader
+
+    ckpt = os.path.join(run_dir, ckpts[-1])
+    config["train_config"]["checkpoint_path"] = ckpt
+    eval_cfg = write_json(f"deit_small_{q_format}_eval.json", config)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gts, preds, logits = eval_cli.main(["-c", eval_cfg, "--device",
+                                            "cuda"])
+    _, ops_eval = read_counts()
+    pth = os.path.join(WORK, f"deit_small_{q_format}_student.pth")
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_checkpoint.main(["-c", eval_cfg, "--output", pth])
+    exported = torch.load(pth, weights_only=True)
+    want = export_state_dict(load_reference_checkpoint(ckpt),
+                             "classification", qat_wrapped=not int8)
+    same = set(exported) == set(want) and all(
+        torch.equal(exported[k], t) for k, t in want.items())
+    print(f"{tag}: {ckpts[-1]}'s student through the eval CLI: {len(gts)} "
+          f"test images, accuracy {float(np.mean(gts == preds)):.4f}, op "
+          f"launches {ops_eval}; the export CLI's file ({len(exported)} "
+          f"tensors, {'plain' if int8 else 'QAT-prepared .1'} names, no "
+          f"observer) holds the student's parameters bit for bit: {same}")
+    check(bool(torch.isfinite(logits).all()) and len(gts) > 0,
+          f"{tag}: eval")
+    check(ops_eval["fused_attention_block"] == (
+        (0, 0) if int8 else (depth * math.ceil(len(gts) / micro), 0)),
+        f"{tag}: eval launches {ops_eval}")
+    check(same, f"{tag}: the exported student differs")
+    print(f"{tag}: took {time.perf_counter() - t0:.1f} s")
 
 
 def time_distill(device, power, config, data_config, rounds=3):
@@ -7658,45 +8048,61 @@ def main():
     torch.cuda.set_device(device)
     # the train CLIs' scalars logged before this run
     scalar_offset = len(scalar_lines(0) or [])
-    phase_device()
-    phase_build()
-    errors = phase_kernels(device)
-    f32_errors = phase_kernels_f32(device)
-    probe_entries = phase_probes(device, power_line())
-    data_config, data_cfg = make_dataset()
-    phase_main(device, data_config, data_cfg)
-    launches = phase_train(device, data_config, data_cfg)
-    int8_launches, int8_ckpt, int8_kwargs = phase_quantize(
-        device, data_config, data_cfg)
-    float_launches, float_ckpt, float_kwargs = phase_quantize_float(
-        device, data_config, data_cfg)
-    qat_launches = phase_qat(device, data_config, data_cfg)
-    i8_errors = phase_kernels_qat_int8(device)
-    i8_ops = phase_qat_int8(device, data_config, data_cfg)
-    long_i8_errors = phase_kernels_long_int8(device)
-    i8_384_train, i8_384_ptq, i8_384_ckpt, i8_384_kwargs = \
-        phase_int8_384(device)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its seconds recorded under ``name``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("device", phase_device)
+    timed("build", phase_build)
+    errors = timed("kernels", phase_kernels, device)
+    f32_errors = timed("kernels-f32", phase_kernels_f32, device)
+    probe_entries = timed("probes", phase_probes, device, power_line())
+    data_config, data_cfg = timed("dataset", make_dataset)
+    timed("main", phase_main, device, data_config, data_cfg)
+    launches = timed("train", phase_train, device, data_config, data_cfg)
+    int8_launches, int8_ckpt, int8_kwargs = timed(
+        "quantize", phase_quantize, device, data_config, data_cfg)
+    float_launches, float_ckpt, float_kwargs = timed(
+        "quantize-float", phase_quantize_float, device, data_config,
+        data_cfg)
+    qat_launches = timed("qat", phase_qat, device, data_config, data_cfg)
+    i8_errors = timed("kernels-qat-int8", phase_kernels_qat_int8, device)
+    i8_ops = timed("qat-int8", phase_qat_int8, device, data_config, data_cfg)
+    long_i8_errors = timed("int8-long", phase_kernels_long_int8, device)
+    i8_384_train, i8_384_ptq, i8_384_ckpt, i8_384_kwargs = timed(
+        "int8-384", phase_int8_384, device)
+    gate_launches, gate_errors, gate_totals = timed(
+        "ptq-gate", phase_ptq_gate, device, power_line(), int8_ckpt)
     t0 = time.perf_counter()
-    det_data = make_detection_dataset()
+    det_data = timed("detect-dataset", make_detection_dataset)
     print(f"detect: synthetic DIOR-layout set (600 train, 96 val, 96 test "
           f"images of 160 px) in {time.perf_counter() - t0:.1f} s")
-    det_launches = phase_detect(device, *det_data)
-    det_train_launches = phase_detect_train(device, *det_data)
-    float_det_launches = phase_detect_float(device, *det_data)
-    phase_detect_int8(device, *det_data)
-    tiny_launches = phase_detect_tiny(device, *det_data)
-    f32_runs, f32_ckpt, f32_config_ = phase_fp32(device, data_config,
-                                                 det_data)
+    det_launches = timed("detect", phase_detect, device, *det_data)
+    det_train_launches = timed("detect-train", phase_detect_train, device,
+                               *det_data)
+    float_det_launches = timed("detect-float", phase_detect_float, device,
+                               *det_data)
+    timed("detect-int8", phase_detect_int8, device, *det_data)
+    tiny_launches = timed("detect-tiny", phase_detect_tiny, device,
+                          *det_data)
+    f32_runs, f32_ckpt, f32_config_ = timed(
+        "fp32", phase_fp32, device, data_config, det_data)
     power = power_line()
-    phase_seg(device, power)
-    phase_distill(device, power, data_config, data_cfg)
-    phase_remainder(device, data_config, data_cfg, f32_ckpt, f32_config_,
-                    scalar_offset)
-    totals = phase_timing(device, power, int8_ckpt, int8_kwargs,
-                          float_ckpt, float_kwargs, i8_384_ckpt,
-                          i8_384_kwargs)
-    f32_totals = time_f32(device, power)
-    mg_entries = phase_multigpu(device, power, data_config, det_data[0])
+    timed("seg", phase_seg, device, power)
+    timed("distill", phase_distill, device, power, data_config, data_cfg)
+    timed("remainder", phase_remainder, device, data_config, data_cfg,
+          f32_ckpt, f32_config_, scalar_offset)
+    totals = timed("timing", phase_timing, device, power, int8_ckpt,
+                   int8_kwargs, float_ckpt, float_kwargs, i8_384_ckpt,
+                   i8_384_kwargs)
+    f32_totals = timed("timing-f32", time_f32, device, power)
+    mg_entries = timed("multigpu", phase_multigpu, device, power,
+                       data_config, det_data[0])
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -7778,6 +8184,22 @@ def main():
             "cases": {k: v for k, v in totals[base]["cases"].items()
                       if k.startswith(name[:-1])},
         })
+    for name in ("layernorm_quant_rows", "gemm_s8_epilogue"):
+        t = gate_totals[name]
+        kernels.append({
+            "name": f"{name}[discrete]", "route": "cuda",
+            "source": KERNELS[name][0],
+            "replaces": f"{KERNELS[name][1]} (past the fused gate: the "
+                        "discrete converted Block)",
+            # the 448 px PTQ CLI's launches (phase ptq-gate); the largest
+            # error against the plain version at block 0 of its first test
+            # batch; per discrete converted block at B=32, N=785
+            "launches": gate_launches[name], "max_abs_err": gate_errors[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": max(t["by"], key=t["by"].get),
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+        })
     for name, (source, replaces, tpu) in INT8_QAT_VARIANTS.items():
         t = totals[tpu]
         kernels.append({
@@ -7829,6 +8251,7 @@ def main():
         # the profiler's device time of the headline variant, B=512
         entry["device_ms"] = totals["probes"][entry["name"]]
     kernels += probe_entries + mg_entries
+    print("phase seconds: " + json.dumps(seconds))
     print(f"elapsed: {time.perf_counter() - START:.1f} s since the script "
           "started")
     print(json.dumps({"kernels": kernels}))

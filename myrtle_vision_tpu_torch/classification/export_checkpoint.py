@@ -21,9 +21,10 @@ reference's train and eval CLIs read through their ``checkpoint_path``.
 A distillation config (``distiller_config``) exports the student's
 state dict alone, as the JAX CLI does (the reference's distill runs save
 the student): utils/convert.py ``load_reference_checkpoint`` reads the
-student of the trainer's DistillWrapper checkpoint; a distiller in a
-quantized format is not ported yet (ROADMAP A8b).  ``--device`` defaults
-to ``cuda``; without a CUDA device that raises.
+student of the trainer's DistillWrapper checkpoint, in any format (a
+PyTorchINT8 student's observers left out with the rest, its token's two
+included).  ``--device`` defaults to ``cuda``; without a CUDA device that
+raises.
 """
 from __future__ import annotations
 
@@ -53,11 +54,6 @@ def export(config, output, wrap_train_ckpt=False, device="cpu"):
         raise ValueError("Must provide a checkpoint path in the config file")
     data_config = parse_config(config["data_config_path"])
     model = ViT(**vit_kwargs_from_config(config, data_config), device=device)
-    if "distiller_config" in config and model.q_format.name != "FP32":
-        raise NotImplementedError(
-            f"distillation checkpoints in q_format {model.q_format.name}: "
-            "the float formats and PyTorchINT8 under a distiller are not "
-            "ported yet; see ROADMAP.md A8b")
     fmt = checkpoint_q_format(path)
     if fmt is not None and fmt != model.q_format.name:
         raise ValueError(f"{path} holds a q_format {fmt} model; the config "

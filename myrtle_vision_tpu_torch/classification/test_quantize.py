@@ -69,8 +69,7 @@ def build_quantize(config, device):
             f"post-training quantization of a {decoder} model: this CLI "
             "quantizes classifiers, as the JAX classification/"
             "test_quantize.py does; a float-format detector trains and "
-            "evaluates through detection/train.py and detection/test.py "
-            "(ROADMAP A5a)")
+            "evaluates through detection/train.py and detection/test.py")
     if config["vit_config"]["q_format"] == "FP32":
         raise ValueError("q_format FP32: nothing to quantize; "
                          "classification/test.py evaluates it")

@@ -26,16 +26,19 @@ differentiated through the INT8 block-half ops); validation runs the
 simulation's eval forward, and the checkpoints carry the observers, so
 that the eval CLI evaluates them and the PTQ CLI calibrates on, converts
 and runs the converted INT8 model.  A ``distiller_config`` (the DeiT
-configs, FP32) trains the student ViT inside models/distill.py's
+configs) trains the student ViT inside models/distill.py's
 ``DistillWrapper`` (the distillation token and head) against the frozen
 CNN teacher of ``teacher_weights_path`` (a ResNet-50 ``.pth`` that
-``finetune_cnn`` writes), run without gradient once per micro-batch; the
+``finetune_cnn`` writes), run without gradient once per micro-batch, in
+any ``q_format``: a float-format student trains its QAT simulation, a
+PyTorchINT8 one in the JAX package's one-pass step (its calibrating
+forward, differentiated, the observers updated as it runs); the
 pretrained backbone, if any, goes into the student; validation gives the
 distillation loss and the plain student's accuracy; the checkpoints hold
-the wrapper's state dict, whose student the eval, PTQ and export CLIs
-read.  A distiller in a quantized format is not ported yet (ROADMAP
-A8b).  ``--device`` defaults to ``cuda``; without a CUDA device that
-raises, it never carries on on the CPU.
+the wrapper's state dict (a PyTorchINT8 student's observers with it),
+whose student the eval, PTQ and export CLIs read.  ``--device`` defaults
+to ``cuda``; without a CUDA device that raises, it never carries on on
+the CPU.
 
 Several GPUs (parallel/launch.py): with ``train_config.distributed``
 (default true) and more than one visible CUDA device, one process per
@@ -125,11 +128,6 @@ def build_models(config, data_config, device, generator):
               generator=generator)
     if "distiller_config" not in config:
         return vit, None
-    if vit.q_format.name != "FP32":
-        raise NotImplementedError(
-            f"distillation in q_format {vit.q_format.name}: the float "
-            "formats and PyTorchINT8 under a distiller are not ported yet; "
-            "see ROADMAP.md A8b")
     dc = config["distiller_config"]
     return vit, DistillWrapper(vit, temperature=dc["temperature"],
                                alpha=dc["alpha"], generator=generator)

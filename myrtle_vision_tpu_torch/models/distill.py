@@ -7,9 +7,15 @@ token and the distillation head (``distill_mlp_norm``, a LayerNorm, then
 teacher runs outside the wrapper: its logits are an input, computed under
 ``torch.no_grad()`` (the JAX package's ``stop_gradient``; the reference
 runs the teacher under ``torch.no_grad()``, distill.py:132-133).  The
-student is the port's ViT with the token threaded through its FP32
-forward (models/vit.py), which returns the class-token logits and the
-distillation token's embedding.
+student is the port's ViT with the token threaded through its forward
+(models/vit.py), which returns the class-token logits and the
+distillation token's embedding, in every format: in the float formats
+(FP16_16, FP16_32, TF32) the token's two sites are stateless snaps, and
+in PyTorchINT8 observers that the wrapper registers on its student
+(``ViT.add_distill_sites``), as the JAX student's ``quant`` collection
+holds them.  ``forward(..., calibrating=True)`` folds each micro-batch
+into every observer of a PyTorchINT8 student as it runs: the JAX package's
+one-pass INT8 distillation step (training/classification.py).
 
 Loss (reference distill.py:128-151), in fp32:
   alpha * CE(student_logits, labels)
@@ -24,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from myrtle_vision_tpu_torch.models.vit import ViT
+from myrtle_vision_tpu_torch.models.vit import DISTILL_SITES, ViT
 from myrtle_vision_tpu_torch.training.optim import cross_entropy_loss
 
 
@@ -44,7 +50,9 @@ def distillation_loss(student_logits, distill_logits, teacher_logits, labels,
 class DistillWrapper(nn.Module):
     """The student with its distillation token and head.  ``forward(img,
     labels, teacher_logits)`` -> (the distillation loss, the student's
-    fp32 logits); ``plain=True`` runs the student's plain versions.
+    fp32 logits); ``plain=True`` runs the student's plain versions, and
+    ``calibrating=True`` a PyTorchINT8 student's calibrating forward
+    (its observers updated, the token's two included).
 
     The token is drawn N(0, 1) and ``distill_mlp_linear``'s weight from
     flax's default (a normal of variance 1 / fan_in truncated at two
@@ -55,6 +63,7 @@ class DistillWrapper(nn.Module):
                  alpha: float = 0.5, generator=None):
         super().__init__()
         self.student = student
+        student.add_distill_sites()
         self.temperature = temperature
         self.alpha = alpha
         device = student.cls_token.device
@@ -88,10 +97,10 @@ class DistillWrapper(nn.Module):
         self.distill_mlp_norm.reset_parameters()
 
     def forward(self, img, labels, teacher_logits, plain: bool = False,
-                dropout_rng=None):
+                dropout_rng=None, calibrating: bool = False):
         student_logits, tokens = self.student(
-            img, plain=plain, distill_token=self.distillation_token,
-            dropout_rng=dropout_rng)
+            img, plain=plain, calibrating=calibrating,
+            distill_token=self.distillation_token, dropout_rng=dropout_rng)
         x = self.distill_mlp_norm(tokens)
         distill_logits = self.distill_mlp_linear(x)
         loss = distillation_loss(student_logits, distill_logits,
@@ -105,7 +114,8 @@ class DistillableViT(ViT):
     port's ViT already takes a ``distill_token`` in its forward and
     returns (logits, the token's embedding), and its parameters are a
     plain ViT's, so :meth:`to_vit` gives a ViT with the same
-    constructor arguments and the same weights."""
+    constructor arguments and the same weights (and observers, but for a
+    PyTorchINT8 student's two of its token)."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -114,5 +124,7 @@ class DistillableViT(ViT):
     def to_vit(self) -> ViT:
         args, kwargs = self._init_args
         vit = ViT(*args, **kwargs)
-        vit.load_state_dict(self.state_dict(), strict=True)
+        vit.load_state_dict({
+            name: t for name, t in self.state_dict().items()
+            if name.split(".")[0] not in DISTILL_SITES}, strict=True)
         return vit

@@ -92,8 +92,14 @@ Linear weight is int8 with an fp32 ``weight_scale``
 patch embedding and the head as int8 products (``gemm_s8_epilogue``, the
 integer path of QDense), each
 block half as one op (ops/fused_int8_block.py, the TPU kernels K9 and
-K10).  The observers of a converted model are frozen: their grids and the
-weights' column sums are computed when its state dict is loaded.
+K10) where the JAX Block's ``int8_fuse`` gate holds; under attention
+capture, ``MVT_NO_FUSE=1``, ``MVT_INT8_FUSE=0`` or past ``fuses_at`` the
+Block's discrete form (:meth:`Block.forward_converted_discrete`): each
+projection through ``gemm_s8_epilogue`` (its LayerNorm through
+``layernorm_quant_rows``), the fp32 ``xla`` core and the requant sites as
+PyTorch operations.  The observers of a converted model are frozen:
+their grids, which of them have statistics, and the weights' column sums
+are computed when its state dict is loaded.
 
 The stateless float formats (compute in fp32) have no state: each site
 is a function of its input (quantize.act_quant), which on the card runs
@@ -117,12 +123,18 @@ have no observers to update.  With
 cast to fp32 on use, and snapped again as the JAX model snaps them
 (idempotent).
 
-In FP32, ``forward(img, distill_token=t)`` is the DeiT student
+``forward(img, distill_token=t)`` is the DeiT student
 (models/distill.py): ``t``, (1, 1, dim), goes after every other token
 once the positions are added, so it carries none, the blocks run on the
 longer sequence (198 tokens at 224 px), and the forward returns the
 logits and the token's fp32 embedding after the last block, as the JAX
-ViT does; the quantized formats refuse a token (ROADMAP A8b).
+ViT does.  In a quantized format the token passes the JAX model's two
+sites first: ``quant_distill_token`` (a stub) on the token, then
+``distill_token_cat`` (a functional site) on the sequence with it; in
+the float formats they are stateless snaps, in PyTorchINT8 observers
+that a student carries (:meth:`ViT.add_distill_sites`, which
+models/distill.py's wrapper calls).  A converted PyTorchINT8 model takes
+no token: the CLIs evaluate and convert a student as a plain ViT.
 
 Head-sharded tensor parallelism (parallel/tp.py, the JAX Block's
 ``tp_axis`` branch): a Block given its place in a model group
@@ -191,6 +203,8 @@ from myrtle_vision_tpu_torch.quantize import (
 )
 
 MIN_NUM_PATCHES = 16  # reference vit.py:14
+# a DeiT student's observers of its distillation token (PyTorchINT8)
+DISTILL_SITES = ("quant_distill_token", "distill_token_cat")
 # the weights a converted float model stores in fp16
 _FP16_STORAGE = (QFormat.FP16_16, QFormat.FP16_32)
 
@@ -334,6 +348,32 @@ def _int8_dense(kern, linear, x, in_site, out_site, in_has):
     return linear.act_out(matmul_high3(x, w.t()) + linear.bias)
 
 
+def _int8_norm_dense(kern, norm, linear, x, norm_site, out_site, has):
+    """QLayerNorm, then QDense._int8_forward on its grid, fp32 (rows, C)
+    in and out: with statistics at the norm's site the integers that the
+    LayerNorm, its fake-quant and ``rint(x/s) + zp`` give, from
+    ``layernorm_quant_rows`` (``kern``), into :func:`_int8_dense`'s int8
+    product; without, the plain LayerNorm (its site passes it through)
+    and the fallback product."""
+    if not has:
+        y = K.requant(layernorm_rows_plain(x, norm.weight, norm.bias),
+                      norm_site)
+        return _int8_dense(kern, linear, y, norm_site, out_site, False)
+    q8 = kern.layernorm_quant_rows(x, norm.weight, norm.bias, norm_site)
+    return kern.gemm_s8(q8, linear.weight.t(), linear.weight_colsum,
+                        linear.weight_scale, norm_site, linear.bias,
+                        "requant", out_site)
+
+
+def _decode(x, distill_token, decode):
+    """The head ``decode`` on the tokens after the last block; a student's
+    (``distill_token`` given) on every token but the last, returned with
+    that token's fp32 embedding (the JAX ViT's distill split)."""
+    if distill_token is None:
+        return decode(x)
+    return decode(x[:, :-1]), x[:, -1].float()
+
+
 class Residual(nn.Module):
     """Name container of the reference (``layers.{i}.{0,1}.fn``)."""
 
@@ -398,7 +438,9 @@ class Block(nn.Module):
     (:meth:`forward_int8`), the two-pass QAT step's second pass, one op
     per half with the frozen sites (:meth:`forward_int8_qat`, the
     ``int8_qat_fuse`` branch) and, converted, one INT8 op per half
-    (:meth:`forward_converted`, the ``int8_fuse`` branch).  A stateless
+    (:meth:`forward_converted`, the ``int8_fuse`` branch) or elsewhere
+    the discrete converted form (:meth:`forward_converted_discrete`).  A
+    stateless
     float format: one op per half with the format's ``qspec``
     (:meth:`forward_float`, the ``fuse`` branch)."""
 
@@ -423,6 +465,12 @@ class Block(nn.Module):
             if converted:
                 for linear in self._linears():
                     _make_int8(linear)
+                # whether the input sites of to_qkv, to_out, fc1 and fc2
+                # have statistics, read on the host once, when a state
+                # dict is loaded (fresh observers have none)
+                self.input_has = (False,) * 4
+                self.register_load_state_dict_post_hook(
+                    Block._read_input_has)
         if converted and q_format in _FP16_STORAGE:
             for module in self._linears() + [self._modules["0"].fn.norm,
                                              self._modules["1"].fn.norm]:
@@ -442,6 +490,13 @@ class Block(nn.Module):
     def _linears(self):
         attn, net = self._modules["0"].fn.fn, self._modules["1"].fn.fn.net
         return [attn.to_qkv, attn.to_out[0], net[0], net[3]]
+
+    @staticmethod
+    def _read_input_has(block, _keys):
+        """The has_stats flags of the discrete converted form's product
+        inputs (rows 0 and 2 of each half of :meth:`site_table`)."""
+        flags = block.site_table()[:, (0, 2), 2].flatten().tolist()
+        block.input_has = tuple(v > 0.5 for v in flags)
 
     def site_table(self):
         """(2, 5, 3) fp32: the (scale, zero point, has_stats) rows of the
@@ -527,11 +582,50 @@ class Block(nn.Module):
         return mlp_op(x, f.norm.weight, f.norm.bias, qw(fc1), fc1.bias,
                       qw(fc2), fc2.bias, sites[1])
 
-    def forward_converted(self, x, sites, plain=False):
-        """The converted model's block: one INT8 op per half, fp32 (B, N,
-        C) in and out; ``sites`` is :meth:`site_table` as loaded."""
+    def forward_converted(self, x, sites, plain=False, probs=None):
+        """The converted model's block, fp32 (B, N, C) in and out;
+        ``sites`` is :meth:`site_table` as loaded.  Where the JAX Block's
+        ``int8_fuse`` gate holds (:meth:`fuses`, and no
+        ``MVT_INT8_FUSE=0``), one INT8 op per half; else its discrete
+        form (:meth:`forward_converted_discrete`)."""
+        if not self.fuses(x, probs=probs) or no_int8_fuse():
+            return self.forward_converted_discrete(x, sites, plain, probs)
         x = self.converted_attention(x, sites, plain)
         return self.converted_mlp(x, sites, plain)
+
+    def forward_converted_discrete(self, x, sites, plain=False, probs=None):
+        """The JAX converted Block's discrete form, fp32 (B, N, C) in and
+        out, inference only.  Attention: QLayerNorm and to_qkv's
+        ``_int8_forward`` (:func:`_int8_norm_dense`), the fp32 ``xla``
+        core (capturing, its probabilities appended to ``probs``), the
+        quant_out site, to_out's ``_int8_forward`` (:func:`_int8_dense`)
+        on that site's grid, the residual and its res_add site.  MLP: the
+        norm and fc1 likewise, the exact-erf GELU and its site, fc2 on
+        that grid, the residual and its site.  The int8 products and the
+        LayerNorm's quantize run ``gemm_s8_epilogue`` and
+        ``layernorm_quant_rows`` on the card unless ``plain``; the core,
+        the GELU and the requants are PyTorch operations, as XLA runs them
+        in the JAX package.  A product whose input site has no statistics
+        takes the JAX fallback (:func:`_int8_dense`)."""
+        kern = K.PLAIN if plain else K.for_device(x)
+        a, f = self._modules["0"], self._modules["1"]
+        attn, net = a.fn.fn, f.fn.fn.net
+        has = self.input_has
+        b, n, c = x.shape
+        x = x.reshape(b * n, c)
+        s = sites[0]
+        qkv = _int8_norm_dense(kern, a.fn.norm, attn.to_qkv, x, s[0], s[1],
+                               has[0])
+        qh, kh, vh = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
+        ctx = _attention(qh, kh, vh, self.scale, probs, impl="xla")
+        ctx = K.requant(ctx.transpose(1, 2).reshape(b * n, c), s[2])
+        y = _int8_dense(kern, attn.to_out[0], ctx, s[2], s[3], has[1])
+        x = K.requant(y + x, s[4])
+        s = sites[1]
+        h = _int8_norm_dense(kern, f.fn.norm, net[0], x, s[0], s[1], has[2])
+        g = K.requant(torch.nn.functional.gelu(h), s[2])
+        y = _int8_dense(kern, net[3], g, s[2], s[3], has[3])
+        return K.requant(y + x, s[4]).view(b, n, c)
 
     def converted_attention(self, x, sites, plain=False):
         """The converted block's attention half (K9's op)."""
@@ -767,18 +861,9 @@ class ClassificationDecoder(nn.Module):
     def forward_converted(self, kern, x, sites, has):
         """``sites``: the rows of ``norm.act_out`` and ``linear.act_out``;
         ``has``: whether the first has statistics."""
-        y = x[:, 0].contiguous()
-        if not has:  # the integer path needs the norm's grid
-            y = self.norm.act_out(layernorm_rows_plain(
-                y, self.norm.weight, self.norm.bias))
-            return _int8_dense(kern, self.linear, y, sites[0], sites[1],
-                               False)
-        q8 = kern.layernorm_quant_rows(y, self.norm.weight, self.norm.bias,
-                                       sites[0])
-        lin = self.linear
-        return kern.gemm_s8(q8, lin.weight.t(), lin.weight_colsum,
-                            lin.weight_scale, sites[0], lin.bias, "requant",
-                            sites[1])
+        return _int8_norm_dense(kern, self.norm, self.linear,
+                                x[:, 0].contiguous(), sites[0], sites[1],
+                                has)
 
 
 class SegmentationDecoder(ClassificationDecoder):
@@ -1052,6 +1137,17 @@ class ViT(nn.Module):
         has = self.io_sites[:, 2].tolist()
         self._has = (has[0] > 0.5, has[2] > 0.5)
 
+    def add_distill_sites(self):
+        """Make this model a DeiT student: in PyTorchINT8 (before
+        convert) register the distillation token's two observers, the
+        JAX ``quant_distill_token`` and ``distill_token_cat``, which the
+        JAX ViT creates when a student first runs with its token; the
+        other formats keep no state for them."""
+        if self.int8 and not self.converted:
+            for name in DISTILL_SITES:
+                if not hasattr(self, name):
+                    setattr(self, name, ActQuant(self.cls_token.device))
+
     def load_state_dict(self, state_dict, strict=True, assign=False):
         """``nn.Module.load_state_dict``, refusing a tensor whose storage
         (int8, fp16) is on one side only (an fp32 checkpoint into a
@@ -1121,8 +1217,8 @@ class ViT(nn.Module):
                 int8_fused: bool = False, distill_token=None,
                 capture_attention: bool = False, dropout_rng=None):
         """Logits (fp32; a dict for detection); with ``distill_token``
-        (the DeiT student, FP32 only) (logits, the distillation token's
-        fp32 embedding after the last block); with ``capture_attention``
+        (the DeiT student) (logits, the distillation token's fp32
+        embedding after the last block); with ``capture_attention``
         (that output, each layer's fp32 (B, H, N, N) attention
         probabilities in depth order).  ``dropout_rng``: the dropout
         sites' ``torch.Generator`` (the module docstring), None for none."""
@@ -1133,32 +1229,28 @@ class ViT(nn.Module):
 
     def _forward(self, img, plain, calibrating, int8_fused, distill_token,
                  dropout_rng, probs):
-        if distill_token is not None and self.q_format != QFormat.FP32:
-            raise NotImplementedError(
-                f"a distillation token in q_format {self.q_format.name}: "
-                "distillation is ported in FP32 only; the float formats and "
-                "PyTorchINT8 under a distiller are ROADMAP.md A8b")
         if int8_fused and (not self.int8 or self.converted or calibrating):
             raise ValueError(
                 "int8_fused is the second pass of the PyTorchINT8 QAT step: "
                 "a model before convert, its observers updated by a "
                 "calibrating forward first and frozen in this one")
         if self.float_format:
-            return self._forward_float(img, plain, dropout_rng, probs)
+            return self._forward_float(img, plain, dropout_rng, probs,
+                                       distill_token)
         if self.converted:
             if calibrating:
                 raise ValueError("a converted model's observers are frozen; "
                                  "calibrate before convert")
-            if probs is not None or no_fuse() or no_int8_fuse():
-                raise NotImplementedError(
-                    "attention capture, MVT_NO_FUSE=1 or MVT_INT8_FUSE=0 in "
-                    "a converted PyTorchINT8 model: the JAX model runs the "
-                    "discrete converted Block there, which is not ported yet "
-                    "(ROADMAP A5b)")
-            return self._forward_converted(img, plain)
+            if distill_token is not None:
+                raise ValueError(
+                    "a converted PyTorchINT8 model takes no distillation "
+                    "token: the CLIs evaluate and convert a student as a "
+                    "plain ViT")
+            return self._forward_converted(img, plain, probs)
         if self.int8:
             return self._forward_int8(img, calibrating or int8_fused,
-                                      int8_fused, plain, dropout_rng, probs)
+                                      int8_fused, plain, dropout_rng, probs,
+                                      distill_token)
         b, h, w, _ = img.shape
         dtype = self.compute_dtype
         x = _dense(self.patchify(img.to(dtype)), self.patch_to_embedding,
@@ -1177,25 +1269,32 @@ class ViT(nn.Module):
         x = dropout(x, self.emb_dropout, dropout_rng)
         for block in self.transformer.layers:
             x = block(x, plain, dropout_rng, probs)
-        if distill_token is not None:
-            x, distill_out = x[:, :-1], x[:, -1]
-        out = self.decoder(x)
-        out = out if isinstance(out, dict) else out.float()
-        if distill_token is not None:
-            return out, distill_out.float()
-        return out
 
-    def _forward_float(self, img, plain, dropout_rng=None, probs=None):
+        def decode(t):
+            out = self.decoder(t)
+            return out if isinstance(out, dict) else out.float()
+
+        return _decode(x, distill_token, decode)
+
+    def _forward_float(self, img, plain, dropout_rng=None, probs=None,
+                       distill_token=None):
         """A stateless float format, simulation or converted: the JAX
         ViT's discrete sites around the blocks (the stubs are identities
         in these formats), each block half one op with the format's
-        ``qspec``."""
-        x = dropout(self.embed_float(img, plain), self.emb_dropout,
-                    dropout_rng)
+        ``qspec``; a student's token through its stub and its functional
+        site after the positions."""
+        q = self.q_format
+        x = self.embed_float(img, plain)
+        if distill_token is not None:
+            token = act_quant(distill_token.float().expand(
+                x.shape[0], 1, self.dim), q, "stub", plain)
+            x = act_quant(torch.cat([x, token], dim=1), q, "functional",
+                          plain)
+        x = dropout(x, self.emb_dropout, dropout_rng)
         for block in self.transformer.layers:
             x = block.forward_float(x, plain, dropout_rng, probs)
-        return self.decoder.forward_float(x, self.q_format, self.converted,
-                                          plain)
+        return _decode(x, distill_token, lambda t: self.decoder.forward_float(
+            t, q, self.converted, plain))
 
     def embed_float(self, img, plain=False):
         """A float format's tokens entering the first block: the patch
@@ -1216,41 +1315,46 @@ class ViT(nn.Module):
         return act_quant(x + pos, q, "functional", plain)
 
     def _forward_int8(self, img, calibrating, fused=False, plain=False,
-                      dropout_rng=None, probs=None):
+                      dropout_rng=None, probs=None, distill_token=None):
         """PyTorchINT8 before convert, the JAX ViT's discrete sites.
         ``calibrating``: every observer updated, 3-pass products, the
         polynomial erf; else the simulation's eval forward (observers
         frozen, full fp32 products, the exact erf).  ``fused``: the QAT
         step's second pass, the calibrating forward's operations with the
         observers frozen and each block half one op with their site table
-        (``plain`` takes its plain chains)."""
+        (``plain`` takes its plain chains).  A student's token passes its
+        two observers (:meth:`add_distill_sites`) after the positions."""
         _, h, w, _ = img.shape
         update = calibrating and not fused
         x = self.quant_img(self.patchify(img.float()), update)
         x = self._tokens_int8(
             _qdense(self.patch_to_embedding, x, calibrating, update), h, w,
             update)
+        if distill_token is not None:
+            if not hasattr(self, "distill_token_cat"):
+                raise ValueError(
+                    "a distillation token in PyTorchINT8 needs the student's "
+                    "token observers: wrap the model in models/distill.py's "
+                    "DistillWrapper (ViT.add_distill_sites)")
+            token = self.quant_distill_token(distill_token.float().expand(
+                x.shape[0], 1, self.dim), update)
+            x = self.distill_token_cat(torch.cat([x, token], dim=1), update)
         x = dropout(x, self.emb_dropout, dropout_rng)
         for block in self.transformer.layers:
             x = (block.forward_int8_qat(x, plain) if fused
                  else block.forward_int8(x, calibrating, None, dropout_rng,
                                          probs))
-        return self.decoder.forward_int8(x, calibrating, update)
+        return _decode(x, distill_token, lambda t: self.decoder.forward_int8(
+            t, calibrating, update))
 
-    def _forward_converted(self, img, plain):
-        """The converted PyTorchINT8 model: int8 products throughout."""
-        b, h, w, _ = img.shape
-        n = (h // self.patch_size) * (w // self.patch_size) + 1
-        block = self.transformer.layers[0]
-        if not fuses_at(n, block.heads, block.dim_head):
-            raise NotImplementedError(
-                f"{n} tokens: past the fused gate the JAX model runs the "
-                "discrete converted Block, which is not ported yet (ROADMAP "
-                "A5b)")
+    def _forward_converted(self, img, plain, probs=None):
+        """The converted PyTorchINT8 model: int8 products throughout, each
+        Block fused or discrete as the JAX ``int8_fuse`` gate decides
+        (:meth:`Block.forward_converted`)."""
         kern = K.PLAIN if plain else K.for_device(img)
         x = self.embed_converted(img, kern)
         for block, sites in zip(self.transformer.layers, self.block_sites):
-            x = block.forward_converted(x, sites, plain)
+            x = block.forward_converted(x, sites, plain, probs)
         return self.decoder.forward_converted(kern, x, self.io_sites[2:],
                                               self._has[1])
 

@@ -37,8 +37,9 @@ tokens at 6 heads of 64): on the card up to 256 tokens the attention core
 holds one (image, head) in a CTA, above that it walks 64-row tiles
 (csrc/attention_core_f32_long_wgmma.cu, its int8 mode); the other kernels
 are length-agnostic.  Past the gate the attention op raises: the JAX model
-runs the discrete converted Block there, which is not ported yet.  The
-MLP op takes any length (the gate is the Block's, which the ViT reads).
+runs the discrete converted Block there, and so does the port's
+(models/vit.py ``Block.forward_converted_discrete``).  The MLP op takes
+any length (the gate is the Block's, which decides for both halves).
 
 A CPU tensor takes the plain chain, a CUDA tensor the kernel chain or an
 error; any other device an error.  Weights keep the JAX layout: (in,
@@ -65,8 +66,9 @@ def _attention(kern, x, ln_scale, ln_bias, wqkv, wqkv_scale, bqkv, wout,
     if not fuses_at(n, heads, c // heads):
         raise ValueError(f"int8_attention_block: sequence {n} is past the "
                          f"fused gate (fuses_at) at {heads} heads of "
-                         f"{c // heads}; the JAX model runs the discrete "
-                         "converted Block there, which waits (ROADMAP A5b)")
+                         f"{c // heads}; there the converted Block runs its "
+                         "discrete form (models/vit.py "
+                         "Block.forward_converted_discrete)")
     cs_qkv, cs_out = colsums or (weight_colsum(wqkv), weight_colsum(wout))
     x2 = x.contiguous().view(b * n, c)
     q8 = kern.layernorm_quant_rows(x2, ln_scale, ln_bias, sites[0])

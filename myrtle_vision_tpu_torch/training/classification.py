@@ -17,10 +17,12 @@ def make_loss_fn(model, distiller=None, teacher_fn=None):
     ``model``), the loss is the distiller's DeiT loss, the teacher's
     logits ``teacher_fn(images)``, a function that runs without gradient
     (models/resnet.py ``make_teacher_fn``; the JAX ``stop_gradient``), and
-    the accuracy the student's; in FP32 only: the
-    student's forward refuses a distillation token in another format (the
-    JAX one-pass INT8 distill step and the float formats under a
-    distiller are ROADMAP A8b).
+    the accuracy the student's, in every format: a float-format student
+    trains its QAT simulation, and a PyTorchINT8 student (before convert)
+    trains in one pass, as the JAX distill step does: its calibrating
+    forward, differentiated, which folds the micro-batch into every
+    observer (the token's two included) as it runs; the observers after
+    the step are that pass's (the JAX step's updated ``quant``).
 
     A PyTorchINT8 model before convert trains in two passes, the JAX
     two-pass INT8 QAT step: pass 1, without gradient, is the calibrating
@@ -40,7 +42,8 @@ def make_loss_fn(model, distiller=None, teacher_fn=None):
     PyTorchINT8 model trains in one pass, its calibrating forward
     differentiated, as the JAX step does then."""
     if distiller is not None:
-        return _distill_loss_fn(distiller, teacher_fn)
+        return _distill_loss_fn(distiller, teacher_fn,
+                                model.int8 and not model.converted)
     two_pass = model.int8 and not model.converted and model.dropout == 0.0
 
     def loss_fn(batch, dropout_rng=None):
@@ -64,12 +67,13 @@ def make_loss_fn(model, distiller=None, teacher_fn=None):
     return loss_fn
 
 
-def _distill_loss_fn(distiller, teacher_fn):
+def _distill_loss_fn(distiller, teacher_fn, calibrating):
     def loss_fn(batch, dropout_rng=None):
         teacher_logits = teacher_fn(batch["image"])
         labels = batch["label"].long()
         loss, logits = distiller(batch["image"], labels, teacher_logits,
-                                 dropout_rng=dropout_rng)
+                                 dropout_rng=dropout_rng,
+                                 calibrating=calibrating)
         acc = (logits.argmax(-1) == labels).float().mean()
         return loss, {"metrics": {"acc": acc}}
 

@@ -16,7 +16,9 @@ JAX ``quant`` path                         port site
 quant_img, quant_cls_token,                the same name on the model
 quant_pos_embedding, cls_token_cat,
 pos_embedding_cat, pos_embedding_add
-(detection also quant_det_tokens)
+(detection also quant_det_tokens;
+a DeiT student also quant_distill_token,
+distill_token_cat)
 patch_to_embedding/act_out                 patch_to_embedding.act_out
 decoder/norm/act_out                       decoder.norm.act_out
 decoder/linear/act_out                     decoder.linear.act_out
@@ -48,6 +50,7 @@ import zipfile
 import numpy as np
 import torch
 
+from myrtle_vision_tpu_torch.models.vit import DISTILL_SITES
 from myrtle_vision_tpu_torch.utils import export
 from myrtle_vision_tpu_torch.utils.pretrained import (
     load_state_dict_from_source,
@@ -103,11 +106,18 @@ def state_dict_from_jax(params_numpy, decoder: str = "classification",
     A JAX ``DistillWrapper`` tree ({student, distillation_token,
     distill_mlp_norm, distill_mlp_linear}) gives the port wrapper's state
     dict (models/distill.py): the student's names under ``student.``, the
-    token, the head's LayerNorm and Linear.  The teacher is a torchvision
-    state dict in both packages and is read as it is."""
+    token, the head's LayerNorm and Linear; with its ``quant`` collection
+    (a PyTorchINT8 student's, under "student"), the student's observers,
+    its token's two included.  The teacher is a torchvision state dict in
+    both packages and is read as it is."""
     if "student" in params_numpy:
+        squant = None if quant is None else quant["student"]
         sd = {f"student.{name}": t for name, t in state_dict_from_jax(
-            params_numpy["student"], decoder, quant).items()}
+            params_numpy["student"], decoder, squant).items()}
+        for name in DISTILL_SITES if squant is not None else ():
+            for key in ("min", "max"):
+                sd[f"student.{name}.{key}"] = torch.tensor(
+                    np.float32(squant[name][key]))
         norm = params_numpy["distill_mlp_norm"]
         linear = params_numpy["distill_mlp_linear"]
         for name, arr in (
@@ -155,11 +165,15 @@ def require_torch_file(path):
 
 def student_state_dict(sd):
     """The student's state dict of a distillation wrapper's (its entries
-    under ``student.``), or ``sd`` as it is when it holds no wrapper."""
+    under ``student.``) as a plain ViT reads it: a PyTorchINT8 student's
+    observers of its distillation token left out, as the JAX
+    ``load_checkpoint`` reads the student's ``quant`` into a plain ViT's
+    sites; or ``sd`` as it is when it holds no wrapper."""
     if not any(name.startswith("student.") for name in sd):
         return sd
     return {name[len("student."):]: t for name, t in sd.items()
-            if name.startswith("student.")}
+            if name.startswith("student.")
+            and name.split(".")[1] not in DISTILL_SITES}
 
 
 def load_reference_checkpoint(path):

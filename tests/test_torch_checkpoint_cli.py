@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import serialization
 
 import myrtle_vision_tpu.models.vit as jax_vit
 from myrtle_vision_tpu.training import optim as jax_optim
@@ -35,6 +36,7 @@ from myrtle_vision_tpu.utils.export import (
 )
 from myrtle_vision_tpu_torch.classification import export_checkpoint
 from myrtle_vision_tpu_torch.classification import import_checkpoint
+from myrtle_vision_tpu_torch.models.distill import DistillWrapper
 from myrtle_vision_tpu_torch.models.vit import ViT, vit_kwargs_from_config
 from myrtle_vision_tpu_torch.quantize import QSPECS, QFormat, is_observer
 from myrtle_vision_tpu_torch.training import optim
@@ -247,14 +249,49 @@ def test_import_gives_the_jax_import_logits(decoder, q_format, layout,
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """Export of a distillation config in a quantized format names
-    ROADMAP A8b; an import that finds under half of the parameters
-    raises; without a card both CLIs raise."""
-    config, _ = write_config(tmp_path, "classification", "FP16_32",
-                             str(tmp_path / "deit_ckpt"))
+    """Export of a distillation config in a quantized format (FP16_32:
+    the ``.1`` names) writes what the JAX CLI writes from the JAX
+    DistillWrapper checkpoint of the same weights, its student bit for
+    bit; an import that finds under half of the parameters raises;
+    without a card both CLIs raise."""
+    config, _ = write_config(tmp_path, "classification", "FP16_32")
     config["distiller_config"] = {"temperature": 1.0, "alpha": 0.5}
-    with pytest.raises(NotImplementedError, match="A8b"):
-        export_checkpoint.export(config, str(tmp_path / "x.pth"))
+    with monkeypatch.context() as mp:
+        mp.setattr(jax_vit, "fuses_at", lambda *_: False)
+        _, state = jax_state(config)
+    rng = np.random.RandomState(3)
+    student = jax.tree_util.tree_map(
+        lambda p: np.asarray(p, np.float32)
+        + (0.05 * rng.randn(*p.shape)).astype(np.float32), state.params)
+    tree = {"student": student,
+            "distillation_token": rng.randn(1, 1, 64).astype(np.float32),
+            "distill_mlp_norm": {"scale": np.ones(64, np.float32),
+                                 "bias": np.zeros(64, np.float32)},
+            "distill_mlp_linear": {
+                "kernel": rng.randn(64, 5).astype(np.float32),
+                "bias": np.zeros(5, np.float32)}}
+    with open(tmp_path / "jax_deit", "wb") as f:
+        f.write(serialization.msgpack_serialize({
+            "model": tree, "optimizer": None, "quant": {},
+            "lr_scheduler": {}, "iteration": ITERATION}))
+    wrapper = DistillWrapper(ViT(**vit_kwargs_from_config(
+        config, {"number_of_classes": 5})))
+    wrapper.load_state_dict(state_dict_from_jax(tree), strict=True)
+    save_checkpoint(TrainState(wrapper, optim.create_optimizer(
+        config["train_config"], wrapper), ITERATION),
+        str(tmp_path / "port_deit"))
+    outs = {}
+    for name, cli in (("jax", cli_module("export_checkpoint")),
+                      ("port", export_checkpoint)):
+        config["train_config"]["checkpoint_path"] = str(tmp_path /
+                                                        f"{name}_deit")
+        outs[name] = str(tmp_path / f"{name}_deit.pth")
+        cli.export(json.loads(json.dumps(config)), outs[name])
+    ours, ref = (torch.load(outs[n], weights_only=True)
+                 for n in ("port", "jax"))
+    assert set(ours) == set(ref) and "decoder.linear.1.weight" in ref
+    for name, t in ref.items():
+        assert torch.equal(ours[name], t), name
     config, cfg = write_config(tmp_path, "segmentation", "FP32")
     torch.save({"linear.weight": torch.zeros(5, 64)},
                str(tmp_path / "odd.pth"))

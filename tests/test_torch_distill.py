@@ -4,7 +4,10 @@ weights carried across by ``state_dict_from_jax``; one distilled train
 step (two micro-batches, AdamW) against the JAX ``make_loss_fn(vit,
 distiller, teacher_fn)`` step; a deit checkpoint through the port's eval
 and export CLIs against the JAX CLIs; the train CLI end to end on a
-teacher that the port's ``finetune_cnn`` wrote; the A8b refusals.
+teacher that the port's ``finetune_cnn`` wrote; and the quantized
+formats: a student in FP16_32, TF32 and PyTorchINT8 (the one-pass INT8
+step, its observers) against the JAX step, and a quantized deit config
+through the train, eval and export CLIs.
 
 The student: dim 64, depth 2, 2 heads of 32, MLP 128, 80 px, 5 or 10
 classes: 25 patches, the class token and the distillation token, N = 27,
@@ -13,6 +16,7 @@ largest, gradients within 2e-4 of each tensor's largest; elements whose
 gradient is undefined (the key third of each qkv bias: softmax ignores a
 shift of every key, so that gradient is roundoff on both sides) are left
 out, as tests/test_torch_training.py leaves them out."""
+import copy
 import io
 import json
 import os
@@ -33,6 +37,7 @@ from myrtle_vision_tpu.models.distill import (
 )
 from myrtle_vision_tpu.models.resnet import make_teacher_fn as jax_teacher
 from myrtle_vision_tpu.models.vit import ViT as JaxViT
+from myrtle_vision_tpu.quantize import QFormat as JaxQFormat
 from myrtle_vision_tpu.training import optim as jax_optim
 from myrtle_vision_tpu.training.classification import (
     make_loss_fn as jax_loss_fn,
@@ -83,30 +88,39 @@ LOGIT_BAR, GRAD_BAR = 1e-4, 2e-4
 QKV_KEYS = slice(64, 128)  # the key third of a qkv bias (2 heads of 32)
 
 
-def jax_wrapper(num_classes=5):
-    student = JaxViT(**{**KW, "num_classes": num_classes},
-                     dtype=jnp.float32)
+def jax_wrapper(num_classes=5, q_format="FP32", depth=2):
+    student = JaxViT(**{**KW, "num_classes": num_classes, "depth": depth},
+                     q_format=JaxQFormat[q_format], dtype=jnp.float32)
     return JaxWrapper(student=student, temperature=T, alpha=ALPHA)
 
 
-def jax_params(wrapper, seed=0):
+def jax_params(wrapper, seed=0, with_quant=False):
     """The JAX wrapper's initial tree, every leaf moved by seeded noise
-    (so the LayerNorms and biases are off 1 and 0), as numpy."""
-    params = wrapper.init(
+    (so the LayerNorms and biases are off 1 and 0), as numpy; with
+    ``with_quant`` also its fresh ``quant`` collection ({} but in
+    PyTorchINT8)."""
+    variables = wrapper.init(
         jax.random.PRNGKey(seed), jnp.zeros((1, 80, 80, 3)),
         jnp.zeros((1,), jnp.int32),
-        jnp.zeros((1, wrapper.student.num_classes)))["params"]
+        jnp.zeros((1, wrapper.student.num_classes)))
     rng = np.random.RandomState(seed)
-    return jax.tree_util.tree_map(
+    params = jax.tree_util.tree_map(
         lambda p: np.asarray(p, np.float32)
-        + (0.05 * rng.randn(*p.shape)).astype(np.float32), params)
+        + (0.05 * rng.randn(*p.shape)).astype(np.float32),
+        variables["params"])
+    if not with_quant:
+        return params
+    return params, jax.tree_util.tree_map(np.asarray,
+                                          variables.get("quant", {}))
 
 
-def port_wrapper(params, num_classes=5):
-    student = ViT(**{**KW, "num_classes": num_classes},
-                  compute_dtype=torch.float32)
+def port_wrapper(params, num_classes=5, q_format="FP32", quant=None,
+                 depth=2):
+    student = ViT(**{**KW, "num_classes": num_classes, "depth": depth},
+                  compute_dtype=torch.float32, q_format=q_format)
     wrapper = DistillWrapper(student, temperature=T, alpha=ALPHA)
-    wrapper.load_state_dict(state_dict_from_jax(params), strict=True)
+    wrapper.load_state_dict(state_dict_from_jax(params, quant=quant or None),
+                            strict=True)
     return wrapper
 
 
@@ -273,15 +287,108 @@ def test_distillable_vit_to_vit():
             torch.float32
 
 
-@pytest.mark.parametrize("q_format", ["FP16_32", "PyTorchINT8"])
+def observer_names(state_dict):
+    return [n for n in state_dict if n.endswith((".min", ".max"))]
+
+
+@pytest.mark.parametrize("q_format", ["FP16_32", "PyTorchINT8", "TF32"])
 def test_quantized_distillation_raises_a8b(q_format):
-    model = ViT(**KW, q_format=q_format)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        model(torch.zeros(1, 80, 80, 3), distill_token=torch.zeros(1, 1, 64))
-    loss_fn = make_loss_fn(model, DistillWrapper(model), lambda x: x)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        loss_fn({"image": torch.zeros(1, 80, 80, 3),
-                 "label": torch.zeros(1, dtype=torch.int32)})
+    """A student in a quantized format against the JAX package's: the
+    JAX ``make_loss_fn(vit, distiller, teacher_fn)`` step's loss and
+    gradients (PyTorchINT8: the one-pass step, its calibrating forward
+    differentiated op by op, the observers updated as it runs) against
+    the port's; the student's logits and the token's embedding from the
+    same state; in PyTorchINT8 every observer after the step, the
+    token's two included.  Float formats (the student's fused blocks
+    with their qspec at N = 27; the token's stub an identity, its
+    functional site a snap only in FP16_16): the two packages' fp32 sums
+    put a snap on either side of a rounding boundary now and then, which
+    moves that element a whole format step (ROADMAP C6), so the logits
+    and the embedding are held to 1e-4 plus one format step at their
+    largest magnitude, the loss to what the differences of the logits and
+    of the distillation head's outputs allow, and the gradients to 2e-3 of their scale, tests/test_torch_float_qat.py's
+    bars with the snaps on (measured in FP16_32 at depth 2: logits 3.2e-4
+    apart, gradients 3.0e-4 of their scale; with every snap of both
+    packages the identity, 2.4e-6 and 8.9e-6).  The student here has one
+    block.  PyTorchINT8: logits and embedding within
+    1e-4 plus one step of the logits' grid (tests/test_torch_int8_qat.py),
+    the loss likewise, observers 1e-5, gradients GRAD_BAR."""
+    int8 = q_format == "PyTorchINT8"
+    wrapper = jax_wrapper(q_format=q_format, depth=1)
+    params, quant = jax_params(wrapper, seed=6, with_quant=True)
+    img, labels, teacher = inputs(8, batch=2)
+    batch = {"image": jnp.asarray(img), "label": jnp.asarray(labels)}
+
+    loss_fn = jax_loss_fn(wrapper.student, distiller=wrapper,
+                          teacher_fn=lambda _: jnp.asarray(teacher))
+    (ref_loss, aux), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        params, quant, batch, jax.random.PRNGKey(0))
+    ref_grads = state_dict_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                           grads))
+    student = {"params": params["student"]}
+    kwargs = dict(distill_token=jnp.asarray(params["distillation_token"]))
+    if int8:
+        student["quant"] = quant["student"]
+        kwargs.update(calibrating=True, mutable=["quant"])
+    out = wrapper.student.apply(student, jnp.asarray(img), **kwargs)
+    ref_logits, ref_token = (np.asarray(t) for t in (out[0] if int8
+                                                     else out))
+
+    model = port_wrapper(params, q_format=q_format, quant=quant, depth=1)
+    assert set(observer_names(model.state_dict())) == (
+        set(observer_names(state_dict_from_jax(params, quant=quant)))
+        if int8 else set())
+    with torch.no_grad():
+        logits, token = copy.deepcopy(model.student)(
+            torch.from_numpy(img), calibrating=int8,
+            distill_token=model.distillation_token)
+    loss, _ = make_loss_fn(model.student, model, lambda _: torch.from_numpy(
+        teacher))({k: torch.from_numpy(np.asarray(v))
+                   for k, v in batch.items()})
+    loss.backward()
+
+    def bar(ref):
+        top = float(np.abs(ref).max())
+        step = (float(np.ptp(ref_logits)) / 255.0 if int8
+                else 2.0 ** (np.floor(np.log2(top)) - 10))
+        return LOGIT_BAR * max(1.0, top) + step
+
+    d_logits = np.abs(logits.numpy() - ref_logits).max()
+    d_token = np.abs(token.numpy() - ref_token).max()
+    print(f"{q_format}: loss {loss.item():.7f} vs {float(ref_loss):.7f}, "
+          f"logits {d_logits:.3g} (bar {bar(ref_logits):.3g}), token "
+          f"{d_token:.3g} (bar {bar(ref_token):.3g})")
+    assert d_logits <= bar(ref_logits) and d_token <= bar(ref_token)
+    # cross entropy moves by at most 2 max|d logits|, T^2 KL(z / T) by
+    # at most 2 T max|d z| where z is the distillation head's output
+    with torch.no_grad():
+        d_head = float((model.distill_mlp_linear(model.distill_mlp_norm(
+            token)) - model.distill_mlp_linear(model.distill_mlp_norm(
+                torch.from_numpy(ref_token)))).abs().max())
+    assert abs(loss.item() - float(ref_loss)) <= 1e-6 * abs(
+        float(ref_loss)) + 2 * (ALPHA * d_logits + (1 - ALPHA) * T * d_head)
+    grad_bar = GRAD_BAR if int8 else 2e-3
+    worst = 0.0
+    for name, p in model.named_parameters():
+        ref = ref_grads[name]
+        got = p.grad if p.grad is not None else torch.zeros_like(ref)
+        if not float(ref.abs().max()):
+            assert not float(got.abs().max()), name
+            continue
+        mask = defined(ref)
+        d = float((got - ref)[mask].abs().max()) / float(ref.abs().max())
+        worst = max(worst, d)
+        assert d <= grad_bar, (name, d)
+    print(f"{q_format}: largest gradient difference {worst:.3g}")
+    if int8:
+        after = state_dict_from_jax(params, quant=jax.tree_util.tree_map(
+            np.asarray, aux["quant"]))
+        sd = model.state_dict()
+        for name in observer_names(after):
+            np.testing.assert_allclose(sd[name].numpy(), after[name].numpy(),
+                                       rtol=1e-5, atol=1e-7, err_msg=name)
+        assert float(sd["student.distill_token_cat.max"]) > float(
+            sd["student.distill_token_cat.min"])
 
 
 # ------------------------------------------------------------ CLIs
@@ -461,7 +568,73 @@ def test_deit_checkpoint_clis_match_jax(synth, tmp_path, monkeypatch):
     assert reports["port"] == reports["jax"]
 
 
-def test_quantized_deit_config_raises_a8b(synth):
-    cfg, _ = deit_config(synth, "deit_fp16", q_format="FP16_32")
-    with pytest.raises(NotImplementedError, match="A8b"):
-        train_cli.main(["-c", cfg, "--device", "cpu"])
+def test_quantized_deit_config_raises_a8b(synth, tmp_path):
+    """A deit config in PyTorchINT8 and in FP16_16 through the port's
+    CLIs: the train CLI distils the student (INT8: the one-pass step) for
+    4 steps of 2 x 8 with finite losses, and an INT8 checkpoint carries
+    the student's observers, the token's two among them with statistics;
+    the eval CLI reads the student as a plain ViT (INT8: the simulation's
+    eval forward); and the export CLI writes what the JAX export CLI
+    writes from the JAX checkpoint of the same weights and observers, bit
+    for bit."""
+    for q_format in ("PyTorchINT8", "FP16_16"):
+        cfg, config = deit_config(synth, f"deit_{q_format}",
+                                  q_format=q_format)
+        out = io.StringIO()
+        with redirect_stdout(out):
+            state = train_cli.main(["-c", cfg, "--device", "cpu"])
+        losses = [float(v) for v in re.findall(
+            r"Iteration \d+:\tloss=(\S+)\tacc=", out.getvalue())]
+        assert len(losses) == state.iteration == 4
+        assert all(np.isfinite(losses)), (q_format, losses)
+        run_dir = out.getvalue().split("output directory: ")[1].split(
+            "\n")[0]
+        payload = torch.load(os.path.join(run_dir, "vit_000004"),
+                             weights_only=True)
+        assert payload["q_format"] == q_format
+        sd = payload["model"]
+        for site in ("quant_distill_token", "distill_token_cat"):
+            assert (float(sd[f"student.{site}.min"]) <= float(
+                sd[f"student.{site}.max"])) if q_format == "PyTorchINT8" \
+                else f"student.{site}.min" not in sd, site
+        config["train_config"]["checkpoint_path"] = os.path.join(
+            run_dir, "vit_000004")
+        with redirect_stdout(io.StringIO()):
+            gts, _, logits = eval_cli.run_eval(config, torch.device("cpu"))
+        assert logits.shape == (len(gts), 10) and bool(
+            torch.isfinite(logits).all())
+
+    config = json.loads(json.dumps(config))
+    config["vit_config"]["q_format"] = "PyTorchINT8"
+    wrapper = jax_wrapper(num_classes=10, q_format="PyTorchINT8")
+    params, quant = jax_params(wrapper, seed=9, with_quant=True)
+    quant = jax.tree_util.tree_map(lambda v: np.float32(
+        -1.5 if np.isposinf(v) else 2.5), quant)
+    jstate = init_train_state(
+        wrapper, jax_optim.create_optimizer(TRAIN_CONFIG),
+        jax.random.PRNGKey(0), jnp.zeros((1, 80, 80, 3)),
+        labels=jnp.zeros((1,), jnp.int32),
+        teacher_logits=jnp.zeros((1, 10), jnp.float32))
+    jax_save_checkpoint(jstate.replace(
+        params=params, quant=quant, iteration=jnp.asarray(4, jnp.int32)),
+        str(tmp_path / "jax_ckpt"))
+    model = port_wrapper(params, num_classes=10, q_format="PyTorchINT8",
+                         quant=quant)
+    save_checkpoint(TrainState(model, optim.create_optimizer(
+        TRAIN_CONFIG, model), 4), str(tmp_path / "port_ckpt"))
+    jax_export = load_script_module(
+        os.path.join(REPO, "classification", "export_checkpoint.py"),
+        "export_checkpoint_for_int8_deit")
+    outs = {}
+    for name, export in (("jax", jax_export.export),
+                         ("port", export_checkpoint.export)):
+        config["train_config"]["checkpoint_path"] = str(tmp_path /
+                                                        f"{name}_ckpt")
+        outs[name] = str(tmp_path / f"{name}.pth")
+        export(json.loads(json.dumps(config)), outs[name])
+    ours, ref = (torch.load(outs[n], weights_only=True)
+                 for n in ("port", "jax"))
+    assert set(ours) == set(ref) and not any(
+        n.endswith((".min", ".max")) for n in ours)
+    for name, t in ref.items():
+        assert torch.equal(ours[name], t), name

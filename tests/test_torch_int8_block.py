@@ -176,8 +176,8 @@ def test_mlp_half_matches_jax_kernel(models, layer):
 
 def test_ops_refuse_long_sequences_and_other_devices():
     """The attention op takes every length the JAX model fuses (257 and
-    the gate's last) and refuses the first past the gate (``fuses_at``,
-    the discrete converted Block's lengths, ROADMAP A5b); another device
+    the gate's last) and refuses the first past the gate (``fuses_at``:
+    there the converted Block runs its discrete form); another device
     has no kernel."""
     w = torch.zeros(64, 192, dtype=torch.int8)
     sites = torch.zeros(5, 3)
@@ -190,7 +190,7 @@ def test_ops_refuse_long_sequences_and_other_devices():
                                    sites, 2, 0.125)
         assert out.shape == x.shape and bool(torch.isfinite(out).all())
     x = torch.zeros(1, top + 1, 64)
-    with pytest.raises(ValueError, match="past the fused gate.*A5b"):
+    with pytest.raises(ValueError, match="past the fused gate.*discrete"):
         int8_attention_block(x, x[0, 0], x[0, 0], w, one, w[0].float(),
                              w[:, :64], one, x[0, 0], sites, 2, 0.125)
     with pytest.raises(ValueError, match="no kernel for meta"):

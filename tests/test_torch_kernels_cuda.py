@@ -535,6 +535,67 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
         K.layernorm_quant_rows_cuda(a.to(torch.bfloat16), col, col, site)
 
 
+# The discrete converted Block (models/vit.py forward_converted_discrete)
+# on the card against its plain path: (image size, patch, dim, heads,
+# depth, MLP, B, variable): past the fused gate at 16 heads of 4 (485
+# tokens) and at ViT-S/16's widths at 448 px (785 tokens), and under
+# MVT_INT8_FUSE=0 at 26 tokens
+DISCRETE_CASES = [(88, 4, 64, 16, 2, 128, 2, None),
+                  (448, 16, 384, 6, 1, 1536, 2, None),
+                  (80, 16, 64, 1, 2, 128, 3, "MVT_INT8_FUSE")]
+
+
+@pytest.mark.parametrize("fresh", [False, True], ids=["calibrated",
+                                                      "quant_out fresh"])
+@pytest.mark.parametrize("size,patch,dim,heads,depth,mlp,b,env",
+                         DISCRETE_CASES)
+def test_discrete_converted_block_matches_plain(dev, monkeypatch, size, patch,
+                                                dim, heads, depth, mlp, b,
+                                                env, fresh):
+    """Each block of a converted model calibrated on the card, kernel path
+    (``gemm_s8_epilogue``, ``layernorm_quant_rows``) against plain path on
+    the same input, under the INT8 chain bar (99% identical, 4 steps of
+    the res_add grid), the logits likewise; launches: 2 LayerNorms and 4
+    products a block (to_out's product the fallback where quant_out has
+    no statistics), no fused op, no attention kernel."""
+    from myrtle_vision_tpu_torch.ops.fused_int8_block import (
+        int8_attention_block,
+    )
+    from myrtle_vision_tpu_torch.quantize import convert_params
+
+    if env:
+        monkeypatch.setenv(env, "0")
+    kw = dict(decoder="classification", image_size=size, patch_size=patch,
+              num_classes=10, dim=dim, depth=depth, heads=heads, mlp_dim=mlp,
+              dim_head=dim // heads, q_format="PyTorchINT8", device=dev)
+    gen = torch.Generator(dev).manual_seed(size + dim)
+    imgs = torch.randn(b, size, size, 3, device=dev, generator=gen)
+    model = ViT(**kw)
+    with torch.no_grad():
+        model(imgs, calibrating=True)
+    sd = convert_params(model.state_dict(), "PyTorchINT8")
+    if fresh:
+        sd["transformer.layers.0.0.fn.fn.quant_out.min"].fill_(float("inf"))
+        sd["transformer.layers.0.0.fn.fn.quant_out.max"].fill_(-float("inf"))
+    conv = ViT(**kw, converted=True)
+    conv.load_state_dict(sd, strict=True)
+    before = dict(K.LAUNCHES), int8_attention_block.launches
+    with torch.inference_mode():
+        x = conv.embed_converted(imgs, K.PLAIN)
+        for block, sites in zip(conv.transformer.layers, conv.block_sites):
+            got = block.forward_converted(x, sites)
+            x = block.forward_converted(x, sites, plain=True)
+            close_on_grid(got, x, sites[1][4][0], INT8_CHAIN_SAME,
+                          INT8_CHAIN_STEPS)
+        moved = {k: K.LAUNCHES[k] - before[0][k] for k in K.LAUNCHES}
+        assert {k: v for k, v in moved.items() if v} == {
+            "layernorm_quant_rows": 2 * depth,
+            "gemm_s8_epilogue": 4 * depth - fresh}
+        assert int8_attention_block.launches == before[1]
+        close_on_grid(conv(imgs), conv(imgs, plain=True), conv.io_sites[3][0],
+                      INT8_CHAIN_SAME, INT8_CHAIN_STEPS)
+
+
 # flash_attention_fwd: the detection eval's K6 regime (800 px, 2601
 # tokens), the K5 regime (512 px, 1125 tokens), a ragged head-32 case
 # with masked keys; each against its plain version in that regime

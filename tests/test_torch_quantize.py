@@ -39,6 +39,8 @@ from myrtle_vision_tpu_torch.utils.convert import (
     state_dict_from_jax,
 )
 
+from test_torch_int8_discrete import logits_close, refuse_fused
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(decoder="classification", image_size=80, patch_size=16,
           num_classes=4, dim=64, depth=2, heads=2, mlp_dim=128, dim_head=32)
@@ -275,13 +277,14 @@ def test_loads_refuse_the_other_storage(jax_int8):
 @pytest.mark.parametrize("q_format", ["FP16_16", "FP16_32", "TF32"])
 def test_float_formats_raise_with_the_roadmap_item(q_format, monkeypatch,
                                                    jax_int8):
-    """What the quantized formats still refuse: a converted PyTorchINT8
-    model past the fused gate (the discrete converted Block, A5b), and a
-    converted INT8 detector (no JAX CLI builds one).  A PyTorchINT8
-    detector before convert builds now, and the float formats build a
-    detector; a sequence past the fused gate runs the discrete float
-    Block, recording gradients or not (tests/test_torch_float_detection.py
-    holds both against JAX)."""
+    """What the quantized formats still refuse: a converted INT8 detector
+    (no JAX CLI builds one).  A PyTorchINT8 detector before convert builds
+    now, and the float formats build a detector; a sequence past the
+    fused gate runs the discrete float Block, recording gradients or not
+    (tests/test_torch_float_detection.py holds both against JAX), and in
+    a converted PyTorchINT8 model the discrete converted Block, whose
+    logits are the JAX converted model's past its own gate (within 2
+    steps of the head's grid, tests/test_torch_int8_discrete.py's bar)."""
     assert ViT(**dict(KW, decoder="detection"),
                q_format="PyTorchINT8").int8
     with pytest.raises(NotImplementedError, match="converted PyTorchINT8"):
@@ -298,8 +301,17 @@ def test_float_formats_raise_with_the_roadmap_item(q_format, monkeypatch,
         jax_int8["converted"], quant=jax_int8["quant"]), strict=True)
     monkeypatch.setattr("myrtle_vision_tpu_torch.models.vit.fuses_at",
                         lambda n, heads, d: False)
-    with pytest.raises(NotImplementedError, match="A5b"), torch.no_grad():
-        converted(img)
+    monkeypatch.setattr("myrtle_vision_tpu.models.vit.fuses_at",
+                        lambda n, heads, d: False)
+    refuse_fused(monkeypatch)
+    x = jax_int8["img"]
+    ref = JaxViT(q_format=JaxQFormat.PyTorchINT8, converted=True,
+                 dtype=jnp.float32, **KW).apply(
+        {"params": jax_int8["converted"], "quant": jax_int8["quant"]},
+        jnp.asarray(x))
+    with torch.no_grad():
+        logits_close("past the gate", converted(torch.from_numpy(x)).numpy(),
+                     ref, converted)
     assert model(img).grad_fn is not None
     with torch.no_grad():
         torch.testing.assert_close(model(img), fused.detach(), rtol=0,
@@ -371,10 +383,12 @@ def test_cli_predicts_as_the_jax_cli(cli_setup, capsys, tmp_path):
                           preds, logits)
 
 
-def assert_as_the_jax_cli(cli_setup, config, name, gts, preds, logits):
+def assert_as_the_jax_cli(cli_setup, config, name, gts, preds, logits,
+                          msgpack=None):
     """The JAX classification/test_quantize.py on ``config`` and the msgpack
-    checkpoint, its ``evaluate_dataset`` wrapped to capture its
-    predictions: the same labels and predictions as the port's CLI."""
+    checkpoint (``msgpack``, or the fixture's), its ``evaluate_dataset``
+    wrapped to capture its predictions: the same labels and predictions
+    as the port's CLI."""
     from conftest import load_script_module
 
     tq = load_script_module(
@@ -389,7 +403,8 @@ def assert_as_the_jax_cli(cli_setup, config, name, gts, preds, logits):
     evaluate = tq.evaluate_dataset
     tq.evaluate_dataset = capture
     config = json.loads(json.dumps(config))
-    config["train_config"]["checkpoint_path"] = cli_setup["msgpack"]
+    config["train_config"]["checkpoint_path"] = msgpack or cli_setup[
+        "msgpack"]
     tq.test_deit(config, calib_steps=2, quantized_ckpt=False)
     assert len(preds) == len(seen["preds"]) == 20
     np.testing.assert_array_equal(gts, seen["gts"])
@@ -421,6 +436,47 @@ def test_float_cli_predicts_as_the_jax_cli(cli_setup, capsys, tmp_path,
     assert_as_the_jax_cli(cli_setup, config, q_format, gts, preds, logits)
 
 
+def test_cli_past_the_gate_predicts_as_the_jax_cli(cli_setup, capsys,
+                                                   tmp_path, monkeypatch):
+    """The PTQ CLI in PyTorchINT8 at an ``image_size`` past the fused
+    gate, as a user sets it: 16 heads of 4 at dim 64 (the gate's longest
+    463 tokens), patch 4 at 88 px, 485 tokens, depth 1.  The JAX CLI
+    converts and evaluates through its discrete converted Block there,
+    and so does the port's (its fused ops are not called): the same
+    predictions, and the same printed report."""
+    root = cli_setup["root"]
+    with open(root / "data_config.json") as f:
+        data_config = json.load(f)
+    data_config["transform_ops_val"]["Resize"] = 88
+    (tmp_path / "data_config.json").write_text(json.dumps(data_config))
+    config = json.loads(json.dumps(cli_setup["config"]))
+    config["data_config_path"] = str(tmp_path / "data_config.json")
+    config["vit_config"].update(image_size=88, patch_size=4, depth=1,
+                                heads=16)
+    params = JaxViT(**dict(KW, image_size=88, patch_size=4, depth=1,
+                           heads=16, dim_head=4, num_classes=10)).init(
+        jax.random.PRNGKey(7), jnp.zeros((1, 88, 88, 3)))["params"]
+    pth, msgpack = tmp_path / "model.pth", tmp_path / "model.msgpack"
+    save_torch_checkpoint(params, "classification", str(pth))
+    with open(msgpack, "wb") as f:
+        f.write(serialization.msgpack_serialize({
+            "model": jax.tree_util.tree_map(np.asarray, params),
+            "optimizer": None, "quant": {}, "lr_scheduler": {},
+            "iteration": 0}))
+    config["train_config"]["checkpoint_path"] = str(pth)
+    cfg = tmp_path / "long.json"
+    cfg.write_text(json.dumps(config))
+    refuse_fused(monkeypatch)
+    gts, preds, logits = cli.main(["-c", str(cfg), "--device", "cpu",
+                                   "--calib_steps", "2"])
+    ours = capsys.readouterr().out
+    assert_as_the_jax_cli(cli_setup, config, "past_the_gate", gts, preds,
+                          logits, str(msgpack))
+    theirs = capsys.readouterr().out
+    report = ours[ours.index("precision"):]
+    assert report in theirs, (report, theirs)
+
+
 def test_cli_cuda_without_a_card_raises(cli_setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -428,7 +484,7 @@ def test_cli_cuda_without_a_card_raises(cli_setup, monkeypatch):
 
 
 @pytest.mark.parametrize("q_format,decoder,error,match", [
-    ("FP16_32", "detection", NotImplementedError, "A5a"),
+    ("FP16_32", "detection", NotImplementedError, "quantizes classifiers"),
     ("FP32", "classification", ValueError, "nothing to quantize"),
 ])
 def test_cli_refuses_other_formats(cli_setup, tmp_path, q_format, decoder,

@@ -18,7 +18,11 @@ import torch
 
 from myrtle_vision_tpu.data.loader import DataLoader as JaxLoader
 from myrtle_vision_tpu.datasets.resisc45 import Resisc45
+from myrtle_vision_tpu.models.distill import DistillWrapper as JaxWrapper
 from myrtle_vision_tpu.models.vit import ViT as JaxViT
+from myrtle_vision_tpu.models.vit import (
+    vit_kwargs_from_config as jax_vit_kwargs_from_config,
+)
 from myrtle_vision_tpu.training import optim as jax_optim
 from myrtle_vision_tpu.training.classification import (
     make_loss_fn as jax_loss_fn,
@@ -49,6 +53,14 @@ from myrtle_vision_tpu_torch.utils.checkpoint import (
 from myrtle_vision_tpu_torch.utils.convert import (
     load_pretrained_backbone,
     state_dict_from_jax,
+)
+
+from test_torch_int8_discrete import (
+    capture_matches_jax,
+    converted_setup,
+    jax_logits,
+    logits_close,
+    refuse_fused,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -463,30 +475,58 @@ def test_build_train_repeats_the_cli_first_step(synth, capsys):
 
 
 def test_unported_options_raise(synth):
-    cfg, config = _write_config(synth, "distill")
-    config["vit_config"]["q_format"] = "FP16_32"
+    """Options that raised before their port: a distiller in a quantized
+    format now builds its DistillWrapper, whose PyTorchINT8 student
+    carries the JAX student's observers (its token's two included) and
+    loads the JAX wrapper's params and quant strictly; attention capture
+    in a converted INT8 model runs the discrete converted Block, its
+    probabilities those the JAX model sows."""
+    _, config = _write_config(synth, "distill")
     config["distiller_config"] = {"temperature": 1.0, "alpha": 0.5,
                                   "teacher_weights_path": "x.pth"}
-    with pytest.raises(NotImplementedError, match="A8b"):
-        train_cli.train(config, torch.device("cpu"))
-    # dropout is ported; attention capture in a converted INT8 model runs
-    # the discrete converted Block, which is not
-    model = ViT(**{**KW, "q_format": "PyTorchINT8"}, converted=True)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        model(torch.zeros(1, 80, 80, 3), capture_attention=True)
+    for q_format in ("FP16_32", "PyTorchINT8"):
+        config["vit_config"]["q_format"] = q_format
+        vit, wrapper = train_cli.build_models(
+            config, synth["data_config"], "cpu", torch.Generator())
+        assert wrapper.student is vit and vit.q_format.name == q_format
+        assert hasattr(vit, "distill_token_cat") == (q_format ==
+                                                     "PyTorchINT8")
+    jwrapper = JaxWrapper(student=JaxViT(**jax_vit_kwargs_from_config(
+        config, synth["data_config"])), temperature=1.0, alpha=0.5)
+    variables = jwrapper.init(jax.random.PRNGKey(0),
+                              jnp.zeros((1, 80, 80, 3)),
+                              jnp.zeros((1,), jnp.int32), jnp.zeros((1, 10)))
+    assert set(variables["quant"]["student"]) >= {"quant_distill_token",
+                                                  "distill_token_cat"}
+    sd = state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, variables["params"]),
+        quant=jax.tree_util.tree_map(np.asarray, variables["quant"]))
+    wrapper.load_state_dict(sd, strict=True)
+    assert float(wrapper.student.distill_token_cat.min) == float("inf")
+    img, jconv, jvars, model, _ = converted_setup("calibrated")
+    capture_matches_jax(img, jconv, jvars, model)
 
 
 @pytest.mark.parametrize("env", [("MVT_INT8_FUSE", "0"),
                                  ("MVT_NO_FUSE", "1")])
 def test_converted_int8_refuses_the_discrete_block(monkeypatch, env):
     """Under ``MVT_INT8_FUSE=0`` (as under ``MVT_NO_FUSE=1``) the JAX
-    converted Block runs its discrete form, which the port does not have
-    yet: a converted PyTorchINT8 model raises naming A5b rather than run
-    the fused kernels; with the variable unset it runs them."""
-    model = ViT(**{**KW, "q_format": "PyTorchINT8"}, converted=True)
-    img = torch.zeros(1, 80, 80, 3)
-    monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        model(img)
+    converted Block runs its discrete form, and so does the port's: a
+    converted PyTorchINT8 model no longer refuses there, its fused ops
+    are not called, and its logits are the JAX model's under the same
+    variable (within 2 steps of the head's grid, the converted bar of
+    tests/test_torch_int8_discrete.py); with the variable unset it runs
+    the fused ops again."""
+    img, jconv, variables, model, _ = converted_setup("calibrated")
+    x = torch.from_numpy(img)
+    with torch.no_grad():
+        fused = model(x)
+        monkeypatch.setenv(*env)
+        ref = jax_logits(jconv, variables, img)
+        with monkeypatch.context() as mp:
+            refuse_fused(mp)
+            got = model(x)
+    logits_close(env[0], got.numpy(), ref, model)
     monkeypatch.delenv(env[0])
-    assert bool(torch.isfinite(model(img)).all())
+    with torch.no_grad():
+        assert torch.equal(model(x), fused)
