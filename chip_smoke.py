@@ -28,7 +28,10 @@ Phases, each ending in one line of output:
               (bit-identical to its plain version), the LayerNorm, 3-pass
               GEMM and attention-core stages and both block-half chains
               with each qspec (FP16_16, FP16_32, TF32) at B=64, N=197 and
-              the ragged B=3, N=50; the float formats' backward kernels
+              the ragged B=3, N=50, and 250 calls of the attention chain
+              and of its kernels chained by hand in each format, bit for
+              bit the first call's (ROADMAP C11); the float formats'
+              backward kernels
               (the qspec forms of K2 and K4: the 3-pass GEMM in the
               backward's layouts and epilogues, the snap-mode core's
               statistics, attention_core_f32_bwd, layernorm_snap_rows_bwd)
@@ -250,9 +253,14 @@ Phases, each ending in one line of output:
               the detection train CLI (YOLOS-S at 384 px, data 2), each
               rank a process launched as a user launches one, against one
               process: first-step losses and gradients, res_scale
-              launches; the steps' times (two ranks share one card: not a
-              scaling figure).  A rank runs this script with
-              ``--counted <counts.json> <grads.pt> <CLI module> <args>``.
+              launches; tensor parallel 2 where the fused gate refuses
+              (vit_small.json in FP16_32, under MVT_NO_FUSE=1 and in
+              PyTorchINT8 QAT; YOLOS-S at 608 px in FP32): the same, the
+              whole ops' launches, the discrete attention calls by head
+              count, the INT8 observers; the steps' times (two ranks share
+              one card: not a scaling figure).  A rank runs this script
+              with ``--counted <counts.json> <grads.pt> <CLI module>
+              <args>``.
 Then the JSON line of kernels, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before that line; without a CUDA device it exits at once.
@@ -1415,7 +1423,52 @@ def phase_kernels_float(device):
                 key = name.split("[")[0]
                 if b == 64:
                     errors[key] = max(errors.get(key, 0.0), max_abs)
+        c11_repeats(device, qname, qspec)
     return errors
+
+
+# ROADMAP C11: each call of the float formats' K1 op and of its kernels
+# chained by hand at B=64, N=197, bit for bit the first call's
+C11_CALLS = 250
+
+
+def c11_repeats(device, qname, qspec):
+    """The K1 op (``qspec``) and its four kernels chained by hand
+    (``layernorm_snap_rows``, the qkv ``gemm_f32x3_epilogue``,
+    ``attention_core_snap``, the projection's), C11_CALLS calls each on
+    the kernels phase's B=64 inputs, every output compared bitwise with
+    the first call's.  Before the repair one chained call in ~70 gave a
+    wrong row of one projection tile."""
+    from myrtle_vision_tpu_torch.ops import _kernels as K
+    from myrtle_vision_tpu_torch.ops import fused_attention_block as fa
+    from myrtle_vision_tpu_torch.ops.fake_quant import kernel_sites
+
+    x, attn, _ = float_block_inputs(64, N, seed=64 * 1000 + N + 2,
+                                    device=device, qspec=qspec)
+    s_ln, b_ln, wqkv, bqkv, wp, bp = attn
+    b, n, c = x.shape
+    x2 = x.view(b * n, c)
+
+    def chain():
+        xn = K.layernorm_snap_rows_cuda(x2, s_ln, b_ln,
+                                        kernel_sites(qspec, 0))
+        qkv = K.gemm_f32x3_epilogue_cuda(xn, wqkv, bqkv, "bias_snap",
+                                         kernel_sites(qspec, 1))
+        ctx = K.attention_core_snap_cuda(qkv.view(b, n, 3 * c), HEADS, SCALE,
+                                         kernel_sites(qspec, 2))
+        return K.gemm_f32x3_epilogue_cuda(
+            ctx.view(b * n, c), wp, bp, "bias_snap_residual_snap",
+            kernel_sites(qspec, 3, 4), residual=x2)
+
+    for name, fn in (("the op", lambda: fa.fused_attention_block(
+            x, *attn, HEADS, SCALE, qspec=qspec)), ("its kernels", chain)):
+        t0 = time.perf_counter()
+        first = fn()
+        differ = sum(not torch.equal(fn(), first) for _ in range(C11_CALLS))
+        print(f"kernels: C11 repeats: fused_attention_block[qspec] {qname} "
+              f"B=64,N={N}, {name}: {differ} of {C11_CALLS} calls differ "
+              f"bitwise from the first ({time.perf_counter() - t0:.1f} s)")
+        check(differ == 0, f"C11: {qname} {name}: {differ} calls differ")
 
 
 def qat_kernel_cases(x, attn, mlp, do, qspec):
@@ -7651,8 +7704,9 @@ def phase_multigpu_kernels(device, power):
 def mg_first_step_hook(cli, grads_path, times):
     """Wrap ``cli.create_optimizer`` so that the optimizer's first step
     writes the gradients it applies to ``grads_path`` (fp32, on the
-    host, by parameter name) and every step appends its host time (after
-    a synchronize) to ``times``; what the CLI computes is unchanged."""
+    host, by parameter name) and the INT8 observers to ``grads_path`` +
+    ".observers.pt", and every step appends its host time (after a
+    synchronize) to ``times``; what the CLI computes is unchanged."""
     real = cli.create_optimizer
 
     def create(train_config, model):
@@ -7668,6 +7722,11 @@ def mg_first_step_hook(cli, grads_path, times):
                             for g in optimizer.param_groups
                             for p in g["params"] if p.grad is not None},
                            grads_path)
+                # the INT8 observers after the first step's passes
+                torch.save({n: b.detach().float().cpu()
+                            for n, b in model.state_dict().items()
+                            if n.endswith((".min", ".max"))},
+                           grads_path + ".observers.pt")
             return step(*args, **kwargs)
 
         optimizer.step = wrapped
@@ -7682,24 +7741,36 @@ def counted_cli(module, argv, out_json=None, grads_path=None):
     counts reset before and read after, the first step's gradients
     written to ``grads_path``; returns (its stdout, the counts: kernel
     launches, res_scale launches, op launches, the optimizer steps' host
-    times), also written to ``out_json``."""
+    times, the discrete Blocks' attention calls by head count), also
+    written to ``out_json``."""
     import importlib
 
     from myrtle_vision_tpu_torch.ops import _kernels as K
+
+    from myrtle_vision_tpu_torch.models import vit
 
     cli = importlib.import_module(module)
     times = []
     real = mg_first_step_hook(cli, grads_path, times)
     out = io.StringIO()
+    heads, core = [], vit._attention
+
+    def record(q, *args, **kwargs):
+        heads.append(q.shape[1])
+        return core(q, *args, **kwargs)
+
     reset_counts()
+    vit._attention = record
     try:
         with contextlib.redirect_stdout(out):
             cli.main(argv)
         launches, ops = read_counts()
     finally:
         cli.create_optimizer = real
+        vit._attention = core
     counts = {"launches": launches, "res_scale": dict(K.RES_SCALE_LAUNCHES),
-              "ops": ops, "times": times}
+              "ops": ops, "times": times,
+              "heads": {str(h): heads.count(h) for h in sorted(set(heads))}}
     if out_json:
         with open(out_json, "w") as f:
             json.dump(counts, f)
@@ -7779,12 +7850,14 @@ def mg_step_ms(times):
     return float(np.mean(d)) * 1e3 if len(d) else float("nan")
 
 
-def mg_classification(tag, config, ref_config, power, expect_res=None):
+def mg_classification(tag, config, ref_config, power, expect_res=None,
+                      also=None):
     """Two ranks of the classification train CLI on ``config`` against
     one process on ``ref_config`` (the same steps at equal n_accum): the
     first step's loss (LOSS_BAR) and gradients (GRAD_BAR), the later
     steps' spread; ``expect_res``, the res_scale launches rank 0 must
-    count.  Returns rank 0's counts."""
+    count; ``also(tag, rank 0's counts, rank 1's, the one process's)``
+    checks more.  Returns rank 0's counts."""
     ref_cfg = write_json(f"mg_{tag}_one.json", ref_config)
     ref_grads = os.path.join(WORK, f"mg_{tag}_one_grads.pt")
     text, ref_counts = counted_cli(
@@ -7824,6 +7897,8 @@ def mg_classification(tag, config, ref_config, power, expect_res=None):
         check(counts0["res_scale"] == counts1["res_scale"] == expect_res,
               f"multigpu {tag}: res_scale launches {counts0['res_scale']} "
               f"/ {counts1['res_scale']}, expected {expect_res}")
+    if also is not None:
+        also(tag, counts0, counts1, ref_counts)
     return counts0
 
 
@@ -7967,6 +8042,198 @@ def mg_detection(power, det_data_config):
               f"multigpu det: first-step {('bbox', 'giou')[i - 2]} loss")
 
 
+# Tensor parallelism where the fused gate refuses (ROADMAP A9b): data 1 x
+# model 2, each Block in the form the JAX GSPMD step gives it
+# (parallel/tp.py): FP16_32's fused Blocks whole on both ranks; a
+# discrete Block (MVT_NO_FUSE=1; YOLOS-S at 608 px, 1545 tokens, past
+# fuses_at) split, its attention on 3 of the 6 heads; PyTorchINT8's
+# two-pass step, pass 1 split with the observers of the split activations
+# reduced over the group, pass 2 whole.  Two steps of 2 x 32 images (a
+# detector: one of 2 images) on both ranks against one process.
+MG_TP_DET_PX = 608
+# layer 0's observers and those before it after the first step, against
+# one process: the split products' sum order can move a snapped element a
+# grid step.  Deeper, such flips compound over the blocks (27% of a
+# converted model's logits identical kernel vs plain, PERF.md), so the
+# later observers are printed; the two ranks' must be the same bits.
+MG_OBS_BAR = 2.0 ** -8
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mg_observer_errors(tag):
+    """The INT8 observers after the first step: whether rank 0's and rank
+    1's are the same bits, and (largest |d| / max(|one process's|,
+    2^-10), its name) of rank 0 against one process over layer 0's and
+    those before it, and over the rest."""
+    def load(name):
+        return torch.load(os.path.join(WORK, f"mg_{tag}_{name}_grads.pt"
+                                       ".observers.pt"), weights_only=True)
+
+    got, other, ref = load("rank0"), load("rank1"), load("one")
+    check(set(got) == set(other) == set(ref) and len(ref) > 0,
+          f"multigpu {tag}: observer names")
+    same = all(torch.equal(got[n], other[n]) for n in got)
+    early, late = [], []
+    for n, r in ref.items():
+        d = (float((got[n] - r).abs() / r.abs().clamp_min(2.0 ** -10)), n)
+        deep = n.startswith(("decoder.", "transformer.")) and \
+            not n.startswith("transformer.layers.0.")
+        (late if deep else early).append(d)
+    return same, max(early), max(late)
+
+
+def mg_gspmd_form(whole_ops=(), local_heads=None, observers=False):
+    """A check of a TP-2 case's counts (``mg_classification``'s
+    ``also``): no head-sharded launch (no res_scale); ``whole_ops``, the
+    fused ops that run whole, launched on rank 0 as often as in one
+    process; ``local_heads``, every discrete attention call in training
+    on that many heads (rank 1, which does not validate, and rank 0 past
+    its validation's whole Blocks), as many calls as one process makes
+    on twice as many; ``observers``, rank 0's INT8 observers after the
+    first step within MG_OBS_BAR of one process's."""
+    def also(tag, counts0, counts1, ref):
+        res = {k: v for k, v in counts0["res_scale"].items() if v}
+        ops0 = {k: tuple(counts0["ops"][k]) for k in whole_ops}
+        ops_ref = {k: tuple(ref["ops"][k]) for k in whole_ops}
+
+        def flash(counts):
+            return {k: v for k, v in counts["launches"].items()
+                    if v and "flash" in k}
+
+        print(f"multigpu: {tag}: rank 0 ops {ops0}, one process {ops_ref}; "
+              f"discrete attention calls by heads: rank 0 "
+              f"{counts0['heads']}, rank 1 {counts1['heads']}, one process "
+              f"{ref['heads']}; flash launches rank 0 {flash(counts0)}, one "
+              f"process {flash(ref)}")
+        check(not res, f"multigpu {tag}: head-sharded launches {res}")
+        check(ops0 == ops_ref and all(v[0] > 0 for v in ops0.values()),
+              f"multigpu {tag}: whole ops {ops0} against {ops_ref}")
+        if local_heads is not None:
+            local, whole = str(local_heads), str(2 * local_heads)
+            n = counts1["heads"].get(local, 0)
+            validated = counts0["heads"].get(whole, 0)
+            check(n > 0 and set(counts1["heads"]) == {local}
+                  and counts0["heads"].get(local) == n
+                  and set(counts0["heads"]) <= {local, whole}
+                  and set(ref["heads"]) == {whole}
+                  and validated + n == ref["heads"][whole],
+                  f"multigpu {tag}: attention calls by heads "
+                  f"{counts0['heads']} / {counts1['heads']} against "
+                  f"{ref['heads']}")
+            for k in ("flash_attention_fwd", "flash_attention_bwd"):
+                check(counts0["launches"][k] == ref["launches"][k],
+                      f"multigpu {tag}: {k} launches")
+        if observers:
+            same, (worst, name), (deep, deep_name) = mg_observer_errors(tag)
+            print(f"multigpu: {tag}: INT8 observers after the first step: "
+                  f"the two ranks' the same bits {same}; against one "
+                  f"process, layer 0's and those before it largest "
+                  f"relative |d| {worst:.4g} in {name} (bar "
+                  f"{MG_OBS_BAR:g}), the deeper ones {deep:.4g} in "
+                  f"{deep_name}")
+            check(same, f"multigpu {tag}: the ranks' observers differ")
+            check(worst <= MG_OBS_BAR, f"multigpu {tag}: observers")
+
+    return also
+
+
+def mg_detection_tp(det_data_config):
+    """YOLOS-S in FP32 at MG_TP_DET_PX (past fuses_at: every Block split,
+    the flash kernels on 3 of 6 heads) on data 1 x model 2 against one
+    process, one step of 2 images on both: the first step's four losses
+    (LOSS_BAR) and gradients (GRAD_BAR); each rank runs the host matcher
+    and num_boxes on the same micro-batch.  Returns rank 0's counts."""
+    data = dict(det_data_config, train_subset=2, valid_subset=MG_DET_VALID)
+    data["transform_ops_train"] = {
+        "RandomResize": {"scales": [MG_TP_DET_PX],
+                         "max_size_ratio": [1333, 800]},
+        "Normalize": det_data_config["transform_ops_train"]["Normalize"]}
+    config = yolos_small_config()
+    config["train_config"].update(
+        output_directory=os.path.join(WORK, "mg_dettp"), checkpoint_path="",
+        epochs=1, warmup_epochs=0, pretrained_backbone=None,
+        local_batch_size=2, global_batch_size=2)
+    config["data_config_path"] = write_json("mg_dettp_data_config.json",
+                                            data)
+    config["dist_config"] = {"dist_backend": "gloo", "tensor_parallel": 2}
+    ref_config = json.loads(json.dumps(config))
+    ref_config["train_config"]["output_directory"] = os.path.join(
+        WORK, "mg_dettp1")
+    ref_config["dist_config"] = {"dist_backend": "gloo"}
+    ref_grads = os.path.join(WORK, "mg_det-tp_one_grads.pt")
+    text, ref_counts = counted_cli(
+        "myrtle_vision_tpu_torch.detection.train",
+        ["-c", write_json("mg_dettp_one.json", ref_config), "--device",
+         "cuda"], grads_path=ref_grads)
+    ref = mg_losses(text, detection=True)
+    torch.cuda.empty_cache()
+    runs, took = mg_launch("det-tp", "myrtle_vision_tpu_torch.detection.train",
+                           write_json("mg_dettp.json", config))
+    got = mg_losses(runs[0][0], detection=True)
+    check(len(got) == len(ref) == 1, f"multigpu det-tp: {got} / {ref}")
+    worst, name = mg_grad_error(
+        os.path.join(WORK, "mg_det-tp_rank0_grads.pt"), ref_grads)
+    d = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got[0], ref[0]))
+    counts0 = runs[0][1]
+    print(f"multigpu: det-tp: YOLOS-S at {MG_TP_DET_PX} px (1545 tokens, "
+          f"past fuses_at), FP32, data 1 x model 2, one step of 2 images: "
+          f"(loss, ce, bbox, giou) {got} against one process {ref}: "
+          f"largest |d| {d:.3g} (bar {LOSS_BAR:g}), largest relative "
+          f"first-step gradient error {worst:.4g} in {name} (bar "
+          f"{GRAD_BAR:g}); attention calls by heads rank 0 "
+          f"{counts0['heads']}, one process {ref_counts['heads']}; {took:.1f}"
+          f" s for both ranks")
+    check(d <= LOSS_BAR, "multigpu det-tp: first-step losses")
+    check(worst <= GRAD_BAR, "multigpu det-tp: first-step gradients")
+    mg_gspmd_form(local_heads=3)("det-tp", counts0, runs[1][1], ref_counts)
+    return counts0
+
+
+def mg_gspmd(config, det_data_config, power):
+    """The TP-2 cases where the fused gate refuses (the comment above
+    MG_TP_DET_PX).  Returns rank 0's counts by case."""
+    def variant(name, tp, **vit):
+        c = json.loads(json.dumps(config))
+        c["train_config"]["output_directory"] = os.path.join(WORK,
+                                                             f"mg_{name}")
+        c["vit_config"].update(vit)
+        if tp:
+            c["dist_config"]["tensor_parallel"] = 2
+        return c
+
+    fused = ("fused_attention_block", "fused_mlp_block")
+    counts = {}
+    for tag, vit, env, also in (
+            ("tp-FP16_32", {"q_format": "FP16_32"}, {},
+             mg_gspmd_form(whole_ops=fused)),
+            ("tp-nofuse", {}, {"MVT_NO_FUSE": "1"},
+             mg_gspmd_form(local_heads=3)),
+            ("tp-int8", {"q_format": "PyTorchINT8"}, {},
+             mg_gspmd_form(whole_ops=("fused_attention_block_i8",
+                                      "fused_mlp_block_i8"),
+                           local_heads=3, observers=True))):
+        with env_set(**env):
+            counts[tag] = mg_classification(
+                tag, variant(tag, True, **vit), variant(f"{tag}1", False,
+                                                        **vit),
+                power, also=also)
+    counts["det-tp"] = mg_detection_tp(det_data_config)
+    return counts
+
+
 def phase_multigpu(device, power, data_config, det_data_config):
     """Multi-GPU training on the one card (see the comment above
     MG_C).  Returns the res_scale kernels' entries of the kernels
@@ -8019,6 +8286,7 @@ def phase_multigpu(device, power, data_config, det_data_config):
         variant("tp32one", vit_config__compute_dtype="float32"), power,
         expect_res=res32)
     mg_detection(power, det_data_config)
+    mg_gspmd(config, det_data_config, power)
     print(f"multigpu: phase took {time.perf_counter() - t0:.1f} s")
     entries = []
     for name, (counter, source, replaces) in RES_SCALE_KERNELS.items():

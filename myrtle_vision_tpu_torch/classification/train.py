@@ -49,8 +49,10 @@ then trains over gloo).  ``dist_config`` names the backend, the URL and
 batch splits over the data ranks (``get_batch_sizes`` over n_data, each
 rank loading its block of the same permutation), gradients average over
 them (training/trainer.py); ``tensor_parallel`` > 1 runs the fused blocks
-head-sharded (parallel/tp.py) where ``fused_gate`` holds and raises
-elsewhere (ROADMAP A9b).  Rank 0 alone creates the output directory,
+head-sharded (parallel/tp.py) where ``fused_gate`` holds, and elsewhere
+each Block as the JAX GSPMD step runs it: a discrete Block split over the
+model group, a fused one whole on every rank of it.  Rank 0 alone
+creates the output directory,
 writes checkpoints, validates and prints the iteration lines.  With one
 rank nothing of this runs.  With ``MVT_PROFILE_DIR`` set, steps 3-5 are
 traced into that directory (utils/profiling.py).  A positive ``dropout``

@@ -78,7 +78,10 @@
 // before its products are issued, and the products completed (wait 0)
 // before the next step writes registers: a register written while a
 // product that reads registers is in flight makes ptxas serialise every
-// product.  The warpgroups take turns on the tensor cores.  The epilogue
+// product.  A consumer warp releases a stage's fp32 tile once the
+// products of its second step are issued, which is when the fragments,
+// and so its loads of A, are in registers, and the split tile once those
+// products are complete.  The warpgroups take turns on the tensor cores.  The epilogue
 // works on the accumulator fragments in registers, two adjacent columns of
 // a row a thread; the INT8 sites' rows are read after the main loop.  The
 // column sums of epilogue 5 are reduced across the tile's 128 rows through
@@ -406,11 +409,6 @@ gemm_f32x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int kk = 0; kk < 2; ++kk) {
         uint32_t ah[4], al[4];
         load_a<kAMn>(a_s, r - wg * 64, kk, t, ah, al);
-        if (kk == 1) {
-          // the fp32 stage is read: the producer may refill it
-          __syncwarp();
-          if (lane == 0) sm::mbar_arrive(&empty[s]);
-        }
         // MN-major bf16 B: 64-wide chunks kChunk apart, 128-byte rows,
         // 8-deep groups 1024 apart, a 16-deep step 2048 bytes
         uint64_t dbh = sm::make_desc(bh_s + kk * 2048, kChunk, 1024, 128);
@@ -426,6 +424,16 @@ gemm_f32x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         sm::WgmmaRS<BN>::mma<1>(hl, ah, dbl, 1);
         sm::WgmmaRS<BN>::mma<1>(lh, al, dbh, 1);
         sm::wgmma_commit();
+        if (kk == 1) {
+          // the fp32 stage is read: the products just issued read the
+          // fragments, so every load of A has returned.  Not before they
+          // issue: ptxas puts no wait on the loads' scoreboards ahead of
+          // an mbarrier arrive, and the producer's TMA refilled the stage
+          // under a delayed load now and then (a row of a tile wrong,
+          // ROADMAP C11)
+          __syncwarp();
+          if (lane == 0) sm::mbar_arrive(&empty[s]);
+        }
         sm::wgmma_wait<0>();
       }
       // the split tile is read

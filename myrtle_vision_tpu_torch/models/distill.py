@@ -52,7 +52,11 @@ class DistillWrapper(nn.Module):
     labels, teacher_logits)`` -> (the distillation loss, the student's
     fp32 logits); ``plain=True`` runs the student's plain versions, and
     ``calibrating=True`` a PyTorchINT8 student's calibrating forward
-    (its observers updated, the token's two included).
+    (its observers updated, the token's two included).  Under tensor
+    parallelism the student's Blocks run over the model group (a
+    distiller refuses the fused gate, so a fusing Block runs whole on
+    every rank and a discrete one split, parallel/tp.py); the wrapper's
+    own parameters are whole on every rank.
 
     The token is drawn N(0, 1) and ``distill_mlp_linear``'s weight from
     flax's default (a normal of variance 1 / fan_in truncated at two

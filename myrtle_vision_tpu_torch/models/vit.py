@@ -136,12 +136,22 @@ that a student carries (:meth:`ViT.add_distill_sites`, which
 models/distill.py's wrapper calls).  A converted PyTorchINT8 model takes
 no token: the CLIs evaluate and convert a student as a plain ViT.
 
-Head-sharded tensor parallelism (parallel/tp.py, the JAX Block's
-``tp_axis`` branch): a Block given its place in a model group
-(``Block.tp``, set by ``parallel.tp.enable``) runs each half in training
-on its local heads and hidden columns with ``res_scale`` 1/n_tp, the
-partial outputs summed over the group; evaluation (``model.eval()``)
-runs the whole Block on every rank, as the JAX CLIs evaluate the model
+Tensor parallelism (parallel/tp.py): a Block given its place in a model
+group (``Block.tp``, set by ``parallel.tp.enable``) runs in training in
+the form :meth:`Block.tp_form` names, from what it would run alone: a
+fusing Block head-sharded where the fused gate held (the JAX Block's
+``tp_axis`` branch: each half on its local heads and hidden columns with
+``res_scale`` 1/n_tp, the partial outputs summed over the group), else
+whole on every rank; a discrete Block (any format) split Megatron-style
+where heads and ``mlp_dim`` divide (``parallel.tp.Split``: the
+LayerNorms replicated, ``to_qkv`` and ``fc1`` on the local columns,
+attention on the local heads, ``to_out`` and ``fc2`` an fp32 partial
+product summed over the group before the rounding, the bias, the snaps,
+dropout and the residual add; the INT8 observers of the split
+activations fold the group's MIN / MAX), else whole.  Those are the
+results of the JAX trainer's GSPMD branch, which partitions the XLA dots
+and gathers around the Pallas calls.  Evaluation (``model.eval()``) runs
+the whole Block on every rank, as the JAX CLIs evaluate the model
 without ``tp_axis``.
 
 Images are NHWC, as in the JAX package.  ``forward(img, plain=True)``
@@ -203,6 +213,8 @@ from myrtle_vision_tpu_torch.quantize import (
 )
 
 MIN_NUM_PATCHES = 16  # reference vit.py:14
+# a discrete Block alone: parallel.tp.Split's identity
+_NO_SPLIT = tp_lib.Split()
 # a DeiT student's observers of its distillation token (PyTorchINT8)
 DISTILL_SITES = ("quant_distill_token", "distill_token_cat")
 # the weights a converted float model stores in fp16
@@ -230,13 +242,18 @@ def dropout_mask(shape, rate, generator, device):
     return u < 1.0 - rate
 
 
-def dropout(x, rate, generator):
+def dropout(x, rate, generator, split=_NO_SPLIT):
     """A dropout site: with ``generator`` and ``rate`` > 0, the kept
     elements of :func:`dropout_mask` scaled by 1 / (1 - rate) in x's
-    dtype and the others 0; else x as it is."""
+    dtype and the others 0; else x as it is.  ``split``: ``x`` is this
+    rank's local columns (``parallel.tp.Split``), so the mask is drawn at
+    the whole width, as on every rank of the group from the same
+    generator state, and its local columns kept."""
     if generator is None or rate == 0.0:
         return x
-    keep = dropout_mask(x.shape, rate, generator, x.device)
+    shape = (*x.shape[:-1], x.shape[-1] * split.size)
+    keep = split.local_cols(dropout_mask(shape, rate, generator, x.device),
+                            x)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -266,12 +283,21 @@ def _layernorm(dim, device):
                               device=device or "cpu")
 
 
-def _dense(x, linear, dtype):
+def _dense(x, linear, dtype, split=_NO_SPLIT, part="cols", sections=1):
     """QDense in FP32 mode: operands rounded to ``dtype``, fp32
     accumulation, the product rounded to ``dtype``, then the bias added
-    in ``dtype``."""
-    y = torch.matmul(x.to(dtype).float(), linear.weight.to(dtype).float().t())
-    return y.to(dtype) + linear.bias.to(dtype)
+    in ``dtype``.  Under a ``split`` (``parallel.tp.Split``) ``part``
+    "cols" takes the local output features (``sections`` of them, the
+    [q|k|v] of to_qkv), "rows" the local input features, whose fp32
+    partial product is summed over the group before the rounding and the
+    bias."""
+    if part == "rows":
+        p = torch.matmul(x.to(dtype).float(),
+                         split.rows(linear.weight).to(dtype).float().t())
+        return split.reduce(p).to(dtype) + split.whole(linear.bias).to(dtype)
+    w = split.cols(linear.weight, sections)
+    y = torch.matmul(x.to(dtype).float(), w.to(dtype).float().t())
+    return y.to(dtype) + split.cols(linear.bias, sections).to(dtype)
 
 
 def _make_int8(linear):
@@ -288,18 +314,26 @@ def _make_int8(linear):
                            persistent=False)
 
 
-def _qdense(linear, x, calibrating=True, update=None):
+def _qdense(linear, x, calibrating=True, update=None, split=_NO_SPLIT,
+            part="cols", sections=1):
     """QDense of the PyTorchINT8 simulation: the Linear's weight through
     its symmetric int8 fake-quant (straight-through), the product, the
     bias, then the ``act_out`` site.  ``calibrating`` (the JAX
     ``calibrating=True``): a 3-pass product, the site observing the result
     first unless ``update`` is False (the QAT step's second pass, its
     observers frozen); else the eval forward's full fp32 product (the JAX
-    HIGHEST dot), the observers frozen."""
+    HIGHEST dot), the observers frozen.  ``split``, ``part`` and
+    ``sections`` as in :func:`_dense`: the weight's scale is the whole
+    weight's, and a local output's site observes the group's MIN / MAX."""
     w = quantize_weight(linear.weight, QFormat.PyTorchINT8, "linear", False)
-    y = (matmul_high3 if calibrating else matmul_fp32)(x, w.t())
-    return linear.act_out(y + linear.bias,
-                          calibrating if update is None else update)
+    mm = matmul_high3 if calibrating else matmul_fp32
+    update = calibrating if update is None else update
+    if part == "rows":
+        y = split.reduce(mm(x, split.rows(w).t())) + split.whole(linear.bias)
+        return linear.act_out(y, update)
+    y = mm(x, split.cols(w, sections).t()) + split.cols(linear.bias,
+                                                         sections)
+    return linear.act_out(y, update, split.group)
 
 
 def _make_fp16(module):
@@ -311,13 +345,20 @@ def _make_fp16(module):
         requires_grad=False)
 
 
-def _qdense_float(linear, x, q_format, converted, plain):
+def _qdense_float(linear, x, q_format, converted, plain, split=_NO_SPLIT,
+                  part="cols", sections=1):
     """QDense in a stateless float format, fp32 (..., K) in and out: the
     pre_linear snap, the weight's fake-quant, the 3-pass product, the
-    bias, the post_op snap."""
+    bias, the post_op snap.  ``split``, ``part`` and ``sections`` as in
+    :func:`_dense` (each snap is elementwise)."""
     x = act_quant(x, q_format, "pre_linear", plain)
     w = quantize_weight(linear.weight, q_format, "linear", converted, plain)
-    y = matmul_high3(x, w.float().t()) + linear.bias
+    if part == "rows":
+        y = split.reduce(matmul_high3(x, split.rows(w).float().t()))
+        y = y + split.whole(linear.bias)
+    else:
+        y = matmul_high3(x, split.cols(w, sections).float().t())
+        y = y + split.cols(linear.bias, sections)
     return act_quant(y, q_format, "post_op", plain)
 
 
@@ -431,8 +472,8 @@ class Block(nn.Module):
     generator, or None) and ``probs`` (a list that attention capture
     fills, or None).
     With ``tp`` set (parallel/tp.py ``TensorParallel``), in training:
-    each half on this rank's heads and hidden columns
-    (:meth:`forward_tp`).
+    the form :meth:`tp_form` names (head-sharded, :meth:`forward_tp`;
+    split; or whole on every rank of the model group).
     PyTorchINT8: the observer sites (see the module docstring), the
     discrete-site forward, calibrating or the simulation's eval
     (:meth:`forward_int8`), the two-pass QAT step's second pass, one op
@@ -516,8 +557,49 @@ class Block(nn.Module):
                 and (self.dropout == 0.0 or dropout_rng is None)
                 and fuses_at(x.shape[1], self.heads, self.dim_head))
 
+    def tp_form(self, fuses: bool) -> str:
+        """Under a model group (``tp``), in training, how this Block runs
+        where it would run alone fused (``fuses``) or discrete
+        (parallel/tp.py): "sharded" (fused, the fused gate held: each
+        half head-sharded, :meth:`forward_tp`), "split" (discrete, heads
+        and ``mlp_dim`` divisible by the group: ``parallel.tp.Split``) or
+        "whole" (the Block whole on every rank of the group)."""
+        if fuses:
+            return "sharded" if self.tp.fused else "whole"
+        n = self.tp.size
+        mlp_dim = self._modules["1"].fn.fn.net[0].out_features
+        return "split" if self.heads % n == mlp_dim % n == 0 else "whole"
+
+    def _over_group(self) -> bool:
+        return self.tp is not None and self.training
+
+    def _whole(self, fn, x):
+        """``fn(x)`` whole on every rank of the model group: the
+        parameters' gradients scaled by 1/n_tp (the group sums them), the
+        input's whole.  Alone, or in evaluation, ``fn(x)``."""
+        if not self._over_group():
+            return fn(x)
+        n = self.tp.size
+        return tp_lib.scale_grad(fn(tp_lib.scale_grad(x, float(n))), 1.0 / n)
+
+    def _discrete(self, fn, x, *args):
+        """A discrete composition ``fn(x, *args, split)``: alone, or over
+        the model group in training split (``parallel.tp.Split``) or
+        whole, as :meth:`tp_form` says."""
+        if self._over_group() and self.tp_form(False) == "split":
+            return fn(x, *args, tp_lib.Split(self.tp))
+        return self._whole(lambda t: fn(t, *args, _NO_SPLIT), x)
+
     def forward_int8(self, x, calibrating=True, update=None,
                      dropout_rng=None, probs=None):
+        """The JAX Block's discrete-site composition for PyTorchINT8
+        before convert (:meth:`_int8_discrete`), alone or over the model
+        group (:meth:`_discrete`)."""
+        return self._discrete(self._int8_discrete, x, calibrating, update,
+                              dropout_rng, probs)
+
+    def _int8_discrete(self, x, calibrating, update, dropout_rng, probs,
+                       split):
         """The JAX Block's discrete-site composition for PyTorchINT8
         before convert, fp32 (B, N, C) in and out, differentiable.
         ``calibrating`` (the JAX ``calibrating=True``): every site folds its
@@ -529,28 +611,32 @@ class Block(nn.Module):
         in a calibrating forward (the QAT step's second pass).  The
         attention core is the fp32 ``xla`` core of ops/attention.py in both
         (3-pass products, ``jax.nn.softmax``'s backward).  Every site is
-        straight-through."""
+        straight-through.  ``split``: ``parallel.tp.Split``."""
         update = calibrating if update is None else update
         a, f = self._modules["0"], self._modules["1"]
         attn, net = a.fn.fn, f.fn.fn.net
-        b, n, c = x.shape
+        sp = split
+        b, n, _ = x.shape
         y = a.fn.norm.act_out(layernorm_rows_plain(
-            x, a.fn.norm.weight, a.fn.norm.bias), update)
-        qkv = _qdense(attn.to_qkv, y, calibrating, update)
-        qh, kh, vh = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
+            sp.replicated(x), a.fn.norm.weight, a.fn.norm.bias), update)
+        qkv = _qdense(attn.to_qkv, y, calibrating, update, sp, sections=3)
+        qh, kh, vh = qkv.view(b, n, 3, self.heads // sp.size,
+                              -1).permute(2, 0, 3, 1, 4)
         ctx = _attention(qh, kh, vh, self.scale, probs, impl="xla")
-        ctx = attn.quant_out(ctx.transpose(1, 2).reshape(b, n, c), update)
-        y = dropout(_qdense(attn.to_out[0], ctx, calibrating, update),
-                    self.dropout, dropout_rng)
+        ctx = attn.quant_out(ctx.transpose(1, 2).reshape(b, n, -1), update,
+                             sp.group)
+        y = dropout(_qdense(attn.to_out[0], ctx, calibrating, update, sp,
+                            "rows"), self.dropout, dropout_rng)
         x = a.res_add(y + x, update)
         y = f.fn.norm.act_out(layernorm_rows_plain(
-            x, f.fn.norm.weight, f.fn.norm.bias), update)
-        h = _qdense(net[0], y, calibrating, update)
+            sp.replicated(x), f.fn.norm.weight, f.fn.norm.bias), update)
+        h = _qdense(net[0], y, calibrating, update, sp)
         g = K.gelu_poly(h) if calibrating else \
             torch.nn.functional.gelu(h)
-        g = dropout(net[1].act_out(g, update), self.dropout, dropout_rng)
-        y = dropout(_qdense(net[3], g, calibrating, update), self.dropout,
-                    dropout_rng)
+        g = dropout(net[1].act_out(g, update, sp.group), self.dropout,
+                    dropout_rng, sp)
+        y = dropout(_qdense(net[3], g, calibrating, update, sp, "rows"),
+                    self.dropout, dropout_rng)
         return f.res_add(y + x, update)
 
     def forward_int8_qat(self, x, plain=False):
@@ -565,6 +651,9 @@ class Block(nn.Module):
         leave them)."""
         if not self.fuses(x):
             return self.forward_int8(x, calibrating=True, update=False)
+        return self._whole(lambda t: self._int8_qat_fused(t, plain), x)
+
+    def _int8_qat_fused(self, x, plain):
         a, f = self._modules["0"].fn, self._modules["1"].fn
         qkv, out = a.fn.to_qkv, a.fn.to_out[0]
         fc1, fc2 = f.fn.net[0], f.fn.net[3]
@@ -660,6 +749,9 @@ class Block(nn.Module):
         beyond the gate the discrete sites (:meth:`forward_float_discrete`)."""
         if not self.fuses(x, dropout_rng, probs):
             return self.forward_float_discrete(x, plain, dropout_rng, probs)
+        return self._whole(lambda t: self._float_fused(t, plain), x)
+
+    def _float_fused(self, x, plain):
         a, f = self._modules["0"].fn, self._modules["1"].fn
         qkv, out = a.fn.to_qkv, a.fn.to_out[0]
         fc1, fc2 = f.fn.net[0], f.fn.net[3]
@@ -682,6 +774,12 @@ class Block(nn.Module):
 
     def forward_float_discrete(self, x, plain=False, dropout_rng=None,
                                probs=None):
+        """:meth:`_float_discrete`, alone or over the model group
+        (:meth:`_discrete`)."""
+        return self._discrete(self._float_discrete, x, plain, dropout_rng,
+                              probs)
+
+    def _float_discrete(self, x, plain, dropout_rng, probs, split):
         """The JAX Block's discrete-site composition in a stateless float
         format (its ``else`` branches), fp32 (B, N, C) in and out, every
         site straight-through: QLayerNorm (:func:`_qlayernorm_float`),
@@ -692,50 +790,64 @@ class Block(nn.Module):
         exact-divide polynomial-erf GELU) and the ResidualAdd sites.  The
         sites run K11 on the card unless ``plain``; the products, the
         LayerNorms and the core are PyTorch operations on any device, as
-        XLA runs them in the JAX package."""
+        XLA runs them in the JAX package.  ``split``:
+        ``parallel.tp.Split``."""
         a, f = self._modules["0"].fn, self._modules["1"].fn
         attn, net = a.fn, f.fn.net
-        q, conv = self.q_format, self.converted
-        b, n, c = x.shape
-        y = _qlayernorm_float(a.norm, x, q, conv, plain)
-        qkv = _qdense_float(attn.to_qkv, y, q, conv, plain)
-        qh, kh, vh = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
+        q, conv, sp = self.q_format, self.converted, split
+        b, n, _ = x.shape
+        y = _qlayernorm_float(a.norm, sp.replicated(x), q, conv, plain)
+        qkv = _qdense_float(attn.to_qkv, y, q, conv, plain, sp, sections=3)
+        qh, kh, vh = qkv.view(b, n, 3, self.heads // sp.size,
+                              -1).permute(2, 0, 3, 1, 4)
         o = _attention(qh, kh, vh, self.scale, probs, impl="xla")
-        o = o.transpose(1, 2).reshape(b, n, c)
-        y = dropout(_qdense_float(attn.to_out[0], o, q, conv, plain),
-                    self.dropout, dropout_rng)
+        o = o.transpose(1, 2).reshape(b, n, -1)
+        y = dropout(_qdense_float(attn.to_out[0], o, q, conv, plain, sp,
+                                  "rows"), self.dropout, dropout_rng)
         x = act_quant(y + x, q, "functional", plain)
-        y = _qlayernorm_float(f.norm, x, q, conv, plain)
-        h = act_quant(_qdense_float(net[0], y, q, conv, plain), q, "gelu_in",
-                      plain)
+        y = _qlayernorm_float(f.norm, sp.replicated(x), q, conv, plain)
+        h = act_quant(_qdense_float(net[0], y, q, conv, plain, sp), q,
+                      "gelu_in", plain)
         g = dropout(act_quant(K.gelu_poly(h), q, "gelu_out", plain),
+                    self.dropout, dropout_rng, sp)
+        y = dropout(_qdense_float(net[3], g, q, conv, plain, sp, "rows"),
                     self.dropout, dropout_rng)
-        y = dropout(_qdense_float(net[3], g, q, conv, plain), self.dropout,
-                    dropout_rng)
         return act_quant(y + x, q, "functional", plain)
 
     def forward_discrete(self, x, plain=False, dropout_rng=None, probs=None):
+        """:meth:`_fp32_discrete`, alone or over the model group
+        (:meth:`_discrete`)."""
+        return self._discrete(self._fp32_discrete, x, plain, dropout_rng,
+                              probs)
+
+    def _fp32_discrete(self, x, plain, dropout_rng, probs, split):
         """The JAX Block's discrete-site FP32 composition, (B, N, C) in the
         compute dtype in and out: QLayerNorm (fp32 statistics and
         parameters, rounded once), QDense (``_dense``), the attention core
         (``multi_head_attention``; ``plain`` takes its plain version;
         capturing, the ``xla`` core), the exact-erf GELU in fp32, the
-        dropout sites, the residual adds in the compute dtype."""
+        dropout sites, the residual adds in the compute dtype.  ``split``:
+        ``parallel.tp.Split`` (the attention on the local heads, on the
+        card the flash kernels)."""
         a, f = self._modules["0"].fn, self._modules["1"].fn
         attn, net = a.fn, f.fn.net
-        dt = x.dtype
-        b, n, c = x.shape
-        y = layernorm_rows_plain(x, a.norm.weight, a.norm.bias)
-        qkv = _dense(y, attn.to_qkv, dt)
-        q, k, v = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
+        dt, sp = x.dtype, split
+        b, n, _ = x.shape
+        y = layernorm_rows_plain(sp.replicated(x), a.norm.weight, a.norm.bias)
+        qkv = _dense(y, attn.to_qkv, dt, sp, sections=3)
+        q, k, v = qkv.view(b, n, 3, self.heads // sp.size,
+                           -1).permute(2, 0, 3, 1, 4)
         o = _attention(q, k, v, self.scale, probs, plain=plain)
-        o = o.transpose(1, 2).reshape(b, n, c).to(dt)
+        o = o.transpose(1, 2).reshape(b, n, -1).to(dt)
         rate = self.dropout
-        x = dropout(_dense(o, attn.to_out[0], dt), rate, dropout_rng) + x
-        y = layernorm_rows_plain(x, f.norm.weight, f.norm.bias)
-        h = torch.nn.functional.gelu(_dense(y, net[0], dt).float()).to(dt)
-        h = dropout(h, rate, dropout_rng)
-        return dropout(_dense(h, net[3], dt), rate, dropout_rng) + x
+        x = dropout(_dense(o, attn.to_out[0], dt, sp, "rows"), rate,
+                    dropout_rng) + x
+        y = layernorm_rows_plain(sp.replicated(x), f.norm.weight, f.norm.bias)
+        h = torch.nn.functional.gelu(
+            _dense(y, net[0], dt, sp).float()).to(dt)
+        h = dropout(h, rate, dropout_rng, sp)
+        return dropout(_dense(h, net[3], dt, sp, "rows"), rate,
+                       dropout_rng) + x
 
     def forward_tp(self, x, plain=False, dropout_rng=None, probs=None):
         """The JAX Block's ``tp_fuse`` branch: each half on this rank's
@@ -745,15 +857,9 @@ class Block(nn.Module):
         by 1/n_tp (``res_scale``), the block input through
         ``replicated_in`` and the partial output through ``partial_out``.
         The parameters stay whole; their gradients here are this rank's
-        part, which the trainer sums over the group.  Where the fused
-        gate does not hold, tensor parallelism is not ported and this
-        raises (ROADMAP A9b)."""
-        if not self.fuses(x, dropout_rng, probs):
-            raise NotImplementedError(
-                "tensor parallelism where the Block does not fuse (the "
-                "JAX package's GSPMD form: past fuses_at, MVT_NO_FUSE=1, "
-                "active dropout, attention capture) is not ported yet; see "
-                "ROADMAP.md A9b")
+        part, which the trainer sums over the group.  The Block fuses:
+        :meth:`forward` takes this form where :meth:`tp_form` says
+        "sharded"."""
         attn = self._modules["0"].fn
         ffn = self._modules["1"].fn
         attn_op = fused_attention_block_plain if plain else \
@@ -791,10 +897,13 @@ class Block(nn.Module):
         return tp_lib.partial_out(part, group)
 
     def forward(self, x, plain: bool = False, dropout_rng=None, probs=None):
-        if self.tp is not None and self.training:
-            return self.forward_tp(x, plain, dropout_rng, probs)
         if not self.fuses(x, dropout_rng, probs):
             return self.forward_discrete(x, plain, dropout_rng, probs)
+        if self._over_group() and self.tp_form(True) == "sharded":
+            return self.forward_tp(x, plain, dropout_rng, probs)
+        return self._whole(lambda t: self._fp32_fused(t, plain), x)
+
+    def _fp32_fused(self, x, plain):
         attn = self._modules["0"].fn
         ffn = self._modules["1"].fn
         attn_op = fused_attention_block_plain if plain else \

@@ -18,9 +18,12 @@ index r % tensor_parallel.  ``dist_config`` is the reference's schema
 ({"dist_backend", "dist_url"}, with ``group_name`` accepted and the JAX
 package's ``tensor_parallel``); unlike the JAX package, which leaves the
 rendezvous to its runtime, the backend ("nccl" on the card, or "gloo") and
-the URL are used.  The GSPMD tensor-parallel layout of the JAX package
-(``_TP_RULES``, ``param_shardings``) is not ported: tensor parallelism
-where the fused gate refuses is ROADMAP A9b.
+the URL are used.  Where the fused gate refuses, the port reaches the
+results of the JAX package's GSPMD layout (``_TP_RULES``: ``to_qkv`` and
+``fc1`` column-parallel, ``to_out`` and ``fc2`` row-parallel) by splitting
+the discrete Blocks' products over the model group and running the fused
+ones whole (parallel/tp.py); the parameters and their optimizer state
+stay whole on every rank, where GSPMD shards their storage.
 """
 from __future__ import annotations
 

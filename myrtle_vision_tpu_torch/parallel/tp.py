@@ -1,32 +1,55 @@
-"""Head-sharded tensor parallelism through the fused block-half kernels
-(port of myrtle_vision_tpu/parallel/tp.py).
+"""Tensor parallelism over a model group (port of
+myrtle_vision_tpu/parallel/tp.py, and of the results of the JAX trainer's
+GSPMD branch).
 
-Megatron-style tensor parallelism over a model group (parallel/mesh.py):
+Parameters and optimizer state stay whole and replicated on every rank of
+the group (parallel/mesh.py), so the checkpoint schema is the
+reference's; each Block (models/vit.py) takes its local slices at the
+operation boundary (:func:`shard_cols`, :func:`shard_rows`).  In
+training a Block runs in one of three forms (``Block.tp_form``), decided
+by what it would run alone:
 
-  - parameters stay whole and replicated on every rank of the group, so
-    the checkpoint schema is the reference's; each Block (models/vit.py)
-    slices its local heads and hidden columns at the kernel boundary
-    (:func:`shard_cols`, :func:`shard_rows`), so the products and the
-    attention working set split n_tp ways;
-  - the block-half op computes the PARTIAL output with the residual and
+  - ``"sharded"`` (the JAX ``tp_fused`` branch; :func:`fused_gate` held
+    and the Block fuses): each fused block-half op on the local heads
+    and hidden columns computes the PARTIAL output with the residual and
     the output-projection bias scaled by 1/n_tp (``res_scale``, K1-K4),
-    and :func:`partial_out`'s all-reduce over the group reassembles
-    x + proj + bias;
-  - :func:`replicated_in` on the block input sums the ranks' partial
-    input gradients in the backward, so every gradient that leaves a
-    block is whole.  The block parameters' own gradients are partial on
-    each rank (its heads' slices, its share of the LayerNorm and bias
-    gradients); their sum over the group, one all-reduce after the
-    backward (training/trainer.py), equals the JAX package's psum of each
-    through ``replicated_in``, because both are linear.
+    and :func:`partial_out`'s all-reduce reassembles x + proj + bias;
+  - ``"split"`` (the Block runs its discrete composition: past
+    ``fuses_at``, ``MVT_NO_FUSE=1``, active dropout; GSPMD partitions
+    its XLA dots): Megatron's split of the discrete Block, the
+    LayerNorms replicated, ``to_qkv`` and ``fc1`` on the local columns
+    with their bias, snaps and GELU, attention on the local heads,
+    ``to_out`` and ``fc2`` an fp32 partial product of the local rows,
+    summed over the group before the rounding, the bias, the snaps,
+    dropout and the residual add run replicated (:class:`Split`);
+  - ``"whole"`` (the Block fuses but the gate refused: a quantized
+    format's K1-K4 chains, a distiller, heads or ``mlp_dim`` that do not
+    divide; GSPMD gathers around the Pallas calls; or a discrete Block
+    whose heads or ``mlp_dim`` do not divide): the whole Block on every
+    rank of the group.
+
+Every gradient that leaves a Block is whole: ``sharded`` and ``split``
+take the block-half input through :func:`replicated_in`, whose backward
+sums the ranks' partial input gradients, and ``whole`` computes it whole.
+The Block's own parameter gradients are summed over the group after the
+backward (training/trainer.py, :func:`reduce_sharded_gradients`), which
+equals the JAX package's gradient because every rank's share is made a
+part of it: the local slices' gradients are partial by construction (the
+other slices get zero), the LayerNorms' are partial through
+``replicated_in``, and what every rank computes whole -- an output bias
+added after the all-reduce, every parameter of a ``whole`` Block -- is
+scaled by 1/n_tp on its way back (:func:`scale_grad`; ``sharded``
+scales the bias by 1/n_tp in the forward).  So a step may mix forms (a
+detection batch past ``fuses_at``, the next inside it) and the sum stays
+right.
 
 The Megatron f / g pair:
   ``replicated_in`` -- identity forward, all-reduce backward;
   ``partial_out``   -- all-reduce forward, identity backward.
 
-``fused_gate`` decides, as the JAX trainer does, whether a model trains
-this way; where it says no, tensor parallelism (the GSPMD form in the JAX
-package) is not ported, and the train CLIs raise (ROADMAP A9b).
+The JAX package's GSPMD also shards the storage of the split parameters
+and their AdamW state; the port keeps them whole on every rank (at this
+repo's sizes, vit_base at most, that saves no memory worth a design).
 """
 from __future__ import annotations
 
@@ -45,6 +68,8 @@ class TensorParallel:
     group: object
     index: int
     size: int
+    # the fused gate held: a Block that fuses runs head-sharded
+    fused: bool = True
 
 
 class _ReplicatedIn(torch.autograd.Function):
@@ -70,6 +95,22 @@ class _PartialOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+def scale_grad(x, factor: float):
+    """Identity forward; the gradient times ``factor`` backward."""
+    return _ScaleGrad.apply(x, factor)
 
 
 def replicated_in(x, group):
@@ -103,6 +144,52 @@ def shard_rows(w, idx: int, n_shards: int):
     return w[:, idx * rl:(idx + 1) * rl]
 
 
+class Split:
+    """A discrete Block's Megatron split over a model group (the
+    ``"split"`` form of the module docstring); ``Split()`` splits nothing,
+    every method the identity, so that the one-process discrete Blocks run
+    the same code unchanged."""
+
+    def __init__(self, tp: TensorParallel = None):
+        self.tp = tp
+        self.group = None if tp is None else tp.group
+        self.index, self.size = (0, 1) if tp is None else (tp.index, tp.size)
+
+    def replicated(self, x):
+        """A block half's input: :func:`replicated_in`."""
+        return x if self.tp is None else replicated_in(x, self.group)
+
+    def cols(self, w, n_sections: int = 1):
+        """The local output features of a weight or bias
+        (:func:`shard_cols`)."""
+        if self.tp is None:
+            return w
+        return shard_cols(w, self.index, self.size, n_sections)
+
+    def rows(self, w):
+        """The local input features of a weight (:func:`shard_rows`)."""
+        return w if self.tp is None else shard_rows(w, self.index, self.size)
+
+    def reduce(self, partial):
+        """A row-parallel product's partial sum, summed over the group
+        (:func:`partial_out`)."""
+        return partial if self.tp is None else partial_out(partial,
+                                                           self.group)
+
+    def whole(self, t):
+        """A parameter that every rank uses whole after the reduction (an
+        output bias): its gradient scaled by 1/n_tp, so that the group's
+        sum is the gradient."""
+        return t if self.tp is None else scale_grad(t, 1.0 / self.size)
+
+    def local_cols(self, full, x):
+        """``full``'s last-dimension block of this rank, ``x``'s width."""
+        if self.tp is None:
+            return full
+        w = x.shape[-1]
+        return full[..., self.index * w:(self.index + 1) * w]
+
+
 def train_sequence(vit) -> int:
     """Tokens of ``vit`` at its training size: the patches, the class
     token and, for a detector, the detection tokens."""
@@ -113,8 +200,9 @@ def train_sequence(vit) -> int:
 
 
 def fused_gate(vit, n_tp: int, extra_ok: bool = True) -> bool:
-    """Whether ``vit`` trains with head-sharded tensor parallelism through
-    the fused kernels over ``n_tp`` ranks: the JAX trainer's conditions
+    """Whether ``vit``'s fusing Blocks train head-sharded through the
+    fused kernels over ``n_tp`` ranks (the ``"sharded"`` form): the JAX
+    trainer's conditions
     (myrtle_vision_tpu/parallel/tp.py ``fused_gate``), each as the Block's
     own gate (models/vit.py ``Block.fuses``) reads it: a model group of
     more than one; ``extra_ok`` (the caller's exclusions: a distiller
@@ -136,23 +224,24 @@ def fused_gate(vit, n_tp: int, extra_ok: bool = True) -> bool:
             and not no_fuse())
 
 
-def enable(model, mesh) -> bool:
+def enable(model, mesh, fused: bool = True) -> bool:
     """Give every Block of ``model`` (a ViT) its place in ``mesh``'s model
-    group, so that training runs its halves on the local heads; True
-    where ``mesh`` has a model group.  The caller has checked
-    :func:`fused_gate`."""
+    group, so that training runs it in its form of the module docstring
+    (``fused``: :func:`fused_gate` held); True where ``mesh`` has a model
+    group."""
     if mesh.model_group is None:
         return False
     tp = TensorParallel(mesh.model_group, mesh.model_index,
-                        mesh.tensor_parallel)
+                        mesh.tensor_parallel, fused)
     for block in model.transformer.layers:
         block.tp = tp
     return True
 
 
 def sharded_parameters(model):
-    """The parameters whose gradients are partial on each rank of a model
-    group: those of the Blocks that run tensor-parallel."""
+    """The parameters whose gradients each rank of a model group holds a
+    part of, summed over the group after the backward: those of the
+    Blocks that run over the group, in any form."""
     return [p for m in model.modules() if getattr(m, "tp", None) is not None
             for p in m.parameters()]
 
@@ -173,18 +262,13 @@ def reduce_sharded_gradients(model, group) -> None:
 
 def setup_tensor_parallel(vit, mesh, extra_ok: bool = True) -> bool:
     """On a ``mesh`` with tensor parallelism, set ``vit``'s Blocks to run
-    head-sharded over its model group where :func:`fused_gate` holds, and
-    raise where it does not: that form (the JAX package's GSPMD one) is
-    not ported (ROADMAP A9b).  True where the Blocks run sharded."""
+    over its model group: head-sharded where :func:`fused_gate` holds,
+    else each Block split or whole as the JAX GSPMD step runs it (the
+    module docstring).  True where the Blocks run over a group."""
     if mesh.tensor_parallel == 1:
         return False
-    if not fused_gate(vit, mesh.tensor_parallel, extra_ok):
-        raise NotImplementedError(
-            f"tensor_parallel {mesh.tensor_parallel} where the fused gate "
-            "does not hold (a quantized format, dropout, a distiller, "
-            "heads or mlp_dim not divisible, the training length past "
-            "fuses_at, or MVT_NO_FUSE=1): the JAX package's GSPMD form is "
-            "not ported yet; see ROADMAP.md A9b")
-    print(f"tensor parallel: fused-kernel head sharding "
-          f"(x{mesh.tensor_parallel})")
-    return enable(vit, mesh)
+    fused = fused_gate(vit, mesh.tensor_parallel, extra_ok)
+    how = ("fused-kernel head sharding" if fused else
+           "discrete blocks split, fused blocks whole on every rank")
+    print(f"tensor parallel: {how} (x{mesh.tensor_parallel})")
+    return enable(vit, mesh, fused)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import enum
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from myrtle_vision_tpu_torch.ops import fake_quant as fq
@@ -161,12 +162,23 @@ class ActQuant(nn.Module):
         scale, zp = affine_uint8_qparams(self.min, self.max)
         return scale, zp, self.min <= self.max
 
-    def forward(self, x, calibrating: bool = False):
+    def forward(self, x, calibrating: bool = False, group=None):
+        """``x`` through the site (its statistics folded in first when
+        ``calibrating``).  ``group``: ``x`` is this rank's slice of a
+        tensor split over that process group (tensor parallelism's
+        local columns), so the slices' MIN / MAX over the group is what
+        the site folds in, before it snaps, as an observer of the whole
+        tensor does."""
         if calibrating:
             with torch.no_grad():
                 xf = x.detach().float()
-                torch.minimum(self.min, xf.min(), out=self.min)
-                torch.maximum(self.max, xf.max(), out=self.max)
+                lo, hi = xf.min(), xf.max()
+                if group is not None:
+                    both = torch.stack([lo, -hi])
+                    dist.all_reduce(both, op=dist.ReduceOp.MIN, group=group)
+                    lo, hi = both[0], -both[1]
+                torch.minimum(self.min, lo, out=self.min)
+                torch.maximum(self.max, hi, out=self.max)
         scale, zp, has = self.int8_qparams()
         q = fq.int8_affine_fake_quant_ste(x.float(), scale, zp).to(x.dtype)
         return torch.where(has, q, x)

@@ -28,8 +28,11 @@ under ``shard_map``:
     backward, as the JAX ``pmin`` / ``pmax``, and rank 0's must not
     overwrite the others';
   - tensor parallelism (parallel/tp.py): the Blocks' parameter gradients,
-    partial on each rank of the model group, are summed over it in one
-    all-reduce after the backward;
+    each rank's part of them in any of the Block's forms, are summed over
+    the model group in one all-reduce after the backward; the INT8
+    observers of activations split over the group fold its MIN / MAX as
+    they observe (quantize.py ``ActQuant``), so the model ranks' observers
+    are alike before the data group's MIN / MAX;
   - the metrics average over the data group;
   - each data rank draws its dropout masks from its own generator
     (:func:`dropout_generator` with the data index), the model ranks of a

@@ -3344,3 +3344,99 @@ def test_res_scale_refusals(dev):
         with pytest.raises(err):
             K.layernorm_rows_bwd_cuda(x[0], attn[0].to(x.dtype),
                                       x[0].float(), x[0], res_scale=bad)
+
+
+# ---------------------------------------------------- C11 repeat check
+# The float formats' K1 op and its kernels chained by hand at ViT-S/16's
+# B=64, N=197: every call's output bit for bit the first call's.  Before
+# the repair, gemm_f32x3_wgmma.cu's consumers released the fp32 stage
+# before their loads of A had returned, and the producer's TMA sometimes
+# refilled it first: a row of one output tile wrong in ~1.4% of the calls
+# that followed another kernel (ROADMAP C11).
+C11_CALLS = 200
+
+
+@pytest.mark.parametrize("qspec", FLOAT_QSPECS)
+def test_float_attention_chain_repeats_bit_for_bit(dev, qspec):
+    c, heads, b, n = 384, 6, 64, 197
+    x, attn, _ = float_block(c, 1536, b, n, 64 * 1000 + n + 2, dev, qspec)
+    s_ln, b_ln, wqkv, bqkv, wp, bp = attn
+    scale = (c // heads) ** -0.5
+    x2 = x.view(b * n, c)
+
+    def chain():
+        xn = K.layernorm_snap_rows_cuda(x2, s_ln, b_ln, qspec)
+        qkv = K.gemm_f32x3_epilogue_cuda(xn, wqkv, bqkv, "bias_snap", qspec)
+        ctx = K.attention_core_snap_cuda(qkv.view(b, n, 3 * c), heads,
+                                         scale, qspec)
+        return K.gemm_f32x3_epilogue_cuda(ctx.view(b * n, c), wp, bp,
+                                          "bias_snap_residual_snap", qspec,
+                                          residual=x2)
+
+    for fn in (chain, lambda: fused_attention_block(x, *attn, heads, scale,
+                                                    qspec=qspec)):
+        first = fn()
+        differ = sum(not torch.equal(fn(), first) for _ in range(C11_CALLS))
+        assert differ == 0, f"{differ} of {C11_CALLS} calls differ"
+
+
+# ------------------------------------- tensor parallelism's split Block
+class OneRankSplit:
+    """One model rank's share of a split Block (parallel/tp.py ``Split``)
+    without the group: its local columns and rows, its partial sums left
+    unreduced, so that a rank's kernels can be held against their plain
+    versions in one process."""
+
+    def __init__(self, index, size):
+        from myrtle_vision_tpu_torch.parallel import tp
+
+        self._split = tp.Split(tp.TensorParallel(None, index, size))
+        self.group, self.index, self.size = None, index, size
+
+    def replicated(self, x):
+        return x
+
+    def reduce(self, partial):
+        return partial
+
+    def whole(self, t):
+        return t
+
+    def __getattr__(self, name):
+        return getattr(self._split, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_discrete_block_on_local_heads_matches_plain(dev, dtype):
+    """A split FP32 Block (MVT_NO_FUSE=1, dropout or past fuses_at under
+    tensor parallelism) on one rank's 3 of ViT-S/16's 6 heads at n_tp 2:
+    the flash kernels on the local heads against the plain flash version,
+    the rank's partial output and the input gradient."""
+    model = ViT("classification", 224, 16, 10, 384, 1, 6, 1536,
+                dim_head=64, compute_dtype=dtype, device=dev,
+                generator=torch.Generator().manual_seed(1))
+    blk = model.transformer.layers[0]
+    g = torch.Generator(dev).manual_seed(2)
+    x = torch.randn(4, 197, 384, device=dev, generator=g).to(dtype)
+    do = torch.randn(x.shape, device=dev, generator=g).to(dtype)
+    outs = []
+    for plain in (False, True):
+        xi = x.clone().requires_grad_()
+        names = ("flash_attention_fwd", "flash_attention_f32_fwd")
+        before = sum(K.LAUNCHES[k] for k in names)
+        out = blk._fp32_discrete(xi, plain, None, None, OneRankSplit(1, 2))
+        out.backward(do)
+        torch.cuda.synchronize()
+        launched = sum(K.LAUNCHES[k] for k in names) - before
+        # the bf16 forward is one launch, the fp32 one a split pass and
+        # the kernel (K.F32_FLASH_FWD_LAUNCHES)
+        want = 1 if dtype == torch.bfloat16 else K.F32_FLASH_FWD_LAUNCHES
+        assert launched == (0 if plain else want)
+        outs.append((out.detach(), xi.grad))
+    (got, dx), (ref, dx_ref) = outs
+    if dtype == torch.bfloat16:
+        close(got, ref, CHAIN_ATOL)
+        close(dx, dx_ref, CHAIN_ATOL)
+    else:
+        close_f32(got, ref, F32_CHAIN_RTOL, F32_CHAIN_ATOL)
+        close_f32(dx, dx_ref, F32_CHAIN_RTOL, F32_CHAIN_ATOL)

@@ -14,8 +14,8 @@ are in tests/test_torch_multiprocess.py.
   of one equal to the step without a group, bit for bit.
 - The loader's per-process blocks are the JAX loader's ``process_shard``
   blocks, for ``accum_steps`` 1 and 2, with its errors.
-- The refusals: tensor parallelism where the gate says no (ROADMAP A9b),
-  and nccl with ``--device cpu``.
+- The form each Block takes where the gate says no (it refused once), and
+  the refusal of nccl with ``--device cpu``.
 """
 import json
 import os
@@ -349,24 +349,36 @@ def test_process_shard_errors_are_the_jax_loader_errors(kw, match):
 # ------------------------------------------------------------- refusals
 
 def test_tensor_parallel_past_the_gate_raises():
-    """Where fused_gate says no (here a quantized format), a model group
-    of two refuses the model, naming ROADMAP A9b; a Block set to run
-    sharded refuses a sequence it does not fuse."""
+    """Where fused_gate says no, a model group of two no longer refuses the
+    model (the JAX GSPMD form, parallel/tp.py): each Block takes the form
+    that what it would run alone gives.  A quantized format's fusing
+    Block (FP16_32) runs whole on every rank; an FP32 model passes the
+    gate, its fusing Blocks head-sharded, and under MVT_NO_FUSE=1 its
+    discrete Blocks split; with 3 heads over 2 ranks a discrete Block
+    runs whole.  (The name is the refusal this test held before.)"""
     mesh = port_mesh.Mesh(rank=0, world=2, tensor_parallel=2,
                           model_group=object())
     data_config = {"number_of_classes": 5}
+    x = torch.zeros(1, 26, 64)
     vit = ViT(**vit_kwargs_from_config(gate_config(q_format="FP16_32"),
                                        data_config))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        port_tp.setup_tensor_parallel(vit, mesh)
+    assert port_tp.setup_tensor_parallel(vit, mesh)
+    block = vit.transformer.layers[0]
+    assert not block.tp.fused and block.fuses(x)
+    assert block.tp_form(block.fuses(x)) == "whole"
     vit = ViT(**vit_kwargs_from_config(gate_config(), data_config))
     assert port_tp.setup_tensor_parallel(vit, mesh)
     block = vit.transformer.layers[0]
-    assert block.tp.size == 2 and block.tp.index == 0
+    assert block.tp.size == 2 and block.tp.index == 0 and block.tp.fused
+    assert block.tp_form(block.fuses(x)) == "sharded"
     os.environ["MVT_NO_FUSE"] = "1"
     try:
-        with pytest.raises(NotImplementedError, match="A9b"):
-            vit.train()(torch.zeros(1, 80, 80, 3))
+        assert not block.fuses(x)
+        assert block.tp_form(block.fuses(x)) == "split"
+        vit = ViT(**vit_kwargs_from_config(
+            gate_config(heads=3, embed_dim=96, mlp_dim=192), data_config))
+        port_tp.setup_tensor_parallel(vit, mesh)
+        assert vit.transformer.layers[0].tp_form(False) == "whole"
     finally:
         del os.environ["MVT_NO_FUSE"]
 

@@ -16,6 +16,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from myrtle_vision_tpu_torch.models.detector import criterion  # noqa: E402
+from myrtle_vision_tpu_torch.models.distill import (  # noqa: E402
+    DistillWrapper,
+)
 from myrtle_vision_tpu_torch.models.vit import ViT  # noqa: E402
 from myrtle_vision_tpu_torch.parallel import collectives  # noqa: E402
 from myrtle_vision_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
@@ -32,6 +35,7 @@ from myrtle_vision_tpu_torch.training.optim import (  # noqa: E402
 from myrtle_vision_tpu_torch.training.trainer import (  # noqa: E402
     TrainState,
     data_parallel,
+    dropout_generator,
     make_train_step,
 )
 
@@ -67,16 +71,58 @@ def collectives_task(work, rank, spec):
             "count": collectives.process_count()}
 
 
+def teacher_logits(img, num_classes):
+    """A fixed stand-in for a distiller's frozen teacher: a linear map of
+    each image's mean colour."""
+    w = torch.linspace(-2.0, 2.0, 3 * num_classes).view(3, num_classes)
+    return img.float().mean((1, 2)) @ w
+
+
+def keep_first_gradients(optimizer, model, path):
+    """Save the gradients that the optimizer's first step applies (after
+    every reduction of the step), by parameter name, to ``path``."""
+    step = optimizer.step
+
+    def first(*args, **kwargs):
+        if not os.path.exists(path):
+            torch.save({n: p.grad.detach().clone()
+                        for n, p in model.named_parameters()
+                        if p.grad is not None}, path)
+        return step(*args, **kwargs)
+
+    optimizer.step = first
+
+
 def train_task(work, rank, spec):
     """The steps of ``batches.npz`` (every rank the whole batch on a model
-    group, its block on a data group), then the held-out loss."""
+    group, its block on a data group), then the held-out loss.  Without
+    torch.distributed initialised (``tensor_parallel`` 1), one process.
+    ``spec["distill"]``: the model trains as the student of a
+    ``DistillWrapper`` against :func:`teacher_logits`; a positive
+    ``dropout`` trains with the generator of ``spec["seed"]``;
+    ``spec["grads"]``: the first step's gradients are saved
+    (:func:`keep_first_gradients`)."""
     mesh = make_mesh(spec["tensor_parallel"])
     model = model_from(work, spec)
-    setup_tensor_parallel(model, mesh)
-    module = data_parallel(model, mesh)
-    state = TrainState(model, optim.create_optimizer(spec["train_config"],
-                                                     model))
-    step = make_train_step(make_loss_fn(module), spec["n_accum"], mesh=mesh,
+    distiller = DistillWrapper(model) if spec.get("distill") else None
+    setup_tensor_parallel(model, mesh, extra_ok=distiller is None)
+    trained = model if distiller is None else distiller
+    module = data_parallel(trained, mesh)
+    state = TrainState(trained, optim.create_optimizer(spec["train_config"],
+                                                       trained),
+                       dropout=dropout_generator(trained, spec.get("seed", 0),
+                                                 mesh.data_index))
+    if spec.get("grads"):
+        keep_first_gradients(state.optimizer, trained, os.path.join(
+            work, f"grads_tp{spec['tensor_parallel']}_rank{rank}.pt"))
+    if distiller is None:
+        loss_fn = make_loss_fn(module)
+    else:
+        classes = spec["vit"]["num_classes"]
+        loss_fn = make_loss_fn(model, distiller=module,
+                               teacher_fn=lambda img: teacher_logits(
+                                   img, classes))
+    step = make_train_step(loss_fn, spec["n_accum"], mesh=mesh,
                            module=module)
     data = np.load(os.path.join(work, "batches.npz"))
     per = data["image"].shape[2] // mesh.n_data

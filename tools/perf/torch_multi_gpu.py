@@ -1,11 +1,17 @@
 """Multi-GPU training as a user runs it, on every visible card: the
 classification train CLI on vit_small.json (full width, 2 steps of 64
 synthetic images) spawning one rank per card over NCCL, as data parallel
-over every card, as data x tensor parallel 2, and the latter in float32
-compute, each against the same CLI in one process on one card at the same
-steps (the first step's loss within chip_smoke.py's LOSS_BAR).
+over every card, as data x tensor parallel 2, the latter in float32
+compute, and (PR 28) data x tensor parallel 2 under MVT_NO_FUSE=1, where
+the fused gate refuses and every Block runs split over its model group,
+each against the same CLI in one process on one card at the same steps
+(the first step's loss within chip_smoke.py's LOSS_BAR).
 
-    python3 tools/perf/torch_multi_gpu.py      # from the repo root, 4 cards
+    python3 tools/perf/torch_multi_gpu.py [layout ...]   # from the repo
+                                                         # root, 4 cards
+
+With layout names (dp4, dp2xtp2, dp2xtp2-fp32, dp2xtp2-nofuse), only
+those run.
 
 Prints one line a run and one verdict a layout; needs nvcc and the cards.
 """
@@ -59,16 +65,20 @@ def run(name, changes, env=None):
 
 one = {"train_config__local_batch_size": 64,
        "train_config__distributed": False}
-for tag, changes in (
-        ("dp4", {}),
-        ("dp2xtp2", {"dist_config__tensor_parallel": 2}),
+for tag, changes, env in (
+        ("dp4", {}, None),
+        ("dp2xtp2", {"dist_config__tensor_parallel": 2}, None),
         ("dp2xtp2-fp32", {"dist_config__tensor_parallel": 2,
-                          "vit_config__compute_dtype": "float32"})):
+                          "vit_config__compute_dtype": "float32"}, None),
+        ("dp2xtp2-nofuse", {"dist_config__tensor_parallel": 2},
+         {"MVT_NO_FUSE": "1"})):
+    if sys.argv[1:] and tag not in sys.argv[1:]:
+        continue
     ref_changes = dict(one)
     if "fp32" in tag:
         ref_changes["vit_config__compute_dtype"] = "float32"
-    got = run(tag, changes)
-    ref = run(tag + "-one", ref_changes)
+    got = run(tag, changes, env)
+    ref = run(tag + "-one", ref_changes, env)
     ok = len(got) == len(ref) == 2 and abs(got[0] - ref[0]) <= \
         S.LOSS_BAR * max(1.0, abs(ref[0]))
     print(f"four: {tag}: first-step |d| "
